@@ -1,0 +1,243 @@
+// One-token flash-decode attention over the int8 KV cache, for Hopper (sm_90a).
+//
+//   out[b, h, g] = v_scale[h] * softmax_{p < cur_pos[b]}((q[b, h, g] * k_scale[h] / sqrt(D))
+//                  . K[b, p, h]) @ V[b, :, h] ,   zeros when cur_pos[b] == 0
+//
+// Replaces the TPU kernel src/repro/kernels/decode_attention.py::decode_attention_tiles
+// (bodies `_kernel` + `_flash_step`; dense entry decode_attention_int8).
+//
+// What bounds it on an H100: the int8 K/V stream, 2 * cur_pos * D bytes per
+// (request, KV head) and step -- decode attention does ~2 flops per byte, far
+// below the card's ridge, so it is bytes-bound.  Design: one block per
+// (request, KV head).  The G query heads that share a KV head (GQA) share
+// every K/V tile: a tile of TS positions is staged once in shared memory as
+// int8 (the dequant scales fold into q and into the epilogue, so the
+// dequantize costs nothing per element), then each thread scores one
+// position for all G rows, warps reduce the running max / normalizer per row
+// (online softmax, masked before the max update and again after it, as the
+// TPU body does), and threads own (g, d) accumulator entries for P @ V.  Only
+// tiles below cur_pos are visited: a skipped, fully masked tile is an exact
+// no-op of the online softmax.  Staging keeps UNR loads in flight per
+// thread: a loop with one load per trip waits out the full memory latency
+// on every trip.  At batch 4 and 3 KV heads this launches only
+// 12 blocks on 132 SMs; splitting S across blocks with the partial-softmax
+// merge (TPU kernel decode_attention_partials_tiles) is the next step.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TS = 128;  // positions per tile == threads per block
+constexpr int UNR = 8;   // global loads in flight per thread while staging
+constexpr float NEG_INF = -1e30f;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// GMAX: compile-time bound on the query rows per KV head (G <= GMAX).
+template <typename T, int GMAX>
+__global__ void __launch_bounds__(TS)
+decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
+                        const int8_t* __restrict__ v,
+                        const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale,
+                        const int* __restrict__ cur_pos, float* __restrict__ out,
+                        int S, int KV, int G, int D) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int len = min(cur_pos[b], S);
+  const int LD = D + 4;  // bytes per staged K/V row (D % 8 == 0)
+  const int words = D / 4;
+
+  float* qs = smem;           // [G][D] q * k_scale / sqrt(D)
+  float* acc = qs + G * D;    // [G][D] running P @ V
+  float* sc = acc + G * D;    // [G][TS] scores, then probabilities
+  float* m = sc + G * TS;     // [G] running max
+  float* l = m + G;           // [G] running normalizer
+  float* cr = l + G;          // [G] this tile's correction exp(m_prev - m_new)
+  int8_t* ks = reinterpret_cast<int8_t*>(cr + G);  // [TS][LD]
+  int8_t* vs = ks + TS * LD;                       // [TS][LD]
+
+  const float c = k_scale[h] * (1.0f / sqrtf(static_cast<float>(D)));
+  const T* qb = q + ((size_t)b * KV + h) * G * D;
+  for (int i = tid; i < G * D; i += TS) {
+    qs[i] = to_f32(qb[i]) * c;
+    acc[i] = 0.f;
+  }
+  for (int g = tid; g < G; g += TS) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+  }
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int* k32 = reinterpret_cast<const int*>(k);
+  const int* v32 = reinterpret_cast<const int*>(v);
+  const int n_words = TS * words;
+  for (int t0 = 0; t0 < len; t0 += TS) {
+    // stage the K/V tile, UNR loads of each in flight per thread (positions
+    // at or past len load zeros; they are masked below)
+    for (int base = tid; base < n_words; base += UNR * TS) {
+      int kw[UNR], vw[UNR];
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) {
+        const int i = base + u * TS;
+        const int t = i / words, wd = i % words;
+        kw[u] = 0;
+        vw[u] = 0;
+        if (i < n_words && t0 + t < len) {
+          const size_t off = ((((size_t)b * S + t0 + t) * KV + h) * D) / 4 + wd;
+          kw[u] = k32[off];
+          vw[u] = v32[off];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) {
+        const int i = base + u * TS;
+        if (i < n_words) {
+          const int t = i / words, wd = i % words;
+          reinterpret_cast<int*>(ks + t * LD)[wd] = kw[u];
+          reinterpret_cast<int*>(vs + t * LD)[wd] = vw[u];
+        }
+      }
+    }
+    __syncthreads();
+
+    // scores: thread t scores position t0 + t for every query row, four
+    // int8 keys per 32-bit shared load
+    {
+      const int t = tid;
+      const int* kr = reinterpret_cast<const int*>(ks + t * LD);
+      float s[GMAX];
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) s[g] = 0.f;
+      for (int wd = 0; wd < words; ++wd) {
+        const int kw = kr[wd];
+        const float k0 = static_cast<float>(static_cast<int8_t>(kw));
+        const float k1 = static_cast<float>(static_cast<int8_t>(kw >> 8));
+        const float k2 = static_cast<float>(static_cast<int8_t>(kw >> 16));
+        const float k3 = static_cast<float>(static_cast<int8_t>(kw >> 24));
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g) {
+          if (g < G) {
+            const float4 qv = reinterpret_cast<const float4*>(qs + g * D)[wd];
+            s[g] += qv.x * k0 + qv.y * k1 + qv.z * k2 + qv.w * k3;
+          }
+        }
+      }
+      const bool valid = t0 + t < len;
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g)
+        if (g < G) sc[g * TS + t] = valid ? s[g] : NEG_INF;
+    }
+    __syncthreads();
+
+    // online-softmax update, one warp per query row
+    for (int g = warp; g < G; g += TS / 32) {
+      float mx = NEG_INF;
+      for (int t = lane; t < TS; t += 32) mx = fmaxf(mx, sc[g * TS + t]);
+      mx = warp_max(mx);
+      const float m_prev = m[g];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int t = lane; t < TS; t += 32) {
+        // re-mask: an all-masked tile has s == m_new == NEG_INF, exp(0) == 1
+        const float p = (t0 + t < len) ? expf(sc[g * TS + t] - m_new) : 0.f;
+        sc[g * TS + t] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float corr = expf(m_prev - m_new);
+        cr[g] = corr;
+        l[g] = l[g] * corr + sum;
+        m[g] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * corr + P @ V over this tile's live positions
+    const int tmax = min(TS, len - t0);
+    for (int i = tid; i < G * D; i += TS) {
+      const int g = i / D, d = i % D;
+      const float* pr = sc + g * TS;
+      float a[4] = {0.f, 0.f, 0.f, 0.f};  // four independent FMA chains
+      int t = 0;
+      for (; t + 4 <= tmax; t += 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          a[u] += pr[t + u] * static_cast<float>(vs[(t + u) * LD + d]);
+      }
+      for (; t < tmax; ++t) a[0] += pr[t] * static_cast<float>(vs[t * LD + d]);
+      acc[i] = acc[i] * cr[g] + ((a[0] + a[1]) + (a[2] + a[3]));
+    }
+    __syncthreads();
+  }
+
+  // epilogue: value dequant once, normalize (l == 0 -> exact zeros)
+  const float vsc = v_scale[h];
+  float* ob = out + ((size_t)b * KV + h) * G * D;
+  for (int i = tid; i < G * D; i += TS) ob[i] = acc[i] * vsc / fmaxf(l[i / D], 1e-30f);
+}
+
+template <typename T, int GMAX>
+int launch(const void* q, const void* k, const void* v, const void* k_scale,
+           const void* v_scale, const void* cur_pos, void* out, int B, int S,
+           int KV, int G, int D, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (2 * G * D + G * TS + 3 * G) +
+                      2 * (size_t)TS * (D + 4);
+  auto kern = decode_attention_kernel<T, GMAX>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kern<<<dim3(KV, B), TS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const int8_t*>(k),
+      static_cast<const int8_t*>(v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(cur_pos),
+      static_cast<float*>(out), S, KV, G, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* ks,
+             const void* vs, const void* cur_pos, void* out, int B, int S,
+             int KV, int G, int D, cudaStream_t st) {
+  if (G <= 1) return launch<T, 1>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
+  if (G <= 2) return launch<T, 2>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
+  if (G <= 4) return launch<T, 4>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
+  if (G <= 8) return launch<T, 8>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
+  return launch<T, 16>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
+}
+
+}  // namespace
+
+// q: (B, KV, G, D) f32 (q_bf16 == 0) or bf16; k/v: (B, S, KV, D) int8;
+// k_scale/v_scale: (KV,) f32; cur_pos: (B,) int32 valid positions;
+// out: (B, KV, G, D) f32.  Requires G <= 16, D % 8 == 0, D <= 128.
+extern "C" int repro_decode_attention(const void* q, int q_bf16, const void* k,
+                                      const void* v, const void* k_scale,
+                                      const void* v_scale, const void* cur_pos,
+                                      void* out, int B, int S, int KV, int G,
+                                      int D, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_bf16)
+    return dispatch<__nv_bfloat16>(q, k, v, k_scale, v_scale, cur_pos, out, B, S, KV, G, D, st);
+  return dispatch<float>(q, k, v, k_scale, v_scale, cur_pos, out, B, S, KV, G, D, st);
+}

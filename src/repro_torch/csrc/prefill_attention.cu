@@ -1,0 +1,339 @@
+// Flash-prefill attention over an int8 K/V stream, for Hopper (sm_90a).
+//
+//   out[b, i, h, g] = v_scale[h] * softmax_{k visible to i}((q[b, i, h, g] * k_scale[h]
+//                     / sqrt(D)) . K[b, k, h]) @ V[b, :, h]
+//   visible: k < kv_len[b], k <= q_start[b] + i (causal), q_start[b] + i - k < window;
+//   a row with no visible key is zeros.
+//
+// Replaces the TPU kernel src/repro/kernels/prefill_attention.py::prefill_attention_tiles
+// (body `_kernel`; dense entry prefill_attention_int8).
+//
+// What bounds it on an H100: operations.  A causal prompt of S tokens does
+// ~2 * S^2 * D * H flops over 2 * S * D * KV bytes of int8 K/V, far above the
+// card's ridge (with the float32 output counted, the byte bound is close at
+// S = 512).  Design: one block per (request, KV head, query tile).  As in the
+// TPU kernel the G query heads of a KV head are flattened into rows (row r
+// sits at position q_lo + r / G), so each staged K/V tile serves G times as
+// many rows.  Per key tile of BK positions: K^T and V are staged dequant-free
+// as float (the scales fold into q and into the epilogue); every thread
+// computes an 8-row x 4-key block of scores from float4 reads of q^T and K^T
+// (12 shared loads per 32 FMAs) and updates the online softmax of its rows
+// in registers, the 16 lanes of a row group meeting in shuffles (masked keys
+// take no part in the max and get p = 0, as the TPU body's re-mask does);
+// every thread keeps an 8-row x 4-column block of the output accumulator in
+// registers for P @ V.  The key-tile loop runs only from the window's
+// first live tile to min(kv_len, causal frontier): the TPU body's `live`
+// skip, and an exact no-op for the tiles it drops.  Staging keeps UNR global
+// loads in flight per thread.  The math is float32 on the CUDA cores;
+// tensor-core MMA (wgmma) and TMA pipelining are later work.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int NT = 128;        // threads per block: 8 row groups x 16 column groups
+constexpr int BK = 64;         // keys per tile
+constexpr int ROWS = 64;       // flattened (position, group) rows per block
+constexpr int LDS = BK + 4;    // score row stride (floats)
+constexpr int UNR = 8;         // global loads in flight per thread while staging
+constexpr float NEG_INF = -1e30f;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ bool visible(int kp, int qp, int klen, int causal,
+                                        int window) {
+  bool ok = kp < klen;
+  if (causal) ok = ok && kp <= qp;
+  if (window > 0) ok = ok && (qp - kp) < window;
+  return ok;
+}
+
+// DCH: 64-wide column chunks of the head dim held per thread (D <= 64 * DCH).
+template <typename T, int DCH>
+__global__ void __launch_bounds__(NT)
+prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
+                         const int8_t* __restrict__ v,
+                         const float* __restrict__ k_scale,
+                         const float* __restrict__ v_scale,
+                         const int* __restrict__ q_start,
+                         const int* __restrict__ kv_len, float* __restrict__ out,
+                         int Sq, int Sk, int KV, int G, int D, int BQ,
+                         int causal, int window) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int qt = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int rows = BQ * G;
+  const int words = D / 4;
+
+  float* qT = smem;              // [D][ROWS] q^T * k_scale / sqrt(D)
+  float* kT = qT + D * ROWS;     // [D][BK] K tile^T
+  float* vt = kT + D * BK;       // [BK][D] V tile
+  float* sc = vt + BK * D;       // [ROWS][LDS] scores, then probabilities
+  float* m = sc + ROWS * LDS;    // [ROWS] running max
+  float* l = m + ROWS;           // [ROWS] running normalizer
+
+  const int i0 = qt * BQ;                  // first query index of the tile
+  const int n_pos = min(BQ, Sq - i0);      // real query positions in the tile
+  const int q_lo = q_start[b] + i0;        // absolute position of row 0
+  const int q_hi = q_lo + n_pos - 1;
+  const int klen = min(kv_len[b], Sk);
+
+  const float c = k_scale[h] * (1.0f / sqrtf(static_cast<float>(D)));
+  for (int base = tid; base < ROWS * D; base += UNR * NT) {
+    float val[UNR];
+#pragma unroll
+    for (int u = 0; u < UNR; ++u) {
+      const int i = base + u * NT;
+      const int r = i % ROWS, d = i / ROWS;
+      const int qi = i0 + r / G;
+      val[u] = 0.f;
+      if (i < ROWS * D && r < rows && qi < Sq)
+        val[u] = to_f32(q[((((size_t)b * Sq + qi) * KV + h) * G + r % G) * D + d]) * c;
+    }
+#pragma unroll
+    for (int u = 0; u < UNR; ++u) {
+      const int i = base + u * NT;
+      if (i < ROWS * D) qT[i] = val[u];  // i = d * ROWS + r
+    }
+  }
+  for (int r = tid; r < ROWS; r += NT) {
+    m[r] = NEG_INF;
+    l[r] = 0.f;
+  }
+
+  int k_end = klen;
+  if (causal) k_end = min(k_end, q_hi + 1);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q_lo - (window - 1));
+
+  const int tc = tid % 16;  // key columns tc*4.. (scores), head-dim columns (P @ V)
+  const int tr = tid / 16;  // rows tr*8..tr*8+7
+  const int* k32 = reinterpret_cast<const int*>(k);
+  const int* v32 = reinterpret_cast<const int*>(v);
+  const int n_words = BK * words;
+  int qp[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) qp[i] = q_lo + (tr * 8 + i) / G;
+  float acc[DCH][8][4];
+#pragma unroll
+  for (int ch = 0; ch < DCH; ++ch)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[ch][i][j] = 0.f;
+  __syncthreads();
+
+  for (int k0 = (k_begin / BK) * BK; k0 < k_end; k0 += BK) {
+    // stage K^T and V as float, UNR loads of each in flight per thread
+    // (positions past Sk are zeros, masked below).  K goes key-fastest and V
+    // word-fastest, so both shared stores are free of bank conflicts.
+    for (int base = tid; base < n_words; base += UNR * NT) {
+      int kw[UNR], vw[UNR];
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) {
+        const int i = base + u * NT;
+        const int tk = i % BK, wk = i / BK;
+        const int tv = i / words, wv = i % words;
+        kw[u] = 0;
+        vw[u] = 0;
+        if (i < n_words && k0 + tk < Sk)
+          kw[u] = k32[((((size_t)b * Sk + k0 + tk) * KV + h) * D) / 4 + wk];
+        if (i < n_words && k0 + tv < Sk)
+          vw[u] = v32[((((size_t)b * Sk + k0 + tv) * KV + h) * D) / 4 + wv];
+      }
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) {
+        const int i = base + u * NT;
+        if (i >= n_words) continue;
+        const int tk = i % BK, wk = i / BK;
+        const int tv = i / words, wv = i % words;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          kT[(4 * wk + e) * BK + tk] =
+              static_cast<float>(static_cast<int8_t>(kw[u] >> (8 * e)));
+        reinterpret_cast<float4*>(vt + tv * D)[wv] = make_float4(
+            static_cast<float>(static_cast<int8_t>(vw[u])),
+            static_cast<float>(static_cast<int8_t>(vw[u] >> 8)),
+            static_cast<float>(static_cast<int8_t>(vw[u] >> 16)),
+            static_cast<float>(static_cast<int8_t>(vw[u] >> 24)));
+      }
+    }
+    __syncthreads();
+
+    // scores: rows tr*8..+7 x keys k0 + tc*4..+3, then the online-softmax
+    // update in registers: the 16 lanes that share a row group (one half of
+    // a warp) reduce each row's max and sum with shuffles
+    {
+      float s[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        const float4 qa = *reinterpret_cast<const float4*>(qT + d * ROWS + tr * 8);
+        const float4 qb = *reinterpret_cast<const float4*>(qT + d * ROWS + tr * 8 + 4);
+        const float4 kk = *reinterpret_cast<const float4*>(kT + d * BK + tc * 4);
+        const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+        const float kv[4] = {kk.x, kk.y, kk.z, kk.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];
+      }
+      uint32_t vis = 0;  // bit 4 * i + j: key k0 + tc*4 + j visible to row i
+      float m_prev[8], m_new[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        m_prev[i] = m[tr * 8 + i];
+        float mx = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (visible(k0 + tc * 4 + j, qp[i], klen, causal, window)) {
+            vis |= 1u << (4 * i + j);
+            mx = fmaxf(mx, s[i][j]);
+          }
+        }
+        m_new[i] = mx;
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], o));
+      float sum[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        m_new[i] = fmaxf(m_prev[i], m_new[i]);
+        float4 pv;
+        // masked keys get p = 0 (an all-masked row has m_new == NEG_INF)
+        pv.x = (vis >> (4 * i + 0)) & 1u ? expf(s[i][0] - m_new[i]) : 0.f;
+        pv.y = (vis >> (4 * i + 1)) & 1u ? expf(s[i][1] - m_new[i]) : 0.f;
+        pv.z = (vis >> (4 * i + 2)) & 1u ? expf(s[i][2] - m_new[i]) : 0.f;
+        pv.w = (vis >> (4 * i + 3)) & 1u ? expf(s[i][3] - m_new[i]) : 0.f;
+        sum[i] = (pv.x + pv.y) + (pv.z + pv.w);
+        *reinterpret_cast<float4*>(sc + (tr * 8 + i) * LDS + tc * 4) = pv;
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], o);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float corr = expf(m_prev[i] - m_new[i]);
+#pragma unroll
+        for (int ch = 0; ch < DCH; ++ch)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[ch][i][j] *= corr;
+        if (tc == 0) {
+          const int r = tr * 8 + i;
+          l[r] = l[r] * corr + sum[i];
+          m[r] = m_new[i];
+        }
+      }
+    }
+    // P rows tr*8..+7 were written by this half-warp only
+    __syncwarp();
+
+    // acc += P @ V for rows tr*8..+7, columns ch*64 + tc*4..+3
+    for (int t = 0; t < BK; ++t) {
+      float p[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) p[i] = sc[(tr * 8 + i) * LDS + t];
+#pragma unroll
+      for (int ch = 0; ch < DCH; ++ch) {
+        const int d = ch * 64 + tc * 4;
+        if (d < D) {
+          const float4 vv = *reinterpret_cast<const float4*>(vt + t * D + d);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc[ch][i][0] += p[i] * vv.x;
+            acc[ch][i][1] += p[i] * vv.y;
+            acc[ch][i][2] += p[i] * vv.z;
+            acc[ch][i][3] += p[i] * vv.w;
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // epilogue: value dequant once, normalize (l == 0 -> exact zeros)
+  const float vsc = v_scale[h];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = tr * 8 + i;
+    const int qi = i0 + r / G;
+    if (r >= rows || qi >= Sq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    float* orow = out + ((((size_t)b * Sq + qi) * KV + h) * G + r % G) * D;
+#pragma unroll
+    for (int ch = 0; ch < DCH; ++ch) {
+      const int d = ch * 64 + tc * 4;
+      if (d < D) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) orow[d + j] = acc[ch][i][j] * vsc / den;
+      }
+    }
+  }
+}
+
+template <typename T, int DCH>
+int launch(const void* q, const void* k, const void* v, const void* k_scale,
+           const void* v_scale, const void* q_start, const void* kv_len,
+           void* out, int B, int Sq, int Sk, int KV, int G, int D, int causal,
+           int window, cudaStream_t stream) {
+  const int BQ = ROWS / G > 0 ? ROWS / G : 1;
+  const size_t smem = sizeof(float) *
+      ((size_t)D * ROWS + (size_t)D * BK + (size_t)BK * D + ROWS * LDS + 2 * ROWS);
+  auto kern = prefill_attention_kernel<T, DCH>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((Sq + BQ - 1) / BQ, KV, B);
+  kern<<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const int8_t*>(k),
+      static_cast<const int8_t*>(v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(q_start),
+      static_cast<const int*>(kv_len), static_cast<float*>(out), Sq, Sk, KV, G,
+      D, BQ, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* ks,
+             const void* vs, const void* q_start, const void* kv_len, void* out,
+             int B, int Sq, int Sk, int KV, int G, int D, int causal, int window,
+             cudaStream_t st) {
+  if (D <= 64)
+    return launch<T, 1>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G,
+                        D, causal, window, st);
+  return launch<T, 2>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G, D,
+                      causal, window, st);
+}
+
+}  // namespace
+
+// q: (B, Sq, KV, G, D) f32 (q_bf16 == 0) or bf16; k/v: (B, Sk, KV, D) int8;
+// k_scale/v_scale: (KV,) f32; q_start, kv_len: (B,) int32; window <= 0 means
+// no window; out: (B, Sq, KV, G, D) f32.  Requires G <= 64, D % 8 == 0,
+// D <= 128.
+extern "C" int repro_prefill_attention(const void* q, int q_bf16, const void* k,
+                                       const void* v, const void* k_scale,
+                                       const void* v_scale, const void* q_start,
+                                       const void* kv_len, void* out, int B,
+                                       int Sq, int Sk, int KV, int G, int D,
+                                       int causal, int window, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_bf16)
+    return dispatch<__nv_bfloat16>(q, k, v, k_scale, v_scale, q_start, kv_len,
+                                   out, B, Sq, Sk, KV, G, D, causal, window, st);
+  return dispatch<float>(q, k, v, k_scale, v_scale, q_start, kv_len, out, B, Sq,
+                         Sk, KV, G, D, causal, window, st);
+}

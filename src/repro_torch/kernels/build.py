@@ -1,0 +1,99 @@
+"""Build and load the hand-written Hopper kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into its own shared library, loaded with ``ctypes``.  The
+build runs at first use, from the sources in the checkout only, into
+``build/repro_torch_kernels/`` at the repository root; all sources compile
+at once, one ``nvcc`` process each.  A library's file name carries a hash of
+its source and flags, so an edited source is never served by a stale build.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = ("quant_matmul", "decode_attention", "prefill_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def build_dir() -> Path:
+    """``build/repro_torch_kernels`` under the repository root."""
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+
+class _Loaded:
+    """The process's loaded kernel libraries (a process-wide resource:
+    ``ctypes`` never unloads a library)."""
+    libs: dict | None = None
+    logs: dict = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in /usr/local/cuda/bin): the "
+            "CUDA kernels are built from source at first use")
+    return path
+
+
+def _target(name: str, out: Path) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return out / f"{name}-{digest[:16]}.so"
+
+
+def load() -> dict:
+    """Build (once per source version) and load every kernel library;
+    returns {name: ctypes.CDLL}."""
+    if _Loaded.libs is not None:
+        return _Loaded.libs
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    targets = {name: _target(name, out) for name in SOURCES}
+    missing = [name for name, so in targets.items() if not so.exists()]
+    nvcc = _nvcc() if missing else None
+    jobs = {}
+    try:
+        for name in missing:
+            so = targets[name]
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            log = so.with_suffix(".log")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            with open(log, "w") as fh:
+                jobs[name] = (subprocess.Popen(cmd, stdout=fh,
+                                               stderr=subprocess.STDOUT),
+                              tmp, log)
+    finally:
+        codes = {name: proc.wait() for name, (proc, _, _) in jobs.items()}
+    failed = []
+    for name, (_, tmp, log) in jobs.items():
+        if codes[name] != 0:
+            failed.append(f"{name}: {log.read_text()[-2000:]}")
+            continue
+        os.replace(tmp, targets[name])
+        _Loaded.logs[name] = log.read_text()
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    _Loaded.libs = {name: ctypes.CDLL(str(so)) for name, so in targets.items()}
+    return _Loaded.libs
+
+
+def function(lib: str, symbol: str, argtypes: list):
+    """The C entry ``symbol`` of library ``lib`` with its ctypes signature
+    (every entry returns the launch's cudaError_t as an int)."""
+    fn = getattr(load()[lib], symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ptxas_logs() -> dict:
+    """``nvcc -Xptxas=-v`` output of the sources built in this process."""
+    return dict(_Loaded.logs)

@@ -1,0 +1,97 @@
+"""Public kernel entry points, dispatched on the tensors' device.
+
+Counterpart of ``repro/kernels/ops.py``: a tensor on the CPU runs the
+plain PyTorch version (``ref``), a tensor on a CUDA device launches the
+hand-written Hopper kernel or raises.  There is no fallback from one to
+the other.  Inputs are validated the same way on both sides (the CUDA
+wrappers' ``launch`` validates its own).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import prefill_attention as _pa
+from repro_torch.kernels import quant_matmul as _qm
+from repro_torch.kernels import ref
+
+KERNELS = {"quant_matmul": _qm, "prefill_attention": _pa,
+           "decode_attention": _da}
+
+_INT4 = ("int4 storage is not ported: the kernels' int4 branches are "
+         "ROADMAP Queue A item 11")
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def reset_launches() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def _rows(value, b: int, device) -> torch.Tensor:
+    """A per-request (B,) int32 vector from an int, a 0-d or a (B,) tensor."""
+    if isinstance(value, torch.Tensor):
+        t = value.to(device=device, dtype=torch.int32).reshape(-1)
+        return t.expand(b).contiguous() if t.numel() == 1 else t
+    return torch.full((b,), int(value), dtype=torch.int32, device=device)
+
+
+def quant_matmul(x, w_q, w_scale, act_scale, *, w_bits: int = 8):
+    """Fused quantize -> int8 matmul -> dequant; (M, N) bfloat16.
+
+    x: (M, K) raw float32/bf16 activations; w_q: (K, N) int8; w_scale: (N,)
+    combined dequant scale (already divided by act_scale); act_scale: one
+    float32, levels / T_adj, applied to x before rounding."""
+    if w_bits != 8:
+        raise NotImplementedError(_INT4)
+    if _on_cuda(x):
+        return _qm.launch(x, w_q, w_scale, act_scale)
+    _qm.check(x, w_q, w_scale, act_scale)
+    return ref.quant_matmul_ref(x, w_q, w_scale, act_scale)
+
+
+def decode_attention(q, k_cache, v_cache, k_scale, v_scale, cur_pos, *,
+                     kv_bits: int = 8):
+    """One-token attention over the int8 cache; (B, KV, G, D) float32.
+
+    cur_pos counts the valid positions of each row: an int, or a 0-d or
+    (B,) int tensor; a row with 0 returns zeros."""
+    if kv_bits != 8:
+        raise NotImplementedError(_INT4)
+    cur_pos = _rows(cur_pos, q.shape[0], q.device)
+    if _on_cuda(q):
+        return _da.launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos)
+    _da.check(q, k_cache, v_cache, k_scale, v_scale, cur_pos)
+    return ref.decode_attention_ref(q, k_cache, v_cache, k_scale, v_scale,
+                                    cur_pos)
+
+
+def prefill_attention(q, k, v, k_scale, v_scale, q_start, kv_len, *,
+                      causal: bool = True, window: int | None = None,
+                      kv_bits: int = 8):
+    """Prompt attention over an int8 K/V stream; (B, Sq, KV, G, D) float32.
+
+    q_start (position of query row 0) and kv_len (valid K/V count) are
+    ints, or 0-d or (B,) int tensors."""
+    if kv_bits != 8:
+        raise NotImplementedError(_INT4)
+    b = q.shape[0]
+    q_start = _rows(q_start, b, q.device)
+    kv_len = _rows(kv_len, b, q.device)
+    if _on_cuda(q):
+        return _pa.launch(q, k, v, k_scale, v_scale, q_start, kv_len,
+                          causal=causal, window=window)
+    _pa.check(q, k, v, k_scale, v_scale, q_start, kv_len, window)
+    return ref.prefill_attention_ref(q, k, v, k_scale, v_scale, q_start,
+                                     kv_len, causal=causal, window=window)

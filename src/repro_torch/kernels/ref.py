@@ -1,0 +1,90 @@
+"""Plain PyTorch versions of the three serving kernels.
+
+Counterparts of ``repro/kernels/ref.py``: ``ops`` runs them for tensors
+that lie on the CPU, and ``chip_smoke.py`` holds each CUDA kernel against
+them on the card.  They compute the kernels' function with the kernels'
+order of scale folding (key dequant scale and 1/sqrt(D) folded into q,
+value dequant scale applied after the P @ V product), so on the CPU the
+port follows the same arithmetic as the reference's fused path.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def quant_matmul_ref(x, w_q, w_scale, act_scale):
+    """y = int8(clip(rint(x * act_scale), ±127)) @ w_q, dequantized by the
+    per-output-channel ``w_scale`` and rounded to bf16.
+
+    The integer product is a float64 matmul on every device: exact while
+    |acc| < 2^53, i.e. for any K < 2^53 / 127^2 (CUDA has no int32
+    matmul, and on the CPU it is several times faster than an int32 one).
+    """
+    k = x.shape[-1]
+    if k * 127 * 127 >= 2**53:
+        raise ValueError(f"K={k} is too deep for an exact float64 product")
+    x_q = torch.clamp(torch.round(x.float() * act_scale), -127, 127)
+    acc = x_q.double() @ w_q.double()
+    return (acc.float() * w_scale).to(torch.bfloat16)
+
+
+def _q_fold(q, k_scale, head_axis):
+    """q * k_scale[h] / sqrt(D), with q's head axis at ``head_axis``."""
+    d = q.shape[-1]
+    c = k_scale.float() * torch.rsqrt(
+        torch.tensor(float(d), device=q.device))
+    shape = [1] * q.ndim
+    shape[head_axis] = -1
+    return q.float() * c.reshape(shape)
+
+
+def decode_attention_ref(q, k_cache, v_cache, k_scale, v_scale, cur_pos):
+    """One-token attention over the int8 cache.
+
+    q: (B, KV, G, D); k/v_cache: (B, S, KV, D) int8; k/v_scale: (KV,) f32;
+    cur_pos: (B,) int32 count of valid positions.  Returns (B, KV, G, D)
+    f32; a row with cur_pos == 0 returns zeros."""
+    b, kvh, g, d = q.shape
+    s_len = k_cache.shape[1]
+    qf = _q_fold(q, k_scale, 1)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float())
+    pos = torch.arange(s_len, device=q.device)
+    valid = (pos[None, :] < cur_pos.reshape(-1, 1))[:, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return o * v_scale.reshape(1, -1, 1, 1) / torch.clamp_min(l, 1e-30)
+
+
+def prefill_attention_ref(q, k, v, k_scale, v_scale, q_start, kv_len, *,
+                          causal=True, window=None):
+    """Multi-row attention over an int8 K/V stream.
+
+    q: (B, Sq, KV, G, D); k/v: (B, Sk, KV, D) int8; q_start: (B,) int32
+    absolute position of query row 0; kv_len: (B,) int32 valid K/V count.
+    Masks kv_len, causal (k <= q) and the optional window (q - k < window).
+    Returns (B, Sq, KV, G, D) f32; rows with no visible key are zeros."""
+    b, sq, kvh, g, d = q.shape
+    sk = k.shape[1]
+    qf = _q_fold(q, k_scale, 2)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    q_pos = q_start.reshape(-1, 1) + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(sk, device=q.device)
+    valid = (k_pos[None, None, :] < kv_len.reshape(-1, 1, 1)).expand(
+        b, sq, sk)
+    if causal:
+        valid = valid & (k_pos[None, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        valid = valid & ((q_pos[:, :, None] - k_pos[None, None, :]) < window)
+    valid = valid[:, None, None]                      # (B, 1, 1, Sq, Sk)
+    s = torch.where(valid, s, NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
+    o = o * v_scale.reshape(1, -1, 1, 1, 1) / torch.clamp_min(l, 1e-30)
+    return o.permute(0, 3, 1, 2, 4).contiguous()

@@ -1,0 +1,221 @@
+"""``Engine``: the serving facade over the int8 FAT pipeline.
+
+    engine = Engine.from_checkpoint("smollm-135m", smoke=False)   # on CUDA
+    result = engine.generate_batch({"tokens": prompts}, gen=32)
+    result = engine.generate_one(prompt_tokens, gen=32)
+
+Counterpart of ``repro/launch/engine.py`` on the main path: seeded random
+init (or bridged reference params) -> §2 calibration -> int8 conversion
+-> one-shot prefill into an int8 dense KV cache -> greedy decode.  Every
+quantized matmul and both attentions run through ``kernels.ops``: the
+hand-written CUDA kernels when the engine's device is a GPU, their plain
+versions when it is the CPU.
+
+Entry points run on the GPU unless the caller passes ``device="cpu"``:
+``device=None`` means CUDA and raises when no CUDA device is present.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import data as D
+from repro_torch.bridge import tree_to
+from repro_torch.configs import get_config
+from repro_torch.core import api as A
+from repro_torch.launch import steps as ST
+from repro_torch.models import build_model
+
+# options of the reference Engine that are not ported, and the ROADMAP
+# Queue A item that ports each
+_NOT_PORTED = {
+    "checkpoint_dir": "item 14 (checkpoint restore)",
+    "finetune_thresholds": "item 16 (§3 threshold training)",
+    "prefill_chunk": "item 9 (chunked prefill)",
+    "temperature": "item 10 (sampling)",
+    "top_p": "item 10 (sampling)",
+    "decode_strategy": "items 10 and 13 (sampling, speculative decoding)",
+    "page_size": "item 12 (paged cache)",
+    "queue_cap": "item 12 (scheduler)",
+    "fault_plan": "item 14 (resilience)",
+    "journal": "item 14 (durability)",
+}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the CUDA device, raising when there is none; anything
+    else is taken as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port serves on the GPU by default; pass "
+                "device='cpu' to run the plain versions of the kernels")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def prepare_int8(model, policy: A.QuantPolicy, params, calib_batches):
+    """Calibration + int8 conversion (the paper's deployment pipeline):
+    observers over the calibration batches, finalized thresholds, int8
+    weights.  Returns (serve_params, qparams)."""
+    qparams = A.init_qparams(model, params, policy)
+    calib = ST.make_calibrate_step(model, policy)
+    for b in calib_batches:
+        qparams = calib(params, qparams, b)
+    qparams = A.finalize_calibration(qparams)
+    return A.convert_to_int8(model, params, qparams, policy), qparams
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    """Output of ``generate_batch`` with its wall-clock timings (each ends
+    in a device synchronize)."""
+    tokens: torch.Tensor          # (B, gen) generated token ids
+    prefill_logits: torch.Tensor  # (B, Vp) logits that picked tokens[:, 0]
+    prefill_s: float              # prefill + first token
+    decode_s: float               # the gen - 1 decode steps
+
+
+class Engine:
+    """One assembled serving stack: model + int8 params + finalized
+    thresholds on one device."""
+
+    def __init__(self, model, cfg, policy: A.QuantPolicy, serve_params,
+                 qparams, *, device):
+        self.model, self.cfg, self.policy = model, cfg, policy
+        self.serve_params, self.qparams = serve_params, qparams
+        self.device = torch.device(device)
+
+    @classmethod
+    def from_checkpoint(cls, arch: str = "smollm-135m", *, cfg=None,
+                        smoke: bool = True, params: Optional[dict] = None,
+                        calib_batches: Optional[Sequence] = None,
+                        qparams: Optional[dict] = None, init_seed: int = 0,
+                        device=None, fp: bool = False, kv_int8: bool = True,
+                        kv_bits: int = 8, cache_layout: str = "dense",
+                        **not_ported) -> "Engine":
+        """Build a ready-to-serve Engine.
+
+        ``params`` is the reference's param tree as bridged tensors
+        (``bridge.params_from_jax``); without it the weights are seeded
+        random init (``init_seed``, a CPU ``torch.Generator``, so every
+        device gets the same weights).  ``calib_batches`` are numpy token
+        batches ({"tokens": (B, S)}); the default is two seeded batches of
+        (4, 32) from ``repro_torch.data``.
+        ``qparams`` are finalized thresholds calibrated elsewhere (the
+        reference's, through ``bridge.qparams_from_jax``): calibration is
+        skipped and the weights convert against them.  ``cfg`` overrides
+        the registry lookup (``arch``/``smoke`` are then ignored)."""
+        for name in not_ported:
+            if name not in _NOT_PORTED:
+                raise TypeError(f"unexpected argument {name!r}")
+            raise NotImplementedError(
+                f"Engine option {name!r} is not ported (ROADMAP Queue A "
+                f"{_NOT_PORTED[name]})")
+        if fp or not kv_int8:
+            raise NotImplementedError(
+                "bf16 weights / bf16 KV serving are not on the ported path "
+                "(ROADMAP Queue A item 8)")
+        if kv_bits != 8:
+            raise NotImplementedError("kv_bits=4 is ROADMAP Queue A item 11")
+        if cache_layout != "dense":
+            raise NotImplementedError(
+                f"cache layout {cache_layout!r}: only 'dense' is ported (ring "
+                "is ROADMAP Queue A item 9, paged item 12)")
+        dev = resolve_device(device)
+        if cfg is None:
+            cfg = get_config(arch, smoke=smoke)
+        model = build_model(cfg)
+        policy = A.QuantPolicy(kv_int8=True)
+        if params is None:
+            params = model.init(torch.Generator().manual_seed(init_seed))
+        params = tree_to(params, dev)
+        with torch.inference_mode():
+            if qparams is not None:
+                qparams = tree_to(qparams, dev)
+                serve_params = A.convert_to_int8(model, params, qparams,
+                                                 policy)
+            else:
+                if calib_batches is None:
+                    calib_batches = D.calibration_batches(cfg.vocab,
+                                                          seed=init_seed)
+                batches = [{"tokens": torch.as_tensor(
+                    np.asarray(b["tokens"]), device=dev)}
+                    for b in calib_batches]
+                serve_params, qparams = prepare_int8(model, policy, params,
+                                                     batches)
+        return cls(model, cfg, policy, serve_params, qparams, device=dev)
+
+    def to(self, device) -> "Engine":
+        """The same engine (same int8 weights and thresholds) on another
+        device."""
+        dev = resolve_device(device)
+        return Engine(self.model, self.cfg, self.policy,
+                      tree_to(self.serve_params, dev),
+                      tree_to(self.qparams, dev), device=dev)
+
+    def n_int8_weights(self) -> int:
+        def count(t):
+            if isinstance(t, dict):
+                return sum(count(v) for v in t.values())
+            return int(t.dtype == torch.int8)
+
+        return count(self.serve_params)
+
+    def init_cache(self, batch: int, max_len: int):
+        return self.model.init_cache(batch, max_len, device=self.device)
+
+    def _cache_len(self, prompt_len: int, gen: int) -> int:
+        """Prompt + generation budget, rounded up to a multiple of 128 (the
+        reference's kernel-path rounding; it keeps one cache shape for a
+        range of requests)."""
+        return -(-(prompt_len + gen) // 128) * 128
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.inference_mode()
+    def generate_batch(self, batch: dict, gen: int) -> GenerationResult:
+        """Serve one fixed batch: prefill the prompts, then decode ``gen``
+        tokens greedily (the first comes from the prefill logits)."""
+        if gen < 1:
+            raise ValueError(f"gen must be >= 1, got {gen}")
+        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
+                                 device=self.device)
+        if tokens.ndim != 2 or tokens.shape[1] < 1:
+            raise ValueError(f"tokens must be (B, S) with S >= 1, got "
+                             f"{tuple(tokens.shape)}")
+        b, s = tokens.shape
+        cache = self.init_cache(b, self._cache_len(s, gen))
+        prefill = ST.make_prefill_step(self.model, self.policy)
+        decode_loop = ST.make_decode_loop(self.model, self.policy,
+                                          n_steps=gen)
+        self._sync()
+        t0 = time.perf_counter()
+        logits, cache = prefill(self.serve_params, self.qparams,
+                                {"tokens": tokens}, cache)
+        first = logits[:, -1, :]
+        tok0 = ST.greedy(first)
+        self._sync()
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out, cache = decode_loop(self.serve_params, self.qparams, tok0, cache,
+                                 s)
+        self._sync()
+        decode_s = time.perf_counter() - t0
+        return GenerationResult(tokens=out, prefill_logits=first,
+                                prefill_s=prefill_s, decode_s=decode_s)
+
+    def generate_one(self, tokens, gen: int) -> GenerationResult:
+        """Serve ONE prompt by delegating to ``generate_batch`` at B == 1."""
+        toks = np.asarray(tokens)
+        if toks.ndim != 1:
+            raise ValueError(
+                f"generate_one takes a single 1-D prompt, got shape "
+                f"{toks.shape} (use generate_batch for batches)")
+        return self.generate_batch({"tokens": toks[None, :]}, gen)

@@ -1,0 +1,174 @@
+"""GQA attention with rotary embedding: the full-sequence forward used by
+calibration, one-shot prefill into the int8 KV cache through the prefill
+kernel, and single-token decode through the decode kernel.
+
+Counterpart of ``repro/models/attention.py`` on the single-device int8
+serving path.  All paths share the GQA grouping Hq = KV * G, computed on a
+(B, S, KV, G, D) view so no head replication is materialized.  K/V
+quantize ONCE (``cache.ready``) against the frozen calibrated per-head
+thresholds, and the same int8 tiles are written to the cache and attended
+by the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.cache import KV_LEVELS, DenseCache
+from repro_torch.models.layers import apply_rotary, rotary_angles
+from repro_torch.models.module import Dense, Module
+
+NEG_INF = -1e30
+
+
+def causal_attention(q, k, v):
+    """Plain causal attention, the counterpart of the reference's jnp
+    ``flash_attention`` (one softmax over the whole sequence instead of an
+    online softmax over chunks).  q: (B, S, KV, G, D); k/v: (B, S, KV, D);
+    scores and softmax in float32, output in v's dtype."""
+    s_len, d = q.shape[1], q.shape[-1]
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d), device=q.device))
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float() * scale, k.float())
+    pos = torch.arange(s_len, device=q.device)
+    s = torch.where(pos[:, None] >= pos[None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.to(v.dtype)
+
+
+class Attention(Module):
+    """Causal GQA self-attention with rotary embedding (sliding windows are
+    ROADMAP Queue A item 9, bidirectional and cross attention item 17)."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
+                 head_dim: int, *, path: str, rope_base: float = 10000.0,
+                 dtype=torch.bfloat16):
+        self.d_model = d_model
+        self.n_heads = n_heads
+        self.n_kv = n_kv_heads
+        self.head_dim = head_dim
+        self.groups = n_heads // n_kv_heads
+        self.rope_base = rope_base
+        self.path = path
+        self.wq = Dense(d_model, n_heads * head_dim, path=f"{path}/wq",
+                        dtype=dtype)
+        self.wk = Dense(d_model, n_kv_heads * head_dim, path=f"{path}/wk",
+                        dtype=dtype)
+        self.wv = Dense(d_model, n_kv_heads * head_dim, path=f"{path}/wv",
+                        dtype=dtype)
+        self.wo = Dense(n_heads * head_dim, d_model, path=f"{path}/wo",
+                        dtype=dtype)
+
+    def init(self, gen):
+        return {"wq": self.wq.init(gen), "wk": self.wk.init(gen),
+                "wv": self.wv.init(gen), "wo": self.wo.init(gen)}
+
+    # -- cache ------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, device=None) -> DenseCache:
+        return DenseCache.init(batch, max_len, self.n_kv, self.head_dim,
+                               device=device)
+
+    def _observe_kv(self, ctx, k, v):
+        """Feed post-rope K / raw V into the KV calibration observers."""
+        if ctx is None or ctx.mode != "calibrate":
+            return
+        from repro_torch.core import api as A
+        from repro_torch.core import calibration as calib
+
+        key = A.kv_path(self.path)
+        if key not in ctx.qparams:
+            return
+        ent = ctx.qparams[key]
+        spec = ctx.policy.kv_spec()
+        ctx.updates[key] = {
+            "k": calib.update_observer(ent["k"], k, spec),
+            "v": calib.update_observer(ent["v"], v, spec),
+        }
+
+    def _kv_scales(self, ctx):
+        """Frozen per-head dequant scales T / levels from calibrated,
+        finalized qparams."""
+        from repro_torch.core import api as A
+
+        ent = None if ctx is None else ctx.qparams.get(A.kv_path(self.path))
+        finalized = (ent is not None and "t_max" in ent.get("k", {})
+                     and "count" not in ent["k"])
+        if not finalized:
+            raise ValueError(
+                f"{self.path}: int8 KV cache requires calibrated+finalized "
+                "kv thresholds in qparams (QuantPolicy(kv_int8=True) at "
+                "init_qparams, the calibration pass, then "
+                "finalize_calibration)")
+        # T / levels, evaluated as T * (1 / levels): the float32 expression
+        # the reference's compiled graph evaluates, so both packages write
+        # the same int8 tiles
+        inv = 1.0 / KV_LEVELS
+        k_s = torch.clamp_min(ent["k"]["t_max"], 1e-8) * inv
+        v_s = torch.clamp_min(ent["v"]["t_max"], 1e-8) * inv
+        return k_s.float(), v_s.float()
+
+    def _qkv(self, params, x, ctx):
+        b, s, _ = x.shape
+        q = self.wq(params["wq"], x, ctx).reshape(
+            b, s, self.n_kv, self.groups, self.head_dim)
+        k = self.wk(params["wk"], x, ctx).reshape(b, s, self.n_kv,
+                                                  self.head_dim)
+        v = self.wv(params["wv"], x, ctx).reshape(b, s, self.n_kv,
+                                                  self.head_dim)
+        return q, k, v
+
+    def _rope(self, q, k, positions):
+        cos, sin = rotary_angles(positions, self.head_dim, self.rope_base)
+        b, s, kvh, g, d = q.shape
+        qf = apply_rotary(q.reshape(b, s, kvh * g, d), cos, sin)
+        k = apply_rotary(k, cos, sin)
+        return qf.reshape(b, s, kvh, g, d), k
+
+    def __call__(self, params, x, ctx=None):
+        """Full-sequence forward (calibration); observes K/V in calibrate
+        mode."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv(params, x, ctx)
+        q, k = self._rope(q, k, torch.arange(s, device=x.device))
+        self._observe_kv(ctx, k, v)
+        o = causal_attention(q, k, v)
+        o = o.reshape(b, s, self.n_heads * self.head_dim)
+        return self.wo(params["wo"], o, ctx)
+
+    def prefill(self, params, x, cache: DenseCache, ctx=None):
+        """One-shot prompt forward that populates the cache; returns
+        (y, cache).  The prompt's K/V quantize once, are appended at
+        positions [0, S), and the prefill kernel attends those same int8
+        tiles."""
+        from repro_torch.kernels import ops
+
+        b, s, _ = x.shape
+        q, k, v = self._qkv(params, x, ctx)
+        q, k = self._rope(q, k, torch.arange(s, device=x.device))
+        cache = cache.with_scales(*self._kv_scales(ctx))
+        kq, vq = cache.ready(k, v)
+        cache = cache.append(kq, vq, 0)
+        o = ops.prefill_attention(q, kq, vq, *cache.scales(), 0, s,
+                                  causal=True,
+                                  kv_bits=cache.bits).to(x.dtype)
+        o = o.reshape(b, s, self.n_heads * self.head_dim)
+        return self.wo(params["wo"], o, ctx), cache
+
+    def decode(self, params, x, cache: DenseCache, cur_pos: int, ctx=None):
+        """Single-token decode at scalar position ``cur_pos`` (tokens
+        already cached): the new K/V quantize with the scales stored at
+        prefill, append at ``cur_pos``, and the decode kernel attends the
+        ``cur_pos + 1`` valid positions."""
+        from repro_torch.kernels import ops
+
+        b, s, _ = x.shape
+        q, k, v = self._qkv(params, x, ctx)
+        pos = torch.full((s,), int(cur_pos), device=x.device)
+        q, k = self._rope(q, k, pos)
+        kq, vq = cache.ready(k, v)
+        cache = cache.append(kq, vq, int(cur_pos))
+        kv = cache.kernel_view()
+        o = ops.decode_attention(q[:, 0], kv.k, kv.v, *cache.scales(),
+                                 int(cur_pos) + 1, kv_bits=kv.bits)
+        o = o[:, None].to(x.dtype)
+        o = o.reshape(b, s, self.n_heads * self.head_dim)
+        return self.wo(params["wo"], o, ctx), cache

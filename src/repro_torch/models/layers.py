@@ -1,0 +1,86 @@
+"""Common layers: RMSNorm, token embedding with tied readout, rotary
+position encoding (counterparts of ``repro/models/layers.py``)."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.module import Module, normal_init
+
+
+class RMSNorm(Module):
+    def __init__(self, dim: int, *, path: str, eps: float = 1e-6,
+                 dtype=torch.bfloat16):
+        self.dim = dim
+        self.path = path
+        self.eps = eps
+        self.dtype = dtype
+
+    def init(self, gen):
+        return {"scale": torch.ones((self.dim,), dtype=torch.float32)}
+
+    def __call__(self, params, x, ctx=None):
+        xf = x.float()
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + self.eps) * params["scale"]
+        return y.to(x.dtype)
+
+
+class Embedding(Module):
+    """Token embedding; the table is padded to ``vocab_padded`` (a multiple
+    of 128) and the padded rows are masked at readout."""
+
+    def __init__(self, vocab: int, dim: int, *, path: str,
+                 dtype=torch.bfloat16, vocab_padded: int | None = None):
+        self.vocab = vocab
+        self.vocab_padded = vocab_padded or (-(-vocab // 128) * 128)
+        self.dim = dim
+        self.path = path
+        self.dtype = dtype
+
+    def init(self, gen):
+        return {"table": normal_init(gen, (self.vocab_padded, self.dim),
+                                     self.dtype)}
+
+    def __call__(self, params, tokens, ctx=None):
+        return params["table"][tokens]
+
+    def attend(self, params, x, ctx=None):
+        """Tied-weight readout (..., d) @ (d, Vp) -> logits, padded vocab
+        entries set to -1e9 so argmax/softmax never pick them."""
+        logits = x @ params["table"].T
+        if self.vocab_padded != self.vocab:
+            pad = torch.arange(self.vocab_padded,
+                               device=logits.device) >= self.vocab
+            logits = logits.masked_fill(pad, -1e9)
+        return logits
+
+
+def rotary_angles(positions: torch.Tensor, head_dim: int,
+                  base: float = 10000.0):
+    """(..., S) int positions -> (cos, sin) of shape (..., S, head_dim/2).
+    The frequency table is computed in float32 numpy, as in the
+    reference, so both packages rotate by the same angles."""
+    half = head_dim // 2
+    freqs = 1.0 / (base ** (np.arange(0, half, dtype=np.float32) / half))
+    freqs = torch.from_numpy(np.asarray(freqs, np.float32)).to(
+        positions.device)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, H, D); cos/sin: (..., S, D/2) broadcast over heads
+    (rotate-half, llama family).  Computed in float32, cast back."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    y1 = x1 * c - x2 * s
+    y2 = x2 * c + x1 * s
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def silu(x):
+    return x * torch.sigmoid(x)

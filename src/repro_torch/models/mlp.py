@@ -1,0 +1,28 @@
+"""SwiGLU feed-forward block (llama family), counterpart of
+``repro/models/mlp.py::SwiGLU``."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.layers import silu
+from repro_torch.models.module import Dense, Module
+
+
+class SwiGLU(Module):
+    def __init__(self, d_model: int, d_ff: int, *, path: str,
+                 dtype=torch.bfloat16):
+        self.d_model = d_model
+        self.d_ff = d_ff
+        self.path = path
+        self.gate = Dense(d_model, d_ff, path=f"{path}/gate", dtype=dtype)
+        self.up = Dense(d_model, d_ff, path=f"{path}/up", dtype=dtype)
+        self.down = Dense(d_ff, d_model, path=f"{path}/down", dtype=dtype)
+
+    def init(self, gen):
+        return {"gate": self.gate.init(gen), "up": self.up.init(gen),
+                "down": self.down.init(gen)}
+
+    def __call__(self, params, x, ctx=None):
+        g = silu(self.gate(params["gate"], x, ctx))
+        u = self.up(params["up"], x, ctx)
+        return self.down(params["down"], g * u, ctx)

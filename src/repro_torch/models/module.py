@@ -1,0 +1,73 @@
+"""Minimal functional module system, as in the reference package.
+
+Modules are plain Python objects built from a config; parameters live in
+nested dicts of tensors that mirror the module tree, so the reference's
+layer paths key the quantization state unchanged and the weight bridge
+(``repro_torch.bridge``) is a plain tree conversion.  Every module has
+
+  * ``init(generator) -> params``  seeded init with a ``torch.Generator``
+    (on the CPU: the same seed gives the same weights on every device);
+  * ``__call__(params, ..., ctx=...)``  the forward on tensors.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+class Module:
+    """Base class; subclasses define ``init`` and ``__call__``."""
+
+    path: str = ""
+
+    def init(self, gen: torch.Generator) -> dict:  # pragma: no cover
+        raise NotImplementedError
+
+    def param_children(self) -> dict:
+        """Mapping param-tree key -> child Module (attribute name by
+        default; containers with computed keys override)."""
+        return {k: v for k, v in self.__dict__.items()
+                if isinstance(v, Module)}
+
+    def walk_with_params(self, params: dict):
+        """Yield (module, params_subtree) for self and all descendants."""
+        yield self, params
+        for key, child in self.param_children().items():
+            if isinstance(params, dict) and key in params:
+                yield from child.walk_with_params(params[key])
+
+
+def normal_init(gen, shape, dtype, stddev=0.02):
+    return (torch.randn(shape, generator=gen, dtype=torch.float32)
+            * stddev).to(dtype)
+
+
+def fan_in_init(gen, shape, dtype):
+    """LeCun-normal over the penultimate (fan-in) axis."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    return (torch.randn(shape, generator=gen, dtype=torch.float32)
+            / math.sqrt(fan_in)).to(dtype)
+
+
+class Dense(Module):
+    """y = x @ W, the quantization unit of the paper's scheme: one set of
+    thresholds per Dense, every Dense quantized.  (Biases, unquantized and
+    unsigned-input layers of the reference come with the architectures
+    that have them, ROADMAP Queue A item 17.)"""
+
+    def __init__(self, in_dim: int, out_dim: int, *, path: str,
+                 dtype=torch.bfloat16):
+        self.in_dim = in_dim
+        self.out_dim = out_dim
+        self.path = path
+        self.dtype = dtype
+
+    def init(self, gen: torch.Generator) -> dict:
+        return {"w": fan_in_init(gen, (self.in_dim, self.out_dim),
+                                 self.dtype)}
+
+    def __call__(self, params: dict, x: torch.Tensor, ctx=None):
+        from repro_torch.core import api
+
+        return api.dense_forward(self, params, x, ctx)

@@ -1,0 +1,129 @@
+"""Decoder stack: pre-norm residual Blocks of attention + SwiGLU.
+
+Counterpart of ``repro/models/transformer.py`` for the unscanned
+attention + SwiGLU case.  The other layer kinds of the reference raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+from repro_torch.models.attention import Attention
+from repro_torch.models.layers import RMSNorm
+from repro_torch.models.mlp import SwiGLU
+from repro_torch.models.module import Module
+
+
+def check_supported(cfg) -> None:
+    """Raise on a config outside the ported attention + SwiGLU stack."""
+    unsupported = []
+    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
+    if kinds != {"attn"}:
+        unsupported.append(f"layer kinds {sorted(kinds)} (mamba / hybrid / "
+                           "local attention)")
+    if any(cfg.attn_window(i) is not None for i in range(cfg.n_layers)):
+        unsupported.append("sliding-window layers (ROADMAP Queue A item 9)")
+    if cfg.ffn != "swiglu" or cfg.mlp_activation != "silu":
+        unsupported.append(f"ffn {cfg.ffn!r} with {cfg.mlp_activation!r}")
+    if cfg.norm != "rmsnorm":
+        unsupported.append(f"norm {cfg.norm!r}")
+    if cfg.family != "causal" or cfg.modality != "text" or not cfg.causal:
+        unsupported.append(f"{cfg.family}/{cfg.modality} models "
+                           f"(causal={cfg.causal})")
+    if cfg.scan_layers:
+        unsupported.append("scan_layers (the port unrolls the stack)")
+    if unsupported:
+        raise NotImplementedError(
+            f"{cfg.name}: not ported: " + "; ".join(unsupported)
+            + ". Other architectures are ROADMAP Queue A item 17.")
+
+
+class Block(Module):
+    """One pre-norm residual layer: norm -> attn -> (+) -> norm -> ffn -> (+)."""
+
+    def __init__(self, cfg, *, path: str):
+        self.cfg = cfg
+        self.path = path
+        d, dt = cfg.d_model, cfg.dtype
+        self.pre_norm = RMSNorm(d, path=f"{path}/pre_norm", dtype=dt)
+        self.attn = Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                              path=f"{path}/attn", rope_base=cfg.rope_base,
+                              dtype=dt)
+        self.ffn_norm = RMSNorm(d, path=f"{path}/ffn_norm", dtype=dt)
+        self.ffn = SwiGLU(d, cfg.d_ff, path=f"{path}/mlp", dtype=dt)
+
+    def init(self, gen):
+        return {"pre_norm": self.pre_norm.init(gen),
+                "attn": self.attn.init(gen),
+                "ffn_norm": self.ffn_norm.init(gen),
+                "ffn": self.ffn.init(gen)}
+
+    def __call__(self, params, x, ctx=None):
+        h = self.pre_norm(params["pre_norm"], x)
+        x = x + self.attn(params["attn"], h, ctx)
+        h = self.ffn_norm(params["ffn_norm"], x)
+        return x + self.ffn(params["ffn"], h, ctx)
+
+    def init_cache(self, batch, max_len, device=None):
+        return {"attn": self.attn.init_cache(batch, max_len, device)}
+
+    def prefill(self, params, x, cache, ctx=None):
+        h = self.pre_norm(params["pre_norm"], x)
+        a, attn_cache = self.attn.prefill(params["attn"], h, cache["attn"],
+                                          ctx)
+        x = x + a
+        h = self.ffn_norm(params["ffn_norm"], x)
+        return x + self.ffn(params["ffn"], h, ctx), {"attn": attn_cache}
+
+    def decode(self, params, x, cache, cur_pos, ctx=None):
+        h = self.pre_norm(params["pre_norm"], x)
+        a, attn_cache = self.attn.decode(params["attn"], h, cache["attn"],
+                                         cur_pos, ctx)
+        x = x + a
+        h = self.ffn_norm(params["ffn_norm"], x)
+        return x + self.ffn(params["ffn"], h, ctx), {"attn": attn_cache}
+
+
+class Stack(Module):
+    """Unrolled stack of Blocks (params under ``layer{i}``) + final norm."""
+
+    def __init__(self, cfg, *, path: str):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.path = path
+        self.n_layers = cfg.n_layers
+        self.blocks = [Block(cfg, path=f"{path}/layer{i}")
+                       for i in range(self.n_layers)]
+        self.final_norm = RMSNorm(cfg.d_model, path=f"{path}/final_norm",
+                                  dtype=cfg.dtype)
+
+    def param_children(self):
+        c = {f"layer{i}": b for i, b in enumerate(self.blocks)}
+        c["final_norm"] = self.final_norm
+        return c
+
+    def init(self, gen):
+        p = {f"layer{i}": b.init(gen) for i, b in enumerate(self.blocks)}
+        p["final_norm"] = self.final_norm.init(gen)
+        return p
+
+    def __call__(self, params, x, ctx=None):
+        for i, blk in enumerate(self.blocks):
+            x = blk(params[f"layer{i}"], x, ctx)
+        return self.final_norm(params["final_norm"], x)
+
+    def init_cache(self, batch, max_len, device=None):
+        return {f"layer{i}": b.init_cache(batch, max_len, device)
+                for i, b in enumerate(self.blocks)}
+
+    def prefill(self, params, x, cache, ctx=None):
+        new_cache = {}
+        for i, blk in enumerate(self.blocks):
+            x, new_cache[f"layer{i}"] = blk.prefill(
+                params[f"layer{i}"], x, cache[f"layer{i}"], ctx)
+        return self.final_norm(params["final_norm"], x), new_cache
+
+    def decode(self, params, x, cache, cur_pos, ctx=None):
+        new_cache = {}
+        for i, blk in enumerate(self.blocks):
+            x, new_cache[f"layer{i}"] = blk.decode(
+                params[f"layer{i}"], x, cache[f"layer{i}"], cur_pos, ctx)
+        return self.final_norm(params["final_norm"], x), new_cache

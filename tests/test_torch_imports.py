@@ -1,0 +1,81 @@
+"""The port stands alone: it imports neither JAX nor the reference package,
+its entry points default to CUDA and raise without it, and the options it
+does not port raise instead of being ignored."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.launch import engine as E
+
+SRC = os.path.dirname(os.path.dirname(repro_torch.__file__))
+
+
+def test_no_module_imports_jax_or_repro():
+    mods = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                        "repro_torch."))
+    assert "repro_torch.kernels.ops" in mods and len(mods) >= 20
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m == 'repro'\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        E.Engine.from_checkpoint("smollm-135m", smoke=True)
+    engine = E.Engine.from_checkpoint("smollm-135m", smoke=True,
+                                      device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.to(None)
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(prefill_chunk=8), "item 9"),
+    (dict(temperature=0.7), "item 10"),
+    (dict(kv_bits=4), "item 11"),
+    (dict(cache_layout="paged"), "item 12"),
+    (dict(checkpoint_dir="ckpt"), "item 14"),
+    (dict(fp=True), "item 8"),
+], ids=lambda v: str(v))
+def test_unported_options_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        E.Engine.from_checkpoint("smollm-135m", smoke=True, device="cpu",
+                                 **kw)
+
+
+def test_unported_architectures_raise():
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    with pytest.raises(NotImplementedError, match="item 17"):
+        get_config("mamba2-780m")
+    cfg = get_config("smollm-135m", smoke=True)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        build_model(cfg.replace(window=8, window_all=True))
+    with pytest.raises(NotImplementedError, match="item 17"):
+        build_model(cfg.replace(kind="mamba"))
+
+
+def test_generate_validates_inputs():
+    engine = E.Engine.from_checkpoint("smollm-135m", smoke=True,
+                                      device="cpu")
+    with pytest.raises(ValueError, match="1-D"):
+        engine.generate_one(np.zeros((2, 3), np.int32), gen=2)
+    with pytest.raises(ValueError, match="gen"):
+        engine.generate_batch({"tokens": np.zeros((1, 3), np.int32)}, gen=0)

@@ -1,0 +1,234 @@
+"""The port's kernel entry points against the reference's kernels.
+
+On the CPU each entry point runs its plain PyTorch version; these tests
+hold it against the JAX oracle (``repro.kernels.ref``) and against the
+Pallas kernel run in interpret mode, on the same numpy inputs.  Tests
+marked ``cuda`` hold the hand-written CUDA kernel against the plain
+version and skip where no CUDA device is present.
+
+Tolerances: quant_matmul is integer arithmetic plus one float32 multiply
+and one bf16 rounding, identical in both packages, so it must be
+bit-exact.  The attentions sum float32 products in another order than
+XLA (and fold the scales differently from the jnp oracle), so they agree
+to atol 1e-5 on outputs of magnitude ~1.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import decode_attention as jda
+from repro.kernels import prefill_attention as jpa
+from repro.kernels import quant_matmul as jqm
+from repro.kernels import ref as jref
+from repro_torch.bridge import to_tensor
+from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import ops
+from repro_torch.kernels import prefill_attention as tpa
+from repro_torch.kernels import quant_matmul as tqm
+from repro_torch.kernels import ref as tref
+
+ATOL = 1e-5
+
+
+def _qm_inputs(m, k, n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(m, k)) * 2).astype(np.float32)
+    if dtype == "bf16":
+        x = np.asarray(jnp.asarray(x, jnp.bfloat16))
+    w_q = rng.integers(-127, 128, (k, n), dtype=np.int8)
+    w_scale = (rng.random(n) * 1e-2).astype(np.float32)
+    act_scale = np.float32(127.0 / (np.abs(x.astype(np.float32)).max() * 0.7))
+    return x, w_q, w_scale, act_scale
+
+
+def _ours_qm(x, w_q, w_scale, act_scale):
+    out = ops.quant_matmul(to_tensor(x), to_tensor(w_q), to_tensor(w_scale),
+                           to_tensor(np.asarray(act_scale)))
+    return out.view(torch.uint16).numpy()
+
+
+def _bits(jax_bf16):
+    return np.asarray(jax_bf16).view(np.uint16)
+
+
+@pytest.mark.parametrize("m", [1, 5, 64])
+@pytest.mark.parametrize("k,n", [(64, 32), (576, 192), (1536, 576), (40, 24)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quant_matmul_bit_exact_vs_jax_oracle(m, k, n, dtype):
+    """Ragged M, K and N included (the port masks edges)."""
+    x, w_q, w_scale, act_scale = _qm_inputs(m, k, n, dtype, seed=m + k + n)
+    want = jref.quant_matmul_ref(jnp.asarray(x), jnp.asarray(w_q),
+                                 jnp.asarray(w_scale), jnp.asarray(act_scale))
+    np.testing.assert_array_equal(_ours_qm(x, w_q, w_scale, act_scale),
+                                  _bits(want))
+
+
+@pytest.mark.parametrize("m", [1, 5, 64])
+def test_quant_matmul_bit_exact_vs_pallas_interpret(m):
+    """Where K and N tile the TPU kernel's blocks, against the Pallas
+    kernel itself."""
+    x, w_q, w_scale, act_scale = _qm_inputs(m, 64, 32, "bf16", seed=m)
+    want = jqm.quant_matmul(jnp.asarray(x), jnp.asarray(w_q),
+                            jnp.asarray(w_scale), jnp.asarray(act_scale),
+                            interpret=True)
+    np.testing.assert_array_equal(_ours_qm(x, w_q, w_scale, act_scale),
+                                  _bits(want))
+
+
+def test_quant_matmul_smollm_widths_where_the_tpu_kernel_asserts():
+    """The TPU kernel asserts that K and N tile by (512, 256); smollm-135m's
+    K=576 does not.  The port takes these widths."""
+    x, w_q, w_scale, act_scale = _qm_inputs(8, 576, 576, "bf16", seed=3)
+    with pytest.raises(AssertionError, match="not tiled"):
+        jqm.quant_matmul(jnp.asarray(x), jnp.asarray(w_q),
+                         jnp.asarray(w_scale), jnp.asarray(act_scale),
+                         interpret=True)
+    want = jref.quant_matmul_ref(jnp.asarray(x), jnp.asarray(w_q),
+                                 jnp.asarray(w_scale), jnp.asarray(act_scale))
+    np.testing.assert_array_equal(_ours_qm(x, w_q, w_scale, act_scale),
+                                  _bits(want))
+
+
+def _attn_inputs(b, sq, sk, kvh, g, d, seed, decode=False):
+    rng = np.random.default_rng(seed)
+    qshape = (b, kvh, g, d) if decode else (b, sq, kvh, g, d)
+    q = rng.normal(size=qshape).astype(np.float32)
+    k = rng.integers(-127, 128, (b, sk, kvh, d), dtype=np.int8)
+    v = rng.integers(-127, 128, (b, sk, kvh, d), dtype=np.int8)
+    ks = (rng.random(kvh) * 0.02 + 0.005).astype(np.float32)
+    vs = (rng.random(kvh) * 0.02 + 0.005).astype(np.float32)
+    return q, k, v, ks, vs
+
+
+@pytest.mark.parametrize("cur_pos", [
+    17, np.array([32, 9, 1], np.int32), np.array([0, 20, 5], np.int32)],
+    ids=["scalar", "vector", "with_zero"])
+def test_decode_attention_vs_jax(cur_pos):
+    q, k, v, ks, vs = _attn_inputs(3, 1, 32, 2, 3, 16, seed=4, decode=True)
+    args = [jnp.asarray(a) for a in (q, k, v, ks, vs)]
+    pos_j = jnp.asarray(cur_pos, jnp.int32)
+    pos_t = (cur_pos if isinstance(cur_pos, int)
+             else torch.from_numpy(np.asarray(cur_pos)))
+    got = ops.decode_attention(*[to_tensor(a) for a in (q, k, v, ks, vs)],
+                               pos_t).numpy()
+    oracle = np.asarray(jref.decode_attention_ref(*args, pos_j))
+    pallas = np.asarray(jda.decode_attention_int8(*args, pos_j,
+                                                  interpret=True))
+    np.testing.assert_allclose(got, oracle, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=ATOL)
+    if not isinstance(cur_pos, int):
+        np.testing.assert_array_equal(got[np.asarray(cur_pos) == 0], 0.0)
+
+
+@pytest.mark.parametrize("q_start,kv_len,window", [
+    (0, [24, 24], None),
+    (5, [20, 11], None),
+    (8, [24, 3], 6),
+], ids=["full", "q_start_kv_len", "window"])
+def test_prefill_attention_vs_jax(q_start, kv_len, window):
+    b, sq, sk = 2, 13, 24
+    q, k, v, ks, vs = _attn_inputs(b, sq, sk, 2, 3, 16, seed=5)
+    args = [jnp.asarray(a) for a in (q, k, v, ks, vs)]
+    qs_j, kl_j = jnp.int32(q_start), jnp.asarray(kv_len, jnp.int32)
+    got = ops.prefill_attention(
+        *[to_tensor(a) for a in (q, k, v, ks, vs)], q_start,
+        torch.tensor(kv_len, dtype=torch.int32), causal=True,
+        window=window).numpy()
+    oracle = np.asarray(jref.prefill_attention_ref(
+        *args, qs_j, kl_j, causal=True, window=window))
+    pallas = np.asarray(jpa.prefill_attention_int8(
+        *args, qs_j, kl_j, causal=True, window=window, interpret=True))
+    np.testing.assert_allclose(got, oracle, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=ATOL)
+
+
+def test_prefill_attention_per_request_q_start_vs_pallas():
+    """A (B,) q_start vector, as the per-slot verify pass uses it."""
+    q, k, v, ks, vs = _attn_inputs(2, 5, 24, 2, 3, 16, seed=6)
+    qs, kl = np.array([3, 17], np.int32), np.array([8, 22], np.int32)
+    got = ops.prefill_attention(*[to_tensor(a) for a in (q, k, v, ks, vs)],
+                                torch.from_numpy(qs), torch.from_numpy(kl),
+                                causal=True).numpy()
+    pallas = np.asarray(jpa.prefill_attention_int8(
+        *[jnp.asarray(a) for a in (q, k, v, ks, vs)], jnp.asarray(qs),
+        jnp.asarray(kl), causal=True, interpret=True))
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=ATOL)
+
+
+def test_entry_points_validate_inputs():
+    q, k, v, ks, vs = [to_tensor(a) for a in
+                       _attn_inputs(2, 4, 8, 2, 3, 16, seed=7)]
+    with pytest.raises(TypeError, match="int8"):
+        ops.prefill_attention(q, k.float(), v, ks, vs, 0, 8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.prefill_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                              v[..., :12].contiguous(), ks, vs, 0, 8)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ops.prefill_attention(q, k, v, ks, vs, 0, 8, kv_bits=4)
+    x = torch.zeros((3, 16))
+    w = torch.zeros((16, 8), dtype=torch.int8)
+    one = torch.ones(())
+    with pytest.raises(ValueError, match="w_scale"):
+        ops.quant_matmul(x, w, torch.ones(4), one)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ops.quant_matmul(x, w, torch.ones(8), one, w_bits=4)
+
+
+@pytest.mark.parametrize("launch", [
+    lambda: tqm.launch(torch.zeros((2, 8)), torch.zeros((8, 8), dtype=torch.int8),
+                       torch.ones(8), torch.ones(())),
+    lambda: tda.launch(torch.zeros((1, 1, 1, 8)),
+                       torch.zeros((1, 4, 1, 8), dtype=torch.int8),
+                       torch.zeros((1, 4, 1, 8), dtype=torch.int8),
+                       torch.ones(1), torch.ones(1),
+                       torch.ones(1, dtype=torch.int32)),
+    lambda: tpa.launch(torch.zeros((1, 2, 1, 1, 8)),
+                       torch.zeros((1, 2, 1, 8), dtype=torch.int8),
+                       torch.zeros((1, 2, 1, 8), dtype=torch.int8),
+                       torch.ones(1), torch.ones(1),
+                       torch.zeros(1, dtype=torch.int32),
+                       torch.full((1,), 2, dtype=torch.int32)),
+], ids=["quant_matmul", "decode_attention", "prefill_attention"])
+def test_cuda_launch_refuses_cpu_tensors(launch):
+    """The kernel wrappers never fall back to the plain version."""
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        launch()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 2048])
+def test_cuda_quant_matmul_bit_exact(cuda_device, m):
+    x, w_q, w_scale, act_scale = [
+        to_tensor(np.asarray(a)).to(cuda_device)
+        for a in _qm_inputs(m, 576, 192, "bf16", seed=m)]
+    np.testing.assert_array_equal(
+        tqm.launch(x, w_q, w_scale, act_scale).cpu().view(torch.uint16),
+        tref.quant_matmul_ref(x, w_q, w_scale, act_scale).cpu().view(
+            torch.uint16))
+
+
+@pytest.mark.cuda
+def test_cuda_attention_kernels_match_plain(cuda_device):
+    dev = cuda_device
+    q, k, v, ks, vs = [to_tensor(a).to(dev) for a in
+                       _attn_inputs(2, 70, 100, 3, 3, 64, seed=8)]
+    qs = torch.tensor([0, 30], dtype=torch.int32, device=dev)
+    kl = torch.tensor([70, 100], dtype=torch.int32, device=dev)
+    np.testing.assert_allclose(
+        tpa.launch(q, k, v, ks, vs, qs, kl).cpu(),
+        tref.prefill_attention_ref(q, k, v, ks, vs, qs, kl).cpu(),
+        rtol=0, atol=1e-4)
+    qd = q[:, 0].contiguous()
+    pos = torch.tensor([0, 77], dtype=torch.int32, device=dev)
+    np.testing.assert_allclose(
+        tda.launch(qd, k, v, ks, vs, pos).cpu(),
+        tref.decode_attention_ref(qd, k, v, ks, vs, pos).cpu(),
+        rtol=0, atol=1e-4)
