@@ -5,14 +5,22 @@
 
 1. builds the hand-written Hopper kernels (``src/repro_torch/csrc``);
 2. holds each kernel against its plain PyTorch version on the card at the
-   shapes of the main path (quant_matmul bit for bit), and times kernel,
-   plain version and one PyTorch library call as a yardstick;
-3. drives the main path at the full width of smollm-135m (30 layers,
+   shapes of the main path (quant_matmul bit for bit; the attentions with
+   an int8 and a packed int4 K/V stream), and times kernel, plain version
+   and one PyTorch library call as a yardstick;
+3. drives the int8 main path at the full width of smollm-135m (30 layers,
    seeded random weights): ``Engine.from_checkpoint`` -> §2 calibration ->
    int8 conversion -> ``generate_batch`` on 4 prompts of 512 tokens with 32
    generated tokens, and checks that every kernel was launched by it;
 4. holds the GPU logits and greedy tokens against the same engine moved to
-   the CPU (the plain versions), teacher-forced on the GPU's tokens.
+   the CPU (the plain versions), teacher-forced on the GPU's tokens;
+5. [finetune] builds the int4 engine with 2 epochs of the paper's §3
+   threshold fine-tune on the card (``kv_bits=4, finetune_thresholds=2``)
+   and checks its losses; fine-tunes from KV thresholds 4x too wide, where
+   each batch's loss must fall; holds the first step's loss and threshold
+   gradients against the same step on the CPU;
+6. [int4 path] drives that engine's ``generate_batch`` (int4 KV cache,
+   the kernels' int4 variants) and holds it against the CPU as in 4.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -26,6 +34,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 B, PROMPT, GEN = 4, 512, 32
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak
@@ -35,6 +45,22 @@ ATTN_TOL = 1e-4             # kernel vs plain attention (float32 sums reordered)
 # places in the two devices' norms, rotary, SiLU and readout, and the
 # differences pass through 30 residual layers
 LOGIT_ATOL = 0.25
+# the same at int4 KV: a K/V element that the bf16 differences move across
+# a rounding boundary moves by one int4 step, T/7, not T/127
+LOGIT_ATOL_INT4 = 0.5
+# GPU vs CPU for the engine's first fine-tune step (bfloat16), same inputs:
+# the loss's relative error, and the relative L2 error of all alpha (or all
+# KV log2_t) gradients together.  Both devices round differently, and at
+# the int4 KV grid an element moved across a rounding boundary moves by
+# T/7 and carries on through the later layers: the engine's loss moves by
+# 1.5% over two fine-tune steps that move every threshold by 0.1%, and
+# even in float32 an H100 and the CPU give losses 1.9e-3 apart at full
+# width.  The alpha gradients are sums of rounding residuals (y - x)/T,
+# each flipped element moving its alpha's gradient by about one step
+# times its incoming gradient, so they agree only roughly; a wrong
+# gradient would be off by its whole norm or more.
+FT_LOSS_RTOL = 2e-2
+FT_GRAD_RTOL = {"alpha": 0.5, "log2_t": 0.1}
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -93,7 +119,6 @@ def check_quant_matmul(torch, ops, ref, dev):
     for phase, m in (("decode", B), ("prefill", B * PROMPT)):
         tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, bound_ms=0.0,
                    library_ms=0.0, nbytes=0, ops=0)
-        library_ok = True
         for name, k, n in layer:
             x = (torch.randn((m, k), generator=gen, device=dev) * 2).to(
                 torch.bfloat16)
@@ -115,28 +140,26 @@ def check_quant_matmul(torch, ops, ref, dev):
                 x, w_q, w_scale, act_scale), iters=5, warmup=1)
             nbytes = m * k * 2 + k * n + 4 * n + 4 + m * n * 2
             bnd, _ = bound_ms(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
-            # yardstick: cuBLAS int8 GEMM (torch._int_mm needs M > 16 and
-            # K, N multiples of 8); not called anywhere in the port
-            lib = None
-            if m > 16 and k % 8 == 0 and n % 8 == 0:
-                x_q = torch.clamp(torch.round(x.float() * act_scale), -127,
-                                  127).to(torch.int8)
-                lib, _ = timed(torch, lambda: torch._int_mm(x_q, w_q))
+            # yardstick: cuBLAS int8 GEMM, not called anywhere in the port;
+            # torch._int_mm needs M > 16, so the decode rows are zero-padded
+            # to M = 32 (the same product, plus padding)
+            x_q = torch.clamp(torch.round(x.float() * act_scale), -127,
+                              127).to(torch.int8)
+            if m <= 16:
+                x_q = torch.cat([x_q, x_q.new_zeros((32 - m, k))])
+            lib, _ = timed(torch, lambda: torch._int_mm(x_q, w_q))
             print(f"  quant_matmul {phase:7s} {name:4s} M={m:5d} K={k:4d} "
                   f"N={n:4d}: {ms * 1e3:8.1f} us (per call {call * 1e3:6.1f}"
                   f" us)  plain {plain * 1e3:9.1f} us"
-                  f"  bound {bnd * 1e3:6.2f} us  _int_mm "
-                  f"{'n/a' if lib is None else f'{lib * 1e3:.1f} us'}")
+                  f"  bound {bnd * 1e3:6.2f} us  _int_mm {lib * 1e3:.1f} us"
+                  + (" (M padded to 32)" if m <= 16 else ""))
             tot["ms"] += ms
             tot["call_ms"] += call
             tot["plain_ms"] += plain
             tot["bound_ms"] += bnd
             tot["nbytes"] += nbytes
             tot["ops"] += 2 * m * k * n
-            if lib is None:
-                library_ok = False
-            else:
-                tot["library_ms"] += lib
+            tot["library_ms"] += lib
         _, by = bound_ms(tot["nbytes"], tot["ops"], INT8_OPS_PER_S)
         entries.append({
             "name": f"quant_matmul[{phase}: one layer's 7 matmuls, M={m}]",
@@ -145,33 +168,55 @@ def check_quant_matmul(torch, ops, ref, dev):
             "kernel": "quant_matmul", "max_abs_err": 0.0, "ms": tot["ms"],
             "call_ms": tot["call_ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": by,
-            "library_ms": tot["library_ms"] if library_ok else None})
+            "library_ms": tot["library_ms"],
+            "library": "torch._int_mm" + (
+                f" on x zero-padded from M={m} to M=32" if m <= 16 else "")})
     return entries
 
 
-def dequant_heads(torch, t, scale, groups):
-    """(B, S, KV, D) int8 -> (B, KV*G, S, D) bf16 for the SDPA yardstick."""
+def dequant_heads(torch, t, scale, groups, bits):
+    """(B, S, KV, D) int8 or (B, S, KV, D/2) packed int4 -> (B, KV*G, S, D)
+    bf16 for the SDPA yardstick."""
+    from repro_torch.core.packing import unpack_int4
+
+    if bits == 4:
+        t = unpack_int4(t)
     f = (t.float() * scale.reshape(1, 1, -1, 1)).to(torch.bfloat16)
     return f.permute(0, 2, 1, 3).repeat_interleave(groups, dim=1).contiguous()
 
 
-def check_attention(torch, ops, ref, dev):
+def check_attention(torch, ops, ref, dev, bits):
+    """Both attention kernels at the main path's shapes with a ``bits``-wide
+    K/V stream (int8, or int4 packed two per byte): against their plain
+    versions (main-path, ragged and windowed cases), then timed."""
     import torch.nn.functional as F
 
+    from repro_torch.core.packing import pack_int4
+
     kvh, g, d = 3, 3, 64
+    lv = 127 if bits == 8 else 7
     cache_len = -(-(PROMPT + GEN) // 128) * 128
     gen = torch.Generator(device=dev).manual_seed(1)
     k_scale = torch.rand((kvh,), generator=gen, device=dev) * 0.05 + 0.01
     v_scale = torch.rand((kvh,), generator=gen, device=dev) * 0.05 + 0.01
+    tag = "int8" if bits == 8 else "int4 packed"
+    variant = "" if bits == 8 else "@int4"
+
+    def tiles(shape):
+        t = torch.randint(-lv, lv + 1, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        return pack_int4(t) if bits == 4 else t
+
+    def kv_bytes(n_pos):        # K and V of n_pos positions, one layer
+        return 2 * B * n_pos * kvh * d * bits // 8
+
     entries = []
 
     # -- prefill: main-path shape, then ragged / windowed variants ---------
     q = torch.randn((B, PROMPT, kvh, g, d), generator=gen, device=dev).to(
         torch.bfloat16)
-    k = torch.randint(-127, 128, (B, PROMPT, kvh, d), generator=gen,
-                      device=dev, dtype=torch.int8)
-    v = torch.randint(-127, 128, (B, PROMPT, kvh, d), generator=gen,
-                      device=dev, dtype=torch.int8)
+    k = tiles((B, PROMPT, kvh, d))
+    v = tiles((B, PROMPT, kvh, d))
     full = torch.full((B,), PROMPT, dtype=torch.int32, device=dev)
     zero = torch.zeros((B,), dtype=torch.int32, device=dev)
     err = 0.0
@@ -182,37 +227,41 @@ def check_attention(torch, ops, ref, dev):
              (zero, full, 100)]
     for q_start, kv_len, window in cases:
         got = ops.prefill_attention(q, k, v, k_scale, v_scale, q_start,
-                                    kv_len, causal=True, window=window)
+                                    kv_len, causal=True, window=window,
+                                    kv_bits=bits)
         want = ref.prefill_attention_ref(q, k, v, k_scale, v_scale, q_start,
-                                         kv_len, causal=True, window=window)
+                                         kv_len, causal=True, window=window,
+                                         kv_bits=bits)
         torch.cuda.synchronize()
         e = (got - want).abs().max().item()
         if not e <= ATTN_TOL * (1 + want.abs().max().item()):
-            raise AssertionError(f"prefill_attention disagrees with its plain "
-                                 f"version: max |diff| {e} (window={window})")
+            raise AssertionError(f"prefill_attention ({tag}) disagrees with "
+                                 f"its plain version: max |diff| {e} "
+                                 f"(window={window})")
         err = max(err, e)
     ms, call = timed(torch, lambda: ops.prefill_attention(
-        q, k, v, k_scale, v_scale, zero, full, causal=True))
+        q, k, v, k_scale, v_scale, zero, full, causal=True, kv_bits=bits))
     plain, _ = timed(torch, lambda: ref.prefill_attention_ref(
-        q, k, v, k_scale, v_scale, zero, full, causal=True), iters=5,
-        warmup=1)
+        q, k, v, k_scale, v_scale, zero, full, causal=True, kv_bits=bits),
+        iters=5, warmup=1)
     qh = q.permute(0, 2, 3, 1, 4).reshape(B, kvh * g, PROMPT, d).contiguous()
-    kh = dequant_heads(torch, k, k_scale, g)
-    vh = dequant_heads(torch, v, v_scale, g)
+    kh = dequant_heads(torch, k, k_scale, g, bits)
+    vh = dequant_heads(torch, v, v_scale, g, bits)
     lib, _ = timed(torch, lambda: F.scaled_dot_product_attention(
         qh, kh, vh, is_causal=True))
     pairs = PROMPT * (PROMPT + 1) // 2
-    nbytes = q.numel() * 2 + 2 * k.numel() + 8 * kvh + 8 * B + q.numel() * 4
+    nbytes = q.numel() * 2 + kv_bytes(PROMPT) + 8 * kvh + 8 * B + q.numel() * 4
     bnd, by = bound_ms(nbytes, 4 * d * pairs * B * kvh * g, BF16_FLOPS_PER_S)
-    print(f"  prefill_attention B={B} S={PROMPT} KV={kvh} G={g} D={d}: "
-          f"{ms * 1e3:.1f} us (per call {call * 1e3:.1f} us)  plain {plain * 1e3:.1f} us  bound "
-          f"{bnd * 1e3:.2f} us  sdpa {lib * 1e3:.1f} us  max|err| {err:.2e} "
-          f"(tolerance {ATTN_TOL} x (1 + max|out|))")
+    print(f"  prefill_attention [{tag}] B={B} S={PROMPT} KV={kvh} G={g} "
+          f"D={d}: {ms * 1e3:.1f} us (per call {call * 1e3:.1f} us)  plain "
+          f"{plain * 1e3:.1f} us  bound {bnd * 1e3:.2f} us  sdpa "
+          f"{lib * 1e3:.1f} us  max|err| {err:.2e} (tolerance {ATTN_TOL} x "
+          f"(1 + max|out|))")
     entries.append({
-        "name": f"prefill_attention[B={B}, S={PROMPT}, one layer]",
+        "name": f"prefill_attention[{tag} K/V, B={B}, S={PROMPT}, one layer]",
         "route": "cuda", "source": "src/repro_torch/csrc/prefill_attention.cu",
         "replaces": "src/repro/kernels/prefill_attention.py:192",
-        "kernel": "prefill_attention", "max_abs_err": err, "ms": ms,
+        "kernel": "prefill_attention" + variant, "max_abs_err": err, "ms": ms,
         "call_ms": call, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
         "library_ms": lib})
 
@@ -220,42 +269,44 @@ def check_attention(torch, ops, ref, dev):
     cur = PROMPT + GEN // 2
     qd = torch.randn((B, kvh, g, d), generator=gen, device=dev).to(
         torch.bfloat16)
-    kc = torch.randint(-127, 128, (B, cache_len, kvh, d), generator=gen,
-                       device=dev, dtype=torch.int8)
-    vc = torch.randint(-127, 128, (B, cache_len, kvh, d), generator=gen,
-                       device=dev, dtype=torch.int8)
+    kc = tiles((B, cache_len, kvh, d))
+    vc = tiles((B, cache_len, kvh, d))
     pos = torch.full((B,), cur, dtype=torch.int32, device=dev)
     err = 0.0
     for cur_pos in (pos, torch.tensor([0, 1, 300, cache_len],
                                       dtype=torch.int32, device=dev)):
-        got = ops.decode_attention(qd, kc, vc, k_scale, v_scale, cur_pos)
-        want = ref.decode_attention_ref(qd, kc, vc, k_scale, v_scale, cur_pos)
+        got = ops.decode_attention(qd, kc, vc, k_scale, v_scale, cur_pos,
+                                   kv_bits=bits)
+        want = ref.decode_attention_ref(qd, kc, vc, k_scale, v_scale,
+                                        cur_pos, kv_bits=bits)
         torch.cuda.synchronize()
         e = (got - want).abs().max().item()
         if not e <= ATTN_TOL * (1 + want.abs().max().item()):
-            raise AssertionError(f"decode_attention disagrees with its plain "
-                                 f"version: max |diff| {e}")
+            raise AssertionError(f"decode_attention ({tag}) disagrees with "
+                                 f"its plain version: max |diff| {e}")
         err = max(err, e)
-    ms, call = timed(torch, lambda: ops.decode_attention(qd, kc, vc, k_scale,
-                                                         v_scale, pos))
+    ms, call = timed(torch, lambda: ops.decode_attention(
+        qd, kc, vc, k_scale, v_scale, pos, kv_bits=bits))
     plain, _ = timed(torch, lambda: ref.decode_attention_ref(
-        qd, kc, vc, k_scale, v_scale, pos))
+        qd, kc, vc, k_scale, v_scale, pos, kv_bits=bits))
     qh = qd.reshape(B, kvh * g, 1, d)
-    kh = dequant_heads(torch, kc[:, :cur], k_scale, g)
-    vh = dequant_heads(torch, vc[:, :cur], v_scale, g)
+    kh = dequant_heads(torch, kc[:, :cur], k_scale, g, bits)
+    vh = dequant_heads(torch, vc[:, :cur], v_scale, g, bits)
     lib, _ = timed(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
-    nbytes = (qd.numel() * 2 + 2 * B * cur * kvh * d + 8 * kvh + 4 * B
+    nbytes = (qd.numel() * 2 + kv_bytes(cur) + 8 * kvh + 4 * B
               + qd.numel() * 4)
     bnd, by = bound_ms(nbytes, 4 * B * kvh * g * cur * d, BF16_FLOPS_PER_S)
-    print(f"  decode_attention B={B} cache={cache_len} cur_pos={cur}: "
-          f"{ms * 1e3:.1f} us (per call {call * 1e3:.1f} us)  plain {plain * 1e3:.1f} us  bound "
-          f"{bnd * 1e3:.2f} us  sdpa {lib * 1e3:.1f} us  max|err| {err:.2e} "
-          f"(tolerance {ATTN_TOL} x (1 + max|out|))")
+    print(f"  decode_attention [{tag}] B={B} cache={cache_len} cur_pos={cur}: "
+          f"{ms * 1e3:.1f} us (per call {call * 1e3:.1f} us)  plain "
+          f"{plain * 1e3:.1f} us  bound {bnd * 1e3:.2f} us  sdpa "
+          f"{lib * 1e3:.1f} us  max|err| {err:.2e} (tolerance {ATTN_TOL} x "
+          f"(1 + max|out|))")
     entries.append({
-        "name": f"decode_attention[B={B}, cur_pos={cur}, one layer]",
+        "name": f"decode_attention[{tag} K/V, B={B}, cur_pos={cur}, one "
+                f"layer]",
         "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:172",
-        "kernel": "decode_attention", "max_abs_err": err, "ms": ms,
+        "kernel": "decode_attention" + variant, "max_abs_err": err, "ms": ms,
         "call_ms": call, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
         "library_ms": lib})
     return entries
@@ -317,6 +368,189 @@ def breakdown(torch, engine, prompts, card):
             f"{k[:48]} {t / div / 1e3:.3f} ms" for k, t in top))
 
 
+def drive_main_path(torch, ops, engine, prompts, label, kind, card):
+    """Warm up, zero the launch counts, serve 4 x 512 prompts for 32 tokens
+    and check what came out and which kernels ran; returns (result, all
+    launch counts, int4-variant launch counts)."""
+    engine.generate_batch({"tokens": prompts}, gen=2)   # warm-up
+    ops.reset_launches()
+    res = engine.generate_batch({"tokens": prompts}, gen=GEN)
+    counts, int4 = ops.launch_counts(), ops.int4_launch_counts()
+    n_layers = engine.cfg.n_layers
+    expected = {"quant_matmul": 7 * n_layers * GEN,
+                "prefill_attention": n_layers,
+                "decode_attention": n_layers * (GEN - 1)}
+    int4_expected = ({k: expected[k] for k in int4}
+                     if engine.policy.kv_bits == 4 else {k: 0 for k in int4})
+    print(f"[{label}] kernel launches {counts} (expected {expected}); int4 "
+          f"variants {int4} (expected {int4_expected})")
+    if counts != expected or int4 != int4_expected:
+        raise AssertionError(f"launch counts {counts} / {int4} != "
+                             f"{expected} / {int4_expected}")
+    if not bool(torch.isfinite(res.prefill_logits).all()):
+        raise AssertionError("non-finite prefill logits")
+    toks = res.tokens.cpu()
+    if toks.shape != (B, GEN) or not bool(
+            ((toks >= 0) & (toks < engine.cfg.vocab)).all()):
+        raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
+    prefill_tps = B * PROMPT / res.prefill_s
+    decode_ms = res.decode_s / (GEN - 1) * 1e3
+    print(f"[{label}] prefill {B}x{PROMPT} tokens: {res.prefill_s * 1e3:.1f}"
+          f" ms = {prefill_tps:.0f} tokens/s; decode: {decode_ms:.2f} ms per "
+          f"step of {B} tokens (ms/token per request) on {kind} ({card})")
+    return res, counts, int4
+
+
+def cpu_check(torch, A, engine, prompts, toks, tol, label):
+    """Teacher-forced logits of the GPU engine against the same engine
+    moved to the CPU (plain versions): the GPU's token must be the CPU's
+    argmax or within ``tol`` of it (a near-tie that rounding may flip), and
+    no logit may differ by more than ``tol``."""
+    n_check = 4
+    tok_t = torch.as_tensor(toks, dtype=torch.long)
+    gpu = forced_logits(torch, A, engine, torch.as_tensor(prompts), tok_t,
+                        n_check)
+    for i, lg in enumerate(gpu):
+        if not torch.equal(lg.argmax(-1), tok_t[:, i]):
+            raise AssertionError(f"step {i}: teacher-forced GPU argmax "
+                                 f"differs from generate_batch's tokens")
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"step {i}: non-finite logits")
+    t0 = time.perf_counter()
+    cpu = forced_logits(torch, A, engine.to("cpu"),
+                        torch.as_tensor(prompts), tok_t, n_check)
+    worst, same, ties, gaps = 0.0, 0, 0, []
+    for i, (g_lg, c_lg) in enumerate(zip(gpu, cpu)):
+        worst = max(worst, (g_lg - c_lg).abs().max().item())
+        pick = c_lg.argmax(-1)
+        for r in range(B):
+            gap = (c_lg[r, pick[r]] - c_lg[r, tok_t[r, i]]).item()
+            if int(pick[r]) == int(tok_t[r, i]):
+                same += 1
+            elif gap <= tol:
+                ties += 1   # a near-tie that bf16 rounding may flip
+            else:
+                gaps.append(f"step {i} row {r}: CPU picks {int(pick[r])}, "
+                            f"GPU {int(tok_t[r, i])}, {gap:.4f} apart")
+    print(f"[{label}] {n_check} teacher-forced steps on the CPU (plain "
+          f"versions) in {time.perf_counter() - t0:.1f} s: max |logit diff| "
+          f"{worst:.4f} (tolerance {tol}); greedy tokens equal "
+          f"{same}/{n_check * B}, near-ties {ties}, further apart "
+          f"{len(gaps)}")
+    if gaps:
+        raise AssertionError(f"tokens differ by more than {tol}: {gaps}")
+    if worst > tol:
+        raise AssertionError(f"GPU and CPU logits differ by {worst}")
+
+
+def calibrated(torch, A, ST, model, params, policy, batches):
+    """§2 calibration over ``batches``, finalized with trainable
+    thresholds (what the engine's fine-tune starts from)."""
+    with torch.no_grad():
+        qp = A.init_qparams(model, params, policy)
+        calib = ST.make_calibrate_step(model, policy)
+        for b in batches:
+            qp = calib(params, qp, b)
+        return A.finalize_calibration(qp, train_thresholds=True)
+
+
+def inflate_kv(A, qparams, factor):
+    """Every KV threshold ``factor`` times too wide, as one outlier in the
+    calibration set makes it (the reference's over-calibration case,
+    ``tests/test_threshold_train.py::_calibrate(inflate=)``)."""
+    return {k: ({kk: {"t_max": st["t_max"] * factor,
+                      "log2_t": st["log2_t"] + float(np.log2(factor))}
+                 for kk, st in v.items()} if A.is_kv_path(k) else v)
+            for k, v in qparams.items()}
+
+
+def per_batch(losses, n):
+    """(first-epoch, last-epoch) loss of each of the n batches."""
+    return [(losses[b], losses[len(losses) - n + b]) for b in range(n)]
+
+
+def check_finetune(torch, A, ST, engine, card):
+    """The §3 fine-tune on the card.
+
+    1. The int4 engine's own fine-tune (lr 1e-3, 2 epochs): every loss
+       finite; the change of each batch's loss is printed.
+    2. The over-calibration case the reference pins
+       (``test_distill_loss_strictly_decreases``: KV thresholds 4x too
+       wide, lr 0.1, cosine period 8), from the engine's weights and
+       calibration, 2 epochs over the same batches on the card: each
+       batch's loss must be lower in the last epoch than in the first.
+    3. The first step of 1, from the same seeded inputs, on the card and
+       on the CPU: the loss and the alpha and KV log2_t gradients."""
+    from repro_torch import data as D
+    from repro_torch.bridge import tree_to
+
+    log = engine.finetune_log
+    losses, step_s = log["losses"], log["step_s"]
+    for i, (lo, sec) in enumerate(zip(losses, step_s)):
+        print(f"[finetune] step {i}: loss {lo:.6f}  {sec * 1e3:.1f} ms "
+              f"(synchronized)")
+    batches = D.calibration_batches(engine.cfg.vocab, seed=0)
+    n = len(batches)
+    if not all(np.isfinite(losses)) or len(losses) % n:
+        raise AssertionError(f"fine-tune losses {losses}")
+    print(f"[finetune] {len(losses)} steps, {np.mean(step_s[1:]) * 1e3:.1f} "
+          f"ms per step after the first ({step_s[0] * 1e3:.1f} ms) on {card}; "
+          "loss per batch, first -> last epoch: " + ", ".join(
+              f"{a:.4f} -> {b:.4f} ({(b - a) / a:+.2%})"
+              for a, b in per_batch(losses, n)))
+
+    dev = engine.device
+    model, policy = engine.model, engine.policy
+    params = tree_to(model.init(torch.Generator().manual_seed(0)), dev)
+    toks = [{"tokens": torch.as_tensor(b["tokens"], device=dev)}
+            for b in batches]
+    qp = calibrated(torch, A, ST, model, params, policy, toks)
+
+    # 2. recovery from over-calibrated KV thresholds
+    t0 = time.perf_counter()
+    _, rec = ST.finetune_thresholds(
+        model, policy, params, inflate_kv(A, qp, 4.0), toks, epochs=2,
+        hp=ST.TrainHParams(base_lr=0.1, anneal_period=8))
+    print(f"[finetune] KV thresholds 4x too wide, lr 0.1, 2 epochs in "
+          f"{time.perf_counter() - t0:.1f} s: losses " + " ".join(
+              f"{lo:.4f}" for lo in rec))
+    for b, (first, last) in enumerate(per_batch(rec, n)):
+        if not (np.isfinite(rec).all() and last < first):
+            raise AssertionError(f"over-calibrated fine-tune, batch {b}: loss "
+                                 f"{last} in the last epoch is not below "
+                                 f"{first} in the first")
+
+    # 3. the first step on the card and on the CPU
+    grad_fn = ST.make_fat_grad_fn(model, policy)
+    loss_g, grads_g = grad_fn(params, qp, toks[0])
+    t0 = time.perf_counter()
+    loss_c, grads_c = grad_fn(tree_to(params, "cpu"), tree_to(qp, "cpu"),
+                              {"tokens": toks[0]["tokens"].cpu()})
+    cpu_s = time.perf_counter() - t0
+    loss_g, loss_c = float(loss_g), float(loss_c)
+    rel_loss = abs(loss_g - loss_c) / abs(loss_c)
+    print(f"[finetune] first step: loss {loss_g:.6f} on the card (the "
+          f"engine's: {losses[0]:.6f}), {loss_c:.6f} on the CPU ({cpu_s:.1f}"
+          f" s); relative difference {rel_loss:.2e} (tolerance "
+          f"{FT_LOSS_RTOL})")
+    bad = [] if rel_loss <= FT_LOSS_RTOL else ["loss"]
+    for kind, tol in FT_GRAD_RTOL.items():
+        keys = [k for k in grads_c if k[-1] == kind]
+        g = torch.cat([grads_g[k].float().cpu().reshape(-1) for k in keys])
+        c = torch.cat([grads_c[k].float().reshape(-1) for k in keys])
+        rel = ((g - c).norm() / c.norm()).item()
+        agree = (torch.sign(g) == torch.sign(c)).float().mean().item()
+        print(f"[finetune]   {kind} gradients ({len(keys)} leaves, "
+              f"{c.numel()} values): relative L2 difference card vs CPU "
+              f"{rel:.3e} (tolerance {tol}), signs agree {agree:.3f}, "
+              f"|grad| max {c.abs().max().item():.3e}")
+        if not rel <= tol:
+            bad.append(f"{kind} gradients")
+    if bad:
+        raise AssertionError(f"first fine-tune step: {', '.join(bad)} differ "
+                             "between card and CPU")
+
+
 def main() -> int:
     import torch
 
@@ -325,10 +559,10 @@ def main() -> int:
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
-    import numpy as np
 
     from repro_torch.core import api as A
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch import steps as ST
     from repro_torch.launch.engine import Engine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -344,8 +578,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.load()
-    print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f}"
-          f" s")
+    build_s = time.perf_counter() - t0
+    print(f"[build] kernels built and loaded in {build_s:.1f} s")
     for name, log in build.ptxas_logs().items():
         lines = {line.strip() for line in log.splitlines()
                  if "registers" in line or "spill" in line}
@@ -353,10 +587,29 @@ def main() -> int:
             print(f"  ptxas {name}: {line}")
 
     dev = torch.device("cuda")
+    t_kern = time.perf_counter()
     print(f"[kernels] each kernel against its plain version on {kind} "
           f"({card}); quant_matmul must be bit-exact:")
     kernels = check_quant_matmul(torch, ops, ref, dev)
-    kernels += check_attention(torch, ops, ref, dev)
+    kernels += check_attention(torch, ops, ref, dev, bits=8)
+    kernels += check_attention(torch, ops, ref, dev, bits=4)
+
+    phases = {"build": build_s, "kernels": time.perf_counter() - t_kern}
+
+    failures = []
+
+    def phase(name, fn, *args):
+        """Run one checked phase and time it; a failed check is recorded
+        and the later phases still run, so one run reports them all."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        except AssertionError as err:
+            failures.append(f"[{name}] {err}")
+            print(f"[{name}] FAILED: {err}")
+            return None
+        finally:
+            phases[name] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     engine = Engine.from_checkpoint("smollm-135m", smoke=False)
@@ -364,69 +617,45 @@ def main() -> int:
     print(f"[engine] smollm-135m full width: init + calibration + int8 "
           f"conversion in {time.perf_counter() - t0:.1f} s; "
           f"{engine.n_int8_weights()} int8 weight tensors")
+    phases["int8 engine"] = time.perf_counter() - t0
     rng = np.random.default_rng(1)
     prompts = rng.integers(0, engine.cfg.vocab, (B, PROMPT), dtype=np.int32)
-    engine.generate_batch({"tokens": prompts}, gen=2)   # warm-up
+    res, counts, _ = drive_main_path(torch, ops, engine, prompts,
+                                     "main path", kind, card)
+    phases["main path"] = time.perf_counter() - t0 - phases["int8 engine"]
+    phase("breakdown", breakdown, torch, engine, prompts, card)
+    phase("cpu check", cpu_check, torch, A, engine, prompts,
+          res.tokens.cpu(), LOGIT_ATOL, "cpu check")
+    del engine
 
-    ops.reset_launches()
-    res = engine.generate_batch({"tokens": prompts}, gen=GEN)
-    counts = ops.launch_counts()
-    n_layers = engine.cfg.n_layers
-    expected = {"quant_matmul": 7 * n_layers * GEN,
-                "prefill_attention": n_layers,
-                "decode_attention": n_layers * (GEN - 1)}
-    print(f"[main path] kernel launches {counts} (expected {expected})")
-    if counts != expected:
-        raise AssertionError(f"launch counts {counts} != {expected}")
-    if not bool(torch.isfinite(res.prefill_logits).all()):
-        raise AssertionError("non-finite prefill logits")
-    toks = res.tokens.cpu()
-    if toks.shape != (B, GEN) or not bool(
-            ((toks >= 0) & (toks < engine.cfg.vocab)).all()):
-        raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
-    prefill_tps = B * PROMPT / res.prefill_s
-    decode_ms = res.decode_s / (GEN - 1) * 1e3
-    print(f"[main path] prefill {B}x{PROMPT} tokens: {res.prefill_s * 1e3:.1f}"
-          f" ms = {prefill_tps:.0f} tokens/s; decode: {decode_ms:.2f} ms per "
-          f"step of {B} tokens (ms/token per request) on {kind} ({card})")
-
-    breakdown(torch, engine, prompts, card)
-
-    n_check = 4
-    tok_t = torch.as_tensor(toks, dtype=torch.long)
-    gpu = forced_logits(torch, A, engine, torch.as_tensor(prompts), tok_t,
-                        n_check)
-    for i, lg in enumerate(gpu):
-        if not torch.equal(lg.argmax(-1), tok_t[:, i]):
-            raise AssertionError(f"step {i}: teacher-forced GPU argmax "
-                                 f"differs from generate_batch's tokens")
-        if not bool(torch.isfinite(lg).all()):
-            raise AssertionError(f"step {i}: non-finite logits")
     t0 = time.perf_counter()
-    cpu = forced_logits(torch, A, engine.to("cpu"),
-                        torch.as_tensor(prompts), tok_t, n_check)
-    worst, same, ties = 0.0, 0, 0
-    for i, (g_lg, c_lg) in enumerate(zip(gpu, cpu)):
-        worst = max(worst, (g_lg - c_lg).abs().max().item())
-        pick = c_lg.argmax(-1)
-        for r in range(B):
-            if int(pick[r]) == int(tok_t[r, i]):
-                same += 1
-            elif c_lg[r, pick[r]] - c_lg[r, tok_t[r, i]] <= LOGIT_ATOL:
-                ties += 1   # a near-tie that bf16 rounding may flip
-            else:
-                raise AssertionError(
-                    f"step {i} row {r}: CPU picks {int(pick[r])}, GPU "
-                    f"{int(tok_t[r, i])}, by more than {LOGIT_ATOL}")
-    print(f"[cpu check] {n_check} teacher-forced steps on the CPU (plain "
-          f"versions) in {time.perf_counter() - t0:.1f} s: max |logit diff| "
-          f"{worst:.4f} (tolerance {LOGIT_ATOL}); greedy tokens equal "
-          f"{same}/{n_check * B}, near-ties {ties}")
-    if worst > LOGIT_ATOL:
-        raise AssertionError(f"GPU and CPU logits differ by {worst}")
+    torch.cuda.reset_peak_memory_stats()
+    engine4 = Engine.from_checkpoint("smollm-135m", smoke=False, kv_bits=4,
+                                     finetune_thresholds=2)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[finetune] smollm-135m full width, kv_bits=4, 2 epochs x 2 "
+          f"calibration batches of 4 x 32: init + calibration + fine-tune "
+          f"+ int8 conversion in {time.perf_counter() - t0:.1f} s; peak "
+          f"device memory {peak / 2**20:.1f} MiB "
+          f"(torch.cuda.max_memory_allocated)")
+    phases["int4 engine"] = time.perf_counter() - t0
+    phase("finetune", check_finetune, torch, A, ST, engine4, card)
+    out4 = phase("int4 path", drive_main_path, torch, ops, engine4, prompts,
+                 "int4 path", kind, card)
+    if out4 is not None:
+        phase("int4 cpu check", cpu_check, torch, A, engine4, prompts,
+              out4[0].tokens.cpu(), LOGIT_ATOL_INT4, "int4 cpu check")
+    print("[time] " + "; ".join(f"{k} {v:.1f} s" for k, v in phases.items()))
+    if failures:
+        print("chip_smoke: failed checks:\n  " + "\n  ".join(failures),
+              file=sys.stderr)
+        return 1
 
+    int4 = out4[2]
+    launched = {**counts, **{f"{k}@int4": n for k, n in int4.items()}}
     for e in kernels:
-        e["launches"] = counts[e.pop("kernel")]
+        e["launches"] = launched[e.pop("kernel")]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

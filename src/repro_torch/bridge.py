@@ -38,7 +38,9 @@ def params_from_jax(numpy_tree: dict) -> dict:
 
 def qparams_from_jax(flat_numpy_dict: dict) -> dict:
     """Flat qparams {layer path: nested dict of numpy arrays} -> the same
-    layout with CPU tensors."""
+    layout with CPU tensors.  Every leaf crosses, the trained ones too
+    (``alpha`` scales, the KV ``log2_t`` of a fine-tune in progress), so
+    thresholds trained by the reference serve in the port unchanged."""
     return {path: _convert(entry) for path, entry in flat_numpy_dict.items()}
 
 

@@ -1,5 +1,6 @@
-"""Int8 KV cache, dense layout: position p of request b lives at slot
-[b, p].
+"""Quantized KV cache, dense layout: position p of request b lives at slot
+[b, p].  int8 tiles, or int4 packed two per byte along the head dim
+(``bits=4``: D/2 storage bytes, ``core/packing.py``).
 
 Counterpart of the dense, quantized half of ``repro/cache/base.py``.  K/V
 quantize ONCE against the frozen per-head calibrated thresholds (paper §2)
@@ -9,7 +10,7 @@ writes into the cache buffers in place (a decode step then moves only the
 new token's bytes) and returns the same object.
 
 A bf16 cache is ROADMAP Queue A item 8, the SWA ring and paged layouts
-items 9 and 12, int4 (packed nibble) storage item 11.
+items 9 and 12.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.core.packing import pack_int4, unpack_int4
 
 # int8 KV cache uses the symmetric signed-8-bit grid (paper eq. 4)
 KV_LEVELS = 127.0
@@ -30,8 +33,9 @@ def kv_levels(bits: int) -> float:
 
 
 # a dead channel (zero or non-finite calibration threshold) must not turn
-# the int8 cache into inf/NaN: floor at the 1e-8 threshold floor of the
-# matmul path, expressed as a dequant scale (T / 127)
+# the cache into inf/NaN: floor at the 1e-8 threshold floor of the matmul
+# path, expressed as a dequant scale (T / 127; the same floor at int4, as
+# in the reference)
 _SCALE_FLOOR = 1e-8 / KV_LEVELS
 
 
@@ -44,28 +48,29 @@ def _safe_scale(scale: torch.Tensor) -> torch.Tensor:
 
 def quantize_kv(x: torch.Tensor, scale: torch.Tensor,
                 bits: int = 8) -> torch.Tensor:
-    """(B, S, KV, D) float -> int8 tiles with per-head dequant ``scale``
-    (KV,).  Divides by the scale, as the reference does."""
-    if bits != 8:
-        raise NotImplementedError(
-            "int4 KV storage is ROADMAP Queue A item 11")
+    """(B, S, KV, D) float -> storage tiles with per-head dequant
+    ``scale`` (KV,).  Divides by the scale, as the reference does.
+    ``bits == 8`` emits int8; ``bits == 4`` clips to the int4 grid (±7)
+    and packs two values per byte along D (D/2 storage bytes)."""
     lv = kv_levels(bits)
     s = scale.reshape(1, 1, -1, 1)
-    return torch.clamp(torch.round(x.float() / s), -lv, lv).to(torch.int8)
+    q = torch.clamp(torch.round(x.float() / s), -lv, lv).to(torch.int8)
+    return pack_int4(q, axis=-1) if bits == 4 else q
 
 
 def dequantize_kv(x_q: torch.Tensor, scale: torch.Tensor,
                   bits: int = 8) -> torch.Tensor:
-    """int8 tiles -> f32 with per-head dequant ``scale`` (KV,)."""
-    if bits != 8:
-        raise NotImplementedError(
-            "int4 KV storage is ROADMAP Queue A item 11")
+    """Storage tiles -> f32 with per-head dequant ``scale`` (KV,); int4
+    tiles unpack their nibbles first."""
+    if bits == 4:
+        x_q = unpack_int4(x_q, axis=-1)
     return x_q.float() * scale.reshape(1, 1, -1, 1)
 
 
 class KernelView(NamedTuple):
     """What the fused kernels consume: contiguous (B, S, KV, D) tiles (the
-    block table is the identity for the dense layout)."""
+    block table is the identity for the dense layout); at ``bits == 4``
+    the last dim holds D/2 packed bytes."""
     k: torch.Tensor
     v: torch.Tensor
     bits: int = 8
@@ -73,21 +78,28 @@ class KernelView(NamedTuple):
 
 @dataclasses.dataclass
 class DenseCache:
-    """Contiguous int8 KV cache of one attention layer."""
+    """Contiguous quantized KV cache of one attention layer."""
 
-    k: torch.Tensor        # (B, S, KV, D) int8
+    k: torch.Tensor        # (B, S, KV, D) int8 (D/2 packed bytes at bits 4)
     v: torch.Tensor
     k_scale: torch.Tensor  # (KV,) f32 dequant scales (ones until prefill)
     v_scale: torch.Tensor
     bits: int = 8
 
     @classmethod
-    def init(cls, batch, max_len, n_kv, head_dim, *, device=None):
+    def init(cls, batch, max_len, n_kv, head_dim, *, device=None, bits=8):
+        kv_levels(bits)             # raises unless bits is 4 or 8
+        if bits == 4:
+            if head_dim % 2:
+                raise ValueError(
+                    f"int4 KV packing needs an even head dim, got {head_dim}")
+            head_dim //= 2          # two nibbles per stored byte
         shape = (batch, max_len, n_kv, head_dim)
         return cls(torch.zeros(shape, dtype=torch.int8, device=device),
                    torch.zeros(shape, dtype=torch.int8, device=device),
                    torch.ones((n_kv,), dtype=torch.float32, device=device),
-                   torch.ones((n_kv,), dtype=torch.float32, device=device))
+                   torch.ones((n_kv,), dtype=torch.float32, device=device),
+                   bits=bits)
 
     @property
     def capacity(self) -> int:
@@ -118,7 +130,7 @@ class DenseCache:
         return self
 
     def dense_view(self):
-        """(k, v) int8 tiles, (B, S, KV, D) each."""
+        """(k, v) storage tiles, (B, S, KV, D) each (D/2 at bits 4)."""
         return self.k, self.v
 
     def kernel_view(self) -> KernelView:

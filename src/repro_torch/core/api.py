@@ -1,26 +1,32 @@
 """FAT quantization context: the integration point between the paper's
 technique (``core.quant``) and the model (``models``).
 
-Counterpart of ``repro/core/api.py`` for the serving path, in the
-paper's default variant: symmetric int8, per-output-channel weight
-thresholds, per-tensor activation thresholds, max-abs calibration.  A
-forward without a context is full precision; the context's modes are
+Counterpart of ``repro/core/api.py`` in the paper's default variant:
+symmetric int8, per-output-channel weight thresholds, per-tensor
+activation thresholds, max-abs calibration, and a KV cache of int8 or
+packed int4 with per-head thresholds.  A forward without a context is full
+precision (the distillation teacher, §3.2); the context's modes are
 
   calibrate  full-precision forward that also feeds the activation and
              KV observers (paper §2 calibration)
+  fake       fake-quantized forward with trained threshold scales: the
+             distillation student (§3.1.3-3.1.5), differentiable by STE
   int8       integer serving: int8 weights resident, int8 activations with
              static calibrated thresholds, int32 accumulation, dequant in
              the epilogue (eq. 20) -- always through ``kernels.ops``
 
-The ``fake`` (training) mode is ROADMAP Queue A item 16; the other
-variants of the reference's ``QuantPolicy`` come with it.
+Asymmetric activations, pointwise scales and the percentile observer of
+the reference's ``QuantPolicy`` are not ported (ROADMAP Queue A item 3).
 
 State layout, as in the reference: ``qparams`` is a flat dict keyed by
 layer path (``"smollm-135m/stack/layer0/attn/wq"``) holding
 ``{"w": {...}, "act": {...}}`` threshold states, plus ``"<attn>/kv"``
 entries with per-head K/V thresholds; ``params`` is the nested dict of
 tensors that mirrors the module tree, where int8 mode replaces a
-quantized ``{"w"}`` leaf with ``{"w_q": int8, "w_scale": f32[C]}``.
+quantized ``{"w"}`` leaf with ``{"w_q": int8, "w_scale": f32[C]}``.  The
+trainable leaves of qparams are the threshold scales (``alpha``,
+``alpha_t``, ``alpha_r``) and the trained log2 KV thresholds (``log2_t``);
+the weights never train.
 """
 from __future__ import annotations
 
@@ -31,15 +37,22 @@ import torch
 from repro_torch.core import calibration as calib
 from repro_torch.core import quant as Q
 
-MODES = ("calibrate", "int8")
+MODES = ("calibrate", "fake", "int8")
+TRAINABLE_KEYS = frozenset({"alpha", "alpha_t", "alpha_r", "log2_t"})
 
 
 @dataclasses.dataclass(frozen=True)
 class QuantPolicy:
-    """Which FAT variant to run: int8 everywhere; ``kv_int8`` adds per-head
-    K/V thresholds for the int8 KV cache."""
+    """Which FAT variant to run: int8 weights and activations; ``kv_int8``
+    adds per-head K/V thresholds for the quantized KV cache, ``kv_bits``
+    its width (8, or 4 stored as packed nibbles)."""
 
     kv_int8: bool = False
+    kv_bits: int = 8
+
+    def __post_init__(self):
+        if self.kv_bits not in (4, 8):
+            raise ValueError(f"kv_bits must be 4 or 8, got {self.kv_bits}")
 
     def weight_spec(self) -> Q.QuantSpec:
         """Weights (in, out): one threshold per output channel."""
@@ -51,8 +64,9 @@ class QuantPolicy:
 
     def kv_spec(self) -> Q.QuantSpec:
         """K/V cache entries (B, S, KV, D): one static threshold per KV
-        head (channel_axis=-2)."""
-        return Q.QuantSpec(per_channel=True, channel_axis=-2)
+        head (channel_axis=-2), ``kv_bits`` wide (levels 127 or 7)."""
+        return Q.QuantSpec(bits=self.kv_bits, per_channel=True,
+                           channel_axis=-2)
 
 
 @dataclasses.dataclass
@@ -70,9 +84,7 @@ class QuantCtx:
 def make_ctx(mode: str, policy: QuantPolicy,
              qparams: dict | None = None) -> QuantCtx:
     if mode not in MODES:
-        raise NotImplementedError(
-            f"quant mode {mode!r} is not ported (ported: {MODES}); the "
-            "fake-quant training mode is ROADMAP Queue A item 16")
+        raise ValueError(f"unknown quant mode {mode!r} (modes: {MODES})")
     return QuantCtx(mode=mode, policy=policy, qparams=qparams or {})
 
 
@@ -124,21 +136,79 @@ def init_qparams(model, params: dict, policy: QuantPolicy) -> dict:
     return qparams
 
 
-def finalize_calibration(qparams: dict) -> dict:
+def finalize_calibration(qparams: dict, *,
+                         train_thresholds: bool = False) -> dict:
     """Observer stats -> threshold params (paper §3.1.3 init).  KV entries
     freeze to bare per-head thresholds, floored with ``where`` (not
-    ``maximum``) so a NaN-poisoned observer still floors at 1e-8."""
+    ``maximum``) so a NaN-poisoned observer still floors at 1e-8.  With
+    ``train_thresholds`` each KV entry also gains a trainable log2-domain
+    threshold ``log2_t`` (TQT), initialized at the §2 max-abs value; the
+    fake-mode forward quantizes K/V through it and ``freeze_thresholds``
+    collapses it back to a bare ``t_max`` for serving."""
     out = {}
     for path, entry in qparams.items():
         if is_kv_path(path):
-            out[path] = {
+            kv = {
                 kk: {"t_max": torch.where(obs["t_max"] > 1e-8,
                                           obs["t_max"], 1e-8)}
                 for kk, obs in entry.items()
             }
+            if train_thresholds:
+                for st in kv.values():
+                    st["log2_t"] = Q.log2(st["t_max"]).float()
+            out[path] = kv
             continue
         out[path] = {**entry, "act": calib.observer_thresholds(entry["act"])}
     return out
+
+
+def freeze_thresholds(qparams: dict) -> dict:
+    """Collapse trained KV thresholds back to the frozen serving form: every
+    KV entry carrying a ``log2_t`` becomes a bare ``{"t_max": 2**log2_t}``
+    (floored like ``finalize_calibration``), which is what
+    ``Attention._kv_scales`` reads."""
+    out = {}
+    for path, entry in qparams.items():
+        if is_kv_path(path) and any("log2_t" in st for st in entry.values()):
+            out[path] = {}
+            for kk, st in entry.items():
+                t = Q.exp2(st["log2_t"])
+                out[path][kk] = {"t_max": torch.where(t > 1e-8, t, 1e-8)}
+        else:
+            out[path] = entry
+    return out
+
+
+def trainable_mask(qparams: dict) -> dict:
+    """The qparams tree with a bool per leaf: True only on the trained FAT
+    parameters (threshold scales, trained log2 KV thresholds)."""
+    def mask_entry(d):
+        return {k: (mask_entry(v) if isinstance(v, dict)
+                    else k in TRAINABLE_KEYS) for k, v in d.items()}
+
+    return {p: mask_entry(e) for p, e in qparams.items()}
+
+
+def flatten(tree: dict, prefix: tuple = ()) -> dict:
+    """Nested dict -> {key path tuple: leaf}."""
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(flatten(v, prefix + (k,)))
+        else:
+            flat[prefix + (k,)] = v
+    return flat
+
+
+def unflatten(flat: dict) -> dict:
+    """Inverse of ``flatten``."""
+    tree: dict = {}
+    for keys, leaf in flat.items():
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -154,8 +224,32 @@ def dense_forward(layer, params: dict, x: torch.Tensor, ctx: QuantCtx | None):
         ctx.updates[layer.path] = calib.update_observer(
             ctx.qparams[layer.path]["act"], x, ctx.policy.act_spec())
         return x @ params["w"]
+    if ctx.mode == "fake":
+        qs = ctx.qparams[layer.path]
+        xq = _fq_act(x, qs["act"], ctx.policy.act_spec()).to(x.dtype)
+        return xq @ _fq_weight(params["w"], qs["w"], ctx.policy.weight_spec())
     return _int8_matmul(x, params["w_q"], params["w_scale"],
                         ctx.qparams[layer.path]["act"], ctx.policy.act_spec())
+
+
+def _fq_act(x, astate, spec: Q.QuantSpec):
+    """Activation fake-quant of the student (per-tensor threshold)."""
+    return Q.fake_quant_symmetric_fused(x, astate["t_max"], astate["alpha"],
+                                        spec)
+
+
+def _fq_weight(w, wstate, spec: Q.QuantSpec):
+    """Weight fake-quant of the student: per-output-channel thresholds
+    (in, out) -> (1, out), STE round and clip, so the threshold scales
+    get their gradient through the autodiff of the scale."""
+    shape = (1, w.shape[-1])
+    t = wstate["t_max"].reshape(shape)
+    alpha = wstate["alpha"].reshape(shape)
+    t_adj = torch.clamp_min(Q.adjusted_threshold(t, alpha, spec), 1e-8)
+    s = Q.rdiv(spec.levels, t_adj).float()
+    wq = Q.clip_grad_passthrough(Q.ste_round(w.float() * s), spec.qmin,
+                                 spec.qmax)
+    return (wq / s).to(w.dtype)
 
 
 def _int8_matmul(x, w_q, w_scale, astate, aspec: Q.QuantSpec):

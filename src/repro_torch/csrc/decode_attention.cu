@@ -1,27 +1,33 @@
-// One-token flash-decode attention over the int8 KV cache, for Hopper (sm_90a).
+// One-token flash-decode attention over the quantized KV cache, for Hopper (sm_90a).
 //
 //   out[b, h, g] = v_scale[h] * softmax_{p < cur_pos[b]}((q[b, h, g] * k_scale[h] / sqrt(D))
 //                  . K[b, p, h]) @ V[b, :, h] ,   zeros when cur_pos[b] == 0
 //
-// Replaces the TPU kernel src/repro/kernels/decode_attention.py::decode_attention_tiles
-// (bodies `_kernel` + `_flash_step`; dense entry decode_attention_int8).
+// K/V hold int8 values (bits == 8) or int4 values packed two per byte along D
+// (bits == 4: element 2i in the low nibble of byte i, D/2 bytes a row).
 //
-// What bounds it on an H100: the int8 K/V stream, 2 * cur_pos * D bytes per
-// (request, KV head) and step -- decode attention does ~2 flops per byte, far
-// below the card's ridge, so it is bytes-bound.  Design: one block per
-// (request, KV head).  The G query heads that share a KV head (GQA) share
-// every K/V tile: a tile of TS positions is staged once in shared memory as
-// int8 (the dequant scales fold into q and into the epilogue, so the
-// dequantize costs nothing per element), then each thread scores one
-// position for all G rows, warps reduce the running max / normalizer per row
-// (online softmax, masked before the max update and again after it, as the
-// TPU body does), and threads own (g, d) accumulator entries for P @ V.  Only
-// tiles below cur_pos are visited: a skipped, fully masked tile is an exact
-// no-op of the online softmax.  Staging keeps UNR loads in flight per
-// thread: a loop with one load per trip waits out the full memory latency
-// on every trip.  At batch 4 and 3 KV heads this launches only
-// 12 blocks on 132 SMs; splitting S across blocks with the partial-softmax
-// merge (TPU kernel decode_attention_partials_tiles) is the next step.
+// Replaces the TPU kernel src/repro/kernels/decode_attention.py::decode_attention_tiles
+// (bodies `_kernel` + `_flash_step`; dense entry decode_attention_int8, both
+// kv_bits branches).
+//
+// What bounds it on an H100: the quantized K/V stream, 2 * cur_pos * D * bits / 8
+// bytes per (request, KV head) and step -- decode attention does ~2 flops per
+// byte, far below the card's ridge, so it is bytes-bound.  Design: one block
+// per (request, KV head).  The G query heads that share a KV head (GQA) share
+// every K/V tile: a tile of TS positions is staged once in shared memory in its
+// storage form (int8, or packed int4 at half the bytes; the dequant scales fold
+// into q and into the epilogue, so the dequantize costs nothing per element and
+// an int4 scale T/7 folds exactly as T/127 does), then each thread scores one
+// position for all G rows, unpacking a 32-bit word (4 int8 or 8 int4 keys) at a
+// time, warps reduce the running max / normalizer per row (online softmax,
+// masked before the max update and again after it, as the TPU body does), and
+// threads own (g, d) accumulator entries for P @ V.  Only tiles below cur_pos
+// are visited: a skipped, fully masked tile is an exact no-op of the online
+// softmax.  Staging keeps UNR loads in flight per thread: a loop with one load
+// per trip waits out the full memory latency on every trip.  At batch 4 and 3
+// KV heads this launches only 12 blocks on 132 SMs; splitting S across blocks
+// with the partial-softmax merge (TPU kernel decode_attention_partials_tiles)
+// is the next step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,6 +41,28 @@ constexpr float NEG_INF = -1e30f;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+// element e of a 32-bit word of K/V storage: 4 int8 values (BITS 8) or 8
+// packed int4 values, element e in bits [4e, 4e + 4) (BITS 4), sign-extended
+template <int BITS>
+__device__ __forceinline__ float word_elem(int w, int e) {
+  if constexpr (BITS == 8) {
+    return static_cast<float>(static_cast<int8_t>(w >> (8 * e)));
+  } else {
+    return static_cast<float>(static_cast<int>(static_cast<unsigned>(w) << (28 - 4 * e)) >> 28);
+  }
+}
+
+// element d of one staged K/V row in its storage form
+template <int BITS>
+__device__ __forceinline__ float row_elem(const int8_t* row, int d) {
+  if constexpr (BITS == 8) {
+    return static_cast<float>(row[d]);
+  } else {
+    const int byte = row[d >> 1];
+    return static_cast<float>((d & 1) ? (byte >> 4) : (((byte & 15) ^ 8) - 8));
+  }
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -47,8 +75,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// GMAX: compile-time bound on the query rows per KV head (G <= GMAX).
-template <typename T, int GMAX>
+// GMAX: compile-time bound on the query rows per KV head (G <= GMAX);
+// BITS: storage width of K/V (8, or 4 packed).
+template <typename T, int GMAX, int BITS>
 __global__ void __launch_bounds__(TS)
 decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                         const int8_t* __restrict__ v,
@@ -61,8 +90,10 @@ decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int len = min(cur_pos[b], S);
-  const int LD = D + 4;  // bytes per staged K/V row (D % 8 == 0)
-  const int words = D / 4;
+  constexpr int EPW = 32 / BITS;  // K/V elements per 32-bit word
+  const int DP = D * BITS / 8;    // storage bytes per K/V row (D % 8 == 0)
+  const int LD = DP + 4;          // bytes per staged K/V row
+  const int words = DP / 4;
 
   float* qs = smem;           // [G][D] q * k_scale / sqrt(D)
   float* acc = qs + G * D;    // [G][D] running P @ V
@@ -101,7 +132,7 @@ decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
         kw[u] = 0;
         vw[u] = 0;
         if (i < n_words && t0 + t < len) {
-          const size_t off = ((((size_t)b * S + t0 + t) * KV + h) * D) / 4 + wd;
+          const size_t off = ((((size_t)b * S + t0 + t) * KV + h) * DP) / 4 + wd;
           kw[u] = k32[off];
           vw[u] = v32[off];
         }
@@ -118,8 +149,8 @@ decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
     }
     __syncthreads();
 
-    // scores: thread t scores position t0 + t for every query row, four
-    // int8 keys per 32-bit shared load
+    // scores: thread t scores position t0 + t for every query row, EPW
+    // keys (4 int8 or 8 int4) per 32-bit shared load
     {
       const int t = tid;
       const int* kr = reinterpret_cast<const int*>(ks + t * LD);
@@ -128,15 +159,19 @@ decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
       for (int g = 0; g < GMAX; ++g) s[g] = 0.f;
       for (int wd = 0; wd < words; ++wd) {
         const int kw = kr[wd];
-        const float k0 = static_cast<float>(static_cast<int8_t>(kw));
-        const float k1 = static_cast<float>(static_cast<int8_t>(kw >> 8));
-        const float k2 = static_cast<float>(static_cast<int8_t>(kw >> 16));
-        const float k3 = static_cast<float>(static_cast<int8_t>(kw >> 24));
+        float kf[EPW];
+#pragma unroll
+        for (int e = 0; e < EPW; ++e) kf[e] = word_elem<BITS>(kw, e);
 #pragma unroll
         for (int g = 0; g < GMAX; ++g) {
           if (g < G) {
-            const float4 qv = reinterpret_cast<const float4*>(qs + g * D)[wd];
-            s[g] += qv.x * k0 + qv.y * k1 + qv.z * k2 + qv.w * k3;
+#pragma unroll
+            for (int j = 0; j < EPW / 4; ++j) {
+              const float4 qv =
+                  reinterpret_cast<const float4*>(qs + g * D)[wd * (EPW / 4) + j];
+              s[g] += qv.x * kf[4 * j] + qv.y * kf[4 * j + 1] + qv.z * kf[4 * j + 2] +
+                      qv.w * kf[4 * j + 3];
+            }
           }
         }
       }
@@ -181,9 +216,9 @@ decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
       for (; t + 4 <= tmax; t += 4) {
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          a[u] += pr[t + u] * static_cast<float>(vs[(t + u) * LD + d]);
+          a[u] += pr[t + u] * row_elem<BITS>(vs + (t + u) * LD, d);
       }
-      for (; t < tmax; ++t) a[0] += pr[t] * static_cast<float>(vs[t * LD + d]);
+      for (; t < tmax; ++t) a[0] += pr[t] * row_elem<BITS>(vs + t * LD, d);
       acc[i] = acc[i] * cr[g] + ((a[0] + a[1]) + (a[2] + a[3]));
     }
     __syncthreads();
@@ -195,13 +230,13 @@ decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   for (int i = tid; i < G * D; i += TS) ob[i] = acc[i] * vsc / fmaxf(l[i / D], 1e-30f);
 }
 
-template <typename T, int GMAX>
+template <typename T, int GMAX, int BITS>
 int launch(const void* q, const void* k, const void* v, const void* k_scale,
            const void* v_scale, const void* cur_pos, void* out, int B, int S,
            int KV, int G, int D, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * G * D + G * TS + 3 * G) +
-                      2 * (size_t)TS * (D + 4);
-  auto kern = decode_attention_kernel<T, GMAX>;
+                      2 * (size_t)TS * (D * BITS / 8 + 4);
+  auto kern = decode_attention_kernel<T, GMAX, BITS>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -215,29 +250,41 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int BITS>
 int dispatch(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* cur_pos, void* out, int B, int S,
              int KV, int G, int D, cudaStream_t st) {
-  if (G <= 1) return launch<T, 1>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
-  if (G <= 2) return launch<T, 2>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
-  if (G <= 4) return launch<T, 4>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
-  if (G <= 8) return launch<T, 8>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
-  return launch<T, 16>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
+  if (G <= 1) return launch<T, 1, BITS>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
+  if (G <= 2) return launch<T, 2, BITS>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
+  if (G <= 4) return launch<T, 4, BITS>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
+  if (G <= 8) return launch<T, 8, BITS>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
+  return launch<T, 16, BITS>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
+}
+
+template <typename T>
+int dispatch_bits(const void* q, const void* k, const void* v, const void* ks,
+                  const void* vs, const void* cur_pos, void* out, int B, int S,
+                  int KV, int G, int D, int bits, cudaStream_t st) {
+  if (bits == 8) return dispatch<T, 8>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
+  if (bits == 4) return dispatch<T, 4>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q: (B, KV, G, D) f32 (q_bf16 == 0) or bf16; k/v: (B, S, KV, D) int8;
-// k_scale/v_scale: (KV,) f32; cur_pos: (B,) int32 valid positions;
-// out: (B, KV, G, D) f32.  Requires G <= 16, D % 8 == 0, D <= 128.
+// q: (B, KV, G, D) f32 (q_bf16 == 0) or bf16; k/v: (B, S, KV, D) int8 (bits
+// == 8) or (B, S, KV, D/2) packed int4 (bits == 4); k_scale/v_scale: (KV,)
+// f32; cur_pos: (B,) int32 valid positions; out: (B, KV, G, D) f32.
+// Requires G <= 16, D % 8 == 0, D <= 128.
 extern "C" int repro_decode_attention(const void* q, int q_bf16, const void* k,
                                       const void* v, const void* k_scale,
                                       const void* v_scale, const void* cur_pos,
                                       void* out, int B, int S, int KV, int G,
-                                      int D, void* stream) {
+                                      int D, int bits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, k_scale, v_scale, cur_pos, out, B, S, KV, G, D, st);
-  return dispatch<float>(q, k, v, k_scale, v_scale, cur_pos, out, B, S, KV, G, D, st);
+    return dispatch_bits<__nv_bfloat16>(q, k, v, k_scale, v_scale, cur_pos, out, B, S, KV,
+                                        G, D, bits, st);
+  return dispatch_bits<float>(q, k, v, k_scale, v_scale, cur_pos, out, B, S, KV, G, D,
+                              bits, st);
 }

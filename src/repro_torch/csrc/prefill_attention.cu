@@ -1,21 +1,25 @@
-// Flash-prefill attention over an int8 K/V stream, for Hopper (sm_90a).
+// Flash-prefill attention over a quantized K/V stream, for Hopper (sm_90a).
 //
 //   out[b, i, h, g] = v_scale[h] * softmax_{k visible to i}((q[b, i, h, g] * k_scale[h]
 //                     / sqrt(D)) . K[b, k, h]) @ V[b, :, h]
 //   visible: k < kv_len[b], k <= q_start[b] + i (causal), q_start[b] + i - k < window;
 //   a row with no visible key is zeros.
+// K/V hold int8 values (bits == 8) or int4 values packed two per byte along D
+// (bits == 4: element 2i in the low nibble of byte i, D/2 bytes a row).
 //
 // Replaces the TPU kernel src/repro/kernels/prefill_attention.py::prefill_attention_tiles
-// (body `_kernel`; dense entry prefill_attention_int8).
+// (body `_kernel`; dense entry prefill_attention_int8, both kv_bits branches).
 //
 // What bounds it on an H100: operations.  A causal prompt of S tokens does
-// ~2 * S^2 * D * H flops over 2 * S * D * KV bytes of int8 K/V, far above the
-// card's ridge (with the float32 output counted, the byte bound is close at
-// S = 512).  Design: one block per (request, KV head, query tile).  As in the
+// ~2 * S^2 * D * H flops over 2 * S * D * KV * bits / 8 bytes of K/V, far above
+// the card's ridge (with the float32 output counted, the byte bound is close
+// at S = 512).  Design: one block per (request, KV head, query tile).  As in the
 // TPU kernel the G query heads of a KV head are flattened into rows (row r
 // sits at position q_lo + r / G), so each staged K/V tile serves G times as
 // many rows.  Per key tile of BK positions: K^T and V are staged dequant-free
-// as float (the scales fold into q and into the epilogue); every thread
+// as float (the scales fold into q and into the epilogue; an int4 scale T/7
+// folds exactly as T/127 does), each 32-bit global load carrying 4 int8 or 8
+// packed int4 values that the staging step unpacks; every thread
 // computes an 8-row x 4-key block of scores from float4 reads of q^T and K^T
 // (12 shared loads per 32 FMAs) and updates the online softmax of its rows
 // in registers, the 16 lanes of a row group meeting in shuffles (masked keys
@@ -42,6 +46,17 @@ constexpr float NEG_INF = -1e30f;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+// element e of a 32-bit word of K/V storage: 4 int8 values (BITS 8) or 8
+// packed int4 values, element e in bits [4e, 4e + 4) (BITS 4), sign-extended
+template <int BITS>
+__device__ __forceinline__ float word_elem(int w, int e) {
+  if constexpr (BITS == 8) {
+    return static_cast<float>(static_cast<int8_t>(w >> (8 * e)));
+  } else {
+    return static_cast<float>(static_cast<int>(static_cast<unsigned>(w) << (28 - 4 * e)) >> 28);
+  }
+}
+
 __device__ __forceinline__ bool visible(int kp, int qp, int klen, int causal,
                                         int window) {
   bool ok = kp < klen;
@@ -50,8 +65,9 @@ __device__ __forceinline__ bool visible(int kp, int qp, int klen, int causal,
   return ok;
 }
 
-// DCH: 64-wide column chunks of the head dim held per thread (D <= 64 * DCH).
-template <typename T, int DCH>
+// DCH: 64-wide column chunks of the head dim held per thread (D <= 64 * DCH);
+// BITS: storage width of K/V (8, or 4 packed).
+template <typename T, int DCH, int BITS>
 __global__ void __launch_bounds__(NT)
 prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                          const int8_t* __restrict__ v,
@@ -67,7 +83,9 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int rows = BQ * G;
-  const int words = D / 4;
+  constexpr int EPW = 32 / BITS;  // K/V elements per 32-bit word
+  const int DP = D * BITS / 8;    // storage bytes per K/V row (D % 8 == 0)
+  const int words = DP / 4;
 
   float* qT = smem;              // [D][ROWS] q^T * k_scale / sqrt(D)
   float* kT = qT + D * ROWS;     // [D][BK] K tile^T
@@ -129,8 +147,9 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
 
   for (int k0 = (k_begin / BK) * BK; k0 < k_end; k0 += BK) {
     // stage K^T and V as float, UNR loads of each in flight per thread
-    // (positions past Sk are zeros, masked below).  K goes key-fastest and V
-    // word-fastest, so both shared stores are free of bank conflicts.
+    // (positions past Sk are zeros, masked below), unpacking each word's EPW
+    // values.  K goes key-fastest and V word-fastest, so both shared stores
+    // are free of bank conflicts.
     for (int base = tid; base < n_words; base += UNR * NT) {
       int kw[UNR], vw[UNR];
 #pragma unroll
@@ -141,9 +160,9 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
         kw[u] = 0;
         vw[u] = 0;
         if (i < n_words && k0 + tk < Sk)
-          kw[u] = k32[((((size_t)b * Sk + k0 + tk) * KV + h) * D) / 4 + wk];
+          kw[u] = k32[((((size_t)b * Sk + k0 + tk) * KV + h) * DP) / 4 + wk];
         if (i < n_words && k0 + tv < Sk)
-          vw[u] = v32[((((size_t)b * Sk + k0 + tv) * KV + h) * D) / 4 + wv];
+          vw[u] = v32[((((size_t)b * Sk + k0 + tv) * KV + h) * DP) / 4 + wv];
       }
 #pragma unroll
       for (int u = 0; u < UNR; ++u) {
@@ -152,14 +171,13 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
         const int tk = i % BK, wk = i / BK;
         const int tv = i / words, wv = i % words;
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          kT[(4 * wk + e) * BK + tk] =
-              static_cast<float>(static_cast<int8_t>(kw[u] >> (8 * e)));
-        reinterpret_cast<float4*>(vt + tv * D)[wv] = make_float4(
-            static_cast<float>(static_cast<int8_t>(vw[u])),
-            static_cast<float>(static_cast<int8_t>(vw[u] >> 8)),
-            static_cast<float>(static_cast<int8_t>(vw[u] >> 16)),
-            static_cast<float>(static_cast<int8_t>(vw[u] >> 24)));
+        for (int e = 0; e < EPW; ++e)
+          kT[(EPW * wk + e) * BK + tk] = word_elem<BITS>(kw[u], e);
+#pragma unroll
+        for (int j = 0; j < EPW / 4; ++j)
+          reinterpret_cast<float4*>(vt + tv * D)[wv * (EPW / 4) + j] = make_float4(
+              word_elem<BITS>(vw[u], 4 * j), word_elem<BITS>(vw[u], 4 * j + 1),
+              word_elem<BITS>(vw[u], 4 * j + 2), word_elem<BITS>(vw[u], 4 * j + 3));
       }
     }
     __syncthreads();
@@ -282,7 +300,7 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   }
 }
 
-template <typename T, int DCH>
+template <typename T, int DCH, int BITS>
 int launch(const void* q, const void* k, const void* v, const void* k_scale,
            const void* v_scale, const void* q_start, const void* kv_len,
            void* out, int B, int Sq, int Sk, int KV, int G, int D, int causal,
@@ -290,7 +308,7 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
   const int BQ = ROWS / G > 0 ? ROWS / G : 1;
   const size_t smem = sizeof(float) *
       ((size_t)D * ROWS + (size_t)D * BK + (size_t)BK * D + ROWS * LDS + 2 * ROWS);
-  auto kern = prefill_attention_kernel<T, DCH>;
+  auto kern = prefill_attention_kernel<T, DCH, BITS>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -306,34 +324,50 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int BITS>
 int dispatch(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* q_start, const void* kv_len, void* out,
              int B, int Sq, int Sk, int KV, int G, int D, int causal, int window,
              cudaStream_t st) {
   if (D <= 64)
-    return launch<T, 1>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G,
-                        D, causal, window, st);
-  return launch<T, 2>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G, D,
-                      causal, window, st);
+    return launch<T, 1, BITS>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV,
+                              G, D, causal, window, st);
+  return launch<T, 2, BITS>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G,
+                            D, causal, window, st);
+}
+
+template <typename T>
+int dispatch_bits(const void* q, const void* k, const void* v, const void* ks,
+                  const void* vs, const void* q_start, const void* kv_len,
+                  void* out, int B, int Sq, int Sk, int KV, int G, int D,
+                  int causal, int window, int bits, cudaStream_t st) {
+  if (bits == 8)
+    return dispatch<T, 8>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G, D,
+                          causal, window, st);
+  if (bits == 4)
+    return dispatch<T, 4>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G, D,
+                          causal, window, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q: (B, Sq, KV, G, D) f32 (q_bf16 == 0) or bf16; k/v: (B, Sk, KV, D) int8;
-// k_scale/v_scale: (KV,) f32; q_start, kv_len: (B,) int32; window <= 0 means
-// no window; out: (B, Sq, KV, G, D) f32.  Requires G <= 64, D % 8 == 0,
-// D <= 128.
+// q: (B, Sq, KV, G, D) f32 (q_bf16 == 0) or bf16; k/v: (B, Sk, KV, D) int8
+// (bits == 8) or (B, Sk, KV, D/2) packed int4 (bits == 4); k_scale/v_scale:
+// (KV,) f32; q_start, kv_len: (B,) int32; window <= 0 means no window; out:
+// (B, Sq, KV, G, D) f32.  Requires G <= 64, D % 8 == 0, D <= 128.
 extern "C" int repro_prefill_attention(const void* q, int q_bf16, const void* k,
                                        const void* v, const void* k_scale,
                                        const void* v_scale, const void* q_start,
                                        const void* kv_len, void* out, int B,
                                        int Sq, int Sk, int KV, int G, int D,
-                                       int causal, int window, void* stream) {
+                                       int causal, int window, int bits,
+                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, k_scale, v_scale, q_start, kv_len,
-                                   out, B, Sq, Sk, KV, G, D, causal, window, st);
-  return dispatch<float>(q, k, v, k_scale, v_scale, q_start, kv_len, out, B, Sq,
-                         Sk, KV, G, D, causal, window, st);
+    return dispatch_bits<__nv_bfloat16>(q, k, v, k_scale, v_scale, q_start, kv_len,
+                                        out, B, Sq, Sk, KV, G, D, causal, window,
+                                        bits, st);
+  return dispatch_bits<float>(q, k, v, k_scale, v_scale, q_start, kv_len, out, B, Sq,
+                              Sk, KV, G, D, causal, window, bits, st);
 }

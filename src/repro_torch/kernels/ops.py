@@ -17,9 +17,7 @@ from repro_torch.kernels import ref
 
 KERNELS = {"quant_matmul": _qm, "prefill_attention": _pa,
            "decode_attention": _da}
-
-_INT4 = ("int4 storage is not ported: the kernels' int4 branches are "
-         "ROADMAP Queue A item 11")
+INT4_KERNELS = {"prefill_attention": _pa, "decode_attention": _da}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -33,10 +31,18 @@ def _on_cuda(t: torch.Tensor) -> bool:
 def reset_launches() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+    for mod in INT4_KERNELS.values():
+        mod.launches_int4 = 0
 
 
 def launch_counts() -> dict:
+    """Kernel launches since the last reset, by kernel (every variant)."""
     return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def int4_launch_counts() -> dict:
+    """Launches of the attention kernels' int4 (packed K/V) variant."""
+    return {name: mod.launches_int4 for name, mod in INT4_KERNELS.items()}
 
 
 def _rows(value, b: int, device) -> torch.Tensor:
@@ -54,7 +60,9 @@ def quant_matmul(x, w_q, w_scale, act_scale, *, w_bits: int = 8):
     combined dequant scale (already divided by act_scale); act_scale: one
     float32, levels / T_adj, applied to x before rounding."""
     if w_bits != 8:
-        raise NotImplementedError(_INT4)
+        raise NotImplementedError(
+            "int4 weights (w_bits=4) are not ported: the kernel's int4 "
+            "branch is ROADMAP Queue A item 11")
     if _on_cuda(x):
         return _qm.launch(x, w_q, w_scale, act_scale)
     _qm.check(x, w_q, w_scale, act_scale)
@@ -63,35 +71,35 @@ def quant_matmul(x, w_q, w_scale, act_scale, *, w_bits: int = 8):
 
 def decode_attention(q, k_cache, v_cache, k_scale, v_scale, cur_pos, *,
                      kv_bits: int = 8):
-    """One-token attention over the int8 cache; (B, KV, G, D) float32.
+    """One-token attention over the quantized cache; (B, KV, G, D)
+    float32.  ``kv_bits=4``: the cache holds packed nibbles (D/2 bytes).
 
     cur_pos counts the valid positions of each row: an int, or a 0-d or
     (B,) int tensor; a row with 0 returns zeros."""
-    if kv_bits != 8:
-        raise NotImplementedError(_INT4)
     cur_pos = _rows(cur_pos, q.shape[0], q.device)
     if _on_cuda(q):
-        return _da.launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos)
-    _da.check(q, k_cache, v_cache, k_scale, v_scale, cur_pos)
+        return _da.launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos,
+                          kv_bits)
+    _da.check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits)
     return ref.decode_attention_ref(q, k_cache, v_cache, k_scale, v_scale,
-                                    cur_pos)
+                                    cur_pos, kv_bits)
 
 
 def prefill_attention(q, k, v, k_scale, v_scale, q_start, kv_len, *,
                       causal: bool = True, window: int | None = None,
                       kv_bits: int = 8):
-    """Prompt attention over an int8 K/V stream; (B, Sq, KV, G, D) float32.
+    """Prompt attention over a quantized K/V stream; (B, Sq, KV, G, D)
+    float32.  ``kv_bits=4``: K/V hold packed nibbles (D/2 bytes).
 
     q_start (position of query row 0) and kv_len (valid K/V count) are
     ints, or 0-d or (B,) int tensors."""
-    if kv_bits != 8:
-        raise NotImplementedError(_INT4)
     b = q.shape[0]
     q_start = _rows(q_start, b, q.device)
     kv_len = _rows(kv_len, b, q.device)
     if _on_cuda(q):
         return _pa.launch(q, k, v, k_scale, v_scale, q_start, kv_len,
-                          causal=causal, window=window)
-    _pa.check(q, k, v, k_scale, v_scale, q_start, kv_len, window)
+                          causal=causal, window=window, kv_bits=kv_bits)
+    _pa.check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits)
     return ref.prefill_attention_ref(q, k, v, k_scale, v_scale, q_start,
-                                     kv_len, causal=causal, window=window)
+                                     kv_len, causal=causal, window=window,
+                                     kv_bits=kv_bits)

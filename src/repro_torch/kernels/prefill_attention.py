@@ -1,6 +1,6 @@
 """Wrapper of the Hopper kernel ``csrc/prefill_attention.cu``: flash
-attention of a prompt over its int8 K/V stream (causal, kv_len and
-optional sliding-window masks).
+attention of a prompt over its int8 or packed-int4 K/V stream (causal,
+kv_len and optional sliding-window masks).
 
 Replaces the TPU kernel
 ``repro/kernels/prefill_attention.py::prefill_attention_tiles`` through its
@@ -19,28 +19,33 @@ REPLACES = "src/repro/kernels/prefill_attention.py:192"
 G_MAX = 64      # query heads per KV head: one row tile holds 64 rows
 D_MAX = 128
 
-# kernel launches made by ``launch`` in this process
+# kernel launches made by ``launch`` in this process, all and at int4
 launches = 0
+launches_int4 = 0
 
 _FN = None
 
 
-def check(q, k, v, k_scale, v_scale, q_start, kv_len, window):
+def check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits=8):
     """Raise on inputs the kernel (and its plain version) does not take."""
     if q.ndim != 5 or k.ndim != 4:
         raise ValueError(f"prefill_attention takes q (B, Sq, KV, G, D) and "
                          f"k/v (B, Sk, KV, D), got {tuple(q.shape)} and "
                          f"{tuple(k.shape)}")
+    if kv_bits not in (4, 8):
+        raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
     b, sq, kvh, g, d = q.shape
-    if k.shape[0] != b or k.shape[2:] != (kvh, d):
+    dp = d // 2 if kv_bits == 4 else d     # storage bytes per row
+    if k.shape[0] != b or k.shape[2:] != (kvh, dp):
         raise ValueError(f"k {tuple(k.shape)} does not match q "
-                         f"{tuple(q.shape)}")
+                         f"{tuple(q.shape)} at kv_bits={kv_bits} (int4 "
+                         "tiles hold D/2 packed bytes)")
     if v.shape != k.shape:
         raise ValueError("k and v differ in shape")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k.dtype != torch.int8 or v.dtype != torch.int8:
-        raise TypeError("the kernel reads int8 K/V tiles")
+        raise TypeError("the kernel reads int8 (or packed int4) K/V tiles")
     if d % 8 or d > D_MAX:
         raise ValueError(f"head dim {d} must be a multiple of 8 and <= {D_MAX}")
     if g > G_MAX:
@@ -71,15 +76,15 @@ def _fn():
         p, i = ctypes.c_void_p, ctypes.c_int
         _FN = build.function("prefill_attention", "repro_prefill_attention",
                              [p, i, p, p, p, p, p, p, p,
-                              i, i, i, i, i, i, i, i, p])
+                              i, i, i, i, i, i, i, i, i, p])
     return _FN
 
 
 def launch(q, k, v, k_scale, v_scale, q_start, kv_len, *, causal=True,
-           window=None):
+           window=None, kv_bits=8):
     """Run the CUDA kernel; returns (B, Sq, KV, G, D) float32."""
-    global launches
-    check(q, k, v, k_scale, v_scale, q_start, kv_len, window)
+    global launches, launches_int4
+    check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits)
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {q.device}")
     b, sq, kvh, g, d = q.shape
@@ -92,9 +97,11 @@ def launch(q, k, v, k_scale, v_scale, q_start, kv_len, *, causal=True,
                     k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
                     v_scale.data_ptr(), q_start.data_ptr(), kv_len.data_ptr(),
                     out.data_ptr(), b, sq, sk, kvh, g, d, int(bool(causal)),
-                    0 if window is None else int(window), stream)
+                    0 if window is None else int(window), kv_bits, stream)
     if err:
         raise RuntimeError(f"prefill_attention kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
+    if kv_bits == 4:
+        launches_int4 += 1
     return out

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.packing import unpack_int4
+
 NEG_INF = -1e30
 
 
@@ -40,13 +42,19 @@ def _q_fold(q, k_scale, head_axis):
     return q.float() * c.reshape(shape)
 
 
-def decode_attention_ref(q, k_cache, v_cache, k_scale, v_scale, cur_pos):
-    """One-token attention over the int8 cache.
+def decode_attention_ref(q, k_cache, v_cache, k_scale, v_scale, cur_pos,
+                         kv_bits=8):
+    """One-token attention over the quantized cache.
 
-    q: (B, KV, G, D); k/v_cache: (B, S, KV, D) int8; k/v_scale: (KV,) f32;
-    cur_pos: (B,) int32 count of valid positions.  Returns (B, KV, G, D)
-    f32; a row with cur_pos == 0 returns zeros."""
+    q: (B, KV, G, D); k/v_cache: (B, S, KV, D) int8, or (B, S, KV, D/2)
+    packed nibbles at ``kv_bits == 4`` (unpacked first, then the same
+    math); k/v_scale: (KV,) f32; cur_pos: (B,) int32 count of valid
+    positions.  Returns (B, KV, G, D) f32; a row with cur_pos == 0 returns
+    zeros."""
     b, kvh, g, d = q.shape
+    if kv_bits == 4:
+        k_cache = unpack_int4(k_cache, axis=-1, size=d)
+        v_cache = unpack_int4(v_cache, axis=-1, size=d)
     s_len = k_cache.shape[1]
     qf = _q_fold(q, k_scale, 1)
     s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float())
@@ -61,14 +69,18 @@ def decode_attention_ref(q, k_cache, v_cache, k_scale, v_scale, cur_pos):
 
 
 def prefill_attention_ref(q, k, v, k_scale, v_scale, q_start, kv_len, *,
-                          causal=True, window=None):
-    """Multi-row attention over an int8 K/V stream.
+                          causal=True, window=None, kv_bits=8):
+    """Multi-row attention over a quantized K/V stream.
 
-    q: (B, Sq, KV, G, D); k/v: (B, Sk, KV, D) int8; q_start: (B,) int32
-    absolute position of query row 0; kv_len: (B,) int32 valid K/V count.
-    Masks kv_len, causal (k <= q) and the optional window (q - k < window).
+    q: (B, Sq, KV, G, D); k/v: (B, Sk, KV, D) int8, or (B, Sk, KV, D/2)
+    packed nibbles at ``kv_bits == 4``; q_start: (B,) int32 absolute
+    position of query row 0; kv_len: (B,) int32 valid K/V count.  Masks
+    kv_len, causal (k <= q) and the optional window (q - k < window).
     Returns (B, Sq, KV, G, D) f32; rows with no visible key are zeros."""
     b, sq, kvh, g, d = q.shape
+    if kv_bits == 4:
+        k = unpack_int4(k, axis=-1, size=d)
+        v = unpack_int4(v, axis=-1, size=d)
     sk = k.shape[1]
     qf = _q_fold(q, k_scale, 2)
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())

@@ -3,13 +3,17 @@
     engine = Engine.from_checkpoint("smollm-135m", smoke=False)   # on CUDA
     result = engine.generate_batch({"tokens": prompts}, gen=32)
     result = engine.generate_one(prompt_tokens, gen=32)
+    # int4 KV cache, thresholds fine-tuned for 2 epochs (paper §3):
+    engine = Engine.from_checkpoint("smollm-135m", smoke=False, kv_bits=4,
+                                    finetune_thresholds=2)
 
 Counterpart of ``repro/launch/engine.py`` on the main path: seeded random
-init (or bridged reference params) -> §2 calibration -> int8 conversion
--> one-shot prefill into an int8 dense KV cache -> greedy decode.  Every
-quantized matmul and both attentions run through ``kernels.ops``: the
-hand-written CUDA kernels when the engine's device is a GPU, their plain
-versions when it is the CPU.
+init (or bridged reference params) -> §2 calibration -> optional FAT
+threshold fine-tune (fp teacher vs fake-quant student) -> int8 conversion
+-> one-shot prefill into an int8 or packed-int4 dense KV cache -> greedy
+decode.  Every quantized matmul and both attentions run through
+``kernels.ops``: the hand-written CUDA kernels when the engine's device is
+a GPU, their plain versions when it is the CPU.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``:
 ``device=None`` means CUDA and raises when no CUDA device is present.
@@ -34,7 +38,6 @@ from repro_torch.models import build_model
 # Queue A item that ports each
 _NOT_PORTED = {
     "checkpoint_dir": "item 14 (checkpoint restore)",
-    "finetune_thresholds": "item 16 (§3 threshold training)",
     "prefill_chunk": "item 9 (chunked prefill)",
     "temperature": "item 10 (sampling)",
     "top_p": "item 10 (sampling)",
@@ -58,16 +61,36 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def prepare_int8(model, policy: A.QuantPolicy, params, calib_batches):
+def prepare_int8(model, policy: A.QuantPolicy, params, calib_batches, *,
+                 finetune_epochs: int = 0, finetune_log: dict | None = None):
     """Calibration + int8 conversion (the paper's deployment pipeline):
     observers over the calibration batches, finalized thresholds, int8
-    weights.  Returns (serve_params, qparams)."""
-    qparams = A.init_qparams(model, params, policy)
-    calib = ST.make_calibrate_step(model, policy)
-    for b in calib_batches:
-        qparams = calib(params, qparams, b)
-    qparams = A.finalize_calibration(qparams)
-    return A.convert_to_int8(model, params, qparams, policy), qparams
+    weights.  ``finetune_epochs`` > 0 inserts the paper's §3 threshold
+    training between calibration and conversion: finalize emits trainable
+    ``log2_t`` KV thresholds, ``steps.finetune_thresholds`` distills them
+    (and the alpha scales) against the fp teacher over the same batches,
+    and ``freeze_thresholds`` collapses the result back to the static
+    ``t_max`` form serving reads.  The fine-tune's per-step losses and
+    wall times go into ``finetune_log`` ("losses", "step_s") if given.
+    Returns (serve_params, qparams)."""
+    calib_batches = list(calib_batches)
+    with torch.no_grad():
+        qparams = A.init_qparams(model, params, policy)
+        calib = ST.make_calibrate_step(model, policy)
+        for b in calib_batches:
+            qparams = calib(params, qparams, b)
+        qparams = A.finalize_calibration(
+            qparams, train_thresholds=finetune_epochs > 0)
+    if finetune_epochs > 0:
+        step_s: list = []
+        qparams, losses = ST.finetune_thresholds(
+            model, policy, params, qparams, calib_batches,
+            epochs=finetune_epochs, step_seconds=step_s)
+        qparams = A.freeze_thresholds(qparams)
+        if finetune_log is not None:
+            finetune_log.update(losses=losses, step_s=step_s)
+    with torch.no_grad():
+        return A.convert_to_int8(model, params, qparams, policy), qparams
 
 
 @dataclasses.dataclass
@@ -85,10 +108,13 @@ class Engine:
     thresholds on one device."""
 
     def __init__(self, model, cfg, policy: A.QuantPolicy, serve_params,
-                 qparams, *, device):
+                 qparams, *, device, finetune_log: dict | None = None):
         self.model, self.cfg, self.policy = model, cfg, policy
         self.serve_params, self.qparams = serve_params, qparams
         self.device = torch.device(device)
+        # per-step losses and wall times of the threshold fine-tune, if
+        # this engine ran one
+        self.finetune_log = finetune_log or {}
 
     @classmethod
     def from_checkpoint(cls, arch: str = "smollm-135m", *, cfg=None,
@@ -96,7 +122,8 @@ class Engine:
                         calib_batches: Optional[Sequence] = None,
                         qparams: Optional[dict] = None, init_seed: int = 0,
                         device=None, fp: bool = False, kv_int8: bool = True,
-                        kv_bits: int = 8, cache_layout: str = "dense",
+                        kv_bits: int = 8, finetune_thresholds: int = 0,
+                        cache_layout: str = "dense",
                         **not_ported) -> "Engine":
         """Build a ready-to-serve Engine.
 
@@ -108,8 +135,13 @@ class Engine:
         (4, 32) from ``repro_torch.data``.
         ``qparams`` are finalized thresholds calibrated elsewhere (the
         reference's, through ``bridge.qparams_from_jax``): calibration is
-        skipped and the weights convert against them.  ``cfg`` overrides
-        the registry lookup (``arch``/``smoke`` are then ignored)."""
+        skipped and the weights convert against them.  ``kv_bits`` is the
+        KV cache's width: 8, or 4 stored as packed nibbles.
+        ``finetune_thresholds`` > 0 trains the thresholds by distillation
+        for that many epochs over the calibration batches before freezing
+        them (paper §3; what makes the 7-level int4 grid usable when
+        max-abs calibration over-shoots).  ``cfg`` overrides the registry
+        lookup (``arch``/``smoke`` are then ignored)."""
         for name in not_ported:
             if name not in _NOT_PORTED:
                 raise TypeError(f"unexpected argument {name!r}")
@@ -120,8 +152,9 @@ class Engine:
             raise NotImplementedError(
                 "bf16 weights / bf16 KV serving are not on the ported path "
                 "(ROADMAP Queue A item 8)")
-        if kv_bits != 8:
-            raise NotImplementedError("kv_bits=4 is ROADMAP Queue A item 11")
+        if qparams is not None and finetune_thresholds:
+            raise ValueError("finetune_thresholds trains thresholds this "
+                             "engine calibrates; it does not take qparams")
         if cache_layout != "dense":
             raise NotImplementedError(
                 f"cache layout {cache_layout!r}: only 'dense' is ported (ring "
@@ -130,25 +163,28 @@ class Engine:
         if cfg is None:
             cfg = get_config(arch, smoke=smoke)
         model = build_model(cfg)
-        policy = A.QuantPolicy(kv_int8=True)
+        policy = A.QuantPolicy(kv_int8=True, kv_bits=kv_bits)
         if params is None:
             params = model.init(torch.Generator().manual_seed(init_seed))
         params = tree_to(params, dev)
-        with torch.inference_mode():
-            if qparams is not None:
-                qparams = tree_to(qparams, dev)
+        log: dict = {}
+        if qparams is not None:
+            qparams = tree_to(qparams, dev)
+            with torch.no_grad():
                 serve_params = A.convert_to_int8(model, params, qparams,
                                                  policy)
-            else:
-                if calib_batches is None:
-                    calib_batches = D.calibration_batches(cfg.vocab,
-                                                          seed=init_seed)
-                batches = [{"tokens": torch.as_tensor(
-                    np.asarray(b["tokens"]), device=dev)}
-                    for b in calib_batches]
-                serve_params, qparams = prepare_int8(model, policy, params,
-                                                     batches)
-        return cls(model, cfg, policy, serve_params, qparams, device=dev)
+        else:
+            if calib_batches is None:
+                calib_batches = D.calibration_batches(cfg.vocab,
+                                                      seed=init_seed)
+            batches = [{"tokens": torch.as_tensor(
+                np.asarray(b["tokens"]), device=dev)}
+                for b in calib_batches]
+            serve_params, qparams = prepare_int8(
+                model, policy, params, batches,
+                finetune_epochs=finetune_thresholds, finetune_log=log)
+        return cls(model, cfg, policy, serve_params, qparams, device=dev,
+                   finetune_log=log)
 
     def to(self, device) -> "Engine":
         """The same engine (same int8 weights and thresholds) on another
@@ -156,7 +192,8 @@ class Engine:
         dev = resolve_device(device)
         return Engine(self.model, self.cfg, self.policy,
                       tree_to(self.serve_params, dev),
-                      tree_to(self.qparams, dev), device=dev)
+                      tree_to(self.qparams, dev), device=dev,
+                      finetune_log=self.finetune_log)
 
     def n_int8_weights(self) -> int:
         def count(t):
@@ -167,7 +204,8 @@ class Engine:
         return count(self.serve_params)
 
     def init_cache(self, batch: int, max_len: int):
-        return self.model.init_cache(batch, max_len, device=self.device)
+        return self.model.init_cache(batch, max_len, device=self.device,
+                                     kv_bits=self.policy.kv_bits)
 
     def _cache_len(self, prompt_len: int, gen: int) -> int:
         """Prompt + generation budget, rounded up to a multiple of 128 (the

@@ -1,19 +1,31 @@
-"""Step functions of the serving path: §2 calibration, one-shot prefill
-and the greedy decode loop.
+"""Step functions: §2 calibration, the FAT threshold fine-tune (§3),
+one-shot prefill and the greedy decode loop.
 
-Counterparts of ``repro/launch/steps.py`` (``make_calibrate_step``, the
-one-shot ``make_prefill_step``) and of the greedy strategy and
-single-stream decode loop of ``repro/launch/strategies.py``.  PyTorch runs
-eagerly, so the reference's ``lax.scan`` decode loop is a Python loop over
-``decode_step``; ``argmax`` takes the first maximum, like ``jnp.argmax``.
-Chunked prefill, sampling and speculative decoding are ROADMAP Queue A
-items 9, 10 and 13.
+Counterparts of ``repro/launch/steps.py`` (``make_calibrate_step``,
+``make_fat_train_step``, ``finetune_thresholds``, the one-shot
+``make_prefill_step``) and of the greedy strategy and single-stream decode
+loop of ``repro/launch/strategies.py``.  PyTorch runs eagerly, so the
+reference's ``lax.scan`` loops are Python loops; ``argmax`` takes the
+first maximum, like ``jnp.argmax``.  Chunked prefill, sampling and
+speculative decoding are ROADMAP Queue A items 9, 10 and 13.
 """
 from __future__ import annotations
+
+import dataclasses
+import time
 
 import torch
 
 from repro_torch.core import api as A
+from repro_torch.core.distill import chunked_sq_err
+from repro_torch.optim.adam import adam_init, adam_update, cosine_restarts
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainHParams:
+    base_lr: float = 1e-3
+    anneal_period: int = 100   # cosine restart period (steps)
+    weight_decay: float = 0.0
 
 
 def make_calibrate_step(model, policy: A.QuantPolicy):
@@ -31,9 +43,113 @@ def make_calibrate_step(model, policy: A.QuantPolicy):
     return calibrate_step
 
 
+def make_fat_grad_fn(model, policy: A.QuantPolicy, n_micro: int = 1):
+    """The FAT distillation objective and its gradient: ``(params,
+    qparams, batch) -> (loss, grads)``.
+
+    The teacher is the full-precision forward (no context), the student
+    the fake-quantized forward with the thresholds in ``qparams``; the loss
+    is eq. 25's RMSE over the logits (``chunked_sq_err``).  Weights are
+    frozen (they never take a gradient); ``grads`` holds the gradient of
+    every trainable qparams leaf (``A.trainable_mask``), keyed by its
+    ``A.flatten`` path.  ``n_micro`` > 1 splits the batch into that many
+    microbatches and averages their losses and gradients."""
+    cfg = model.cfg
+
+    def loss_for(qp, params, batch):
+        with torch.no_grad():
+            h_t = model.hidden(params, batch, None)
+        ctx = A.make_ctx("fake", policy, qp)
+        h_s = model.hidden(params, batch, ctx)
+        sq, n = chunked_sq_err(h_t, h_s, model.readout_fn(params, None),
+                               model.readout_fn(params, ctx),
+                               chunk=cfg.loss_chunk)
+        return torch.sqrt(sq / n)                       # eq. 25
+
+    def loss_and_grads(params, qparams, batch):
+        mask = A.flatten(A.trainable_mask(qparams))
+        # fresh leaves, so thresholds made under inference mode or shared
+        # with the caller never enter the graph themselves
+        leaves = {k: v.detach().clone().requires_grad_(mask[k])
+                  for k, v in A.flatten(qparams).items()}
+        keys = [k for k in leaves if mask[k]]
+        qp = A.unflatten(leaves)
+        if any(t.shape[0] % n_micro for t in batch.values()):
+            raise ValueError(f"batch does not split into {n_micro} "
+                             "microbatches")
+        micro = [dict(zip(batch, parts)) for parts in zip(
+            *(t.chunk(n_micro, dim=0) for t in batch.values()))]
+        loss, grads = None, {}
+        for mb in micro:
+            lm = loss_for(qp, params, mb)
+            gs = torch.autograd.grad(lm, [leaves[k] for k in keys],
+                                     allow_unused=True)
+            loss = lm.detach() if loss is None else loss + lm.detach()
+            for k, g in zip(keys, gs):
+                # a trainable leaf the forward does not read (the
+                # asymmetric scheme's alpha_t / alpha_r) has gradient 0
+                g = torch.zeros_like(leaves[k]) if g is None else g
+                grads[k] = g if k not in grads else grads[k] + g
+        if n_micro > 1:
+            loss = loss / n_micro
+            grads = {k: g / n_micro for k, g in grads.items()}
+        return loss, grads
+
+    return loss_and_grads
+
+
+def make_fat_train_step(model, policy: A.QuantPolicy,
+                        hp: TrainHParams = TrainHParams(), n_micro: int = 1):
+    """The FAT QAT step: ``(params, qparams, opt_state, batch) ->
+    (qparams, opt_state, {"loss", "lr"})``.  Adam, masked to the trainable
+    leaves, at the cosine-annealed rate of the step count before this step
+    (§3.1.3: "All network parameters except quantization thresholds are
+    fixed"; §4.1.2)."""
+    grad_fn = make_fat_grad_fn(model, policy, n_micro)
+
+    def train_step(params, qparams, opt_state, batch):
+        loss, grads = grad_fn(params, qparams, batch)
+        lr = cosine_restarts(opt_state.step, hp.base_lr, hp.anneal_period)
+        mask = A.flatten(A.trainable_mask(qparams))
+        new_qp, new_opt = adam_update(grads, opt_state, A.flatten(qparams),
+                                      lr, mask=mask)
+        return A.unflatten(new_qp), new_opt, {"loss": loss, "lr": lr}
+
+    return train_step
+
+
+def finetune_thresholds(model, policy: A.QuantPolicy, params, qparams,
+                        batches, *, epochs: int = 4,
+                        hp: TrainHParams = TrainHParams(),
+                        step_seconds: list | None = None):
+    """Train the quantization thresholds by distillation (paper §3 + TQT):
+    ``epochs`` passes of the FAT step over ``batches`` (the calibration
+    set).  With ``finalize_calibration(..., train_thresholds=True)``
+    qparams the trainable set includes the per-head KV ``log2_t``.
+    ``epochs`` is capped at 8, as in the reference.  Returns ``(qparams,
+    losses)``, one loss per step; each step's wall time (it ends when its
+    loss reaches the host) is appended to ``step_seconds`` if given."""
+    if not 1 <= epochs <= 8:
+        raise ValueError(f"epochs must be in [1, 8], got {epochs}")
+    batches = list(batches)
+    if not batches:
+        raise ValueError("finetune_thresholds needs >= 1 calibration batch")
+    train_step = make_fat_train_step(model, policy, hp)
+    opt = adam_init(A.flatten(qparams))
+    losses = []
+    for _ in range(epochs):
+        for batch in batches:
+            t0 = time.perf_counter()
+            qparams, opt, metrics = train_step(params, qparams, opt, batch)
+            losses.append(float(metrics["loss"]))
+            if step_seconds is not None:
+                step_seconds.append(time.perf_counter() - t0)
+    return qparams, losses
+
+
 def make_prefill_step(model, policy: A.QuantPolicy):
-    """One-shot int8 prefill: (params, qparams, batch, cache) -> (logits of
-    the last position (B, 1, Vp), cache)."""
+    """One-shot int8 prefill into a quantized cache: (params, qparams,
+    batch, cache) -> (logits of the last position (B, 1, Vp), cache)."""
     def prefill_step(serve_params, qparams, batch, cache):
         ctx = A.make_ctx("int8", policy, qparams)
         return model.prefill(serve_params, batch, cache, ctx)

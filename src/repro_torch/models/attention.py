@@ -1,19 +1,20 @@
 """GQA attention with rotary embedding: the full-sequence forward used by
-calibration, one-shot prefill into the int8 KV cache through the prefill
-kernel, and single-token decode through the decode kernel.
+calibration and by the fine-tune's teacher and student, one-shot prefill
+into the quantized KV cache through the prefill kernel, and single-token
+decode through the decode kernel.
 
-Counterpart of ``repro/models/attention.py`` on the single-device int8
-serving path.  All paths share the GQA grouping Hq = KV * G, computed on a
-(B, S, KV, G, D) view so no head replication is materialized.  K/V
-quantize ONCE (``cache.ready``) against the frozen calibrated per-head
-thresholds, and the same int8 tiles are written to the cache and attended
-by the kernel.
+Counterpart of ``repro/models/attention.py`` on the single-device serving
+and threshold-training paths.  All paths share the GQA grouping
+Hq = KV * G, computed on a (B, S, KV, G, D) view so no head replication is
+materialized.  K/V quantize ONCE (``cache.ready``) against the frozen
+calibrated per-head thresholds, and the same int8 (or packed int4) tiles
+are written to the cache and attended by the kernel.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.cache import KV_LEVELS, DenseCache
+from repro_torch.cache import DenseCache, kv_levels
 from repro_torch.models.layers import apply_rotary, rotary_angles
 from repro_torch.models.module import Dense, Module
 
@@ -63,9 +64,12 @@ class Attention(Module):
                 "wv": self.wv.init(gen), "wo": self.wo.init(gen)}
 
     # -- cache ------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int, device=None) -> DenseCache:
+    def init_cache(self, batch: int, max_len: int, device=None,
+                   kv_bits: int = 8) -> DenseCache:
+        """Dense quantized cache: int8, or packed int4 nibbles at
+        ``kv_bits=4`` (D/2 bytes a row)."""
         return DenseCache.init(batch, max_len, self.n_kv, self.head_dim,
-                               device=device)
+                               device=device, bits=kv_bits)
 
     def _observe_kv(self, ctx, k, v):
         """Feed post-rope K / raw V into the KV calibration observers."""
@@ -84,9 +88,28 @@ class Attention(Module):
             "v": calib.update_observer(ent["v"], v, spec),
         }
 
+    def _fake_quant_kv(self, ctx, k, v):
+        """Trained-threshold fake-quant of the K/V stream (paper §3 applied
+        to the cache): fires in fake mode only when ``finalize_calibration``
+        emitted trainable ``log2_t`` leaves.  The differentiable stand-in
+        for ``cache.ready``: the distillation loss sees the quantization
+        error serving will pay, and the TQT backward moves the per-head
+        thresholds."""
+        if ctx is None or ctx.mode != "fake":
+            return k, v
+        from repro_torch.core import api as A
+        from repro_torch.core import quant as Q
+
+        ent = ctx.qparams.get(A.kv_path(self.path))
+        if not ent or "log2_t" not in ent.get("k", {}):
+            return k, v
+        spec = ctx.policy.kv_spec()
+        return (Q.fake_quant_log_t(k, ent["k"]["log2_t"], spec),
+                Q.fake_quant_log_t(v, ent["v"]["log2_t"], spec))
+
     def _kv_scales(self, ctx):
         """Frozen per-head dequant scales T / levels from calibrated,
-        finalized qparams."""
+        finalized qparams (levels 127 at kv_bits 8, 7 at kv_bits 4)."""
         from repro_torch.core import api as A
 
         ent = None if ctx is None else ctx.qparams.get(A.kv_path(self.path))
@@ -94,14 +117,15 @@ class Attention(Module):
                      and "count" not in ent["k"])
         if not finalized:
             raise ValueError(
-                f"{self.path}: int8 KV cache requires calibrated+finalized "
-                "kv thresholds in qparams (QuantPolicy(kv_int8=True) at "
-                "init_qparams, the calibration pass, then "
-                "finalize_calibration)")
+                f"{self.path}: a quantized KV cache requires "
+                "calibrated+finalized kv thresholds in qparams "
+                "(QuantPolicy(kv_int8=True) at init_qparams, the "
+                "calibration pass, then finalize_calibration)")
         # T / levels, evaluated as T * (1 / levels): the float32 expression
-        # the reference's compiled graph evaluates, so both packages write
-        # the same int8 tiles
-        inv = 1.0 / KV_LEVELS
+        # the reference's compiled graph evaluates (XLA rewrites a division
+        # by a constant, 127 and 7 alike), so both packages write the same
+        # tiles
+        inv = 1.0 / kv_levels(ctx.policy.kv_bits)
         k_s = torch.clamp_min(ent["k"]["t_max"], 1e-8) * inv
         v_s = torch.clamp_min(ent["v"]["t_max"], 1e-8) * inv
         return k_s.float(), v_s.float()
@@ -124,12 +148,14 @@ class Attention(Module):
         return qf.reshape(b, s, kvh, g, d), k
 
     def __call__(self, params, x, ctx=None):
-        """Full-sequence forward (calibration); observes K/V in calibrate
-        mode."""
+        """Full-sequence forward (calibration, fine-tune teacher and
+        student); observes K/V in calibrate mode and fake-quantizes them
+        through trained thresholds in fake mode."""
         b, s, _ = x.shape
         q, k, v = self._qkv(params, x, ctx)
         q, k = self._rope(q, k, torch.arange(s, device=x.device))
         self._observe_kv(ctx, k, v)
+        k, v = self._fake_quant_kv(ctx, k, v)
         o = causal_attention(q, k, v)
         o = o.reshape(b, s, self.n_heads * self.head_dim)
         return self.wo(params["wo"], o, ctx)
@@ -137,7 +163,7 @@ class Attention(Module):
     def prefill(self, params, x, cache: DenseCache, ctx=None):
         """One-shot prompt forward that populates the cache; returns
         (y, cache).  The prompt's K/V quantize once, are appended at
-        positions [0, S), and the prefill kernel attends those same int8
+        positions [0, S), and the prefill kernel attends those same
         tiles."""
         from repro_torch.kernels import ops
 

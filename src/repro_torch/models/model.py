@@ -31,7 +31,9 @@ class CausalLM(Module):
         return p
 
     def readout_fn(self, params, ctx=None):
-        """(B, c, d) -> (B, c, Vp) logits; padded vocab entries masked."""
+        """(B, c, d) -> (B, c, Vp) logits; padded vocab entries masked.  The
+        tied readout is never quantized, in any mode (as in the
+        reference); an untied ``lm_head`` is a Dense and follows ``ctx``."""
         if self.cfg.tie_embeddings:
             return lambda h: self.embed.attend(params["embed"], h, ctx)
 
@@ -54,9 +56,11 @@ class CausalLM(Module):
         return self.readout_fn(params, ctx)(self.hidden(params, batch, ctx))
 
     # -- serving --------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int, device=None):
-        """Per-layer int8 dense KV caches for ``max_len`` positions."""
-        return self.stack.init_cache(batch, max_len, device)
+    def init_cache(self, batch: int, max_len: int, device=None,
+                   kv_bits: int = 8):
+        """Per-layer dense KV caches for ``max_len`` positions, int8 or
+        packed int4 (``kv_bits=4``)."""
+        return self.stack.init_cache(batch, max_len, device, kv_bits)
 
     def prefill(self, params, batch, cache, ctx=None):
         x = self.embed(params["embed"], batch["tokens"])

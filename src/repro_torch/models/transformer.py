@@ -62,8 +62,9 @@ class Block(Module):
         h = self.ffn_norm(params["ffn_norm"], x)
         return x + self.ffn(params["ffn"], h, ctx)
 
-    def init_cache(self, batch, max_len, device=None):
-        return {"attn": self.attn.init_cache(batch, max_len, device)}
+    def init_cache(self, batch, max_len, device=None, kv_bits=8):
+        return {"attn": self.attn.init_cache(batch, max_len, device,
+                                             kv_bits)}
 
     def prefill(self, params, x, cache, ctx=None):
         h = self.pre_norm(params["pre_norm"], x)
@@ -110,8 +111,8 @@ class Stack(Module):
             x = blk(params[f"layer{i}"], x, ctx)
         return self.final_norm(params["final_norm"], x)
 
-    def init_cache(self, batch, max_len, device=None):
-        return {f"layer{i}": b.init_cache(batch, max_len, device)
+    def init_cache(self, batch, max_len, device=None, kv_bits=8):
+        return {f"layer{i}": b.init_cache(batch, max_len, device, kv_bits)
                 for i, b in enumerate(self.blocks)}
 
     def prefill(self, params, x, cache, ctx=None):

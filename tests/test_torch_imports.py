@@ -48,7 +48,7 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 @pytest.mark.parametrize("kw,item", [
     (dict(prefill_chunk=8), "item 9"),
     (dict(temperature=0.7), "item 10"),
-    (dict(kv_bits=4), "item 11"),
+    (dict(top_p=0.9), "item 10"),
     (dict(cache_layout="paged"), "item 12"),
     (dict(checkpoint_dir="ckpt"), "item 14"),
     (dict(fp=True), "item 8"),

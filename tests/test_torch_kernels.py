@@ -164,7 +164,8 @@ def test_entry_points_validate_inputs():
     with pytest.raises(ValueError, match="multiple of 8"):
         ops.prefill_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
                               v[..., :12].contiguous(), ks, vs, 0, 8)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="packed"):
+        # kv_bits=4 takes D/2 packed bytes a row, not int8-wide tiles
         ops.prefill_attention(q, k, v, ks, vs, 0, 8, kv_bits=4)
     x = torch.zeros((3, 16))
     w = torch.zeros((16, 8), dtype=torch.int8)

@@ -1,0 +1,429 @@
+"""The port's threshold fine-tune (paper §3) against the reference.
+
+Same numpy inputs through ``repro`` (JAX) and ``repro_torch``, float32.
+
+Tolerances and why:
+  * Fake-quant forwards are bit-exact: the same float32 operations in the
+    same order (round half to even, one IEEE division).  ``exp2`` is the
+    exception: XLA computes it as exp(x * ln2) with its own exp polynomial,
+    which is not correctly rounded, and the port's exp agrees with it to one
+    ulp (not always to the bit).  The log2-threshold forward is therefore
+    held bit-exact where the two thresholds agree, which the test checks
+    first.
+  * Fake-quant gradients: rtol 1e-5, with an absolute floor of 1e-5 of the
+    largest gradient of the vector -- the per-channel sums add the same
+    terms in another order, and a sum that cancels to near zero keeps the
+    absolute, not the relative, error of its terms.
+  * Optimizer: rtol 1e-6 -- ``b ** t`` and the cosine are libm calls on
+    one side and XLA's on the other, which may differ in the last bit.
+  * One FAT step on the smoke model: loss rtol 1e-4.  The two frameworks'
+    float32 matmuls sum in different orders, so activations differ in their
+    last bits, and an element may cross a rounding boundary of a
+    fake-quantizer.  Such a flip moves that layer's threshold gradient by
+    about one quantization step times the incoming gradient; the gradient
+    sums themselves differ by their order.  Gradients are held to rtol
+    2e-3 with an absolute floor of 1e-4 of the largest gradient of their
+    kind (alpha or log2_t); on these inputs they agree to 2.3e-6 of it.
+    After one Adam step (every trainable leaf moves by ~lr = 1e-3 in the
+    direction of its gradient's sign) the thresholds agree to atol 1e-6.
+  * Fine-tune (2 epochs x 2 batches at lr 1e-2): losses rtol 1e-4,
+    thresholds atol 1e-5 (the flips above compound over steps).  At a rate
+    as high as 0.1 they do not stay this close: Adam's first steps move
+    every leaf by about lr times the sign of its gradient, so a gradient
+    near zero whose sign a flip changes moves its leaf by 2 lr the other
+    way (1% apart in the loss after three steps, measured).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.core import api as JA
+from repro.core import quant as JQ
+from repro.core.distill import chunked_sq_err as jax_chunked_sq_err
+from repro.launch import steps as JST
+from repro.models import build_model as jax_build
+from repro.optim import adam as JADAM
+from repro_torch import bridge
+from repro_torch.configs import get_config as torch_config
+from repro_torch.core import api as TA
+from repro_torch.core import quant as TQ
+from repro_torch.launch import steps as TST
+from repro_torch.models import build_model as torch_build
+from repro_torch.optim import adam as TADAM
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32, copy=True))
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+# ---------------------------------------------------------------------------
+# fake-quant primitives
+# ---------------------------------------------------------------------------
+
+ACT = dict(bits=8)
+HEAD = dict(bits=4, per_channel=True, channel_axis=-2)
+
+
+def _pair(spec_kw):
+    return JQ.QuantSpec(**spec_kw), TQ.QuantSpec(**spec_kw)
+
+
+def test_clip_gradient_is_half_on_a_bound():
+    """jnp.clip's gradient is 1/2 where x sits on a bound; the port's clip
+    follows it (torch.clamp would give 1)."""
+    x = np.array([0.3, 0.5, 0.7, 1.0, 1.4], np.float32)
+    want = np.asarray(jax.grad(lambda v: jnp.sum(
+        JQ.clip_grad_passthrough(v, 0.5, 1.0)))(jnp.asarray(x)))
+    xt = _t(x).requires_grad_(True)
+    TQ.clip_grad_passthrough(xt, 0.5, 1.0).sum().backward()
+    np.testing.assert_array_equal(xt.grad.numpy(), want)
+    np.testing.assert_array_equal(want, [0, 0.5, 1, 0.5, 0])
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.8, 0.3], ids=["on_bound", "inside",
+                                                        "below_band"])
+def test_fake_quant_symmetric_fused_matches(alpha):
+    """Per-tensor activation quantizer: forward bit-exact, x and alpha
+    gradients of a weighted sum (custom VJP on both sides)."""
+    rng = np.random.default_rng(1)
+    x = (rng.normal(size=(3, 5, 24)) * 2).astype(np.float32)
+    w = rng.normal(size=x.shape).astype(np.float32)
+    t_max = np.float32(np.abs(x).max() * 0.6)       # some elements saturate
+    jspec, tspec = _pair(ACT)
+
+    def jloss(x, a):
+        return jnp.sum(JQ.fake_quant_symmetric_fused(
+            x, jnp.asarray(t_max), a, jspec) * w)
+
+    jy = JQ.fake_quant_symmetric_fused(jnp.asarray(x), jnp.asarray(t_max),
+                                       jnp.float32(alpha), jspec)
+    jdx, jda = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x),
+                                               jnp.float32(alpha))
+    xt = _t(x).requires_grad_(True)
+    at = torch.tensor(alpha, dtype=torch.float32, requires_grad=True)
+    ty = TQ.fake_quant_symmetric_fused(xt, _t(t_max), at, tspec)
+    (ty * _t(w)).sum().backward()
+    np.testing.assert_array_equal(ty.detach().numpy(), np.asarray(jy))
+    np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(jdx))
+    np.testing.assert_allclose(at.grad.numpy(), np.asarray(jda), rtol=1e-5)
+
+
+def test_fake_quant_symmetric_ste_matches():
+    """The autodiff (STE) form of the symmetric quantizer, per channel."""
+    rng = np.random.default_rng(6)
+    x = (rng.normal(size=(6, 8)) * 2).astype(np.float32)
+    w = rng.normal(size=x.shape).astype(np.float32)
+    t_max = np.abs(x).max(axis=0) * 0.7
+    a = np.linspace(0.4, 1.1, 8).astype(np.float32)
+    a[3] = 1.0                                    # on the clip bound
+    kw = dict(per_channel=True, channel_axis=-1)
+    jspec, tspec = _pair(kw)
+
+    def jfq(a):
+        return JQ.fake_quant_symmetric(jnp.asarray(x), jnp.asarray(t_max), a,
+                                       jspec)
+
+    jda = jax.grad(lambda a: jnp.sum(jfq(a) * w))(jnp.asarray(a))
+    at = _t(a).requires_grad_(True)
+    ty = TQ.fake_quant_symmetric(_t(x), _t(t_max), at, tspec)
+    (ty * _t(w)).sum().backward()
+    np.testing.assert_array_equal(ty.detach().numpy(),
+                                  np.asarray(jfq(jnp.asarray(a))))
+    np.testing.assert_allclose(at.grad.numpy(), np.asarray(jda), rtol=1e-5,
+                               atol=1e-5 * np.abs(np.asarray(jda)).max())
+
+
+def test_fake_quant_log_t_matches():
+    """Per-KV-head TQT quantizer on a (B, S, KV, D) stream at int4."""
+    rng = np.random.default_rng(2)
+    x = (rng.normal(size=(2, 9, 3, 16)) * 3).astype(np.float32)
+    w = rng.normal(size=x.shape).astype(np.float32)
+    l2t = np.log2(np.abs(x).max(axis=(0, 1, 3)) * [0.5, 0.8, 1.0]).astype(
+        np.float32)
+    jspec, tspec = _pair(HEAD)
+    # the thresholds themselves: one ulp apart at most, and here equal
+    t_j = np.asarray(jnp.exp2(jnp.asarray(l2t)))
+    t_t = TQ.exp2(_t(l2t)).numpy()
+    np.testing.assert_array_equal(t_t, t_j)
+
+    def jloss(x, l):
+        return jnp.sum(JQ.fake_quant_log_t(x, l, jspec) * w)
+
+    jy = JQ.fake_quant_log_t(jnp.asarray(x), jnp.asarray(l2t), jspec)
+    jdx, jdl = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x),
+                                               jnp.asarray(l2t))
+    xt = _t(x).requires_grad_(True)
+    lt = _t(l2t).requires_grad_(True)
+    ty = TQ.fake_quant_log_t(xt, lt, tspec)
+    (ty * _t(w)).sum().backward()
+    np.testing.assert_array_equal(ty.detach().numpy(), np.asarray(jy))
+    np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(jdx))
+    np.testing.assert_allclose(lt.grad.numpy(), np.asarray(jdl), rtol=1e-5,
+                               atol=1e-5 * np.abs(np.asarray(jdl)).max())
+
+
+def test_exp2_and_log2_within_ulps():
+    """The port's exp2/log2 against XLA's compiled ones over a wide range."""
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=4096) * 6).astype(np.float32)
+    pos = np.abs(x) + 1e-4
+    for ours, theirs, arg in ((TQ.exp2, jnp.exp2, x), (TQ.log2, jnp.log2,
+                                                       pos)):
+        got = ours(_t(arg)).numpy()
+        want = np.asarray(jax.jit(theirs)(arg))
+        ulps = np.abs(got.view(np.int32).astype(np.int64)
+                      - want.view(np.int32).astype(np.int64))
+        # exp: one ulp (the exp itself); log2 = log(x) * (1/ln2): one ulp
+        # from the log and one from the multiply
+        assert ulps.max() <= (1 if ours is TQ.exp2 else 2), ulps.max()
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.7], ids=["on_bound", "inside"])
+def test_fq_weight_matches(alpha):
+    """Per-output-channel weight quantizer (STE autodiff on both sides):
+    forward bit-exact, alpha gradient rtol 1e-5."""
+    rng = np.random.default_rng(4)
+    w = (rng.normal(size=(40, 24)) / 6).astype(np.float32)
+    g = rng.normal(size=w.shape).astype(np.float32)
+    t_max = np.abs(w).max(axis=0)
+    a = np.full(24, alpha, np.float32)
+    a[:5] = [0.45, 0.5, 0.9, 1.0, 1.1]
+    jspec = JA.QuantPolicy().weight_spec()
+    tspec = TA.QuantPolicy().weight_spec()
+
+    def jfq(a):
+        return JA._fq_weight(jnp.asarray(w), {"t_max": jnp.asarray(t_max),
+                                              "alpha": a}, jspec)
+
+    jy = jfq(jnp.asarray(a))
+    jda = jax.grad(lambda a: jnp.sum(jfq(a) * g))(jnp.asarray(a))
+    at = _t(a).requires_grad_(True)
+    ty = TA._fq_weight(_t(w), {"t_max": _t(t_max), "alpha": at}, tspec)
+    (ty * _t(g)).sum().backward()
+    np.testing.assert_array_equal(ty.detach().numpy(), np.asarray(jy))
+    np.testing.assert_allclose(at.grad.numpy(), np.asarray(jda), rtol=1e-5,
+                               atol=1e-5 * np.abs(np.asarray(jda)).max())
+
+
+def test_asymmetric_fake_quant_raises_naming_its_item():
+    with pytest.raises(NotImplementedError, match="item 3"):
+        TQ.fake_quant_asymmetric(torch.zeros(3))
+
+
+# ---------------------------------------------------------------------------
+# optimizer
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("t_mult", [1.0, 2.0])
+def test_cosine_restarts_matches(t_mult):
+    steps = np.arange(0, 400, 7, dtype=np.int32)
+    want = np.asarray(jax.vmap(lambda s: JADAM.cosine_restarts(
+        s, 1e-3, 25, t_mult=t_mult, min_frac=0.1))(jnp.asarray(steps)))
+    got = np.array([float(TADAM.cosine_restarts(
+        torch.tensor(s), 1e-3, 25, t_mult=t_mult, min_frac=0.1))
+        for s in steps], np.float32)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_adam_update_with_mask_matches():
+    """Five masked steps: trained leaves move, frozen leaves and their
+    moments stay as they were."""
+    rng = np.random.default_rng(5)
+    params = {"a": rng.normal(size=4).astype(np.float32),
+              "b": rng.normal(size=(2, 3)).astype(np.float32),
+              "c": np.float32(0.7)}
+    mask = {"a": True, "b": False, "c": True}
+    jp, js = {k: jnp.asarray(v) for k, v in params.items()}, None
+    tp = {k: torch.tensor(v) for k, v in params.items()}
+    js, ts = JADAM.adam_init(jp), TADAM.adam_init(tp)
+    for i in range(5):
+        grads = {k: (rng.normal(size=np.shape(v)) * 10 ** -i).astype(
+            np.float32) for k, v in params.items()}
+        lr = 1e-2 / (i + 1)
+        jp, js = JADAM.adam_update({k: jnp.asarray(g) for k, g in
+                                    grads.items()}, js, jp, lr, mask=mask)
+        tp, ts = TADAM.adam_update({k: torch.tensor(g) for k, g in
+                                    grads.items()}, ts, tp,
+                                   torch.tensor(lr, dtype=torch.float32),
+                                   mask=mask)
+    assert int(ts.step) == int(js.step) == 5
+    for k in params:
+        np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                   rtol=1e-6, err_msg=k)
+        np.testing.assert_allclose(ts.mu[k].numpy(), np.asarray(js.mu[k]),
+                                   rtol=1e-6, err_msg=k)
+        np.testing.assert_allclose(ts.nu[k].numpy(), np.asarray(js.nu[k]),
+                                   rtol=1e-6, err_msg=k)
+    np.testing.assert_array_equal(tp["b"].numpy(), params["b"])
+    np.testing.assert_array_equal(ts.mu["b"].numpy(), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the FAT step and the fine-tune loop on the smoke model
+# ---------------------------------------------------------------------------
+
+
+def _build_fat():
+    """Smoke model in float32, the reference's init bridged; int4 KV
+    thresholds calibrated by the reference (train_thresholds=True) and
+    bridged, so both packages start the step from the same qparams."""
+    jcfg = jax_config("smollm-135m", smoke=True).replace(dtype=jnp.float32)
+    tcfg = torch_config("smollm-135m", smoke=True).replace(
+        dtype=torch.float32)
+    jm, tm = jax_build(jcfg), torch_build(tcfg)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tparams = bridge.params_from_jax(_np(jparams))
+    rng = np.random.default_rng(12)
+    batches = [rng.integers(0, jcfg.vocab, (4, 32), dtype=np.int32)
+               for _ in range(2)]
+    jpol = JA.QuantPolicy(kv_int8=True, kv_bits=4)
+    tpol = TA.QuantPolicy(kv_int8=True, kv_bits=4)
+    jq = JA.init_qparams(jm, jparams, jpol)
+    jstep = jax.jit(JST.make_calibrate_step(jm, jcfg, jpol))
+    for toks in batches:
+        jq = jstep(jparams, jq, {"tokens": jnp.asarray(toks)})
+    jq = JA.finalize_calibration(jq, jpol, train_thresholds=True)
+    return dict(jcfg=jcfg, jm=jm, tm=tm, jparams=jparams, tparams=tparams,
+                batches=batches, jpol=jpol, tpol=tpol, jq=jq,
+                tq=bridge.qparams_from_jax(_np(jq)))
+
+
+@pytest.fixture(scope="module")
+def fat():
+    return _build_fat()
+
+
+def _jax_loss_and_grads(c, batch):
+    jm, cfg, pol = c["jm"], c["jcfg"], c["jpol"]
+
+    def loss_for(qp, params):                  # the reference's loss_for
+        h_t, _ = jm.hidden(params, batch, None, remat=cfg.remat)
+        h_t = jax.lax.stop_gradient(h_t)
+        ctx = JA.make_ctx("fake", pol, qp)
+        h_s, _ = jm.hidden(params, batch, ctx, remat=cfg.remat)
+        sq, n = jax_chunked_sq_err(h_t, h_s, jm.readout_fn(params, None),
+                                   jm.readout_fn(params, ctx),
+                                   chunk=cfg.loss_chunk)
+        return jnp.sqrt(sq / n)
+
+    loss, grads = jax.jit(jax.value_and_grad(loss_for))(c["jq"],
+                                                        c["jparams"])
+    return float(loss), TA.flatten(_np(grads))
+
+
+def test_fat_step_loss_and_gradients_match(fat):
+    c = fat
+    toks = c["batches"][0]
+    want_loss, want = _jax_loss_and_grads(c, {"tokens": jnp.asarray(toks)})
+    loss, grads = TST.make_fat_grad_fn(c["tm"], c["tpol"])(
+        c["tparams"], c["tq"], {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(float(loss), want_loss, rtol=1e-4)
+    mask = TA.flatten(TA.trainable_mask(c["tq"]))
+    assert set(grads) == {k for k, m in mask.items() if m}
+    n_kv = sum(k[-1] == "log2_t" for k in grads)
+    assert n_kv == 2 * c["jcfg"].n_layers
+    for kind in ("alpha", "log2_t"):
+        keys = [k for k in grads if k[-1] == kind]
+        scale = max(np.abs(want[k]).max() for k in keys)
+        assert scale > 0
+        for k in keys:
+            np.testing.assert_allclose(grads[k].numpy(), want[k], rtol=2e-3,
+                                       atol=1e-4 * scale, err_msg=str(k))
+
+
+def test_fat_grad_microbatches_average(fat):
+    """n_micro = 2: loss and gradients are the means over the two halves of
+    the batch."""
+    c = fat
+    toks = torch.from_numpy(c["batches"][0])
+    whole = TST.make_fat_grad_fn(c["tm"], c["tpol"], n_micro=2)
+    half = TST.make_fat_grad_fn(c["tm"], c["tpol"])
+    loss, grads = whole(c["tparams"], c["tq"], {"tokens": toks})
+    parts = [half(c["tparams"], c["tq"], {"tokens": t})
+             for t in toks.chunk(2)]
+    np.testing.assert_allclose(float(loss), float(parts[0][0] + parts[1][0])
+                               / 2, rtol=1e-6)
+    for k, g in grads.items():
+        np.testing.assert_allclose(
+            g.numpy(), ((parts[0][1][k] + parts[1][1][k]) / 2).numpy(),
+            rtol=1e-6, atol=1e-9, err_msg=str(k))
+    with pytest.raises(ValueError, match="microbatches"):
+        TST.make_fat_grad_fn(c["tm"], c["tpol"], n_micro=3)(
+            c["tparams"], c["tq"], {"tokens": toks})
+
+
+def test_fat_train_step_updates_match(fat):
+    c = fat
+    toks = c["batches"][1]
+    jstep = jax.jit(JST.make_fat_train_step(c["jm"], c["jcfg"], c["jpol"]))
+    jq, jopt, jmet = jstep(c["jparams"], c["jq"], JADAM.adam_init(c["jq"]),
+                           {"tokens": jnp.asarray(toks)})
+    tstep = TST.make_fat_train_step(c["tm"], c["tpol"])
+    tq, topt, tmet = tstep(c["tparams"], c["tq"],
+                           TADAM.adam_init(TA.flatten(c["tq"])),
+                           {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]),
+                               rtol=1e-4)
+    np.testing.assert_allclose(float(tmet["lr"]), float(jmet["lr"]),
+                               rtol=1e-6)
+    assert int(topt.step) == int(jopt.step) == 1
+    want, got = TA.flatten(_np(jq)), TA.flatten(tq)
+    assert set(want) == set(got)
+    moved = 0
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=0, atol=1e-6,
+                                   err_msg=str(k))
+        moved += int(not np.array_equal(w, TA.flatten(_np(c["jq"]))[k]))
+    assert moved > 0
+
+
+def test_finetune_thresholds_matches_and_decreases(fat):
+    """2 epochs x 2 batches at a rate that moves the thresholds: the same
+    loss sequence, and on both sides each batch's loss lower in the last
+    epoch than in the first (the decrease
+    ``test_distill_loss_strictly_decreases`` pins on the reference)."""
+    c = fat
+    hp = dict(base_lr=1e-2, anneal_period=8)
+    jq, jl = JST.finetune_thresholds(
+        c["jm"], c["jcfg"], c["jpol"], c["jparams"], c["jq"],
+        [{"tokens": jnp.asarray(b)} for b in c["batches"]], epochs=2,
+        hp=JST.TrainHParams(**hp))
+    step_s = []
+    tq, tl = TST.finetune_thresholds(
+        c["tm"], c["tpol"], c["tparams"], c["tq"],
+        [{"tokens": torch.from_numpy(b)} for b in c["batches"]], epochs=2,
+        hp=TST.TrainHParams(**hp), step_seconds=step_s)
+    assert len(tl) == len(jl) == len(step_s) == 4
+    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+    for losses in (jl, tl):
+        assert losses[2] < losses[0] and losses[3] < losses[1], losses
+    want, got = TA.flatten(_np(jq)), TA.flatten(tq)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=0, atol=1e-5,
+                                   err_msg=str(k))
+    with pytest.raises(ValueError, match="epochs"):
+        TST.finetune_thresholds(c["tm"], c["tpol"], c["tparams"], c["tq"],
+                                [{"tokens": torch.from_numpy(b)}
+                                 for b in c["batches"]], epochs=9)
+
+
+def test_trainable_mask_and_freeze_match(fat):
+    c = fat
+    jmask, tmask = JA.trainable_mask(c["jq"]), TA.trainable_mask(c["tq"])
+    assert TA.flatten(tmask) == TA.flatten(jmask)
+    want = TA.flatten(_np(JA.freeze_thresholds(c["jq"])))
+    got = TA.flatten(TA.freeze_thresholds(c["tq"]))
+    assert set(got) == set(want)
+    assert not any(k[-1] == "log2_t" for k in got)
+    for k, w in want.items():
+        # 2**log2_t: the port's exp agrees with XLA's to one ulp
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=2.5e-7,
+                                   err_msg=str(k))
