@@ -20,7 +20,22 @@
    each batch's loss must fall; holds the first step's loss and threshold
    gradients against the same step on the CPU;
 6. [int4 path] drives that engine's ``generate_batch`` (int4 KV cache,
-   the kernels' int4 variants) and holds it against the CPU as in 4.
+   the kernels' int4 variants) and holds it against the CPU as in 4;
+7. [kernels], paged: both attention kernels over a page pool read through
+   a permuted block table (one page mapped into two rows), int8 and int4,
+   pages of 16 and 64, at the scheduler's decode shape and the paged
+   path's prefill chunk: against their plain versions, and bit for bit
+   against the dense kernel on the gathered copy; timed beside it;
+8. [paged path] serves 4 x 512 prompts for 32 tokens through a paged cache
+   with chunked prefill (chunks of 128, pages of 64): logits and tokens
+   bit-identical to the same engine with a dense cache, every attention
+   launch through the paged variants, no gather of the pool; [int4 paged
+   path] the same for the int4 engine;
+9. [scheduler] streams 16 ragged requests (prompts of 64-512 tokens, 32
+   generated tokens each) through ``Engine.generate`` with 8 slots of the
+   paged cache, and re-serves 4 of them alone through ``generate_batch``;
+10. [prefix] serves 4 requests with one 512-token prompt: one prefill,
+   three prefix-store hits, equal tokens.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -37,6 +52,8 @@ import time
 import numpy as np
 
 B, PROMPT, GEN = 4, 512, 32
+# the paged path and the scheduler: chunked prefill, pages, slot batch
+CHUNK, PAGE, SLOTS, BLOCK_STEPS, N_REQUESTS = 128, 64, 8, 8, 16
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor-core peak
@@ -312,6 +329,162 @@ def check_attention(torch, ops, ref, dev, bits):
     return entries
 
 
+def paged_inputs(torch, dev, gen, b, cap, page, bits, kvh=3, d=64):
+    """K/V pools of ``b`` rows of ``cap`` positions in pages of ``page``
+    (and two spare pages), with a seeded permuted block table in which rows
+    0 and 1 share their first page (a shared prefix page)."""
+    from repro_torch.core.packing import pack_int4
+
+    lv = 127 if bits == 8 else 7
+    nb = cap // page
+    pages = b * nb + 2
+
+    def pool():
+        t = torch.randint(-lv, lv + 1, (pages, page, kvh, d), generator=gen,
+                          device=dev, dtype=torch.int8)
+        return pack_int4(t) if bits == 4 else t
+
+    kp, vp = pool(), pool()
+    perm = torch.randperm(pages, generator=gen, device=dev)
+    table = perm[:b * nb].reshape(b, nb).to(torch.int32)
+    table[1, 0] = table[0, 0]
+    return kp, vp, table.contiguous()
+
+
+def check_paged_attention(torch, ops, ref, dev, bits, page):
+    """Both attention kernels over a paged pool: the scheduler's decode shape
+    (8 slots, cache 640, ragged positions including 0) and the paged path's
+    prefill chunk (4 rows, 128 queries at position 384, 512 keys).  Each is
+    held against its plain version (``ATTN_TOL``) and against the dense
+    kernel on the gathered contiguous copy (bit for bit), and timed beside
+    it; returns the JSON entries."""
+    import torch.nn.functional as F
+
+    from repro_torch.cache import KernelView
+
+    kvh, g, d = 3, 3, 64
+    gen = torch.Generator(device=dev).manual_seed(7 + bits + page)
+    k_scale = torch.rand((kvh,), generator=gen, device=dev) * 0.05 + 0.01
+    v_scale = torch.rand((kvh,), generator=gen, device=dev) * 0.05 + 0.01
+    tag = f"paged {'int8' if bits == 8 else 'int4 packed'} K/V, page {page}"
+    variant = "@paged" if bits == 8 else "@paged-int4"
+    entries = []
+
+    def held(name, got, want, dense):
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not err <= ATTN_TOL * (1 + want.abs().max().item()):
+            raise AssertionError(f"{name} ({tag}) disagrees with its plain "
+                                 f"version: max |diff| {err}")
+        if not torch.equal(got, dense):
+            raise AssertionError(
+                f"{name} ({tag}) is not bit-identical to the dense kernel on "
+                f"the gathered copy: max |diff| "
+                f"{(got - dense).abs().max().item()}")
+        return err
+
+    # -- decode: the scheduler's slot batch -----------------------------------
+    cap = -(-(PROMPT + GEN) // 128) * 128
+    bd = SLOTS
+    kp, vp, table = paged_inputs(torch, dev, gen, bd, cap, page, bits)
+    view = KernelView(kp, vp, table, page, bits)
+    kd, vd = ref.gather_pages(kp, table), ref.gather_pages(vp, table)
+    q = torch.randn((bd, kvh, g, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    cur = torch.tensor([0, 75, 130, 287, 401, 512, 543, cap],
+                       dtype=torch.int32, device=dev)
+    got = ops.decode_attention_view(q, view, k_scale, v_scale, cur)
+    err = held("decode_attention", got,
+               ref.decode_attention_paged_ref(q, kp, vp, table, k_scale,
+                                              v_scale, cur, bits),
+               ops.decode_attention(q, kd, vd, k_scale, v_scale, cur,
+                                    kv_bits=bits))
+    ms, call = timed(torch, lambda: ops.decode_attention_view(
+        q, view, k_scale, v_scale, cur))
+    dense, _ = timed(torch, lambda: ops.decode_attention(
+        q, kd, vd, k_scale, v_scale, cur, kv_bits=bits))
+    plain, _ = timed(torch, lambda: ref.decode_attention_paged_ref(
+        q, kp, vp, table, k_scale, v_scale, cur, bits))
+    qh = q.reshape(bd, kvh * g, 1, d)
+    kh = dequant_heads(torch, kd, k_scale, g, bits)
+    vh = dequant_heads(torch, vd, v_scale, g, bits)
+    mask = (torch.arange(cap, device=dev)[None, :] < cur[:, None])[
+        :, None, None, :]
+    lib, _ = timed(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask))
+    live = int(cur.sum())
+    nbytes = (q.numel() * 2 + 2 * live * kvh * d * bits // 8 + 8 * kvh
+              + 4 * bd + 4 * sum(-(-int(c) // page) for c in cur)
+              + q.numel() * 4)
+    bnd, by = bound_ms(nbytes, 4 * live * kvh * g * d, BF16_FLOPS_PER_S)
+    print(f"  decode_attention [{tag}] B={bd} cache={cap} cur_pos="
+          f"{cur.tolist()}: {ms * 1e3:.1f} us (per call {call * 1e3:.1f} us)"
+          f"  dense kernel on the gathered copy {dense * 1e3:.1f} us  plain "
+          f"{plain * 1e3:.1f} us  bound {bnd * 1e3:.2f} us  sdpa "
+          f"{lib * 1e3:.1f} us  max|err| {err:.2e}; bit-identical to dense")
+    entries.append({
+        "name": f"decode_attention[{tag}, B={bd}, ragged cur_pos, one "
+                f"layer]",
+        "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:172",
+        "kernel": "decode_attention" + variant, "max_abs_err": err, "ms": ms,
+        "call_ms": call, "dense_ms": dense, "plain_ms": plain,
+        "bound_ms": bnd, "bound_by": by, "library_ms": lib,
+        "library": "SDPA on the gathered dequantized bf16, masked"})
+
+    # -- prefill: one 128-query chunk of the paged path -----------------------
+    q0, limit = PROMPT - CHUNK, PROMPT
+    kp, vp, table = paged_inputs(torch, dev, gen, B, cap, page, bits)
+    table = table[:, :limit // page].contiguous()      # kernel_view(limit)
+    view = KernelView(kp, vp, table, page, bits)
+    kd, vd = ref.gather_pages(kp, table), ref.gather_pages(vp, table)
+    q = torch.randn((B, CHUNK, kvh, g, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    qs = torch.full((B,), q0, dtype=torch.int32, device=dev)
+    kl = torch.full((B,), limit, dtype=torch.int32, device=dev)
+    got = ops.prefill_attention_view(q, view, k_scale, v_scale, qs, kl)
+    err = held("prefill_attention", got,
+               ref.prefill_attention_paged_ref(q, kp, vp, table, k_scale,
+                                               v_scale, qs, kl,
+                                               kv_bits=bits),
+               ops.prefill_attention(q, kd, vd, k_scale, v_scale, qs, kl,
+                                     kv_bits=bits))
+    ms, call = timed(torch, lambda: ops.prefill_attention_view(
+        q, view, k_scale, v_scale, qs, kl))
+    dense, _ = timed(torch, lambda: ops.prefill_attention(
+        q, kd, vd, k_scale, v_scale, qs, kl, kv_bits=bits))
+    plain, _ = timed(torch, lambda: ref.prefill_attention_paged_ref(
+        q, kp, vp, table, k_scale, v_scale, qs, kl, kv_bits=bits),
+        iters=5, warmup=1)
+    qh = q.permute(0, 2, 3, 1, 4).reshape(B, kvh * g, CHUNK, d).contiguous()
+    kh = dequant_heads(torch, kd, k_scale, g, bits)
+    vh = dequant_heads(torch, vd, v_scale, g, bits)
+    mask = (torch.arange(limit, device=dev)[None, :]
+            <= q0 + torch.arange(CHUNK, device=dev)[:, None])
+    lib, _ = timed(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask))
+    pairs = CHUNK * q0 + CHUNK * (CHUNK + 1) // 2
+    nbytes = (q.numel() * 2 + 2 * B * limit * kvh * d * bits // 8 + 8 * kvh
+              + 8 * B + 4 * table.numel() + q.numel() * 4)
+    bnd, by = bound_ms(nbytes, 4 * d * pairs * B * kvh * g, BF16_FLOPS_PER_S)
+    print(f"  prefill_attention [{tag}] B={B} chunk of {CHUNK} at {q0}, "
+          f"kv_len {limit}: {ms * 1e3:.1f} us (per call {call * 1e3:.1f} us)"
+          f"  dense kernel on the gathered copy {dense * 1e3:.1f} us  plain "
+          f"{plain * 1e3:.1f} us  bound {bnd * 1e3:.2f} us  sdpa "
+          f"{lib * 1e3:.1f} us  max|err| {err:.2e}; bit-identical to dense")
+    entries.append({
+        "name": f"prefill_attention[{tag}, B={B}, {CHUNK} queries at {q0}, "
+                f"kv_len {limit}, one layer]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/prefill_attention.cu",
+        "replaces": "src/repro/kernels/prefill_attention.py:192",
+        "kernel": "prefill_attention" + variant, "max_abs_err": err,
+        "ms": ms, "call_ms": call, "dense_ms": dense, "plain_ms": plain,
+        "bound_ms": bnd, "bound_by": by, "library_ms": lib,
+        "library": "SDPA on the gathered dequantized bf16, masked"})
+    return entries
+
+
 def forced_logits(torch, A, engine, prompts, tokens, n):
     """Prefill + n - 1 decode steps fed with ``tokens``; the float32
     logits of each step on the CPU."""
@@ -443,6 +616,208 @@ def cpu_check(torch, A, engine, prompts, toks, tol, label):
         raise AssertionError(f"GPU and CPU logits differ by {worst}")
 
 
+class GatherCount:
+    """Counts, while active, every contiguous gather of a page pool
+    (``PagedCache.dense_view`` and the plain versions' ``gather_pages``):
+    the paged path on the card must run none."""
+
+    def __init__(self, paged_cls, ref):
+        self.paged_cls, self.ref, self.n = paged_cls, ref, 0
+
+    def __enter__(self):
+        self.saved = (self.paged_cls.dense_view, self.ref.gather_pages)
+        view, gather = self.saved
+
+        def counted_view(cache, *a, **kw):
+            self.n += 1
+            return view(cache, *a, **kw)
+
+        def counted_gather(*a, **kw):
+            self.n += 1
+            return gather(*a, **kw)
+
+        self.paged_cls.dense_view = counted_view
+        self.ref.gather_pages = counted_gather
+        return self
+
+    def __exit__(self, *exc):
+        self.paged_cls.dense_view, self.ref.gather_pages = self.saved
+
+
+def layout_twin(Engine, engine, layout):
+    """The same weights and thresholds served through another cache layout,
+    with chunked prefill in chunks of CHUNK (pages of PAGE)."""
+    return Engine(engine.model, engine.cfg, engine.policy,
+                  engine.serve_params, engine.qparams, device=engine.device,
+                  cache_layout=layout, page_size=PAGE, prefill_chunk=CHUNK)
+
+
+def drive_paged_path(torch, ops, ref, Engine, PagedCache, engine, prompts,
+                     label, kind, card):
+    """4 x 512 prompts for 32 tokens through a paged cache with chunked
+    prefill: every attention launch through the paged variants, no gather
+    of the pool, and logits and tokens bit-identical to the same engine
+    with a dense cache.  Returns (all, int4, paged) launch counts."""
+    paged = layout_twin(Engine, engine, "paged")
+    dense = layout_twin(Engine, engine, "dense")
+    paged.generate_batch({"tokens": prompts}, gen=2)       # warm-up
+    ops.reset_launches()
+    with GatherCount(PagedCache, ref) as gathers:
+        res = paged.generate_batch({"tokens": prompts}, gen=GEN)
+    counts, int4 = ops.launch_counts(), ops.int4_launch_counts()
+    pg = ops.paged_launch_counts()
+    n_layers, chunks = engine.cfg.n_layers, PROMPT // CHUNK
+    attn = {"prefill_attention": n_layers * chunks,
+            "decode_attention": n_layers * (GEN - 1)}
+    expected = {"quant_matmul": 7 * n_layers * (chunks + GEN - 1), **attn}
+    int4_expected = attn if engine.policy.kv_bits == 4 else {
+        k: 0 for k in attn}
+    print(f"[{label}] kernel launches {counts} (expected {expected}); paged "
+          f"variants {pg} (expected {attn}); int4 variants {int4}; pool "
+          f"gathers {gathers.n} (expected 0)")
+    if (counts, pg, int4, gathers.n) != (expected, attn, int4_expected, 0):
+        raise AssertionError(f"launch counts {counts} / paged {pg} / int4 "
+                             f"{int4} / gathers {gathers.n}")
+    want = dense.generate_batch({"tokens": prompts}, gen=GEN)
+    if not (torch.equal(res.prefill_logits, want.prefill_logits)
+            and torch.equal(res.tokens, want.tokens)):
+        diff = (res.prefill_logits.float() - want.prefill_logits.float()).abs()
+        raise AssertionError(
+            f"paged and dense caches disagree: prefill logits max |diff| "
+            f"{diff.max().item()}, tokens equal "
+            f"{int((res.tokens == want.tokens).sum())}/{res.tokens.numel()}")
+    cache = paged.init_cache(B, paged._cache_len(PROMPT, GEN))
+    pool = sum(c["attn"].k.numel() + c["attn"].v.numel()
+               + 4 * c["attn"].table.numel() for c in cache.values())
+    print(f"[{label}] prefill {B}x{PROMPT} tokens in chunks of {CHUNK}: "
+          f"{res.prefill_s * 1e3:.1f} ms = {B * PROMPT / res.prefill_s:.0f} "
+          f"tokens/s; decode {res.decode_s / (GEN - 1) * 1e3:.2f} ms per step;"
+          f" pool {pool} bytes ({len(cache)} layers, pages of {PAGE}) on "
+          f"{kind} ({card}); prefill logits and {GEN} greedy tokens "
+          "bit-identical to the dense cache")
+    return counts, int4, pg
+
+
+def teacher_forced_gap(torch, A, ST, engine, prompt, tokens):
+    """Batch-1 chunked prefill + decode of ``prompt`` fed ``tokens``: the
+    first step whose argmax is not ``tokens[step]``, with the logit gap
+    between the two; None when every argmax agrees."""
+    with torch.inference_mode():
+        ctx = A.make_ctx("int8", engine.policy, engine.qparams)
+        toks = torch.as_tensor(prompt, device=engine.device)[None]
+        cache = engine.init_cache(1, engine._cache_len(toks.shape[1],
+                                                       len(tokens)))
+        padded, lengths = ST.pad_for_chunked_prefill(toks, CHUNK)
+        logits, cache = ST.make_prefill_step(
+            engine.model, engine.policy, prefill_chunk=CHUNK)(
+            engine.serve_params, engine.qparams, {"tokens": padded}, cache,
+            lengths)
+        for i, t in enumerate(tokens):
+            row = logits[0, -1].float()
+            pick = int(row.argmax())
+            if pick != t:
+                return i, (row[pick] - row[t]).item()
+            logits, cache = engine.model.decode_step(
+                engine.serve_params, torch.tensor([[t]], device=engine.device),
+                cache, toks.shape[1] + i, ctx)
+    return None
+
+
+def check_scheduler(torch, ops, A, ST, Engine, Request, engine, kind, card):
+    """16 ragged requests through 8 slots of the paged cache; every one must
+    finish by its 32-token budget, and 4 of them re-served alone through
+    batch-1 ``generate_batch`` (dense cache, same chunks) must give the same
+    tokens or first differ at a near-tie.  Returns the launch counts."""
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(64, PROMPT + 1, N_REQUESTS)
+    reqs = [Request(rid=i, tokens=rng.integers(0, engine.cfg.vocab, n,
+                                               dtype=np.int32), max_gen=GEN)
+            for i, n in enumerate(lengths)]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = engine.generate(reqs, max_slots=SLOTS, block_steps=BLOCK_STEPS,
+                           eos_id=-1)
+    wall = time.perf_counter() - t0
+    counts, pg = ops.launch_counts(), ops.paged_launch_counts()
+    sched = engine._scheduler
+    calls, sec = sched.call_counts(), sched.stage_seconds()
+    n_layers = engine.cfg.n_layers
+    steps = calls["decode"] * BLOCK_STEPS
+    bad = [(c.rid, c.status, c.finished_by, len(c.tokens)) for c in done
+           if (c.status, c.finished_by, len(c.tokens)) != ("ok", "budget",
+                                                           GEN)]
+    print(f"[scheduler] {len(done)} requests (prompts {lengths.min()}-"
+          f"{lengths.max()} tokens, {GEN} generated each) through {SLOTS} "
+          f"slots in {wall:.2f} s: {len(done) / wall:.2f} requests/s, "
+          f"{len(done) * GEN / wall:.1f} generated tokens/s; admission "
+          f"{sec['admit'] / calls['prefill'] * 1e3:.1f} ms per request; "
+          f"decode {sec['decode'] / calls['decode'] * 1e3:.1f} ms per block "
+          f"of {BLOCK_STEPS} steps = {sec['decode'] / steps * 1e3:.2f} ms per "
+          f"step on {kind} ({card})")
+    print(f"[scheduler] calls {calls}; kernel launches {counts}; paged "
+          f"variants {pg} (decode expected {n_layers * steps}); health "
+          f"{sched.health_stats()}")
+    if len(done) != N_REQUESTS or bad:
+        raise AssertionError(f"{len(done)} completions; not ok/budget/{GEN}: "
+                             f"{bad}")
+    if pg != {"prefill_attention": 0, "decode_attention": n_layers * steps}:
+        raise AssertionError(f"paged launches {pg}")
+    dense = layout_twin(Engine, engine, "dense")
+    by_rid = {c.rid: c for c in done}
+    for r in range(4):
+        alone = dense.generate_batch({"tokens": reqs[r].tokens[None]},
+                                     gen=GEN).tokens[0].tolist()
+        got = by_rid[r].tokens
+        if alone == got:
+            print(f"[scheduler] request {r} ({lengths[r]} tokens) alone: "
+                  f"{GEN} tokens equal")
+            continue
+        forced = teacher_forced_gap(torch, A, ST, dense, reqs[r].tokens,
+                                    got)
+        if forced is None:
+            raise AssertionError(
+                f"request {r}: batch-1 generate_batch gives other tokens, "
+                "but teacher-forced on the scheduler's tokens every argmax "
+                "agrees")
+        step, gap = forced
+        print(f"[scheduler] request {r} ({lengths[r]} tokens) alone: first "
+              f"differs at token {step}, where the batch-1 logits put the "
+              f"scheduler's token {gap:.4f} below their argmax (near-tie "
+              f"tolerance {LOGIT_ATOL})")
+        if not gap <= LOGIT_ATOL:
+            raise AssertionError(f"request {r}: the scheduler's token {step} "
+                                 f"is {gap} below the batch-1 argmax")
+    return counts, pg
+
+
+def check_prefix(torch, ops, Request, engine, kind, card):
+    """4 requests with one 512-token prompt through the paged scheduler:
+    one prefill, three prefix-store hits, every request the first's
+    tokens.  Returns the launch counts."""
+    prompt = np.random.default_rng(4).integers(0, engine.cfg.vocab, PROMPT,
+                                               dtype=np.int32)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = engine.generate([Request(rid=r, tokens=prompt, max_gen=GEN)
+                            for r in range(4)], max_slots=4,
+                           block_steps=BLOCK_STEPS)
+    wall = time.perf_counter() - t0
+    sched = engine._scheduler
+    calls, stats = sched.call_counts(), sched.prefix_stats()
+    counts, pg = ops.launch_counts(), ops.paged_launch_counts()
+    toks = [c.tokens for c in sorted(done, key=lambda c: c.rid)]
+    print(f"[prefix] 4 requests, one {PROMPT}-token prompt, in {wall:.2f} s "
+          f"on {kind} ({card}): calls {calls}; prefix store {stats}; paged "
+          f"launches {pg}; tokens equal to the first's "
+          f"{sum(t == toks[0] for t in toks)}/4")
+    if calls["prefill"] != 1 or stats["hits"] != 3:
+        raise AssertionError(f"prefill calls {calls['prefill']}, hits "
+                             f"{stats['hits']} (want 1 and 3)")
+    if any(t != toks[0] for t in toks) or len(toks[0]) != GEN:
+        raise AssertionError(f"prefix-shared requests differ: {toks}")
+    return counts, pg
+
+
 def calibrated(torch, A, ST, model, params, policy, batches):
     """§2 calibration over ``batches``, finalized with trainable
     thresholds (what the engine's fine-tune starts from)."""
@@ -560,10 +935,12 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
 
+    from repro_torch.cache import PagedCache
     from repro_torch.core import api as A
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch import steps as ST
     from repro_torch.launch.engine import Engine
+    from repro_torch.launch.scheduler import Request
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -593,6 +970,9 @@ def main() -> int:
     kernels = check_quant_matmul(torch, ops, ref, dev)
     kernels += check_attention(torch, ops, ref, dev, bits=8)
     kernels += check_attention(torch, ops, ref, dev, bits=4)
+    for bits in (8, 4):
+        for page in (16, PAGE):
+            kernels += check_paged_attention(torch, ops, ref, dev, bits, page)
 
     phases = {"build": build_s, "kernels": time.perf_counter() - t_kern}
 
@@ -646,16 +1026,43 @@ def main() -> int:
     if out4 is not None:
         phase("int4 cpu check", cpu_check, torch, A, engine4, prompts,
               out4[0].tokens.cpu(), LOGIT_ATOL_INT4, "int4 cpu check")
+    paged4 = phase("int4 paged path", drive_paged_path, torch, ops, ref,
+                   Engine, PagedCache, engine4, prompts, "int4 paged path",
+                   kind, card)
+    del engine4
+
+    t0 = time.perf_counter()
+    engine_p = Engine.from_checkpoint("smollm-135m", smoke=False,
+                                      cache_layout="paged", page_size=PAGE,
+                                      prefill_chunk=CHUNK)
+    torch.cuda.synchronize()
+    phases["paged engine"] = time.perf_counter() - t0
+    # the paged launches of each of this slice's paths, each counted from 0
+    paged_runs = {
+        "paged path": phase("paged path", drive_paged_path, torch, ops, ref,
+                            Engine, PagedCache, engine_p, prompts,
+                            "paged path", kind, card),
+        "scheduler": phase("scheduler", check_scheduler, torch, ops, A, ST,
+                           Engine, Request, engine_p, kind, card),
+        "prefix": phase("prefix", check_prefix, torch, ops, Request,
+                        engine_p, kind, card)}
     print("[time] " + "; ".join(f"{k} {v:.1f} s" for k, v in phases.items()))
     if failures:
         print("chip_smoke: failed checks:\n  " + "\n  ".join(failures),
               file=sys.stderr)
         return 1
 
-    int4 = out4[2]
-    launched = {**counts, **{f"{k}@int4": n for k, n in int4.items()}}
+    by_path = {path: run[-1] for path, run in paged_runs.items()}
+    launched = {**counts, **{f"{k}@int4": n for k, n in out4[2].items()},
+                **{f"{k}@paged-int4": n for k, n in paged4[2].items()},
+                **{f"{k}@paged": sum(pg[k] for pg in by_path.values())
+                   for k in ops.ATTENTION}}
     for e in kernels:
-        e["launches"] = launched[e.pop("kernel")]
+        kernel = e.pop("kernel")
+        e["launches"] = launched[kernel]
+        if kernel.endswith("@paged"):
+            e["launches_by_path"] = {path: pg[kernel.split("@")[0]]
+                                     for path, pg in by_path.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

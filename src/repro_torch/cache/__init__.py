@@ -1,7 +1,52 @@
-"""Quantized (int8 / packed int4) KV cache, dense layout.  See
-``repro_torch.cache.base``."""
+"""Quantized (int8 / packed int4) KV caches behind one protocol: the dense
+layout (``repro_torch.cache.base``) and the page pool with block tables
+and prefix sharing (``repro_torch.cache.paged``).
+
+``make_cache`` is the single construction point the model layers use, the
+counterpart of ``repro.cache.make_cache``: ``layout`` is "dense", "paged",
+or "ring", which gives a sliding-window layer its ring buffer and every
+other layer a dense cache.
+"""
 from repro_torch.cache.base import (DenseCache, KernelView, KV_LEVELS,
                                     dequantize_kv, kv_levels, quantize_kv)
+from repro_torch.cache.paged import (PagedCache, PrefixEntry, PrefixStore,
+                                     copy_pages, set_table_row,
+                                     splice_dense_into_pages)
 
-__all__ = ["DenseCache", "KernelView", "KV_LEVELS", "dequantize_kv",
-           "kv_levels", "quantize_kv"]
+LAYOUTS = ("dense", "ring", "paged")
+
+
+def make_cache(batch, max_len, n_kv, head_dim, *, device=None,
+               layout="dense", window=None, page_size=64, extra_pages=0,
+               bits=8):
+    """The ``layout`` cache of one attention layer (int8, or packed int4 at
+    ``bits=4``).  The SWA ring buffer, which "ring" and "paged" give a
+    windowed layer shorter than ``max_len``, is ROADMAP Queue A item 9."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown cache layout {layout!r} (use one of "
+                         f"{LAYOUTS})")
+    if window is not None and layout != "dense" and window < max_len:
+        raise NotImplementedError(
+            "the SWA ring buffer is not ported (ROADMAP Queue A item 9)")
+    if layout == "paged":
+        return PagedCache.init(batch, max_len, n_kv, head_dim, device=device,
+                               page_size=page_size, extra_pages=extra_pages,
+                               bits=bits)
+    return DenseCache.init(batch, max_len, n_kv, head_dim, device=device,
+                           bits=bits)
+
+
+def layer_caches(tree):
+    """Every layer's KV cache in a stack's cache tree ({"layer{i}":
+    {"attn": cache}}), in layer order."""
+    if isinstance(tree, dict):
+        for sub in tree.values():
+            yield from layer_caches(sub)
+    else:
+        yield tree
+
+
+__all__ = ["DenseCache", "KernelView", "KV_LEVELS", "LAYOUTS", "PagedCache",
+           "PrefixEntry", "PrefixStore", "copy_pages", "dequantize_kv",
+           "kv_levels", "layer_caches", "make_cache", "quantize_kv",
+           "set_table_row", "splice_dense_into_pages"]

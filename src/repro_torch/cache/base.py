@@ -5,17 +5,18 @@
 Counterpart of the dense, quantized half of ``repro/cache/base.py``.  K/V
 quantize ONCE against the frozen per-head calibrated thresholds (paper §2)
 in ``ready``; the same int8 tiles are written by ``append`` and attended
-by the fused kernels.  Unlike the reference's immutable pytree, ``append``
-writes into the cache buffers in place (a decode step then moves only the
-new token's bytes) and returns the same object.
+by the fused kernels.  Unlike the reference's immutable pytree, every
+write (``append``, ``append_slots``, ``splice_slot``) goes into the cache
+buffers in place (a decode step then moves only the new token's bytes)
+and returns the same object.
 
-A bf16 cache is ROADMAP Queue A item 8, the SWA ring and paged layouts
-items 9 and 12.
+The paged layout is ``repro_torch.cache.paged``.  A bf16 cache is ROADMAP
+Queue A item 8, the SWA ring buffer item 9.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -68,17 +69,53 @@ def dequantize_kv(x_q: torch.Tensor, scale: torch.Tensor,
 
 
 class KernelView(NamedTuple):
-    """What the fused kernels consume: contiguous (B, S, KV, D) tiles (the
-    block table is the identity for the dense layout); at ``bits == 4``
-    the last dim holds D/2 packed bytes."""
+    """What the fused kernels consume, layout-independently: the dense
+    layout passes contiguous (B, S, KV, D) tiles with ``block_table`` None;
+    the paged layout passes its (pages, page_size, KV, D) pool with a
+    (B, n_blocks) int32 table.  At ``bits == 4`` the last dim holds D/2
+    packed bytes."""
     k: torch.Tensor
     v: torch.Tensor
+    block_table: Optional[torch.Tensor] = None
+    page_size: Optional[int] = None
     bits: int = 8
 
 
+def storage_shape(lead, seq, n_kv, head_dim, bits):
+    """(lead, seq, KV, D) storage shape; D/2 bytes at ``bits == 4``."""
+    kv_levels(bits)             # raises unless bits is 4 or 8
+    if bits == 4:
+        if head_dim % 2:
+            raise ValueError(
+                f"int4 KV packing needs an even head dim, got {head_dim}")
+        head_dim //= 2          # two nibbles per stored byte
+    return (lead, seq, n_kv, head_dim)
+
+
+class QuantizedKV:
+    """The scale half of the cache protocol, shared by every layout (a
+    dataclass with ``k_scale``, ``v_scale`` and ``bits`` fields)."""
+
+    def scales(self):
+        return self.k_scale, self.v_scale
+
+    def with_scales(self, k_scale, v_scale):
+        """Install calibrated per-head dequant scales (floored once here);
+        the K/V buffers (and a paged table) are shared with this cache."""
+        return dataclasses.replace(self, k_scale=_safe_scale(k_scale),
+                                   v_scale=_safe_scale(v_scale))
+
+    def ready(self, k, v):
+        """Cache-ready tiles: quantize against the frozen per-head scales."""
+        return (quantize_kv(k, self.k_scale, self.bits),
+                quantize_kv(v, self.v_scale, self.bits))
+
+
 @dataclasses.dataclass
-class DenseCache:
+class DenseCache(QuantizedKV):
     """Contiguous quantized KV cache of one attention layer."""
+
+    layout = "dense"
 
     k: torch.Tensor        # (B, S, KV, D) int8 (D/2 packed bytes at bits 4)
     v: torch.Tensor
@@ -88,13 +125,7 @@ class DenseCache:
 
     @classmethod
     def init(cls, batch, max_len, n_kv, head_dim, *, device=None, bits=8):
-        kv_levels(bits)             # raises unless bits is 4 or 8
-        if bits == 4:
-            if head_dim % 2:
-                raise ValueError(
-                    f"int4 KV packing needs an even head dim, got {head_dim}")
-            head_dim //= 2          # two nibbles per stored byte
-        shape = (batch, max_len, n_kv, head_dim)
+        shape = storage_shape(batch, max_len, n_kv, head_dim, bits)
         return cls(torch.zeros(shape, dtype=torch.int8, device=device),
                    torch.zeros(shape, dtype=torch.int8, device=device),
                    torch.ones((n_kv,), dtype=torch.float32, device=device),
@@ -104,19 +135,6 @@ class DenseCache:
     @property
     def capacity(self) -> int:
         return self.k.shape[-3]
-
-    def scales(self):
-        return self.k_scale, self.v_scale
-
-    def with_scales(self, k_scale, v_scale) -> "DenseCache":
-        """Install calibrated per-head dequant scales (floored once here)."""
-        return dataclasses.replace(self, k_scale=_safe_scale(k_scale),
-                                   v_scale=_safe_scale(v_scale))
-
-    def ready(self, k, v):
-        """Cache-ready tiles: quantize against the frozen per-head scales."""
-        return (quantize_kv(k, self.k_scale, self.bits),
-                quantize_kv(v, self.v_scale, self.bits))
 
     def append(self, kq, vq, start: int) -> "DenseCache":
         """Write tiles at positions [start, start + len) in place."""
@@ -129,9 +147,51 @@ class DenseCache:
         self.v[:, start:start + s] = vq
         return self
 
-    def dense_view(self):
-        """(k, v) storage tiles, (B, S, KV, D) each (D/2 at bits 4)."""
-        return self.k, self.v
+    def append_slots(self, kq, vq, starts, active=None) -> "DenseCache":
+        """Per-slot one-token write (continuous batching): row b writes its
+        (1, KV, D) tiles at position ``starts[b]``.  A row with ``active``
+        False reads back the tiles at its (clamped) index and writes them
+        unchanged, so a masked step leaves the cache bit-for-bit as it was;
+        starts clamp to the capacity, as the reference's dynamic slice
+        does."""
+        if kq.shape[1] != 1:
+            raise NotImplementedError(
+                "multi-token slot writes are the speculative verify window "
+                "(ROADMAP Queue A item 13)")
+        rows = torch.arange(self.k.shape[0], device=self.k.device)
+        pos = torch.clamp(starts.to(torch.long), 0, self.capacity - 1)
+        kq, vq = kq[:, 0], vq[:, 0]
+        if active is not None:
+            sel = active.reshape(-1, 1, 1)
+            kq = torch.where(sel, kq, self.k[rows, pos])
+            vq = torch.where(sel, vq, self.v[rows, pos])
+        self.k[rows, pos] = kq
+        self.v[rows, pos] = vq
+        return self
 
-    def kernel_view(self) -> KernelView:
-        return KernelView(self.k, self.v, self.bits)
+    def rollback(self, pos, private_row=None) -> "DenseCache":
+        """Logical rewind to ``pos`` valid entries: a no-op, since entries
+        at positions >= pos are dead data the masks never read."""
+        return self
+
+    def splice_slot(self, slot_cache: "DenseCache", slot: int) -> "DenseCache":
+        """Receive a batch-1 cache into batch row ``slot`` (scheduler
+        admission); the frozen scales come from the slot cache."""
+        self.k[slot] = slot_cache.k[0]
+        self.v[slot] = slot_cache.v[0]
+        self.k_scale, self.v_scale = slot_cache.k_scale, slot_cache.v_scale
+        return self
+
+    def dense_view(self, limit: Optional[int] = None):
+        """(k, v) storage tiles, (B, S', KV, D) each (D/2 at bits 4), S' =
+        ``limit`` or the capacity."""
+        if limit is None or limit >= self.capacity:
+            return self.k, self.v
+        return self.k[:, :limit], self.v[:, :limit]
+
+    def kernel_view(self, limit: Optional[int] = None) -> KernelView:
+        """The first ``limit`` positions (all by default) as contiguous
+        tiles.  A cut view of a wider cache is copied contiguous, because
+        the kernels stream (B, S, KV, D) rows."""
+        k, v = self.dense_view(limit)
+        return KernelView(k.contiguous(), v.contiguous(), bits=self.bits)

@@ -1,0 +1,300 @@
+"""Paged KV cache: a page pool + per-slot block tables, and the host-side
+prefix store that makes prompt reuse free.
+
+Layout::
+
+    k, v      : (pages, page_size, KV, D)   the page pool (int8, or D/2
+                                            packed bytes at bits 4)
+    table     : (B, n_blocks) int32         logical block j of slot b
+                                            lives in pool page table[b, j]
+    k_scale,
+    v_scale   : (KV,) f32                   frozen per-head dequant scales
+
+The pool holds ``B * n_blocks`` slot-private pages (page ``b * n_blocks +
+j`` is slot b's default page for block j: the identity table) plus an
+optional ``extra_pages`` shared region owned by the :class:`PrefixStore`.
+The kernels read the pool through the table directly
+(``KernelView.block_table``); ``dense_view`` gathers a contiguous copy for
+the plain versions only.
+
+Counterpart of ``repro/cache/paged.py``.  FAT's thresholds are calibrated
+once and frozen (paper §2), so the dequant scales are request-independent
+and a page quantized while serving one request is bit-valid for every
+other: prefix sharing is bookkeeping.  A shared page is immutable; only
+the full pages of a registered prompt are shared by reference, the partial
+tail page is snapshotted at registration and copied into a sharer's
+private page.  As in the dense layout, every write goes into the pool in
+place.  ``PagedCache.rollback`` with ``private_row`` (copy-on-rewind for
+speculative decoding) is ROADMAP Queue A item 13, the ``state_dict``
+snapshots item 14.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.cache.base import KernelView, QuantizedKV, storage_shape
+
+
+@dataclasses.dataclass
+class PagedCache(QuantizedKV):
+    """Page pool + per-slot block table of one attention layer.
+
+    Logical position p of slot b lives at page ``table[b, p // ps]``,
+    offset ``p % ps``.  With the identity table this is a dense cache whose
+    sequence axis is tiled into pages."""
+
+    layout = "paged"
+
+    k: torch.Tensor        # (T, ps, KV, D) int8 (D/2 packed bytes at bits 4)
+    v: torch.Tensor
+    k_scale: torch.Tensor  # (KV,) f32
+    v_scale: torch.Tensor
+    table: torch.Tensor    # (B, NB) int32
+    page_size: int = 64
+    bits: int = 8
+
+    @classmethod
+    def init(cls, batch, max_len, n_kv, head_dim, *, device=None,
+             page_size=64, extra_pages=0, bits=8):
+        """Identity-table pool: slot b owns pages [b*NB, (b+1)*NB), NB =
+        ceil(max_len / page_size); ``extra_pages`` reserves the shared
+        prefix region at the pool's tail."""
+        if page_size < 8 or page_size % 8:
+            raise ValueError(f"page_size must be a positive multiple of 8, "
+                             f"got {page_size}")
+        nb = -(-max_len // page_size)
+        shape = storage_shape(batch * nb + extra_pages, page_size, n_kv,
+                              head_dim, bits)
+        table = torch.arange(batch * nb, dtype=torch.int32,
+                             device=device).reshape(batch, nb)
+        return cls(torch.zeros(shape, dtype=torch.int8, device=device),
+                   torch.zeros(shape, dtype=torch.int8, device=device),
+                   torch.ones((n_kv,), dtype=torch.float32, device=device),
+                   torch.ones((n_kv,), dtype=torch.float32, device=device),
+                   table, page_size=page_size, bits=bits)
+
+    @property
+    def capacity(self) -> int:
+        return self.n_blocks * self.page_size
+
+    @property
+    def n_blocks(self) -> int:
+        return self.table.shape[-1]
+
+    @property
+    def n_pages(self) -> int:
+        return self.k.shape[0]
+
+    # -- writes ------------------------------------------------------------
+    def _page_of(self, positions: torch.Tensor):
+        """(B, n) positions -> (pages, offsets), each (B, n), through the
+        table; positions clamp to the last valid slot, as the dense
+        layout's clamped write does."""
+        pos = torch.clamp(positions.to(torch.long), 0, self.capacity - 1)
+        pages = torch.gather(self.table.to(torch.long), 1,
+                             pos // self.page_size)
+        return pages, pos % self.page_size
+
+    def append(self, kq, vq, start: int) -> "PagedCache":
+        """Write tokens [start, start + s) of every row into their mapped
+        pages (the rows' target pages are distinct: appends only ever
+        target private pages)."""
+        b, s = kq.shape[0], kq.shape[1]
+        if start < 0 or start + s > self.capacity:
+            raise ValueError(
+                f"append of {s} positions at {start} overruns the cache "
+                f"capacity {self.capacity}")
+        pos = torch.arange(start, start + s, device=self.k.device)
+        pages, offs = self._page_of(pos.expand(b, s))
+        self.k[pages, offs] = kq
+        self.v[pages, offs] = vq
+        return self
+
+    def append_slots(self, kq, vq, starts, active=None) -> "PagedCache":
+        """Per-slot token write through the table (kq/vq (B, 1, KV, D)); a
+        row with ``active`` False reads back its mapped tiles and writes
+        them unchanged, bit-exact cache-neutral like ``DenseCache``."""
+        if kq.shape[1] != 1:
+            raise NotImplementedError(
+                "multi-token slot writes are the speculative verify window "
+                "(ROADMAP Queue A item 13)")
+        pages, offs = self._page_of(starts.reshape(-1, 1))
+        if active is not None:
+            sel = active.reshape(-1, 1, 1, 1)
+            kq = torch.where(sel, kq, self.k[pages, offs])
+            vq = torch.where(sel, vq, self.v[pages, offs])
+        self.k[pages, offs] = kq
+        self.v[pages, offs] = vq
+        return self
+
+    def rollback(self, pos, private_row=None) -> "PagedCache":
+        """Logical rewind of each slot to ``pos`` valid entries: without
+        ``private_row`` a no-op, as in the dense layout (the entries past
+        pos are dead and appends target private pages)."""
+        if private_row is not None:
+            raise NotImplementedError(
+                "copy-on-rewind of shared prefix pages (rollback with "
+                "private_row) serves speculative decoding: ROADMAP Queue A "
+                "item 13")
+        return self
+
+    def splice_slot(self, slot_cache, slot):
+        raise NotImplementedError(
+            "paged splices go through splice_dense_into_pages (admissions "
+            "prefill a dense batch-1 cache and scatter it into the slot's "
+            "private pages)")
+
+    # -- reads -------------------------------------------------------------
+    def _blocks_for(self, limit: Optional[int]) -> int:
+        if limit is None:
+            return self.n_blocks
+        return min(self.n_blocks, -(-int(limit) // self.page_size))
+
+    def dense_view(self, limit: Optional[int] = None):
+        """Gather the table-mapped pages into contiguous (B, S', KV, D)
+        tiles: the plain versions' input (the kernels read the pool through
+        the table instead)."""
+        nb = self._blocks_for(limit)
+        tb = self.table[:, :nb].to(torch.long)
+        shp = (tb.shape[0], nb * self.page_size) + tuple(self.k.shape[2:])
+        k, v = self.k[tb].reshape(shp), self.v[tb].reshape(shp)
+        if limit is not None and limit < shp[1]:
+            k, v = k[:, :limit], v[:, :limit]
+        return k, v
+
+    def kernel_view(self, limit: Optional[int] = None) -> KernelView:
+        """The pool and the table's first ceil(limit / page_size) blocks."""
+        nb = self._blocks_for(limit)
+        return KernelView(self.k, self.v, self.table[:, :nb].contiguous(),
+                          self.page_size, self.bits)
+
+
+# -- scheduler-side page ops (in place; each returns the cache) -------------
+
+def splice_dense_into_pages(paged: PagedCache, dense_slot, row):
+    """Admission splice: scatter a batch-1 dense cache (capacity NB *
+    page_size) into the pool pages ``row`` (NB,); the caller points a
+    table row at them (``set_table_row``).  The frozen scales come from
+    the slot cache."""
+    nb, ps = paged.n_blocks, paged.page_size
+    row = torch.as_tensor(row, dtype=torch.long, device=paged.k.device)
+    tail = tuple(paged.k.shape[2:])
+    paged.k[row] = dense_slot.k.reshape((nb, ps) + tail)
+    paged.v[row] = dense_slot.v.reshape((nb, ps) + tail)
+    paged.k_scale, paged.v_scale = dense_slot.k_scale, dense_slot.v_scale
+    return paged
+
+
+def set_table_row(paged: PagedCache, slot: int, row):
+    """Point slot ``slot``'s block table at pages ``row`` (NB,)."""
+    paged.table[slot] = torch.as_tensor(row, dtype=torch.int32,
+                                        device=paged.table.device)
+    return paged
+
+
+def copy_pages(paged: PagedCache, src, dst):
+    """Copy pool pages ``src`` -> ``dst`` (equal-length index lists): the
+    source pages are read before any destination is written."""
+    src = torch.as_tensor(src, dtype=torch.long, device=paged.k.device)
+    dst = torch.as_tensor(dst, dtype=torch.long, device=paged.k.device)
+    paged.k[dst] = paged.k[src]
+    paged.v[dst] = paged.v[src]
+    return paged
+
+
+# -- host-side prefix registry -----------------------------------------------
+
+class PrefixEntry(NamedTuple):
+    pages: tuple               # shared page ids of the FULL prompt pages
+    tail_page: Optional[int]   # snapshot page of the partial tail (or None)
+    length: int                # prompt length in tokens
+    logits: torch.Tensor       # last-position logits (1, 1, V): a hit
+    #                            takes its first token from these
+
+
+class PrefixStore:
+    """Host-side registry: full-prompt key -> shared pages + stored logits,
+    with an LRU page allocator over the pool's shared region.
+
+    Keys are the full prompt token tuple; registration is opportunistic
+    (a prompt that finds no free or evictable pages is not registered).
+    ``users`` records which live slots hold an entry's pages, so an entry
+    is never reclaimed under a resident."""
+
+    def __init__(self, first_page: int, n_pages: int, page_size: int):
+        self.page_size = page_size
+        self._free = list(range(first_page, first_page + n_pages))
+        self._entries: "OrderedDict[tuple, dict]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.shared_tokens = 0   # prompt tokens served from shared pages
+        self.evictions = 0       # LRU entries reclaimed for new prompts
+        self.exhausted = 0       # reserves denied: no free/evictable pages
+
+    def stats(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "shared_tokens": self.shared_tokens,
+                "entries": len(self._entries),
+                "free_pages": len(self._free),
+                "evictions": self.evictions,
+                "exhausted": self.exhausted}
+
+    def lookup(self, key: tuple, slot: int):
+        """Full-prompt hit: the entry, with ``slot`` marked as a user
+        (``release(slot)`` at retirement); None on a miss."""
+        e = self._entries.get(key)
+        if e is None:
+            self.misses += 1
+            return None
+        self._entries.move_to_end(key)
+        e["users"].add(slot)
+        self.hits += 1
+        self.shared_tokens += e["entry"].length
+        return e["entry"]
+
+    def release(self, slot: int):
+        for e in self._entries.values():
+            e["users"].discard(slot)
+
+    def _reclaim(self, need: int):
+        """Evict least-recently-used entries with no live users until
+        ``need`` pages are free (or nothing evictable remains)."""
+        for key in list(self._entries):
+            if len(self._free) >= need:
+                break
+            e = self._entries[key]
+            if e["users"]:
+                continue
+            ent = e["entry"]
+            self._free.extend(ent.pages)
+            if ent.tail_page is not None:
+                self._free.append(ent.tail_page)
+            del self._entries[key]
+            self.evictions += 1
+
+    def reserve(self, key: tuple, length: int):
+        """Allocate shared pages for a prompt of ``length`` tokens:
+        (full_page_ids, tail_page_id or None), or None when the key is
+        registered already, the prompt is empty, or the shared region
+        cannot fit it (counted in ``exhausted``)."""
+        if key in self._entries:
+            return None
+        n_full, rem = divmod(length, self.page_size)
+        need = n_full + (1 if rem else 0)
+        if need == 0 or len(self._free) < need:
+            self._reclaim(need)
+        if need == 0:
+            return None
+        if len(self._free) < need:
+            self.exhausted += 1
+            return None
+        pages = [self._free.pop() for _ in range(n_full)]
+        tail = self._free.pop() if rem else None
+        return tuple(pages), tail
+
+    def register(self, key: tuple, entry: PrefixEntry):
+        self._entries[key] = {"entry": entry, "users": set()}

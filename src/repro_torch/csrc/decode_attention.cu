@@ -4,11 +4,15 @@
 //                  . K[b, p, h]) @ V[b, :, h] ,   zeros when cur_pos[b] == 0
 //
 // K/V hold int8 values (bits == 8) or int4 values packed two per byte along D
-// (bits == 4: element 2i in the low nibble of byte i, D/2 bytes a row).
+// (bits == 4: element 2i in the low nibble of byte i, D/2 bytes a row).  They
+// are a dense (B, S, KV, D) stream (table == nullptr), or a paged pool (pages,
+// P, KV, D) with a (B, NB) block table: position t of request b is pool row
+// table[b * NB + t / P] * P + t % P.
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py::decode_attention_tiles
-// (bodies `_kernel` + `_flash_step`; dense entry decode_attention_int8, both
-// kv_bits branches).
+// (bodies `_kernel` + `_flash_step`, both kv_bits branches; its dense entry
+// decode_attention_int8 is the null table here, the paged layout's call the
+// real table).
 //
 // What bounds it on an H100: the quantized K/V stream, 2 * cur_pos * D * bits / 8
 // bytes per (request, KV head) and step -- decode attention does ~2 flops per
@@ -27,7 +31,13 @@
 // per trip waits out the full memory latency on every trip.  At batch 4 and 3
 // KV heads this launches only 12 blocks on 132 SMs; splitting S across blocks
 // with the partial-softmax merge (TPU kernel decode_attention_partials_tiles)
-// is the next step.
+// is the next step.  Paging is a template argument, so the dense variant is
+// the dense kernel as it was.  The block table moves storage only: the tile
+// walk (TS positions, whatever the page size; a tile may span pages) and the
+// arithmetic are the dense ones, so a paged cache and its gathered dense copy
+// give bit-identical outputs.  Each tile first maps its TS positions through
+// the table once (one thread a position) into shared memory, so the staging
+// loads carry no table lookup or division.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,6 +73,14 @@ __device__ __forceinline__ float row_elem(const int8_t* row, int d) {
   }
 }
 
+// pool row that holds position t of request b in a paged cache: the block
+// table's page (clamped into the pool), offset t % P
+__device__ __forceinline__ size_t paged_row(const int* table, int b, int t, int NB,
+                                            int P, int n_pages) {
+  const int page = min(max(table[b * NB + t / P], 0), n_pages - 1);
+  return (size_t)page * P + t % P;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -76,15 +94,17 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // GMAX: compile-time bound on the query rows per KV head (G <= GMAX);
-// BITS: storage width of K/V (8, or 4 packed).
-template <typename T, int GMAX, int BITS>
+// BITS: storage width of K/V (8, or 4 packed); PAGED: K/V are page pools read
+// through the block table (else a dense (B, S, KV, D) stream).
+template <typename T, int GMAX, int BITS, bool PAGED>
 __global__ void __launch_bounds__(TS)
 decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                         const int8_t* __restrict__ v,
                         const float* __restrict__ k_scale,
                         const float* __restrict__ v_scale,
-                        const int* __restrict__ cur_pos, float* __restrict__ out,
-                        int S, int KV, int G, int D) {
+                        const int* __restrict__ cur_pos,
+                        const int* __restrict__ table, float* __restrict__ out,
+                        int S, int KV, int G, int D, int NB, int P, int n_pages) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int h = blockIdx.x;
@@ -95,7 +115,8 @@ decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   const int LD = DP + 4;          // bytes per staged K/V row
   const int words = DP / 4;
 
-  float* qs = smem;           // [G][D] q * k_scale / sqrt(D)
+  size_t* rows = reinterpret_cast<size_t*>(smem);  // [TS] pool rows (PAGED)
+  float* qs = smem + (PAGED ? 2 * TS : 0);        // [G][D] q * k_scale / sqrt(D)
   float* acc = qs + G * D;    // [G][D] running P @ V
   float* sc = acc + G * D;    // [G][TS] scores, then probabilities
   float* m = sc + G * TS;     // [G] running max
@@ -121,6 +142,12 @@ decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   const int* v32 = reinterpret_cast<const int*>(v);
   const int n_words = TS * words;
   for (int t0 = 0; t0 < len; t0 += TS) {
+    if constexpr (PAGED) {
+      // this tile's pool rows (the last tile's readers passed the barrier
+      // that ends its P @ V phase)
+      if (t0 + tid < len) rows[tid] = paged_row(table, b, t0 + tid, NB, P, n_pages);
+      __syncthreads();
+    }
     // stage the K/V tile, UNR loads of each in flight per thread (positions
     // at or past len load zeros; they are masked below)
     for (int base = tid; base < n_words; base += UNR * TS) {
@@ -132,7 +159,8 @@ decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
         kw[u] = 0;
         vw[u] = 0;
         if (i < n_words && t0 + t < len) {
-          const size_t off = ((((size_t)b * S + t0 + t) * KV + h) * DP) / 4 + wd;
+          const size_t row = PAGED ? rows[t] : (size_t)b * S + t0 + t;
+          const size_t off = ((row * KV + h) * DP) / 4 + wd;
           kw[u] = k32[off];
           vw[u] = v32[off];
         }
@@ -230,13 +258,20 @@ decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   for (int i = tid; i < G * D; i += TS) ob[i] = acc[i] * vsc / fmaxf(l[i / D], 1e-30f);
 }
 
-template <typename T, int GMAX, int BITS>
-int launch(const void* q, const void* k, const void* v, const void* k_scale,
-           const void* v_scale, const void* cur_pos, void* out, int B, int S,
-           int KV, int G, int D, cudaStream_t stream) {
+// the paged layout's block table (nullptr: a dense stream) and its shape
+struct Paging {
+  const int* table;
+  int NB, P, n_pages;
+};
+
+template <typename T, int GMAX, int BITS, bool PAGED>
+int launch_variant(const void* q, const void* k, const void* v, const void* k_scale,
+                   const void* v_scale, const void* cur_pos, void* out, int B, int S,
+                   int KV, int G, int D, Paging pg, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * G * D + G * TS + 3 * G) +
-                      2 * (size_t)TS * (D * BITS / 8 + 4);
-  auto kern = decode_attention_kernel<T, GMAX, BITS>;
+                      2 * (size_t)TS * (D * BITS / 8 + 4) +
+                      (PAGED ? sizeof(size_t) * TS : 0);
+  auto kern = decode_attention_kernel<T, GMAX, BITS, PAGED>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -245,46 +280,60 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
   kern<<<dim3(KV, B), TS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const int8_t*>(k),
       static_cast<const int8_t*>(v), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(cur_pos),
-      static_cast<float*>(out), S, KV, G, D);
+      static_cast<const float*>(v_scale), static_cast<const int*>(cur_pos), pg.table,
+      static_cast<float*>(out), S, KV, G, D, pg.NB, pg.P, pg.n_pages);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int GMAX, int BITS>
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* cur_pos, void* out, int B, int S, int KV,
+           int G, int D, Paging pg, cudaStream_t st) {
+  if (pg.table != nullptr)
+    return launch_variant<T, GMAX, BITS, true>(q, k, v, ks, vs, cur_pos, out, B, S, KV,
+                                               G, D, pg, st);
+  return launch_variant<T, GMAX, BITS, false>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G,
+                                              D, pg, st);
 }
 
 template <typename T, int BITS>
 int dispatch(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* cur_pos, void* out, int B, int S,
-             int KV, int G, int D, cudaStream_t st) {
-  if (G <= 1) return launch<T, 1, BITS>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
-  if (G <= 2) return launch<T, 2, BITS>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
-  if (G <= 4) return launch<T, 4, BITS>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
-  if (G <= 8) return launch<T, 8, BITS>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
-  return launch<T, 16, BITS>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
+             int KV, int G, int D, Paging pg, cudaStream_t st) {
+  if (G <= 1) return launch<T, 1, BITS>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, pg, st);
+  if (G <= 2) return launch<T, 2, BITS>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, pg, st);
+  if (G <= 4) return launch<T, 4, BITS>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, pg, st);
+  if (G <= 8) return launch<T, 8, BITS>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, pg, st);
+  return launch<T, 16, BITS>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, pg, st);
 }
 
 template <typename T>
 int dispatch_bits(const void* q, const void* k, const void* v, const void* ks,
                   const void* vs, const void* cur_pos, void* out, int B, int S,
-                  int KV, int G, int D, int bits, cudaStream_t st) {
-  if (bits == 8) return dispatch<T, 8>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
-  if (bits == 4) return dispatch<T, 4>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, st);
+                  int KV, int G, int D, int bits, Paging pg, cudaStream_t st) {
+  if (bits == 8) return dispatch<T, 8>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, pg, st);
+  if (bits == 4) return dispatch<T, 4>(q, k, v, ks, vs, cur_pos, out, B, S, KV, G, D, pg, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q: (B, KV, G, D) f32 (q_bf16 == 0) or bf16; k/v: (B, S, KV, D) int8 (bits
-// == 8) or (B, S, KV, D/2) packed int4 (bits == 4); k_scale/v_scale: (KV,)
-// f32; cur_pos: (B,) int32 valid positions; out: (B, KV, G, D) f32.
-// Requires G <= 16, D % 8 == 0, D <= 128.
+// == 8) or (B, S, KV, D/2) packed int4 (bits == 4) when table is null, else
+// pools (n_pages, P, KV, D or D/2) read through the (B, NB) int32 block table,
+// with S == NB * P; k_scale/v_scale: (KV,) f32; cur_pos: (B,) int32 valid
+// positions; out: (B, KV, G, D) f32.  Requires G <= 16, D % 8 == 0, D <= 128.
 extern "C" int repro_decode_attention(const void* q, int q_bf16, const void* k,
                                       const void* v, const void* k_scale,
                                       const void* v_scale, const void* cur_pos,
                                       void* out, int B, int S, int KV, int G,
-                                      int D, int bits, void* stream) {
+                                      int D, int bits, const void* table, int NB,
+                                      int P, int n_pages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Paging pg{static_cast<const int*>(table), NB, P, n_pages};
   if (q_bf16)
     return dispatch_bits<__nv_bfloat16>(q, k, v, k_scale, v_scale, cur_pos, out, B, S, KV,
-                                        G, D, bits, st);
+                                        G, D, bits, pg, st);
   return dispatch_bits<float>(q, k, v, k_scale, v_scale, cur_pos, out, B, S, KV, G, D,
-                              bits, st);
+                              bits, pg, st);
 }

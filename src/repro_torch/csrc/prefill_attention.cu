@@ -5,10 +5,14 @@
 //   visible: k < kv_len[b], k <= q_start[b] + i (causal), q_start[b] + i - k < window;
 //   a row with no visible key is zeros.
 // K/V hold int8 values (bits == 8) or int4 values packed two per byte along D
-// (bits == 4: element 2i in the low nibble of byte i, D/2 bytes a row).
+// (bits == 4: element 2i in the low nibble of byte i, D/2 bytes a row).  They
+// are a dense (B, Sk, KV, D) stream (table == nullptr), or a paged pool (pages,
+// P, KV, D) with a (B, NB) block table: key position t of request b is pool
+// row table[b * NB + t / P] * P + t % P.
 //
 // Replaces the TPU kernel src/repro/kernels/prefill_attention.py::prefill_attention_tiles
-// (body `_kernel`; dense entry prefill_attention_int8, both kv_bits branches).
+// (body `_kernel`, both kv_bits branches; its dense entry prefill_attention_int8
+// is the null table here, chunked prefill into a paged cache the real table).
 //
 // What bounds it on an H100: operations.  A causal prompt of S tokens does
 // ~2 * S^2 * D * H flops over 2 * S * D * KV * bits / 8 bytes of K/V, far above
@@ -27,7 +31,12 @@
 // every thread keeps an 8-row x 4-column block of the output accumulator in
 // registers for P @ V.  The key-tile loop runs only from the window's
 // first live tile to min(kv_len, causal frontier): the TPU body's `live`
-// skip, and an exact no-op for the tiles it drops.  Staging keeps UNR global
+// skip (the counterpart of the TPU kernel's dma_skip clamp), and an exact no-op
+// for the tiles it drops.  Paging is a template argument, so the dense variant
+// is the dense kernel as it was.  A paged key tile may span pages: each tile
+// first maps its BK key positions through the table once into shared memory,
+// and the tile walk and arithmetic are the dense ones, so a paged pool and
+// its gathered dense copy give bit-identical outputs.  Staging keeps UNR global
 // loads in flight per thread.  The math is float32 on the CUDA cores;
 // tensor-core MMA (wgmma) and TMA pipelining are later work.
 #include <cuda_bf16.h>
@@ -57,6 +66,14 @@ __device__ __forceinline__ float word_elem(int w, int e) {
   }
 }
 
+// pool row that holds key position t of request b in a paged cache: the
+// block table's page (clamped into the pool), offset t % P
+__device__ __forceinline__ size_t paged_row(const int* table, int b, int t, int NB,
+                                            int P, int n_pages) {
+  const int page = min(max(table[b * NB + t / P], 0), n_pages - 1);
+  return (size_t)page * P + t % P;
+}
+
 __device__ __forceinline__ bool visible(int kp, int qp, int klen, int causal,
                                         int window) {
   bool ok = kp < klen;
@@ -66,17 +83,19 @@ __device__ __forceinline__ bool visible(int kp, int qp, int klen, int causal,
 }
 
 // DCH: 64-wide column chunks of the head dim held per thread (D <= 64 * DCH);
-// BITS: storage width of K/V (8, or 4 packed).
-template <typename T, int DCH, int BITS>
+// BITS: storage width of K/V (8, or 4 packed); PAGED: K/V are page pools read
+// through the block table (else a dense (B, Sk, KV, D) stream).
+template <typename T, int DCH, int BITS, bool PAGED>
 __global__ void __launch_bounds__(NT)
 prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                          const int8_t* __restrict__ v,
                          const float* __restrict__ k_scale,
                          const float* __restrict__ v_scale,
                          const int* __restrict__ q_start,
-                         const int* __restrict__ kv_len, float* __restrict__ out,
+                         const int* __restrict__ kv_len,
+                         const int* __restrict__ table, float* __restrict__ out,
                          int Sq, int Sk, int KV, int G, int D, int BQ,
-                         int causal, int window) {
+                         int causal, int window, int NB, int P, int n_pages) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int qt = blockIdx.x;
@@ -87,7 +106,8 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   const int DP = D * BITS / 8;    // storage bytes per K/V row (D % 8 == 0)
   const int words = DP / 4;
 
-  float* qT = smem;              // [D][ROWS] q^T * k_scale / sqrt(D)
+  size_t* krow = reinterpret_cast<size_t*>(smem);  // [BK] pool rows (PAGED)
+  float* qT = smem + (PAGED ? 2 * BK : 0);        // [D][ROWS] q^T * k_scale / sqrt(D)
   float* kT = qT + D * ROWS;     // [D][BK] K tile^T
   float* vt = kT + D * BK;       // [BK][D] V tile
   float* sc = vt + BK * D;       // [ROWS][LDS] scores, then probabilities
@@ -146,6 +166,12 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   __syncthreads();
 
   for (int k0 = (k_begin / BK) * BK; k0 < k_end; k0 += BK) {
+    if constexpr (PAGED) {
+      // this tile's pool rows (the last tile's readers passed the barrier
+      // that ends its P @ V phase)
+      if (tid < BK && k0 + tid < Sk) krow[tid] = paged_row(table, b, k0 + tid, NB, P, n_pages);
+      __syncthreads();
+    }
     // stage K^T and V as float, UNR loads of each in flight per thread
     // (positions past Sk are zeros, masked below), unpacking each word's EPW
     // values.  K goes key-fastest and V word-fastest, so both shared stores
@@ -159,10 +185,14 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
         const int tv = i / words, wv = i % words;
         kw[u] = 0;
         vw[u] = 0;
-        if (i < n_words && k0 + tk < Sk)
-          kw[u] = k32[((((size_t)b * Sk + k0 + tk) * KV + h) * DP) / 4 + wk];
-        if (i < n_words && k0 + tv < Sk)
-          vw[u] = v32[((((size_t)b * Sk + k0 + tv) * KV + h) * DP) / 4 + wv];
+        if (i < n_words && k0 + tk < Sk) {
+          const size_t row = PAGED ? krow[tk] : (size_t)b * Sk + k0 + tk;
+          kw[u] = k32[((row * KV + h) * DP) / 4 + wk];
+        }
+        if (i < n_words && k0 + tv < Sk) {
+          const size_t row = PAGED ? krow[tv] : (size_t)b * Sk + k0 + tv;
+          vw[u] = v32[((row * KV + h) * DP) / 4 + wv];
+        }
       }
 #pragma unroll
       for (int u = 0; u < UNR; ++u) {
@@ -300,15 +330,22 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   }
 }
 
-template <typename T, int DCH, int BITS>
-int launch(const void* q, const void* k, const void* v, const void* k_scale,
-           const void* v_scale, const void* q_start, const void* kv_len,
-           void* out, int B, int Sq, int Sk, int KV, int G, int D, int causal,
-           int window, cudaStream_t stream) {
+// the paged layout's block table (nullptr: a dense stream) and its shape
+struct Paging {
+  const int* table;
+  int NB, P, n_pages;
+};
+
+template <typename T, int DCH, int BITS, bool PAGED>
+int launch_variant(const void* q, const void* k, const void* v, const void* k_scale,
+                   const void* v_scale, const void* q_start, const void* kv_len,
+                   void* out, int B, int Sq, int Sk, int KV, int G, int D, int causal,
+                   int window, Paging pg, cudaStream_t stream) {
   const int BQ = ROWS / G > 0 ? ROWS / G : 1;
   const size_t smem = sizeof(float) *
-      ((size_t)D * ROWS + (size_t)D * BK + (size_t)BK * D + ROWS * LDS + 2 * ROWS);
-  auto kern = prefill_attention_kernel<T, DCH, BITS>;
+      ((size_t)D * ROWS + (size_t)D * BK + (size_t)BK * D + ROWS * LDS + 2 * ROWS) +
+      (PAGED ? sizeof(size_t) * BK : 0);
+  auto kern = prefill_attention_kernel<T, DCH, BITS, PAGED>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -319,55 +356,71 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
       static_cast<const T*>(q), static_cast<const int8_t*>(k),
       static_cast<const int8_t*>(v), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(q_start),
-      static_cast<const int*>(kv_len), static_cast<float*>(out), Sq, Sk, KV, G,
-      D, BQ, causal, window);
+      static_cast<const int*>(kv_len), pg.table, static_cast<float*>(out), Sq, Sk, KV,
+      G, D, BQ, causal, window, pg.NB, pg.P, pg.n_pages);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DCH, int BITS>
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* q_start, const void* kv_len, void* out, int B,
+           int Sq, int Sk, int KV, int G, int D, int causal, int window, Paging pg,
+           cudaStream_t st) {
+  if (pg.table != nullptr)
+    return launch_variant<T, DCH, BITS, true>(q, k, v, ks, vs, q_start, kv_len, out, B,
+                                              Sq, Sk, KV, G, D, causal, window, pg, st);
+  return launch_variant<T, DCH, BITS, false>(q, k, v, ks, vs, q_start, kv_len, out, B,
+                                             Sq, Sk, KV, G, D, causal, window, pg, st);
 }
 
 template <typename T, int BITS>
 int dispatch(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* q_start, const void* kv_len, void* out,
              int B, int Sq, int Sk, int KV, int G, int D, int causal, int window,
-             cudaStream_t st) {
+             Paging pg, cudaStream_t st) {
   if (D <= 64)
     return launch<T, 1, BITS>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV,
-                              G, D, causal, window, st);
+                              G, D, causal, window, pg, st);
   return launch<T, 2, BITS>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G,
-                            D, causal, window, st);
+                            D, causal, window, pg, st);
 }
 
 template <typename T>
 int dispatch_bits(const void* q, const void* k, const void* v, const void* ks,
                   const void* vs, const void* q_start, const void* kv_len,
                   void* out, int B, int Sq, int Sk, int KV, int G, int D,
-                  int causal, int window, int bits, cudaStream_t st) {
+                  int causal, int window, int bits, Paging pg, cudaStream_t st) {
   if (bits == 8)
     return dispatch<T, 8>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G, D,
-                          causal, window, st);
+                          causal, window, pg, st);
   if (bits == 4)
     return dispatch<T, 4>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G, D,
-                          causal, window, st);
+                          causal, window, pg, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q: (B, Sq, KV, G, D) f32 (q_bf16 == 0) or bf16; k/v: (B, Sk, KV, D) int8
-// (bits == 8) or (B, Sk, KV, D/2) packed int4 (bits == 4); k_scale/v_scale:
-// (KV,) f32; q_start, kv_len: (B,) int32; window <= 0 means no window; out:
-// (B, Sq, KV, G, D) f32.  Requires G <= 64, D % 8 == 0, D <= 128.
+// (bits == 8) or (B, Sk, KV, D/2) packed int4 (bits == 4) when table is null,
+// else pools (n_pages, P, KV, D or D/2) read through the (B, NB) int32 block
+// table, with Sk == NB * P; k_scale/v_scale: (KV,) f32; q_start, kv_len: (B,)
+// int32; window <= 0 means no window; out: (B, Sq, KV, G, D) f32.  Requires
+// G <= 64, D % 8 == 0, D <= 128.
 extern "C" int repro_prefill_attention(const void* q, int q_bf16, const void* k,
                                        const void* v, const void* k_scale,
                                        const void* v_scale, const void* q_start,
                                        const void* kv_len, void* out, int B,
                                        int Sq, int Sk, int KV, int G, int D,
                                        int causal, int window, int bits,
-                                       void* stream) {
+                                       const void* table, int NB, int P,
+                                       int n_pages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Paging pg{static_cast<const int*>(table), NB, P, n_pages};
   if (q_bf16)
     return dispatch_bits<__nv_bfloat16>(q, k, v, k_scale, v_scale, q_start, kv_len,
                                         out, B, Sq, Sk, KV, G, D, causal, window,
-                                        bits, st);
+                                        bits, pg, st);
   return dispatch_bits<float>(q, k, v, k_scale, v_scale, q_start, kv_len, out, B, Sq,
-                              Sk, KV, G, D, causal, window, bits, st);
+                              Sk, KV, G, D, causal, window, bits, pg, st);
 }

@@ -1,10 +1,12 @@
 """Wrapper of the Hopper kernel ``csrc/decode_attention.cu``: one-token
-online-softmax attention over the dense int8 or packed-int4 KV cache.
+online-softmax attention over an int8 or packed-int4 KV cache, dense or
+paged (a page pool read through a block table).
 
 Replaces the TPU kernel
-``repro/kernels/decode_attention.py::decode_attention_tiles`` through its
-dense entry ``decode_attention_int8``.  ``launch`` takes CUDA tensors
-only; ``ops.decode_attention`` routes CPU tensors to the plain version.
+``repro/kernels/decode_attention.py::decode_attention_tiles``, through its
+dense entry ``decode_attention_int8`` and with the paged layout's table.
+``launch`` takes CUDA tensors only; ``ops.decode_attention`` and
+``ops.decode_attention_view`` route CPU tensors to the plain versions.
 """
 from __future__ import annotations
 
@@ -18,24 +20,35 @@ REPLACES = "src/repro/kernels/decode_attention.py:172"
 G_MAX = 16      # query heads per KV head the kernel instantiates for
 D_MAX = 128
 
-# kernel launches made by ``launch`` in this process, all and at int4
+# kernel launches made by ``launch`` in this process: all, at int4, and
+# over a paged pool
 launches = 0
 launches_int4 = 0
+launches_paged = 0
 
 _FN = None
 
 
-def check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8):
-    """Raise on inputs the kernel (and its plain version) does not take."""
+def check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
+          table=None):
+    """Raise on inputs the kernel (and its plain version) does not take.
+    With ``table`` (B, NB) int32 the caches are (pages, page_size, KV, D)
+    pools (D/2 at int4) read through it."""
     if q.ndim != 4 or k_cache.ndim != 4:
         raise ValueError(f"decode_attention takes q (B, KV, G, D) and a "
-                         f"(B, S, KV, D) cache, got {tuple(q.shape)} and "
+                         f"(B, S, KV, D) cache or a (pages, page_size, KV, "
+                         f"D) pool, got {tuple(q.shape)} and "
                          f"{tuple(k_cache.shape)}")
     if kv_bits not in (4, 8):
         raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
     b, kvh, g, d = q.shape
     dp = d // 2 if kv_bits == 4 else d     # storage bytes per row
-    if k_cache.shape[0] != b or k_cache.shape[2:] != (kvh, dp):
+    if table is not None:
+        check_table(table, b, k_cache, q.device)
+    elif k_cache.shape[0] != b:
+        raise ValueError(f"cache {tuple(k_cache.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if k_cache.shape[2:] != (kvh, dp):
         raise ValueError(f"cache {tuple(k_cache.shape)} does not match q "
                          f"{tuple(q.shape)} at kv_bits={kv_bits} (int4 "
                          "caches hold D/2 packed bytes)")
@@ -64,6 +77,21 @@ def check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8):
             raise ValueError(f"{name} must start on a 4-byte boundary")
 
 
+def check_table(table, b, pool, device):
+    """Raise unless ``table`` is a contiguous (b, NB) int32 block table on
+    ``device`` over a pool with page_size a multiple of 8 (the entries are
+    data: the kernel clamps each into the pool)."""
+    if (table.dtype != torch.int32 or table.ndim != 2 or table.shape[0] != b
+            or table.shape[1] < 1):
+        raise ValueError(f"block table must be int32 ({b}, n_blocks), got "
+                         f"{table.dtype} {tuple(table.shape)}")
+    if pool.shape[1] % 8:
+        raise ValueError(f"page_size {pool.shape[1]} must be a multiple of 8")
+    if table.device != device or not table.is_contiguous():
+        raise ValueError("block table must be contiguous and on the "
+                         "device of q")
+
+
 def _fn():
     global _FN
     if _FN is None:
@@ -71,18 +99,25 @@ def _fn():
 
         p, i = ctypes.c_void_p, ctypes.c_int
         _FN = build.function("decode_attention", "repro_decode_attention",
-                             [p, i, p, p, p, p, p, p, i, i, i, i, i, i, p])
+                             [p, i, p, p, p, p, p, p, i, i, i, i, i, i,
+                              p, i, i, i, p])
     return _FN
 
 
-def launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8):
-    """Run the CUDA kernel; returns (B, KV, G, D) float32."""
-    global launches, launches_int4
-    check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits)
+def launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
+           table=None):
+    """Run the CUDA kernel over a dense cache, or over a page pool through
+    ``table``; returns (B, KV, G, D) float32."""
+    global launches, launches_int4, launches_paged
+    check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits, table)
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {q.device}")
     b, kvh, g, d = q.shape
-    s = k_cache.shape[1]
+    if table is None:
+        s, paging = k_cache.shape[1], (None, 0, 0, 0)
+    else:
+        nb, ps = table.shape[1], k_cache.shape[1]
+        s, paging = nb * ps, (table.data_ptr(), nb, ps, k_cache.shape[0])
     out = torch.empty((b, kvh, g, d), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -90,11 +125,11 @@ def launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8):
                     k_cache.data_ptr(), v_cache.data_ptr(),
                     k_scale.data_ptr(), v_scale.data_ptr(),
                     cur_pos.data_ptr(), out.data_ptr(), b, s, kvh, g, d,
-                    kv_bits, stream)
+                    kv_bits, *paging, stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
-    if kv_bits == 4:
-        launches_int4 += 1
+    launches_int4 += kv_bits == 4
+    launches_paged += table is not None
     return out

@@ -17,7 +17,7 @@ from repro_torch.kernels import ref
 
 KERNELS = {"quant_matmul": _qm, "prefill_attention": _pa,
            "decode_attention": _da}
-INT4_KERNELS = {"prefill_attention": _pa, "decode_attention": _da}
+ATTENTION = {"prefill_attention": _pa, "decode_attention": _da}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -31,8 +31,9 @@ def _on_cuda(t: torch.Tensor) -> bool:
 def reset_launches() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
-    for mod in INT4_KERNELS.values():
+    for mod in ATTENTION.values():
         mod.launches_int4 = 0
+        mod.launches_paged = 0
 
 
 def launch_counts() -> dict:
@@ -42,7 +43,12 @@ def launch_counts() -> dict:
 
 def int4_launch_counts() -> dict:
     """Launches of the attention kernels' int4 (packed K/V) variant."""
-    return {name: mod.launches_int4 for name, mod in INT4_KERNELS.items()}
+    return {name: mod.launches_int4 for name, mod in ATTENTION.items()}
+
+
+def paged_launch_counts() -> dict:
+    """Launches of the attention kernels over a paged pool (block table)."""
+    return {name: mod.launches_paged for name, mod in ATTENTION.items()}
 
 
 def _rows(value, b: int, device) -> torch.Tensor:
@@ -103,3 +109,45 @@ def prefill_attention(q, k, v, k_scale, v_scale, q_start, kv_len, *,
     return ref.prefill_attention_ref(q, k, v, k_scale, v_scale, q_start,
                                      kv_len, causal=causal, window=window,
                                      kv_bits=kv_bits)
+
+
+def decode_attention_view(q, view, k_scale, v_scale, cur_pos):
+    """One-token attention over a cache's ``KernelView``: a dense view
+    (``block_table`` None) goes to ``decode_attention``, a paged view
+    streams its page pool through the block table (the kernel reads the
+    pool in place; only the plain version gathers the pages).  ``view.bits``
+    picks the int8 or packed-int4 variant."""
+    if view.block_table is None:
+        return decode_attention(q, view.k, view.v, k_scale, v_scale, cur_pos,
+                                kv_bits=view.bits)
+    cur_pos = _rows(cur_pos, q.shape[0], q.device)
+    if _on_cuda(q):
+        return _da.launch(q, view.k, view.v, k_scale, v_scale, cur_pos,
+                          view.bits, table=view.block_table)
+    _da.check(q, view.k, view.v, k_scale, v_scale, cur_pos, view.bits,
+              view.block_table)
+    return ref.decode_attention_paged_ref(q, view.k, view.v, view.block_table,
+                                          k_scale, v_scale, cur_pos,
+                                          view.bits)
+
+
+def prefill_attention_view(q, view, k_scale, v_scale, q_start, kv_len, *,
+                           causal: bool = True, window: int | None = None):
+    """Prompt (chunk) attention over a cache's ``KernelView``; the same
+    dense-or-paged routing as ``decode_attention_view``."""
+    if view.block_table is None:
+        return prefill_attention(q, view.k, view.v, k_scale, v_scale,
+                                 q_start, kv_len, causal=causal,
+                                 window=window, kv_bits=view.bits)
+    b = q.shape[0]
+    q_start = _rows(q_start, b, q.device)
+    kv_len = _rows(kv_len, b, q.device)
+    if _on_cuda(q):
+        return _pa.launch(q, view.k, view.v, k_scale, v_scale, q_start,
+                          kv_len, causal=causal, window=window,
+                          kv_bits=view.bits, table=view.block_table)
+    _pa.check(q, view.k, view.v, k_scale, v_scale, q_start, kv_len, window,
+              view.bits, view.block_table)
+    return ref.prefill_attention_paged_ref(
+        q, view.k, view.v, view.block_table, k_scale, v_scale, q_start,
+        kv_len, causal=causal, window=window, kv_bits=view.bits)

@@ -1,11 +1,13 @@
 """Wrapper of the Hopper kernel ``csrc/prefill_attention.cu``: flash
-attention of a prompt over its int8 or packed-int4 K/V stream (causal,
-kv_len and optional sliding-window masks).
+attention of a prompt (or a prompt chunk) over an int8 or packed-int4 K/V
+stream, dense or paged (a page pool read through a block table), with
+causal, kv_len and optional sliding-window masks.
 
 Replaces the TPU kernel
-``repro/kernels/prefill_attention.py::prefill_attention_tiles`` through its
-dense entry ``prefill_attention_int8``.  ``launch`` takes CUDA tensors
-only; ``ops.prefill_attention`` routes CPU tensors to the plain version.
+``repro/kernels/prefill_attention.py::prefill_attention_tiles``, through its
+dense entry ``prefill_attention_int8`` and with the paged layout's table.
+``launch`` takes CUDA tensors only; ``ops.prefill_attention`` and
+``ops.prefill_attention_view`` route CPU tensors to the plain versions.
 """
 from __future__ import annotations
 
@@ -13,30 +15,42 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.decode_attention import check_table
+
 SOURCE = "src/repro_torch/csrc/prefill_attention.cu"
 REPLACES = "src/repro/kernels/prefill_attention.py:192"
 
 G_MAX = 64      # query heads per KV head: one row tile holds 64 rows
 D_MAX = 128
 
-# kernel launches made by ``launch`` in this process, all and at int4
+# kernel launches made by ``launch`` in this process: all, at int4, and
+# over a paged pool
 launches = 0
 launches_int4 = 0
+launches_paged = 0
 
 _FN = None
 
 
-def check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits=8):
-    """Raise on inputs the kernel (and its plain version) does not take."""
+def check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits=8,
+          table=None):
+    """Raise on inputs the kernel (and its plain version) does not take.
+    With ``table`` (B, NB) int32, k/v are (pages, page_size, KV, D) pools
+    (D/2 at int4) read through it."""
     if q.ndim != 5 or k.ndim != 4:
         raise ValueError(f"prefill_attention takes q (B, Sq, KV, G, D) and "
-                         f"k/v (B, Sk, KV, D), got {tuple(q.shape)} and "
-                         f"{tuple(k.shape)}")
+                         f"k/v (B, Sk, KV, D) or (pages, page_size, KV, D) "
+                         f"pools, got {tuple(q.shape)} and {tuple(k.shape)}")
     if kv_bits not in (4, 8):
         raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
     b, sq, kvh, g, d = q.shape
     dp = d // 2 if kv_bits == 4 else d     # storage bytes per row
-    if k.shape[0] != b or k.shape[2:] != (kvh, dp):
+    if table is not None:
+        check_table(table, b, k, q.device)
+    elif k.shape[0] != b:
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if k.shape[2:] != (kvh, dp):
         raise ValueError(f"k {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)} at kv_bits={kv_bits} (int4 "
                          "tiles hold D/2 packed bytes)")
@@ -76,19 +90,24 @@ def _fn():
         p, i = ctypes.c_void_p, ctypes.c_int
         _FN = build.function("prefill_attention", "repro_prefill_attention",
                              [p, i, p, p, p, p, p, p, p,
-                              i, i, i, i, i, i, i, i, i, p])
+                              i, i, i, i, i, i, i, i, i, p, i, i, i, p])
     return _FN
 
 
 def launch(q, k, v, k_scale, v_scale, q_start, kv_len, *, causal=True,
-           window=None, kv_bits=8):
-    """Run the CUDA kernel; returns (B, Sq, KV, G, D) float32."""
-    global launches, launches_int4
-    check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits)
+           window=None, kv_bits=8, table=None):
+    """Run the CUDA kernel over a dense K/V stream, or over page pools
+    through ``table``; returns (B, Sq, KV, G, D) float32."""
+    global launches, launches_int4, launches_paged
+    check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits, table)
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {q.device}")
     b, sq, kvh, g, d = q.shape
-    sk = k.shape[1]
+    if table is None:
+        sk, paging = k.shape[1], (None, 0, 0, 0)
+    else:
+        nb, ps = table.shape[1], k.shape[1]
+        sk, paging = nb * ps, (table.data_ptr(), nb, ps, k.shape[0])
     out = torch.empty((b, sq, kvh, g, d), dtype=torch.float32,
                       device=q.device)
     with torch.cuda.device(q.device):
@@ -97,11 +116,12 @@ def launch(q, k, v, k_scale, v_scale, q_start, kv_len, *, causal=True,
                     k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
                     v_scale.data_ptr(), q_start.data_ptr(), kv_len.data_ptr(),
                     out.data_ptr(), b, sq, sk, kvh, g, d, int(bool(causal)),
-                    0 if window is None else int(window), kv_bits, stream)
+                    0 if window is None else int(window), kv_bits, *paging,
+                    stream)
     if err:
         raise RuntimeError(f"prefill_attention kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
-    if kv_bits == 4:
-        launches_int4 += 1
+    launches_int4 += kv_bits == 4
+    launches_paged += table is not None
     return out

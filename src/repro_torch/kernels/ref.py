@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the three serving kernels.
+"""Plain PyTorch versions of the three serving kernels (the attentions
+over a dense K/V stream or, through a block table, a paged pool).
 
 Counterparts of ``repro/kernels/ref.py``: ``ops`` runs them for tensors
 that lie on the CPU, and ``chip_smoke.py`` holds each CUDA kernel against
@@ -100,3 +101,29 @@ def prefill_attention_ref(q, k, v, k_scale, v_scale, q_start, kv_len, *,
     o = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
     o = o * v_scale.reshape(1, -1, 1, 1, 1) / torch.clamp_min(l, 1e-30)
     return o.permute(0, 3, 1, 2, 4).contiguous()
+
+
+def gather_pages(pool, table):
+    """(pages, page_size, KV, D) pool read through a (B, NB) block table ->
+    the contiguous (B, NB * page_size, KV, D) stream it maps."""
+    b, nb = table.shape
+    return pool[table.long()].reshape((b, nb * pool.shape[1])
+                                      + tuple(pool.shape[2:]))
+
+
+def decode_attention_paged_ref(q, k_pool, v_pool, table, k_scale, v_scale,
+                               cur_pos, kv_bits=8):
+    """``decode_attention_ref`` over the pages the table maps."""
+    return decode_attention_ref(q, gather_pages(k_pool, table),
+                                gather_pages(v_pool, table), k_scale,
+                                v_scale, cur_pos, kv_bits)
+
+
+def prefill_attention_paged_ref(q, k_pool, v_pool, table, k_scale, v_scale,
+                                q_start, kv_len, *, causal=True, window=None,
+                                kv_bits=8):
+    """``prefill_attention_ref`` over the pages the table maps."""
+    return prefill_attention_ref(q, gather_pages(k_pool, table),
+                                 gather_pages(v_pool, table), k_scale,
+                                 v_scale, q_start, kv_len, causal=causal,
+                                 window=window, kv_bits=kv_bits)

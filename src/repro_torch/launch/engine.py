@@ -6,14 +6,21 @@
     # int4 KV cache, thresholds fine-tuned for 2 epochs (paper §3):
     engine = Engine.from_checkpoint("smollm-135m", smoke=False, kv_bits=4,
                                     finetune_thresholds=2)
+    # paged KV cache, chunked prefill, continuous batching:
+    engine = Engine.from_checkpoint("smollm-135m", smoke=False,
+                                    cache_layout="paged", page_size=64,
+                                    prefill_chunk=128)
+    completions = engine.generate(requests, max_slots=8)  # scheduler.Request
 
-Counterpart of ``repro/launch/engine.py`` on the main path: seeded random
-init (or bridged reference params) -> §2 calibration -> optional FAT
-threshold fine-tune (fp teacher vs fake-quant student) -> int8 conversion
--> one-shot prefill into an int8 or packed-int4 dense KV cache -> greedy
-decode.  Every quantized matmul and both attentions run through
-``kernels.ops``: the hand-written CUDA kernels when the engine's device is
-a GPU, their plain versions when it is the CPU.
+Counterpart of ``repro/launch/engine.py``: seeded random init (or bridged
+reference params) -> §2 calibration -> optional FAT threshold fine-tune
+(fp teacher vs fake-quant student) -> int8 conversion -> one-shot or
+chunked prefill into an int8 or packed-int4 KV cache, dense or paged ->
+greedy decode of a fixed batch (``generate_batch``) or continuous batching
+through the slot scheduler (``generate``).  Every quantized matmul and
+both attentions run through ``kernels.ops``: the hand-written CUDA kernels
+when the engine's device is a GPU, their plain versions when it is the
+CPU.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``:
 ``device=None`` means CUDA and raises when no CUDA device is present.
@@ -38,14 +45,17 @@ from repro_torch.models import build_model
 # Queue A item that ports each
 _NOT_PORTED = {
     "checkpoint_dir": "item 14 (checkpoint restore)",
-    "prefill_chunk": "item 9 (chunked prefill)",
     "temperature": "item 10 (sampling)",
     "top_p": "item 10 (sampling)",
-    "decode_strategy": "items 10 and 13 (sampling, speculative decoding)",
-    "page_size": "item 12 (paged cache)",
-    "queue_cap": "item 12 (scheduler)",
+    "seed": "item 10 (sampling)",
+    "spec_k": "item 13 (speculative decoding)",
+    "spec_ngram": "item 13 (speculative decoding)",
+    "queue_cap": "item 14 (resilience)",
+    "shed_policy": "item 14 (resilience)",
     "fault_plan": "item 14 (resilience)",
     "journal": "item 14 (durability)",
+    "snapshot_every": "item 14 (durability)",
+    "snapshot_dir": "item 14 (durability)",
 }
 
 
@@ -105,16 +115,40 @@ class GenerationResult:
 
 class Engine:
     """One assembled serving stack: model + int8 params + finalized
-    thresholds on one device."""
+    thresholds on one device, with its cache layout and prefill chunking.
+
+    ``cache_layout`` is "dense", "paged" (a page pool of ``page_size``
+    tokens a page, read through block tables) or "ring" (dense for a stack
+    without windows); ``prefill_chunk`` set runs chunked ragged prefill in
+    chunks of that many tokens; ``decode_strategy`` None or "greedy" is
+    greedy decoding ("sample" and "speculative" are ROADMAP Queue A items
+    10 and 13)."""
 
     def __init__(self, model, cfg, policy: A.QuantPolicy, serve_params,
-                 qparams, *, device, finetune_log: dict | None = None):
+                 qparams, *, device, finetune_log: dict | None = None,
+                 cache_layout: str = "dense", page_size: int = 64,
+                 prefill_chunk: Optional[int] = None,
+                 decode_strategy: Optional[str] = None):
+        from repro_torch.cache import LAYOUTS
+        from repro_torch.launch import strategies as SG
+
+        if cache_layout not in LAYOUTS:
+            raise ValueError(f"cache_layout must be one of {LAYOUTS}, got "
+                             f"{cache_layout!r}")
+        # validation through the single authority: an unported strategy
+        # raises at construction, not at the first generate
+        SG.make_strategy(decode_strategy, model, policy)
         self.model, self.cfg, self.policy = model, cfg, policy
         self.serve_params, self.qparams = serve_params, qparams
         self.device = torch.device(device)
+        self.cache_layout, self.page_size = cache_layout, page_size
+        self.prefill_chunk = prefill_chunk
+        self.decode_strategy = decode_strategy
         # per-step losses and wall times of the threshold fine-tune, if
         # this engine ran one
         self.finetune_log = finetune_log or {}
+        self._scheduler = None
+        self._scheduler_key = None
 
     @classmethod
     def from_checkpoint(cls, arch: str = "smollm-135m", *, cfg=None,
@@ -123,7 +157,9 @@ class Engine:
                         qparams: Optional[dict] = None, init_seed: int = 0,
                         device=None, fp: bool = False, kv_int8: bool = True,
                         kv_bits: int = 8, finetune_thresholds: int = 0,
-                        cache_layout: str = "dense",
+                        cache_layout: str = "dense", page_size: int = 64,
+                        prefill_chunk: Optional[int] = None,
+                        decode_strategy: Optional[str] = None,
                         **not_ported) -> "Engine":
         """Build a ready-to-serve Engine.
 
@@ -140,8 +176,10 @@ class Engine:
         ``finetune_thresholds`` > 0 trains the thresholds by distillation
         for that many epochs over the calibration batches before freezing
         them (paper §3; what makes the 7-level int4 grid usable when
-        max-abs calibration over-shoots).  ``cfg`` overrides the registry
-        lookup (``arch``/``smoke`` are then ignored)."""
+        max-abs calibration over-shoots).  ``cache_layout``,
+        ``page_size``, ``prefill_chunk`` and ``decode_strategy`` go to the
+        Engine (see the class).  ``cfg`` overrides the registry lookup
+        (``arch``/``smoke`` are then ignored)."""
         for name in not_ported:
             if name not in _NOT_PORTED:
                 raise TypeError(f"unexpected argument {name!r}")
@@ -155,10 +193,6 @@ class Engine:
         if qparams is not None and finetune_thresholds:
             raise ValueError("finetune_thresholds trains thresholds this "
                              "engine calibrates; it does not take qparams")
-        if cache_layout != "dense":
-            raise NotImplementedError(
-                f"cache layout {cache_layout!r}: only 'dense' is ported (ring "
-                "is ROADMAP Queue A item 9, paged item 12)")
         dev = resolve_device(device)
         if cfg is None:
             cfg = get_config(arch, smoke=smoke)
@@ -184,7 +218,9 @@ class Engine:
                 model, policy, params, batches,
                 finetune_epochs=finetune_thresholds, finetune_log=log)
         return cls(model, cfg, policy, serve_params, qparams, device=dev,
-                   finetune_log=log)
+                   finetune_log=log, cache_layout=cache_layout,
+                   page_size=page_size, prefill_chunk=prefill_chunk,
+                   decode_strategy=decode_strategy)
 
     def to(self, device) -> "Engine":
         """The same engine (same int8 weights and thresholds) on another
@@ -193,7 +229,10 @@ class Engine:
         return Engine(self.model, self.cfg, self.policy,
                       tree_to(self.serve_params, dev),
                       tree_to(self.qparams, dev), device=dev,
-                      finetune_log=self.finetune_log)
+                      finetune_log=self.finetune_log,
+                      cache_layout=self.cache_layout, page_size=self.page_size,
+                      prefill_chunk=self.prefill_chunk,
+                      decode_strategy=self.decode_strategy)
 
     def n_int8_weights(self) -> int:
         def count(t):
@@ -203,15 +242,26 @@ class Engine:
 
         return count(self.serve_params)
 
-    def init_cache(self, batch: int, max_len: int):
-        return self.model.init_cache(batch, max_len, device=self.device,
-                                     kv_bits=self.policy.kv_bits)
+    def init_cache(self, batch: int, max_len: int, **layout):
+        """The engine's cache (its layout, page size and KV width unless
+        ``layout`` overrides them)."""
+        layout.setdefault("layout", self.cache_layout)
+        layout.setdefault("page_size", self.page_size)
+        return self.model.init_cache(batch, max_len, self.device,
+                                     self.policy.kv_bits, **layout)
 
     def _cache_len(self, prompt_len: int, gen: int) -> int:
-        """Prompt + generation budget, rounded up to a multiple of 128 (the
-        reference's kernel-path rounding; it keeps one cache shape for a
-        range of requests)."""
-        return -(-(prompt_len + gen) // 128) * 128
+        """Padded prompt + generation budget, rounded up to a multiple of
+        128 (the reference's kernel-path rounding; it keeps one cache shape
+        for a range of requests), then to whole pages.  Chunked prefill
+        writes whole chunks, so the prompt counts padded to the chunk."""
+        cap = prompt_len
+        if self.prefill_chunk:
+            cap = -(-prompt_len // self.prefill_chunk) * self.prefill_chunk
+        max_len = -(-(cap + gen) // 128) * 128
+        if self.cache_layout == "paged":
+            max_len = -(-max_len // self.page_size) * self.page_size
+        return max_len
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -219,8 +269,9 @@ class Engine:
 
     @torch.inference_mode()
     def generate_batch(self, batch: dict, gen: int) -> GenerationResult:
-        """Serve one fixed batch: prefill the prompts, then decode ``gen``
-        tokens greedily (the first comes from the prefill logits)."""
+        """Serve one fixed batch: prefill the prompts (in chunks of
+        ``prefill_chunk`` tokens when set), then decode ``gen`` tokens
+        greedily (the first comes from the prefill logits)."""
         if gen < 1:
             raise ValueError(f"gen must be >= 1, got {gen}")
         tokens = torch.as_tensor(np.asarray(batch["tokens"]),
@@ -230,13 +281,20 @@ class Engine:
                              f"{tuple(tokens.shape)}")
         b, s = tokens.shape
         cache = self.init_cache(b, self._cache_len(s, gen))
-        prefill = ST.make_prefill_step(self.model, self.policy)
+        prefill = ST.make_prefill_step(self.model, self.policy,
+                                       prefill_chunk=self.prefill_chunk)
+        args = ({"tokens": tokens}, cache)
+        if self.prefill_chunk:
+            # prompts padded to a chunk multiple; the length vector masks
+            # the tail
+            toks, lengths = ST.pad_for_chunked_prefill(tokens,
+                                                       self.prefill_chunk)
+            args = ({"tokens": toks}, cache, lengths)
         decode_loop = ST.make_decode_loop(self.model, self.policy,
                                           n_steps=gen)
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = prefill(self.serve_params, self.qparams,
-                                {"tokens": tokens}, cache)
+        logits, cache = prefill(self.serve_params, self.qparams, *args)
         first = logits[:, -1, :]
         tok0 = ST.greedy(first)
         self._sync()
@@ -257,3 +315,46 @@ class Engine:
                 f"generate_one takes a single 1-D prompt, got shape "
                 f"{toks.shape} (use generate_batch for batches)")
         return self.generate_batch({"tokens": toks[None, :]}, gen)
+
+    # -- continuous batching -----------------------------------------------
+    def make_scheduler(self, *, max_slots: int = 4, prompt_cap: int = 64,
+                       gen_cap: int = 32, block_steps: int = 8,
+                       eos_id: int = -1, prefix_pages: Optional[int] = None):
+        """Build (or reuse) the slot scheduler for this engine's layout.  It
+        is kept per knob set, so repeated ``generate`` calls keep the paged
+        layout's prefix store (shared pages persist across calls)."""
+        from repro_torch.launch.scheduler import SlotScheduler
+
+        key = (max_slots, prompt_cap, gen_cap, block_steps, eos_id,
+               prefix_pages, self.cache_layout, self.page_size,
+               self.prefill_chunk, self.decode_strategy)
+        if self._scheduler is None or self._scheduler_key != key:
+            self._scheduler = SlotScheduler(
+                self.model, self.cfg, self.policy, self.serve_params,
+                self.qparams, device=self.device, max_slots=max_slots,
+                prompt_cap=prompt_cap, gen_cap=gen_cap,
+                prefill_chunk=self.prefill_chunk, block_steps=block_steps,
+                cache_layout=self.cache_layout, page_size=self.page_size,
+                prefix_pages=prefix_pages, eos_id=eos_id,
+                strategy=self.decode_strategy)
+            self._scheduler_key = key
+        return self._scheduler
+
+    def generate(self, requests, *, max_slots: int = 4,
+                 prompt_cap: Optional[int] = None,
+                 gen_cap: Optional[int] = None, block_steps: int = 8,
+                 eos_id: int = -1, max_blocks: Optional[int] = None):
+        """Continuous batching: stream ``requests`` (``scheduler.Request``)
+        through ``max_slots`` cache slots; returns Completions in finish
+        order.  With the paged layout, a repeated prompt admits through the
+        prefix store with no prefill.  ``prompt_cap``/``gen_cap`` default
+        to the queue's longest prompt and largest budget."""
+        reqs = list(requests)
+        if prompt_cap is None:
+            prompt_cap = max((len(r.tokens) for r in reqs), default=64)
+        if gen_cap is None:
+            gen_cap = max((r.max_gen for r in reqs), default=32)
+        sched = self.make_scheduler(
+            max_slots=max_slots, prompt_cap=prompt_cap, gen_cap=gen_cap,
+            block_steps=block_steps, eos_id=eos_id)
+        return sched.run(reqs, max_blocks=max_blocks)

@@ -1,13 +1,14 @@
 """Step functions: §2 calibration, the FAT threshold fine-tune (§3),
-one-shot prefill and the greedy decode loop.
+one-shot and chunked ragged prefill, the greedy single-stream decode loop
+and the continuous-batching decode block.
 
 Counterparts of ``repro/launch/steps.py`` (``make_calibrate_step``,
-``make_fat_train_step``, ``finetune_thresholds``, the one-shot
-``make_prefill_step``) and of the greedy strategy and single-stream decode
-loop of ``repro/launch/strategies.py``.  PyTorch runs eagerly, so the
-reference's ``lax.scan`` loops are Python loops; ``argmax`` takes the
-first maximum, like ``jnp.argmax``.  Chunked prefill, sampling and
-speculative decoding are ROADMAP Queue A items 9, 10 and 13.
+``make_fat_train_step``, ``finetune_thresholds``, ``make_prefill_step``,
+``pad_for_chunked_prefill``, ``make_slot_decode_loop``) and of the greedy
+single-stream decode loop of ``repro/launch/strategies.py``.  PyTorch runs
+eagerly, so the reference's ``lax.scan`` loops are Python loops; ``argmax``
+takes the first maximum, like ``jnp.argmax``.  Sampling and speculative
+decoding are ROADMAP Queue A items 10 and 13.
 """
 from __future__ import annotations
 
@@ -147,14 +148,80 @@ def finetune_thresholds(model, policy: A.QuantPolicy, params, qparams,
     return qparams, losses
 
 
-def make_prefill_step(model, policy: A.QuantPolicy):
-    """One-shot int8 prefill into a quantized cache: (params, qparams,
-    batch, cache) -> (logits of the last position (B, 1, Vp), cache)."""
-    def prefill_step(serve_params, qparams, batch, cache):
-        ctx = A.make_ctx("int8", policy, qparams)
-        return model.prefill(serve_params, batch, cache, ctx)
+def pad_for_chunked_prefill(tokens: torch.Tensor, chunk: int, lengths=None):
+    """Pad (B, S) tokens with zeros up to a ``chunk`` multiple; returns
+    (tokens, (B,) int32 lengths), the lengths defaulting to S."""
+    b, s = tokens.shape
+    s_pad = -(-s // chunk) * chunk
+    if s_pad != s:
+        tokens = torch.nn.functional.pad(tokens, (0, s_pad - s))
+    if lengths is None:
+        lengths = torch.full((b,), s, dtype=torch.int32)
+    return tokens, torch.as_tensor(lengths, dtype=torch.int32,
+                                   device=tokens.device)
 
-    return prefill_step
+
+def attn_cache_len(cache) -> int:
+    """Logical capacity of the first attention cache of a stack's cache
+    tree (paged: blocks x page size)."""
+    return cache["layer0"]["attn"].capacity
+
+
+def make_prefill_step(model, policy: A.QuantPolicy,
+                      prefill_chunk: int | None = None):
+    """int8 prefill into a quantized cache.
+
+    One-shot (``prefill_chunk`` None): ``(params, qparams, batch, cache) ->
+    (logits of the last position (B, 1, Vp), cache)``.  Chunked: ``(params,
+    qparams, batch, cache, lengths) -> (logits, cache)`` over tokens padded
+    to a chunk multiple (``pad_for_chunked_prefill``), with a per-request
+    length vector: each chunk appends its K/V at absolute slots and attends
+    the growing cache, and the loop keeps each request's last VALID hidden
+    state, so the readout runs once, on (B, 1, d)."""
+    if prefill_chunk is None:
+        def prefill_step(serve_params, qparams, batch, cache):
+            ctx = A.make_ctx("int8", policy, qparams)
+            return model.prefill(serve_params, batch, cache, ctx)
+
+        return prefill_step
+
+    cfg = model.cfg
+
+    def chunked_prefill_step(serve_params, qparams, batch, cache, lengths):
+        ctx = A.make_ctx("int8", policy, qparams)
+        tokens = batch["tokens"]
+        b, s_max = tokens.shape
+        if s_max % prefill_chunk:
+            raise ValueError(
+                f"tokens length {s_max} must pad to a multiple of "
+                f"prefill_chunk={prefill_chunk} "
+                "(steps.pad_for_chunked_prefill)")
+        cache_len = attn_cache_len(cache)
+        if s_max > cache_len:
+            raise ValueError(
+                f"padded prompt {s_max} exceeds the cache length "
+                f"{cache_len}; size the cache to at least the padded "
+                "prompt (prompt_len rounded up to prefill_chunk) + gen")
+        lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                                  device=tokens.device)
+        last = lengths.to(torch.long) - 1
+        h_last = torch.zeros((b, 1, cfg.d_model), dtype=cfg.dtype,
+                             device=tokens.device)
+        for c0 in range(0, s_max, prefill_chunk):
+            h, cache = model.prefill_chunk(
+                serve_params, tokens[:, c0:c0 + prefill_chunk], cache, c0,
+                ctx, lengths=lengths, kv_limit=s_max)
+            # requests whose last valid token lies in this chunk take its
+            # hidden state; the others keep theirs
+            here = (last >= c0) & (last < c0 + prefill_chunk)
+            idx = torch.clamp(last - c0, 0, prefill_chunk - 1)
+            h_sel = torch.gather(h, 1, idx.reshape(b, 1, 1).expand(
+                b, 1, h.shape[-1]))
+            h_last = torch.where(here.reshape(b, 1, 1), h_sel.to(h_last.dtype),
+                                 h_last)
+        return model.readout_fn(serve_params, ctx)(h_last), cache
+
+    return chunked_prefill_step
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -176,3 +243,26 @@ def make_decode_loop(model, policy: A.QuantPolicy, n_steps: int = 16):
         return torch.stack(toks, dim=1), cache
 
     return decode_loop
+
+
+def make_slot_decode_loop(model, policy: A.QuantPolicy, n_steps: int = 8,
+                          eos_id: int = -1):
+    """One continuous-batching decode block of ``n_steps`` greedy steps over
+    a slot batch where every slot sits at its own position: ``(params,
+    qparams, tok0 (B,), cache, pos0 (B,), active0 (B,)) -> (toks (B,
+    n_steps), emitted (B, n_steps) bool, cache, pos, active)``.
+    ``emitted[b, i]`` marks real tokens (an EOS itself is emitted, nothing
+    after it); ``eos_id < 0`` disables EOS detection.  A wrapper over
+    ``strategies.make_strategy_slot_loop`` with the greedy strategy."""
+    from repro_torch.launch import strategies as SG
+
+    inner = SG.make_strategy_slot_loop(
+        model, policy, SG.make_strategy("greedy", model, policy),
+        n_steps=n_steps, eos_id=eos_id)
+
+    def slot_decode_loop(serve_params, qparams, tok0, cache, pos0, active0):
+        toks, emitted, cache, pos, active, _, _ = inner(
+            serve_params, qparams, tok0, cache, pos0, active0)
+        return toks, emitted, cache, pos, active
+
+    return slot_decode_loop

@@ -1,20 +1,23 @@
 """GQA attention with rotary embedding: the full-sequence forward used by
-calibration and by the fine-tune's teacher and student, one-shot prefill
-into the quantized KV cache through the prefill kernel, and single-token
-decode through the decode kernel.
+calibration and by the fine-tune's teacher and student, one-shot and
+chunked ragged prefill into the quantized KV cache through the prefill
+kernel, and single-token decode, at one position or at a position per
+slot (continuous batching), through the decode kernel.
 
 Counterpart of ``repro/models/attention.py`` on the single-device serving
 and threshold-training paths.  All paths share the GQA grouping
 Hq = KV * G, computed on a (B, S, KV, G, D) view so no head replication is
 materialized.  K/V quantize ONCE (``cache.ready``) against the frozen
 calibrated per-head thresholds, and the same int8 (or packed int4) tiles
-are written to the cache and attended by the kernel.
+are written to the cache and attended by the kernel.  The cache is dense
+or paged (``repro_torch.cache``); the kernels read either through the
+cache's ``kernel_view``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.cache import DenseCache, kv_levels
+from repro_torch.cache import kv_levels, make_cache
 from repro_torch.models.layers import apply_rotary, rotary_angles
 from repro_torch.models.module import Dense, Module
 
@@ -65,11 +68,13 @@ class Attention(Module):
 
     # -- cache ------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device=None,
-                   kv_bits: int = 8) -> DenseCache:
-        """Dense quantized cache: int8, or packed int4 nibbles at
-        ``kv_bits=4`` (D/2 bytes a row)."""
-        return DenseCache.init(batch, max_len, self.n_kv, self.head_dim,
-                               device=device, bits=kv_bits)
+                   kv_bits: int = 8, *, layout: str = "dense",
+                   page_size: int = 64, extra_pages: int = 0):
+        """This layer's quantized cache (int8, or packed int4 nibbles at
+        ``kv_bits=4``) in ``layout`` (``repro_torch.cache.make_cache``)."""
+        return make_cache(batch, max_len, self.n_kv, self.head_dim,
+                          device=device, layout=layout, page_size=page_size,
+                          extra_pages=extra_pages, bits=kv_bits)
 
     def _observe_kv(self, ctx, k, v):
         """Feed post-rope K / raw V into the KV calibration observers."""
@@ -160,41 +165,71 @@ class Attention(Module):
         o = o.reshape(b, s, self.n_heads * self.head_dim)
         return self.wo(params["wo"], o, ctx)
 
-    def prefill(self, params, x, cache: DenseCache, ctx=None):
-        """One-shot prompt forward that populates the cache; returns
-        (y, cache).  The prompt's K/V quantize once, are appended at
-        positions [0, S), and the prefill kernel attends those same
-        tiles."""
+    def prefill(self, params, x, cache, ctx=None, *, q_offset: int = 0,
+                lengths=None, kv_limit=None):
+        """Prompt forward that populates the cache; returns (y, cache).
+
+        The prompt's K/V quantize once (``cache.ready``) and are appended
+        at positions [q_offset, q_offset + S).  One-shot (``lengths`` None):
+        the prefill kernel attends those same tiles.  Chunked ragged
+        prefill (``lengths`` (B,) valid prompt lengths): the chunk attends
+        the updated cache through its kernel view, masked to each
+        request's length and to the first ``kv_limit`` positions (the
+        padded prompt: per-chunk work scales with the prompt, not the
+        cache)."""
         from repro_torch.kernels import ops
 
         b, s, _ = x.shape
         q, k, v = self._qkv(params, x, ctx)
-        q, k = self._rope(q, k, torch.arange(s, device=x.device))
+        q, k = self._rope(q, k, q_offset + torch.arange(s, device=x.device))
         cache = cache.with_scales(*self._kv_scales(ctx))
         kq, vq = cache.ready(k, v)
-        cache = cache.append(kq, vq, 0)
-        o = ops.prefill_attention(q, kq, vq, *cache.scales(), 0, s,
-                                  causal=True,
-                                  kv_bits=cache.bits).to(x.dtype)
-        o = o.reshape(b, s, self.n_heads * self.head_dim)
+        cache = cache.append(kq, vq, q_offset)
+        if lengths is None:
+            o = ops.prefill_attention(q, kq, vq, *cache.scales(), 0, s,
+                                      causal=True, kv_bits=cache.bits)
+        else:
+            kv_len = torch.clamp(lengths.to(torch.int32), 0, q_offset + s)
+            limit = (cache.capacity if kv_limit is None
+                     else min(kv_limit, cache.capacity))
+            o = ops.prefill_attention_view(q, cache.kernel_view(limit),
+                                           *cache.scales(), q_offset, kv_len,
+                                           causal=True)
+        o = o.to(x.dtype).reshape(b, s, self.n_heads * self.head_dim)
         return self.wo(params["wo"], o, ctx), cache
 
-    def decode(self, params, x, cache: DenseCache, cur_pos: int, ctx=None):
-        """Single-token decode at scalar position ``cur_pos`` (tokens
-        already cached): the new K/V quantize with the scales stored at
-        prefill, append at ``cur_pos``, and the decode kernel attends the
-        ``cur_pos + 1`` valid positions."""
+    def decode(self, params, x, cache, cur_pos, ctx=None, *, slot_mask=None):
+        """Single-token decode (tokens already cached).  ``cur_pos`` is an
+        int (one position for the batch) or a (B,) tensor (continuous
+        batching: every slot decodes at its own position, with per-slot
+        rotary, and writes at its own index); ``slot_mask`` (B,) bool marks
+        the live slots: an inactive slot leaves the cache bit-for-bit
+        unchanged and attends over zero keys (a zero output row).  The new
+        K/V quantize with the scales stored at prefill, and the decode
+        kernel attends the valid prefix of each row."""
         from repro_torch.kernels import ops
 
         b, s, _ = x.shape
         q, k, v = self._qkv(params, x, ctx)
-        pos = torch.full((s,), int(cur_pos), device=x.device)
-        q, k = self._rope(q, k, pos)
-        kq, vq = cache.ready(k, v)
-        cache = cache.append(kq, vq, int(cur_pos))
-        kv = cache.kernel_view()
-        o = ops.decode_attention(q[:, 0], kv.k, kv.v, *cache.scales(),
-                                 int(cur_pos) + 1, kv_bits=kv.bits)
+        per_slot = (isinstance(cur_pos, torch.Tensor) and cur_pos.ndim > 0
+                    or slot_mask is not None)
+        if per_slot:
+            pos = torch.as_tensor(cur_pos, dtype=torch.int32,
+                                  device=x.device).reshape(-1).expand(b)
+            q, k = self._rope(q, k, pos[:, None])
+            kq, vq = cache.ready(k, v)
+            cache = cache.append_slots(kq, vq, pos, active=slot_mask)
+            valid = pos + 1
+            if slot_mask is not None:
+                valid = torch.where(slot_mask, valid, 0)
+        else:
+            q, k = self._rope(q, k, torch.full((s,), int(cur_pos),
+                                               device=x.device))
+            kq, vq = cache.ready(k, v)
+            cache = cache.append(kq, vq, int(cur_pos))
+            valid = int(cur_pos) + 1
+        o = ops.decode_attention_view(q[:, 0], cache.kernel_view(),
+                                      *cache.scales(), valid)
         o = o[:, None].to(x.dtype)
         o = o.reshape(b, s, self.n_heads * self.head_dim)
         return self.wo(params["wo"], o, ctx), cache

@@ -57,10 +57,15 @@ class CausalLM(Module):
 
     # -- serving --------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device=None,
-                   kv_bits: int = 8):
-        """Per-layer dense KV caches for ``max_len`` positions, int8 or
-        packed int4 (``kv_bits=4``)."""
-        return self.stack.init_cache(batch, max_len, device, kv_bits)
+                   kv_bits: int = 8, *, layout: str = "dense",
+                   page_size: int = 64, extra_pages: int = 0):
+        """Per-layer KV caches for ``max_len`` positions, int8 or packed
+        int4 (``kv_bits=4``), in ``layout`` ("dense", "paged" with
+        ``page_size`` and an ``extra_pages`` shared prefix region, or
+        "ring", which is dense for a stack without windows)."""
+        return self.stack.init_cache(batch, max_len, device, kv_bits,
+                                     layout=layout, page_size=page_size,
+                                     extra_pages=extra_pages)
 
     def prefill(self, params, batch, cache, ctx=None):
         x = self.embed(params["embed"], batch["tokens"])
@@ -68,11 +73,28 @@ class CausalLM(Module):
         # only the last position's logits are needed to start decoding
         return self.readout_fn(params, ctx)(h[:, -1:, :]), cache
 
-    def decode_step(self, params, tokens, cache, cur_pos: int, ctx=None):
-        """tokens (B, 1) at position ``cur_pos`` -> (logits (B, 1, Vp),
-        cache)."""
+    def prefill_chunk(self, params, tokens, cache, q_offset: int, ctx=None,
+                      *, lengths=None, kv_limit=None):
+        """One chunk of a chunked prefill: tokens (B, chunk) at positions
+        ``q_offset + arange(chunk)``, K/V appended at the same slots,
+        attention masked to ``lengths`` (B,) and the first ``kv_limit``
+        cache positions.  Returns the chunk's final hidden states (B,
+        chunk, d) and the cache; the caller keeps each request's last
+        valid position and applies the readout once
+        (``launch/steps.py::make_prefill_step``)."""
         x = self.embed(params["embed"], tokens)
-        h, cache = self.stack.decode(params["stack"], x, cache, cur_pos, ctx)
+        return self.stack.prefill(params["stack"], x, cache, ctx,
+                                  q_offset=q_offset, lengths=lengths,
+                                  kv_limit=kv_limit)
+
+    def decode_step(self, params, tokens, cache, cur_pos, ctx=None, *,
+                    slot_mask=None):
+        """tokens (B, 1) -> (logits (B, 1, Vp), cache).  ``cur_pos`` is an
+        int, or a (B,) tensor of per-slot positions with ``slot_mask`` (B,)
+        marking the live slots (the continuous-batching contract)."""
+        x = self.embed(params["embed"], tokens)
+        h, cache = self.stack.decode(params["stack"], x, cache, cur_pos, ctx,
+                                     slot_mask)
         return self.readout_fn(params, ctx)(h), cache
 
 

@@ -62,22 +62,24 @@ class Block(Module):
         h = self.ffn_norm(params["ffn_norm"], x)
         return x + self.ffn(params["ffn"], h, ctx)
 
-    def init_cache(self, batch, max_len, device=None, kv_bits=8):
+    def init_cache(self, batch, max_len, device=None, kv_bits=8, **layout):
         return {"attn": self.attn.init_cache(batch, max_len, device,
-                                             kv_bits)}
+                                             kv_bits, **layout)}
 
-    def prefill(self, params, x, cache, ctx=None):
+    def prefill(self, params, x, cache, ctx=None, **chunk):
+        """``chunk``: the chunked-prefill arguments of ``Attention.prefill``
+        (``q_offset``, ``lengths``, ``kv_limit``)."""
         h = self.pre_norm(params["pre_norm"], x)
         a, attn_cache = self.attn.prefill(params["attn"], h, cache["attn"],
-                                          ctx)
+                                          ctx, **chunk)
         x = x + a
         h = self.ffn_norm(params["ffn_norm"], x)
         return x + self.ffn(params["ffn"], h, ctx), {"attn": attn_cache}
 
-    def decode(self, params, x, cache, cur_pos, ctx=None):
+    def decode(self, params, x, cache, cur_pos, ctx=None, slot_mask=None):
         h = self.pre_norm(params["pre_norm"], x)
         a, attn_cache = self.attn.decode(params["attn"], h, cache["attn"],
-                                         cur_pos, ctx)
+                                         cur_pos, ctx, slot_mask=slot_mask)
         x = x + a
         h = self.ffn_norm(params["ffn_norm"], x)
         return x + self.ffn(params["ffn"], h, ctx), {"attn": attn_cache}
@@ -111,20 +113,22 @@ class Stack(Module):
             x = blk(params[f"layer{i}"], x, ctx)
         return self.final_norm(params["final_norm"], x)
 
-    def init_cache(self, batch, max_len, device=None, kv_bits=8):
-        return {f"layer{i}": b.init_cache(batch, max_len, device, kv_bits)
+    def init_cache(self, batch, max_len, device=None, kv_bits=8, **layout):
+        return {f"layer{i}": b.init_cache(batch, max_len, device, kv_bits,
+                                          **layout)
                 for i, b in enumerate(self.blocks)}
 
-    def prefill(self, params, x, cache, ctx=None):
+    def prefill(self, params, x, cache, ctx=None, **chunk):
         new_cache = {}
         for i, blk in enumerate(self.blocks):
             x, new_cache[f"layer{i}"] = blk.prefill(
-                params[f"layer{i}"], x, cache[f"layer{i}"], ctx)
+                params[f"layer{i}"], x, cache[f"layer{i}"], ctx, **chunk)
         return self.final_norm(params["final_norm"], x), new_cache
 
-    def decode(self, params, x, cache, cur_pos, ctx=None):
+    def decode(self, params, x, cache, cur_pos, ctx=None, slot_mask=None):
         new_cache = {}
         for i, blk in enumerate(self.blocks):
             x, new_cache[f"layer{i}"] = blk.decode(
-                params[f"layer{i}"], x, cache[f"layer{i}"], cur_pos, ctx)
+                params[f"layer{i}"], x, cache[f"layer{i}"], cur_pos, ctx,
+                slot_mask)
         return self.final_norm(params["final_norm"], x), new_cache

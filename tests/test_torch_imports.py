@@ -19,7 +19,10 @@ SRC = os.path.dirname(os.path.dirname(repro_torch.__file__))
 def test_no_module_imports_jax_or_repro():
     mods = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                         "repro_torch."))
-    assert "repro_torch.kernels.ops" in mods and len(mods) >= 20
+    assert {"repro_torch.kernels.ops", "repro_torch.cache.paged",
+            "repro_torch.launch.scheduler",
+            "repro_torch.launch.strategies"} <= set(mods)
+    assert len(mods) >= 23
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -46,10 +49,10 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(prefill_chunk=8), "item 9"),
+    (dict(queue_cap=8), "item 14"),
     (dict(temperature=0.7), "item 10"),
     (dict(top_p=0.9), "item 10"),
-    (dict(cache_layout="paged"), "item 12"),
+    (dict(decode_strategy="speculative"), "item 13"),
     (dict(checkpoint_dir="ckpt"), "item 14"),
     (dict(fp=True), "item 8"),
 ], ids=lambda v: str(v))
@@ -57,6 +60,15 @@ def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         E.Engine.from_checkpoint("smollm-135m", smoke=True, device="cpu",
                                  **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(deadline_ms=50.0), dict(priority=1)],
+                         ids=["deadline_ms", "priority"])
+def test_unported_request_fields_raise(kw):
+    from repro_torch.launch.scheduler import Request
+
+    with pytest.raises(NotImplementedError, match="item 14"):
+        Request(rid=0, tokens=np.ones(4, np.int32), **kw)
 
 
 def test_unported_architectures_raise():
