@@ -35,7 +35,21 @@
    generated tokens each) through ``Engine.generate`` with 8 slots of the
    paged cache, and re-serves 4 of them alone through ``generate_batch``;
 10. [prefix] serves 4 requests with one 512-token prompt: one prefill,
-   three prefix-store hits, equal tokens.
+   three prefix-store hits, equal tokens;
+11. [kernels], partials: the decode kernel's partials epilogue (B4, the
+   sequence-parallel decode) on the 4 shard views of a 640-position cache
+   (int8 and int4, read in place) and on a paged pool: against its plain
+   version; one shard over the whole cache normalizes to the decode
+   kernel's output bit for bit, and the merge of the 4 shards' partials
+   equals the decode kernel over the whole cache;
+12. [sp path] serves 4 x 512 prompts for 32 tokens through
+   ``ShardedEngine.from_checkpoint(..., sp=4)`` (the cache's sequence axis
+   in 4 shards, decode through B4 once per shard and layer, never B1) and
+   holds it against the same engine moved to the CPU; [int4 sp path] the
+   int4 engine's weights with sp=4;
+13. [sp scheduler] streams 8 ragged requests through 4 slots of the sp=4
+   engine and holds the completions against the unsharded scheduler on
+   the same weights (equal up to a near-tie).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -54,6 +68,9 @@ import numpy as np
 B, PROMPT, GEN = 4, 512, 32
 # the paged path and the scheduler: chunked prefill, pages, slot batch
 CHUNK, PAGE, SLOTS, BLOCK_STEPS, N_REQUESTS = 128, 64, 8, 8, 16
+# the sequence-parallel paths: shards, and the scheduler's slots, requests
+# and generated tokens
+SP, SP_SLOTS, SP_REQUESTS, SP_GEN = 4, 4, 8, 16
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor-core peak
@@ -289,7 +306,7 @@ def check_attention(torch, ops, ref, dev, bits):
     kc = tiles((B, cache_len, kvh, d))
     vc = tiles((B, cache_len, kvh, d))
     pos = torch.full((B,), cur, dtype=torch.int32, device=dev)
-    err = 0.0
+    err = merge_err = 0.0
     for cur_pos in (pos, torch.tensor([0, 1, 300, cache_len],
                                       dtype=torch.int32, device=dev)):
         got = ops.decode_attention(qd, kc, vc, k_scale, v_scale, cur_pos,
@@ -485,6 +502,209 @@ def check_paged_attention(torch, ops, ref, dev, bits, page):
     return entries
 
 
+def partials_close(torch, name, got, want, local):
+    """One launch of the partials kernel against its plain version: acc and
+    l within ``ATTN_TOL`` x (1 + max), m within ``ATTN_TOL`` x (1 + max |m|)
+    where the row sees a key, and rows that see none exactly (0, -1e30, 0).
+    Returns the largest error."""
+    torch.cuda.synchronize()
+    err = 0.0
+    live = (local > 0)[:, None, None]
+    for part, g, w in zip(("acc", "m", "l"), got, want):
+        if part == "m":
+            g, w = torch.where(live, g, 0.0), torch.where(live, w, 0.0)
+        e = (g - w).abs().max().item()
+        if not e <= ATTN_TOL * (1 + w.abs().max().item()):
+            raise AssertionError(f"{name}: {part} differs from the plain "
+                                 f"version by {e}")
+        err = max(err, e)
+    acc, m, l = got
+    dead = ~(local > 0)
+    if not (bool((acc[dead] == 0).all()) and bool((l[dead] == 0).all())
+            and bool((m[dead] == -1e30).all())):
+        raise AssertionError(f"{name}: a row with no visible key is not "
+                             "(0, -1e30, 0)")
+    return err
+
+
+def check_partials(torch, ops, ref, dev, bits):
+    """The partials kernel (B4) at the [sp path]'s decode shape: a 640-row
+    cache in 4 shard views of 160 read in place, cur_pos 528 (local counts
+    160, 160, 160, 48) and ragged positions with an empty row; against its
+    plain version, then the two invariants: one shard over the whole cache
+    normalizes to the decode kernel's output bit for bit, and the merge of
+    the 4 shards' partials equals the decode kernel over the whole cache.
+    Timed as one layer's 4 launches; returns the JSON entry."""
+    from repro_torch.core.packing import pack_int4
+    from repro_torch.shard.partial_softmax import sp_partial_combine
+
+    kvh, g, d = 3, 3, 64
+    lv = 127 if bits == 8 else 7
+    cap = -(-(PROMPT + GEN) // 128) * 128
+    s_local = cap // SP
+    cur = PROMPT + GEN // 2
+    gen = torch.Generator(device=dev).manual_seed(11 + bits)
+    k_scale = torch.rand((kvh,), generator=gen, device=dev) * 0.05 + 0.01
+    v_scale = torch.rand((kvh,), generator=gen, device=dev) * 0.05 + 0.01
+    tag = "int8" if bits == 8 else "int4 packed"
+
+    def tiles(shape):
+        t = torch.randint(-lv, lv + 1, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        return pack_int4(t) if bits == 4 else t
+
+    kc, vc = tiles((B, cap, kvh, d)), tiles((B, cap, kvh, d))
+    q = torch.randn((B, kvh, g, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    views = [(kc[:, i * s_local:(i + 1) * s_local],
+              vc[:, i * s_local:(i + 1) * s_local]) for i in range(SP)]
+
+    def locals_(cur_pos):
+        return [torch.clamp(cur_pos - i * s_local, 0, s_local).to(
+            torch.int32) for i in range(SP)]
+
+    pos = torch.full((B,), cur, dtype=torch.int32, device=dev)
+    err = merge_err = 0.0
+    for cur_pos in (pos, torch.tensor([0, 75, 330, cap], dtype=torch.int32,
+                                      device=dev)):
+        parts = []
+        for i, ((kl, vl), lp) in enumerate(zip(views, locals_(cur_pos))):
+            got = ops.decode_attention_partials(q, kl, vl, k_scale, v_scale,
+                                                lp, kv_bits=bits)
+            want = ref.decode_attention_partials_ref(q, kl, vl, k_scale,
+                                                     v_scale, lp, bits)
+            err = max(err, partials_close(
+                torch, f"decode_attention_partials ({tag}, shard {i})", got,
+                want, lp))
+            parts.append(got)
+        merged = sp_partial_combine(
+            [m[..., None] for _, m, _ in parts],
+            [l[..., None] for _, _, l in parts],
+            [a[..., None, :] for a, _, _ in parts])[:, 0]
+        whole = ops.decode_attention(q, kc, vc, k_scale, v_scale, cur_pos,
+                                     kv_bits=bits)
+        torch.cuda.synchronize()
+        e = (merged - whole).abs().max().item()
+        if not e <= ATTN_TOL * (1 + whole.abs().max().item()):
+            raise AssertionError(f"the merge of {SP} shards' partials "
+                                 f"({tag}) differs from the decode kernel "
+                                 f"over the whole cache by {e}")
+        merge_err = max(merge_err, e)
+    acc, _, l = ops.decode_attention_partials(q, kc, vc, k_scale, v_scale,
+                                              pos, kv_bits=bits)
+    norm = acc / torch.clamp_min(l, 1e-30)[..., None]
+    whole = ops.decode_attention(q, kc, vc, k_scale, v_scale, pos,
+                                 kv_bits=bits)
+    torch.cuda.synchronize()
+    if not torch.equal(norm, whole):
+        raise AssertionError(
+            f"one shard's partials ({tag}) do not normalize to the decode "
+            f"kernel's output bit for bit: max |diff| "
+            f"{(norm - whole).abs().max().item()}")
+    lp = locals_(pos)
+
+    def kernel():
+        for (kl, vl), n in zip(views, lp):
+            ops.decode_attention_partials(q, kl, vl, k_scale, v_scale, n,
+                                          kv_bits=bits)
+
+    def plain():
+        for (kl, vl), n in zip(views, lp):
+            ref.decode_attention_partials_ref(q, kl, vl, k_scale, v_scale, n,
+                                              bits)
+
+    ms, call = timed(torch, kernel)
+    plain_ms, _ = timed(torch, plain)
+    out_bytes = B * kvh * g * (d + 2) * 4
+    nbytes = SP * (q.numel() * 2 + 8 * kvh + 4 * B + out_bytes) + \
+        2 * B * cur * kvh * d * bits // 8
+    bnd, by = bound_ms(nbytes, 4 * B * kvh * g * cur * d, BF16_FLOPS_PER_S)
+    print(f"  decode_attention_partials [{tag}] B={B} cache={cap} in {SP} "
+          f"shard views of {s_local}, cur_pos={cur} (local "
+          f"{[int(n[0]) for n in lp]}): {ms * 1e3:.1f} us for the {SP} "
+          f"launches (per call {call * 1e3:.1f} us)  plain {plain_ms * 1e3:.1f}"
+          f" us  bound {bnd * 1e3:.2f} us  library: none  max|err| "
+          f"{err:.2e}; merge vs decode kernel {merge_err:.2e}; one shard "
+          f"normalized == decode kernel bit for bit")
+    return {
+        "name": f"decode_attention_partials[{tag} K/V, B={B}, {SP} shard "
+                f"views of {s_local}, cur_pos={cur}, one layer's {SP} "
+                "launches]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention_partials.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:305",
+        "kernel": "decode_attention_partials" + ("" if bits == 8 else "@int4"),
+        "max_abs_err": err, "merge_max_abs_err": merge_err, "ms": ms,
+        "call_ms": call, "plain_ms": plain_ms, "bound_ms": bnd,
+        "bound_by": by, "library_ms": None,
+        "library": "none: no single PyTorch call returns the unnormalized "
+                   "(acc, m, l)"}
+
+
+def check_paged_partials(torch, ops, ref, dev, bits):
+    """The partials kernel over a paged pool (the scheduler's decode shape,
+    pages of 64, ragged positions incl. 0): against its plain version and
+    bit for bit against the dense partials on the gathered copy; timed.
+    Returns the JSON entry."""
+    from repro_torch.cache import KernelView
+
+    kvh, g, d = 3, 3, 64
+    gen = torch.Generator(device=dev).manual_seed(23 + bits)
+    k_scale = torch.rand((kvh,), generator=gen, device=dev) * 0.05 + 0.01
+    v_scale = torch.rand((kvh,), generator=gen, device=dev) * 0.05 + 0.01
+    tag = f"paged {'int8' if bits == 8 else 'int4 packed'} K/V, page {PAGE}"
+    cap = -(-(PROMPT + GEN) // 128) * 128
+    kp, vp, table = paged_inputs(torch, dev, gen, SLOTS, cap, PAGE, bits)
+    view = KernelView(kp, vp, table, PAGE, bits)
+    kd, vd = ref.gather_pages(kp, table), ref.gather_pages(vp, table)
+    q = torch.randn((SLOTS, kvh, g, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    cur = torch.tensor([0, 75, 130, 287, 401, 512, 543, cap],
+                       dtype=torch.int32, device=dev)
+    got = ops.decode_attention_partials_view(q, view, k_scale, v_scale, cur)
+    err = partials_close(
+        torch, f"decode_attention_partials ({tag})", got,
+        ref.decode_attention_partials_paged_ref(q, kp, vp, table, k_scale,
+                                                v_scale, cur, bits), cur)
+    dense = ops.decode_attention_partials(q, kd, vd, k_scale, v_scale, cur,
+                                          kv_bits=bits)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, dense)):
+        raise AssertionError(f"decode_attention_partials ({tag}) is not "
+                             "bit-identical to the dense partials on the "
+                             "gathered copy")
+    ms, call = timed(torch, lambda: ops.decode_attention_partials_view(
+        q, view, k_scale, v_scale, cur))
+    dense_ms, _ = timed(torch, lambda: ops.decode_attention_partials(
+        q, kd, vd, k_scale, v_scale, cur, kv_bits=bits))
+    plain, _ = timed(torch, lambda: ref.decode_attention_partials_paged_ref(
+        q, kp, vp, table, k_scale, v_scale, cur, bits))
+    live = int(cur.sum())
+    nbytes = (q.numel() * 2 + 2 * live * kvh * d * bits // 8 + 8 * kvh
+              + 4 * SLOTS + 4 * sum(-(-int(c) // PAGE) for c in cur)
+              + SLOTS * kvh * g * (d + 2) * 4)
+    bnd, by = bound_ms(nbytes, 4 * live * kvh * g * d, BF16_FLOPS_PER_S)
+    print(f"  decode_attention_partials [{tag}] B={SLOTS} cache={cap} "
+          f"cur_pos={cur.tolist()}: {ms * 1e3:.1f} us (per call "
+          f"{call * 1e3:.1f} us)  dense partials on the gathered copy "
+          f"{dense_ms * 1e3:.1f} us  plain {plain * 1e3:.1f} us  bound "
+          f"{bnd * 1e3:.2f} us  library: none  max|err| {err:.2e}; "
+          "bit-identical to dense")
+    return {
+        "name": f"decode_attention_partials[{tag}, B={SLOTS}, ragged "
+                "cur_pos, one layer]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention_partials.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:305",
+        "kernel": "decode_attention_partials" + (
+            "@paged" if bits == 8 else "@paged-int4"),
+        "max_abs_err": err, "ms": ms, "call_ms": call, "dense_ms": dense_ms,
+        "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+        "library_ms": None,
+        "library": "none: no single PyTorch call returns the unnormalized "
+                   "(acc, m, l)"}
+
+
 def forced_logits(torch, A, engine, prompts, tokens, n):
     """Prefill + n - 1 decode steps fed with ``tokens``; the float32
     logits of each step on the CPU."""
@@ -504,8 +724,8 @@ def forced_logits(torch, A, engine, prompts, tokens, n):
     return out
 
 
-def breakdown(torch, engine, prompts, card):
-    """Where the main path's time goes: device busy time by kernel name
+def breakdown(torch, engine, prompts, card, label="breakdown"):
+    """Where a path's time goes: device busy time by kernel name
     (torch.profiler) against the wall clock, for prefill and for decode."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -527,9 +747,10 @@ def breakdown(torch, engine, prompts, card):
         d[1] -= c
     dec_us = sum(t for t, _ in dec.values()) / steps
     if pre_us == 0:
-        print("[breakdown] the profiler recorded no device time: not measured")
+        print(f"[{label}] the profiler recorded no device time: not "
+              "measured")
         return
-    print(f"[breakdown] prefill: device busy {pre_us / 1e3:.2f} ms of "
+    print(f"[{label}] prefill: device busy {pre_us / 1e3:.2f} ms of "
           f"{res1.prefill_s * 1e3:.2f} ms wall (profiled); decode: device "
           f"busy {dec_us / 1e3:.3f} ms of {res2.decode_s / steps * 1e3:.2f} "
           f"ms wall per step (profiled) on {card}")
@@ -541,18 +762,24 @@ def breakdown(torch, engine, prompts, card):
             f"{k[:48]} {t / div / 1e3:.3f} ms" for k, t in top))
 
 
-def drive_main_path(torch, ops, engine, prompts, label, kind, card):
+def drive_main_path(torch, ops, engine, prompts, label, kind, card,
+                    sp=1):
     """Warm up, zero the launch counts, serve 4 x 512 prompts for 32 tokens
     and check what came out and which kernels ran; returns (result, all
-    launch counts, int4-variant launch counts)."""
+    launch counts, int4-variant launch counts).  ``sp`` > 1: a
+    sequence-parallel engine, whose one-shot prefill attends without a
+    kernel and whose decode launches the partials kernel once per shard
+    and layer instead of the decode kernel."""
     engine.generate_batch({"tokens": prompts}, gen=2)   # warm-up
     ops.reset_launches()
     res = engine.generate_batch({"tokens": prompts}, gen=GEN)
     counts, int4 = ops.launch_counts(), ops.int4_launch_counts()
     n_layers = engine.cfg.n_layers
     expected = {"quant_matmul": 7 * n_layers * GEN,
-                "prefill_attention": n_layers,
-                "decode_attention": n_layers * (GEN - 1)}
+                "prefill_attention": n_layers if sp == 1 else 0,
+                "decode_attention": n_layers * (GEN - 1) if sp == 1 else 0,
+                "decode_attention_partials":
+                    0 if sp == 1 else n_layers * (GEN - 1) * sp}
     int4_expected = ({k: expected[k] for k in int4}
                      if engine.policy.kv_bits == 4 else {k: 0 for k in int4})
     print(f"[{label}] kernel launches {counts} (expected {expected}); int4 "
@@ -668,7 +895,8 @@ def drive_paged_path(torch, ops, ref, Engine, PagedCache, engine, prompts,
     pg = ops.paged_launch_counts()
     n_layers, chunks = engine.cfg.n_layers, PROMPT // CHUNK
     attn = {"prefill_attention": n_layers * chunks,
-            "decode_attention": n_layers * (GEN - 1)}
+            "decode_attention": n_layers * (GEN - 1),
+            "decode_attention_partials": 0}
     expected = {"quant_matmul": 7 * n_layers * (chunks + GEN - 1), **attn}
     int4_expected = attn if engine.policy.kv_bits == 4 else {
         k: 0 for k in attn}
@@ -760,7 +988,8 @@ def check_scheduler(torch, ops, A, ST, Engine, Request, engine, kind, card):
     if len(done) != N_REQUESTS or bad:
         raise AssertionError(f"{len(done)} completions; not ok/budget/{GEN}: "
                              f"{bad}")
-    if pg != {"prefill_attention": 0, "decode_attention": n_layers * steps}:
+    if pg != {"prefill_attention": 0, "decode_attention": n_layers * steps,
+              "decode_attention_partials": 0}:
         raise AssertionError(f"paged launches {pg}")
     dense = layout_twin(Engine, engine, "dense")
     by_rid = {c.rid: c for c in done}
@@ -788,6 +1017,89 @@ def check_scheduler(torch, ops, A, ST, Engine, Request, engine, kind, card):
             raise AssertionError(f"request {r}: the scheduler's token {step} "
                                  f"is {gap} below the batch-1 argmax")
     return counts, pg
+
+
+def check_sp_scheduler(torch, ops, A, ST, Engine, ShardedEngine, Request,
+                       engine, kind, card):
+    """8 ragged requests (prompts of 64-512 tokens, 16 generated each)
+    through 4 slots of the sp engine, chunked prefill in chunks of CHUNK:
+    every decode step launches the partials kernel once per shard and
+    layer.  The completions are held against the unsharded scheduler on
+    the same weights and thresholds: equal, or first different where the
+    unsharded engine, teacher-forced on the sp tokens, puts the sp token
+    within ``LOGIT_ATOL`` of its argmax (a near-tie: both attend the
+    dequantized int8 cache, in another float order).  Returns the launch
+    counts."""
+    rng = np.random.default_rng(5)
+    lengths = rng.integers(64, PROMPT + 1, SP_REQUESTS)
+    reqs = [Request(rid=i, tokens=rng.integers(0, engine.cfg.vocab, n,
+                                               dtype=np.int32),
+                    max_gen=SP_GEN) for i, n in enumerate(lengths)]
+    weights = (engine.cfg, engine.policy, engine.serve_params,
+               engine.qparams)
+    sharded = ShardedEngine(engine.base_model, *weights,
+                            device=engine.device, sp=SP,
+                            prefill_chunk=CHUNK)
+    flat = Engine(engine.base_model, *weights, device=engine.device,
+                  prefill_chunk=CHUNK)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = sharded.generate(reqs, max_slots=SP_SLOTS,
+                            block_steps=BLOCK_STEPS)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    sched = sharded._scheduler
+    calls, sec = sched.call_counts(), sched.stage_seconds()
+    n_layers = engine.cfg.n_layers
+    steps = calls["decode"] * BLOCK_STEPS
+    print(f"[sp scheduler] {len(done)} requests (prompts {lengths.min()}-"
+          f"{lengths.max()} tokens, {SP_GEN} generated each) through "
+          f"{SP_SLOTS} slots, sp={SP}, in {wall:.2f} s: "
+          f"{len(done) / wall:.2f} requests/s; admission "
+          f"{sec['admit'] / calls['prefill'] * 1e3:.1f} ms per request; "
+          f"decode {sec['decode'] / steps * 1e3:.2f} ms per step on {kind} "
+          f"({card}); calls {calls}; kernel launches {counts} (partials "
+          f"expected {n_layers * steps * SP})")
+    bad = [(c.rid, c.status, c.finished_by, len(c.tokens)) for c in done
+           if (c.status, c.finished_by, len(c.tokens)) != ("ok", "budget",
+                                                           SP_GEN)]
+    if len(done) != SP_REQUESTS or bad:
+        raise AssertionError(f"{len(done)} completions; not "
+                             f"ok/budget/{SP_GEN}: {bad}")
+    want_counts = {"prefill_attention": 0, "decode_attention": 0,
+                   "decode_attention_partials": n_layers * steps * SP}
+    if {k: counts[k] for k in want_counts} != want_counts:
+        raise AssertionError(f"launch counts {counts}, expected "
+                             f"{want_counts}")
+    t0 = time.perf_counter()
+    base = {c.rid: c.tokens for c in flat.generate(
+        reqs, max_slots=SP_SLOTS, block_steps=BLOCK_STEPS)}
+    base_s = time.perf_counter() - t0
+    equal = 0
+    for c in done:
+        if c.tokens == base[c.rid]:
+            equal += 1
+            continue
+        first = next(i for i, (a, b) in enumerate(zip(c.tokens,
+                                                      base[c.rid])) if a != b)
+        forced = teacher_forced_gap(torch, A, ST, flat, reqs[c.rid].tokens,
+                                    c.tokens)
+        if forced is None:
+            print(f"[sp scheduler] request {c.rid}: the unsharded scheduler "
+                  f"first differs at token {first}; the unsharded engine "
+                  f"batch-1, teacher-forced, agrees with every sp token")
+            continue
+        step, gap = forced
+        print(f"[sp scheduler] request {c.rid}: first differs at token "
+              f"{first}; teacher-forced, the unsharded engine puts the sp "
+              f"token {step} {gap:.4f} below its argmax (near-tie tolerance "
+              f"{LOGIT_ATOL})")
+        if not gap <= LOGIT_ATOL:
+            raise AssertionError(f"request {c.rid}: the sp token {step} is "
+                                 f"{gap} below the unsharded argmax")
+    print(f"[sp scheduler] completions equal to the unsharded scheduler's "
+          f"({base_s:.2f} s) for {equal}/{len(done)} requests")
+    return counts
 
 
 def check_prefix(torch, ops, Request, engine, kind, card):
@@ -941,6 +1253,7 @@ def main() -> int:
     from repro_torch.launch import steps as ST
     from repro_torch.launch.engine import Engine
     from repro_torch.launch.scheduler import Request
+    from repro_torch.shard import ShardedEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -973,6 +1286,10 @@ def main() -> int:
     for bits in (8, 4):
         for page in (16, PAGE):
             kernels += check_paged_attention(torch, ops, ref, dev, bits, page)
+    for bits in (8, 4):
+        kernels.append(check_partials(torch, ops, ref, dev, bits))
+    for bits in (8, 4):
+        kernels.append(check_paged_partials(torch, ops, ref, dev, bits))
 
     phases = {"build": build_s, "kernels": time.perf_counter() - t_kern}
 
@@ -1029,6 +1346,10 @@ def main() -> int:
     paged4 = phase("int4 paged path", drive_paged_path, torch, ops, ref,
                    Engine, PagedCache, engine4, prompts, "int4 paged path",
                    kind, card)
+    sp4 = phase("int4 sp path", drive_main_path, torch, ops, ShardedEngine(
+        engine4.model, engine4.cfg, engine4.policy, engine4.serve_params,
+        engine4.qparams, device=engine4.device, sp=SP), prompts,
+        "int4 sp path", kind, card, SP)
     del engine4
 
     t0 = time.perf_counter()
@@ -1046,6 +1367,22 @@ def main() -> int:
                            Engine, Request, engine_p, kind, card),
         "prefix": phase("prefix", check_prefix, torch, ops, Request,
                         engine_p, kind, card)}
+    del engine_p
+
+    t0 = time.perf_counter()
+    engine_sp = ShardedEngine.from_checkpoint("smollm-135m", smoke=False,
+                                              sp=SP)
+    torch.cuda.synchronize()
+    phases["sp engine"] = time.perf_counter() - t0
+    out_sp = phase("sp path", drive_main_path, torch, ops, engine_sp,
+                   prompts, "sp path", kind, card, SP)
+    if out_sp is not None:
+        phase("sp breakdown", breakdown, torch, engine_sp, prompts, card,
+              "sp breakdown")
+        phase("sp cpu check", cpu_check, torch, A, engine_sp, prompts,
+              out_sp[0].tokens.cpu(), LOGIT_ATOL, "sp cpu check")
+    sp_sched = phase("sp scheduler", check_sp_scheduler, torch, ops, A, ST,
+                     Engine, ShardedEngine, Request, engine_sp, kind, card)
     print("[time] " + "; ".join(f"{k} {v:.1f} s" for k, v in phases.items()))
     if failures:
         print("chip_smoke: failed checks:\n  " + "\n  ".join(failures),
@@ -1053,16 +1390,23 @@ def main() -> int:
         return 1
 
     by_path = {path: run[-1] for path, run in paged_runs.items()}
+    partials = "decode_attention_partials"
+    sp_paths = {"sp path": out_sp[1][partials],
+                "sp scheduler": sp_sched[partials]}
     launched = {**counts, **{f"{k}@int4": n for k, n in out4[2].items()},
                 **{f"{k}@paged-int4": n for k, n in paged4[2].items()},
                 **{f"{k}@paged": sum(pg[k] for pg in by_path.values())
-                   for k in ops.ATTENTION}}
+                   for k in ops.ATTENTION},
+                partials: sum(sp_paths.values()),
+                f"{partials}@int4": sp4[2][partials]}
     for e in kernels:
         kernel = e.pop("kernel")
         e["launches"] = launched[kernel]
         if kernel.endswith("@paged"):
             e["launches_by_path"] = {path: pg[kernel.split("@")[0]]
                                      for path, pg in by_path.items()}
+        if kernel == partials:
+            e["launches_by_path"] = sp_paths
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

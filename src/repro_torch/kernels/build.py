@@ -1,11 +1,13 @@
 """Build and load the hand-written Hopper kernels under ``csrc/``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for ``sm_90a`` into its own shared library, loaded with ``ctypes``.  The
+for ``sm_90a`` into its own shared library, loaded with ``ctypes``; a body
+shared by two sources lives in a ``csrc/*.cuh`` header.  The
 build runs at first use, from the sources in the checkout only, into
 ``build/repro_torch_kernels/`` at the repository root; all sources compile
 at once, one ``nvcc`` process each.  A library's file name carries a hash of
-its source and flags, so an edited source is never served by a stale build.
+its source, the headers and the flags, so an edited source is never served
+by a stale build.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("quant_matmul", "decode_attention", "prefill_attention")
+SOURCES = ("quant_matmul", "decode_attention", "decode_attention_partials",
+           "prefill_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -45,6 +48,7 @@ def _nvcc() -> str:
 
 def _target(name: str, out: Path) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return out / f"{name}-{digest[:16]}.so"
 

@@ -7,6 +7,8 @@ Replaces the TPU kernel
 dense entry ``decode_attention_int8`` and with the paged layout's table.
 ``launch`` takes CUDA tensors only; ``ops.decode_attention`` and
 ``ops.decode_attention_view`` route CPU tensors to the plain versions.
+The same kernel body with the partials epilogue (the sequence-parallel
+path's raw flash state) is ``decode_attention_partials``.
 """
 from __future__ import annotations
 
@@ -30,10 +32,11 @@ _FN = None
 
 
 def check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
-          table=None):
+          table=None, pitched=False):
     """Raise on inputs the kernel (and its plain version) does not take.
     With ``table`` (B, NB) int32 the caches are (pages, page_size, KV, D)
-    pools (D/2 at int4) read through it."""
+    pools (D/2 at int4) read through it.  ``pitched``: a dense cache may be
+    a slice of a longer one along S (``row_pitch``), read in place."""
     if q.ndim != 4 or k_cache.ndim != 4:
         raise ValueError(f"decode_attention takes q (B, KV, G, D) and a "
                          f"(B, S, KV, D) cache or a (pages, page_size, KV, "
@@ -71,10 +74,28 @@ def check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
     if len(devs) != 1:
         raise ValueError(f"decode_attention inputs span devices {devs}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if not t.is_contiguous():
+        if pitched and table is None and name != "q":
+            row_pitch(t)
+        elif not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 4:
             raise ValueError(f"{name} must start on a 4-byte boundary")
+    if pitched and table is None and row_pitch(k_cache) != row_pitch(v_cache):
+        raise ValueError("k and v caches differ in their row pitch")
+
+
+def row_pitch(cache) -> int:
+    """Positions between the batch rows of a (B, S, KV, D) cache whose
+    positions are contiguous rows of KV * D elements: S for a whole cache,
+    the full length for a slice ``c[:, lo:hi]`` of a longer one."""
+    b, s, kvh, dp = cache.shape
+    row = kvh * dp
+    if (cache.stride(3) != 1 or cache.stride(2) != dp or cache.stride(1) != row
+            or (b > 1 and (cache.stride(0) % row or cache.stride(0) < s * row))):
+        raise ValueError(f"cache {tuple(cache.shape)} with strides "
+                         f"{cache.stride()} is not a slice along S of a "
+                         "contiguous cache")
+    return cache.stride(0) // row if b > 1 else s
 
 
 def check_table(table, b, pool, device):
@@ -104,6 +125,15 @@ def _fn():
     return _FN
 
 
+def geometry(k_cache, table):
+    """(S, paging arguments) of a launch: the dense stream's length and a
+    null table, or the table's extent and (table, NB, page_size, pages)."""
+    if table is None:
+        return k_cache.shape[1], (None, 0, 0, 0)
+    nb, ps = table.shape[1], k_cache.shape[1]
+    return nb * ps, (table.data_ptr(), nb, ps, k_cache.shape[0])
+
+
 def launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
            table=None):
     """Run the CUDA kernel over a dense cache, or over a page pool through
@@ -113,11 +143,7 @@ def launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {q.device}")
     b, kvh, g, d = q.shape
-    if table is None:
-        s, paging = k_cache.shape[1], (None, 0, 0, 0)
-    else:
-        nb, ps = table.shape[1], k_cache.shape[1]
-        s, paging = nb * ps, (table.data_ptr(), nb, ps, k_cache.shape[0])
+    s, paging = geometry(k_cache, table)
     out = torch.empty((b, kvh, g, d), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

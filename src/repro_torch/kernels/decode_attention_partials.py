@@ -1,0 +1,90 @@
+"""Wrapper of the Hopper kernel ``csrc/decode_attention_partials.cu``: the
+decode kernel's body (``csrc/decode_attention.cuh``) with the partials
+epilogue.  One-token attention over one shard of a sequence-split int8 or
+packed-int4 KV cache (or a page pool read through a block table) that
+returns the raw flash state instead of the normalized output, for the
+sequence-parallel merge
+(``repro_torch.shard.partial_softmax.sp_partial_combine``).
+
+Replaces the TPU kernel
+``repro/kernels/decode_attention.py::decode_attention_partials_tiles``,
+through its dense entry ``decode_attention_partials`` (one shard's slice of
+the cache) and with a paged table.  It is the decode kernel's tile walk and
+online softmax with another epilogue, so what bounds it is the same: the
+shard's K/V bytes.  A dense slice ``k[:, lo:hi]`` of the global cache is
+read in place through the row pitch, never copied.  ``launch`` takes CUDA
+tensors only; ``ops.decode_attention_partials`` and
+``ops.decode_attention_partials_view`` route CPU tensors to the plain
+versions.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import decode_attention as _da
+
+SOURCE = "src/repro_torch/csrc/decode_attention_partials.cu"
+REPLACES = "src/repro/kernels/decode_attention.py:305"
+
+# kernel launches made by ``launch`` in this process: all, at int4, and
+# over a paged pool
+launches = 0
+launches_int4 = 0
+launches_paged = 0
+
+_FN = None
+
+
+def check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
+          table=None):
+    """Raise on inputs the kernel (and its plain version) does not take:
+    those of the decode kernel, where a dense cache may be a slice along S
+    of a longer contiguous one (``decode_attention.row_pitch``)."""
+    _da.check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits, table,
+              pitched=True)
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        from repro_torch.kernels import build
+
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _FN = build.function("decode_attention_partials",
+                             "repro_decode_attention_partials",
+                             [p, i, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                              i, i, p, i, i, i, p])
+    return _FN
+
+
+def launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
+           table=None):
+    """Run the CUDA kernel with its partials epilogue over ``cur_pos``
+    LOCAL positions; returns (acc (B, KV, G, D), m (B, KV, G), l (B, KV, G))
+    float32, acc unnormalized and value-dequantized."""
+    global launches, launches_int4, launches_paged
+    check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits, table)
+    if q.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {q.device}")
+    b, kvh, g, d = q.shape
+    s, paging = _da.geometry(k_cache, table)
+    pitch = _da.row_pitch(k_cache) if table is None else s
+    acc = torch.empty((b, kvh, g, d), dtype=torch.float32, device=q.device)
+    m, l = torch.empty((2, b, kvh, g), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn()(q.data_ptr(), int(q.dtype == torch.bfloat16),
+                    k_cache.data_ptr(), v_cache.data_ptr(),
+                    k_scale.data_ptr(), v_scale.data_ptr(),
+                    cur_pos.data_ptr(), acc.data_ptr(), m.data_ptr(),
+                    l.data_ptr(), b, s, pitch, kvh, g, d, kv_bits, *paging,
+                    stream)
+    if err:
+        raise RuntimeError(f"decode_attention_partials kernel launch failed: "
+                           f"CUDA error {err}")
+    launches += 1
+    launches_int4 += kv_bits == 4
+    launches_paged += table is not None
+    return acc, m, l

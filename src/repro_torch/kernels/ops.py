@@ -11,13 +11,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import decode_attention_partials as _dap
 from repro_torch.kernels import prefill_attention as _pa
 from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.kernels import ref
 
 KERNELS = {"quant_matmul": _qm, "prefill_attention": _pa,
-           "decode_attention": _da}
-ATTENTION = {"prefill_attention": _pa, "decode_attention": _da}
+           "decode_attention": _da, "decode_attention_partials": _dap}
+ATTENTION = {"prefill_attention": _pa, "decode_attention": _da,
+             "decode_attention_partials": _dap}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -91,6 +93,25 @@ def decode_attention(q, k_cache, v_cache, k_scale, v_scale, cur_pos, *,
                                     cur_pos, kv_bits)
 
 
+def decode_attention_partials(q, k_cache, v_cache, k_scale, v_scale,
+                              cur_pos, *, kv_bits: int = 8):
+    """The raw flash state of one-token attention over ONE shard's slice
+    of the cache's sequence axis (sequence-parallel serving): ``cur_pos``
+    counts the LOCAL visible positions (an int, or a 0-d or (B,) tensor),
+    and the return is (acc (B, KV, G, D) unnormalized and value-
+    dequantized, m (B, KV, G), l (B, KV, G)) float32 for
+    ``repro_torch.shard.partial_softmax.sp_partial_combine``.  The slice
+    may be a view ``k[:, lo:hi]`` of the global cache: the kernel reads it
+    in place."""
+    cur_pos = _rows(cur_pos, q.shape[0], q.device)
+    if _on_cuda(q):
+        return _dap.launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos,
+                           kv_bits)
+    _dap.check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits)
+    return ref.decode_attention_partials_ref(q, k_cache, v_cache, k_scale,
+                                             v_scale, cur_pos, kv_bits)
+
+
 def prefill_attention(q, k, v, k_scale, v_scale, q_start, kv_len, *,
                       causal: bool = True, window: int | None = None,
                       kv_bits: int = 8):
@@ -129,6 +150,24 @@ def decode_attention_view(q, view, k_scale, v_scale, cur_pos):
     return ref.decode_attention_paged_ref(q, view.k, view.v, view.block_table,
                                           k_scale, v_scale, cur_pos,
                                           view.bits)
+
+
+def decode_attention_partials_view(q, view, k_scale, v_scale, cur_pos):
+    """Partials variant of ``decode_attention_view``: the same dense-or-
+    paged (and ``view.bits``) routing, the raw (acc, m, l) flash state
+    out."""
+    if view.block_table is None:
+        return decode_attention_partials(q, view.k, view.v, k_scale, v_scale,
+                                         cur_pos, kv_bits=view.bits)
+    cur_pos = _rows(cur_pos, q.shape[0], q.device)
+    if _on_cuda(q):
+        return _dap.launch(q, view.k, view.v, k_scale, v_scale, cur_pos,
+                           view.bits, table=view.block_table)
+    _dap.check(q, view.k, view.v, k_scale, v_scale, cur_pos, view.bits,
+               view.block_table)
+    return ref.decode_attention_partials_paged_ref(
+        q, view.k, view.v, view.block_table, k_scale, v_scale, cur_pos,
+        view.bits)
 
 
 def prefill_attention_view(q, view, k_scale, v_scale, q_start, kv_len, *,

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the three serving kernels (the attentions
-over a dense K/V stream or, through a block table, a paged pool).
+"""Plain PyTorch versions of the serving kernels (the attentions over a
+dense K/V stream or, through a block table, a paged pool, and the decode
+attention's raw flash state for the sequence-parallel merge).
 
 Counterparts of ``repro/kernels/ref.py``: ``ops`` runs them for tensors
 that lie on the CPU, and ``chip_smoke.py`` holds each CUDA kernel against
@@ -51,7 +52,22 @@ def decode_attention_ref(q, k_cache, v_cache, k_scale, v_scale, cur_pos,
     packed nibbles at ``kv_bits == 4`` (unpacked first, then the same
     math); k/v_scale: (KV,) f32; cur_pos: (B,) int32 count of valid
     positions.  Returns (B, KV, G, D) f32; a row with cur_pos == 0 returns
-    zeros."""
+    zeros.  It is the normalized flash state of
+    ``decode_attention_partials_ref``, as in the kernel's epilogue."""
+    acc, _, l = decode_attention_partials_ref(q, k_cache, v_cache, k_scale,
+                                              v_scale, cur_pos, kv_bits)
+    return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def decode_attention_partials_ref(q, k_cache, v_cache, k_scale, v_scale,
+                                  cur_pos, kv_bits=8):
+    """The raw flash state of one-token attention over ``cur_pos`` valid
+    positions of ``k/v_cache`` (one shard's slice of the sequence axis:
+    positions are LOCAL): acc = v_scale * sum_p e^(s_p - m) V_p
+    (unnormalized), m = max_p s_p, l = sum_p e^(s_p - m), with s_p the
+    scaled score (key scale and 1/sqrt(D) folded into q).  Returns (acc (B,
+    KV, G, D), m (B, KV, G), l (B, KV, G)) f32; a row with nothing visible
+    returns (0, -1e30, 0), the merge's identity."""
     b, kvh, g, d = q.shape
     if kv_bits == 4:
         k_cache = unpack_int4(k_cache, axis=-1, size=d)
@@ -64,9 +80,9 @@ def decode_attention_ref(q, k_cache, v_cache, k_scale, v_scale, cur_pos,
     s = torch.where(valid, s, NEG_INF)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), 0.0)
-    l = torch.sum(p, dim=-1, keepdim=True)
+    l = torch.sum(p, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
-    return o * v_scale.reshape(1, -1, 1, 1) / torch.clamp_min(l, 1e-30)
+    return o * v_scale.reshape(1, -1, 1, 1), m[..., 0], l
 
 
 def prefill_attention_ref(q, k, v, k_scale, v_scale, q_start, kv_len, *,
@@ -117,6 +133,14 @@ def decode_attention_paged_ref(q, k_pool, v_pool, table, k_scale, v_scale,
     return decode_attention_ref(q, gather_pages(k_pool, table),
                                 gather_pages(v_pool, table), k_scale,
                                 v_scale, cur_pos, kv_bits)
+
+
+def decode_attention_partials_paged_ref(q, k_pool, v_pool, table, k_scale,
+                                        v_scale, cur_pos, kv_bits=8):
+    """``decode_attention_partials_ref`` over the pages the table maps."""
+    return decode_attention_partials_ref(q, gather_pages(k_pool, table),
+                                         gather_pages(v_pool, table),
+                                         k_scale, v_scale, cur_pos, kv_bits)
 
 
 def prefill_attention_paged_ref(q, k_pool, v_pool, table, k_scale, v_scale,

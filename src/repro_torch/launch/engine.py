@@ -222,6 +222,14 @@ class Engine:
                    page_size=page_size, prefill_chunk=prefill_chunk,
                    decode_strategy=decode_strategy)
 
+    def _init_kw(self) -> dict:
+        """The constructor's keyword arguments of this engine, other than
+        its device."""
+        return dict(finetune_log=self.finetune_log,
+                    cache_layout=self.cache_layout, page_size=self.page_size,
+                    prefill_chunk=self.prefill_chunk,
+                    decode_strategy=self.decode_strategy)
+
     def to(self, device) -> "Engine":
         """The same engine (same int8 weights and thresholds) on another
         device."""
@@ -229,10 +237,7 @@ class Engine:
         return Engine(self.model, self.cfg, self.policy,
                       tree_to(self.serve_params, dev),
                       tree_to(self.qparams, dev), device=dev,
-                      finetune_log=self.finetune_log,
-                      cache_layout=self.cache_layout, page_size=self.page_size,
-                      prefill_chunk=self.prefill_chunk,
-                      decode_strategy=self.decode_strategy)
+                      **self._init_kw())
 
     def n_int8_weights(self) -> int:
         def count(t):

@@ -12,28 +12,49 @@ calibrated per-head thresholds, and the same int8 (or packed int4) tiles
 are written to the cache and attended by the kernel.  The cache is dense
 or paged (``repro_torch.cache``); the kernels read either through the
 cache's ``kernel_view``.
+
+Under sequence parallelism (a ``repro_torch.shard`` scope with sp > 1) the
+dense cache's S axis is split into ``sp`` shards, each a view of the one
+global cache, so the cache writes are the unsharded ones (their union over
+the shards is the reference's owner writes); only the attention differs:
+decode scores each shard's keys into flash partials and merges them
+exactly, and prefill attends as the reference's sequence-parallel prefill
+does (plain causal attention, no kernel).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.cache import kv_levels, make_cache
+from repro_torch.cache import dequantize_kv, kv_levels, make_cache
 from repro_torch.models.layers import apply_rotary, rotary_angles
 from repro_torch.models.module import Dense, Module
 
 NEG_INF = -1e30
 
 
-def causal_attention(q, k, v):
+def _sp_info():
+    """The sequence-parallel context (``repro_torch.shard.context``), or None
+    on the unsharded path.  Imported here: the shard package sits on top of
+    the model stack, so a module-level import would be a cycle."""
+    from repro_torch.shard.context import sp_shard_info
+
+    return sp_shard_info()
+
+
+def causal_attention(q, k, v, q_offset: int = 0):
     """Plain causal attention, the counterpart of the reference's jnp
     ``flash_attention`` (one softmax over the whole sequence instead of an
-    online softmax over chunks).  q: (B, S, KV, G, D); k/v: (B, S, KV, D);
-    scores and softmax in float32, output in v's dtype."""
-    s_len, d = q.shape[1], q.shape[-1]
+    online softmax over chunks).  q: (B, Sq, KV, G, D) at positions
+    ``q_offset + arange(Sq)``; k/v: (B, Sk, KV, D) at positions
+    ``arange(Sk)`` -- the prompt itself, or the first Sk positions of a
+    cache that a chunk continues; key p is visible to a query at position
+    t when p <= t.  Scores and softmax in float32, output in v's dtype."""
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
     scale = 1.0 / torch.sqrt(torch.tensor(float(d), device=q.device))
     s = torch.einsum("bqkgd,bskd->bkgqs", q.float() * scale, k.float())
-    pos = torch.arange(s_len, device=q.device)
-    s = torch.where(pos[:, None] >= pos[None, :], s, NEG_INF)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(sk, device=q.device)
+    s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.to(v.dtype)
@@ -185,16 +206,28 @@ class Attention(Module):
         cache = cache.with_scales(*self._kv_scales(ctx))
         kq, vq = cache.ready(k, v)
         cache = cache.append(kq, vq, q_offset)
-        if lengths is None:
+        sp = _sp_info()
+        if lengths is None and sp is not None:
+            # the reference's sequence-parallel prefill attends the prompt's
+            # exact float K/V, with no kernel
+            o = causal_attention(q, k, v)
+        elif lengths is None:
             o = ops.prefill_attention(q, kq, vq, *cache.scales(), 0, s,
                                       causal=True, kv_bits=cache.bits)
         else:
-            kv_len = torch.clamp(lengths.to(torch.int32), 0, q_offset + s)
             limit = (cache.capacity if kv_limit is None
                      else min(kv_limit, cache.capacity))
-            o = ops.prefill_attention_view(q, cache.kernel_view(limit),
-                                           *cache.scales(), q_offset, kv_len,
-                                           causal=True)
+            if sp is not None:
+                # ... and a chunk the dequantized cache, also with no kernel
+                k_eff, v_eff = (dequantize_kv(t, sc, cache.bits) for t, sc in
+                                zip(cache.dense_view(limit), cache.scales()))
+                o = causal_attention(q, k_eff, v_eff, q_offset=q_offset)
+            else:
+                kv_len = torch.clamp(lengths.to(torch.int32), 0,
+                                     q_offset + s)
+                o = ops.prefill_attention_view(q, cache.kernel_view(limit),
+                                               *cache.scales(), q_offset,
+                                               kv_len, causal=True)
         o = o.to(x.dtype).reshape(b, s, self.n_heads * self.head_dim)
         return self.wo(params["wo"], o, ctx), cache
 
@@ -228,8 +261,14 @@ class Attention(Module):
             kq, vq = cache.ready(k, v)
             cache = cache.append(kq, vq, int(cur_pos))
             valid = int(cur_pos) + 1
-        o = ops.decode_attention_view(q[:, 0], cache.kernel_view(),
-                                      *cache.scales(), valid)
+        sp = _sp_info()
+        if sp is None:
+            o = ops.decode_attention_view(q[:, 0], cache.kernel_view(),
+                                          *cache.scales(), valid)
+        else:
+            from repro_torch.shard.partial_softmax import sp_decode_attention
+
+            o = sp_decode_attention(q[:, 0], cache, valid, sp.sp)
         o = o[:, None].to(x.dtype)
         o = o.reshape(b, s, self.n_heads * self.head_dim)
         return self.wo(params["wo"], o, ctx), cache

@@ -1,0 +1,70 @@
+"""Exact cross-shard merge of flash-decode partials (sequence parallelism).
+
+Counterpart of ``repro/shard/partial_softmax.py``.  With the KV cache's S
+axis split into ``sp`` shards, each shard scores only its local keys; the
+online-softmax state makes the split exact: shard i emits (m_i, l_i,
+acc_i) -- running max, normalizer and UNNORMALIZED value accumulator over
+its visible keys -- and
+
+    M     = max_i m_i
+    l_tot = sum_i l_i * exp(m_i - M)
+    out   = sum_i acc_i * exp(m_i - M) / l_tot
+
+is the unsharded softmax up to float32 summation order.  A shard with no
+visible key contributes (-1e30, 0, 0), and a row no shard sees (an
+inactive scheduler slot) comes out as exact zeros.  The reference gathers
+the partials across devices; here they are already on the one card, and
+the merge is plain PyTorch (it is not a kernel in the reference either).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+def sp_decode_attention(q, cache, valid, sp: int):
+    """Decode attention over a dense cache split into ``sp`` shards: the
+    partials kernel scores each shard's LOCAL visible keys, reading the
+    shard's view ``k[:, i*S_local:(i+1)*S_local]`` in place (one launch per
+    shard), and ``sp_partial_combine`` merges them.
+
+    q: (B, KV, G, D); valid: (B,) tensor or an int, the GLOBAL count of
+    visible keys.  Returns (B, KV, G, D) float32."""
+    b = q.shape[0]
+    s_local = cache.capacity // sp
+    if isinstance(valid, torch.Tensor):
+        valid = valid.to(torch.int32).reshape(-1).expand(b)
+    else:
+        valid = torch.full((b,), valid, dtype=torch.int32, device=q.device)
+    ms, ls, accs = [], [], []
+    for i in range(sp):
+        lo = i * s_local
+        acc, m, l = ops.decode_attention_partials(
+            q, cache.k[:, lo:lo + s_local], cache.v[:, lo:lo + s_local],
+            *cache.scales(), torch.clamp(valid - lo, 0, s_local),
+            kv_bits=cache.bits)
+        ms.append(m[..., None])
+        ls.append(l[..., None])
+        accs.append(acc[..., None, :])
+    return sp_partial_combine(ms, ls, accs)[:, 0]
+
+
+def sp_partial_combine(m, l, acc):
+    """Merge the shards' partials into the exact softmax output.
+
+    ``m``, ``l``, ``acc``: sequences in shard order (or tensors with a
+    leading shard axis) of (B, KV, G, 1), (B, KV, G, 1) and (B, KV, G, 1,
+    D) float32.  Returns (B, 1, KV, G, D) float32 (callers cast to the
+    residual dtype); a row with l_tot == 0 returns exact zeros."""
+    mg, lg, ag = (torch.stack(list(t)) for t in (m, l, acc))
+    m_tot = torch.amax(mg, dim=0)
+    # NEG_INF is finite: an all-empty row has m_i == M, weights exp(0) == 1
+    # and l_tot == 0, which the zero guard below turns into zeros, never NaN
+    w = torch.exp(mg - m_tot[None])                       # (sp, B, KV, G, 1)
+    l_tot = torch.sum(lg * w, dim=0)
+    o = torch.sum(ag * w[..., None], dim=0)
+    o = o / torch.clamp_min(l_tot[..., None], 1e-30)
+    o = o * (l_tot[..., None] > 0)
+    # (B, KV, G, 1, D) -> (B, 1, KV, G, D): the attention output layout
+    return torch.movedim(o, 3, 1)
