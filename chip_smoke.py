@@ -49,7 +49,27 @@
    int4 engine's weights with sp=4;
 13. [sp scheduler] streams 8 ragged requests through 4 slots of the sp=4
    engine and holds the completions against the unsharded scheduler on
-   the same weights (equal up to a near-tie).
+   the same weights (equal up to a near-tie);
+14. [kernels], fake_quant: B5 against its plain version bit for bit at the
+   fat_qat student's widths (1024 x 1536, 1024 x 576), benchmarks/run.py's
+   512 x 256 and a ragged 1000 x 1000, float32 and bf16, per-channel and
+   scalar t_max, alphas below, inside and above [0.5, 1], .5 ties; then
+   ``ops.fake_quant``'s forward and STE backward on the card against the
+   CPU (dx bit for bit, dalpha rtol 1e-5); timed beside the plain version
+   and torch.fake_quantize_per_channel_affine;
+15. [kernels], quant_matmul int4 weights: B3 at ``w_bits=4`` bit for bit
+   against its plain version and the int8 branch on the unpacked weights
+   at smollm-135m's widths, M = 4, 2048 and 37; timed beside the int8
+   branch and torch._int_mm;
+16. [train fat_qat] ``repro_torch.launch.train.main`` at the full width of
+   smollm-135m: 3 steps that checkpoint, the same command to 6 steps
+   (resumes from step 3), and an uninterrupted 6-step run: the resumed
+   thresholds equal the uninterrupted ones (rtol 1e-5);
+17. [train pretrain] 4 pretrain steps at full width, the loss finite and
+   falling, one checkpoint; [checkpoint serve] the int8 engine built from
+   that checkpoint (``Engine.from_checkpoint(checkpoint_dir=)``) serves 4
+   x 512 prompts for 32 tokens through B1-B3 with the checkpoint's
+   weights, held against its CPU twin as in 4.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -61,6 +81,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -779,7 +800,8 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
                 "prefill_attention": n_layers if sp == 1 else 0,
                 "decode_attention": n_layers * (GEN - 1) if sp == 1 else 0,
                 "decode_attention_partials":
-                    0 if sp == 1 else n_layers * (GEN - 1) * sp}
+                    0 if sp == 1 else n_layers * (GEN - 1) * sp,
+                "fake_quant": 0}
     int4_expected = ({k: expected[k] for k in int4}
                      if engine.policy.kv_bits == 4 else {k: 0 for k in int4})
     print(f"[{label}] kernel launches {counts} (expected {expected}); int4 "
@@ -897,7 +919,8 @@ def drive_paged_path(torch, ops, ref, Engine, PagedCache, engine, prompts,
     attn = {"prefill_attention": n_layers * chunks,
             "decode_attention": n_layers * (GEN - 1),
             "decode_attention_partials": 0}
-    expected = {"quant_matmul": 7 * n_layers * (chunks + GEN - 1), **attn}
+    expected = {"quant_matmul": 7 * n_layers * (chunks + GEN - 1), **attn,
+                "fake_quant": 0}
     int4_expected = attn if engine.policy.kv_bits == 4 else {
         k: 0 for k in attn}
     print(f"[{label}] kernel launches {counts} (expected {expected}); paged "
@@ -1238,6 +1261,356 @@ def check_finetune(torch, A, ST, engine, card):
                              "between card and CPU")
 
 
+# -- slice 5: B5, B3 int4 weights, the training driver ----------------------
+
+# fake-quant shapes: the fat_qat student's MLP and model widths at batch 8 x
+# seq 128, benchmarks/run.py's shape, and a ragged one the TPU kernel
+# refuses
+FQ_SHAPES = ((1024, 1536), (1024, 576), (512, 256), (1000, 1000))
+# GPU vs CPU alpha gradient of ops.fake_quant: the sum over rows runs in a
+# fixed order of elementwise adds on both devices (ops._column_sum)
+FQ_DALPHA_RTOL = 1e-5
+# smollm-135m's matmul widths (K, N) for int4 weights, and the row counts:
+# decode, prefill, ragged
+W4_WIDTHS = ((576, 1536), (1536, 576), (576, 192))
+W4_ROWS = (B, B * PROMPT, 37)
+# resumed vs uninterrupted fat_qat thresholds on the card
+RESUME_RTOL = 1e-5
+
+
+def fq_inputs(torch, dev, gen, m, n, dtype, scalar_t=False):
+    """x, t_max, alpha for B5: alphas below, on the ends of and above
+    [0.5, 1]; columns 4..7 with s = 2 exactly and x * s on .5 ties."""
+    x = torch.randn((m, n), generator=gen, device=dev) * 2
+    t = torch.rand((n,), generator=gen, device=dev) * 2 + 0.5
+    a = torch.rand((n,), generator=gen, device=dev) * 0.9 + 0.3
+    a[:4] = torch.tensor([0.5, 1.0, 0.25, 1.5], device=dev)
+    t[4:8], a[4:8] = 63.5, 1.0
+    x[:, 4:8] = (torch.randint(-64, 64, (m, 4), generator=gen, device=dev)
+                 + 0.5) / 2
+    if scalar_t:
+        t = torch.tensor(63.5, device=dev)
+    return x.to(dtype), t, a
+
+
+def check_fake_quant(torch, ops, ref, dev):
+    """B5 against its plain version, bit for bit, at every shape and dtype,
+    per-channel and scalar t_max and one alpha; timed beside the plain
+    version and torch.fake_quantize_per_channel_affine.  Then the entry
+    point's path: ``ops.fake_quant`` forward and STE backward at the
+    student's shapes on the card, counted from 0, against the same
+    autograd on the CPU.  Returns (JSON entries, launches)."""
+    from repro_torch.kernels import fake_quant as fq
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    entries = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for m, n in FQ_SHAPES:
+            for scalar_t in (False, True):
+                x, t, a = fq_inputs(torch, dev, gen, m, n, dtype, scalar_t)
+                got, want = fq.launch(x, t, a), ref.fake_quant_ref(x, t, a)
+                torch.cuda.synchronize()
+                if not torch.equal(got.view(torch.uint8),
+                                   want.view(torch.uint8)):
+                    bad = int((got != want).sum())
+                    raise AssertionError(
+                        f"fake_quant {tag} ({m}, {n}) scalar_t={scalar_t}: "
+                        f"{bad} elements differ from the plain version")
+            one = torch.tensor(0.8, device=dev)
+            if not torch.equal(fq.launch(x, t, one),
+                               ref.fake_quant_ref(x, t, one)):
+                raise AssertionError(f"fake_quant {tag} ({m}, {n}): one "
+                                     "alpha differs from the plain version")
+            x, t, a = fq_inputs(torch, dev, gen, m, n, dtype)
+            ms, call = timed(torch, lambda: fq.launch(x, t, a))
+            plain, _ = timed(torch, lambda: ref.fake_quant_ref(x, t, a))
+            t_adj = torch.clamp_min(torch.clamp(a, 0.5, 1.0) * t, 1e-8)
+            inv = (t_adj / 127.0).float()
+            zeros = torch.zeros((n,), dtype=torch.int32, device=dev)
+            try:
+                lib, _ = timed(torch, lambda: torch.fake_quantize_per_channel_affine(
+                    x, inv, zeros, 1, -127, 127))
+                lib_note = "torch.fake_quantize_per_channel_affine"
+            except RuntimeError as err:   # the yardstick may not take bf16
+                lib, lib_note = None, f"none: {str(err).splitlines()[0]}"
+            nbytes = 2 * m * n * x.element_size() + 8 * n
+            bnd, by = bound_ms(nbytes, 8 * m * n, 67e12)
+            print(f"  fake_quant {tag} ({m:4d}, {n:4d}): {ms * 1e3:7.1f} us "
+                  f"(per call {call * 1e3:6.1f} us)  plain "
+                  f"{plain * 1e3:7.1f} us  bound {bnd * 1e3:6.2f} us  "
+                  f"library {'-' if lib is None else f'{lib * 1e3:.1f} us'}"
+                  f"  bit-identical (per-channel, scalar t, one alpha)")
+            if (m, n) == FQ_SHAPES[0]:
+                entries.append({
+                    "name": f"fake_quant[{tag}, M={m}, N={n}: the fat_qat "
+                            "student's MLP width at batch 8 x seq 128]",
+                    "route": "cuda", "source": fq.SOURCE,
+                    "replaces": fq.REPLACES, "kernel": "fake_quant",
+                    "max_abs_err": 0.0, "ms": ms, "call_ms": call,
+                    "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+                    "library_ms": lib, "library": lib_note})
+
+    # the entry point's path: forward (the kernel) and STE backward
+    ops.reset_launches()
+    worst = 0.0
+    calls = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, n in FQ_SHAPES[:3]:
+            x, t, a = fq_inputs(torch, dev, gen, m, n, dtype)
+            w = torch.randn((m, n), generator=gen, device=dev)
+            grads = []
+            for d in (dev, torch.device("cpu")):
+                xs, ts, as_ = (v.detach().to(d).requires_grad_(True)
+                               for v in (x, t, a))
+                y = ops.fake_quant(xs, ts, as_)
+                torch.sum(y.float() * w.to(d)).backward()
+                grads.append((xs.grad.cpu(), ts.grad.cpu(), as_.grad.cpu()))
+            calls += 1
+            (gx, gt, ga), (cx, ct, ca) = grads
+            if not torch.equal(gx.view(torch.uint8), cx.view(torch.uint8)):
+                raise AssertionError(f"fake_quant dx ({m}, {n}) differs "
+                                     "between card and CPU")
+            if gt.any() or ct.any():
+                raise AssertionError("fake_quant's t_max gradient is not 0")
+            rel = ((ga - ca).abs() / ca.abs().clamp_min(1e-30)).max().item()
+            worst = max(worst, rel)
+            if not torch.allclose(ga, ca, rtol=FQ_DALPHA_RTOL, atol=0):
+                raise AssertionError(f"fake_quant dalpha ({m}, {n}): max "
+                                     f"relative difference {rel}")
+    launches = ops.launch_counts()["fake_quant"]
+    print(f"  fake_quant path: ops.fake_quant forward + STE backward at "
+          f"{[s for s in FQ_SHAPES[:3]]}, f32 and bf16: kernel launches "
+          f"{launches} (expected {calls}); dx card vs CPU bit-identical, "
+          f"dalpha max relative difference {worst:.2e} (tolerance "
+          f"{FQ_DALPHA_RTOL}), dt_max 0")
+    if launches != calls:
+        raise AssertionError(f"fake_quant launches {launches} != {calls}")
+    return entries, launches
+
+
+def check_quant_matmul_w4(torch, ops, ref, dev):
+    """B3 with int4 weights against its plain version and against the int8
+    branch on the unpacked weights, bit for bit, at smollm-135m's widths;
+    timed beside the int8 branch, the plain version and torch._int_mm on
+    the unpacked weights.  Then the entry point's path,
+    ``ops.quant_matmul(w_bits=4)`` at decode and prefill rows, counted
+    from 0.  Returns (JSON entries, launches)."""
+    from repro_torch.core.packing import pack_int4
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    inputs = {}
+    entries = []
+    for m in W4_ROWS:
+        tot = dict(ms=0.0, call_ms=0.0, int8_ms=0.0, plain_ms=0.0,
+                   bound_ms=0.0, library_ms=0.0, nbytes=0, ops=0)
+        for k, n in W4_WIDTHS:
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            w_raw = torch.randint(-7, 8, (k, n), generator=gen, device=dev,
+                                  dtype=torch.int8)
+            w_q = pack_int4(w_raw, axis=0)
+            w_scale = torch.rand((n,), generator=gen, device=dev) * 1e-2
+            act = (127.0 / (x.float().abs().amax() * 0.8)).reshape(())
+            inputs[(m, k, n)] = (x, w_q, w_scale, act)
+            got = ops.quant_matmul(x, w_q, w_scale, act, w_bits=4)
+            want = ref.quant_matmul_ref(x, w_q, w_scale, act, w_bits=4)
+            int8 = ops.quant_matmul(x, w_raw, w_scale, act)
+            torch.cuda.synchronize()
+            for other, what in ((want, "its plain version"),
+                                (int8, "the int8 branch on the unpacked "
+                                       "weights")):
+                if not torch.equal(got, other):
+                    raise AssertionError(f"quant_matmul w_bits=4 (M={m}, "
+                                         f"K={k}, N={n}) differs from {what}")
+            if m == W4_ROWS[-1]:
+                continue     # the ragged rows: checked, not timed
+            ms, call = timed(torch, lambda: ops.quant_matmul(
+                x, w_q, w_scale, act, w_bits=4))
+            i8, _ = timed(torch, lambda: ops.quant_matmul(x, w_raw, w_scale,
+                                                          act))
+            plain, _ = timed(torch, lambda: ref.quant_matmul_ref(
+                x, w_q, w_scale, act, 4), iters=5, warmup=1)
+            x_q = torch.clamp(torch.round(x.float() * act), -127, 127).to(
+                torch.int8)
+            if m <= 16:
+                x_q = torch.cat([x_q, x_q.new_zeros((32 - m, k))])
+            lib, _ = timed(torch, lambda: torch._int_mm(x_q, w_raw))
+            nbytes = m * k * 2 + k * n // 2 + 4 * n + 4 + m * n * 2
+            bnd, _ = bound_ms(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
+            print(f"  quant_matmul w_bits=4 M={m:5d} K={k:4d} N={n:4d}: "
+                  f"{ms * 1e3:8.1f} us (per call {call * 1e3:6.1f} us)  "
+                  f"int8 branch {i8 * 1e3:8.1f} us  plain "
+                  f"{plain * 1e3:9.1f} us  bound {bnd * 1e3:6.2f} us  "
+                  f"_int_mm {lib * 1e3:.1f} us"
+                  + (" (M padded to 32)" if m <= 16 else ""))
+            for key, v in (("ms", ms), ("call_ms", call), ("int8_ms", i8),
+                           ("plain_ms", plain), ("bound_ms", bnd),
+                           ("library_ms", lib), ("nbytes", nbytes),
+                           ("ops", 2 * m * k * n)):
+                tot[key] += v
+        if m == W4_ROWS[-1]:
+            print(f"  quant_matmul w_bits=4 M={m} (ragged): bit-identical at "
+                  f"every width")
+            continue
+        phase = "decode" if m == B else "prefill"
+        _, by = bound_ms(tot["nbytes"], tot["ops"], INT8_OPS_PER_S)
+        entries.append({
+            "name": f"quant_matmul@w4[{phase}: smollm-135m's widths "
+                    f"576x1536, 1536x576, 576x192, M={m}]",
+            "route": "cuda", "source": "src/repro_torch/csrc/quant_matmul.cu",
+            "replaces": "src/repro/kernels/quant_matmul.py:72",
+            "kernel": "quant_matmul@w4", "max_abs_err": 0.0,
+            "ms": tot["ms"], "call_ms": tot["call_ms"],
+            "int8_branch_ms": tot["int8_ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"], "bound_by": by,
+            "library_ms": tot["library_ms"],
+            "library": "torch._int_mm on the unpacked weights" + (
+                f", x zero-padded from M={m} to M=32" if m <= 16 else "")})
+
+    ops.reset_launches()
+    for m in W4_ROWS[:2]:
+        for k, n in W4_WIDTHS:
+            ops.quant_matmul(*inputs[(m, k, n)], w_bits=4)
+    torch.cuda.synchronize()
+    launches = ops.w4_launch_counts()["quant_matmul"]
+    expected = 2 * len(W4_WIDTHS)
+    print(f"  quant_matmul w_bits=4 path: ops.quant_matmul(w_bits=4) at "
+          f"M={W4_ROWS[:2]} and every width: launches {launches} (expected "
+          f"{expected})")
+    if launches != expected:
+        raise AssertionError(f"quant_matmul@w4 launches {launches}")
+    return entries, launches
+
+
+class Tee:
+    """A stdout that also keeps what is written."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_train(torch, train, argv, label):
+    """``repro_torch.launch.train.main(argv)`` on the card; returns (its
+    result, its printed losses by step, its ms per step after the first,
+    the wall time, the peak device memory, the printed text)."""
+    import contextlib
+    import re
+
+    tee = Tee(sys.stdout)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        print(f"[{label}] main({' '.join(argv)})")
+        out = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = "".join(tee.text)
+    losses = {int(s): float(v) for s, v in re.findall(
+        r"^step\s+(\d+) loss (\S+)", text, re.M)}
+    per = re.search(r"ms the first, ([\d.]+) ms each", text)
+    return (out, losses, float(per.group(1)) if per else float("nan"),
+            wall, torch.cuda.max_memory_allocated(), text)
+
+
+def check_train_fat(torch, train, A, workdir, card):
+    """[train fat_qat] at the full width of smollm-135m: 3 steps that
+    checkpoint and stop, the same command to 6 steps (it must resume from
+    step 3), and an uninterrupted 6-step run in a fresh directory; the
+    resumed thresholds must equal the uninterrupted ones to RESUME_RTOL."""
+    base = ["--arch", "smollm-135m", "--mode", "fat_qat",
+            "--finetune-thresholds", "--batch", "8", "--seq", "128",
+            "--calib-batches", "4", "--ckpt-every", "3", "--log-every", "1"]
+    resumed = base + ["--ckpt-dir", os.path.join(workdir, "fat")]
+    _, l1, ms1, w1, mem, _ = run_train(torch, train, resumed + ["--steps", "3"],
+                                       "train fat_qat")
+    (_, q_res), l2, ms2, w2, _, text = run_train(
+        torch, train, resumed + ["--steps", "6"], "train fat_qat")
+    if "[train] resuming from step 3" not in text or min(l2) != 3:
+        raise AssertionError("the second run did not resume from step 3")
+    (_, q_full), l3, ms3, w3, _, _ = run_train(
+        torch, train, base + ["--ckpt-dir", os.path.join(workdir, "fat_full"),
+                              "--steps", "6"], "train fat_qat")
+    flat_r, flat_f = A.flatten(q_res), A.flatten(q_full)
+    worst, same = 0.0, True
+    for key, v in flat_f.items():
+        r = flat_r[key]
+        same &= torch.equal(r, v)
+        d = ((r.float() - v.float()).abs()
+             / v.float().abs().clamp_min(1e-30)).max().item()
+        worst = max(worst, d)
+    losses = {**l1, **l2}
+    print(f"[train fat_qat] smollm-135m full width, batch 8 x seq 128, 4 "
+          f"calibration batches, trained alphas and KV log2_t; losses "
+          + " ".join(f"{losses[s]:.5f}" for s in sorted(losses))
+          + f" (uninterrupted: " + " ".join(f"{l3[s]:.5f}" for s in
+                                           sorted(l3))
+          + f"); {ms3:.1f} ms per step after the first (runs: {ms1:.1f}, "
+          f"{ms2:.1f}); wall per run {w1:.1f} / {w2:.1f} / {w3:.1f} s (init,"
+          f" calibration, checkpoints included); peak device memory "
+          f"{mem / 2**20:.1f} MiB on {card}")
+    print(f"[train fat_qat] resumed vs uninterrupted thresholds: "
+          f"{'bit-identical' if same else 'not bit-identical'}, max "
+          f"relative difference {worst:.2e} (tolerance {RESUME_RTOL})")
+    if not all(np.isfinite(list(losses.values()) + list(l3.values()))):
+        raise AssertionError(f"non-finite fat_qat losses {losses} {l3}")
+    if not worst <= RESUME_RTOL:
+        raise AssertionError(f"resumed thresholds differ by {worst}")
+
+
+def check_train_pretrain(torch, ops, A, train, Engine, CheckpointManager,
+                         prompts, workdir, kind, card):
+    """[train pretrain] at full width: 4 steps and one checkpoint; the loss
+    must be finite and fall.  [checkpoint serve]: the int8 engine built
+    from that checkpoint serves 4 x 512 prompts for 32 tokens through
+    B1-B3, with the checkpoint's weights, and agrees with its CPU twin.
+    Returns the served path's launch counts."""
+    d = os.path.join(workdir, "pretrain")
+    _, losses, ms, wall, mem, _ = run_train(
+        torch, train, ["--arch", "smollm-135m", "--mode", "pretrain",
+                       "--batch", "8", "--seq", "128", "--steps", "4",
+                       "--ckpt-every", "4", "--log-every", "1",
+                       "--ckpt-dir", d], "train pretrain")
+    seq = [losses[s] for s in sorted(losses)]
+    print(f"[train pretrain] smollm-135m full width, batch 8 x seq 128, lr "
+          f"1e-3: losses " + " ".join(f"{v:.5f}" for v in seq)
+          + f"; {ms:.1f} ms per step after the first; wall {wall:.1f} s; "
+          f"peak device memory {mem / 2**20:.1f} MiB on {card}")
+    if len(seq) != 4 or not np.isfinite(seq).all() or not seq[-1] < seq[0]:
+        raise AssertionError(f"pretrain losses {seq} are not finite and "
+                             "falling")
+
+    t0 = time.perf_counter()
+    engine = Engine.from_checkpoint("smollm-135m", smoke=False,
+                                    checkpoint_dir=d)
+    torch.cuda.synchronize()
+    print(f"[checkpoint serve] Engine.from_checkpoint(checkpoint_dir=...) "
+          f"in {time.perf_counter() - t0:.1f} s")
+    tree, meta = CheckpointManager(d).restore_latest()
+    stored = A.flatten(tree["params"])
+    served = A.flatten(engine.serve_params)
+    kept = [k for k in stored if k in served]
+    for key in kept:
+        if not torch.equal(served[key].cpu(), stored[key]):
+            raise AssertionError(f"served weight {key} is not the "
+                                 "checkpoint's")
+    print(f"[checkpoint serve] step {meta['step']}: the {len(kept)} "
+          f"unquantized weight tensors (embedding, norms) are the "
+          f"checkpoint's bits; {engine.n_int8_weights()} int8 weight tensors")
+    res, counts, _ = drive_main_path(torch, ops, engine, prompts,
+                                     "checkpoint serve", kind, card)
+    cpu_check(torch, A, engine, prompts, res.tokens.cpu(), LOGIT_ATOL,
+              "checkpoint serve cpu check")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1248,10 +1621,12 @@ def main() -> int:
     sys.path.insert(0, os.path.join(root, "src"))
 
     from repro_torch.cache import PagedCache
+    from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.core import api as A
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch import steps as ST
     from repro_torch.launch.engine import Engine
+    from repro_torch.launch import train
     from repro_torch.launch.scheduler import Request
     from repro_torch.shard import ShardedEngine
 
@@ -1290,6 +1665,12 @@ def main() -> int:
         kernels.append(check_partials(torch, ops, ref, dev, bits))
     for bits in (8, 4):
         kernels.append(check_paged_partials(torch, ops, ref, dev, bits))
+    print("[kernels] fake_quant (B5) bit-exact, with its STE backward:")
+    fq_entries, fq_launches = check_fake_quant(torch, ops, ref, dev)
+    print("[kernels] quant_matmul with int4 weights (B3 w_bits=4) "
+          "bit-exact:")
+    w4_entries, w4_launches = check_quant_matmul_w4(torch, ops, ref, dev)
+    kernels += fq_entries + w4_entries
 
     phases = {"build": build_s, "kernels": time.perf_counter() - t_kern}
 
@@ -1383,6 +1764,16 @@ def main() -> int:
               out_sp[0].tokens.cpu(), LOGIT_ATOL, "sp cpu check")
     sp_sched = phase("sp scheduler", check_sp_scheduler, torch, ops, A, ST,
                      Engine, ShardedEngine, Request, engine_sp, kind, card)
+    del engine_sp
+
+    # the training driver; its checkpoints live in temporary directories
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fat_") as workdir:
+        phase("train fat_qat", check_train_fat, torch, train, A, workdir,
+              card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pre_") as workdir:
+        phase("train pretrain + checkpoint serve", check_train_pretrain,
+              torch, ops, A, train, Engine, CheckpointManager, prompts,
+              workdir, kind, card)
     print("[time] " + "; ".join(f"{k} {v:.1f} s" for k, v in phases.items()))
     if failures:
         print("chip_smoke: failed checks:\n  " + "\n  ".join(failures),
@@ -1398,7 +1789,8 @@ def main() -> int:
                 **{f"{k}@paged": sum(pg[k] for pg in by_path.values())
                    for k in ops.ATTENTION},
                 partials: sum(sp_paths.values()),
-                f"{partials}@int4": sp4[2][partials]}
+                f"{partials}@int4": sp4[2][partials],
+                "fake_quant": fq_launches, "quant_matmul@w4": w4_launches}
     for e in kernels:
         kernel = e.pop("kernel")
         e["launches"] = launched[kernel]

@@ -1,0 +1,24 @@
+"""Input-shape cells: (sequence length, global batch) per kind of step.
+
+The port's copy of ``repro/configs/shapes.py::ShapeSpec`` and ``SHAPES``;
+the training CLI builds its own ``ShapeSpec("cli", "train", seq, batch)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str        # 'train' | 'prefill' | 'decode'
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}

@@ -11,7 +11,8 @@ tensor, so ``chunked_sq_err`` reads out and reduces one sequence chunk at a
 time: logits exist for one chunk only.  Each chunk is recomputed in the
 backward (``torch.utils.checkpoint``, the counterpart of the reference's
 ``jax.checkpoint`` on its scan body), so the backward does not keep every
-chunk's logits either.
+chunk's logits either.  ``chunked_ce_loss`` is the pretrain mode's
+next-token cross-entropy, chunked the same way.
 """
 from __future__ import annotations
 
@@ -46,3 +47,28 @@ def chunked_sq_err(h_teacher: torch.Tensor, h_student: torch.Tensor,
                                use_reentrant=False)
     return acc, torch.tensor(float(b * s), dtype=torch.float32,
                              device=h_teacher.device)
+
+
+def chunked_ce_loss(h: torch.Tensor, labels: torch.Tensor, readout: Callable,
+                    *, chunk: int = 256) -> torch.Tensor:
+    """Next-token cross-entropy over (B, S, d) final hidden states and (B,
+    S) labels, read out and reduced one sequence chunk at a time with
+    float32 logits (the readout masks the padded vocabulary); the mean
+    over the B * S positions."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+
+    def body(hs, ls):
+        logits = readout(hs).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ls.long()[..., None])[..., 0]
+        return torch.sum(logz - gold)
+
+    acc = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(s // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        acc = acc + checkpoint(body, h[:, sl], labels[:, sl],
+                               use_reentrant=False)
+    return acc / (b * s)

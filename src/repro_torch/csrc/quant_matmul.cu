@@ -28,6 +28,16 @@
 // int32 sums meet in a warp shuffle, which is exact in any order.  Shapes
 // with N or K not a multiple of 4, or 8 < M <= 16, use the tiled kernel with
 // a narrow tile.  Tensor-core MMA (wgmma s8) and TMA are later work.
+//
+// int4 weights (w_bits = 4, the TPU kernel's `w_bits == 4` branch) arrive
+// packed along K as (K/2, N) bytes: byte row r holds K rows 2r (low nibble)
+// and 2r + 1 (high nibble), each sign-extended from 4 bits
+// (core/packing.py::unpack_int4(axis=0)).  The weight width is a template
+// argument of both kernels: the tiled kernel unpacks each nibble as it
+// stages the transposed weight tile, the decode kernel unpacks two packed
+// words into the four int8 words of four K rows.  From there the dp4a
+// operands, and so the int32 sums, are the int8 branch's on the unpacked
+// weights; activations stay int8.  Half the weight bytes cross memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,7 +53,30 @@ __device__ __forceinline__ int8_t quantize(float x, float s) {
   return static_cast<int8_t>(q);
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN>
+// weight (k, n) of a (K, N) int8 (WB == 8) or (K/2, N) packed int4 matrix
+template <int WB>
+__device__ __forceinline__ int8_t weight(const int8_t* __restrict__ w, int k,
+                                         int n, int N) {
+  if (WB == 8) return w[(size_t)k * N + n];
+  const int b = w[(size_t)(k >> 1) * N + n];  // sign-extended byte
+  return static_cast<int8_t>((k & 1) ? (b >> 4) : (((b & 15) ^ 8) - 8));
+}
+
+// byte j of the result = the sign-extended low (HI == false) or high nibble
+// of byte j of p
+template <bool HI>
+__device__ __forceinline__ uint32_t nibbles(uint32_t p) {
+  uint32_t r = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int b = static_cast<int8_t>(p >> (8 * j));
+    const int v = HI ? (b >> 4) : (((b & 15) ^ 8) - 8);
+    r |= static_cast<uint32_t>(v & 0xff) << (8 * j);
+  }
+  return r;
+}
+
+template <typename T, int WB, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 quant_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                     const float* __restrict__ w_scale,
@@ -78,7 +111,7 @@ quant_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
     for (int i = tid; i < BK * BN; i += NT) {
       const int kk = i / BN, c = i % BN;
       const int gk = k0 + kk, gn = n0 + c;
-      ws[c * LDS + kk] = (gk < K && gn < N) ? w[(size_t)gk * N + gn]
+      ws[c * LDS + kk] = (gk < K && gn < N) ? weight<WB>(w, gk, gn, N)
                                             : static_cast<int8_t>(0);
     }
     __syncthreads();
@@ -116,7 +149,7 @@ quant_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
 constexpr int DEC_WARPS = 8;  // column quads per block: 32 columns
 
 // M <= MR rows; N % 4 == 0 and K % 4 == 0 (4-byte weight loads).
-template <typename T, int MR>
+template <typename T, int WB, int MR>
 __global__ void __launch_bounds__(DEC_WARPS * 32)
 quant_matmul_decode_kernel(const T* __restrict__ x,
                            const int8_t* __restrict__ w,
@@ -142,11 +175,23 @@ quant_matmul_decode_kernel(const T* __restrict__ x,
   if (n < N) {  // warp-uniform
 #pragma unroll 4
     for (int k = lane * 4; k < K; k += 128) {
-      const int8_t* wp = w + (size_t)k * N + n;
-      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wp);
-      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(wp + N);
-      const uint32_t w2 = *reinterpret_cast<const uint32_t*>(wp + 2 * (size_t)N);
-      const uint32_t w3 = *reinterpret_cast<const uint32_t*>(wp + 3 * (size_t)N);
+      // w0..w3: the int8 weights (k + i, n .. n + 3), i = 0..3
+      uint32_t w0, w1, w2, w3;
+      if (WB == 8) {
+        const int8_t* wp = w + (size_t)k * N + n;
+        w0 = *reinterpret_cast<const uint32_t*>(wp);
+        w1 = *reinterpret_cast<const uint32_t*>(wp + N);
+        w2 = *reinterpret_cast<const uint32_t*>(wp + 2 * (size_t)N);
+        w3 = *reinterpret_cast<const uint32_t*>(wp + 3 * (size_t)N);
+      } else {  // packed byte rows k/2 and k/2 + 1 hold K rows k .. k + 3
+        const int8_t* wp = w + (size_t)(k >> 1) * N + n;
+        const uint32_t p0 = *reinterpret_cast<const uint32_t*>(wp);
+        const uint32_t p1 = *reinterpret_cast<const uint32_t*>(wp + N);
+        w0 = nibbles<false>(p0);
+        w1 = nibbles<true>(p0);
+        w2 = nibbles<false>(p1);
+        w3 = nibbles<true>(p1);
+      }
       // byte j of c[j'] = weight (k + j, n + j'): four k of one column
       const uint32_t lo01 = __byte_perm(w0, w1, 0x5140);
       const uint32_t hi01 = __byte_perm(w0, w1, 0x7362);
@@ -183,12 +228,12 @@ quant_matmul_decode_kernel(const T* __restrict__ x,
   }
 }
 
-template <typename T, int MR>
+template <typename T, int WB, int MR>
 void launch_decode(const void* x, const void* w, const void* w_scale,
                    const void* act_scale, void* out, int M, int K, int N,
                    cudaStream_t stream) {
   const size_t smem = (size_t)MR * K;
-  auto kern = quant_matmul_decode_kernel<T, MR>;
+  auto kern = quant_matmul_decode_kernel<T, WB, MR>;
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
@@ -199,49 +244,55 @@ void launch_decode(const void* x, const void* w, const void* w_scale,
       static_cast<__nv_bfloat16*>(out), M, K, N);
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN>
+template <typename T, int WB, int BM, int BN, int BK, int TM, int TN>
 void launch(const void* x, const void* w, const void* w_scale,
             const void* act_scale, void* out, int M, int K, int N,
             cudaStream_t stream) {
   constexpr int NT = (BM / TM) * (BN / TN);
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  quant_matmul_kernel<T, BM, BN, BK, TM, TN><<<grid, NT, 0, stream>>>(
+  quant_matmul_kernel<T, WB, BM, BN, BK, TM, TN><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(w_scale), static_cast<const float*>(act_scale),
       static_cast<__nv_bfloat16*>(out), M, K, N);
 }
 
-template <typename T>
+template <typename T, int WB>
 void dispatch(const void* x, const void* w, const void* w_scale,
               const void* act_scale, void* out, int M, int K, int N,
               cudaStream_t stream) {
   const bool words = N % 4 == 0 && K % 4 == 0;
   if (M <= 1 && words)
-    launch_decode<T, 1>(x, w, w_scale, act_scale, out, M, K, N, stream);
+    launch_decode<T, WB, 1>(x, w, w_scale, act_scale, out, M, K, N, stream);
   else if (M <= 2 && words)
-    launch_decode<T, 2>(x, w, w_scale, act_scale, out, M, K, N, stream);
+    launch_decode<T, WB, 2>(x, w, w_scale, act_scale, out, M, K, N, stream);
   else if (M <= 4 && words)
-    launch_decode<T, 4>(x, w, w_scale, act_scale, out, M, K, N, stream);
+    launch_decode<T, WB, 4>(x, w, w_scale, act_scale, out, M, K, N, stream);
   else if (M <= 8 && words)
-    launch_decode<T, 8>(x, w, w_scale, act_scale, out, M, K, N, stream);
+    launch_decode<T, WB, 8>(x, w, w_scale, act_scale, out, M, K, N, stream);
   else if (M <= 16)  // narrow tiles: more blocks on the weight stream
-    launch<T, 16, 32, 64, 2, 2>(x, w, w_scale, act_scale, out, M, K, N, stream);
+    launch<T, WB, 16, 32, 64, 2, 2>(x, w, w_scale, act_scale, out, M, K, N, stream);
   else
-    launch<T, 64, 64, 32, 4, 4>(x, w, w_scale, act_scale, out, M, K, N, stream);
+    launch<T, WB, 64, 64, 32, 4, 4>(x, w, w_scale, act_scale, out, M, K, N, stream);
 }
 
 }  // namespace
 
 // x: (M, K) float32 (x_bf16 == 0) or bfloat16 (x_bf16 == 1), row-major;
-// w: (K, N) int8 row-major; w_scale: (N,) f32; act_scale: one f32 on the
-// device; out: (M, N) bf16.  Launches on `stream`; returns cudaGetLastError().
+// w: (K, N) int8 row-major (w_bits == 8) or (K/2, N) packed int4 (w_bits ==
+// 4, K even); w_scale: (N,) f32; act_scale: one f32 on the device; out:
+// (M, N) bf16.  Launches on `stream`; returns cudaGetLastError().
 extern "C" int repro_quant_matmul(const void* x, int x_bf16, const void* w,
-                                  const void* w_scale, const void* act_scale,
-                                  void* out, int M, int K, int N, void* stream) {
+                                  int w_bits, const void* w_scale,
+                                  const void* act_scale, void* out, int M,
+                                  int K, int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    dispatch<__nv_bfloat16>(x, w, w_scale, act_scale, out, M, K, N, st);
+  if (x_bf16 && w_bits == 4)
+    dispatch<__nv_bfloat16, 4>(x, w, w_scale, act_scale, out, M, K, N, st);
+  else if (x_bf16)
+    dispatch<__nv_bfloat16, 8>(x, w, w_scale, act_scale, out, M, K, N, st);
+  else if (w_bits == 4)
+    dispatch<float, 4>(x, w, w_scale, act_scale, out, M, K, N, st);
   else
-    dispatch<float>(x, w, w_scale, act_scale, out, M, K, N, st);
+    dispatch<float, 8>(x, w, w_scale, act_scale, out, M, K, N, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,10 @@
-"""Seeded calibration data.
+"""Seeded data: the Engine's default calibration batches here, the
+training stream in ``data.pipeline``.
 
-The reference's ``repro/data/pipeline.py`` imports JAX, so the port makes
-its own default: uniform random token ids from a numpy generator.  Parity
-tests hand the same numpy batches to both packages instead.
+The Engine's default calibration is uniform random token ids from a numpy
+generator (the reference draws its default from the training pipeline,
+whose JAX PRNG the port cannot reproduce).  Parity tests hand the same
+numpy batches to both packages instead.
 """
 from __future__ import annotations
 

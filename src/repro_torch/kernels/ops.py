@@ -12,12 +12,14 @@ import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import decode_attention_partials as _dap
+from repro_torch.kernels import fake_quant as _fq
 from repro_torch.kernels import prefill_attention as _pa
 from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.kernels import ref
 
 KERNELS = {"quant_matmul": _qm, "prefill_attention": _pa,
-           "decode_attention": _da, "decode_attention_partials": _dap}
+           "decode_attention": _da, "decode_attention_partials": _dap,
+           "fake_quant": _fq}
 ATTENTION = {"prefill_attention": _pa, "decode_attention": _da,
              "decode_attention_partials": _dap}
 
@@ -33,6 +35,7 @@ def _on_cuda(t: torch.Tensor) -> bool:
 def reset_launches() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+    _qm.launches_w4 = 0
     for mod in ATTENTION.values():
         mod.launches_int4 = 0
         mod.launches_paged = 0
@@ -41,6 +44,11 @@ def reset_launches() -> None:
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel (every variant)."""
     return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def w4_launch_counts() -> dict:
+    """Launches of quant_matmul with int4 (packed) weights."""
+    return {"quant_matmul": _qm.launches_w4}
 
 
 def int4_launch_counts() -> dict:
@@ -64,17 +72,14 @@ def _rows(value, b: int, device) -> torch.Tensor:
 def quant_matmul(x, w_q, w_scale, act_scale, *, w_bits: int = 8):
     """Fused quantize -> int8 matmul -> dequant; (M, N) bfloat16.
 
-    x: (M, K) raw float32/bf16 activations; w_q: (K, N) int8; w_scale: (N,)
-    combined dequant scale (already divided by act_scale); act_scale: one
-    float32, levels / T_adj, applied to x before rounding."""
-    if w_bits != 8:
-        raise NotImplementedError(
-            "int4 weights (w_bits=4) are not ported: the kernel's int4 "
-            "branch is ROADMAP Queue A item 11")
+    x: (M, K) raw float32/bf16 activations; w_q: (K, N) int8, or at
+    ``w_bits=4`` (K/2, N) bytes of int4 nibbles packed along K; w_scale:
+    (N,) combined dequant scale (already divided by act_scale); act_scale:
+    one float32, levels / T_adj, applied to x before rounding."""
     if _on_cuda(x):
-        return _qm.launch(x, w_q, w_scale, act_scale)
-    _qm.check(x, w_q, w_scale, act_scale)
-    return ref.quant_matmul_ref(x, w_q, w_scale, act_scale)
+        return _qm.launch(x, w_q, w_scale, act_scale, w_bits)
+    _qm.check(x, w_q, w_scale, act_scale, w_bits)
+    return ref.quant_matmul_ref(x, w_q, w_scale, act_scale, w_bits)
 
 
 def decode_attention(q, k_cache, v_cache, k_scale, v_scale, cur_pos, *,
@@ -190,3 +195,77 @@ def prefill_attention_view(q, view, k_scale, v_scale, q_start, kv_len, *,
     return ref.prefill_attention_paged_ref(
         q, view.k, view.v, view.block_table, k_scale, v_scale, q_start,
         kv_len, causal=causal, window=window, kv_bits=view.bits)
+
+
+def _column_sum(p: torch.Tensor) -> torch.Tensor:
+    """(M, N) float32 -> (N,): the rows in blocks of 32, each block summed
+    in row order by up to 31 adds over all blocks at once; then the block
+    sums the same way, until one row is left.  Up to 1024 rows that is
+    XLA's order for a column sum on the CPU (so the reference's bits at M
+    a multiple of 32), and the order is fixed, so every device gives the
+    same bits: a column whose sum cancels moves by far more than 1e-5
+    relative between orders.  On the card: about 32 launches per factor of
+    32 in M, 62 at M = 1024, 93 at M = 32768."""
+    while p.shape[0] > 1:
+        m, n = p.shape
+        k = min(m, 32)
+        blocks = torch.nn.functional.pad(p, (0, 0, 0, -m % k))
+        blocks = blocks.reshape(-1, k, n)
+        p = blocks[:, 0]
+        for r in range(1, k):
+            p = p + blocks[:, r]
+    return p[0]
+
+
+class _FakeQuant(torch.autograd.Function):
+    """B5's forward with the reference's STE backward
+    (``repro/kernels/ops.py::_fq_bwd``, paper eqs. 16-19), which is plain
+    jnp there and plain PyTorch here, on either device."""
+
+    @staticmethod
+    def forward(ctx, x, t_max, alpha, levels, alpha_min, alpha_max):
+        ctx.consts = (levels, alpha_min, alpha_max)
+        ctx.save_for_backward(x, t_max, alpha)
+        kw = dict(levels=levels, qmin=-levels, qmax=levels,
+                  alpha_min=alpha_min, alpha_max=alpha_max)
+        if _on_cuda(x):
+            return _fq.launch(x, t_max, alpha, **kw)
+        return ref.fake_quant_ref(x, t_max, alpha, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, t_max, alpha = ctx.saved_tensors
+        levels, alpha_min, alpha_max = ctx.consts
+        xf, gf = x.float(), g.float()
+        a = torch.clamp(alpha.float(), alpha_min, alpha_max)
+        t_adj = torch.clamp_min(a * t_max.float(), 1e-8)
+        inside = (torch.abs(xf) <= t_adj).float()
+        # STE: straight through inside the clip range (eqs. 17, 19); a
+        # product, as in the reference, so g = -c outside gives -0.0
+        dx = (gf * inside).to(x.dtype)
+        # dy/dt_adj: (y - x)/t_adj inside, sign(x) saturated, with y the
+        # forward's value (the kernel's output is the plain version's bits)
+        y = ref.fake_quant_ref(x, t_max, alpha, levels=levels, qmin=-levels,
+                               qmax=levels, alpha_min=alpha_min,
+                               alpha_max=alpha_max).float()
+        dy_dt = torch.where(inside > 0, (y - xf) / t_adj, torch.sign(xf))
+        # the alpha gradient only inside the clip(alpha) band, taken on
+        # the unclipped alpha with its ends included (eq. 19)
+        band = ((alpha >= alpha_min) & (alpha <= alpha_max)).float()
+        # a 0-d alpha (one for every column) gets the sum of this (N,)
+        # gradient from autograd
+        dalpha = _column_sum(gf * dy_dt) * t_max.float() * band
+        # t_max is calibration data, not trained: zero cotangent
+        return (dx, torch.zeros_like(t_max), dalpha.to(alpha.dtype), None,
+                None, None)
+
+
+def fake_quant(x, t_max, alpha, levels=127.0, alpha_min=0.5,
+               alpha_max=1.0):
+    """Fused per-channel fake-quant with the STE backward; (M, N) in x's
+    dtype.  x: (M, N) float32/bf16; t_max, alpha: one value or (N,) per
+    output channel (the paper's vector mode).  On a CUDA tensor the
+    forward is the B5 kernel, on a CPU tensor its plain version."""
+    _fq.check(x, t_max, alpha)
+    return _FakeQuant.apply(x, t_max, alpha, float(levels),
+                            float(alpha_min), float(alpha_max))

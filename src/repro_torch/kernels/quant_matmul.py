@@ -1,5 +1,6 @@
 """Wrapper of the Hopper kernel ``csrc/quant_matmul.cu``: fused activation
-quantize -> int8 x int8 -> int32 -> per-channel dequant -> bf16.
+quantize -> int8 x int8 (or packed int4) -> int32 -> per-channel dequant ->
+bf16.
 
 Replaces the TPU kernel ``repro/kernels/quant_matmul.py::quant_matmul``.
 ``launch`` takes CUDA tensors only; ``ops.quant_matmul`` routes CPU
@@ -14,20 +15,30 @@ import torch
 SOURCE = "src/repro_torch/csrc/quant_matmul.cu"
 REPLACES = "src/repro/kernels/quant_matmul.py:72"
 
-# kernel launches made by ``launch`` in this process
+# kernel launches made by ``launch`` in this process: all, and with int4
+# (packed) weights
 launches = 0
+launches_w4 = 0
 
 _FN = None
 
 
-def check(x, w_q, w_scale, act_scale):
-    """Raise on inputs the kernel (and its plain version) does not take."""
+def check(x, w_q, w_scale, act_scale, w_bits=8):
+    """Raise on inputs the kernel (and its plain version) does not take.
+    ``w_bits == 4``: w_q holds (K/2, N) bytes, nibbles packed along K."""
+    if w_bits not in (4, 8):
+        raise ValueError(f"w_bits must be 4 or 8, got {w_bits}")
     if x.ndim != 2 or w_q.ndim != 2:
         raise ValueError(f"quant_matmul takes x (M, K) and w_q (K, N), got "
                          f"{tuple(x.shape)} and {tuple(w_q.shape)}")
     m, k = x.shape
-    if w_q.shape[0] != k:
-        raise ValueError(f"x is (M, {k}) but w_q is {tuple(w_q.shape)}")
+    if w_bits == 4 and k % 2:
+        raise ValueError(f"int4 weights pack K in pairs: K={k} is odd")
+    k_rows = k // 2 if w_bits == 4 else k
+    if w_q.shape[0] != k_rows:
+        raise ValueError(f"x is (M, {k}) but w_q is {tuple(w_q.shape)} at "
+                         f"w_bits={w_bits} (int4 weights are packed to "
+                         f"({k_rows}, N))")
     if m < 1:
         raise ValueError("quant_matmul needs M >= 1")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -56,14 +67,14 @@ def _fn():
 
         p, i = ctypes.c_void_p, ctypes.c_int
         _FN = build.function("quant_matmul", "repro_quant_matmul",
-                             [p, i, p, p, p, p, i, i, i, p])
+                             [p, i, p, i, p, p, p, i, i, i, p])
     return _FN
 
 
-def launch(x, w_q, w_scale, act_scale):
+def launch(x, w_q, w_scale, act_scale, w_bits=8):
     """Run the CUDA kernel; returns (M, N) bfloat16."""
-    global launches
-    check(x, w_q, w_scale, act_scale)
+    global launches, launches_w4
+    check(x, w_q, w_scale, act_scale, w_bits)
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {x.device}")
     m, k = x.shape
@@ -72,10 +83,11 @@ def launch(x, w_q, w_scale, act_scale):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                    w_q.data_ptr(), w_scale.data_ptr(), act_scale.data_ptr(),
-                    out.data_ptr(), m, k, n, stream)
+                    w_q.data_ptr(), w_bits, w_scale.data_ptr(),
+                    act_scale.data_ptr(), out.data_ptr(), m, k, n, stream)
     if err:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    launches_w4 += w_bits == 4
     return out

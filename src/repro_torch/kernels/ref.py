@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the serving kernels (the attentions over a
-dense K/V stream or, through a block table, a paged pool, and the decode
-attention's raw flash state for the sequence-parallel merge).
+"""Plain PyTorch versions of the kernels (the int8 / int4-weight matmul,
+the attentions over a dense K/V stream or, through a block table, a paged
+pool, the decode attention's raw flash state for the sequence-parallel
+merge, and the fused fake-quantize).
 
 Counterparts of ``repro/kernels/ref.py``: ``ops`` runs them for tensors
 that lie on the CPU, and ``chip_smoke.py`` holds each CUDA kernel against
@@ -14,18 +15,23 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.packing import unpack_int4
+from repro_torch.core.quant import rdiv
 
 NEG_INF = -1e30
 
 
-def quant_matmul_ref(x, w_q, w_scale, act_scale):
+def quant_matmul_ref(x, w_q, w_scale, act_scale, w_bits=8):
     """y = int8(clip(rint(x * act_scale), ±127)) @ w_q, dequantized by the
-    per-output-channel ``w_scale`` and rounded to bf16.
+    per-output-channel ``w_scale`` and rounded to bf16.  ``w_bits == 4``:
+    w_q arrives nibble-packed along K ((K/2, N) bytes) and is unpacked
+    first.
 
     The integer product is a float64 matmul on every device: exact while
     |acc| < 2^53, i.e. for any K < 2^53 / 127^2 (CUDA has no int32
     matmul, and on the CPU it is several times faster than an int32 one).
     """
+    if w_bits == 4:
+        w_q = unpack_int4(w_q, axis=0)
     k = x.shape[-1]
     if k * 127 * 127 >= 2**53:
         raise ValueError(f"K={k} is too deep for an exact float64 product")
@@ -151,3 +157,16 @@ def prefill_attention_paged_ref(q, k_pool, v_pool, table, k_scale, v_scale,
                                  gather_pages(v_pool, table), k_scale,
                                  v_scale, q_start, kv_len, causal=causal,
                                  window=window, kv_bits=kv_bits)
+
+
+def fake_quant_ref(x, t_max, alpha, *, levels=127.0, qmin=-127.0,
+                   qmax=127.0, alpha_min=0.5, alpha_max=1.0):
+    """clip(round(x * s), qmin, qmax) / s per column, s = levels /
+    max(clip(alpha, alpha_min, alpha_max) * t_max, 1e-8), in float32 and
+    cast to x's dtype; t_max and alpha are one value or one a column
+    (the reference's ``fake_quant_ref``, with its true divisions)."""
+    a = torch.clamp(alpha.float(), alpha_min, alpha_max)
+    t_adj = torch.clamp_min(a * t_max.float(), 1e-8)
+    s = rdiv(levels, t_adj)
+    xq = torch.clamp(torch.round(x.float() * s), qmin, qmax)
+    return (xq / s).to(x.dtype)

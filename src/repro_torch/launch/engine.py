@@ -11,10 +11,14 @@
                                     cache_layout="paged", page_size=64,
                                     prefill_chunk=128)
     completions = engine.generate(requests, max_slots=8)  # scheduler.Request
+    # the params of a training checkpoint (python -m repro_torch.launch.train):
+    engine = Engine.from_checkpoint("smollm-135m", smoke=False,
+                                    checkpoint_dir="/tmp/fat_ckpt")
 
 Counterpart of ``repro/launch/engine.py``: seeded random init (or bridged
-reference params) -> §2 calibration -> optional FAT threshold fine-tune
-(fp teacher vs fake-quant student) -> int8 conversion -> one-shot or
+reference params, or a training checkpoint's) -> §2 calibration ->
+optional FAT threshold fine-tune (fp teacher vs fake-quant student) ->
+int8 conversion -> one-shot or
 chunked prefill into an int8 or packed-int4 KV cache, dense or paged ->
 greedy decode of a fixed batch (``generate_batch``) or continuous batching
 through the slot scheduler (``generate``).  Every quantized matmul and
@@ -36,6 +40,7 @@ import torch
 
 from repro_torch import data as D
 from repro_torch.bridge import tree_to
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core import api as A
 from repro_torch.launch import steps as ST
@@ -44,7 +49,6 @@ from repro_torch.models import build_model
 # options of the reference Engine that are not ported, and the ROADMAP
 # Queue A item that ports each
 _NOT_PORTED = {
-    "checkpoint_dir": "item 14 (checkpoint restore)",
     "temperature": "item 10 (sampling)",
     "top_p": "item 10 (sampling)",
     "seed": "item 10 (sampling)",
@@ -153,6 +157,7 @@ class Engine:
     @classmethod
     def from_checkpoint(cls, arch: str = "smollm-135m", *, cfg=None,
                         smoke: bool = True, params: Optional[dict] = None,
+                        checkpoint_dir: Optional[str] = None,
                         calib_batches: Optional[Sequence] = None,
                         qparams: Optional[dict] = None, init_seed: int = 0,
                         device=None, fp: bool = False, kv_int8: bool = True,
@@ -166,9 +171,12 @@ class Engine:
         ``params`` is the reference's param tree as bridged tensors
         (``bridge.params_from_jax``); without it the weights are seeded
         random init (``init_seed``, a CPU ``torch.Generator``, so every
-        device gets the same weights).  ``calib_batches`` are numpy token
-        batches ({"tokens": (B, S)}); the default is two seeded batches of
-        (4, 32) from ``repro_torch.data``.
+        device gets the same weights).  ``checkpoint_dir`` instead restores
+        the ``params`` of the newest checkpoint there (written by
+        ``python -m repro_torch.launch.train`` or by the reference's
+        driver); it does not combine with ``params``.  ``calib_batches``
+        are numpy token batches ({"tokens": (B, S)}); the default is two
+        seeded batches of (4, 32) from ``repro_torch.data``.
         ``qparams`` are finalized thresholds calibrated elsewhere (the
         reference's, through ``bridge.qparams_from_jax``): calibration is
         skipped and the weights convert against them.  ``kv_bits`` is the
@@ -190,6 +198,8 @@ class Engine:
             raise NotImplementedError(
                 "bf16 weights / bf16 KV serving are not on the ported path "
                 "(ROADMAP Queue A item 8)")
+        if params is not None and checkpoint_dir is not None:
+            raise ValueError("pass params or checkpoint_dir, not both")
         if qparams is not None and finetune_thresholds:
             raise ValueError("finetune_thresholds trains thresholds this "
                              "engine calibrates; it does not take qparams")
@@ -198,6 +208,12 @@ class Engine:
             cfg = get_config(arch, smoke=smoke)
         model = build_model(cfg)
         policy = A.QuantPolicy(kv_int8=True, kv_bits=kv_bits)
+        if checkpoint_dir is not None:
+            tree, _ = CheckpointManager(checkpoint_dir).restore_latest()
+            if tree is None:
+                raise FileNotFoundError(f"no committed checkpoint in "
+                                        f"{checkpoint_dir!r}")
+            params = tree["params"]
         if params is None:
             params = model.init(torch.Generator().manual_seed(init_seed))
         params = tree_to(params, dev)

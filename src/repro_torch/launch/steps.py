@@ -1,9 +1,10 @@
-"""Step functions: §2 calibration, the FAT threshold fine-tune (§3),
-one-shot and chunked ragged prefill, the greedy single-stream decode loop
-and the continuous-batching decode block.
+"""Step functions: §2 calibration, the FAT threshold fine-tune (§3), the
+pretrain step, one-shot and chunked ragged prefill, the greedy
+single-stream decode loop and the continuous-batching decode block.
 
 Counterparts of ``repro/launch/steps.py`` (``make_calibrate_step``,
-``make_fat_train_step``, ``finetune_thresholds``, ``make_prefill_step``,
+``make_fat_train_step``, ``finetune_thresholds``, ``make_pretrain_step``,
+``make_prefill_step``,
 ``pad_for_chunked_prefill``, ``make_slot_decode_loop``) and of the greedy
 single-stream decode loop of ``repro/launch/strategies.py``.  PyTorch runs
 eagerly, so the reference's ``lax.scan`` loops are Python loops; ``argmax``
@@ -18,7 +19,7 @@ import time
 import torch
 
 from repro_torch.core import api as A
-from repro_torch.core.distill import chunked_sq_err
+from repro_torch.core.distill import chunked_ce_loss, chunked_sq_err
 from repro_torch.optim.adam import adam_init, adam_update, cosine_restarts
 
 
@@ -27,6 +28,10 @@ class TrainHParams:
     base_lr: float = 1e-3
     anneal_period: int = 100   # cosine restart period (steps)
     weight_decay: float = 0.0
+    # MoE load-balance weight of the pretrain loss: the ported stacks are
+    # dense and have no auxiliary loss, so only this default is accepted
+    # (MoE is ROADMAP item 17)
+    aux_weight: float = 0.01
 
 
 def make_calibrate_step(model, policy: A.QuantPolicy):
@@ -146,6 +151,37 @@ def finetune_thresholds(model, policy: A.QuantPolicy, params, qparams,
             if step_seconds is not None:
                 step_seconds.append(time.perf_counter() - t0)
     return qparams, losses
+
+
+def make_pretrain_step(model, hp: TrainHParams = TrainHParams()):
+    """Plain LM training (the substrate mode): ``(params, opt_state, batch)
+    -> (params, opt_state, {"loss", "lr"})``.  Next-token CE through the
+    full-precision readout, the gradient w.r.t. every weight, and Adam with
+    ``hp.weight_decay`` at the cosine-annealed rate; ``opt_state`` is keyed
+    like ``A.flatten(params)``.  The stacks are dense, so a non-default
+    ``hp.aux_weight`` raises rather than weigh a loss that is not there."""
+    if hp.aux_weight != TrainHParams.aux_weight:
+        raise NotImplementedError(
+            "TrainHParams.aux_weight weighs the MoE load-balance loss; MoE "
+            "stacks are not ported (ROADMAP Queue A item 17)")
+    cfg = model.cfg
+
+    def pretrain_step(params, opt_state, batch):
+        flat = A.flatten(params)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
+        p = A.unflatten(leaves)
+        h = model.hidden(p, batch, None)
+        loss = chunked_ce_loss(h, batch["labels"], model.readout_fn(p),
+                               chunk=cfg.loss_chunk)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        lr = cosine_restarts(opt_state.step, hp.base_lr, hp.anneal_period)
+        new_flat, new_opt = adam_update(dict(zip(leaves, grads)), opt_state,
+                                        flat, lr,
+                                        weight_decay=hp.weight_decay)
+        return A.unflatten(new_flat), new_opt, {"loss": loss.detach(),
+                                                "lr": lr}
+
+    return pretrain_step
 
 
 def pad_for_chunked_prefill(tokens: torch.Tensor, chunk: int, lengths=None):

@@ -52,6 +52,26 @@ def cosine_restarts(step, base_lr: float, period: int, t_mult: float = 1.0,
     return base_lr * (min_frac + (1.0 - min_frac) * cos)
 
 
+def restart_boundary(step: int, period: int, t_mult: float = 1.0) -> bool:
+    """True when ``step`` begins a new annealing cycle (host-side)."""
+    if t_mult == 1.0:
+        return step > 0 and step % period == 0
+    acc = 0
+    cur = period
+    while acc < step:
+        acc += cur
+        cur = int(round(cur * t_mult))
+    return acc == step and step > 0
+
+
+def reset_moments(state: AdamState) -> AdamState:
+    """The paper's "reset of optimizer parameters" at each LR restart:
+    zero moments, the step count kept."""
+    return AdamState(step=state.step,
+                     mu={k: torch.zeros_like(v) for k, v in state.mu.items()},
+                     nu={k: torch.zeros_like(v) for k, v in state.nu.items()})
+
+
 def adam_update(grads: dict, state: AdamState, params: dict, lr, *,
                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                 weight_decay: float = 0.0, mask: dict | None = None):

@@ -47,7 +47,7 @@ class ShardedEngine(Engine):
             raise ValueError(
                 "sequence-parallel serving shards the dense cache's S axis "
                 "-- the paged pool has no contiguous shard slices (use "
-                "cache_layout='dense' or 'ring')")
+                "cache_layout='dense')")
 
     @classmethod
     def from_checkpoint(cls, arch: str = "smollm-135m", *, tp: int = 1,

@@ -25,8 +25,11 @@ def test_no_module_imports_jax_or_repro():
             "repro_torch.kernels.decode_attention_partials",
             "repro_torch.shard", "repro_torch.shard.context",
             "repro_torch.shard.partial_softmax", "repro_torch.shard.model",
-            "repro_torch.shard.engine"} <= set(mods)
-    assert len(mods) >= 29
+            "repro_torch.shard.engine", "repro_torch.checkpoint.manager",
+            "repro_torch.data.pipeline", "repro_torch.launch.train",
+            "repro_torch.kernels.fake_quant",
+            "repro_torch.configs.shapes"} <= set(mods)
+    assert len(mods) >= 47
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -57,7 +60,7 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     (dict(temperature=0.7), "item 10"),
     (dict(top_p=0.9), "item 10"),
     (dict(decode_strategy="speculative"), "item 13"),
-    (dict(checkpoint_dir="ckpt"), "item 14"),
+    (dict(journal="requests.jsonl"), "item 14"),
     (dict(fp=True), "item 8"),
 ], ids=lambda v: str(v))
 def test_unported_options_raise(kw, item):

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.packing import pack_int4
 from repro.kernels import decode_attention as jda
 from repro.kernels import prefill_attention as jpa
 from repro.kernels import quant_matmul as jqm
@@ -88,6 +89,39 @@ def test_quant_matmul_smollm_widths_where_the_tpu_kernel_asserts():
                                  jnp.asarray(w_scale), jnp.asarray(act_scale))
     np.testing.assert_array_equal(_ours_qm(x, w_q, w_scale, act_scale),
                                   _bits(want))
+
+
+def _w4_inputs(m, k, n, dtype, seed):
+    """test_int4.py's int4-weight case: weights in [-7, 7], packed along
+    K."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    if dtype == "bf16":
+        x = np.asarray(jnp.asarray(x, jnp.bfloat16))
+    w_raw = rng.integers(-7, 8, size=(k, n), dtype=np.int8)
+    w_q = np.asarray(pack_int4(jnp.asarray(w_raw), axis=0))
+    w_scale = (np.abs(rng.normal(size=(n,))) * 0.01 + 0.005).astype(
+        np.float32)
+    return x, w_raw, w_q, w_scale, np.float32(127.0 / 3.0)
+
+
+@pytest.mark.parametrize("m", [1, 16, 40])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quant_matmul_int4_weights_bit_exact_vs_pallas_interpret(m, dtype):
+    """``w_bits=4`` at test_int4.py's tiling (K=64, N=16, blocks 16 x 16 x
+    32) against the Pallas kernel, and against the int8 branch on the
+    unpacked weights."""
+    x, w_raw, w_q, w_scale, act_scale = _w4_inputs(m, 64, 16, dtype, seed=m)
+    want = jqm.quant_matmul(jnp.asarray(x), jnp.asarray(w_q),
+                            jnp.asarray(w_scale), jnp.asarray(act_scale),
+                            w_bits=4, block_m=16, block_n=16, block_k=32,
+                            interpret=True)
+    got = ops.quant_matmul(to_tensor(x), to_tensor(w_q), to_tensor(w_scale),
+                           to_tensor(np.asarray(act_scale)), w_bits=4)
+    np.testing.assert_array_equal(got.view(torch.uint16).numpy(),
+                                  _bits(want))
+    np.testing.assert_array_equal(got.view(torch.uint16).numpy(),
+                                  _ours_qm(x, w_raw, w_scale, act_scale))
 
 
 def _attn_inputs(b, sq, sk, kvh, g, d, seed, decode=False):
@@ -172,8 +206,12 @@ def test_entry_points_validate_inputs():
     one = torch.ones(())
     with pytest.raises(ValueError, match="w_scale"):
         ops.quant_matmul(x, w, torch.ones(4), one)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="packed"):
+        # w_bits=4 takes (K/2, N) packed bytes, not an int8-wide matrix
         ops.quant_matmul(x, w, torch.ones(8), one, w_bits=4)
+    with pytest.raises(ValueError, match="odd"):
+        ops.quant_matmul(torch.zeros((3, 15)), w[:7], torch.ones(8), one,
+                         w_bits=4)
 
 
 @pytest.mark.parametrize("launch", [
@@ -213,6 +251,18 @@ def test_cuda_quant_matmul_bit_exact(cuda_device, m):
     np.testing.assert_array_equal(
         tqm.launch(x, w_q, w_scale, act_scale).cpu().view(torch.uint16),
         tref.quant_matmul_ref(x, w_q, w_scale, act_scale).cpu().view(
+            torch.uint16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 2048])
+def test_cuda_quant_matmul_int4_weights_bit_exact(cuda_device, m):
+    x, _, w_q, w_scale, act_scale = [
+        to_tensor(np.asarray(a)).to(cuda_device)
+        for a in _w4_inputs(m, 576, 192, "bf16", seed=m)]
+    np.testing.assert_array_equal(
+        tqm.launch(x, w_q, w_scale, act_scale, 4).cpu().view(torch.uint16),
+        tref.quant_matmul_ref(x, w_q, w_scale, act_scale, 4).cpu().view(
             torch.uint16))
 
 
