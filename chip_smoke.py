@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py          # from the repository root
 
-1. builds the hand-written Hopper kernels (``src/repro_torch/csrc``);
+1. builds the hand-written Hopper kernels (``src/repro_torch/csrc``) and
+   checks that every instantiation of the prefill attention kernel runs on
+   the tensor cores (HMMA in its SASS);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes of the main path (quant_matmul bit for bit; the attentions with
-   an int8 and a packed int4 K/V stream), and times kernel, plain version
-   and one PyTorch library call as a yardstick;
+   an int8 and a packed int4 K/V stream; the prefill attention also at the
+   edge cases of ``PREFILL_EDGES``), and times kernel, plain version and
+   one PyTorch library call as a yardstick;
 3. drives the int8 main path at the full width of smollm-135m (30 layers,
    seeded random weights): ``Engine.from_checkpoint`` -> §2 calibration ->
    int8 conversion -> ``generate_batch`` on 4 prompts of 512 tokens with 32
@@ -24,8 +27,9 @@
 7. [kernels], paged: both attention kernels over a page pool read through
    a permuted block table (one page mapped into two rows), int8 and int4,
    pages of 16 and 64, at the scheduler's decode shape and the paged
-   path's prefill chunk: against their plain versions, and bit for bit
-   against the dense kernel on the gathered copy; timed beside it;
+   path's prefill chunk (also at D 128, bf16 and float32 q): against their
+   plain versions, and bit for bit against the dense kernel on the
+   gathered copy; timed beside it;
 8. [paged path] serves 4 x 512 prompts for 32 tokens through a paged cache
    with chunked prefill (chunks of 128, pages of 64): logits and tokens
    bit-identical to the same engine with a dense cache, every attention
@@ -79,6 +83,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -163,6 +168,46 @@ def bound_ms(nbytes, ops, rate):
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
+def prefill_variant(mangled):
+    """'q bf16, D<=64, int8, dense' from a mangled
+    ``prefill_attention_kernel<T, DCH, BITS, PAGED>`` name."""
+    m = re.search(r"prefill_attention_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d)"
+                  r"ELb(\d)E", mangled)
+    if m is None:
+        return mangled
+    t, dch, bits, paged = m.groups()
+    return (f"q {'f32' if t == 'f' else 'bf16'}, D<={64 * int(dch)}, "
+            f"int{bits}, {'paged' if paged == '1' else 'dense'}")
+
+
+def check_prefill_sass(build):
+    """B2 runs on the tensor cores: every instantiation of
+    ``prefill_attention_kernel`` holds HMMA instructions (cuobjdump -sass);
+    prints each one's registers and spills (ptxas -v) beside its count."""
+    regs, spills, cur = {}, {}, None
+    for line in build.ptxas_logs().get("prefill_attention", "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and cur:
+            spills[cur] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            regs[cur] = int(m.group(1))
+    hmma = build.sass_counts("prefill_attention", "prefill_attention_kernel",
+                             "HMMA")
+    for name, n in sorted(hmma.items(), key=lambda kv: prefill_variant(kv[0])):
+        print(f"  prefill_attention_kernel [{prefill_variant(name)}]: {n} "
+              f"HMMA, {regs.get(name, '?')} registers, spill stores "
+              f"{spills.get(name, '?')} bytes")
+    # q bf16/f32 x D <= 64/128 x int8/int4 x dense/paged
+    if len(hmma) != 16 or min(hmma.values()) == 0:
+        raise AssertionError(f"prefill_attention: expected 16 instantiations, "
+                             f"each with HMMA instructions; got {hmma}")
+
+
 def check_quant_matmul(torch, ops, ref, dev):
     """Every (K, N) of a layer at decode and prefill M; returns the JSON
     entries (one per phase, summed over the layer's seven matmuls)."""
@@ -240,6 +285,59 @@ def dequant_heads(torch, t, scale, groups, bits):
     return f.permute(0, 2, 1, 3).repeat_interleave(groups, dim=1).contiguous()
 
 
+# B2's edge cases: (q dtype, D, G, Sq, Sk, q_start, kv_len, window) at B = 4.
+# A float32 q at the main shape; D not a multiple of 16 (8, 40) and the
+# widest (128); one and 64 query heads per KV head (a query tile of 64
+# positions, and of one); Sq not a multiple of the tile; kv_len 0 and 1.
+PREFILL_EDGES = [
+    ("f32", 64, 3, 512, 512, [0, 0, 0, 0], [512] * 4, None),
+    ("bf16", 8, 3, 100, 160, [0, 60, 3, 0], [100, 160, 1, 0], None),
+    ("f32", 40, 1, 130, 130, [0, 0, 0, 0], [130, 77, 1, 0], 33),
+    ("bf16", 128, 3, 200, 264, [64, 0, 10, 0], [264, 200, 0, 1], None),
+    ("f32", 128, 64, 37, 100, [63, 0, 20, 5], [100, 37, 1, 60], 16),
+    ("bf16", 24, 64, 5, 70, [65, 0, 2, 0], [70, 5, 0, 1], 3),
+    ("f32", 8, 1, 70, 70, [0, 0, 0, 0], [70, 1, 0, 33], None),
+]
+
+
+def check_prefill_edges(torch, ops, ref, dev, bits, gen):
+    """B2 at each of ``PREFILL_EDGES`` with a ``bits``-wide K/V stream,
+    against its plain version (``ATTN_TOL``); a request with kv_len 0 must
+    come out as exact zeros."""
+    from repro_torch.core.packing import pack_int4
+
+    lv = 127 if bits == 8 else 7
+    for dtype, d, g, sq, sk, q_start, kv_len, window in PREFILL_EDGES:
+        q = torch.randn((B, sq, 3, g, d), generator=gen, device=dev)
+        if dtype == "bf16":
+            q = q.to(torch.bfloat16)
+        kv = [torch.randint(-lv, lv + 1, (B, sk, 3, d), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2)]
+        if bits == 4:
+            kv = [pack_int4(t) for t in kv]
+        scales = [torch.rand((3,), generator=gen, device=dev) * 0.05 + 0.01
+                  for _ in range(2)]
+        qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+        kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+        got = ops.prefill_attention(q, *kv, *scales, qs, kl, causal=True,
+                                    window=window, kv_bits=bits)
+        want = ref.prefill_attention_ref(q, *kv, *scales, qs, kl,
+                                         causal=True, window=window,
+                                         kv_bits=bits)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        case = (f"q {dtype}, D={d}, G={g}, Sq={sq}, Sk={sk}, q_start="
+                f"{q_start}, kv_len={kv_len}, window={window}, int{bits}")
+        print(f"  prefill_attention edge case [{case}]: max|err| {e:.2e}")
+        if not e <= ATTN_TOL * (1 + want.abs().max().item()):
+            raise AssertionError(f"prefill_attention disagrees with its plain "
+                                 f"version at [{case}]: max |diff| {e}")
+        empty = kl == 0
+        if not torch.equal(got[empty], torch.zeros_like(got[empty])):
+            raise AssertionError(f"prefill_attention [{case}]: a request "
+                                 f"with kv_len 0 is not exact zeros")
+
+
 def check_attention(torch, ops, ref, dev, bits):
     """Both attention kernels at the main path's shapes with a ``bits``-wide
     K/V stream (int8, or int4 packed two per byte): against their plain
@@ -294,6 +392,7 @@ def check_attention(torch, ops, ref, dev, bits):
                                  f"its plain version: max |diff| {e} "
                                  f"(window={window})")
         err = max(err, e)
+    check_prefill_edges(torch, ops, ref, dev, bits, gen)
     ms, call = timed(torch, lambda: ops.prefill_attention(
         q, k, v, k_scale, v_scale, zero, full, causal=True, kv_bits=bits))
     plain, _ = timed(torch, lambda: ref.prefill_attention_ref(
@@ -487,6 +586,25 @@ def check_paged_attention(torch, ops, ref, dev, bits, page):
                                                kv_bits=bits),
                ops.prefill_attention(q, kd, vd, k_scale, v_scale, qs, kl,
                                      kv_bits=bits))
+    # the same chunk at D 128 (the kernel's widest), bf16 and float32 q
+    for dtype in (torch.bfloat16, torch.float32):
+        kp8, vp8, t8 = paged_inputs(torch, dev, gen, B, cap, page, bits,
+                                    d=128)
+        t8 = t8[:, :limit // page].contiguous()
+        q8 = torch.randn((B, CHUNK, kvh, g, 128), generator=gen,
+                         device=dev).to(dtype)
+        e = held(f"prefill_attention D=128 q {dtype}",
+                 ops.prefill_attention_view(
+                     q8, KernelView(kp8, vp8, t8, page, bits), k_scale,
+                     v_scale, qs, kl),
+                 ref.prefill_attention_paged_ref(q8, kp8, vp8, t8, k_scale,
+                                                 v_scale, qs, kl,
+                                                 kv_bits=bits),
+                 ops.prefill_attention(q8, ref.gather_pages(kp8, t8),
+                                       ref.gather_pages(vp8, t8), k_scale,
+                                       v_scale, qs, kl, kv_bits=bits))
+        print(f"  prefill_attention [{tag}] D=128 q {dtype}: max|err| "
+              f"{e:.2e}; bit-identical to dense")
     ms, call = timed(torch, lambda: ops.prefill_attention_view(
         q, view, k_scale, v_scale, qs, kl))
     dense, _ = timed(torch, lambda: ops.prefill_attention(
@@ -1650,6 +1768,7 @@ def main() -> int:
                  if "registers" in line or "spill" in line}
         for line in sorted(lines):
             print(f"  ptxas {name}: {line}")
+    check_prefill_sass(build)
 
     dev = torch.device("cuda")
     t_kern = time.perf_counter()

@@ -14,64 +14,205 @@
 // (body `_kernel`, both kv_bits branches; its dense entry prefill_attention_int8
 // is the null table here, chunked prefill into a paged cache the real table).
 //
-// What bounds it on an H100: operations.  A causal prompt of S tokens does
-// ~2 * S^2 * D * H flops over 2 * S * D * KV * bits / 8 bytes of K/V, far above
-// the card's ridge (with the float32 output counted, the byte bound is close
-// at S = 512).  Design: one block per (request, KV head, query tile).  As in the
-// TPU kernel the G query heads of a KV head are flattened into rows (row r
-// sits at position q_lo + r / G), so each staged K/V tile serves G times as
-// many rows.  Per key tile of BK positions: K^T and V are staged dequant-free
-// as float (the scales fold into q and into the epilogue; an int4 scale T/7
-// folds exactly as T/127 does), each 32-bit global load carrying 4 int8 or 8
-// packed int4 values that the staging step unpacks; every thread
-// computes an 8-row x 4-key block of scores from float4 reads of q^T and K^T
-// (12 shared loads per 32 FMAs) and updates the online softmax of its rows
-// in registers, the 16 lanes of a row group meeting in shuffles (masked keys
-// take no part in the max and get p = 0, as the TPU body's re-mask does);
-// every thread keeps an 8-row x 4-column block of the output accumulator in
-// registers for P @ V.  The key-tile loop runs only from the window's
-// first live tile to min(kv_len, causal frontier): the TPU body's `live`
-// skip (the counterpart of the TPU kernel's dma_skip clamp), and an exact no-op
-// for the tiles it drops.  Paging is a template argument, so the dense variant
-// is the dense kernel as it was.  A paged key tile may span pages: each tile
-// first maps its BK key positions through the table once into shared memory,
-// and the tile walk and arithmetic are the dense ones, so a paged pool and
-// its gathered dense copy give bit-identical outputs.  Staging keeps UNR global
-// loads in flight per thread.  The math is float32 on the CUDA cores;
-// tensor-core MMA (wgmma) and TMA pipelining are later work.
+// What bounds it on an H100: bytes, at the serving shapes.  At B 4, S 512,
+// KV 3, G 3, D 64 the call must move 7.86 MB (bf16 q 2.36, int8 K/V 0.79, the
+// float32 output 4.72: 60% of it), 2.35 us at 3.35 TB/s, while its 1.21
+// GFLOP take 1.22 us on the bf16 tensor cores.  In practice it is bound by
+// latency: few blocks, and a chain of dependent phases in each.
+//
+// Design.  One block per (query tile, KV head, request).  As in the TPU
+// kernel the G query heads of a KV head are flattened into rows (row r sits
+// at position q_lo + r / G); a block holds 64 rows in 4 row groups of 16, one
+// warp each, and splits every step of keys between parts(D) warps per row
+// group (4 at D <= 64: 16 warps; 2 at D <= 128), each taking 64 keys and
+// keeping its own online-softmax state; the parts merge through shared
+// memory at the end.  Both products run on the tensor cores as
+// mma.sync.m16n8k16 with float32 sums, at the float32 reference's accuracy:
+//  - Q @ K^T in bf16.  int8 (|v| <= 127) and int4 values are exact in bf16,
+//    and so is a bf16 q, which goes in unscaled; each score is multiplied by
+//    k_scale[h] / sqrt(D) (and log2 e, for exp2) after its MMA.  A float32 q
+//    is split into hi = bf16(q) and lo = bf16(q - hi), two MMAs.  q is staged
+//    once in shared memory and read by ldmatrix.
+//  - P @ V in fp16.  V is exact in fp16; the probabilities stay in registers
+//    (the m16n8 C fragments of two neighbouring key tiles are the m16n8k16 A
+//    fragment) and are split into hi = fp16(p) and lo = fp16(p - hi), two
+//    MMAs: one 16-bit P would put 2^-12 (fp16) or 2^-9 (bf16) relative error
+//    into every weight, above the tolerance.
+//  - The online softmax runs in registers: a lane holds 2 rows x 16 keys of
+//    its 64; a row's max and sum meet across the 4 lanes of a quad.  Masked
+//    keys get -inf, so p = 0 and they take no part in the max (a 64-key
+//    block every row of the warp sees skips the mask); a row with no visible
+//    key keeps m = -1e30, l = 0 and ends as zeros.
+//  - Staging: the raw int8 (or packed int4) bytes of step t + 1 are copied by
+//    cp.async (zero-filled past the live range) while step t computes; once
+//    they land, each thread widens its share to a bf16 K tile and an fp16 V
+//    tile (float or fp16 bit tricks, no I2F) in the second of two tile
+//    buffers, right after issuing step t's P @ V MMAs.  Tile rows are padded
+//    by 16 bytes, so ldmatrix reads K (plain) and V (.trans) without bank
+//    conflicts.  D that is not a multiple of 16 is zero-padded in K and q.
+//  - The key walk runs only from the window's first live tile to
+//    min(kv_len, causal frontier): the TPU body's `live` skip.  A warp whose
+//    16 rows see none of its 64 keys skips them, an exact no-op.  Query tiles
+//    run longest first.
+//  - Paged (a template argument): each step maps its key positions through
+//    the table once, into shared memory, and the copy reads each key's row
+//    from its pool row; the walk and the arithmetic are the dense ones, so a
+//    paged pool and its gathered dense copy give bit-identical outputs.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int NT = 128;        // threads per block: 8 row groups x 16 column groups
-constexpr int BK = 64;         // keys per tile
-constexpr int ROWS = 64;       // flattened (position, group) rows per block
-constexpr int LDS = BK + 4;    // score row stride (floats)
-constexpr int UNR = 8;         // global loads in flight per thread while staging
+constexpr int ROW_WARPS = 4;           // row groups of 16 rows
+constexpr int ROWS = 16 * ROW_WARPS;   // flattened (position, group) rows per block
+constexpr int HALF = 64;               // keys a warp takes of each step
+constexpr int NKT = HALF / 8;          // n8 key tiles of a warp's scores
+// warps a row group's keys are split over: 4 at D <= 64 (16 warps and 128
+// registers a thread), 2 at D <= 128 (whose accumulator needs more)
+__host__ __device__ constexpr int parts(int dch) { return dch == 1 ? 4 : 2; }
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// element e of a 32-bit word of K/V storage: 4 int8 values (BITS 8) or 8
-// packed int4 values, element e in bits [4e, 4e + 4) (BITS 4), sign-extended
-template <int BITS>
-__device__ __forceinline__ float word_elem(int w, int e) {
-  if constexpr (BITS == 8) {
-    return static_cast<float>(static_cast<int8_t>(w >> (8 * e)));
-  } else {
-    return static_cast<float>(static_cast<int>(static_cast<unsigned>(w) << (28 - 4 * e)) >> 28);
-  }
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// pool row that holds key position t of request b in a paged cache: the
-// block table's page (clamped into the pool), offset t % P
-__device__ __forceinline__ size_t paged_row(const int* table, int b, int t, int NB,
-                                            int P, int n_pages) {
-  const int page = min(max(table[b * NB + t / P], 0), n_pages - 1);
-  return (size_t)page * P + t % P;
+// hi = bf16(x0, x1); lo = bf16 of what hi leaves out
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
+  const __nv_bfloat162 hh = __halves2bfloat162(h0, h1);
+  hi = *reinterpret_cast<const uint32_t*>(&hh);
+  lo = pack_bf16(x0 - __bfloat162float(h0), x1 - __bfloat162float(h1));
+}
+
+__device__ __forceinline__ __half2 u32_as_half2(uint32_t x) {
+  return *reinterpret_cast<const __half2*>(&x);
+}
+__device__ __forceinline__ uint32_t half2_as_u32(__half2 x) {
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// the bf16 pair (a, b) of two floats that bf16 holds exactly: their upper halves
+__device__ __forceinline__ uint32_t upper_halves(float a, float b) {
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+}
+
+// 4 int8 values (a 32-bit word) -> 4 bf16: each value + 128 as the low
+// byte of the float 2^23 + (v + 128), which is exact
+__device__ __forceinline__ uint2 widen_int8(uint32_t w) {
+  w ^= 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __int_as_float(static_cast<int>(__byte_perm(w, 0x4B000000u, 0x7650u | i))) -
+           8388736.0f;
+  return make_uint2(upper_halves(f[0], f[1]), upper_halves(f[2], f[3]));
+}
+
+// 8 packed int4 values (element e in bits [4e, 4e + 4)) -> 8 bf16, the same
+// way: the float 2^23 + (v + 8)
+__device__ __forceinline__ uint4 widen_int4(uint32_t w) {
+  w ^= 0x88888888u;
+  float f[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    f[e] = __int_as_float(static_cast<int>(((w >> (4 * e)) & 0xFu) | 0x4B000000u)) -
+           8388616.0f;
+  return make_uint4(upper_halves(f[0], f[1]), upper_halves(f[2], f[3]),
+                    upper_halves(f[4], f[5]), upper_halves(f[6], f[7]));
+}
+
+// 4 int8 values -> 4 fp16: each value + 128 as the low byte of the fp16
+// 1024 + (v + 128), minus 1152 (exact)
+__device__ __forceinline__ uint2 widen_int8_f16(uint32_t w) {
+  w ^= 0x80808080u;
+  const __half2 bias = __float2half2_rn(1152.0f);
+  __half2 a = u32_as_half2(__byte_perm(w, 0x64646464u, 0x5140u));
+  __half2 b = u32_as_half2(__byte_perm(w, 0x64646464u, 0x5342u));
+  return make_uint2(half2_as_u32(__hsub2(a, bias)), half2_as_u32(__hsub2(b, bias)));
+}
+
+// 8 packed int4 values -> 8 fp16: nibbles e and e + 4 (16 bits apart) into
+// the fp16 pair (1024 + v + 8), minus 1032, then the pairs regrouped in order
+__device__ __forceinline__ uint4 widen_int4_f16(uint32_t w) {
+  w ^= 0x88888888u;
+  const __half2 bias = __float2half2_rn(1032.0f);
+  uint32_t p[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    p[e] = half2_as_u32(
+        __hsub2(u32_as_half2(((w >> (4 * e)) & 0x000F000Fu) | 0x64006400u), bias));
+  return make_uint4(__byte_perm(p[0], p[1], 0x5410u), __byte_perm(p[2], p[3], 0x5410u),
+                    __byte_perm(p[0], p[1], 0x7632u), __byte_perm(p[2], p[3], 0x7632u));
+}
+
+// hi = fp16(x0, x1); lo = fp16 of what hi leaves out
+__device__ __forceinline__ void split_f16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __half2 h = __floats2half2_rn(x0, x1);
+  const float2 back = __half22float2(h);
+  hi = half2_as_u32(h);
+  lo = half2_as_u32(__floats2half2_rn(x0 - back.x, x1 - back.y));
+}
+
+// 2^x (ex2.approx: relative error ~2^-22; -inf -> 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d += a @ b: m16n8k16, bf16 operands (F16: fp16), float32 accumulate
+template <bool F16 = false>
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  if constexpr (F16)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// cw bytes (4, 8 or 16) global -> shared; n == 0 zero-fills without reading
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int cw, int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (cw == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(n)
+                 : "memory");
+  else if (cw == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+                 "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+                 "r"(n)
+                 : "memory");
 }
 
 __device__ __forceinline__ bool visible(int kp, int qp, int klen, int causal,
@@ -82,11 +223,18 @@ __device__ __forceinline__ bool visible(int kp, int qp, int klen, int causal,
   return ok;
 }
 
-// DCH: 64-wide column chunks of the head dim held per thread (D <= 64 * DCH);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// DCH: 64-wide chunks of the head dim held in registers (D <= 64 * DCH);
 // BITS: storage width of K/V (8, or 4 packed); PAGED: K/V are page pools read
 // through the block table (else a dense (B, Sk, KV, D) stream).
 template <typename T, int DCH, int BITS, bool PAGED>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(32 * ROW_WARPS * parts(DCH), 1)
 prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                          const int8_t* __restrict__ v,
                          const float* __restrict__ k_scale,
@@ -95,237 +243,388 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                          const int* __restrict__ kv_len,
                          const int* __restrict__ table, float* __restrict__ out,
                          int Sq, int Sk, int KV, int G, int D, int BQ,
-                         int causal, int window, int NB, int P, int n_pages) {
-  extern __shared__ __align__(16) float smem[];
+                         int causal, int window, int NB, int P, int n_pages,
+                         int cw) {
+  constexpr bool QF32 = std::is_same<T, float>::value;
+  constexpr int PARTS = parts(DCH);
+  constexpr int NT = 32 * ROW_WARPS * PARTS;  // threads
+  constexpr int BK = HALF * PARTS;            // keys staged per step
+  constexpr int KSM = 4 * DCH;  // 16-wide k-steps of the score MMA, at most
+  constexpr int NDM = 8 * DCH;  // n8 column tiles of the output, at most
+  constexpr int NV = 4 * NDM + 4;  // floats a lane hands over in the merge
+  extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
-  const int qt = blockIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wr = warp % ROW_WARPS;   // row group: rows 16 wr .. 16 wr + 15
+  const int kh = warp / ROW_WARPS;   // key part: keys 64 kh .. of each step
+  const int g = lane >> 2, tig = lane & 3;  // quad (row) and lane in the quad
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest key walks start first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int rows = BQ * G;
-  constexpr int EPW = 32 / BITS;  // K/V elements per 32-bit word
-  const int DP = D * BITS / 8;    // storage bytes per K/V row (D % 8 == 0)
-  const int words = DP / 4;
+  const int D16 = (D + 15) & ~15;  // D zero-padded to the MMA's k-step
+  const int KS = D16 / 16;
+  const int ND = D / 8;
+  const int LDT = D16 + 8;         // 16-bit tile row stride: 16 bytes of padding
+  const int DP = D * BITS / 8;     // storage bytes per K/V row (D % 8 == 0)
 
-  size_t* krow = reinterpret_cast<size_t*>(smem);  // [BK] pool rows (PAGED)
-  float* qT = smem + (PAGED ? 2 * BK : 0);        // [D][ROWS] q^T * k_scale / sqrt(D)
-  float* kT = qT + D * ROWS;     // [D][BK] K tile^T
-  float* vt = kT + D * BK;       // [BK][D] V tile
-  float* sc = vt + BK * D;       // [ROWS][LDS] scores, then probabilities
-  float* m = sc + ROWS * LDS;    // [ROWS] running max
-  float* l = m + ROWS;           // [ROWS] running normalizer
+  uint16_t* ks = reinterpret_cast<uint16_t*>(smem);  // [2][BK][LDT] K, bf16
+  uint16_t* vs = ks + 2 * BK * LDT;                  // [2][BK][LDT] V, fp16
+  uint16_t* qs = vs + 2 * BK * LDT;  // [ROWS][LDT] q, bf16 (hi), then [ROWS][LDT] lo
+  int8_t* kraw = reinterpret_cast<int8_t*>(qs + (QF32 ? 2 : 1) * ROWS * LDT);  // [BK][DP]
+  int8_t* vraw = kraw + BK * DP;                                // [BK][DP] raw V
+  size_t* koff = reinterpret_cast<size_t*>(vraw + BK * DP);     // [BK] (PAGED)
 
   const int i0 = qt * BQ;                  // first query index of the tile
+  // q, unscaled, to registers first (its loads depend on nothing before
+  // them), then to shared memory as bf16 pairs (a float32 q as hi and lo
+  // parts) once the first K/V copy is issued; zeros past D and the real rows
+  constexpr int QU = ROWS * 32 * DCH / NT;  // pairs a thread stages, at most
+  const int pairs = D16 / 2;
+  uint32_t qv[QU];
+  float qf[QF32 ? QU : 1][2];
+  int qat[QU];  // the pair's offset in qs, or -1
+#pragma unroll
+  for (int u = 0; u < QU; ++u) {
+    const int i = tid + u * NT;
+    const int r = i / pairs, c = 2 * (i - r * pairs);
+    const int qi = i0 + r / G;
+    const bool ok = r < rows && c < D && qi < Sq;
+    qat[u] = r < ROWS ? r * LDT + c : -1;
+    const T* p = q + ((((size_t)b * Sq + qi) * KV + h) * G + r % G) * D + c;
+    if constexpr (QF32) {
+      qf[u][0] = ok ? p[0] : 0.f;
+      qf[u][1] = ok ? p[1] : 0.f;
+    } else {
+      qv[u] = ok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+    }
+  }
   const int n_pos = min(BQ, Sq - i0);      // real query positions in the tile
   const int q_lo = q_start[b] + i0;        // absolute position of row 0
   const int q_hi = q_lo + n_pos - 1;
   const int klen = min(kv_len[b], Sk);
 
-  const float c = k_scale[h] * (1.0f / sqrtf(static_cast<float>(D)));
-  for (int base = tid; base < ROWS * D; base += UNR * NT) {
-    float val[UNR];
-#pragma unroll
-    for (int u = 0; u < UNR; ++u) {
-      const int i = base + u * NT;
-      const int r = i % ROWS, d = i / ROWS;
-      const int qi = i0 + r / G;
-      val[u] = 0.f;
-      if (i < ROWS * D && r < rows && qi < Sq)
-        val[u] = to_f32(q[((((size_t)b * Sq + qi) * KV + h) * G + r % G) * D + d]) * c;
-    }
-#pragma unroll
-    for (int u = 0; u < UNR; ++u) {
-      const int i = base + u * NT;
-      if (i < ROWS * D) qT[i] = val[u];  // i = d * ROWS + r
-    }
-  }
-  for (int r = tid; r < ROWS; r += NT) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-  }
-
   int k_end = klen;
   if (causal) k_end = min(k_end, q_hi + 1);
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q_lo - (window - 1));
+  const int k_first = (k_begin / HALF) * HALF;
 
-  const int tc = tid % 16;  // key columns tc*4.. (scores), head-dim columns (P @ V)
-  const int tr = tid / 16;  // rows tr*8..tr*8+7
-  const int* k32 = reinterpret_cast<const int*>(k);
-  const int* v32 = reinterpret_cast<const int*>(v);
-  const int n_words = BK * words;
-  int qp[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) qp[i] = q_lo + (tr * 8 + i) / G;
-  float acc[DCH][8][4];
-#pragma unroll
-  for (int ch = 0; ch < DCH; ++ch)
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[ch][i][j] = 0.f;
-  __syncthreads();
+  // keys of the step at k0 that are staged: whole parts up to k_end (a part
+  // is read whole; its keys past k_end are masked, and zeros)
+  auto staged = [&](int k0) { return min(BK, k_end - k0 + HALF - 1) / HALF * HALF; };
+  // this step's pool rows, as byte offsets of (row, h)
+  auto map_rows = [&](int k0) {
+    if (tid < BK && k0 + tid < k_end) {
+      const int t = k0 + tid;
+      const int page = min(max(table[b * NB + t / P], 0), n_pages - 1);
+      koff[tid] = (((size_t)page * P + t % P) * KV + h) * DP;
+    }
+  };
+  // cp.async of the raw K and V bytes of the step at k0, cw bytes a copy
+  // (zero-filled past k_end)
+  const int chunks = DP / cw;
+  auto issue = [&](int k0) {
+    const int n = staged(k0) * chunks;
+    for (int i = tid; i < n; i += NT) {
+      const int t = i / chunks, x = i - t * chunks;
+      const bool ok = k0 + t < k_end;
+      size_t off = (size_t)x * cw;
+      if (ok) off += PAGED ? koff[t] : (((size_t)b * Sk + k0 + t) * KV + h) * DP;
+      cp_async(kraw + t * DP + x * cw, k + off, cw, ok ? cw : 0);
+      cp_async(vraw + t * DP + x * cw, v + off, cw, ok ? cw : 0);
+    }
+    cp_async_commit();
+  };
 
-  for (int k0 = (k_begin / BK) * BK; k0 < k_end; k0 += BK) {
+  // the first step's copy is in flight while q is staged
+  if (k_first < k_end) {
     if constexpr (PAGED) {
-      // this tile's pool rows (the last tile's readers passed the barrier
-      // that ends its P @ V phase)
-      if (tid < BK && k0 + tid < Sk) krow[tid] = paged_row(table, b, k0 + tid, NB, P, n_pages);
+      map_rows(k_first);
       __syncthreads();
     }
-    // stage K^T and V as float, UNR loads of each in flight per thread
-    // (positions past Sk are zeros, masked below), unpacking each word's EPW
-    // values.  K goes key-fastest and V word-fastest, so both shared stores
-    // are free of bank conflicts.
-    for (int base = tid; base < n_words; base += UNR * NT) {
-      int kw[UNR], vw[UNR];
+    issue(k_first);
+  }
+
+  // q to shared memory
 #pragma unroll
-      for (int u = 0; u < UNR; ++u) {
-        const int i = base + u * NT;
-        const int tk = i % BK, wk = i / BK;
-        const int tv = i / words, wv = i % words;
-        kw[u] = 0;
-        vw[u] = 0;
-        if (i < n_words && k0 + tk < Sk) {
-          const size_t row = PAGED ? krow[tk] : (size_t)b * Sk + k0 + tk;
-          kw[u] = k32[((row * KV + h) * DP) / 4 + wk];
-        }
-        if (i < n_words && k0 + tv < Sk) {
-          const size_t row = PAGED ? krow[tv] : (size_t)b * Sk + k0 + tv;
-          vw[u] = v32[((row * KV + h) * DP) / 4 + wv];
-        }
+  for (int u = 0; u < QU; ++u) {
+    if (qat[u] < 0) continue;
+    if constexpr (QF32) {
+      uint32_t lo;
+      split_bf16(qf[u][0], qf[u][1], qv[u], lo);
+      *reinterpret_cast<uint32_t*>(qs + ROWS * LDT + qat[u]) = lo;
+    }
+    *reinterpret_cast<uint32_t*>(qs + qat[u]) = qv[u];
+  }
+
+  // scores in log2 units: exp(x) == exp2(x * log2(e))
+  const float c2 = k_scale[h] * (1.0f / sqrtf(static_cast<float>(D))) * 1.4426950408889634f;
+  // this lane's rows r0 = 16 wr + g and r0 + 8 and their positions, and the
+  // positions of the warp's rows
+  const int r0 = wr * 16 + g;
+  const int qp[2] = {q_lo + r0 / G, q_lo + (r0 + 8) / G};
+  const int w_lo = q_lo + (wr * 16) / G;
+  const int w_hi = q_lo + min(wr * 16 + 15, rows - 1) / G;
+
+  float acc[NDM][4];
+#pragma unroll
+  for (int n = 0; n < NDM; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[n][j] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  // widen the raw step at k0 into a bf16 K tile and an fp16 V tile, one
+  // 32-bit word (4 int8 or 8 int4 values) at a time, each thread's shared
+  // loads in flight together; columns D..D16 are zeros
+  auto widen = [&](int k0, uint16_t* kdst, uint16_t* vdst) {
+    constexpr int EPW = 32 / BITS;                 // values per word
+    constexpr int CU = BK * 2 * DCH * BITS / NT;   // words a thread widens, at most
+    const int words = DP / 4;
+    const int n = staged(k0);
+    uint32_t kw[CU], vw[CU];
+    int at[CU];  // the word's first column in the tiles, or -1
+    int t = tid / words, w = tid % words;
+    const int dt = NT / words, dw = NT % words;
+#pragma unroll
+    for (int u = 0; u < CU; ++u) {
+      at[u] = t < n ? t * LDT + EPW * w : -1;
+      if (t < n) {
+        kw[u] = *reinterpret_cast<const uint32_t*>(kraw + t * DP + 4 * w);
+        vw[u] = *reinterpret_cast<const uint32_t*>(vraw + t * DP + 4 * w);
       }
-#pragma unroll
-      for (int u = 0; u < UNR; ++u) {
-        const int i = base + u * NT;
-        if (i >= n_words) continue;
-        const int tk = i % BK, wk = i / BK;
-        const int tv = i / words, wv = i % words;
-#pragma unroll
-        for (int e = 0; e < EPW; ++e)
-          kT[(EPW * wk + e) * BK + tk] = word_elem<BITS>(kw[u], e);
-#pragma unroll
-        for (int j = 0; j < EPW / 4; ++j)
-          reinterpret_cast<float4*>(vt + tv * D)[wv * (EPW / 4) + j] = make_float4(
-              word_elem<BITS>(vw[u], 4 * j), word_elem<BITS>(vw[u], 4 * j + 1),
-              word_elem<BITS>(vw[u], 4 * j + 2), word_elem<BITS>(vw[u], 4 * j + 3));
+      t += dt;
+      w += dw;
+      if (w >= words) {
+        w -= words;
+        t += 1;
       }
     }
-    __syncthreads();
-
-    // scores: rows tr*8..+7 x keys k0 + tc*4..+3, then the online-softmax
-    // update in registers: the 16 lanes that share a row group (one half of
-    // a warp) reduce each row's max and sum with shuffles
-    {
-      float s[8][4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float4 qa = *reinterpret_cast<const float4*>(qT + d * ROWS + tr * 8);
-        const float4 qb = *reinterpret_cast<const float4*>(qT + d * ROWS + tr * 8 + 4);
-        const float4 kk = *reinterpret_cast<const float4*>(kT + d * BK + tc * 4);
-        const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
-        const float kv[4] = {kk.x, kk.y, kk.z, kk.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];
+    for (int u = 0; u < CU; ++u) {
+      if (at[u] < 0) continue;
+      if constexpr (BITS == 8) {
+        *reinterpret_cast<uint2*>(kdst + at[u]) = widen_int8(kw[u]);
+        *reinterpret_cast<uint2*>(vdst + at[u]) = widen_int8_f16(vw[u]);
+      } else {
+        *reinterpret_cast<uint4*>(kdst + at[u]) = widen_int4(kw[u]);
+        *reinterpret_cast<uint4*>(vdst + at[u]) = widen_int4_f16(vw[u]);
       }
-      uint32_t vis = 0;  // bit 4 * i + j: key k0 + tc*4 + j visible to row i
-      float m_prev[8], m_new[8];
+    }
+    if (D16 != D) {
+      for (int r = tid; r < n; r += NT) {
+        *reinterpret_cast<uint4*>(kdst + r * LDT + D) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(vdst + r * LDT + D) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  };
+
+  // prologue: the first step's tiles, the second step's copy in flight
+  if (k_first < k_end) {
+    cp_async_wait_all();
+    __syncthreads();
+    widen(k_first, ks, vs);
+    if constexpr (PAGED) {
+      if (k_first + BK < k_end) map_rows(k_first + BK);
+    }
+    __syncthreads();
+    if (k_first + BK < k_end) issue(k_first + BK);
+  }
+
+  // step at k0: its tiles are in buffer `buf`, the next step's raw
+  // bytes in flight.  Scores and softmax; then, once the raw bytes have
+  // landed, this step's P @ V MMAs go out and the next step is widened into
+  // the other buffer while they run.
+  for (int k0 = k_first, buf = 0; k0 < k_end; k0 += BK, buf ^= 1) {
+    const int k_next = k0 + BK;
+    // this warp's 64 keys; a warp whose rows see none of them skips them
+    // (an exact no-op)
+    const int ka = k0 + HALF * kh;
+    const bool live = !(ka >= k_end || (causal && ka > w_hi) ||
+                        (window > 0 && ka + HALF - 1 < w_lo - (window - 1)));
+    const uint16_t* kt = ks + (buf * BK + HALF * kh) * LDT;
+    const uint16_t* vt = vs + (buf * BK + HALF * kh) * LDT;
+    float s[NKT][4];
+    if (live) {
+      // scores: 16 rows x 64 keys, C fragment of key tile n: s[n][0..1] row r0,
+      // keys ka + 8 n + 2 tig + {0, 1}; s[n][2..3] row r0 + 8
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        m_prev[i] = m[tr * 8 + i];
-        float mx = NEG_INF;
+      for (int n = 0; n < NKT; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[n][j] = 0.f;
+#pragma unroll
+      for (int st = 0; st < KSM; ++st) {
+        if (st < KS) {
+          // q's A fragment: rows 16 wr + (lane & 15), columns 16 st + 8 (lane >> 4)
+          uint32_t qa[4];
+          const uint16_t* qrow = qs + (wr * 16 + (lane & 15)) * LDT + 16 * st + 8 * (lane >> 4);
+          ldsm_x4(qa, qrow);
+          uint32_t ql[4];
+          if constexpr (QF32) ldsm_x4(ql, qrow + ROWS * LDT);
+#pragma unroll
+          for (int np = 0; np < NKT / 2; ++np) {
+            // B fragments of key tiles 2 np, 2 np + 1 (K rows are B's columns)
+            uint32_t bf[4];
+            const int mi = lane >> 3;
+            ldsm_x4(bf, kt + (16 * np + 8 * (mi >> 1) + (lane & 7)) * LDT + 16 * st + 8 * (mi & 1));
+            mma(s[2 * np], qa, bf[0], bf[1]);
+            mma(s[2 * np + 1], qa, bf[2], bf[3]);
+            if constexpr (QF32) {
+              mma(s[2 * np], ql, bf[0], bf[1]);
+              mma(s[2 * np + 1], ql, bf[2], bf[3]);
+            }
+          }
+        }
+      }
+
+      // online softmax in registers; the 4 lanes of a quad share the rows.
+      // Masked keys get -inf (p = 0); a block of keys every row of the warp
+      // sees needs no mask.
+      const bool whole = ka + HALF - 1 < klen && (!causal || ka + HALF - 1 <= w_lo) &&
+                         (window <= 0 || ka >= w_hi - (window - 1));
+      const float minus_inf = __int_as_float(0xff800000);
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int n = 0; n < NKT; ++n) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          if (visible(k0 + tc * 4 + j, qp[i], klen, causal, window)) {
-            vis |= 1u << (4 * i + j);
-            mx = fmaxf(mx, s[i][j]);
-          }
+          const int kp = ka + 8 * n + 2 * tig + (j & 1);
+          s[n][j] *= c2;
+          if (!whole && !visible(kp, qp[j >> 1], klen, causal, window)) s[n][j] = minus_inf;
+          mx[j >> 1] = fmaxf(mx[j >> 1], s[n][j]);
         }
-        m_new[i] = mx;
+      }
+      float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        mx[i] = fmaxf(m[i], mx[i]);
+        corr[i] = exp2_approx(m[i] - mx[i]);
+        m[i] = mx[i];
       }
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
+      for (int n = 0; n < NKT; ++n) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], o));
-      float sum[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        m_new[i] = fmaxf(m_prev[i], m_new[i]);
-        float4 pv;
-        // masked keys get p = 0 (an all-masked row has m_new == NEG_INF)
-        pv.x = (vis >> (4 * i + 0)) & 1u ? expf(s[i][0] - m_new[i]) : 0.f;
-        pv.y = (vis >> (4 * i + 1)) & 1u ? expf(s[i][1] - m_new[i]) : 0.f;
-        pv.z = (vis >> (4 * i + 2)) & 1u ? expf(s[i][2] - m_new[i]) : 0.f;
-        pv.w = (vis >> (4 * i + 3)) & 1u ? expf(s[i][3] - m_new[i]) : 0.f;
-        sum[i] = (pv.x + pv.y) + (pv.z + pv.w);
-        *reinterpret_cast<float4*>(sc + (tr * 8 + i) * LDS + tc * 4) = pv;
+        for (int j = 0; j < 4; ++j) {
+          // masked keys are -inf: p = 0, also in a row that sees no key yet
+          s[n][j] = exp2_approx(s[n][j] - m[j >> 1]);
+          sum[j >> 1] += s[n][j];
+        }
       }
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+        l[i] = l[i] * corr[i] + sum[i];
+      }
+      // no rescale while the warp's row maxima stand still
+      if (!__all_sync(0xffffffffu, corr[0] == 1.f && corr[1] == 1.f)) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], o);
+        for (int n = 0; n < NDM; ++n)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float corr = expf(m_prev[i] - m_new[i]);
+          for (int j = 0; j < 4; ++j) acc[n][j] *= corr[j >> 1];
+      }
+    }
+    if (k_next < k_end) {
+      cp_async_wait_all();
+      // the next step's raw bytes have landed for every thread
+      __syncthreads();
+    }
+    if (live) {
+      // acc += P @ V: key tiles 2 kk, 2 kk + 1 form the A fragment of the
+      // 16-key step kk, split into hi + lo fp16
 #pragma unroll
-        for (int ch = 0; ch < DCH; ++ch)
+      for (int kk = 0; kk < NKT / 2; ++kk) {
+        uint32_t ph[4], pl[4];
+        split_f16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+        split_f16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+        split_f16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+        split_f16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[ch][i][j] *= corr;
-        if (tc == 0) {
-          const int r = tr * 8 + i;
-          l[r] = l[r] * corr + sum[i];
-          m[r] = m_new[i];
+        for (int dp = 0; dp < NDM / 2; ++dp) {
+          if (2 * dp < ND) {
+            // B fragments of column tiles 2 dp, 2 dp + 1 (V rows are B's rows)
+            uint32_t bf[4];
+            const int mi = lane >> 3;
+            ldsm_x4_trans(bf, vt + (16 * kk + 8 * (mi & 1) + (lane & 7)) * LDT + 16 * dp +
+                                  8 * (mi >> 1));
+            mma<true>(acc[2 * dp], ph, bf[0], bf[1]);
+            mma<true>(acc[2 * dp], pl, bf[0], bf[1]);
+            if (2 * dp + 1 < ND) {
+              mma<true>(acc[2 * dp + 1], ph, bf[2], bf[3]);
+              mma<true>(acc[2 * dp + 1], pl, bf[2], bf[3]);
+            }
+          }
         }
       }
     }
-    // P rows tr*8..+7 were written by this half-warp only
-    __syncwarp();
-
-    // acc += P @ V for rows tr*8..+7, columns ch*64 + tc*4..+3
-    for (int t = 0; t < BK; ++t) {
-      float p[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) p[i] = sc[(tr * 8 + i) * LDS + t];
-#pragma unroll
-      for (int ch = 0; ch < DCH; ++ch) {
-        const int d = ch * 64 + tc * 4;
-        if (d < D) {
-          const float4 vv = *reinterpret_cast<const float4*>(vt + t * D + d);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            acc[ch][i][0] += p[i] * vv.x;
-            acc[ch][i][1] += p[i] * vv.y;
-            acc[ch][i][2] += p[i] * vv.z;
-            acc[ch][i][3] += p[i] * vv.w;
-          }
-        }
+    if (k_next < k_end) {
+      widen(k_next, ks + (buf ^ 1) * BK * LDT, vs + (buf ^ 1) * BK * LDT);
+      if constexpr (PAGED) {
+        if (k_next + BK < k_end) map_rows(k_next + BK);
       }
     }
+    // the next step's tiles (and pool rows) are in place, this step's are
+    // read, and the raw buffer is free
     __syncthreads();
+    if (k_next + BK < k_end) issue(k_next + BK);
+  }
+
+  // merge the key parts: the warps of parts 1.. hand their state to the
+  // warp of part 0 of their row group through shared memory (the tiles'
+  // space), lane by lane
+  __syncthreads();
+  // part p's hand-over: [ROW_WARPS][NV][32] floats at (p - 1) * ROW_WARPS * NV * 32
+  float* xfer = reinterpret_cast<float*>(smem) + wr * NV * 32 + lane;
+  if (kh > 0) {
+    xfer += (kh - 1) * ROW_WARPS * NV * 32;
+#pragma unroll
+    for (int n = 0; n < NDM; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xfer[(4 * n + j) * 32] = acc[n][j];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      xfer[(4 * NDM + i) * 32] = m[i];
+      xfer[(4 * NDM + 2 + i) * 32] = l[i];
+    }
+  }
+  __syncthreads();
+  if (kh > 0) return;
+#pragma unroll
+  for (int part = 1; part < PARTS; ++part) {
+    const float* x = xfer + (part - 1) * ROW_WARPS * NV * 32;
+    float a0[2], a1[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m1 = x[(4 * NDM + i) * 32];
+      const float mt = fmaxf(m[i], m1);
+      a0[i] = exp2_approx(m[i] - mt);
+      a1[i] = exp2_approx(m1 - mt);
+      l[i] = l[i] * a0[i] + x[(4 * NDM + 2 + i) * 32] * a1[i];
+      m[i] = mt;
+    }
+#pragma unroll
+    for (int n = 0; n < NDM; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[n][j] = acc[n][j] * a0[j >> 1] + x[(4 * n + j) * 32] * a1[j >> 1];
   }
 
   // epilogue: value dequant once, normalize (l == 0 -> exact zeros)
   const float vsc = v_scale[h];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = tr * 8 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
     const int qi = i0 + r / G;
     if (r >= rows || qi >= Sq) continue;
-    const float den = fmaxf(l[r], 1e-30f);
+    const float f = vsc / fmaxf(l[i], 1e-30f);
     float* orow = out + ((((size_t)b * Sq + qi) * KV + h) * G + r % G) * D;
 #pragma unroll
-    for (int ch = 0; ch < DCH; ++ch) {
-      const int d = ch * 64 + tc * 4;
-      if (d < D) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) orow[d + j] = acc[ch][i][j] * vsc / den;
-      }
+    for (int n = 0; n < NDM; ++n) {
+      if (n < ND)
+        *reinterpret_cast<float2*>(orow + 8 * n + 2 * tig) =
+            make_float2(acc[n][2 * i] * f, acc[n][2 * i + 1] * f);
     }
   }
 }
@@ -341,10 +640,22 @@ int launch_variant(const void* q, const void* k, const void* v, const void* k_sc
                    const void* v_scale, const void* q_start, const void* kv_len,
                    void* out, int B, int Sq, int Sk, int KV, int G, int D, int causal,
                    int window, Paging pg, cudaStream_t stream) {
+  constexpr int PARTS = parts(DCH);
+  constexpr int BK = HALF * PARTS;
   const int BQ = ROWS / G > 0 ? ROWS / G : 1;
-  const size_t smem = sizeof(float) *
-      ((size_t)D * ROWS + (size_t)D * BK + (size_t)BK * D + ROWS * LDS + 2 * ROWS) +
-      (PAGED ? sizeof(size_t) * BK : 0);
+  const int LDT = ((D + 15) & ~15) + 8;
+  const int DP = D * BITS / 8;
+  // the widest cp.async that the row width and both base addresses allow
+  const uintptr_t al = reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+                       static_cast<uintptr_t>(DP);
+  const int cw = al % 16 == 0 ? 16 : al % 8 == 0 ? 8 : 4;
+  const int q_tiles = std::is_same<T, float>::value ? 2 : 1;
+  const size_t tiles = sizeof(uint16_t) * (4 * BK + q_tiles * ROWS) * LDT +
+                       2 * (size_t)BK * DP + (PAGED ? sizeof(size_t) * BK : 0);
+  // the merge's hand-over, (PARTS - 1) x [ROW_WARPS][NV][32] floats, reuses
+  // that space
+  const size_t xfer = sizeof(float) * (PARTS - 1) * ROW_WARPS * (32 * DCH + 4) * 32;
+  const size_t smem = tiles > xfer ? tiles : xfer;
   auto kern = prefill_attention_kernel<T, DCH, BITS, PAGED>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -352,12 +663,12 @@ int launch_variant(const void* q, const void* k, const void* v, const void* k_sc
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid((Sq + BQ - 1) / BQ, KV, B);
-  kern<<<grid, NT, smem, stream>>>(
+  kern<<<grid, 32 * ROW_WARPS * PARTS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const int8_t*>(k),
       static_cast<const int8_t*>(v), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(q_start),
       static_cast<const int*>(kv_len), pg.table, static_cast<float*>(out), Sq, Sk, KV,
-      G, D, BQ, causal, window, pg.NB, pg.P, pg.n_pages);
+      G, D, BQ, causal, window, pg.NB, pg.P, pg.n_pages, cw);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -101,3 +102,21 @@ def function(lib: str, symbol: str, argtypes: list):
 def ptxas_logs() -> dict:
     """``nvcc -Xptxas=-v`` output of the sources built in this process."""
     return dict(_Loaded.logs)
+
+
+def sass_counts(lib: str, kernel: str, opcode: str) -> dict:
+    """{mangled function name: count of ``opcode`` instructions} for each
+    function of library ``lib`` whose name holds ``kernel``, from
+    ``cuobjdump -sass`` of the built library (the toolkit beside nvcc)."""
+    load()
+    so = _target(lib, build_dir())
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for part in text.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        if kernel in name:
+            counts[name.strip()] = len(re.findall(
+                rf"\*/\s+(?:@!?U?P\w+\s+)?{opcode}[.\s]", body))
+    return counts

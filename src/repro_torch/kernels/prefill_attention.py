@@ -21,7 +21,7 @@ SOURCE = "src/repro_torch/csrc/prefill_attention.cu"
 REPLACES = "src/repro/kernels/prefill_attention.py:192"
 
 G_MAX = 64      # query heads per KV head: one row tile holds 64 rows
-D_MAX = 128
+D_MAX = 128     # the output accumulator lives in registers: D/2 floats a lane
 
 # kernel launches made by ``launch`` in this process: all, at int4, and
 # over a paged pool

@@ -283,3 +283,72 @@ def test_cuda_attention_kernels_match_plain(cuda_device):
         tda.launch(qd, k, v, ks, vs, pos).cpu(),
         tref.decode_attention_ref(qd, k, v, ks, vs, pos).cpu(),
         rtol=0, atol=1e-4)
+
+
+def _prefill_case(dev, b, sq, sk, g, d, q_dtype, bits, seed):
+    """Seeded prefill inputs on ``dev``: q in ``q_dtype``, int8 or packed
+    int4 K/V, chip_smoke.py's scale ranges."""
+    from repro_torch.core.packing import pack_int4 as tpack
+
+    rng = np.random.default_rng(seed)
+    lv = 127 if bits == 8 else 7
+    q = torch.from_numpy(rng.normal(size=(b, sq, 3, g, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.integers(-lv, lv + 1, (b, sk, 3, d),
+                                          dtype=np.int8)) for _ in range(2))
+    if bits == 4:
+        k, v = tpack(k), tpack(v)
+    ks, vs = (torch.from_numpy((rng.random(3) * 0.05 + 0.01).astype(
+        np.float32)) for _ in range(2))
+    return [t.to(dev) for t in (q.to(q_dtype), k, v, ks, vs)]
+
+
+# (q dtype, D, G, Sq, Sk, q_start, kv_len, window, K/V bits): the edge cases
+# of the tensor-core prefill kernel, a small grid of chip_smoke.py's
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,d,g,sq,sk,q_start,kv_len,window,bits", [
+    (torch.float32, 64, 3, 70, 100, [0, 30], [70, 100], None, 8),
+    (torch.bfloat16, 8, 3, 33, 50, [0, 17], [50, 0], None, 4),
+    (torch.float32, 40, 1, 65, 65, [0, 0], [65, 1], 20, 8),
+    (torch.bfloat16, 128, 64, 5, 40, [35, 0], [40, 5], None, 4),
+    (torch.bfloat16, 24, 1, 100, 100, [0, 0], [100, 37], 9, 8),
+], ids=["f32-d64", "d8-kvlen0-int4", "d40-g1-window", "d128-g64-int4",
+        "d24-window"])
+def test_cuda_prefill_attention_edge_cases(cuda_device, q_dtype, d, g, sq, sk,
+                                           q_start, kv_len, window, bits):
+    """Within chip_smoke.py's ATTN_TOL, 1e-4 x (1 + max |out|); a request
+    with kv_len 0 is exact zeros."""
+    dev = cuda_device
+    q, k, v, ks, vs = _prefill_case(dev, 2, sq, sk, g, d, q_dtype, bits, 9)
+    qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    got = tpa.launch(q, k, v, ks, vs, qs, kl, window=window,
+                     kv_bits=bits).cpu()
+    want = tref.prefill_attention_ref(q, k, v, ks, vs, qs, kl, window=window,
+                                      kv_bits=bits).cpu()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 * (1 + want.abs().max().item()))
+    empty = torch.tensor(kv_len) == 0
+    assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_prefill_paged_bit_identical_d128(cuda_device, bits):
+    """A paged pool read through a permuted table gives the dense kernel's
+    bits on the gathered copy, at the kernel's widest D."""
+    dev = cuda_device
+    page, nb = 16, 6
+    q, k, v, ks, vs = _prefill_case(dev, 2, 40, nb * page, 3, 128,
+                                    torch.bfloat16, bits, 10)
+    k_pool = k.reshape((2 * nb, page) + tuple(k.shape[2:]))
+    v_pool = v.reshape((2 * nb, page) + tuple(v.shape[2:]))
+    table = torch.from_numpy(np.random.default_rng(11).permutation(
+        2 * nb)[:2 * nb].reshape(2, nb).astype(np.int32)).to(dev)
+    qs = torch.tensor([56, 0], dtype=torch.int32, device=dev)
+    kl = torch.tensor([96, 40], dtype=torch.int32, device=dev)
+    got = tpa.launch(q, k_pool, v_pool, ks, vs, qs, kl, kv_bits=bits,
+                     table=table)
+    dense = tpa.launch(q, tref.gather_pages(k_pool, table).contiguous(),
+                       tref.gather_pages(v_pool, table).contiguous(), ks, vs,
+                       qs, kl, kv_bits=bits)
+    assert torch.equal(got, dense)
