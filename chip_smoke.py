@@ -9,8 +9,10 @@
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes of the main path (quant_matmul bit for bit; the attentions with
    an int8 and a packed int4 K/V stream; the prefill attention also at the
-   edge cases of ``PREFILL_EDGES``), and times kernel, plain version and
-   one PyTorch library call as a yardstick;
+   edge cases of ``PREFILL_EDGES``; the decode attention also at the chunk
+   boundaries of its sequence split, and bit for bit against the same rows
+   in a cache of 1024 positions), and times kernel, plain version and one
+   PyTorch library call as a yardstick;
 3. drives the int8 main path at the full width of smollm-135m (30 layers,
    seeded random weights): ``Engine.from_checkpoint`` -> §2 calibration ->
    int8 conversion -> ``generate_batch`` on 4 prompts of 512 tokens with 32
@@ -338,6 +340,76 @@ def check_prefill_edges(torch, ops, ref, dev, bits, gen):
                                  f"with kv_len 0 is not exact zeros")
 
 
+# decode attention (B1, and B4 through its partials epilogue) edge cases:
+# (q dtype, D, G, S, cur_pos of the 4 rows, layout).  "slice" reads B4 from
+# positions [100, 100 + S) of a longer cache in place (B1 from a copy);
+# "paged:P" reads both through a permuted block table of pages of P.  S
+# past 16 chunks of 64 takes the merge's batches.
+DECODE_EDGES = [
+    ("f32", 64, 3, 640, [528, 0, 64, 640], "dense"),
+    ("bf16", 8, 1, 100, [100, 1, 0, 63], "dense"),
+    ("f32", 24, 7, 200, [200, 129, 0, 65], "dense"),
+    ("bf16", 40, 2, 300, [300, 150, 0, 7], "slice"),
+    ("f32", 64, 4, 384, [384, 200, 0, 5], "paged:24"),
+    ("bf16", 128, 16, 1100, [1100, 1024, 1025, 0], "dense"),
+    ("bf16", 128, 3, 2048, [2048, 1500, 17, 0], "paged:64"),
+]
+
+
+def check_decode_edges(torch, ops, ref, dev, bits, gen):
+    """B1 and B4 at each of ``DECODE_EDGES`` with a ``bits``-wide K/V
+    stream, against their plain versions (``ATTN_TOL``); a row with
+    cur_pos 0 must come out as exact zeros (B1) and (0, -1e30, 0) (B4)."""
+    from repro_torch.cache import KernelView
+    from repro_torch.core.packing import pack_int4
+
+    lv = 127 if bits == 8 else 7
+    for dtype, d, g, s, cur, layout in DECODE_EDGES:
+        q = torch.randn((B, 3, g, d), generator=gen, device=dev)
+        if dtype == "bf16":
+            q = q.to(torch.bfloat16)
+        scales = [torch.rand((3,), generator=gen, device=dev) * 0.05 + 0.01
+                  for _ in range(2)]
+        pos = torch.tensor(cur, dtype=torch.int32, device=dev)
+        if layout.startswith("paged"):
+            page = int(layout.split(":")[1])
+            kp, vp, table = paged_inputs(torch, dev, gen, B, s, page, bits,
+                                         d=d)
+            view = KernelView(kp, vp, table, page, bits)
+            got = ops.decode_attention_view(q, view, *scales, pos)
+            parts = ops.decode_attention_partials_view(q, view, *scales, pos)
+            k, v = ref.gather_pages(kp, table), ref.gather_pages(vp, table)
+        else:
+            lo = 100 if layout == "slice" else 0
+            kv = [torch.randint(-lv, lv + 1, (B, s + lo + 37, 3, d),
+                                generator=gen, device=dev, dtype=torch.int8)
+                  for _ in range(2)]
+            if bits == 4:
+                kv = [pack_int4(t) for t in kv]
+            kl, vl = (t[:, lo:lo + s] for t in kv)
+            k, v = kl.contiguous(), vl.contiguous()
+            got = ops.decode_attention(q, k, v, *scales, pos, kv_bits=bits)
+            parts = ops.decode_attention_partials(q, kl, vl, *scales, pos,
+                                                  kv_bits=bits)
+        want = ref.decode_attention_ref(q, k, v, *scales, pos, kv_bits=bits)
+        case = (f"q {dtype}, D={d}, G={g}, S={s}, cur_pos={cur}, {layout}, "
+                f"int{bits}")
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        if not e <= ATTN_TOL * (1 + want.abs().max().item()):
+            raise AssertionError(f"decode_attention disagrees with its plain "
+                                 f"version at [{case}]: max |diff| {e}")
+        if not torch.equal(got[pos == 0], torch.zeros_like(got[pos == 0])):
+            raise AssertionError(f"decode_attention [{case}]: a row with "
+                                 "cur_pos 0 is not exact zeros")
+        ep = partials_close(
+            torch, f"decode_attention_partials [{case}]", parts,
+            ref.decode_attention_partials_ref(q, k, v, *scales, pos, bits),
+            pos)
+        print(f"  decode_attention edge case [{case}]: max|err| {e:.2e}, "
+              f"partials {ep:.2e}")
+
+
 def check_attention(torch, ops, ref, dev, bits):
     """Both attention kernels at the main path's shapes with a ``bits``-wide
     K/V stream (int8, or int4 packed two per byte): against their plain
@@ -345,6 +417,7 @@ def check_attention(torch, ops, ref, dev, bits):
     import torch.nn.functional as F
 
     from repro_torch.core.packing import pack_int4
+    from repro_torch.kernels.decode_attention import SPLIT
 
     kvh, g, d = 3, 3, 64
     lv = 127 if bits == 8 else 7
@@ -419,26 +492,42 @@ def check_attention(torch, ops, ref, dev, bits):
         "call_ms": call, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
         "library_ms": lib})
 
-    # -- decode: mid-generation position, then ragged positions incl. 0 ----
+    # -- decode: mid-generation position, then ragged positions incl. 0 and
+    # the chunk boundaries; then the same rows in a longer cache ------------
     cur = PROMPT + GEN // 2
     qd = torch.randn((B, kvh, g, d), generator=gen, device=dev).to(
         torch.bfloat16)
     kc = tiles((B, cache_len, kvh, d))
     vc = tiles((B, cache_len, kvh, d))
     pos = torch.full((B,), cur, dtype=torch.int32, device=dev)
-    err = merge_err = 0.0
-    for cur_pos in (pos, torch.tensor([0, 1, 300, cache_len],
-                                      dtype=torch.int32, device=dev)):
+    cases = [pos] + [torch.tensor(c, dtype=torch.int32, device=dev) for c in (
+        [0, 1, 300, cache_len], [SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT],
+        [cache_len - SPLIT, cache_len - 1, 2 * SPLIT - 1, 2 * SPLIT + 1])]
+    long_len = 1024
+    kl, vl = (torch.cat([t, tiles((B, long_len - cache_len, kvh, d))], 1)
+              for t in (kc, vc))
+    err = 0.0
+    for cur_pos in cases:
         got = ops.decode_attention(qd, kc, vc, k_scale, v_scale, cur_pos,
                                    kv_bits=bits)
         want = ref.decode_attention_ref(qd, kc, vc, k_scale, v_scale,
                                         cur_pos, kv_bits=bits)
+        longer = ops.decode_attention(qd, kl, vl, k_scale, v_scale, cur_pos,
+                                      kv_bits=bits)
         torch.cuda.synchronize()
         e = (got - want).abs().max().item()
         if not e <= ATTN_TOL * (1 + want.abs().max().item()):
             raise AssertionError(f"decode_attention ({tag}) disagrees with "
-                                 f"its plain version: max |diff| {e}")
+                                 f"its plain version at cur_pos "
+                                 f"{cur_pos.tolist()}: max |diff| {e}")
+        if not torch.equal(got, longer):
+            raise AssertionError(
+                f"decode_attention ({tag}) at cur_pos {cur_pos.tolist()} "
+                f"differs between caches of {cache_len} and {long_len} "
+                f"positions holding the same rows: max |diff| "
+                f"{(got - longer).abs().max().item()}")
         err = max(err, e)
+    check_decode_edges(torch, ops, ref, dev, bits, gen)
     ms, call = timed(torch, lambda: ops.decode_attention(
         qd, kc, vc, k_scale, v_scale, pos, kv_bits=bits))
     plain, _ = timed(torch, lambda: ref.decode_attention_ref(
@@ -453,8 +542,10 @@ def check_attention(torch, ops, ref, dev, bits):
     print(f"  decode_attention [{tag}] B={B} cache={cache_len} cur_pos={cur}: "
           f"{ms * 1e3:.1f} us (per call {call * 1e3:.1f} us)  plain "
           f"{plain * 1e3:.1f} us  bound {bnd * 1e3:.2f} us  sdpa "
-          f"{lib * 1e3:.1f} us  max|err| {err:.2e} (tolerance {ATTN_TOL} x "
-          f"(1 + max|out|))")
+          f"{lib * 1e3:.1f} us  max|err| {err:.2e} over {len(cases)} cur_pos "
+          f"cases incl. the chunk boundaries of {SPLIT} (tolerance "
+          f"{ATTN_TOL} x (1 + max|out|)); caches of {cache_len} and "
+          f"{long_len} bit-identical")
     entries.append({
         "name": f"decode_attention[{tag} K/V, B={B}, cur_pos={cur}, one "
                 f"layer]",
@@ -462,7 +553,7 @@ def check_attention(torch, ops, ref, dev, bits):
         "replaces": "src/repro/kernels/decode_attention.py:172",
         "kernel": "decode_attention" + variant, "max_abs_err": err, "ms": ms,
         "call_ms": call, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-        "library_ms": lib})
+        "library_ms": lib, "split": SPLIT})
     return entries
 
 
@@ -498,6 +589,7 @@ def check_paged_attention(torch, ops, ref, dev, bits, page):
     import torch.nn.functional as F
 
     from repro_torch.cache import KernelView
+    from repro_torch.kernels.decode_attention import SPLIT
 
     kvh, g, d = 3, 3, 64
     gen = torch.Generator(device=dev).manual_seed(7 + bits + page)
@@ -567,7 +659,8 @@ def check_paged_attention(torch, ops, ref, dev, bits, page):
         "kernel": "decode_attention" + variant, "max_abs_err": err, "ms": ms,
         "call_ms": call, "dense_ms": dense, "plain_ms": plain,
         "bound_ms": bnd, "bound_by": by, "library_ms": lib,
-        "library": "SDPA on the gathered dequantized bf16, masked"})
+        "library": "SDPA on the gathered dequantized bf16, masked",
+        "split": SPLIT})
 
     # -- prefill: one 128-query chunk of the paged path -----------------------
     q0, limit = PROMPT - CHUNK, PROMPT
@@ -675,6 +768,7 @@ def check_partials(torch, ops, ref, dev, bits):
     the 4 shards' partials equals the decode kernel over the whole cache.
     Timed as one layer's 4 launches; returns the JSON entry."""
     from repro_torch.core.packing import pack_int4
+    from repro_torch.kernels.decode_attention import SPLIT
     from repro_torch.shard.partial_softmax import sp_partial_combine
 
     kvh, g, d = 3, 3, 64
@@ -777,7 +871,7 @@ def check_partials(torch, ops, ref, dev, bits):
         "call_ms": call, "plain_ms": plain_ms, "bound_ms": bnd,
         "bound_by": by, "library_ms": None,
         "library": "none: no single PyTorch call returns the unnormalized "
-                   "(acc, m, l)"}
+                   "(acc, m, l)", "split": SPLIT}
 
 
 def check_paged_partials(torch, ops, ref, dev, bits):
@@ -786,6 +880,7 @@ def check_paged_partials(torch, ops, ref, dev, bits):
     bit for bit against the dense partials on the gathered copy; timed.
     Returns the JSON entry."""
     from repro_torch.cache import KernelView
+    from repro_torch.kernels.decode_attention import SPLIT
 
     kvh, g, d = 3, 3, 64
     gen = torch.Generator(device=dev).manual_seed(23 + bits)
@@ -841,7 +936,7 @@ def check_paged_partials(torch, ops, ref, dev, bits):
         "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
         "library_ms": None,
         "library": "none: no single PyTorch call returns the unnormalized "
-                   "(acc, m, l)"}
+                   "(acc, m, l)", "split": SPLIT}
 
 
 def forced_logits(torch, A, engine, prompts, tokens, n):
@@ -899,6 +994,11 @@ def breakdown(torch, engine, prompts, card, label="breakdown"):
         top = sorted(rows, key=lambda r: -r[1])[:6]
         print(f"  top device time per {title}: " + "; ".join(
             f"{k[:48]} {t / div / 1e3:.3f} ms" for k, t in top))
+    attn = [(t, c) for k, (t, c) in dec.items()
+            if "decode_attention_kernel" in k]
+    print(f"  decode attention kernel (B1/B4) per decode step: "
+          f"{sum(t for t, _ in attn) / steps / 1e3:.3f} ms in "
+          f"{sum(c for _, c in attn) / steps:.0f} launches")
 
 
 def drive_main_path(torch, ops, engine, prompts, label, kind, card,

@@ -8,7 +8,8 @@
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py::decode_attention_partials_tiles
 // (its dense entry decode_attention_partials is a shard's slice read in
 // place through the row pitch; a paged pool goes through the block table).
-// What bounds it: the shard's K/V bytes, as for the decode kernel.
+// What bounds it: latency, as for the decode kernel; the shard's chunks run
+// as blocks of their own and merge in chunk order within the launch.
 #include "decode_attention.cuh"
 
 // The arguments of repro_decode_attention, plus: pitch, the positions
@@ -18,11 +19,13 @@
 extern "C" int repro_decode_attention_partials(
     const void* q, int q_bf16, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* cur_pos, void* out, void* m_out, void* l_out,
-    int B, int S, int pitch, int KV, int G, int D, int bits, const void* table,
-    int NB, int P, int n_pages, void* stream) {
+    void* scratch, void* counters, int B, int S, int pitch, int KV, int G, int D,
+    int bits, int split, const void* table, int NB, int P, int n_pages,
+    void* stream) {
   const Paging pg{static_cast<const int*>(table), NB, P, n_pages};
   const Outputs o{static_cast<float*>(out), static_cast<float*>(m_out),
-                  static_cast<float*>(l_out), pitch};
+                  static_cast<float*>(l_out), pitch, static_cast<float*>(scratch),
+                  static_cast<unsigned*>(counters)};
   return run_decode_attention<true>(q, q_bf16, k, v, k_scale, v_scale, cur_pos, B, S,
-                                    KV, G, D, bits, pg, o, stream);
+                                    KV, G, D, bits, split, pg, o, stream);
 }

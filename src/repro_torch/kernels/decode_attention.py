@@ -9,6 +9,25 @@ dense entry ``decode_attention_int8`` and with the paged layout's table.
 ``ops.decode_attention_view`` route CPU tensors to the plain versions.
 The same kernel body with the partials epilogue (the sequence-parallel
 path's raw flash state) is ``decode_attention_partials``.
+
+Design (the source note of ``csrc/decode_attention.cuh`` has it in full):
+the sequence axis is cut into chunks of ``SPLIT`` positions, fixed by
+position alone, and each block of the grid (KV, B, ceil(S / SPLIT)) takes
+one chunk of one (request, KV head).  A chunk past ``cur_pos`` leaves at
+once.  Each live chunk writes its raw flash state (acc, m, l) to a scratch
+buffer and bumps a per-(request, KV head) arrival counter; the last chunk
+to arrive merges the row's chunks in chunk order, so the result does not
+depend on the order the blocks ran in, nor on S, the page size or the
+grid.  A row whose live positions fit in one chunk skips the scratch.  The
+kernel is bound by latency (its K/V bytes take well under a microsecond at
+the serving shapes): the chunks spread a row over many SMs and cut each
+block's chain of memory round trips and barriers to one pass.
+
+One launch a call and one allocation (the output and the scratch
+together); the counters are a per-device int32 buffer allocated once
+(``counters``), which every launch leaves zeroed.  They assume that the
+launches that share them run one after another, on one stream.  The
+wrapper never reads ``cur_pos`` on the host.
 """
 from __future__ import annotations
 
@@ -21,6 +40,7 @@ REPLACES = "src/repro/kernels/decode_attention.py:172"
 
 G_MAX = 16      # query heads per KV head the kernel instantiates for
 D_MAX = 128
+SPLIT = 64      # positions per chunk: the kernel's SPLIT (it checks)
 
 # kernel launches made by ``launch`` in this process: all, at int4, and
 # over a paged pool
@@ -29,6 +49,25 @@ launches_int4 = 0
 launches_paged = 0
 
 _FN = None
+_COUNTERS: dict = {}
+
+
+def counters(device, n):
+    """The device's int32 arrival counters of the chunk merge, at least
+    ``n`` of them: allocated zeroed on first use (or when a launch needs
+    more), shared by the decode and partials kernels, and left at 0 by
+    every launch."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
+def scratch_numel(b, kvh, s, g, d):
+    """Floats of the chunk states a launch over ``s`` positions needs:
+    (B, KV, ceil(s / SPLIT), G * (D + 2))."""
+    return b * kvh * -(-s // SPLIT) * g * (d + 2)
 
 
 def check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
@@ -120,8 +159,8 @@ def _fn():
 
         p, i = ctypes.c_void_p, ctypes.c_int
         _FN = build.function("decode_attention", "repro_decode_attention",
-                             [p, i, p, p, p, p, p, p, i, i, i, i, i, i,
-                              p, i, i, i, p])
+                             [p, i, p, p, p, p, p, p, p, p, i, i, i, i,
+                              i, i, i, p, i, i, i, p])
     return _FN
 
 
@@ -144,14 +183,19 @@ def launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {q.device}")
     b, kvh, g, d = q.shape
     s, paging = geometry(k_cache, table)
-    out = torch.empty((b, kvh, g, d), dtype=torch.float32, device=q.device)
+    n_out = b * kvh * g * d
+    buf = torch.empty(n_out + scratch_numel(b, kvh, s, g, d),
+                      dtype=torch.float32, device=q.device)
+    out = buf[:n_out].view(b, kvh, g, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()(q.data_ptr(), int(q.dtype == torch.bfloat16),
                     k_cache.data_ptr(), v_cache.data_ptr(),
                     k_scale.data_ptr(), v_scale.data_ptr(),
-                    cur_pos.data_ptr(), out.data_ptr(), b, s, kvh, g, d,
-                    kv_bits, *paging, stream)
+                    cur_pos.data_ptr(), out.data_ptr(),
+                    buf[n_out:].data_ptr(),
+                    counters(q.device, b * kvh).data_ptr(), b, s, kvh, g, d,
+                    kv_bits, SPLIT, *paging, stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")

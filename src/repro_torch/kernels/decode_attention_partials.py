@@ -9,11 +9,13 @@ sequence-parallel merge
 Replaces the TPU kernel
 ``repro/kernels/decode_attention.py::decode_attention_partials_tiles``,
 through its dense entry ``decode_attention_partials`` (one shard's slice of
-the cache) and with a paged table.  It is the decode kernel's tile walk and
-online softmax with another epilogue, so what bounds it is the same: the
-shard's K/V bytes.  A dense slice ``k[:, lo:hi]`` of the global cache is
-read in place through the row pitch, never copied.  ``launch`` takes CUDA
-tensors only; ``ops.decode_attention_partials`` and
+the cache) and with a paged table.  It is the decode kernel's chunks and
+in-order merge with another epilogue (``decode_attention``'s docstring has
+the design), so what bounds it is the same: latency.  The output, the
+running max and normalizer and the chunk scratch are one allocation; the
+arrival counters are the decode kernel's.  A dense slice ``k[:, lo:hi]``
+of the global cache is read in place through the row pitch, never copied.
+``launch`` takes CUDA tensors only; ``ops.decode_attention_partials`` and
 ``ops.decode_attention_partials_view`` route CPU tensors to the plain
 versions.
 """
@@ -54,8 +56,8 @@ def _fn():
         p, i = ctypes.c_void_p, ctypes.c_int
         _FN = build.function("decode_attention_partials",
                              "repro_decode_attention_partials",
-                             [p, i, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                              i, i, p, i, i, i, p])
+                             [p, i, p, p, p, p, p, p, p, p, p, p, i, i, i,
+                              i, i, i, i, i, p, i, i, i, p])
     return _FN
 
 
@@ -71,16 +73,20 @@ def launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
     b, kvh, g, d = q.shape
     s, paging = _da.geometry(k_cache, table)
     pitch = _da.row_pitch(k_cache) if table is None else s
-    acc = torch.empty((b, kvh, g, d), dtype=torch.float32, device=q.device)
-    m, l = torch.empty((2, b, kvh, g), dtype=torch.float32, device=q.device)
+    n_acc, n_ml = b * kvh * g * d, b * kvh * g
+    buf = torch.empty(n_acc + 2 * n_ml + _da.scratch_numel(b, kvh, s, g, d),
+                      dtype=torch.float32, device=q.device)
+    acc = buf[:n_acc].view(b, kvh, g, d)
+    m, l = buf[n_acc:n_acc + 2 * n_ml].view(2, b, kvh, g)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()(q.data_ptr(), int(q.dtype == torch.bfloat16),
                     k_cache.data_ptr(), v_cache.data_ptr(),
                     k_scale.data_ptr(), v_scale.data_ptr(),
                     cur_pos.data_ptr(), acc.data_ptr(), m.data_ptr(),
-                    l.data_ptr(), b, s, pitch, kvh, g, d, kv_bits, *paging,
-                    stream)
+                    l.data_ptr(), buf[n_acc + 2 * n_ml:].data_ptr(),
+                    _da.counters(q.device, b * kvh).data_ptr(), b, s, pitch,
+                    kvh, g, d, kv_bits, _da.SPLIT, *paging, stream)
     if err:
         raise RuntimeError(f"decode_attention_partials kernel launch failed: "
                            f"CUDA error {err}")
