@@ -5,10 +5,15 @@
 
 1. builds the hand-written Hopper kernels (``src/repro_torch/csrc``) and
    checks that every instantiation of the prefill attention kernel runs on
-   the tensor cores (HMMA in its SASS);
+   the tensor cores (HMMA in its SASS) and every instantiation of
+   quant_matmul's prefill kernel on the int8 tensor cores (IMMA), none of
+   them spilling registers;
 2. holds each kernel against its plain PyTorch version on the card at the
-   shapes of the main path (quant_matmul bit for bit; the attentions with
-   an int8 and a packed int4 K/V stream; the prefill attention also at the
+   shapes of the main path (quant_matmul bit for bit at decode, admission,
+   paged-chunk and prefill rows, and at the edge cases of ``QMM_EDGES``:
+   rows 9-129, ragged K and N, .5 ties, the clip, |acc| > 2^24; the
+   attentions with an int8 and a packed int4 K/V stream; the prefill
+   attention also at the
    edge cases of ``PREFILL_EDGES``; the decode attention also at the chunk
    boundaries of its sequence split, and bit for bit against the same rows
    in a cache of 1024 positions), and times kernel, plain version and one
@@ -65,8 +70,8 @@
    and torch.fake_quantize_per_channel_affine;
 15. [kernels], quant_matmul int4 weights: B3 at ``w_bits=4`` bit for bit
    against its plain version and the int8 branch on the unpacked weights
-   at smollm-135m's widths, M = 4, 2048 and 37; timed beside the int8
-   branch and torch._int_mm;
+   at smollm-135m's widths, M = 4, 128, 512, 2048 and 37; timed beside the
+   int8 branch and torch._int_mm;
 16. [train fat_qat] ``repro_torch.launch.train.main`` at the full width of
    smollm-135m: 3 steps that checkpoint, the same command to 6 steps
    (resumes from step 3), and an uninterrupted 6-step run: the resumed
@@ -182,12 +187,11 @@ def prefill_variant(mangled):
             f"int{bits}, {'paged' if paged == '1' else 'dense'}")
 
 
-def check_prefill_sass(build):
-    """B2 runs on the tensor cores: every instantiation of
-    ``prefill_attention_kernel`` holds HMMA instructions (cuobjdump -sass);
-    prints each one's registers and spills (ptxas -v) beside its count."""
+def ptxas_resources(build, lib):
+    """{mangled kernel name: (registers, spill store bytes)} from the
+    ``-Xptxas=-v`` log of library ``lib``."""
     regs, spills, cur = {}, {}, None
-    for line in build.ptxas_logs().get("prefill_attention", "").splitlines():
+    for line in build.ptxas_logs().get(lib, "").splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
@@ -198,27 +202,128 @@ def check_prefill_sass(build):
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
             regs[cur] = int(m.group(1))
+    return {name: (regs.get(name, "?"), spills.get(name, "?"))
+            for name in set(regs) | set(spills)}
+
+
+def check_prefill_sass(build):
+    """B2 runs on the tensor cores: every instantiation of
+    ``prefill_attention_kernel`` holds HMMA instructions (cuobjdump -sass);
+    prints each one's registers and spills (ptxas -v) beside its count."""
+    res = ptxas_resources(build, "prefill_attention")
     hmma = build.sass_counts("prefill_attention", "prefill_attention_kernel",
                              "HMMA")
     for name, n in sorted(hmma.items(), key=lambda kv: prefill_variant(kv[0])):
+        regs, spill = res.get(name, ("?", "?"))
         print(f"  prefill_attention_kernel [{prefill_variant(name)}]: {n} "
-              f"HMMA, {regs.get(name, '?')} registers, spill stores "
-              f"{spills.get(name, '?')} bytes")
+              f"HMMA, {regs} registers, spill stores {spill} bytes")
     # q bf16/f32 x D <= 64/128 x int8/int4 x dense/paged
     if len(hmma) != 16 or min(hmma.values()) == 0:
         raise AssertionError(f"prefill_attention: expected 16 instantiations, "
                              f"each with HMMA instructions; got {hmma}")
 
 
+def qmm_variant(mangled):
+    """'x bf16, int8 weights, 64 x 128, 16-byte staging' from a mangled
+    ``quant_matmul_mma_kernel<T, WB, BM, BN, MT, VEC>`` name."""
+    m = re.search(r"quant_matmul_mma_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d+)"
+                  r"ELi(\d+)ELi(\d)ELb(\d)E", mangled)
+    if m is None:
+        return mangled
+    t, wb, bm, bn, _, vec = m.groups()
+    return (f"x {'f32' if t == 'f' else 'bf16'}, int{wb} weights, {bm} x "
+            f"{bn}, {'16-byte' if vec == '1' else 'narrow'} staging")
+
+
+def check_quant_matmul_sass(build):
+    """B3's prefill kernel runs on the int8 tensor cores: every
+    instantiation of ``quant_matmul_mma_kernel`` holds IMMA instructions
+    (cuobjdump -sass) and spills no register (ptxas -v)."""
+    res = ptxas_resources(build, "quant_matmul")
+    imma = build.sass_counts("quant_matmul", "quant_matmul_mma_kernel",
+                             "IMMA")
+    for name, n in sorted(imma.items(), key=lambda kv: qmm_variant(kv[0])):
+        regs, spill = res.get(name, ("?", "?"))
+        print(f"  quant_matmul_mma_kernel [{qmm_variant(name)}]: {n} IMMA, "
+              f"{regs} registers, spill stores {spill} bytes")
+    # x f32/bf16 x int8/int4 weights x 3 tiles and the narrow variant
+    if len(imma) != 16 or min(imma.values()) == 0:
+        raise AssertionError(f"quant_matmul: expected 16 instantiations of "
+                             f"quant_matmul_mma_kernel, each with IMMA "
+                             f"instructions; got {imma}")
+    spilled = {qmm_variant(k): v[1] for k, v in res.items()
+               if "quant_matmul_mma_kernel" in k and v[1] != 0}
+    if spilled:
+        raise AssertionError(f"quant_matmul_mma_kernel spills: {spilled}")
+
+
+# B3's edge cases, each bit for bit against the plain version at float32
+# and bf16 x: (M, K, N, w_bits, x): rows the decode kernel does not take
+# (its M <= 8), ragged K and N (odd K at int8 only: int4 packs K in pairs),
+# x on exact .5 ties of x * act_scale and past the clip ("ties"), and all
+# +-127 at K = 1536, where |acc| > 2^24 ("sat")
+QMM_EDGES = ([(m, 576, 192, wb, "ties") for m in (9, 15, 16, 17, 37, 129)
+              for wb in (8, 4)]
+             + [(37, k, n, wb, "ties") for k, n in ((576, 200), (100, 36))
+                for wb in (8, 4)]
+             + [(37, 33, 17, 8, "ties"), (37, 34, 17, 4, "ties")]
+             + [(64, 1536, 576, wb, "sat") for wb in (8, 4)])
+
+
+def check_quant_matmul_edges(torch, ops, ref, dev):
+    """Every ``QMM_EDGES`` case, float32 and bf16 x, bit for bit."""
+    from repro_torch.core.packing import pack_int4
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for m, k, n, wb, kind in QMM_EDGES:
+        hi = 8 if wb == 4 else 128
+        if kind == "ties":   # x * 4 = i + .5 (exact in bf16 for |i| < 128)
+            x = (torch.randint(-200, 200, (m, k), generator=gen,
+                               device=dev) + 0.5) / 4
+            act = torch.tensor(4.0, device=dev)
+            w = torch.randint(-hi, hi, (k, n), generator=gen, device=dev,
+                              dtype=torch.int8)
+        else:                # +-127 activations, +-7 / +-127 weights
+            x = torch.where(torch.rand((m, k), generator=gen, device=dev)
+                            < 0.9, 300.0, -300.0)
+            act = torch.tensor(1.0, device=dev)
+            w = torch.where(torch.rand((k, n), generator=gen, device=dev)
+                            < 0.95, hi - 1, 1 - hi).to(torch.int8)
+        if wb == 4:
+            w = pack_int4(w, axis=0)
+        w_scale = torch.rand((n,), generator=gen, device=dev) + 0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            got = ops.quant_matmul(xd, w, w_scale, act, w_bits=wb)
+            want = ref.quant_matmul_ref(xd, w, w_scale, act, wb)
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            name = "f32" if dtype == torch.float32 else "bf16"
+            print(f"  quant_matmul edge M={m} K={k} N={n} int{wb} x {name} "
+                  f"{kind}: {'bit-identical' if same else 'DIFFERS'}")
+            if not same:
+                diff = (got.float() - want.float()).abs().max().item()
+                raise AssertionError(
+                    f"quant_matmul edge (M={m}, K={k}, N={n}, int{wb}, x "
+                    f"{name}, {kind}) differs from its plain version (max "
+                    f"|diff| {diff})")
+
+
+# B3's rows: decode (the decode kernel), the scheduler's admission chunk,
+# the paged path's chunk of 4 x 128, a whole 4 x 512 prefill
+QMM_ROWS = (("decode", B), ("admission", CHUNK), ("paged chunk", B * CHUNK),
+            ("prefill", B * PROMPT))
+
+
 def check_quant_matmul(torch, ops, ref, dev):
-    """Every (K, N) of a layer at decode and prefill M; returns the JSON
-    entries (one per phase, summed over the layer's seven matmuls)."""
+    """Every (K, N) of a layer at each of ``QMM_ROWS``; returns the JSON
+    entries (one per row, summed over the layer's seven matmuls)."""
     layer = [("wq", 576, 576), ("wk", 576, 192), ("wv", 576, 192),
              ("wo", 576, 576), ("gate", 576, 1536), ("up", 576, 1536),
              ("down", 1536, 576)]
     gen = torch.Generator(device=dev).manual_seed(0)
     entries = []
-    for phase, m in (("decode", B), ("prefill", B * PROMPT)):
+    for phase, m in QMM_ROWS:
         tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, bound_ms=0.0,
                    library_ms=0.0, nbytes=0, ops=0)
         for name, k, n in layer:
@@ -250,7 +355,7 @@ def check_quant_matmul(torch, ops, ref, dev):
             if m <= 16:
                 x_q = torch.cat([x_q, x_q.new_zeros((32 - m, k))])
             lib, _ = timed(torch, lambda: torch._int_mm(x_q, w_q))
-            print(f"  quant_matmul {phase:7s} {name:4s} M={m:5d} K={k:4d} "
+            print(f"  quant_matmul {phase:11s} {name:4s} M={m:5d} K={k:4d} "
                   f"N={n:4d}: {ms * 1e3:8.1f} us (per call {call * 1e3:6.1f}"
                   f" us)  plain {plain * 1e3:9.1f} us"
                   f"  bound {bnd * 1e3:6.2f} us  _int_mm {lib * 1e3:.1f} us"
@@ -1488,10 +1593,10 @@ FQ_SHAPES = ((1024, 1536), (1024, 576), (512, 256), (1000, 1000))
 # GPU vs CPU alpha gradient of ops.fake_quant: the sum over rows runs in a
 # fixed order of elementwise adds on both devices (ops._column_sum)
 FQ_DALPHA_RTOL = 1e-5
-# smollm-135m's matmul widths (K, N) for int4 weights, and the row counts:
-# decode, prefill, ragged
+# smollm-135m's matmul widths (K, N) for int4 weights
 W4_WIDTHS = ((576, 1536), (1536, 576), (576, 192))
-W4_ROWS = (B, B * PROMPT, 37)
+# B3 w4's rows: QMM_ROWS, then ragged rows (checked, not timed)
+W4_ROWS = QMM_ROWS + (("ragged", 37),)
 # resumed vs uninterrupted fat_qat thresholds on the card
 RESUME_RTOL = 1e-5
 
@@ -1619,7 +1724,7 @@ def check_quant_matmul_w4(torch, ops, ref, dev):
     gen = torch.Generator(device=dev).manual_seed(15)
     inputs = {}
     entries = []
-    for m in W4_ROWS:
+    for phase, m in W4_ROWS:
         tot = dict(ms=0.0, call_ms=0.0, int8_ms=0.0, plain_ms=0.0,
                    bound_ms=0.0, library_ms=0.0, nbytes=0, ops=0)
         for k, n in W4_WIDTHS:
@@ -1641,8 +1746,8 @@ def check_quant_matmul_w4(torch, ops, ref, dev):
                 if not torch.equal(got, other):
                     raise AssertionError(f"quant_matmul w_bits=4 (M={m}, "
                                          f"K={k}, N={n}) differs from {what}")
-            if m == W4_ROWS[-1]:
-                continue     # the ragged rows: checked, not timed
+            if phase == "ragged":
+                continue
             ms, call = timed(torch, lambda: ops.quant_matmul(
                 x, w_q, w_scale, act, w_bits=4))
             i8, _ = timed(torch, lambda: ops.quant_matmul(x, w_raw, w_scale,
@@ -1667,11 +1772,10 @@ def check_quant_matmul_w4(torch, ops, ref, dev):
                            ("library_ms", lib), ("nbytes", nbytes),
                            ("ops", 2 * m * k * n)):
                 tot[key] += v
-        if m == W4_ROWS[-1]:
+        if phase == "ragged":
             print(f"  quant_matmul w_bits=4 M={m} (ragged): bit-identical at "
                   f"every width")
             continue
-        phase = "decode" if m == B else "prefill"
         _, by = bound_ms(tot["nbytes"], tot["ops"], INT8_OPS_PER_S)
         entries.append({
             "name": f"quant_matmul@w4[{phase}: smollm-135m's widths "
@@ -1687,14 +1791,15 @@ def check_quant_matmul_w4(torch, ops, ref, dev):
                 f", x zero-padded from M={m} to M=32" if m <= 16 else "")})
 
     ops.reset_launches()
-    for m in W4_ROWS[:2]:
+    path_rows = (B, B * PROMPT)
+    for m in path_rows:
         for k, n in W4_WIDTHS:
             ops.quant_matmul(*inputs[(m, k, n)], w_bits=4)
     torch.cuda.synchronize()
     launches = ops.w4_launch_counts()["quant_matmul"]
     expected = 2 * len(W4_WIDTHS)
     print(f"  quant_matmul w_bits=4 path: ops.quant_matmul(w_bits=4) at "
-          f"M={W4_ROWS[:2]} and every width: launches {launches} (expected "
+          f"M={path_rows} and every width: launches {launches} (expected "
           f"{expected})")
     if launches != expected:
         raise AssertionError(f"quant_matmul@w4 launches {launches}")
@@ -1869,12 +1974,14 @@ def main() -> int:
         for line in sorted(lines):
             print(f"  ptxas {name}: {line}")
     check_prefill_sass(build)
+    check_quant_matmul_sass(build)
 
     dev = torch.device("cuda")
     t_kern = time.perf_counter()
     print(f"[kernels] each kernel against its plain version on {kind} "
           f"({card}); quant_matmul must be bit-exact:")
     kernels = check_quant_matmul(torch, ops, ref, dev)
+    check_quant_matmul_edges(torch, ops, ref, dev)
     kernels += check_attention(torch, ops, ref, dev, bits=8)
     kernels += check_attention(torch, ops, ref, dev, bits=4)
     for bits in (8, 4):

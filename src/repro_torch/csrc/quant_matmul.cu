@@ -3,41 +3,54 @@
 //   y[m, n] = bf16( float( sum_k int8(clip(rint(x[m, k] * act_scale), ±127)) * w_q[k, n] )
 //                   * w_scale[n] )
 //
-// Replaces the TPU kernel src/repro/kernels/quant_matmul.py::quant_matmul
-// (Pallas body `_kernel`).  Unlike the TPU kernel, which asserts that K and N
-// tile by its MXU blocks (and so cannot run smollm-135m's K=576, N=192), this
-// kernel masks ragged M, N and K edges.
+// Replaces the TPU kernel src/repro/kernels/quant_matmul.py::quant_matmul (body
+// `_kernel`, both w_bits branches); unlike it, this kernel masks ragged M, N and K.
 //
-// What bounds it on an H100: at decode (M = batch, a handful of rows) the
-// int8 weight stream -- K*N bytes per call -- so the kernel is bytes-bound;
-// at prefill (M = 2048) the int8 multiply-adds.  Design, right and simple
-// first: a block owns a BM x BN output tile and walks K in BK steps through
-// shared memory.  The activation quantize is fused into the load (multiply by
-// act_scale, __float2int_rn = round half to even like jnp.round, clamp), so
-// the int8 activations never touch device memory.  The weight tile is stored
-// transposed in shared memory, so four consecutive k of one column form one
-// 32-bit word, and each thread accumulates a TM x TN micro-tile exactly in
-// int32 with __dp4a.  The epilogue applies the per-channel dequant and rounds
-// to bf16 once.
+// What bounds it on an H100: at prefill (M = 2048) one smollm-135m layer's seven
+// calls do 14.5 G int8 operations and must move 45 MB (bf16 x 20.4, bf16 out 21.2,
+// weights 3.5): 7.3 us at 1,979 TOP/s, 13.5 us at 3.35 TB/s; 322 operations a byte
+// against the card's ridge of 591, so bytes, near the ridge.  Decode: the weights.
 //
-// Decode (M <= 8) takes a second kernel: the tiled one walks K in dependent
-// load/sync/compute steps and is latency-bound there.  In the decode kernel
-// a warp owns four output columns and its 32 lanes split K, so every lane
-// issues its weight loads back to back; four rows of four int8 weights are
-// transposed in registers (__byte_perm) into dp4a operands, and the partial
-// int32 sums meet in a warp shuffle, which is exact in any order.  Shapes
-// with N or K not a multiple of 4, or 8 < M <= 16, use the tiled kernel with
-// a narrow tile.  Tensor-core MMA (wgmma s8) and TMA are later work.
+// Prefill runs on the int8 tensor cores: mma.sync.m16n8k32 s8, int32 sums (wrapping
+// like dp4a's; exact for K < 2^31 / 127^2).  Not wgmma: with 8-bit operands wgmma
+// takes A and B K-major from shared memory (only 16-bit types may be transposed),
+// while B3's weights are (K, N), N contiguous, the layout the decode kernel and the
+// parity tests read; ldmatrix .trans moves 16-bit elements, not bytes.
+//  - Tiles: BM x BN a block of 4 warps, each 16*MT rows x 32 columns (no two warps
+//    build the same B fragments): 64 x 128 where that still gives two blocks an SM,
+//    else 32 x 128 or 32 x 64, as measured fastest.  K goes in steps of 64.
+//  - x: 16-byte pieces loaded one step ahead into registers, quantized into an int8
+//    [row][k] tile (rows of 80 bytes: ldmatrix reads A without bank conflicts).  The
+//    quantize is clip(rint(x * s)) bit for bit without F2I (a quarter of the float
+//    rate): the float32 product, a clamp to ±127 (it commutes with rounding to an
+//    integer), + 1.5 * 2^23, which rounds half to even, and the low byte.  A NaN
+//    product gives ±127 (the plain version's row is NaN).
+//  - Weights: cp.async of 16-byte chunks, four stages; chunk c of tile row r sits at
+//    (r * BN/16 + c) ^ 2 * ((r / RG) & 3) (RG rows hold 4 k), so the fragment loads
+//    are free of bank conflicts and a lane's offsets depend on its t alone.
+//  - B fragments: lane (group g, thread t) loads rows 4t .. 4t+3 of each 16-k half
+//    at columns 4g .. 4g+3 of its warp's 32 and transposes the 4x4 bytes with
+//    __byte_perm: word j holds the four k of column 4g + j.  Column map: word j is
+//    column g of n8 tile j, so tile j holds the warp's columns 4g' + j, and a lane's
+//    C fragments of the four tiles are its columns 8t .. 8t+7 of rows g and g + 8:
+//    one 16-byte store each.
+//  - int4 weights (w_bits = 4): (K/2, N) bytes, K rows 2r and 2r + 1 in the low and
+//    high nibble of row r (core/packing.py::unpack_int4(axis=0)), copied as they are.
+//    p & 0xF0 and (p << 4) & 0xF0 are 16 x the nibbles, exact as int8; the sums are
+//    16 x the int8 branch's (exact for K < 2^31 / (16 * 127 * 8)), shifted back by 4.
+//  - Epilogue: float(acc) * w_scale[n], rounded once to bf16, as the plain version.
+//  - Edges: rows past M and k past K quantize zeros, weights past K or N are zero-
+//    filled, rows and columns past M and N are not stored.  K, N or pointers that do
+//    not allow 16-byte pieces take the NARROW variant (element-wise staging).
+//  - Measured (chip_smoke.py): 0.073 ms a layer at M = 2048, 5x its bound.  Each
+//    step's x loads, quantize and barrier-joined phases hold it, not the bytes.
 //
-// int4 weights (w_bits = 4, the TPU kernel's `w_bits == 4` branch) arrive
-// packed along K as (K/2, N) bytes: byte row r holds K rows 2r (low nibble)
-// and 2r + 1 (high nibble), each sign-extended from 4 bits
-// (core/packing.py::unpack_int4(axis=0)).  The weight width is a template
-// argument of both kernels: the tiled kernel unpacks each nibble as it
-// stages the transposed weight tile, the decode kernel unpacks two packed
-// words into the four int8 words of four K rows.  From there the dp4a
-// operands, and so the int32 sums, are the int8 branch's on the unpacked
-// weights; activations stay int8.  Half the weight bytes cross memory.
+// Decode (M <= 8, N and K multiples of 4) takes a second kernel: a warp owns four
+// output columns and its 32 lanes split K, so every lane issues its weight loads
+// back to back; four rows of four int8 weights are transposed in registers
+// (__byte_perm) into dp4a operands, and the partial int32 sums meet in a warp
+// shuffle, which is exact in any order.  int4 weights: two packed words unpack into
+// the four int8 words of four K rows.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,13 +66,29 @@ __device__ __forceinline__ int8_t quantize(float x, float s) {
   return static_cast<int8_t>(q);
 }
 
-// weight (k, n) of a (K, N) int8 (WB == 8) or (K/2, N) packed int4 matrix
-template <int WB>
-__device__ __forceinline__ int8_t weight(const int8_t* __restrict__ w, int k,
-                                         int n, int N) {
-  if (WB == 8) return w[(size_t)k * N + n];
-  const int b = w[(size_t)(k >> 1) * N + n];  // sign-extended byte
-  return static_cast<int8_t>((k & 1) ? (b >> 4) : (((b & 15) ^ 8) - 8));
+// low byte = quantize(x, s), for any product that is not NaN (see the note)
+__device__ __forceinline__ uint32_t quantize_bits(float x, float s) {
+  const float f = fminf(fmaxf(__fmul_rn(x, s), -127.0f), 127.0f);
+  return __float_as_uint(__fadd_rn(f, 12582912.0f));
+}
+
+// the low bytes of four quantize_bits words, in order, as one word
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// 16 bytes of x (8 bf16 or 4 float) -> 8 or 4 quantized bytes
+template <typename T>
+__device__ __forceinline__ uint2 quantize_chunk(uint4 v, float s) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+  uint32_t q[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    q[2 * i] = quantize_bits(__uint_as_float(sizeof(T) == 4 ? u[i] : u[i] << 16), s);
+    q[2 * i + 1] = quantize_bits(__uint_as_float(u[i] & 0xffff0000u), s);
+  }
+  if (sizeof(T) == 4) return make_uint2(pack4(q[0], q[2], q[4], q[6]), 0u);
+  return make_uint2(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]));
 }
 
 // byte j of the result = the sign-extended low (HI == false) or high nibble
@@ -76,74 +105,248 @@ __device__ __forceinline__ uint32_t nibbles(uint32_t p) {
   return r;
 }
 
-template <typename T, int WB, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-quant_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
-                    const float* __restrict__ w_scale,
-                    const float* __restrict__ act_scale,
-                    __nv_bfloat16* __restrict__ out, int M, int K, int N) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr int LDS = BK + 4;  // bytes per shared row: 4-byte aligned, skewed banks
-  __shared__ __align__(16) int8_t xs[BM * LDS];  // [row][k]
-  __shared__ __align__(16) int8_t ws[BN * LDS];  // [col][k] (transposed)
+// c[j] byte i = byte j of w[i]: four rows of four bytes, transposed
+__device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4], uint32_t (&c)[4]) {
+  const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
+  c[0] = __byte_perm(lo01, lo23, 0x5410);
+  c[1] = __byte_perm(lo01, lo23, 0x7632);
+  c[2] = __byte_perm(hi01, hi23, 0x5410);
+  c[3] = __byte_perm(hi01, hi23, 0x7632);
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+// d += a @ b: m16n8k32, s8 operands, s32 sums (wrapping, no .satfinite)
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+
+// 16 bytes global -> shared; n == 0 zero-fills without reading
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr int BK = 64;        // k a step
+constexpr int LDA = BK + 16;  // bytes a row of the quantized x tile
+constexpr int STAGES = 4;     // weight tiles in flight (a power of two)
+
+// byte offset of 16-byte chunk c of row r of a weight tile (see the note)
+template <int BN, int RG>
+__device__ __forceinline__ int wchunk(int r, int c) {
+  return ((r * (BN / 16) + c) ^ (((r / RG) & 3) << 1)) << 4;
+}
+
+template <int BM, int BN, int MT>
+__host__ __device__ constexpr int threads() {
+  return 32 * (BM / (16 * MT)) * (BN / 32);
+}
+
+// BM x BN output tile, warps of 16*MT rows x 32 columns; VEC: 16-byte staging
+// (x loaded one step ahead into registers, weights by cp.async), else
+// element-wise
+template <typename T, int WB, int BM, int BN, int MT, bool VEC>
+__global__ void __launch_bounds__(threads<BM, BN, MT>(), 2)
+quant_matmul_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
+                        const float* __restrict__ w_scale,
+                        const float* __restrict__ act_scale,
+                        __nv_bfloat16* __restrict__ out, int M, int K, int N) {
+  constexpr int WN = BN / 32;
+  constexpr int NT = threads<BM, BN, MT>();
+  constexpr int KR = BK * WB / 8;    // weight tile rows a step (packed at WB == 4)
+  constexpr int RG = 4 * WB / 8;     // weight tile rows that hold 4 k
+  constexpr int E = 16 / sizeof(T);  // x elements in 16 bytes
+  // a thread's 16-byte pieces of a step: x rows xr0 + j * XRS at k xk, and
+  // weight rows wr0 + j * WRS at column wc * 16
+  constexpr int XRS = NT / (BK / E), WRS = NT / (BN / 16);
+  constexpr int XL = BM / XRS, WL = KR / WRS;
+  static_assert(XL * XRS == BM && WL * WRS == KR && WRS % (4 * RG) == 0, "tile split");
+  __shared__ __align__(16) int8_t xs[2 * BM * LDA];      // [2][BM][LDA] quantized x
+  __shared__ __align__(16) int8_t ws[STAGES * KR * BN];  // [STAGES][KR][BN] swizzled
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (tid >> 5) / WN, wn = (tid >> 5) % WN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int KW = K * WB / 8;
+  const int nk = (K + BK - 1) / BK;
   const float s = *act_scale;
-
-  int acc[TM][TN];
+  // this lane's A rows, and its B words: rows RG*t + i at columns col .. col+3
+  // of each 16-k half; the swizzle of those rows depends on t alone, so row
+  // RG*t + i + 16*(RG/4)*q sits at boff[i] + 16*(RG/4)*q*BN
+  const int arow = (wm * 16 * MT + (lane & 7) + (lane & 8)) * LDA + (lane >> 4) * 16;
+  const int col = wn * 32 + 4 * g;
+  int boff[RG];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
+  for (int i = 0; i < RG; ++i) boff[i] = wchunk<BN, RG>(RG * t + i, col >> 4) + (col & 15);
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
+  // staging addresses, computed once: the pieces of step `step` lie
+  // step * BK elements (x) and step * KR rows (weights) further on
+  const int xr0 = tid / (BK / E), xk = (tid % (BK / E)) * E;
+  const int wr0 = tid / (BN / 16), wc = tid % (BN / 16);
+  const T* xp = x + (size_t)min(m0 + xr0, M - 1) * K + xk;
+  const size_t xjs = (size_t)XRS * K;
+  const int8_t* wp = w + (size_t)wr0 * N + n0 + wc * 16;
+  const size_t wjs = (size_t)WRS * N, wss = (size_t)KR * N;
+  const bool wcol = n0 + wc * 16 < N;
+  const int wso = wchunk<BN, RG>(wr0, wc);
+  unsigned xrows = 0;  // bit j: x row xr0 + j * XRS lies inside M
+#pragma unroll
+  for (int j = 0; j < XL; ++j) xrows |= (m0 + xr0 + j * XRS < M ? 1u : 0u) << j;
+
+  uint4 xr[XL];
+  auto load_x = [&](int step) {
+    const bool kin = step * BK + xk < K;
+#pragma unroll
+    for (int j = 0; j < XL; ++j)
+      xr[j] = kin && (xrows >> j & 1)
+                  ? *reinterpret_cast<const uint4*>(xp + j * xjs + step * BK)
+                  : make_uint4(0, 0, 0, 0);
+  };
+  auto store_x = [&](int8_t* xt) {
+#pragma unroll
+    for (int j = 0; j < XL; ++j) {
+      const uint2 q = quantize_chunk<T>(xr[j], s);
+      int8_t* d = xt + (xr0 + j * XRS) * LDA + xk;
+      if constexpr (E == 8)
+        *reinterpret_cast<uint2*>(d) = q;
+      else
+        *reinterpret_cast<uint32_t*>(d) = q.x;
+    }
+  };
+  auto load_w = [&](int step) {
+    int8_t* wt = ws + (step & (STAGES - 1)) * KR * BN + wso;
+    const int8_t* src = wp + step * wss;
+#pragma unroll
+    for (int j = 0; j < WL; ++j) {
+      const bool ok = wcol && step * KR + wr0 + j * WRS < KW;
+      cp_async16(wt + j * WRS * BN, ok ? src + j * wjs : w, ok ? 16 : 0);
+    }
+  };
+  auto stage_narrow = [&](int step, int8_t* xt, int8_t* wt) {
     for (int i = tid; i < BM * BK; i += NT) {
-      const int r = i / BK, c = i % BK;
-      const int gm = m0 + r, gk = k0 + c;
-      xs[r * LDS + c] = (gm < M && gk < K)
-                            ? quantize(to_f32(x[(size_t)gm * K + gk]), s)
+      const int r = i / BK, c = i % BK, gm = m0 + r, gk = step * BK + c;
+      xt[r * LDA + c] = gm < M && gk < K
+                            ? static_cast<int8_t>(quantize_bits(
+                                  to_f32(x[(size_t)gm * K + gk]), s))
                             : static_cast<int8_t>(0);
     }
-    for (int i = tid; i < BK * BN; i += NT) {
-      const int kk = i / BN, c = i % BN;
-      const int gk = k0 + kk, gn = n0 + c;
-      ws[c * LDS + kk] = (gk < K && gn < N) ? weight<WB>(w, gk, gn, N)
-                                            : static_cast<int8_t>(0);
+    for (int i = tid; i < KR * BN; i += NT) {
+      const int r = i / BN, c = i % BN, kr = step * KR + r, gn = n0 + c;
+      wt[wchunk<BN, RG>(r, c >> 4) + (c & 15)] =
+          kr < KW && gn < N ? w[(size_t)kr * N + gn] : static_cast<int8_t>(0);
+    }
+  };
+
+  int acc[MT][4][4];  // [m16 tile][n8 tile][C fragment]
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][u][i] = 0;
+
+  if constexpr (VEC) {
+#pragma unroll
+    for (int st = 0; st < STAGES - 1; ++st) {
+      if (st < nk) load_w(st);
+      cp_async_commit();
+    }
+    load_x(0);
+  }
+  for (int step = 0; step < nk; ++step) {
+    int8_t* xt = xs + (step & 1) * BM * LDA;
+    int8_t* wt = ws + (step & (STAGES - 1)) * KR * BN;
+    if constexpr (VEC) {
+      store_x(xt);
+      if (step + 1 < nk) load_x(step + 1);
+      cp_async_wait<STAGES - 2>();
+    } else {
+      stage_narrow(step, xt, wt);
     }
     __syncthreads();
-#pragma unroll
-    for (int kw = 0; kw < BK / 4; ++kw) {
-      int a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-        a[i] = *reinterpret_cast<const int*>(&xs[(ty * TM + i) * LDS + kw * 4]);
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        b[j] = *reinterpret_cast<const int*>(&ws[(tx * TN + j) * LDS + kw * 4]);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+    if constexpr (VEC) {
+      if (step + STAGES - 1 < nk) load_w(step + STAGES - 1);
+      cp_async_commit();
     }
-    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK / 32; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) ldsm_x4(a[mt], xt + arow + mt * 16 * LDA + kk * 32);
+      uint32_t b[2][4];  // [k half][n8 tile]
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int8_t* wh = wt + (2 * kk + h) * 16 * RG / 4 * BN;
+        uint32_t rows[4];
+#pragma unroll
+        for (int i = 0; i < RG; ++i) {
+          const uint32_t p = *reinterpret_cast<const uint32_t*>(wh + boff[i]);
+          if constexpr (WB == 8) {
+            rows[i] = p;
+          } else {  // packed rows 2t, 2t + 1: k 4t .. 4t + 3, each as 16 x its value
+            rows[2 * i] = (p << 4) & 0xF0F0F0F0u;
+            rows[2 * i + 1] = p & 0xF0F0F0F0u;
+          }
+        }
+        transpose4x4(rows, b[h]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) mma_s8(acc[mt][u], a[mt], b[0][u], b[1][u]);
+    }
   }
 
+  // lane's columns ncol .. ncol + 7: value j is n8 tile j % 4, fragment column
+  // 2t + j / 4
+  const int ncol = n0 + wn * 32 + 8 * t;
+  float sc[8];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= M) continue;
+  for (int j = 0; j < 8; ++j) sc[j] = ncol + j < N ? w_scale[ncol + j] : 0.0f;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx * TN + j;
-      if (gn < N)
-        out[(size_t)gm * N + gn] =
-            __float2bfloat16_rn(static_cast<float>(acc[i][j]) * w_scale[gn]);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = m0 + wm * 16 * MT + mt * 16 + g + 8 * hr;
+      if (row >= M) continue;
+      __align__(16) __nv_bfloat162 v[4];
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        int a0 = acc[mt][j & 3][2 * hr + (j >> 2)];
+        int a1 = acc[mt][(j + 1) & 3][2 * hr + (j >> 2)];
+        if (WB == 4) a0 >>= 4, a1 >>= 4;
+        v[j / 2] = __floats2bfloat162_rn(__fmul_rn(static_cast<float>(a0), sc[j]),
+                                         __fmul_rn(static_cast<float>(a1), sc[j + 1]));
+      }
+      __nv_bfloat16* o = out + (size_t)row * N + ncol;
+      if constexpr (VEC) {
+        if (ncol < N) *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (ncol + j < N) o[j] = j & 1 ? v[j / 2].y : v[j / 2].x;
+      }
     }
-  }
 }
 
 constexpr int DEC_WARPS = 8;  // column quads per block: 32 columns
@@ -244,16 +447,22 @@ void launch_decode(const void* x, const void* w, const void* w_scale,
       static_cast<__nv_bfloat16*>(out), M, K, N);
 }
 
-template <typename T, int WB, int BM, int BN, int BK, int TM, int TN>
-void launch(const void* x, const void* w, const void* w_scale,
-            const void* act_scale, void* out, int M, int K, int N,
-            cudaStream_t stream) {
-  constexpr int NT = (BM / TM) * (BN / TN);
+template <typename T, int WB, int BM, int BN, int MT, bool VEC>
+void launch(const void* x, const void* w, const void* w_scale, const void* act_scale,
+            void* out, int M, int K, int N, cudaStream_t stream) {
+  constexpr int nt = threads<BM, BN, MT>();
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  quant_matmul_kernel<T, WB, BM, BN, BK, TM, TN><<<grid, NT, 0, stream>>>(
+  quant_matmul_mma_kernel<T, WB, BM, BN, MT, VEC><<<grid, nt, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(w_scale), static_cast<const float*>(act_scale),
       static_cast<__nv_bfloat16*>(out), M, K, N);
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
 }
 
 template <typename T, int WB>
@@ -262,17 +471,26 @@ void dispatch(const void* x, const void* w, const void* w_scale,
               cudaStream_t stream) {
   const bool words = N % 4 == 0 && K % 4 == 0;
   if (M <= 1 && words)
-    launch_decode<T, WB, 1>(x, w, w_scale, act_scale, out, M, K, N, stream);
-  else if (M <= 2 && words)
-    launch_decode<T, WB, 2>(x, w, w_scale, act_scale, out, M, K, N, stream);
-  else if (M <= 4 && words)
-    launch_decode<T, WB, 4>(x, w, w_scale, act_scale, out, M, K, N, stream);
-  else if (M <= 8 && words)
-    launch_decode<T, WB, 8>(x, w, w_scale, act_scale, out, M, K, N, stream);
-  else if (M <= 16)  // narrow tiles: more blocks on the weight stream
-    launch<T, WB, 16, 32, 64, 2, 2>(x, w, w_scale, act_scale, out, M, K, N, stream);
+    return launch_decode<T, WB, 1>(x, w, w_scale, act_scale, out, M, K, N, stream);
+  if (M <= 2 && words)
+    return launch_decode<T, WB, 2>(x, w, w_scale, act_scale, out, M, K, N, stream);
+  if (M <= 4 && words)
+    return launch_decode<T, WB, 4>(x, w, w_scale, act_scale, out, M, K, N, stream);
+  if (M <= 8 && words)
+    return launch_decode<T, WB, 8>(x, w, w_scale, act_scale, out, M, K, N, stream);
+  const uintptr_t al = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                       reinterpret_cast<uintptr_t>(out);
+  if (al % 16 || K % (16 / sizeof(T)) || N % 16)
+    return launch<T, WB, 32, 64, 1, false>(x, w, w_scale, act_scale, out, M, K, N, stream);
+  // warps span the block's rows (no two warps build the same B fragments); the
+  // widest tile that still fills the card, else the one with the shortest chain
+  const auto blocks = [&](int bm, int bn) { return ((M + bm - 1) / bm) * ((N + bn - 1) / bn); };
+  if (blocks(64, 128) >= 2 * sm_count())
+    launch<T, WB, 64, 128, 4, true>(x, w, w_scale, act_scale, out, M, K, N, stream);
+  else if (2 * blocks(32, 128) >= sm_count())
+    launch<T, WB, 32, 128, 2, true>(x, w, w_scale, act_scale, out, M, K, N, stream);
   else
-    launch<T, WB, 64, 64, 32, 4, 4>(x, w, w_scale, act_scale, out, M, K, N, stream);
+    launch<T, WB, 32, 64, 1, true>(x, w, w_scale, act_scale, out, M, K, N, stream);
 }
 
 }  // namespace
@@ -286,6 +504,7 @@ extern "C" int repro_quant_matmul(const void* x, int x_bf16, const void* w,
                                   const void* act_scale, void* out, int M,
                                   int K, int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M == 0 || N == 0) return 0;  // nothing to write (an empty grid is an error)
   if (x_bf16 && w_bits == 4)
     dispatch<__nv_bfloat16, 4>(x, w, w_scale, act_scale, out, M, K, N, st);
   else if (x_bf16)

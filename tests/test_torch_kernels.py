@@ -242,12 +242,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the decode kernel's rows (M <= 8), the tensor-core kernel's small, admission
+# and prefill rows at smollm-135m's K x N, and ragged K and N
+CUDA_QMM_SHAPES = [(m, 576, 192) for m in (1, 4, 9, 17, 128, 2048)] + [
+    (37, 100, 36)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 4, 2048])
-def test_cuda_quant_matmul_bit_exact(cuda_device, m):
+@pytest.mark.parametrize("m,k,n", CUDA_QMM_SHAPES)
+def test_cuda_quant_matmul_bit_exact(cuda_device, m, k, n):
     x, w_q, w_scale, act_scale = [
         to_tensor(np.asarray(a)).to(cuda_device)
-        for a in _qm_inputs(m, 576, 192, "bf16", seed=m)]
+        for a in _qm_inputs(m, k, n, "bf16", seed=m)]
     np.testing.assert_array_equal(
         tqm.launch(x, w_q, w_scale, act_scale).cpu().view(torch.uint16),
         tref.quant_matmul_ref(x, w_q, w_scale, act_scale).cpu().view(
@@ -255,11 +261,11 @@ def test_cuda_quant_matmul_bit_exact(cuda_device, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 4, 2048])
-def test_cuda_quant_matmul_int4_weights_bit_exact(cuda_device, m):
+@pytest.mark.parametrize("m,k,n", CUDA_QMM_SHAPES)
+def test_cuda_quant_matmul_int4_weights_bit_exact(cuda_device, m, k, n):
     x, _, w_q, w_scale, act_scale = [
         to_tensor(np.asarray(a)).to(cuda_device)
-        for a in _w4_inputs(m, 576, 192, "bf16", seed=m)]
+        for a in _w4_inputs(m, k, n, "bf16", seed=m)]
     np.testing.assert_array_equal(
         tqm.launch(x, w_q, w_scale, act_scale, 4).cpu().view(torch.uint16),
         tref.quant_matmul_ref(x, w_q, w_scale, act_scale, 4).cpu().view(
