@@ -5,13 +5,18 @@
 
 1. builds the hand-written Hopper kernels (``src/repro_torch/csrc``) and
    checks that every instantiation of the prefill attention kernel runs on
-   the tensor cores (HMMA in its SASS) and every instantiation of
-   quant_matmul's prefill kernel on the int8 tensor cores (IMMA), none of
-   them spilling registers;
+   the tensor cores (HMMA in its SASS), every instantiation of
+   quant_matmul's prefill kernel on the int8 tensor cores (IMMA) and every
+   instantiation of its decode kernel on dp4a (IDP), none of them spilling
+   registers; prints the decode kernel's column tile and cluster size at
+   each of smollm-135m's widths;
 2. holds each kernel against its plain PyTorch version on the card at the
-   shapes of the main path (quant_matmul bit for bit at decode, admission,
-   paged-chunk and prefill rows, and at the edge cases of ``QMM_EDGES``:
-   rows 9-129, ragged K and N, .5 ties, the clip, |acc| > 2^24; the
+   shapes of the main path (quant_matmul bit for bit at decode rows M = 4,
+   8 and 1, each also timed with the L2 cache flushed, admission,
+   paged-chunk and prefill rows, at the edge cases of ``QMM_EDGES``:
+   rows 9-129, ragged K and N, .5 ties, the clip, |acc| > 2^24, and at
+   ``QMM_DECODE_EDGES``: M = 1-8 at K and N that end a cluster slice, a
+   column tile or a 16-byte piece early; the
    attentions with an int8 and a packed int4 K/V stream; the prefill
    attention also at the
    edge cases of ``PREFILL_EDGES``; the decode attention also at the chunk
@@ -70,8 +75,9 @@
    and torch.fake_quantize_per_channel_affine;
 15. [kernels], quant_matmul int4 weights: B3 at ``w_bits=4`` bit for bit
    against its plain version and the int8 branch on the unpacked weights
-   at smollm-135m's widths, M = 4, 128, 512, 2048 and 37; timed beside the
-   int8 branch and torch._int_mm;
+   at smollm-135m's widths, M = 4, 8, 1, 128, 512, 2048 and 37; timed
+   beside the int8 branch and torch._int_mm (the decode rows also with the
+   L2 cache flushed);
 16. [train fat_qat] ``repro_torch.launch.train.main`` at the full width of
    smollm-135m: 3 steps that checkpoint, the same command to 6 steps
    (resumes from step 3), and an uninterrupted 6-step run: the resumed
@@ -169,6 +175,44 @@ def timed(torch, fn, **kw):
     return (call if dev is None else dev), call
 
 
+def cold_ms(torch, fn, flush, match, iters=10):
+    """Device time per call of ``fn`` with the L2 cache flushed before each
+    call (``flush`` writes more than the card's 50 MB of L2): the
+    profiler's time of the kernels whose name holds ``match``, so the
+    flush itself is not counted; CUDA events around ``fn`` alone when the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if match in e.key)
+    if us > 0:
+        return us / iters / 1e3
+    total = 0.0
+    for _ in range(iters):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def l2_flush(torch, dev):
+    """A function that writes 64 MiB on the card (more than its L2)."""
+    buf = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+    return buf.zero_
+
+
 def bound_ms(nbytes, ops, rate):
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / rate * 1e3
@@ -257,6 +301,57 @@ def check_quant_matmul_sass(build):
         raise AssertionError(f"quant_matmul_mma_kernel spills: {spilled}")
 
 
+def decode_variant(mangled):
+    """'x bf16, int8 weights, M <= 4' from a mangled
+    ``quant_matmul_decode_kernel<T, WB, MR>`` name."""
+    m = re.search(r"quant_matmul_decode_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d)E",
+                  mangled)
+    if m is None:
+        return mangled
+    t, wb, mr = m.groups()
+    return f"x {'f32' if t == 'f' else 'bf16'}, int{wb} weights, M <= {mr}"
+
+
+def decode_split(k, n, sms):
+    """(BN, C) of the decode kernel for (K, N): ``launch_decode`` in
+    ``csrc/quant_matmul.cu``, repeated."""
+    c = 1
+    while c < 4 and 2 * c * 64 <= k:
+        c *= 2
+    bn = 128
+    while bn > 32 and -(-n // bn) * c < sms // 2:
+        bn //= 2
+    return bn, c
+
+
+def check_quant_matmul_decode_sass(build, sms):
+    """B3's decode kernel: every instantiation of
+    ``quant_matmul_decode_kernel`` holds dp4a (IDP) instructions
+    (cuobjdump -sass) and spills no register (ptxas -v); prints each one's
+    registers, and the column tile and cluster size of each (K, N) of
+    smollm-135m's layer."""
+    res = ptxas_resources(build, "quant_matmul")
+    idp = build.sass_counts("quant_matmul", "quant_matmul_decode_kernel",
+                            "IDP")
+    for name, n in sorted(idp.items(), key=lambda kv: decode_variant(kv[0])):
+        regs, spill = res.get(name, ("?", "?"))
+        print(f"  quant_matmul_decode_kernel [{decode_variant(name)}]: {n} "
+              f"IDP, {regs} registers, spill stores {spill} bytes")
+    # x f32/bf16 x int8/int4 weights x M <= 1, 2, 4, 8
+    if len(idp) != 16 or min(idp.values()) == 0:
+        raise AssertionError(f"quant_matmul: expected 16 instantiations of "
+                             f"quant_matmul_decode_kernel, each with IDP "
+                             f"instructions; got {idp}")
+    spilled = {decode_variant(k): v[1] for k, v in res.items()
+               if "quant_matmul_decode_kernel" in k and v[1] != 0}
+    if spilled:
+        raise AssertionError(f"quant_matmul_decode_kernel spills: {spilled}")
+    for k, n in ((576, 576), (576, 192), (576, 1536), (1536, 576)):
+        bn, c = decode_split(k, n, sms)
+        print(f"  quant_matmul decode K={k} N={n}: column tile {bn}, "
+              f"cluster of {c} blocks, {-(-n // bn) * c} blocks")
+
+
 # B3's edge cases, each bit for bit against the plain version at float32
 # and bf16 x: (M, K, N, w_bits, x): rows the decode kernel does not take
 # (its M <= 8), ragged K and N (odd K at int8 only: int4 packs K in pairs),
@@ -268,30 +363,45 @@ QMM_EDGES = ([(m, 576, 192, wb, "ties") for m in (9, 15, 16, 17, 37, 129)
                 for wb in (8, 4)]
              + [(37, 33, 17, 8, "ties"), (37, 34, 17, 4, "ties")]
              + [(64, 1536, 576, wb, "sat") for wb in (8, 4)])
+# the decode kernel's edge cases (M <= 8, K and N multiples of 4): ragged
+# row counts at smollm-135m's widths and at K, N that end a cluster slice,
+# a column tile or a 16-byte piece early, and one all-+-127 case
+QMM_DECODE_EDGES = ([(m, k, n, wb, "ties") for m in (1, 2, 3, 5, 7, 8)
+                     for k, n in ((576, 192), (1536, 576), (576, 1536),
+                                  (100, 36), (4, 4), (8, 1540))
+                     for wb in (8, 4)]
+                    + [(8, 1536, 576, wb, "sat") for wb in (8, 4)])
 
 
-def check_quant_matmul_edges(torch, ops, ref, dev):
-    """Every ``QMM_EDGES`` case, float32 and bf16 x, bit for bit."""
+def qmm_case(torch, gen, dev, m, k, n, wb, kind):
+    """(x float32, w_q, w_scale, act_scale) of one edge case."""
     from repro_torch.core.packing import pack_int4
 
+    hi = 8 if wb == 4 else 128
+    if kind == "ties":   # x * 4 = i + .5 (exact in bf16 for |i| < 128)
+        x = (torch.randint(-200, 200, (m, k), generator=gen,
+                           device=dev) + 0.5) / 4
+        act = torch.tensor(4.0, device=dev)
+        w = torch.randint(-hi, hi, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+    else:                # +-127 activations, +-7 / +-127 weights
+        x = torch.where(torch.rand((m, k), generator=gen, device=dev)
+                        < 0.9, 300.0, -300.0)
+        act = torch.tensor(1.0, device=dev)
+        w = torch.where(torch.rand((k, n), generator=gen, device=dev)
+                        < 0.95, hi - 1, 1 - hi).to(torch.int8)
+    if wb == 4:
+        w = pack_int4(w, axis=0)
+    w_scale = torch.rand((n,), generator=gen, device=dev) + 0.5
+    return x, w, w_scale, act
+
+
+def check_quant_matmul_edges(torch, ops, ref, dev, cases=QMM_EDGES,
+                             label="edge"):
+    """Every case of ``cases``, float32 and bf16 x, bit for bit."""
     gen = torch.Generator(device=dev).manual_seed(19)
-    for m, k, n, wb, kind in QMM_EDGES:
-        hi = 8 if wb == 4 else 128
-        if kind == "ties":   # x * 4 = i + .5 (exact in bf16 for |i| < 128)
-            x = (torch.randint(-200, 200, (m, k), generator=gen,
-                               device=dev) + 0.5) / 4
-            act = torch.tensor(4.0, device=dev)
-            w = torch.randint(-hi, hi, (k, n), generator=gen, device=dev,
-                              dtype=torch.int8)
-        else:                # +-127 activations, +-7 / +-127 weights
-            x = torch.where(torch.rand((m, k), generator=gen, device=dev)
-                            < 0.9, 300.0, -300.0)
-            act = torch.tensor(1.0, device=dev)
-            w = torch.where(torch.rand((k, n), generator=gen, device=dev)
-                            < 0.95, hi - 1, 1 - hi).to(torch.int8)
-        if wb == 4:
-            w = pack_int4(w, axis=0)
-        w_scale = torch.rand((n,), generator=gen, device=dev) + 0.5
+    for m, k, n, wb, kind in cases:
+        x, w, w_scale, act = qmm_case(torch, gen, dev, m, k, n, wb, kind)
         for dtype in (torch.float32, torch.bfloat16):
             xd = x.to(dtype)
             got = ops.quant_matmul(xd, w, w_scale, act, w_bits=wb)
@@ -299,33 +409,41 @@ def check_quant_matmul_edges(torch, ops, ref, dev):
             torch.cuda.synchronize()
             same = torch.equal(got, want)
             name = "f32" if dtype == torch.float32 else "bf16"
-            print(f"  quant_matmul edge M={m} K={k} N={n} int{wb} x {name} "
-                  f"{kind}: {'bit-identical' if same else 'DIFFERS'}")
+            print(f"  quant_matmul {label} M={m} K={k} N={n} int{wb} x "
+                  f"{name} {kind}: {'bit-identical' if same else 'DIFFERS'}")
             if not same:
                 diff = (got.float() - want.float()).abs().max().item()
                 raise AssertionError(
-                    f"quant_matmul edge (M={m}, K={k}, N={n}, int{wb}, x "
+                    f"quant_matmul {label} (M={m}, K={k}, N={n}, int{wb}, x "
                     f"{name}, {kind}) differs from its plain version (max "
                     f"|diff| {diff})")
 
 
-# B3's rows: decode (the decode kernel), the scheduler's admission chunk,
-# the paged path's chunk of 4 x 128, a whole 4 x 512 prefill
-QMM_ROWS = (("decode", B), ("admission", CHUNK), ("paged chunk", B * CHUNK),
+# B3's rows: decode (the decode kernel) of the main path, of the
+# scheduler's slot batch and of one request, the scheduler's admission
+# chunk, the paged path's chunk of 4 x 128, a whole 4 x 512 prefill
+QMM_ROWS = (("decode", B), ("slot decode", SLOTS), ("decode 1", 1),
+            ("admission", CHUNK), ("paged chunk", B * CHUNK),
             ("prefill", B * PROMPT))
+# rows up to this take the decode kernel, and are also timed L2-cold
+DECODE_ROWS = 8
 
 
 def check_quant_matmul(torch, ops, ref, dev):
     """Every (K, N) of a layer at each of ``QMM_ROWS``; returns the JSON
-    entries (one per row, summed over the layer's seven matmuls)."""
+    entries (one per row, summed over the layer's seven matmuls).  The
+    decode rows are timed warm (``ms``: back-to-back calls, the weights in
+    L2) and cold (``cold_ms``: L2 flushed before each call, as in a decode
+    step that streams 30 layers' weights through it)."""
     layer = [("wq", 576, 576), ("wk", 576, 192), ("wv", 576, 192),
              ("wo", 576, 576), ("gate", 576, 1536), ("up", 576, 1536),
              ("down", 1536, 576)]
     gen = torch.Generator(device=dev).manual_seed(0)
+    flush = l2_flush(torch, dev)
     entries = []
     for phase, m in QMM_ROWS:
-        tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                   library_ms=0.0, nbytes=0, ops=0)
+        tot = dict(ms=0.0, call_ms=0.0, cold_ms=0.0, plain_ms=0.0,
+                   bound_ms=0.0, library_ms=0.0, nbytes=0, ops=0)
         for name, k, n in layer:
             x = (torch.randn((m, k), generator=gen, device=dev) * 2).to(
                 torch.bfloat16)
@@ -343,6 +461,9 @@ def check_quant_matmul(torch, ops, ref, dev):
                     f"not bit-exact with its plain version (max |diff| {diff})")
             ms, call = timed(torch, lambda: ops.quant_matmul(
                 x, w_q, w_scale, act_scale))
+            cold = (cold_ms(torch, lambda: ops.quant_matmul(
+                x, w_q, w_scale, act_scale), flush, "quant_matmul")
+                if m <= DECODE_ROWS else None)
             plain, _ = timed(torch, lambda: ref.quant_matmul_ref(
                 x, w_q, w_scale, act_scale), iters=5, warmup=1)
             nbytes = m * k * 2 + k * n + 4 * n + 4 + m * n * 2
@@ -357,17 +478,24 @@ def check_quant_matmul(torch, ops, ref, dev):
             lib, _ = timed(torch, lambda: torch._int_mm(x_q, w_q))
             print(f"  quant_matmul {phase:11s} {name:4s} M={m:5d} K={k:4d} "
                   f"N={n:4d}: {ms * 1e3:8.1f} us (per call {call * 1e3:6.1f}"
-                  f" us)  plain {plain * 1e3:9.1f} us"
+                  f" us"
+                  + (f", L2-cold {cold * 1e3:.1f} us" if cold is not None else "")
+                  + f")  plain {plain * 1e3:9.1f} us"
                   f"  bound {bnd * 1e3:6.2f} us  _int_mm {lib * 1e3:.1f} us"
                   + (" (M padded to 32)" if m <= 16 else ""))
             tot["ms"] += ms
             tot["call_ms"] += call
+            tot["cold_ms"] += cold or 0.0
             tot["plain_ms"] += plain
             tot["bound_ms"] += bnd
             tot["nbytes"] += nbytes
             tot["ops"] += 2 * m * k * n
             tot["library_ms"] += lib
         _, by = bound_ms(tot["nbytes"], tot["ops"], INT8_OPS_PER_S)
+        if m <= DECODE_ROWS:
+            print(f"  quant_matmul {phase} M={m}: one layer's 7 calls "
+                  f"{tot['ms'] * 1e3:.1f} us warm, {tot['cold_ms'] * 1e3:.1f}"
+                  f" us L2-cold, bound {tot['bound_ms'] * 1e3:.2f} us")
         entries.append({
             "name": f"quant_matmul[{phase}: one layer's 7 matmuls, M={m}]",
             "route": "cuda", "source": "src/repro_torch/csrc/quant_matmul.cu",
@@ -377,7 +505,8 @@ def check_quant_matmul(torch, ops, ref, dev):
             "bound_ms": tot["bound_ms"], "bound_by": by,
             "library_ms": tot["library_ms"],
             "library": "torch._int_mm" + (
-                f" on x zero-padded from M={m} to M=32" if m <= 16 else "")})
+                f" on x zero-padded from M={m} to M=32" if m <= 16 else ""),
+            **({"cold_ms": tot["cold_ms"]} if m <= DECODE_ROWS else {})})
     return entries
 
 
@@ -1718,15 +1847,18 @@ def check_quant_matmul_w4(torch, ops, ref, dev):
     timed beside the int8 branch, the plain version and torch._int_mm on
     the unpacked weights.  Then the entry point's path,
     ``ops.quant_matmul(w_bits=4)`` at decode and prefill rows, counted
-    from 0.  Returns (JSON entries, launches)."""
+    from 0.  The decode rows are also timed L2-cold, as in
+    ``check_quant_matmul``.  Returns (JSON entries, launches)."""
     from repro_torch.core.packing import pack_int4
 
     gen = torch.Generator(device=dev).manual_seed(15)
+    flush = l2_flush(torch, dev)
     inputs = {}
     entries = []
     for phase, m in W4_ROWS:
-        tot = dict(ms=0.0, call_ms=0.0, int8_ms=0.0, plain_ms=0.0,
-                   bound_ms=0.0, library_ms=0.0, nbytes=0, ops=0)
+        tot = dict(ms=0.0, call_ms=0.0, cold_ms=0.0, int8_ms=0.0,
+                   plain_ms=0.0, bound_ms=0.0, library_ms=0.0, nbytes=0,
+                   ops=0)
         for k, n in W4_WIDTHS:
             x = torch.randn((m, k), generator=gen, device=dev).to(
                 torch.bfloat16)
@@ -1750,6 +1882,9 @@ def check_quant_matmul_w4(torch, ops, ref, dev):
                 continue
             ms, call = timed(torch, lambda: ops.quant_matmul(
                 x, w_q, w_scale, act, w_bits=4))
+            cold = (cold_ms(torch, lambda: ops.quant_matmul(
+                x, w_q, w_scale, act, w_bits=4), flush, "quant_matmul")
+                if m <= DECODE_ROWS else None)
             i8, _ = timed(torch, lambda: ops.quant_matmul(x, w_raw, w_scale,
                                                           act))
             plain, _ = timed(torch, lambda: ref.quant_matmul_ref(
@@ -1762,12 +1897,16 @@ def check_quant_matmul_w4(torch, ops, ref, dev):
             nbytes = m * k * 2 + k * n // 2 + 4 * n + 4 + m * n * 2
             bnd, _ = bound_ms(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
             print(f"  quant_matmul w_bits=4 M={m:5d} K={k:4d} N={n:4d}: "
-                  f"{ms * 1e3:8.1f} us (per call {call * 1e3:6.1f} us)  "
+                  f"{ms * 1e3:8.1f} us (per call {call * 1e3:6.1f} us"
+                  + (f", L2-cold {cold * 1e3:.1f} us" if cold is not None
+                     else "")
+                  + ")  "
                   f"int8 branch {i8 * 1e3:8.1f} us  plain "
                   f"{plain * 1e3:9.1f} us  bound {bnd * 1e3:6.2f} us  "
                   f"_int_mm {lib * 1e3:.1f} us"
                   + (" (M padded to 32)" if m <= 16 else ""))
-            for key, v in (("ms", ms), ("call_ms", call), ("int8_ms", i8),
+            for key, v in (("ms", ms), ("call_ms", call),
+                           ("cold_ms", cold or 0.0), ("int8_ms", i8),
                            ("plain_ms", plain), ("bound_ms", bnd),
                            ("library_ms", lib), ("nbytes", nbytes),
                            ("ops", 2 * m * k * n)):
@@ -1788,7 +1927,8 @@ def check_quant_matmul_w4(torch, ops, ref, dev):
             "bound_ms": tot["bound_ms"], "bound_by": by,
             "library_ms": tot["library_ms"],
             "library": "torch._int_mm on the unpacked weights" + (
-                f", x zero-padded from M={m} to M=32" if m <= 16 else "")})
+                f", x zero-padded from M={m} to M=32" if m <= 16 else ""),
+            **({"cold_ms": tot["cold_ms"]} if m <= DECODE_ROWS else {})})
 
     ops.reset_launches()
     path_rows = (B, B * PROMPT)
@@ -1975,6 +2115,8 @@ def main() -> int:
             print(f"  ptxas {name}: {line}")
     check_prefill_sass(build)
     check_quant_matmul_sass(build)
+    check_quant_matmul_decode_sass(
+        build, torch.cuda.get_device_properties(0).multi_processor_count)
 
     dev = torch.device("cuda")
     t_kern = time.perf_counter()
@@ -1982,6 +2124,8 @@ def main() -> int:
           f"({card}); quant_matmul must be bit-exact:")
     kernels = check_quant_matmul(torch, ops, ref, dev)
     check_quant_matmul_edges(torch, ops, ref, dev)
+    check_quant_matmul_edges(torch, ops, ref, dev, QMM_DECODE_EDGES,
+                             "decode edge")
     kernels += check_attention(torch, ops, ref, dev, bits=8)
     kernels += check_attention(torch, ops, ref, dev, bits=4)
     for bits in (8, 4):

@@ -45,12 +45,36 @@
 //  - Measured (chip_smoke.py): 0.073 ms a layer at M = 2048, 5x its bound.  Each
 //    step's x loads, quantize and barrier-joined phases hold it, not the bytes.
 //
-// Decode (M <= 8, N and K multiples of 4) takes a second kernel: a warp owns four
-// output columns and its 32 lanes split K, so every lane issues its weight loads
-// back to back; four rows of four int8 weights are transposed in registers
-// (__byte_perm) into dp4a operands, and the partial int32 sums meet in a warp
-// shuffle, which is exact in any order.  int4 weights: two packed words unpack into
-// the four int8 words of four K rows.
+// Decode (M <= 8, N and K multiples of 4) takes a second kernel.  What bounds it:
+// the weight bytes, 3.5 MB a smollm-135m layer (1.06 us at 3.35 TB/s; 0.1-0.9 MB a
+// call), with 4-16 integer operations a byte, far below the ridge.  In practice a
+// call's fixed chain (launch, one memory round trip, the reduction) holds it, so
+// the design puts every byte of a call in flight at once and keeps the chain short:
+//  - Split K across a thread block cluster: C blocks (a power of two <= 4, 64 k or
+//    more each) share a column tile of BN = 128, 64 or 32 columns (the widest that
+//    still gives half the SMs a block); block r of the cluster owns k r*kc ..
+//    r*kc+kc-1 (kc a multiple of 8).  smollm-135m's calls run 24-96 blocks.
+//  - A block first loads its K slice of x (warp m row m, 16 bytes a lane, into
+//    registers), then issues all its weight bytes: cp.async of 16-byte pieces
+//    (4-byte words where N or the pointer do not allow them) into a slab of rows of
+//    BN + 16 bytes, at most 32 KB a stage (longer slices run stage after stage);
+//    int4 weights are copied packed.  Then x is quantized as above.
+//  - Thread (cq, ks) of 256 takes columns 4cq .. 4cq+3 of the block's k quads ks,
+//    ks + 256/(BN/4), ...: four rows of four weight bytes are transposed (the same
+//    __byte_perm 4x4) into dp4a operands; int4 enters as 16 x each nibble and the
+//    sum is shifted back by 4 at the end.
+//  - The int32 sums are exact in any order (wrapping; no overflow below the limits
+//    above).  The lanes of a warp that share columns meet by shuffles (at most two
+//    rounds), the 8 warps in shared memory; then each column's block sum goes to
+//    the cluster block that stores the column (block r: columns r*BN/C ..
+//    (r+1)*BN/C - 1) by st.async into its inbox, counted by the inbox's mbarrier.
+//    A cluster barrier, arrived when the first loads are out and waited on before
+//    the first st.async, makes sure every inbox barrier is set up.  The owner adds
+//    its C entries and stores float(acc) * w_scale[n], one bf16 rounding, four
+//    columns (8 bytes) a thread.  No global scratch, no counter.
+//  - Edges: weights past K or N are zero-filled, x rows past M quantize zeros, rows
+//    and columns past M and N are not stored.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,13 +84,8 @@ namespace {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-__device__ __forceinline__ int8_t quantize(float x, float s) {
-  int q = __float2int_rn(x * s);
-  q = max(-127, min(127, q));
-  return static_cast<int8_t>(q);
-}
-
-// low byte = quantize(x, s), for any product that is not NaN (see the note)
+// low byte = int8(clip(rint(x * s), +-127)), for any product that is not NaN
+// (see the note)
 __device__ __forceinline__ uint32_t quantize_bits(float x, float s) {
   const float f = fminf(fmaxf(__fmul_rn(x, s), -127.0f), 127.0f);
   return __float_as_uint(__fadd_rn(f, 12582912.0f));
@@ -91,18 +110,10 @@ __device__ __forceinline__ uint2 quantize_chunk(uint4 v, float s) {
   return make_uint2(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]));
 }
 
-// byte j of the result = the sign-extended low (HI == false) or high nibble
-// of byte j of p
-template <bool HI>
-__device__ __forceinline__ uint32_t nibbles(uint32_t p) {
-  uint32_t r = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int b = static_cast<int8_t>(p >> (8 * j));
-    const int v = HI ? (b >> 4) : (((b & 15) ^ 8) - 8);
-    r |= static_cast<uint32_t>(v & 0xff) << (8 * j);
-  }
-  return r;
+// bf16(a) in the low half, bf16(b) in the high half, each rounded once
+__device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(a)) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(b))) << 16;
 }
 
 // c[j] byte i = byte j of w[i]: four rows of four bytes, transposed
@@ -136,6 +147,44 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
+               : "memory");
+}
+// the address of p in the shared memory of cluster block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a) : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))), "r"(rank));
+  return a;
+}
+// an mbarrier of one arrival, that arrival made and `bytes` expected; its
+// initialization made visible to the cluster's async stores
+__device__ __forceinline__ void mbar_init_expect(uint64_t* bar, int bytes) {
+  const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               "fence.mbarrier_init.release.cluster;\n"
+               "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(b), "r"(bytes) : "memory");
+}
+// 16 bytes into another cluster block's shared memory, counted by its mbarrier
+__device__ __forceinline__ void st_async_v4(uint32_t addr, int4 v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.s32 [%0], "
+               "{%1, %2, %3, %4}, [%5];\n"
+               ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar) : "memory");
+}
+// until the mbarrier's first phase has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar) {
+  const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  uint32_t done = 0;
+  while (!done)
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(b) : "memory");
+}
+// 4 bytes global -> shared; n == 0 zero-fills without reading
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -349,102 +398,224 @@ quant_matmul_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
     }
 }
 
-constexpr int DEC_WARPS = 8;  // column quads per block: 32 columns
+constexpr int DEC_NT = 256;       // threads a decode block
+constexpr int DEC_BUF = 32768;    // bytes: a stage's weight slab, then the int32 sums
+constexpr int DEC_SQ = 128;       // k quads a stage, at most
+constexpr int DEC_CMAX = 4;       // blocks a cluster, at most (8 is portable)
 
-// M <= MR rows; N % 4 == 0 and K % 4 == 0 (4-byte weight loads).
+// M <= MR rows; K % 4 == 0, N % 4 == 0.  Block (column tile t, cluster rank r)
+// owns columns t*BN .. t*BN+BN-1 (BN = 1 << bn_log2) and k slice r*kc ..
+// r*kc+kc-1 (kc % 8 == 0), staged in stages of up to DEC_SQ k quads; the
+// cluster's C blocks share the tile (see the note).
 template <typename T, int WB, int MR>
-__global__ void __launch_bounds__(DEC_WARPS * 32)
-quant_matmul_decode_kernel(const T* __restrict__ x,
-                           const int8_t* __restrict__ w,
+__global__ void __launch_bounds__(DEC_NT, 1)
+quant_matmul_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                            const float* __restrict__ w_scale,
                            const float* __restrict__ act_scale,
-                           __nv_bfloat16* __restrict__ out, int M, int K,
-                           int N) {
-  extern __shared__ __align__(16) int8_t xq[];  // [MR][K] quantized rows
-  const int lane = threadIdx.x % 32;
-  const int n = (blockIdx.x * DEC_WARPS + threadIdx.x / 32) * 4;
+                           __nv_bfloat16* __restrict__ out, int M, int K, int N,
+                           int bn_log2, int kc) {
+  constexpr int E = 16 / sizeof(T);  // x elements in 16 bytes
+  constexpr int RQ = WB / 2;         // weight rows a k quad (packed at WB == 4)
+  // weight slab [rows][P], then the sums [warp][MR][BN]
+  __shared__ __align__(16) int8_t buf[DEC_BUF];
+  __shared__ __align__(16) int8_t xq[MR][4 * DEC_SQ];  // quantized x of a stage
+  __shared__ __align__(16) int inbox[MR * 128];  // [rank][m][BN / C]: sums sent here
+  __shared__ __align__(8) uint64_t inbar;         // counts the inbox's bytes
+  __shared__ float sc[128];                       // w_scale of the stored columns
+  static_assert(DEC_NT / 32 * MR * 128 * 4 <= DEC_BUF, "sums fit the slab");
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = cl.num_blocks(), rank = cl.block_rank(), own_log2 = bn_log2 + 1 - __ffs(C);
+  const int BN = 1 << bn_log2, P = BN + 16, CQ = BN / 4, NKS = DEC_NT / CQ;
+  const int tid = threadIdx.x, cq = tid & (CQ - 1), ks = tid >> (bn_log2 - 2);
+  const int wid = tid >> 5, lane = tid & 31;
+  const int n0 = (blockIdx.x >> (bn_log2 - own_log2)) << bn_log2, own = 1 << own_log2;
+  const int c0 = rank * own;
+  const int k0 = rank * kc, nq = min(K - k0, kc) / 4;  // >= 1: C leaves 64 k a block
+  const int sq = min(DEC_SQ, DEC_BUF / (RQ * P)) & ~1;
   const float s = *act_scale;
-  for (int i = threadIdx.x; i < MR * K; i += DEC_WARPS * 32) {
-    const int m = i / K;
-    xq[i] = m < M ? quantize(to_f32(x[i]), s) : static_cast<int8_t>(0);
-  }
-  __syncthreads();
+  const bool wvec = ((reinterpret_cast<uintptr_t>(w) | static_cast<unsigned>(N)) & 15) == 0;
+  const bool xvec = (reinterpret_cast<uintptr_t>(x) & 15) == 0 && K % E == 0;
+  // w_scale of the stored columns (own <= DEC_NT), into shared memory later
+  const float scv = tid < own && n0 + c0 + tid < N ? w_scale[n0 + c0 + tid] : 0.0f;
 
   int acc[MR][4];
 #pragma unroll
   for (int m = 0; m < MR; ++m)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[m][j] = 0;
-  if (n < N) {  // warp-uniform
-#pragma unroll 4
-    for (int k = lane * 4; k < K; k += 128) {
-      // w0..w3: the int8 weights (k + i, n .. n + 3), i = 0..3
-      uint32_t w0, w1, w2, w3;
-      if (WB == 8) {
-        const int8_t* wp = w + (size_t)k * N + n;
-        w0 = *reinterpret_cast<const uint32_t*>(wp);
-        w1 = *reinterpret_cast<const uint32_t*>(wp + N);
-        w2 = *reinterpret_cast<const uint32_t*>(wp + 2 * (size_t)N);
-        w3 = *reinterpret_cast<const uint32_t*>(wp + 3 * (size_t)N);
-      } else {  // packed byte rows k/2 and k/2 + 1 hold K rows k .. k + 3
-        const int8_t* wp = w + (size_t)(k >> 1) * N + n;
-        const uint32_t p0 = *reinterpret_cast<const uint32_t*>(wp);
-        const uint32_t p1 = *reinterpret_cast<const uint32_t*>(wp + N);
-        w0 = nibbles<false>(p0);
-        w1 = nibbles<true>(p0);
-        w2 = nibbles<false>(p1);
-        w3 = nibbles<true>(p1);
+  for (int q0 = 0; q0 < nq; q0 += sq) {
+    const int qn = min(sq, nq - q0), kb = k0 + 4 * q0;
+    const int rn = qn * RQ, rb = kb * WB / 8;  // weight rows of the stage
+    const int kn = 4 * qn, ppr = xvec ? kn / E : 0;   // k, and 16-byte x pieces a row
+    if (q0 > 0) __syncthreads();  // the last stage's slab is read
+    // x first (the longer chain): warp m loads row m (zeros past M), 16 bytes a
+    // lane; then every weight byte of the stage, zeros past N
+    constexpr int XP = 4 * DEC_SQ / E / 32;  // x pieces a lane, at most
+    uint4 xr[XP];
+#pragma unroll
+    for (int j = 0; j < XP; ++j)
+      xr[j] = wid < M && lane + 32 * j < ppr
+                  ? *reinterpret_cast<const uint4*>(x + (size_t)wid * K + kb + E * (lane + 32 * j))
+                  : make_uint4(0, 0, 0, 0);
+    if (wvec) {
+      for (int i = tid; i < rn * CQ / 4; i += DEC_NT) {
+        const int r = i >> (bn_log2 - 4), c = 16 * (i & (CQ / 4 - 1));
+        const bool ok = n0 + c < N;
+        cp_async16(buf + r * P + c, ok ? w + (size_t)(rb + r) * N + n0 + c : w, ok ? 16 : 0);
       }
-      // byte j of c[j'] = weight (k + j, n + j'): four k of one column
-      const uint32_t lo01 = __byte_perm(w0, w1, 0x5140);
-      const uint32_t hi01 = __byte_perm(w0, w1, 0x7362);
-      const uint32_t lo23 = __byte_perm(w2, w3, 0x5140);
-      const uint32_t hi23 = __byte_perm(w2, w3, 0x7362);
-      const int c[4] = {static_cast<int>(__byte_perm(lo01, lo23, 0x5410)),
-                        static_cast<int>(__byte_perm(lo01, lo23, 0x7632)),
-                        static_cast<int>(__byte_perm(hi01, hi23, 0x5410)),
-                        static_cast<int>(__byte_perm(hi01, hi23, 0x7632))};
+    } else {
+      for (int i = tid; i < rn * CQ; i += DEC_NT) {
+        const int r = i >> (bn_log2 - 2), c = 4 * (i & (CQ - 1));
+        const bool ok = n0 + c < N;
+        cp_async4(buf + r * P + c, ok ? w + (size_t)(rb + r) * N + n0 + c : w, ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+    if (q0 == 0) {  // the inbox's barrier, counted before any block may send; set
+                    // up once the first loads are out (its fence takes a while)
+      if (tid == DEC_NT - 1) mbar_init_expect(&inbar, MR * BN * 4);
+      asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    }
+    if (xvec) {
+#pragma unroll
+      for (int j = 0; j < XP; ++j) {
+        const int k = E * (lane + 32 * j);
+        if (wid >= MR || k >= kn) continue;
+        const uint2 q = quantize_chunk<T>(xr[j], s);
+        if constexpr (E == 8)
+          *reinterpret_cast<uint2*>(&xq[wid][k]) = q;
+        else
+          *reinterpret_cast<uint32_t*>(&xq[wid][k]) = q.x;
+      }
+    } else {
+      for (int i = tid; i < MR * kn; i += DEC_NT) {
+        const int m = i / kn, k = i % kn;
+        xq[m][k] = m < M ? static_cast<int8_t>(quantize_bits(
+                               to_f32(x[(size_t)m * K + kb + k]), s))
+                         : static_cast<int8_t>(0);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    // thread (cq, ks): columns 4cq .. 4cq+3 of quads ks, ks + NKS, ...
+    for (int q = ks; q < qn; q += NKS) {
+      const int8_t* wq = buf + q * RQ * P + 4 * cq;
+      uint32_t rows[4];
+      if constexpr (WB == 8) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) rows[i] = *reinterpret_cast<const uint32_t*>(wq + i * P);
+      } else {  // packed rows 2q, 2q + 1: k 4q .. 4q + 3, each as 16 x its value
+        const uint32_t p0 = *reinterpret_cast<const uint32_t*>(wq);
+        const uint32_t p1 = *reinterpret_cast<const uint32_t*>(wq + P);
+        rows[0] = (p0 << 4) & 0xF0F0F0F0u, rows[1] = p0 & 0xF0F0F0F0u;
+        rows[2] = (p1 << 4) & 0xF0F0F0F0u, rows[3] = p1 & 0xF0F0F0F0u;
+      }
+      uint32_t c[4];  // c[j]: the four k of column 4cq + j
+      transpose4x4(rows, c);
 #pragma unroll
       for (int m = 0; m < MR; ++m) {
-        const int a = *reinterpret_cast<const int*>(&xq[m * K + k]);
+        const int a = *reinterpret_cast<const int*>(&xq[m][4 * q]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[m][j] = __dp4a(a, c[j], acc[m][j]);
+        for (int j = 0; j < 4; ++j) acc[m][j] = __dp4a(a, static_cast<int>(c[j]), acc[m][j]);
       }
     }
   }
+
+  // the block's sums: the 32 / CQ lanes of a warp that share columns meet by
+  // shuffles, the warps in shared memory, red[warp][m][BN]
+  for (int o = CQ; o < 32; o <<= 1)
 #pragma unroll
-  for (int m = 0; m < MR; ++m)
+    for (int m = 0; m < MR; ++m)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < 4; ++j) acc[m][j] += __shfl_xor_sync(0xffffffffu, acc[m][j], o);
+  int* red = reinterpret_cast<int*>(buf);
+  if (tid < own) sc[tid] = scv;
+  __syncthreads();  // the slab is read
+  if ((tid & 31) < CQ)
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        acc[m][j] += __shfl_xor_sync(0xffffffffu, acc[m][j], o);
-  if (lane == 0 && n < N) {
+    for (int m = 0; m < MR; ++m)
+      *reinterpret_cast<int4*>(red + ((tid >> 5) * MR + m) * BN + 4 * cq) =
+          make_int4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every inbox is ready
+  // thread (m, cq) adds the warps' sums of its four columns and sends them to
+  // inbox [rank][m][own] of block 4cq / own, counted by its barrier
+  for (int i = tid; i < MR * CQ; i += DEC_NT) {
+    const int4* d = reinterpret_cast<const int4*>(red) + i;
+    int4 t = d[0];
 #pragma unroll
-    for (int m = 0; m < MR; ++m) {
-      if (m >= M) break;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        out[(size_t)m * N + n + j] = __float2bfloat16_rn(
-            static_cast<float>(acc[m][j]) * w_scale[n + j]);
+    for (int j = 1; j < DEC_NT / 32; ++j) {
+      const int4 v = d[j * MR * CQ];
+      t.x += v.x, t.y += v.y, t.z += v.z, t.w += v.w;
     }
+    const int m = i >> (bn_log2 - 2), c = 4 * (i & (CQ - 1)), dst = c >> own_log2;
+    st_async_v4(cluster_addr(inbox + (rank * MR + m) * own + c - dst * own, dst), t,
+                cluster_addr(&inbar, dst));
+  }
+  mbar_wait(&inbar);  // every block's sums of this block's columns are in
+  // block r stores columns c0 .. c0 + own - 1, four a thread
+  for (int i = tid; i < MR * own / 4; i += DEC_NT) {
+    const int m = i >> (own_log2 - 2), j = 4 * (i & (own / 4 - 1)), n = n0 + c0 + j;
+    if (m >= M || n >= N) continue;
+    int4 t = make_int4(0, 0, 0, 0);
+#pragma unroll
+    for (int b = 0; b < DEC_CMAX; ++b)
+      if (b < C) {
+        const int4 v = *reinterpret_cast<const int4*>(inbox + (b * MR + m) * own + j);
+        t.x += v.x, t.y += v.y, t.z += v.z, t.w += v.w;
+      }
+    if (WB == 4) t.x >>= 4, t.y >>= 4, t.z >>= 4, t.w >>= 4;
+    const float* f = sc + j;
+    *reinterpret_cast<uint2*>(out + (size_t)m * N + n) =
+        make_uint2(bf16_pair(__fmul_rn(static_cast<float>(t.x), f[0]),
+                             __fmul_rn(static_cast<float>(t.y), f[1])),
+                   bf16_pair(__fmul_rn(static_cast<float>(t.z), f[2]),
+                             __fmul_rn(static_cast<float>(t.w), f[3])));
   }
 }
 
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+// blocks a cluster: the largest power of two <= DEC_CMAX that leaves every block
+// 64 k or more (so every block has k quads)
+int decode_cluster(int K) {
+  int c = 1;
+  while (c < DEC_CMAX && 2 * c * 64 <= K) c *= 2;
+  return c;
+}
+
 template <typename T, int WB, int MR>
-void launch_decode(const void* x, const void* w, const void* w_scale,
-                   const void* act_scale, void* out, int M, int K, int N,
-                   cudaStream_t stream) {
-  const size_t smem = (size_t)MR * K;
-  auto kern = quant_matmul_decode_kernel<T, WB, MR>;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  const int cols = DEC_WARPS * 4;
-  kern<<<(N + cols - 1) / cols, DEC_WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(w_scale), static_cast<const float*>(act_scale),
-      static_cast<__nv_bfloat16*>(out), M, K, N);
+cudaError_t launch_decode(const void* x, const void* w, const void* w_scale,
+                          const void* act_scale, void* out, int M, int K, int N,
+                          cudaStream_t stream) {
+  // the widest column tile (128, 64, 32) that still gives half the SMs a block
+  const int C = decode_cluster(K);
+  int bn_log2 = 7;
+  while (bn_log2 > 5 && ((N + (1 << bn_log2) - 1) >> bn_log2) * C < sm_count() / 2) --bn_log2;
+  const int tiles = (N + (1 << bn_log2) - 1) >> bn_log2;
+  const int kc = ((K + C - 1) / C + 7) / 8 * 8;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * C);
+  cfg.blockDim = dim3(DEC_NT);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, quant_matmul_decode_kernel<T, WB, MR>,
+                            static_cast<const T*>(x), static_cast<const int8_t*>(w),
+                            static_cast<const float*>(w_scale),
+                            static_cast<const float*>(act_scale),
+                            static_cast<__nv_bfloat16*>(out), M, K, N, bn_log2, kc);
 }
 
 template <typename T, int WB, int BM, int BN, int MT, bool VEC>
@@ -458,39 +629,30 @@ void launch(const void* x, const void* w, const void* w_scale, const void* act_s
       static_cast<__nv_bfloat16*>(out), M, K, N);
 }
 
-int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n;
-}
-
 template <typename T, int WB>
-void dispatch(const void* x, const void* w, const void* w_scale,
-              const void* act_scale, void* out, int M, int K, int N,
-              cudaStream_t stream) {
-  const bool words = N % 4 == 0 && K % 4 == 0;
-  if (M <= 1 && words)
-    return launch_decode<T, WB, 1>(x, w, w_scale, act_scale, out, M, K, N, stream);
-  if (M <= 2 && words)
-    return launch_decode<T, WB, 2>(x, w, w_scale, act_scale, out, M, K, N, stream);
-  if (M <= 4 && words)
-    return launch_decode<T, WB, 4>(x, w, w_scale, act_scale, out, M, K, N, stream);
-  if (M <= 8 && words)
+cudaError_t dispatch(const void* x, const void* w, const void* w_scale,
+                     const void* act_scale, void* out, int M, int K, int N,
+                     cudaStream_t stream) {
+  if (M <= 8 && N % 4 == 0 && K % 4 == 0 && K > 0) {  // (K = 0: the other kernel's zeros)
+    if (M <= 1) return launch_decode<T, WB, 1>(x, w, w_scale, act_scale, out, M, K, N, stream);
+    if (M <= 2) return launch_decode<T, WB, 2>(x, w, w_scale, act_scale, out, M, K, N, stream);
+    if (M <= 4) return launch_decode<T, WB, 4>(x, w, w_scale, act_scale, out, M, K, N, stream);
     return launch_decode<T, WB, 8>(x, w, w_scale, act_scale, out, M, K, N, stream);
+  }
   const uintptr_t al = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
                        reinterpret_cast<uintptr_t>(out);
-  if (al % 16 || K % (16 / sizeof(T)) || N % 16)
-    return launch<T, WB, 32, 64, 1, false>(x, w, w_scale, act_scale, out, M, K, N, stream);
   // warps span the block's rows (no two warps build the same B fragments); the
   // widest tile that still fills the card, else the one with the shortest chain
   const auto blocks = [&](int bm, int bn) { return ((M + bm - 1) / bm) * ((N + bn - 1) / bn); };
-  if (blocks(64, 128) >= 2 * sm_count())
+  if (al % 16 || K % (16 / sizeof(T)) || N % 16)
+    launch<T, WB, 32, 64, 1, false>(x, w, w_scale, act_scale, out, M, K, N, stream);
+  else if (blocks(64, 128) >= 2 * sm_count())
     launch<T, WB, 64, 128, 4, true>(x, w, w_scale, act_scale, out, M, K, N, stream);
   else if (2 * blocks(32, 128) >= sm_count())
     launch<T, WB, 32, 128, 2, true>(x, w, w_scale, act_scale, out, M, K, N, stream);
   else
     launch<T, WB, 32, 64, 1, true>(x, w, w_scale, act_scale, out, M, K, N, stream);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -498,20 +660,23 @@ void dispatch(const void* x, const void* w, const void* w_scale,
 // x: (M, K) float32 (x_bf16 == 0) or bfloat16 (x_bf16 == 1), row-major;
 // w: (K, N) int8 row-major (w_bits == 8) or (K/2, N) packed int4 (w_bits ==
 // 4, K even); w_scale: (N,) f32; act_scale: one f32 on the device; out:
-// (M, N) bf16.  Launches on `stream`; returns cudaGetLastError().
+// (M, N) bf16.  Launches on `stream`; returns the decode launch's own error (a
+// refused cluster launch) or else cudaGetLastError().
 extern "C" int repro_quant_matmul(const void* x, int x_bf16, const void* w,
                                   int w_bits, const void* w_scale,
                                   const void* act_scale, void* out, int M,
                                   int K, int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M == 0 || N == 0) return 0;  // nothing to write (an empty grid is an error)
+  cudaError_t err;
   if (x_bf16 && w_bits == 4)
-    dispatch<__nv_bfloat16, 4>(x, w, w_scale, act_scale, out, M, K, N, st);
+    err = dispatch<__nv_bfloat16, 4>(x, w, w_scale, act_scale, out, M, K, N, st);
   else if (x_bf16)
-    dispatch<__nv_bfloat16, 8>(x, w, w_scale, act_scale, out, M, K, N, st);
+    err = dispatch<__nv_bfloat16, 8>(x, w, w_scale, act_scale, out, M, K, N, st);
   else if (w_bits == 4)
-    dispatch<float, 4>(x, w, w_scale, act_scale, out, M, K, N, st);
+    err = dispatch<float, 4>(x, w, w_scale, act_scale, out, M, K, N, st);
   else
-    dispatch<float, 8>(x, w, w_scale, act_scale, out, M, K, N, st);
-  return static_cast<int>(cudaGetLastError());
+    err = dispatch<float, 8>(x, w, w_scale, act_scale, out, M, K, N, st);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }

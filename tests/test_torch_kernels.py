@@ -242,9 +242,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# the decode kernel's rows (M <= 8), the tensor-core kernel's small, admission
-# and prefill rows at smollm-135m's K x N, and ragged K and N
-CUDA_QMM_SHAPES = [(m, 576, 192) for m in (1, 4, 9, 17, 128, 2048)] + [
+# the decode kernel's rows (M <= 8: each of its four row bounds), the
+# tensor-core kernel's small, admission and prefill rows at smollm-135m's
+# K x N, and ragged K and N
+CUDA_QMM_SHAPES = [(m, 576, 192) for m in (1, 3, 4, 8, 9, 17, 128, 2048)] + [
     (37, 100, 36)]
 
 

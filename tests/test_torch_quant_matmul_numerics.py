@@ -22,6 +22,17 @@ bf16 x, on .5 ties of x * act_scale, past the clip, and where |acc| >
 2^24.  Where the TPU kernel's tiling allows, it must also give the Pallas
 kernel's bits in interpret mode.  The fragment loads must be free of bank
 conflicts.
+
+The decode kernel (M <= 8, K and N multiples of 4) is emulated the same
+way: the cluster's K slices and each block's column tile, each thread's
+16-byte (or 4-byte) pieces of weights and x, the quantize into packed
+words, the 4x4 ``__byte_perm`` transpose, int4 as 16 x each nibble and the
+shift back by 4, the sums over a block's threads (shuffles within a warp,
+then shared memory across warps), each column's block sum sent to the
+inbox of the cluster block that stores it, and that block's epilogue (its
+columns, masked past M and N).  Every
+weight byte must be read by exactly one thread of one block, and every
+output stored exactly once.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +40,7 @@ import pytest
 import torch
 
 from repro.core.packing import pack_int4 as jpack_int4
+from repro.core.packing import unpack_int4 as junpack_int4
 from repro.kernels import quant_matmul as jqm
 from repro_torch.kernels import ref
 
@@ -105,11 +117,30 @@ C_ROW = G[:, None] + 8 * (np.arange(4)[None, :] >> 1)
 C_COL = 2 * T[:, None] + (np.arange(4)[None, :] & 1)
 
 
+# the decode kernel: threads a block, bytes of its slab, k quads a stage,
+# blocks a cluster (``DEC_*`` in the source)
+DEC_NT, DEC_BUF, DEC_SQ, DEC_CMAX = 256, 32768, 128, 4
+
+
+def decode_split(k, n, sms=SMS):
+    """(BN, C) of the decode kernel (``launch_decode`` in the source): the
+    largest power-of-two cluster <= 4 with 64 k or more a block, and the
+    widest column tile that still gives half the SMs a block."""
+    c = 1
+    while c < DEC_CMAX and 2 * c * 64 <= k:
+        c *= 2
+    bn = 128
+    while bn > 32 and -(-n // bn) * c < sms // 2:
+        bn //= 2
+    return bn, c
+
+
 def dispatch(m, k, n, x_dtype, aligned=True):
-    """The kernel's choice of tile and staging (``dispatch`` in the source):
-    (tile, VEC), or None where the decode kernel takes the call."""
-    if m <= 8 and n % 4 == 0 and k % 4 == 0:
-        return None
+    """The kernel's choice (``dispatch`` in the source): ("decode", BN, C)
+    where the decode kernel takes the call, else the tensor-core kernel's
+    (tile, VEC)."""
+    if m <= 8 and n % 4 == 0 and k % 4 == 0 and k > 0:
+        return ("decode", *decode_split(k, n))
     e = 16 // np.dtype(x_dtype).itemsize if x_dtype != "bf16" else 8
     if not aligned or k % e or n % 16:
         return NARROW, False
@@ -213,6 +244,178 @@ def emulate(x, w_q, w_scale, act_scale, w_bits, tile):
     return out
 
 
+def bf16_bits(f):
+    """float32 -> bf16 bits, rounded to nearest even (torch's conversion)."""
+    return torch.from_numpy(np.ascontiguousarray(f, np.float32)).to(
+        torch.bfloat16).view(torch.uint16).numpy()
+
+
+def quantize_pieces(xp, s, x_dtype):
+    """``quantize_chunk``: 16-byte pieces of x (P, E) (bf16 values held as
+    float32) -> their quantized bytes (P, E), through the kernel's words."""
+    if x_dtype == "bf16":   # word i holds elements 2i (low half), 2i + 1
+        h = (xp.view(np.uint32) >> 16).reshape(-1, 4, 2)
+        u = h[..., 0] | (h[..., 1] << 16)
+        lo = quantize_bits((u << 16).view(np.float32), s)
+        hi = quantize_bits((u & 0xFFFF0000).view(np.float32), s)
+        q = np.stack([lo, hi], -1).reshape(-1, 8)
+        words = [pack4(*q[:, 4 * h_:4 * h_ + 4].T) for h_ in range(2)]
+    else:
+        q = quantize_bits(xp, s)
+        words = [pack4(*q.T)]
+    return bytes_of(np.stack(words, -1)).reshape(len(xp), -1)
+
+
+def emulate_decode(x, w_q, w_scale, act_scale, w_bits, x_dtype, split=None,
+                   aligned=True, trace=None):
+    """The decode kernel's output bits, (M, N) uint16, thread by thread.
+    ``aligned=False``: pointers not on 16 bytes (4-byte weight words,
+    element-wise x).  ``trace`` (a dict) receives ``reads``: (K rows of
+    w_q, N) count of compute-step reads of each weight byte, and
+    ``stores``: (M, N) count of stores of each output."""
+    m, k = x.shape
+    kw, n = w_q.shape
+    mr = next(r for r in (1, 2, 4, 8) if m <= r)
+    bn, cl = split or decode_split(k, n)
+    lg = bn.bit_length() - 1
+    e = 8 if x_dtype == "bf16" else 4
+    rq, p, cqn = w_bits // 2, bn + 16, bn // 4
+    nks = DEC_NT // cqn
+    kc = -(-(-(-k // cl)) // 8) * 8
+    sq = min(DEC_SQ, DEC_BUF // (rq * p)) & ~1
+    wvec = aligned and n % 16 == 0
+    xvec = aligned and k % e == 0
+    wflat = np.ascontiguousarray(w_q).reshape(-1)
+    reads = np.zeros((kw, n), int)
+    stores = np.zeros((m, n), int)
+    out = np.zeros((m, n), np.uint16)
+    for t in range(-(-n // bn)):
+        n0 = t * bn
+        own = bn // cl
+        # each block's inbox [rank][m][own]; -2**40: never written
+        inbox = np.full((cl, cl * mr * own), -2**40, np.int64)
+        for r in range(cl):
+            k0 = r * kc
+            nq = min(k - k0, kc) // 4
+            assert nq >= 1, "a block without k never opens its inbox"
+            acc = np.zeros((DEC_NT, mr, 4), np.int64)
+            for q0 in range(0, nq, sq):
+                qn, kb = min(sq, nq - q0), k0 + 4 * q0
+                rn, rb = qn * rq, kb * w_bits // 8
+                # the weight slab: pieces of `width` bytes, zeros past N;
+                # origin: the w_q row and column of each byte (-1: a zero
+                # fill, -2: never written)
+                buf = np.full(DEC_BUF, 0x55, np.int8)
+                org_r = np.full(DEC_BUF, -2)
+                org_c = np.full(DEC_BUF, -2)
+                width = 16 if wvec else 4
+                i = np.arange(rn * (bn // width))
+                rr = i >> (lg - (4 if wvec else 2))
+                cc = width * (i & (bn // width - 1))
+                ok = n0 + cc < n
+                for b in range(width):
+                    src = np.where(ok, (rb + rr) * n + n0 + cc + b, 0)
+                    buf[rr * p + cc + b] = np.where(ok, wflat[src], 0)
+                    org_r[rr * p + cc + b] = np.where(ok, rb + rr, -1)
+                    org_c[rr * p + cc + b] = np.where(ok, n0 + cc + b, -1)
+                # the stage's x, quantized; rows past M zeros
+                kn = 4 * qn
+                xq = np.full((mr, 4 * DEC_SQ), 0x55, np.int8)
+                if xvec:    # warp w: row w, lane l: pieces l, l + 32, ...
+                    ppr = kn // e
+                    xp = 4 * DEC_SQ // e // 32
+                    wid, lane, j = np.meshgrid(np.arange(8), np.arange(32),
+                                               np.arange(xp), indexing="ij")
+                    p_ = (lane + 32 * j).ravel()
+                    wid = wid.ravel()
+                    load = (wid < m) & (p_ < ppr)
+                    rows = np.zeros((len(p_), e), np.float32)
+                    cols = kb + e * p_[load, None] + np.arange(e)
+                    rows[load] = x[wid[load, None], cols]
+                    qb = quantize_pieces(rows, act_scale, x_dtype)
+                    st_ = (wid < mr) & (p_ < ppr)
+                    xq[wid[st_, None], e * p_[st_, None] + np.arange(e)] = \
+                        qb[st_]
+                else:
+                    for mm in range(mr):
+                        xq[mm, :kn] = (bytes_of(quantize_bits(
+                            x[mm, kb:kb + kn], act_scale))[:, 0]
+                            if mm < m else 0)
+                # thread (cq, ks) takes quads q = ks (mod NKS): pairs (q, cq)
+                q, cq = np.meshgrid(np.arange(qn), np.arange(cqn),
+                                    indexing="ij")
+                tid = (q % nks) * cqn + cq
+                base = q * rq * p + 4 * cq
+                flat = buf[None]
+                if w_bits == 8:
+                    offs = [base + i_ * p for i_ in range(4)]
+                    rows4 = [words_at(flat, o)[0] for o in offs]
+                else:
+                    offs = [base, base + p]
+                    p0, p1 = (words_at(flat, o)[0] for o in offs)
+                    rows4 = [(p0 << 4) & 0xF0F0F0F0, p0 & 0xF0F0F0F0,
+                             (p1 << 4) & 0xF0F0F0F0, p1 & 0xF0F0F0F0]
+                for o in offs:
+                    at = o[..., None] + np.arange(4)
+                    assert (org_r[at] != -2).all(), "read of an unwritten byte"
+                    hit = org_r[at] >= 0
+                    np.add.at(reads, (org_r[at][hit], org_c[at][hit]), 1)
+                c = transpose4x4(rows4)     # c[j]: the four k of column j
+                a = words_at(xq.reshape(1, -1), (np.arange(mr)[:, None]
+                                                 * 4 * DEC_SQ + 4 * q[:, 0]))
+                a = bytes_of(a[0]).astype(np.int64)        # (MR, qn, 4)
+                for j in range(4):
+                    cb = bytes_of(c[j]).astype(np.int64)   # (qn, CQ, 4)
+                    dot = np.einsum("mqb,qcb->qcm", a, cb)
+                    np.add.at(acc[:, :, j], tid.ravel(),
+                              dot.reshape(-1, mr))
+            # the block's sums: lanes of a warp that share columns meet by
+            # shuffles (xor CQ, 2 CQ, ... < 32), then lanes < CQ of each warp
+            # write red[warp][m][BN]; thread (m, cq) adds the warps' sums and
+            # sends them to block 4cq / own's inbox
+            tid = np.arange(DEC_NT)
+            o = cqn
+            while o < 32:
+                acc = acc + acc[tid ^ o]
+                o <<= 1
+            red = np.full((DEC_NT // 32, mr, bn), -2**40, np.int64)
+            wr = tid[(tid & 31) < cqn]
+            for j in range(4):
+                red[wr >> 5, :, 4 * (wr & (cqn - 1)) + j] = acc[wr, :, j]
+            assert (red != -2**40).all(), "a sum never written"
+            i = np.arange(mr * cqn)
+            mm, cc = i >> (lg - 2), 4 * (i & (cqn - 1))
+            dst = cc // own
+            at = ((r * mr + mm) * own + cc - dst * own)[:, None] + np.arange(4)
+            assert len(set(zip(dst, at[:, 0]))) == len(i)
+            assert (inbox[dst[:, None], at] == -2**40).all()
+            inbox[dst[:, None], at] = red.sum(0)[mm[:, None],
+                                                 cc[:, None] + np.arange(4)]
+        # block r stores columns r*own ..: four a thread, its C inbox entries
+        for r in range(cl):
+            c0 = r * own
+            sc = np.array([w_scale[n0 + c0 + i] if n0 + c0 + i < n else 0
+                           for i in range(own)], np.float32)
+            i = np.arange(mr * own // 4)
+            mm, j = i // (own // 4), 4 * (i % (own // 4))
+            live = (mm < m) & (n0 + c0 + j < n)
+            mm, j = mm[live], j[live]
+            got = np.stack([inbox[r, ((b * mr + mm) * own + j)[:, None]
+                                  + np.arange(4)] for b in range(cl)])
+            assert (got != -2**40).all(), "an inbox entry never written"
+            tot = got.sum(0).astype(np.uint32).view(np.int32)
+            if w_bits == 4:
+                tot = tot >> 4
+            f = tot.astype(np.float32) * sc[j[:, None] + np.arange(4)]
+            cols = n0 + c0 + j[:, None] + np.arange(4)
+            out[mm[:, None], cols] = bf16_bits(f)
+            np.add.at(stores, (np.broadcast_to(mm[:, None], cols.shape),
+                               cols), 1)
+    if trace is not None:
+        trace.update(reads=reads, stores=stores)
+    return out
+
+
 def plain_bits(x, w_q, w_scale, act_scale, w_bits, x_dtype):
     xt = torch.from_numpy(x)
     if x_dtype == "bf16":
@@ -248,6 +451,13 @@ def check(m, k, n, w_bits, x_dtype, seed=0, tile=None, **kw):
     tile = tile or dispatch(m, k, n, x_dtype)[0]
     np.testing.assert_array_equal(emulate(x, w, ws, act, w_bits, tile),
                                   plain_bits(x, w, ws, act, w_bits, x_dtype))
+
+
+def check_decode(m, k, n, w_bits, x_dtype, seed=0, ties=False, **kw):
+    x, w, ws, act = inputs(m, k, n, w_bits, x_dtype, seed, ties=ties)
+    np.testing.assert_array_equal(
+        emulate_decode(x, w, ws, act, w_bits, x_dtype, **kw),
+        plain_bits(x, w, ws, act, w_bits, x_dtype))
 
 
 def test_byte_perm_selects_bytes_of_y_x():
@@ -390,7 +600,9 @@ def test_dispatch_picks_the_tiles_measured_fastest():
             (128, 1536): TILES[2], (128, 192): TILES[2]}
     for (m, n), tile in want.items():
         assert dispatch(m, 576, n, "bf16") == (tile, True), (m, n)
-    assert dispatch(8, 576, 192, "bf16") is None
+    assert dispatch(8, 576, 192, "bf16") == ("decode", 32, 4)
+    assert dispatch(8, 576, 194, "bf16") == (NARROW, False)
+    assert dispatch(4, 0, 192, "bf16") == (TILES[-1], True)
     assert dispatch(9, 576, 200, "bf16") == (NARROW, False)
     assert dispatch(37, 100, 32, "float32") == (TILES[-1], True)
     assert dispatch(37, 100, 32, "bf16") == (NARROW, False)
@@ -456,4 +668,111 @@ def test_pallas_interpret_where_its_tiling_allows(w_bits, blocks):
                             w_bits=w_bits, interpret=True, **blocks)
     got = emulate(x, w, ws, act, w_bits, dispatch(40, 64, w.shape[1],
                                                   "bf16")[0])
+    np.testing.assert_array_equal(got, np.asarray(want).view(np.uint16))
+
+
+# (K, N) of chip_smoke.py's QMM_DECODE_EDGES: smollm-135m's widths, K and N
+# that end a cluster slice, a column tile or a 16-byte piece early
+DECODE_EDGE_KN = ((576, 192), (1536, 576), (576, 1536), (100, 36), (4, 4),
+                  (8, 1540))
+
+
+def test_decode_split_for_smollm_widths():
+    """24-96 blocks a call: N = 1536 in tiles of 64, 576 and 192 of 32,
+    each tile's K split across a cluster of 4."""
+    want = {(576, 576): (32, 4), (576, 192): (32, 4), (576, 1536): (64, 4),
+            (1536, 576): (32, 4)}
+    for (k, n), split in want.items():
+        assert decode_split(k, n) == split, (k, n)
+        for m in (1, 4, 8):
+            assert dispatch(m, k, n, "bf16") == ("decode", *split)
+    blocks = {kn: -(-kn[1] // bn) * c for kn, (bn, c) in want.items()}
+    assert sorted(blocks.values()) == [24, 72, 72, 96]
+    assert decode_split(100, 36) == (32, 1) and decode_split(4, 4) == (32, 1)
+    assert decode_split(256, 4096) == (128, 4)
+    assert decode_split(200, 4096) == (64, 2)
+
+
+@pytest.mark.parametrize("w_bits", [8, 4])
+@pytest.mark.parametrize("k,n", SMOLLM)
+@pytest.mark.parametrize("m", range(1, 9))
+def test_decode_smollm_widths_bit_exact(m, k, n, w_bits):
+    check_decode(m, k, n, w_bits, "bf16", seed=m * 7 + k + n)
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bf16"])
+@pytest.mark.parametrize("w_bits", [8, 4])
+@pytest.mark.parametrize("k,n", DECODE_EDGE_KN)
+def test_decode_edges_bit_exact(k, n, w_bits, x_dtype):
+    """QMM_DECODE_EDGES' rows on .5 ties of x * act_scale and past the
+    clip."""
+    for m in (1, 2, 3, 5, 7, 8):
+        check_decode(m, k, n, w_bits, x_dtype, seed=k + n + m, ties=True)
+
+
+@pytest.mark.parametrize("w_bits", [8, 4])
+def test_decode_acc_past_2_24(w_bits):
+    """All +-127 activations and extreme weights at K = 1536."""
+    m, k, n = 8, 1536, 576
+    rng = np.random.default_rng(6)
+    x = np.where(rng.random((m, k)) < 0.9, 300.0, -300.0).astype(np.float32)
+    hi = 7 if w_bits == 4 else 127
+    w = np.where(rng.random((k, n)) < 0.95, hi, -hi).astype(np.int8)
+    if w_bits == 4:
+        w = np.array(jpack_int4(jnp.asarray(w), axis=0))
+    ws = (rng.random(n) + 0.5).astype(np.float32)
+    act = np.float32(1.0)
+    got = emulate_decode(x, w, ws, act, w_bits, "float32")
+    np.testing.assert_array_equal(got, plain_bits(x, w, ws, act, w_bits,
+                                                  "float32"))
+    w8 = w if w_bits == 8 else np.array(junpack_int4(jnp.asarray(w), axis=0))
+    acc = np.clip(np.rint(x), -127, 127).astype(np.int64) @ w8.astype(
+        np.int64) * (16 if w_bits == 4 else 1)
+    assert np.abs(acc).max() > 2**24     # the kernel's int32 sums
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bf16"])
+@pytest.mark.parametrize("w_bits", [8, 4])
+def test_decode_unaligned_pointers_take_words(w_bits, x_dtype):
+    """Pointers off 16 bytes: 4-byte weight words and element-wise x."""
+    check_decode(5, 576, 192, w_bits, x_dtype, seed=21, ties=True,
+                 aligned=False)
+
+
+@pytest.mark.parametrize("w_bits", [8, 4])
+def test_decode_slices_longer_than_a_stage(w_bits):
+    """K = 8192 in a cluster of 4: 512 quads a block, two or more stages
+    of its slab."""
+    bn, c = decode_split(8192, 128)
+    kc = 8192 // c
+    sq = min(DEC_SQ, DEC_BUF // (w_bits // 2 * (bn + 16))) & ~1
+    assert kc // 4 > sq
+    check_decode(3, 8192, 128, w_bits, "bf16", seed=4)
+
+
+@pytest.mark.parametrize("w_bits,k,n", [(8, 576, 192), (4, 576, 1536),
+                                        (8, 1536, 576), (4, 100, 36),
+                                        (8, 4, 4), (4, 8, 1540)])
+def test_decode_reads_each_weight_once_and_stores_each_output_once(
+        w_bits, k, n):
+    """Every weight byte (k, n) is read by exactly one thread of exactly one
+    block; every output (m < M, n < N) is stored once, nothing else."""
+    x, w, ws, act = inputs(5, k, n, w_bits, "bf16", seed=2)
+    trace = {}
+    emulate_decode(x, w, ws, act, w_bits, "bf16", trace=trace)
+    assert (trace["reads"] == 1).all()
+    assert (trace["stores"] == 1).all()
+
+
+@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("w_bits,blocks", [(8, {}),
+                                           (4, dict(block_m=16, block_n=16,
+                                                    block_k=32))])
+def test_decode_pallas_interpret_where_its_tiling_allows(m, w_bits, blocks):
+    x, w, ws, act = inputs(m, 64, 32 if w_bits == 8 else 16, w_bits, "bf16",
+                           seed=3, ties=True)
+    want = jqm.quant_matmul(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w),
+                            jnp.asarray(ws), jnp.asarray(act),
+                            w_bits=w_bits, interpret=True, **blocks)
+    got = emulate_decode(x, w, ws, act, w_bits, "bf16")
     np.testing.assert_array_equal(got, np.asarray(want).view(np.uint16))
