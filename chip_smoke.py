@@ -21,7 +21,10 @@
    attention also at the
    edge cases of ``PREFILL_EDGES``; the decode attention also at the chunk
    boundaries of its sequence split, and bit for bit against the same rows
-   in a cache of 1024 positions), and times kernel, plain version and one
+   in a cache of 1024 positions; the prefill attention also over a bf16 K/V
+   stream with unit scales, a float cache's, with bf16 and float32 q and
+   at ``PREFILL_EDGES``), and times kernel (warm, and the attentions and
+   fake_quant also with the L2 cache flushed), plain version and one
    PyTorch library call as a yardstick;
 3. drives the int8 main path at the full width of smollm-135m (30 layers,
    seeded random weights): ``Engine.from_checkpoint`` -> §2 calibration ->
@@ -29,6 +32,14 @@
    generated tokens, and checks that every kernel was launched by it;
 4. holds the GPU logits and greedy tokens against the same engine moved to
    the CPU (the plain versions), teacher-forced on the GPU's tokens;
+4b. [bf16_w_bf16_kv], [bf16_w_int8_kv], [int8_w_bf16_kv]: the reference's
+   other serving modes (``fp`` and ``kv_int8``) at full width, each through
+   3 and 4: bf16 weights launch no quant_matmul, a bf16 KV cache runs its
+   prefill through B2's bf16 branch and decodes in plain attention (no
+   B1); with a breakdown of device time each; [int8_w_bf16_kv paged path]
+   its paged twin (bf16 pool), bit-identical to the dense cache;
+   [bf16_w_bf16_kv scheduler] 8 ragged requests through 8 slots of a bf16
+   pool;
 5. [finetune] builds the int4 engine with 2 epochs of the paper's §3
    threshold fine-tune on the card (``kv_bits=4, finetune_thresholds=2``)
    and checks its losses; fine-tunes from KV thresholds 4x too wide, where
@@ -37,8 +48,8 @@
 6. [int4 path] drives that engine's ``generate_batch`` (int4 KV cache,
    the kernels' int4 variants) and holds it against the CPU as in 4;
 7. [kernels], paged: both attention kernels over a page pool read through
-   a permuted block table (one page mapped into two rows), int8 and int4,
-   pages of 16 and 64, at the scheduler's decode shape and the paged
+   a permuted block table (one page mapped into two rows), int8 and int4
+   (and the prefill kernel over a bf16 pool), pages of 16 and 64, at the scheduler's decode shape and the paged
    path's prefill chunk (also at D 128, bf16 and float32 q): against their
    plain versions, and bit for bit against the dense kernel on the
    gathered copy; timed beside it;
@@ -105,6 +116,10 @@ import time
 import numpy as np
 
 B, PROMPT, GEN = 4, 512, 32
+# the reference's serving modes beside int8 weights over an int8 cache
+SERVING_MODES = {"bf16_w_bf16_kv": dict(fp=True, kv_int8=False),
+                 "bf16_w_int8_kv": dict(fp=True, kv_int8=True),
+                 "int8_w_bf16_kv": dict(fp=False, kv_int8=False)}
 # the paged path and the scheduler: chunked prefill, pages, slot batch
 CHUNK, PAGE, SLOTS, BLOCK_STEPS, N_REQUESTS = 128, 64, 8, 8, 16
 # the sequence-parallel paths: shards, and the scheduler's slots, requests
@@ -221,14 +236,16 @@ def bound_ms(nbytes, ops, rate):
 
 def prefill_variant(mangled):
     """'q bf16, D<=64, int8, dense' from a mangled
-    ``prefill_attention_kernel<T, DCH, BITS, PAGED>`` name."""
-    m = re.search(r"prefill_attention_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d)"
+    ``prefill_attention_kernel<T, DCH, BITS, PAGED>`` name (BITS 16: bf16
+    K/V)."""
+    m = re.search(r"prefill_attention_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d+)"
                   r"ELb(\d)E", mangled)
     if m is None:
         return mangled
     t, dch, bits, paged = m.groups()
+    kv = "bf16 K/V" if bits == "16" else f"int{bits}"
     return (f"q {'f32' if t == 'f' else 'bf16'}, D<={64 * int(dch)}, "
-            f"int{bits}, {'paged' if paged == '1' else 'dense'}")
+            f"{kv}, {'paged' if paged == '1' else 'dense'}")
 
 
 def ptxas_resources(build, lib):
@@ -252,8 +269,9 @@ def ptxas_resources(build, lib):
 
 def check_prefill_sass(build):
     """B2 runs on the tensor cores: every instantiation of
-    ``prefill_attention_kernel`` holds HMMA instructions (cuobjdump -sass);
-    prints each one's registers and spills (ptxas -v) beside its count."""
+    ``prefill_attention_kernel`` holds HMMA instructions (cuobjdump -sass)
+    and spills no register (ptxas -v); prints each one's registers and
+    spills beside its count."""
     res = ptxas_resources(build, "prefill_attention")
     hmma = build.sass_counts("prefill_attention", "prefill_attention_kernel",
                              "HMMA")
@@ -261,10 +279,17 @@ def check_prefill_sass(build):
         regs, spill = res.get(name, ("?", "?"))
         print(f"  prefill_attention_kernel [{prefill_variant(name)}]: {n} "
               f"HMMA, {regs} registers, spill stores {spill} bytes")
-    # q bf16/f32 x D <= 64/128 x int8/int4 x dense/paged
-    if len(hmma) != 16 or min(hmma.values()) == 0:
-        raise AssertionError(f"prefill_attention: expected 16 instantiations, "
+    # q bf16/f32 x D <= 64/128 x int8/int4/bf16 K/V x dense/paged
+    if len(hmma) != 24 or min(hmma.values()) == 0:
+        raise AssertionError(f"prefill_attention: expected 24 instantiations, "
                              f"each with HMMA instructions; got {hmma}")
+    spilled = {prefill_variant(n): r[1] for n, r in res.items()
+               if "prefill_attention_kernel" in n and r[1] not in (0, "?")}
+    if spilled:
+        raise AssertionError(f"prefill_attention spills registers: {spilled}")
+    if len(res) < len(hmma):
+        print("  (registers and spills not checked: the library was built "
+              "by an earlier process, whose ptxas log this one lacks)")
 
 
 def qmm_variant(mangled):
@@ -511,8 +536,8 @@ def check_quant_matmul(torch, ops, ref, dev):
 
 
 def dequant_heads(torch, t, scale, groups, bits):
-    """(B, S, KV, D) int8 or (B, S, KV, D/2) packed int4 -> (B, KV*G, S, D)
-    bf16 for the SDPA yardstick."""
+    """(B, S, KV, D) int8 or bf16, or (B, S, KV, D/2) packed int4 -> (B,
+    KV*G, S, D) bf16 for the SDPA yardstick."""
     from repro_torch.core.packing import unpack_int4
 
     if bits == 4:
@@ -522,7 +547,7 @@ def dequant_heads(torch, t, scale, groups, bits):
 
 
 # B2's edge cases: (q dtype, D, G, Sq, Sk, q_start, kv_len, window) at B = 4.
-# A float32 q at the main shape; D not a multiple of 16 (8, 40) and the
+# A float32 q at the main shape; D not a multiple of 16 (8, 40, 72) and the
 # widest (128); one and 64 query heads per KV head (a query tile of 64
 # positions, and of one); Sq not a multiple of the tile; kv_len 0 and 1.
 PREFILL_EDGES = [
@@ -533,37 +558,62 @@ PREFILL_EDGES = [
     ("f32", 128, 64, 37, 100, [63, 0, 20, 5], [100, 37, 1, 60], 16),
     ("bf16", 24, 64, 5, 70, [65, 0, 2, 0], [70, 5, 0, 1], 3),
     ("f32", 8, 1, 70, 70, [0, 0, 0, 0], [70, 1, 0, 33], None),
+    ("bf16", 72, 3, 150, 200, [0, 50, 7, 0], [150, 200, 0, 1], 64),
 ]
 
 
-def check_prefill_edges(torch, ops, ref, dev, bits, gen):
-    """B2 at each of ``PREFILL_EDGES`` with a ``bits``-wide K/V stream,
-    against its plain version (``ATTN_TOL``); a request with kv_len 0 must
-    come out as exact zeros."""
+def kv_kind(bits):
+    """The K/V stream of a ``bits`` code: 8 int8, 4 packed int4, 16 bf16."""
+    return {8: "int8", 4: "int4 packed", 16: "bf16"}[bits]
+
+
+def kv_stream(torch, gen, dev, shape, bits):
+    """Seeded K/V tiles of the (B, S, KV, D) ``shape``: int8 values, int4
+    values packed two per byte, or (``bits`` 16) bf16 normal values, a
+    float cache's."""
     from repro_torch.core.packing import pack_int4
 
+    if bits == 16:
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
     lv = 127 if bits == 8 else 7
+    t = torch.randint(-lv, lv + 1, shape, generator=gen, device=dev,
+                      dtype=torch.int8)
+    return pack_int4(t) if bits == 4 else t
+
+
+def kv_scales(torch, gen, dev, bits, kvh=3):
+    """Per-head dequant scales: the int8/int4 ranges, or ones (bf16)."""
+    if bits == 16:
+        return [torch.ones((kvh,), device=dev) for _ in range(2)]
+    return [torch.rand((kvh,), generator=gen, device=dev) * 0.05 + 0.01
+            for _ in range(2)]
+
+
+def check_prefill_edges(torch, ops, ref, dev, bits, gen):
+    """B2 at each of ``PREFILL_EDGES`` with a ``bits`` K/V stream (16: bf16),
+    against its plain version (``ATTN_TOL``); a request with kv_len 0 must
+    come out as exact zeros."""
+    kv_bits = 8 if bits == 16 else bits
     for dtype, d, g, sq, sk, q_start, kv_len, window in PREFILL_EDGES:
         q = torch.randn((B, sq, 3, g, d), generator=gen, device=dev)
         if dtype == "bf16":
             q = q.to(torch.bfloat16)
-        kv = [torch.randint(-lv, lv + 1, (B, sk, 3, d), generator=gen,
-                            device=dev, dtype=torch.int8) for _ in range(2)]
-        if bits == 4:
-            kv = [pack_int4(t) for t in kv]
-        scales = [torch.rand((3,), generator=gen, device=dev) * 0.05 + 0.01
-                  for _ in range(2)]
+        kv = [kv_stream(torch, gen, dev, (B, sk, 3, d), bits)
+              for _ in range(2)]
+        scales = kv_scales(torch, gen, dev, bits)
         qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
         kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
         got = ops.prefill_attention(q, *kv, *scales, qs, kl, causal=True,
-                                    window=window, kv_bits=bits)
+                                    window=window, kv_bits=kv_bits)
         want = ref.prefill_attention_ref(q, *kv, *scales, qs, kl,
                                          causal=True, window=window,
-                                         kv_bits=bits)
+                                         kv_bits=kv_bits)
         torch.cuda.synchronize()
         e = (got - want).abs().max().item()
         case = (f"q {dtype}, D={d}, G={g}, Sq={sq}, Sk={sk}, q_start="
-                f"{q_start}, kv_len={kv_len}, window={window}, int{bits}")
+                f"{q_start}, kv_len={kv_len}, window={window}, "
+                f"{kv_kind(bits)}")
         print(f"  prefill_attention edge case [{case}]: max|err| {e:.2e}")
         if not e <= ATTN_TOL * (1 + want.abs().max().item()):
             raise AssertionError(f"prefill_attention disagrees with its plain "
@@ -645,27 +695,27 @@ def check_decode_edges(torch, ops, ref, dev, bits, gen):
 
 
 def check_attention(torch, ops, ref, dev, bits):
-    """Both attention kernels at the main path's shapes with a ``bits``-wide
-    K/V stream (int8, or int4 packed two per byte): against their plain
-    versions (main-path, ragged and windowed cases), then timed."""
+    """Both attention kernels at the main path's shapes with a ``bits`` K/V
+    stream (8: int8, 4: int4 packed two per byte, 16: bf16 with unit
+    scales, which only the prefill kernel takes): against their plain
+    versions (main-path, ragged and windowed cases; bf16 also with a
+    float32 q), then timed, warm and with the L2 flushed before each
+    call."""
     import torch.nn.functional as F
 
-    from repro_torch.core.packing import pack_int4
     from repro_torch.kernels.decode_attention import SPLIT
 
     kvh, g, d = 3, 3, 64
-    lv = 127 if bits == 8 else 7
+    kv_bits = 8 if bits == 16 else bits
     cache_len = -(-(PROMPT + GEN) // 128) * 128
     gen = torch.Generator(device=dev).manual_seed(1)
-    k_scale = torch.rand((kvh,), generator=gen, device=dev) * 0.05 + 0.01
-    v_scale = torch.rand((kvh,), generator=gen, device=dev) * 0.05 + 0.01
-    tag = "int8" if bits == 8 else "int4 packed"
-    variant = "" if bits == 8 else "@int4"
+    k_scale, v_scale = kv_scales(torch, gen, dev, bits, kvh)
+    tag = kv_kind(bits)
+    variant = {8: "", 4: "@int4", 16: "@bf16"}[bits]
+    flush = l2_flush(torch, dev)
 
     def tiles(shape):
-        t = torch.randint(-lv, lv + 1, shape, generator=gen, device=dev,
-                          dtype=torch.int8)
-        return pack_int4(t) if bits == 4 else t
+        return kv_stream(torch, gen, dev, shape, bits)
 
     def kv_bytes(n_pos):        # K and V of n_pos positions, one layer
         return 2 * B * n_pos * kvh * d * bits // 8
@@ -685,25 +735,39 @@ def check_attention(torch, ops, ref, dev, bits):
               torch.tensor([512, 300, 1, 0], dtype=torch.int32, device=dev),
               None),
              (zero, full, 100)]
-    for q_start, kv_len, window in cases:
-        got = ops.prefill_attention(q, k, v, k_scale, v_scale, q_start,
-                                    kv_len, causal=True, window=window,
-                                    kv_bits=bits)
-        want = ref.prefill_attention_ref(q, k, v, k_scale, v_scale, q_start,
-                                         kv_len, causal=True, window=window,
-                                         kv_bits=bits)
-        torch.cuda.synchronize()
-        e = (got - want).abs().max().item()
-        if not e <= ATTN_TOL * (1 + want.abs().max().item()):
-            raise AssertionError(f"prefill_attention ({tag}) disagrees with "
-                                 f"its plain version: max |diff| {e} "
-                                 f"(window={window})")
-        err = max(err, e)
+    q_dtypes = (torch.bfloat16, torch.float32) if bits == 16 else (
+        torch.bfloat16,)
+    for q_dtype in q_dtypes:
+        for q_start, kv_len, window in cases:
+            got = ops.prefill_attention(q.to(q_dtype), k, v, k_scale,
+                                        v_scale, q_start, kv_len,
+                                        causal=True, window=window,
+                                        kv_bits=kv_bits)
+            want = ref.prefill_attention_ref(q.to(q_dtype), k, v, k_scale,
+                                             v_scale, q_start, kv_len,
+                                             causal=True, window=window,
+                                             kv_bits=kv_bits)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            if not e <= ATTN_TOL * (1 + want.abs().max().item()):
+                raise AssertionError(
+                    f"prefill_attention ({tag}, q {q_dtype}) disagrees with "
+                    f"its plain version: max |diff| {e} (window={window})")
+            empty = kv_len == 0
+            if not torch.equal(got[empty], torch.zeros_like(got[empty])):
+                raise AssertionError(f"prefill_attention ({tag}): a request "
+                                     "with kv_len 0 is not exact zeros")
+            err = max(err, e)
     check_prefill_edges(torch, ops, ref, dev, bits, gen)
-    ms, call = timed(torch, lambda: ops.prefill_attention(
-        q, k, v, k_scale, v_scale, zero, full, causal=True, kv_bits=bits))
+
+    def prefill():
+        return ops.prefill_attention(q, k, v, k_scale, v_scale, zero, full,
+                                     causal=True, kv_bits=kv_bits)
+
+    ms, call = timed(torch, prefill)
+    cold = cold_ms(torch, prefill, flush, "prefill_attention_kernel")
     plain, _ = timed(torch, lambda: ref.prefill_attention_ref(
-        q, k, v, k_scale, v_scale, zero, full, causal=True, kv_bits=bits),
+        q, k, v, k_scale, v_scale, zero, full, causal=True, kv_bits=kv_bits),
         iters=5, warmup=1)
     qh = q.permute(0, 2, 3, 1, 4).reshape(B, kvh * g, PROMPT, d).contiguous()
     kh = dequant_heads(torch, k, k_scale, g, bits)
@@ -714,17 +778,20 @@ def check_attention(torch, ops, ref, dev, bits):
     nbytes = q.numel() * 2 + kv_bytes(PROMPT) + 8 * kvh + 8 * B + q.numel() * 4
     bnd, by = bound_ms(nbytes, 4 * d * pairs * B * kvh * g, BF16_FLOPS_PER_S)
     print(f"  prefill_attention [{tag}] B={B} S={PROMPT} KV={kvh} G={g} "
-          f"D={d}: {ms * 1e3:.1f} us (per call {call * 1e3:.1f} us)  plain "
-          f"{plain * 1e3:.1f} us  bound {bnd * 1e3:.2f} us  sdpa "
-          f"{lib * 1e3:.1f} us  max|err| {err:.2e} (tolerance {ATTN_TOL} x "
-          f"(1 + max|out|))")
+          f"D={d}: {ms * 1e3:.1f} us warm, {cold * 1e3:.1f} us L2-cold (per "
+          f"call {call * 1e3:.1f} us)  plain {plain * 1e3:.1f} us  bound "
+          f"{bnd * 1e3:.2f} us  sdpa {lib * 1e3:.1f} us  max|err| {err:.2e} "
+          f"over q {[str(t).split('.')[-1] for t in q_dtypes]} (tolerance "
+          f"{ATTN_TOL} x (1 + max|out|))")
     entries.append({
         "name": f"prefill_attention[{tag} K/V, B={B}, S={PROMPT}, one layer]",
         "route": "cuda", "source": "src/repro_torch/csrc/prefill_attention.cu",
         "replaces": "src/repro/kernels/prefill_attention.py:192",
         "kernel": "prefill_attention" + variant, "max_abs_err": err, "ms": ms,
-        "call_ms": call, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-        "library_ms": lib})
+        "cold_ms": cold, "call_ms": call, "plain_ms": plain, "bound_ms": bnd,
+        "bound_by": by, "library_ms": lib})
+    if bits == 16:
+        return entries      # the decode kernels read quantized tiles only
 
     # -- decode: mid-generation position, then ragged positions incl. 0 and
     # the chunk boundaries; then the same rows in a longer cache ------------
@@ -762,8 +829,13 @@ def check_attention(torch, ops, ref, dev, bits):
                 f"{(got - longer).abs().max().item()}")
         err = max(err, e)
     check_decode_edges(torch, ops, ref, dev, bits, gen)
-    ms, call = timed(torch, lambda: ops.decode_attention(
-        qd, kc, vc, k_scale, v_scale, pos, kv_bits=bits))
+
+    def decode():
+        return ops.decode_attention(qd, kc, vc, k_scale, v_scale, pos,
+                                    kv_bits=bits)
+
+    ms, call = timed(torch, decode)
+    cold = cold_ms(torch, decode, flush, "decode_attention_kernel")
     plain, _ = timed(torch, lambda: ref.decode_attention_ref(
         qd, kc, vc, k_scale, v_scale, pos, kv_bits=bits))
     qh = qd.reshape(B, kvh * g, 1, d)
@@ -774,7 +846,8 @@ def check_attention(torch, ops, ref, dev, bits):
               + qd.numel() * 4)
     bnd, by = bound_ms(nbytes, 4 * B * kvh * g * cur * d, BF16_FLOPS_PER_S)
     print(f"  decode_attention [{tag}] B={B} cache={cache_len} cur_pos={cur}: "
-          f"{ms * 1e3:.1f} us (per call {call * 1e3:.1f} us)  plain "
+          f"{ms * 1e3:.1f} us warm, {cold * 1e3:.1f} us L2-cold (per call "
+          f"{call * 1e3:.1f} us)  plain "
           f"{plain * 1e3:.1f} us  bound {bnd * 1e3:.2f} us  sdpa "
           f"{lib * 1e3:.1f} us  max|err| {err:.2e} over {len(cases)} cur_pos "
           f"cases incl. the chunk boundaries of {SPLIT} (tolerance "
@@ -786,27 +859,20 @@ def check_attention(torch, ops, ref, dev, bits):
         "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:172",
         "kernel": "decode_attention" + variant, "max_abs_err": err, "ms": ms,
-        "call_ms": call, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-        "library_ms": lib, "split": SPLIT})
+        "cold_ms": cold, "call_ms": call, "plain_ms": plain, "bound_ms": bnd,
+        "bound_by": by, "library_ms": lib, "split": SPLIT})
     return entries
 
 
 def paged_inputs(torch, dev, gen, b, cap, page, bits, kvh=3, d=64):
-    """K/V pools of ``b`` rows of ``cap`` positions in pages of ``page``
-    (and two spare pages), with a seeded permuted block table in which rows
-    0 and 1 share their first page (a shared prefix page)."""
-    from repro_torch.core.packing import pack_int4
-
-    lv = 127 if bits == 8 else 7
+    """K/V pools (int8, packed int4 or, ``bits`` 16, bf16) of ``b`` rows of
+    ``cap`` positions in pages of ``page`` (and two spare pages), with a
+    seeded permuted block table in which rows 0 and 1 share their first
+    page (a shared prefix page)."""
     nb = cap // page
     pages = b * nb + 2
-
-    def pool():
-        t = torch.randint(-lv, lv + 1, (pages, page, kvh, d), generator=gen,
-                          device=dev, dtype=torch.int8)
-        return pack_int4(t) if bits == 4 else t
-
-    kp, vp = pool(), pool()
+    kp, vp = (kv_stream(torch, gen, dev, (pages, page, kvh, d), bits)
+              for _ in range(2))
     perm = torch.randperm(pages, generator=gen, device=dev)
     table = perm[:b * nb].reshape(b, nb).to(torch.int32)
     table[1, 0] = table[0, 0]
@@ -816,10 +882,11 @@ def paged_inputs(torch, dev, gen, b, cap, page, bits, kvh=3, d=64):
 def check_paged_attention(torch, ops, ref, dev, bits, page):
     """Both attention kernels over a paged pool: the scheduler's decode shape
     (8 slots, cache 640, ragged positions including 0) and the paged path's
-    prefill chunk (4 rows, 128 queries at position 384, 512 keys).  Each is
-    held against its plain version (``ATTN_TOL``) and against the dense
-    kernel on the gathered contiguous copy (bit for bit), and timed beside
-    it; returns the JSON entries."""
+    prefill chunk (4 rows, 128 queries at position 384, 512 keys); a bf16
+    pool (``bits`` 16) the prefill chunk only.  Each is held against its
+    plain version (``ATTN_TOL``) and against the dense kernel on the
+    gathered contiguous copy (bit for bit), and timed beside it; returns
+    the JSON entries."""
     import torch.nn.functional as F
 
     from repro_torch.cache import KernelView
@@ -827,10 +894,10 @@ def check_paged_attention(torch, ops, ref, dev, bits, page):
 
     kvh, g, d = 3, 3, 64
     gen = torch.Generator(device=dev).manual_seed(7 + bits + page)
-    k_scale = torch.rand((kvh,), generator=gen, device=dev) * 0.05 + 0.01
-    v_scale = torch.rand((kvh,), generator=gen, device=dev) * 0.05 + 0.01
-    tag = f"paged {'int8' if bits == 8 else 'int4 packed'} K/V, page {page}"
-    variant = "@paged" if bits == 8 else "@paged-int4"
+    k_scale, v_scale = kv_scales(torch, gen, dev, bits, kvh)
+    kv_bits = 8 if bits == 16 else bits
+    tag = f"paged {kv_kind(bits)} K/V, page {page}"
+    variant = {8: "@paged", 4: "@paged-int4", 16: "@paged-bf16"}[bits]
     entries = []
 
     def held(name, got, want, dense):
@@ -846,61 +913,62 @@ def check_paged_attention(torch, ops, ref, dev, bits, page):
                 f"{(got - dense).abs().max().item()}")
         return err
 
-    # -- decode: the scheduler's slot batch -----------------------------------
     cap = -(-(PROMPT + GEN) // 128) * 128
-    bd = SLOTS
-    kp, vp, table = paged_inputs(torch, dev, gen, bd, cap, page, bits)
-    view = KernelView(kp, vp, table, page, bits)
-    kd, vd = ref.gather_pages(kp, table), ref.gather_pages(vp, table)
-    q = torch.randn((bd, kvh, g, d), generator=gen, device=dev).to(
-        torch.bfloat16)
-    cur = torch.tensor([0, 75, 130, 287, 401, 512, 543, cap],
-                       dtype=torch.int32, device=dev)
-    got = ops.decode_attention_view(q, view, k_scale, v_scale, cur)
-    err = held("decode_attention", got,
-               ref.decode_attention_paged_ref(q, kp, vp, table, k_scale,
-                                              v_scale, cur, bits),
-               ops.decode_attention(q, kd, vd, k_scale, v_scale, cur,
-                                    kv_bits=bits))
-    ms, call = timed(torch, lambda: ops.decode_attention_view(
-        q, view, k_scale, v_scale, cur))
-    dense, _ = timed(torch, lambda: ops.decode_attention(
-        q, kd, vd, k_scale, v_scale, cur, kv_bits=bits))
-    plain, _ = timed(torch, lambda: ref.decode_attention_paged_ref(
-        q, kp, vp, table, k_scale, v_scale, cur, bits))
-    qh = q.reshape(bd, kvh * g, 1, d)
-    kh = dequant_heads(torch, kd, k_scale, g, bits)
-    vh = dequant_heads(torch, vd, v_scale, g, bits)
-    mask = (torch.arange(cap, device=dev)[None, :] < cur[:, None])[
-        :, None, None, :]
-    lib, _ = timed(torch, lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask))
-    live = int(cur.sum())
-    nbytes = (q.numel() * 2 + 2 * live * kvh * d * bits // 8 + 8 * kvh
-              + 4 * bd + 4 * sum(-(-int(c) // page) for c in cur)
-              + q.numel() * 4)
-    bnd, by = bound_ms(nbytes, 4 * live * kvh * g * d, BF16_FLOPS_PER_S)
-    print(f"  decode_attention [{tag}] B={bd} cache={cap} cur_pos="
-          f"{cur.tolist()}: {ms * 1e3:.1f} us (per call {call * 1e3:.1f} us)"
-          f"  dense kernel on the gathered copy {dense * 1e3:.1f} us  plain "
-          f"{plain * 1e3:.1f} us  bound {bnd * 1e3:.2f} us  sdpa "
-          f"{lib * 1e3:.1f} us  max|err| {err:.2e}; bit-identical to dense")
-    entries.append({
-        "name": f"decode_attention[{tag}, B={bd}, ragged cur_pos, one "
-                f"layer]",
-        "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention.py:172",
-        "kernel": "decode_attention" + variant, "max_abs_err": err, "ms": ms,
-        "call_ms": call, "dense_ms": dense, "plain_ms": plain,
-        "bound_ms": bnd, "bound_by": by, "library_ms": lib,
-        "library": "SDPA on the gathered dequantized bf16, masked",
-        "split": SPLIT})
+    if bits != 16:     # the decode kernels read quantized tiles only
+        # -- decode: the scheduler's slot batch ---------------------------
+        bd = SLOTS
+        kp, vp, table = paged_inputs(torch, dev, gen, bd, cap, page, bits)
+        view = KernelView(kp, vp, table, page, bits)
+        kd, vd = ref.gather_pages(kp, table), ref.gather_pages(vp, table)
+        q = torch.randn((bd, kvh, g, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        cur = torch.tensor([0, 75, 130, 287, 401, 512, 543, cap],
+                           dtype=torch.int32, device=dev)
+        got = ops.decode_attention_view(q, view, k_scale, v_scale, cur)
+        err = held("decode_attention", got,
+                   ref.decode_attention_paged_ref(q, kp, vp, table, k_scale,
+                                                  v_scale, cur, bits),
+                   ops.decode_attention(q, kd, vd, k_scale, v_scale, cur,
+                                        kv_bits=bits))
+        ms, call = timed(torch, lambda: ops.decode_attention_view(
+            q, view, k_scale, v_scale, cur))
+        dense, _ = timed(torch, lambda: ops.decode_attention(
+            q, kd, vd, k_scale, v_scale, cur, kv_bits=bits))
+        plain, _ = timed(torch, lambda: ref.decode_attention_paged_ref(
+            q, kp, vp, table, k_scale, v_scale, cur, bits))
+        qh = q.reshape(bd, kvh * g, 1, d)
+        kh = dequant_heads(torch, kd, k_scale, g, bits)
+        vh = dequant_heads(torch, vd, v_scale, g, bits)
+        mask = (torch.arange(cap, device=dev)[None, :] < cur[:, None])[
+            :, None, None, :]
+        lib, _ = timed(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask))
+        live = int(cur.sum())
+        nbytes = (q.numel() * 2 + 2 * live * kvh * d * bits // 8 + 8 * kvh
+                  + 4 * bd + 4 * sum(-(-int(c) // page) for c in cur)
+                  + q.numel() * 4)
+        bnd, by = bound_ms(nbytes, 4 * live * kvh * g * d, BF16_FLOPS_PER_S)
+        print(f"  decode_attention [{tag}] B={bd} cache={cap} cur_pos="
+              f"{cur.tolist()}: {ms * 1e3:.1f} us (per call {call * 1e3:.1f} us)"
+              f"  dense kernel on the gathered copy {dense * 1e3:.1f} us  plain "
+              f"{plain * 1e3:.1f} us  bound {bnd * 1e3:.2f} us  sdpa "
+              f"{lib * 1e3:.1f} us  max|err| {err:.2e}; bit-identical to dense")
+        entries.append({
+            "name": f"decode_attention[{tag}, B={bd}, ragged cur_pos, one "
+                    f"layer]",
+            "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:172",
+            "kernel": "decode_attention" + variant, "max_abs_err": err, "ms": ms,
+            "call_ms": call, "dense_ms": dense, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib,
+            "library": "SDPA on the gathered dequantized bf16, masked",
+            "split": SPLIT})
 
     # -- prefill: one 128-query chunk of the paged path -----------------------
     q0, limit = PROMPT - CHUNK, PROMPT
     kp, vp, table = paged_inputs(torch, dev, gen, B, cap, page, bits)
     table = table[:, :limit // page].contiguous()      # kernel_view(limit)
-    view = KernelView(kp, vp, table, page, bits)
+    view = KernelView(kp, vp, table, page, kv_bits)
     kd, vd = ref.gather_pages(kp, table), ref.gather_pages(vp, table)
     q = torch.randn((B, CHUNK, kvh, g, d), generator=gen, device=dev).to(
         torch.bfloat16)
@@ -910,9 +978,9 @@ def check_paged_attention(torch, ops, ref, dev, bits, page):
     err = held("prefill_attention", got,
                ref.prefill_attention_paged_ref(q, kp, vp, table, k_scale,
                                                v_scale, qs, kl,
-                                               kv_bits=bits),
+                                               kv_bits=kv_bits),
                ops.prefill_attention(q, kd, vd, k_scale, v_scale, qs, kl,
-                                     kv_bits=bits))
+                                     kv_bits=kv_bits))
     # the same chunk at D 128 (the kernel's widest), bf16 and float32 q
     for dtype in (torch.bfloat16, torch.float32):
         kp8, vp8, t8 = paged_inputs(torch, dev, gen, B, cap, page, bits,
@@ -922,22 +990,22 @@ def check_paged_attention(torch, ops, ref, dev, bits, page):
                          device=dev).to(dtype)
         e = held(f"prefill_attention D=128 q {dtype}",
                  ops.prefill_attention_view(
-                     q8, KernelView(kp8, vp8, t8, page, bits), k_scale,
+                     q8, KernelView(kp8, vp8, t8, page, kv_bits), k_scale,
                      v_scale, qs, kl),
                  ref.prefill_attention_paged_ref(q8, kp8, vp8, t8, k_scale,
                                                  v_scale, qs, kl,
-                                                 kv_bits=bits),
+                                                 kv_bits=kv_bits),
                  ops.prefill_attention(q8, ref.gather_pages(kp8, t8),
                                        ref.gather_pages(vp8, t8), k_scale,
-                                       v_scale, qs, kl, kv_bits=bits))
+                                       v_scale, qs, kl, kv_bits=kv_bits))
         print(f"  prefill_attention [{tag}] D=128 q {dtype}: max|err| "
               f"{e:.2e}; bit-identical to dense")
     ms, call = timed(torch, lambda: ops.prefill_attention_view(
         q, view, k_scale, v_scale, qs, kl))
     dense, _ = timed(torch, lambda: ops.prefill_attention(
-        q, kd, vd, k_scale, v_scale, qs, kl, kv_bits=bits))
+        q, kd, vd, k_scale, v_scale, qs, kl, kv_bits=kv_bits))
     plain, _ = timed(torch, lambda: ref.prefill_attention_paged_ref(
-        q, kp, vp, table, k_scale, v_scale, qs, kl, kv_bits=bits),
+        q, kp, vp, table, k_scale, v_scale, qs, kl, kv_bits=kv_bits),
         iters=5, warmup=1)
     qh = q.permute(0, 2, 3, 1, 4).reshape(B, kvh * g, CHUNK, d).contiguous()
     kh = dequant_heads(torch, kd, k_scale, g, bits)
@@ -1081,6 +1149,8 @@ def check_partials(torch, ops, ref, dev, bits):
                                               bits)
 
     ms, call = timed(torch, kernel)
+    cold = cold_ms(torch, kernel, l2_flush(torch, dev),
+                   "decode_attention_kernel")
     plain_ms, _ = timed(torch, plain)
     out_bytes = B * kvh * g * (d + 2) * 4
     nbytes = SP * (q.numel() * 2 + 8 * kvh + 4 * B + out_bytes) + \
@@ -1088,8 +1158,9 @@ def check_partials(torch, ops, ref, dev, bits):
     bnd, by = bound_ms(nbytes, 4 * B * kvh * g * cur * d, BF16_FLOPS_PER_S)
     print(f"  decode_attention_partials [{tag}] B={B} cache={cap} in {SP} "
           f"shard views of {s_local}, cur_pos={cur} (local "
-          f"{[int(n[0]) for n in lp]}): {ms * 1e3:.1f} us for the {SP} "
-          f"launches (per call {call * 1e3:.1f} us)  plain {plain_ms * 1e3:.1f}"
+          f"{[int(n[0]) for n in lp]}): {ms * 1e3:.1f} us warm, "
+          f"{cold * 1e3:.1f} us L2-cold for the {SP} launches (per call "
+          f"{call * 1e3:.1f} us)  plain {plain_ms * 1e3:.1f}"
           f" us  bound {bnd * 1e3:.2f} us  library: none  max|err| "
           f"{err:.2e}; merge vs decode kernel {merge_err:.2e}; one shard "
           f"normalized == decode kernel bit for bit")
@@ -1102,7 +1173,7 @@ def check_partials(torch, ops, ref, dev, bits):
         "replaces": "src/repro/kernels/decode_attention.py:305",
         "kernel": "decode_attention_partials" + ("" if bits == 8 else "@int4"),
         "max_abs_err": err, "merge_max_abs_err": merge_err, "ms": ms,
-        "call_ms": call, "plain_ms": plain_ms, "bound_ms": bnd,
+        "cold_ms": cold, "call_ms": call, "plain_ms": plain_ms, "bound_ms": bnd,
         "bound_by": by, "library_ms": None,
         "library": "none: no single PyTorch call returns the unnormalized "
                    "(acc, m, l)", "split": SPLIT}
@@ -1180,7 +1251,7 @@ def forced_logits(torch, A, engine, prompts, tokens, n):
     with torch.inference_mode():
         cache = engine.init_cache(prompts.shape[0],
                                   engine._cache_len(prompts.shape[1], GEN))
-        ctx = A.make_ctx("int8", engine.policy, engine.qparams)
+        ctx = A.make_ctx(engine.mode, engine.policy, engine.qparams)
         logits, cache = engine.model.prefill(
             engine.serve_params, {"tokens": prompts.to(dev)}, cache, ctx)
         out = [logits[:, -1].float().cpu()]
@@ -1239,28 +1310,39 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
                     sp=1):
     """Warm up, zero the launch counts, serve 4 x 512 prompts for 32 tokens
     and check what came out and which kernels ran; returns (result, all
-    launch counts, int4-variant launch counts).  ``sp`` > 1: a
-    sequence-parallel engine, whose one-shot prefill attends without a
-    kernel and whose decode launches the partials kernel once per shard
-    and layer instead of the decode kernel."""
+    launch counts, int4-variant launch counts, bf16-K/V launch counts).
+    ``sp`` > 1: a sequence-parallel engine, whose one-shot prefill attends
+    without a kernel and whose decode launches the partials kernel once per
+    shard and layer instead of the decode kernel.  bf16 weights (mode
+    "none") launch no quant_matmul; a bf16 KV cache runs prefill attention
+    through B2's bf16 branch and decodes in plain attention, no B1."""
     engine.generate_batch({"tokens": prompts}, gen=2)   # warm-up
     ops.reset_launches()
     res = engine.generate_batch({"tokens": prompts}, gen=GEN)
     counts, int4 = ops.launch_counts(), ops.int4_launch_counts()
+    bf16 = ops.bf16_launch_counts()
     n_layers = engine.cfg.n_layers
-    expected = {"quant_matmul": 7 * n_layers * GEN,
+    kv8 = engine.policy.kv_int8
+    expected = {"quant_matmul":
+                    7 * n_layers * GEN if engine.mode == "int8" else 0,
                 "prefill_attention": n_layers if sp == 1 else 0,
-                "decode_attention": n_layers * (GEN - 1) if sp == 1 else 0,
+                "decode_attention":
+                    n_layers * (GEN - 1) if sp == 1 and kv8 else 0,
                 "decode_attention_partials":
                     0 if sp == 1 else n_layers * (GEN - 1) * sp,
                 "fake_quant": 0}
     int4_expected = ({k: expected[k] for k in int4}
-                     if engine.policy.kv_bits == 4 else {k: 0 for k in int4})
+                     if kv8 and engine.policy.kv_bits == 4
+                     else {k: 0 for k in int4})
+    bf16_expected = {"prefill_attention":
+                     0 if kv8 else expected["prefill_attention"]}
     print(f"[{label}] kernel launches {counts} (expected {expected}); int4 "
-          f"variants {int4} (expected {int4_expected})")
-    if counts != expected or int4 != int4_expected:
-        raise AssertionError(f"launch counts {counts} / {int4} != "
-                             f"{expected} / {int4_expected}")
+          f"variants {int4} (expected {int4_expected}); bf16 K/V variants "
+          f"{bf16} (expected {bf16_expected})")
+    if (counts, int4, bf16) != (expected, int4_expected, bf16_expected):
+        raise AssertionError(f"launch counts {counts} / {int4} / {bf16} != "
+                             f"{expected} / {int4_expected} / "
+                             f"{bf16_expected}")
     if not bool(torch.isfinite(res.prefill_logits).all()):
         raise AssertionError("non-finite prefill logits")
     toks = res.tokens.cpu()
@@ -1272,7 +1354,7 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
     print(f"[{label}] prefill {B}x{PROMPT} tokens: {res.prefill_s * 1e3:.1f}"
           f" ms = {prefill_tps:.0f} tokens/s; decode: {decode_ms:.2f} ms per "
           f"step of {B} tokens (ms/token per request) on {kind} ({card})")
-    return res, counts, int4
+    return res, counts, int4, bf16
 
 
 def cpu_check(torch, A, engine, prompts, toks, tol, label):
@@ -1350,7 +1432,8 @@ def layout_twin(Engine, engine, layout):
     with chunked prefill in chunks of CHUNK (pages of PAGE)."""
     return Engine(engine.model, engine.cfg, engine.policy,
                   engine.serve_params, engine.qparams, device=engine.device,
-                  cache_layout=layout, page_size=PAGE, prefill_chunk=CHUNK)
+                  mode=engine.mode, cache_layout=layout, page_size=PAGE,
+                  prefill_chunk=CHUNK)
 
 
 def drive_paged_path(torch, ops, ref, Engine, PagedCache, engine, prompts,
@@ -1358,7 +1441,10 @@ def drive_paged_path(torch, ops, ref, Engine, PagedCache, engine, prompts,
     """4 x 512 prompts for 32 tokens through a paged cache with chunked
     prefill: every attention launch through the paged variants, no gather
     of the pool, and logits and tokens bit-identical to the same engine
-    with a dense cache.  Returns (all, int4, paged) launch counts."""
+    with a dense cache.  A bf16 pool: prefill through B2's paged bf16
+    branch, decode in plain attention over the gathered pool (one gather a
+    layer and step, as in the reference).  Returns (all, int4, paged)
+    launch counts."""
     paged = layout_twin(Engine, engine, "paged")
     dense = layout_twin(Engine, engine, "dense")
     paged.generate_batch({"tokens": prompts}, gen=2)       # warm-up
@@ -1366,21 +1452,27 @@ def drive_paged_path(torch, ops, ref, Engine, PagedCache, engine, prompts,
     with GatherCount(PagedCache, ref) as gathers:
         res = paged.generate_batch({"tokens": prompts}, gen=GEN)
     counts, int4 = ops.launch_counts(), ops.int4_launch_counts()
-    pg = ops.paged_launch_counts()
+    pg, bf16 = ops.paged_launch_counts(), ops.bf16_launch_counts()
     n_layers, chunks = engine.cfg.n_layers, PROMPT // CHUNK
+    kv8 = engine.policy.kv_int8
     attn = {"prefill_attention": n_layers * chunks,
-            "decode_attention": n_layers * (GEN - 1),
+            "decode_attention": n_layers * (GEN - 1) if kv8 else 0,
             "decode_attention_partials": 0}
-    expected = {"quant_matmul": 7 * n_layers * (chunks + GEN - 1), **attn,
-                "fake_quant": 0}
-    int4_expected = attn if engine.policy.kv_bits == 4 else {
+    expected = {"quant_matmul": 7 * n_layers * (chunks + GEN - 1)
+                if engine.mode == "int8" else 0, **attn, "fake_quant": 0}
+    int4_expected = attn if kv8 and engine.policy.kv_bits == 4 else {
         k: 0 for k in attn}
+    bf16_expected = {"prefill_attention":
+                     0 if kv8 else attn["prefill_attention"]}
+    gathers_expected = 0 if kv8 else n_layers * (GEN - 1)
     print(f"[{label}] kernel launches {counts} (expected {expected}); paged "
-          f"variants {pg} (expected {attn}); int4 variants {int4}; pool "
-          f"gathers {gathers.n} (expected 0)")
-    if (counts, pg, int4, gathers.n) != (expected, attn, int4_expected, 0):
+          f"variants {pg} (expected {attn}); int4 variants {int4}; bf16 K/V "
+          f"variants {bf16} (expected {bf16_expected}); pool gathers "
+          f"{gathers.n} (expected {gathers_expected})")
+    if (counts, pg, int4, bf16, gathers.n) != (
+            expected, attn, int4_expected, bf16_expected, gathers_expected):
         raise AssertionError(f"launch counts {counts} / paged {pg} / int4 "
-                             f"{int4} / gathers {gathers.n}")
+                             f"{int4} / bf16 {bf16} / gathers {gathers.n}")
     want = dense.generate_batch({"tokens": prompts}, gen=GEN)
     if not (torch.equal(res.prefill_logits, want.prefill_logits)
             and torch.equal(res.tokens, want.tokens)):
@@ -1390,8 +1482,9 @@ def drive_paged_path(torch, ops, ref, Engine, PagedCache, engine, prompts,
             f"{diff.max().item()}, tokens equal "
             f"{int((res.tokens == want.tokens).sum())}/{res.tokens.numel()}")
     cache = paged.init_cache(B, paged._cache_len(PROMPT, GEN))
-    pool = sum(c["attn"].k.numel() + c["attn"].v.numel()
-               + 4 * c["attn"].table.numel() for c in cache.values())
+    pool = sum((c["attn"].k.numel() + c["attn"].v.numel())
+               * c["attn"].k.element_size() + 4 * c["attn"].table.numel()
+               for c in cache.values())
     print(f"[{label}] prefill {B}x{PROMPT} tokens in chunks of {CHUNK}: "
           f"{res.prefill_s * 1e3:.1f} ms = {B * PROMPT / res.prefill_s:.0f} "
           f"tokens/s; decode {res.decode_s / (GEN - 1) * 1e3:.2f} ms per step;"
@@ -1406,13 +1499,14 @@ def teacher_forced_gap(torch, A, ST, engine, prompt, tokens):
     first step whose argmax is not ``tokens[step]``, with the logit gap
     between the two; None when every argmax agrees."""
     with torch.inference_mode():
-        ctx = A.make_ctx("int8", engine.policy, engine.qparams)
+        ctx = A.make_ctx(engine.mode, engine.policy, engine.qparams)
         toks = torch.as_tensor(prompt, device=engine.device)[None]
         cache = engine.init_cache(1, engine._cache_len(toks.shape[1],
                                                        len(tokens)))
         padded, lengths = ST.pad_for_chunked_prefill(toks, CHUNK)
         logits, cache = ST.make_prefill_step(
-            engine.model, engine.policy, prefill_chunk=CHUNK)(
+            engine.model, engine.policy, prefill_chunk=CHUNK,
+            mode=engine.mode)(
             engine.serve_params, engine.qparams, {"tokens": padded}, cache,
             lengths)
         for i, t in enumerate(tokens):
@@ -1426,13 +1520,16 @@ def teacher_forced_gap(torch, A, ST, engine, prompt, tokens):
     return None
 
 
-def check_scheduler(torch, ops, A, ST, Engine, Request, engine, kind, card):
-    """16 ragged requests through 8 slots of the paged cache; every one must
-    finish by its 32-token budget, and 4 of them re-served alone through
-    batch-1 ``generate_batch`` (dense cache, same chunks) must give the same
-    tokens or first differ at a near-tie.  Returns the launch counts."""
+def check_scheduler(torch, ops, A, ST, Engine, Request, engine, kind, card,
+                    n_requests=N_REQUESTS, n_alone=4, label="scheduler"):
+    """``n_requests`` ragged requests through 8 slots of the paged cache;
+    every one must finish by its 32-token budget, and ``n_alone`` of them
+    re-served alone through batch-1 ``generate_batch`` (dense cache, same
+    chunks) must give the same tokens or first differ at a near-tie.
+    Returns (launch counts, bf16-K/V launch counts, paged launch
+    counts)."""
     rng = np.random.default_rng(3)
-    lengths = rng.integers(64, PROMPT + 1, N_REQUESTS)
+    lengths = rng.integers(64, PROMPT + 1, n_requests)
     reqs = [Request(rid=i, tokens=rng.integers(0, engine.cfg.vocab, n,
                                                dtype=np.int32), max_gen=GEN)
             for i, n in enumerate(lengths)]
@@ -1442,6 +1539,7 @@ def check_scheduler(torch, ops, A, ST, Engine, Request, engine, kind, card):
                            eos_id=-1)
     wall = time.perf_counter() - t0
     counts, pg = ops.launch_counts(), ops.paged_launch_counts()
+    bf16 = ops.bf16_launch_counts()
     sched = engine._scheduler
     calls, sec = sched.call_counts(), sched.stage_seconds()
     n_layers = engine.cfg.n_layers
@@ -1449,7 +1547,7 @@ def check_scheduler(torch, ops, A, ST, Engine, Request, engine, kind, card):
     bad = [(c.rid, c.status, c.finished_by, len(c.tokens)) for c in done
            if (c.status, c.finished_by, len(c.tokens)) != ("ok", "budget",
                                                            GEN)]
-    print(f"[scheduler] {len(done)} requests (prompts {lengths.min()}-"
+    print(f"[{label}] {len(done)} requests (prompts {lengths.min()}-"
           f"{lengths.max()} tokens, {GEN} generated each) through {SLOTS} "
           f"slots in {wall:.2f} s: {len(done) / wall:.2f} requests/s, "
           f"{len(done) * GEN / wall:.1f} generated tokens/s; admission "
@@ -1457,23 +1555,29 @@ def check_scheduler(torch, ops, A, ST, Engine, Request, engine, kind, card):
           f"decode {sec['decode'] / calls['decode'] * 1e3:.1f} ms per block "
           f"of {BLOCK_STEPS} steps = {sec['decode'] / steps * 1e3:.2f} ms per "
           f"step on {kind} ({card})")
-    print(f"[scheduler] calls {calls}; kernel launches {counts}; paged "
-          f"variants {pg} (decode expected {n_layers * steps}); health "
-          f"{sched.health_stats()}")
-    if len(done) != N_REQUESTS or bad:
+    # admissions prefill a dense batch-1 cache; decode over a bf16 pool is
+    # plain attention
+    decode = n_layers * steps if engine.policy.kv_int8 else 0
+    print(f"[{label}] calls {calls}; kernel launches {counts}; paged "
+          f"variants {pg} (decode expected {decode}); bf16 K/V variants "
+          f"{bf16}; health {sched.health_stats()}")
+    if len(done) != n_requests or bad:
         raise AssertionError(f"{len(done)} completions; not ok/budget/{GEN}: "
                              f"{bad}")
-    if pg != {"prefill_attention": 0, "decode_attention": n_layers * steps,
+    if pg != {"prefill_attention": 0, "decode_attention": decode,
               "decode_attention_partials": 0}:
         raise AssertionError(f"paged launches {pg}")
+    if (bf16["prefill_attention"] > 0) == engine.policy.kv_int8:
+        raise AssertionError(f"bf16 K/V launches {bf16} with kv_int8="
+                             f"{engine.policy.kv_int8}")
     dense = layout_twin(Engine, engine, "dense")
     by_rid = {c.rid: c for c in done}
-    for r in range(4):
+    for r in range(n_alone):
         alone = dense.generate_batch({"tokens": reqs[r].tokens[None]},
                                      gen=GEN).tokens[0].tolist()
         got = by_rid[r].tokens
         if alone == got:
-            print(f"[scheduler] request {r} ({lengths[r]} tokens) alone: "
+            print(f"[{label}] request {r} ({lengths[r]} tokens) alone: "
                   f"{GEN} tokens equal")
             continue
         forced = teacher_forced_gap(torch, A, ST, dense, reqs[r].tokens,
@@ -1484,14 +1588,14 @@ def check_scheduler(torch, ops, A, ST, Engine, Request, engine, kind, card):
                 "but teacher-forced on the scheduler's tokens every argmax "
                 "agrees")
         step, gap = forced
-        print(f"[scheduler] request {r} ({lengths[r]} tokens) alone: first "
+        print(f"[{label}] request {r} ({lengths[r]} tokens) alone: first "
               f"differs at token {step}, where the batch-1 logits put the "
               f"scheduler's token {gap:.4f} below their argmax (near-tie "
               f"tolerance {LOGIT_ATOL})")
         if not gap <= LOGIT_ATOL:
             raise AssertionError(f"request {r}: the scheduler's token {step} "
                                  f"is {gap} below the batch-1 argmax")
-    return counts, pg
+    return counts, bf16, pg
 
 
 def check_sp_scheduler(torch, ops, A, ST, Engine, ShardedEngine, Request,
@@ -1755,6 +1859,7 @@ def check_fake_quant(torch, ops, ref, dev):
     from repro_torch.kernels import fake_quant as fq
 
     gen = torch.Generator(device=dev).manual_seed(14)
+    flush = l2_flush(torch, dev)
     entries = []
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
@@ -1776,6 +1881,8 @@ def check_fake_quant(torch, ops, ref, dev):
                                      "alpha differs from the plain version")
             x, t, a = fq_inputs(torch, dev, gen, m, n, dtype)
             ms, call = timed(torch, lambda: fq.launch(x, t, a))
+            cold = cold_ms(torch, lambda: fq.launch(x, t, a), flush,
+                           "fake_quant_kernel")
             plain, _ = timed(torch, lambda: ref.fake_quant_ref(x, t, a))
             t_adj = torch.clamp_min(torch.clamp(a, 0.5, 1.0) * t, 1e-8)
             inv = (t_adj / 127.0).float()
@@ -1789,7 +1896,8 @@ def check_fake_quant(torch, ops, ref, dev):
             nbytes = 2 * m * n * x.element_size() + 8 * n
             bnd, by = bound_ms(nbytes, 8 * m * n, 67e12)
             print(f"  fake_quant {tag} ({m:4d}, {n:4d}): {ms * 1e3:7.1f} us "
-                  f"(per call {call * 1e3:6.1f} us)  plain "
+                  f"warm, {cold * 1e3:7.1f} us L2-cold (per call "
+                  f"{call * 1e3:6.1f} us)  plain "
                   f"{plain * 1e3:7.1f} us  bound {bnd * 1e3:6.2f} us  "
                   f"library {'-' if lib is None else f'{lib * 1e3:.1f} us'}"
                   f"  bit-identical (per-channel, scalar t, one alpha)")
@@ -1799,8 +1907,9 @@ def check_fake_quant(torch, ops, ref, dev):
                             "student's MLP width at batch 8 x seq 128]",
                     "route": "cuda", "source": fq.SOURCE,
                     "replaces": fq.REPLACES, "kernel": "fake_quant",
-                    "max_abs_err": 0.0, "ms": ms, "call_ms": call,
-                    "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+                    "max_abs_err": 0.0, "ms": ms, "cold_ms": cold,
+                    "call_ms": call, "plain_ms": plain, "bound_ms": bnd,
+                    "bound_by": by,
                     "library_ms": lib, "library": lib_note})
 
     # the entry point's path: forward (the kernel) and STE backward
@@ -2067,7 +2176,7 @@ def check_train_pretrain(torch, ops, A, train, Engine, CheckpointManager,
     print(f"[checkpoint serve] step {meta['step']}: the {len(kept)} "
           f"unquantized weight tensors (embedding, norms) are the "
           f"checkpoint's bits; {engine.n_int8_weights()} int8 weight tensors")
-    res, counts, _ = drive_main_path(torch, ops, engine, prompts,
+    res, counts, _, _ = drive_main_path(torch, ops, engine, prompts,
                                      "checkpoint serve", kind, card)
     cpu_check(torch, A, engine, prompts, res.tokens.cpu(), LOGIT_ATOL,
               "checkpoint serve cpu check")
@@ -2126,9 +2235,9 @@ def main() -> int:
     check_quant_matmul_edges(torch, ops, ref, dev)
     check_quant_matmul_edges(torch, ops, ref, dev, QMM_DECODE_EDGES,
                              "decode edge")
-    kernels += check_attention(torch, ops, ref, dev, bits=8)
-    kernels += check_attention(torch, ops, ref, dev, bits=4)
-    for bits in (8, 4):
+    for bits in (8, 4, 16):
+        kernels += check_attention(torch, ops, ref, dev, bits=bits)
+    for bits in (8, 4, 16):
         for page in (16, PAGE):
             kernels += check_paged_attention(torch, ops, ref, dev, bits, page)
     for bits in (8, 4):
@@ -2168,13 +2277,47 @@ def main() -> int:
     phases["int8 engine"] = time.perf_counter() - t0
     rng = np.random.default_rng(1)
     prompts = rng.integers(0, engine.cfg.vocab, (B, PROMPT), dtype=np.int32)
-    res, counts, _ = drive_main_path(torch, ops, engine, prompts,
-                                     "main path", kind, card)
+    res, counts, _, _ = drive_main_path(torch, ops, engine, prompts,
+                                        "main path", kind, card)
     phases["main path"] = time.perf_counter() - t0 - phases["int8 engine"]
     phase("breakdown", breakdown, torch, engine, prompts, card)
     phase("cpu check", cpu_check, torch, A, engine, prompts,
           res.tokens.cpu(), LOGIT_ATOL, "cpu check")
     del engine
+
+    # the reference's three other serving modes at full width: bf16
+    # weights and/or a bf16 KV cache; the bf16-KV launches of each path
+    bf16_runs, paged_bf16 = {}, None
+    for name, flags in SERVING_MODES.items():
+        t0 = time.perf_counter()
+        eng = Engine.from_checkpoint("smollm-135m", smoke=False, **flags)
+        torch.cuda.synchronize()
+        phases[f"{name} engine"] = time.perf_counter() - t0
+        print(f"[{name}] smollm-135m full width, fp={flags['fp']}, "
+              f"kv_int8={flags['kv_int8']}: engine built in "
+              f"{phases[name + ' engine']:.1f} s; {eng.n_int8_weights()} int8 "
+              f"weight tensors; {len(eng.qparams)} qparams entries")
+        out = phase(name, drive_main_path, torch, ops, eng, prompts, name,
+                    kind, card)
+        if out is None:
+            continue
+        bf16_runs[f"{name} main path"] = out[3]
+        phase(f"{name} breakdown", breakdown, torch, eng, prompts, card,
+              f"{name} breakdown")
+        phase(f"{name} cpu check", cpu_check, torch, A, eng, prompts,
+              out[0].tokens.cpu(), LOGIT_ATOL, f"{name} cpu check")
+        if name == "int8_w_bf16_kv":
+            paged_bf16 = phase(f"{name} paged path", drive_paged_path, torch,
+                               ops, ref, Engine, PagedCache, eng, prompts,
+                               f"{name} paged path", kind, card)
+        if name == "bf16_w_bf16_kv":
+            sched = phase(f"{name} scheduler", check_scheduler, torch, ops, A,
+                          ST, Engine, Request,
+                          layout_twin(Engine, eng, "paged"), kind, card,
+                          SLOTS, 2, f"{name} scheduler")
+            if sched is not None:
+                bf16_runs[f"{name} scheduler"] = sched[1]
+        del eng
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -2261,6 +2404,11 @@ def main() -> int:
                 partials: sum(sp_paths.values()),
                 f"{partials}@int4": sp4[2][partials],
                 "fake_quant": fq_launches, "quant_matmul@w4": w4_launches}
+    bf16_by_path = {path: pg["prefill_attention"]
+                    for path, pg in bf16_runs.items()}
+    launched["prefill_attention@bf16"] = sum(bf16_by_path.values())
+    launched["prefill_attention@paged-bf16"] = paged_bf16[2][
+        "prefill_attention"]
     for e in kernels:
         kernel = e.pop("kernel")
         e["launches"] = launched[kernel]
@@ -2269,6 +2417,11 @@ def main() -> int:
                                      for path, pg in by_path.items()}
         if kernel == partials:
             e["launches_by_path"] = sp_paths
+        if kernel == "prefill_attention@bf16":
+            e["launches_by_path"] = bf16_by_path
+        if kernel == "prefill_attention@paged-bf16":
+            e["launches_by_path"] = {"int8_w_bf16_kv paged path":
+                                     launched[kernel]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

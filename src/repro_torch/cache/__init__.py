@@ -1,12 +1,14 @@
-"""Quantized (int8 / packed int4) KV caches behind one protocol: the dense
-layout (``repro_torch.cache.base``) and the page pool with block tables
-and prefix sharing (``repro_torch.cache.paged``).
+"""KV caches (int8, packed int4, or float with unit scales) behind one
+protocol: the dense layout (``repro_torch.cache.base``) and the page pool
+with block tables and prefix sharing (``repro_torch.cache.paged``).
 
 ``make_cache`` is the single construction point the model layers use, the
 counterpart of ``repro.cache.make_cache``: ``layout`` is "dense", "paged",
 or "ring", which gives a sliding-window layer its ring buffer and every
 other layer a dense cache.
 """
+import torch
+
 from repro_torch.cache.base import (DenseCache, KernelView, KV_LEVELS,
                                     dequantize_kv, kv_levels, quantize_kv)
 from repro_torch.cache.paged import (PagedCache, PrefixEntry, PrefixStore,
@@ -18,22 +20,26 @@ LAYOUTS = ("dense", "ring", "paged")
 
 def make_cache(batch, max_len, n_kv, head_dim, *, device=None,
                layout="dense", window=None, page_size=64, extra_pages=0,
-               bits=8):
-    """The ``layout`` cache of one attention layer (int8, or packed int4 at
-    ``bits=4``).  The SWA ring buffer, which "ring" and "paged" give a
-    windowed layer shorter than ``max_len``, is ROADMAP Queue A item 9."""
+               bits=8, quantized=True, dtype=torch.bfloat16):
+    """The ``layout`` cache of one attention layer: int8 (packed int4 at
+    ``bits=4``), or ``dtype`` tiles with unit scales when not ``quantized``
+    (``bits`` is then ignored).  The SWA ring buffer, which "ring" and
+    "paged" give a windowed layer shorter than ``max_len``, is ROADMAP
+    Queue A item 9."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown cache layout {layout!r} (use one of "
                          f"{LAYOUTS})")
     if window is not None and layout != "dense" and window < max_len:
         raise NotImplementedError(
             "the SWA ring buffer is not ported (ROADMAP Queue A item 9)")
+    if not quantized:
+        bits = 8
+    kw = dict(device=device, bits=bits, quantized=quantized, dtype=dtype)
     if layout == "paged":
-        return PagedCache.init(batch, max_len, n_kv, head_dim, device=device,
+        return PagedCache.init(batch, max_len, n_kv, head_dim,
                                page_size=page_size, extra_pages=extra_pages,
-                               bits=bits)
-    return DenseCache.init(batch, max_len, n_kv, head_dim, device=device,
-                           bits=bits)
+                               **kw)
+    return DenseCache.init(batch, max_len, n_kv, head_dim, **kw)
 
 
 def layer_caches(tree):

@@ -1,17 +1,20 @@
-"""Quantized KV cache, dense layout: position p of request b lives at slot
-[b, p].  int8 tiles, or int4 packed two per byte along the head dim
-(``bits=4``: D/2 storage bytes, ``core/packing.py``).
+"""KV cache, dense layout: position p of request b lives at slot [b, p].
+Quantized: int8 tiles, or int4 packed two per byte along the head dim
+(``bits=4``: D/2 storage bytes, ``core/packing.py``), with per-head
+dequant scales.  Float (``quantized=False``): tiles in the model's dtype,
+with unit scales.
 
-Counterpart of the dense, quantized half of ``repro/cache/base.py``.  K/V
-quantize ONCE against the frozen per-head calibrated thresholds (paper §2)
-in ``ready``; the same int8 tiles are written by ``append`` and attended
-by the fused kernels.  Unlike the reference's immutable pytree, every
-write (``append``, ``append_slots``, ``splice_slot``) goes into the cache
-buffers in place (a decode step then moves only the new token's bytes)
-and returns the same object.
+Counterpart of the dense half of ``repro/cache/base.py``.  K/V are made
+cache-ready ONCE in ``ready``: quantized against the frozen per-head
+calibrated thresholds (paper §2), or cast to the storage dtype; the same
+tiles are written by ``append`` and attended by the prefill kernel.
+Unlike the reference's immutable pytree, every write (``append``,
+``append_slots``, ``splice_slot``) goes into the cache buffers in place (a
+decode step then moves only the new token's bytes) and returns the same
+object.
 
-The paged layout is ``repro_torch.cache.paged``.  A bf16 cache is ROADMAP
-Queue A item 8, the SWA ring buffer item 9.
+The paged layout is ``repro_torch.cache.paged``; the SWA ring buffer is
+ROADMAP Queue A item 9.
 """
 from __future__ import annotations
 
@@ -81,10 +84,11 @@ class KernelView(NamedTuple):
     bits: int = 8
 
 
-def storage_shape(lead, seq, n_kv, head_dim, bits):
-    """(lead, seq, KV, D) storage shape; D/2 bytes at ``bits == 4``."""
+def storage_shape(lead, seq, n_kv, head_dim, bits, quantized=True):
+    """(lead, seq, KV, D) storage shape; D/2 bytes at ``bits == 4`` of a
+    quantized cache (a float cache stores D values whatever ``bits``)."""
     kv_levels(bits)             # raises unless bits is 4 or 8
-    if bits == 4:
+    if quantized and bits == 4:
         if head_dim % 2:
             raise ValueError(
                 f"int4 KV packing needs an even head dim, got {head_dim}")
@@ -92,11 +96,29 @@ def storage_shape(lead, seq, n_kv, head_dim, bits):
     return (lead, seq, n_kv, head_dim)
 
 
+def storage_dtype(quantized: bool, dtype) -> torch.dtype:
+    """int8 for a quantized cache, else the float ``dtype``."""
+    if quantized:
+        return torch.int8
+    if not dtype.is_floating_point:
+        raise ValueError(f"a float KV cache needs a float dtype, got {dtype}")
+    return dtype
+
+
 class QuantizedKV:
     """The scale half of the cache protocol, shared by every layout (a
-    dataclass with ``k_scale``, ``v_scale`` and ``bits`` fields)."""
+    dataclass with ``k``, ``k_scale``, ``v_scale`` and ``bits`` fields).  A
+    float cache (``quantized`` False) keeps unit scales: callers never
+    install calibrated ones into it."""
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype == torch.int8
 
     def scales(self):
+        """Per-head dequant scales (ones for a float cache): the prefill
+        kernel takes float tiles through the same code path with unit
+        scales."""
         return self.k_scale, self.v_scale
 
     def with_scales(self, k_scale, v_scale):
@@ -106,28 +128,44 @@ class QuantizedKV:
                                    v_scale=_safe_scale(v_scale))
 
     def ready(self, k, v):
-        """Cache-ready tiles: quantize against the frozen per-head scales."""
+        """Cache-ready tiles: quantize against the frozen per-head scales, or
+        (a float cache) cast to the storage dtype."""
+        if not self.quantized:
+            return k.to(self.k.dtype), v.to(self.v.dtype)
         return (quantize_kv(k, self.k_scale, self.bits),
                 quantize_kv(v, self.v_scale, self.bits))
+
+    def dequantize(self, k_tiles, v_tiles):
+        """Storage tiles -> float: f32 for quantized tiles (int4 unpacked),
+        the tiles themselves for a float cache."""
+        if not self.quantized:
+            return k_tiles, v_tiles
+        return (dequantize_kv(k_tiles, self.k_scale, self.bits),
+                dequantize_kv(v_tiles, self.v_scale, self.bits))
 
 
 @dataclasses.dataclass
 class DenseCache(QuantizedKV):
-    """Contiguous quantized KV cache of one attention layer."""
+    """Contiguous KV cache of one attention layer."""
 
     layout = "dense"
 
     k: torch.Tensor        # (B, S, KV, D) int8 (D/2 packed bytes at bits 4)
-    v: torch.Tensor
-    k_scale: torch.Tensor  # (KV,) f32 dequant scales (ones until prefill)
-    v_scale: torch.Tensor
+    v: torch.Tensor        # or float (a float cache)
+    k_scale: torch.Tensor  # (KV,) f32 dequant scales (ones until prefill;
+    v_scale: torch.Tensor  # always ones in a float cache)
     bits: int = 8
 
     @classmethod
-    def init(cls, batch, max_len, n_kv, head_dim, *, device=None, bits=8):
-        shape = storage_shape(batch, max_len, n_kv, head_dim, bits)
-        return cls(torch.zeros(shape, dtype=torch.int8, device=device),
-                   torch.zeros(shape, dtype=torch.int8, device=device),
+    def init(cls, batch, max_len, n_kv, head_dim, *, device=None, bits=8,
+             quantized=True, dtype=torch.bfloat16):
+        """Zero tiles and unit scales: int8 (packed int4 at ``bits=4``), or
+        ``dtype`` tiles when not ``quantized``."""
+        shape = storage_shape(batch, max_len, n_kv, head_dim, bits,
+                              quantized)
+        store = storage_dtype(quantized, dtype)
+        return cls(torch.zeros(shape, dtype=store, device=device),
+                   torch.zeros(shape, dtype=store, device=device),
                    torch.ones((n_kv,), dtype=torch.float32, device=device),
                    torch.ones((n_kv,), dtype=torch.float32, device=device),
                    bits=bits)

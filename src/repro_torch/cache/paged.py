@@ -3,12 +3,14 @@ prefix store that makes prompt reuse free.
 
 Layout::
 
-    k, v      : (pages, page_size, KV, D)   the page pool (int8, or D/2
-                                            packed bytes at bits 4)
+    k, v      : (pages, page_size, KV, D)   the page pool (int8, D/2
+                                            packed bytes at bits 4, or the
+                                            model's float dtype)
     table     : (B, n_blocks) int32         logical block j of slot b
                                             lives in pool page table[b, j]
     k_scale,
     v_scale   : (KV,) f32                   frozen per-head dequant scales
+                                            (ones in a float pool)
 
 The pool holds ``B * n_blocks`` slot-private pages (page ``b * n_blocks +
 j`` is slot b's default page for block j: the identity table) plus an
@@ -36,7 +38,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.cache.base import KernelView, QuantizedKV, storage_shape
+from repro_torch.cache.base import (KernelView, QuantizedKV, storage_dtype,
+                                    storage_shape)
 
 
 @dataclasses.dataclass
@@ -50,6 +53,7 @@ class PagedCache(QuantizedKV):
     layout = "paged"
 
     k: torch.Tensor        # (T, ps, KV, D) int8 (D/2 packed bytes at bits 4)
+    #                        or float (a float pool)
     v: torch.Tensor
     k_scale: torch.Tensor  # (KV,) f32
     v_scale: torch.Tensor
@@ -59,20 +63,24 @@ class PagedCache(QuantizedKV):
 
     @classmethod
     def init(cls, batch, max_len, n_kv, head_dim, *, device=None,
-             page_size=64, extra_pages=0, bits=8):
+             page_size=64, extra_pages=0, bits=8, quantized=True,
+             dtype=torch.bfloat16):
         """Identity-table pool: slot b owns pages [b*NB, (b+1)*NB), NB =
         ceil(max_len / page_size); ``extra_pages`` reserves the shared
-        prefix region at the pool's tail."""
+        prefix region at the pool's tail.  The pool is int8 (packed int4
+        at ``bits=4``), or ``dtype`` when not ``quantized``; page copies and
+        splices move its tiles whatever their dtype."""
         if page_size < 8 or page_size % 8:
             raise ValueError(f"page_size must be a positive multiple of 8, "
                              f"got {page_size}")
         nb = -(-max_len // page_size)
         shape = storage_shape(batch * nb + extra_pages, page_size, n_kv,
-                              head_dim, bits)
+                              head_dim, bits, quantized)
+        store = storage_dtype(quantized, dtype)
         table = torch.arange(batch * nb, dtype=torch.int32,
                              device=device).reshape(batch, nb)
-        return cls(torch.zeros(shape, dtype=torch.int8, device=device),
-                   torch.zeros(shape, dtype=torch.int8, device=device),
+        return cls(torch.zeros(shape, dtype=store, device=device),
+                   torch.zeros(shape, dtype=store, device=device),
                    torch.ones((n_kv,), dtype=torch.float32, device=device),
                    torch.ones((n_kv,), dtype=torch.float32, device=device),
                    table, page_size=page_size, bits=bits)

@@ -7,6 +7,9 @@ activation thresholds, max-abs calibration, and a KV cache of int8 or
 packed int4 with per-head thresholds.  A forward without a context is full
 precision (the distillation teacher, §3.2); the context's modes are
 
+  none       full-precision weights (bf16 serving, the paper's baseline):
+             every Dense is ``x @ w``; the context still carries the KV
+             thresholds to attention when the KV cache is quantized
   calibrate  full-precision forward that also feeds the activation and
              KV observers (paper §2 calibration)
   fake       fake-quantized forward with trained threshold scales: the
@@ -16,7 +19,7 @@ precision (the distillation teacher, §3.2); the context's modes are
              the epilogue (eq. 20) -- always through ``kernels.ops``
 
 Asymmetric activations, pointwise scales and the percentile observer of
-the reference's ``QuantPolicy`` are not ported (ROADMAP Queue A item 3).
+the reference's ``QuantPolicy`` are not ported (ROADMAP Queue A item 16).
 
 State layout, as in the reference: ``qparams`` is a flat dict keyed by
 layer path (``"smollm-135m/stack/layer0/attn/wq"``) holding
@@ -37,7 +40,7 @@ import torch
 from repro_torch.core import calibration as calib
 from repro_torch.core import quant as Q
 
-MODES = ("calibrate", "fake", "int8")
+MODES = ("none", "calibrate", "fake", "int8")
 TRAINABLE_KEYS = frozenset({"alpha", "alpha_t", "alpha_r", "log2_t"})
 
 
@@ -218,7 +221,7 @@ def unflatten(flat: dict) -> dict:
 
 def dense_forward(layer, params: dict, x: torch.Tensor, ctx: QuantCtx | None):
     """A Dense layer without a context (full precision) and in each mode."""
-    if ctx is None:
+    if ctx is None or ctx.mode == "none":
         return x @ params["w"]
     if ctx.mode == "calibrate":
         ctx.updates[layer.path] = calib.update_observer(

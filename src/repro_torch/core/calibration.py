@@ -1,7 +1,7 @@
 """Calibration observers (paper §2): running statistics of activations
 fed with unlabeled batches, finalized into the static thresholds serving
 uses.  Counterpart of ``repro/core/calibration.py`` (max-abs observer;
-the percentile observer comes with ROADMAP Queue A item 3's remainder).
+the percentile observer comes with ROADMAP Queue A item 16).
 """
 from __future__ import annotations
 

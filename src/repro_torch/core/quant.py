@@ -156,7 +156,7 @@ def fake_quant_symmetric(x, t_max, alpha, spec: QuantSpec):
 def fake_quant_asymmetric(*args, **kwargs):
     """The asymmetric (affine) scheme of §3.1.4 is not on the ported path."""
     raise NotImplementedError(
-        "asymmetric fake-quant is not ported (ROADMAP Queue A item 3: "
+        "asymmetric fake-quant is not ported (ROADMAP Queue A item 16: "
         "asymmetric and percentile variants)")
 
 

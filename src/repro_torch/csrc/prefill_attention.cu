@@ -1,24 +1,27 @@
-// Flash-prefill attention over a quantized K/V stream, for Hopper (sm_90a).
+// Flash-prefill attention over a quantized or bf16 K/V stream, for Hopper (sm_90a).
 //
 //   out[b, i, h, g] = v_scale[h] * softmax_{k visible to i}((q[b, i, h, g] * k_scale[h]
 //                     / sqrt(D)) . K[b, k, h]) @ V[b, :, h]
 //   visible: k < kv_len[b], k <= q_start[b] + i (causal), q_start[b] + i - k < window;
 //   a row with no visible key is zeros.
-// K/V hold int8 values (bits == 8) or int4 values packed two per byte along D
-// (bits == 4: element 2i in the low nibble of byte i, D/2 bytes a row).  They
-// are a dense (B, Sk, KV, D) stream (table == nullptr), or a paged pool (pages,
-// P, KV, D) with a (B, NB) block table: key position t of request b is pool
-// row table[b * NB + t / P] * P + t % P.
+// K/V hold int8 values (bits == 8), int4 values packed two per byte along D
+// (bits == 4: element 2i in the low nibble of byte i, D/2 bytes a row) or bf16
+// values (bits == 16: 2 D bytes a row; a float cache, served with k_scale ==
+// v_scale == 1).  They are a dense (B, Sk, KV, D) stream (table == nullptr), or
+// a paged pool (pages, P, KV, D) with a (B, NB) block table: key position t of
+// request b is pool row table[b * NB + t / P] * P + t % P.
 //
 // Replaces the TPU kernel src/repro/kernels/prefill_attention.py::prefill_attention_tiles
-// (body `_kernel`, both kv_bits branches; its dense entry prefill_attention_int8
-// is the null table here, chunked prefill into a paged cache the real table).
+// (body `_kernel`: both kv_bits branches and the float K/V stream with unit
+// scales; its dense entry prefill_attention_int8 is the null table here,
+// chunked prefill into a paged cache the real table).
 //
 // What bounds it on an H100: bytes, at the serving shapes.  At B 4, S 512,
 // KV 3, G 3, D 64 the call must move 7.86 MB (bf16 q 2.36, int8 K/V 0.79, the
 // float32 output 4.72: 60% of it), 2.35 us at 3.35 TB/s, while its 1.21
 // GFLOP take 1.22 us on the bf16 tensor cores.  In practice it is bound by
-// latency: few blocks, and a chain of dependent phases in each.
+// latency: few blocks, and a chain of dependent phases in each.  A bf16 K/V
+// stream doubles the K/V bytes (1.57 MB at that shape).
 //
 // Design.  One block per (query tile, KV head, request).  As in the TPU
 // kernel the G query heads of a KV head are flattened into rows (row r sits
@@ -38,6 +41,14 @@
 //    fragment) and are split into hi = fp16(p) and lo = fp16(p - hi), two
 //    MMAs: one 16-bit P would put 2^-12 (fp16) or 2^-9 (bf16) relative error
 //    into every weight, above the tolerance.
+//  - A bf16 K/V stream: K is exact in bf16 as before.  A bf16 V can lie
+//    outside fp16's range, so P @ V runs in bf16, and P is split into three
+//    bf16 pieces, hi + mid + lo, three MMAs: two bf16 pieces leave 2^-18 of
+//    each weight, an error of up to 2^-18 max|V| that the data, not the
+//    kernel, would hold under the tolerance; three leave 2^-27, below
+//    float32's own rounding.  The pieces go one a pass over the key step
+//    (the scores keep what is left), so one piece is live at a time: the
+//    D <= 64 variants stay within their 128 registers.
 //  - The online softmax runs in registers: a lane holds 2 rows x 16 keys of
 //    its 64; a row's max and sum meet across the 4 lanes of a quad.  Masked
 //    keys get -inf, so p = 0 and they take no part in the max (a 64-key
@@ -47,9 +58,13 @@
 //    cp.async (zero-filled past the live range) while step t computes; once
 //    they land, each thread widens its share to a bf16 K tile and an fp16 V
 //    tile (float or fp16 bit tricks, no I2F) in the second of two tile
-//    buffers, right after issuing step t's P @ V MMAs.  Tile rows are padded
+//    buffers, right after issuing step t's P @ V MMAs.  A bf16 row needs no
+//    widening: cp.async copies it straight into the second tile buffer, so
+//    the raw buffers and the widening step drop out.  Tile rows are padded
 //    by 16 bytes, so ldmatrix reads K (plain) and V (.trans) without bank
-//    conflicts.  D that is not a multiple of 16 is zero-padded in K and q.
+//    conflicts.  D that is not a multiple of 16 is zero-padded in K and q
+//    (in a bf16 stream the padding columns are zeroed once: no copy writes
+//    them).
 //  - The key walk runs only from the window's first live tile to
 //    min(kv_len, causal frontier): the TPU body's `live` skip.  A warp whose
 //    16 rows see none of its 64 keys skips them, an exact no-op.  Query tiles
@@ -231,8 +246,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // DCH: 64-wide chunks of the head dim held in registers (D <= 64 * DCH);
-// BITS: storage width of K/V (8, or 4 packed); PAGED: K/V are page pools read
-// through the block table (else a dense (B, Sk, KV, D) stream).
+// BITS: storage of K/V (8 int8, 4 packed int4, 16 bf16); PAGED: K/V are page
+// pools read through the block table (else a dense (B, Sk, KV, D) stream).
+// k and v are addressed in bytes.
 template <typename T, int DCH, int BITS, bool PAGED>
 __global__ void __launch_bounds__(32 * ROW_WARPS * parts(DCH), 1)
 prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
@@ -246,6 +262,7 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                          int causal, int window, int NB, int P, int n_pages,
                          int cw) {
   constexpr bool QF32 = std::is_same<T, float>::value;
+  constexpr bool DIRECT = BITS == 16;  // bf16 rows go straight into the tiles
   constexpr int PARTS = parts(DCH);
   constexpr int NT = 32 * ROW_WARPS * PARTS;  // threads
   constexpr int BK = HALF * PARTS;            // keys staged per step
@@ -269,11 +286,11 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   const int DP = D * BITS / 8;     // storage bytes per K/V row (D % 8 == 0)
 
   uint16_t* ks = reinterpret_cast<uint16_t*>(smem);  // [2][BK][LDT] K, bf16
-  uint16_t* vs = ks + 2 * BK * LDT;                  // [2][BK][LDT] V, fp16
+  uint16_t* vs = ks + 2 * BK * LDT;                  // [2][BK][LDT] V, fp16 (DIRECT: bf16)
   uint16_t* qs = vs + 2 * BK * LDT;  // [ROWS][LDT] q, bf16 (hi), then [ROWS][LDT] lo
   int8_t* kraw = reinterpret_cast<int8_t*>(qs + (QF32 ? 2 : 1) * ROWS * LDT);  // [BK][DP]
-  int8_t* vraw = kraw + BK * DP;                                // [BK][DP] raw V
-  size_t* koff = reinterpret_cast<size_t*>(vraw + BK * DP);     // [BK] (PAGED)
+  int8_t* vraw = kraw + (DIRECT ? 0 : BK * DP);                 // [BK][DP] raw V
+  size_t* koff = reinterpret_cast<size_t*>(vraw + (DIRECT ? 0 : BK * DP));  // [BK] (PAGED)
 
   const int i0 = qt * BQ;                  // first query index of the tile
   // q, unscaled, to registers first (its loads depend on nothing before
@@ -321,18 +338,22 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
       koff[tid] = (((size_t)page * P + t % P) * KV + h) * DP;
     }
   };
-  // cp.async of the raw K and V bytes of the step at k0, cw bytes a copy
-  // (zero-filled past k_end)
+  // cp.async of the K and V bytes of the step at k0, cw bytes a copy
+  // (zero-filled past k_end): into the raw buffers, or (DIRECT) into the
+  // rows of tile buffer `buf`
   const int chunks = DP / cw;
-  auto issue = [&](int k0) {
+  auto issue = [&](int k0, int buf) {
     const int n = staged(k0) * chunks;
     for (int i = tid; i < n; i += NT) {
       const int t = i / chunks, x = i - t * chunks;
       const bool ok = k0 + t < k_end;
       size_t off = (size_t)x * cw;
       if (ok) off += PAGED ? koff[t] : (((size_t)b * Sk + k0 + t) * KV + h) * DP;
-      cp_async(kraw + t * DP + x * cw, k + off, cw, ok ? cw : 0);
-      cp_async(vraw + t * DP + x * cw, v + off, cw, ok ? cw : 0);
+      const int at = DIRECT ? 2 * (buf * BK + t) * LDT + x * cw : t * DP + x * cw;
+      int8_t* kdst = DIRECT ? reinterpret_cast<int8_t*>(ks) : kraw;
+      int8_t* vdst = DIRECT ? reinterpret_cast<int8_t*>(vs) : vraw;
+      cp_async(kdst + at, k + off, cw, ok ? cw : 0);
+      cp_async(vdst + at, v + off, cw, ok ? cw : 0);
     }
     cp_async_commit();
   };
@@ -343,7 +364,17 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
       map_rows(k_first);
       __syncthreads();
     }
-    issue(k_first);
+    issue(k_first, 0);
+  }
+  if constexpr (DIRECT) {
+    // no copy writes the padding columns D..D16 of a bf16 tile: zero them
+    // once, in both buffers
+    if (D16 != D) {
+      for (int r = tid; r < 2 * BK; r += NT) {
+        *reinterpret_cast<uint4*>(ks + r * LDT + D) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(vs + r * LDT + D) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
   }
 
   // q to shared memory
@@ -406,7 +437,7 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
       if constexpr (BITS == 8) {
         *reinterpret_cast<uint2*>(kdst + at[u]) = widen_int8(kw[u]);
         *reinterpret_cast<uint2*>(vdst + at[u]) = widen_int8_f16(vw[u]);
-      } else {
+      } else if constexpr (BITS == 4) {
         *reinterpret_cast<uint4*>(kdst + at[u]) = widen_int4(kw[u]);
         *reinterpret_cast<uint4*>(vdst + at[u]) = widen_int4_f16(vw[u]);
       }
@@ -423,18 +454,18 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   if (k_first < k_end) {
     cp_async_wait_all();
     __syncthreads();
-    widen(k_first, ks, vs);
+    if constexpr (!DIRECT) widen(k_first, ks, vs);
     if constexpr (PAGED) {
       if (k_first + BK < k_end) map_rows(k_first + BK);
     }
     __syncthreads();
-    if (k_first + BK < k_end) issue(k_first + BK);
+    if (k_first + BK < k_end) issue(k_first + BK, 1);
   }
 
   // step at k0: its tiles are in buffer `buf`, the next step's raw
-  // bytes in flight.  Scores and softmax; then, once the raw bytes have
-  // landed, this step's P @ V MMAs go out and the next step is widened into
-  // the other buffer while they run.
+  // bytes (DIRECT: its tiles, in the other buffer) in flight.  Scores and
+  // softmax; then, once the copy has landed, this step's P @ V MMAs go out
+  // and the next step is widened into the other buffer while they run.
   for (int k0 = k_first, buf = 0; k0 < k_end; k0 += BK, buf ^= 1) {
     const int k_next = k0 + BK;
     // this warp's 64 keys; a warp whose rows see none of them skips them
@@ -528,47 +559,81 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
     }
     if (k_next < k_end) {
       cp_async_wait_all();
-      // the next step's raw bytes have landed for every thread
+      // the next step's copy has landed for every thread
       __syncthreads();
     }
     if (live) {
       // acc += P @ V: key tiles 2 kk, 2 kk + 1 form the A fragment of the
-      // 16-key step kk, split into hi + lo fp16
+      // 16-key step kk, split into hi + lo fp16 (DIRECT: hi + mid + lo bf16,
+      // one piece a pass: each pass rounds what the scores still hold and
+      // leaves the rest in them, so only one piece is live at a time)
 #pragma unroll
       for (int kk = 0; kk < NKT / 2; ++kk) {
-        uint32_t ph[4], pl[4];
-        split_f16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-        split_f16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-        split_f16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-        split_f16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+        if constexpr (DIRECT) {
+          constexpr int NP = 3;
 #pragma unroll
-        for (int dp = 0; dp < NDM / 2; ++dp) {
-          if (2 * dp < ND) {
-            // B fragments of column tiles 2 dp, 2 dp + 1 (V rows are B's rows)
-            uint32_t bf[4];
-            const int mi = lane >> 3;
-            ldsm_x4_trans(bf, vt + (16 * kk + 8 * (mi & 1) + (lane & 7)) * LDT + 16 * dp +
-                                  8 * (mi >> 1));
-            mma<true>(acc[2 * dp], ph, bf[0], bf[1]);
-            mma<true>(acc[2 * dp], pl, bf[0], bf[1]);
-            if (2 * dp + 1 < ND) {
-              mma<true>(acc[2 * dp + 1], ph, bf[2], bf[3]);
-              mma<true>(acc[2 * dp + 1], pl, bf[2], bf[3]);
+          for (int pi = 0; pi < NP; ++pi) {
+            uint32_t pa[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              float& x0 = s[2 * kk + (j >> 1)][2 * (j & 1)];
+              float& x1 = s[2 * kk + (j >> 1)][2 * (j & 1) + 1];
+              pa[j] = pack_bf16(x0, x1);
+              if (pi < NP - 1) {
+                x0 -= __uint_as_float(pa[j] << 16);
+                x1 -= __uint_as_float(pa[j] & 0xffff0000u);
+              }
+            }
+#pragma unroll
+            for (int dp = 0; dp < NDM / 2; ++dp) {
+              if (2 * dp < ND) {
+                // B fragments of column tiles 2 dp, 2 dp + 1 (V rows are
+                // B's rows)
+                uint32_t bf[4];
+                const int mi = lane >> 3;
+                ldsm_x4_trans(bf, vt + (16 * kk + 8 * (mi & 1) + (lane & 7)) * LDT +
+                                      16 * dp + 8 * (mi >> 1));
+                mma(acc[2 * dp], pa, bf[0], bf[1]);
+                if (2 * dp + 1 < ND) mma(acc[2 * dp + 1], pa, bf[2], bf[3]);
+              }
+            }
+          }
+        } else {
+          uint32_t ph[4], pl[4];
+          split_f16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+          split_f16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+          split_f16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+          split_f16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+          for (int dp = 0; dp < NDM / 2; ++dp) {
+            if (2 * dp < ND) {
+              // B fragments of column tiles 2 dp, 2 dp + 1 (V rows are B's rows)
+              uint32_t bf[4];
+              const int mi = lane >> 3;
+              ldsm_x4_trans(bf, vt + (16 * kk + 8 * (mi & 1) + (lane & 7)) * LDT + 16 * dp +
+                                    8 * (mi >> 1));
+              mma<true>(acc[2 * dp], ph, bf[0], bf[1]);
+              mma<true>(acc[2 * dp], pl, bf[0], bf[1]);
+              if (2 * dp + 1 < ND) {
+                mma<true>(acc[2 * dp + 1], ph, bf[2], bf[3]);
+                mma<true>(acc[2 * dp + 1], pl, bf[2], bf[3]);
+              }
             }
           }
         }
       }
     }
     if (k_next < k_end) {
-      widen(k_next, ks + (buf ^ 1) * BK * LDT, vs + (buf ^ 1) * BK * LDT);
+      if constexpr (!DIRECT)
+        widen(k_next, ks + (buf ^ 1) * BK * LDT, vs + (buf ^ 1) * BK * LDT);
       if constexpr (PAGED) {
         if (k_next + BK < k_end) map_rows(k_next + BK);
       }
     }
     // the next step's tiles (and pool rows) are in place, this step's are
-    // read, and the raw buffer is free
+    // read, and the raw buffer (DIRECT: this step's tile buffer) is free
     __syncthreads();
-    if (k_next + BK < k_end) issue(k_next + BK);
+    if (k_next + BK < k_end) issue(k_next + BK, buf);
   }
 
   // merge the key parts: the warps of parts 1.. hand their state to the
@@ -650,8 +715,11 @@ int launch_variant(const void* q, const void* k, const void* v, const void* k_sc
                        static_cast<uintptr_t>(DP);
   const int cw = al % 16 == 0 ? 16 : al % 8 == 0 ? 8 : 4;
   const int q_tiles = std::is_same<T, float>::value ? 2 : 1;
+  // a bf16 stream (BITS == 16) is copied straight into the tiles: no raw
+  // buffers
   const size_t tiles = sizeof(uint16_t) * (4 * BK + q_tiles * ROWS) * LDT +
-                       2 * (size_t)BK * DP + (PAGED ? sizeof(size_t) * BK : 0);
+                       (BITS == 16 ? 0 : 2 * (size_t)BK * DP) +
+                       (PAGED ? sizeof(size_t) * BK : 0);
   // the merge's hand-over, (PARTS - 1) x [ROW_WARPS][NV][32] floats, reuses
   // that space
   const size_t xfer = sizeof(float) * (PARTS - 1) * ROW_WARPS * (32 * DCH + 4) * 32;
@@ -707,17 +775,20 @@ int dispatch_bits(const void* q, const void* k, const void* v, const void* ks,
   if (bits == 4)
     return dispatch<T, 4>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G, D,
                           causal, window, pg, st);
+  if (bits == 16)
+    return dispatch<T, 16>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G, D,
+                           causal, window, pg, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q: (B, Sq, KV, G, D) f32 (q_bf16 == 0) or bf16; k/v: (B, Sk, KV, D) int8
-// (bits == 8) or (B, Sk, KV, D/2) packed int4 (bits == 4) when table is null,
-// else pools (n_pages, P, KV, D or D/2) read through the (B, NB) int32 block
-// table, with Sk == NB * P; k_scale/v_scale: (KV,) f32; q_start, kv_len: (B,)
-// int32; window <= 0 means no window; out: (B, Sq, KV, G, D) f32.  Requires
-// G <= 64, D % 8 == 0, D <= 128.
+// q: (B, Sq, KV, G, D) f32 (q_bf16 == 0) or bf16; bits, the K/V storage code:
+// 8 int8, 4 packed int4, 16 bf16; k/v: (B, Sk, KV, D) int8 or bf16, or (B, Sk,
+// KV, D/2) packed int4, when table is null, else pools (n_pages, P, KV, D or
+// D/2) read through the (B, NB) int32 block table, with Sk == NB * P;
+// k_scale/v_scale: (KV,) f32; q_start, kv_len: (B,) int32; window <= 0 means no
+// window; out: (B, Sq, KV, G, D) f32.  Requires G <= 64, D % 8 == 0, D <= 128.
 extern "C" int repro_prefill_attention(const void* q, int q_bf16, const void* k,
                                        const void* v, const void* k_scale,
                                        const void* v_scale, const void* q_start,

@@ -36,6 +36,7 @@ def reset_launches() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
     _qm.launches_w4 = 0
+    _pa.launches_bf16 = 0
     for mod in ATTENTION.values():
         mod.launches_int4 = 0
         mod.launches_paged = 0
@@ -54,6 +55,12 @@ def w4_launch_counts() -> dict:
 def int4_launch_counts() -> dict:
     """Launches of the attention kernels' int4 (packed K/V) variant."""
     return {name: mod.launches_int4 for name, mod in ATTENTION.items()}
+
+
+def bf16_launch_counts() -> dict:
+    """Launches of the prefill attention kernel over a bf16 K/V stream (a
+    float KV cache); the decode kernels have no such variant."""
+    return {"prefill_attention": _pa.launches_bf16}
 
 
 def paged_launch_counts() -> dict:
@@ -120,8 +127,9 @@ def decode_attention_partials(q, k_cache, v_cache, k_scale, v_scale,
 def prefill_attention(q, k, v, k_scale, v_scale, q_start, kv_len, *,
                       causal: bool = True, window: int | None = None,
                       kv_bits: int = 8):
-    """Prompt attention over a quantized K/V stream; (B, Sq, KV, G, D)
-    float32.  ``kv_bits=4``: K/V hold packed nibbles (D/2 bytes).
+    """Prompt attention over a quantized or float K/V stream; (B, Sq, KV,
+    G, D) float32.  ``kv_bits=4``: K/V hold packed nibbles (D/2 bytes); float
+    K/V (a float cache, served with unit scales) take ``kv_bits=8``.
 
     q_start (position of query row 0) and kv_len (valid K/V count) are
     ints, or 0-d or (B,) int tensors."""

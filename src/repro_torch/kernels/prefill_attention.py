@@ -1,7 +1,8 @@
 """Wrapper of the Hopper kernel ``csrc/prefill_attention.cu``: flash
-attention of a prompt (or a prompt chunk) over an int8 or packed-int4 K/V
-stream, dense or paged (a page pool read through a block table), with
-causal, kv_len and optional sliding-window masks.
+attention of a prompt (or a prompt chunk) over an int8, packed-int4 or bf16
+K/V stream, dense or paged (a page pool read through a block table), with
+causal, kv_len and optional sliding-window masks.  A bf16 stream is a float
+KV cache, served with unit scales, as the TPU kernel serves one.
 
 Replaces the TPU kernel
 ``repro/kernels/prefill_attention.py::prefill_attention_tiles``, through its
@@ -23,10 +24,11 @@ REPLACES = "src/repro/kernels/prefill_attention.py:192"
 G_MAX = 64      # query heads per KV head: one row tile holds 64 rows
 D_MAX = 128     # the output accumulator lives in registers: D/2 floats a lane
 
-# kernel launches made by ``launch`` in this process: all, at int4, and
-# over a paged pool
+# kernel launches made by ``launch`` in this process: all, at int4, over a
+# bf16 K/V stream, and over a paged pool
 launches = 0
 launches_int4 = 0
+launches_bf16 = 0
 launches_paged = 0
 
 _FN = None
@@ -35,8 +37,11 @@ _FN = None
 def check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits=8,
           table=None):
     """Raise on inputs the kernel (and its plain version) does not take.
-    With ``table`` (B, NB) int32, k/v are (pages, page_size, KV, D) pools
-    (D/2 at int4) read through it."""
+    K/V are int8 tiles (packed int4 at ``kv_bits=4``) or float tiles of D
+    values a row at ``kv_bits=8``: bf16 (the kernel and its plain version)
+    or float32 (the plain version only; ``launch`` raises).  With ``table``
+    (B, NB) int32, k/v are (pages, page_size, KV, D) pools (D/2 at int4)
+    read through it."""
     if q.ndim != 5 or k.ndim != 4:
         raise ValueError(f"prefill_attention takes q (B, Sq, KV, G, D) and "
                          f"k/v (B, Sk, KV, D) or (pages, page_size, KV, D) "
@@ -58,8 +63,13 @@ def check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits=8,
         raise ValueError("k and v differ in shape")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if k.dtype != torch.int8 or v.dtype != torch.int8:
-        raise TypeError("the kernel reads int8 (or packed int4) K/V tiles")
+    if v.dtype != k.dtype or k.dtype not in (torch.int8, torch.bfloat16,
+                                              torch.float32):
+        raise TypeError(f"K/V must be int8 (or packed int4) tiles or float "
+                        f"tiles of one dtype, got {k.dtype} and {v.dtype}")
+    if k.dtype != torch.int8 and kv_bits != 8:
+        raise ValueError("float K/V tiles hold D values a row: kv_bits must "
+                         "be 8")
     if d % 8 or d > D_MAX:
         raise ValueError(f"head dim {d} must be a multiple of 8 and <= {D_MAX}")
     if g > G_MAX:
@@ -98,10 +108,15 @@ def launch(q, k, v, k_scale, v_scale, q_start, kv_len, *, causal=True,
            window=None, kv_bits=8, table=None):
     """Run the CUDA kernel over a dense K/V stream, or over page pools
     through ``table``; returns (B, Sq, KV, G, D) float32."""
-    global launches, launches_int4, launches_paged
+    global launches, launches_int4, launches_bf16, launches_paged
     check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits, table)
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {q.device}")
+    if k.dtype == torch.float32:
+        raise TypeError("the CUDA kernel reads int8, packed int4 or bf16 K/V "
+                        "tiles; float32 K/V (a float32 KV cache) is ROADMAP "
+                        "Queue B, B2's float32 K/V branch")
+    bf16 = k.dtype == torch.bfloat16
     b, sq, kvh, g, d = q.shape
     if table is None:
         sk, paging = k.shape[1], (None, 0, 0, 0)
@@ -116,12 +131,13 @@ def launch(q, k, v, k_scale, v_scale, q_start, kv_len, *, causal=True,
                     k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
                     v_scale.data_ptr(), q_start.data_ptr(), kv_len.data_ptr(),
                     out.data_ptr(), b, sq, sk, kvh, g, d, int(bool(causal)),
-                    0 if window is None else int(window), kv_bits, *paging,
-                    stream)
+                    0 if window is None else int(window),
+                    16 if bf16 else kv_bits, *paging, stream)
     if err:
         raise RuntimeError(f"prefill_attention kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
     launches_int4 += kv_bits == 4
+    launches_bf16 += bf16
     launches_paged += table is not None
     return out

@@ -3,6 +3,10 @@
     engine = Engine.from_checkpoint("smollm-135m", smoke=False)   # on CUDA
     result = engine.generate_batch({"tokens": prompts}, gen=32)
     result = engine.generate_one(prompt_tokens, gen=32)
+    # the full-precision baseline and its ablations: bf16 weights (fp=True)
+    # and/or a bf16 KV cache (kv_int8=False)
+    engine = Engine.from_checkpoint("smollm-135m", smoke=False, fp=True,
+                                    kv_int8=False)
     # int4 KV cache, thresholds fine-tuned for 2 epochs (paper §3):
     engine = Engine.from_checkpoint("smollm-135m", smoke=False, kv_bits=4,
                                     finetune_thresholds=2)
@@ -18,13 +22,17 @@
 Counterpart of ``repro/launch/engine.py``: seeded random init (or bridged
 reference params, or a training checkpoint's) -> §2 calibration ->
 optional FAT threshold fine-tune (fp teacher vs fake-quant student) ->
-int8 conversion -> one-shot or
-chunked prefill into an int8 or packed-int4 KV cache, dense or paged ->
-greedy decode of a fixed batch (``generate_batch``) or continuous batching
-through the slot scheduler (``generate``).  Every quantized matmul and
-both attentions run through ``kernels.ops``: the hand-written CUDA kernels
-when the engine's device is a GPU, their plain versions when it is the
-CPU.
+int8 conversion -> one-shot or chunked prefill into an int8, packed-int4
+or bf16 KV cache, dense or paged -> greedy decode of a fixed batch
+(``generate_batch``) or continuous batching through the slot scheduler
+(``generate``).  Every quantized matmul, the prefill attention and the
+decode attention over a quantized cache run through ``kernels.ops``: the
+hand-written CUDA kernels when the engine's device is a GPU, their plain
+versions when it is the CPU.  The reference's other three serving modes
+are the engine's ``fp`` and ``kv_int8`` flags: bf16 weights (``fp``) are
+plain ``x @ w`` products (the reference leaves them to XLA), and decode
+over a bf16 cache (``kv_int8=False``) is plain attention, as in the
+reference.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``:
 ``device=None`` means CUDA and raises when no CUDA device is present.
@@ -76,16 +84,20 @@ def resolve_device(device=None) -> torch.device:
 
 
 def prepare_int8(model, policy: A.QuantPolicy, params, calib_batches, *,
-                 finetune_epochs: int = 0, finetune_log: dict | None = None):
+                 convert: bool = True, finetune_epochs: int = 0,
+                 finetune_log: dict | None = None):
     """Calibration + int8 conversion (the paper's deployment pipeline):
     observers over the calibration batches, finalized thresholds, int8
-    weights.  ``finetune_epochs`` > 0 inserts the paper's §3 threshold
-    training between calibration and conversion: finalize emits trainable
-    ``log2_t`` KV thresholds, ``steps.finetune_thresholds`` distills them
-    (and the alpha scales) against the fp teacher over the same batches,
-    and ``freeze_thresholds`` collapses the result back to the static
-    ``t_max`` form serving reads.  The fine-tune's per-step losses and
-    wall times go into ``finetune_log`` ("losses", "step_s") if given.
+    weights.  ``convert=False`` stops after calibration and serves the
+    params as they are (bf16 weights over an int8 KV cache needs the
+    thresholds, not the int8 weights).  ``finetune_epochs`` > 0 inserts
+    the paper's §3 threshold training between calibration and conversion:
+    finalize emits trainable ``log2_t`` KV thresholds,
+    ``steps.finetune_thresholds`` distills them (and the alpha scales)
+    against the fp teacher over the same batches, and
+    ``freeze_thresholds`` collapses the result back to the static ``t_max``
+    form serving reads.  The fine-tune's per-step losses and wall times go
+    into ``finetune_log`` ("losses", "step_s") if given.
     Returns (serve_params, qparams)."""
     calib_batches = list(calib_batches)
     with torch.no_grad():
@@ -103,6 +115,8 @@ def prepare_int8(model, policy: A.QuantPolicy, params, calib_batches, *,
         qparams = A.freeze_thresholds(qparams)
         if finetune_log is not None:
             finetune_log.update(losses=losses, step_s=step_s)
+    if not convert:
+        return params, qparams
     with torch.no_grad():
         return A.convert_to_int8(model, params, qparams, policy), qparams
 
@@ -118,9 +132,12 @@ class GenerationResult:
 
 
 class Engine:
-    """One assembled serving stack: model + int8 params + finalized
+    """One assembled serving stack: model + serving params + finalized
     thresholds on one device, with its cache layout and prefill chunking.
 
+    ``mode`` is "int8" (int8 weights through the quant_matmul kernel) or
+    "none" (the params' full-precision weights); the KV cache is int8 (or
+    packed int4) when ``policy.kv_int8``, else in the config's dtype.
     ``cache_layout`` is "dense", "paged" (a page pool of ``page_size``
     tokens a page, read through block tables) or "ring" (dense for a stack
     without windows); ``prefill_chunk`` set runs chunked ragged prefill in
@@ -129,7 +146,8 @@ class Engine:
     10 and 13)."""
 
     def __init__(self, model, cfg, policy: A.QuantPolicy, serve_params,
-                 qparams, *, device, finetune_log: dict | None = None,
+                 qparams, *, device, mode: str = "int8",
+                 finetune_log: dict | None = None,
                  cache_layout: str = "dense", page_size: int = 64,
                  prefill_chunk: Optional[int] = None,
                  decode_strategy: Optional[str] = None):
@@ -139,10 +157,14 @@ class Engine:
         if cache_layout not in LAYOUTS:
             raise ValueError(f"cache_layout must be one of {LAYOUTS}, got "
                              f"{cache_layout!r}")
+        if mode not in ("none", "int8"):
+            raise ValueError(f"serving mode must be 'none' or 'int8', got "
+                             f"{mode!r}")
         # validation through the single authority: an unported strategy
         # raises at construction, not at the first generate
-        SG.make_strategy(decode_strategy, model, policy)
+        SG.make_strategy(decode_strategy, model, policy, mode=mode)
         self.model, self.cfg, self.policy = model, cfg, policy
+        self.mode = mode
         self.serve_params, self.qparams = serve_params, qparams
         self.device = torch.device(device)
         self.cache_layout, self.page_size = cache_layout, page_size
@@ -179,8 +201,13 @@ class Engine:
         seeded batches of (4, 32) from ``repro_torch.data``.
         ``qparams`` are finalized thresholds calibrated elsewhere (the
         reference's, through ``bridge.qparams_from_jax``): calibration is
-        skipped and the weights convert against them.  ``kv_bits`` is the
-        KV cache's width: 8, or 4 stored as packed nibbles.
+        skipped and the weights convert against them.  ``fp`` serves the
+        full-precision (bf16) weights instead of int8 ones; ``kv_int8``
+        False keeps the KV cache in the config's dtype.  With both, there is
+        no calibration pass; with ``fp`` alone it calibrates the KV
+        thresholds and keeps the weights.  ``kv_bits`` is the quantized KV
+        cache's width: 8, or 4 stored as packed nibbles (ignored without
+        ``kv_int8``, as in the reference).
         ``finetune_thresholds`` > 0 trains the thresholds by distillation
         for that many epochs over the calibration batches before freezing
         them (paper §3; what makes the 7-level int4 grid usable when
@@ -194,10 +221,6 @@ class Engine:
             raise NotImplementedError(
                 f"Engine option {name!r} is not ported (ROADMAP Queue A "
                 f"{_NOT_PORTED[name]})")
-        if fp or not kv_int8:
-            raise NotImplementedError(
-                "bf16 weights / bf16 KV serving are not on the ported path "
-                "(ROADMAP Queue A item 8)")
         if params is not None and checkpoint_dir is not None:
             raise ValueError("pass params or checkpoint_dir, not both")
         if qparams is not None and finetune_thresholds:
@@ -207,7 +230,7 @@ class Engine:
         if cfg is None:
             cfg = get_config(arch, smoke=smoke)
         model = build_model(cfg)
-        policy = A.QuantPolicy(kv_int8=True, kv_bits=kv_bits)
+        policy = A.QuantPolicy(kv_int8=kv_int8, kv_bits=kv_bits)
         if checkpoint_dir is not None:
             tree, _ = CheckpointManager(checkpoint_dir).restore_latest()
             if tree is None:
@@ -220,9 +243,15 @@ class Engine:
         log: dict = {}
         if qparams is not None:
             qparams = tree_to(qparams, dev)
-            with torch.no_grad():
-                serve_params = A.convert_to_int8(model, params, qparams,
-                                                 policy)
+            serve_params = params
+            if not fp:
+                with torch.no_grad():
+                    serve_params = A.convert_to_int8(model, params, qparams,
+                                                     policy)
+        elif fp and not kv_int8:
+            # nothing is quantized: no calibration pass
+            serve_params, qparams = params, A.finalize_calibration(
+                A.init_qparams(model, params, policy))
         else:
             if calib_batches is None:
                 calib_batches = D.calibration_batches(cfg.vocab,
@@ -230,10 +259,13 @@ class Engine:
             batches = [{"tokens": torch.as_tensor(
                 np.asarray(b["tokens"]), device=dev)}
                 for b in calib_batches]
+            # int8 weights and/or an int8 KV cache need the calibration
+            # pass; bf16 weights skip the conversion
             serve_params, qparams = prepare_int8(
-                model, policy, params, batches,
+                model, policy, params, batches, convert=not fp,
                 finetune_epochs=finetune_thresholds, finetune_log=log)
         return cls(model, cfg, policy, serve_params, qparams, device=dev,
+                   mode="none" if fp else "int8",
                    finetune_log=log, cache_layout=cache_layout,
                    page_size=page_size, prefill_chunk=prefill_chunk,
                    decode_strategy=decode_strategy)
@@ -241,13 +273,13 @@ class Engine:
     def _init_kw(self) -> dict:
         """The constructor's keyword arguments of this engine, other than
         its device."""
-        return dict(finetune_log=self.finetune_log,
+        return dict(mode=self.mode, finetune_log=self.finetune_log,
                     cache_layout=self.cache_layout, page_size=self.page_size,
                     prefill_chunk=self.prefill_chunk,
                     decode_strategy=self.decode_strategy)
 
     def to(self, device) -> "Engine":
-        """The same engine (same int8 weights and thresholds) on another
+        """The same engine (same serving weights and thresholds) on another
         device."""
         dev = resolve_device(device)
         return Engine(self.model, self.cfg, self.policy,
@@ -264,10 +296,12 @@ class Engine:
         return count(self.serve_params)
 
     def init_cache(self, batch: int, max_len: int, **layout):
-        """The engine's cache (its layout, page size and KV width unless
-        ``layout`` overrides them)."""
+        """The engine's cache (its layout, page size, KV width, and int8 or
+        the config's dtype, unless ``layout`` overrides them)."""
         layout.setdefault("layout", self.cache_layout)
         layout.setdefault("page_size", self.page_size)
+        layout.setdefault("kv_int8", bool(self.policy.kv_int8))
+        layout.setdefault("dtype", self.cfg.dtype)
         return self.model.init_cache(batch, max_len, self.device,
                                      self.policy.kv_bits, **layout)
 
@@ -303,7 +337,8 @@ class Engine:
         b, s = tokens.shape
         cache = self.init_cache(b, self._cache_len(s, gen))
         prefill = ST.make_prefill_step(self.model, self.policy,
-                                       prefill_chunk=self.prefill_chunk)
+                                       prefill_chunk=self.prefill_chunk,
+                                       mode=self.mode)
         args = ({"tokens": tokens}, cache)
         if self.prefill_chunk:
             # prompts padded to a chunk multiple; the length vector masks
@@ -312,7 +347,7 @@ class Engine:
                                                        self.prefill_chunk)
             args = ({"tokens": toks}, cache, lengths)
         decode_loop = ST.make_decode_loop(self.model, self.policy,
-                                          n_steps=gen)
+                                          n_steps=gen, mode=self.mode)
         self._sync()
         t0 = time.perf_counter()
         logits, cache = prefill(self.serve_params, self.qparams, *args)
@@ -352,7 +387,8 @@ class Engine:
         if self._scheduler is None or self._scheduler_key != key:
             self._scheduler = SlotScheduler(
                 self.model, self.cfg, self.policy, self.serve_params,
-                self.qparams, device=self.device, max_slots=max_slots,
+                self.qparams, mode=self.mode, device=self.device,
+                max_slots=max_slots,
                 prompt_cap=prompt_cap, gen_cap=gen_cap,
                 prefill_chunk=self.prefill_chunk, block_steps=block_steps,
                 cache_layout=self.cache_layout, page_size=self.page_size,

@@ -137,10 +137,14 @@ class SlotScheduler:
     (the shared region, default room for two full-capacity prompts) size
     the paged pool.  ``eos_id`` >= 0 stops a slot at that token.
     ``strategy`` is a ``strategies`` name, a ``DecodeStrategy`` or None
-    (greedy).  The caches live on ``device`` (default: the weights')."""
+    (greedy).  ``mode`` is the serving mode ("int8" weights, or "none":
+    the full-precision weights); the caches hold int8 (or packed int4) K/V
+    when ``policy.kv_int8``, else ``cfg.dtype`` K/V.  The caches live on
+    ``device`` (default: the weights')."""
 
     def __init__(self, model, cfg, policy: A.QuantPolicy, serve_params,
-                 qparams, *, device=None, max_slots: int = 4,
+                 qparams, *, mode: str = "int8", device=None,
+                 max_slots: int = 4,
                  prompt_cap: int = 64, gen_cap: int = 32,
                  prefill_chunk: int | None = None, block_steps: int = 8,
                  cache_layout: str = "dense", page_size: int = 64,
@@ -161,6 +165,7 @@ class SlotScheduler:
             raise ValueError(f"max_slots ({max_slots}) and block_steps "
                              f"({block_steps}) must be >= 1")
         self.model, self.cfg, self.policy = model, cfg, policy
+        self.mode = mode
         self.serve_params, self.qparams = serve_params, qparams
         self.device = torch.device(
             device if device is not None
@@ -175,7 +180,7 @@ class SlotScheduler:
         self.cache_layout = cache_layout
         self.page_size = page_size
         if not isinstance(strategy, SG.DecodeStrategy):
-            strategy = SG.make_strategy(strategy, model, policy)
+            strategy = SG.make_strategy(strategy, model, policy, mode=mode)
         self._strategy = strategy
         # the decode kernel's 128-position tiles, then whole pages, so the
         # dense batch-1 prefill reshapes into the slot's pages
@@ -192,18 +197,19 @@ class SlotScheduler:
         if prefix_pages is None:
             prefix_pages = 2 * self._n_blocks
         self._prefix_pages = prefix_pages if cache_layout == "paged" else 0
+        kv = dict(kv_int8=bool(policy.kv_int8), dtype=cfg.dtype)
         with torch.inference_mode():
             # batch-1 admission template: DENSE whatever the batch layout;
             # each admission's prefill writes into it and the splice
             # re-homes the tiles
             self._slot_cache0 = model.init_cache(
-                1, cache_len, self.device, policy.kv_bits)
+                1, cache_len, self.device, policy.kv_bits, **kv)
             # the resident batch cache lives on the instance, so pages (and
             # the prefix store pointing into them) survive across runs
             self._cache = model.init_cache(
                 max_slots, cache_len, self.device, policy.kv_bits,
                 layout=cache_layout, page_size=page_size,
-                extra_pages=self._prefix_pages)
+                extra_pages=self._prefix_pages, **kv)
         if cache_layout == "paged":
             nb = self._n_blocks
             self._private_rows = [np.arange(b * nb, (b + 1) * nb,
@@ -221,7 +227,8 @@ class SlotScheduler:
         self._seconds = {"admit": 0.0, "decode": 0.0}
         self._health = {k: 0 for k in _HEALTH_KEYS}
         self._prefill_fn = ST.make_prefill_step(model, policy,
-                                                prefill_chunk=prefill_chunk)
+                                                prefill_chunk=prefill_chunk,
+                                                mode=mode)
         self._decode_fn = SG.make_strategy_slot_loop(
             model, policy, strategy, n_steps=block_steps, eos_id=eos_id)
 

@@ -204,8 +204,9 @@ def attn_cache_len(cache) -> int:
 
 
 def make_prefill_step(model, policy: A.QuantPolicy,
-                      prefill_chunk: int | None = None):
-    """int8 prefill into a quantized cache.
+                      prefill_chunk: int | None = None, mode: str = "int8"):
+    """Serving prefill (``mode`` "int8": int8 weights; "none": the
+    full-precision weights) into the KV cache.
 
     One-shot (``prefill_chunk`` None): ``(params, qparams, batch, cache) ->
     (logits of the last position (B, 1, Vp), cache)``.  Chunked: ``(params,
@@ -216,7 +217,7 @@ def make_prefill_step(model, policy: A.QuantPolicy,
     state, so the readout runs once, on (B, 1, d)."""
     if prefill_chunk is None:
         def prefill_step(serve_params, qparams, batch, cache):
-            ctx = A.make_ctx("int8", policy, qparams)
+            ctx = A.make_ctx(mode, policy, qparams)
             return model.prefill(serve_params, batch, cache, ctx)
 
         return prefill_step
@@ -224,7 +225,7 @@ def make_prefill_step(model, policy: A.QuantPolicy,
     cfg = model.cfg
 
     def chunked_prefill_step(serve_params, qparams, batch, cache, lengths):
-        ctx = A.make_ctx("int8", policy, qparams)
+        ctx = A.make_ctx(mode, policy, qparams)
         tokens = batch["tokens"]
         b, s_max = tokens.shape
         if s_max % prefill_chunk:
@@ -265,12 +266,14 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1)
 
 
-def make_decode_loop(model, policy: A.QuantPolicy, n_steps: int = 16):
-    """Greedy int8 whole-generation decode: (params, qparams, tok0 (B,),
-    cache, pos0) -> (tokens (B, n_steps), cache) with tokens[:, 0] == tok0
-    and n_steps - 1 decode steps."""
+def make_decode_loop(model, policy: A.QuantPolicy, n_steps: int = 16,
+                     mode: str = "int8"):
+    """Greedy whole-generation decode in serving ``mode`` ("int8" or
+    "none"): (params, qparams, tok0 (B,), cache, pos0) -> (tokens (B,
+    n_steps), cache) with tokens[:, 0] == tok0 and n_steps - 1 decode
+    steps."""
     def decode_loop(serve_params, qparams, tok0, cache, pos0: int):
-        ctx = A.make_ctx("int8", policy, qparams)
+        ctx = A.make_ctx(mode, policy, qparams)
         toks = [tok0]
         for i in range(n_steps - 1):
             logits, cache = model.decode_step(serve_params, toks[-1][:, None],
@@ -282,18 +285,19 @@ def make_decode_loop(model, policy: A.QuantPolicy, n_steps: int = 16):
 
 
 def make_slot_decode_loop(model, policy: A.QuantPolicy, n_steps: int = 8,
-                          eos_id: int = -1):
+                          eos_id: int = -1, mode: str = "int8"):
     """One continuous-batching decode block of ``n_steps`` greedy steps over
     a slot batch where every slot sits at its own position: ``(params,
     qparams, tok0 (B,), cache, pos0 (B,), active0 (B,)) -> (toks (B,
     n_steps), emitted (B, n_steps) bool, cache, pos, active)``.
     ``emitted[b, i]`` marks real tokens (an EOS itself is emitted, nothing
     after it); ``eos_id < 0`` disables EOS detection.  A wrapper over
-    ``strategies.make_strategy_slot_loop`` with the greedy strategy."""
+    ``strategies.make_strategy_slot_loop`` with the greedy strategy in
+    serving ``mode``."""
     from repro_torch.launch import strategies as SG
 
     inner = SG.make_strategy_slot_loop(
-        model, policy, SG.make_strategy("greedy", model, policy),
+        model, policy, SG.make_strategy("greedy", model, policy, mode=mode),
         n_steps=n_steps, eos_id=eos_id)
 
     def slot_decode_loop(serve_params, qparams, tok0, cache, pos0, active0):

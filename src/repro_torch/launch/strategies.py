@@ -39,8 +39,8 @@ class DecodeStrategy(abc.ABC):
     emit_width: int = 1
     stateful: bool = False
 
-    def __init__(self, model, policy: A.QuantPolicy):
-        self.model, self.policy = model, policy
+    def __init__(self, model, policy: A.QuantPolicy, mode: str = "int8"):
+        self.model, self.policy, self.mode = model, policy, mode
 
     def propose(self, tok, pos, hist):
         """Draft tokens (B, emit_width - 1) to verify this step."""
@@ -64,7 +64,7 @@ class GreedyStrategy(DecodeStrategy):
     kernel), accept its argmax."""
 
     def verify(self, serve_params, qparams, tok, drafts, cache, pos, active):
-        ctx = A.make_ctx("int8", self.policy, qparams)
+        ctx = A.make_ctx(self.mode, self.policy, qparams)
         return self.model.decode_step(serve_params, tok[:, None], cache, pos,
                                       ctx, slot_mask=active)
 
@@ -74,16 +74,18 @@ class GreedyStrategy(DecodeStrategy):
 
 
 def make_strategy(name, model, policy: A.QuantPolicy, *,
-                  temperature: float = 0.0) -> DecodeStrategy:
-    """A strategy by name; ``None`` picks "sample" when temperature > 0,
-    else "greedy", as the reference does."""
+                  temperature: float = 0.0,
+                  mode: str = "int8") -> DecodeStrategy:
+    """A strategy by name, serving in ``mode`` ("int8" or "none"); ``None``
+    picks "sample" when temperature > 0, else "greedy", as the reference
+    does."""
     if name is None:
         name = "sample" if temperature > 0.0 else "greedy"
     if name == "greedy":
         if temperature > 0.0:
             raise ValueError("greedy decoding ignores temperature: drop the "
                              "temperature or use strategy='sample'")
-        return GreedyStrategy(model, policy)
+        return GreedyStrategy(model, policy, mode)
     if name == "sample":
         raise NotImplementedError(
             "sampled decoding is not ported (ROADMAP Queue A item 10)")

@@ -1,15 +1,18 @@
 """GQA attention with rotary embedding: the full-sequence forward used by
 calibration and by the fine-tune's teacher and student, one-shot and
-chunked ragged prefill into the quantized KV cache through the prefill
-kernel, and single-token decode, at one position or at a position per
-slot (continuous batching), through the decode kernel.
+chunked ragged prefill into the KV cache through the prefill kernel, and
+single-token decode, at one position or at a position per slot
+(continuous batching), through the decode kernel (over a float cache, the
+plain ``decode_attention``, as in the reference).
 
 Counterpart of ``repro/models/attention.py`` on the single-device serving
 and threshold-training paths.  All paths share the GQA grouping
 Hq = KV * G, computed on a (B, S, KV, G, D) view so no head replication is
 materialized.  K/V quantize ONCE (``cache.ready``) against the frozen
 calibrated per-head thresholds, and the same int8 (or packed int4) tiles
-are written to the cache and attended by the kernel.  The cache is dense
+are written to the cache and attended by the kernel; a float cache (the
+bf16-KV serving modes) stores K/V cast to its dtype, with unit scales.
+The cache is dense
 or paged (``repro_torch.cache``); the kernels read either through the
 cache's ``kernel_view``.
 
@@ -25,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.cache import dequantize_kv, kv_levels, make_cache
+from repro_torch.cache import kv_levels, make_cache
 from repro_torch.models.layers import apply_rotary, rotary_angles
 from repro_torch.models.module import Dense, Module
 
@@ -39,6 +42,30 @@ def _sp_info():
     from repro_torch.shard.context import sp_shard_info
 
     return sp_shard_info()
+
+
+def decode_attention(q, k_cache, v_cache, valid):
+    """One-token attention over a float cache, the counterpart of the
+    reference's jnp ``decode_attention`` (the path it takes over a float
+    cache, where its decode kernel needs a quantized one).  q: (B, 1, KV,
+    G, D); k/v_cache: (B, S, KV, D) at full capacity; ``valid`` counts the
+    visible positions of each row: an int, or a 0-d or (B,) tensor.  Scores
+    and softmax in float32 over the whole capacity, masked beyond
+    ``valid``; a row with ``valid`` 0 returns zeros.  Output in q's dtype,
+    (B, 1, KV, G, D)."""
+    b, d, smax = q.shape[0], q.shape[-1], k_cache.shape[1]
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d), device=q.device))
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float() * scale, k_cache.float())
+    pos = torch.as_tensor(valid, dtype=torch.int32,
+                          device=q.device).reshape(-1).expand(b)
+    mask = torch.arange(smax, device=q.device)[None, :] < pos[:, None]
+    s = torch.where(mask[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    # a row with no visible key softmaxes uniformly over NEG_INF scores:
+    # zero it, so an inactive slot attends to nothing
+    p = p * (pos > 0).reshape(b, 1, 1, 1, 1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float())
+    return o.to(q.dtype)
 
 
 def causal_attention(q, k, v, q_offset: int = 0):
@@ -90,12 +117,15 @@ class Attention(Module):
     # -- cache ------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device=None,
                    kv_bits: int = 8, *, layout: str = "dense",
-                   page_size: int = 64, extra_pages: int = 0):
-        """This layer's quantized cache (int8, or packed int4 nibbles at
-        ``kv_bits=4``) in ``layout`` (``repro_torch.cache.make_cache``)."""
+                   page_size: int = 64, extra_pages: int = 0,
+                   kv_int8: bool = True, dtype=torch.bfloat16):
+        """This layer's cache in ``layout`` (``repro_torch.cache.make_cache``):
+        int8, or packed int4 nibbles at ``kv_bits=4``; with ``kv_int8``
+        False, ``dtype`` tiles with unit scales."""
         return make_cache(batch, max_len, self.n_kv, self.head_dim,
                           device=device, layout=layout, page_size=page_size,
-                          extra_pages=extra_pages, bits=kv_bits)
+                          extra_pages=extra_pages, bits=kv_bits,
+                          quantized=kv_int8, dtype=dtype)
 
     def _observe_kv(self, ctx, k, v):
         """Feed post-rope K / raw V into the KV calibration observers."""
@@ -203,7 +233,9 @@ class Attention(Module):
         b, s, _ = x.shape
         q, k, v = self._qkv(params, x, ctx)
         q, k = self._rope(q, k, q_offset + torch.arange(s, device=x.device))
-        cache = cache.with_scales(*self._kv_scales(ctx))
+        if cache.quantized:
+            # a float cache keeps its unit scales
+            cache = cache.with_scales(*self._kv_scales(ctx))
         kq, vq = cache.ready(k, v)
         cache = cache.append(kq, vq, q_offset)
         sp = _sp_info()
@@ -219,8 +251,7 @@ class Attention(Module):
                      else min(kv_limit, cache.capacity))
             if sp is not None:
                 # ... and a chunk the dequantized cache, also with no kernel
-                k_eff, v_eff = (dequantize_kv(t, sc, cache.bits) for t, sc in
-                                zip(cache.dense_view(limit), cache.scales()))
+                k_eff, v_eff = cache.dequantize(*cache.dense_view(limit))
                 o = causal_attention(q, k_eff, v_eff, q_offset=q_offset)
             else:
                 kv_len = torch.clamp(lengths.to(torch.int32), 0,
@@ -262,7 +293,11 @@ class Attention(Module):
             cache = cache.append(kq, vq, int(cur_pos))
             valid = int(cur_pos) + 1
         sp = _sp_info()
-        if sp is None:
+        if sp is None and not cache.quantized:
+            # the decode kernels read quantized tiles only; over a float
+            # cache the reference attends in plain jnp, and so does the port
+            o = decode_attention(q, *cache.dense_view(), valid)[:, 0]
+        elif sp is None:
             o = ops.decode_attention_view(q[:, 0], cache.kernel_view(),
                                           *cache.scales(), valid)
         else:

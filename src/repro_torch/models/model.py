@@ -58,14 +58,18 @@ class CausalLM(Module):
     # -- serving --------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device=None,
                    kv_bits: int = 8, *, layout: str = "dense",
-                   page_size: int = 64, extra_pages: int = 0):
+                   page_size: int = 64, extra_pages: int = 0,
+                   kv_int8: bool = True, dtype=torch.bfloat16):
         """Per-layer KV caches for ``max_len`` positions, int8 or packed
-        int4 (``kv_bits=4``), in ``layout`` ("dense", "paged" with
-        ``page_size`` and an ``extra_pages`` shared prefix region, or
-        "ring", which is dense for a stack without windows)."""
+        int4 (``kv_bits=4``), or with ``kv_int8`` False float ``dtype``
+        tiles with unit scales (``kv_bits`` ignored, as in the reference),
+        in ``layout`` ("dense", "paged" with ``page_size`` and an
+        ``extra_pages`` shared prefix region, or "ring", which is dense for
+        a stack without windows)."""
         return self.stack.init_cache(batch, max_len, device, kv_bits,
                                      layout=layout, page_size=page_size,
-                                     extra_pages=extra_pages)
+                                     extra_pages=extra_pages,
+                                     kv_int8=kv_int8, dtype=dtype)
 
     def prefill(self, params, batch, cache, ctx=None):
         x = self.embed(params["embed"], batch["tokens"])

@@ -10,8 +10,9 @@ the slot scheduler of ``generate``) is inherited unchanged.
 ``sp`` > 1 splits the dense KV cache's sequence axis into ``sp`` shards on
 the engine's one device: decode launches the partials kernel once per
 shard and layer and merges the partials exactly.  ``tp`` > 1 (tensor
-parallelism) and shards on several devices are ROADMAP Queue A item 18.
-With ``sp == 1`` this is exactly an Engine.
+parallelism) and shards on several devices are ROADMAP Queue A item 18,
+bf16 weights or a bf16 KV cache under ``sp`` > 1 item 20.  With ``sp == 1``
+this is exactly an Engine.
 """
 from __future__ import annotations
 
@@ -26,7 +27,9 @@ class ShardedEngine(Engine):
 
     def __init__(self, model, cfg, policy, serve_params, qparams, *,
                  tp: int = 1, sp: int = 1, **engine_kw):
-        self._validate(tp, sp, engine_kw.get("cache_layout", "dense"))
+        self._validate(tp, sp, engine_kw.get("cache_layout", "dense"),
+                       fp=engine_kw.get("mode", "int8") == "none",
+                       kv_int8=policy.kv_int8)
         self.sp = sp
         self.base_model = model
         if sp > 1:
@@ -35,8 +38,10 @@ class ShardedEngine(Engine):
                          **engine_kw)
 
     @staticmethod
-    def _validate(tp: int, sp: int, cache_layout: str) -> None:
-        """Raise on a parallelism this engine does not serve."""
+    def _validate(tp: int, sp: int, cache_layout: str, *, fp: bool = False,
+                  kv_int8: bool = True) -> None:
+        """Raise on a parallelism (or, under it, a serving mode) this engine
+        does not serve."""
         if tp < 1 or sp < 1:
             raise ValueError(f"tp/sp must be >= 1, got tp={tp} sp={sp}")
         if tp > 1:
@@ -48,13 +53,18 @@ class ShardedEngine(Engine):
                 "sequence-parallel serving shards the dense cache's S axis "
                 "-- the paged pool has no contiguous shard slices (use "
                 "cache_layout='dense')")
+        if sp > 1 and (fp or not kv_int8):
+            raise NotImplementedError(
+                "bf16 weights or a bf16 KV cache under sequence parallelism "
+                "(sp > 1) are not ported (ROADMAP Queue A item 20)")
 
     @classmethod
     def from_checkpoint(cls, arch: str = "smollm-135m", *, tp: int = 1,
                         sp: int = 1, **kw) -> "ShardedEngine":
         """``Engine.from_checkpoint`` (every other argument is its own),
         served with ``sp`` sequence shards (``tp`` > 1 raises)."""
-        cls._validate(tp, sp, kw.get("cache_layout", "dense"))
+        cls._validate(tp, sp, kw.get("cache_layout", "dense"),
+                      fp=kw.get("fp", False), kv_int8=kw.get("kv_int8", True))
         base = Engine.from_checkpoint(arch, **kw)
         return cls(base.model, base.cfg, base.policy, base.serve_params,
                    base.qparams, device=base.device, sp=sp, **base._init_kw())
@@ -72,4 +82,4 @@ class ShardedEngine(Engine):
         raise NotImplementedError(
             "dry_run_report audits XLA's compiled HLO (its all-reduce "
             "payload types); the port has no counterpart yet (ROADMAP "
-            "Queue B, slice 6)")
+            "Queue A item 19)")

@@ -61,12 +61,14 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     (dict(top_p=0.9), "item 10"),
     (dict(decode_strategy="speculative"), "item 13"),
     (dict(journal="requests.jsonl"), "item 14"),
-    (dict(fp=True), "item 8"),
+    (dict(sp=2, kv_int8=False), "item 20"),
 ], ids=lambda v: str(v))
 def test_unported_options_raise(kw, item):
+    from repro_torch.shard import ShardedEngine
+
+    cls = ShardedEngine if "sp" in kw else E.Engine
     with pytest.raises(NotImplementedError, match=item):
-        E.Engine.from_checkpoint("smollm-135m", smoke=True, device="cpu",
-                                 **kw)
+        cls.from_checkpoint("smollm-135m", smoke=True, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("kw", [dict(deadline_ms=50.0), dict(priority=1)],

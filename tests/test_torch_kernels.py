@@ -294,12 +294,18 @@ def test_cuda_attention_kernels_match_plain(cuda_device):
 
 def _prefill_case(dev, b, sq, sk, g, d, q_dtype, bits, seed):
     """Seeded prefill inputs on ``dev``: q in ``q_dtype``, int8 or packed
-    int4 K/V, chip_smoke.py's scale ranges."""
+    int4 K/V with chip_smoke.py's scale ranges, or (``bits`` 16) bf16 K/V
+    with unit scales (a float cache)."""
     from repro_torch.core.packing import pack_int4 as tpack
 
     rng = np.random.default_rng(seed)
-    lv = 127 if bits == 8 else 7
     q = torch.from_numpy(rng.normal(size=(b, sq, 3, g, d)).astype(np.float32))
+    if bits == 16:
+        k, v = (torch.from_numpy(rng.normal(size=(b, sk, 3, d)).astype(
+            np.float32)).to(torch.bfloat16) for _ in range(2))
+        ks = vs = torch.ones(3)
+        return [t.to(dev) for t in (q.to(q_dtype), k, v, ks, vs)]
+    lv = 127 if bits == 8 else 7
     k, v = (torch.from_numpy(rng.integers(-lv, lv + 1, (b, sk, 3, d),
                                           dtype=np.int8)) for _ in range(2))
     if bits == 4:
@@ -309,8 +315,14 @@ def _prefill_case(dev, b, sq, sk, g, d, q_dtype, bits, seed):
     return [t.to(dev) for t in (q.to(q_dtype), k, v, ks, vs)]
 
 
-# (q dtype, D, G, Sq, Sk, q_start, kv_len, window, K/V bits): the edge cases
-# of the tensor-core prefill kernel, a small grid of chip_smoke.py's
+def _kv_bits(bits):
+    """The wrapper's kv_bits for a case's ``bits`` (a bf16 stream is 8)."""
+    return 8 if bits == 16 else bits
+
+
+# (q dtype, D, G, Sq, Sk, q_start, kv_len, window, K/V bits; 16: bf16 K/V):
+# the edge cases of the tensor-core prefill kernel, a small grid of
+# chip_smoke.py's
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype,d,g,sq,sk,q_start,kv_len,window,bits", [
     (torch.float32, 64, 3, 70, 100, [0, 30], [70, 100], None, 8),
@@ -318,8 +330,13 @@ def _prefill_case(dev, b, sq, sk, g, d, q_dtype, bits, seed):
     (torch.float32, 40, 1, 65, 65, [0, 0], [65, 1], 20, 8),
     (torch.bfloat16, 128, 64, 5, 40, [35, 0], [40, 5], None, 4),
     (torch.bfloat16, 24, 1, 100, 100, [0, 0], [100, 37], 9, 8),
+    (torch.bfloat16, 64, 3, 70, 100, [0, 30], [70, 100], None, 16),
+    (torch.float32, 8, 3, 33, 50, [0, 17], [50, 0], None, 16),
+    (torch.bfloat16, 72, 1, 65, 65, [0, 0], [65, 1], 20, 16),
+    (torch.float32, 128, 64, 5, 40, [35, 0], [40, 5], None, 16),
 ], ids=["f32-d64", "d8-kvlen0-int4", "d40-g1-window", "d128-g64-int4",
-        "d24-window"])
+        "d24-window", "bf16kv-d64", "bf16kv-d8-kvlen0-f32",
+        "bf16kv-d72-g1-window", "bf16kv-d128-g64-f32"])
 def test_cuda_prefill_attention_edge_cases(cuda_device, q_dtype, d, g, sq, sk,
                                            q_start, kv_len, window, bits):
     """Within chip_smoke.py's ATTN_TOL, 1e-4 x (1 + max |out|); a request
@@ -329,9 +346,9 @@ def test_cuda_prefill_attention_edge_cases(cuda_device, q_dtype, d, g, sq, sk,
     qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
     kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     got = tpa.launch(q, k, v, ks, vs, qs, kl, window=window,
-                     kv_bits=bits).cpu()
+                     kv_bits=_kv_bits(bits)).cpu()
     want = tref.prefill_attention_ref(q, k, v, ks, vs, qs, kl, window=window,
-                                      kv_bits=bits).cpu()
+                                      kv_bits=_kv_bits(bits)).cpu()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-4 * (1 + want.abs().max().item()))
     empty = torch.tensor(kv_len) == 0
@@ -339,7 +356,7 @@ def test_cuda_prefill_attention_edge_cases(cuda_device, q_dtype, d, g, sq, sk,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("bits", [8, 4, 16])
 def test_cuda_prefill_paged_bit_identical_d128(cuda_device, bits):
     """A paged pool read through a permuted table gives the dense kernel's
     bits on the gathered copy, at the kernel's widest D."""
@@ -353,9 +370,25 @@ def test_cuda_prefill_paged_bit_identical_d128(cuda_device, bits):
         2 * nb)[:2 * nb].reshape(2, nb).astype(np.int32)).to(dev)
     qs = torch.tensor([56, 0], dtype=torch.int32, device=dev)
     kl = torch.tensor([96, 40], dtype=torch.int32, device=dev)
-    got = tpa.launch(q, k_pool, v_pool, ks, vs, qs, kl, kv_bits=bits,
-                     table=table)
+    got = tpa.launch(q, k_pool, v_pool, ks, vs, qs, kl,
+                     kv_bits=_kv_bits(bits), table=table)
     dense = tpa.launch(q, tref.gather_pages(k_pool, table).contiguous(),
                        tref.gather_pages(v_pool, table).contiguous(), ks, vs,
-                       qs, kl, kv_bits=bits)
+                       qs, kl, kv_bits=_kv_bits(bits))
     assert torch.equal(got, dense)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_bf16_kv_counts_and_float32_kv_raises(cuda_device):
+    """A bf16 K/V launch counts as one; float32 K/V (a float32 cache) has no
+    kernel branch and raises, with no fallback to the plain version."""
+    dev = cuda_device
+    q, k, v, ks, vs = _prefill_case(dev, 2, 40, 40, 3, 64, torch.bfloat16,
+                                    16, 12)
+    qs = torch.zeros(2, dtype=torch.int32, device=dev)
+    kl = torch.full((2,), 40, dtype=torch.int32, device=dev)
+    before = tpa.launches_bf16
+    tpa.launch(q, k, v, ks, vs, qs, kl)
+    assert tpa.launches_bf16 == before + 1
+    with pytest.raises(TypeError, match="float32 K/V"):
+        tpa.launch(q, k.float(), v.float(), ks, vs, qs, kl)

@@ -12,6 +12,12 @@ torch, tile by tile as the kernel walks the keys, and hold it against the
 float32 plain version ``ref.prefill_attention_ref`` within the tolerance
 ``chip_smoke.py`` holds the kernel to on the card: 1e-4 x (1 + max |out|).
 A single 16-bit P (no split) misses it, which is why the kernel splits P.
+
+A bf16 K/V stream (a float KV cache, unit scales) is copied into the tiles
+as it is: K is exact in bf16 as before, but V may lie outside fp16's range,
+so P @ V runs in bf16 with P split into three bf16 pieces, hi + mid + lo.
+Two bf16 pieces leave 2^-18 of each weight, an error that grows with
+max |V|; three leave 2^-27.
 """
 import numpy as np
 import pytest
@@ -34,9 +40,11 @@ def _f16(x):
 
 
 def emulate(q, k, v, k_scale, v_scale, q_start, kv_len, *, kv_bits,
-            window=None, split_p=True, p_round=_f16):
+            window=None, split_p=True, p_round=_f16, pieces=2):
     """The kernel's arithmetic with its operand rounding: causal prompt
-    attention, (B, Sq, KV, G, D) float32."""
+    attention, (B, Sq, KV, G, D) float32.  P goes into P @ V as ``pieces``
+    ``p_round`` pieces (one without ``split_p``), each rounding what the
+    earlier ones leave out; K/V are int8, packed int4 or bf16 tiles."""
     b, sq, kvh, g, d = q.shape
     if kv_bits == 4:
         k = unpack_int4(k, axis=-1, size=d)
@@ -66,8 +74,10 @@ def emulate(q, k, v, k_scale, v_scale, q_start, kv_len, *, kv_bits,
         corr = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
-        p_hi = p_round(p)
-        parts = [p_hi, p_round(p - p_hi)] if split_p else [p_hi]
+        parts, rest = [], p
+        for _ in range(pieces if split_p else 1):
+            parts.append(p_round(rest))
+            rest = rest - parts[-1]
         acc = acc * corr + sum(torch.einsum("bkgqs,bskd->bkgqd", pp, vt)
                                for pp in parts)
         m = m_new
@@ -90,12 +100,25 @@ def _inputs(kv_bits, q_dtype, seed=17):
     return q, k, v, ks, vs
 
 
-def _err(kv_bits, q_dtype, window=None, split_p=True, p_round=_f16):
-    q, k, v, ks, vs = _inputs(kv_bits, q_dtype)
+def _inputs_bf16(q_dtype, v_scale=1.0, seed=18):
+    """A bf16 K/V stream with unit dequant scales (a float cache); V
+    multiplied by ``v_scale`` before its bf16 rounding."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(B, S, KV, G, D)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(B, S, KV, D)).astype(
+        np.float32)) for _ in range(2))
+    ones = torch.ones(KV)
+    return (q.to(q_dtype), k.to(torch.bfloat16),
+            (v * v_scale).to(torch.bfloat16), ones, ones)
+
+
+def _err(kv_bits, q_dtype, window=None, split_p=True, p_round=_f16,
+         pieces=2, inputs=None):
+    q, k, v, ks, vs = inputs or _inputs(kv_bits, q_dtype)
     qs = torch.zeros((B,), dtype=torch.int32)
     kl = torch.full((B,), S, dtype=torch.int32)
     got = emulate(q, k, v, ks, vs, qs, kl, kv_bits=kv_bits, window=window,
-                  split_p=split_p, p_round=p_round)
+                  split_p=split_p, p_round=p_round, pieces=pieces)
     want = ref.prefill_attention_ref(q, k, v, ks, vs, qs, kl, causal=True,
                                      window=window, kv_bits=kv_bits)
     return ((got - want).abs().max().item(),
@@ -133,3 +156,49 @@ def test_ragged_rows_and_empty_rows():
     assert (got - want).abs().max().item() <= TOL * (
         1 + want.abs().max().item())
     assert torch.equal(got[1], torch.zeros_like(got[1]))
+
+
+@pytest.mark.parametrize("window", [None, 100], ids=["causal", "window"])
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32],
+                         ids=["q_bf16", "q_f32"])
+def test_bf16_kv_three_bf16_pieces_within_tolerance(q_dtype, window):
+    """A bf16 K/V stream: K and V staged as they are, P @ V in bf16 with P
+    in three bf16 pieces, the kernel's choice."""
+    err, tol = _err(8, q_dtype, window, p_round=_bf16, pieces=3,
+                    inputs=_inputs_bf16(q_dtype))
+    assert err <= tol, (err, tol)
+
+
+def test_bf16_kv_unsplit_p_misses_tolerance():
+    err, tol = _err(8, torch.bfloat16, split_p=False, p_round=_bf16,
+                    inputs=_inputs_bf16(torch.bfloat16))
+    assert err > tol, (err, tol)
+
+
+def test_bf16_kv_two_pieces_error_grows_with_v():
+    """The error two bf16 pieces leave, bounded by 2^-18 x sum p |V| / l,
+    grows with |V| while the tolerance grows with max |out|: within it
+    here, but held there by the data (how far V's signs cancel in the
+    output), not by the kernel.  Three pieces stay far below at any V;
+    the kernel takes three."""
+    small = _inputs_bf16(torch.bfloat16)
+    big = _inputs_bf16(torch.bfloat16, v_scale=1e4)
+    two = [_err(8, torch.bfloat16, p_round=_bf16, pieces=2, inputs=x)
+           for x in (small, big)]
+    three = [_err(8, torch.bfloat16, p_round=_bf16, pieces=3, inputs=x)
+             for x in (small, big)]
+    assert two[1][0] > 1e3 * two[0][0]
+    for (e2, tol), (e3, _) in zip(two, three):
+        assert e3 * 5 < e2 <= tol, (e3, e2, tol)
+
+
+def test_bf16_kv_v_outside_fp16_range():
+    """|V| above fp16's largest value (65504): fp16 staging would overflow
+    to inf, bf16 staging keeps it, and three bf16 pieces stay within the
+    tolerance."""
+    q, k, v, ks, vs = _inputs_bf16(torch.bfloat16, v_scale=1e5)
+    assert v.float().abs().max() > 65504
+    assert torch.isinf(v.to(torch.float16)).any()
+    err, tol = _err(8, torch.bfloat16, p_round=_bf16, pieces=3,
+                    inputs=(q, k, v, ks, vs))
+    assert err <= tol, (err, tol)

@@ -559,7 +559,7 @@ def test_sp_cache_checks():
             TA.make_ctx("int8", engine.policy, engine.qparams))
     with pytest.raises(NotImplementedError, match="item 13"):
         engine.model.verify_step()
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="item 19"):
         engine.dry_run_report()
 
 

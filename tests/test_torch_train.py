@@ -213,7 +213,7 @@ def test_fq_weight_matches(alpha):
 
 
 def test_asymmetric_fake_quant_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         TQ.fake_quant_asymmetric(torch.zeros(3))
 
 
