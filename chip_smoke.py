@@ -29,7 +29,16 @@
 3. drives the int8 main path at the full width of smollm-135m (30 layers,
    seeded random weights): ``Engine.from_checkpoint`` -> §2 calibration ->
    int8 conversion -> ``generate_batch`` on 4 prompts of 512 tokens with 32
-   generated tokens, and checks that every kernel was launched by it;
+   generated tokens, and checks that every kernel was launched by it.
+   ``generate_batch`` replays its CUDA graphs (the prefill and one greedy
+   decode step, captured by the warm-up call, ``compile_s``); every
+   single-engine path also runs the eager ``loop=True`` driver with the
+   same launch counts and must give its tokens and prefill logits bit for
+   bit (``compare_programs``).  [graphs profiler] checks that
+   torch.profiler sees a replay's kernels; [graphs paged 16] serves pages
+   of 16; [graphs cublas probe] holds the bf16 paths' cuBLAS products
+   captured against eager; the [graphs] table before [time] gives every
+   path's graph and eager walls, ``compile_s`` and device busy;
 4. holds the GPU logits and greedy tokens against the same engine moved to
    the CPU (the plain versions), teacher-forced on the GPU's tokens;
 4b. [bf16_w_bf16_kv], [bf16_w_int8_kv], [int8_w_bf16_kv]: the reference's
@@ -1263,21 +1272,48 @@ def forced_logits(torch, A, engine, prompts, tokens, n):
     return out
 
 
-def breakdown(torch, engine, prompts, card, label="breakdown"):
-    """Where a path's time goes: device busy time by kernel name
-    (torch.profiler) against the wall clock, for prefill and for decode."""
-    from torch.profiler import ProfilerActivity, profile
+# the port's kernels, as torch.profiler names them
+PORT_KERNELS = ("quant_matmul", "prefill_attention", "decode_attention",
+                "fake_quant")
 
+
+def profiled(torch, fn):
+    """(fn's result, torch.profiler's device rows (name, us, count), the
+    profiler's count of the port's kernel launches, the wrappers' count of
+    them): the profiler drops some events of graph replays now and then
+    (seen on an H100), so a caller trusts the rows only when the two
+    counts agree."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+
+    before = sum(ops.launch_counts().values())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    launched = sum(ops.launch_counts().values()) - before
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    seen = sum(c for k, _, c in rows if any(n in k for n in PORT_KERNELS))
+    return out, rows, seen, launched
+
+
+def breakdown(torch, engine, prompts, card, label="breakdown", walls=None,
+              path="main path"):
+    """Where a path's time goes: device busy time by kernel name
+    (torch.profiler) against the wall clock, for prefill and for decode,
+    through the engine's serving programs.  The busy times go into
+    ``walls[path]`` when given; "not measured" when the profiler records
+    no device time or misses a launch of the port's kernels."""
     def busy(gen):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            res = engine.generate_batch({"tokens": prompts}, gen=gen)
-        rows = [(e.key, e.self_device_time_total, e.count)
-                for e in prof.key_averages() if e.self_device_time_total > 0]
-        return res, rows
+        return profiled(torch, lambda: engine.generate_batch(
+            {"tokens": prompts}, gen=gen))
 
     steps = 8
-    res1, pre = busy(1)
-    res2, both = busy(1 + steps)
+    # the programs of this shape are captured here if they were not yet,
+    # outside the profiled calls
+    engine.generate_batch({"tokens": prompts}, gen=1 + steps)
+    res1, pre, seen1, n1 = busy(1)
+    res2, both, seen2, n2 = busy(1 + steps)
     pre_us = sum(t for _, t, _ in pre)
     dec = {k: [t, c] for k, t, c in both}
     for k, t, c in pre:
@@ -1285,14 +1321,19 @@ def breakdown(torch, engine, prompts, card, label="breakdown"):
         d[0] -= t
         d[1] -= c
     dec_us = sum(t for t, _ in dec.values()) / steps
-    if pre_us == 0:
-        print(f"[{label}] the profiler recorded no device time: not "
+    if pre_us == 0 or (seen1, seen2) != (n1, n2):
+        print(f"[{label}] the profiler recorded {seen1} + {seen2} of the "
+              f"{n1} + {n2} launches of the port's kernels: device busy not "
               "measured")
         return
-    print(f"[{label}] prefill: device busy {pre_us / 1e3:.2f} ms of "
-          f"{res1.prefill_s * 1e3:.2f} ms wall (profiled); decode: device "
+    driver = ("graphs" if engine.eager_reason() is None
+              else "eager, sp > 1")
+    print(f"[{label}] ({driver}) prefill: device busy {pre_us / 1e3:.2f} ms "
+          f"of {res1.prefill_s * 1e3:.2f} ms wall (profiled); decode: device "
           f"busy {dec_us / 1e3:.3f} ms of {res2.decode_s / steps * 1e3:.2f} "
           f"ms wall per step (profiled) on {card}")
+    if walls is not None:
+        walls.setdefault(path, {})["busy"] = (pre_us / 1e3, dec_us / 1e3)
     for title, rows, div in (("prefill", [(k, t) for k, t, _ in pre], 1),
                              ("decode step", [(k, v[0]) for k, v in
                                               dec.items()], steps)):
@@ -1306,21 +1347,37 @@ def breakdown(torch, engine, prompts, card, label="breakdown"):
           f"{sum(c for _, c in attn) / steps:.0f} launches")
 
 
+def program_busy(torch, prog, n=3):
+    """Device busy per call of a captured program (torch.profiler over
+    ``n`` replays), or None when the profiler records no device time or
+    misses a launch of the port's kernels."""
+    def replays():
+        with torch.inference_mode():
+            for _ in range(n):
+                prog()
+
+    _, rows, seen, launched = profiled(torch, replays)
+    us = sum(t for _, t, _ in rows)
+    return us / n / 1e3 if us > 0 and seen == launched else None
+
+
 def drive_main_path(torch, ops, engine, prompts, label, kind, card,
-                    sp=1):
+                    sp=1, walls=None, A=None):
     """Warm up, zero the launch counts, serve 4 x 512 prompts for 32 tokens
     and check what came out and which kernels ran; returns (result, all
     launch counts, int4-variant launch counts, bf16-K/V launch counts).
-    ``sp`` > 1: a sequence-parallel engine, whose one-shot prefill attends
-    without a kernel and whose decode launches the partials kernel once per
-    shard and layer instead of the decode kernel.  bf16 weights (mode
-    "none") launch no quant_matmul; a bf16 KV cache runs prefill attention
-    through B2's bf16 branch and decodes in plain attention, no B1."""
-    engine.generate_batch({"tokens": prompts}, gen=2)   # warm-up
-    ops.reset_launches()
-    res = engine.generate_batch({"tokens": prompts}, gen=GEN)
-    counts, int4 = ops.launch_counts(), ops.int4_launch_counts()
-    bf16 = ops.bf16_launch_counts()
+    The default ``generate_batch`` replays its captured programs: the
+    warm-up call captures them (its ``compile_s``), the timed call must
+    only replay, and the eager ``loop=True`` driver, run after it with the
+    same launch counts, must give its tokens and prefill logits bit for bit
+    (``compare_programs``); both walls go into ``walls[label]``.
+    ``sp`` > 1: a sequence-parallel engine, which serves through the eager
+    driver (ROADMAP item 9d), whose one-shot prefill attends without a
+    kernel and whose decode launches the partials kernel once per shard
+    and layer instead of the decode kernel.  bf16 weights (mode "none")
+    launch no quant_matmul; a bf16 KV cache runs prefill attention through
+    B2's bf16 branch and decodes in plain attention, no B1."""
+    warm = engine.generate_batch({"tokens": prompts}, gen=2)   # warm-up
     n_layers = engine.cfg.n_layers
     kv8 = engine.policy.kv_int8
     expected = {"quant_matmul":
@@ -1331,18 +1388,28 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
                 "decode_attention_partials":
                     0 if sp == 1 else n_layers * (GEN - 1) * sp,
                 "fake_quant": 0}
-    int4_expected = ({k: expected[k] for k in int4}
+    int4_expected = ({k: expected[k] for k in ops.ATTENTION}
                      if kv8 and engine.policy.kv_bits == 4
-                     else {k: 0 for k in int4})
+                     else {k: 0 for k in ops.ATTENTION})
     bf16_expected = {"prefill_attention":
                      0 if kv8 else expected["prefill_attention"]}
-    print(f"[{label}] kernel launches {counts} (expected {expected}); int4 "
-          f"variants {int4} (expected {int4_expected}); bf16 K/V variants "
-          f"{bf16} (expected {bf16_expected})")
-    if (counts, int4, bf16) != (expected, int4_expected, bf16_expected):
-        raise AssertionError(f"launch counts {counts} / {int4} / {bf16} != "
-                             f"{expected} / {int4_expected} / "
-                             f"{bf16_expected}")
+
+    def run(loop):
+        ops.reset_launches()
+        res = engine.generate_batch({"tokens": prompts}, gen=GEN, loop=loop)
+        counts, int4 = ops.launch_counts(), ops.int4_launch_counts()
+        bf16 = ops.bf16_launch_counts()
+        driver = "loop=True" if loop else "default"
+        print(f"[{label}] ({driver}) kernel launches {counts} (expected "
+              f"{expected}); int4 variants {int4} (expected {int4_expected});"
+              f" bf16 K/V variants {bf16} (expected {bf16_expected})")
+        if (counts, int4, bf16) != (expected, int4_expected, bf16_expected):
+            raise AssertionError(f"{driver}: launch counts {counts} / {int4} "
+                                 f"/ {bf16} != {expected} / {int4_expected} "
+                                 f"/ {bf16_expected}")
+        return res, counts, int4, bf16
+
+    res, counts, int4, bf16 = run(False)
     if not bool(torch.isfinite(res.prefill_logits).all()):
         raise AssertionError("non-finite prefill logits")
     toks = res.tokens.cpu()
@@ -1351,10 +1418,174 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
         raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
     prefill_tps = B * PROMPT / res.prefill_s
     decode_ms = res.decode_s / (GEN - 1) * 1e3
+    graphs = engine.eager_reason() is None
     print(f"[{label}] prefill {B}x{PROMPT} tokens: {res.prefill_s * 1e3:.1f}"
           f" ms = {prefill_tps:.0f} tokens/s; decode: {decode_ms:.2f} ms per "
-          f"step of {B} tokens (ms/token per request) on {kind} ({card})")
+          f"step of {B} tokens (ms/token per request) on {kind} ({card}); "
+          + (f"graphs captured in {warm.compile_s:.3f} s before the timed "
+             f"windows (compile_s of the first call; the timed call "
+             f"{res.compile_s:.1f})" if graphs else
+             f"eager driver: {engine.eager_reason()}"))
+    if graphs and (warm.compile_s <= 0.0 or res.compile_s != 0.0):
+        raise AssertionError(f"compile_s {warm.compile_s} then "
+                             f"{res.compile_s}: the first call must capture, "
+                             "the second only replay")
+    if graphs:
+        eager = run(True)[0]
+        compare_programs(torch, A, engine, prompts, res, eager, label)
+        print(f"[{label}] walls, graphs vs eager loop=True: prefill "
+              f"{res.prefill_s * 1e3:.2f} vs {eager.prefill_s * 1e3:.2f} ms;"
+              f" decode {decode_ms:.3f} vs "
+              f"{eager.decode_s / (GEN - 1) * 1e3:.3f} ms per step; "
+              f"compile_s {warm.compile_s:.3f} vs {eager.compile_s:.1f} s")
+        if walls is not None:
+            walls.setdefault(label, {}).update(
+                graphs=(res.prefill_s * 1e3, decode_ms, warm.compile_s),
+                eager=(eager.prefill_s * 1e3,
+                       eager.decode_s / (GEN - 1) * 1e3))
     return res, counts, int4, bf16
+
+
+def forced_gap(torch, A, engine, prompts, toks):
+    """The largest logit gap, over every step and row, between the argmax
+    of the eager steps teacher-forced on ``toks`` and ``toks``' own
+    token."""
+    lgs = forced_logits(torch, A, engine, torch.as_tensor(prompts),
+                        toks.cpu(), toks.shape[1])
+    return max((lg.max(-1).values - lg.gather(
+        1, toks[:, i:i + 1].cpu())[:, 0]).max().item()
+        for i, lg in enumerate(lgs))
+
+
+def cublas_capture_probe(torch, engine):
+    """The path's cuBLAS products (the bf16 readout; with bf16 weights the
+    layer products; over a bf16 cache the plain decode attention), each at
+    its decode shape: {name: bits equal} between an eager call and a
+    captured graph's replay on the same inputs."""
+    from repro_torch.models.attention import decode_attention
+
+    dev, cfg = engine.device, engine.cfg
+    gen = torch.Generator().manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).to(dev, cfg.dtype)
+
+    table = engine.serve_params["embed"]["table"]
+    cases = {"readout x @ table.T": (lambda x: x @ table.T,
+                                     (rand(B, cfg.d_model),))}
+    if engine.mode == "none":
+        layer = engine.serve_params["stack"]["layer0"]
+        for name, w in (("wq", layer["attn"]["wq"]["w"]),
+                        ("gate", layer["ffn"]["gate"]["w"]),
+                        ("down", layer["ffn"]["down"]["w"])):
+            cases[f"bf16 weights x @ {name}"] = (
+                lambda x, w=w: x @ w, (rand(B, w.shape[0]),))
+    if not engine.policy.kv_int8:
+        cap, g = engine._cache_len(PROMPT, GEN), cfg.n_heads // cfg.n_kv_heads
+        valid = torch.full((B,), PROMPT + 1, dtype=torch.int32, device=dev)
+        cases["plain decode attention (einsum)"] = (
+            lambda q, k, v: decode_attention(q, k, v, valid),
+            (rand(B, 1, cfg.n_kv_heads, g, cfg.head_dim),
+             rand(B, cap, cfg.n_kv_heads, cfg.head_dim),
+             rand(B, cap, cfg.n_kv_heads, cfg.head_dim)))
+    same = {}
+    with torch.inference_mode():
+        for name, (fn, args) in cases.items():
+            want = fn(*args)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn(*args)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got = fn(*args)
+            graph.replay()
+            torch.cuda.synchronize()
+            same[name] = torch.equal(got, want)
+    return same
+
+
+def compare_programs(torch, A, engine, prompts, res, eager, label):
+    """The captured programs' tokens and prefill logits against the eager
+    driver's: bit for bit.  Where they differ, the cuBLAS products of the
+    path are probed eager against captured (``cublas_capture_probe``); a
+    difference is accepted only where a probed product gives other bits
+    under capture and the eager steps, teacher-forced on the graphs'
+    tokens, put every one of them within ``LOGIT_ATOL`` of their argmax
+    (the near-tie rule of PERF.md §2)."""
+    if (torch.equal(res.prefill_logits, eager.prefill_logits)
+            and torch.equal(res.tokens, eager.tokens)):
+        print(f"[{label}] graphs vs eager loop=True: prefill logits and "
+              f"{GEN} greedy tokens bit-identical")
+        return
+    diff = (res.prefill_logits.float() - eager.prefill_logits.float()).abs()
+    same_toks = int((res.tokens == eager.tokens).sum())
+    probe = cublas_capture_probe(torch, engine)
+    gap = forced_gap(torch, A, engine, prompts, res.tokens)
+    print(f"[{label}] graphs vs eager loop=True DIFFER: prefill logits max "
+          f"|diff| {diff.max().item():.6f}, tokens equal {same_toks}/"
+          f"{res.tokens.numel()}; cuBLAS products bit-equal under capture: "
+          f"{probe}; the eager steps teacher-forced on the graphs' tokens put"
+          f" them at most {gap:.4f} below their argmax (near-tie tolerance "
+          f"{LOGIT_ATOL})")
+    if all(probe.values()) or not gap <= LOGIT_ATOL:
+        raise AssertionError(f"graphs and eager driver disagree (probe "
+                             f"{probe}, gap {gap})")
+
+
+def profile_graph_replay(torch, engine, card, attempts=3):
+    """Whether torch.profiler sees the kernels of a graph replay: three
+    replays of the engine's captured decode step, profiled, and the
+    port's kernels it saw against those the replays launched (up to
+    ``attempts`` tries: it drops events now and then)."""
+    prog = engine._program
+    with torch.inference_mode():
+        prog.decode()
+    torch.cuda.synchronize()
+    for attempt in range(1, attempts + 1):
+        def replays():
+            with torch.inference_mode():
+                for _ in range(3):
+                    prog.decode()
+
+        _, rows, seen, launched = profiled(torch, replays)
+        if not rows:
+            print(f"[graphs] torch.profiler records NO device time in a "
+                  f"CUDA graph replay on {card}: graph-path device busy is "
+                  "not measured")
+            return False
+        total = sum(t for _, t, _ in rows) / 3 / 1e3
+        ours = {k[:40]: c // 3 for k, _, c in rows
+                if any(n in k for n in PORT_KERNELS)}
+        print(f"[graphs] torch.profiler sees the kernels of a graph replay "
+              f"on {card} (try {attempt}): {total:.3f} ms device busy per "
+              f"replayed decode step, {sum(c for _, _, c in rows) // 3} "
+              f"kernels; the port's per step {ours}, {seen} of the {launched}"
+              " launched")
+        if seen == launched:
+            return True
+    print(f"[graphs] the profiler missed kernels of a replay in all "
+          f"{attempts} tries: breakdowns that miss any are not measured")
+    return False
+
+
+def print_walls(walls, card):
+    """The [graphs] table: per path, graphs against the eager driver
+    (prefill ms, decode ms per step, compile_s) beside the device busy of
+    the graph replays."""
+    def fmt(v, n=2):
+        return "not measured" if v is None else f"{v:.{n}f}"
+
+    print(f"[graphs] walls per path on {card}: graphs prefill ms / decode ms "
+          "per step / compile s | eager loop=True prefill / decode | device "
+          "busy prefill / decode (graphs, profiled)")
+    for label, w in walls.items():
+        g = w.get("graphs", (None, None, None))
+        e = w.get("eager", (None, None))
+        b = w.get("busy", (None, None))
+        print(f"  {label}: {fmt(g[0])} / {fmt(g[1], 3)} / {fmt(g[2], 3)} | "
+              f"{fmt(e[0])} / {fmt(e[1], 3)} | {fmt(b[0])} / {fmt(b[1], 3)}")
 
 
 def cpu_check(torch, A, engine, prompts, toks, tol, label):
@@ -1427,29 +1658,30 @@ class GatherCount:
         self.paged_cls.dense_view, self.ref.gather_pages = self.saved
 
 
-def layout_twin(Engine, engine, layout):
+def layout_twin(Engine, engine, layout, page=PAGE):
     """The same weights and thresholds served through another cache layout,
-    with chunked prefill in chunks of CHUNK (pages of PAGE)."""
+    with chunked prefill in chunks of CHUNK (pages of ``page``)."""
     return Engine(engine.model, engine.cfg, engine.policy,
                   engine.serve_params, engine.qparams, device=engine.device,
-                  mode=engine.mode, cache_layout=layout, page_size=PAGE,
+                  mode=engine.mode, cache_layout=layout, page_size=page,
                   prefill_chunk=CHUNK)
 
 
 def drive_paged_path(torch, ops, ref, Engine, PagedCache, engine, prompts,
-                     label, kind, card):
-    """4 x 512 prompts for 32 tokens through a paged cache with chunked
-    prefill: every attention launch through the paged variants, no gather
-    of the pool, and logits and tokens bit-identical to the same engine
-    with a dense cache.  A bf16 pool: prefill through B2's paged bf16
-    branch, decode in plain attention over the gathered pool (one gather a
-    layer and step, as in the reference).  Returns (all, int4, paged)
-    launch counts."""
-    paged = layout_twin(Engine, engine, "paged")
+                     label, kind, card, page=PAGE, A=None, walls=None):
+    """4 x 512 prompts for 32 tokens through a paged cache (pages of
+    ``page``) with chunked prefill, through the captured programs: every
+    attention launch through the paged variants, no gather of the pool,
+    logits and tokens bit-identical to the same engine with a dense cache
+    and to the eager ``loop=True`` driver on the paged cache.  A bf16 pool:
+    prefill through B2's paged bf16 branch, decode in plain attention over
+    the gathered pool (one gather a layer and step, as in the reference).
+    Returns (all, int4, paged) launch counts."""
+    paged = layout_twin(Engine, engine, "paged", page)
     dense = layout_twin(Engine, engine, "dense")
-    paged.generate_batch({"tokens": prompts}, gen=2)       # warm-up
+    warm = paged.generate_batch({"tokens": prompts}, gen=2)   # warm-up
     ops.reset_launches()
-    with GatherCount(PagedCache, ref) as gathers:
+    with GatherCount(PagedCache, ref) as replayed:
         res = paged.generate_batch({"tokens": prompts}, gen=GEN)
     counts, int4 = ops.launch_counts(), ops.int4_launch_counts()
     pg, bf16 = ops.paged_launch_counts(), ops.bf16_launch_counts()
@@ -1464,15 +1696,35 @@ def drive_paged_path(torch, ops, ref, Engine, PagedCache, engine, prompts,
         k: 0 for k in attn}
     bf16_expected = {"prefill_attention":
                      0 if kv8 else attn["prefill_attention"]}
-    gathers_expected = 0 if kv8 else n_layers * (GEN - 1)
     print(f"[{label}] kernel launches {counts} (expected {expected}); paged "
           f"variants {pg} (expected {attn}); int4 variants {int4}; bf16 K/V "
-          f"variants {bf16} (expected {bf16_expected}); pool gathers "
-          f"{gathers.n} (expected {gathers_expected})")
-    if (counts, pg, int4, bf16, gathers.n) != (
-            expected, attn, int4_expected, bf16_expected, gathers_expected):
+          f"variants {bf16} (expected {bf16_expected})")
+    if (counts, pg, int4, bf16) != (expected, attn, int4_expected,
+                                    bf16_expected):
         raise AssertionError(f"launch counts {counts} / paged {pg} / int4 "
-                             f"{int4} / bf16 {bf16} / gathers {gathers.n}")
+                             f"{int4} / bf16 {bf16}")
+    if warm.compile_s <= 0.0 or res.compile_s != 0.0 or replayed.n:
+        raise AssertionError(f"compile_s {warm.compile_s} then "
+                             f"{res.compile_s}, {replayed.n} gathers called: "
+                             "the first call must capture, the second only "
+                             "replay")
+    # the eager driver runs the Python of every step: its pool gathers are
+    # those the captured decode step replays
+    gathers_expected = 0 if kv8 else n_layers * (GEN - 1)
+    with GatherCount(PagedCache, ref) as gathers:
+        eager = paged.generate_batch({"tokens": prompts}, gen=GEN, loop=True)
+    print(f"[{label}] pool gathers of the eager driver {gathers.n} (expected "
+          f"{gathers_expected}); none called by the replays")
+    if gathers.n != gathers_expected:
+        raise AssertionError(f"pool gathers {gathers.n}, expected "
+                             f"{gathers_expected}")
+    compare_programs(torch, A, paged, prompts, res, eager, label)
+    if walls is not None:
+        walls[label] = {"graphs": (res.prefill_s * 1e3,
+                                   res.decode_s / (GEN - 1) * 1e3,
+                                   warm.compile_s),
+                        "eager": (eager.prefill_s * 1e3,
+                                  eager.decode_s / (GEN - 1) * 1e3)}
     want = dense.generate_batch({"tokens": prompts}, gen=GEN)
     if not (torch.equal(res.prefill_logits, want.prefill_logits)
             and torch.equal(res.tokens, want.tokens)):
@@ -1487,10 +1739,12 @@ def drive_paged_path(torch, ops, ref, Engine, PagedCache, engine, prompts,
                for c in cache.values())
     print(f"[{label}] prefill {B}x{PROMPT} tokens in chunks of {CHUNK}: "
           f"{res.prefill_s * 1e3:.1f} ms = {B * PROMPT / res.prefill_s:.0f} "
-          f"tokens/s; decode {res.decode_s / (GEN - 1) * 1e3:.2f} ms per step;"
-          f" pool {pool} bytes ({len(cache)} layers, pages of {PAGE}) on "
-          f"{kind} ({card}); prefill logits and {GEN} greedy tokens "
-          "bit-identical to the dense cache")
+          f"tokens/s (eager loop=True {eager.prefill_s * 1e3:.1f} ms); decode "
+          f"{res.decode_s / (GEN - 1) * 1e3:.2f} ms per step (eager "
+          f"{eager.decode_s / (GEN - 1) * 1e3:.2f}); graphs captured in "
+          f"{warm.compile_s:.3f} s; pool {pool} bytes ({len(cache)} layers, "
+          f"pages of {page}) on {kind} ({card}); prefill logits and {GEN} "
+          "greedy tokens bit-identical to the dense cache")
     return counts, int4, pg
 
 
@@ -1547,19 +1801,39 @@ def check_scheduler(torch, ops, A, ST, Engine, Request, engine, kind, card,
     bad = [(c.rid, c.status, c.finished_by, len(c.tokens)) for c in done
            if (c.status, c.finished_by, len(c.tokens)) != ("ok", "budget",
                                                            GEN)]
+    serve = wall - sec["compile"]
     print(f"[{label}] {len(done)} requests (prompts {lengths.min()}-"
           f"{lengths.max()} tokens, {GEN} generated each) through {SLOTS} "
-          f"slots in {wall:.2f} s: {len(done) / wall:.2f} requests/s, "
-          f"{len(done) * GEN / wall:.1f} generated tokens/s; admission "
+          f"slots in {serve:.2f} s after the capture: {len(done) / serve:.2f}"
+          f" requests/s, {len(done) * GEN / serve:.1f} generated tokens/s; "
+          f"admission "
           f"{sec['admit'] / calls['prefill'] * 1e3:.1f} ms per request; "
           f"decode {sec['decode'] / calls['decode'] * 1e3:.1f} ms per block "
           f"of {BLOCK_STEPS} steps = {sec['decode'] / steps * 1e3:.2f} ms per "
-          f"step on {kind} ({card})")
+          f"step on {kind} ({card}); admission prefill and decode block "
+          f"captured in {sec['compile']:.3f} s (the run's first "
+          f"{sec['compile']:.3f} s of {wall:.2f})")
+    if sec["compile"] <= 0.0:
+        raise AssertionError("the scheduler captured no program")
+    # the device's share of an admission and of a block: replays of the
+    # two programs after the run (the block rewrites dead entries only)
+    adm_busy, block_busy = (program_busy(torch, sched._admission),
+                            program_busy(torch, sched._block))
+    if adm_busy is not None and block_busy is not None:
+        print(f"[{label}] device busy (profiled replays): admission prefill "
+              f"{adm_busy:.2f} ms of the {sec['admit'] / calls['prefill'] * 1e3:.1f}"
+              f" ms admission wall; decode block {block_busy:.2f} ms of "
+              f"{sec['decode'] / calls['decode'] * 1e3:.1f} ms")
+    from repro_torch.launch.graphs import WARMUP
+
     # admissions prefill a dense batch-1 cache; decode over a bf16 pool is
-    # plain attention
-    decode = n_layers * steps if engine.policy.kv_int8 else 0
+    # plain attention.  The decode block's capture, in this run, first ran
+    # it WARMUP times eagerly (every slot idle): real launches, counted
+    decode = (n_layers * (steps + WARMUP * BLOCK_STEPS)
+              if engine.policy.kv_int8 else 0)
     print(f"[{label}] calls {calls}; kernel launches {counts}; paged "
-          f"variants {pg} (decode expected {decode}); bf16 K/V variants "
+          f"variants {pg} (decode expected {decode}: {steps} steps and the "
+          f"capture's {WARMUP} warm-up blocks); bf16 K/V variants "
           f"{bf16}; health {sched.health_stats()}")
     if len(done) != n_requests or bad:
         raise AssertionError(f"{len(done)} completions; not ok/budget/{GEN}: "
@@ -2177,7 +2451,7 @@ def check_train_pretrain(torch, ops, A, train, Engine, CheckpointManager,
           f"unquantized weight tensors (embedding, norms) are the "
           f"checkpoint's bits; {engine.n_int8_weights()} int8 weight tensors")
     res, counts, _, _ = drive_main_path(torch, ops, engine, prompts,
-                                     "checkpoint serve", kind, card)
+                                        "checkpoint serve", kind, card, A=A)
     cpu_check(torch, A, engine, prompts, res.tokens.cpu(), LOGIT_ATOL,
               "checkpoint serve cpu check")
     return counts
@@ -2277,12 +2551,21 @@ def main() -> int:
     phases["int8 engine"] = time.perf_counter() - t0
     rng = np.random.default_rng(1)
     prompts = rng.integers(0, engine.cfg.vocab, (B, PROMPT), dtype=np.int32)
+    # [graphs]: per path, the captured programs' walls against the eager
+    # loop=True driver's, and the device busy of each
+    walls: dict = {}
     res, counts, _, _ = drive_main_path(torch, ops, engine, prompts,
-                                        "main path", kind, card)
+                                        "main path", kind, card, walls=walls,
+                                        A=A)
     phases["main path"] = time.perf_counter() - t0 - phases["int8 engine"]
-    phase("breakdown", breakdown, torch, engine, prompts, card)
+    phase("graphs profiler", profile_graph_replay, torch, engine, card)
+    phase("breakdown", breakdown, torch, engine, prompts, card,
+          "breakdown", walls, "main path")
     phase("cpu check", cpu_check, torch, A, engine, prompts,
           res.tokens.cpu(), LOGIT_ATOL, "cpu check")
+    phase("graphs paged 16", drive_paged_path, torch, ops, ref, Engine,
+          PagedCache, engine, prompts, "graphs paged 16", kind, card, 16, A,
+          walls)
     del engine
 
     # the reference's three other serving modes at full width: bf16
@@ -2298,19 +2581,25 @@ def main() -> int:
               f"{phases[name + ' engine']:.1f} s; {eng.n_int8_weights()} int8 "
               f"weight tensors; {len(eng.qparams)} qparams entries")
         out = phase(name, drive_main_path, torch, ops, eng, prompts, name,
-                    kind, card)
+                    kind, card, 1, walls, A)
         if out is None:
             continue
         bf16_runs[f"{name} main path"] = out[3]
         phase(f"{name} breakdown", breakdown, torch, eng, prompts, card,
-              f"{name} breakdown")
+              f"{name} breakdown", walls, name)
         phase(f"{name} cpu check", cpu_check, torch, A, eng, prompts,
               out[0].tokens.cpu(), LOGIT_ATOL, f"{name} cpu check")
         if name == "int8_w_bf16_kv":
             paged_bf16 = phase(f"{name} paged path", drive_paged_path, torch,
                                ops, ref, Engine, PagedCache, eng, prompts,
-                               f"{name} paged path", kind, card)
+                               f"{name} paged path", kind, card, PAGE, A,
+                               walls)
         if name == "bf16_w_bf16_kv":
+            probe = phase("graphs cublas probe", cublas_capture_probe, torch,
+                          eng)
+            print(f"[graphs cublas probe] the cuBLAS products of the bf16 "
+                  f"paths at decode shapes, bits equal captured vs eager: "
+                  f"{probe}")
             sched = phase(f"{name} scheduler", check_scheduler, torch, ops, A,
                           ST, Engine, Request,
                           layout_twin(Engine, eng, "paged"), kind, card,
@@ -2333,17 +2622,19 @@ def main() -> int:
     phases["int4 engine"] = time.perf_counter() - t0
     phase("finetune", check_finetune, torch, A, ST, engine4, card)
     out4 = phase("int4 path", drive_main_path, torch, ops, engine4, prompts,
-                 "int4 path", kind, card)
+                 "int4 path", kind, card, 1, walls, A)
     if out4 is not None:
+        phase("int4 breakdown", breakdown, torch, engine4, prompts, card,
+              "int4 breakdown", walls, "int4 path")
         phase("int4 cpu check", cpu_check, torch, A, engine4, prompts,
               out4[0].tokens.cpu(), LOGIT_ATOL_INT4, "int4 cpu check")
     paged4 = phase("int4 paged path", drive_paged_path, torch, ops, ref,
                    Engine, PagedCache, engine4, prompts, "int4 paged path",
-                   kind, card)
+                   kind, card, PAGE, A, walls)
     sp4 = phase("int4 sp path", drive_main_path, torch, ops, ShardedEngine(
         engine4.model, engine4.cfg, engine4.policy, engine4.serve_params,
         engine4.qparams, device=engine4.device, sp=SP), prompts,
-        "int4 sp path", kind, card, SP)
+        "int4 sp path", kind, card, SP, None, A)
     del engine4
 
     t0 = time.perf_counter()
@@ -2356,11 +2647,14 @@ def main() -> int:
     paged_runs = {
         "paged path": phase("paged path", drive_paged_path, torch, ops, ref,
                             Engine, PagedCache, engine_p, prompts,
-                            "paged path", kind, card),
+                            "paged path", kind, card, PAGE, A, walls)}
+    phase("paged breakdown", breakdown, torch, engine_p, prompts, card,
+          "paged breakdown", walls, "paged path")
+    paged_runs.update({
         "scheduler": phase("scheduler", check_scheduler, torch, ops, A, ST,
                            Engine, Request, engine_p, kind, card),
         "prefix": phase("prefix", check_prefix, torch, ops, Request,
-                        engine_p, kind, card)}
+                        engine_p, kind, card)})
     del engine_p
 
     t0 = time.perf_counter()
@@ -2369,7 +2663,7 @@ def main() -> int:
     torch.cuda.synchronize()
     phases["sp engine"] = time.perf_counter() - t0
     out_sp = phase("sp path", drive_main_path, torch, ops, engine_sp,
-                   prompts, "sp path", kind, card, SP)
+                   prompts, "sp path", kind, card, SP, None, A)
     if out_sp is not None:
         phase("sp breakdown", breakdown, torch, engine_sp, prompts, card,
               "sp breakdown")
@@ -2387,6 +2681,7 @@ def main() -> int:
         phase("train pretrain + checkpoint serve", check_train_pretrain,
               torch, ops, A, train, Engine, CheckpointManager, prompts,
               workdir, kind, card)
+    print_walls(walls, card)
     print("[time] " + "; ".join(f"{k} {v:.1f} s" for k, v in phases.items()))
     if failures:
         print("chip_smoke: failed checks:\n  " + "\n  ".join(failures),

@@ -214,10 +214,13 @@ class DenseCache(QuantizedKV):
 
     def splice_slot(self, slot_cache: "DenseCache", slot: int) -> "DenseCache":
         """Receive a batch-1 cache into batch row ``slot`` (scheduler
-        admission); the frozen scales come from the slot cache."""
+        admission); the frozen scales are copied from the slot cache into
+        this cache's own, in place, so a captured decode keeps reading
+        them."""
         self.k[slot] = slot_cache.k[0]
         self.v[slot] = slot_cache.v[0]
-        self.k_scale, self.v_scale = slot_cache.k_scale, slot_cache.v_scale
+        self.k_scale.copy_(slot_cache.k_scale)
+        self.v_scale.copy_(slot_cache.v_scale)
         return self
 
     def dense_view(self, limit: Optional[int] = None):

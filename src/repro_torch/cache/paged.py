@@ -186,14 +186,16 @@ class PagedCache(QuantizedKV):
 def splice_dense_into_pages(paged: PagedCache, dense_slot, row):
     """Admission splice: scatter a batch-1 dense cache (capacity NB *
     page_size) into the pool pages ``row`` (NB,); the caller points a
-    table row at them (``set_table_row``).  The frozen scales come from
-    the slot cache."""
+    table row at them (``set_table_row``).  The frozen scales are copied
+    from the slot cache into the pool's own, in place, as
+    ``DenseCache.splice_slot`` does."""
     nb, ps = paged.n_blocks, paged.page_size
     row = torch.as_tensor(row, dtype=torch.long, device=paged.k.device)
     tail = tuple(paged.k.shape[2:])
     paged.k[row] = dense_slot.k.reshape((nb, ps) + tail)
     paged.v[row] = dense_slot.v.reshape((nb, ps) + tail)
-    paged.k_scale, paged.v_scale = dense_slot.k_scale, dense_slot.v_scale
+    paged.k_scale.copy_(dense_slot.k_scale)
+    paged.v_scale.copy_(dense_slot.v_scale)
     return paged
 
 

@@ -26,8 +26,10 @@ block's chain of memory round trips and barriers to one pass.
 One launch a call and one allocation (the output and the scratch
 together); the counters are a per-device int32 buffer allocated once
 (``counters``), which every launch leaves zeroed.  They assume that the
-launches that share them run one after another, on one stream.  The
-wrapper never reads ``cur_pos`` on the host.
+launches that share them run one after another, on one stream.  A CUDA
+graph keeps the address of the buffer it was captured with, so no buffer
+that was ever handed out is freed.  The wrapper never reads ``cur_pos`` on
+the host.
 """
 from __future__ import annotations
 
@@ -50,15 +52,20 @@ launches_paged = 0
 
 _FN = None
 _COUNTERS: dict = {}
+# every counter buffer replaced by a larger one: a graph captured with it
+# still launches on its address, so it stays allocated
+_RETIRED: list = []
 
 
 def counters(device, n):
     """The device's int32 arrival counters of the chunk merge, at least
     ``n`` of them: allocated zeroed on first use (or when a launch needs
-    more), shared by the decode and partials kernels, and left at 0 by
-    every launch."""
+    more, the old buffer then kept alive in ``_RETIRED``), shared by the
+    decode and partials kernels, and left at 0 by every launch."""
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _COUNTERS[device] = buf
     return buf

@@ -22,6 +22,12 @@ KERNELS = {"quant_matmul": _qm, "prefill_attention": _pa,
            "fake_quant": _fq}
 ATTENTION = {"prefill_attention": _pa, "decode_attention": _da,
              "decode_attention_partials": _dap}
+# every launch counter of every wrapper: (kernel, module attribute)
+COUNTERS = (("quant_matmul", "launches"), ("quant_matmul", "launches_w4"),
+            ("prefill_attention", "launches_bf16"),
+            ("fake_quant", "launches"),
+            *((name, attr) for name in ATTENTION
+              for attr in ("launches", "launches_int4", "launches_paged")))
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -33,13 +39,29 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 def reset_launches() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
-    _qm.launches_w4 = 0
-    _pa.launches_bf16 = 0
-    for mod in ATTENTION.values():
-        mod.launches_int4 = 0
-        mod.launches_paged = 0
+    for name, attr in COUNTERS:
+        setattr(KERNELS[name], attr, 0)
+
+
+def launch_snapshot() -> dict:
+    """Every launch counter now, keyed by (kernel, attribute)."""
+    return {(name, attr): getattr(KERNELS[name], attr)
+            for name, attr in COUNTERS}
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    """The counters that moved from snapshot ``before`` to ``after``, by
+    how much."""
+    return {k: after[k] - n for k, n in before.items() if after[k] != n}
+
+
+def add_launches(delta: dict, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (a ``launch_delta``) to the counters: a
+    CUDA graph's capture calls the wrappers but launches nothing (-1), and
+    each replay launches what the capture counted without a call (+1)."""
+    for (name, attr), n in delta.items():
+        mod = KERNELS[name]
+        setattr(mod, attr, getattr(mod, attr) + times * n)
 
 
 def launch_counts() -> dict:

@@ -34,6 +34,14 @@ plain ``x @ w`` products (the reference leaves them to XLA), and decode
 over a bf16 cache (``kv_int8=False``) is plain attention, as in the
 reference.
 
+Serving runs as the reference's single-dispatch programs: on CUDA,
+``generate_batch`` captures its prefill and one greedy decode step as CUDA
+graphs (``launch/graphs.py``) before its timed windows, which only replay
+them (``GenerationResult.compile_s`` reports the capture); the scheduler
+captures its admission prefill and its decode block.  ``loop=True`` keeps
+the eager per-token driver for comparison; on the CPU the same step
+functions run eagerly.
+
 Entry points run on the GPU unless the caller passes ``device="cpu"``:
 ``device=None`` means CUDA and raises when no CUDA device is present.
 """
@@ -52,6 +60,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core import api as A
 from repro_torch.launch import steps as ST
+from repro_torch.launch.graphs import Program
 from repro_torch.models import build_model
 
 # options of the reference Engine that are not ported, and the ROADMAP
@@ -129,6 +138,28 @@ class GenerationResult:
     prefill_logits: torch.Tensor  # (B, Vp) logits that picked tokens[:, 0]
     prefill_s: float              # prefill + first token
     decode_s: float               # the gen - 1 decode steps
+    compile_s: float = 0.0        # warm-up + capture of the programs, before
+    #                               both windows (0.0: nothing captured)
+
+
+@dataclasses.dataclass
+class BatchProgram:
+    """The captured serving programs of one ``generate_batch`` shape, over
+    their static buffers: ``tokens`` (B, S padded to the chunk), ``tok``
+    and ``pos`` (B,) the pending token and its position, and the cache.
+    ``prefill()`` fills the cache from ``tokens``, sets ``tok`` to the
+    first token and ``pos`` to S, and returns the (B, Vp) logits that
+    picked it; each ``decode()`` advances ``tok`` and ``pos`` by a step."""
+    key: tuple                    # (B, S, cache length)
+    tokens: torch.Tensor
+    tok: torch.Tensor
+    pos: torch.Tensor
+    prefill: Program
+    decode: Program
+
+    @property
+    def capture_s(self) -> float:
+        return self.prefill.capture_s + self.decode.capture_s
 
 
 class Engine:
@@ -175,6 +206,9 @@ class Engine:
         self.finetune_log = finetune_log or {}
         self._scheduler = None
         self._scheduler_key = None
+        # the most recent generate_batch shape's programs: a second call of
+        # that shape replays them
+        self._program: Optional[BatchProgram] = None
 
     @classmethod
     def from_checkpoint(cls, arch: str = "smollm-135m", *, cfg=None,
@@ -322,11 +356,27 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def eager_reason(self) -> Optional[str]:
+        """Why this engine serves through the eager loops and captures no
+        program, or None: every Engine captures (CUDA) or runs the same
+        step functions eagerly (CPU)."""
+        return None
+
     @torch.inference_mode()
-    def generate_batch(self, batch: dict, gen: int) -> GenerationResult:
+    def generate_batch(self, batch: dict, gen: int, *,
+                       loop: bool = False) -> GenerationResult:
         """Serve one fixed batch: prefill the prompts (in chunks of
         ``prefill_chunk`` tokens when set), then decode ``gen`` tokens
-        greedily (the first comes from the prefill logits)."""
+        greedily (the first comes from the prefill logits).
+
+        The default is the reference's single-dispatch serving: the prefill
+        and one greedy decode step run as programs (``BatchProgram``), on
+        CUDA captured as graphs before the timed windows (``compile_s``)
+        and replayed inside them, the tokens gathered on the device.  The
+        engine keeps the programs of its latest (B, S, cache length), so a
+        second call of that shape only replays.  ``loop=True`` keeps the
+        eager per-token driver for comparison: the same tokens and logits,
+        bit for bit."""
         if gen < 1:
             raise ValueError(f"gen must be >= 1, got {gen}")
         tokens = torch.as_tensor(np.asarray(batch["tokens"]),
@@ -335,7 +385,79 @@ class Engine:
             raise ValueError(f"tokens must be (B, S) with S >= 1, got "
                              f"{tuple(tokens.shape)}")
         b, s = tokens.shape
-        cache = self.init_cache(b, self._cache_len(s, gen))
+        cache_len = self._cache_len(s, gen)
+        if loop or self.eager_reason() is not None:
+            return self._generate_loop(tokens, gen, cache_len)
+        compile_s = 0.0
+        key = (b, s, cache_len)
+        if self._program is None or self._program.key != key:
+            self._program = None        # free the old programs first
+            self._program = self._batch_program(key)
+            compile_s = self._program.capture_s
+        prog = self._program
+        self._sync()
+        t0 = time.perf_counter()
+        prog.tokens[:, :s].copy_(tokens)
+        first = prog.prefill().clone()
+        out = torch.empty((b, gen), dtype=torch.long, device=self.device)
+        out[:, 0].copy_(prog.tok)
+        self._sync()
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(1, gen):
+            prog.decode()
+            out[:, i].copy_(prog.tok)
+        self._sync()
+        decode_s = time.perf_counter() - t0
+        return GenerationResult(tokens=out, prefill_logits=first,
+                                prefill_s=prefill_s, decode_s=decode_s,
+                                compile_s=compile_s)
+
+    def _batch_program(self, key) -> BatchProgram:
+        """Static buffers, a cache and the two programs for (B, S, cache
+        length) ``key``; on CUDA both are warmed up and captured here."""
+        b, s, cache_len = key
+        dev, chunk = self.device, self.prefill_chunk
+        s_pad = -(-s // chunk) * chunk if chunk else s
+        tokens = torch.zeros((b, s_pad), dtype=torch.long, device=dev)
+        lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+        tok = torch.zeros((b,), dtype=torch.long, device=dev)
+        pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+        cache0 = self.init_cache(b, cache_len)
+        prefill = ST.make_prefill_step(self.model, self.policy,
+                                       prefill_chunk=chunk, mode=self.mode)
+        step = ST.make_decode_step(self.model, self.policy, mode=self.mode)
+        # the prefill's cache tree (its scales are the prefill's outputs),
+        # which the decode step reads
+        state = {}
+
+        def run_prefill():
+            args = (lengths,) if chunk else ()
+            logits, state["cache"] = prefill(
+                self.serve_params, self.qparams, {"tokens": tokens}, cache0,
+                *args)
+            first = logits[:, -1, :]
+            tok.copy_(ST.greedy(first))
+            pos.fill_(s)
+            return first
+
+        def run_decode():
+            return step(self.serve_params, self.qparams, tok, state["cache"],
+                        pos)
+
+        prefill_prog = Program(run_prefill, dev)
+        if prefill_prog.graph is not None:
+            # the capture's outputs hold values only after a replay; the
+            # decode step's warm-up reads them
+            prefill_prog()
+        return BatchProgram(key=key, tokens=tokens, tok=tok, pos=pos,
+                            prefill=prefill_prog,
+                            decode=Program(run_decode, dev))
+
+    def _generate_loop(self, tokens, gen: int, cache_len: int):
+        """The eager per-token driver (``generate_batch(loop=True)``)."""
+        b, s = tokens.shape
+        cache = self.init_cache(b, cache_len)
         prefill = ST.make_prefill_step(self.model, self.policy,
                                        prefill_chunk=self.prefill_chunk,
                                        mode=self.mode)
@@ -385,9 +507,11 @@ class Engine:
                prefix_pages, self.cache_layout, self.page_size,
                self.prefill_chunk, self.decode_strategy)
         if self._scheduler is None or self._scheduler_key != key:
+            self._scheduler = None      # free the old programs first
             self._scheduler = SlotScheduler(
                 self.model, self.cfg, self.policy, self.serve_params,
                 self.qparams, mode=self.mode, device=self.device,
+                capture=self.eager_reason() is None,
                 max_slots=max_slots,
                 prompt_cap=prompt_cap, gen_cap=gen_cap,
                 prefill_chunk=self.prefill_chunk, block_steps=block_steps,

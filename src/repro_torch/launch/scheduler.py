@@ -33,9 +33,17 @@ or capacity), ``rejected`` (failed validation, never touched the device)
 or ``failed`` (non-finite prefill or decode logits; only that slot stops).
 Deadlines, priorities with preemption and the ``resume`` prefill, the
 bounded queue, fault injection, the journal and snapshots are ROADMAP
-Queue A item 14; asking for them raises ``NotImplementedError``.  The
-reference counts compiled executables; the port runs eagerly and has
-nothing to compile, so only the call counts carry over.
+Queue A item 14; asking for them raises ``NotImplementedError``.
+
+As the reference jits its admission prefill and its scanned decode block,
+the scheduler runs both as programs (``launch/graphs.py``) over static
+buffers: the batch-1 admission prefill at ``prompt_cap`` into the
+admission template, and the ``block_steps`` steps of the decode block over
+the batch cache.  On CUDA both are captured at the first ``run`` (its
+``stage_seconds()["compile"]``), and admissions and blocks replay them;
+the host reads after each block and each admission (one synchronization
+each) are the reference's.  The reference counts compiled executables;
+the port counts calls (``call_counts``).
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from repro_torch.cache import (PrefixEntry, PrefixStore, copy_pages,
 from repro_torch.core import api as A
 from repro_torch.launch import steps as ST
 from repro_torch.launch import strategies as SG
+from repro_torch.launch.graphs import Program
 
 # knobs of the reference scheduler that are not ported, and the ROADMAP
 # Queue A item that ports each
@@ -140,11 +149,13 @@ class SlotScheduler:
     (greedy).  ``mode`` is the serving mode ("int8" weights, or "none":
     the full-precision weights); the caches hold int8 (or packed int4) K/V
     when ``policy.kv_int8``, else ``cfg.dtype`` K/V.  The caches live on
-    ``device`` (default: the weights')."""
+    ``device`` (default: the weights').  ``capture`` False runs the
+    admission prefill and the decode block eagerly on CUDA too (the
+    engine's explicit branch for what it does not capture)."""
 
     def __init__(self, model, cfg, policy: A.QuantPolicy, serve_params,
                  qparams, *, mode: str = "int8", device=None,
-                 max_slots: int = 4,
+                 capture: bool = True, max_slots: int = 4,
                  prompt_cap: int = 64, gen_cap: int = 32,
                  prefill_chunk: int | None = None, block_steps: int = 8,
                  cache_layout: str = "dense", page_size: int = 64,
@@ -224,13 +235,24 @@ class SlotScheduler:
         if cache_layout == "paged":
             pieces += ["set_row", "copy_page"]
         self._call_counts = {p: 0 for p in pieces}
-        self._seconds = {"admit": 0.0, "decode": 0.0}
+        self._seconds = {"admit": 0.0, "decode": 0.0, "compile": 0.0}
         self._health = {k: 0 for k in _HEALTH_KEYS}
         self._prefill_fn = ST.make_prefill_step(model, policy,
                                                 prefill_chunk=prefill_chunk,
                                                 mode=mode)
         self._decode_fn = SG.make_strategy_slot_loop(
             model, policy, strategy, n_steps=block_steps, eos_id=eos_id)
+        # the programs' static inputs: the admission's padded prompt and
+        # length, the slots' pending tokens, positions and live mask
+        dev = self.device
+        self._adm_toks = torch.zeros((1, self.prompt_cap), dtype=torch.long,
+                                     device=dev)
+        self._adm_len = torch.ones((1,), dtype=torch.int32, device=dev)
+        self._tok = torch.zeros((max_slots,), dtype=torch.long, device=dev)
+        self._pos = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
+        self._active = torch.zeros((max_slots,), dtype=torch.bool, device=dev)
+        self._capture = capture
+        self._admission = self._block = None    # built at the first run
 
     # -- observability ----------------------------------------------------
     def call_counts(self) -> dict:
@@ -252,8 +274,32 @@ class SlotScheduler:
     def stage_seconds(self) -> dict:
         """Cumulative wall seconds in admissions and in decode blocks; each
         ends when its result reaches the host, so each includes the
-        device's work."""
+        device's work.  ``compile``: the warm-up and capture of the two
+        programs (0.0 on the CPU and when nothing is captured)."""
         return dict(self._seconds)
+
+    def _programs(self):
+        """Build (on CUDA: warm up and capture) the admission prefill and
+        the decode block, once per scheduler.  The block is warmed up and
+        captured with every slot inactive, which leaves the cache as it
+        was; the admission's warm-up writes only the template."""
+        def admission():
+            return self._prefill_fn(
+                self.serve_params, self.qparams, {"tokens": self._adm_toks},
+                self._slot_cache0, self._adm_len)
+
+        def block():
+            toks, emitted, _, pos, active, _, bad = self._decode_fn(
+                self.serve_params, self.qparams, self._tok, self._cache,
+                self._pos, self._active)
+            return toks, emitted, pos, active, bad
+
+        self._active.zero_()
+        self._admission = Program(admission, self.device,
+                                  capture=self._capture)
+        self._block = Program(block, self.device, capture=self._capture)
+        self._seconds["compile"] += (self._admission.capture_s
+                                     + self._block.capture_s)
 
     # -- one serving session ----------------------------------------------
     @torch.inference_mode()
@@ -264,6 +310,8 @@ class SlotScheduler:
         ``arrive_ms`` and enter, first come first served, whenever a slot
         is free.  ``max_blocks`` bounds the decode blocks (None: drain)."""
         B = self.max_slots
+        if self._block is None:
+            self._programs()
         rs = _RunState(
             pos=np.zeros((B,), np.int32), active=np.zeros((B,), bool),
             last_tok=np.zeros((B,), np.int64), slot_req=[None] * B,
@@ -333,13 +381,10 @@ class SlotScheduler:
             # -- one decode block over the slot batch ----------------------
             t0 = time.perf_counter()
             self._call_counts["decode"] += 1
-            dev = self.device
-            toks, emitted, self._cache, pos_d, active_d, _, bad_d = \
-                self._decode_fn(
-                    self.serve_params, self.qparams,
-                    torch.as_tensor(rs.last_tok, device=dev), self._cache,
-                    torch.as_tensor(rs.pos, device=dev),
-                    torch.as_tensor(rs.active, device=dev))
+            self._tok.copy_(torch.from_numpy(rs.last_tok))
+            self._pos.copy_(torch.from_numpy(rs.pos))
+            self._active.copy_(torch.from_numpy(rs.active))
+            toks, emitted, pos_d, active_d, bad_d = self._block()
             toks, emitted = toks.cpu().numpy(), emitted.cpu().numpy()
             pos_new, active_new = pos_d.cpu().numpy(), active_d.cpu().numpy()
             bad = bad_d.cpu().numpy()
@@ -412,16 +457,13 @@ class SlotScheduler:
         if entry is not None:
             t0 = self._attach_prefix(slot, entry)
         else:
-            toks = torch.zeros((1, self.prompt_cap), dtype=torch.long,
-                               device=self.device)
-            toks[0, :n] = torch.as_tensor(np.asarray(req.tokens),
-                                          device=self.device)
-            lengths = torch.tensor([n], dtype=torch.int32,
-                                   device=self.device)
+            self._adm_toks.zero_()
+            self._adm_toks[0, :n].copy_(torch.from_numpy(
+                np.asarray(req.tokens, dtype=np.int64)))
+            self._adm_len.fill_(n)
             self._call_counts["prefill"] += 1
-            logits, slot_cache = self._prefill_fn(
-                self.serve_params, self.qparams, {"tokens": toks},
-                self._slot_cache0, lengths)
+            # the program's outputs: the next admission rewrites them
+            logits, slot_cache = self._admission()
             if not bool(torch.isfinite(logits[:, -1]).all()):
                 raise FloatingPointError(
                     f"request {req.rid}: non-finite prefill logits")
@@ -435,7 +477,7 @@ class SlotScheduler:
                 for big, small in pairs:
                     splice_dense_into_pages(big, small, row)
                 self._set_row(slot, row)
-                self._register_prefix(key, n, row, logits)
+                self._register_prefix(key, n, row, logits.clone())
             t0 = self._first_token(logits)
         self._seconds["admit"] += time.perf_counter() - t_start
         return t0

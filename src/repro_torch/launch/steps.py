@@ -6,8 +6,13 @@ Counterparts of ``repro/launch/steps.py`` (``make_calibrate_step``,
 ``make_fat_train_step``, ``finetune_thresholds``, ``make_pretrain_step``,
 ``make_prefill_step``,
 ``pad_for_chunked_prefill``, ``make_slot_decode_loop``) and of the greedy
-single-stream decode loop of ``repro/launch/strategies.py``.  PyTorch runs
-eagerly, so the reference's ``lax.scan`` loops are Python loops; ``argmax``
+single-stream decode loop of ``repro/launch/strategies.py``.  The
+reference's ``lax.scan`` loops are Python loops here.  The serving steps
+(the prefills, ``make_decode_step``, the slot block) are capturable: they
+read nothing back to the host, make no tensor from host data, and their
+loops have trip counts and offsets fixed by the shapes, so
+``launch/graphs.py`` captures each whole (the chunked prefill is one
+graph, as the reference's scan over chunks is one program).  ``argmax``
 takes the first maximum, like ``jnp.argmax``.  Sampling and speculative
 decoding are ROADMAP Queue A items 10 and 13.
 """
@@ -266,12 +271,32 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1)
 
 
+def make_decode_step(model, policy: A.QuantPolicy, mode: str = "int8"):
+    """One greedy decode step over static buffers, the body that
+    ``Engine.generate_batch`` captures: ``(params, qparams, tok (B,) int64,
+    cache, pos (B,) int32) -> logits (B, 1, Vp)``.  Decodes ``tok`` at the
+    positions ``pos`` (the per-slot branch of the decode: positions read on
+    the device), then writes its argmax into ``tok`` and advances ``pos``
+    by one, in place, so replaying the step walks the generation.  The
+    same tokens and logits as ``make_decode_loop``'s steps, bit for bit."""
+    def decode_step(serve_params, qparams, tok, cache, pos):
+        ctx = A.make_ctx(mode, policy, qparams)
+        logits, _ = model.decode_step(serve_params, tok[:, None], cache, pos,
+                                      ctx)
+        tok.copy_(greedy(logits[:, -1, :]))
+        pos.add_(1)
+        return logits
+
+    return decode_step
+
+
 def make_decode_loop(model, policy: A.QuantPolicy, n_steps: int = 16,
                      mode: str = "int8"):
     """Greedy whole-generation decode in serving ``mode`` ("int8" or
     "none"): (params, qparams, tok0 (B,), cache, pos0) -> (tokens (B,
     n_steps), cache) with tokens[:, 0] == tok0 and n_steps - 1 decode
-    steps."""
+    steps, each at the host int position ``pos0 + i`` (the eager
+    ``loop=True`` driver)."""
     def decode_loop(serve_params, qparams, tok0, cache, pos0: int):
         ctx = A.make_ctx(mode, policy, qparams)
         toks = [tok0]

@@ -26,6 +26,8 @@ does (plain causal attention, no kernel).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.cache import kv_levels, make_cache
@@ -44,6 +46,16 @@ def _sp_info():
     return sp_shard_info()
 
 
+@functools.lru_cache(maxsize=None)
+def softmax_scale(d: int, device) -> torch.Tensor:
+    """The float32 0-d ``1 / sqrt(d)`` of the plain attentions on
+    ``device``, made once per (d, device) by the expression they always
+    used (the same bits): a tensor made from a host value on every call is
+    a host-to-device copy, which a CUDA graph capture does not allow."""
+    with torch.inference_mode(False):
+        return 1.0 / torch.sqrt(torch.tensor(float(d), device=device))
+
+
 def decode_attention(q, k_cache, v_cache, valid):
     """One-token attention over a float cache, the counterpart of the
     reference's jnp ``decode_attention`` (the path it takes over a float
@@ -54,7 +66,7 @@ def decode_attention(q, k_cache, v_cache, valid):
     ``valid``; a row with ``valid`` 0 returns zeros.  Output in q's dtype,
     (B, 1, KV, G, D)."""
     b, d, smax = q.shape[0], q.shape[-1], k_cache.shape[1]
-    scale = 1.0 / torch.sqrt(torch.tensor(float(d), device=q.device))
+    scale = softmax_scale(d, q.device)
     s = torch.einsum("bqkgd,bskd->bkgqs", q.float() * scale, k_cache.float())
     pos = torch.as_tensor(valid, dtype=torch.int32,
                           device=q.device).reshape(-1).expand(b)
@@ -77,7 +89,7 @@ def causal_attention(q, k, v, q_offset: int = 0):
     cache that a chunk continues; key p is visible to a query at position
     t when p <= t.  Scores and softmax in float32, output in v's dtype."""
     sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
-    scale = 1.0 / torch.sqrt(torch.tensor(float(d), device=q.device))
+    scale = softmax_scale(d, q.device)
     s = torch.einsum("bqkgd,bskd->bkgqs", q.float() * scale, k.float())
     q_pos = q_offset + torch.arange(sq, device=q.device)
     k_pos = torch.arange(sk, device=q.device)
@@ -264,13 +276,16 @@ class Attention(Module):
 
     def decode(self, params, x, cache, cur_pos, ctx=None, *, slot_mask=None):
         """Single-token decode (tokens already cached).  ``cur_pos`` is an
-        int (one position for the batch) or a (B,) tensor (continuous
-        batching: every slot decodes at its own position, with per-slot
-        rotary, and writes at its own index); ``slot_mask`` (B,) bool marks
-        the live slots: an inactive slot leaves the cache bit-for-bit
-        unchanged and attends over zero keys (a zero output row).  The new
-        K/V quantize with the scales stored at prefill, and the decode
-        kernel attends the valid prefix of each row."""
+        int (one position for the batch, baked into the step: the eager
+        ``loop=True`` driver and ``sp`` > 1) or a (B,) tensor (continuous
+        batching, and the captured greedy step: every slot decodes at its
+        own position, read on the device, with per-slot rotary, and writes
+        at its own index); both give the same bits for the same positions.
+        ``slot_mask`` (B,) bool marks the live slots: an inactive slot
+        leaves the cache bit-for-bit unchanged and attends over zero keys
+        (a zero output row).  The new K/V quantize with the scales stored
+        at prefill, and the decode kernel attends the valid prefix of each
+        row."""
         from repro_torch.kernels import ops
 
         b, s, _ = x.shape
@@ -287,7 +302,11 @@ class Attention(Module):
             if slot_mask is not None:
                 valid = torch.where(slot_mask, valid, 0)
         else:
-            q, k = self._rope(q, k, torch.full((s,), int(cur_pos),
+            # (B, S) positions, the per-slot branch's shape: an elementwise
+            # op on the CPU takes its vector or its scalar path by the
+            # tensor's length, and the two branches must rotate by the
+            # same bits
+            q, k = self._rope(q, k, torch.full((b, s), int(cur_pos),
                                                device=x.device))
             kq, vq = cache.ready(k, v)
             cache = cache.append(kq, vq, int(cur_pos))

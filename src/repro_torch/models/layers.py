@@ -2,6 +2,8 @@
 position encoding (counterparts of ``repro/models/layers.py``)."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -56,16 +58,25 @@ class Embedding(Module):
         return logits
 
 
-def rotary_angles(positions: torch.Tensor, head_dim: int,
-                  base: float = 10000.0):
-    """(..., S) int positions -> (cos, sin) of shape (..., S, head_dim/2).
-    The frequency table is computed in float32 numpy, as in the
-    reference, so both packages rotate by the same angles."""
+@functools.lru_cache(maxsize=None)
+def rotary_freqs(head_dim: int, base: float, device) -> torch.Tensor:
+    """The (head_dim/2,) float32 frequency table on ``device``, made once
+    per (head_dim, base, device): computed in float32 numpy, as in the
+    reference, so both packages rotate by the same angles.  Kept, because
+    a host-to-device copy on every call synchronizes the stream, which a
+    CUDA graph capture does not allow.  Made outside inference mode, so the
+    training forwards may use it too."""
     half = head_dim // 2
     freqs = 1.0 / (base ** (np.arange(0, half, dtype=np.float32) / half))
-    freqs = torch.from_numpy(np.asarray(freqs, np.float32)).to(
-        positions.device)
-    ang = positions.float()[..., None] * freqs
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.asarray(freqs, np.float32)).to(device)
+
+
+def rotary_angles(positions: torch.Tensor, head_dim: int,
+                  base: float = 10000.0):
+    """(..., S) int positions -> (cos, sin) of shape (..., S, head_dim/2)."""
+    ang = positions.float()[..., None] * rotary_freqs(head_dim, base,
+                                                      positions.device)
     return torch.cos(ang), torch.sin(ang)
 
 

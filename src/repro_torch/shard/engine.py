@@ -12,7 +12,9 @@ the engine's one device: decode launches the partials kernel once per
 shard and layer and merges the partials exactly.  ``tp`` > 1 (tensor
 parallelism) and shards on several devices are ROADMAP Queue A item 18,
 bf16 weights or a bf16 KV cache under ``sp`` > 1 item 20.  With ``sp == 1``
-this is exactly an Engine.
+this is exactly an Engine.  With ``sp`` > 1, ``generate_batch`` and the
+scheduler run their eager loops (``eager_reason``): the captured programs
+are ROADMAP Queue A item 9d.
 """
 from __future__ import annotations
 
@@ -77,6 +79,15 @@ class ShardedEngine(Engine):
                              tree_to(self.serve_params, dev),
                              tree_to(self.qparams, dev), device=dev,
                              sp=self.sp, **self._init_kw())
+
+    def eager_reason(self):
+        """``sp`` > 1 serves through the eager loops, on the CPU and on
+        CUDA: its decode's partials and merge (B4) are not captured yet
+        (ROADMAP Queue A item 9d).  ``sp == 1`` is an Engine."""
+        if self.sp > 1:
+            return ("sequence-parallel serving (sp > 1) keeps its eager "
+                    "loops: CUDA graphs under sp are ROADMAP Queue A item 9d")
+        return None
 
     def dry_run_report(self, **kw):
         raise NotImplementedError(
