@@ -107,6 +107,23 @@
    that checkpoint (``Engine.from_checkpoint(checkpoint_dir=)``) serves 4
    x 512 prompts for 32 tokens through B1-B3 with the checkpoint's
    weights, held against its CPU twin as in 4.
+18. the decoding strategies (``launch/strategies.py``): [kernels] B2 at the
+   speculative verify window (4 rows of ``SPEC_K`` + 1 queries, each at its
+   own q_start, over a 640-position cache, one row with kv_len 0; int8 and
+   int4, timed beside SDPA with an explicit mask) and at ``VERIFY_EDGES``
+   and a paged window over 8 slots, B3 at M = 20 and 40; [sample path]
+   the int8 main path sampled (``SAMPLING``, the reference's threefry key
+   schedule on the card): graphs == eager bit for bit, the same seed the
+   same tokens, another seed other tokens, the GPU tokens against the CPU
+   engine teacher-forced with the same keys (equal, or the CPU's perturbed
+   scores within ``LOGIT_ATOL``); [speculative path], [speculative paged
+   16] and their int4 twins: every verify window's attention through B2,
+   graphs == the same steps run eagerly bit for bit, tokens equal the
+   greedy main path's up to a near-tie, windows, tokens per window and
+   acceptance printed; [speculative scheduler] and [sampled scheduler]: 16
+   ragged requests through 8 slots of the paged cache, completions against
+   batch-1 runs up to a near-tie, sampled streams independent of arrival
+   order, ``spec_stats()`` printed.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -134,6 +151,13 @@ CHUNK, PAGE, SLOTS, BLOCK_STEPS, N_REQUESTS = 128, 64, 8, 8, 16
 # the sequence-parallel paths: shards, and the scheduler's slots, requests
 # and generated tokens
 SP, SP_SLOTS, SP_REQUESTS, SP_GEN = 4, 4, 8, 16
+# the decoding strategies beside greedy (launch/strategies.py): the sampling
+# knobs of [sample path] and [sampled scheduler], and the draft window and
+# lookup n-gram of the speculative phases (a verify window of SPEC_K + 1)
+SAMPLING = dict(temperature=0.7, top_p=0.9, seed=3)
+SPEC_K, SPEC_NGRAM = 4, 2
+SPECULATIVE = dict(decode_strategy="speculative", spec_k=SPEC_K,
+                   spec_ngram=SPEC_NGRAM)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor-core peak
@@ -455,10 +479,13 @@ def check_quant_matmul_edges(torch, ops, ref, dev, cases=QMM_EDGES,
 
 # B3's rows: decode (the decode kernel) of the main path, of the
 # scheduler's slot batch and of one request, the scheduler's admission
-# chunk, the paged path's chunk of 4 x 128, a whole 4 x 512 prefill
+# chunk, the paged path's chunk of 4 x 128, a whole 4 x 512 prefill, the
+# speculative verify windows of generate_batch (4 x 5) and of the
+# scheduler (8 x 5), on the tensor-core path
 QMM_ROWS = (("decode", B), ("slot decode", SLOTS), ("decode 1", 1),
             ("admission", CHUNK), ("paged chunk", B * CHUNK),
-            ("prefill", B * PROMPT))
+            ("prefill", B * PROMPT), ("verify", B * (SPEC_K + 1)),
+            ("slot verify", SLOTS * (SPEC_K + 1)))
 # rows up to this take the decode kernel, and are also timed L2-cold
 DECODE_ROWS = 8
 
@@ -569,6 +596,15 @@ PREFILL_EDGES = [
     ("f32", 8, 1, 70, 70, [0, 0, 0, 0], [70, 1, 0, 33], None),
     ("bf16", 72, 3, 150, 200, [0, 50, 7, 0], [150, 200, 0, 1], 64),
 ]
+# the speculative verify window (Sq = SPEC_K + 1 queries a row, each row at
+# its own q_start, over the main path's 640-position cache): kv_len =
+# q_start + Sq, or 0 for an inactive slot; windows at the cache's start and
+# end and across the kernel's 64-key tiles
+VERIFY_EDGES = [
+    ("bf16", 64, 3, 5, 640, [512, 530, 600, 0], [517, 535, 605, 0], None),
+    ("bf16", 64, 3, 5, 640, [635, 127, 1, 300], [640, 132, 6, 0], None),
+    ("f32", 64, 3, 5, 640, [0, 60, 64, 509], [5, 65, 69, 514], None),
+]
 
 
 def kv_kind(bits):
@@ -600,11 +636,13 @@ def kv_scales(torch, gen, dev, bits, kvh=3):
 
 
 def check_prefill_edges(torch, ops, ref, dev, bits, gen):
-    """B2 at each of ``PREFILL_EDGES`` with a ``bits`` K/V stream (16: bf16),
+    """B2 at each of ``PREFILL_EDGES`` and ``VERIFY_EDGES`` with a ``bits``
+    K/V stream (16: bf16),
     against its plain version (``ATTN_TOL``); a request with kv_len 0 must
     come out as exact zeros."""
     kv_bits = 8 if bits == 16 else bits
-    for dtype, d, g, sq, sk, q_start, kv_len, window in PREFILL_EDGES:
+    for dtype, d, g, sq, sk, q_start, kv_len, window in (PREFILL_EDGES
+                                                         + VERIFY_EDGES):
         q = torch.randn((B, sq, 3, g, d), generator=gen, device=dev)
         if dtype == "bf16":
             q = q.to(torch.bfloat16)
@@ -972,6 +1010,32 @@ def check_paged_attention(torch, ops, ref, dev, bits, page):
             "bound_ms": bnd, "bound_by": by, "library_ms": lib,
             "library": "SDPA on the gathered dequantized bf16, masked",
             "split": SPLIT})
+
+    # -- the speculative verify window over the scheduler's slot batch: 5
+    # queries a row at ragged q_start (windows across a page boundary, at
+    # the cache's end, an inactive slot with kv_len 0) over the whole pool
+    w = SPEC_K + 1
+    kp, vp, table = paged_inputs(torch, dev, gen, SLOTS, cap, page, bits)
+    view = KernelView(kp, vp, table, page, kv_bits)
+    qs = torch.tensor([0, page - 2, 2 * page - 1, 300, 511, 600, cap - w,
+                       77], dtype=torch.int32, device=dev)
+    kl = torch.where(torch.arange(SLOTS, device=dev) == SLOTS - 1, 0, qs + w)
+    q = torch.randn((SLOTS, w, kvh, g, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    got = ops.prefill_attention_view(q, view, k_scale, v_scale, qs, kl)
+    err = held("prefill_attention verify window", got,
+               ref.prefill_attention_paged_ref(q, kp, vp, table, k_scale,
+                                               v_scale, qs, kl,
+                                               kv_bits=kv_bits),
+               ops.prefill_attention(q, ref.gather_pages(kp, table),
+                                     ref.gather_pages(vp, table), k_scale,
+                                     v_scale, qs, kl, kv_bits=kv_bits))
+    if not torch.equal(got[-1], torch.zeros_like(got[-1])):
+        raise AssertionError(f"prefill_attention verify window ({tag}): the "
+                             "slot with kv_len 0 is not exact zeros")
+    print(f"  prefill_attention [{tag}] verify window B={SLOTS} Sq={w} "
+          f"q_start={qs.tolist()}: max|err| {err:.2e}; bit-identical to "
+          "dense; kv_len 0 exact zeros")
 
     # -- prefill: one 128-query chunk of the paged path -----------------------
     q0, limit = PROMPT - CHUNK, PROMPT
@@ -2457,6 +2521,407 @@ def check_train_pretrain(torch, ops, A, train, Engine, CheckpointManager,
     return counts
 
 
+def check_verify_attention(torch, ops, ref, dev, bits):
+    """B2 at the speculative verify window of ``generate_batch`` (B = 4
+    rows of SPEC_K + 1 queries, each row at its own q_start, over the main
+    path's 640-position cache; one row inactive, kv_len 0) with a ``bits``
+    K/V stream: against its plain version (``ATTN_TOL``, exact zeros for
+    the inactive row), then timed warm and L2-cold beside the plain version
+    and SDPA on the same window with an explicit mask.  Returns the JSON
+    entry (kernel ``prefill_attention@verify`` at int8)."""
+    import torch.nn.functional as F
+
+    kvh, g, d, w = 3, 3, 64, SPEC_K + 1
+    cap = -(-(PROMPT + GEN + SPEC_K) // 128) * 128
+    gen = torch.Generator(device=dev).manual_seed(31 + bits)
+    k_scale, v_scale = kv_scales(torch, gen, dev, bits, kvh)
+    k, v = (kv_stream(torch, gen, dev, (B, cap, kvh, d), bits)
+            for _ in range(2))
+    q = torch.randn((B, w, kvh, g, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    # mid-generation windows of the main path (prompts of 512), one idle
+    qs = torch.tensor([PROMPT + 7, PROMPT + 20, PROMPT + 31, 0],
+                      dtype=torch.int32, device=dev)
+    kl = torch.tensor([PROMPT + 7 + w, PROMPT + 20 + w, PROMPT + 31 + w, 0],
+                      dtype=torch.int32, device=dev)
+
+    def kernel():
+        return ops.prefill_attention(q, k, v, k_scale, v_scale, qs, kl,
+                                     causal=True, kv_bits=bits)
+
+    got = kernel()
+    want = ref.prefill_attention_ref(q, k, v, k_scale, v_scale, qs, kl,
+                                     causal=True, kv_bits=bits)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tag = f"{kv_kind(bits)} K/V"
+    if not err <= ATTN_TOL * (1 + want.abs().max().item()):
+        raise AssertionError(f"prefill_attention verify window ({tag}) "
+                             f"disagrees with its plain version: {err}")
+    if not torch.equal(got[3], torch.zeros_like(got[3])):
+        raise AssertionError(f"prefill_attention verify window ({tag}): the "
+                             "row with kv_len 0 is not exact zeros")
+    ms, call = timed(torch, kernel)
+    cold = cold_ms(torch, kernel, l2_flush(torch, dev),
+                   "prefill_attention_kernel")
+    plain, _ = timed(torch, lambda: ref.prefill_attention_ref(
+        q, k, v, k_scale, v_scale, qs, kl, causal=True, kv_bits=bits))
+    qh = q.permute(0, 2, 3, 1, 4).reshape(B, kvh * g, w, d).contiguous()
+    kh = dequant_heads(torch, k, k_scale, g, bits)
+    vh = dequant_heads(torch, v, v_scale, g, bits)
+    q_pos = qs[:, None] + torch.arange(w, device=dev)[None]
+    mask = ((torch.arange(cap, device=dev)[None, None, :] <= q_pos[..., None])
+            & (torch.arange(cap, device=dev)[None, None, :]
+               < kl[:, None, None]))[:, None]
+    lib, _ = timed(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask))
+    keys = int(kl.sum())
+    pairs = sum(int(n) * w for n in kl)
+    nbytes = (q.numel() * 2 + 2 * keys * kvh * d * bits // 8 + 8 * kvh
+              + 8 * B + q.numel() * 4)
+    bnd, by = bound_ms(nbytes, 4 * d * pairs * kvh * g, BF16_FLOPS_PER_S)
+    print(f"  prefill_attention [verify window, {tag}] B={B} Sq={w} "
+          f"q_start={qs.tolist()} cache={cap}: {ms * 1e3:.1f} us warm, "
+          f"{cold * 1e3:.1f} us L2-cold (per call {call * 1e3:.1f} us)  "
+          f"plain {plain * 1e3:.1f} us  bound {bnd * 1e3:.2f} us  sdpa "
+          f"(explicit mask) {lib * 1e3:.1f} us  max|err| {err:.2e}; kv_len "
+          "0 exact zeros")
+    return {
+        "name": f"prefill_attention[verify window: {tag}, B={B}, {w} "
+                f"queries a row at its own q_start, cache {cap}, one layer]",
+        "route": "cuda", "source": "src/repro_torch/csrc/prefill_attention.cu",
+        "replaces": "src/repro/kernels/prefill_attention.py:192",
+        "kernel": "prefill_attention@verify" + ("" if bits == 8 else "-int4"),
+        "max_abs_err": err, "ms": ms, "cold_ms": cold, "call_ms": call,
+        "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+        "library_ms": lib,
+        "library": "SDPA on the dequantized bf16 cache, explicit mask"}
+
+
+def sample_cpu_check(torch, A, SG, prng, engine, prompts, toks, label):
+    """The sampled GPU tokens against the same engine moved to the CPU,
+    teacher-forced on them with the same keys (``PRNGKey(seed)``, one split
+    a token): each GPU token must be the CPU's sampled token, or the CPU's
+    perturbed scores (logits / T + Gumbel noise) must put it within
+    ``LOGIT_ATOL`` of the CPU's pick (a near-tie that rounding may
+    flip)."""
+    n_check = 4
+    t0 = time.perf_counter()
+    cpu = engine.to("cpu")
+    tok_t = toks.cpu()
+    lgs = forced_logits(torch, A, cpu, torch.as_tensor(prompts), tok_t,
+                        n_check)
+    temp, top_p = SAMPLING["temperature"], SAMPLING["top_p"]
+    key = prng.PRNGKey(SAMPLING["seed"])
+    same, ties, far = 0, 0, []
+    for i, lg in enumerate(lgs):
+        ks = prng.split(key)
+        key, sub = ks[0], ks[1]
+        pick = SG.sample_tokens(lg, sub, temperature=temp, top_p=top_p)
+        pert = lg / temp + prng.gumbel(sub, lg.shape)
+        for r in range(lg.shape[0]):
+            g, c = int(tok_t[r, i]), int(pick[r])
+            gap = (pert[r, c] - pert[r, g]).item()
+            if g == c:
+                same += 1
+            elif gap <= LOGIT_ATOL:
+                ties += 1
+            else:
+                far.append(f"step {i} row {r}: CPU samples {c}, GPU {g}, "
+                           f"{gap:.4f} apart")
+    print(f"[{label}] {n_check} teacher-forced steps on the CPU with the "
+          f"same keys in {time.perf_counter() - t0:.1f} s: sampled tokens "
+          f"equal {same}/{n_check * len(prompts)}, near-ties (perturbed gap "
+          f"<= {LOGIT_ATOL}) {ties}, further apart {len(far)}")
+    if far:
+        raise AssertionError(f"sampled tokens differ: {far}")
+
+
+def drive_sample_path(torch, ops, A, SG, prng, Engine, engine, prompts, kind,
+                      card, walls):
+    """[sample path]: the int8 main path sampled at ``SAMPLING`` (the
+    reference's key schedule on the card): ``drive_main_path``'s launch
+    counts and graphs == eager ``loop=True`` bit for bit, then the same
+    seed again gives the same tokens, another seed other tokens, and the
+    GPU tokens pass the teacher-forced CPU check with the same keys.
+    Returns (result, launch counts)."""
+    eng = Engine(engine.model, engine.cfg, engine.policy,
+                 engine.serve_params, engine.qparams, device=engine.device,
+                 mode=engine.mode, **SAMPLING)
+    res, counts, _, _ = drive_main_path(torch, ops, eng, prompts,
+                                        "sample path", kind, card,
+                                        walls=walls, A=A)
+    again = eng.generate_batch({"tokens": prompts}, gen=GEN)
+    other = Engine(engine.model, engine.cfg, engine.policy,
+                   engine.serve_params, engine.qparams, device=engine.device,
+                   mode=engine.mode, **{**SAMPLING, "seed": SAMPLING["seed"]
+                                        + 1}).generate_batch(
+        {"tokens": prompts}, gen=GEN)
+    n_same = int((other.tokens == res.tokens).sum())
+    print(f"[sample path] {SAMPLING}: the same seed again gives the same "
+          f"{GEN} tokens: {torch.equal(again.tokens, res.tokens)}; seed "
+          f"{SAMPLING['seed'] + 1} agrees on {n_same}/{res.tokens.numel()} "
+          f"tokens; decode {res.decode_s / (GEN - 1) * 1e3:.3f} ms per "
+          f"sampled step (graphs) on {kind} ({card})")
+    if not torch.equal(again.tokens, res.tokens):
+        raise AssertionError("the same seed gave other tokens")
+    if n_same == res.tokens.numel():
+        raise AssertionError("another seed gave the same tokens")
+    sample_cpu_check(torch, A, SG, prng, eng, prompts, res.tokens,
+                     "sample cpu check")
+    return res, counts
+
+
+def spec_eager(torch, ST, SG, prng, eng, prompts):
+    """The speculative engine's prefill and GEN - 1 verify windows run
+    eagerly on the card (the steps its programs capture, uncaptured), with
+    the windows' counters: (tokens (B, GEN), stats)."""
+    dev = eng.device
+    with torch.inference_mode():
+        toks = torch.as_tensor(prompts, device=dev).long()
+        b, s = toks.shape
+        cache_len = eng._cache_len(s, GEN + SPEC_K)
+        cache = eng.init_cache(b, cache_len)
+        prefill = ST.make_prefill_step(eng.model, eng.policy,
+                                       prefill_chunk=eng.prefill_chunk,
+                                       mode=eng.mode)
+        if eng.prefill_chunk:
+            padded, lengths = ST.pad_for_chunked_prefill(toks,
+                                                         eng.prefill_chunk)
+            logits, cache = prefill(eng.serve_params, eng.qparams,
+                                    {"tokens": padded}, cache, lengths)
+        else:
+            logits, cache = prefill(eng.serve_params, eng.qparams,
+                                    {"tokens": toks}, cache)
+        tok0 = logits[:, -1].argmax(-1)
+        st = SG.WindowState(
+            tok=torch.empty_like(tok0),
+            pos=torch.empty((b,), dtype=torch.int32, device=dev),
+            n_out=torch.empty((b,), dtype=torch.int32, device=dev),
+            out=torch.empty((b, GEN), dtype=torch.long, device=dev),
+            key=prng.PRNGKey(0, dev),
+            hist=torch.zeros((b, cache_len), dtype=torch.long,
+                             device=dev)).start(tok0, s)
+        SG.seed_hist(st.hist, toks, tok0)
+        step = SG.make_window_step(eng._strategy, GEN)
+        live = row_windows = emitted = 0
+        for _ in range(GEN - 1):
+            before = st.n_out.clone()
+            step(eng.serve_params, eng.qparams, st, cache)
+            rows = before < GEN
+            live += int(rows.any())
+            row_windows += int(rows.sum())
+            emitted += int((torch.clamp(st.n_out, max=GEN) - before)[
+                rows].sum())
+    tpw = emitted / max(row_windows, 1)
+    return st.out, {"windows": GEN - 1, "windows_live": live,
+                    "row_windows": row_windows, "tokens": emitted,
+                    "tokens_per_window": tpw,
+                    "acceptance_rate": max(tpw - 1.0, 0.0) / SPEC_K}
+
+
+def drive_spec_path(torch, ops, A, ST, SG, prng, Engine, engine, prompts,
+                    greedy, label, kind, card, page=None, walls=None):
+    """4 x 512 prompts for 32 tokens with speculative decoding (``SPEC_K``
+    drafts from ``SPEC_NGRAM``-gram prompt lookup, each verify window
+    through B2 at per-row q_start) on ``engine``'s weights, dense or (pages
+    of ``page``, chunks of CHUNK) paged: every window's attention through
+    B2 and none through B1, the captured programs bit-identical to the same
+    steps run eagerly, and the tokens equal to the card's greedy tokens
+    ``greedy`` or, where they part, each within ``LOGIT_ATOL`` of the
+    argmax of the eager greedy steps teacher-forced on them (B2 and B1 sum
+    in other orders).  Returns (launch counts, B2 launches of the verify
+    windows)."""
+    kw = dict(SPECULATIVE)
+    if page:
+        kw.update(cache_layout="paged", page_size=page, prefill_chunk=CHUNK)
+    eng = Engine(engine.model, engine.cfg, engine.policy,
+                 engine.serve_params, engine.qparams, device=engine.device,
+                 mode=engine.mode, **kw)
+    warm = eng.generate_batch({"tokens": prompts}, gen=GEN)    # captures
+    ops.reset_launches()
+    res = eng.generate_batch({"tokens": prompts}, gen=GEN)
+    counts, pg, int4 = (ops.launch_counts(), ops.paged_launch_counts(),
+                        ops.int4_launch_counts())
+    n, chunks = engine.cfg.n_layers, (PROMPT // CHUNK if page else 1)
+    verify = n * (GEN - 1)
+    expected = {"quant_matmul": 7 * n * (chunks + GEN - 1),
+                "prefill_attention": n * chunks + verify,
+                "decode_attention": 0, "decode_attention_partials": 0,
+                "fake_quant": 0}
+    attn = {k: expected[k] for k in ops.ATTENTION}
+    pg_expected = attn if page else {k: 0 for k in attn}
+    int4_expected = (attn if engine.policy.kv_bits == 4
+                     else {k: 0 for k in attn})
+    print(f"[{label}] kernel launches {counts} (expected {expected}); paged "
+          f"{pg}; int4 {int4}; {verify} of B2's in the {GEN - 1} verify "
+          "windows")
+    if (counts, pg, int4) != (expected, pg_expected, int4_expected):
+        raise AssertionError(f"launch counts {counts} / {pg} / {int4}")
+    if warm.compile_s <= 0.0 or res.compile_s != 0.0:
+        raise AssertionError(f"compile_s {warm.compile_s} then "
+                             f"{res.compile_s}")
+    t0 = time.perf_counter()
+    eager, stats = spec_eager(torch, ST, SG, prng, eng, prompts)
+    eager_s = time.perf_counter() - t0
+    if not torch.equal(eager, res.tokens):
+        raise AssertionError(
+            f"speculative graphs and the eager steps disagree: "
+            f"{int((eager == res.tokens).sum())}/{eager.numel()} tokens "
+            "equal")
+    same = int((res.tokens == greedy).sum())
+    gap = 0.0 if same == greedy.numel() else forced_gap(
+        torch, A, eng, prompts, res.tokens)
+    print(f"[{label}] graphs == eager steps bit for bit; tokens equal the "
+          f"greedy main path's {same}/{greedy.numel()} (teacher-forced gap "
+          f"of the speculative tokens {gap:.4f}, near-tie tolerance "
+          f"{LOGIT_ATOL}); windows {stats['windows']}, with a live row "
+          f"{stats['windows_live']}; {stats['tokens_per_window']:.3f} tokens "
+          f"per row window, acceptance {stats['acceptance_rate']:.3f}; "
+          f"prefill {res.prefill_s * 1e3:.2f} ms, "
+          f"{res.decode_s / (GEN - 1) * 1e3:.3f} ms per verify window "
+          f"(graphs), eager {eager_s:.2f} s for prefill + windows; captured "
+          f"in {warm.compile_s:.3f} s on {kind} ({card})")
+    if not gap <= LOGIT_ATOL:
+        raise AssertionError(f"speculative tokens {gap} below the greedy "
+                             "argmax")
+    if walls is not None:
+        walls[label + " (ms per window)"] = {
+            "graphs": (res.prefill_s * 1e3, res.decode_s / (GEN - 1) * 1e3,
+                       warm.compile_s)}
+    return counts, verify
+
+
+def teacher_forced_sample_gap(torch, A, ST, SG, prng, engine, prompt, tokens,
+                              rid):
+    """Batch-1 chunked prefill + decode of ``prompt`` fed ``tokens``, each
+    step sampled with request ``rid``'s keys (``fold_in(PRNGKey(seed),
+    rid)``, split into the first token's key and the carried key): the
+    first step whose sampled token is not ``tokens[step]``, with the gap of
+    the perturbed scores (logits / T + Gumbel noise) between the two; None
+    when every step agrees."""
+    dev = engine.device
+    temp, top_p = SAMPLING["temperature"], SAMPLING["top_p"]
+    with torch.inference_mode():
+        ctx = A.make_ctx(engine.mode, engine.policy, engine.qparams)
+        toks = torch.as_tensor(prompt, device=dev)[None]
+        cache = engine.init_cache(1, engine._cache_len(toks.shape[1],
+                                                       len(tokens)))
+        padded, lengths = ST.pad_for_chunked_prefill(toks, CHUNK)
+        logits, cache = ST.make_prefill_step(
+            engine.model, engine.policy, prefill_chunk=CHUNK,
+            mode=engine.mode)(engine.serve_params, engine.qparams,
+                              {"tokens": padded}, cache, lengths)
+        ks = prng.split(prng.fold_in(prng.PRNGKey(SAMPLING["seed"]), rid))
+        key, carry = ks[0].to(dev), ks[1].to(dev)
+        for i, t in enumerate(tokens):
+            row = logits[0, -1:].float()
+            pick = int(SG.sample_tokens(row, key, temperature=temp,
+                                        top_p=top_p)[0])
+            if pick != t:
+                pert = row[0] / temp + prng.gumbel(key, row.shape)[0]
+                return i, (pert[pick] - pert[t]).item()
+            logits, cache = engine.model.decode_step(
+                engine.serve_params, torch.tensor([[t]], device=dev), cache,
+                toks.shape[1] + i, ctx)
+            ks = prng.split(carry)
+            key, carry = ks[0], ks[1]
+    return None
+
+
+def check_strategy_scheduler(torch, ops, A, ST, SG, prng, Engine, Request,
+                             engine, kind, card, scheme, n_alone=4):
+    """[speculative scheduler] / [sampled scheduler]: N_REQUESTS ragged
+    requests (64-512 tokens, GEN generated each) through SLOTS slots of
+    ``engine``'s paged cache, speculative (each slot's verify windows
+    through B2's paged variant, none through B1) or sampled (per-request
+    keys).  Every request finishes by its budget; ``n_alone`` of them
+    served alone agree: speculative, with batch-1 greedy ``generate_batch``
+    (equal or a near-tie, ``teacher_forced_gap``); sampled, with batch-1
+    steps teacher-forced on them with the request's keys (equal or a
+    near-tie of the perturbed scores).  Sampled completions must not depend
+    on the arrival order: the requests again, reversed, give the same
+    tokens.  Returns (launch counts, paged launch counts)."""
+    from repro_torch.launch.graphs import WARMUP
+
+    label = f"{'speculative' if scheme == 'speculative' else 'sampled'} " \
+            "scheduler"
+    eng = Engine(engine.model, engine.cfg, engine.policy,
+                 engine.serve_params, engine.qparams, device=engine.device,
+                 mode=engine.mode, cache_layout="paged", page_size=PAGE,
+                 prefill_chunk=CHUNK,
+                 **(SPECULATIVE if scheme == "speculative" else SAMPLING))
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(64, PROMPT + 1, N_REQUESTS)
+    reqs = [Request(rid=i, tokens=rng.integers(0, engine.cfg.vocab, n,
+                                               dtype=np.int32), max_gen=GEN)
+            for i, n in enumerate(lengths)]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.generate(reqs, max_slots=SLOTS, block_steps=BLOCK_STEPS)
+    wall = time.perf_counter() - t0
+    counts, pg = ops.launch_counts(), ops.paged_launch_counts()
+    sched = eng._scheduler
+    calls, sec = sched.call_counts(), sched.stage_seconds()
+    n = engine.cfg.n_layers
+    steps = calls["decode"] * BLOCK_STEPS
+    # every step of a block (and of the capture's warm-up blocks) runs one
+    # decode or verify pass a layer
+    passes = n * (steps + WARMUP * BLOCK_STEPS)
+    want_pg = {"prefill_attention": passes if scheme == "speculative" else 0,
+               "decode_attention": 0 if scheme == "speculative" else passes,
+               "decode_attention_partials": 0}
+    serve = wall - sec["compile"]
+    print(f"[{label}] {len(done)} requests through {SLOTS} slots in "
+          f"{serve:.2f} s after a {sec['compile']:.2f} s capture: "
+          f"{len(done) / serve:.2f} requests/s, "
+          f"{len(done) * GEN / serve:.1f} tokens/s; admission "
+          f"{sec['admit'] / max(calls['prefill'], 1) * 1e3:.1f} ms per "
+          f"prefill, {sec['decode'] / calls['decode'] * 1e3:.1f} ms per block "
+          f"of {BLOCK_STEPS} steps on {kind} ({card}); calls {calls}; "
+          f"launches {counts}; paged {pg} (expected {want_pg}); spec_stats "
+          f"{sched.spec_stats()}")
+    bad = [(c.rid, c.status, c.finished_by, len(c.tokens)) for c in done
+           if (c.status, c.finished_by, len(c.tokens)) != ("ok", "budget",
+                                                           GEN)]
+    if len(done) != N_REQUESTS or bad:
+        raise AssertionError(f"{len(done)} completions; not ok/budget/{GEN}: "
+                             f"{bad}")
+    if pg != want_pg:
+        raise AssertionError(f"paged launches {pg}, expected {want_pg}")
+    by_rid = {c.rid: c.tokens for c in done}
+    if scheme == "sample":
+        again = {c.rid: c.tokens for c in eng.generate(
+            reqs[::-1], max_slots=SLOTS, block_steps=BLOCK_STEPS)}
+        moved = [r for r in by_rid if again[r] != by_rid[r]]
+        print(f"[{label}] the requests again in reverse arrival order: "
+              f"{N_REQUESTS - len(moved)}/{N_REQUESTS} streams equal")
+        if moved:
+            raise AssertionError(f"sampled streams depend on arrival order: "
+                                 f"requests {moved}")
+    dense = layout_twin(Engine, eng, "dense")
+    for r in range(n_alone):
+        got = by_rid[r]
+        if scheme == "sample":
+            forced = teacher_forced_sample_gap(torch, A, ST, SG, prng, dense,
+                                               reqs[r].tokens, got, r)
+        else:
+            alone = dense.generate_batch({"tokens": reqs[r].tokens[None]},
+                                         gen=GEN).tokens[0].tolist()
+            forced = None if alone == got else teacher_forced_gap(
+                torch, A, ST, dense, reqs[r].tokens, got)
+        if forced is None:
+            print(f"[{label}] request {r} ({lengths[r]} tokens) alone: "
+                  f"{GEN} tokens agree")
+            continue
+        step, gap = forced
+        print(f"[{label}] request {r} alone: first differs at token {step}, "
+              f"{gap:.4f} apart (near-tie tolerance {LOGIT_ATOL})")
+        if not gap <= LOGIT_ATOL:
+            raise AssertionError(f"request {r}: token {step} is {gap} apart")
+    return counts, pg
+
+
 def main() -> int:
     import torch
 
@@ -2470,7 +2935,9 @@ def main() -> int:
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.core import api as A
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch import prng
     from repro_torch.launch import steps as ST
+    from repro_torch.launch import strategies as SG
     from repro_torch.launch.engine import Engine
     from repro_torch.launch import train
     from repro_torch.launch.scheduler import Request
@@ -2514,6 +2981,8 @@ def main() -> int:
     for bits in (8, 4, 16):
         for page in (16, PAGE):
             kernels += check_paged_attention(torch, ops, ref, dev, bits, page)
+    for bits in (8, 4):
+        kernels.append(check_verify_attention(torch, ops, ref, dev, bits))
     for bits in (8, 4):
         kernels.append(check_partials(torch, ops, ref, dev, bits))
     for bits in (8, 4):
@@ -2566,6 +3035,17 @@ def main() -> int:
     phase("graphs paged 16", drive_paged_path, torch, ops, ref, Engine,
           PagedCache, engine, prompts, "graphs paged 16", kind, card, 16, A,
           walls)
+    # the decoding strategies beside greedy, each path's launches counted
+    # from 0: sampled, and speculative (its verify windows through B2),
+    # dense and in pages of 16
+    sample = phase("sample path", drive_sample_path, torch, ops, A, SG, prng,
+                   Engine, engine, prompts, kind, card, walls)
+    spec_runs = {}
+    for page in (None, 16):
+        name = "speculative path" if page is None else "speculative paged 16"
+        spec_runs[name] = phase(name, drive_spec_path, torch, ops, A, ST, SG,
+                                prng, Engine, engine, prompts, res.tokens,
+                                name, kind, card, page, walls)
     del engine
 
     # the reference's three other serving modes at full width: bf16
@@ -2631,6 +3111,15 @@ def main() -> int:
     paged4 = phase("int4 paged path", drive_paged_path, torch, ops, ref,
                    Engine, PagedCache, engine4, prompts, "int4 paged path",
                    kind, card, PAGE, A, walls)
+    spec4_runs = {}
+    if out4 is not None:
+        for page in (None, 16):
+            name = ("int4 speculative path" if page is None
+                    else "int4 speculative paged 16")
+            spec4_runs[name] = phase(name, drive_spec_path, torch, ops, A, ST,
+                                     SG, prng, Engine, engine4, prompts,
+                                     out4[0].tokens, name, kind, card, page,
+                                     walls)
     sp4 = phase("int4 sp path", drive_main_path, torch, ops, ShardedEngine(
         engine4.model, engine4.cfg, engine4.policy, engine4.serve_params,
         engine4.qparams, device=engine4.device, sp=SP), prompts,
@@ -2655,6 +3144,11 @@ def main() -> int:
                            Engine, Request, engine_p, kind, card),
         "prefix": phase("prefix", check_prefix, torch, ops, Request,
                         engine_p, kind, card)})
+    strategy_scheds = {
+        f"{scheme} scheduler": phase(
+            f"{scheme} scheduler", check_strategy_scheduler, torch, ops, A,
+            ST, SG, prng, Engine, Request, engine_p, kind, card, scheme)
+        for scheme in ("speculative", "sample")}
     del engine_p
 
     t0 = time.perf_counter()
@@ -2699,6 +3193,20 @@ def main() -> int:
                 partials: sum(sp_paths.values()),
                 f"{partials}@int4": sp4[2][partials],
                 "fake_quant": fq_launches, "quant_matmul@w4": w4_launches}
+    # the strategies' paths: B3's launches join the main path's; B2's in the
+    # verify windows are prefill_attention@verify (int8) and
+    # @verify-int4
+    new_paths = {"sample path": sample[1],
+                 **{k: v[0] for k, v in {**spec_runs, **spec4_runs}.items()},
+                 **{k: v[0] for k, v in strategy_scheds.items()}}
+    launched["quant_matmul"] += sum(c["quant_matmul"]
+                                    for c in new_paths.values())
+    verify_by_path = {k: v[1] for k, v in spec_runs.items()}
+    verify_by_path["speculative scheduler"] = strategy_scheds[
+        "speculative scheduler"][1]["prefill_attention"]
+    verify4_by_path = {k: v[1] for k, v in spec4_runs.items()}
+    launched["prefill_attention@verify"] = sum(verify_by_path.values())
+    launched["prefill_attention@verify-int4"] = sum(verify4_by_path.values())
     bf16_by_path = {path: pg["prefill_attention"]
                     for path, pg in bf16_runs.items()}
     launched["prefill_attention@bf16"] = sum(bf16_by_path.values())
@@ -2714,6 +3222,14 @@ def main() -> int:
             e["launches_by_path"] = sp_paths
         if kernel == "prefill_attention@bf16":
             e["launches_by_path"] = bf16_by_path
+        if kernel == "prefill_attention@verify":
+            e["launches_by_path"] = verify_by_path
+        if kernel == "prefill_attention@verify-int4":
+            e["launches_by_path"] = verify4_by_path
+        if kernel == "quant_matmul":
+            e["launches_by_path"] = {"main path": counts["quant_matmul"],
+                                     **{k: c["quant_matmul"]
+                                        for k, c in new_paths.items()}}
         if kernel == "prefill_attention@paged-bf16":
             e["launches_by_path"] = {"int8_w_bf16_kv paged path":
                                      launched[kernel]}

@@ -186,21 +186,24 @@ class DenseCache(QuantizedKV):
         return self
 
     def append_slots(self, kq, vq, starts, active=None) -> "DenseCache":
-        """Per-slot one-token write (continuous batching): row b writes its
-        (1, KV, D) tiles at position ``starts[b]``.  A row with ``active``
-        False reads back the tiles at its (clamped) index and writes them
-        unchanged, so a masked step leaves the cache bit-for-bit as it was;
-        starts clamp to the capacity, as the reference's dynamic slice
-        does."""
-        if kq.shape[1] != 1:
-            raise NotImplementedError(
-                "multi-token slot writes are the speculative verify window "
-                "(ROADMAP Queue A item 13)")
-        rows = torch.arange(self.k.shape[0], device=self.k.device)
-        pos = torch.clamp(starts.to(torch.long), 0, self.capacity - 1)
-        kq, vq = kq[:, 0], vq[:, 0]
+        """Per-slot write (continuous batching): row b writes its (s, KV, D)
+        tiles at positions ``starts[b] + [0, s)`` (s == 1 the decode step,
+        s > 1 the speculative verify window).  A start clamps to
+        [0, capacity - s], as the reference's ``dynamic_update_slice``
+        does (the whole window moves, not each position).  A row with
+        ``active`` False reads back the tiles of its window and writes them
+        unchanged, so a masked step leaves the cache bit-for-bit as it
+        was."""
+        s = kq.shape[1]
+        if s > self.capacity:
+            raise ValueError(f"a window of {s} positions overruns the cache "
+                             f"capacity {self.capacity}")
+        dev = self.k.device
+        rows = torch.arange(self.k.shape[0], device=dev)[:, None]
+        start = torch.clamp(starts.to(torch.long), 0, self.capacity - s)
+        pos = start[:, None] + torch.arange(s, device=dev)[None]
         if active is not None:
-            sel = active.reshape(-1, 1, 1)
+            sel = active.reshape(-1, 1, 1, 1)
             kq = torch.where(sel, kq, self.k[rows, pos])
             vq = torch.where(sel, vq, self.v[rows, pos])
         self.k[rows, pos] = kq

@@ -26,9 +26,9 @@ other: prefix sharing is bookkeeping.  A shared page is immutable; only
 the full pages of a registered prompt are shared by reference, the partial
 tail page is snapshotted at registration and copied into a sharer's
 private page.  As in the dense layout, every write goes into the pool in
-place.  ``PagedCache.rollback`` with ``private_row`` (copy-on-rewind for
-speculative decoding) is ROADMAP Queue A item 13, the ``state_dict``
-snapshots item 14.
+place.  ``PagedCache.rollback`` with ``private_row`` is the copy-on-rewind
+that keeps shared pages immutable under speculative decoding; the
+``state_dict`` snapshots are ROADMAP Queue A item 14.
 """
 from __future__ import annotations
 
@@ -123,14 +123,17 @@ class PagedCache(QuantizedKV):
         return self
 
     def append_slots(self, kq, vq, starts, active=None) -> "PagedCache":
-        """Per-slot token write through the table (kq/vq (B, 1, KV, D)); a
-        row with ``active`` False reads back its mapped tiles and writes
-        them unchanged, bit-exact cache-neutral like ``DenseCache``."""
-        if kq.shape[1] != 1:
-            raise NotImplementedError(
-                "multi-token slot writes are the speculative verify window "
-                "(ROADMAP Queue A item 13)")
-        pages, offs = self._page_of(starts.reshape(-1, 1))
+        """Per-slot write through the table (kq/vq (B, s, KV, D): s == 1 the
+        decode step, s > 1 the speculative verify window, whose positions
+        ``starts[b] + [0, s)`` may cross a page boundary; each maps
+        through the table).  A position past the capacity clamps to the
+        last slot, as in the reference.  A row with ``active`` False reads
+        back its mapped tiles and writes them unchanged, bit-exact
+        cache-neutral like ``DenseCache``."""
+        s = kq.shape[1]
+        pos = (starts.to(torch.long).reshape(-1, 1)
+               + torch.arange(s, device=self.k.device)[None])
+        pages, offs = self._page_of(pos)
         if active is not None:
             sel = active.reshape(-1, 1, 1, 1)
             kq = torch.where(sel, kq, self.k[pages, offs])
@@ -140,14 +143,32 @@ class PagedCache(QuantizedKV):
         return self
 
     def rollback(self, pos, private_row=None) -> "PagedCache":
-        """Logical rewind of each slot to ``pos`` valid entries: without
-        ``private_row`` a no-op, as in the dense layout (the entries past
-        pos are dead and appends target private pages)."""
-        if private_row is not None:
-            raise NotImplementedError(
-                "copy-on-rewind of shared prefix pages (rollback with "
-                "private_row) serves speculative decoding: ROADMAP Queue A "
-                "item 13")
+        """Rewind slot b's table to ``pos[b]`` valid entries.
+
+        Without ``private_row`` a no-op, as in the dense layout: the entries
+        past pos are dead, and appends target private pages.  With
+        ``private_row`` (B, NB), the slots' own page ids, the rewound region
+        is re-pointed at private pages, so a rewind into a shared prefix
+        page never lets a later append write shared storage: the blocks
+        after the boundary only swap their table entry, and the boundary
+        block (the one holding ``pos``, partly live) is copied into its
+        private page first (copy-on-rewind; a self-copy when it is private
+        already).  In place, like every write of the port's caches."""
+        if private_row is None:
+            return self
+        ps, nb = self.page_size, self.n_blocks
+        dev = self.k.device
+        pos = torch.as_tensor(pos, device=dev).to(torch.long).reshape(-1)
+        prow = torch.as_tensor(private_row, device=dev).to(torch.long)
+        table = self.table.to(torch.long)
+        blk = torch.clamp(pos // ps, 0, nb - 1)[:, None]
+        rewind = torch.arange(nb, device=dev)[None] >= blk
+        src = torch.gather(table, 1, blk)[:, 0]
+        dst = torch.gather(prow, 1, blk)[:, 0]
+        # the source pages are read before any destination is written
+        self.k[dst] = self.k[src]
+        self.v[dst] = self.v[src]
+        self.table.copy_(torch.where(rewind, prow, table))
         return self
 
     def splice_slot(self, slot_cache, slot):

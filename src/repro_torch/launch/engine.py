@@ -10,6 +10,12 @@
     # int4 KV cache, thresholds fine-tuned for 2 epochs (paper §3):
     engine = Engine.from_checkpoint("smollm-135m", smoke=False, kv_bits=4,
                                     finetune_thresholds=2)
+    # sampled (temperature / top-p, the reference's PRNG key schedule) or
+    # speculative (prompt lookup; greedy's tokens) decoding:
+    engine = Engine.from_checkpoint("smollm-135m", smoke=False,
+                                    temperature=0.7, top_p=0.9, seed=3)
+    engine = Engine.from_checkpoint("smollm-135m", smoke=False,
+                                    decode_strategy="speculative", spec_k=4)
     # paged KV cache, chunked prefill, continuous batching:
     engine = Engine.from_checkpoint("smollm-135m", smoke=False,
                                     cache_layout="paged", page_size=64,
@@ -23,10 +29,11 @@ Counterpart of ``repro/launch/engine.py``: seeded random init (or bridged
 reference params, or a training checkpoint's) -> §2 calibration ->
 optional FAT threshold fine-tune (fp teacher vs fake-quant student) ->
 int8 conversion -> one-shot or chunked prefill into an int8, packed-int4
-or bf16 KV cache, dense or paged -> greedy decode of a fixed batch
-(``generate_batch``) or continuous batching through the slot scheduler
-(``generate``).  Every quantized matmul, the prefill attention and the
-decode attention over a quantized cache run through ``kernels.ops``: the
+or bf16 KV cache, dense or paged -> greedy, sampled or speculative decode
+of a fixed batch (``generate_batch``) or continuous batching through the
+slot scheduler (``generate``).  Every quantized matmul, the prefill
+attention and the decode attention over a quantized cache (and the
+speculative verify window over one) run through ``kernels.ops``: the
 hand-written CUDA kernels when the engine's device is a GPU, their plain
 versions when it is the CPU.  The reference's other three serving modes
 are the engine's ``fp`` and ``kv_int8`` flags: bf16 weights (``fp``) are
@@ -35,12 +42,14 @@ over a bf16 cache (``kv_int8=False``) is plain attention, as in the
 reference.
 
 Serving runs as the reference's single-dispatch programs: on CUDA,
-``generate_batch`` captures its prefill and one greedy decode step as CUDA
-graphs (``launch/graphs.py``) before its timed windows, which only replay
-them (``GenerationResult.compile_s`` reports the capture); the scheduler
-captures its admission prefill and its decode block.  ``loop=True`` keeps
-the eager per-token driver for comparison; on the CPU the same step
-functions run eagerly.
+``generate_batch`` captures its prefill and one decode step (one verify
+window, speculative) as CUDA graphs (``launch/graphs.py``) before its
+timed windows, which only replay them (``GenerationResult.compile_s``
+reports the capture); the scheduler captures its admission prefill and its
+decode block.  Sampling draws from ``launch/prng.py``, the reference's
+threefry keys as device tensors, so a replay needs no host RNG.
+``loop=True`` keeps the eager per-token driver for comparison; on the CPU
+the same step functions run eagerly.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``:
 ``device=None`` means CUDA and raises when no CUDA device is present.
@@ -59,18 +68,15 @@ from repro_torch.bridge import tree_to
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core import api as A
+from repro_torch.launch import prng
 from repro_torch.launch import steps as ST
+from repro_torch.launch import strategies as SG
 from repro_torch.launch.graphs import Program
 from repro_torch.models import build_model
 
 # options of the reference Engine that are not ported, and the ROADMAP
 # Queue A item that ports each
 _NOT_PORTED = {
-    "temperature": "item 10 (sampling)",
-    "top_p": "item 10 (sampling)",
-    "seed": "item 10 (sampling)",
-    "spec_k": "item 13 (speculative decoding)",
-    "spec_ngram": "item 13 (speculative decoding)",
     "queue_cap": "item 14 (resilience)",
     "shed_policy": "item 14 (resilience)",
     "fault_plan": "item 14 (resilience)",
@@ -144,18 +150,25 @@ class GenerationResult:
 
 @dataclasses.dataclass
 class BatchProgram:
-    """The captured serving programs of one ``generate_batch`` shape, over
-    their static buffers: ``tokens`` (B, S padded to the chunk), ``tok``
-    and ``pos`` (B,) the pending token and its position, and the cache.
-    ``prefill()`` fills the cache from ``tokens``, sets ``tok`` to the
-    first token and ``pos`` to S, and returns the (B, Vp) logits that
-    picked it; each ``decode()`` advances ``tok`` and ``pos`` by a step."""
-    key: tuple                    # (B, S, cache length)
+    """The captured serving programs of one ``generate_batch`` shape and
+    decode scheme, over their static buffers: ``tokens`` (B, S padded to
+    the chunk), ``tok`` and ``pos`` (B,) the pending token and its
+    position, ``rng`` the (2,) PRNG key, and the cache.  ``prefill()``
+    fills the cache from ``tokens``, sets ``tok`` to the first token
+    (split from ``rng`` when sampling) and ``pos`` to S, and returns the
+    (B, Vp) logits that picked it; each ``decode()`` advances ``tok``,
+    ``pos`` and ``rng`` by a step.  Speculative: ``window`` holds the
+    windowed loop's carry (its ``tok`` and ``pos`` are the ones above,
+    its history seeded by the prefill), each ``decode()`` runs one verify
+    window and ``window.out`` gathers the tokens."""
+    key: tuple                    # (B, S, cache length, decode scheme)
     tokens: torch.Tensor
     tok: torch.Tensor
     pos: torch.Tensor
+    rng: torch.Tensor
     prefill: Program
     decode: Program
+    window: Optional[SG.WindowState] = None
 
     @property
     def capture_s(self) -> float:
@@ -172,18 +185,21 @@ class Engine:
     ``cache_layout`` is "dense", "paged" (a page pool of ``page_size``
     tokens a page, read through block tables) or "ring" (dense for a stack
     without windows); ``prefill_chunk`` set runs chunked ragged prefill in
-    chunks of that many tokens; ``decode_strategy`` None or "greedy" is
-    greedy decoding ("sample" and "speculative" are ROADMAP Queue A items
-    10 and 13)."""
+    chunks of that many tokens.  ``decode_strategy`` is "greedy",
+    "sample" (``temperature``, ``top_p``, keys from ``seed``) or
+    "speculative" (``spec_k`` drafts from ``spec_ngram``-gram prompt
+    lookup), None picking "sample" when ``temperature`` > 0, else greedy,
+    as the reference does."""
 
     def __init__(self, model, cfg, policy: A.QuantPolicy, serve_params,
                  qparams, *, device, mode: str = "int8",
                  finetune_log: dict | None = None,
                  cache_layout: str = "dense", page_size: int = 64,
                  prefill_chunk: Optional[int] = None,
-                 decode_strategy: Optional[str] = None):
+                 decode_strategy: Optional[str] = None,
+                 temperature: float = 0.0, top_p: float = 1.0,
+                 seed: int = 0, spec_k: int = 4, spec_ngram: int = 2):
         from repro_torch.cache import LAYOUTS
-        from repro_torch.launch import strategies as SG
 
         if cache_layout not in LAYOUTS:
             raise ValueError(f"cache_layout must be one of {LAYOUTS}, got "
@@ -191,9 +207,11 @@ class Engine:
         if mode not in ("none", "int8"):
             raise ValueError(f"serving mode must be 'none' or 'int8', got "
                              f"{mode!r}")
-        # validation through the single authority: an unported strategy
+        # validation through the single authority: a bad strategy or knob
         # raises at construction, not at the first generate
-        SG.make_strategy(decode_strategy, model, policy, mode=mode)
+        self._strategy = SG.make_strategy(
+            decode_strategy, model, policy, temperature=temperature,
+            top_p=top_p, spec_k=spec_k, spec_ngram=spec_ngram, mode=mode)
         self.model, self.cfg, self.policy = model, cfg, policy
         self.mode = mode
         self.serve_params, self.qparams = serve_params, qparams
@@ -201,6 +219,8 @@ class Engine:
         self.cache_layout, self.page_size = cache_layout, page_size
         self.prefill_chunk = prefill_chunk
         self.decode_strategy = decode_strategy
+        self.temperature, self.top_p, self.seed = temperature, top_p, seed
+        self.spec_k, self.spec_ngram = spec_k, spec_ngram
         # per-step losses and wall times of the threshold fine-tune, if
         # this engine ran one
         self.finetune_log = finetune_log or {}
@@ -221,6 +241,8 @@ class Engine:
                         cache_layout: str = "dense", page_size: int = 64,
                         prefill_chunk: Optional[int] = None,
                         decode_strategy: Optional[str] = None,
+                        temperature: float = 0.0, top_p: float = 1.0,
+                        seed: int = 0, spec_k: int = 4, spec_ngram: int = 2,
                         **not_ported) -> "Engine":
         """Build a ready-to-serve Engine.
 
@@ -246,9 +268,10 @@ class Engine:
         for that many epochs over the calibration batches before freezing
         them (paper §3; what makes the 7-level int4 grid usable when
         max-abs calibration over-shoots).  ``cache_layout``,
-        ``page_size``, ``prefill_chunk`` and ``decode_strategy`` go to the
-        Engine (see the class).  ``cfg`` overrides the registry lookup
-        (``arch``/``smoke`` are then ignored)."""
+        ``page_size``, ``prefill_chunk``, ``decode_strategy`` and its knobs
+        (``temperature``, ``top_p``, ``seed``, ``spec_k``, ``spec_ngram``)
+        go to the Engine (see the class).  ``cfg`` overrides the registry
+        lookup (``arch``/``smoke`` are then ignored)."""
         for name in not_ported:
             if name not in _NOT_PORTED:
                 raise TypeError(f"unexpected argument {name!r}")
@@ -302,7 +325,9 @@ class Engine:
                    mode="none" if fp else "int8",
                    finetune_log=log, cache_layout=cache_layout,
                    page_size=page_size, prefill_chunk=prefill_chunk,
-                   decode_strategy=decode_strategy)
+                   decode_strategy=decode_strategy, temperature=temperature,
+                   top_p=top_p, seed=seed, spec_k=spec_k,
+                   spec_ngram=spec_ngram)
 
     def _init_kw(self) -> dict:
         """The constructor's keyword arguments of this engine, other than
@@ -310,7 +335,10 @@ class Engine:
         return dict(mode=self.mode, finetune_log=self.finetune_log,
                     cache_layout=self.cache_layout, page_size=self.page_size,
                     prefill_chunk=self.prefill_chunk,
-                    decode_strategy=self.decode_strategy)
+                    decode_strategy=self.decode_strategy,
+                    temperature=self.temperature, top_p=self.top_p,
+                    seed=self.seed, spec_k=self.spec_k,
+                    spec_ngram=self.spec_ngram)
 
     def to(self, device) -> "Engine":
         """The same engine (same serving weights and thresholds) on another
@@ -366,35 +394,47 @@ class Engine:
     def generate_batch(self, batch: dict, gen: int, *,
                        loop: bool = False) -> GenerationResult:
         """Serve one fixed batch: prefill the prompts (in chunks of
-        ``prefill_chunk`` tokens when set), then decode ``gen`` tokens
-        greedily (the first comes from the prefill logits).
+        ``prefill_chunk`` tokens when set), then decode ``gen`` tokens (the
+        first from the prefill logits) with the engine's strategy: greedy;
+        sampled, the key ``PRNGKey(seed)`` split once for the first token
+        and once a step after it, as in the reference; or speculative, in
+        gen - 1 verify windows that reserve ``spec_k`` positions of cache
+        headroom (greedy's tokens).
 
         The default is the reference's single-dispatch serving: the prefill
-        and one greedy decode step run as programs (``BatchProgram``), on
-        CUDA captured as graphs before the timed windows (``compile_s``)
-        and replayed inside them, the tokens gathered on the device.  The
-        engine keeps the programs of its latest (B, S, cache length), so a
-        second call of that shape only replays.  ``loop=True`` keeps the
-        eager per-token driver for comparison: the same tokens and logits,
-        bit for bit."""
+        and one decode step (one verify window) run as programs
+        (``BatchProgram``), on CUDA captured as graphs before the timed
+        windows (``compile_s``) and replayed inside them, the tokens
+        gathered on the device.  The engine keeps the programs of its
+        latest (B, S, cache length, scheme), so a second call of that shape
+        only replays.  ``loop=True`` keeps the eager per-token driver for
+        comparison (the same tokens and logits, bit for bit); it has no
+        speculative variant, as in the reference."""
         if gen < 1:
             raise ValueError(f"gen must be >= 1, got {gen}")
+        speculative = self._strategy.emit_width > 1
+        if speculative and loop:
+            raise ValueError("the per-token loop has no speculative variant "
+                             "(drop loop=True)")
         tokens = torch.as_tensor(np.asarray(batch["tokens"]),
                                  device=self.device)
         if tokens.ndim != 2 or tokens.shape[1] < 1:
             raise ValueError(f"tokens must be (B, S) with S >= 1, got "
                              f"{tuple(tokens.shape)}")
         b, s = tokens.shape
-        cache_len = self._cache_len(s, gen)
+        # a verify window appends spec_k + 1 entries before its accept
+        cache_len = self._cache_len(s, gen + (self.spec_k if speculative
+                                              else 0))
         if loop or self.eager_reason() is not None:
             return self._generate_loop(tokens, gen, cache_len)
         compile_s = 0.0
-        key = (b, s, cache_len)
+        key = (b, s, cache_len, self._scheme(gen))
         if self._program is None or self._program.key != key:
             self._program = None        # free the old programs first
             self._program = self._batch_program(key)
             compile_s = self._program.capture_s
         prog = self._program
+        prog.rng.copy_(prng.PRNGKey(self.seed))
         self._sync()
         t0 = time.perf_counter()
         prog.tokens[:, :s].copy_(tokens)
@@ -406,27 +446,68 @@ class Engine:
         t0 = time.perf_counter()
         for i in range(1, gen):
             prog.decode()
-            out[:, i].copy_(prog.tok)
+            if not speculative:
+                out[:, i].copy_(prog.tok)
+        if speculative:
+            out.copy_(prog.window.out)
         self._sync()
         decode_s = time.perf_counter() - t0
         return GenerationResult(tokens=out, prefill_logits=first,
                                 prefill_s=prefill_s, decode_s=decode_s,
                                 compile_s=compile_s)
 
+    def _scheme(self, gen: int) -> tuple:
+        """What the decode programs bake in besides the shapes: the
+        strategy and its knobs (and, speculative, the token budget the
+        window loop fills)."""
+        st = self._strategy
+        if st.emit_width > 1:
+            return ("speculative", st.draft_k, st.ngram, gen)
+        if isinstance(st, SG.SamplingStrategy):
+            return ("sample", st.temperature, st.top_p)
+        return ("greedy",)
+
+    def _first_token(self, logits, rng):
+        """The first token from the prefill's last logits (B, Vp): argmax,
+        or sampled with the second half of one split of ``rng``, which
+        advances to the first half in place (the reference's
+        ``key, sub = split(key)``)."""
+        st = self._strategy
+        if not isinstance(st, SG.SamplingStrategy):
+            return ST.greedy(logits)
+        ks = prng.split(rng)
+        rng.copy_(ks[0])
+        return SG.sample_tokens(logits, ks[1], temperature=st.temperature,
+                                top_p=st.top_p)
+
     def _batch_program(self, key) -> BatchProgram:
         """Static buffers, a cache and the two programs for (B, S, cache
-        length) ``key``; on CUDA both are warmed up and captured here."""
-        b, s, cache_len = key
+        length) ``key[:3]`` under the engine's strategy; on CUDA both are
+        warmed up and captured here."""
+        b, s, cache_len = key[:3]
         dev, chunk = self.device, self.prefill_chunk
         s_pad = -(-s // chunk) * chunk if chunk else s
         tokens = torch.zeros((b, s_pad), dtype=torch.long, device=dev)
         lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
         tok = torch.zeros((b,), dtype=torch.long, device=dev)
         pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+        rng = prng.PRNGKey(self.seed, dev)
         cache0 = self.init_cache(b, cache_len)
         prefill = ST.make_prefill_step(self.model, self.policy,
                                        prefill_chunk=chunk, mode=self.mode)
-        step = ST.make_decode_step(self.model, self.policy, mode=self.mode)
+        window = None
+        if self._strategy.emit_width > 1:
+            gen = key[3][-1]
+            window = SG.WindowState(
+                tok=tok, pos=pos,
+                n_out=torch.zeros((b,), dtype=torch.int32, device=dev),
+                out=torch.zeros((b, gen), dtype=torch.long, device=dev),
+                key=rng,
+                hist=torch.zeros((b, cache_len), dtype=torch.long,
+                                 device=dev))
+            step = SG.make_window_step(self._strategy, gen)
+        else:
+            step = SG.make_token_step(self._strategy)
         # the prefill's cache tree (its scales are the prefill's outputs),
         # which the decode step reads
         state = {}
@@ -437,13 +518,21 @@ class Engine:
                 self.serve_params, self.qparams, {"tokens": tokens}, cache0,
                 *args)
             first = logits[:, -1, :]
-            tok.copy_(ST.greedy(first))
-            pos.fill_(s)
+            tok0 = self._first_token(first, rng)
+            if window is None:
+                tok.copy_(tok0)
+                pos.fill_(s)
+            else:
+                window.start(tok0, s)
+                SG.seed_hist(window.hist, tokens[:, :s], tok0)
             return first
 
         def run_decode():
+            if window is not None:
+                return step(self.serve_params, self.qparams, window,
+                            state["cache"])
             return step(self.serve_params, self.qparams, tok, state["cache"],
-                        pos)
+                        pos, rng)
 
         prefill_prog = Program(run_prefill, dev)
         if prefill_prog.graph is not None:
@@ -451,11 +540,12 @@ class Engine:
             # decode step's warm-up reads them
             prefill_prog()
         return BatchProgram(key=key, tokens=tokens, tok=tok, pos=pos,
-                            prefill=prefill_prog,
-                            decode=Program(run_decode, dev))
+                            rng=rng, prefill=prefill_prog,
+                            decode=Program(run_decode, dev), window=window)
 
     def _generate_loop(self, tokens, gen: int, cache_len: int):
-        """The eager per-token driver (``generate_batch(loop=True)``)."""
+        """The eager per-token driver (``generate_batch(loop=True)``): the
+        same key schedule as the programs."""
         b, s = tokens.shape
         cache = self.init_cache(b, cache_len)
         prefill = ST.make_prefill_step(self.model, self.policy,
@@ -468,18 +558,19 @@ class Engine:
             toks, lengths = ST.pad_for_chunked_prefill(tokens,
                                                        self.prefill_chunk)
             args = ({"tokens": toks}, cache, lengths)
-        decode_loop = ST.make_decode_loop(self.model, self.policy,
-                                          n_steps=gen, mode=self.mode)
+        decode_loop = SG.make_strategy_decode_loop(
+            self.model, self.policy, self._strategy, n_steps=gen)
+        rng = prng.PRNGKey(self.seed, self.device)
         self._sync()
         t0 = time.perf_counter()
         logits, cache = prefill(self.serve_params, self.qparams, *args)
         first = logits[:, -1, :]
-        tok0 = ST.greedy(first)
+        tok0 = self._first_token(first, rng)
         self._sync()
         prefill_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         out, cache = decode_loop(self.serve_params, self.qparams, tok0, cache,
-                                 s)
+                                 s, rng)
         self._sync()
         decode_s = time.perf_counter() - t0
         return GenerationResult(tokens=out, prefill_logits=first,
@@ -505,7 +596,8 @@ class Engine:
 
         key = (max_slots, prompt_cap, gen_cap, block_steps, eos_id,
                prefix_pages, self.cache_layout, self.page_size,
-               self.prefill_chunk, self.decode_strategy)
+               self.prefill_chunk, self.decode_strategy, self.temperature,
+               self.top_p, self.seed, self.spec_k, self.spec_ngram)
         if self._scheduler is None or self._scheduler_key != key:
             self._scheduler = None      # free the old programs first
             self._scheduler = SlotScheduler(
@@ -517,7 +609,9 @@ class Engine:
                 prefill_chunk=self.prefill_chunk, block_steps=block_steps,
                 cache_layout=self.cache_layout, page_size=self.page_size,
                 prefix_pages=prefix_pages, eos_id=eos_id,
-                strategy=self.decode_strategy)
+                strategy=self.decode_strategy, temperature=self.temperature,
+                top_p=self.top_p, seed=self.seed, spec_k=self.spec_k,
+                spec_ngram=self.spec_ngram)
             self._scheduler_key = key
         return self._scheduler
 

@@ -28,6 +28,16 @@ page is copied into the slot's private page, and the first token comes
 from the stored logits.  ``prefix_stats()`` and ``call_counts()`` expose
 the hits and the prefills that ran.
 
+Decoding follows the strategy (``launch/strategies.py``): greedy, sampled
+or speculative.  Sampled requests draw from per-request keys,
+``fold_in(PRNGKey(seed), rid)`` split into the first token's key and the
+slot's carried key (which advances only on the request's own steps), so a
+request's tokens depend on (seed, rid, prompt) and not on its arrival order
+or slot, as in the reference.  The per-slot keys and the speculative
+history (absolute position -> token, seeded with the prompt and the first
+token at admission) live on the device and go through the captured block;
+``spec_stats()`` counts the verify windows and their tokens.
+
 Every request retires with a status: ``ok`` (``finished_by`` eos, budget
 or capacity), ``rejected`` (failed validation, never touched the device)
 or ``failed`` (non-finite prefill or decode logits; only that slot stops).
@@ -59,6 +69,7 @@ from repro_torch.cache import (PrefixEntry, PrefixStore, copy_pages,
                                layer_caches, set_table_row,
                                splice_dense_into_pages)
 from repro_torch.core import api as A
+from repro_torch.launch import prng
 from repro_torch.launch import steps as ST
 from repro_torch.launch import strategies as SG
 from repro_torch.launch.graphs import Program
@@ -66,11 +77,6 @@ from repro_torch.launch.graphs import Program
 # knobs of the reference scheduler that are not ported, and the ROADMAP
 # Queue A item that ports each
 _NOT_PORTED = {
-    "temperature": "item 10 (sampling)",
-    "top_p": "item 10 (sampling)",
-    "seed": "item 10 (sampling)",
-    "spec_k": "item 13 (speculative decoding)",
-    "spec_ngram": "item 13 (speculative decoding)",
     "queue_cap": "item 14 (resilience)",
     "shed_policy": "item 14 (resilience)",
     "fault_plan": "item 14 (resilience)",
@@ -146,7 +152,10 @@ class SlotScheduler:
     (the shared region, default room for two full-capacity prompts) size
     the paged pool.  ``eos_id`` >= 0 stops a slot at that token.
     ``strategy`` is a ``strategies`` name, a ``DecodeStrategy`` or None
-    (greedy).  ``mode`` is the serving mode ("int8" weights, or "none":
+    (sampled when ``temperature`` > 0, else greedy); ``temperature``,
+    ``top_p`` and ``seed`` drive sampling, ``spec_k`` and ``spec_ngram``
+    speculative decoding (a slot then reserves ``spec_k`` positions of
+    headroom).  ``mode`` is the serving mode ("int8" weights, or "none":
     the full-precision weights); the caches hold int8 (or packed int4) K/V
     when ``policy.kv_int8``, else ``cfg.dtype`` K/V.  The caches live on
     ``device`` (default: the weights').  ``capture`` False runs the
@@ -160,7 +169,9 @@ class SlotScheduler:
                  prefill_chunk: int | None = None, block_steps: int = 8,
                  cache_layout: str = "dense", page_size: int = 64,
                  prefix_pages: int | None = None, eos_id: int = -1,
-                 strategy=None, **not_ported):
+                 temperature: float = 0.0, top_p: float = 1.0,
+                 seed: int = 0, strategy=None, spec_k: int = 4,
+                 spec_ngram: int = 2, **not_ported):
         for name in not_ported:
             if name not in _NOT_PORTED:
                 raise TypeError(f"unexpected argument {name!r}")
@@ -190,9 +201,15 @@ class SlotScheduler:
         self.eos_id = eos_id
         self.cache_layout = cache_layout
         self.page_size = page_size
+        self.temperature, self.top_p = temperature, top_p
         if not isinstance(strategy, SG.DecodeStrategy):
-            strategy = SG.make_strategy(strategy, model, policy, mode=mode)
+            strategy = SG.make_strategy(
+                strategy, model, policy, temperature=temperature,
+                top_p=top_p, spec_k=spec_k, spec_ngram=spec_ngram, mode=mode)
         self._strategy = strategy
+        self._emit_w = strategy.emit_width
+        # per-request sampling keys fold the rid into the seed's key
+        self._base_key = prng.PRNGKey(seed)
         # the decode kernel's 128-position tiles, then whole pages, so the
         # dense batch-1 prefill reshapes into the slot's pages
         cache_len = self.prompt_cap + gen_cap + (strategy.emit_width - 1)
@@ -251,6 +268,17 @@ class SlotScheduler:
         self._tok = torch.zeros((max_slots,), dtype=torch.long, device=dev)
         self._pos = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
         self._active = torch.zeros((max_slots,), dtype=torch.bool, device=dev)
+        # the slots' carried PRNG keys and the strategy's history (absolute
+        # position -> token; width 0 for a stateless strategy), on the
+        # device: the block reads and advances them in place
+        self._keys = torch.zeros((max_slots, 2), dtype=torch.long,
+                                 device=dev)
+        hist_w = cache_len if strategy.stateful else 0
+        self._hist = torch.zeros((max_slots, hist_w), dtype=torch.long,
+                                 device=dev)
+        # speculative observability: emitted tokens per verify window
+        self._spec_emitted = 0
+        self._spec_windows = 0
         self._capture = capture
         self._admission = self._block = None    # built at the first run
 
@@ -271,6 +299,22 @@ class SlotScheduler:
         (registrations skipped for want of shared pages)."""
         return dict(self._health)
 
+    def spec_stats(self) -> dict:
+        """Speculative-decoding counters (empty for one-token strategies).
+        ``acceptance_rate`` is accepted drafts per drafted token: a verify
+        window emits 1 + accepted tokens, so the rate is (emitted / windows
+        - 1) / spec_k, in [0, 1]."""
+        if self._emit_w == 1:
+            return {}
+        k = self._emit_w - 1
+        wins = max(self._spec_windows, 1)
+        return {"emitted_tokens": int(self._spec_emitted),
+                "verify_windows": int(self._spec_windows),
+                "draft_k": k,
+                "tokens_per_window": self._spec_emitted / wins,
+                "acceptance_rate": max(self._spec_emitted / wins - 1.0,
+                                       0.0) / k}
+
     def stage_seconds(self) -> dict:
         """Cumulative wall seconds in admissions and in decode blocks; each
         ends when its result reaches the host, so each includes the
@@ -281,17 +325,20 @@ class SlotScheduler:
     def _programs(self):
         """Build (on CUDA: warm up and capture) the admission prefill and
         the decode block, once per scheduler.  The block is warmed up and
-        captured with every slot inactive, which leaves the cache as it
-        was; the admission's warm-up writes only the template."""
+        captured with every slot inactive, which leaves the cache, the keys
+        and the history as they were; the admission's warm-up writes only
+        the template."""
         def admission():
             return self._prefill_fn(
                 self.serve_params, self.qparams, {"tokens": self._adm_toks},
                 self._slot_cache0, self._adm_len)
 
         def block():
-            toks, emitted, _, pos, active, _, bad = self._decode_fn(
+            toks, emitted, _, pos, active, keys, hist, bad = self._decode_fn(
                 self.serve_params, self.qparams, self._tok, self._cache,
-                self._pos, self._active)
+                self._pos, self._active, self._keys, self._hist)
+            self._keys.copy_(keys)
+            self._hist.copy_(hist)
             return toks, emitted, pos, active, bad
 
         self._active.zero_()
@@ -349,13 +396,14 @@ class SlotScheduler:
                                reason=err)
                         continue
                     try:
-                        t0 = self._admit(slot, req)
+                        t0, key = self._admit(slot, req)
                     except FloatingPointError as e:
                         # non-finite prefill logits fail THIS request; the
                         # run keeps serving
                         finish(req, [], "failed", status="failed",
                                reason=f"{type(e).__name__}: {e}")
                         continue
+                    self._seed_slot(slot, req, t0, key)
                     rs.slot_req[slot] = req
                     rs.slot_out[slot] = [t0]
                     rs.pos[slot] = len(req.tokens)
@@ -389,6 +437,11 @@ class SlotScheduler:
             pos_new, active_new = pos_d.cpu().numpy(), active_d.cpu().numpy()
             bad = bad_d.cpu().numpy()
             self._seconds["decode"] += time.perf_counter() - t0
+            if self._emit_w > 1:
+                # a window with any emission ran a live verify pass
+                win = emitted.reshape(B, self.block_steps, self._emit_w)
+                self._spec_windows += int(win.any(-1).sum())
+                self._spec_emitted += int(emitted.sum())
 
             # -- collect emissions, retire finished slots ------------------
             for slot in range(B):
@@ -396,6 +449,8 @@ class SlotScheduler:
                 if req is None or not rs.active[slot]:
                     continue
                 out = rs.slot_out[slot]
+                # emission lanes are ragged within a speculative window:
+                # skip the gaps
                 for i in range(toks.shape[1]):
                     if len(out) >= req.max_gen:
                         break
@@ -437,12 +492,33 @@ class SlotScheduler:
                     "admission)")
         return None
 
-    @staticmethod
-    def _first_token(logits) -> int:
-        return int(torch.argmax(logits[0, -1]))
+    def _request_keys(self, rid: int):
+        """A request's (first-token key, carried slot key): one split of
+        ``fold_in(PRNGKey(seed), rid)``, so its sample stream does not
+        depend on arrival order or slot placement."""
+        ks = prng.split(prng.fold_in(self._base_key, rid))
+        return ks[0].to(self.device), ks[1]
 
-    def _admit(self, slot: int, req: Request) -> int:
-        """Admit ``req`` into ``slot``; returns its first generated token.
+    def _first_token(self, logits, key) -> int:
+        """The first token from a prompt's last logits (1, 1, Vp): argmax,
+        or sampled with the request's first-token key."""
+        return int(SG.sample_tokens(logits[:, -1], key,
+                                    temperature=self.temperature,
+                                    top_p=self.top_p)[0])
+
+    def _seed_slot(self, slot: int, req: Request, t0: int, key):
+        """The admitted request's device state beside the cache: its carried
+        key and (speculative) its history, the prompt and the first token
+        at their positions."""
+        self._keys[slot].copy_(key)
+        if self._hist.shape[1]:
+            seq = np.concatenate([np.asarray(req.tokens, np.int64), [t0]])
+            self._hist[slot].zero_()
+            self._hist[slot, :len(seq)].copy_(torch.from_numpy(seq))
+
+    def _admit(self, slot: int, req: Request):
+        """Admit ``req`` into ``slot``; returns (its first generated token,
+        its carried key).
         Dense: chunked-prefill the prompt into the batch-1 template and
         splice it into the slot's row.  Paged: a prefix-store hit attaches
         the shared pages (no prefill); a miss prefills, scatters into the
@@ -450,12 +526,13 @@ class SlotScheduler:
         FloatingPointError on non-finite prefill logits, before anything
         reaches the resident cache."""
         t_start = time.perf_counter()
+        k_t0, k_carry = self._request_keys(req.rid)
         n = len(req.tokens)
         key = tuple(int(t) for t in np.asarray(req.tokens))
         entry = (self._prefix.lookup(key, slot)
                  if self._prefix is not None else None)
         if entry is not None:
-            t0 = self._attach_prefix(slot, entry)
+            t0 = self._attach_prefix(slot, entry, k_t0)
         else:
             self._adm_toks.zero_()
             self._adm_toks[0, :n].copy_(torch.from_numpy(
@@ -478,9 +555,9 @@ class SlotScheduler:
                     splice_dense_into_pages(big, small, row)
                 self._set_row(slot, row)
                 self._register_prefix(key, n, row, logits.clone())
-            t0 = self._first_token(logits)
+            t0 = self._first_token(logits, k_t0)
         self._seconds["admit"] += time.perf_counter() - t_start
-        return t0
+        return t0, k_carry
 
     # -- paged plumbing ----------------------------------------------------
     def _set_row(self, slot: int, row):
@@ -519,7 +596,7 @@ class SlotScheduler:
         self._prefix.register(key, PrefixEntry(pages=pages, tail_page=tail,
                                                length=n, logits=logits))
 
-    def _attach_prefix(self, slot: int, entry: PrefixEntry) -> int:
+    def _attach_prefix(self, slot: int, entry: PrefixEntry, k_t0) -> int:
         """Full-prompt hit: point the slot's table row at the shared pages;
         the partial tail page (decode's first append target) is copied into
         the slot's private page, so shared pages stay immutable."""
@@ -530,4 +607,4 @@ class SlotScheduler:
         if entry.tail_page is not None:
             self._copy_pages([(int(entry.tail_page),
                                int(self._private_rows[slot][n_full]))])
-        return self._first_token(entry.logits)
+        return self._first_token(entry.logits, k_t0)

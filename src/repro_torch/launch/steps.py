@@ -1,20 +1,20 @@
 """Step functions: §2 calibration, the FAT threshold fine-tune (§3), the
-pretrain step, one-shot and chunked ragged prefill, the greedy
-single-stream decode loop and the continuous-batching decode block.
+pretrain step, one-shot and chunked ragged prefill, the single-stream
+decode loop and the continuous-batching decode block (greedy or sampled).
 
 Counterparts of ``repro/launch/steps.py`` (``make_calibrate_step``,
 ``make_fat_train_step``, ``finetune_thresholds``, ``make_pretrain_step``,
 ``make_prefill_step``,
-``pad_for_chunked_prefill``, ``make_slot_decode_loop``) and of the greedy
-single-stream decode loop of ``repro/launch/strategies.py``.  The
+``pad_for_chunked_prefill``, ``make_decode_loop``,
+``make_slot_decode_loop``).  The
 reference's ``lax.scan`` loops are Python loops here.  The serving steps
-(the prefills, ``make_decode_step``, the slot block) are capturable: they
+(the prefills, the decode steps, the slot block) are capturable: they
 read nothing back to the host, make no tensor from host data, and their
 loops have trip counts and offsets fixed by the shapes, so
 ``launch/graphs.py`` captures each whole (the chunked prefill is one
 graph, as the reference's scan over chunks is one program).  ``argmax``
-takes the first maximum, like ``jnp.argmax``.  Sampling and speculative
-decoding are ROADMAP Queue A items 10 and 13.
+takes the first maximum, like ``jnp.argmax``.  The decode strategies
+(greedy, sampled, speculative) are ``launch/strategies.py``.
 """
 from __future__ import annotations
 
@@ -271,63 +271,48 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1)
 
 
-def make_decode_step(model, policy: A.QuantPolicy, mode: str = "int8"):
-    """One greedy decode step over static buffers, the body that
-    ``Engine.generate_batch`` captures: ``(params, qparams, tok (B,) int64,
-    cache, pos (B,) int32) -> logits (B, 1, Vp)``.  Decodes ``tok`` at the
-    positions ``pos`` (the per-slot branch of the decode: positions read on
-    the device), then writes its argmax into ``tok`` and advances ``pos``
-    by one, in place, so replaying the step walks the generation.  The
-    same tokens and logits as ``make_decode_loop``'s steps, bit for bit."""
-    def decode_step(serve_params, qparams, tok, cache, pos):
-        ctx = A.make_ctx(mode, policy, qparams)
-        logits, _ = model.decode_step(serve_params, tok[:, None], cache, pos,
-                                      ctx)
-        tok.copy_(greedy(logits[:, -1, :]))
-        pos.add_(1)
-        return logits
-
-    return decode_step
-
-
 def make_decode_loop(model, policy: A.QuantPolicy, n_steps: int = 16,
-                     mode: str = "int8"):
-    """Greedy whole-generation decode in serving ``mode`` ("int8" or
-    "none"): (params, qparams, tok0 (B,), cache, pos0) -> (tokens (B,
-    n_steps), cache) with tokens[:, 0] == tok0 and n_steps - 1 decode
-    steps, each at the host int position ``pos0 + i`` (the eager
-    ``loop=True`` driver)."""
-    def decode_loop(serve_params, qparams, tok0, cache, pos0: int):
-        ctx = A.make_ctx(mode, policy, qparams)
-        toks = [tok0]
-        for i in range(n_steps - 1):
-            logits, cache = model.decode_step(serve_params, toks[-1][:, None],
-                                              cache, pos0 + i, ctx)
-            toks.append(greedy(logits[:, -1, :]))
-        return torch.stack(toks, dim=1), cache
+                     mode: str = "int8", temperature: float = 0.0,
+                     top_p: float = 1.0):
+    """Whole-generation decode in serving ``mode`` ("int8" or "none"),
+    greedy or (``temperature`` > 0) sampled: ``(params, qparams, tok0 (B,),
+    cache, pos0, key=None) -> (tokens (B, n_steps), cache)`` with
+    tokens[:, 0] == tok0 and n_steps - 1 decode steps, each at the host int
+    position ``pos0 + i`` (the eager ``loop=True`` driver), a sampled step
+    splitting the (2,) key once.  A wrapper over
+    ``strategies.make_strategy_decode_loop``, as in the reference."""
+    from repro_torch.launch import strategies as SG
 
-    return decode_loop
+    strategy = SG.make_strategy(None, model, policy, temperature=temperature,
+                                top_p=top_p, mode=mode)
+    return SG.make_strategy_decode_loop(model, policy, strategy,
+                                        n_steps=n_steps)
 
 
 def make_slot_decode_loop(model, policy: A.QuantPolicy, n_steps: int = 8,
-                          eos_id: int = -1, mode: str = "int8"):
-    """One continuous-batching decode block of ``n_steps`` greedy steps over
-    a slot batch where every slot sits at its own position: ``(params,
-    qparams, tok0 (B,), cache, pos0 (B,), active0 (B,)) -> (toks (B,
-    n_steps), emitted (B, n_steps) bool, cache, pos, active)``.
+                          eos_id: int = -1, mode: str = "int8",
+                          temperature: float = 0.0, top_p: float = 1.0):
+    """One continuous-batching decode block of ``n_steps`` one-token steps
+    (greedy, or sampled at ``temperature`` > 0) over a slot batch where
+    every slot sits at its own position: ``(params, qparams, tok0 (B,),
+    cache, pos0 (B,), active0 (B,), key=None) -> (toks (B, n_steps),
+    emitted (B, n_steps) bool, cache, pos, active, key)``.
     ``emitted[b, i]`` marks real tokens (an EOS itself is emitted, nothing
-    after it); ``eos_id < 0`` disables EOS detection.  A wrapper over
-    ``strategies.make_strategy_slot_loop`` with the greedy strategy in
-    serving ``mode``."""
+    after it); ``eos_id < 0`` disables EOS detection.  ``key`` is one (2,)
+    key or (B, 2) per-slot keys.  A wrapper over
+    ``strategies.make_strategy_slot_loop``, as in the reference."""
     from repro_torch.launch import strategies as SG
 
     inner = SG.make_strategy_slot_loop(
-        model, policy, SG.make_strategy("greedy", model, policy, mode=mode),
+        model, policy, SG.make_strategy(None, model, policy,
+                                        temperature=temperature, top_p=top_p,
+                                        mode=mode),
         n_steps=n_steps, eos_id=eos_id)
 
-    def slot_decode_loop(serve_params, qparams, tok0, cache, pos0, active0):
-        toks, emitted, cache, pos, active, _, _ = inner(
-            serve_params, qparams, tok0, cache, pos0, active0)
-        return toks, emitted, cache, pos, active
+    def slot_decode_loop(serve_params, qparams, tok0, cache, pos0, active0,
+                         key=None):
+        toks, emitted, cache, pos, active, key, _, _ = inner(
+            serve_params, qparams, tok0, cache, pos0, active0, key)
+        return toks, emitted, cache, pos, active, key
 
     return slot_decode_loop

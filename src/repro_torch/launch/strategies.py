@@ -2,33 +2,64 @@
 
 Counterpart of ``repro/launch/strategies.py``.  A strategy supplies four
 hooks over the decode carry (pending token, cache, per-slot position,
-active mask, history):
+active mask, PRNG key, history):
 
   * ``propose(tok, pos, hist)`` -> draft tokens (B, W - 1);
   * ``verify(params, qparams, tok, drafts, cache, pos, active)`` ->
     (logits (B, W, V), cache);
-  * ``accept(tok, drafts, logits, active)`` -> (next pending token (B,),
-    toks (B, W), emitted (B, W) bool);
+  * ``accept(tok, drafts, logits, active, key)`` -> (next pending token
+    (B,), toks (B, W), emitted (B, W) bool, key);
   * ``update_hist(hist, pos, toks, emitted)`` -> hist,
 
 where W = ``emit_width`` is the number of tokens a step can emit, and the
-loop (``make_strategy_slot_loop``) owns the capacity guard, EOS freezing,
-the non-finite-logits freeze and position accounting, once for every
-strategy.  The port has the greedy strategy; sampling is ROADMAP Queue A
-item 10 and speculative decoding item 13.  PyTorch runs eagerly, so the
-reference's scanned block is a Python loop whose carry stays on the device.
+loops own the capacity guard, EOS freezing, the non-finite-logits freeze
+and position accounting, once for every strategy.  Three strategies ship,
+as in the reference: greedy, sampled (temperature / top-p, with the
+reference's PRNG key schedule through ``launch/prng.py``) and prompt-lookup
+speculative decoding (drafts from an n-gram match in the token history,
+verified as one window, accepted by the longest matching prefix: the
+tokens are greedy's).  PyTorch runs eagerly, so the reference's scans are
+Python loops whose carry stays on the device; each step reads nothing back
+to the host, so ``launch/graphs.py`` captures it.
 """
 from __future__ import annotations
 
 import abc
+import dataclasses
 
 import torch
 
 from repro_torch.cache import layer_caches
 from repro_torch.core import api as A
+from repro_torch.launch import prng
 from repro_torch.launch.steps import attn_cache_len
 
 STRATEGIES = ("greedy", "sample", "speculative")
+
+
+def sample_tokens(logits, key, *, temperature: float = 1.0,
+                  top_p: float = 1.0):
+    """Temperature / nucleus (top-p) sampling over (B, V) logits; (B,)
+    int64.  ``temperature <= 0`` is greedy argmax.  ``top_p < 1`` keeps the
+    smallest prefix of probability-sorted tokens whose mass reaches top_p
+    (always at least the argmax).  ``key`` is one (2,) key for the batch
+    (noise drawn over (B, V)) or (B, 2) keys, one a row (each row's noise
+    drawn over (V,), as the reference's vmapped per-slot draw)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    lg = logits.float() / max(temperature, 1e-6)
+    if top_p < 1.0:
+        sorted_l = torch.sort(lg, dim=-1, descending=True).values
+        e = torch.exp(sorted_l - sorted_l[..., :1])
+        probs = e / torch.sum(e, dim=-1, keepdim=True)
+        # exclusive cumulative mass: a token stays while the mass BEFORE it
+        # is < top_p, so the argmax always survives
+        cum = torch.cumsum(probs, dim=-1) - probs
+        keep = cum < top_p
+        thresh = torch.amin(torch.where(keep, sorted_l, torch.inf), dim=-1,
+                            keepdim=True)
+        lg = torch.where(lg >= thresh, lg, -torch.inf)
+    return prng.categorical(key, lg)
 
 
 class DecodeStrategy(abc.ABC):
@@ -49,14 +80,22 @@ class DecodeStrategy(abc.ABC):
     @abc.abstractmethod
     def verify(self, serve_params, qparams, tok, drafts, cache, pos, active):
         """Run the model over the pending token (and drafts): (logits (B,
-        emit_width, V), cache); ``active`` is the (B,) slot mask."""
+        emit_width, V), cache); ``active`` is the (B,) slot mask or None."""
 
     @abc.abstractmethod
-    def accept(self, tok, drafts, logits, active):
-        """(next pending token (B,), toks (B, W), emitted (B, W) bool)."""
+    def accept(self, tok, drafts, logits, active, key):
+        """(next pending token (B,), toks (B, W), emitted (B, W) bool,
+        key)."""
 
     def update_hist(self, hist, pos, toks, emitted):
         return hist
+
+
+def _emitted(nxt, active):
+    if active is None:
+        return torch.ones(nxt.shape + (1,), dtype=torch.bool,
+                          device=nxt.device)
+    return active[:, None]
 
 
 class GreedyStrategy(DecodeStrategy):
@@ -68,17 +107,140 @@ class GreedyStrategy(DecodeStrategy):
         return self.model.decode_step(serve_params, tok[:, None], cache, pos,
                                       ctx, slot_mask=active)
 
-    def accept(self, tok, drafts, logits, active):
+    def accept(self, tok, drafts, logits, active, key):
         nxt = torch.argmax(logits[:, -1, :], dim=-1)
-        return nxt, nxt[:, None], active[:, None]
+        return nxt, nxt[:, None], _emitted(nxt, active), key
+
+
+class SamplingStrategy(GreedyStrategy):
+    """Temperature / nucleus sampling, with the reference's two key
+    schedules, picked by the carried key's shape:
+
+      * one (2,) key, split once a step and shared by every slot (the
+        single-stream loops);
+      * (B, 2) keys, one a slot: each slot splits its own key, and a frozen
+        slot keeps its key, so a request's stream depends only on its
+        admission key and the tokens it has emitted (the scheduler)."""
+
+    def __init__(self, model, policy, mode: str = "int8", *,
+                 temperature: float = 1.0, top_p: float = 1.0):
+        super().__init__(model, policy, mode)
+        self.temperature, self.top_p = temperature, top_p
+
+    def accept(self, tok, drafts, logits, active, key):
+        last = logits[:, -1, :]
+        kw = dict(temperature=self.temperature, top_p=self.top_p)
+        if key.dim() == 2:
+            ks = prng.split(key)                       # (B, 2, 2)
+            nxt = sample_tokens(last, ks[:, 0], **kw)
+            if active is None:
+                key = ks[:, 1]
+            else:
+                key = torch.where(active[:, None], ks[:, 1], key)
+            return nxt, nxt[:, None], _emitted(nxt, active), key
+        ks = prng.split(key)
+        nxt = sample_tokens(last, ks[1], **kw)
+        return nxt, nxt[:, None], _emitted(nxt, active), ks[0]
+
+
+class SpeculativeStrategy(DecodeStrategy):
+    """Prompt-lookup speculative decoding (no second model).
+
+    ``propose`` matches the trailing ``ngram`` tokens of the history
+    (absolute position -> token: the prompt and everything emitted,
+    including the pending token) against earlier history; the most recent
+    match's continuation becomes the ``draft_k`` drafts (the pending token
+    repeated when nothing matches).  ``verify`` runs [pending, drafts] as
+    one (B, k+1) window through ``model.verify_step``; ``accept`` keeps the
+    longest prefix of drafts equal to the model's own argmax, plus the
+    model's next token after it: the emitted tokens are greedy's.  Every
+    index is data, so one captured window serves every match pattern."""
+
+    stateful = True
+
+    def __init__(self, model, policy, mode: str = "int8", *,
+                 draft_k: int = 4, ngram: int = 2):
+        super().__init__(model, policy, mode)
+        if draft_k < 1:
+            raise ValueError(f"draft_k must be >= 1, got {draft_k}")
+        if ngram < 1:
+            raise ValueError(f"ngram must be >= 1, got {ngram}")
+        self.draft_k, self.ngram = draft_k, ngram
+        self.emit_width = draft_k + 1
+
+    def propose(self, tok, pos, hist):
+        b, h = hist.shape
+        g, k = self.ngram, self.draft_k
+        if h < g + 1:
+            raise ValueError(
+                f"history buffer ({h}) shorter than ngram+1 ({g + 1})")
+        dev = hist.device
+        pos = pos.to(torch.long).reshape(-1)
+        j = torch.arange(g, device=dev)
+        # the trailing n-gram ends at the pending token (hist[pos])
+        gram = torch.gather(hist, 1, torch.clamp(pos[:, None] - (g - 1)
+                                                 + j[None], 0, h - 1))
+        starts = torch.arange(h - g + 1, device=dev)
+        wins = hist[:, starts[:, None] + j[None]]             # (B, n, g)
+        hit = (wins == gram[:, None, :]).all(dim=-1)
+        # a usable match ends before the trailing gram starts, so its
+        # continuation (the draft source) is known history
+        usable = hit & (starts[None, :] <= pos[:, None] - g)
+        best = torch.amax(torch.where(usable, starts[None, :], -1), dim=1)
+        src = torch.clamp_min(best, 0) + g
+        didx = src[:, None] + torch.arange(k, device=dev)[None]
+        # draft reads clamp to known history (correctness never depends on
+        # the drafts)
+        didx = torch.clamp(torch.minimum(didx, pos[:, None]), 0, h - 1)
+        drafts = torch.gather(hist, 1, didx)
+        return torch.where((best >= 0)[:, None], drafts, tok[:, None])
+
+    def verify(self, serve_params, qparams, tok, drafts, cache, pos, active):
+        ctx = A.make_ctx(self.mode, self.policy, qparams)
+        window = torch.cat([tok[:, None], drafts], dim=1)
+        return self.model.verify_step(serve_params, window, cache, pos, ctx,
+                                      slot_mask=active)
+
+    def accept(self, tok, drafts, logits, active, key):
+        w = self.emit_width
+        pred = torch.argmax(logits, dim=-1)                   # (B, W)
+        # accepted drafts equal the model's argmax at their position, so the
+        # emitted tokens are pred[:n_match + 1]
+        match = (drafts == pred[:, :-1]).to(torch.int32)
+        n_match = torch.cumprod(match, dim=1).sum(dim=1)
+        lanes = torch.arange(w, device=pred.device)[None]
+        emitted = lanes <= n_match[:, None]
+        if active is not None:
+            emitted = emitted & active[:, None]
+        nxt = torch.gather(pred, 1, torch.clamp(n_match, 0, w - 1)[:, None])
+        return nxt[:, 0], pred, emitted, key
+
+    def update_hist(self, hist, pos, toks, emitted):
+        """Record the step's emissions at their absolute positions (``pos``
+        is the pre-step position; lane j lands at ``pos + 1 + j``); lanes
+        not emitted, or past the buffer, are dropped."""
+        b, h = hist.shape
+        idx = (pos.to(torch.long)[:, None] + 1
+               + torch.arange(toks.shape[1], device=hist.device)[None])
+        return _scatter_drop(hist, idx, toks, emitted & (idx < h))
+
+
+def _scatter_drop(buf, idx, vals, keep):
+    """``buf.at[rows, idx].set(vals, mode="drop")`` for the lanes in
+    ``keep``: the others write into a spare column that is cut off."""
+    b, n = buf.shape
+    ext = torch.cat([buf, buf.new_zeros((b, 1))], dim=1)
+    ext.scatter_(1, torch.where(keep, idx, n), vals.to(buf.dtype))
+    return ext[:, :n]
 
 
 def make_strategy(name, model, policy: A.QuantPolicy, *,
-                  temperature: float = 0.0,
+                  temperature: float = 0.0, top_p: float = 1.0,
+                  spec_k: int = 4, spec_ngram: int = 2,
                   mode: str = "int8") -> DecodeStrategy:
     """A strategy by name, serving in ``mode`` ("int8" or "none"); ``None``
     picks "sample" when temperature > 0, else "greedy", as the reference
-    does."""
+    does, with its errors."""
     if name is None:
         name = "sample" if temperature > 0.0 else "greedy"
     if name == "greedy":
@@ -87,11 +249,14 @@ def make_strategy(name, model, policy: A.QuantPolicy, *,
                              "temperature or use strategy='sample'")
         return GreedyStrategy(model, policy, mode)
     if name == "sample":
-        raise NotImplementedError(
-            "sampled decoding is not ported (ROADMAP Queue A item 10)")
+        return SamplingStrategy(model, policy, mode, temperature=temperature,
+                                top_p=top_p)
     if name == "speculative":
-        raise NotImplementedError(
-            "speculative decoding is not ported (ROADMAP Queue A item 13)")
+        if temperature > 0.0:
+            raise ValueError("speculative decoding uses the deterministic "
+                             "(greedy) accept rule; temperature must be 0")
+        return SpeculativeStrategy(model, policy, mode, draft_k=spec_k,
+                                   ngram=spec_ngram)
     raise ValueError(f"unknown decode strategy {name!r} (use one of "
                      f"{STRATEGIES})")
 
@@ -102,6 +267,146 @@ def _rollback(cache, pos):
     for c in layer_caches(cache):
         c.rollback(pos)
     return cache
+
+
+def seed_hist(hist, prompt, tok0):
+    """Seed a history buffer in place: ``prompt`` (B, S) at positions
+    [0, S), the pending first token ``tok0`` (B,) at S, zeros after."""
+    s = prompt.shape[1]
+    hist.zero_()
+    hist[:, :s].copy_(prompt)
+    hist[:, s].copy_(tok0)
+    return hist
+
+
+# -- the loops (own the steps; strategies own the scheme) ---------------------
+
+@dataclasses.dataclass
+class WindowState:
+    """The carry of the windowed single-stream loop, in tensors a step
+    updates in place (so a captured step replays the generation): the
+    pending token and position per row, the count of tokens out, the
+    (B, n_steps) output buffer (its first column the first token), the
+    PRNG key and the history buffer."""
+    tok: torch.Tensor       # (B,) int64
+    pos: torch.Tensor       # (B,) int32
+    n_out: torch.Tensor     # (B,) int32
+    out: torch.Tensor       # (B, n_steps) int64
+    key: torch.Tensor       # (2,) int64
+    hist: torch.Tensor      # (B, H) int64
+
+    def start(self, tok0, pos0: int):
+        """Begin a generation at ``tok0`` (B,), every row at ``pos0``; the
+        history is the caller's to seed."""
+        self.tok.copy_(tok0)
+        self.pos.fill_(pos0)
+        self.n_out.fill_(1)
+        self.out.zero_()
+        self.out[:, 0].copy_(tok0)
+        return self
+
+
+def make_token_step(strategy: DecodeStrategy):
+    """One step of a one-token strategy over static buffers, the body that
+    ``Engine.generate_batch`` captures: ``(params, qparams, tok (B,) int64,
+    cache, pos (B,) int32, key (2,)) -> logits (B, 1, Vp)``.  Decodes
+    ``tok`` at the positions ``pos`` (the per-slot branch of the decode:
+    positions read on the device), then writes the next token into ``tok``
+    (argmax, or sampled with one split of ``key``), advances ``pos`` by one
+    and the key by its split, in place, so replaying the step walks the
+    generation: the tokens and logits of ``make_strategy_decode_loop``'s
+    steps, bit for bit."""
+    def token_step(serve_params, qparams, tok, cache, pos, key):
+        logits, _ = strategy.verify(serve_params, qparams, tok, None, cache,
+                                    pos, None)
+        nxt, _, _, new_key = strategy.accept(tok, None, logits, None, key)
+        tok.copy_(nxt)
+        pos.add_(1)
+        if new_key is not key:
+            key.copy_(new_key)
+        return logits
+
+    return token_step
+
+
+def make_window_step(strategy: DecodeStrategy, n_steps: int):
+    """One window of the windowed single-stream loop: ``(params, qparams,
+    st: WindowState, cache) -> None``, updating ``st`` in place.  A row is
+    active while it has budget left (``n_out < n_steps``) and room for a
+    whole window in the cache; each window scatters its emissions at the
+    row's write cursor, lanes past the budget dropped."""
+    w = strategy.emit_width
+
+    def window_step(serve_params, qparams, st: WindowState, cache):
+        tok, pos = st.tok, st.pos
+        active = (st.n_out < n_steps) & (pos + w <= attn_cache_len(cache))
+        drafts = strategy.propose(tok, pos, st.hist)
+        logits, cache = strategy.verify(serve_params, qparams, tok, drafts,
+                                        cache, pos, active)
+        nxt, toks, emitted, key = strategy.accept(tok, drafts, logits,
+                                                  active, st.key)
+        nxt = torch.where(active, nxt, tok)
+        toks = torch.where(emitted, toks, tok[:, None])
+        e = emitted.to(torch.int32)
+        idx = (st.n_out[:, None] + torch.cumsum(e, dim=1) - e).to(torch.long)
+        st.out.copy_(_scatter_drop(st.out, idx, toks,
+                                   emitted & (idx < n_steps)))
+        st.hist.copy_(strategy.update_hist(st.hist, pos, toks, emitted))
+        n_acc = e.sum(dim=1, dtype=torch.int32)
+        pos.add_(n_acc)
+        st.n_out.add_(n_acc)
+        _rollback(cache, pos)
+        tok.copy_(nxt)
+        st.key.copy_(key)
+
+    return window_step
+
+
+def make_strategy_decode_loop(model, policy: A.QuantPolicy,
+                              strategy: DecodeStrategy, n_steps: int = 16):
+    """Single-stream whole-generation decode: ``(params, qparams, tok0 (B,),
+    cache, pos0, key=None, hist=None) -> (tokens (B, n_steps), cache)``,
+    tokens[:, 0] == tok0.
+
+    ``emit_width == 1``: n_steps - 1 steps at the host int positions
+    ``pos0 + i`` (the eager ``loop=True`` driver), the key split once a
+    step by a sampling strategy.  Windowed strategies (speculative) need
+    their history buffer (the prompt and tok0, ``seed_hist``) and always
+    run n_steps - 1 windows (``make_window_step``), as the reference's scan
+    does: one token a window fills the budget, and rows that filled it
+    early freeze."""
+    w = strategy.emit_width
+
+    def decode_loop(serve_params, qparams, tok0, cache, pos0, key=None,
+                    hist=None):
+        if key is None:
+            key = prng.PRNGKey(0, tok0.device)
+        if w == 1:
+            toks, tok = [tok0], tok0
+            for i in range(n_steps - 1):
+                logits, cache = strategy.verify(serve_params, qparams, tok,
+                                                None, cache, pos0 + i, None)
+                tok, _, _, key = strategy.accept(tok, None, logits, None,
+                                                 key)
+                toks.append(tok)
+            return torch.stack(toks, dim=1), cache
+        if hist is None:
+            raise ValueError(
+                "a stateful strategy needs its history buffer (seed it with "
+                "the prompt tokens + tok0; see strategies.seed_hist)")
+        b, dev = tok0.shape[0], tok0.device
+        st = WindowState(
+            tok=torch.empty((b,), dtype=torch.long, device=dev),
+            pos=torch.empty((b,), dtype=torch.int32, device=dev),
+            n_out=torch.empty((b,), dtype=torch.int32, device=dev),
+            out=torch.empty((b, n_steps), dtype=torch.long, device=dev),
+            key=key.clone(), hist=hist.clone()).start(tok0, int(pos0))
+        step = make_window_step(strategy, n_steps)
+        for _ in range(n_steps - 1):
+            step(serve_params, qparams, st, cache)
+        return st.out, cache
+
+    return decode_loop
 
 
 def make_strategy_slot_loop(model, policy: A.QuantPolicy,
@@ -117,28 +422,30 @@ def make_strategy_slot_loop(model, policy: A.QuantPolicy,
       * non-finite logits freeze only the slot that produced them: it
         emits nothing from that step on and comes back flagged in ``bad``;
       * EOS (``eos_id >= 0``): the EOS lane itself is emitted, later lanes
-        are cut and the slot freezes, without touching the rest of the
-        batch;
-      * positions advance by each slot's emitted count.
+        are cut and the slot freezes, holding the EOS as its pending token,
+        without touching the rest of the batch;
+      * positions advance by each slot's emitted count (slots drain at
+        different rates under speculation).
 
-    ``(params, qparams, tok0 (B,), cache, pos0 (B,), active0 (B,), hist=None)
-    -> (toks (B, n_steps * W), emitted (B, n_steps * W), cache, pos, active,
-    hist, bad)``, lane j of step i at column i * W + j.  The carry stays on
-    the device: the block needs no host synchronization."""
+    ``(params, qparams, tok0 (B,), cache, pos0 (B,), active0 (B,), key=None,
+    hist=None) -> (toks (B, n_steps * W), emitted (B, n_steps * W), cache,
+    pos, active, key, hist, bad)``, lane j of step i at column i * W + j.
+    ``key`` is one (2,) key or (B, 2) per-slot keys.  The carry stays on the
+    device: the block needs no host synchronization."""
     w = strategy.emit_width
-    if w != 1:
-        raise NotImplementedError(
-            "multi-token windows are speculative decoding (ROADMAP Queue A "
-            "item 13)")
 
     def slot_loop(serve_params, qparams, tok0, cache, pos0, active0,
-                  hist=None):
+                  key=None, hist=None):
         if strategy.stateful and hist is None:
             raise ValueError("a stateful strategy needs its history buffer")
         cache_len = attn_cache_len(cache)
         tok = torch.as_tensor(tok0).to(torch.long)
         pos = torch.as_tensor(pos0).to(torch.int32)
         active = torch.as_tensor(active0).to(torch.bool)
+        if key is None:
+            key = prng.PRNGKey(0, tok.device)
+        if hist is None:
+            hist = tok.new_zeros((tok.shape[0], 0))
         bad_acc = torch.zeros_like(active)
         all_toks, all_emitted = [], []
         for _ in range(n_steps):
@@ -146,7 +453,8 @@ def make_strategy_slot_loop(model, policy: A.QuantPolicy,
             drafts = strategy.propose(tok, pos, hist)
             logits, cache = strategy.verify(serve_params, qparams, tok,
                                             drafts, cache, pos, active)
-            nxt, toks, emitted = strategy.accept(tok, drafts, logits, active)
+            nxt, toks, emitted, key = strategy.accept(tok, drafts, logits,
+                                                      active, key)
             nxt = torch.where(active, nxt, tok)       # frozen slots hold
             toks = torch.where(emitted, toks, tok[:, None])
             finite = torch.isfinite(logits.float()).all(dim=2).all(dim=1)
@@ -160,7 +468,14 @@ def make_strategy_slot_loop(model, policy: A.QuantPolicy,
                 before = torch.cumsum(iseos.to(torch.int32), dim=1) - iseos.to(
                     torch.int32)
                 emitted = emitted & (before == 0)
-                active = active & ~(iseos & emitted).any(dim=1)
+                eos_hit = (iseos & emitted).any(dim=1)
+                active = active & ~eos_hit
+                if w > 1:
+                    # the held token of a frozen slot is its last emission
+                    # (the EOS), as in the one-token loops
+                    last = torch.clamp(emitted.sum(dim=1) - 1, 0, w - 1)
+                    held = torch.gather(toks, 1, last[:, None])[:, 0]
+                    nxt = torch.where(eos_hit, held, nxt)
             hist = strategy.update_hist(hist, pos, toks, emitted)
             pos = pos + emitted.sum(dim=1, dtype=torch.int32)
             cache = _rollback(cache, pos)
@@ -168,6 +483,6 @@ def make_strategy_slot_loop(model, policy: A.QuantPolicy,
             all_toks.append(toks)
             all_emitted.append(emitted)
         return (torch.cat(all_toks, dim=1), torch.cat(all_emitted, dim=1),
-                cache, pos, active, hist, bad_acc)
+                cache, pos, active, key, hist, bad_acc)
 
     return slot_loop

@@ -3,7 +3,10 @@ calibration and by the fine-tune's teacher and student, one-shot and
 chunked ragged prefill into the KV cache through the prefill kernel, and
 single-token decode, at one position or at a position per slot
 (continuous batching), through the decode kernel (over a float cache, the
-plain ``decode_attention``, as in the reference).
+plain ``decode_attention``, as in the reference), and the speculative
+verify window: a few tokens a slot, each slot at its own position, through
+the prefill kernel's per-row ``q_start`` (over a float cache, the plain
+``verify_attention``).
 
 Counterpart of ``repro/models/attention.py`` on the single-device serving
 and threshold-training paths.  All paths share the GQA grouping
@@ -76,6 +79,30 @@ def decode_attention(q, k_cache, v_cache, valid):
     # a row with no visible key softmaxes uniformly over NEG_INF scores:
     # zero it, so an inactive slot attends to nothing
     p = p * (pos > 0).reshape(b, 1, 1, 1, 1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float())
+    return o.to(q.dtype)
+
+
+def verify_attention(q, k_cache, v_cache, pos_vec):
+    """Speculative-verify attention over a float cache, the counterpart of
+    the reference's jnp ``verify_attention``: s window queries a row, query
+    j of row b at position ``pos_vec[b] + j``, seeing the cache keys at
+    positions <= its own (the window itself included, causally).  At s == 1
+    this is ``decode_attention`` with ``valid = pos_vec + 1``: the same
+    contractions and mask, the same bits.  A row with ``pos_vec < 0`` (an
+    inactive slot) sees no key and returns zeros.  q: (B, s, KV, G, D);
+    k/v_cache: (B, S, KV, D); output in q's dtype, (B, s, KV, G, D)."""
+    b, s, d, smax = q.shape[0], q.shape[1], q.shape[-1], k_cache.shape[1]
+    scale = softmax_scale(d, q.device)
+    sc = torch.einsum("bqkgd,bskd->bkgqs", q.float() * scale, k_cache.float())
+    pos = pos_vec.to(torch.int32).reshape(-1).expand(b)
+    q_pos = pos[:, None] + torch.arange(s, device=q.device)
+    k_pos = torch.arange(smax, device=q.device)
+    mask = (k_pos[None, None, :] <= q_pos[..., None]) & (pos >= 0)[:, None,
+                                                                   None]
+    sc = torch.where(mask[:, None, None], sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    p = p * (pos >= 0).reshape(b, 1, 1, 1, 1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float())
     return o.to(q.dtype)
 
@@ -325,4 +352,45 @@ class Attention(Module):
             o = sp_decode_attention(q[:, 0], cache, valid, sp.sp)
         o = o[:, None].to(x.dtype)
         o = o.reshape(b, s, self.n_heads * self.head_dim)
+        return self.wo(params["wo"], o, ctx), cache
+
+    def verify(self, params, x, cache, cur_pos, ctx=None, *, slot_mask=None):
+        """Speculative-verify pass: s window tokens a slot, each slot at its
+        own position.  x: (B, s, d); ``cur_pos`` (B,) counts each slot's
+        valid cache entries, and the window takes positions ``cur_pos[b] +
+        [0, s)``: rotary there, its K/V made cache-ready once and appended
+        at those slots (``append_slots``, the multi-token form), then query
+        j attends the keys at positions <= ``cur_pos[b] + j``.  A quantized
+        cache attends through the prefill kernel (a short per-slot chunked
+        prefill: ``q_start = cur_pos``, ``kv_len = cur_pos + s``, 0 for an
+        inactive slot); a float cache through the plain
+        ``verify_attention``, as the reference does (its kernel path needs
+        a quantized cache).  ``slot_mask`` inactive slots write nothing and
+        give zero rows, as in ``decode``."""
+        from repro_torch.kernels import ops
+
+        if _sp_info() is not None:
+            raise NotImplementedError(
+                "the sequence-parallel speculative verify window is not "
+                "ported (ROADMAP Queue A item 13, speculative decoding)")
+        b, s, _ = x.shape
+        q, k, v = self._qkv(params, x, ctx)
+        pos = torch.as_tensor(cur_pos, dtype=torch.int32,
+                              device=x.device).reshape(-1).expand(b)
+        q, k = self._rope(q, k, pos[:, None] + torch.arange(s,
+                                                            device=x.device))
+        kq, vq = cache.ready(k, v)
+        cache = cache.append_slots(kq, vq, pos, active=slot_mask)
+        if cache.quantized:
+            kv_len = pos + s
+            if slot_mask is not None:
+                kv_len = torch.where(slot_mask, kv_len, 0)
+            o = ops.prefill_attention_view(q, cache.kernel_view(),
+                                           *cache.scales(), pos, kv_len,
+                                           causal=True)
+        else:
+            pos_eff = pos if slot_mask is None else torch.where(slot_mask,
+                                                                pos, -1)
+            o = verify_attention(q, *cache.dense_view(), pos_eff)
+        o = o.to(x.dtype).reshape(b, s, self.n_heads * self.head_dim)
         return self.wo(params["wo"], o, ctx), cache

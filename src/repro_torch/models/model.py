@@ -101,6 +101,20 @@ class CausalLM(Module):
                                      slot_mask)
         return self.readout_fn(params, ctx)(h), cache
 
+    def verify_step(self, params, tokens, cache, cur_pos, ctx=None, *,
+                    slot_mask=None):
+        """The speculative verify pass: tokens (B, s), the pending token
+        and s - 1 drafts, as one window at the per-slot positions
+        ``cur_pos`` (B,).  Returns (logits (B, s, Vp), cache): position j's
+        logits are the next-token distribution after token j.  The window's
+        K/V append at ``cur_pos + [0, s)``; a rejected tail is dead data.
+        Over a float cache, s == 1 is ``decode_step`` at vector positions,
+        bit for bit."""
+        x = self.embed(params["embed"], tokens)
+        h, cache = self.stack.verify(params["stack"], x, cache, cur_pos, ctx,
+                                     slot_mask)
+        return self.readout_fn(params, ctx)(h), cache
+
 
 def build_model(cfg):
     if cfg.family != "causal":

@@ -84,6 +84,16 @@ class Block(Module):
         h = self.ffn_norm(params["ffn_norm"], x)
         return x + self.ffn(params["ffn"], h, ctx), {"attn": attn_cache}
 
+    def verify(self, params, x, cache, cur_pos, ctx=None, slot_mask=None):
+        """The speculative verify window through this layer: ``decode``'s
+        residual structure around ``Attention.verify``."""
+        h = self.pre_norm(params["pre_norm"], x)
+        a, attn_cache = self.attn.verify(params["attn"], h, cache["attn"],
+                                         cur_pos, ctx, slot_mask=slot_mask)
+        x = x + a
+        h = self.ffn_norm(params["ffn_norm"], x)
+        return x + self.ffn(params["ffn"], h, ctx), {"attn": attn_cache}
+
 
 class Stack(Module):
     """Unrolled stack of Blocks (params under ``layer{i}``) + final norm."""
@@ -129,6 +139,14 @@ class Stack(Module):
         new_cache = {}
         for i, blk in enumerate(self.blocks):
             x, new_cache[f"layer{i}"] = blk.decode(
+                params[f"layer{i}"], x, cache[f"layer{i}"], cur_pos, ctx,
+                slot_mask)
+        return self.final_norm(params["final_norm"], x), new_cache
+
+    def verify(self, params, x, cache, cur_pos, ctx=None, slot_mask=None):
+        new_cache = {}
+        for i, blk in enumerate(self.blocks):
+            x, new_cache[f"layer{i}"] = blk.verify(
                 params[f"layer{i}"], x, cache[f"layer{i}"], cur_pos, ctx,
                 slot_mask)
         return self.final_norm(params["final_norm"], x), new_cache

@@ -14,7 +14,9 @@ parallelism) and shards on several devices are ROADMAP Queue A item 18,
 bf16 weights or a bf16 KV cache under ``sp`` > 1 item 20.  With ``sp == 1``
 this is exactly an Engine.  With ``sp`` > 1, ``generate_batch`` and the
 scheduler run their eager loops (``eager_reason``): the captured programs
-are ROADMAP Queue A item 9d.
+are ROADMAP Queue A item 9d.  Sampling serves through those loops with the
+Engine's key schedule; the speculative verify window under ``sp`` > 1 is
+item 13.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ class ShardedEngine(Engine):
                  tp: int = 1, sp: int = 1, **engine_kw):
         self._validate(tp, sp, engine_kw.get("cache_layout", "dense"),
                        fp=engine_kw.get("mode", "int8") == "none",
-                       kv_int8=policy.kv_int8)
+                       kv_int8=policy.kv_int8,
+                       strategy=engine_kw.get("decode_strategy"))
         self.sp = sp
         self.base_model = model
         if sp > 1:
@@ -41,7 +44,7 @@ class ShardedEngine(Engine):
 
     @staticmethod
     def _validate(tp: int, sp: int, cache_layout: str, *, fp: bool = False,
-                  kv_int8: bool = True) -> None:
+                  kv_int8: bool = True, strategy=None) -> None:
         """Raise on a parallelism (or, under it, a serving mode) this engine
         does not serve."""
         if tp < 1 or sp < 1:
@@ -59,6 +62,10 @@ class ShardedEngine(Engine):
             raise NotImplementedError(
                 "bf16 weights or a bf16 KV cache under sequence parallelism "
                 "(sp > 1) are not ported (ROADMAP Queue A item 20)")
+        if sp > 1 and strategy == "speculative":
+            raise NotImplementedError(
+                "the sequence-parallel speculative verify window is not "
+                "ported (ROADMAP Queue A item 13, speculative decoding)")
 
     @classmethod
     def from_checkpoint(cls, arch: str = "smollm-135m", *, tp: int = 1,
@@ -66,7 +73,8 @@ class ShardedEngine(Engine):
         """``Engine.from_checkpoint`` (every other argument is its own),
         served with ``sp`` sequence shards (``tp`` > 1 raises)."""
         cls._validate(tp, sp, kw.get("cache_layout", "dense"),
-                      fp=kw.get("fp", False), kv_int8=kw.get("kv_int8", True))
+                      fp=kw.get("fp", False), kv_int8=kw.get("kv_int8", True),
+                      strategy=kw.get("decode_strategy"))
         base = Engine.from_checkpoint(arch, **kw)
         return cls(base.model, base.cfg, base.policy, base.serve_params,
                    base.qparams, device=base.device, sp=sp, **base._init_kw())

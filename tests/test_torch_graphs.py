@@ -75,12 +75,17 @@ def engines():
             for name, kw in MODES.items()}
 
 
-def _twin(engine, layout):
+def _twin(engine, layout, **strategy):
     cache_layout, chunk = LAYOUTS[layout]
     return Engine(engine.model, engine.cfg, engine.policy,
                   engine.serve_params, engine.qparams, device=engine.device,
                   mode=engine.mode, cache_layout=cache_layout,
-                  page_size=PAGE, prefill_chunk=chunk)
+                  page_size=PAGE, prefill_chunk=chunk, **strategy)
+
+
+# the decoding strategies beside greedy (launch/strategies.py)
+SCHEMES = {"sample": dict(temperature=0.7, top_p=0.9, seed=3),
+           "speculative": dict(decode_strategy="speculative", spec_k=3)}
 
 
 def _prompts(engine, b=2, s=PROMPT, seed=5):
@@ -115,7 +120,7 @@ def test_program_kept_per_shape(engines):
     eng = _twin(engines["int8"], "dense")
     eng.generate_batch({"tokens": _prompts(eng)}, gen=GEN)
     first = eng._program
-    assert first.key == (2, PROMPT, eng._cache_len(PROMPT, GEN))
+    assert first.key == (2, PROMPT, eng._cache_len(PROMPT, GEN), ("greedy",))
     eng.generate_batch({"tokens": _prompts(eng, b=3)}, gen=GEN)
     assert eng._program is not first and eng._program.key[0] == 3
 
@@ -230,6 +235,61 @@ def test_batch_steps_read_nothing_back(engines, monkeypatch, mode, layout):
             prog.decode()
 
 
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("scheme", list(SCHEMES))
+def test_strategy_steps_read_nothing_back(engines, monkeypatch, scheme,
+                                          layout):
+    """The sampled decode step (its key split on the device) and the
+    speculative verify window (the drafts' gathers, the history and
+    output scatters) that ``generate_batch`` captures, with the prefill
+    that samples or seeds the history."""
+    eng = _twin(engines["int8"], layout, **SCHEMES[scheme])
+    with torch.inference_mode():
+        prog = eng._batch_program((2, PROMPT, eng._cache_len(PROMPT, GEN + 3),
+                                   eng._scheme(GEN)))
+        prog.tokens[:, :PROMPT].copy_(torch.from_numpy(_prompts(eng)))
+        prog.prefill()
+        prog.decode()
+        with guarded(monkeypatch):
+            prog.prefill()
+            prog.decode()
+            prog.decode()
+    assert (prog.window is None) == (scheme == "sample")
+
+
+@pytest.mark.parametrize("scheme", list(SCHEMES))
+def test_strategy_programs_bit_identical_to_eager_steps(engines, scheme):
+    """The programs against the same steps run eagerly: the ``loop=True``
+    driver for sampling (the same key splits), and the windowed loop
+    (``make_strategy_decode_loop``) after the same prefill for
+    speculative decoding."""
+    from repro_torch.launch import prng
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import strategies as SG
+
+    eng = _twin(engines["int8"], "dense", **SCHEMES[scheme])
+    prompts = _prompts(eng)
+    got = eng.generate_batch({"tokens": prompts}, gen=GEN)
+    if scheme == "sample":
+        want = eng.generate_batch({"tokens": prompts}, gen=GEN, loop=True)
+        assert torch.equal(got.prefill_logits, want.prefill_logits)
+        assert torch.equal(got.tokens, want.tokens)
+        return
+    with torch.inference_mode():
+        toks = torch.from_numpy(prompts).long()
+        cache = eng.init_cache(2, eng._cache_len(PROMPT, GEN + 3))
+        logits, cache = ST.make_prefill_step(eng.model, eng.policy)(
+            eng.serve_params, eng.qparams, {"tokens": toks}, cache)
+        tok0 = logits[:, -1].argmax(-1)
+        hist = SG.seed_hist(torch.zeros((2, cache["layer0"]["attn"].capacity),
+                                        dtype=torch.long), toks, tok0)
+        out, _ = SG.make_strategy_decode_loop(
+            eng.model, eng.policy, eng._strategy, n_steps=GEN)(
+            eng.serve_params, eng.qparams, tok0, cache, PROMPT,
+            prng.PRNGKey(3), hist)
+    assert torch.equal(got.tokens, out)
+
+
 @pytest.mark.parametrize("layout", ["dense", "paged"])
 @pytest.mark.parametrize("mode", ["int8", "int4", "bf16_w_bf16_kv"])
 def test_scheduler_steps_read_nothing_back(engines, monkeypatch, mode,
@@ -253,6 +313,31 @@ def test_scheduler_steps_read_nothing_back(engines, monkeypatch, mode,
         with guarded(monkeypatch):
             sched._admission()
             sched._block()
+
+
+@pytest.mark.parametrize("scheme", list(SCHEMES))
+def test_scheduler_strategy_block_reads_nothing_back(engines, monkeypatch,
+                                                    scheme):
+    """The scheduler's sampled block (per-slot keys on the device) and its
+    speculative block (per-slot windows, the history buffer), with live
+    and idle slots."""
+    eng = _twin(engines["int8"], "paged", **SCHEMES[scheme])
+    sched = eng.make_scheduler(max_slots=3, prompt_cap=16, gen_cap=8,
+                               block_steps=3)
+    with torch.inference_mode():
+        sched._programs()
+        sched._tok.copy_(torch.tensor([3, 4, 5]))
+        sched._pos.copy_(torch.tensor([PROMPT, 5, 0], dtype=torch.int32))
+        sched._active.copy_(torch.tensor([True, True, False]))
+        sched._keys.copy_(torch.arange(6).reshape(3, 2))
+        sched._hist.random_(0, eng.cfg.vocab)
+        sched._block()
+        keys = sched._keys.clone()
+        with guarded(monkeypatch):
+            sched._block()
+    # an idle slot keeps its key; a live one advances it when sampling
+    assert torch.equal(sched._keys[2], keys[2])
+    assert torch.equal(sched._keys[0], keys[0]) == (scheme != "sample")
 
 
 # -- (c) launch accounting --------------------------------------------------

@@ -21,7 +21,7 @@ def test_no_module_imports_jax_or_repro():
                                                         "repro_torch."))
     assert {"repro_torch.kernels.ops", "repro_torch.cache.paged",
             "repro_torch.launch.scheduler",
-            "repro_torch.launch.strategies",
+            "repro_torch.launch.strategies", "repro_torch.launch.prng",
             "repro_torch.kernels.decode_attention_partials",
             "repro_torch.shard", "repro_torch.shard.context",
             "repro_torch.shard.partial_softmax", "repro_torch.shard.model",
@@ -57,9 +57,6 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(queue_cap=8), "item 14"),
-    (dict(temperature=0.7), "item 10"),
-    (dict(top_p=0.9), "item 10"),
-    (dict(decode_strategy="speculative"), "item 13"),
     (dict(journal="requests.jsonl"), "item 14"),
     (dict(sp=2, kv_int8=False), "item 20"),
 ], ids=lambda v: str(v))
@@ -69,6 +66,21 @@ def test_unported_options_raise(kw, item):
     cls = ShardedEngine if "sp" in kw else E.Engine
     with pytest.raises(NotImplementedError, match=item):
         cls.from_checkpoint("smollm-135m", smoke=True, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw,strategy", [
+    (dict(temperature=0.7), "SamplingStrategy"),
+    (dict(top_p=0.9), "GreedyStrategy"),
+    (dict(decode_strategy="speculative"), "SpeculativeStrategy"),
+], ids=lambda v: str(v))
+def test_sampling_and_speculative_options_build(kw, strategy):
+    """The reference's decoding knobs (ROADMAP items 10 and 13) build an
+    engine with the reference's strategy; ``top_p`` alone stays greedy."""
+    engine = E.Engine.from_checkpoint("smollm-135m", smoke=True,
+                                      device="cpu", **kw)
+    assert type(engine._strategy).__name__ == strategy
+    for name, value in kw.items():
+        assert getattr(engine, name) == value
 
 
 @pytest.mark.parametrize("kw", [dict(deadline_ms=50.0), dict(priority=1)],

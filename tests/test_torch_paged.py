@@ -168,8 +168,12 @@ def test_make_cache_layouts_and_rollback():
     assert isinstance(paged, PagedCache)
     assert (paged.capacity, paged.n_pages, paged.k.shape[-1]) == (24, 9, 8)
     assert paged.rollback(torch.zeros(2)) is paged
-    with pytest.raises(NotImplementedError, match="item 13"):
-        paged.rollback(torch.zeros(2), private_row=paged.table)
+    # with the identity table as the private rows: a self-copy, in place
+    before = (paged.k.clone(), paged.table.clone())
+    assert paged.rollback(torch.tensor([3, 9]),
+                          private_row=paged.table.clone()) is paged
+    assert torch.equal(paged.k, before[0])
+    assert torch.equal(paged.table, before[1])
     with pytest.raises(NotImplementedError, match="item 9"):
         make_cache(2, 16, KV, D, layout="ring", window=4)
     with pytest.raises(ValueError, match="multiple of 8"):

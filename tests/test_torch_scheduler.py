@@ -214,7 +214,7 @@ def test_eos_mid_block_freezes_one_slot(slot_loop):
         got = TST.make_slot_decode_loop(eng.model, eng.policy, n_steps=n,
                                         eos_id=eos)(
             eng.serve_params, eng.qparams, tok0, _copy(cache), pos0, active)
-    g_toks, g_emit, _, g_pos, g_active = got
+    g_toks, g_emit, _, g_pos, g_active, _ = got
     assert g_emit[0].tolist() == [True] * 3 + [False] * (n - 3)
     assert g_toks[0, :3].tolist() == toks[0, :3].tolist()
     assert g_emit[1].all() and torch.equal(g_toks[1], toks[1])
@@ -236,7 +236,7 @@ def test_all_inactive_block_leaves_cache_unchanged(slot_loop, layout):
                 big.v.copy_(small.v.reshape(big.v.shape))
             big.k_scale, big.v_scale = small.k_scale, small.v_scale
         before = [(c.k.clone(), c.v.clone()) for c in layer_caches(cache)]
-        toks, emitted, cache, pos, active = TST.make_slot_decode_loop(
+        toks, emitted, cache, pos, active, _ = TST.make_slot_decode_loop(
             eng.model, eng.policy, n_steps=3)(
             eng.serve_params, eng.qparams, tok0, cache, pos0,
             torch.zeros(2, dtype=torch.bool))
@@ -260,9 +260,11 @@ def test_requests_validated_and_unported_knobs_raise(engines):
     with pytest.raises(NotImplementedError, match="item 14"):
         SlotScheduler(eng.model, eng.cfg, eng.policy, eng.serve_params,
                       eng.qparams, queue_cap=4)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # speculative decoding is ported; its knobs are validated as in the
+    # reference
+    with pytest.raises(ValueError, match="draft_k must be >= 1"):
         SlotScheduler(eng.model, eng.cfg, eng.policy, eng.serve_params,
-                      eng.qparams, strategy="speculative")
+                      eng.qparams, strategy="speculative", spec_k=0)
     with pytest.raises(ValueError, match="dense or paged"):
         SlotScheduler(eng.model, eng.cfg, eng.policy, eng.serve_params,
                       eng.qparams, cache_layout="ragged")

@@ -271,7 +271,9 @@ def test_owner_writes_and_gather_match(bits, sp):
     ``append_slots`` clamps to the last row, as the unsharded cache does.
     No caller writes there (``ShardedModel.init_cache`` sizes the cache
     for every position served); both behaviours are pinned below.  A
-    window of several rows a slot (speculative verify) raises."""
+    window of several rows a slot (the speculative verify window's write)
+    takes each slot's rows from its start, the start clamped so the
+    window ends at the capacity, as the unsharded cache's does."""
     rng = np.random.default_rng(90 + sp + bits)
     b, s_local, kvh, d = 3, 8, 2, 16
     cap = sp * s_local
@@ -323,9 +325,11 @@ def test_owner_writes_and_gather_match(bits, sp):
                        active=torch.tensor([True, False, False]))
     want[0, cap - 1] = k1[0, 0]
     np.testing.assert_array_equal(cache.k.numpy(), want)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cache.append_slots(to_tensor(kc[:, :2]), to_tensor(vc[:, :2]),
-                           to_tensor(pos))
+    cache.append_slots(to_tensor(kc[:, :2]), to_tensor(vc[:, :2]),
+                       to_tensor(pos))
+    for r, p in enumerate(np.minimum(pos, cap - 2)):
+        want[r, p:p + 2] = kc[r, :2]
+    np.testing.assert_array_equal(cache.k.numpy(), want)
 
 
 # ---------------------------------------------------------------------------
