@@ -158,6 +158,25 @@ SAMPLING = dict(temperature=0.7, top_p=0.9, seed=3)
 SPEC_K, SPEC_NGRAM = 4, 2
 SPECULATIVE = dict(decode_strategy="speculative", spec_k=SPEC_K,
                    spec_ngram=SPEC_NGRAM)
+# [resilience]: one fault plan over the [scheduler]'s 16 requests
+# (launch/faults.py), 10 ms a block on the virtual clock: rid 1's admission
+# is rejected, rid 2's prefill and rid 3's decode (at its step 5) turn NaN,
+# rid 0 (priority 1) is force-preempted at block 2, rid 13's 15 ms deadline
+# expires while it is queued, rid 15 arrives at 25 ms with priority 5 and
+# preempts the lowest-priority resident (rid 10), and the queue cap of 14
+# sheds the 15th arrival at 0 ms (rid 14)
+RESILIENCE_PLAN = dict(reject=(1,), nan_prefill=(2,), nan_decode=((3, 5),),
+                       preempt=((2, 0),), ms_per_block=10.0)
+RESILIENCE_EXTRA = {0: dict(priority=1), 13: dict(deadline_ms=15.0),
+                    15: dict(priority=5, arrive_ms=25.0)}
+RESILIENCE_QUEUE_CAP = 14
+RESILIENCE_STATUS = {1: "failed", 2: "failed", 3: "failed", 13: "timeout",
+                     14: "shed"}            # every other request: ok
+RESILIENCE_PARKED = (0, 10)                 # re-admitted through resume
+# prefix_exhausted: the paged run's 13 prefills but the NaN one (dense 0)
+RESILIENCE_HEALTH = dict(ok=11, failed=3, timeout=1, shed=1, rejected=0,
+                         preempted=0, preemptions=2, readmits=2,
+                         deadline_misses=1, prefix_exhausted=12)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor-core peak
@@ -1838,19 +1857,28 @@ def teacher_forced_gap(torch, A, ST, engine, prompt, tokens):
     return None
 
 
+def scheduler_requests(Request, vocab, n_requests=N_REQUESTS, extra=None):
+    """(lengths, requests): the [scheduler]'s ragged requests, prompts of
+    64-PROMPT tokens and GEN generated tokens each, from seed 3; ``extra``
+    maps a rid to more Request fields (priority, deadline, arrival)."""
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(64, PROMPT + 1, n_requests)
+    extra = extra or {}
+    return lengths, [Request(rid=i, tokens=rng.integers(0, vocab, n,
+                                                        dtype=np.int32),
+                             max_gen=GEN, **extra.get(i, {}))
+                     for i, n in enumerate(lengths)]
+
+
 def check_scheduler(torch, ops, A, ST, Engine, Request, engine, kind, card,
                     n_requests=N_REQUESTS, n_alone=4, label="scheduler"):
     """``n_requests`` ragged requests through 8 slots of the paged cache;
     every one must finish by its 32-token budget, and ``n_alone`` of them
     re-served alone through batch-1 ``generate_batch`` (dense cache, same
     chunks) must give the same tokens or first differ at a near-tie.
-    Returns (launch counts, bf16-K/V launch counts, paged launch
-    counts)."""
-    rng = np.random.default_rng(3)
-    lengths = rng.integers(64, PROMPT + 1, n_requests)
-    reqs = [Request(rid=i, tokens=rng.integers(0, engine.cfg.vocab, n,
-                                               dtype=np.int32), max_gen=GEN)
-            for i, n in enumerate(lengths)]
+    Returns (launch counts, bf16-K/V launch counts, the completions, paged
+    launch counts)."""
+    lengths, reqs = scheduler_requests(Request, engine.cfg.vocab, n_requests)
     ops.reset_launches()
     t0 = time.perf_counter()
     done = engine.generate(reqs, max_slots=SLOTS, block_steps=BLOCK_STEPS,
@@ -1933,7 +1961,7 @@ def check_scheduler(torch, ops, A, ST, Engine, Request, engine, kind, card,
         if not gap <= LOGIT_ATOL:
             raise AssertionError(f"request {r}: the scheduler's token {step} "
                                  f"is {gap} below the batch-1 argmax")
-    return counts, bf16, pg
+    return counts, bf16, done, pg
 
 
 def check_sp_scheduler(torch, ops, A, ST, Engine, ShardedEngine, Request,
@@ -2841,7 +2869,8 @@ def check_strategy_scheduler(torch, ops, A, ST, SG, prng, Engine, Request,
     steps teacher-forced on them with the request's keys (equal or a
     near-tie of the perturbed scores).  Sampled completions must not depend
     on the arrival order: the requests again, reversed, give the same
-    tokens.  Returns (launch counts, paged launch counts)."""
+    tokens.  Returns (launch counts, paged launch counts, the
+    completions)."""
     from repro_torch.launch.graphs import WARMUP
 
     label = f"{'speculative' if scheme == 'speculative' else 'sampled'} " \
@@ -2851,11 +2880,7 @@ def check_strategy_scheduler(torch, ops, A, ST, SG, prng, Engine, Request,
                  mode=engine.mode, cache_layout="paged", page_size=PAGE,
                  prefill_chunk=CHUNK,
                  **(SPECULATIVE if scheme == "speculative" else SAMPLING))
-    rng = np.random.default_rng(3)
-    lengths = rng.integers(64, PROMPT + 1, N_REQUESTS)
-    reqs = [Request(rid=i, tokens=rng.integers(0, engine.cfg.vocab, n,
-                                               dtype=np.int32), max_gen=GEN)
-            for i, n in enumerate(lengths)]
+    lengths, reqs = scheduler_requests(Request, engine.cfg.vocab)
     ops.reset_launches()
     t0 = time.perf_counter()
     done = eng.generate(reqs, max_slots=SLOTS, block_steps=BLOCK_STEPS)
@@ -2919,7 +2944,284 @@ def check_strategy_scheduler(torch, ops, A, ST, SG, prng, Engine, Request,
               f"{gap:.4f} apart (near-tie tolerance {LOGIT_ATOL})")
         if not gap <= LOGIT_ATOL:
             raise AssertionError(f"request {r}: token {step} is {gap} apart")
-    return counts, pg
+    return counts, pg, done
+
+
+def recovery_engine(Engine, engine, layout="paged", **kw):
+    """The [scheduler] engine's weights and thresholds in ``layout`` (pages
+    of PAGE, chunks of CHUNK), with the resilience and durability knobs
+    ``kw``."""
+    return Engine(engine.model, engine.cfg, engine.policy,
+                  engine.serve_params, engine.qparams, device=engine.device,
+                  mode=engine.mode, cache_layout=layout, page_size=PAGE,
+                  prefill_chunk=CHUNK, **kw)
+
+
+def near_tie(torch, A, ST, SG, prng, dense, req, got, want, label,
+             sampled=False):
+    """True when ``got`` equals ``want`` bit for bit; else the batch-1
+    engine ``dense``, teacher-forced on ``got`` (sampled: with the request's
+    keys, on the perturbed scores), must find it within LOGIT_ATOL of its
+    own choice at the first step that differs, and False is returned."""
+    if got == want:
+        return True
+    if sampled:
+        forced = teacher_forced_sample_gap(torch, A, ST, SG, prng, dense,
+                                           req.tokens, got, req.rid)
+    else:
+        forced = teacher_forced_gap(torch, A, ST, dense, req.tokens, got)
+    first = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b) \
+        if len(got) == len(want) else min(len(got), len(want))
+    if forced is None:
+        print(f"[{label}] request {req.rid}: first differs from the clean "
+              f"run at token {first}; batch-1 teacher-forced on it agrees "
+              "at every step")
+        return False
+    step, gap = forced
+    print(f"[{label}] request {req.rid}: first differs from the clean run at "
+          f"token {first}; batch-1 teacher-forced on it puts token {step} "
+          f"{gap:.4f} from its own choice (near-tie tolerance {LOGIT_ATOL})")
+    if not gap <= LOGIT_ATOL:
+        raise AssertionError(f"request {req.rid}: token {step} is {gap} "
+                             "apart")
+    return False
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def check_resilience(torch, ops, A, ST, SG, prng, Engine, Request, FaultPlan,
+                     engine, kind, card, layout, clean):
+    """[resilience dense] / [resilience paged]: the [scheduler]'s 16
+    requests through SLOTS slots under ``RESILIENCE_PLAN`` (paged also
+    exhausting the prefix pool), with ``queue_cap`` RESILIENCE_QUEUE_CAP
+    and the virtual clock.  Every request retires with the status the plan
+    implies, ``health_stats()`` holds the plan's counts, the requests the
+    plan never parked give the clean [scheduler] run's tokens (``clean``)
+    bit for bit, the two parked ones equal them up to a near-tie; the
+    admission prefill and the decode block are captured once, the
+    ``resume`` prefill once, and its replay launches B2 and B3.  Returns
+    (launch counts, paged launch counts, the resume replay's numbers)."""
+    label = f"resilience {layout}"
+    plan = FaultPlan(**RESILIENCE_PLAN, exhaust_prefix=layout == "paged")
+    eng = recovery_engine(Engine, engine, layout,
+                          queue_cap=RESILIENCE_QUEUE_CAP, fault_plan=plan)
+    lengths, reqs = scheduler_requests(Request, engine.cfg.vocab,
+                                       extra=RESILIENCE_EXTRA)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.generate(reqs, max_slots=SLOTS, block_steps=BLOCK_STEPS)
+    wall = time.perf_counter() - t0
+    counts, pg = ops.launch_counts(), ops.paged_launch_counts()
+    sched = eng._scheduler
+    calls, sec = sched.call_counts(), sched.stage_seconds()
+    health, built = sched.health_stats(), sched.executable_counts()
+    by_rid = {c.rid: c for c in done}
+    print(f"[{label}] plan: {plan.describe()}; queue_cap "
+          f"{RESILIENCE_QUEUE_CAP}; {len(done)} requests in {wall:.2f} s "
+          f"({sec['compile']:.2f} s of captures) on {kind} ({card})")
+    print(f"[{label}] statuses "
+          f"{ {r: (c.status, len(c.tokens)) for r, c in sorted(by_rid.items())} }")
+    print(f"[{label}] health {health}; calls {calls}; programs built "
+          f"{built}; launches {counts}; paged {pg}")
+    want = {r: RESILIENCE_STATUS.get(r, "ok") for r in range(N_REQUESTS)}
+    got = {r: c.status for r, c in by_rid.items()}
+    if got != want:
+        raise AssertionError(f"statuses {got}, the plan implies {want}")
+    want_health = dict(RESILIENCE_HEALTH, prefix_exhausted=(
+        RESILIENCE_HEALTH["prefix_exhausted"] if layout == "paged" else 0))
+    bad = {k: (health[k], v) for k, v in want_health.items()
+           if health[k] != v}
+    if bad:
+        raise AssertionError(f"health (got, want): {bad}")
+    if len(by_rid[3].tokens) != 1 + RESILIENCE_PLAN["nan_decode"][0][1]:
+        raise AssertionError(f"request 3 froze after "
+                             f"{len(by_rid[3].tokens)} tokens")
+    if built != {"prefill": 1, "decode": 1, "resume": 1}:
+        raise AssertionError(f"programs built {built}")
+    if any(p.graph is None for p in (sched._admission, sched._block,
+                                     sched._resume)):
+        raise AssertionError("a scheduler program was not captured")
+    dense = layout_twin(Engine, engine, "dense")
+    exact = []
+    for r, c in sorted(by_rid.items()):
+        if c.status != "ok":
+            continue
+        if r not in RESILIENCE_PARKED and c.tokens != clean[r]:
+            raise AssertionError(f"request {r} was never parked but differs "
+                                 f"from the clean [scheduler] run")
+        if near_tie(torch, A, ST, SG, prng, dense, reqs[r], c.tokens,
+                    clean[r], label):
+            exact.append(r)
+    parked_exact = [r for r in RESILIENCE_PARKED if r in exact]
+    print(f"[{label}] {len(exact)} of {len(by_rid) - len(RESILIENCE_STATUS)}"
+          f" ok requests bit-identical to the clean [scheduler] run; "
+          f"re-admitted through resume: {list(RESILIENCE_PARKED)}, "
+          f"bit-identical {parked_exact}")
+    res = sched._resume
+    # a replay's launches by (kernel, counter): each kernel's total
+    launches = {name: n for (name, attr), n in res.launches.items()
+                if attr == "launches"}
+    if not (launches.get("prefill_attention") and
+            launches.get("quant_matmul")):
+        raise AssertionError(f"one resume replay launches {launches}: no B2 "
+                             "or no B3")
+    busy = program_busy(torch, res)
+    wall_ms = sec["resume"] / calls["resume"] * 1e3
+    print(f"[{label}] resume prefill at resume_cap {sched.resume_cap} "
+          f"({sched.resume_cap // CHUNK} chunks of {CHUNK}): "
+          f"{calls['resume']} re-admissions, {wall_ms:.2f} ms wall each "
+          f"(replay + splice, synchronized); device busy per replay "
+          f"{'not measured' if busy is None else f'{busy:.3f} ms'} "
+          f"(torch.profiler); one replay launches {launches}, captured in "
+          f"the run's compile seconds; on {kind} ({card})")
+    return counts, pg, {"resume_wall_ms": wall_ms, "resume_busy_ms": busy,
+                        "resume_launches": launches}
+
+
+def check_recovery_journal(torch, ops, A, ST, SG, prng, Engine, Request,
+                           FaultPlan, SimulatedCrash, RequestJournal, engine,
+                           kind, card, clean, clean_sampled, workdir):
+    """[recovery journal]: the [scheduler]'s 16 requests, journaled, crash
+    at block boundary 2; ``recover()`` on a fresh engine's scheduler, once
+    greedy (against ``clean``) and once sampled with ``SAMPLING`` (against
+    the [sampled scheduler] run, ``clean_sampled``).  The requests in
+    flight at the crash rebuild through the ``resume`` prefill and equal
+    the clean run up to a near-tie (sampled: of the perturbed scores); the
+    queued ones bit for bit.  Returns (launch counts, paged launch
+    counts)."""
+    lengths, reqs = scheduler_requests(Request, engine.cfg.vocab)
+    sched_kw = dict(max_slots=SLOTS, prompt_cap=int(lengths.max()),
+                    gen_cap=GEN, block_steps=BLOCK_STEPS)
+    dense = layout_twin(Engine, engine, "dense")
+    total, total_pg = {}, {}
+    for scheme, knobs, want in (("greedy", {}, clean),
+                                ("sampled", SAMPLING, clean_sampled)):
+        label = f"recovery journal {scheme}"
+        jp = os.path.join(workdir, f"{scheme}.jsonl")
+        crashed = recovery_engine(Engine, engine, journal=jp,
+                                  fault_plan=FaultPlan(crash=(2,)), **knobs)
+        try:
+            crashed.generate(reqs, **sched_kw)
+        except SimulatedCrash as err:
+            print(f"[{label}] {err}")
+        else:
+            raise AssertionError("the run did not crash at boundary 2")
+        del crashed
+        inflight = [i["req"]["rid"] for i in RequestJournal(jp).replay()
+                    .inflight]
+        fresh = recovery_engine(Engine, engine, journal=jp, **knobs)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        done = fresh.recover(**sched_kw)
+        wall = time.perf_counter() - t0
+        counts, pg = ops.launch_counts(), ops.paged_launch_counts()
+        sched = fresh._scheduler
+        calls, sec, health = (sched.call_counts(), sched.stage_seconds(),
+                              sched.health_stats())
+        print(f"[{label}] recover() on a fresh scheduler in {wall:.2f} s "
+              f"({sec['compile']:.2f} s of captures, {sec['resume']:.3f} s "
+              f"in {calls['resume']} resume prefills) on {kind} ({card}); "
+              f"in flight at the crash {inflight}; replayed_tokens "
+              f"{health['replayed_tokens']}; health {health}; calls {calls}")
+        if sorted(c.rid for c in done) != list(range(N_REQUESTS)) or any(
+                (c.status, len(c.tokens)) != ("ok", GEN) for c in done):
+            raise AssertionError(f"recovered completions "
+                                 f"{[(c.rid, c.status) for c in done]}")
+        if calls["resume"] != len(inflight) or health["recoveries"] != 1:
+            raise AssertionError(f"{calls['resume']} resume prefills for "
+                                 f"{len(inflight)} in-flight requests")
+        exact = []
+        for c in sorted(done, key=lambda c: c.rid):
+            if c.rid not in inflight and c.tokens != want[c.rid]:
+                raise AssertionError(f"request {c.rid} was queued at the "
+                                     "crash but differs from the clean run")
+            if near_tie(torch, A, ST, SG, prng, dense, reqs[c.rid], c.tokens,
+                        want[c.rid], label, sampled=scheme == "sampled"):
+                exact.append(c.rid)
+        print(f"[{label}] {len(exact)}/{N_REQUESTS} completions bit-identical"
+              f" to the uninterrupted run; recovered through resume "
+              f"bit-identical: {sum(r in exact for r in inflight)}/"
+              f"{len(inflight)}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        for k, v in pg.items():
+            total_pg[k] = total_pg.get(k, 0) + v
+    return total, total_pg
+
+
+def check_recovery_snapshot(torch, ops, Engine, Request, FaultPlan,
+                            SimulatedCrash, layer_caches, engine, kind, card,
+                            clean, workdir):
+    """[recovery snapshot]: the [scheduler]'s 16 requests with a snapshot at
+    every block boundary, crash at boundary 3; on a fresh scheduler whose
+    programs are captured first, ``load_state()`` (into the captured
+    tensors, in place) and ``resume_run()``: every completion bit for bit
+    the clean [scheduler] run's, no resume prefill.  Returns (launch
+    counts, paged launch counts)."""
+    label = "recovery snapshot"
+    lengths, reqs = scheduler_requests(Request, engine.cfg.vocab)
+    sched_kw = dict(max_slots=SLOTS, prompt_cap=int(lengths.max()),
+                    gen_cap=GEN, block_steps=BLOCK_STEPS)
+    snaps = os.path.join(workdir, "snapshots")
+    crashed = recovery_engine(Engine, engine, snapshot_every=1,
+                              snapshot_dir=snaps,
+                              fault_plan=FaultPlan(crash=(3,)))
+    try:
+        crashed.generate(reqs, **sched_kw)
+    except SimulatedCrash as err:
+        print(f"[{label}] {err}")
+    else:
+        raise AssertionError("the run did not crash at boundary 3")
+    t0 = time.perf_counter()
+    path = crashed.save_state()
+    save_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = dir_bytes(path)
+    del crashed
+    fresh = recovery_engine(Engine, engine, snapshot_dir=snaps)
+    sched = fresh.make_scheduler(**sched_kw)
+    with torch.inference_mode():
+        sched._programs()
+    bufs = [t for c in layer_caches(sched._cache)
+            for t in (c.k, c.v, c.k_scale, c.v_scale, c.table)]
+    bufs += [sched._keys, sched._hist]
+    ptrs = [t.data_ptr() for t in bufs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_blocks = sched.load_state()
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    same = [t.data_ptr() for t in layer_caches(sched._cache)
+            for t in (t.k, t.v, t.k_scale, t.v_scale, t.table)]
+    same += [sched._keys.data_ptr(), sched._hist.data_ptr()]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = sched.resume_run()
+    wall = time.perf_counter() - t0
+    counts, pg = ops.launch_counts(), ops.paged_launch_counts()
+    calls, health = sched.call_counts(), sched.health_stats()
+    exact = sum(c.tokens == clean[c.rid] for c in done)
+    print(f"[{label}] snapshot at boundary {n_blocks}: {nbytes} bytes "
+          f"({nbytes / 2**20:.1f} MiB; every layer's page pool, scales and "
+          f"table, the host state, the prefix store); save_state "
+          f"{save_ms:.1f} ms, load_state {load_ms:.1f} ms (into the "
+          f"captured tensors, storage kept: {same == ptrs}); resume_run "
+          f"{wall:.2f} s; on {kind} ({card})")
+    print(f"[{label}] {exact}/{N_REQUESTS} completions bit-identical to the "
+          f"clean [scheduler] run; calls {calls}; health {health}")
+    if same != ptrs:
+        raise AssertionError("load_state rebound the captured tensors")
+    if n_blocks != 3 or calls["resume"] != 0 or health["recoveries"] != 1:
+        raise AssertionError(f"restored at {n_blocks}, {calls['resume']} "
+                             f"resume prefills, health {health}")
+    if sorted(c.rid for c in done) != list(range(N_REQUESTS)) or exact != \
+            N_REQUESTS:
+        raise AssertionError("snapshot-recovered completions differ from "
+                             "the clean run")
+    return counts, pg, {"bytes": nbytes, "save_ms": save_ms,
+                        "load_ms": load_ms}
 
 
 def main() -> int:
@@ -2931,7 +3233,7 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
 
-    from repro_torch.cache import PagedCache
+    from repro_torch.cache import PagedCache, layer_caches
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.core import api as A
     from repro_torch.kernels import build, ops, ref
@@ -2940,6 +3242,8 @@ def main() -> int:
     from repro_torch.launch import strategies as SG
     from repro_torch.launch.engine import Engine
     from repro_torch.launch import train
+    from repro_torch.launch.faults import FaultPlan, SimulatedCrash
+    from repro_torch.launch.journal import RequestJournal
     from repro_torch.launch.scheduler import Request
     from repro_torch.shard import ShardedEngine
 
@@ -3149,6 +3453,35 @@ def main() -> int:
             f"{scheme} scheduler", check_strategy_scheduler, torch, ops, A,
             ST, SG, prng, Engine, Request, engine_p, kind, card, scheme)
         for scheme in ("speculative", "sample")}
+    # resilience and durability (launch/faults.py, launch/journal.py): the
+    # [scheduler]'s requests under a fault plan, dense and paged, then a
+    # crashed run recovered from its journal and from a snapshot, each
+    # against the clean runs above
+    resilience = {}
+    if paged_runs["scheduler"] is None or strategy_scheds[
+            "sample scheduler"] is None:
+        failures.append("[resilience] and [recovery ...] not run: the clean "
+                        "[scheduler] or [sampled scheduler] run failed")
+    else:
+        clean = {c.rid: c.tokens for c in paged_runs["scheduler"][2]}
+        clean_sampled = {c.rid: c.tokens
+                         for c in strategy_scheds["sample scheduler"][2]}
+        for layout in ("dense", "paged"):
+            resilience[f"resilience {layout}"] = phase(
+                f"resilience {layout}", check_resilience, torch, ops, A, ST,
+                SG, prng, Engine, Request, FaultPlan, engine_p, kind, card,
+                layout, clean)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_wal_") as wd:
+            resilience["recovery journal"] = phase(
+                "recovery journal", check_recovery_journal, torch, ops, A, ST,
+                SG, prng, Engine, Request, FaultPlan, SimulatedCrash,
+                RequestJournal, engine_p, kind, card, clean, clean_sampled,
+                wd)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_snap_") as wd:
+            resilience["recovery snapshot"] = phase(
+                "recovery snapshot", check_recovery_snapshot, torch, ops,
+                Engine, Request, FaultPlan, SimulatedCrash, layer_caches,
+                engine_p, kind, card, clean, wd)
     del engine_p
 
     t0 = time.perf_counter()
@@ -3182,6 +3515,17 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    # the resilience and recovery runs: their paged decode launches join
+    # the @paged entries, their dense launches (the admission and resume
+    # prefills into the dense template, the dense run's decode) the int8
+    # entries
+    for path, run in resilience.items():
+        if "dense" not in path:
+            paged_runs[path] = run[:2]
+    dense_by_path = {path: {k: run[0][k] - run[1][k]
+                            for k in ("prefill_attention",
+                                      "decode_attention")}
+                     for path, run in resilience.items()}
     by_path = {path: run[-1] for path, run in paged_runs.items()}
     partials = "decode_attention_partials"
     sp_paths = {"sp path": out_sp[1][partials],
@@ -3199,8 +3543,11 @@ def main() -> int:
     new_paths = {"sample path": sample[1],
                  **{k: v[0] for k, v in {**spec_runs, **spec4_runs}.items()},
                  **{k: v[0] for k, v in strategy_scheds.items()}}
+    new_paths.update({path: run[0] for path, run in resilience.items()})
     launched["quant_matmul"] += sum(c["quant_matmul"]
                                     for c in new_paths.values())
+    for k in ("prefill_attention", "decode_attention"):
+        launched[k] += sum(d[k] for d in dense_by_path.values())
     verify_by_path = {k: v[1] for k, v in spec_runs.items()}
     verify_by_path["speculative scheduler"] = strategy_scheds[
         "speculative scheduler"][1]["prefill_attention"]
@@ -3230,6 +3577,10 @@ def main() -> int:
             e["launches_by_path"] = {"main path": counts["quant_matmul"],
                                      **{k: c["quant_matmul"]
                                         for k, c in new_paths.items()}}
+        if kernel in ("prefill_attention", "decode_attention"):
+            e["launches_by_path"] = {"main path": counts[kernel],
+                                     **{path: d[kernel] for path, d in
+                                        dense_by_path.items()}}
         if kernel == "prefill_attention@paged-bf16":
             e["launches_by_path"] = {"int8_w_bf16_kv paged path":
                                      launched[kernel]}

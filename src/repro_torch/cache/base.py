@@ -13,6 +13,12 @@ Unlike the reference's immutable pytree, every write (``append``,
 decode step then moves only the new token's bytes) and returns the same
 object.
 
+``state_dict`` / ``from_state_dict`` snapshot a cache with the reference's
+layout names, static fields and array names, for the scheduler's
+snapshots; ``load_state_dict_`` restores one into an existing cache in
+place (the scheduler's captured decode block keeps reading the tensors it
+was captured with).
+
 The paged layout is ``repro_torch.cache.paged``; the SWA ring buffer is
 ROADMAP Queue A item 9.
 """
@@ -21,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.packing import pack_int4, unpack_int4
@@ -105,11 +112,133 @@ def storage_dtype(quantized: bool, dtype) -> torch.dtype:
     return dtype
 
 
+# layout name -> cache class, filled as each layout class is defined;
+# ``QuantizedKV.from_state_dict`` dispatches through it
+LAYOUT_REGISTRY: dict = {}
+
+
+def _unbox(v):
+    """A python scalar or string back from the 0-d array or tensor a
+    checkpoint round trip makes of it."""
+    if isinstance(v, torch.Tensor):
+        return v.item()
+    if isinstance(v, np.ndarray) and v.ndim == 0:
+        v = v.item()
+    if isinstance(v, np.generic):
+        v = v.item()
+    if isinstance(v, (bytes, np.bytes_)):
+        v = v.decode()
+    return v
+
+
+def _as_tensor(a, device=None) -> torch.Tensor:
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+    return t.to(device) if device is not None else t
+
+
 class QuantizedKV:
     """The scale half of the cache protocol, shared by every layout (a
     dataclass with ``k``, ``k_scale``, ``v_scale`` and ``bits`` fields).  A
     float cache (``quantized`` False) keeps unit scales: callers never
-    install calibrated ones into it."""
+    install calibrated ones into it.
+
+    Snapshots follow the reference's ``KVCache.state_dict``: the layout
+    name, the static fields ``STATIC`` (``_quantized`` among them, which
+    the port derives from the storage dtype) and every other field as an
+    array."""
+
+    STATIC = ("_quantized", "bits")
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        layout = cls.__dict__.get("layout")
+        if layout is not None:
+            LAYOUT_REGISTRY[layout] = cls
+
+    @classmethod
+    def _child_names(cls):
+        return tuple(f.name for f in dataclasses.fields(cls)
+                     if f.name not in cls.STATIC)
+
+    def _static_values(self) -> dict:
+        return {s: (self.quantized if s == "_quantized" else getattr(self, s))
+                for s in self.STATIC}
+
+    def state_dict(self) -> dict:
+        """The cache as ``{"layout", "static", "arrays"}``, every array a
+        CPU copy; round-trips bit-exactly through ``from_state_dict`` and
+        ``load_state_dict_``, and through ``CheckpointManager``."""
+        return {"layout": self.layout, "static": self._static_values(),
+                "arrays": {n: getattr(self, n).detach().to("cpu", copy=True)
+                           for n in self._child_names()}}
+
+    @staticmethod
+    def from_state_dict(sd: dict, device=None):
+        """A new cache from a ``state_dict`` (tensors or numpy arrays, the
+        scalars possibly boxed by a checkpoint round trip), on ``device``
+        (None: where the arrays are)."""
+        layout = _unbox(sd["layout"])
+        cls = LAYOUT_REGISTRY.get(layout)
+        if cls is None:
+            raise ValueError(
+                f"unknown cache layout {layout!r} in state dict "
+                f"(registered: {sorted(LAYOUT_REGISTRY)})")
+        static = {k: _unbox(v) for k, v in sd["static"].items()}
+        # snapshots from before int4 carry no bit width: int8 by
+        # construction, as in the reference
+        static.setdefault("bits", 8)
+        missing = set(cls.STATIC) - set(static)
+        if missing:
+            raise ValueError(f"{layout} cache state dict missing static "
+                             f"field(s) {sorted(missing)}")
+        arrays = {k: _as_tensor(v, device) for k, v in sd["arrays"].items()}
+        want = set(cls._child_names())
+        if set(arrays) != want:
+            raise ValueError(f"{layout} cache state dict arrays mismatch: got "
+                             f"{sorted(arrays)}, want {sorted(want)}")
+        quantized = bool(static.pop("_quantized"))
+        if quantized != (arrays["k"].dtype == torch.int8):
+            raise ValueError(f"{layout} cache state dict says quantized="
+                             f"{quantized} over {arrays['k'].dtype} tiles")
+        return cls(**arrays, **{k: static[k] for k in cls.STATIC
+                                if k != "_quantized"})
+
+    def check_state_dict(self, sd: dict):
+        """Raise unless ``sd`` has this cache's layout, static fields and
+        array names, shapes and dtypes (what ``load_state_dict_`` needs)."""
+        layout = _unbox(sd["layout"])
+        if layout != self.layout:
+            raise ValueError(f"state dict of a {layout} cache, this cache is "
+                             f"{self.layout}")
+        static = {k: _unbox(v) for k, v in sd["static"].items()}
+        static.setdefault("bits", 8)
+        own = self._static_values()
+        bad = {k: (static.get(k), v) for k, v in own.items()
+               if static.get(k) != v}
+        if bad:
+            raise ValueError(f"{layout} cache state dict static fields "
+                             f"differ (saved, live): {bad}")
+        if set(sd["arrays"]) != set(self._child_names()):
+            raise ValueError(f"{layout} cache state dict arrays mismatch: got "
+                             f"{sorted(sd['arrays'])}, want "
+                             f"{sorted(self._child_names())}")
+        for n in self._child_names():
+            a, live = _as_tensor(sd["arrays"][n]), getattr(self, n)
+            if a.shape != live.shape or a.dtype != live.dtype:
+                raise ValueError(
+                    f"{layout} cache state dict array {n!r} is "
+                    f"{tuple(a.shape)}/{a.dtype}, the cache holds "
+                    f"{tuple(live.shape)}/{live.dtype}")
+
+    def load_state_dict_(self, sd: dict):
+        """Restore a ``state_dict`` of the same layout, statics and shapes
+        into this cache's tensors with ``copy_``: every tensor keeps its
+        storage (a captured program reading them sees the restored
+        values).  Returns self."""
+        self.check_state_dict(sd)
+        for n in self._child_names():
+            getattr(self, n).copy_(_as_tensor(sd["arrays"][n]))
+        return self
 
     @property
     def quantized(self) -> bool:

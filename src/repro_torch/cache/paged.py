@@ -27,8 +27,11 @@ the full pages of a registered prompt are shared by reference, the partial
 tail page is snapshotted at registration and copied into a sharer's
 private page.  As in the dense layout, every write goes into the pool in
 place.  ``PagedCache.rollback`` with ``private_row`` is the copy-on-rewind
-that keeps shared pages immutable under speculative decoding; the
-``state_dict`` snapshots are ROADMAP Queue A item 14.
+that keeps shared pages immutable under speculative decoding.  Snapshots:
+``PagedCache.state_dict`` (the table is an array, ``page_size`` a static
+field, as in the reference) and ``PrefixStore.state_dict`` /
+``load_state_dict`` (LRU order, the slots holding each entry, its stored
+logits).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import dataclasses
 from collections import OrderedDict
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.cache.base import (KernelView, QuantizedKV, storage_dtype,
@@ -51,6 +55,7 @@ class PagedCache(QuantizedKV):
     sequence axis is tiled into pages."""
 
     layout = "paged"
+    STATIC = ("_quantized", "page_size", "bits")
 
     k: torch.Tensor        # (T, ps, KV, D) int8 (D/2 packed bytes at bits 4)
     #                        or float (a float pool)
@@ -329,3 +334,58 @@ class PrefixStore:
 
     def register(self, key: tuple, entry: PrefixEntry):
         self._entries[key] = {"entry": entry, "users": set()}
+
+    # -- snapshot / restore --------------------------------------------------
+    def state_dict(self) -> dict:
+        """The free list, the counters and every entry in LRU order, with
+        the slots holding it (``users``) and its stored last-position
+        logits (a hit takes its first token from them).  Everything is
+        JSON-compatible except the logits, CPU tensors, which the scheduler
+        routes through the checkpoint's array tree."""
+        return {
+            "page_size": self.page_size,
+            "free": [int(p) for p in self._free],
+            "counters": {"hits": self.hits, "misses": self.misses,
+                         "shared_tokens": self.shared_tokens,
+                         "evictions": self.evictions,
+                         "exhausted": self.exhausted},
+            "entries": [
+                {"key": [int(t) for t in key],
+                 "pages": [int(p) for p in d["entry"].pages],
+                 "tail_page": (None if d["entry"].tail_page is None
+                               else int(d["entry"].tail_page)),
+                 "length": int(d["entry"].length),
+                 "users": sorted(int(s) for s in d["users"]),
+                 "logits": torch.as_tensor(d["entry"].logits).detach().to(
+                     "cpu", copy=True)}
+                for key, d in self._entries.items()],
+        }
+
+    def load_state_dict(self, sd: dict, device=None):
+        """Restore a ``state_dict`` in place (LRU order kept), the logits
+        onto ``device``.  The pool pages the entries point at are restored
+        with the cache."""
+        if int(sd["page_size"]) != self.page_size:
+            raise ValueError(
+                f"prefix store page_size mismatch: snapshot has "
+                f"{sd['page_size']}, store has {self.page_size}")
+        self._free = [int(p) for p in sd["free"]]
+        c = sd["counters"]
+        self.hits = int(c["hits"])
+        self.misses = int(c["misses"])
+        self.shared_tokens = int(c["shared_tokens"])
+        self.evictions = int(c["evictions"])
+        self.exhausted = int(c["exhausted"])
+        self._entries = OrderedDict()
+        for e in sd["entries"]:
+            logits = e["logits"]
+            if not isinstance(logits, torch.Tensor):
+                logits = torch.from_numpy(np.asarray(logits))
+            entry = PrefixEntry(
+                pages=tuple(int(p) for p in e["pages"]),
+                tail_page=(None if e["tail_page"] is None
+                           else int(e["tail_page"])),
+                length=int(e["length"]),
+                logits=logits if device is None else logits.to(device))
+            self._entries[tuple(int(t) for t in e["key"])] = {
+                "entry": entry, "users": set(int(s) for s in e["users"])}

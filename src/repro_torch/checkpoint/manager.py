@@ -19,7 +19,8 @@ bfloat16 leaves are written through a ``uint16`` view as the 2-byte void
 dtype ``|V2``: the bytes the reference writes, since ``np.savez`` stores
 its ml_dtypes bfloat16 that way.  On restore ``|V2`` becomes
 ``torch.bfloat16`` (no other 2-byte void is written here).  The reference
-hands ``|V2`` back as it is, which JAX rejects (ROADMAP Queue C).
+hands ``|V2`` back as it is, which JAX rejects (ROADMAP Queue C).  String
+leaves (a KV cache snapshot's layout name) come back as 0-d numpy arrays.
 """
 from __future__ import annotations
 
@@ -74,7 +75,11 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
+def _to_tensor(a: np.ndarray, device):
+    """A read leaf as a tensor on ``device``; a string leaf (a cache
+    snapshot's layout name) stays the numpy array it was read as."""
+    if a.dtype.kind in "US":
+        return a
     if a.dtype == _BF16_ON_DISK:
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:

@@ -21,6 +21,12 @@
                                     cache_layout="paged", page_size=64,
                                     prefill_chunk=128)
     completions = engine.generate(requests, max_slots=8)  # scheduler.Request
+    # resilience and durability of the scheduler: a bounded queue, a fault
+    # plan, a write-ahead journal (recover() after a crash) or snapshots
+    engine = Engine.from_checkpoint("smollm-135m", smoke=False,
+                                    queue_cap=16, fault_plan={"reject": [3]},
+                                    journal="requests.jsonl")
+    completions = engine.recover(max_slots=8)
     # the params of a training checkpoint (python -m repro_torch.launch.train):
     engine = Engine.from_checkpoint("smollm-135m", smoke=False,
                                     checkpoint_dir="/tmp/fat_ckpt")
@@ -71,20 +77,9 @@ from repro_torch.core import api as A
 from repro_torch.launch import prng
 from repro_torch.launch import steps as ST
 from repro_torch.launch import strategies as SG
+from repro_torch.launch.faults import FaultPlan
 from repro_torch.launch.graphs import Program
 from repro_torch.models import build_model
-
-# options of the reference Engine that are not ported, and the ROADMAP
-# Queue A item that ports each
-_NOT_PORTED = {
-    "queue_cap": "item 14 (resilience)",
-    "shed_policy": "item 14 (resilience)",
-    "fault_plan": "item 14 (resilience)",
-    "journal": "item 14 (durability)",
-    "snapshot_every": "item 14 (durability)",
-    "snapshot_dir": "item 14 (durability)",
-}
-
 
 def resolve_device(device=None) -> torch.device:
     """``None`` -> the CUDA device, raising when there is none; anything
@@ -189,7 +184,15 @@ class Engine:
     "sample" (``temperature``, ``top_p``, keys from ``seed``) or
     "speculative" (``spec_k`` drafts from ``spec_ngram``-gram prompt
     lookup), None picking "sample" when ``temperature`` > 0, else greedy,
-    as the reference does."""
+    as the reference does.
+
+    The scheduler's resilience and durability knobs, as in the reference:
+    ``queue_cap`` and ``shed_policy`` ("shed" | "block") bound its
+    admission queue; ``fault_plan`` (a ``FaultPlan`` or anything its
+    ``parse`` takes) injects deterministic faults; ``journal`` is the
+    write-ahead journal's path (``recover``); ``snapshot_every`` > 0 writes
+    a snapshot every N block boundaries at ``snapshot_dir``, which alone
+    enables ``save_state`` / ``load_state``."""
 
     def __init__(self, model, cfg, policy: A.QuantPolicy, serve_params,
                  qparams, *, device, mode: str = "int8",
@@ -198,7 +201,11 @@ class Engine:
                  prefill_chunk: Optional[int] = None,
                  decode_strategy: Optional[str] = None,
                  temperature: float = 0.0, top_p: float = 1.0,
-                 seed: int = 0, spec_k: int = 4, spec_ngram: int = 2):
+                 seed: int = 0, spec_k: int = 4, spec_ngram: int = 2,
+                 queue_cap: Optional[int] = None, shed_policy: str = "shed",
+                 fault_plan=None, journal: Optional[str] = None,
+                 snapshot_every: int = 0,
+                 snapshot_dir: Optional[str] = None):
         from repro_torch.cache import LAYOUTS
 
         if cache_layout not in LAYOUTS:
@@ -207,6 +214,9 @@ class Engine:
         if mode not in ("none", "int8"):
             raise ValueError(f"serving mode must be 'none' or 'int8', got "
                              f"{mode!r}")
+        fault_plan = self._check_serving_knobs(
+            shed_policy=shed_policy, snapshot_every=snapshot_every,
+            snapshot_dir=snapshot_dir, fault_plan=fault_plan)
         # validation through the single authority: a bad strategy or knob
         # raises at construction, not at the first generate
         self._strategy = SG.make_strategy(
@@ -221,6 +231,10 @@ class Engine:
         self.decode_strategy = decode_strategy
         self.temperature, self.top_p, self.seed = temperature, top_p, seed
         self.spec_k, self.spec_ngram = spec_k, spec_ngram
+        self.queue_cap, self.shed_policy = queue_cap, shed_policy
+        self.fault_plan = fault_plan
+        self.journal = journal
+        self.snapshot_every, self.snapshot_dir = snapshot_every, snapshot_dir
         # per-step losses and wall times of the threshold fine-tune, if
         # this engine ran one
         self.finetune_log = finetune_log or {}
@@ -243,7 +257,11 @@ class Engine:
                         decode_strategy: Optional[str] = None,
                         temperature: float = 0.0, top_p: float = 1.0,
                         seed: int = 0, spec_k: int = 4, spec_ngram: int = 2,
-                        **not_ported) -> "Engine":
+                        queue_cap: Optional[int] = None,
+                        shed_policy: str = "shed", fault_plan=None,
+                        journal: Optional[str] = None,
+                        snapshot_every: int = 0,
+                        snapshot_dir: Optional[str] = None) -> "Engine":
         """Build a ready-to-serve Engine.
 
         ``params`` is the reference's param tree as bridged tensors
@@ -270,14 +288,21 @@ class Engine:
         max-abs calibration over-shoots).  ``cache_layout``,
         ``page_size``, ``prefill_chunk``, ``decode_strategy`` and its knobs
         (``temperature``, ``top_p``, ``seed``, ``spec_k``, ``spec_ngram``)
-        go to the Engine (see the class).  ``cfg`` overrides the registry
+        and the scheduler's resilience and durability knobs (``queue_cap``,
+        ``shed_policy``, ``fault_plan``, ``journal``, ``snapshot_every``,
+        ``snapshot_dir``) go to the Engine (see the class), which checks
+        them before any weight is built.  ``cfg`` overrides the registry
         lookup (``arch``/``smoke`` are then ignored)."""
-        for name in not_ported:
-            if name not in _NOT_PORTED:
-                raise TypeError(f"unexpected argument {name!r}")
-            raise NotImplementedError(
-                f"Engine option {name!r} is not ported (ROADMAP Queue A "
-                f"{_NOT_PORTED[name]})")
+        serving_kw = dict(cache_layout=cache_layout, page_size=page_size,
+                          prefill_chunk=prefill_chunk,
+                          decode_strategy=decode_strategy,
+                          temperature=temperature, top_p=top_p, seed=seed,
+                          spec_k=spec_k, spec_ngram=spec_ngram,
+                          queue_cap=queue_cap, shed_policy=shed_policy,
+                          fault_plan=fault_plan, journal=journal,
+                          snapshot_every=snapshot_every,
+                          snapshot_dir=snapshot_dir)
+        cls._check_serving_knobs(**serving_kw)
         if params is not None and checkpoint_dir is not None:
             raise ValueError("pass params or checkpoint_dir, not both")
         if qparams is not None and finetune_thresholds:
@@ -322,12 +347,25 @@ class Engine:
                 model, policy, params, batches, convert=not fp,
                 finetune_epochs=finetune_thresholds, finetune_log=log)
         return cls(model, cfg, policy, serve_params, qparams, device=dev,
-                   mode="none" if fp else "int8",
-                   finetune_log=log, cache_layout=cache_layout,
-                   page_size=page_size, prefill_chunk=prefill_chunk,
-                   decode_strategy=decode_strategy, temperature=temperature,
-                   top_p=top_p, seed=seed, spec_k=spec_k,
-                   spec_ngram=spec_ngram)
+                   mode="none" if fp else "int8", finetune_log=log,
+                   **serving_kw)
+
+    @staticmethod
+    def _check_serving_knobs(*, shed_policy, snapshot_every, snapshot_dir,
+                             fault_plan, **_):
+        """The scheduler knobs' checks of the constructor, run before
+        ``from_checkpoint`` builds and calibrates the weights; returns the
+        parsed fault plan (None: none)."""
+        if shed_policy not in ("shed", "block"):
+            raise ValueError(f"shed_policy must be 'shed' or 'block', got "
+                             f"{shed_policy!r}")
+        if snapshot_every < 0:
+            raise ValueError(
+                f"snapshot_every must be >= 0, got {snapshot_every}")
+        if snapshot_every > 0 and snapshot_dir is None:
+            raise ValueError(
+                "snapshot_every > 0 needs a snapshot_dir to write to")
+        return None if fault_plan is None else FaultPlan.parse(fault_plan)
 
     def _init_kw(self) -> dict:
         """The constructor's keyword arguments of this engine, other than
@@ -338,7 +376,10 @@ class Engine:
                     decode_strategy=self.decode_strategy,
                     temperature=self.temperature, top_p=self.top_p,
                     seed=self.seed, spec_k=self.spec_k,
-                    spec_ngram=self.spec_ngram)
+                    spec_ngram=self.spec_ngram, queue_cap=self.queue_cap,
+                    shed_policy=self.shed_policy, fault_plan=self.fault_plan,
+                    journal=self.journal, snapshot_every=self.snapshot_every,
+                    snapshot_dir=self.snapshot_dir)
 
     def to(self, device) -> "Engine":
         """The same engine (same serving weights and thresholds) on another
@@ -590,14 +631,18 @@ class Engine:
                        gen_cap: int = 32, block_steps: int = 8,
                        eos_id: int = -1, prefix_pages: Optional[int] = None):
         """Build (or reuse) the slot scheduler for this engine's layout.  It
-        is kept per knob set, so repeated ``generate`` calls keep the paged
-        layout's prefix store (shared pages persist across calls)."""
+        is kept per knob set (the engine's resilience and durability knobs
+        among them: a ``FaultPlan`` is hashable), so repeated ``generate``
+        calls keep the paged layout's prefix store (shared pages persist
+        across calls) and the captured programs."""
         from repro_torch.launch.scheduler import SlotScheduler
 
         key = (max_slots, prompt_cap, gen_cap, block_steps, eos_id,
                prefix_pages, self.cache_layout, self.page_size,
                self.prefill_chunk, self.decode_strategy, self.temperature,
-               self.top_p, self.seed, self.spec_k, self.spec_ngram)
+               self.top_p, self.seed, self.spec_k, self.spec_ngram,
+               self.queue_cap, self.shed_policy, self.fault_plan,
+               self.journal, self.snapshot_every, self.snapshot_dir)
         if self._scheduler is None or self._scheduler_key != key:
             self._scheduler = None      # free the old programs first
             self._scheduler = SlotScheduler(
@@ -611,7 +656,10 @@ class Engine:
                 prefix_pages=prefix_pages, eos_id=eos_id,
                 strategy=self.decode_strategy, temperature=self.temperature,
                 top_p=self.top_p, seed=self.seed, spec_k=self.spec_k,
-                spec_ngram=self.spec_ngram)
+                spec_ngram=self.spec_ngram, queue_cap=self.queue_cap,
+                shed_policy=self.shed_policy, fault_plan=self.fault_plan,
+                journal=self.journal, snapshot_every=self.snapshot_every,
+                snapshot_dir=self.snapshot_dir)
             self._scheduler_key = key
         return self._scheduler
 
@@ -633,3 +681,46 @@ class Engine:
             max_slots=max_slots, prompt_cap=prompt_cap, gen_cap=gen_cap,
             block_steps=block_steps, eos_id=eos_id)
         return sched.run(reqs, max_blocks=max_blocks)
+
+    def health_report(self) -> dict:
+        """The scheduler's ``health_stats()`` (terminal statuses, retirement
+        causes, preemption, re-admission, shedding and deadline counters,
+        ``recoveries`` and ``replayed_tokens``), accumulated over
+        ``generate`` calls; empty before the first."""
+        if self._scheduler is None:
+            return {}
+        return self._scheduler.health_stats()
+
+    # -- durability (launch/journal.py and the scheduler's recovery) --------
+    def save_state(self) -> str:
+        """Snapshot the live scheduler's serving state at ``snapshot_dir``;
+        returns the checkpoint's path.  Needs a scheduler (a prior
+        ``generate`` / ``make_scheduler``)."""
+        if self._scheduler is None:
+            raise ValueError("no scheduler to snapshot: call generate()/"
+                             "make_scheduler() first")
+        return self._scheduler.save_state()
+
+    def load_state(self, **scheduler_kw) -> int:
+        """Restore the newest snapshot into the scheduler of
+        ``scheduler_kw`` (the crashed run's ``make_scheduler`` knobs; a
+        mismatch raises); returns the restored block counter.  Follow with
+        ``resume_run`` on ``make_scheduler(...)``, or use ``resume``."""
+        return self.make_scheduler(**scheduler_kw).load_state()
+
+    def recover(self, *, max_blocks: Optional[int] = None,
+                **scheduler_kw) -> list:
+        """Journal-replay crash recovery: the scheduler of ``scheduler_kw``
+        (the crashed run's knobs; this engine built with the crashed run's
+        ``journal``) replays it and drives the run to completion.  Returns
+        every completion of the logical run."""
+        return self.make_scheduler(**scheduler_kw).recover(
+            max_blocks=max_blocks)
+
+    def resume(self, *, max_blocks: Optional[int] = None,
+               **scheduler_kw) -> list:
+        """Snapshot recovery: ``load_state``, then drive the restored run
+        to completion."""
+        sched = self.make_scheduler(**scheduler_kw)
+        sched.load_state()
+        return sched.resume_run(max_blocks=max_blocks)

@@ -420,7 +420,11 @@ def make_strategy_slot_loop(model, policy: A.QuantPolicy,
       * capacity guard BEFORE the write: a slot without room for a whole
         ``emit_width`` window freezes instead of clamp-writing;
       * non-finite logits freeze only the slot that produced them: it
-        emits nothing from that step on and comes back flagged in ``bad``;
+        emits nothing from that step on and comes back flagged in ``bad``.
+        The optional ``nan_step`` ((B,) int32, -1 = never) forces a live
+        slot's logits to NaN at that in-block step, the fault-injection
+        hook (``launch/faults.py``): data, so a faulted block replays the
+        clean block's capture;
       * EOS (``eos_id >= 0``): the EOS lane itself is emitted, later lanes
         are cut and the slot freezes, holding the EOS as its pending token,
         without touching the rest of the batch;
@@ -428,14 +432,15 @@ def make_strategy_slot_loop(model, policy: A.QuantPolicy,
         different rates under speculation).
 
     ``(params, qparams, tok0 (B,), cache, pos0 (B,), active0 (B,), key=None,
-    hist=None) -> (toks (B, n_steps * W), emitted (B, n_steps * W), cache,
-    pos, active, key, hist, bad)``, lane j of step i at column i * W + j.
+    hist=None, nan_step=None) -> (toks (B, n_steps * W), emitted (B,
+    n_steps * W), cache, pos, active, key, hist, bad)``, lane j of step i at
+    column i * W + j.
     ``key`` is one (2,) key or (B, 2) per-slot keys.  The carry stays on the
     device: the block needs no host synchronization."""
     w = strategy.emit_width
 
     def slot_loop(serve_params, qparams, tok0, cache, pos0, active0,
-                  key=None, hist=None):
+                  key=None, hist=None, nan_step=None):
         if strategy.stateful and hist is None:
             raise ValueError("a stateful strategy needs its history buffer")
         cache_len = attn_cache_len(cache)
@@ -448,11 +453,16 @@ def make_strategy_slot_loop(model, policy: A.QuantPolicy,
             hist = tok.new_zeros((tok.shape[0], 0))
         bad_acc = torch.zeros_like(active)
         all_toks, all_emitted = [], []
-        for _ in range(n_steps):
+        for i in range(n_steps):
             active = active & (pos + w <= cache_len)
             drafts = strategy.propose(tok, pos, hist)
             logits, cache = strategy.verify(serve_params, qparams, tok,
                                             drafts, cache, pos, active)
+            if nan_step is not None:
+                # an injected fault: the scheduled slots' logits turn NaN
+                # here and take the detection below, as a model fault would
+                hit = (nan_step == i) & active
+                logits = logits.masked_fill(hit[:, None, None], float("nan"))
             nxt, toks, emitted, key = strategy.accept(tok, drafts, logits,
                                                       active, key)
             nxt = torch.where(active, nxt, tok)       # frozen slots hold

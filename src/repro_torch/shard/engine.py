@@ -2,7 +2,9 @@
 
 Counterpart of ``repro/shard/engine.py``.  An ``Engine`` whose model is a
 ``ShardedModel``; everything above the model surface (``generate_batch``,
-the slot scheduler of ``generate``) is inherited unchanged.
+the slot scheduler of ``generate``, its fault plans, deadlines,
+preemption, journal and snapshots) is inherited unchanged, as in the
+reference.
 
     engine = ShardedEngine.from_checkpoint("smollm-135m", smoke=False, sp=4)
     result = engine.generate_batch({"tokens": prompts}, gen=32)

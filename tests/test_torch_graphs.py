@@ -340,6 +340,39 @@ def test_scheduler_strategy_block_reads_nothing_back(engines, monkeypatch,
     assert torch.equal(sched._keys[0], keys[0]) == (scheme != "sample")
 
 
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_scheduler_faulted_block_and_resume_read_nothing_back(
+        engines, monkeypatch, layout):
+    """A fault plan's decode NaN is the block's ``nan_step`` buffer (data),
+    and the re-admission prefill is a program at ``resume_cap``: neither
+    reads back to the host.  The NaN freezes only its slot."""
+    eng = _twin(engines["int8"], layout if layout == "paged" else
+                "dense-chunked")
+    sched = eng.make_scheduler(max_slots=3, prompt_cap=16, gen_cap=8,
+                               block_steps=3)
+    with torch.inference_mode():
+        sched._programs()
+        resume = sched._resume_program()
+        sched._res_toks[0, :PROMPT + 2].copy_(torch.from_numpy(
+            _prompts(eng, b=1, s=PROMPT + 2)[0]))
+        sched._res_len.fill_(PROMPT + 2)
+        sched._tok.copy_(torch.tensor([3, 4, 5]))
+        sched._pos.copy_(torch.tensor([PROMPT, 5, 0], dtype=torch.int32))
+        sched._active.copy_(torch.tensor([True, True, False]))
+        sched._nan_step.copy_(torch.tensor([1, -1, 0], dtype=torch.int32))
+        resume()
+        with guarded(monkeypatch):
+            resume()
+            toks, emitted, pos, active, bad = sched._block()
+    assert sched._resume_program() is resume
+    assert sched.executable_counts() == {"prefill": 1, "decode": 1,
+                                         "resume": 1}
+    assert bad.tolist() == [True, False, False]
+    assert emitted[0].tolist() == [True, False, False]
+    assert emitted[1].all() and not emitted[2].any()
+    assert active.tolist() == [False, True, False]
+
+
 # -- (c) launch accounting --------------------------------------------------
 
 def test_launch_delta_arithmetic():

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the reference package,
 its entry points default to CUDA and raise without it, and the options it
-does not port raise instead of being ignored."""
+does not port raise instead of being ignored (the options and request
+fields that ROADMAP item 14 ported are taken and act)."""
 import os
 import pkgutil
 import subprocess
@@ -60,12 +61,36 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     (dict(journal="requests.jsonl"), "item 14"),
     (dict(sp=2, kv_int8=False), "item 20"),
 ], ids=lambda v: str(v))
-def test_unported_options_raise(kw, item):
+def test_unported_options_raise(kw, item, tmp_path):
+    """An option of a ROADMAP item still open raises.  The item-14 cases are
+    ported: the engine takes the option, hands it to its scheduler, and the
+    scheduler acts on it (a cap of 8 sheds the 2 arrivals beyond it; the
+    journal records the run)."""
+    from repro_torch.launch.scheduler import Request
     from repro_torch.shard import ShardedEngine
 
-    cls = ShardedEngine if "sp" in kw else E.Engine
-    with pytest.raises(NotImplementedError, match=item):
-        cls.from_checkpoint("smollm-135m", smoke=True, device="cpu", **kw)
+    if item != "item 14":
+        with pytest.raises(NotImplementedError, match=item):
+            ShardedEngine.from_checkpoint("smollm-135m", smoke=True,
+                                          device="cpu", **kw)
+        return
+    if "journal" in kw:
+        kw = dict(journal=str(tmp_path / kw["journal"]))
+    engine = E.Engine.from_checkpoint("smollm-135m", smoke=True,
+                                      device="cpu", **kw)
+    reqs = [Request(rid=r, tokens=np.full(4, r + 1, np.int32), max_gen=1)
+            for r in range(10)]
+    done = engine.generate(reqs, max_slots=1, block_steps=2)
+    sched = engine._scheduler
+    statuses = [c.status for c in done]
+    if "queue_cap" in kw:
+        assert sched.queue_cap == 8
+        assert statuses.count("shed") == 2 and statuses.count("ok") == 8
+    else:
+        assert statuses == ["ok"] * 10
+        replay = sched._journal.replay()
+        assert replay.knobs == sched._knobs()
+        assert sorted(d["rid"] for d in replay.done) == list(range(10))
 
 
 @pytest.mark.parametrize("kw,strategy", [
@@ -86,10 +111,29 @@ def test_sampling_and_speculative_options_build(kw, strategy):
 @pytest.mark.parametrize("kw", [dict(deadline_ms=50.0), dict(priority=1)],
                          ids=["deadline_ms", "priority"])
 def test_unported_request_fields_raise(kw):
+    """ROADMAP item 14 ported both fields: a request takes them and the
+    scheduler acts on them on the virtual clock (10 ms a block).  A second
+    request arriving at 10 ms behind an 8-token one in the one slot times
+    out 50 ms after its arrival, or, at a higher priority, preempts it."""
     from repro_torch.launch.scheduler import Request
 
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Request(rid=0, tokens=np.ones(4, np.int32), **kw)
+    engine = E.Engine.from_checkpoint("smollm-135m", smoke=True,
+                                      device="cpu",
+                                      fault_plan={"ms_per_block": 10.0})
+    reqs = [Request(rid=0, tokens=np.ones(4, np.int32), max_gen=8),
+            Request(rid=1, tokens=np.arange(1, 5, dtype=np.int32),
+                    max_gen=8, arrive_ms=10.0, **kw)]
+    assert all(getattr(reqs[1], k) == v for k, v in kw.items())
+    done = {c.rid: c for c in engine.generate(reqs, max_slots=1,
+                                              block_steps=2)}
+    health = engine.health_report()
+    if "priority" in kw:
+        assert health["preemptions"] == health["readmits"] == 1
+        assert [done[r].status for r in (0, 1)] == ["ok", "ok"]
+        assert list(done) == [1, 0]
+    else:
+        assert done[1].status == "timeout" and done[0].status == "ok"
+        assert health["deadline_misses"] == 1
 
 
 def test_unported_architectures_raise():

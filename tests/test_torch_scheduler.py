@@ -108,8 +108,7 @@ def test_scheduler_sizing_and_counts_match_reference(engines, served):
     assert (ours.prompt_cap, ours.cache_len, ours.resume_cap) == (
         ref.prompt_cap, ref.cache_len, ref._resume_cap)
     assert isinstance(ours._cache["layer0"]["attn"], PagedCache)
-    want = {k: v for k, v in ref.call_counts().items() if k != "resume"}
-    assert ours.call_counts() == want
+    assert ours.call_counts() == ref.call_counts()
     assert ours.prefix_stats() == ref.prefix_stats()
     health = ours.health_stats()
     assert health["ok"] == health["budget"] == len(LENGTHS)
@@ -257,9 +256,19 @@ def test_requests_validated_and_unported_knobs_raise(engines):
     by = {c.rid: c for c in done}
     assert by[0].status == by[1].status == "rejected"
     assert by[2].status == "ok" and len(by[2].tokens) == 2
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # the bounded queue (ROADMAP item 14) is ported: a cap of 1 sheds the
+    # arrivals beyond it, and a cap below 1 raises as in the reference
+    sched = SlotScheduler(eng.model, eng.cfg, eng.policy, eng.serve_params,
+                          eng.qparams, queue_cap=1, max_slots=1,
+                          prompt_cap=8, prefill_chunk=CHUNK,
+                          block_steps=BLOCK)
+    shed = {c.rid: c.status for c in sched.run(
+        [Request(rid=r, tokens=np.ones(4, np.int32), max_gen=2)
+         for r in range(3)])}
+    assert shed == {0: "ok", 1: "shed", 2: "shed"}
+    with pytest.raises(ValueError, match="queue_cap must be >= 1"):
         SlotScheduler(eng.model, eng.cfg, eng.policy, eng.serve_params,
-                      eng.qparams, queue_cap=4)
+                      eng.qparams, queue_cap=0)
     # speculative decoding is ported; its knobs are validated as in the
     # reference
     with pytest.raises(ValueError, match="draft_k must be >= 1"):
