@@ -7,9 +7,10 @@
    checks that every instantiation of the prefill attention kernel runs on
    the tensor cores (HMMA in its SASS), every instantiation of
    quant_matmul's prefill kernel on the int8 tensor cores (IMMA) and every
-   instantiation of its decode kernel on dp4a (IDP), none of them spilling
-   registers; prints the decode kernel's column tile and cluster size at
-   each of smollm-135m's widths;
+   instantiation of its decode kernel on dp4a (IDP), none of them nor of
+   the decode attention kernel (B1, B4) spilling registers; prints each
+   library's nvcc time and the decode kernel's column tile and cluster
+   size at each of smollm-135m's widths;
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes of the main path (quant_matmul bit for bit at decode rows M = 4,
    8 and 1, each also timed with the L2 cache flushed, admission,
@@ -123,7 +124,19 @@
    acceptance printed; [speculative scheduler] and [sampled scheduler]: 16
    ragged requests through 8 slots of the paged cache, completions against
    batch-1 runs up to a near-tie, sampled streams independent of arrival
-   order, ``spec_stats()`` printed.
+   order, ``spec_stats()`` printed;
+19. the dense decoders beyond smollm-135m: [kernels] holds B1, B2 and B4
+   at the heads (KV, G, D) = (8, 4, 128), (8, 4, 160), (8, 2, 256) of
+   granite-8b, stablelm-12b and gemma3-12b (int8, int4, bf16 K/V, dense
+   and paged, the same rules as at D 64), B2 at gemma3's window of 1024
+   over 2 x 2048 keys and B3 bit for bit at the three configs' widths
+   (M = 1, 4, 8, 128, 2048; decode column tiles and clusters printed);
+   [<arch> path] serves each config at full width and depth (weights drawn
+   on the card) through ``drive_main_path`` with a breakdown, peak device
+   memory and the resident int8 weight bytes; [gemma3-12b ring] serves 2
+   x 2048 prompts through its 40 rings of 1024 slots and holds the tokens
+   against dense caches; [<arch> cpu check] holds a full-width copy of
+   depth 2 against the CPU.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -188,6 +201,14 @@ LOGIT_ATOL = 0.25
 # the same at int4 KV: a K/V element that the bf16 differences move across
 # a rounding boundary moves by one int4 step, T/7, not T/127
 LOGIT_ATOL_INT4 = 0.5
+# the cut copies of the wider configs against the CPU, logits by config:
+# a first difference of one bf16 step, where the two devices' float32 sums
+# round to other neighbours (stablelm-12b's LayerNorm of layer 0; gemma3-
+# 12b's attention at D 256 in layer 0; granite-8b's only in the final
+# norm), crosses int8 steps in every later product.  Measured on an H100
+# at these seeds: 0.0312, 0.3096 (2 layers), 0.3667 (6 layers).
+WIDE_LOGIT_ATOL = {"granite-8b": LOGIT_ATOL, "stablelm-12b": 0.5,
+                   "gemma3-12b": 0.5}
 # GPU vs CPU for the engine's first fine-tune step (bfloat16), same inputs:
 # the loss's relative error, and the relative L2 error of all alpha (or all
 # KV log2_t) gradients together.  Both devices round differently, and at
@@ -324,16 +345,19 @@ def check_prefill_sass(build):
     ``prefill_attention_kernel`` holds HMMA instructions (cuobjdump -sass)
     and spills no register (ptxas -v); prints each one's registers and
     spills beside its count."""
-    res = ptxas_resources(build, "prefill_attention")
-    hmma = build.sass_counts("prefill_attention", "prefill_attention_kernel",
-                             "HMMA")
+    res, hmma = {}, {}
+    for lib in ("prefill_attention", "prefill_attention_wide"):
+        res.update(ptxas_resources(build, lib))
+        hmma.update(build.sass_counts(lib, "prefill_attention_kernel",
+                                      "HMMA"))
     for name, n in sorted(hmma.items(), key=lambda kv: prefill_variant(kv[0])):
         regs, spill = res.get(name, ("?", "?"))
         print(f"  prefill_attention_kernel [{prefill_variant(name)}]: {n} "
               f"HMMA, {regs} registers, spill stores {spill} bytes")
-    # q bf16/f32 x D <= 64/128 x int8/int4/bf16 K/V x dense/paged
-    if len(hmma) != 24 or min(hmma.values()) == 0:
-        raise AssertionError(f"prefill_attention: expected 24 instantiations, "
+    # q bf16/f32 x D <= 64/128/192/256 x int8/int4/bf16 K/V x dense/paged,
+    # D <= 128 and D > 128 in two libraries
+    if len(hmma) != 48 or min(hmma.values()) == 0:
+        raise AssertionError(f"prefill_attention: expected 48 instantiations, "
                              f"each with HMMA instructions; got {hmma}")
     spilled = {prefill_variant(n): r[1] for n, r in res.items()
                if "prefill_attention_kernel" in n and r[1] not in (0, "?")}
@@ -342,6 +366,49 @@ def check_prefill_sass(build):
     if len(res) < len(hmma):
         print("  (registers and spills not checked: the library was built "
               "by an earlier process, whose ptxas log this one lacks)")
+
+
+def decode_attn_variant(mangled):
+    """'q bf16, G<=4, D<=256, int8, paged' from a mangled
+    ``decode_attention_kernel<T, GMAX, DMAX, BITS, PAGED, PARTIALS>``
+    name."""
+    m = re.search(r"decode_attention_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)"
+                  r"ELi(\d)ELb(\d)ELb(\d)E", mangled)
+    if m is None:
+        return mangled
+    t, gmax, dmax, bits, paged, parts = m.groups()
+    return (f"q {'f32' if t == 'f' else 'bf16'}, G<={gmax}, D<={dmax}, "
+            f"int{bits}, {'paged' if paged == '1' else 'dense'}"
+            + (", partials" if parts == "1" else ""))
+
+
+def check_decode_attention_spills(build):
+    """B1 and B4 (one body): every instantiation of
+    ``decode_attention_kernel`` (q f32/bf16 x G <= 1/2/4/8/16 x int8/int4 x
+    dense/paged, in each library: B1 and B4 at D <= 128, and their _wide
+    twins at D <= 256) spills no register (ptxas -v); prints the D <= 256
+    instantiations' registers."""
+    for lib in ("decode_attention", "decode_attention_wide",
+                "decode_attention_partials",
+                "decode_attention_partials_wide"):
+        res = {n: r for n, r in ptxas_resources(build, lib).items()
+               if "decode_attention_kernel" in n}
+        for name, (regs, spill) in sorted(
+                res.items(), key=lambda kv: decode_attn_variant(kv[0])):
+            if "D<=256" in decode_attn_variant(name):
+                print(f"  {lib} [{decode_attn_variant(name)}]: {regs} "
+                      f"registers, spill stores {spill} bytes")
+        if res and len(res) != 40:
+            raise AssertionError(f"{lib}: expected 40 instantiations of "
+                                 f"decode_attention_kernel, got {len(res)}")
+        spilled = {decode_attn_variant(n): r[1] for n, r in res.items()
+                   if r[1] not in (0, "?")}
+        if spilled:
+            raise AssertionError(f"{lib} spills registers: {spilled}")
+        if not res:
+            print(f"  ({lib}: registers and spills not checked: the library "
+                  "was built by an earlier process, whose ptxas log this one "
+                  "lacks)")
 
 
 def qmm_variant(mangled):
@@ -760,24 +827,34 @@ def check_decode_edges(torch, ops, ref, dev, bits, gen):
               f"partials {ep:.2e}")
 
 
-def check_attention(torch, ops, ref, dev, bits):
+def head_variant(kvh, g, d):
+    """The JSON key suffix and name tag of an attention geometry other than
+    smollm-135m's (KV 3, G 3, D 64): the wider heads of granite-8b (D 128,
+    G 4), stablelm-12b (D 160, G 4) and gemma3-12b (D 256, G 2)."""
+    if (kvh, g, d) == (3, 3, 64):
+        return "", ""
+    return f"@D{d}", f", KV={kvh} G={g} D={d}"
+
+
+def check_attention(torch, ops, ref, dev, bits, kvh=3, g=3, d=64):
     """Both attention kernels at the main path's shapes with a ``bits`` K/V
     stream (8: int8, 4: int4 packed two per byte, 16: bf16 with unit
-    scales, which only the prefill kernel takes): against their plain
-    versions (main-path, ragged and windowed cases; bf16 also with a
-    float32 q), then timed, warm and with the L2 flushed before each
-    call."""
+    scales, which only the prefill kernel takes) and the heads (``kvh``,
+    ``g``, ``d``): against their plain versions (main-path, ragged and
+    windowed cases; bf16, and every stream past D 64, also with a float32
+    q), then timed, warm and with the L2 flushed before each call.  The
+    edge cases run at smollm-135m's heads (D 64)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import SPLIT
 
-    kvh, g, d = 3, 3, 64
     kv_bits = 8 if bits == 16 else bits
     cache_len = -(-(PROMPT + GEN) // 128) * 128
     gen = torch.Generator(device=dev).manual_seed(1)
     k_scale, v_scale = kv_scales(torch, gen, dev, bits, kvh)
-    tag = kv_kind(bits)
-    variant = {8: "", 4: "@int4", 16: "@bf16"}[bits]
+    dvar, dtag = head_variant(kvh, g, d)
+    tag = kv_kind(bits) + dtag
+    variant = {8: "", 4: "@int4", 16: "@bf16"}[bits] + dvar
     flush = l2_flush(torch, dev)
 
     def tiles(shape):
@@ -801,7 +878,7 @@ def check_attention(torch, ops, ref, dev, bits):
               torch.tensor([512, 300, 1, 0], dtype=torch.int32, device=dev),
               None),
              (zero, full, 100)]
-    q_dtypes = (torch.bfloat16, torch.float32) if bits == 16 else (
+    q_dtypes = (torch.bfloat16, torch.float32) if bits == 16 or d > 64 else (
         torch.bfloat16,)
     for q_dtype in q_dtypes:
         for q_start, kv_len, window in cases:
@@ -824,7 +901,8 @@ def check_attention(torch, ops, ref, dev, bits):
                 raise AssertionError(f"prefill_attention ({tag}): a request "
                                      "with kv_len 0 is not exact zeros")
             err = max(err, e)
-    check_prefill_edges(torch, ops, ref, dev, bits, gen)
+    if d == 64:
+        check_prefill_edges(torch, ops, ref, dev, bits, gen)
 
     def prefill():
         return ops.prefill_attention(q, k, v, k_scale, v_scale, zero, full,
@@ -850,7 +928,8 @@ def check_attention(torch, ops, ref, dev, bits):
           f"over q {[str(t).split('.')[-1] for t in q_dtypes]} (tolerance "
           f"{ATTN_TOL} x (1 + max|out|))")
     entries.append({
-        "name": f"prefill_attention[{tag} K/V, B={B}, S={PROMPT}, one layer]",
+        "name": f"prefill_attention[{kv_kind(bits)} K/V, B={B}, S={PROMPT}"
+                f"{dtag}, one layer]",
         "route": "cuda", "source": "src/repro_torch/csrc/prefill_attention.cu",
         "replaces": "src/repro/kernels/prefill_attention.py:192",
         "kernel": "prefill_attention" + variant, "max_abs_err": err, "ms": ms,
@@ -894,7 +973,8 @@ def check_attention(torch, ops, ref, dev, bits):
                 f"positions holding the same rows: max |diff| "
                 f"{(got - longer).abs().max().item()}")
         err = max(err, e)
-    check_decode_edges(torch, ops, ref, dev, bits, gen)
+    if d == 64:
+        check_decode_edges(torch, ops, ref, dev, bits, gen)
 
     def decode():
         return ops.decode_attention(qd, kc, vc, k_scale, v_scale, pos,
@@ -920,13 +1000,212 @@ def check_attention(torch, ops, ref, dev, bits):
           f"{ATTN_TOL} x (1 + max|out|)); caches of {cache_len} and "
           f"{long_len} bit-identical")
     entries.append({
-        "name": f"decode_attention[{tag} K/V, B={B}, cur_pos={cur}, one "
-                f"layer]",
+        "name": f"decode_attention[{kv_kind(bits)} K/V, B={B}, cur_pos={cur}"
+                f"{dtag}, one layer]",
         "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:172",
         "kernel": "decode_attention" + variant, "max_abs_err": err, "ms": ms,
         "cold_ms": cold, "call_ms": call, "plain_ms": plain, "bound_ms": bnd,
         "bound_by": by, "library_ms": lib, "split": SPLIT})
+    return entries
+
+
+# the attention heads of the wider dense configs: (KV, G, D)
+WIDE_HEADS = {"granite-8b": (8, 4, 128), "stablelm-12b": (8, 4, 160),
+              "gemma3-12b": (8, 2, 256)}
+# gemma3-12b's local layers: a sliding window of WINDOW keys; [gemma3-12b
+# ring] serves RING_B prompts of RING_PROMPT tokens
+WINDOW, RING_B, RING_PROMPT = 1024, 2, 2048
+
+
+def check_window_prefill(torch, ops, ref, dev):
+    """B2 at gemma3-12b's local layers: D 256, G 2, KV 8, window 1024 over
+    2 prompts of 2048 int8 keys, against its plain version (``ATTN_TOL``);
+    timed warm and L2-cold beside the plain version, SDPA with the band
+    mask and the bound (the keys each query sees).  Returns the JSON
+    entry."""
+    import torch.nn.functional as F
+
+    kvh, g, d = WIDE_HEADS["gemma3-12b"]
+    b, s = RING_B, RING_PROMPT
+    gen = torch.Generator(device=dev).manual_seed(29)
+    k_scale, v_scale = kv_scales(torch, gen, dev, 8, kvh)
+    q = torch.randn((b, s, kvh, g, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (kv_stream(torch, gen, dev, (b, s, kvh, d), 8) for _ in range(2))
+    zero = torch.zeros((b,), dtype=torch.int32, device=dev)
+    full = torch.full((b,), s, dtype=torch.int32, device=dev)
+
+    def kernel():
+        return ops.prefill_attention(q, k, v, k_scale, v_scale, zero, full,
+                                     causal=True, window=WINDOW)
+
+    def plain():
+        return ref.prefill_attention_ref(q, k, v, k_scale, v_scale, zero,
+                                         full, causal=True, window=WINDOW)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not err <= ATTN_TOL * (1 + want.abs().max().item()):
+        raise AssertionError(f"prefill_attention (window {WINDOW}, D {d}) "
+                             f"disagrees with its plain version: max |diff| "
+                             f"{err}")
+    del got, want
+    ms, call = timed(torch, kernel)
+    cold = cold_ms(torch, kernel, l2_flush(torch, dev),
+                   "prefill_attention_kernel")
+    plain_ms, _ = timed(torch, plain, iters=2, warmup=1)
+    qh = q.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, s, d).contiguous()
+    kh = dequant_heads(torch, k, k_scale, g, 8)
+    vh = dequant_heads(torch, v, v_scale, g, 8)
+    pos = torch.arange(s, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :]
+                                             < WINDOW)
+    lib, _ = timed(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=band))
+    pairs = int(band.sum())
+    nbytes = q.numel() * 2 + 2 * b * s * kvh * d + 8 * kvh + 8 * b + \
+        q.numel() * 4
+    bnd, by = bound_ms(nbytes, 4 * d * pairs * b * kvh * g, BF16_FLOPS_PER_S)
+    print(f"  prefill_attention [int8, window {WINDOW}, KV={kvh} G={g} D={d}] "
+          f"B={b} S={s}: {ms * 1e3:.1f} us warm, {cold * 1e3:.1f} us L2-cold "
+          f"(per call {call * 1e3:.1f} us)  plain {plain_ms * 1e3:.1f} us  "
+          f"bound {bnd * 1e3:.2f} us ({by})  sdpa (band mask) {lib * 1e3:.1f}"
+          f" us  max|err| {err:.2e}")
+    return {
+        "name": f"prefill_attention[int8 K/V, window {WINDOW}, B={b}, S={s}, "
+                f"KV={kvh} G={g} D={d}, one layer]",
+        "route": "cuda", "source": "src/repro_torch/csrc/prefill_attention.cu",
+        "replaces": "src/repro/kernels/prefill_attention.py:192",
+        "kernel": "prefill_attention@window", "max_abs_err": err, "ms": ms,
+        "cold_ms": cold, "call_ms": call, "plain_ms": plain_ms,
+        "bound_ms": bnd, "bound_by": by, "library_ms": lib,
+        "library": "SDPA on the dequantized bf16 K/V, band mask"}
+
+
+def layer_widths(cfg):
+    """(name, K, N) of one layer's seven quantized matmuls, and the untied
+    lm_head's."""
+    d, hd = cfg.d_model, cfg.head_dim
+    out = [("wq", d, cfg.n_heads * hd), ("wk", d, cfg.n_kv_heads * hd),
+           ("wv", d, cfg.n_kv_heads * hd), ("wo", cfg.n_heads * hd, d),
+           ("gate", d, cfg.d_ff), ("up", d, cfg.d_ff), ("down", cfg.d_ff, d)]
+    if not cfg.tie_embeddings:
+        out.append(("lm_head", d, cfg.vocab_padded))
+    return out
+
+
+# B3 at the wider configs: rows checked bit for bit, and the rows timed
+WIDE_QMM_ROWS = (4, 1, 8, 128, B * PROMPT)
+WIDE_QMM_TIMED = (("decode", B), ("prefill", B * PROMPT))
+
+
+def check_quant_matmul_widths(torch, ops, ref, dev, arch, cfg, sms):
+    """B3 at one wider config's (K, N) pairs: bit for bit against its plain
+    version at every row count of ``WIDE_QMM_ROWS``, each width's decode
+    column tile and cluster printed (``decode_split``); one layer's calls
+    (and the lm_head, timed on its own, at the decode rows, where the
+    serving path runs it) timed at the decode rows (warm and L2-cold) and
+    at the prefill rows beside the plain version, torch._int_mm and the
+    bound.  Returns the JSON entries, one per timed row."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    flush = l2_flush(torch, dev)
+    widths = layer_widths(cfg)
+    for name, k, n in widths:
+        bn, c = decode_split(k, n, sms)
+        print(f"  quant_matmul {arch} {name} K={k} N={n}: decode column tile "
+              f"{bn}, cluster of {c} blocks, {-(-n // bn) * c} blocks")
+    entries = []
+    timed_rows = dict(WIDE_QMM_TIMED)
+    for m in WIDE_QMM_ROWS:
+        phase = {v: k for k, v in timed_rows.items()}.get(m)
+        tot = dict(ms=0.0, call_ms=0.0, cold_ms=0.0, plain_ms=0.0,
+                   bound_ms=0.0, library_ms=0.0, nbytes=0, ops=0)
+        for name, k, n in widths:
+            x = (torch.randn((m, k), generator=gen, device=dev) * 2).to(
+                torch.bfloat16)
+            w_q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                                dtype=torch.int8)
+            w_scale = torch.rand((n,), generator=gen, device=dev) * 1e-3
+            act_scale = (127.0 / (x.float().abs().amax() * 0.8)).reshape(())
+            got = ops.quant_matmul(x, w_q, w_scale, act_scale)
+            want = ref.quant_matmul_ref(x, w_q, w_scale, act_scale)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                diff = (got.float() - want.float()).abs().max().item()
+                raise AssertionError(
+                    f"quant_matmul {arch} {name} (M={m}, K={k}, N={n}) is not "
+                    f"bit-exact with its plain version (max |diff| {diff})")
+            del want
+            if phase is None or (name == "lm_head" and m > DECODE_ROWS):
+                continue
+            ms, call = timed(torch, lambda: ops.quant_matmul(
+                x, w_q, w_scale, act_scale))
+            cold = (cold_ms(torch, lambda: ops.quant_matmul(
+                x, w_q, w_scale, act_scale), flush, "quant_matmul")
+                if m <= DECODE_ROWS else None)
+            plain, _ = timed(torch, lambda: ref.quant_matmul_ref(
+                x, w_q, w_scale, act_scale), iters=2, warmup=1)
+            nbytes = m * k * 2 + k * n + 4 * n + 4 + m * n * 2
+            bnd, _ = bound_ms(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
+            x_q = torch.clamp(torch.round(x.float() * act_scale), -127,
+                              127).to(torch.int8)
+            if m <= 16:
+                x_q = torch.cat([x_q, x_q.new_zeros((32 - m, k))])
+            lib, _ = timed(torch, lambda: torch._int_mm(x_q, w_q))
+            print(f"  quant_matmul {arch} {phase} {name:7s} M={m:5d} K={k:5d} "
+                  f"N={n:6d}: {ms * 1e3:8.1f} us"
+                  + (f", L2-cold {cold * 1e3:.1f} us" if cold is not None
+                     else "")
+                  + f"  plain {plain * 1e3:9.1f} us  bound {bnd * 1e3:7.2f} us"
+                  f"  _int_mm {lib * 1e3:.1f} us"
+                  + (" (M padded to 32)" if m <= 16 else ""))
+            if name == "lm_head":
+                entries.append({
+                    "name": f"quant_matmul[{arch} lm_head, M={m}, K={k}, "
+                            f"N={n}]",
+                    "route": "cuda",
+                    "source": "src/repro_torch/csrc/quant_matmul.cu",
+                    "replaces": "src/repro/kernels/quant_matmul.py:72",
+                    "kernel": f"quant_matmul@{arch}", "max_abs_err": 0.0,
+                    "ms": ms, "cold_ms": cold, "call_ms": call,
+                    "plain_ms": plain, "bound_ms": bnd,
+                    "bound_by": bound_ms(nbytes, 2 * m * k * n,
+                                         INT8_OPS_PER_S)[1],
+                    "library_ms": lib,
+                    "library": f"torch._int_mm on x zero-padded from M={m} "
+                               "to M=32"})
+                continue
+            tot["ms"] += ms
+            tot["call_ms"] += call
+            tot["cold_ms"] += cold or 0.0
+            tot["plain_ms"] += plain
+            tot["bound_ms"] += bnd
+            tot["nbytes"] += nbytes
+            tot["ops"] += 2 * m * k * n
+            tot["library_ms"] += lib
+        print(f"  quant_matmul {arch} M={m}: every width bit-exact")
+        if phase is None:
+            continue
+        _, by = bound_ms(tot["nbytes"], tot["ops"], INT8_OPS_PER_S)
+        print(f"  quant_matmul {arch} {phase} M={m}: one layer's 7 calls "
+              f"{tot['ms'] * 1e3:.1f} us warm"
+              + (f", {tot['cold_ms'] * 1e3:.1f} us L2-cold"
+                 if m <= DECODE_ROWS else "")
+              + f", bound {tot['bound_ms'] * 1e3:.2f} us")
+        entries.append({
+            "name": f"quant_matmul[{arch} {phase}: one layer's 7 matmuls, "
+                    f"M={m}]",
+            "route": "cuda", "source": "src/repro_torch/csrc/quant_matmul.cu",
+            "replaces": "src/repro/kernels/quant_matmul.py:72",
+            "kernel": f"quant_matmul@{arch}", "max_abs_err": 0.0,
+            "ms": tot["ms"], "call_ms": tot["call_ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": by, "library_ms": tot["library_ms"],
+            "library": "torch._int_mm" + (
+                f" on x zero-padded from M={m} to M=32" if m <= 16 else ""),
+            **({"cold_ms": tot["cold_ms"]} if m <= DECODE_ROWS else {})})
     return entries
 
 
@@ -945,25 +1224,26 @@ def paged_inputs(torch, dev, gen, b, cap, page, bits, kvh=3, d=64):
     return kp, vp, table.contiguous()
 
 
-def check_paged_attention(torch, ops, ref, dev, bits, page):
+def check_paged_attention(torch, ops, ref, dev, bits, page, kvh=3, g=3,
+                          d=64):
     """Both attention kernels over a paged pool: the scheduler's decode shape
     (8 slots, cache 640, ragged positions including 0) and the paged path's
     prefill chunk (4 rows, 128 queries at position 384, 512 keys); a bf16
-    pool (``bits`` 16) the prefill chunk only.  Each is held against its
-    plain version (``ATTN_TOL``) and against the dense kernel on the
-    gathered contiguous copy (bit for bit), and timed beside it; returns
-    the JSON entries."""
+    pool (``bits`` 16) the prefill chunk only; the heads (``kvh``, ``g``,
+    ``d``).  Each is held against its plain version (``ATTN_TOL``) and
+    against the dense kernel on the gathered contiguous copy (bit for bit),
+    and timed beside it; returns the JSON entries."""
     import torch.nn.functional as F
 
     from repro_torch.cache import KernelView
     from repro_torch.kernels.decode_attention import SPLIT
 
-    kvh, g, d = 3, 3, 64
     gen = torch.Generator(device=dev).manual_seed(7 + bits + page)
     k_scale, v_scale = kv_scales(torch, gen, dev, bits, kvh)
     kv_bits = 8 if bits == 16 else bits
-    tag = f"paged {kv_kind(bits)} K/V, page {page}"
-    variant = {8: "@paged", 4: "@paged-int4", 16: "@paged-bf16"}[bits]
+    dvar, dtag = head_variant(kvh, g, d)
+    tag = f"paged {kv_kind(bits)} K/V, page {page}{dtag}"
+    variant = {8: "@paged", 4: "@paged-int4", 16: "@paged-bf16"}[bits] + dvar
     entries = []
 
     def held(name, got, want, dense):
@@ -983,7 +1263,8 @@ def check_paged_attention(torch, ops, ref, dev, bits, page):
     if bits != 16:     # the decode kernels read quantized tiles only
         # -- decode: the scheduler's slot batch ---------------------------
         bd = SLOTS
-        kp, vp, table = paged_inputs(torch, dev, gen, bd, cap, page, bits)
+        kp, vp, table = paged_inputs(torch, dev, gen, bd, cap, page, bits,
+                                     kvh, d)
         view = KernelView(kp, vp, table, page, bits)
         kd, vd = ref.gather_pages(kp, table), ref.gather_pages(vp, table)
         q = torch.randn((bd, kvh, g, d), generator=gen, device=dev).to(
@@ -1034,7 +1315,8 @@ def check_paged_attention(torch, ops, ref, dev, bits, page):
     # queries a row at ragged q_start (windows across a page boundary, at
     # the cache's end, an inactive slot with kv_len 0) over the whole pool
     w = SPEC_K + 1
-    kp, vp, table = paged_inputs(torch, dev, gen, SLOTS, cap, page, bits)
+    kp, vp, table = paged_inputs(torch, dev, gen, SLOTS, cap, page, bits, kvh,
+                                 d)
     view = KernelView(kp, vp, table, page, kv_bits)
     qs = torch.tensor([0, page - 2, 2 * page - 1, 300, 511, 600, cap - w,
                        77], dtype=torch.int32, device=dev)
@@ -1058,7 +1340,7 @@ def check_paged_attention(torch, ops, ref, dev, bits, page):
 
     # -- prefill: one 128-query chunk of the paged path -----------------------
     q0, limit = PROMPT - CHUNK, PROMPT
-    kp, vp, table = paged_inputs(torch, dev, gen, B, cap, page, bits)
+    kp, vp, table = paged_inputs(torch, dev, gen, B, cap, page, bits, kvh, d)
     table = table[:, :limit // page].contiguous()      # kernel_view(limit)
     view = KernelView(kp, vp, table, page, kv_bits)
     kd, vd = ref.gather_pages(kp, table), ref.gather_pages(vp, table)
@@ -1073,9 +1355,10 @@ def check_paged_attention(torch, ops, ref, dev, bits, page):
                                                kv_bits=kv_bits),
                ops.prefill_attention(q, kd, vd, k_scale, v_scale, qs, kl,
                                      kv_bits=kv_bits))
-    # the same chunk at D 128 (the kernel's widest), bf16 and float32 q
-    for dtype in (torch.bfloat16, torch.float32):
-        kp8, vp8, t8 = paged_inputs(torch, dev, gen, B, cap, page, bits,
+    # the same chunk at D 128, bf16 and float32 q (the wider heads run
+    # their own calls)
+    for dtype in ((torch.bfloat16, torch.float32) if d == 64 else ()):
+        kp8, vp8, t8 = paged_inputs(torch, dev, gen, B, cap, page, bits, kvh,
                                     d=128)
         t8 = t8[:, :limit // page].contiguous()
         q8 = torch.randn((B, CHUNK, kvh, g, 128), generator=gen,
@@ -1153,19 +1436,19 @@ def partials_close(torch, name, got, want, local):
     return err
 
 
-def check_partials(torch, ops, ref, dev, bits):
+def check_partials(torch, ops, ref, dev, bits, kvh=3, g=3, d=64):
     """The partials kernel (B4) at the [sp path]'s decode shape: a 640-row
     cache in 4 shard views of 160 read in place, cur_pos 528 (local counts
-    160, 160, 160, 48) and ragged positions with an empty row; against its
-    plain version, then the two invariants: one shard over the whole cache
-    normalizes to the decode kernel's output bit for bit, and the merge of
-    the 4 shards' partials equals the decode kernel over the whole cache.
-    Timed as one layer's 4 launches; returns the JSON entry."""
+    160, 160, 160, 48) and ragged positions with an empty row, with the
+    heads (``kvh``, ``g``, ``d``); against its plain version, then the two
+    invariants: one shard over the whole cache normalizes to the decode
+    kernel's output bit for bit, and the merge of the 4 shards' partials
+    equals the decode kernel over the whole cache.  Timed as one layer's 4
+    launches; returns the JSON entry."""
     from repro_torch.core.packing import pack_int4
     from repro_torch.kernels.decode_attention import SPLIT
     from repro_torch.shard.partial_softmax import sp_partial_combine
 
-    kvh, g, d = 3, 3, 64
     lv = 127 if bits == 8 else 7
     cap = -(-(PROMPT + GEN) // 128) * 128
     s_local = cap // SP
@@ -1173,7 +1456,8 @@ def check_partials(torch, ops, ref, dev, bits):
     gen = torch.Generator(device=dev).manual_seed(11 + bits)
     k_scale = torch.rand((kvh,), generator=gen, device=dev) * 0.05 + 0.01
     v_scale = torch.rand((kvh,), generator=gen, device=dev) * 0.05 + 0.01
-    tag = "int8" if bits == 8 else "int4 packed"
+    dvar, dtag = head_variant(kvh, g, d)
+    tag = ("int8" if bits == 8 else "int4 packed") + dtag
 
     def tiles(shape):
         t = torch.randint(-lv, lv + 1, shape, generator=gen, device=dev,
@@ -1263,7 +1547,8 @@ def check_partials(torch, ops, ref, dev, bits):
         "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention_partials.cu",
         "replaces": "src/repro/kernels/decode_attention.py:305",
-        "kernel": "decode_attention_partials" + ("" if bits == 8 else "@int4"),
+        "kernel": "decode_attention_partials" + ("" if bits == 8 else "@int4")
+                  + dvar,
         "max_abs_err": err, "merge_max_abs_err": merge_err, "ms": ms,
         "cold_ms": cold, "call_ms": call, "plain_ms": plain_ms, "bound_ms": bnd,
         "bound_by": by, "library_ms": None,
@@ -1448,7 +1733,9 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
                     sp=1, walls=None, A=None):
     """Warm up, zero the launch counts, serve 4 x 512 prompts for 32 tokens
     and check what came out and which kernels ran; returns (result, all
-    launch counts, int4-variant launch counts, bf16-K/V launch counts).
+    launch counts, int4-variant, bf16-K/V, paged and windowed launch
+    counts), each read from the timed run of the captured programs and
+    checked for both drivers.
     The default ``generate_batch`` replays its captured programs: the
     warm-up call captures them (its ``compile_s``), the timed call must
     only replay, and the eager ``loop=True`` driver, run after it with the
@@ -1459,15 +1746,24 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
     kernel and whose decode launches the partials kernel once per shard
     and layer instead of the decode kernel.  bf16 weights (mode "none")
     launch no quant_matmul; a bf16 KV cache runs prefill attention through
-    B2's bf16 branch and decodes in plain attention, no B1."""
+    B2's bf16 branch and decodes in plain attention, no B1.  A windowed
+    layer (gemma3-12b's local ones) prefills through B2 with its window
+    and decodes in plain attention, as the reference does: B1 runs on the
+    global layers only; an untied lm_head is one more quant_matmul a
+    token.  ``prompts`` may have other rows and lengths than B x
+    PROMPT."""
     warm = engine.generate_batch({"tokens": prompts}, gen=2)   # warm-up
-    n_layers = engine.cfg.n_layers
+    cfg = engine.cfg
+    b, s = prompts.shape
+    n_layers = cfg.n_layers
+    n_global = sum(cfg.attn_window(i) is None for i in range(n_layers))
+    per_token = 7 * n_layers + (not cfg.tie_embeddings)
     kv8 = engine.policy.kv_int8
     expected = {"quant_matmul":
-                    7 * n_layers * GEN if engine.mode == "int8" else 0,
+                    per_token * GEN if engine.mode == "int8" else 0,
                 "prefill_attention": n_layers if sp == 1 else 0,
                 "decode_attention":
-                    n_layers * (GEN - 1) if sp == 1 and kv8 else 0,
+                    n_global * (GEN - 1) if sp == 1 and kv8 else 0,
                 "decode_attention_partials":
                     0 if sp == 1 else n_layers * (GEN - 1) * sp,
                 "fake_quant": 0}
@@ -1476,35 +1772,42 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
                      else {k: 0 for k in ops.ATTENTION})
     bf16_expected = {"prefill_attention":
                      0 if kv8 else expected["prefill_attention"]}
+    # the engine's caches are dense or rings: no paged launch
+    paged_expected = {k: 0 for k in ops.ATTENTION}
+    window_expected = {"prefill_attention":
+                       n_layers - n_global if sp == 1 else 0}
 
     def run(loop):
         ops.reset_launches()
         res = engine.generate_batch({"tokens": prompts}, gen=GEN, loop=loop)
-        counts, int4 = ops.launch_counts(), ops.int4_launch_counts()
-        bf16 = ops.bf16_launch_counts()
+        got = (ops.launch_counts(), ops.int4_launch_counts(),
+               ops.bf16_launch_counts(), ops.paged_launch_counts(),
+               ops.window_launch_counts())
+        want = (expected, int4_expected, bf16_expected, paged_expected,
+                window_expected)
         driver = "loop=True" if loop else "default"
-        print(f"[{label}] ({driver}) kernel launches {counts} (expected "
-              f"{expected}); int4 variants {int4} (expected {int4_expected});"
-              f" bf16 K/V variants {bf16} (expected {bf16_expected})")
-        if (counts, int4, bf16) != (expected, int4_expected, bf16_expected):
-            raise AssertionError(f"{driver}: launch counts {counts} / {int4} "
-                                 f"/ {bf16} != {expected} / {int4_expected} "
-                                 f"/ {bf16_expected}")
-        return res, counts, int4, bf16
+        print(f"[{label}] ({driver}) kernel launches {got[0]} (expected "
+              f"{expected}); int4 variants {got[1]} (expected "
+              f"{int4_expected}); bf16 K/V variants {got[2]} (expected "
+              f"{bf16_expected}); paged variants {got[3]}; windowed "
+              f"{got[4]} (expected {window_expected})")
+        if got != want:
+            raise AssertionError(f"{driver}: launch counts {got} != {want}")
+        return (res, *got)
 
-    res, counts, int4, bf16 = run(False)
+    res, counts, int4, bf16, paged, window = run(False)
     if not bool(torch.isfinite(res.prefill_logits).all()):
         raise AssertionError("non-finite prefill logits")
     toks = res.tokens.cpu()
-    if toks.shape != (B, GEN) or not bool(
+    if toks.shape != (b, GEN) or not bool(
             ((toks >= 0) & (toks < engine.cfg.vocab)).all()):
         raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
-    prefill_tps = B * PROMPT / res.prefill_s
+    prefill_tps = b * s / res.prefill_s
     decode_ms = res.decode_s / (GEN - 1) * 1e3
     graphs = engine.eager_reason() is None
-    print(f"[{label}] prefill {B}x{PROMPT} tokens: {res.prefill_s * 1e3:.1f}"
+    print(f"[{label}] prefill {b}x{s} tokens: {res.prefill_s * 1e3:.1f}"
           f" ms = {prefill_tps:.0f} tokens/s; decode: {decode_ms:.2f} ms per "
-          f"step of {B} tokens (ms/token per request) on {kind} ({card}); "
+          f"step of {b} tokens (ms/token per request) on {kind} ({card}); "
           + (f"graphs captured in {warm.compile_s:.3f} s before the timed "
              f"windows (compile_s of the first call; the timed call "
              f"{res.compile_s:.1f})" if graphs else
@@ -1526,7 +1829,7 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
                 graphs=(res.prefill_s * 1e3, decode_ms, warm.compile_s),
                 eager=(eager.prefill_s * 1e3,
                        eager.decode_s / (GEN - 1) * 1e3))
-    return res, counts, int4, bf16
+    return res, counts, int4, bf16, paged, window
 
 
 def forced_gap(torch, A, engine, prompts, toks):
@@ -1671,12 +1974,14 @@ def print_walls(walls, card):
               f"{fmt(e[0])} / {fmt(e[1], 3)} | {fmt(b[0])} / {fmt(b[1], 3)}")
 
 
-def cpu_check(torch, A, engine, prompts, toks, tol, label):
+def cpu_check(torch, A, engine, prompts, toks, tol, label, n_check=4,
+              logit_tol=None):
     """Teacher-forced logits of the GPU engine against the same engine
-    moved to the CPU (plain versions): the GPU's token must be the CPU's
-    argmax or within ``tol`` of it (a near-tie that rounding may flip), and
-    no logit may differ by more than ``tol``."""
-    n_check = 4
+    moved to the CPU (plain versions), over ``n_check`` steps: the GPU's
+    token must be the CPU's argmax or within ``tol`` of it (a near-tie that
+    rounding may flip), and no logit may differ by more than ``logit_tol``
+    (``tol`` when not given)."""
+    logit_tol = tol if logit_tol is None else logit_tol
     tok_t = torch.as_tensor(toks, dtype=torch.long)
     gpu = forced_logits(torch, A, engine, torch.as_tensor(prompts), tok_t,
                         n_check)
@@ -1689,11 +1994,12 @@ def cpu_check(torch, A, engine, prompts, toks, tol, label):
     t0 = time.perf_counter()
     cpu = forced_logits(torch, A, engine.to("cpu"),
                         torch.as_tensor(prompts), tok_t, n_check)
-    worst, same, ties, gaps = 0.0, 0, 0, []
+    worst, same, ties, gaps, steps = 0.0, 0, 0, [], []
     for i, (g_lg, c_lg) in enumerate(zip(gpu, cpu)):
-        worst = max(worst, (g_lg - c_lg).abs().max().item())
+        steps.append((g_lg - c_lg).abs().max().item())
+        worst = max(worst, steps[-1])
         pick = c_lg.argmax(-1)
-        for r in range(B):
+        for r in range(tok_t.shape[0]):
             gap = (c_lg[r, pick[r]] - c_lg[r, tok_t[r, i]]).item()
             if int(pick[r]) == int(tok_t[r, i]):
                 same += 1
@@ -1702,15 +2008,226 @@ def cpu_check(torch, A, engine, prompts, toks, tol, label):
             else:
                 gaps.append(f"step {i} row {r}: CPU picks {int(pick[r])}, "
                             f"GPU {int(tok_t[r, i])}, {gap:.4f} apart")
+    scale = max(lg.abs().max().item() for lg in cpu)
     print(f"[{label}] {n_check} teacher-forced steps on the CPU (plain "
           f"versions) in {time.perf_counter() - t0:.1f} s: max |logit diff| "
-          f"{worst:.4f} (tolerance {tol}); greedy tokens equal "
-          f"{same}/{n_check * B}, near-ties {ties}, further apart "
+          f"{worst:.4f} (tolerance {logit_tol}; by step "
+          f"{', '.join(f'{e:.4f}' for e in steps)}; max |logit| "
+          f"{scale:.3f}); greedy tokens equal "
+          f"{same}/{n_check * tok_t.shape[0]}, near-ties {ties}, further "
+          f"apart "
           f"{len(gaps)}")
     if gaps:
         raise AssertionError(f"tokens differ by more than {tol}: {gaps}")
-    if worst > tol:
+    if worst > logit_tol:
         raise AssertionError(f"GPU and CPU logits differ by {worst}")
+
+
+def int8_bytes(torch, tree) -> int:
+    """Bytes of the int8 tensors of a param tree: the resident int8
+    weights."""
+    if isinstance(tree, dict):
+        return sum(int8_bytes(torch, v) for v in tree.values())
+    return tree.numel() if tree.dtype == torch.int8 else 0
+
+
+def wide_engine(torch, Engine, build_model, cfg, seed=0, **kw):
+    """The int8 engine of ``cfg`` (``Engine.from_checkpoint``: calibration,
+    int8 conversion) over seeded random weights drawn on the card by a CUDA
+    ``torch.Generator`` (the engine's default draw runs on the CPU in
+    float32: 30-50 GB of host memory and minutes of one-stream ``randn`` at
+    8-12 B parameters); returns (engine, seconds)."""
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(seed))
+    engine = Engine.from_checkpoint(cfg=cfg, params=params, **kw)
+    del params
+    torch.cuda.synchronize()
+    return engine, time.perf_counter() - t0
+
+
+def free_card(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def drive_arch_path(torch, ops, A, Engine, build_model, cfg, label, kind,
+                    card, walls):
+    """One wider dense config at full width and depth through the int8 main
+    path: its engine (weights drawn on the card), then ``drive_main_path``
+    on 4 x 512 prompts for 32 tokens (graphs == eager bit for bit, every
+    kernel of the path launched as counted) and ``replay_busy``; prints
+    the build time, the resident int8 weight bytes and the peak device
+    memory.  Returns (engine, ``drive_main_path``'s launch counts: all,
+    int4, bf16, paged, windowed)."""
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    engine, build_s = wide_engine(torch, Engine, build_model, cfg)
+    w8 = int8_bytes(torch, engine.serve_params)
+    print(f"[{label}] {cfg.name} full width: {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+          f"{'' if cfg.tie_embeddings else ' (untied lm_head)'}, norm "
+          f"{cfg.norm}, mlp {cfg.mlp_activation}, windows "
+          f"{sorted({str(cfg.attn_window(i)) for i in range(cfg.n_layers)})}"
+          f": weights drawn on the card, calibration and int8 conversion in "
+          f"{build_s:.1f} s; {engine.n_int8_weights()} int8 weight tensors, "
+          f"{w8 / 1e9:.3f} GB int8 resident; peak device memory so far "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(sum(map(ord, cfg.name)))
+    prompts = rng.integers(0, cfg.vocab, (B, PROMPT), dtype=np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    counts = drive_main_path(torch, ops, engine, prompts, label, kind, card,
+                             walls=walls, A=A)[1:]
+    print(f"[{label}] peak device memory serving {B}x{PROMPT} + {GEN}: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated, weights included)")
+    replay_busy(torch, engine, label, walls)
+    return engine, counts
+
+
+def replay_busy(torch, engine, label, walls):
+    """Device busy of the engine's captured prefill and of one decode
+    step, each program's replays profiled alone, with the kernels that
+    take the most of it: at 8-12 B parameters the profiler loses a few of
+    a replay's ~300-3,000 launches now and then (``breakdown``'s
+    difference of two profiled calls is then not measured, and retries
+    seldom help).  A profile that sees every launch of the port's kernels
+    gives the busy time; else its sum is printed as a lower bound, with
+    the launches it saw.  Exact values go into ``walls[label]["busy"]``."""
+    prog = engine._program
+    got = []
+    for name, fn, n in (("prefill", prog.prefill, 3),
+                        ("decode step", prog.decode, 8)):
+        def replays(fn=fn, n=n):
+            with torch.inference_mode():
+                for _ in range(n):
+                    fn()
+
+        _, rows, seen, launched = profiled(torch, replays)
+        ms = sum(t for _, t, _ in rows) / n / 1e3
+        got.append(ms if seen == launched and ms > 0 else None)
+        print(f"[{label} busy] {name} replays profiled alone: "
+              + (f"{ms:.3f} ms busy" if seen == launched else
+                 f">= {ms:.3f} ms busy (a lower bound: the profiler saw "
+                 f"{seen} of the {launched} launches of the port's kernels)"))
+        top = sorted(rows, key=lambda r: -r[1])[:6]
+        print(f"  top device time per {name}: " + "; ".join(
+            f"{k[:48]} {t / n / 1e3:.3f} ms" for k, t, _ in top))
+    walls.setdefault(label, {})["busy"] = tuple(got)
+
+
+def drive_ring_path(torch, ops, A, Engine, engine, label, kind, card, walls):
+    """gemma3-12b with its rings: ``RING_B`` prompts of ``RING_PROMPT``
+    tokens and 32 generated tokens in the engine's default "ring" layout,
+    where each of the 40 local layers holds a ring of ``WINDOW`` slots and
+    the 8 global layers a dense cache: prefill through B2 with the window,
+    ring decode on the local layers, B1 on the global ones, through the
+    captured programs and bit for bit the eager driver; the tokens against
+    the same engine with dense caches, teacher-forced (equal, or within
+    ``LOGIT_ATOL`` of its argmax).  Returns ``drive_main_path``'s launch
+    counts (all, int4, bf16, paged, windowed)."""
+    cfg = engine.cfg
+    rng = np.random.default_rng(7)
+    prompts = rng.integers(0, cfg.vocab, (RING_B, RING_PROMPT),
+                           dtype=np.int32)
+    cache_len = engine._cache_len(RING_PROMPT, GEN)
+    caches = engine.init_cache(RING_B, cache_len)
+    layouts = [(c["attn"].layout, c["attn"].capacity)
+               for c in caches.values()]
+    del caches
+    n_local = sum(cfg.attn_window(i) is not None
+                  for i in range(cfg.n_layers))
+    if engine.cache_layout != "ring" or layouts.count(
+            ("ring", WINDOW)) != n_local or layouts.count(
+            ("dense", cache_len)) != cfg.n_layers - n_local:
+        raise AssertionError(f"gemma3-12b's caches at {cache_len}: "
+                             f"{sorted(set(layouts))}")
+    print(f"[{label}] caches: {n_local} rings of {WINDOW} slots, "
+          f"{cfg.n_layers - n_local} dense of {cache_len} positions")
+    torch.cuda.reset_peak_memory_stats()
+    res, *counts = drive_main_path(torch, ops, engine, prompts, label, kind,
+                                   card, walls=walls, A=A)
+    print(f"[{label}] peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    replay_busy(torch, engine, label, walls)
+    dense = Engine(engine.model, cfg, engine.policy, engine.serve_params,
+                   engine.qparams, device=engine.device, cache_layout="dense")
+    dres = dense.generate_batch({"tokens": prompts}, gen=GEN)
+    same = int((dres.tokens == res.tokens).sum())
+    gap = forced_gap(torch, A, dense, prompts, res.tokens)
+    print(f"[{label}] ring tokens vs the dense caches' (graphs): equal "
+          f"{same}/{res.tokens.numel()}; the dense engine teacher-forced on "
+          f"the ring's tokens puts them at most {gap:.4f} below its argmax "
+          f"(near-tie tolerance {LOGIT_ATOL}); dense walls: prefill "
+          f"{dres.prefill_s * 1e3:.2f} ms, decode "
+          f"{dres.decode_s / (GEN - 1) * 1e3:.3f} ms per step")
+    del dense, dres
+    if not gap <= LOGIT_ATOL:
+        raise AssertionError(f"ring and dense caches disagree by {gap}")
+    return counts
+
+
+# the depth-cut copies of [<arch> cpu check]: a 64-token prompt passes
+# the window of a copy with local layers
+CPU_WINDOW = 32
+
+
+def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
+    """A full-width copy of a wider config at cut depth (weights drawn on
+    the card): 2 layers, or one local:global period (gemma3-12b: 5 local
+    layers, then a global one) with the window cut to ``CPU_WINDOW``, so
+    that a 64-token prompt passes it: B2's window mask, the rings and B1 on
+    the global layer all run.  1 prompt, 8 generated tokens (every kernel
+    launched as counted), held against the same engine on the CPU
+    (``cpu_check``, 8 teacher-forced steps; tokens within ``LOGIT_ATOL``,
+    logits within ``WIDE_LOGIT_ATOL``).  An untied readout (stablelm-
+    12b) serves the last block's ``wq`` thresholds here: calibration, as
+    the reference's, never observes its input and leaves its threshold at
+    the 1e-8 floor, where every logit is ~1e-8 and the check would hold
+    for any readout."""
+    free_card(torch)
+    over = dict(n_layers=2)
+    if cfg.local_global_ratio:
+        over = dict(n_layers=sum(cfg.local_global_ratio), window=CPU_WINDOW)
+    cut = cfg.replace(**over)
+    engine, build_s = wide_engine(torch, Engine, build_model, cut, seed=1)
+    if not cut.tie_embeddings:
+        head = f"{cut.name}/lm_head"
+        last = f"{cut.name}/stack/layer{cut.n_layers - 1}/attn/wq"
+        floor = engine.qparams[head]["act"]["t_max"].item()
+        qparams = {**engine.qparams, head: {
+            **engine.qparams[head], "act": engine.qparams[last]["act"]}}
+        engine = Engine(engine.model, cut, engine.policy, engine.serve_params,
+                        qparams, device=engine.device, mode=engine.mode)
+        print(f"[{label}] the untied lm_head's calibrated activation "
+              f"threshold is {floor:.1e} (the floor); served here with "
+              f"the last block's wq thresholds")
+    s, gen = 64, 8
+    prompts = np.random.default_rng(11).integers(0, cfg.vocab, (1, s),
+                                                 dtype=np.int32)
+    n_local = sum(cut.attn_window(i) is not None
+                  for i in range(cut.n_layers))
+    layouts = [c["attn"].layout for c in engine.init_cache(
+        1, engine._cache_len(s, gen)).values()]
+    if layouts.count("ring") != n_local:
+        raise AssertionError(f"{n_local} windowed layers, caches {layouts}")
+    engine.generate_batch({"tokens": prompts}, gen=gen)   # captures
+    ops.reset_launches()
+    res = engine.generate_batch({"tokens": prompts}, gen=gen)
+    got = (ops.launch_counts()["decode_attention"],
+           ops.window_launch_counts()["prefill_attention"])
+    want = ((cut.n_layers - n_local) * (gen - 1), n_local)
+    print(f"[{label}] {cfg.name} at full width, {over} (built in "
+          f"{build_s:.1f} s): 1 x {s} prompt, {gen} tokens "
+          f"{res.tokens.tolist()}; caches {layouts}; decode_attention and "
+          f"windowed prefill_attention launches {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"launches {got} != {want}")
+    cpu_check(torch, A, engine, prompts, res.tokens.cpu(), LOGIT_ATOL, label,
+              n_check=8, logit_tol=WIDE_LOGIT_ATOL[cfg.name])
 
 
 class GatherCount:
@@ -2542,8 +3059,8 @@ def check_train_pretrain(torch, ops, A, train, Engine, CheckpointManager,
     print(f"[checkpoint serve] step {meta['step']}: the {len(kept)} "
           f"unquantized weight tensors (embedding, norms) are the "
           f"checkpoint's bits; {engine.n_int8_weights()} int8 weight tensors")
-    res, counts, _, _ = drive_main_path(torch, ops, engine, prompts,
-                                        "checkpoint serve", kind, card, A=A)
+    res, counts, *_ = drive_main_path(torch, ops, engine, prompts,
+                                      "checkpoint serve", kind, card, A=A)
     cpu_check(torch, A, engine, prompts, res.tokens.cpu(), LOGIT_ATOL,
               "checkpoint serve cpu check")
     return counts
@@ -2676,9 +3193,9 @@ def drive_sample_path(torch, ops, A, SG, prng, Engine, engine, prompts, kind,
     eng = Engine(engine.model, engine.cfg, engine.policy,
                  engine.serve_params, engine.qparams, device=engine.device,
                  mode=engine.mode, **SAMPLING)
-    res, counts, _, _ = drive_main_path(torch, ops, eng, prompts,
-                                        "sample path", kind, card,
-                                        walls=walls, A=A)
+    res, counts, *_ = drive_main_path(torch, ops, eng, prompts,
+                                      "sample path", kind, card,
+                                      walls=walls, A=A)
     again = eng.generate_batch({"tokens": prompts}, gen=GEN)
     other = Engine(engine.model, engine.cfg, engine.policy,
                    engine.serve_params, engine.qparams, device=engine.device,
@@ -3235,6 +3752,7 @@ def main() -> int:
 
     from repro_torch.cache import PagedCache, layer_caches
     from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
     from repro_torch.core import api as A
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch import prng
@@ -3245,6 +3763,7 @@ def main() -> int:
     from repro_torch.launch.faults import FaultPlan, SimulatedCrash
     from repro_torch.launch.journal import RequestJournal
     from repro_torch.launch.scheduler import Request
+    from repro_torch.models import build_model
     from repro_torch.shard import ShardedEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3261,13 +3780,16 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()
     build_s = time.perf_counter() - t0
-    print(f"[build] kernels built and loaded in {build_s:.1f} s")
+    print(f"[build] kernels built and loaded in {build_s:.1f} s; nvcc wall "
+          "seconds by library, in parallel: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in build.build_seconds().items()))
     for name, log in build.ptxas_logs().items():
         lines = {line.strip() for line in log.splitlines()
                  if "registers" in line or "spill" in line}
         for line in sorted(lines):
             print(f"  ptxas {name}: {line}")
     check_prefill_sass(build)
+    check_decode_attention_spills(build)
     check_quant_matmul_sass(build)
     check_quant_matmul_decode_sass(
         build, torch.cuda.get_device_properties(0).multi_processor_count)
@@ -3297,6 +3819,24 @@ def main() -> int:
           "bit-exact:")
     w4_entries, w4_launches = check_quant_matmul_w4(torch, ops, ref, dev)
     kernels += fq_entries + w4_entries
+    print("[kernels] B1, B2 and B4 at the heads of granite-8b, stablelm-12b "
+          "and gemma3-12b (KV, G, D) = "
+          f"{list(WIDE_HEADS.values())}, B2 at gemma3-12b's window, B3 at "
+          "their widths:")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for arch, (kvh, g, d) in WIDE_HEADS.items():
+        for bits in (8, 4, 16):
+            kernels += check_attention(torch, ops, ref, dev, bits, kvh, g, d)
+            kernels += check_paged_attention(torch, ops, ref, dev, bits,
+                                             PAGE, kvh, g, d)
+        if d > 128:
+            for bits in (8, 4):
+                kernels.append(check_partials(torch, ops, ref, dev, bits, kvh,
+                                              g, d))
+    kernels.append(check_window_prefill(torch, ops, ref, dev))
+    for arch in WIDE_HEADS:
+        kernels += check_quant_matmul_widths(torch, ops, ref, dev, arch,
+                                             get_config(arch), sms)
 
     phases = {"build": build_s, "kernels": time.perf_counter() - t_kern}
 
@@ -3327,9 +3867,9 @@ def main() -> int:
     # [graphs]: per path, the captured programs' walls against the eager
     # loop=True driver's, and the device busy of each
     walls: dict = {}
-    res, counts, _, _ = drive_main_path(torch, ops, engine, prompts,
-                                        "main path", kind, card, walls=walls,
-                                        A=A)
+    res, counts, *_ = drive_main_path(torch, ops, engine, prompts,
+                                      "main path", kind, card, walls=walls,
+                                      A=A)
     phases["main path"] = time.perf_counter() - t0 - phases["int8 engine"]
     phase("graphs profiler", profile_graph_replay, torch, engine, card)
     phase("breakdown", breakdown, torch, engine, prompts, card,
@@ -3508,6 +4048,24 @@ def main() -> int:
         phase("train pretrain + checkpoint serve", check_train_pretrain,
               torch, ops, A, train, Engine, CheckpointManager, prompts,
               workdir, kind, card)
+    # the wider dense configs at full width and depth, one at a time
+    # (8-12 B parameters each): their main paths, gemma3-12b's rings, and a
+    # full-width copy of depth 2 of each against the CPU
+    arch_runs, ring_run = {}, None
+    for arch in WIDE_HEADS:
+        label = f"{arch} path"
+        run = phase(label, drive_arch_path, torch, ops, A, Engine,
+                    build_model, get_config(arch), label, kind, card, walls)
+        if run is not None:
+            engine_w, arch_runs[arch] = run
+            if arch == "gemma3-12b":
+                ring_run = phase("gemma3-12b ring", drive_ring_path, torch,
+                                 ops, A, Engine, engine_w, "gemma3-12b ring",
+                                 kind, card, walls)
+            del engine_w, run
+        phase(f"{arch} cpu check", check_arch_cpu, torch, ops, A, Engine,
+              build_model, get_config(arch), f"{arch} cpu check")
+    free_card(torch)
     print_walls(walls, card)
     print("[time] " + "; ".join(f"{k} {v:.1f} s" for k, v in phases.items()))
     if failures:
@@ -3559,9 +4117,39 @@ def main() -> int:
     launched["prefill_attention@bf16"] = sum(bf16_by_path.values())
     launched["prefill_attention@paged-bf16"] = paged_bf16[2][
         "prefill_attention"]
+    # the wider configs' paths, every count read from the counters of the
+    # path's timed run (``drive_main_path``): B1, B2 and B4 by head dim and
+    # variant, B3 by config, B2 with gemma3-12b's window on both of its
+    # paths.  A paged int4 or bf16 launch adds one to the paged counter and
+    # to the int4 or bf16 one: the smaller of the two bounds it, and is its
+    # count here, where the paged counter is checked to be 0.
+    wide_by_path = {}
+    for arch, (kvh, g, d) in WIDE_HEADS.items():
+        runs = {f"{arch} path": arch_runs[arch]}
+        if arch == "gemma3-12b":
+            runs["gemma3-12b ring"] = ring_run
+        for path, (c, int4, bf16, pg, win) in runs.items():
+            got = {f"quant_matmul@{arch}": c["quant_matmul"],
+                   f"{partials}@D{d}": c[partials],
+                   f"{partials}@int4@D{d}": int4[partials],
+                   f"prefill_attention@bf16@D{d}": bf16["prefill_attention"],
+                   f"prefill_attention@paged-bf16@D{d}": min(
+                       pg["prefill_attention"], bf16["prefill_attention"])}
+            if arch == "gemma3-12b":
+                got["prefill_attention@window"] = win["prefill_attention"]
+            for k in ("prefill_attention", "decode_attention"):
+                got.update({f"{k}@D{d}": c[k], f"{k}@int4@D{d}": int4[k],
+                            f"{k}@paged@D{d}": pg[k],
+                            f"{k}@paged-int4@D{d}": min(pg[k], int4[k])})
+            for kernel, n in got.items():
+                wide_by_path.setdefault(kernel, {})[path] = n
+    for kernel, paths in wide_by_path.items():
+        launched[kernel] = sum(paths.values())
     for e in kernels:
         kernel = e.pop("kernel")
         e["launches"] = launched[kernel]
+        if kernel in wide_by_path:
+            e["launches_by_path"] = wide_by_path[kernel]
         if kernel.endswith("@paged"):
             e["launches_by_path"] = {path: pg[kernel.split("@")[0]]
                                      for path, pg in by_path.items()}

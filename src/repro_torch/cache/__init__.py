@@ -1,16 +1,19 @@
 """KV caches (int8, packed int4, or float with unit scales) behind one
-protocol: the dense layout (``repro_torch.cache.base``) and the page pool
-with block tables and prefix sharing (``repro_torch.cache.paged``).
+protocol: the dense layout and the sliding-window ring
+(``repro_torch.cache.base``), and the page pool with block tables and
+prefix sharing (``repro_torch.cache.paged``).
 
 ``make_cache`` is the single construction point the model layers use, the
-counterpart of ``repro.cache.make_cache``: ``layout`` is "dense", "paged",
-or "ring", which gives a sliding-window layer its ring buffer and every
-other layer a dense cache.
+counterpart of ``repro.cache.make_cache``: ``layout`` is "dense" (dense
+everywhere), "ring" (a sliding-window layer shorter than ``max_len`` gets a
+window-sized ring, every other layer a dense cache) or "paged" (the same
+rings, and a page pool for every other layer).
 """
 import torch
 
 from repro_torch.cache.base import (DenseCache, KernelView, KV_LEVELS,
-                                    dequantize_kv, kv_levels, quantize_kv)
+                                    LAYOUT_REGISTRY, RingCache, dequantize_kv,
+                                    kv_levels, quantize_kv)
 from repro_torch.cache.paged import (PagedCache, PrefixEntry, PrefixStore,
                                      copy_pages, set_table_row,
                                      splice_dense_into_pages)
@@ -23,18 +26,17 @@ def make_cache(batch, max_len, n_kv, head_dim, *, device=None,
                bits=8, quantized=True, dtype=torch.bfloat16):
     """The ``layout`` cache of one attention layer: int8 (packed int4 at
     ``bits=4``), or ``dtype`` tiles with unit scales when not ``quantized``
-    (``bits`` is then ignored).  The SWA ring buffer, which "ring" and
-    "paged" give a windowed layer shorter than ``max_len``, is ROADMAP
-    Queue A item 9."""
+    (``bits`` is then ignored).  A windowed layer (``window``) shorter than
+    ``max_len`` gets a ring of ``window`` slots in the "ring" and "paged"
+    layouts, as in the reference."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown cache layout {layout!r} (use one of "
                          f"{LAYOUTS})")
-    if window is not None and layout != "dense" and window < max_len:
-        raise NotImplementedError(
-            "the SWA ring buffer is not ported (ROADMAP Queue A item 9)")
     if not quantized:
         bits = 8
     kw = dict(device=device, bits=bits, quantized=quantized, dtype=dtype)
+    if window is not None and layout != "dense" and window < max_len:
+        return RingCache.init(batch, window, n_kv, head_dim, **kw)
     if layout == "paged":
         return PagedCache.init(batch, max_len, n_kv, head_dim,
                                page_size=page_size, extra_pages=extra_pages,
@@ -52,7 +54,8 @@ def layer_caches(tree):
         yield tree
 
 
-__all__ = ["DenseCache", "KernelView", "KV_LEVELS", "LAYOUTS", "PagedCache",
-           "PrefixEntry", "PrefixStore", "copy_pages", "dequantize_kv",
-           "kv_levels", "layer_caches", "make_cache", "quantize_kv",
-           "set_table_row", "splice_dense_into_pages"]
+__all__ = ["DenseCache", "KernelView", "KV_LEVELS", "LAYOUTS",
+           "LAYOUT_REGISTRY", "PagedCache", "PrefixEntry", "PrefixStore",
+           "RingCache", "copy_pages", "dequantize_kv", "kv_levels",
+           "layer_caches", "make_cache", "quantize_kv", "set_table_row",
+           "splice_dense_into_pages"]

@@ -1,10 +1,11 @@
-"""KV cache, dense layout: position p of request b lives at slot [b, p].
+"""KV cache, dense layout (position p of request b lives at slot [b, p])
+and the sliding-window ring (``RingCache``: slot [b, p % window]).
 Quantized: int8 tiles, or int4 packed two per byte along the head dim
 (``bits=4``: D/2 storage bytes, ``core/packing.py``), with per-head
 dequant scales.  Float (``quantized=False``): tiles in the model's dtype,
 with unit scales.
 
-Counterpart of the dense half of ``repro/cache/base.py``.  K/V are made
+Counterpart of the dense and ring layouts of ``repro/cache/base.py``.  K/V are made
 cache-ready ONCE in ``ready``: quantized against the frozen per-head
 calibrated thresholds (paper §2), or cast to the storage dtype; the same
 tiles are written by ``append`` and attended by the prefill kernel.
@@ -19,8 +20,7 @@ snapshots; ``load_state_dict_`` restores one into an existing cache in
 place (the scheduler's captured decode block keeps reading the tensors it
 was captured with).
 
-The paged layout is ``repro_torch.cache.paged``; the SWA ring buffer is
-ROADMAP Queue A item 9.
+The paged layout is ``repro_torch.cache.paged``.
 """
 from __future__ import annotations
 
@@ -368,3 +368,93 @@ class DenseCache(QuantizedKV):
         the kernels stream (B, S, KV, D) rows."""
         k, v = self.dense_view(limit)
         return KernelView(k.contiguous(), v.contiguous(), bits=self.bits)
+
+
+@dataclasses.dataclass
+class RingCache(QuantizedKV):
+    """SWA ring buffer of one sliding-window layer: capacity == window, and
+    position p lives at slot ``p % window`` (the windowed decode relies on
+    it).  A ring keeps one position for the whole batch (the reference's
+    scalar-position contract): per-slot writes and chunked prefill need
+    absolute slots, and both raise upstream.  Writes go into the buffers
+    in place, as in ``DenseCache``; a single-token write takes its position
+    as an int or as a device tensor (the captured decode step), never read
+    on the host."""
+
+    layout = "ring"
+
+    k: torch.Tensor        # (B, window, KV, D) int8 (D/2 at bits 4) or float
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    bits: int = 8
+
+    # zero tiles of ``window`` slots and unit scales; the sequence axis
+    init = classmethod(DenseCache.init.__func__)
+    capacity = DenseCache.capacity
+
+    @property
+    def window(self) -> int:
+        return self.capacity
+
+    def append(self, kq, vq, start) -> "RingCache":
+        """A single-token write lands at slot ``start % window`` (``start``
+        an int, or a 0-d or (B,) int tensor of positions, each row written
+        at its own slot); a whole-prompt write (``start`` 0, s tokens)
+        keeps the last ``window`` entries, rolled by ``(s - window) %
+        window`` so that position p sits at slot ``p % window``."""
+        s, cap = kq.shape[1], self.capacity
+        if s == 1:
+            if isinstance(start, torch.Tensor):
+                b = self.k.shape[0]
+                idx = torch.remainder(start.to(torch.long).reshape(-1),
+                                      cap).expand(b)
+                rows = torch.arange(b, device=self.k.device)
+                self.k[rows, idx] = kq[:, 0]
+                self.v[rows, idx] = vq[:, 0]
+            else:
+                idx = int(start) % cap
+                self.k[:, idx:idx + 1] = kq
+                self.v[:, idx:idx + 1] = vq
+            return self
+        if isinstance(start, torch.Tensor) or start != 0:
+            raise ValueError(
+                f"a ring buffer takes a multi-token write only as the "
+                f"one-shot prompt write at position 0, got {s} tokens at "
+                f"{start}")
+        keep = min(s, cap)
+        kk, vv = kq[:, s - keep:], vq[:, s - keep:]
+        if keep == cap:
+            shift = (s - keep) % cap
+            kk = torch.roll(kk, shift, dims=1)
+            vv = torch.roll(vv, shift, dims=1)
+        self.k[:, :keep] = kk
+        self.v[:, :keep] = vv
+        return self
+
+    def append_slots(self, kq, vq, starts, active=None):
+        raise NotImplementedError(
+            "per-slot decode needs absolute slots; the SWA ring buffer "
+            "keeps the scalar-position contract (use a dense or paged "
+            "cache sized >= max_len)")
+
+    def abs_positions(self, cur_pos) -> torch.Tensor:
+        """The absolute position each ring slot holds, given the newest
+        token's position ``cur_pos``: (window,) for an int, (B, window) for
+        a (B,) tensor; slots not yet written hold negative positions."""
+        cap = self.capacity
+        slot = torch.arange(cap, device=self.k.device)
+        if isinstance(cur_pos, torch.Tensor):
+            cur = cur_pos.to(torch.long).reshape(-1, 1)
+            idx = torch.remainder(cur, cap)
+        else:
+            cur, idx = int(cur_pos), int(cur_pos) % cap
+        return torch.where(slot <= idx, cur - (idx - slot),
+                           cur - (idx + cap - slot))
+
+    def dense_view(self, limit: Optional[int] = None):
+        """The ring's storage, which is its whole attended extent."""
+        return self.k, self.v
+
+    def kernel_view(self, limit: Optional[int] = None) -> KernelView:
+        return KernelView(self.k, self.v, bits=self.bits)

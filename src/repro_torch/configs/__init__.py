@@ -1,13 +1,16 @@
 """Architecture registry: arch id -> ModelConfig (+ reduced smoke).
 
-Only smollm-135m is ported; the other architectures of the reference
-package come with ROADMAP Queue A item 17."""
+The dense decoders are ported: smollm-135m, granite-8b, stablelm-12b
+(LayerNorm) and gemma3-12b (GeGLU, 5:1 sliding-window layers).  The other
+architectures of the reference package (MoE, SSM, hybrid, VLM, enc-dec)
+are ROADMAP Queue A item 17, steps 4-8."""
 from __future__ import annotations
 
-from repro_torch.configs import smollm_135m
+from repro_torch.configs import gemma3_12b, granite_8b, smollm_135m, stablelm_12b
 from repro_torch.configs.base import ModelConfig
 
-_CONFIGS = {"smollm-135m": smollm_135m}
+_CONFIGS = {"smollm-135m": smollm_135m, "granite-8b": granite_8b,
+            "stablelm-12b": stablelm_12b, "gemma3-12b": gemma3_12b}
 
 ARCHS = list(_CONFIGS)
 
@@ -16,7 +19,7 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in _CONFIGS:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet (ported: {ARCHS}); the other "
-            "architectures are ROADMAP Queue A item 17")
+            "architectures are ROADMAP Queue A item 17 (steps 4-8)")
     mod = _CONFIGS[arch]
     return mod.SMOKE if smoke else mod.CONFIG
 

@@ -2,8 +2,9 @@
 reference package, with torch dtypes.
 
 Field for field the counterpart of ``repro/configs/base.py``; the port
-serves only the attention + SwiGLU stacks so far, and the model layer
-raises on the other kinds (see ``models/transformer.py``).
+serves the dense attention stacks (RMSNorm or LayerNorm, SwiGLU or GeGLU,
+global or sliding-window layers) so far, and the model layer raises on the
+other kinds (see ``models/transformer.py``).
 """
 from __future__ import annotations
 

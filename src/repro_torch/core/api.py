@@ -273,8 +273,10 @@ def _int8_matmul(x, w_q, w_scale, astate, aspec: Q.QuantSpec):
     # so both packages dequantize with the same bits
     combined = (w_scale * t_adj) * (1.0 / aspec.levels)
     lead = x.shape[:-1]
-    y = ops.quant_matmul(x.reshape(-1, x.shape[-1]), w_q, combined.float(),
-                         s_x.float())
+    # the kernel streams contiguous rows: the untied lm_head reads the
+    # prefill's last position, a strided view
+    y = ops.quant_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w_q,
+                         combined.float(), s_x.float())
     return y.reshape(*lead, -1).to(x.dtype)
 
 

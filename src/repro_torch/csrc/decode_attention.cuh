@@ -1,7 +1,9 @@
 // One-token flash-decode attention over the quantized KV cache, for Hopper (sm_90a):
 // the kernel body shared by decode_attention.cu (normalized output, PARTIALS
-// false) and decode_attention_partials.cu (raw flash state, PARTIALS true).
-// Each entry file instantiates one epilogue, so the two build in parallel.
+// false) and decode_attention_partials.cu (raw flash state, PARTIALS true),
+// each for D <= 128, and their _wide twins for 128 < D <= 256.  Each entry
+// file instantiates one epilogue at one head-dim class, so the four build in
+// parallel.
 //
 //   out[b, h, g] = v_scale[h] * softmax_{p < cur_pos[b]}((q[b, h, g] * k_scale[h] / sqrt(D))
 //                  . K[b, p, h]) @ V[b, :, h] ,   zeros when cur_pos[b] == 0
@@ -55,9 +57,10 @@
 //    K/V widened by a float bit trick, the byte or nibble as the low bits of
 //    2^23 + v + bias, not by I2F), the warp's max and the probabilities 2^(s
 //    - max) (MUFU ex2; scores are in log2 units) and their sum by butterflies,
-//    then P @ V over the warp's own positions: lanes in groups of D / 4, each
-//    lane 4 values of D for all G rows, the groups' sums added in group order
-//    by shuffles;
+//    then P @ V over the warp's own positions: up to D = 128, lanes in groups
+//    of D / 4, each lane 4 values of D for all G rows, the groups' sums added
+//    in group order by shuffles; past it (DMAX 256) one group, each lane
+//    4 values of D in each of D / 128 (rounded up) column blocks 128 apart;
 //  - the chunk's state: one barrier, then each output rescales the warps'
 //    states to the chunk's max and adds them in warp order.
 //
@@ -96,12 +99,16 @@ constexpr int NT = 256;               // threads per block
 constexpr int NWARP = NT / 32;
 constexpr int PPW = SPLIT / NWARP;    // positions per warp
 constexpr int QPP = 32 / PPW;         // lanes scoring one position
-constexpr int STAGE = SPLIT * 32 / NT;  // K (and V) words a thread stages, at most
 constexpr int CB = 16;                // chunk states the merge reads at once
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-static_assert(QPP * PPW == 32 && STAGE % 4 == 0, "chunk, block and warp sizes");
+static_assert(QPP * PPW == 32, "chunk, block and warp sizes");
+
+// K (and V) words a thread stages, at most, for rows of D <= DMAX int8
+// values
+__host__ __device__ constexpr int stage_words(int dmax) { return SPLIT * (dmax / 4) / NT; }
+static_assert(stage_words(128) % 4 == 0 && stage_words(256) % 4 == 0, "staging pieces");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -161,11 +168,12 @@ __host__ __device__ constexpr size_t smem_bytes(int G, int D, int bits) {
 }
 
 // GMAX: compile-time bound on the query rows per KV head (G <= GMAX);
-// BITS: storage width of K/V (8, or 4 packed); PAGED: K/V are page pools read
+// DMAX: compile-time bound on the head dim (128, or 256 with P @ V in column
+// blocks); BITS: storage width of K/V (8, or 4 packed); PAGED: K/V are page pools read
 // through the block table (else a dense (B, S, KV, D) stream, batch rows
 // `pitch` positions apart); PARTIALS: the epilogue writes the raw flash state
 // (acc, m_out, l_out) instead of the normalized output.
-template <typename T, int GMAX, int BITS, bool PAGED, bool PARTIALS>
+template <typename T, int GMAX, int DMAX, int BITS, bool PAGED, bool PARTIALS>
 __global__ void __launch_bounds__(NT)
 decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                         const int8_t* __restrict__ v,
@@ -179,7 +187,12 @@ decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                         int n_pages) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int merge_here;
-  constexpr int QR = (GMAX * 128 + NT - 1) / NT;  // q values (and outputs) a thread takes
+  constexpr int QR = (GMAX * DMAX + NT - 1) / NT;  // q values (and outputs) a thread takes
+  constexpr int STAGE = stage_words(DMAX);
+  // the partials epilogue at DMAX 256 stages single words straight to
+  // shared memory: held in registers, they spill there (ptxas -v, G <= 1,
+  // int4, paged); everywhere else they are held, and nothing spills
+  constexpr bool NARROW_DIRECT = PARTIALS && DMAX > 128;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int h = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
   const int c0 = c * SPLIT;                 // the chunk's first position
@@ -237,7 +250,7 @@ decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
         vw[4 * u] = vx.x; vw[4 * u + 1] = vx.y; vw[4 * u + 2] = vx.z; vw[4 * u + 3] = vx.w;
       }
     }
-  } else {
+  } else if constexpr (!NARROW_DIRECT) {
 #pragma unroll
     for (int u = 0; u < STAGE; ++u) {
       const int i = tid + u * NT;
@@ -245,6 +258,20 @@ decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
         const size_t off = word_at(i, 1);
         kw[u] = k32[off];
         vw[u] = v32[off];
+      }
+    }
+  } else {
+    // single words (a row width or base the 16-byte pieces do not fit):
+    // straight to shared memory, so that the twice as many words in flight
+    // hold no registers beside their addresses
+#pragma unroll
+    for (int u = 0; u < STAGE; ++u) {
+      const int i = tid + u * NT;
+      if (i < n_pieces) {
+        const size_t off = word_at(i, 1);
+        const int t = div_by(i, inv_pr);
+        ks[t * LDW + i - t * pr] = k32[off];
+        vs[t * LDW + i - t * pr] = v32[off];
       }
     }
   }
@@ -271,7 +298,7 @@ decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
               make_uint4(vw[4 * u], vw[4 * u + 1], vw[4 * u + 2], vw[4 * u + 3]);
         }
       }
-    } else {
+    } else if constexpr (!NARROW_DIRECT) {
 #pragma unroll
       for (int u = 0; u < STAGE; ++u) {
         const int i = tid + u * NT;
@@ -349,7 +376,7 @@ decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   // P @ V over the warp's positions: its lanes form NG position groups of
   // UPR lanes; a lane owns values 4u .. 4u + 3 of D for all G rows and takes
   // the group's positions grp, grp + NG, ...
-  {
+  if constexpr (DMAX <= 128) {
     const int grp = div_by(lane, 4.0f * invD), u = lane - grp * UPR;
     float a[GMAX][4];
 #pragma unroll
@@ -397,6 +424,51 @@ decode_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
         if (g < G)
           *reinterpret_cast<float4*>(pacc + warp * GD + g * D + 4 * u) =
               make_float4(a[g][0], a[g][1], a[g][2], a[g][3]);
+    }
+  } else {
+    // D > 128: UPR > 32 units, so one group: lane owns units lane + 32 j
+    // (j < UPL) for all G rows and takes every position of the warp in order
+    constexpr int UPL = DMAX / 128;
+    float a[GMAX][UPL][4];
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g)
+#pragma unroll
+      for (int j = 0; j < UPL; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[g][j][e] = 0.f;
+    const int pend = min(plen, (warp + 1) * PPW);
+    for (int pp = warp * PPW; pp < pend; ++pp) {
+#pragma unroll
+      for (int j = 0; j < UPL; ++j) {
+        const int u = lane + 32 * j;
+        if (u < UPR) {
+          const int wcol = BITS == 8 ? u : u / 2;
+          const int shift = BITS == 8 ? 0 : 16 * (u % 2);
+          const uint32_t w = (vs[pp * LDW + wcol] ^ flip<BITS>()) >> shift;
+          float vf[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) vf[e] = word_elem<BITS>(w, e);
+#pragma unroll
+          for (int g = 0; g < GMAX; ++g) {
+            if (g < G) {
+              const float pp_g = ps[g * SPLIT + pp];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) a[g][j][e] += pp_g * vf[e];
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < UPL; ++j) {
+      const int u = lane + 32 * j;
+      if (u < UPR) {
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g)
+          if (g < G)
+            *reinterpret_cast<float4*>(pacc + warp * GD + g * D + 4 * u) =
+                make_float4(a[g][j][0], a[g][j][1], a[g][j][2], a[g][j][3]);
+      }
     }
   }
   __syncthreads();
@@ -520,12 +592,12 @@ struct Outputs {
   unsigned* counters;
 };
 
-template <typename T, int GMAX, int BITS, bool PAGED, bool PARTIALS>
+template <typename T, int GMAX, int DMAX, int BITS, bool PAGED, bool PARTIALS>
 int launch_variant(const void* q, const void* k, const void* v, const void* k_scale,
                    const void* v_scale, const void* cur_pos, int B, int S, int KV,
                    int G, int D, Paging pg, Outputs o, cudaStream_t stream) {
   const size_t smem = smem_bytes(G, D, BITS);
-  auto kern = decode_attention_kernel<T, GMAX, BITS, PAGED, PARTIALS>;
+  auto kern = decode_attention_kernel<T, GMAX, DMAX, BITS, PAGED, PARTIALS>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -540,31 +612,37 @@ int launch_variant(const void* q, const void* k, const void* v, const void* k_sc
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int GMAX, int BITS, bool PARTIALS>
+template <typename T, int GMAX, int DMAX, int BITS, bool PARTIALS>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* cur_pos, int B, int S, int KV, int G, int D,
            Paging pg, Outputs o, cudaStream_t st) {
   if (pg.table != nullptr)
-    return launch_variant<T, GMAX, BITS, true, PARTIALS>(q, k, v, ks, vs, cur_pos, B, S,
-                                                         KV, G, D, pg, o, st);
-  return launch_variant<T, GMAX, BITS, false, PARTIALS>(q, k, v, ks, vs, cur_pos, B, S,
-                                                        KV, G, D, pg, o, st);
+    return launch_variant<T, GMAX, DMAX, BITS, true, PARTIALS>(q, k, v, ks, vs, cur_pos, B,
+                                                               S, KV, G, D, pg, o, st);
+  return launch_variant<T, GMAX, DMAX, BITS, false, PARTIALS>(q, k, v, ks, vs, cur_pos, B,
+                                                              S, KV, G, D, pg, o, st);
 }
 
-template <typename T, int BITS, bool PARTIALS>
-int dispatch(const void* q, const void* k, const void* v, const void* ks,
-             const void* vs, const void* cur_pos, int B, int S, int KV, int G, int D,
-             Paging pg, Outputs o, cudaStream_t st) {
+template <typename T, int DMAX, int BITS, bool PARTIALS>
+int dispatch_g(const void* q, const void* k, const void* v, const void* ks,
+               const void* vs, const void* cur_pos, int B, int S, int KV, int G, int D,
+               Paging pg, Outputs o, cudaStream_t st) {
   if (G <= 1)
-    return launch<T, 1, BITS, PARTIALS>(q, k, v, ks, vs, cur_pos, B, S, KV, G, D, pg, o, st);
+    return launch<T, 1, DMAX, BITS, PARTIALS>(q, k, v, ks, vs, cur_pos, B, S, KV, G, D, pg,
+                                              o, st);
   if (G <= 2)
-    return launch<T, 2, BITS, PARTIALS>(q, k, v, ks, vs, cur_pos, B, S, KV, G, D, pg, o, st);
+    return launch<T, 2, DMAX, BITS, PARTIALS>(q, k, v, ks, vs, cur_pos, B, S, KV, G, D, pg,
+                                              o, st);
   if (G <= 4)
-    return launch<T, 4, BITS, PARTIALS>(q, k, v, ks, vs, cur_pos, B, S, KV, G, D, pg, o, st);
+    return launch<T, 4, DMAX, BITS, PARTIALS>(q, k, v, ks, vs, cur_pos, B, S, KV, G, D, pg,
+                                              o, st);
   if (G <= 8)
-    return launch<T, 8, BITS, PARTIALS>(q, k, v, ks, vs, cur_pos, B, S, KV, G, D, pg, o, st);
-  return launch<T, 16, BITS, PARTIALS>(q, k, v, ks, vs, cur_pos, B, S, KV, G, D, pg, o, st);
+    return launch<T, 8, DMAX, BITS, PARTIALS>(q, k, v, ks, vs, cur_pos, B, S, KV, G, D, pg,
+                                              o, st);
+  return launch<T, 16, DMAX, BITS, PARTIALS>(q, k, v, ks, vs, cur_pos, B, S, KV, G, D, pg,
+                                             o, st);
 }
+
 
 // q: (B, KV, G, D) f32 (q_bf16 == 0) or bf16; k/v: (B, S, KV, D) int8 (bits
 // == 8) or (B, S, KV, D/2) packed int4 (bits == 4) with batch rows o.pitch
@@ -574,8 +652,11 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks,
 // cur_pos: (B,) int32 valid positions; o.out: (B, KV, G, D) f32, normalized,
 // or (PARTIALS) the unnormalized accumulator with o.m / o.l: (B, KV, G) f32;
 // o.scratch and o.counters as in Outputs; split: the caller's SPLIT, checked.
-// Requires G <= 16, D % 8 == 0, D <= 128.
-template <bool PARTIALS>
+// Requires G <= 16, D % 8 == 0 and D <= DMAX: 128 in the libraries built by
+// decode_attention.cu and decode_attention_partials.cu, and 128 < D <= 256
+// in their _wide twins (one library a head-dim class, so that the four
+// compile in parallel).
+template <bool PARTIALS, int DMAX>
 int run_decode_attention(const void* q, int q_bf16, const void* k, const void* v,
                          const void* k_scale, const void* v_scale, const void* cur_pos,
                          int B, int S, int KV, int G, int D, int bits, int split,
@@ -587,20 +668,20 @@ int run_decode_attention(const void* q, int q_bf16, const void* k, const void* v
     return static_cast<int>(cudaErrorInvalidValue);
   if (pg.table == nullptr && o.pitch < S) return static_cast<int>(cudaErrorInvalidValue);
   if (bits != 8 && bits != 4) return static_cast<int>(cudaErrorInvalidValue);
-  if (G < 1 || G > 16 || D % 8 || D > 128 || S < 1)
+  if (G < 1 || G > 16 || D % 8 || D > DMAX || (DMAX > 128 && D <= 128) || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (q_bf16) {
     if (bits == 8)
-      return dispatch<__nv_bfloat16, 8, PARTIALS>(q, k, v, k_scale, v_scale, cur_pos, B,
-                                                  S, KV, G, D, pg, o, st);
-    return dispatch<__nv_bfloat16, 4, PARTIALS>(q, k, v, k_scale, v_scale, cur_pos, B, S,
-                                                KV, G, D, pg, o, st);
+      return dispatch_g<__nv_bfloat16, DMAX, 8, PARTIALS>(q, k, v, k_scale, v_scale,
+                                                          cur_pos, B, S, KV, G, D, pg, o, st);
+    return dispatch_g<__nv_bfloat16, DMAX, 4, PARTIALS>(q, k, v, k_scale, v_scale, cur_pos,
+                                                        B, S, KV, G, D, pg, o, st);
   }
   if (bits == 8)
-    return dispatch<float, 8, PARTIALS>(q, k, v, k_scale, v_scale, cur_pos, B, S, KV, G,
-                                        D, pg, o, st);
-  return dispatch<float, 4, PARTIALS>(q, k, v, k_scale, v_scale, cur_pos, B, S, KV, G, D,
-                                      pg, o, st);
+    return dispatch_g<float, DMAX, 8, PARTIALS>(q, k, v, k_scale, v_scale, cur_pos, B, S,
+                                                KV, G, D, pg, o, st);
+  return dispatch_g<float, DMAX, 4, PARTIALS>(q, k, v, k_scale, v_scale, cur_pos, B, S, KV,
+                                              G, D, pg, o, st);
 }
 
 }  // namespace

@@ -10,6 +10,11 @@
 // place through the row pitch; a paged pool goes through the block table).
 // What bounds it: latency, as for the decode kernel; the shard's chunks run
 // as blocks of their own and merge in chunk order within the launch.
+// REPRO_DMAX: the head dims of this library, D <= 128 by default; the
+// build's _wide library compiles this file again with 256 (128 < D <= 256)
+#ifndef REPRO_DMAX
+#define REPRO_DMAX 128
+#endif
 #include "decode_attention.cuh"
 
 // The arguments of repro_decode_attention, plus: pitch, the positions
@@ -26,6 +31,6 @@ extern "C" int repro_decode_attention_partials(
   const Outputs o{static_cast<float*>(out), static_cast<float*>(m_out),
                   static_cast<float*>(l_out), pitch, static_cast<float*>(scratch),
                   static_cast<unsigned*>(counters)};
-  return run_decode_attention<true>(q, q_bf16, k, v, k_scale, v_scale, cur_pos, B, S,
+  return run_decode_attention<true, REPRO_DMAX>(q, q_bf16, k, v, k_scale, v_scale, cur_pos, B, S,
                                     KV, G, D, bits, split, pg, o, stream);
 }

@@ -27,9 +27,11 @@
 // kernel the G query heads of a KV head are flattened into rows (row r sits
 // at position q_lo + r / G); a block holds 64 rows in 4 row groups of 16, one
 // warp each, and splits every step of keys between parts(D) warps per row
-// group (4 at D <= 64: 16 warps; 2 at D <= 128), each taking 64 keys and
-// keeping its own online-softmax state; the parts merge through shared
-// memory at the end.  Both products run on the tensor cores as
+// group (4 at D <= 64: 16 warps; 2 at D <= 128; 1 at D <= 256, where a
+// lane's accumulator holds up to 128 floats, as many as the registers allow,
+// and two steps of 128 keys would not fit in shared memory), each taking 64
+// keys and keeping its own online-softmax state; the parts merge through
+// shared memory at the end.  Both products run on the tensor cores as
 // mma.sync.m16n8k16 with float32 sums, at the float32 reference's accuracy:
 //  - Q @ K^T in bf16.  int8 (|v| <= 127) and int4 values are exact in bf16,
 //    and so is a bf16 q, which goes in unscaled; each score is multiplied by
@@ -64,7 +66,12 @@
 //    by 16 bytes, so ldmatrix reads K (plain) and V (.trans) without bank
 //    conflicts.  D that is not a multiple of 16 is zero-padded in K and q
 //    (in a bf16 stream the padding columns are zeroed once: no copy writes
-//    them).
+//    them).  The one variant whose tiles do not fit shared memory with that
+//    padding (a float32 q over int8 K/V at D > 240) drops it: its ldmatrix
+//    reads meet bank conflicts, the arithmetic is the same.
+//  - Registers at D > 128: q and each widening step are staged in rounds,
+//    so that the staging registers never sit beside the 128-float
+//    accumulator.
 //  - The key walk runs only from the window's first live tile to
 //    min(kv_len, causal frontier): the TPU body's `live` skip.  A warp whose
 //    16 rows see none of its 64 keys skips them, an exact no-op.  Query tiles
@@ -80,6 +87,12 @@
 
 #include <type_traits>
 
+// REPRO_WIDE: this library's head dims: 0 (the default) D <= 128, 1 (the
+// build's _wide library, this file compiled again) 128 < D <= 256
+#ifndef REPRO_WIDE
+#define REPRO_WIDE 0
+#endif
+
 namespace {
 
 constexpr int ROW_WARPS = 4;           // row groups of 16 rows
@@ -87,8 +100,17 @@ constexpr int ROWS = 16 * ROW_WARPS;   // flattened (position, group) rows per b
 constexpr int HALF = 64;               // keys a warp takes of each step
 constexpr int NKT = HALF / 8;          // n8 key tiles of a warp's scores
 // warps a row group's keys are split over: 4 at D <= 64 (16 warps and 128
-// registers a thread), 2 at D <= 128 (whose accumulator needs more)
-__host__ __device__ constexpr int parts(int dch) { return dch == 1 ? 4 : 2; }
+// registers a thread), 2 at D <= 128 (whose accumulator needs more), 1 past
+// it (a lane's accumulator is up to 128 floats, and one step of 64 keys
+// fills shared memory)
+__host__ __device__ constexpr int parts(int dch) { return dch == 1 ? 4 : dch == 2 ? 2 : 1; }
+
+// 16-bit tile row stride for D16 = D rounded up to 16: 16 bytes of padding
+// (conflict-free ldmatrix), but none for a float32 q over int8 K/V at D16 >
+// 240, whose tiles do not fit shared memory with it
+__host__ __device__ constexpr int tile_ld(int d16, bool qf32, int bits) {
+  return d16 + (qf32 && bits == 8 && d16 > 240 ? 0 : 8);
+}
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -282,7 +304,7 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   const int D16 = (D + 15) & ~15;  // D zero-padded to the MMA's k-step
   const int KS = D16 / 16;
   const int ND = D / 8;
-  const int LDT = D16 + 8;         // 16-bit tile row stride: 16 bytes of padding
+  const int LDT = tile_ld(D16, QF32, BITS);  // 16-bit tile row stride
   const int DP = D * BITS / 8;     // storage bytes per K/V row (D % 8 == 0)
 
   uint16_t* ks = reinterpret_cast<uint16_t*>(smem);  // [2][BK][LDT] K, bf16
@@ -293,29 +315,6 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   size_t* koff = reinterpret_cast<size_t*>(vraw + (DIRECT ? 0 : BK * DP));  // [BK] (PAGED)
 
   const int i0 = qt * BQ;                  // first query index of the tile
-  // q, unscaled, to registers first (its loads depend on nothing before
-  // them), then to shared memory as bf16 pairs (a float32 q as hi and lo
-  // parts) once the first K/V copy is issued; zeros past D and the real rows
-  constexpr int QU = ROWS * 32 * DCH / NT;  // pairs a thread stages, at most
-  const int pairs = D16 / 2;
-  uint32_t qv[QU];
-  float qf[QF32 ? QU : 1][2];
-  int qat[QU];  // the pair's offset in qs, or -1
-#pragma unroll
-  for (int u = 0; u < QU; ++u) {
-    const int i = tid + u * NT;
-    const int r = i / pairs, c = 2 * (i - r * pairs);
-    const int qi = i0 + r / G;
-    const bool ok = r < rows && c < D && qi < Sq;
-    qat[u] = r < ROWS ? r * LDT + c : -1;
-    const T* p = q + ((((size_t)b * Sq + qi) * KV + h) * G + r % G) * D + c;
-    if constexpr (QF32) {
-      qf[u][0] = ok ? p[0] : 0.f;
-      qf[u][1] = ok ? p[1] : 0.f;
-    } else {
-      qv[u] = ok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
-    }
-  }
   const int n_pos = min(BQ, Sq - i0);      // real query positions in the tile
   const int q_lo = q_start[b] + i0;        // absolute position of row 0
   const int q_hi = q_lo + n_pos - 1;
@@ -358,35 +357,64 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
     cp_async_commit();
   };
 
-  // the first step's copy is in flight while q is staged
-  if (k_first < k_end) {
-    if constexpr (PAGED) {
-      map_rows(k_first);
-      __syncthreads();
-    }
-    issue(k_first, 0);
-  }
-  if constexpr (DIRECT) {
-    // no copy writes the padding columns D..D16 of a bf16 tile: zero them
-    // once, in both buffers
-    if (D16 != D) {
-      for (int r = tid; r < 2 * BK; r += NT) {
-        *reinterpret_cast<uint4*>(ks + r * LDT + D) = make_uint4(0u, 0u, 0u, 0u);
-        *reinterpret_cast<uint4*>(vs + r * LDT + D) = make_uint4(0u, 0u, 0u, 0u);
+  // q, unscaled, to registers first (its loads depend on nothing before
+  // them), then to shared memory as bf16 pairs (a float32 q as hi and lo
+  // parts) once the first K/V copy is issued; zeros past D and the real
+  // rows.  In rounds of QUB pairs a thread (one round up to D = 128).
+  constexpr int QU = ROWS * 32 * DCH / NT;  // pairs a thread stages, at most
+  constexpr int QUB = DCH <= 2 ? QU : 16;   // ... a round
+  const int pairs = D16 / 2;
+#pragma unroll 1
+  for (int u0 = 0; u0 < QU; u0 += QUB) {
+    uint32_t qv[QUB];
+    float qf[QF32 ? QUB : 1][2];
+    int qat[QUB];  // the pair's offset in qs, or -1
+#pragma unroll
+    for (int u = 0; u < QUB; ++u) {
+      const int i = tid + (u0 + u) * NT;
+      const int r = i / pairs, c = 2 * (i - r * pairs);
+      const int qi = i0 + r / G;
+      const bool ok = r < rows && c < D && qi < Sq;
+      qat[u] = u0 + u < QU && r < ROWS ? r * LDT + c : -1;
+      const T* p = q + ((((size_t)b * Sq + qi) * KV + h) * G + r % G) * D + c;
+      if constexpr (QF32) {
+        qf[u][0] = ok ? p[0] : 0.f;
+        qf[u][1] = ok ? p[1] : 0.f;
+      } else {
+        qv[u] = ok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
       }
     }
-  }
-
-  // q to shared memory
-#pragma unroll
-  for (int u = 0; u < QU; ++u) {
-    if (qat[u] < 0) continue;
-    if constexpr (QF32) {
-      uint32_t lo;
-      split_bf16(qf[u][0], qf[u][1], qv[u], lo);
-      *reinterpret_cast<uint32_t*>(qs + ROWS * LDT + qat[u]) = lo;
+    if (u0 == 0) {
+      // the first step's copy is in flight while q is staged
+      if (k_first < k_end) {
+        if constexpr (PAGED) {
+          map_rows(k_first);
+          __syncthreads();
+        }
+        issue(k_first, 0);
+      }
+      if constexpr (DIRECT) {
+        // no copy writes the padding columns D..D16 of a bf16 tile: zero
+        // them once, in both buffers
+        if (D16 != D) {
+          for (int r = tid; r < 2 * BK; r += NT) {
+            *reinterpret_cast<uint4*>(ks + r * LDT + D) = make_uint4(0u, 0u, 0u, 0u);
+            *reinterpret_cast<uint4*>(vs + r * LDT + D) = make_uint4(0u, 0u, 0u, 0u);
+          }
+        }
+      }
     }
-    *reinterpret_cast<uint32_t*>(qs + qat[u]) = qv[u];
+    // q to shared memory
+#pragma unroll
+    for (int u = 0; u < QUB; ++u) {
+      if (qat[u] < 0) continue;
+      if constexpr (QF32) {
+        uint32_t lo;
+        split_bf16(qf[u][0], qf[u][1], qv[u], lo);
+        *reinterpret_cast<uint32_t*>(qs + ROWS * LDT + qat[u]) = lo;
+      }
+      *reinterpret_cast<uint32_t*>(qs + qat[u]) = qv[u];
+    }
   }
 
   // scores in log2 units: exp(x) == exp2(x * log2(e))
@@ -407,39 +435,45 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
 
   // widen the raw step at k0 into a bf16 K tile and an fp16 V tile, one
   // 32-bit word (4 int8 or 8 int4 values) at a time, each thread's shared
-  // loads in flight together; columns D..D16 are zeros
+  // loads of a round (all of them up to D = 128) in flight together;
+  // columns D..D16 are zeros
   auto widen = [&](int k0, uint16_t* kdst, uint16_t* vdst) {
     constexpr int EPW = 32 / BITS;                 // values per word
     constexpr int CU = BK * 2 * DCH * BITS / NT;   // words a thread widens, at most
+    constexpr int CUB = DCH <= 2 ? CU : 8;         // ... a round
     const int words = DP / 4;
     const int n = staged(k0);
-    uint32_t kw[CU], vw[CU];
-    int at[CU];  // the word's first column in the tiles, or -1
     int t = tid / words, w = tid % words;
     const int dt = NT / words, dw = NT % words;
+#pragma unroll 1
+    for (int u0 = 0; u0 < CU; u0 += CUB) {
+      uint32_t kw[CUB], vw[CUB];
+      int at[CUB];  // the word's first column in the tiles, or -1
 #pragma unroll
-    for (int u = 0; u < CU; ++u) {
-      at[u] = t < n ? t * LDT + EPW * w : -1;
-      if (t < n) {
-        kw[u] = *reinterpret_cast<const uint32_t*>(kraw + t * DP + 4 * w);
-        vw[u] = *reinterpret_cast<const uint32_t*>(vraw + t * DP + 4 * w);
+      for (int u = 0; u < CUB; ++u) {
+        const bool here = u0 + u < CU && t < n;
+        at[u] = here ? t * LDT + EPW * w : -1;
+        if (here) {
+          kw[u] = *reinterpret_cast<const uint32_t*>(kraw + t * DP + 4 * w);
+          vw[u] = *reinterpret_cast<const uint32_t*>(vraw + t * DP + 4 * w);
+        }
+        t += dt;
+        w += dw;
+        if (w >= words) {
+          w -= words;
+          t += 1;
+        }
       }
-      t += dt;
-      w += dw;
-      if (w >= words) {
-        w -= words;
-        t += 1;
-      }
-    }
 #pragma unroll
-    for (int u = 0; u < CU; ++u) {
-      if (at[u] < 0) continue;
-      if constexpr (BITS == 8) {
-        *reinterpret_cast<uint2*>(kdst + at[u]) = widen_int8(kw[u]);
-        *reinterpret_cast<uint2*>(vdst + at[u]) = widen_int8_f16(vw[u]);
-      } else if constexpr (BITS == 4) {
-        *reinterpret_cast<uint4*>(kdst + at[u]) = widen_int4(kw[u]);
-        *reinterpret_cast<uint4*>(vdst + at[u]) = widen_int4_f16(vw[u]);
+      for (int u = 0; u < CUB; ++u) {
+        if (at[u] < 0) continue;
+        if constexpr (BITS == 8) {
+          *reinterpret_cast<uint2*>(kdst + at[u]) = widen_int8(kw[u]);
+          *reinterpret_cast<uint2*>(vdst + at[u]) = widen_int8_f16(vw[u]);
+        } else if constexpr (BITS == 4) {
+          *reinterpret_cast<uint4*>(kdst + at[u]) = widen_int4(kw[u]);
+          *reinterpret_cast<uint4*>(vdst + at[u]) = widen_int4_f16(vw[u]);
+        }
       }
     }
     if (D16 != D) {
@@ -708,7 +742,7 @@ int launch_variant(const void* q, const void* k, const void* v, const void* k_sc
   constexpr int PARTS = parts(DCH);
   constexpr int BK = HALF * PARTS;
   const int BQ = ROWS / G > 0 ? ROWS / G : 1;
-  const int LDT = ((D + 15) & ~15) + 8;
+  const int LDT = tile_ld((D + 15) & ~15, std::is_same<T, float>::value, BITS);
   const int DP = D * BITS / 8;
   // the widest cp.async that the row width and both base addresses allow
   const uintptr_t al = reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
@@ -757,11 +791,19 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* q_start, const void* kv_len, void* out,
              int B, int Sq, int Sk, int KV, int G, int D, int causal, int window,
              Paging pg, cudaStream_t st) {
-  if (D <= 64)
-    return launch<T, 1, BITS>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV,
-                              G, D, causal, window, pg, st);
-  return launch<T, 2, BITS>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G,
-                            D, causal, window, pg, st);
+  if constexpr (REPRO_WIDE) {
+    if (D <= 192)
+      return launch<T, 3, BITS>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G,
+                                D, causal, window, pg, st);
+    return launch<T, 4, BITS>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G,
+                              D, causal, window, pg, st);
+  } else {
+    if (D <= 64)
+      return launch<T, 1, BITS>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV,
+                                G, D, causal, window, pg, st);
+    return launch<T, 2, BITS>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G,
+                              D, causal, window, pg, st);
+  }
 }
 
 template <typename T>
@@ -788,7 +830,8 @@ int dispatch_bits(const void* q, const void* k, const void* v, const void* ks,
 // KV, D/2) packed int4, when table is null, else pools (n_pages, P, KV, D or
 // D/2) read through the (B, NB) int32 block table, with Sk == NB * P;
 // k_scale/v_scale: (KV,) f32; q_start, kv_len: (B,) int32; window <= 0 means no
-// window; out: (B, Sq, KV, G, D) f32.  Requires G <= 64, D % 8 == 0, D <= 128.
+// window; out: (B, Sq, KV, G, D) f32.  Requires G <= 64, D % 8 == 0 and D <=
+// 128 (REPRO_WIDE: 128 < D <= 256).
 extern "C" int repro_prefill_attention(const void* q, int q_bf16, const void* k,
                                        const void* v, const void* k_scale,
                                        const void* v_scale, const void* q_start,
@@ -799,6 +842,8 @@ extern "C" int repro_prefill_attention(const void* q, int q_bf16, const void* k,
                                        int n_pages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Paging pg{static_cast<const int*>(table), NB, P, n_pages};
+  if (D % 8 || D > (REPRO_WIDE ? 256 : 128) || (REPRO_WIDE && D <= 128))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (q_bf16)
     return dispatch_bits<__nv_bfloat16>(q, k, v, k_scale, v_scale, q_start, kv_len,
                                         out, B, Sq, Sk, KV, G, D, causal, window,

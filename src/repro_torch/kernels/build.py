@@ -2,12 +2,14 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with ``ctypes``; a body
-shared by two sources lives in a ``csrc/*.cuh`` header.  The
-build runs at first use, from the sources in the checkout only, into
-``build/repro_torch_kernels/`` at the repository root; all sources compile
-at once, one ``nvcc`` process each.  A library's file name carries a hash of
-its source, the headers and the flags, so an edited source is never served
-by a stale build.
+shared by two sources lives in a ``csrc/*.cuh`` header.  The attention
+sources build twice, once for the head dims up to 128 and once, as the
+``_wide`` library, for 128 < D <= 256 (a ``-D`` flag picks the class), so
+that the halves compile in parallel.  The build runs at first use, from
+the sources in the checkout only, into ``build/repro_torch_kernels/`` at
+the repository root; all libraries compile at once, one ``nvcc`` process
+each.  A library's file name carries a hash of its source, the headers and
+the flags, so an edited source is never served by a stale build.
 """
 from __future__ import annotations
 
@@ -17,11 +19,23 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("quant_matmul", "decode_attention", "decode_attention_partials",
-           "prefill_attention", "fake_quant")
+# library -> (source stem under csrc/, extra nvcc flags)
+LIBRARIES = {
+    "quant_matmul": ("quant_matmul", ()),
+    "decode_attention": ("decode_attention", ()),
+    "decode_attention_wide": ("decode_attention", ("-DREPRO_DMAX=256",)),
+    "decode_attention_partials": ("decode_attention_partials", ()),
+    "decode_attention_partials_wide": ("decode_attention_partials",
+                                       ("-DREPRO_DMAX=256",)),
+    "prefill_attention": ("prefill_attention", ()),
+    "prefill_attention_wide": ("prefill_attention", ("-DREPRO_WIDE=1",)),
+    "fake_quant": ("fake_quant", ()),
+}
+SOURCES = tuple(LIBRARIES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -36,6 +50,7 @@ class _Loaded:
     ``ctypes`` never unloads a library)."""
     libs: dict | None = None
     logs: dict = {}
+    seconds: dict = {}      # each source's nvcc wall time, built here
 
 
 def _nvcc() -> str:
@@ -47,10 +62,14 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> tuple:
+    return (*NVCC_FLAGS, *LIBRARIES[name][1])
+
+
 def _target(name: str, out: Path) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{LIBRARIES[name][0]}.cu").read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return out / f"{name}-{digest[:16]}.so"
 
 
@@ -65,18 +84,26 @@ def load() -> dict:
     missing = [name for name, so in targets.items() if not so.exists()]
     nvcc = _nvcc() if missing else None
     jobs = {}
+    t0 = time.perf_counter()
     try:
         for name in missing:
             so = targets[name]
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             log = so.with_suffix(".log")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [nvcc, *_flags(name), "-o", str(tmp),
+                   str(CSRC / f"{LIBRARIES[name][0]}.cu")]
             with open(log, "w") as fh:
                 jobs[name] = (subprocess.Popen(cmd, stdout=fh,
                                                stderr=subprocess.STDOUT),
                               tmp, log)
     finally:
-        codes = {name: proc.wait() for name, (proc, _, _) in jobs.items()}
+        codes = {}
+        while len(codes) < len(jobs):
+            for name, (proc, _, _) in jobs.items():
+                if name not in codes and proc.poll() is not None:
+                    codes[name] = proc.returncode
+                    _Loaded.seconds[name] = time.perf_counter() - t0
+            time.sleep(0.05)
     failed = []
     for name, (_, tmp, log) in jobs.items():
         if codes[name] != 0:
@@ -97,6 +124,11 @@ def function(lib: str, symbol: str, argtypes: list):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def build_seconds() -> dict:
+    """{source: nvcc wall seconds} of the sources built in this process."""
+    return dict(_Loaded.seconds)
 
 
 def ptxas_logs() -> dict:

@@ -41,7 +41,7 @@ SOURCE = "src/repro_torch/csrc/decode_attention.cu"
 REPLACES = "src/repro/kernels/decode_attention.py:172"
 
 G_MAX = 16      # query heads per KV head the kernel instantiates for
-D_MAX = 128
+D_MAX = 256     # head dims past it: ROADMAP Queue B (no config has one)
 SPLIT = 64      # positions per chunk: the kernel's SPLIT (it checks)
 
 # kernel launches made by ``launch`` in this process: all, at int4, and
@@ -50,7 +50,7 @@ launches = 0
 launches_int4 = 0
 launches_paged = 0
 
-_FN = None
+_FN: dict = {}    # {wide: the C entry of the D <= 128 or the wide library}
 _COUNTERS: dict = {}
 # every counter buffer replaced by a larger one: a graph captured with it
 # still launches on its address, so it stays allocated
@@ -108,7 +108,8 @@ def check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
     if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
         raise TypeError("the kernel reads an int8 (or packed int4) cache")
     if d % 8 or d > D_MAX:
-        raise ValueError(f"head dim {d} must be a multiple of 8 and <= {D_MAX}")
+        raise ValueError(f"head dim {d} must be a multiple of 8 and <= "
+                         f"{D_MAX} (a wider head is ROADMAP Queue B)")
     if g > G_MAX:
         raise ValueError(f"{g} query heads per KV head exceeds {G_MAX}")
     for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
@@ -159,16 +160,18 @@ def check_table(table, b, pool, device):
                          "device of q")
 
 
-def _fn():
-    global _FN
-    if _FN is None:
+def _fn(wide: bool):
+    """The C entry of the library for D <= 128, or (``wide``) for
+    128 < D <= 256."""
+    if wide not in _FN:
         from repro_torch.kernels import build
 
         p, i = ctypes.c_void_p, ctypes.c_int
-        _FN = build.function("decode_attention", "repro_decode_attention",
-                             [p, i, p, p, p, p, p, p, p, p, i, i, i, i,
-                              i, i, i, p, i, i, i, p])
-    return _FN
+        lib = "decode_attention_wide" if wide else "decode_attention"
+        _FN[wide] = build.function(lib, "repro_decode_attention",
+                                   [p, i, p, p, p, p, p, p, p, p, i, i, i, i,
+                                    i, i, i, p, i, i, i, p])
+    return _FN[wide]
 
 
 def geometry(k_cache, table):
@@ -196,7 +199,7 @@ def launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
     out = buf[:n_out].view(b, kvh, g, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()(q.data_ptr(), int(q.dtype == torch.bfloat16),
+        err = _fn(d > 128)(q.data_ptr(), int(q.dtype == torch.bfloat16),
                     k_cache.data_ptr(), v_cache.data_ptr(),
                     k_scale.data_ptr(), v_scale.data_ptr(),
                     cur_pos.data_ptr(), out.data_ptr(),

@@ -36,7 +36,7 @@ launches = 0
 launches_int4 = 0
 launches_paged = 0
 
-_FN = None
+_FN: dict = {}    # {wide: the C entry of the D <= 128 or the wide library}
 
 
 def check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
@@ -48,17 +48,19 @@ def check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
               pitched=True)
 
 
-def _fn():
-    global _FN
-    if _FN is None:
+def _fn(wide: bool):
+    """The C entry of the library for D <= 128, or (``wide``) for
+    128 < D <= 256."""
+    if wide not in _FN:
         from repro_torch.kernels import build
 
         p, i = ctypes.c_void_p, ctypes.c_int
-        _FN = build.function("decode_attention_partials",
-                             "repro_decode_attention_partials",
-                             [p, i, p, p, p, p, p, p, p, p, p, p, i, i, i,
-                              i, i, i, i, i, p, i, i, i, p])
-    return _FN
+        lib = ("decode_attention_partials_wide" if wide
+               else "decode_attention_partials")
+        _FN[wide] = build.function(lib, "repro_decode_attention_partials",
+                                   [p, i, p, p, p, p, p, p, p, p, p, p, i, i,
+                                    i, i, i, i, i, i, p, i, i, i, p])
+    return _FN[wide]
 
 
 def launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
@@ -80,7 +82,7 @@ def launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits=8,
     m, l = buf[n_acc:n_acc + 2 * n_ml].view(2, b, kvh, g)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()(q.data_ptr(), int(q.dtype == torch.bfloat16),
+        err = _fn(d > 128)(q.data_ptr(), int(q.dtype == torch.bfloat16),
                     k_cache.data_ptr(), v_cache.data_ptr(),
                     k_scale.data_ptr(), v_scale.data_ptr(),
                     cur_pos.data_ptr(), acc.data_ptr(), m.data_ptr(),

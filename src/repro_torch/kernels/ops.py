@@ -25,6 +25,7 @@ ATTENTION = {"prefill_attention": _pa, "decode_attention": _da,
 # every launch counter of every wrapper: (kernel, module attribute)
 COUNTERS = (("quant_matmul", "launches"), ("quant_matmul", "launches_w4"),
             ("prefill_attention", "launches_bf16"),
+            ("prefill_attention", "launches_window"),
             ("fake_quant", "launches"),
             *((name, attr) for name in ATTENTION
               for attr in ("launches", "launches_int4", "launches_paged")))
@@ -83,6 +84,12 @@ def bf16_launch_counts() -> dict:
     """Launches of the prefill attention kernel over a bf16 K/V stream (a
     float KV cache); the decode kernels have no such variant."""
     return {"prefill_attention": _pa.launches_bf16}
+
+
+def window_launch_counts() -> dict:
+    """Launches of the prefill attention kernel with a sliding window (a
+    windowed layer's prompt); the decode kernels take no window."""
+    return {"prefill_attention": _pa.launches_window}
 
 
 def paged_launch_counts() -> dict:

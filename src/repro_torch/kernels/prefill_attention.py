@@ -22,16 +22,18 @@ SOURCE = "src/repro_torch/csrc/prefill_attention.cu"
 REPLACES = "src/repro/kernels/prefill_attention.py:192"
 
 G_MAX = 64      # query heads per KV head: one row tile holds 64 rows
-D_MAX = 128     # the output accumulator lives in registers: D/2 floats a lane
+D_MAX = 256     # the output accumulator lives in registers: D/2 floats a
+                # lane; head dims past it: ROADMAP Queue B
 
 # kernel launches made by ``launch`` in this process: all, at int4, over a
-# bf16 K/V stream, and over a paged pool
+# bf16 K/V stream, over a paged pool, and with a sliding window
 launches = 0
 launches_int4 = 0
 launches_bf16 = 0
 launches_paged = 0
+launches_window = 0
 
-_FN = None
+_FN: dict = {}    # {wide: the C entry of the D <= 128 or the wide library}
 
 
 def check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits=8,
@@ -71,7 +73,8 @@ def check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits=8,
         raise ValueError("float K/V tiles hold D values a row: kv_bits must "
                          "be 8")
     if d % 8 or d > D_MAX:
-        raise ValueError(f"head dim {d} must be a multiple of 8 and <= {D_MAX}")
+        raise ValueError(f"head dim {d} must be a multiple of 8 and <= "
+                         f"{D_MAX} (a wider head is ROADMAP Queue B)")
     if g > G_MAX:
         raise ValueError(f"{g} query heads per KV head exceeds {G_MAX}")
     if window is not None and window < 1:
@@ -92,16 +95,19 @@ def check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits=8,
             raise ValueError(f"{name} must start on a 4-byte boundary")
 
 
-def _fn():
-    global _FN
-    if _FN is None:
+def _fn(wide: bool):
+    """The C entry of the library for D <= 128, or (``wide``) for
+    128 < D <= 256."""
+    if wide not in _FN:
         from repro_torch.kernels import build
 
         p, i = ctypes.c_void_p, ctypes.c_int
-        _FN = build.function("prefill_attention", "repro_prefill_attention",
-                             [p, i, p, p, p, p, p, p, p,
-                              i, i, i, i, i, i, i, i, i, p, i, i, i, p])
-    return _FN
+        lib = "prefill_attention_wide" if wide else "prefill_attention"
+        _FN[wide] = build.function(lib, "repro_prefill_attention",
+                                   [p, i, p, p, p, p, p, p, p,
+                                    i, i, i, i, i, i, i, i, i, p, i, i, i,
+                                    p])
+    return _FN[wide]
 
 
 def launch(q, k, v, k_scale, v_scale, q_start, kv_len, *, causal=True,
@@ -109,6 +115,7 @@ def launch(q, k, v, k_scale, v_scale, q_start, kv_len, *, causal=True,
     """Run the CUDA kernel over a dense K/V stream, or over page pools
     through ``table``; returns (B, Sq, KV, G, D) float32."""
     global launches, launches_int4, launches_bf16, launches_paged
+    global launches_window
     check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits, table)
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {q.device}")
@@ -127,7 +134,7 @@ def launch(q, k, v, k_scale, v_scale, q_start, kv_len, *, causal=True,
                       device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()(q.data_ptr(), int(q.dtype == torch.bfloat16),
+        err = _fn(d > 128)(q.data_ptr(), int(q.dtype == torch.bfloat16),
                     k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
                     v_scale.data_ptr(), q_start.data_ptr(), kv_len.data_ptr(),
                     out.data_ptr(), b, sq, sk, kvh, g, d, int(bool(causal)),
@@ -140,4 +147,5 @@ def launch(q, k, v, k_scale, v_scale, q_start, kv_len, *, causal=True,
     launches_int4 += kv_bits == 4
     launches_bf16 += bf16
     launches_paged += table is not None
+    launches_window += window is not None
     return out

@@ -177,9 +177,12 @@ class Engine:
     ``mode`` is "int8" (int8 weights through the quant_matmul kernel) or
     "none" (the params' full-precision weights); the KV cache is int8 (or
     packed int4) when ``policy.kv_int8``, else in the config's dtype.
-    ``cache_layout`` is "dense", "paged" (a page pool of ``page_size``
-    tokens a page, read through block tables) or "ring" (dense for a stack
-    without windows); ``prefill_chunk`` set runs chunked ragged prefill in
+    ``cache_layout`` is "ring" (the default, as in the reference: a
+    sliding-window layer shorter than the cache gets a ring of its window,
+    every other layer a dense cache; without windows it is "dense"),
+    "dense" (dense everywhere), or "paged" (a page pool of ``page_size``
+    tokens a page, read through block tables, beside the same rings);
+    ``prefill_chunk`` set runs chunked ragged prefill in
     chunks of that many tokens.  ``decode_strategy`` is "greedy",
     "sample" (``temperature``, ``top_p``, keys from ``seed``) or
     "speculative" (``spec_k`` drafts from ``spec_ngram``-gram prompt
@@ -197,7 +200,7 @@ class Engine:
     def __init__(self, model, cfg, policy: A.QuantPolicy, serve_params,
                  qparams, *, device, mode: str = "int8",
                  finetune_log: dict | None = None,
-                 cache_layout: str = "dense", page_size: int = 64,
+                 cache_layout: str = "ring", page_size: int = 64,
                  prefill_chunk: Optional[int] = None,
                  decode_strategy: Optional[str] = None,
                  temperature: float = 0.0, top_p: float = 1.0,
@@ -252,7 +255,7 @@ class Engine:
                         qparams: Optional[dict] = None, init_seed: int = 0,
                         device=None, fp: bool = False, kv_int8: bool = True,
                         kv_bits: int = 8, finetune_thresholds: int = 0,
-                        cache_layout: str = "dense", page_size: int = 64,
+                        cache_layout: str = "ring", page_size: int = 64,
                         prefill_chunk: Optional[int] = None,
                         decode_strategy: Optional[str] = None,
                         temperature: float = 0.0, top_p: float = 1.0,
@@ -533,11 +536,17 @@ class Engine:
         tok = torch.zeros((b,), dtype=torch.long, device=dev)
         pos = torch.zeros((b,), dtype=torch.int32, device=dev)
         rng = prng.PRNGKey(self.seed, dev)
-        cache0 = self.init_cache(b, cache_len)
+        # speculation needs absolute slots: the ring default serves as
+        # dense there (a dense cache serves a windowed layer through its
+        # window mask), as in the reference
+        speculative = self._strategy.emit_width > 1
+        cache0 = self.init_cache(b, cache_len, **(
+            {"layout": "dense"} if speculative and self.cache_layout == "ring"
+            else {}))
         prefill = ST.make_prefill_step(self.model, self.policy,
                                        prefill_chunk=chunk, mode=self.mode)
         window = None
-        if self._strategy.emit_width > 1:
+        if speculative:
             gen = key[3][-1]
             window = SG.WindowState(
                 tok=tok, pos=pos,

@@ -204,7 +204,8 @@ class SlotScheduler:
     ``gen_cap`` the generation headroom each slot reserves; ``block_steps``
     the decode-block length (admission happens between blocks).
     ``cache_layout`` is "dense" or "paged" ("ring" is dense here: the
-    scheduler needs absolute slots); ``page_size`` and ``prefix_pages``
+    scheduler needs absolute slots, and, as the reference's, it takes no
+    stack with sliding-window layers); ``page_size`` and ``prefix_pages``
     (the shared region, default room for two full-capacity prompts) size
     the paged pool.  ``eos_id`` >= 0 stops a slot at that token.
     ``strategy`` is a ``strategies`` name, a ``DecodeStrategy`` or None
@@ -243,8 +244,18 @@ class SlotScheduler:
                  shed_policy: str = "shed",
                  fault_plan: FaultPlan | None = None, journal=None,
                  snapshot_every: int = 0, snapshot_dir: str | None = None):
+        kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
+        wins = {cfg.attn_window(i) for i in range(cfg.n_layers)}
+        if kinds - {"attn", "attn_local"} or cfg.modality != "text":
+            raise ValueError(
+                "slot scheduler covers attention-only text stacks "
+                f"(got kinds={sorted(kinds)}, modality={cfg.modality})")
+        if wins != {None}:
+            raise ValueError(
+                "slot scheduler needs dense caches: SWA ring buffers drop "
+                f"absolute slots (got windows={sorted(map(str, wins))})")
         if cache_layout == "ring":
-            cache_layout = "dense"   # the port has no windows: ring == dense
+            cache_layout = "dense"   # no windows here: ring == dense
         if cache_layout not in ("dense", "paged"):
             raise ValueError(f"slot scheduler cache_layout must be dense or "
                              f"paged, got {cache_layout!r}")

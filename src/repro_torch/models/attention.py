@@ -1,11 +1,14 @@
-"""GQA attention with rotary embedding: the full-sequence forward used by
-calibration and by the fine-tune's teacher and student, one-shot and
-chunked ragged prefill into the KV cache through the prefill kernel, and
+"""GQA attention with rotary embedding and an optional sliding window: the
+full-sequence forward used by calibration and by the fine-tune's teacher
+and student, one-shot and chunked ragged prefill into the KV cache through
+the prefill kernel (with the window mask on a windowed layer), and
 single-token decode, at one position or at a position per slot
-(continuous batching), through the decode kernel (over a float cache, the
-plain ``decode_attention``, as in the reference), and the speculative
-verify window: a few tokens a slot, each slot at its own position, through
-the prefill kernel's per-row ``q_start`` (over a float cache, the plain
+(continuous batching), through the decode kernel (over a float cache, and
+on a windowed layer, the plain ``decode_attention``, as in the reference;
+over the ring of a windowed layer, plain attention against the ring's
+absolute positions), and the speculative verify window: a few tokens a
+slot, each slot at its own position, through the prefill kernel's per-row
+``q_start`` (over a float cache or on a windowed layer, the plain
 ``verify_attention``).
 
 Counterpart of ``repro/models/attention.py`` on the single-device serving
@@ -50,6 +53,14 @@ def _sp_info():
 
 
 @functools.lru_cache(maxsize=None)
+def sqrt_d(d: int, device) -> torch.Tensor:
+    """The float32 0-d ``sqrt(d)`` on ``device``, made once per (d, device)
+    (the ring decode divides by it, as the reference does)."""
+    with torch.inference_mode(False):
+        return torch.sqrt(torch.tensor(float(d), device=device))
+
+
+@functools.lru_cache(maxsize=None)
 def softmax_scale(d: int, device) -> torch.Tensor:
     """The float32 0-d ``1 / sqrt(d)`` of the plain attentions on
     ``device``, made once per (d, device) by the expression they always
@@ -59,21 +70,25 @@ def softmax_scale(d: int, device) -> torch.Tensor:
         return 1.0 / torch.sqrt(torch.tensor(float(d), device=device))
 
 
-def decode_attention(q, k_cache, v_cache, valid):
+def decode_attention(q, k_cache, v_cache, valid, window=None):
     """One-token attention over a float cache, the counterpart of the
     reference's jnp ``decode_attention`` (the path it takes over a float
-    cache, where its decode kernel needs a quantized one).  q: (B, 1, KV,
-    G, D); k/v_cache: (B, S, KV, D) at full capacity; ``valid`` counts the
-    visible positions of each row: an int, or a 0-d or (B,) tensor.  Scores
-    and softmax in float32 over the whole capacity, masked beyond
-    ``valid``; a row with ``valid`` 0 returns zeros.  Output in q's dtype,
-    (B, 1, KV, G, D)."""
+    cache, where its decode kernel needs a quantized one, and on a
+    windowed layer).  q: (B, 1, KV, G, D); k/v_cache: (B, S, KV, D) at full
+    capacity; ``valid`` counts the visible positions of each row: an int,
+    or a 0-d or (B,) tensor; ``window``: only the last ``window`` of them
+    are visible.  Scores and softmax in float32 over the whole capacity,
+    masked beyond ``valid``; a row with ``valid`` 0 returns zeros.  Output
+    in q's dtype, (B, 1, KV, G, D)."""
     b, d, smax = q.shape[0], q.shape[-1], k_cache.shape[1]
     scale = softmax_scale(d, q.device)
     s = torch.einsum("bqkgd,bskd->bkgqs", q.float() * scale, k_cache.float())
     pos = torch.as_tensor(valid, dtype=torch.int32,
                           device=q.device).reshape(-1).expand(b)
-    mask = torch.arange(smax, device=q.device)[None, :] < pos[:, None]
+    k_pos = torch.arange(smax, device=q.device)[None, :]
+    mask = k_pos < pos[:, None]
+    if window is not None:
+        mask = mask & (k_pos >= pos[:, None] - window)
     s = torch.where(mask[:, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     # a row with no visible key softmaxes uniformly over NEG_INF scores:
@@ -83,23 +98,26 @@ def decode_attention(q, k_cache, v_cache, valid):
     return o.to(q.dtype)
 
 
-def verify_attention(q, k_cache, v_cache, pos_vec):
+def verify_attention(q, k_cache, v_cache, pos_vec, window=None):
     """Speculative-verify attention over a float cache, the counterpart of
     the reference's jnp ``verify_attention``: s window queries a row, query
     j of row b at position ``pos_vec[b] + j``, seeing the cache keys at
     positions <= its own (the window itself included, causally).  At s == 1
     this is ``decode_attention`` with ``valid = pos_vec + 1``: the same
     contractions and mask, the same bits.  A row with ``pos_vec < 0`` (an
-    inactive slot) sees no key and returns zeros.  q: (B, s, KV, G, D);
-    k/v_cache: (B, S, KV, D); output in q's dtype, (B, s, KV, G, D)."""
+    inactive slot) sees no key and returns zeros; ``window``: a query sees
+    only keys less than ``window`` positions behind it.  q: (B, s, KV, G,
+    D); k/v_cache: (B, S, KV, D); output in q's dtype, (B, s, KV, G, D)."""
     b, s, d, smax = q.shape[0], q.shape[1], q.shape[-1], k_cache.shape[1]
     scale = softmax_scale(d, q.device)
     sc = torch.einsum("bqkgd,bskd->bkgqs", q.float() * scale, k_cache.float())
     pos = pos_vec.to(torch.int32).reshape(-1).expand(b)
     q_pos = pos[:, None] + torch.arange(s, device=q.device)
     k_pos = torch.arange(smax, device=q.device)
-    mask = (k_pos[None, None, :] <= q_pos[..., None]) & (pos >= 0)[:, None,
-                                                                   None]
+    mask = k_pos[None, None, :] <= q_pos[..., None]
+    if window is not None:
+        mask = mask & ((q_pos[..., None] - k_pos[None, None, :]) < window)
+    mask = mask & (pos >= 0)[:, None, None]
     sc = torch.where(mask[:, None, None], sc, NEG_INF)
     p = torch.softmax(sc, dim=-1)
     p = p * (pos >= 0).reshape(b, 1, 1, 1, 1)
@@ -107,37 +125,64 @@ def verify_attention(q, k_cache, v_cache, pos_vec):
     return o.to(q.dtype)
 
 
-def causal_attention(q, k, v, q_offset: int = 0):
+def ring_decode_attention(q, k_ring, v_ring, abs_pos, cur_pos, window):
+    """One-token attention over a ring buffer, the reference's ring decode:
+    q: (B, 1, KV, G, D); k/v_ring: (B, window, KV, D) float (dequantized)
+    tiles; ``abs_pos``: the absolute position of each slot, (window,) or
+    (B, window) (``RingCache.abs_positions``); ``cur_pos``: the newest
+    token's position, an int or a (B,) tensor.  A slot is visible when it
+    holds a position in (cur_pos - window, cur_pos].  q is divided by
+    sqrt(D), as the reference writes it.  Output in q's dtype."""
+    d = q.shape[-1]
+    sc = torch.einsum("bqkgd,bskd->bkgqs", q.float() / sqrt_d(d, q.device),
+                      k_ring.float())
+    if isinstance(cur_pos, torch.Tensor):
+        cur_pos = cur_pos.reshape(-1, 1)
+    mask = (abs_pos >= 0) & (abs_pos >= cur_pos - window + 1)
+    mask = mask.reshape(-1, 1, 1, 1, abs_pos.shape[-1])
+    sc = torch.where(mask, sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v_ring.float())
+    return o.to(q.dtype)
+
+
+def causal_attention(q, k, v, q_offset: int = 0, window=None):
     """Plain causal attention, the counterpart of the reference's jnp
     ``flash_attention`` (one softmax over the whole sequence instead of an
     online softmax over chunks).  q: (B, Sq, KV, G, D) at positions
     ``q_offset + arange(Sq)``; k/v: (B, Sk, KV, D) at positions
     ``arange(Sk)`` -- the prompt itself, or the first Sk positions of a
     cache that a chunk continues; key p is visible to a query at position
-    t when p <= t.  Scores and softmax in float32, output in v's dtype."""
+    t when p <= t (and, with ``window``, t - p < window).  Scores and
+    softmax in float32, output in v's dtype."""
     sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
     scale = softmax_scale(d, q.device)
     s = torch.einsum("bqkgd,bskd->bkgqs", q.float() * scale, k.float())
     q_pos = q_offset + torch.arange(sq, device=q.device)
     k_pos = torch.arange(sk, device=q.device)
-    s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
+    mask = q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+    s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.to(v.dtype)
 
 
 class Attention(Module):
-    """Causal GQA self-attention with rotary embedding (sliding windows are
-    ROADMAP Queue A item 9, bidirectional and cross attention item 17)."""
+    """Causal GQA self-attention with rotary embedding and an optional
+    sliding ``window`` (bidirectional and cross attention are ROADMAP
+    Queue A item 17)."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
-                 head_dim: int, *, path: str, rope_base: float = 10000.0,
-                 dtype=torch.bfloat16):
+                 head_dim: int, *, path: str, window: int | None = None,
+                 rope_base: float = 10000.0, dtype=torch.bfloat16):
         self.d_model = d_model
         self.n_heads = n_heads
         self.n_kv = n_kv_heads
         self.head_dim = head_dim
         self.groups = n_heads // n_kv_heads
+        self.window = window
         self.rope_base = rope_base
         self.path = path
         self.wq = Dense(d_model, n_heads * head_dim, path=f"{path}/wq",
@@ -158,11 +203,13 @@ class Attention(Module):
                    kv_bits: int = 8, *, layout: str = "dense",
                    page_size: int = 64, extra_pages: int = 0,
                    kv_int8: bool = True, dtype=torch.bfloat16):
-        """This layer's cache in ``layout`` (``repro_torch.cache.make_cache``):
-        int8, or packed int4 nibbles at ``kv_bits=4``; with ``kv_int8``
-        False, ``dtype`` tiles with unit scales."""
+        """This layer's cache in ``layout`` (``repro_torch.cache.make_cache``,
+        which gives a windowed layer its ring): int8, or packed int4
+        nibbles at ``kv_bits=4``; with ``kv_int8`` False, ``dtype`` tiles
+        with unit scales."""
         return make_cache(batch, max_len, self.n_kv, self.head_dim,
-                          device=device, layout=layout, page_size=page_size,
+                          device=device, layout=layout, window=self.window,
+                          page_size=page_size,
                           extra_pages=extra_pages, bits=kv_bits,
                           quantized=kv_int8, dtype=dtype)
 
@@ -251,7 +298,7 @@ class Attention(Module):
         q, k = self._rope(q, k, torch.arange(s, device=x.device))
         self._observe_kv(ctx, k, v)
         k, v = self._fake_quant_kv(ctx, k, v)
-        o = causal_attention(q, k, v)
+        o = causal_attention(q, k, v, window=self.window)
         o = o.reshape(b, s, self.n_heads * self.head_dim)
         return self.wo(params["wo"], o, ctx)
 
@@ -266,38 +313,52 @@ class Attention(Module):
         the updated cache through its kernel view, masked to each
         request's length and to the first ``kv_limit`` positions (the
         padded prompt: per-chunk work scales with the prompt, not the
-        cache)."""
+        cache).  A windowed layer masks its window in both; its ring
+        (``RingCache``) takes the one-shot write only."""
         from repro_torch.kernels import ops
 
         b, s, _ = x.shape
+        if lengths is not None and cache.layout == "ring":
+            raise ValueError(
+                f"{self.path}: chunked prefill needs absolute slots (a "
+                "dense cache or paged layout); the SWA ring buffer "
+                "drops them (size the cache >= max_len or prefill "
+                "one-shot)")
         q, k, v = self._qkv(params, x, ctx)
         q, k = self._rope(q, k, q_offset + torch.arange(s, device=x.device))
         if cache.quantized:
             # a float cache keeps its unit scales
             cache = cache.with_scales(*self._kv_scales(ctx))
         kq, vq = cache.ready(k, v)
-        cache = cache.append(kq, vq, q_offset)
         sp = _sp_info()
+        if sp is not None and cache.layout != "dense":
+            raise ValueError(
+                f"{self.path}: sequence-parallel serving shards the dense "
+                f"cache's S axis — layout {cache.layout!r} unsupported")
+        cache = cache.append(kq, vq, q_offset)
         if lengths is None and sp is not None:
             # the reference's sequence-parallel prefill attends the prompt's
             # exact float K/V, with no kernel
-            o = causal_attention(q, k, v)
+            o = causal_attention(q, k, v, window=self.window)
         elif lengths is None:
             o = ops.prefill_attention(q, kq, vq, *cache.scales(), 0, s,
-                                      causal=True, kv_bits=cache.bits)
+                                      causal=True, window=self.window,
+                                      kv_bits=cache.bits)
         else:
             limit = (cache.capacity if kv_limit is None
                      else min(kv_limit, cache.capacity))
             if sp is not None:
                 # ... and a chunk the dequantized cache, also with no kernel
                 k_eff, v_eff = cache.dequantize(*cache.dense_view(limit))
-                o = causal_attention(q, k_eff, v_eff, q_offset=q_offset)
+                o = causal_attention(q, k_eff, v_eff, q_offset=q_offset,
+                                     window=self.window)
             else:
                 kv_len = torch.clamp(lengths.to(torch.int32), 0,
                                      q_offset + s)
                 o = ops.prefill_attention_view(q, cache.kernel_view(limit),
                                                *cache.scales(), q_offset,
-                                               kv_len, causal=True)
+                                               kv_len, causal=True,
+                                               window=self.window)
         o = o.to(x.dtype).reshape(b, s, self.n_heads * self.head_dim)
         return self.wo(params["wo"], o, ctx), cache
 
@@ -312,10 +373,21 @@ class Attention(Module):
         leaves the cache bit-for-bit unchanged and attends over zero keys
         (a zero output row).  The new K/V quantize with the scales stored
         at prefill, and the decode kernel attends the valid prefix of each
-        row."""
+        row; a windowed layer attends its last ``window`` positions in
+        plain attention, as the reference does.  A ring (``RingCache``)
+        keeps one position for the batch: a (B,) ``cur_pos`` there is that
+        position on the device (the captured step), and a ``slot_mask``
+        raises."""
         from repro_torch.kernels import ops
 
         b, s, _ = x.shape
+        ring = cache.layout == "ring"
+        if ring and slot_mask is not None:
+            raise ValueError(
+                f"{self.path}: per-slot decode (vector cur_pos / slot_mask) "
+                "needs absolute slots (a dense cache or paged layout); the "
+                "SWA ring buffer drops them — size the cache >= max_len or "
+                "decode with a scalar position")
         q, k, v = self._qkv(params, x, ctx)
         per_slot = (isinstance(cur_pos, torch.Tensor) and cur_pos.ndim > 0
                     or slot_mask is not None)
@@ -324,7 +396,10 @@ class Attention(Module):
                                   device=x.device).reshape(-1).expand(b)
             q, k = self._rope(q, k, pos[:, None])
             kq, vq = cache.ready(k, v)
-            cache = cache.append_slots(kq, vq, pos, active=slot_mask)
+            if ring:
+                cache = cache.append(kq, vq, pos)
+            else:
+                cache = cache.append_slots(kq, vq, pos, active=slot_mask)
             valid = pos + 1
             if slot_mask is not None:
                 valid = torch.where(slot_mask, valid, 0)
@@ -339,10 +414,24 @@ class Attention(Module):
             cache = cache.append(kq, vq, int(cur_pos))
             valid = int(cur_pos) + 1
         sp = _sp_info()
-        if sp is None and not cache.quantized:
-            # the decode kernels read quantized tiles only; over a float
-            # cache the reference attends in plain jnp, and so does the port
-            o = decode_attention(q, *cache.dense_view(), valid)[:, 0]
+        if sp is not None and self.window is not None:
+            raise ValueError(
+                f"{self.path}: sliding-window decode is local by "
+                "construction — run SWA layers unsharded (sp=1)")
+        if ring:
+            # the ring's slots hold the last `window` positions: attend
+            # them against their absolute positions, in plain attention
+            at = pos if per_slot else int(cur_pos)
+            o = ring_decode_attention(q, *cache.dequantize(cache.k, cache.v),
+                                      cache.abs_positions(at), at,
+                                      self.window)[:, 0]
+        elif sp is None and (not cache.quantized or self.window is not None):
+            # the decode kernels read quantized tiles only, and the
+            # reference's windowed decode takes none: over a float cache or
+            # on a windowed layer the reference attends in plain jnp, and so
+            # does the port
+            o = decode_attention(q, *cache.dequantize(*cache.dense_view()),
+                                 valid, window=self.window)[:, 0]
         elif sp is None:
             o = ops.decode_attention_view(q[:, 0], cache.kernel_view(),
                                           *cache.scales(), valid)
@@ -363,16 +452,22 @@ class Attention(Module):
         j attends the keys at positions <= ``cur_pos[b] + j``.  A quantized
         cache attends through the prefill kernel (a short per-slot chunked
         prefill: ``q_start = cur_pos``, ``kv_len = cur_pos + s``, 0 for an
-        inactive slot); a float cache through the plain
-        ``verify_attention``, as the reference does (its kernel path needs
-        a quantized cache).  ``slot_mask`` inactive slots write nothing and
-        give zero rows, as in ``decode``."""
+        inactive slot); a float cache, or a windowed layer, through the
+        plain ``verify_attention``, as the reference does (its kernel path
+        needs a quantized cache and no window).  ``slot_mask`` inactive
+        slots write nothing and give zero rows, as in ``decode``.  A ring
+        raises: the window's per-slot writes need absolute slots."""
         from repro_torch.kernels import ops
 
         if _sp_info() is not None:
             raise NotImplementedError(
                 "the sequence-parallel speculative verify window is not "
                 "ported (ROADMAP Queue A item 13, speculative decoding)")
+        if cache.layout == "ring":
+            raise ValueError(
+                f"{self.path}: speculative verify needs absolute slots (a "
+                "dense cache or paged layout); the SWA ring buffer drops "
+                "them — size the cache >= max_len")
         b, s, _ = x.shape
         q, k, v = self._qkv(params, x, ctx)
         pos = torch.as_tensor(cur_pos, dtype=torch.int32,
@@ -381,7 +476,7 @@ class Attention(Module):
                                                             device=x.device))
         kq, vq = cache.ready(k, v)
         cache = cache.append_slots(kq, vq, pos, active=slot_mask)
-        if cache.quantized:
+        if cache.quantized and self.window is None:
             kv_len = pos + s
             if slot_mask is not None:
                 kv_len = torch.where(slot_mask, kv_len, 0)
@@ -391,6 +486,7 @@ class Attention(Module):
         else:
             pos_eff = pos if slot_mask is None else torch.where(slot_mask,
                                                                 pos, -1)
-            o = verify_attention(q, *cache.dense_view(), pos_eff)
+            o = verify_attention(q, *cache.dequantize(*cache.dense_view()),
+                                 pos_eff, window=self.window)
         o = o.to(x.dtype).reshape(b, s, self.n_heads * self.head_dim)
         return self.wo(params["wo"], o, ctx), cache

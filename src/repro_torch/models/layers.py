@@ -1,5 +1,6 @@
-"""Common layers: RMSNorm, token embedding with tied readout, rotary
-position encoding (counterparts of ``repro/models/layers.py``)."""
+"""Common layers: RMSNorm and LayerNorm, token embedding with tied
+readout, rotary position encoding, and the activations (counterparts of
+``repro/models/layers.py``)."""
 from __future__ import annotations
 
 import functools
@@ -25,6 +26,37 @@ class RMSNorm(Module):
         xf = x.float()
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + self.eps) * params["scale"]
+        return y.to(x.dtype)
+
+
+class LayerNorm(Module):
+    """Mean-centred norm with a scale and a bias (stablelm), in float32 as
+    the reference: ``var`` is the population variance of the centred
+    values, taken as the mean of their squares (``jnp.var``'s form), then
+    ``rsqrt(var + eps)``, the scale and bias fused; cast back to the input
+    dtype.  XLA's row sums and rsqrt round otherwise than torch's in the
+    last bit (ROADMAP Queue C)."""
+
+    def __init__(self, dim: int, *, path: str, eps: float = 1e-5,
+                 dtype=torch.bfloat16):
+        self.dim = dim
+        self.path = path
+        self.eps = eps
+        self.dtype = dtype
+
+    def init(self, gen):
+        return {"scale": torch.ones((self.dim,), dtype=torch.float32),
+                "bias": torch.zeros((self.dim,), dtype=torch.float32)}
+
+    def __call__(self, params, x, ctx=None):
+        xf = x.float()
+        c = xf - torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(c * c, dim=-1, keepdim=True)
+        y = c * torch.rsqrt(var + self.eps)
+        # y * scale + bias as one fused multiply-add, as XLA compiles it: the
+        # product is exact in float64, rounded once (to float64, then float32)
+        y = (y.double() * params["scale"].double()
+             + params["bias"].double()).float()
         return y.to(x.dtype)
 
 
@@ -95,3 +127,17 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
 
 def silu(x):
     return x * torch.sigmoid(x)
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation (torch's default is
+    the erf form, which moves a GeGLU model's logits by ~1e-3)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def relu6(x):
+    return torch.clamp(x, 0.0, 6.0)
+
+
+ACTIVATIONS = {"silu": silu, "gelu": gelu, "relu": torch.relu,
+               "relu6": relu6}

@@ -1,19 +1,21 @@
-"""SwiGLU feed-forward block (llama family), counterpart of
+"""Gated feed-forward block: SwiGLU (llama family) or, with
+``activation="gelu"``, GeGLU (gemma); counterpart of
 ``repro/models/mlp.py::SwiGLU``."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import silu
+from repro_torch.models.layers import ACTIVATIONS
 from repro_torch.models.module import Dense, Module
 
 
 class SwiGLU(Module):
     def __init__(self, d_model: int, d_ff: int, *, path: str,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, activation: str = "silu"):
         self.d_model = d_model
         self.d_ff = d_ff
         self.path = path
+        self.act = ACTIVATIONS[activation]
         self.gate = Dense(d_model, d_ff, path=f"{path}/gate", dtype=dtype)
         self.up = Dense(d_model, d_ff, path=f"{path}/up", dtype=dtype)
         self.down = Dense(d_ff, d_model, path=f"{path}/down", dtype=dtype)
@@ -23,6 +25,6 @@ class SwiGLU(Module):
                 "down": self.down.init(gen)}
 
     def __call__(self, params, x, ctx=None):
-        g = silu(self.gate(params["gate"], x, ctx))
+        g = self.act(self.gate(params["gate"], x, ctx))
         u = self.up(params["up"], x, ctx)
         return self.down(params["down"], g * u, ctx)

@@ -64,8 +64,9 @@ class CausalLM(Module):
         int4 (``kv_bits=4``), or with ``kv_int8`` False float ``dtype``
         tiles with unit scales (``kv_bits`` ignored, as in the reference),
         in ``layout`` ("dense", "paged" with ``page_size`` and an
-        ``extra_pages`` shared prefix region, or "ring", which is dense for
-        a stack without windows)."""
+        ``extra_pages`` shared prefix region, or "ring"; in the last two a
+        sliding-window layer shorter than ``max_len`` holds a ring of its
+        window, so local and global layers may hold different layouts)."""
         return self.stack.init_cache(batch, max_len, device, kv_bits,
                                      layout=layout, page_size=page_size,
                                      extra_pages=extra_pages,

@@ -6,7 +6,8 @@ layer paths key the quantization state unchanged and the weight bridge
 (``repro_torch.bridge``) is a plain tree conversion.  Every module has
 
   * ``init(generator) -> params``  seeded init with a ``torch.Generator``
-    (on the CPU: the same seed gives the same weights on every device);
+    (on the CPU: the same seed gives the same weights on every device; a
+    CUDA generator draws them on the card);
   * ``__call__(params, ..., ctx=...)``  the forward on tensors.
 """
 from __future__ import annotations
@@ -39,15 +40,18 @@ class Module:
 
 
 def normal_init(gen, shape, dtype, stddev=0.02):
-    return (torch.randn(shape, generator=gen, dtype=torch.float32)
-            * stddev).to(dtype)
+    """Drawn on the generator's device: a CPU generator gives the same
+    weights on every device, a CUDA one draws full-width weights on the
+    card."""
+    return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device) * stddev).to(dtype)
 
 
 def fan_in_init(gen, shape, dtype):
     """LeCun-normal over the penultimate (fan-in) axis."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    return (torch.randn(shape, generator=gen, dtype=torch.float32)
-            / math.sqrt(fan_in)).to(dtype)
+    return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device) / math.sqrt(fan_in)).to(dtype)
 
 
 class Dense(Module):

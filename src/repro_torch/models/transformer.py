@@ -1,29 +1,29 @@
-"""Decoder stack: pre-norm residual Blocks of attention + SwiGLU.
+"""Decoder stack: pre-norm residual Blocks of attention + a gated MLP.
 
-Counterpart of ``repro/models/transformer.py`` for the unscanned
-attention + SwiGLU case.  The other layer kinds of the reference raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Counterpart of ``repro/models/transformer.py`` for the unscanned dense
+attention stacks: RMSNorm or LayerNorm (``cfg.norm``), SwiGLU or GeGLU
+(``cfg.mlp_activation``), and per layer a global or a sliding-window
+attention (``cfg.attn_window(i)``: gemma3's 5:1 local:global layers).  The
+other layer kinds of the reference raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 from repro_torch.models.attention import Attention
-from repro_torch.models.layers import RMSNorm
+from repro_torch.models.layers import ACTIVATIONS, LayerNorm, RMSNorm
 from repro_torch.models.mlp import SwiGLU
 from repro_torch.models.module import Module
 
 
 def check_supported(cfg) -> None:
-    """Raise on a config outside the ported attention + SwiGLU stack."""
+    """Raise on a config outside the ported dense attention stacks."""
     unsupported = []
     kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
-    if kinds != {"attn"}:
-        unsupported.append(f"layer kinds {sorted(kinds)} (mamba / hybrid / "
-                           "local attention)")
-    if any(cfg.attn_window(i) is not None for i in range(cfg.n_layers)):
-        unsupported.append("sliding-window layers (ROADMAP Queue A item 9)")
-    if cfg.ffn != "swiglu" or cfg.mlp_activation != "silu":
+    if kinds - {"attn", "attn_local"}:
+        unsupported.append(f"layer kinds {sorted(kinds)} (mamba / hybrid)")
+    if cfg.ffn != "swiglu" or cfg.mlp_activation not in ACTIVATIONS:
         unsupported.append(f"ffn {cfg.ffn!r} with {cfg.mlp_activation!r}")
-    if cfg.norm != "rmsnorm":
+    if cfg.norm not in ("rmsnorm", "layernorm"):
         unsupported.append(f"norm {cfg.norm!r}")
     if cfg.family != "causal" or cfg.modality != "text" or not cfg.causal:
         unsupported.append(f"{cfg.family}/{cfg.modality} models "
@@ -33,22 +33,31 @@ def check_supported(cfg) -> None:
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: not ported: " + "; ".join(unsupported)
-            + ". Other architectures are ROADMAP Queue A item 17.")
+            + ". Other architectures are ROADMAP Queue A item 17 (steps "
+            "4-8: MoE, SSM, hybrid, VLM, enc-dec).")
+
+
+def norm_class(cfg):
+    """The stack's norm: LayerNorm or RMSNorm, by ``cfg.norm``."""
+    return LayerNorm if cfg.norm == "layernorm" else RMSNorm
 
 
 class Block(Module):
     """One pre-norm residual layer: norm -> attn -> (+) -> norm -> ffn -> (+)."""
 
-    def __init__(self, cfg, *, path: str):
+    def __init__(self, cfg, layer_idx: int, *, path: str):
         self.cfg = cfg
         self.path = path
         d, dt = cfg.d_model, cfg.dtype
-        self.pre_norm = RMSNorm(d, path=f"{path}/pre_norm", dtype=dt)
+        norm = norm_class(cfg)
+        self.pre_norm = norm(d, path=f"{path}/pre_norm", dtype=dt)
         self.attn = Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                              path=f"{path}/attn", rope_base=cfg.rope_base,
-                              dtype=dt)
-        self.ffn_norm = RMSNorm(d, path=f"{path}/ffn_norm", dtype=dt)
-        self.ffn = SwiGLU(d, cfg.d_ff, path=f"{path}/mlp", dtype=dt)
+                              path=f"{path}/attn",
+                              window=cfg.attn_window(layer_idx),
+                              rope_base=cfg.rope_base, dtype=dt)
+        self.ffn_norm = norm(d, path=f"{path}/ffn_norm", dtype=dt)
+        self.ffn = SwiGLU(d, cfg.d_ff, path=f"{path}/mlp", dtype=dt,
+                          activation=cfg.mlp_activation)
 
     def init(self, gen):
         return {"pre_norm": self.pre_norm.init(gen),
@@ -103,10 +112,11 @@ class Stack(Module):
         self.cfg = cfg
         self.path = path
         self.n_layers = cfg.n_layers
-        self.blocks = [Block(cfg, path=f"{path}/layer{i}")
+        self.blocks = [Block(cfg, i, path=f"{path}/layer{i}")
                        for i in range(self.n_layers)]
-        self.final_norm = RMSNorm(cfg.d_model, path=f"{path}/final_norm",
-                                  dtype=cfg.dtype)
+        self.final_norm = norm_class(cfg)(cfg.d_model,
+                                          path=f"{path}/final_norm",
+                                          dtype=cfg.dtype)
 
     def param_children(self):
         c = {f"layer{i}": b for i, b in enumerate(self.blocks)}

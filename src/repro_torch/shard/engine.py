@@ -33,7 +33,7 @@ class ShardedEngine(Engine):
 
     def __init__(self, model, cfg, policy, serve_params, qparams, *,
                  tp: int = 1, sp: int = 1, **engine_kw):
-        self._validate(tp, sp, engine_kw.get("cache_layout", "dense"),
+        self._validate(tp, sp, engine_kw.get("cache_layout", "ring"),
                        fp=engine_kw.get("mode", "int8") == "none",
                        kv_int8=policy.kv_int8,
                        strategy=engine_kw.get("decode_strategy"))
@@ -74,7 +74,7 @@ class ShardedEngine(Engine):
                         sp: int = 1, **kw) -> "ShardedEngine":
         """``Engine.from_checkpoint`` (every other argument is its own),
         served with ``sp`` sequence shards (``tp`` > 1 raises)."""
-        cls._validate(tp, sp, kw.get("cache_layout", "dense"),
+        cls._validate(tp, sp, kw.get("cache_layout", "ring"),
                       fp=kw.get("fp", False), kv_int8=kw.get("kv_int8", True),
                       strategy=kw.get("decode_strategy"))
         base = Engine.from_checkpoint(arch, **kw)

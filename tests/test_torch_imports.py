@@ -143,8 +143,8 @@ def test_unported_architectures_raise():
     with pytest.raises(NotImplementedError, match="item 17"):
         get_config("mamba2-780m")
     cfg = get_config("smollm-135m", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_model(cfg.replace(window=8, window_all=True))
+    with pytest.raises(NotImplementedError, match="item 17"):
+        build_model(cfg.replace(ffn="moe"))
     with pytest.raises(NotImplementedError, match="item 17"):
         build_model(cfg.replace(kind="mamba"))
 
