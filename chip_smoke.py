@@ -27,6 +27,18 @@
    at ``PREFILL_EDGES``), and times kernel (warm, and the attentions and
    fake_quant also with the L2 cache flushed), plain version and one
    PyTorch library call as a yardstick;
+2b. the paper's side: [paper tables] runs ``python -m
+   repro_torch.bench.run`` at the reference's sizes (Tables 1-2, the
+   §3.3/§4.2 DWS sequence, the §3.2 convergence, with their ordering
+   asserts; ``kernels_micro``: B3 and B5 bit for bit against their plain
+   versions, then timed) and prints its CSV rows; [variants full] runs
+   smollm-135m at full width through ``prepare_int8`` for each policy of
+   ``VARIANT_POLICIES`` (scalar / vector weights x symmetric / asymmetric
+   activations, the percentile observer, pointwise scales after
+   ``prepare_int8``'s fine-tune, 3 FAT steps, beside the same steps at a
+   tenth of the rate): the fake-mode rmse and top-1 agreement with the bf16 teacher,
+   then the int8 form served through B3 and held against the same engine
+   with the plain versions on the card (up to a near-tie);
 3. drives the int8 main path at the full width of smollm-135m (30 layers,
    seeded random weights): ``Engine.from_checkpoint`` -> §2 calibration ->
    int8 conversion -> ``generate_batch`` on 4 prompts of 512 tokens with 32
@@ -190,6 +202,20 @@ RESILIENCE_PARKED = (0, 10)                 # re-admitted through resume
 RESILIENCE_HEALTH = dict(ok=11, failed=3, timeout=1, shed=1, rejected=0,
                          preempted=0, preemptions=2, readmits=2,
                          deadline_misses=1, prefix_exhausted=12)
+# [variants full]: the paper's FAT variants at smollm-135m's full width,
+# each served in int8 (KV int8 too) with prompts of VARIANT_PROMPT tokens
+VARIANT_POLICIES = {
+    "vector symmetric": {},
+    "vector asymmetric": dict(act_symmetric=False),
+    "scalar symmetric": dict(weight_per_channel=False),
+    "scalar asymmetric": dict(weight_per_channel=False, act_symmetric=False),
+    "percentile": dict(observer="percentile"),
+    "pointwise": dict(pointwise_scales=True),
+}
+# the pointwise policy's fine-tune: one FAT step a calibration batch, at
+# the default rate and, beside it, at POINTWISE_LOW_LR
+VARIANT_PROMPT, VARIANT_GEN, POINTWISE_STEPS = 128, 16, 3
+POINTWISE_LOW_LR = 1e-4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor-core peak
@@ -1975,12 +2001,14 @@ def print_walls(walls, card):
 
 
 def cpu_check(torch, A, engine, prompts, toks, tol, label, n_check=4,
-              logit_tol=None):
+              logit_tol=None, plain_ops=None):
     """Teacher-forced logits of the GPU engine against the same engine
     moved to the CPU (plain versions), over ``n_check`` steps: the GPU's
     token must be the CPU's argmax or within ``tol`` of it (a near-tie that
     rounding may flip), and no logit may differ by more than ``logit_tol``
-    (``tol`` when not given)."""
+    (``tol`` when not given).  With ``plain_ops`` (the ``kernels.ops``
+    module) the twin is the same engine on the card with every kernel's
+    plain version instead."""
     logit_tol = tol if logit_tol is None else logit_tol
     tok_t = torch.as_tensor(toks, dtype=torch.long)
     gpu = forced_logits(torch, A, engine, torch.as_tensor(prompts), tok_t,
@@ -1992,8 +2020,15 @@ def cpu_check(torch, A, engine, prompts, toks, tol, label, n_check=4,
         if not bool(torch.isfinite(lg).all()):
             raise AssertionError(f"step {i}: non-finite logits")
     t0 = time.perf_counter()
-    cpu = forced_logits(torch, A, engine.to("cpu"),
-                        torch.as_tensor(prompts), tok_t, n_check)
+    if plain_ops is None:
+        twin = "the CPU (plain versions)"
+        cpu = forced_logits(torch, A, engine.to("cpu"),
+                            torch.as_tensor(prompts), tok_t, n_check)
+    else:
+        twin = "the card with the plain versions"
+        with plain_ops.plain_versions():
+            cpu = forced_logits(torch, A, engine, torch.as_tensor(prompts),
+                                tok_t, n_check)
     worst, same, ties, gaps, steps = 0.0, 0, 0, [], []
     for i, (g_lg, c_lg) in enumerate(zip(gpu, cpu)):
         steps.append((g_lg - c_lg).abs().max().item())
@@ -2009,8 +2044,8 @@ def cpu_check(torch, A, engine, prompts, toks, tol, label, n_check=4,
                 gaps.append(f"step {i} row {r}: CPU picks {int(pick[r])}, "
                             f"GPU {int(tok_t[r, i])}, {gap:.4f} apart")
     scale = max(lg.abs().max().item() for lg in cpu)
-    print(f"[{label}] {n_check} teacher-forced steps on the CPU (plain "
-          f"versions) in {time.perf_counter() - t0:.1f} s: max |logit diff| "
+    print(f"[{label}] {n_check} teacher-forced steps on {twin} "
+          f"in {time.perf_counter() - t0:.1f} s: max |logit diff| "
           f"{worst:.4f} (tolerance {logit_tol}; by step "
           f"{', '.join(f'{e:.4f}' for e in steps)}; max |logit| "
           f"{scale:.3f}); greedy tokens equal "
@@ -2952,6 +2987,158 @@ class Tee:
         self.out.flush()
 
 
+def check_paper_tables(torch, ops, dev, card):
+    """[paper tables]: ``python -m repro_torch.bench.run`` on the card at
+    the reference's own sizes (Tables 1-2 on the reduced backbone, the
+    §3.3/§4.2 DWS sequence, the §3.2 convergence, and ``kernels_micro``:
+    B3 at 256x512x256 and B5 at 512x256, each bit for bit against its
+    plain version before it is timed), with the paper's ordering asserts;
+    prints the CSV rows and returns the run's launch counts (B5's only
+    path)."""
+    from repro_torch.bench import run as BR
+
+    ops.reset_launches()
+    rows = BR.run(dev)
+    counts = ops.launch_counts()
+    print(f"[paper tables] {card}: name,us_per_call,derived")
+    for name, us, derived in rows:
+        print(f"[paper tables] {name},{us:.0f},{derived}")
+    print(f"[paper tables] orderings held (scalar < rescaled, vector >= "
+          f"scalar, loss40 < loss0, vector rmse <= scalar); launches "
+          f"{counts}")
+    if counts["quant_matmul"] == 0 or counts["fake_quant"] == 0:
+        raise AssertionError(f"kernels_micro launched {counts}")
+    return counts
+
+
+def variants_pointwise(torch, A, ST, prepare_int8, model, policy, params,
+                       calib, student_rmse):
+    """The pointwise policy through the users' fine-tune,
+    ``prepare_int8(finetune_epochs=1)``: one FAT step a calibration batch
+    (``POINTWISE_STEPS``), the trained ``log2_t`` KV thresholds frozen
+    back to ``t_max``.  Beside it, from the same calibration, the same
+    steps at ``POINTWISE_LOW_LR`` through ``steps.finetune_thresholds``,
+    and the untrained student.  Returns (the fine-tuned qparams, a note of
+    the losses and the students' rmse)."""
+    log: dict = {}
+    _, qp = prepare_int8(model, policy, params, calib, convert=False,
+                         finetune_epochs=1, finetune_log=log)
+    with torch.no_grad():
+        raw = A.init_qparams(model, params, policy)
+        calib_step = ST.make_calibrate_step(model, policy)
+        for b in calib:
+            raw = calib_step(params, raw, b)
+    low, low_losses = ST.finetune_thresholds(
+        model, policy, params, A.finalize_calibration(
+            raw, train_thresholds=True), calib, epochs=1,
+        hp=ST.TrainHParams(base_lr=POINTWISE_LOW_LR))
+    untrained = A.finalize_calibration(raw)
+    rmse = {name: student_rmse(q) for name, q in (
+        ("untrained", untrained), ("low", A.freeze_thresholds(low)))}
+    pw = [e["w"]["pointwise"] for e in qp.values() if "w" in e]
+    moved = sum(int((p != 1).sum()) for p in pw)
+    kv = [(e[kk]["t_max"], untrained[path][kk]["t_max"])
+          for path, e in qp.items() if A.is_kv_path(path) for kk in e]
+    kv_moved = sum(int((t != t0).sum()) for t, t0 in kv)
+    losses = log["losses"]
+    fmt = lambda v: ", ".join(f"{x:.4f}" for x in v)  # noqa: E731
+    if (not all(np.isfinite(losses + low_losses)) or moved == 0
+            or kv_moved == 0 or len(losses) != POINTWISE_STEPS
+            or any("log2_t" in st for path, e in qp.items()
+                   if A.is_kv_path(path) for st in e.values())):
+        raise AssertionError(f"pointwise fine-tune: losses {losses} / "
+                             f"{low_losses}, {moved} scales and {kv_moved} "
+                             f"KV thresholds moved")
+    return qp, (f"; prepare_int8's fine-tune ({POINTWISE_STEPS} FAT steps at "
+                f"lr {ST.TrainHParams.base_lr}): losses {fmt(losses)}, "
+                f"{moved} of {sum(p.numel() for p in pw)} pointwise scales "
+                f"and {kv_moved} of {sum(t.numel() for t, _ in kv)} KV "
+                f"thresholds moved; at lr {POINTWISE_LOW_LR}: losses "
+                f"{fmt(low_losses)}, rmse {rmse['low']:.4f}; untrained "
+                f"rmse {rmse['untrained']:.4f}")
+
+
+def check_variants_full(torch, ops, A, ST, Engine, prepare_int8, build_model,
+                        get_config, dev, kind, card):
+    """[variants full]: smollm-135m at full width (30 layers, d_model 576,
+    seeded weights) through ``prepare_int8`` for each policy of
+    ``VARIANT_POLICIES`` (int8 KV cache throughout; ``POINTWISE_STEPS``
+    calibration batches; the pointwise scales fine-tuned as
+    ``variants_pointwise`` says): the fake-mode student's rmse and top-1
+    agreement against the bf16 teacher on 4 x ``VARIANT_PROMPT`` tokens,
+    then the int8 form served (prefill + ``VARIANT_GEN`` greedy tokens
+    through the captured programs), every quantized matmul through B3, and
+    the tokens held against the same engine with the plain versions on the
+    card (teacher-forced, up to a near-tie of ``LOGIT_ATOL``).  Returns
+    B3's launches by policy."""
+    from repro_torch import data as D
+    from repro_torch.bridge import tree_to
+    from repro_torch.core.distill import rmse_distill_loss
+
+    cfg = get_config("smollm-135m")
+    model = build_model(cfg)
+    params = tree_to(model.init(torch.Generator().manual_seed(0)), dev)
+    calib = [{"tokens": torch.as_tensor(b["tokens"], device=dev)}
+             for b in D.calibration_batches(cfg.vocab, n=POINTWISE_STEPS)]
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (B, VARIANT_PROMPT), dtype=np.int32), device=dev)}
+    prompts = rng.integers(0, cfg.vocab, (B, VARIANT_PROMPT), dtype=np.int32)
+    with torch.no_grad():
+        teacher = model(params, batch)
+    launches = {}
+    for name, kw in VARIANT_POLICIES.items():
+        t0 = time.perf_counter()
+        policy = A.QuantPolicy(kv_int8=True, **kw)
+
+        @torch.no_grad()
+        def student(qp):
+            return model(params, batch, A.make_ctx("fake", policy, qp))
+
+        note = ""
+        if policy.pointwise_scales:
+            qp, note = variants_pointwise(
+                torch, A, ST, prepare_int8, model, policy, params, calib,
+                lambda q: float(rmse_distill_loss(teacher, student(q))))
+        else:
+            _, qp = prepare_int8(model, policy, params, calib, convert=False)
+        with torch.no_grad():
+            logits = student(qp)
+            rmse = float(rmse_distill_loss(teacher, logits))
+            agree = float((teacher.argmax(-1) == logits.argmax(-1))
+                          .float().mean())
+            serve = A.convert_to_int8(model, params, qp, policy)
+        del logits
+        engine = Engine(model, cfg, policy, serve, qp, device=dev)
+        engine.generate_batch({"tokens": prompts}, gen=2)       # capture
+        ops.reset_launches()
+        res = engine.generate_batch({"tokens": prompts}, gen=VARIANT_GEN)
+        counts = ops.launch_counts()
+        want = 7 * cfg.n_layers * VARIANT_GEN
+        launches[name] = counts["quant_matmul"]
+        toks = res.tokens.cpu()
+        w_scale = serve["stack"]["layer0"]["attn"]["wq"]["w_scale"]
+        print(f"[variants full] {name} ({kw or 'the default'}): fake-mode "
+              f"rmse {rmse:.4f}, top-1 agreement {agree:.4f} with the bf16 "
+              f"teacher on {B}x{VARIANT_PROMPT} tokens{note}; int8 serving "
+              f"(w_scale shape {tuple(w_scale.shape)}): prefill "
+              f"{res.prefill_s * 1e3:.2f} ms, decode "
+              f"{res.decode_s / (VARIANT_GEN - 1) * 1e3:.3f} ms a step on "
+              f"{kind} ({card}); launches {counts}")
+        if counts["quant_matmul"] != want or not np.isfinite(rmse):
+            raise AssertionError(f"{name}: quant_matmul launched "
+                                 f"{counts['quant_matmul']} != {want}, rmse "
+                                 f"{rmse}")
+        if not bool(torch.isfinite(res.prefill_logits).all()):
+            raise AssertionError(f"{name}: non-finite prefill logits")
+        cpu_check(torch, A, engine, prompts, toks, LOGIT_ATOL,
+                  f"variants full {name}", n_check=VARIANT_GEN,
+                  plain_ops=ops)
+        print(f"[variants full] {name}: {time.perf_counter() - t0:.1f} s")
+        del engine, serve, qp
+    return launches
+
+
 def run_train(torch, train, argv, label):
     """``repro_torch.launch.train.main(argv)`` on the card; returns (its
     result, its printed losses by step, its ms per step after the first,
@@ -3758,7 +3945,7 @@ def main() -> int:
     from repro_torch.launch import prng
     from repro_torch.launch import steps as ST
     from repro_torch.launch import strategies as SG
-    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.engine import Engine, prepare_int8
     from repro_torch.launch import train
     from repro_torch.launch.faults import FaultPlan, SimulatedCrash
     from repro_torch.launch.journal import RequestJournal
@@ -3814,7 +4001,7 @@ def main() -> int:
     for bits in (8, 4):
         kernels.append(check_paged_partials(torch, ops, ref, dev, bits))
     print("[kernels] fake_quant (B5) bit-exact, with its STE backward:")
-    fq_entries, fq_launches = check_fake_quant(torch, ops, ref, dev)
+    fq_entries, _ = check_fake_quant(torch, ops, ref, dev)
     print("[kernels] quant_matmul with int4 weights (B3 w_bits=4) "
           "bit-exact:")
     w4_entries, w4_launches = check_quant_matmul_w4(torch, ops, ref, dev)
@@ -3854,6 +4041,14 @@ def main() -> int:
             return None
         finally:
             phases[name] = time.perf_counter() - t0
+
+    # the paper's side (ROADMAP items 16, 15): its tables, and its FAT
+    # variants at full width served in int8
+    paper = phase("paper tables", check_paper_tables, torch, ops, dev, card)
+    variants = phase("variants full", check_variants_full, torch, ops, A, ST,
+                     Engine, prepare_int8, build_model, get_config, dev,
+                     kind, card)
+    free_card(torch)
 
     t0 = time.perf_counter()
     engine = Engine.from_checkpoint("smollm-135m", smoke=False)
@@ -4094,7 +4289,8 @@ def main() -> int:
                    for k in ops.ATTENTION},
                 partials: sum(sp_paths.values()),
                 f"{partials}@int4": sp4[2][partials],
-                "fake_quant": fq_launches, "quant_matmul@w4": w4_launches}
+                "fake_quant": paper["fake_quant"],
+                "quant_matmul@w4": w4_launches}
     # the strategies' paths: B3's launches join the main path's; B2's in the
     # verify windows are prefill_attention@verify (int8) and
     # @verify-int4
@@ -4102,6 +4298,9 @@ def main() -> int:
                  **{k: v[0] for k, v in {**spec_runs, **spec4_runs}.items()},
                  **{k: v[0] for k, v in strategy_scheds.items()}}
     new_paths.update({path: run[0] for path, run in resilience.items()})
+    new_paths["paper tables"] = {"quant_matmul": paper["quant_matmul"]}
+    new_paths.update({f"variants full {name}": {"quant_matmul": n}
+                      for name, n in variants.items()})
     launched["quant_matmul"] += sum(c["quant_matmul"]
                                     for c in new_paths.values())
     for k in ("prefill_attention", "decode_attention"):
@@ -4169,6 +4368,8 @@ def main() -> int:
             e["launches_by_path"] = {"main path": counts[kernel],
                                      **{path: d[kernel] for path, d in
                                         dense_by_path.items()}}
+        if kernel == "fake_quant":
+            e["launches_by_path"] = {"paper tables": launched[kernel]}
         if kernel == "prefill_attention@paged-bf16":
             e["launches_by_path"] = {"int8_w_bf16_kv paged path":
                                      launched[kernel]}

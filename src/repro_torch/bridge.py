@@ -1,4 +1,4 @@
-"""Weight bridge: numpy trees from the reference package -> torch tensors.
+"""Weight bridge: numpy trees from the reference package <-> torch tensors.
 
 The reference's params are a nested dict of arrays and its qparams a flat
 dict (layer path -> nested dict of arrays); the port keeps both layouts
@@ -42,6 +42,27 @@ def qparams_from_jax(flat_numpy_dict: dict) -> dict:
     (``alpha`` scales, the KV ``log2_t`` of a fine-tune in progress), so
     thresholds trained by the reference serve in the port unchanged."""
     return {path: _convert(entry) for path, entry in flat_numpy_dict.items()}
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor -> a numpy array with the same dtype and bits (bfloat16
+    as ``ml_dtypes.bfloat16`` through its uint16 pattern)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def qparams_to_numpy(qparams: dict) -> dict:
+    """The port's qparams (or any nested dict of tensors) -> the same
+    layout with numpy arrays, which the reference takes (``jnp.asarray``
+    per leaf): every leaf crosses, those of the asymmetric scheme, the
+    pointwise scales and the 0-d scalar-mode thresholds too."""
+    if isinstance(qparams, dict):
+        return {k: qparams_to_numpy(v) for k, v in qparams.items()}
+    return to_numpy(qparams)
 
 
 def tree_to(tree, device) -> dict:

@@ -1,11 +1,14 @@
 """FAT quantization context: the integration point between the paper's
 technique (``core.quant``) and the model (``models``).
 
-Counterpart of ``repro/core/api.py`` in the paper's default variant:
-symmetric int8, per-output-channel weight thresholds, per-tensor
-activation thresholds, max-abs calibration, and a KV cache of int8 or
-packed int4 with per-head thresholds.  A forward without a context is full
-precision (the distillation teacher, §3.2); the context's modes are
+Counterpart of ``repro/core/api.py``.  ``QuantPolicy`` picks the paper's
+variant (Tables 1-2): the bit width, symmetric or asymmetric activations
+(§3.1.3-3.1.4), vector or scalar weight thresholds (§3.1.5), per-tensor or
+per-channel activation thresholds, the §4.2 pointwise weight scales, the
+max-abs or percentile observer, layers left unquantized by path, and a KV
+cache of int8 or packed int4 with per-head thresholds.  A forward without
+a context is full precision (the distillation teacher, §3.2); the
+context's modes are
 
   none       full-precision weights (bf16 serving, the paper's baseline):
              every Dense is ``x @ w``; the context still carries the KV
@@ -18,22 +21,31 @@ precision (the distillation teacher, §3.2); the context's modes are
              static calibrated thresholds, int32 accumulation, dequant in
              the epilogue (eq. 20) -- always through ``kernels.ops``
 
-Asymmetric activations, pointwise scales and the percentile observer of
-the reference's ``QuantPolicy`` are not ported (ROADMAP Queue A item 16).
+In int8 mode every quantized matmul runs through the fused kernel (B3),
+whatever the variant: scalar-mode weights broadcast their one dequant
+scale over the output channels, and an asymmetric or non-8-bit activation
+goes in with ``s_x = levels / T_adj`` and the kernel's ±127 clip (what the
+reference's fused path computes).  Per-channel activation thresholds have
+no int8 form: the kernel takes one activation scale (the reference fails
+to broadcast them too).
 
 State layout, as in the reference: ``qparams`` is a flat dict keyed by
 layer path (``"smollm-135m/stack/layer0/attn/wq"``) holding
 ``{"w": {...}, "act": {...}}`` threshold states, plus ``"<attn>/kv"``
 entries with per-head K/V thresholds; ``params`` is the nested dict of
 tensors that mirrors the module tree, where int8 mode replaces a
-quantized ``{"w"}`` leaf with ``{"w_q": int8, "w_scale": f32[C]}``.  The
-trainable leaves of qparams are the threshold scales (``alpha``,
-``alpha_t``, ``alpha_r``) and the trained log2 KV thresholds (``log2_t``);
-the weights never train.
+quantized ``{"w"}`` leaf with ``{"w_q": int8, "w_scale": f32[C] (or f32[]
+in scalar mode)}`` and a bias ``b`` with ``b_q`` int32 and ``b_scale``
+(eq. 20).  The trainable leaves of qparams are the threshold scales
+(``alpha``, ``alpha_t``, ``alpha_r``), the pointwise weight scales
+(``pointwise``) and the trained log2 KV thresholds (``log2_t``); the
+weights never train.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import re
 
 import torch
 
@@ -41,29 +53,65 @@ from repro_torch.core import calibration as calib
 from repro_torch.core import quant as Q
 
 MODES = ("none", "calibrate", "fake", "int8")
-TRAINABLE_KEYS = frozenset({"alpha", "alpha_t", "alpha_r", "log2_t"})
+TRAINABLE_KEYS = frozenset({"alpha", "alpha_t", "alpha_r", "pointwise",
+                            "log2_t"})
 
 
 @dataclasses.dataclass(frozen=True)
 class QuantPolicy:
-    """Which FAT variant to run: int8 weights and activations; ``kv_int8``
-    adds per-head K/V thresholds for the quantized KV cache, ``kv_bits``
-    its width (8, or 4 stored as packed nibbles)."""
+    """Which FAT variant to run (the paper's experiment grid, Tables 1-2).
 
+    ``bits`` wide weights and activations; ``act_symmetric`` (§3.1.3) or
+    asymmetric (§3.1.4) activation thresholds; ``weight_per_channel``
+    vector (§3.1.5) or scalar weight thresholds; ``act_per_channel``
+    per-channel activation thresholds (fake and calibrate modes only);
+    ``pointwise_scales`` trainable [0.75, 1.25] scales per weight (§4.2);
+    ``observer`` "max_abs" (the paper's), "percentile" (at
+    ``percentile``) or "min_max"; ``skip_patterns`` regular expressions of
+    layer paths left in full precision.  ``kv_int8`` adds per-head K/V
+    thresholds for the quantized KV cache, ``kv_bits`` its width (8, or 4
+    stored as packed nibbles).  The reference's ``use_pallas`` has no
+    counterpart: the port picks its kernels by the tensors' device (the
+    CUDA kernels on the card, their plain versions on the CPU)."""
+
+    bits: int = 8
+    act_symmetric: bool = True
+    weight_per_channel: bool = True
+    act_per_channel: bool = False
+    pointwise_scales: bool = False
+    observer: str = "max_abs"
+    percentile: float = 99.99
+    skip_patterns: tuple[str, ...] = ()
     kv_int8: bool = False
     kv_bits: int = 8
 
     def __post_init__(self):
         if self.kv_bits not in (4, 8):
             raise ValueError(f"kv_bits must be 4 or 8, got {self.kv_bits}")
+        if self.observer not in calib.OBSERVERS:
+            raise ValueError(f"observer must be one of {calib.OBSERVERS}, "
+                             f"got {self.observer!r}")
+
+    @functools.cached_property
+    def _skip_res(self) -> tuple[re.Pattern, ...]:
+        return tuple(re.compile(p) for p in self.skip_patterns)
+
+    def skips(self, path: str) -> bool:
+        """True for a layer path that one of ``skip_patterns`` matches."""
+        return any(p.search(path) for p in self._skip_res)
 
     def weight_spec(self) -> Q.QuantSpec:
-        """Weights (in, out): one threshold per output channel."""
-        return Q.QuantSpec(per_channel=True, channel_axis=-1)
+        """Weights (in, out): symmetric (eq. 1-4), one threshold per output
+        channel in vector mode, one per tensor in scalar mode."""
+        return Q.QuantSpec(bits=self.bits, per_channel=self.weight_per_channel,
+                           channel_axis=-1)
 
-    def act_spec(self) -> Q.QuantSpec:
-        """Activations: one static threshold per tensor."""
-        return Q.QuantSpec()
+    def act_spec(self, unsigned: bool = False) -> Q.QuantSpec:
+        """Activations: static thresholds, per tensor unless
+        ``act_per_channel``; ``unsigned`` for a non-negative input."""
+        return Q.QuantSpec(bits=self.bits, symmetric=self.act_symmetric,
+                           unsigned=unsigned,
+                           per_channel=self.act_per_channel)
 
     def kv_spec(self) -> Q.QuantSpec:
         """K/V cache entries (B, S, KV, D): one static threshold per KV
@@ -82,6 +130,11 @@ class QuantCtx:
     policy: QuantPolicy
     qparams: dict
     updates: dict = dataclasses.field(default_factory=dict)
+
+    def enabled(self, layer) -> bool:
+        """Whether ``layer`` runs quantized: any mode but "none", on a
+        layer that the policy does not skip."""
+        return self.mode != "none" and not self.policy.skips(layer.path)
 
 
 def make_ctx(mode: str, policy: QuantPolicy,
@@ -112,20 +165,35 @@ def _modules_with_params(model, params, cls):
             yield module, sub
 
 
-def init_qparams(model, params: dict, policy: QuantPolicy) -> dict:
-    """Threshold state for every quantizable layer: weight thresholds
-    straight from the weights (T_w = max|W| per output channel, eq. 2),
-    activation thresholds as empty observers for calibration, and (with
-    ``kv_int8``) per-head K/V observers for every causal attention."""
-    from repro_torch.models.attention import Attention
+def _quant_layers_with_params(model, params, policy: QuantPolicy):
+    """(Dense, its params subtree) pairs that the policy does not skip."""
     from repro_torch.models.module import Dense
 
-    qparams: dict = {}
     for layer, lp in _modules_with_params(model, params, Dense):
+        if not policy.skips(layer.path):
+            yield layer, lp
+
+
+def init_qparams(model, params: dict, policy: QuantPolicy) -> dict:
+    """Threshold state for every quantizable layer: weight thresholds
+    straight from the weights (T_w = max|W| per output channel, or per
+    tensor in scalar mode, eq. 2) with alpha = 1, unit ``pointwise``
+    scales with ``pointwise_scales``, activation thresholds as empty
+    observers for calibration, and (with ``kv_int8``) per-head K/V
+    observers for every causal attention."""
+    from repro_torch.models.attention import Attention
+
+    qparams: dict = {}
+    for layer, lp in _quant_layers_with_params(model, params, policy):
         w = lp["w"]
-        t_w = torch.amax(w.float().abs(), dim=-2)
+        dims = (-2,) if policy.weight_per_channel else (-2, -1)
+        t_w = torch.amax(w.float().abs(), dim=dims)
+        wstate = {"t_max": t_w, "alpha": torch.ones_like(t_w)}
+        if policy.pointwise_scales:
+            wstate["pointwise"] = torch.ones(w.shape, dtype=torch.float32,
+                                             device=w.device)
         qparams[layer.path] = {
-            "w": {"t_max": t_w, "alpha": torch.ones_like(t_w)},
+            "w": wstate,
             "act": calib.init_observer(policy.act_spec(), device=w.device),
         }
     if policy.kv_int8:
@@ -184,7 +252,8 @@ def freeze_thresholds(qparams: dict) -> dict:
 
 def trainable_mask(qparams: dict) -> dict:
     """The qparams tree with a bool per leaf: True only on the trained FAT
-    parameters (threshold scales, trained log2 KV thresholds)."""
+    parameters (threshold scales, pointwise scales, trained log2 KV
+    thresholds)."""
     def mask_entry(d):
         return {k: (mask_entry(v) if isinstance(v, dict)
                     else k in TRAINABLE_KEYS) for k, v in d.items()}
@@ -221,30 +290,54 @@ def unflatten(flat: dict) -> dict:
 
 def dense_forward(layer, params: dict, x: torch.Tensor, ctx: QuantCtx | None):
     """A Dense layer without a context (full precision) and in each mode."""
-    if ctx is None or ctx.mode == "none":
-        return x @ params["w"]
-    if ctx.mode == "calibrate":
+    b = params.get("b")
+    if ctx is None or not ctx.enabled(layer):
+        y = x @ params["w"]
+    elif ctx.mode == "calibrate":
         ctx.updates[layer.path] = calib.update_observer(
-            ctx.qparams[layer.path]["act"], x, ctx.policy.act_spec())
-        return x @ params["w"]
-    if ctx.mode == "fake":
+            ctx.qparams[layer.path]["act"], x,
+            ctx.policy.act_spec(),
+            kind=ctx.policy.observer, percentile=ctx.policy.percentile)
+        y = x @ params["w"]
+    elif ctx.mode == "fake":
         qs = ctx.qparams[layer.path]
-        xq = _fq_act(x, qs["act"], ctx.policy.act_spec()).to(x.dtype)
-        return xq @ _fq_weight(params["w"], qs["w"], ctx.policy.weight_spec())
-    return _int8_matmul(x, params["w_q"], params["w_scale"],
-                        ctx.qparams[layer.path]["act"], ctx.policy.act_spec())
+        xq = _fq_act(x, qs["act"],
+                     ctx.policy.act_spec()).to(x.dtype)
+        y = xq @ _fq_weight(params["w"], qs["w"], ctx.policy.weight_spec())
+    else:
+        y = _int8_matmul(x, params["w_q"], params["w_scale"],
+                         ctx.qparams[layer.path]["act"],
+                         ctx.policy.act_spec())
+        if "b_q" in params:
+            # the int32 bias at the dequantized output scale (eq. 20)
+            y = y + (params["b_q"].float() * params["b_scale"]).to(y.dtype)
+    if b is not None:
+        y = y + b
+    return y
 
 
 def _fq_act(x, astate, spec: Q.QuantSpec):
-    """Activation fake-quant of the student (per-tensor threshold)."""
-    return Q.fake_quant_symmetric_fused(x, astate["t_max"], astate["alpha"],
-                                        spec)
+    """Activation fake-quant of the student: symmetric with the analytic
+    STE backward, or asymmetric with trained limits (§3.1.4)."""
+    if spec.symmetric:
+        return Q.fake_quant_symmetric_fused(x, astate["t_max"],
+                                            astate["alpha"], spec)
+    return Q.fake_quant_asymmetric(x, astate["t_l"], astate["t_r"],
+                                   astate["alpha_t"], astate["alpha_r"],
+                                   spec)
 
 
 def _fq_weight(w, wstate, spec: Q.QuantSpec):
-    """Weight fake-quant of the student: per-output-channel thresholds
-    (in, out) -> (1, out), STE round and clip, so the threshold scales
-    get their gradient through the autodiff of the scale."""
+    """Weight fake-quant of the student, after the §4.2 pointwise scales
+    when qparams hold them: per-output-channel thresholds (in, out) ->
+    (1, out) with STE round and clip, so the threshold scales get their
+    gradient through the autodiff of the scale; or, in scalar mode, one
+    threshold per tensor."""
+    if "pointwise" in wstate:
+        w = Q.apply_pointwise_scale(w, wstate["pointwise"].to(w.dtype))
+    if not spec.per_channel:
+        return Q.fake_quant_symmetric(w.float(), wstate["t_max"],
+                                      wstate["alpha"], spec).to(w.dtype)
     shape = (1, w.shape[-1])
     t = wstate["t_max"].reshape(shape)
     alpha = wstate["alpha"].reshape(shape)
@@ -260,23 +353,34 @@ def _int8_matmul(x, w_q, w_scale, astate, aspec: Q.QuantSpec):
 
     Always the fused kernel (``kernels.ops.quant_matmul``): raw
     activations plus act_scale = levels / T_adj go in, the kernel
-    quantizes on load; ``w_scale / act_scale`` is the combined per-channel
-    dequant of the epilogue.  The kernel emits bf16, cast back to
-    ``x.dtype`` here, as in the reference."""
+    quantizes on load (clip ±127, whatever ``aspec``'s range: the
+    reference's fused path does the same); ``w_scale / act_scale`` is the
+    combined per-channel dequant of the epilogue, broadcast over the
+    output channels when the weights have one scalar-mode scale.  The
+    kernel emits bf16, cast back to ``x.dtype`` here, as in the
+    reference."""
     from repro_torch.kernels import ops
 
     t_adj = torch.clamp_min(
         Q.adjusted_threshold(astate["t_max"], astate["alpha"], aspec), 1e-8)
+    if t_adj.ndim:
+        raise ValueError(
+            f"int8 mode takes one activation threshold per tensor: the "
+            f"per-channel act scale {tuple(t_adj.shape)} does not broadcast "
+            f"against the weight scale {tuple(w_scale.shape)} "
+            f"(act_per_channel serves in fake mode only)")
     s_x = Q.rdiv(aspec.levels, t_adj)
     # w_scale / s_x, evaluated as (w_scale * T_adj) * (1 / levels): the
     # float32 expression the reference's compiled graph evaluates for it,
     # so both packages dequantize with the same bits
     combined = (w_scale * t_adj) * (1.0 / aspec.levels)
+    if combined.ndim == 0:
+        combined = combined.expand(w_q.shape[-1])
     lead = x.shape[:-1]
     # the kernel streams contiguous rows: the untied lm_head reads the
     # prefill's last position, a strided view
     y = ops.quant_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w_q,
-                         combined.float(), s_x.float())
+                         combined.float().contiguous(), s_x.float())
     return y.reshape(*lead, -1).to(x.dtype)
 
 
@@ -287,23 +391,39 @@ def _int8_matmul(x, w_q, w_scale, astate, aspec: Q.QuantSpec):
 
 def convert_to_int8(model, params: dict, qparams: dict,
                     policy: QuantPolicy) -> dict:
-    """Replace every quantized Dense 'w' with int8 ``w_q`` + per-channel
-    ``w_scale`` (the serving parameter tree: weights resident as int8).
-    The input tree is left untouched; unquantized leaves are shared."""
-    from repro_torch.models.module import Dense
-
+    """Replace every quantized Dense 'w' with int8 ``w_q`` and its dequant
+    scale ``w_scale`` (per output channel, or one in scalar mode), after
+    the pointwise scales when qparams hold them, and a bias ``b`` with
+    ``b_q`` int32 at the combined input/weight scale and ``b_scale``
+    (eq. 20): the serving parameter tree, weights resident as int8.  The
+    input tree is left untouched; unquantized leaves are shared."""
     out = _copy_tree(params)
     spec = policy.weight_spec()
-    for layer, lp in _modules_with_params(model, out, Dense):
+    for layer, lp in _quant_layers_with_params(model, out, policy):
         wstate = qparams[layer.path]["w"]
         w = lp.pop("w").float()
-        t_adj = torch.clamp_min(Q.adjusted_threshold(
-            wstate["t_max"].reshape(1, -1), wstate["alpha"].reshape(1, -1),
-            spec), 1e-8)
+        if "pointwise" in wstate:
+            w = Q.apply_pointwise_scale(w, wstate["pointwise"])
+        t, alpha = wstate["t_max"], wstate["alpha"]
+        if spec.per_channel:
+            t, alpha = t.reshape(1, -1), alpha.reshape(1, -1)
+        t_adj = torch.clamp_min(Q.adjusted_threshold(t, alpha, spec), 1e-8)
         s = Q.rdiv(spec.levels, t_adj)
         lp["w_q"] = torch.clamp(torch.round(w * s), spec.qmin,
                                 spec.qmax).to(torch.int8)
-        lp["w_scale"] = Q.rdiv(1.0, s).squeeze(-2).float()
+        w_scale = Q.rdiv(1.0, s)
+        lp["w_scale"] = (w_scale.squeeze(-2) if spec.per_channel
+                         else w_scale).float()
+        if "b" in lp:
+            astate = qparams[layer.path]["act"]
+            aspec = policy.act_spec()
+            t_a = torch.clamp_min(Q.adjusted_threshold(
+                astate["t_max"], astate["alpha"], aspec), 1e-8)
+            act_scale = t_a / aspec.levels
+            b = lp.pop("b")
+            lp["b_q"] = Q.quantize_bias_int32(b.float(), act_scale,
+                                              lp["w_scale"])
+            lp["b_scale"] = (act_scale * lp["w_scale"]).float()
     return out
 
 

@@ -6,8 +6,9 @@ pre-softmax outputs,
 
     H(z_T, z_A) = sqrt( sum_i ||z_i^T - z_i^A||^2 / N )         (eq. 25)
 
-For a language model the pre-softmax output is the (B, S, V) logits
-tensor, so ``chunked_sq_err`` reads out and reduces one sequence chunk at a
+``rmse_distill_loss`` is eq. 25 on whole logits.  For a language model
+the pre-softmax output is the (B, S, V) logits tensor, so
+``chunked_sq_err`` reads out and reduces one sequence chunk at a
 time: logits exist for one chunk only.  Each chunk is recomputed in the
 backward (``torch.utils.checkpoint``, the counterpart of the reference's
 ``jax.checkpoint`` on its scan body), so the backward does not keep every
@@ -20,6 +21,17 @@ from typing import Callable
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+
+def rmse_distill_loss(z_teacher: torch.Tensor,
+                      z_student: torch.Tensor) -> torch.Tensor:
+    """Eq. 25 on whole logits: sqrt(sum of squared error / N), N the
+    product of the leading (non-logit) dims."""
+    zt, za = z_teacher.float(), z_student.float()
+    n = 1
+    for d in zt.shape[:-1]:
+        n *= d
+    return torch.sqrt(torch.sum((zt - za) ** 2) / max(n, 1))
 
 
 def chunked_sq_err(h_teacher: torch.Tensor, h_student: torch.Tensor,

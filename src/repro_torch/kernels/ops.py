@@ -4,9 +4,13 @@ Counterpart of ``repro/kernels/ops.py``: a tensor on the CPU runs the
 plain PyTorch version (``ref``), a tensor on a CUDA device launches the
 hand-written Hopper kernel or raises.  There is no fallback from one to
 the other.  Inputs are validated the same way on both sides (the CUDA
-wrappers' ``launch`` validates its own).
+wrappers' ``launch`` validates its own).  Within ``plain_versions()`` a
+CUDA tensor runs the plain version too: the twin a caller holds a run of
+the kernels against, on the same card.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -31,12 +35,27 @@ COUNTERS = (("quant_matmul", "launches"), ("quant_matmul", "launches_w4"),
               for attr in ("launches", "launches_int4", "launches_paged")))
 
 
+_plain = False
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
-        return True
+        return not _plain
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Within: every wrapper runs its plain version, on whatever device its
+    tensors lie, and launches nothing."""
+    global _plain
+    saved, _plain = _plain, True
+    try:
+        yield
+    finally:
+        _plain = saved
 
 
 def reset_launches() -> None:

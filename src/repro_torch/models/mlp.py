@@ -28,3 +28,9 @@ class SwiGLU(Module):
         g = self.act(self.gate(params["gate"], x, ctx))
         u = self.up(params["up"], x, ctx)
         return self.down(params["down"], g * u, ctx)
+
+    def equalization_pairs(self):
+        """§3.3 analog: up -> down is linear through the gate product (the
+        gate's path holds the nonlinearity, like the paper's locked
+        channels)."""
+        return [(self.up.path, self.down.path)]

@@ -117,6 +117,30 @@ class CausalLM(Module):
         return self.readout_fn(params, ctx)(h), cache
 
 
+    # -- quantization plans ---------------------------------------------------
+    def fold_plan(self):
+        """Pre-norm gammas fold into the projections that consume them
+        (paper §3.1.2 analog): (norm path, [projection paths]) per block.
+        Module paths, as the reference's plan names them."""
+        plan = []
+        for blk in self.stack.blocks:
+            bp = blk.path
+            plan.append((f"{bp}/pre_norm", [f"{bp}/attn/wq", f"{bp}/attn/wk",
+                                            f"{bp}/attn/wv"]))
+            plan.append((f"{bp}/ffn_norm", [blk.ffn.gate.path,
+                                            blk.ffn.up.path]))
+        return plan
+
+    def equalization_plan(self):
+        """§3.3 analog pairs: v -> o per attention, up -> down per gated
+        MLP."""
+        plan = []
+        for blk in self.stack.blocks:
+            plan.append((blk.attn.wv.path, blk.attn.wo.path))
+            plan.extend(blk.ffn.equalization_pairs())
+        return plan
+
+
 def build_model(cfg):
     if cfg.family != "causal":
         raise NotImplementedError(

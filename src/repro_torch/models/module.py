@@ -55,21 +55,26 @@ def fan_in_init(gen, shape, dtype):
 
 
 class Dense(Module):
-    """y = x @ W, the quantization unit of the paper's scheme: one set of
-    thresholds per Dense, every Dense quantized.  (Biases, unquantized and
-    unsigned-input layers of the reference come with the architectures
-    that have them, ROADMAP Queue A item 17.)"""
+    """y = x @ W (+ b), the quantization unit of the paper's scheme: one set
+    of thresholds per Dense, every Dense quantized.  ``bias`` adds a ``b``
+    leaf, int32 in int8 mode (eq. 20).  (Unquantized and unsigned-input
+    layers of the reference come with the architectures that have them,
+    ROADMAP Queue A item 17.)"""
 
     def __init__(self, in_dim: int, out_dim: int, *, path: str,
-                 dtype=torch.bfloat16):
+                 bias: bool = False, dtype=torch.bfloat16):
         self.in_dim = in_dim
         self.out_dim = out_dim
         self.path = path
+        self.bias = bias
         self.dtype = dtype
 
     def init(self, gen: torch.Generator) -> dict:
-        return {"w": fan_in_init(gen, (self.in_dim, self.out_dim),
-                                 self.dtype)}
+        p = {"w": fan_in_init(gen, (self.in_dim, self.out_dim), self.dtype)}
+        if self.bias:
+            p["b"] = torch.zeros((self.out_dim,), dtype=self.dtype,
+                                 device=gen.device)
+        return p
 
     def __call__(self, params: dict, x: torch.Tensor, ctx=None):
         from repro_torch.core import api

@@ -29,14 +29,21 @@ def test_no_module_imports_jax_or_repro():
             "repro_torch.shard.engine", "repro_torch.checkpoint.manager",
             "repro_torch.data.pipeline", "repro_torch.launch.train",
             "repro_torch.kernels.fake_quant",
-            "repro_torch.configs.shapes"} <= set(mods)
-    assert len(mods) >= 47
+            "repro_torch.configs.shapes", "repro_torch.core.folding",
+            "repro_torch.core.equalization", "repro_torch.bench",
+            "repro_torch.bench.run", "repro_torch.bench.dws_model",
+            "repro_torch.launch.serve", "repro_torch.examples",
+            "repro_torch.examples.quickstart",
+            "repro_torch.examples.serve_int8",
+            "repro_torch.examples.train_fat_qat"} <= set(mods)
+    assert len(mods) >= 57
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m == 'repro'\n"
-        "             or m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro',\n"
+        "             'benchmarks') or m.startswith(('jax.', 'jaxlib',\n"
+        "             'repro.', 'benchmarks.')))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=SRC)

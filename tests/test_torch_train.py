@@ -213,8 +213,36 @@ def test_fq_weight_matches(alpha):
 
 
 def test_asymmetric_fake_quant_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        TQ.fake_quant_asymmetric(torch.zeros(3))
+    """The asymmetric scheme (§3.1.4) is ported (ROADMAP item 16): it no
+    longer raises, and it gives the reference's forward bit for bit and
+    its alpha_t / alpha_r gradients (rtol 1e-5, floor 1e-4 of the largest:
+    each element's +-x / width terms cancel in the sum).  The full grid is
+    ``tests/test_torch_variants.py``.  The name is the one the test had
+    when it pinned the raise, kept so that its record runs on."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(64, 4)).astype(np.float32)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    t_l, t_r = x.min(axis=0), x.max(axis=0)
+    a_t = np.array([-0.25, 0.0, 0.2, 0.4], np.float32)
+    a_r = np.array([0.45, 0.6, 0.95, 1.0], np.float32)
+    kw = dict(symmetric=False, per_channel=True)
+    jspec, tspec = JQ.QuantSpec(**kw), TQ.QuantSpec(**kw)
+
+    def jf(a_t, a_r):
+        return JQ.fake_quant_asymmetric(jnp.asarray(x), jnp.asarray(t_l),
+                                        jnp.asarray(t_r), a_t, a_r, jspec)
+
+    jy = jf(jnp.asarray(a_t), jnp.asarray(a_r))
+    jg = jax.grad(lambda a, b: jnp.sum(jf(a, b) * g), argnums=(0, 1))(
+        jnp.asarray(a_t), jnp.asarray(a_r))
+    ats, ars = _t(a_t).requires_grad_(True), _t(a_r).requires_grad_(True)
+    ty = TQ.fake_quant_asymmetric(_t(x), _t(t_l), _t(t_r), ats, ars, tspec)
+    (ty * _t(g)).sum().backward()
+    np.testing.assert_array_equal(ty.detach().numpy(), np.asarray(jy))
+    for got, want in zip((ats.grad, ars.grad), jg):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=1e-4 * np.abs(want).max())
 
 
 # ---------------------------------------------------------------------------
