@@ -148,7 +148,21 @@
    memory and the resident int8 weight bytes; [gemma3-12b ring] serves 2
    x 2048 prompts through its 40 rings of 1024 slots and holds the tokens
    against dense caches; [<arch> cpu check] holds a full-width copy of
-   depth 2 against the CPU.
+   depth 2 against the CPU;
+20. the mixture-of-experts decoders: [kernels] holds B3 at every expert
+   product of granite-moe-3b-a800m and mixtral-8x7b, one expert's three
+   calls at the rows their paths give it (4 groups x capacity 8 at
+   decode, 4 x 512 and mixtral's 2 x 4608 prompts), bit for bit and
+   timed, B3 at their attention and lm_head widths, B1/B2 at
+   granite-moe's heads (KV 8, G 3, D 64; B1 also paged) and B2 at
+   mixtral's window of 4096 (D 128) over 2 x 4608; [granite-moe] serves
+   the config at full width and depth, [mixtral] at full width and 8 of
+   its 32 layers (``MOE_LAYERS``), both through ``drive_main_path`` (every
+   expert product through B3, launched once per expert and counted);
+   [granite-moe scheduler] streams 16 requests through 8 slots at
+   drop-free capacity; [mixtral ring] serves 2 x 4608 prompts through its
+   rings of 4096; [<moe> cpu check] holds a depth-2 copy against the CPU
+   and counts the tokens the two devices route to other experts.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -234,7 +248,8 @@ LOGIT_ATOL_INT4 = 0.5
 # norm), crosses int8 steps in every later product.  Measured on an H100
 # at these seeds: 0.0312, 0.3096 (2 layers), 0.3667 (6 layers).
 WIDE_LOGIT_ATOL = {"granite-8b": LOGIT_ATOL, "stablelm-12b": 0.5,
-                   "gemma3-12b": 0.5}
+                   "gemma3-12b": 0.5, "granite-moe-3b-a800m": LOGIT_ATOL,
+                   "mixtral-8x7b": 0.5}
 # GPU vs CPU for the engine's first fine-tune step (bfloat16), same inputs:
 # the loss's relative error, and the relative L2 error of all alpha (or all
 # KV log2_t) gradients together.  Both devices round differently, and at
@@ -1044,16 +1059,18 @@ WIDE_HEADS = {"granite-8b": (8, 4, 128), "stablelm-12b": (8, 4, 160),
 WINDOW, RING_B, RING_PROMPT = 1024, 2, 2048
 
 
-def check_window_prefill(torch, ops, ref, dev):
-    """B2 at gemma3-12b's local layers: D 256, G 2, KV 8, window 1024 over
-    2 prompts of 2048 int8 keys, against its plain version (``ATTN_TOL``);
-    timed warm and L2-cold beside the plain version, SDPA with the band
-    mask and the bound (the keys each query sees).  Returns the JSON
-    entry."""
+def check_window_prefill(torch, ops, ref, dev, heads=WIDE_HEADS["gemma3-12b"],
+                         b=RING_B, s=RING_PROMPT, window=WINDOW,
+                         key="prefill_attention@window"):
+    """B2 at a sliding-window layer's prompt: by default gemma3-12b's local
+    layers (D 256, G 2, KV 8, window 1024 over 2 prompts of 2048 int8
+    keys); mixtral-8x7b's are (KV 8, G 4, D 128), window 4096 over 2 x
+    4608.  Against its plain version (``ATTN_TOL``); timed warm and
+    L2-cold beside the plain version, SDPA with the band mask and the bound
+    (the keys each query sees).  Returns the JSON entry (kernel ``key``)."""
     import torch.nn.functional as F
 
-    kvh, g, d = WIDE_HEADS["gemma3-12b"]
-    b, s = RING_B, RING_PROMPT
+    kvh, g, d = heads
     gen = torch.Generator(device=dev).manual_seed(29)
     k_scale, v_scale = kv_scales(torch, gen, dev, 8, kvh)
     q = torch.randn((b, s, kvh, g, d), generator=gen, device=dev).to(
@@ -1064,17 +1081,17 @@ def check_window_prefill(torch, ops, ref, dev):
 
     def kernel():
         return ops.prefill_attention(q, k, v, k_scale, v_scale, zero, full,
-                                     causal=True, window=WINDOW)
+                                     causal=True, window=window)
 
     def plain():
         return ref.prefill_attention_ref(q, k, v, k_scale, v_scale, zero,
-                                         full, causal=True, window=WINDOW)
+                                         full, causal=True, window=window)
 
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     if not err <= ATTN_TOL * (1 + want.abs().max().item()):
-        raise AssertionError(f"prefill_attention (window {WINDOW}, D {d}) "
+        raise AssertionError(f"prefill_attention (window {window}, D {d}) "
                              f"disagrees with its plain version: max |diff| "
                              f"{err}")
     del got, want
@@ -1087,47 +1104,187 @@ def check_window_prefill(torch, ops, ref, dev):
     vh = dequant_heads(torch, v, v_scale, g, 8)
     pos = torch.arange(s, device=dev)
     band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :]
-                                             < WINDOW)
+                                             < window)
     lib, _ = timed(torch, lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=band))
     pairs = int(band.sum())
     nbytes = q.numel() * 2 + 2 * b * s * kvh * d + 8 * kvh + 8 * b + \
         q.numel() * 4
     bnd, by = bound_ms(nbytes, 4 * d * pairs * b * kvh * g, BF16_FLOPS_PER_S)
-    print(f"  prefill_attention [int8, window {WINDOW}, KV={kvh} G={g} D={d}] "
+    print(f"  prefill_attention [int8, window {window}, KV={kvh} G={g} D={d}] "
           f"B={b} S={s}: {ms * 1e3:.1f} us warm, {cold * 1e3:.1f} us L2-cold "
           f"(per call {call * 1e3:.1f} us)  plain {plain_ms * 1e3:.1f} us  "
           f"bound {bnd * 1e3:.2f} us ({by})  sdpa (band mask) {lib * 1e3:.1f}"
           f" us  max|err| {err:.2e}")
     return {
-        "name": f"prefill_attention[int8 K/V, window {WINDOW}, B={b}, S={s}, "
+        "name": f"prefill_attention[int8 K/V, window {window}, B={b}, S={s}, "
                 f"KV={kvh} G={g} D={d}, one layer]",
         "route": "cuda", "source": "src/repro_torch/csrc/prefill_attention.cu",
         "replaces": "src/repro/kernels/prefill_attention.py:192",
-        "kernel": "prefill_attention@window", "max_abs_err": err, "ms": ms,
+        "kernel": key, "max_abs_err": err, "ms": ms,
         "cold_ms": cold, "call_ms": call, "plain_ms": plain_ms,
         "bound_ms": bnd, "bound_by": by, "library_ms": lib,
         "library": "SDPA on the dequantized bf16 K/V, band mask"}
 
 
 def layer_widths(cfg):
-    """(name, K, N) of one layer's seven quantized matmuls, and the untied
-    lm_head's."""
+    """(name, K, N) of one layer's quantized Dense matmuls (seven; the four
+    of attention in an MoE layer, whose experts ``expert_widths`` gives),
+    and the untied lm_head's."""
     d, hd = cfg.d_model, cfg.head_dim
     out = [("wq", d, cfg.n_heads * hd), ("wk", d, cfg.n_kv_heads * hd),
-           ("wv", d, cfg.n_kv_heads * hd), ("wo", cfg.n_heads * hd, d),
-           ("gate", d, cfg.d_ff), ("up", d, cfg.d_ff), ("down", cfg.d_ff, d)]
+           ("wv", d, cfg.n_kv_heads * hd), ("wo", cfg.n_heads * hd, d)]
+    if cfg.ffn != "moe":
+        out += [("gate", d, cfg.d_ff), ("up", d, cfg.d_ff),
+                ("down", cfg.d_ff, d)]
     if not cfg.tie_embeddings:
         out.append(("lm_head", d, cfg.vocab_padded))
     return out
+
+
+def expert_widths(cfg):
+    """(name, K, N, x dtype) of one expert's three products: gate and up
+    read the bf16 dispatch buffer, down the float32 product that the
+    reference quantizes unrounded."""
+    d, f = cfg.d_model, cfg.d_ff
+    return [("gate", d, f, "bfloat16"), ("up", d, f, "bfloat16"),
+            ("down", f, d, "float32")]
 
 
 # B3 at the wider configs: rows checked bit for bit, and the rows timed
 WIDE_QMM_ROWS = (4, 1, 8, 128, B * PROMPT)
 WIDE_QMM_TIMED = (("decode", B), ("prefill", B * PROMPT))
 
+# the mixture-of-experts configs (ROADMAP item 17 step 4), at full width:
+# granite-moe-3b-a800m at full depth; mixtral-8x7b at 8 of its 32 layers
+# (its bf16 weights, 93 GB at full depth, are drawn on the card before
+# the int8 conversion; 8 layers hold ~24 GB of them and ~12 GB of int8)
+MOE_ARCHS = {"granite-moe-3b-a800m": "granite-moe", "mixtral-8x7b": "mixtral"}
+MOE_LAYERS = {"mixtral-8x7b": 8}
+# granite-moe's heads (KV 8, G 3, D 64); mixtral's are granite-8b's
+MOE_HEADS = (8, 3, 64)
+# [mixtral ring]: MIXTRAL_RING_B prompts of MIXTRAL_RING_PROMPT tokens pass
+# the window of 4096 on every layer, in prefill and in every decode step
+MIXTRAL_RING_B, MIXTRAL_RING_PROMPT = 2, 4608
+# the script's time: [granite-moe scheduler] re-serves 2 requests alone
+# (each a new capture of ~4,000-launch programs), and [mixtral cpu check]
+# teacher-forces 4 steps (its CPU twin streams 2.8 GB of int8 experts
+# through float64 products a step)
+MOE_ALONE = 2
+CPU_CHECK_STEPS = {"mixtral-8x7b": 4}
 
-def check_quant_matmul_widths(torch, ops, ref, dev, arch, cfg, sms):
+
+def moe_config(get_config, arch):
+    """The config a [granite-moe] / [mixtral] phase serves: full width, and
+    full depth but where ``MOE_LAYERS`` cuts it."""
+    cfg = get_config(arch)
+    return cfg.replace(n_layers=MOE_LAYERS.get(arch, cfg.n_layers))
+
+
+def expert_rows(cfg):
+    """(phase, M) of one expert's B3 calls on each MoE path: M = groups x
+    capacity (a decode step: B groups of one token, capacity 8; 4 x 512
+    prompts; mixtral's 2 x 4608 ring prompts)."""
+    from repro_torch.models.moe import MoE
+
+    moe = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k, path="m",
+              capacity_factor=cfg.capacity_factor)
+    rows = [("decode", B * moe.capacity(1)),
+            ("prefill", B * moe.capacity(PROMPT))]
+    if cfg.window_all:
+        rows.append(("ring prefill",
+                     MIXTRAL_RING_B * moe.capacity(MIXTRAL_RING_PROMPT)))
+    return rows
+
+
+def check_quant_matmul_experts(torch, ops, ref, dev, arch, cfg):
+    """B3 at an MoE config's expert products, one expert's three calls
+    (the path runs them once per expert, ``n_experts`` x 3 launches a
+    layer and pass) at each row count of ``expert_rows``: bit for bit
+    against the plain version (gate and up on bf16 x, down on float32 x,
+    writing into its slice of the layer's (E, M, N) output as the path
+    does), timed warm and L2-cold beside the plain version, torch._int_mm
+    and the bound.  The reference's expert product is an XLA einsum with no
+    ``pallas_call``; the port runs it through B3.  Returns the JSON
+    entries, one per row."""
+    gen = torch.Generator(device=dev).manual_seed(37)
+    flush = l2_flush(torch, dev)
+    entries = []
+    for phase, m in expert_rows(cfg):
+        tot = dict(ms=0.0, call_ms=0.0, cold_ms=0.0, plain_ms=0.0,
+                   bound_ms=0.0, library_ms=0.0, nbytes=0, ops=0)
+        for name, k, n, xdt in expert_widths(cfg):
+            x = (torch.randn((m, k), generator=gen, device=dev) * 2).to(
+                getattr(torch, xdt))
+            # a quarter of the rows zero, as the dispatch buffer's unfilled
+            # slots read the zero sentinel row
+            x[torch.arange(m, device=dev) % 4 == 3] = 0
+            w_q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                                dtype=torch.int8)
+            w_scale = torch.rand((n,), generator=gen, device=dev) * 1e-3
+            act_scale = (127.0 / (x.float().abs().amax() * 0.8)).reshape(())
+            out = torch.empty((2, m, n), dtype=torch.bfloat16, device=dev)
+            got = ops.quant_matmul(x, w_q, w_scale, act_scale, out=out[1])
+            want = ref.quant_matmul_ref(x, w_q, w_scale, act_scale)
+            torch.cuda.synchronize()
+            if got.data_ptr() != out[1].data_ptr() or not torch.equal(
+                    got, want):
+                diff = (got.float() - want.float()).abs().max().item()
+                raise AssertionError(
+                    f"quant_matmul {arch} expert {name} (M={m}, K={k}, N={n},"
+                    f" x {xdt}) is not bit-exact with its plain version (max "
+                    f"|diff| {diff})")
+            del want
+
+            def call():
+                return ops.quant_matmul(x, w_q, w_scale, act_scale,
+                                        out=out[1])
+
+            ms, call_ms = timed(torch, call)
+            cold = cold_ms(torch, call, flush, "quant_matmul")
+            plain, _ = timed(torch, lambda: ref.quant_matmul_ref(
+                x, w_q, w_scale, act_scale), iters=2, warmup=1)
+            nbytes = m * k * x.element_size() + k * n + 4 * n + 4 + m * n * 2
+            bnd, _ = bound_ms(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
+            x_q = torch.clamp(torch.round(x.float() * act_scale), -127,
+                              127).to(torch.int8)
+            lib, _ = timed(torch, lambda: torch._int_mm(x_q, w_q))
+            print(f"  quant_matmul {arch} expert {phase} {name:4s} M={m:5d} "
+                  f"K={k:5d} N={n:5d} (x {xdt}): {ms * 1e3:8.1f} us, L2-cold "
+                  f"{cold * 1e3:.1f} us (per call {call_ms * 1e3:.1f} us)  "
+                  f"plain {plain * 1e3:9.1f} us  bound {bnd * 1e3:7.2f} us  "
+                  f"_int_mm {lib * 1e3:.1f} us")
+            for key, v in (("ms", ms), ("call_ms", call_ms), ("cold_ms", cold),
+                           ("plain_ms", plain), ("bound_ms", bnd),
+                           ("library_ms", lib), ("nbytes", nbytes),
+                           ("ops", 2 * m * k * n)):
+                tot[key] += v
+        _, by = bound_ms(tot["nbytes"], tot["ops"], INT8_OPS_PER_S)
+        per_layer = 3 * cfg.n_experts
+        print(f"  quant_matmul {arch} experts {phase} M={m}: every width "
+              f"bit-exact; one expert's 3 calls {tot['ms'] * 1e3:.1f} us warm,"
+              f" {tot['cold_ms'] * 1e3:.1f} us L2-cold, bound "
+              f"{tot['bound_ms'] * 1e3:.2f} us ({by}); a layer launches "
+              f"{per_layer} (x {cfg.n_experts} experts)")
+        entries.append({
+            "name": f"quant_matmul[{arch} experts {phase}: one expert's 3 "
+                    f"matmuls, M={m}; {per_layer} launches a layer]",
+            "route": "cuda", "source": "src/repro_torch/csrc/quant_matmul.cu",
+            "replaces": "src/repro/kernels/quant_matmul.py:72",
+            "replaces_note": "the reference's expert product is the XLA "
+                             "einsum of src/repro/core/api.py:402, no "
+                             "pallas_call",
+            "kernel": f"quant_matmul@{arch}", "max_abs_err": 0.0,
+            "ms": tot["ms"], "cold_ms": tot["cold_ms"],
+            "call_ms": tot["call_ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"], "bound_by": by,
+            "library_ms": tot["library_ms"],
+            "library": "torch._int_mm on the quantized rows"})
+    return entries
+
+
+def check_quant_matmul_widths(torch, ops, ref, dev, arch, cfg, sms,
+                              extra_rows=()):
     """B3 at one wider config's (K, N) pairs: bit for bit against its plain
     version at every row count of ``WIDE_QMM_ROWS``, each width's decode
     column tile and cluster printed (``decode_split``); one layer's calls
@@ -1144,7 +1301,8 @@ def check_quant_matmul_widths(torch, ops, ref, dev, arch, cfg, sms):
               f"{bn}, cluster of {c} blocks, {-(-n // bn) * c} blocks")
     entries = []
     timed_rows = dict(WIDE_QMM_TIMED)
-    for m in WIDE_QMM_ROWS:
+    n_calls = sum(name != "lm_head" for name, _, _ in widths)
+    for m in WIDE_QMM_ROWS + tuple(extra_rows):
         phase = {v: k for k, v in timed_rows.items()}.get(m)
         tot = dict(ms=0.0, call_ms=0.0, cold_ms=0.0, plain_ms=0.0,
                    bound_ms=0.0, library_ms=0.0, nbytes=0, ops=0)
@@ -1215,14 +1373,15 @@ def check_quant_matmul_widths(torch, ops, ref, dev, arch, cfg, sms):
         if phase is None:
             continue
         _, by = bound_ms(tot["nbytes"], tot["ops"], INT8_OPS_PER_S)
-        print(f"  quant_matmul {arch} {phase} M={m}: one layer's 7 calls "
+        print(f"  quant_matmul {arch} {phase} M={m}: one layer's {n_calls} "
+              f"calls "
               f"{tot['ms'] * 1e3:.1f} us warm"
               + (f", {tot['cold_ms'] * 1e3:.1f} us L2-cold"
                  if m <= DECODE_ROWS else "")
               + f", bound {tot['bound_ms'] * 1e3:.2f} us")
         entries.append({
-            "name": f"quant_matmul[{arch} {phase}: one layer's 7 matmuls, "
-                    f"M={m}]",
+            "name": f"quant_matmul[{arch} {phase}: one layer's {n_calls} "
+                    f"matmuls, M={m}]",
             "route": "cuda", "source": "src/repro_torch/csrc/quant_matmul.cu",
             "replaces": "src/repro/kernels/quant_matmul.py:72",
             "kernel": f"quant_matmul@{arch}", "max_abs_err": 0.0,
@@ -1776,14 +1935,16 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
     layer (gemma3-12b's local ones) prefills through B2 with its window
     and decodes in plain attention, as the reference does: B1 runs on the
     global layers only; an untied lm_head is one more quant_matmul a
-    token.  ``prompts`` may have other rows and lengths than B x
-    PROMPT."""
+    token; an MoE layer launches quant_matmul 4 times for attention and 3
+    times for each of its experts, a pass.  ``prompts`` may have other
+    rows and lengths than B x PROMPT."""
     warm = engine.generate_batch({"tokens": prompts}, gen=2)   # warm-up
     cfg = engine.cfg
     b, s = prompts.shape
     n_layers = cfg.n_layers
     n_global = sum(cfg.attn_window(i) is None for i in range(n_layers))
-    per_token = 7 * n_layers + (not cfg.tie_embeddings)
+    per_layer = 4 + (3 * cfg.n_experts if cfg.ffn == "moe" else 3)
+    per_token = per_layer * n_layers + (not cfg.tie_embeddings)
     kv8 = engine.policy.kv_int8
     expected = {"quant_matmul":
                     per_token * GEN if engine.mode == "int8" else 0,
@@ -2104,7 +2265,9 @@ def drive_arch_path(torch, ops, A, Engine, build_model, cfg, label, kind,
     print(f"[{label}] {cfg.name} full width: {cfg.n_layers} layers, d "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
           f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
-          f"{'' if cfg.tie_embeddings else ' (untied lm_head)'}, norm "
+          + (f", {cfg.n_experts} experts top-{cfg.top_k} (capacity factor "
+             f"{cfg.capacity_factor})" if cfg.ffn == "moe" else "")
+          + f"{'' if cfg.tie_embeddings else ' (untied lm_head)'}, norm "
           f"{cfg.norm}, mlp {cfg.mlp_activation}, windows "
           f"{sorted({str(cfg.attn_window(i)) for i in range(cfg.n_layers)})}"
           f": weights drawn on the card, calibration and int8 conversion in "
@@ -2154,33 +2317,36 @@ def replay_busy(torch, engine, label, walls):
     walls.setdefault(label, {})["busy"] = tuple(got)
 
 
-def drive_ring_path(torch, ops, A, Engine, engine, label, kind, card, walls):
-    """gemma3-12b with its rings: ``RING_B`` prompts of ``RING_PROMPT``
-    tokens and 32 generated tokens in the engine's default "ring" layout,
-    where each of the 40 local layers holds a ring of ``WINDOW`` slots and
-    the 8 global layers a dense cache: prefill through B2 with the window,
-    ring decode on the local layers, B1 on the global ones, through the
-    captured programs and bit for bit the eager driver; the tokens against
-    the same engine with dense caches, teacher-forced (equal, or within
-    ``LOGIT_ATOL`` of its argmax).  Returns ``drive_main_path``'s launch
-    counts (all, int4, bf16, paged, windowed)."""
+def drive_ring_path(torch, ops, A, Engine, engine, label, kind, card, walls,
+                    b=RING_B, s=RING_PROMPT, window=WINDOW):
+    """A windowed config with its rings: ``b`` prompts of ``s`` tokens and
+    32 generated tokens in the engine's default "ring" layout, where each
+    windowed layer holds a ring of ``window`` slots and each global layer a
+    dense cache (gemma3-12b: 40 rings of 1024 beside 8 dense layers, 2 x
+    2048; mixtral-8x7b: a ring of 4096 on every layer, 2 x 4608, so the
+    window slides during the prefill and every decode step): prefill
+    through B2 with the window, ring decode on the windowed layers, B1 on
+    the global ones, through the captured programs and bit for bit the
+    eager driver; the tokens against the same engine with dense caches,
+    teacher-forced (equal, or within ``LOGIT_ATOL`` of its argmax).
+    Returns ``drive_main_path``'s launch counts (all, int4, bf16, paged,
+    windowed)."""
     cfg = engine.cfg
     rng = np.random.default_rng(7)
-    prompts = rng.integers(0, cfg.vocab, (RING_B, RING_PROMPT),
-                           dtype=np.int32)
-    cache_len = engine._cache_len(RING_PROMPT, GEN)
-    caches = engine.init_cache(RING_B, cache_len)
+    prompts = rng.integers(0, cfg.vocab, (b, s), dtype=np.int32)
+    cache_len = engine._cache_len(s, GEN)
+    caches = engine.init_cache(b, cache_len)
     layouts = [(c["attn"].layout, c["attn"].capacity)
                for c in caches.values()]
     del caches
     n_local = sum(cfg.attn_window(i) is not None
                   for i in range(cfg.n_layers))
     if engine.cache_layout != "ring" or layouts.count(
-            ("ring", WINDOW)) != n_local or layouts.count(
+            ("ring", window)) != n_local or layouts.count(
             ("dense", cache_len)) != cfg.n_layers - n_local:
-        raise AssertionError(f"gemma3-12b's caches at {cache_len}: "
+        raise AssertionError(f"{cfg.name}'s caches at {cache_len}: "
                              f"{sorted(set(layouts))}")
-    print(f"[{label}] caches: {n_local} rings of {WINDOW} slots, "
+    print(f"[{label}] caches: {n_local} rings of {window} slots, "
           f"{cfg.n_layers - n_local} dense of {cache_len} positions")
     torch.cuda.reset_peak_memory_stats()
     res, *counts = drive_main_path(torch, ops, engine, prompts, label, kind,
@@ -2210,14 +2376,57 @@ def drive_ring_path(torch, ops, A, Engine, engine, label, kind, card, walls):
 CPU_WINDOW = 32
 
 
+class RoutingLog:
+    """While active, records every MoE layer's top-k choice
+    (``repro_torch.models.moe.top_k``: the expert ids, and the probability
+    gap between the k-th and the (k+1)-th expert, per token); ``flips``
+    compares the first half of the calls with the second (the same steps
+    on two devices)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.saved, self.calls = moe, moe.top_k, []
+
+        def logged(probs, k):
+            vals, idx = self.saved(probs, k)
+            srt = probs.sort(dim=-1, descending=True).values
+            self.calls.append((idx.sort(-1).values.cpu(),
+                               (srt[..., k - 1] - srt[..., k]).cpu()))
+            return vals, idx
+
+        moe.top_k = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k = self.saved
+
+    def flips(self):
+        """(token choices, those whose expert set differs between the two
+        halves, the largest probability gap at such a choice)."""
+        n = len(self.calls) // 2
+        total, flipped, worst = 0, 0, 0.0
+        for (a, gap), (b, _) in zip(self.calls[:n], self.calls[n:]):
+            diff = (a != b).any(-1)
+            total += diff.numel()
+            flipped += int(diff.sum())
+            if diff.any():
+                worst = max(worst, float(gap[diff].max()))
+        return total, flipped, worst
+
+
 def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
     """A full-width copy of a wider config at cut depth (weights drawn on
     the card): 2 layers, or one local:global period (gemma3-12b: 5 local
     layers, then a global one) with the window cut to ``CPU_WINDOW``, so
     that a 64-token prompt passes it: B2's window mask, the rings and B1 on
-    the global layer all run.  1 prompt, 8 generated tokens (every kernel
+    the global layer all run (mixtral-8x7b, windowed everywhere: 2 layers,
+    both rings).  An MoE copy also counts the tokens that the two devices'
+    routers send to other experts (a near-tie of the router's float32
+    product: ``RoutingLog``).  1 prompt, 8 generated tokens (every kernel
     launched as counted), held against the same engine on the CPU
-    (``cpu_check``, 8 teacher-forced steps; tokens within ``LOGIT_ATOL``,
+    (``cpu_check``, 8 teacher-forced steps, ``CPU_CHECK_STEPS`` where
+    fewer; tokens within ``LOGIT_ATOL``,
     logits within ``WIDE_LOGIT_ATOL``).  An untied readout (stablelm-
     12b) serves the last block's ``wq`` thresholds here: calibration, as
     the reference's, never observes its input and leaves its threshold at
@@ -2227,6 +2436,8 @@ def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
     over = dict(n_layers=2)
     if cfg.local_global_ratio:
         over = dict(n_layers=sum(cfg.local_global_ratio), window=CPU_WINDOW)
+    elif cfg.window_all:
+        over = dict(n_layers=2, window=CPU_WINDOW)
     cut = cfg.replace(**over)
     engine, build_s = wide_engine(torch, Engine, build_model, cut, seed=1)
     if not cut.tie_embeddings:
@@ -2241,6 +2452,7 @@ def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
               f"threshold is {floor:.1e} (the floor); served here with "
               f"the last block's wq thresholds")
     s, gen = 64, 8
+    n_check = CPU_CHECK_STEPS.get(cfg.name, gen)
     prompts = np.random.default_rng(11).integers(0, cfg.vocab, (1, s),
                                                  dtype=np.int32)
     n_local = sum(cut.attn_window(i) is not None
@@ -2261,8 +2473,22 @@ def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
           f"windowed prefill_attention launches {got} (expected {want})")
     if got != want:
         raise AssertionError(f"launches {got} != {want}")
-    cpu_check(torch, A, engine, prompts, res.tokens.cpu(), LOGIT_ATOL, label,
-              n_check=8, logit_tol=WIDE_LOGIT_ATOL[cfg.name])
+    if cut.ffn != "moe":
+        cpu_check(torch, A, engine, prompts, res.tokens.cpu(), LOGIT_ATOL,
+                  label, n_check=n_check, logit_tol=WIDE_LOGIT_ATOL[cfg.name])
+        return
+    with RoutingLog() as log:
+        try:
+            cpu_check(torch, A, engine, prompts, res.tokens.cpu(),
+                      LOGIT_ATOL, label, n_check=n_check,
+                      logit_tol=WIDE_LOGIT_ATOL[cfg.name])
+        finally:
+            total, flipped, worst = log.flips()
+            print(f"[{label}] routing, card vs CPU over the {n_check} teacher-"
+                  f"forced steps: {flipped} of {total} token choices (layer x "
+                  f"token) sent to other experts"
+                  + (f", at probability gaps up to {worst:.2e}" if flipped
+                     else ""))
 
 
 class GatherCount:
@@ -2514,6 +2740,31 @@ def check_scheduler(torch, ops, A, ST, Engine, Request, engine, kind, card,
             raise AssertionError(f"request {r}: the scheduler's token {step} "
                                  f"is {gap} below the batch-1 argmax")
     return counts, bf16, done, pg
+
+
+def check_moe_scheduler(torch, ops, A, ST, Engine, Request, build_model,
+                        engine, kind, card, label):
+    """An MoE engine's weights and thresholds through ``check_scheduler``
+    (16 ragged requests, 8 slots of the paged cache, chunks of 128, 4
+    re-served alone), at drop-free capacity: capacity factor n_experts /
+    top_k gives every expert room for every token of a group, so the
+    admission's chunks, the slot batch's one-token groups and batch-1's
+    chunks route each token alike.  With drops the reference's own
+    semantics make each grouping drop other tokens, and equivalence across
+    groupings holds only without them (``tests/test_serving.py``).
+    Returns ``check_scheduler``'s result."""
+    cfg = engine.cfg.replace(
+        capacity_factor=engine.cfg.n_experts / engine.cfg.top_k)
+    print(f"[{label}] drop-free capacity: capacity factor "
+          f"{cfg.capacity_factor} (n_experts / top_k; the engine above "
+          f"serves {engine.cfg.capacity_factor}), so the scheduler's "
+          f"groupings and batch-1's drop no token; same weights and "
+          f"thresholds")
+    sched = Engine(build_model(cfg), cfg, engine.policy, engine.serve_params,
+                   engine.qparams, device=engine.device, cache_layout="paged",
+                   page_size=PAGE, prefill_chunk=CHUNK)
+    return check_scheduler(torch, ops, A, ST, Engine, Request, sched, kind,
+                           card, n_alone=MOE_ALONE, label=label)
 
 
 def check_sp_scheduler(torch, ops, A, ST, Engine, ShardedEngine, Request,
@@ -4024,6 +4275,29 @@ def main() -> int:
     for arch in WIDE_HEADS:
         kernels += check_quant_matmul_widths(torch, ops, ref, dev, arch,
                                              get_config(arch), sms)
+    print("[kernels] the mixture-of-experts configs: B3 at every expert "
+          "product and row count of their paths, at their attention and "
+          "lm_head widths; B1 and B2 at granite-moe's heads (KV, G, D) = "
+          f"{MOE_HEADS} (B1 paged: its scheduler); B2 at mixtral's window of "
+          f"4096 (D 128) over {MIXTRAL_RING_B} x {MIXTRAL_RING_PROMPT}:")
+    for arch in MOE_ARCHS:
+        cfg_m = moe_config(get_config, arch)
+        kernels += check_quant_matmul_experts(torch, ops, ref, dev, arch,
+                                              cfg_m)
+        kernels += check_quant_matmul_widths(
+            torch, ops, ref, dev, arch, cfg_m, sms,
+            extra_rows=(MIXTRAL_RING_B * MIXTRAL_RING_PROMPT,)
+            if cfg_m.window_all else ())
+    kernels += check_attention(torch, ops, ref, dev, 8, *MOE_HEADS)
+    # the scheduler's admissions prefill a dense batch-1 cache: its paged
+    # pool is read by B1 only
+    kernels += [e for e in check_paged_attention(torch, ops, ref, dev, 8,
+                                                 PAGE, *MOE_HEADS)
+                if e["kernel"].startswith("decode_attention")]
+    kernels.append(check_window_prefill(
+        torch, ops, ref, dev, heads=WIDE_HEADS["granite-8b"],
+        b=MIXTRAL_RING_B, s=MIXTRAL_RING_PROMPT, window=4096,
+        key="prefill_attention@window@D128"))
 
     phases = {"build": build_s, "kernels": time.perf_counter() - t_kern}
 
@@ -4260,6 +4534,30 @@ def main() -> int:
             del engine_w, run
         phase(f"{arch} cpu check", check_arch_cpu, torch, ops, A, Engine,
               build_model, get_config(arch), f"{arch} cpu check")
+    # the mixture-of-experts configs (ROADMAP item 17 step 4) at full width:
+    # each main path (every expert product through B3, once per expert),
+    # granite-moe through the scheduler at drop-free capacity, mixtral's
+    # rings, and a full-width copy of depth 2 of each against the CPU
+    moe_runs = {}
+    for arch, short in MOE_ARCHS.items():
+        run = phase(short, drive_arch_path, torch, ops, A, Engine,
+                    build_model, moe_config(get_config, arch), short, kind,
+                    card, walls)
+        if run is not None:
+            engine_m, moe_runs[short] = run
+            if arch == "granite-moe-3b-a800m":
+                moe_runs["granite-moe scheduler"] = phase(
+                    "granite-moe scheduler", check_moe_scheduler, torch, ops,
+                    A, ST, Engine, Request, build_model, engine_m, kind,
+                    card, "granite-moe scheduler")
+            else:
+                moe_runs["mixtral ring"] = phase(
+                    "mixtral ring", drive_ring_path, torch, ops, A, Engine,
+                    engine_m, "mixtral ring", kind, card, walls,
+                    MIXTRAL_RING_B, MIXTRAL_RING_PROMPT, 4096)
+            del engine_m, run
+        phase(f"{short} cpu check", check_arch_cpu, torch, ops, A, Engine,
+              build_model, get_config(arch), f"{short} cpu check")
     free_card(torch)
     print_walls(walls, card)
     print("[time] " + "; ".join(f"{k} {v:.1f} s" for k, v in phases.items()))
@@ -4342,6 +4640,28 @@ def main() -> int:
                             f"{k}@paged-int4@D{d}": min(pg[k], int4[k])})
             for kernel, n in got.items():
                 wide_by_path.setdefault(kernel, {})[path] = n
+    # the mixture-of-experts paths: B3 by config (attention, experts and
+    # mixtral's lm_head), B1 / B2 at granite-moe's heads (its scheduler's
+    # admissions are dense B2, its decode paged B1), B2 with mixtral's
+    # window on both of its paths
+    for path, run in moe_runs.items():
+        if path == "granite-moe scheduler":
+            c, _, _, pg = run
+            got = {"quant_matmul@granite-moe-3b-a800m": c["quant_matmul"],
+                   "prefill_attention@D64": c["prefill_attention"]
+                   - pg["prefill_attention"],
+                   "decode_attention@paged@D64": pg["decode_attention"]}
+        elif path == "granite-moe":
+            c = run[0]
+            got = {"quant_matmul@granite-moe-3b-a800m": c["quant_matmul"],
+                   "prefill_attention@D64": c["prefill_attention"],
+                   "decode_attention@D64": c["decode_attention"]}
+        else:
+            c, win = run[0], run[4]
+            got = {"quant_matmul@mixtral-8x7b": c["quant_matmul"],
+                   "prefill_attention@window@D128": win["prefill_attention"]}
+        for kernel, n in got.items():
+            wide_by_path.setdefault(kernel, {})[path] = n
     for kernel, paths in wide_by_path.items():
         launched[kernel] = sum(paths.values())
     for e in kernels:

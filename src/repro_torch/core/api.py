@@ -133,8 +133,10 @@ class QuantCtx:
 
     def enabled(self, layer) -> bool:
         """Whether ``layer`` runs quantized: any mode but "none", on a
-        layer that the policy does not skip."""
-        return self.mode != "none" and not self.policy.skips(layer.path)
+        layer built with ``quantize`` (every layer but the MoE router) that
+        the policy does not skip."""
+        return (self.mode != "none" and getattr(layer, "quantize", False)
+                and not self.policy.skips(layer.path))
 
 
 def make_ctx(mode: str, policy: QuantPolicy,
@@ -166,18 +168,29 @@ def _modules_with_params(model, params, cls):
 
 
 def _quant_layers_with_params(model, params, policy: QuantPolicy):
-    """(Dense, its params subtree) pairs that the policy does not skip."""
-    from repro_torch.models.module import Dense
+    """(Dense or ExpertDense built with ``quantize``, its params subtree)
+    pairs that the policy does not skip."""
+    from repro_torch.models.module import Dense, ExpertDense
 
-    for layer, lp in _modules_with_params(model, params, Dense):
-        if not policy.skips(layer.path):
+    for layer, lp in _modules_with_params(model, params,
+                                          (Dense, ExpertDense)):
+        if layer.quantize and not policy.skips(layer.path):
             yield layer, lp
+
+
+def _base_ndim(layer) -> int:
+    """The weight's own axes: (in, out) for a Dense, (E, in, out) for an
+    ExpertDense."""
+    from repro_torch.models.module import ExpertDense
+
+    return 3 if isinstance(layer, ExpertDense) else 2
 
 
 def init_qparams(model, params: dict, policy: QuantPolicy) -> dict:
     """Threshold state for every quantizable layer: weight thresholds
-    straight from the weights (T_w = max|W| per output channel, or per
-    tensor in scalar mode, eq. 2) with alpha = 1, unit ``pointwise``
+    straight from the weights (T_w = max|W| per output channel, per
+    (expert, output channel) of an ExpertDense, or per tensor in scalar
+    mode, eq. 2) with alpha = 1, unit ``pointwise``
     scales with ``pointwise_scales``, activation thresholds as empty
     observers for calibration, and (with ``kv_int8``) per-head K/V
     observers for every causal attention."""
@@ -186,7 +199,8 @@ def init_qparams(model, params: dict, policy: QuantPolicy) -> dict:
     qparams: dict = {}
     for layer, lp in _quant_layers_with_params(model, params, policy):
         w = lp["w"]
-        dims = (-2,) if policy.weight_per_channel else (-2, -1)
+        dims = ((-2,) if policy.weight_per_channel
+                else tuple(range(-_base_ndim(layer), 0)))
         t_w = torch.amax(w.float().abs(), dim=dims)
         wstate = {"t_max": t_w, "alpha": torch.ones_like(t_w)}
         if policy.pointwise_scales:
@@ -284,7 +298,7 @@ def unflatten(flat: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Forward (called by Dense)
+# Forward (called by Dense and ExpertDense)
 # ---------------------------------------------------------------------------
 
 
@@ -329,16 +343,17 @@ def _fq_act(x, astate, spec: Q.QuantSpec):
 
 def _fq_weight(w, wstate, spec: Q.QuantSpec):
     """Weight fake-quant of the student, after the §4.2 pointwise scales
-    when qparams hold them: per-output-channel thresholds (in, out) ->
-    (1, out) with STE round and clip, so the threshold scales get their
-    gradient through the autodiff of the scale; or, in scalar mode, one
-    threshold per tensor."""
+    when qparams hold them: per-output-channel thresholds, (in, out) ->
+    (1, out) or, for expert weights, (E, in, out) -> (E, 1, out), with STE
+    round and clip, so the threshold scales get their gradient through the
+    autodiff of the scale; or, in scalar mode, one threshold per
+    tensor."""
     if "pointwise" in wstate:
         w = Q.apply_pointwise_scale(w, wstate["pointwise"].to(w.dtype))
     if not spec.per_channel:
         return Q.fake_quant_symmetric(w.float(), wstate["t_max"],
                                       wstate["alpha"], spec).to(w.dtype)
-    shape = (1, w.shape[-1])
+    shape = (*w.shape[:-2], 1, w.shape[-1])
     t = wstate["t_max"].reshape(shape)
     alpha = wstate["alpha"].reshape(shape)
     t_adj = torch.clamp_min(Q.adjusted_threshold(t, alpha, spec), 1e-8)
@@ -346,6 +361,81 @@ def _fq_weight(w, wstate, spec: Q.QuantSpec):
     wq = Q.clip_grad_passthrough(Q.ste_round(w.float() * s), spec.qmin,
                                  spec.qmax)
     return (wq / s).to(w.dtype)
+
+
+def expert_dense_forward(layer, params: dict, x: torch.Tensor,
+                         ctx: QuantCtx | None):
+    """An ExpertDense, x (E, M, in) @ w (E, in, out) -> (E, M, out), without
+    a context and in each mode.  Full precision, calibrate and fake mode
+    are one batched product (the reference's einsum); calibrate observes
+    the whole dispatch buffer, its zero sentinel rows included.  int8 mode
+    runs the fused kernel once per expert (``_expert_int8``)."""
+    if ctx is None or not ctx.enabled(layer):
+        return torch.bmm(x, params["w"])
+    if ctx.mode == "calibrate":
+        ctx.updates[layer.path] = calib.update_observer(
+            ctx.qparams[layer.path]["act"], x, ctx.policy.act_spec(),
+            kind=ctx.policy.observer, percentile=ctx.policy.percentile)
+        return torch.bmm(x, params["w"])
+    qs = ctx.qparams[layer.path]
+    if ctx.mode == "fake":
+        xq = _fq_act(x, qs["act"], ctx.policy.act_spec()).to(x.dtype)
+        return torch.bmm(xq, _fq_weight(params["w"], qs["w"],
+                                        ctx.policy.weight_spec()))
+    return _expert_int8(x, params["w_q"], params["w_scale"], qs["act"],
+                        ctx.policy.act_spec(), layer.dtype)
+
+
+def _expert_int8(x, w_q, w_scale, astate, aspec: Q.QuantSpec, dtype):
+    """The reference's int8 expert product (an XLA einsum with int32
+    accumulation, not its fused kernel) through the fused kernel, one
+    launch per expert on that expert's contiguous rows, each writing its
+    slice of one (E, M, out) output in ``dtype``, the layer's, as the
+    reference's einsum returns it (x may be the float32 product the
+    reference quantizes unrounded): bf16 on the card; a float32 config's
+    float32 output is the plain version's, on the CPU.
+
+    The reference quantizes ``clip(round(x * s_x), qmin, qmax)`` and casts
+    to int8, saturating at ±127; the kernel rounds ``x * s_x`` and clips to
+    ±127.  The two give the same integers once x is clamped to [qmin / s_x,
+    qmax / s_x] where that range is narrower than the kernel's (the
+    asymmetric scheme's qmin 0, the 4-bit levels): round is monotone, and
+    an end within an ulp of its integer still rounds to it.  Its compiled
+    graph divides ``w_scale / s_x`` as one IEEE division (the Dense path's
+    fused kernel call compiles otherwise, see ``_int8_matmul``), and a
+    scalar-mode ``w_scale`` broadcasts over every (expert, channel)."""
+    from repro_torch.kernels import ops
+
+    t_adj = torch.clamp_min(
+        Q.adjusted_threshold(astate["t_max"], astate["alpha"], aspec), 1e-8)
+    if t_adj.ndim:
+        raise ValueError(
+            f"int8 mode takes one activation threshold per tensor: the "
+            f"per-channel act scale {tuple(t_adj.shape)} does not broadcast "
+            f"against the expert weight scale {tuple(w_scale.shape)} "
+            f"(act_per_channel serves in fake mode only)")
+    s_x = Q.rdiv(aspec.levels, t_adj)
+    lo, hi = max(aspec.qmin, -127.0), min(aspec.qmax, 127.0)
+    if lo == 0.0:
+        x = x.clamp_min(0)
+    elif lo != -127.0:
+        x = torch.maximum(x, Q.rdiv(lo, s_x).to(x.dtype))
+    if hi != 127.0:
+        x = torch.minimum(x, Q.rdiv(hi, s_x).to(x.dtype))
+    n_exp, m, _ = x.shape
+    w_scale = w_scale.float().expand(n_exp, w_q.shape[-1])
+    # a true division by a materialized divisor: PyTorch's CPU kernel
+    # multiplies by the reciprocal of a divisor that broadcasts from one
+    # value
+    scale = w_scale / s_x.float().expand_as(w_scale).contiguous()
+    x = x.contiguous()
+    out = torch.empty((n_exp, m, w_q.shape[-1]), dtype=dtype,
+                      device=x.device)
+    act_scale = s_x.float()
+    for e in range(n_exp):
+        ops.quant_matmul(x[e], w_q[e], scale[e], act_scale, out_dtype=dtype,
+                         out=out[e])
+    return out
 
 
 def _int8_matmul(x, w_q, w_scale, astate, aspec: Q.QuantSpec):
@@ -391,8 +481,9 @@ def _int8_matmul(x, w_q, w_scale, astate, aspec: Q.QuantSpec):
 
 def convert_to_int8(model, params: dict, qparams: dict,
                     policy: QuantPolicy) -> dict:
-    """Replace every quantized Dense 'w' with int8 ``w_q`` and its dequant
-    scale ``w_scale`` (per output channel, or one in scalar mode), after
+    """Replace every quantized Dense and ExpertDense 'w' with int8 ``w_q``
+    and its dequant scale ``w_scale`` (per output channel, (E, out) for
+    expert weights, or one in scalar mode), after
     the pointwise scales when qparams hold them, and a bias ``b`` with
     ``b_q`` int32 at the combined input/weight scale and ``b_scale``
     (eq. 20): the serving parameter tree, weights resident as int8.  The
@@ -406,7 +497,8 @@ def convert_to_int8(model, params: dict, qparams: dict,
             w = Q.apply_pointwise_scale(w, wstate["pointwise"])
         t, alpha = wstate["t_max"], wstate["alpha"]
         if spec.per_channel:
-            t, alpha = t.reshape(1, -1), alpha.reshape(1, -1)
+            shape = (*w.shape[:-2], 1, w.shape[-1])
+            t, alpha = t.reshape(shape), alpha.reshape(shape)
         t_adj = torch.clamp_min(Q.adjusted_threshold(t, alpha, spec), 1e-8)
         s = Q.rdiv(spec.levels, t_adj)
         lp["w_q"] = torch.clamp(torch.round(w * s), spec.qmin,

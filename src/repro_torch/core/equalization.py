@@ -106,10 +106,12 @@ def equalize_model(model, params: dict):
     """Apply the model's declared equalization plan
     (``model.equalization_plan()``: (up path, down path) Dense pairs whose
     in-between op commutes with positive channel scaling), in place.
-    Returns (params, report {up path: EqualizationResult}).  As in the
-    reference, a pair whose keys the param tree does not hold is skipped;
-    on the served configs every pair is (module paths never match param
-    keys), so the walk returns the params unchanged and an empty report."""
+    Expert weights (E, in, out) rescale expert by expert; the report then
+    holds the last expert's result, as the reference's does.  Returns
+    (params, report {up path: EqualizationResult}).  As in the reference,
+    a pair whose keys the param tree does not hold is skipped; on the
+    served configs every pair is (module paths never match param keys), so
+    the walk returns the params unchanged and an empty report."""
     from repro_torch.core.folding import flatten_ref
 
     plan = getattr(model, "equalization_plan", lambda: [])()
@@ -120,7 +122,15 @@ def equalize_model(model, params: dict):
         if uk not in flat or dk not in flat:
             continue
         (up_parent, up_leaf), (dn_parent, dn_leaf) = flat[uk], flat[dk]
-        up_parent[up_leaf], dn_parent[dn_leaf], res = pair_rescale(
-            up_parent[up_leaf], dn_parent[dn_leaf])
+        w_up, w_down = up_parent[up_leaf], dn_parent[dn_leaf]
+        if w_up.ndim == 3:
+            pairs = [pair_rescale(w_up[e], w_down[e])
+                     for e in range(w_up.shape[0])]
+            up_parent[up_leaf] = torch.stack([p[0] for p in pairs])
+            dn_parent[dn_leaf] = torch.stack([p[1] for p in pairs])
+            res = pairs[-1][2]
+        else:
+            up_parent[up_leaf], dn_parent[dn_leaf], res = pair_rescale(
+                w_up, w_down)
         report[up_path] = res
     return params, report

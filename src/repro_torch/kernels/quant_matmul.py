@@ -23,9 +23,11 @@ launches_w4 = 0
 _FN = None
 
 
-def check(x, w_q, w_scale, act_scale, w_bits=8):
+def check(x, w_q, w_scale, act_scale, w_bits=8, out=None,
+          out_dtype=torch.bfloat16):
     """Raise on inputs the kernel (and its plain version) does not take.
-    ``w_bits == 4``: w_q holds (K/2, N) bytes, nibbles packed along K."""
+    ``w_bits == 4``: w_q holds (K/2, N) bytes, nibbles packed along K;
+    ``out``, when given, takes the (M, N) ``out_dtype`` result."""
     if w_bits not in (4, 8):
         raise ValueError(f"w_bits must be 4 or 8, got {w_bits}")
     if x.ndim != 2 or w_q.ndim != 2:
@@ -50,10 +52,20 @@ def check(x, w_q, w_scale, act_scale, w_bits=8):
                          f"{w_scale.dtype} {tuple(w_scale.shape)}")
     if act_scale.dtype != torch.float32 or act_scale.numel() != 1:
         raise ValueError("act_scale must be one float32 value")
-    devs = {t.device for t in (x, w_q, w_scale, act_scale)}
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype must be bfloat16 or float32, got "
+                        f"{out_dtype}")
+    tensors = (("x", x), ("w_q", w_q), ("w_scale", w_scale))
+    if out is not None:
+        if out.dtype != out_dtype or out.shape != (m, w_q.shape[1]):
+            raise ValueError(f"out must be {out_dtype} ({m}, "
+                             f"{w_q.shape[1]}), got {out.dtype} "
+                             f"{tuple(out.shape)}")
+        tensors += (("out", out),)
+    devs = {t.device for _, t in tensors} | {act_scale.device}
     if len(devs) != 1:
         raise ValueError(f"quant_matmul inputs span devices {devs}")
-    for name, t in (("x", x), ("w_q", w_q), ("w_scale", w_scale)):
+    for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 4:
@@ -71,15 +83,24 @@ def _fn():
     return _FN
 
 
-def launch(x, w_q, w_scale, act_scale, w_bits=8):
-    """Run the CUDA kernel; returns (M, N) bfloat16."""
+def launch(x, w_q, w_scale, act_scale, w_bits=8, out=None,
+           out_dtype=torch.bfloat16):
+    """Run the CUDA kernel; returns (M, N) bfloat16 (``out`` when given).
+    The kernel's epilogue emits bf16 only: a float32 ``out_dtype`` (the
+    reference kernel's other output type, which only a float32 config
+    asks for) raises (ROADMAP Queue B)."""
     global launches, launches_w4
-    check(x, w_q, w_scale, act_scale, w_bits)
+    check(x, w_q, w_scale, act_scale, w_bits, out, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise NotImplementedError(
+            "quant_matmul's float32 output is not in the CUDA kernel "
+            "(ROADMAP Queue B); float32 configs serve on the CPU")
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {x.device}")
     m, k = x.shape
     n = w_q.shape[1]
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()(x.data_ptr(), int(x.dtype == torch.bfloat16),

@@ -20,10 +20,12 @@ from repro_torch.core.quant import rdiv
 NEG_INF = -1e30
 
 
-def quant_matmul_ref(x, w_q, w_scale, act_scale, w_bits=8):
+def quant_matmul_ref(x, w_q, w_scale, act_scale, w_bits=8,
+                     out_dtype=torch.bfloat16):
     """y = int8(clip(rint(x * act_scale), ±127)) @ w_q, dequantized by the
-    per-output-channel ``w_scale`` and rounded to bf16.  ``w_bits == 4``:
-    w_q arrives nibble-packed along K ((K/2, N) bytes) and is unpacked
+    per-output-channel ``w_scale`` and rounded to ``out_dtype`` (bf16, or
+    float32 as the reference kernel's ``out_dtype`` allows).  ``w_bits ==
+    4``: w_q arrives nibble-packed along K ((K/2, N) bytes) and is unpacked
     first.
 
     The integer product is a float64 matmul on every device: exact while
@@ -37,7 +39,7 @@ def quant_matmul_ref(x, w_q, w_scale, act_scale, w_bits=8):
         raise ValueError(f"K={k} is too deep for an exact float64 product")
     x_q = torch.clamp(torch.round(x.float() * act_scale), -127, 127)
     acc = x_q.double() @ w_q.double()
-    return (acc.float() * w_scale).to(torch.bfloat16)
+    return (acc.float() * w_scale).to(out_dtype)
 
 
 def _q_fold(q, k_scale, head_axis):

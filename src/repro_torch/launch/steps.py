@@ -33,10 +33,7 @@ class TrainHParams:
     base_lr: float = 1e-3
     anneal_period: int = 100   # cosine restart period (steps)
     weight_decay: float = 0.0
-    # MoE load-balance weight of the pretrain loss: the ported stacks are
-    # dense and have no auxiliary loss, so only this default is accepted
-    # (MoE is ROADMAP item 17)
-    aux_weight: float = 0.01
+    aux_weight: float = 0.01   # MoE load-balance weight (pretrain mode)
 
 
 def make_calibrate_step(model, policy: A.QuantPolicy):
@@ -161,23 +158,19 @@ def finetune_thresholds(model, policy: A.QuantPolicy, params, qparams,
 def make_pretrain_step(model, hp: TrainHParams = TrainHParams()):
     """Plain LM training (the substrate mode): ``(params, opt_state, batch)
     -> (params, opt_state, {"loss", "lr"})``.  Next-token CE through the
-    full-precision readout, the gradient w.r.t. every weight, and Adam with
-    ``hp.weight_decay`` at the cosine-annealed rate; ``opt_state`` is keyed
-    like ``A.flatten(params)``.  The stacks are dense, so a non-default
-    ``hp.aux_weight`` raises rather than weigh a loss that is not there."""
-    if hp.aux_weight != TrainHParams.aux_weight:
-        raise NotImplementedError(
-            "TrainHParams.aux_weight weighs the MoE load-balance loss; MoE "
-            "stacks are not ported (ROADMAP Queue A item 17)")
+    full-precision readout plus ``hp.aux_weight`` times the MoE
+    load-balance loss (zero without MoE layers), the gradient w.r.t. every
+    weight, and Adam with ``hp.weight_decay`` at the cosine-annealed rate;
+    ``opt_state`` is keyed like ``A.flatten(params)``."""
     cfg = model.cfg
 
     def pretrain_step(params, opt_state, batch):
         flat = A.flatten(params)
         leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
         p = A.unflatten(leaves)
-        h = model.hidden(p, batch, None)
+        h, aux = model.hidden(p, batch, None, with_aux=True)
         loss = chunked_ce_loss(h, batch["labels"], model.readout_fn(p),
-                               chunk=cfg.loss_chunk)
+                               chunk=cfg.loss_chunk) + hp.aux_weight * aux
         grads = torch.autograd.grad(loss, list(leaves.values()))
         lr = cosine_restarts(opt_state.step, hp.base_lr, hp.anneal_period)
         new_flat, new_opt = adam_update(dict(zip(leaves, grads)), opt_state,

@@ -1,4 +1,4 @@
-"""CausalLM: tied token embedding -> decoder stack -> tied readout.
+"""CausalLM: token embedding -> decoder stack -> tied or untied readout.
 
 Counterpart of ``repro/models/model.py::CausalLM`` for text models.  The
 VLM / audio frontends and ``EncDecLM`` are ROADMAP Queue A item 17.
@@ -47,10 +47,17 @@ class CausalLM(Module):
 
         return head
 
-    def hidden(self, params, batch, ctx=None):
-        """Backbone only: final hidden states (B, S, d)."""
+    def hidden(self, params, batch, ctx=None, *, with_aux: bool = False):
+        """Backbone only: final hidden states (B, S, d); with ``with_aux``
+        (h, aux), aux the summed MoE load-balance loss (a float32 zero
+        without MoE layers), for the pretrain loss."""
         x = self.embed(params["embed"], batch["tokens"])
-        return self.stack(params["stack"], x, ctx)
+        h, aux = self.stack(params["stack"], x, ctx, with_aux=with_aux)
+        if not with_aux:
+            return h
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return h, aux
 
     def __call__(self, params, batch, ctx=None):
         return self.readout_fn(params, ctx)(self.hidden(params, batch, ctx))
@@ -121,19 +128,21 @@ class CausalLM(Module):
     def fold_plan(self):
         """Pre-norm gammas fold into the projections that consume them
         (paper §3.1.2 analog): (norm path, [projection paths]) per block.
-        Module paths, as the reference's plan names them."""
+        Module paths, as the reference's plan names them.  An MoE block's
+        ffn norm does not fold: the unquantized router reads it too."""
         plan = []
         for blk in self.stack.blocks:
             bp = blk.path
             plan.append((f"{bp}/pre_norm", [f"{bp}/attn/wq", f"{bp}/attn/wk",
                                             f"{bp}/attn/wv"]))
-            plan.append((f"{bp}/ffn_norm", [blk.ffn.gate.path,
-                                            blk.ffn.up.path]))
+            if not blk.moe:
+                plan.append((f"{bp}/ffn_norm", [blk.ffn.gate.path,
+                                                blk.ffn.up.path]))
         return plan
 
     def equalization_plan(self):
         """§3.3 analog pairs: v -> o per attention, up -> down per gated
-        MLP."""
+        MLP and per MoE (its expert weights rescale expert by expert)."""
         plan = []
         for blk in self.stack.blocks:
             plan.append((blk.attn.wv.path, blk.attn.wo.path))

@@ -56,18 +56,21 @@ def fan_in_init(gen, shape, dtype):
 
 class Dense(Module):
     """y = x @ W (+ b), the quantization unit of the paper's scheme: one set
-    of thresholds per Dense, every Dense quantized.  ``bias`` adds a ``b``
-    leaf, int32 in int8 mode (eq. 20).  (Unquantized and unsigned-input
-    layers of the reference come with the architectures that have them,
-    ROADMAP Queue A item 17.)"""
+    of thresholds per Dense.  ``bias`` adds a ``b`` leaf, int32 in int8
+    mode (eq. 20); ``quantize=False`` keeps the layer in full precision in
+    every mode (the MoE router).  (The reference's unsigned-input layers
+    come with the ReLU MLP that has them, ROADMAP Queue A item 17 step
+    8.)"""
 
     def __init__(self, in_dim: int, out_dim: int, *, path: str,
-                 bias: bool = False, dtype=torch.bfloat16):
+                 bias: bool = False, dtype=torch.bfloat16,
+                 quantize: bool = True):
         self.in_dim = in_dim
         self.out_dim = out_dim
         self.path = path
         self.bias = bias
         self.dtype = dtype
+        self.quantize = quantize
 
     def init(self, gen: torch.Generator) -> dict:
         p = {"w": fan_in_init(gen, (self.in_dim, self.out_dim), self.dtype)}
@@ -80,3 +83,34 @@ class Dense(Module):
         from repro_torch.core import api
 
         return api.dense_forward(self, params, x, ctx)
+
+
+class ExpertDense(Module):
+    """Batched expert weights (E, in, out) of an MoE layer, quantized with
+    per-(expert, output channel) thresholds: the paper's per-filter
+    thresholds one level up.  Its input is a dispatch buffer (E, M, in),
+    expert e's rows contiguous."""
+
+    def __init__(self, num_experts: int, in_dim: int, out_dim: int, *,
+                 path: str, dtype=torch.bfloat16, quantize: bool = True):
+        self.num_experts = num_experts
+        self.in_dim = in_dim
+        self.out_dim = out_dim
+        self.path = path
+        self.dtype = dtype
+        self.quantize = quantize
+
+    @property
+    def channels(self) -> int:
+        """The flattened (expert, out) channel count of vector mode."""
+        return self.num_experts * self.out_dim
+
+    def init(self, gen: torch.Generator) -> dict:
+        return {"w": fan_in_init(
+            gen, (self.num_experts, self.in_dim, self.out_dim), self.dtype)}
+
+    def __call__(self, params: dict, x: torch.Tensor, ctx=None):
+        """x: (E, M, in) -> (E, M, out)."""
+        from repro_torch.core import api
+
+        return api.expert_dense_forward(self, params, x, ctx)

@@ -1,9 +1,12 @@
-"""Decoder stack: pre-norm residual Blocks of attention + a gated MLP.
+"""Decoder stack: pre-norm residual Blocks of attention + a gated MLP or a
+mixture of experts.
 
-Counterpart of ``repro/models/transformer.py`` for the unscanned dense
-attention stacks: RMSNorm or LayerNorm (``cfg.norm``), SwiGLU or GeGLU
-(``cfg.mlp_activation``), and per layer a global or a sliding-window
-attention (``cfg.attn_window(i)``: gemma3's 5:1 local:global layers).  The
+Counterpart of ``repro/models/transformer.py`` for the unscanned attention
+stacks: RMSNorm or LayerNorm (``cfg.norm``), SwiGLU or GeGLU
+(``cfg.mlp_activation``) or an MoE (``cfg.ffn == "moe"``, whose
+load-balance loss the training forward returns and serving drops), and per
+layer a global or a sliding-window attention (``cfg.attn_window(i)``:
+gemma3's 5:1 local:global layers, mixtral's window on every layer).  The
 other layer kinds of the reference raise ``NotImplementedError`` naming
 the ROADMAP item that ports them.
 """
@@ -13,6 +16,7 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.layers import ACTIVATIONS, LayerNorm, RMSNorm
 from repro_torch.models.mlp import SwiGLU
 from repro_torch.models.module import Module
+from repro_torch.models.moe import MoE
 
 
 def check_supported(cfg) -> None:
@@ -21,7 +25,8 @@ def check_supported(cfg) -> None:
     kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
     if kinds - {"attn", "attn_local"}:
         unsupported.append(f"layer kinds {sorted(kinds)} (mamba / hybrid)")
-    if cfg.ffn != "swiglu" or cfg.mlp_activation not in ACTIVATIONS:
+    if cfg.ffn not in ("swiglu", "moe") or (
+            cfg.mlp_activation not in ACTIVATIONS):
         unsupported.append(f"ffn {cfg.ffn!r} with {cfg.mlp_activation!r}")
     if cfg.norm not in ("rmsnorm", "layernorm"):
         unsupported.append(f"norm {cfg.norm!r}")
@@ -34,7 +39,7 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: not ported: " + "; ".join(unsupported)
             + ". Other architectures are ROADMAP Queue A item 17 (steps "
-            "4-8: MoE, SSM, hybrid, VLM, enc-dec).")
+            "5-8: SSM, hybrid, VLM, enc-dec).")
 
 
 def norm_class(cfg):
@@ -43,7 +48,8 @@ def norm_class(cfg):
 
 
 class Block(Module):
-    """One pre-norm residual layer: norm -> attn -> (+) -> norm -> ffn -> (+)."""
+    """One pre-norm residual layer: norm -> attn -> (+) -> norm -> ffn -> (+);
+    the ffn a gated MLP at ``path/mlp`` or an MoE at ``path/moe``."""
 
     def __init__(self, cfg, layer_idx: int, *, path: str):
         self.cfg = cfg
@@ -56,8 +62,14 @@ class Block(Module):
                               window=cfg.attn_window(layer_idx),
                               rope_base=cfg.rope_base, dtype=dt)
         self.ffn_norm = norm(d, path=f"{path}/ffn_norm", dtype=dt)
-        self.ffn = SwiGLU(d, cfg.d_ff, path=f"{path}/mlp", dtype=dt,
-                          activation=cfg.mlp_activation)
+        self.moe = cfg.ffn_kind(layer_idx) == "moe"
+        if self.moe:
+            self.ffn = MoE(d, cfg.d_ff, cfg.n_experts, cfg.top_k,
+                           path=f"{path}/moe", dtype=dt,
+                           capacity_factor=cfg.capacity_factor)
+        else:
+            self.ffn = SwiGLU(d, cfg.d_ff, path=f"{path}/mlp", dtype=dt,
+                              activation=cfg.mlp_activation)
 
     def init(self, gen):
         return {"pre_norm": self.pre_norm.init(gen),
@@ -65,11 +77,24 @@ class Block(Module):
                 "ffn_norm": self.ffn_norm.init(gen),
                 "ffn": self.ffn.init(gen)}
 
-    def __call__(self, params, x, ctx=None):
+    def _ffn(self, params, h, ctx):
+        """The ffn's output, an MoE's load-balance loss dropped (the
+        serving paths)."""
+        if self.moe:
+            return self.ffn(params["ffn"], h, ctx, with_aux=False)[0]
+        return self.ffn(params["ffn"], h, ctx)
+
+    def __call__(self, params, x, ctx=None, *, with_aux: bool = False):
+        """Returns (y, aux): aux the MoE load-balance loss with
+        ``with_aux``, else None."""
         h = self.pre_norm(params["pre_norm"], x)
         x = x + self.attn(params["attn"], h, ctx)
         h = self.ffn_norm(params["ffn_norm"], x)
-        return x + self.ffn(params["ffn"], h, ctx)
+        if self.moe:
+            y, aux = self.ffn(params["ffn"], h, ctx, with_aux=with_aux)
+        else:
+            y, aux = self.ffn(params["ffn"], h, ctx), None
+        return x + y, aux
 
     def init_cache(self, batch, max_len, device=None, kv_bits=8, **layout):
         return {"attn": self.attn.init_cache(batch, max_len, device,
@@ -83,7 +108,7 @@ class Block(Module):
                                           ctx, **chunk)
         x = x + a
         h = self.ffn_norm(params["ffn_norm"], x)
-        return x + self.ffn(params["ffn"], h, ctx), {"attn": attn_cache}
+        return x + self._ffn(params, h, ctx), {"attn": attn_cache}
 
     def decode(self, params, x, cache, cur_pos, ctx=None, slot_mask=None):
         h = self.pre_norm(params["pre_norm"], x)
@@ -91,7 +116,7 @@ class Block(Module):
                                          cur_pos, ctx, slot_mask=slot_mask)
         x = x + a
         h = self.ffn_norm(params["ffn_norm"], x)
-        return x + self.ffn(params["ffn"], h, ctx), {"attn": attn_cache}
+        return x + self._ffn(params, h, ctx), {"attn": attn_cache}
 
     def verify(self, params, x, cache, cur_pos, ctx=None, slot_mask=None):
         """The speculative verify window through this layer: ``decode``'s
@@ -101,7 +126,7 @@ class Block(Module):
                                          cur_pos, ctx, slot_mask=slot_mask)
         x = x + a
         h = self.ffn_norm(params["ffn_norm"], x)
-        return x + self.ffn(params["ffn"], h, ctx), {"attn": attn_cache}
+        return x + self._ffn(params, h, ctx), {"attn": attn_cache}
 
 
 class Stack(Module):
@@ -128,10 +153,16 @@ class Stack(Module):
         p["final_norm"] = self.final_norm.init(gen)
         return p
 
-    def __call__(self, params, x, ctx=None):
+    def __call__(self, params, x, ctx=None, *, with_aux: bool = False):
+        """Returns (h, aux): the final-normed hidden states and, with
+        ``with_aux``, the sum of the layers' MoE load-balance losses (None
+        without MoE layers or ``with_aux``)."""
+        aux_total = None
         for i, blk in enumerate(self.blocks):
-            x = blk(params[f"layer{i}"], x, ctx)
-        return self.final_norm(params["final_norm"], x)
+            x, aux = blk(params[f"layer{i}"], x, ctx, with_aux=with_aux)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+        return self.final_norm(params["final_norm"], x), aux_total
 
     def init_cache(self, batch, max_len, device=None, kv_bits=8, **layout):
         return {f"layer{i}": b.init_cache(batch, max_len, device, kv_bits,

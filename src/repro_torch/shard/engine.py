@@ -13,7 +13,8 @@ reference.
 the engine's one device: decode launches the partials kernel once per
 shard and layer and merges the partials exactly.  ``tp`` > 1 (tensor
 parallelism) and shards on several devices are ROADMAP Queue A item 18,
-bf16 weights or a bf16 KV cache under ``sp`` > 1 item 20.  With ``sp == 1``
+as are mixture-of-experts stacks under ``sp`` > 1; bf16 weights or a bf16
+KV cache under ``sp`` > 1 are item 20.  With ``sp == 1``
 this is exactly an Engine.  With ``sp`` > 1, ``generate_batch`` and the
 scheduler run their eager loops (``eager_reason``): the captured programs
 are ROADMAP Queue A item 9d.  Sampling serves through those loops with the
@@ -23,6 +24,7 @@ item 13.
 from __future__ import annotations
 
 from repro_torch.bridge import tree_to
+from repro_torch.configs import get_config
 from repro_torch.launch.engine import Engine, resolve_device
 from repro_torch.shard.model import ShardedModel
 
@@ -37,6 +39,7 @@ class ShardedEngine(Engine):
                        fp=engine_kw.get("mode", "int8") == "none",
                        kv_int8=policy.kv_int8,
                        strategy=engine_kw.get("decode_strategy"))
+        self._validate_model(cfg, sp)
         self.sp = sp
         self.base_model = model
         if sp > 1:
@@ -69,6 +72,15 @@ class ShardedEngine(Engine):
                 "the sequence-parallel speculative verify window is not "
                 "ported (ROADMAP Queue A item 13, speculative decoding)")
 
+    @staticmethod
+    def _validate_model(cfg, sp: int) -> None:
+        """Raise on a stack this engine does not shard."""
+        if sp > 1 and cfg.ffn == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: mixture-of-experts stacks under sequence "
+                "parallelism (sp > 1) are not ported (ROADMAP Queue A item "
+                "18, MoE under ShardedEngine)")
+
     @classmethod
     def from_checkpoint(cls, arch: str = "smollm-135m", *, tp: int = 1,
                         sp: int = 1, **kw) -> "ShardedEngine":
@@ -77,6 +89,8 @@ class ShardedEngine(Engine):
         cls._validate(tp, sp, kw.get("cache_layout", "ring"),
                       fp=kw.get("fp", False), kv_int8=kw.get("kv_int8", True),
                       strategy=kw.get("decode_strategy"))
+        cls._validate_model(kw.get("cfg") or get_config(
+            arch, smoke=kw.get("smoke", True)), sp)
         base = Engine.from_checkpoint(arch, **kw)
         return cls(base.model, base.cfg, base.policy, base.serve_params,
                    base.qparams, device=base.device, sp=sp, **base._init_kw())
