@@ -132,10 +132,10 @@ class QuantCtx:
     updates: dict = dataclasses.field(default_factory=dict)
 
     def enabled(self, layer) -> bool:
-        """Whether ``layer`` runs quantized: any mode but "none", on a
-        layer built with ``quantize`` (every layer but the MoE router) that
-        the policy does not skip."""
-        return (self.mode != "none" and getattr(layer, "quantize", False)
+        """Whether ``layer`` (a Dense or an ExpertDense) runs quantized: any
+        mode but "none", on a layer with ``quantize`` set (every layer but
+        the MoE router) that the policy does not skip."""
+        return (self.mode != "none" and layer.quantize
                 and not self.policy.skips(layer.path))
 
 
@@ -168,7 +168,7 @@ def _modules_with_params(model, params, cls):
 
 
 def _quant_layers_with_params(model, params, policy: QuantPolicy):
-    """(Dense or ExpertDense built with ``quantize``, its params subtree)
+    """(Dense or ExpertDense with ``quantize`` set, its params subtree)
     pairs that the policy does not skip."""
     from repro_torch.models.module import Dense, ExpertDense
 
@@ -392,8 +392,9 @@ def _expert_int8(x, w_q, w_scale, astate, aspec: Q.QuantSpec, dtype):
     launch per expert on that expert's contiguous rows, each writing its
     slice of one (E, M, out) output in ``dtype``, the layer's, as the
     reference's einsum returns it (x may be the float32 product the
-    reference quantizes unrounded): bf16 on the card; a float32 config's
-    float32 output is the plain version's, on the CPU.
+    reference quantizes unrounded).  The kernel emits bf16: a float32
+    config's experts take the plain version with a float32 output, on the
+    CPU only (ROADMAP Queue B).
 
     The reference quantizes ``clip(round(x * s_x), qmin, qmax)`` and casts
     to int8, saturating at ±127; the kernel rounds ``x * s_x`` and clips to
@@ -404,8 +405,12 @@ def _expert_int8(x, w_q, w_scale, astate, aspec: Q.QuantSpec, dtype):
     graph divides ``w_scale / s_x`` as one IEEE division (the Dense path's
     fused kernel call compiles otherwise, see ``_int8_matmul``), and a
     scalar-mode ``w_scale`` broadcasts over every (expert, channel)."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
 
+    if dtype != torch.bfloat16 and x.device.type != "cpu":
+        raise NotImplementedError(
+            f"the fused kernel emits bf16: {dtype} int8 experts serve on "
+            f"the CPU only (ROADMAP Queue B)")
     t_adj = torch.clamp_min(
         Q.adjusted_threshold(astate["t_max"], astate["alpha"], aspec), 1e-8)
     if t_adj.ndim:
@@ -433,8 +438,11 @@ def _expert_int8(x, w_q, w_scale, astate, aspec: Q.QuantSpec, dtype):
                       device=x.device)
     act_scale = s_x.float()
     for e in range(n_exp):
-        ops.quant_matmul(x[e], w_q[e], scale[e], act_scale, out_dtype=dtype,
-                         out=out[e])
+        if dtype == torch.bfloat16:
+            ops.quant_matmul(x[e], w_q[e], scale[e], act_scale, out=out[e])
+        else:
+            out[e] = ref.quant_matmul_ref(x[e], w_q[e], scale[e], act_scale,
+                                          out_dtype=dtype)
     return out
 
 

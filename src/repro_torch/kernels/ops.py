@@ -125,22 +125,19 @@ def _rows(value, b: int, device) -> torch.Tensor:
 
 
 def quant_matmul(x, w_q, w_scale, act_scale, *, w_bits: int = 8,
-                 out_dtype=torch.bfloat16, out=None):
-    """Fused quantize -> int8 matmul -> dequant; (M, N) ``out_dtype``.
+                 out=None):
+    """Fused quantize -> int8 matmul -> dequant; (M, N) bfloat16.
 
     x: (M, K) raw float32/bf16 activations; w_q: (K, N) int8, or at
     ``w_bits=4`` (K/2, N) bytes of int4 nibbles packed along K; w_scale:
     (N,) combined dequant scale (already divided by act_scale); act_scale:
-    one float32, levels / T_adj, applied to x before rounding.
-    ``out_dtype`` bfloat16, or float32 on the CPU only (the kernel emits
-    bf16: ROADMAP Queue B).  ``out``, a contiguous (M, N) ``out_dtype``
-    tensor (one expert's slice of an MoE layer's output), receives the
-    result in place of a new one."""
+    one float32, levels / T_adj, applied to x before rounding.  ``out``, a
+    contiguous (M, N) bfloat16 tensor (one expert's slice of an MoE
+    layer's output), receives the result in place of a new one."""
     if _on_cuda(x):
-        return _qm.launch(x, w_q, w_scale, act_scale, w_bits, out=out,
-                          out_dtype=out_dtype)
-    _qm.check(x, w_q, w_scale, act_scale, w_bits, out, out_dtype)
-    y = ref.quant_matmul_ref(x, w_q, w_scale, act_scale, w_bits, out_dtype)
+        return _qm.launch(x, w_q, w_scale, act_scale, w_bits, out=out)
+    _qm.check(x, w_q, w_scale, act_scale, w_bits, out)
+    y = ref.quant_matmul_ref(x, w_q, w_scale, act_scale, w_bits)
     return y if out is None else out.copy_(y)
 
 

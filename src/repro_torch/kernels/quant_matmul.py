@@ -23,11 +23,10 @@ launches_w4 = 0
 _FN = None
 
 
-def check(x, w_q, w_scale, act_scale, w_bits=8, out=None,
-          out_dtype=torch.bfloat16):
+def check(x, w_q, w_scale, act_scale, w_bits=8, out=None):
     """Raise on inputs the kernel (and its plain version) does not take.
     ``w_bits == 4``: w_q holds (K/2, N) bytes, nibbles packed along K;
-    ``out``, when given, takes the (M, N) ``out_dtype`` result."""
+    ``out``, when given, takes the (M, N) bfloat16 result."""
     if w_bits not in (4, 8):
         raise ValueError(f"w_bits must be 4 or 8, got {w_bits}")
     if x.ndim != 2 or w_q.ndim != 2:
@@ -52,15 +51,11 @@ def check(x, w_q, w_scale, act_scale, w_bits=8, out=None,
                          f"{w_scale.dtype} {tuple(w_scale.shape)}")
     if act_scale.dtype != torch.float32 or act_scale.numel() != 1:
         raise ValueError("act_scale must be one float32 value")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"out_dtype must be bfloat16 or float32, got "
-                        f"{out_dtype}")
     tensors = (("x", x), ("w_q", w_q), ("w_scale", w_scale))
     if out is not None:
-        if out.dtype != out_dtype or out.shape != (m, w_q.shape[1]):
-            raise ValueError(f"out must be {out_dtype} ({m}, "
-                             f"{w_q.shape[1]}), got {out.dtype} "
-                             f"{tuple(out.shape)}")
+        if out.dtype != torch.bfloat16 or out.shape != (m, w_q.shape[1]):
+            raise ValueError(f"out must be bfloat16 ({m}, {w_q.shape[1]}), "
+                             f"got {out.dtype} {tuple(out.shape)}")
         tensors += (("out", out),)
     devs = {t.device for _, t in tensors} | {act_scale.device}
     if len(devs) != 1:
@@ -83,18 +78,10 @@ def _fn():
     return _FN
 
 
-def launch(x, w_q, w_scale, act_scale, w_bits=8, out=None,
-           out_dtype=torch.bfloat16):
-    """Run the CUDA kernel; returns (M, N) bfloat16 (``out`` when given).
-    The kernel's epilogue emits bf16 only: a float32 ``out_dtype`` (the
-    reference kernel's other output type, which only a float32 config
-    asks for) raises (ROADMAP Queue B)."""
+def launch(x, w_q, w_scale, act_scale, w_bits=8, out=None):
+    """Run the CUDA kernel; returns (M, N) bfloat16 (``out`` when given)."""
     global launches, launches_w4
-    check(x, w_q, w_scale, act_scale, w_bits, out, out_dtype)
-    if out_dtype != torch.bfloat16:
-        raise NotImplementedError(
-            "quant_matmul's float32 output is not in the CUDA kernel "
-            "(ROADMAP Queue B); float32 configs serve on the CPU")
+    check(x, w_q, w_scale, act_scale, w_bits, out)
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {x.device}")
     m, k = x.shape

@@ -89,16 +89,18 @@ class ExpertDense(Module):
     """Batched expert weights (E, in, out) of an MoE layer, quantized with
     per-(expert, output channel) thresholds: the paper's per-filter
     thresholds one level up.  Its input is a dispatch buffer (E, M, in),
-    expert e's rows contiguous."""
+    expert e's rows contiguous.  Always quantized (unless the policy skips
+    its path)."""
+
+    quantize = True
 
     def __init__(self, num_experts: int, in_dim: int, out_dim: int, *,
-                 path: str, dtype=torch.bfloat16, quantize: bool = True):
+                 path: str, dtype=torch.bfloat16):
         self.num_experts = num_experts
         self.in_dim = in_dim
         self.out_dim = out_dim
         self.path = path
         self.dtype = dtype
-        self.quantize = quantize
 
     @property
     def channels(self) -> int:

@@ -19,6 +19,7 @@ the host, and no tensor is made from host data.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -43,6 +44,34 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+# the active ``routing_log``'s records, or None
+_routing = None
+
+
+@contextlib.contextmanager
+def routing_log():
+    """While active, every dispatch appends one record: (the device type,
+    its expert choice (G, T, K) with each token's ids ascending, the
+    probability gap between each token's k-th and (k+1)-th expert (G, T);
+    both on the CPU).  How a check counts the tokens that two devices'
+    routers send to other experts.  It reads back to the host: never
+    around a captured step."""
+    global _routing
+    saved, _routing = _routing, []
+    try:
+        yield _routing
+    finally:
+        _routing = saved
+
+
+def _routing_record(probs, top_idx):
+    k = top_idx.shape[-1]
+    srt = probs.sort(dim=-1, descending=True).values
+    gap = (srt[..., k - 1] - srt[..., k] if k < probs.shape[-1]
+           else torch.full_like(srt[..., 0], float("inf")))
+    return probs.device.type, top_idx.sort(-1).values.cpu(), gap.cpu()
+
+
 def _dispatch(x, logits, top_k_: int, capacity: int, num_experts: int):
     """Sort-based dispatch, one independent dispatch per group.
 
@@ -59,6 +88,8 @@ def _dispatch(x, logits, top_k_: int, capacity: int, num_experts: int):
     dev = x.device
     probs = torch.softmax(logits.float(), dim=-1)
     top_vals, top_idx = top_k(probs, k)                       # (G, T, K)
+    if _routing is not None:
+        _routing.append(_routing_record(probs, top_idx))
     top_vals = top_vals / _seq_sum(top_vals)[..., None]
 
     e_flat = top_idx.reshape(g, t * k)

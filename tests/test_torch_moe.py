@@ -67,7 +67,7 @@ from repro_torch import bridge
 from repro_torch.configs import get_config as torch_config
 from repro_torch.core import api as TA
 from repro_torch.core import equalization as TEQ
-from repro_torch.kernels import ops
+from repro_torch.kernels import ref
 from repro_torch.launch import steps as TST
 from repro_torch.launch.engine import Engine
 from repro_torch.launch.scheduler import Request
@@ -213,6 +213,33 @@ def test_top_k_ties_and_capacity_match():
     assert full["mixtral-8x7b"].capacity(4608) == 1440
 
 
+def test_routing_log_records_each_dispatch():
+    """``routing_log`` records every dispatch while it is active: the
+    device, each token's experts in ascending order (the reference's top-k
+    set) and the gap between its k-th and (k+1)-th probabilities; nothing
+    once it has closed."""
+    rng = np.random.default_rng(12)
+    g, t, e, k = 2, 5, 8, 3
+    x = torch.from_numpy(rng.normal(size=(g, t, 4)).astype(np.float32))
+    logits = rng.normal(size=(g, t, e)).astype(np.float32)
+    tl = torch.from_numpy(logits)
+    with TM.routing_log() as log:
+        for _ in range(2):
+            TM._dispatch(x, tl, k, 8, e)
+    TM._dispatch(x, tl, k, 8, e)
+    assert len(log) == 2 and TM._routing is None
+    probs = np.asarray(jax.nn.softmax(jnp.asarray(logits), axis=-1))
+    _, ji = jax.lax.top_k(jnp.asarray(probs), k)
+    srt = -np.sort(-probs, axis=-1)
+    for dev, idx, gap in log:
+        assert dev == "cpu"
+        np.testing.assert_array_equal(idx.numpy(),
+                                      np.sort(np.asarray(ji), -1))
+        np.testing.assert_allclose(gap.numpy(),
+                                   srt[..., k - 1] - srt[..., k],
+                                   rtol=0, atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # the layer
 # ---------------------------------------------------------------------------
@@ -301,17 +328,17 @@ def test_moe_layer_in_every_mode(arch, dtype):
         e, g * c, d).contiguous()
     jctx = JA.make_ctx("int8", jpol, jq)
     calls = []
-    real = ops.quant_matmul
+    real = ref.quant_matmul_ref
 
-    def spy(x, w_q, w_scale, act_scale, **kw):
+    def spy(x, w_q, w_scale, act_scale, *args, **kw):
         calls.append((x.clone(), w_q, act_scale))
-        return real(x, w_q, w_scale, act_scale, **kw)
+        return real(x, w_q, w_scale, act_scale, *args, **kw)
 
-    ops.quant_matmul = spy
+    ref.quant_matmul_ref = spy
     try:
         tg = tm.gate(tsp["gate"], txd, TA.make_ctx("int8", tpol, bq))
     finally:
-        ops.quant_matmul = real
+        ref.quant_matmul_ref = real
     jg = jm.gate(jsp["gate"], jxd, jctx)
     assert tg.dtype == getattr(torch, dtype)
     np.testing.assert_array_equal(_to_ref_layout(tg.float(), g, c),
@@ -390,11 +417,10 @@ def _int8_jit(jm, jpol):
 def test_quant_matmul_float32_output():
     """The reference kernel's ``out_dtype=float32`` (what a float32
     config's expert einsum returns): the plain version against the Pallas
-    kernel in interpret mode, bit for bit; the CUDA wrapper raises on it
-    (its epilogue emits bf16, ROADMAP Queue B), before touching a
-    device."""
+    kernel in interpret mode, bit for bit.  The kernel's epilogue emits
+    bf16 (ROADMAP Queue B), so a float32 expert product off the CPU
+    raises before it reaches a device."""
     from repro.kernels import quant_matmul as jqm
-    from repro_torch.kernels import quant_matmul as tqm
 
     rng = np.random.default_rng(6)
     x = (rng.normal(size=(16, 64)) * 2).astype(np.float32)
@@ -405,11 +431,14 @@ def test_quant_matmul_float32_output():
                             jnp.asarray(w_scale), jnp.asarray(act),
                             out_dtype=jnp.float32, interpret=True)
     args = [torch.from_numpy(a) for a in (x, w_q, w_scale, np.asarray(act))]
-    got = ops.quant_matmul(*args, out_dtype=torch.float32)
+    got = ref.quant_matmul_ref(*args, out_dtype=torch.float32)
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    astate = {"t_max": torch.tensor(1.0), "alpha": torch.tensor(1.0)}
+    x_meta = torch.empty((2, 16, 64), device="meta")
     with pytest.raises(NotImplementedError, match="Queue B"):
-        tqm.launch(*args, out_dtype=torch.float32)
+        TA._expert_int8(x_meta, args[1].expand(2, 64, 32), args[2],
+                        astate, TA.QuantPolicy().act_spec(), torch.float32)
 
 
 def test_scalar_weights_where_the_reference_raises():
