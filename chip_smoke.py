@@ -47,8 +47,11 @@
    decode step, captured by the warm-up call, ``compile_s``); every
    single-engine path also runs the eager ``loop=True`` driver with the
    same launch counts and must give its tokens and prefill logits bit for
-   bit (``compare_programs``).  [graphs profiler] checks that
-   torch.profiler sees a replay's kernels; [graphs paged 16] serves pages
+   bit (``compare_programs``); the bf16 modes (4b), the paged paths,
+   the schedulers, resilience, recovery and sp (7-13) serve
+   ``SMOLLM_LAYERS`` of the 30 layers, for the script's time.  [graphs
+   profiler] checks that torch.profiler sees a replay's kernels; [graphs
+   paged 16] serves pages
    of 16; [graphs cublas probe] holds the bf16 paths' cuBLAS products
    captured against eager; the [graphs] table before [time] gives every
    path's graph and eager walls, ``compile_s`` and device busy;
@@ -143,26 +146,40 @@
    and paged, the same rules as at D 64), B2 at gemma3's window of 1024
    over 2 x 2048 keys and B3 bit for bit at the three configs' widths
    (M = 1, 4, 8, 128, 2048; decode column tiles and clusters printed);
-   [<arch> path] serves each config at full width and depth (weights drawn
-   on the card) through ``drive_main_path`` with a breakdown, peak device
-   memory and the resident int8 weight bytes; [gemma3-12b ring] serves 2
-   x 2048 prompts through its 40 rings of 1024 slots and holds the tokens
-   against dense caches; [<arch> cpu check] holds a full-width copy of
-   depth 2 against the CPU;
+   [<arch> path] serves each config at full width, at the depth of
+   ``PATH_LAYERS`` (10 of 40; gemma3 12 of 48, two local:global periods;
+   weights drawn on the card) through ``drive_main_path`` with a
+   breakdown, peak device memory and the resident int8 weight bytes;
+   [gemma3-12b ring] serves 2 x 2048 prompts through its 10 rings of 1024
+   slots and holds the tokens against dense caches; [<arch> cpu check]
+   holds a full-width copy of depth 2 against the CPU;
 20. the mixture-of-experts decoders: [kernels] holds B3 at every expert
    product of granite-moe-3b-a800m and mixtral-8x7b, one expert's three
    calls at the rows their paths give it (4 groups x capacity 8 at
    decode, 4 x 512 and mixtral's 2 x 4608 prompts), bit for bit and
    timed, B3 at their attention and lm_head widths, B1/B2 at
    granite-moe's heads (KV 8, G 3, D 64; B1 also paged) and B2 at
-   mixtral's window of 4096 (D 128) over 2 x 4608; [granite-moe] serves
-   the config at full width and depth, [mixtral] at full width and 8 of
-   its 32 layers (``MOE_LAYERS``), both through ``drive_main_path`` (every
-   expert product through B3, launched once per expert and counted);
-   [granite-moe scheduler] streams 16 requests through 8 slots at
-   drop-free capacity; [mixtral ring] serves 2 x 4608 prompts through its
-   rings of 4096; [<moe> cpu check] holds a depth-2 copy against the CPU
-   and counts the tokens the two devices route to other experts.
+   mixtral's window of 4096 (D 128) over 2 x 4608; [granite-moe] and
+   [mixtral] serve the configs at full width and 8 of their 32 layers
+   (``PATH_LAYERS``) through ``drive_main_path`` (every expert product
+   through B3, launched once per expert and counted); [granite-moe
+   scheduler] streams 16 requests through 8 slots at drop-free capacity;
+   [mixtral ring] serves 2 x 4608 prompts through its rings of 4096;
+   [<moe> cpu check] holds a depth-2 copy against the CPU and counts the
+   tokens the two devices route to other experts;
+21. the state-space decoders: [kernels] holds B3 bit for bit at every
+   projection width of mamba2-780m and hymba-1.5b (M = 1, 4, 8, 128, 2048;
+   the narrow outputs N = 16, 25, 48, 128 also in ``QMM_EDGES``), B1 and
+   B2 at hymba's heads (KV 5, G 5, D 64) and B2 at its window of 1024 over
+   2 x 2048; [mamba2] serves mamba2-780m at full width and depth (48
+   layers: B3 alone, its B1 / B2 counts printed, both 0), [mamba2 sample]
+   one sampled run of it; [hymba] serves hymba-1.5b at full width and
+   depth (32 layers: B1 on the global layers 0, 15 and 31, B2 on every
+   layer), [hymba ring] 2 x 2048 prompts through the rings of 1024 of a
+   copy of its first 8 layers (``HYMBA_RING_LAYERS``: 7 rings) against
+   dense caches; [<ssm> cpu check] holds a depth-2 copy against
+   the CPU (hymba's keeps a global layer 0 and a windowed layer 1, window
+   32).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -252,10 +269,14 @@ LOGIT_ATOL_INT4 = 0.5
 # orders); mixtral 0.0000 (its int8 readout sums exactly in int32, so
 # equal inputs give equal logits).  Their limit, 0.0625, is 8x granite-
 # moe's reading and two bf16 steps of mixtral's largest logit (4.125),
-# well below the median |logit| that ``cpu_check`` prints beside it.
+# well below the median |logit| that ``cpu_check`` prints beside it.  The
+# state-space copies read 0.0156 each (mamba2, hymba: largest |logit|
+# 4.031 / 4.062, median 0.527 / 0.539; their SSD's float32 einsums sum in
+# other orders on the two devices): the same limit, 4x their reading.
 WIDE_LOGIT_ATOL = {"granite-8b": LOGIT_ATOL, "stablelm-12b": 0.5,
                    "gemma3-12b": 0.5, "granite-moe-3b-a800m": 0.0625,
-                   "mixtral-8x7b": 0.0625}
+                   "mixtral-8x7b": 0.0625, "mamba2-780m": 0.0625,
+                   "hymba-1.5b": 0.0625}
 # GPU vs CPU for the engine's first fine-tune step (bfloat16), same inputs:
 # the loss's relative error, and the relative L2 error of all alpha (or all
 # KV log2_t) gradients together.  Both devices round differently, and at
@@ -553,7 +574,15 @@ QMM_EDGES = ([(m, 576, 192, wb, "ties") for m in (9, 15, 16, 17, 37, 129)
              + [(37, k, n, wb, "ties") for k, n in ((576, 200), (100, 36))
                 for wb in (8, 4)]
              + [(37, 33, 17, 8, "ties"), (37, 34, 17, 4, "ties")]
-             + [(64, 1536, 576, wb, "sat") for wb in (8, 4)])
+             + [(64, 1536, 576, wb, "sat") for wb in (8, 4)]
+             # the SSM projections' narrow outputs: hymba's dt_proj (N 25,
+             # odd: every odd bf16 output row starts 2 bytes off a 4-byte
+             # boundary) and b_proj / c_proj (N 16), mamba2's dt_proj (N 48)
+             # and b_proj / c_proj (N 128), at the rows of their paths
+             + [(m, k, n, 8, "ties") for m in (1, 4, 8, 128, 2048)
+                for k, n in ((1600, 25), (1600, 16), (1536, 48),
+                             (1536, 128))]
+             + [(m, 1600, 25, 4, "ties") for m in (4, 128)])
 # the decode kernel's edge cases (M <= 8, K and N multiples of 4): ragged
 # row counts at smollm-135m's widths and at K, N that end a cluster slice,
 # a column tile or a 16-byte piece early, and one all-+-127 case
@@ -877,9 +906,12 @@ def check_decode_edges(torch, ops, ref, dev, bits, gen):
 def head_variant(kvh, g, d):
     """The JSON key suffix and name tag of an attention geometry other than
     smollm-135m's (KV 3, G 3, D 64): the wider heads of granite-8b (D 128,
-    G 4), stablelm-12b (D 160, G 4) and gemma3-12b (D 256, G 2)."""
+    G 4), stablelm-12b (D 160, G 4) and gemma3-12b (D 256, G 2), granite-
+    moe's (D 64, G 3), and hymba-1.5b's (KV 5, G 5, D 64: "@hymba")."""
     if (kvh, g, d) == (3, 3, 64):
         return "", ""
+    if (kvh, g, d) == HYMBA_HEADS:
+        return "@hymba", f", KV={kvh} G={g} D={d}"
     return f"@D{d}", f", KV={kvh} G={g} D={d}"
 
 
@@ -1134,13 +1166,23 @@ def check_window_prefill(torch, ops, ref, dev, heads=WIDE_HEADS["gemma3-12b"],
 
 
 def layer_widths(cfg):
-    """(name, K, N) of one layer's quantized Dense matmuls (seven; the four
-    of attention in an MoE layer, whose experts ``expert_widths`` gives),
-    and the untied lm_head's."""
+    """(name, K, N) of one layer's quantized Dense matmuls (seven in an
+    attention layer; the four of attention in an MoE layer, whose experts
+    ``expert_widths`` gives; a Mamba2 mixer's six, hymba's beside its
+    attention and MLP), and the untied lm_head's."""
     d, hd = cfg.d_model, cfg.head_dim
-    out = [("wq", d, cfg.n_heads * hd), ("wk", d, cfg.n_kv_heads * hd),
-           ("wv", d, cfg.n_kv_heads * hd), ("wo", cfg.n_heads * hd, d)]
-    if cfg.ffn != "moe":
+    out = []
+    if cfg.kind != "mamba":
+        out += [("wq", d, cfg.n_heads * hd), ("wk", d, cfg.n_kv_heads * hd),
+                ("wv", d, cfg.n_kv_heads * hd), ("wo", cfg.n_heads * hd, d)]
+    if cfg.kind in ("mamba", "hybrid"):
+        di = cfg.ssm_expand * d
+        heads = cfg.ssm_heads or di // cfg.ssm_head_dim
+        gn = cfg.ssm_groups * cfg.ssm_state
+        out += [("z_proj", d, di), ("x_proj", d, di), ("b_proj", d, gn),
+                ("c_proj", d, gn), ("dt_proj", d, heads),
+                ("out_proj", di, d)]
+    if cfg.ffn not in ("moe", "none"):
         out += [("gate", d, cfg.d_ff), ("up", d, cfg.d_ff),
                 ("down", cfg.d_ff, d)]
     if not cfg.tie_embeddings:
@@ -1166,25 +1208,63 @@ WIDE_QMM_TIMED = (("decode", B), ("prefill", B * PROMPT))
 # (its bf16 weights, 93 GB at full depth, are drawn on the card before
 # the int8 conversion; 8 layers hold ~24 GB of them and ~12 GB of int8)
 MOE_ARCHS = {"granite-moe-3b-a800m": "granite-moe", "mixtral-8x7b": "mixtral"}
-MOE_LAYERS = {"mixtral-8x7b": 8}
 # granite-moe's heads (KV 8, G 3, D 64); mixtral's are granite-8b's
 MOE_HEADS = (8, 3, 64)
 # [mixtral ring]: MIXTRAL_RING_B prompts of MIXTRAL_RING_PROMPT tokens pass
 # the window of 4096 on every layer, in prefill and in every decode step
 MIXTRAL_RING_B, MIXTRAL_RING_PROMPT = 2, 4608
-# the script's time: [granite-moe scheduler] re-serves 2 requests alone
-# (each a new capture of ~4,000-launch programs), and [mixtral cpu check]
-# teacher-forces 4 steps (its CPU twin streams 2.8 GB of int8 experts
-# through float64 products a step)
+# the script's time.  With the state-space phases it ran 1105.0 and
+# 1253.4 s of its 1200 on an H100 at 700 W (two runs; the machines'
+# speeds differ by 10-40%), so the earlier paths serve cut depths, full
+# width: the wider configs' paths and rings ``PATH_LAYERS`` (mixtral-
+# 8x7b's 93 GB of bf16 weights at full depth do not fit the card either;
+# ROADMAP 17b), the
+# smollm-135m engines of the bf16 modes, the paged paths, the schedulers,
+# resilience and recovery, and sp ``SMOLLM_LAYERS`` of 30 (the int8 main
+# path, its strategies, int4, training and the variants keep all 30),
+# [granite-moe scheduler] MOE_SCHEDULER_LAYERS of its 8, [hymba ring]
+# HYMBA_RING_LAYERS of 32 (layer 0 global, the rest rings); the [<arch>
+# cpu check]s teacher-force ``CPU_CHECK_STEPS`` steps (mixtral's CPU twin
+# streams 2.8 GB of int8 experts through float64 products a step; the
+# dense copies' readouts of 49-262 k entries took 14.5-34.6 s for 8)
+PATH_LAYERS = {"granite-8b": 10, "stablelm-12b": 10, "gemma3-12b": 12,
+               "granite-moe-3b-a800m": 8, "mixtral-8x7b": 8}
+SMOLLM_LAYERS = 10
+MOE_SCHEDULER_LAYERS = 8
+HYMBA_RING_LAYERS = 8
 MOE_ALONE = 2
-CPU_CHECK_STEPS = {"mixtral-8x7b": 4}
+CPU_CHECK_STEPS = {"mixtral-8x7b": 2, "granite-8b": 4, "stablelm-12b": 4,
+                   "gemma3-12b": 4}
 
 
-def moe_config(get_config, arch):
-    """The config a [granite-moe] / [mixtral] phase serves: full width, and
-    full depth but where ``MOE_LAYERS`` cuts it."""
+# the state-space configs (ROADMAP item 17 steps 5-6), at full width and
+# depth: mamba2-780m (48 Mamba2 layers, no attention) and hymba-1.5b (32
+# layers of attention and Mamba2 heads side by side; window 1024 on all but
+# layers 0, 15 and 31); [hymba ring] serves RING_B x RING_PROMPT prompts,
+# which pass the window
+SSM_ARCHS = {"mamba2-780m": "mamba2", "hymba-1.5b": "hymba"}
+HYMBA_HEADS = (5, 5, 64)
+
+
+def path_config(get_config, arch):
+    """The config a wider config's [<arch> path] (and its ring) serves: full
+    width, and full depth but where ``PATH_LAYERS`` cuts it."""
     cfg = get_config(arch)
-    return cfg.replace(n_layers=MOE_LAYERS.get(arch, cfg.n_layers))
+    return cfg.replace(n_layers=PATH_LAYERS.get(arch, cfg.n_layers))
+
+
+def cut_engine(Engine, build_model, engine, n_layers, **over):
+    """The engine's first ``n_layers`` layers (their weights and
+    thresholds, the final norm and the readout), with ``over`` replacing
+    config fields; the same device, mode and cache layout."""
+    cfg = engine.cfg.replace(n_layers=n_layers, **over)
+    stack = engine.serve_params["stack"]
+    params = {**engine.serve_params, "stack": {
+        **{f"layer{i}": stack[f"layer{i}"] for i in range(n_layers)},
+        "final_norm": stack["final_norm"]}}
+    return Engine(build_model(cfg), cfg, engine.policy, params,
+                  engine.qparams, device=engine.device, mode=engine.mode,
+                  cache_layout=engine.cache_layout)
 
 
 def expert_rows(cfg):
@@ -1343,14 +1423,19 @@ def check_quant_matmul_widths(torch, ops, ref, dev, arch, cfg, sms,
                               127).to(torch.int8)
             if m <= 16:
                 x_q = torch.cat([x_q, x_q.new_zeros((32 - m, k))])
-            lib, _ = timed(torch, lambda: torch._int_mm(x_q, w_q))
+            # torch._int_mm takes N a multiple of 8 only (hymba's dt_proj
+            # has 25 columns): zero columns pad the yardstick's weights
+            w_lib = (w_q if n % 8 == 0 else torch.cat(
+                [w_q, w_q.new_zeros((k, -n % 8))], dim=1))
+            lib, _ = timed(torch, lambda: torch._int_mm(x_q, w_lib))
             print(f"  quant_matmul {arch} {phase} {name:7s} M={m:5d} K={k:5d} "
                   f"N={n:6d}: {ms * 1e3:8.1f} us"
                   + (f", L2-cold {cold * 1e3:.1f} us" if cold is not None
                      else "")
                   + f"  plain {plain * 1e3:9.1f} us  bound {bnd * 1e3:7.2f} us"
                   f"  _int_mm {lib * 1e3:.1f} us"
-                  + (" (M padded to 32)" if m <= 16 else ""))
+                  + (" (M padded to 32)" if m <= 16 else "")
+                  + (f" (N padded to {n + -n % 8})" if n % 8 else ""))
             if name == "lm_head":
                 entries.append({
                     "name": f"quant_matmul[{arch} lm_head, M={m}, K={k}, "
@@ -1395,7 +1480,9 @@ def check_quant_matmul_widths(torch, ops, ref, dev, arch, cfg, sms,
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": by, "library_ms": tot["library_ms"],
             "library": "torch._int_mm" + (
-                f" on x zero-padded from M={m} to M=32" if m <= 16 else ""),
+                f" on x zero-padded from M={m} to M=32" if m <= 16 else "")
+                + (", weights of N not a multiple of 8 zero-padded" if any(
+                    n % 8 for _, _, n in widths) else ""),
             **({"cold_ms": tot["cold_ms"]} if m <= DECODE_ROWS else {})})
     return entries
 
@@ -1920,6 +2007,20 @@ def program_busy(torch, prog, n=3):
     return us / n / 1e3 if us > 0 and seen == launched else None
 
 
+def path_layers(cfg):
+    """(attention layers, global attention layers, quant_matmul launches a
+    token) of a config's serving path: an attention layer runs 4 and its
+    ffn 3 (3 a expert with MoE, none in mamba2), a Mamba2 mixer 6, an
+    untied lm_head 1."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    attn = [i for i, k in enumerate(kinds) if k != "mamba"]
+    ffn = {"moe": 3 * cfg.n_experts, "none": 0}.get(cfg.ffn, 3)
+    per_token = sum(4 * (k != "mamba") + 6 * (k in ("mamba", "hybrid"))
+                    + ffn for k in kinds) + (not cfg.tie_embeddings)
+    return (len(attn), sum(cfg.attn_window(i) is None for i in attn),
+            per_token)
+
+
 def drive_main_path(torch, ops, engine, prompts, label, kind, card,
                     sp=1, walls=None, A=None):
     """Warm up, zero the launch counts, serve 4 x 512 prompts for 32 tokens
@@ -1942,15 +2043,13 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
     and decodes in plain attention, as the reference does: B1 runs on the
     global layers only; an untied lm_head is one more quant_matmul a
     token; an MoE layer launches quant_matmul 4 times for attention and 3
-    times for each of its experts, a pass.  ``prompts`` may have other
-    rows and lengths than B x PROMPT."""
+    times for each of its experts, a pass; a Mamba2 mixer 6 times, and
+    attention kernels only where a layer has attention (``path_layers``).
+    ``prompts`` may have other rows and lengths than B x PROMPT."""
     warm = engine.generate_batch({"tokens": prompts}, gen=2)   # warm-up
     cfg = engine.cfg
     b, s = prompts.shape
-    n_layers = cfg.n_layers
-    n_global = sum(cfg.attn_window(i) is None for i in range(n_layers))
-    per_layer = 4 + (3 * cfg.n_experts if cfg.ffn == "moe" else 3)
-    per_token = per_layer * n_layers + (not cfg.tie_embeddings)
+    n_layers, n_global, per_token = path_layers(cfg)
     kv8 = engine.policy.kv_int8
     expected = {"quant_matmul":
                     per_token * GEN if engine.mode == "int8" else 0,
@@ -2260,11 +2359,12 @@ def free_card(torch):
 
 def drive_arch_path(torch, ops, A, Engine, build_model, cfg, label, kind,
                     card, walls):
-    """One wider dense config at full width and depth through the int8 main
-    path: its engine (weights drawn on the card), then ``drive_main_path``
-    on 4 x 512 prompts for 32 tokens (graphs == eager bit for bit, every
-    kernel of the path launched as counted) and ``replay_busy``; prints
-    the build time, the resident int8 weight bytes and the peak device
+    """One wider config at full width (``cfg``'s depth) through the int8
+    main path: its engine (weights drawn on the card), then
+    ``drive_main_path`` on 4 x 512 prompts for 32 tokens (graphs == eager
+    bit for bit, every kernel of the path launched as counted) and
+    ``replay_busy``; prints the build time, the resident int8 weight bytes
+    and the peak device
     memory.  Returns (engine, ``drive_main_path``'s launch counts: all,
     int4, bf16, paged, windowed)."""
     free_card(torch)
@@ -2276,6 +2376,10 @@ def drive_arch_path(torch, ops, A, Engine, build_model, cfg, label, kind,
           f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
           + (f", {cfg.n_experts} experts top-{cfg.top_k} (capacity factor "
              f"{cfg.capacity_factor})" if cfg.ffn == "moe" else "")
+          + (f", kind {cfg.kind}: Mamba2 d_inner "
+             f"{cfg.ssm_expand * cfg.d_model}, state {cfg.ssm_state}, head "
+             f"dim {cfg.ssm_head_dim}, chunk {cfg.ssm_chunk}"
+             if cfg.kind in ("mamba", "hybrid") else "")
           + f"{'' if cfg.tie_embeddings else ' (untied lm_head)'}, norm "
           f"{cfg.norm}, mlp {cfg.mlp_activation}, windows "
           f"{sorted({str(cfg.attn_window(i)) for i in range(cfg.n_layers)})}"
@@ -2434,6 +2538,8 @@ def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
         over = dict(n_layers=sum(cfg.local_global_ratio), window=CPU_WINDOW)
     elif cfg.window_all:
         over = dict(n_layers=2, window=CPU_WINDOW)
+    elif cfg.kind == "hybrid":
+        over = dict(n_layers=2, window=CPU_WINDOW, global_attn_layers=(0,))
     cut = cfg.replace(**over)
     engine, build_s = wide_engine(torch, Engine, build_model, cut, seed=1)
     if not cut.tie_embeddings:
@@ -2451,10 +2557,10 @@ def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
     n_check = CPU_CHECK_STEPS.get(cfg.name, gen)
     prompts = np.random.default_rng(11).integers(0, cfg.vocab, (1, s),
                                                  dtype=np.int32)
-    n_local = sum(cut.attn_window(i) is not None
-                  for i in range(cut.n_layers))
+    n_attn, n_global, _ = path_layers(cut)
+    n_local = n_attn - n_global
     layouts = [c["attn"].layout for c in engine.init_cache(
-        1, engine._cache_len(s, gen)).values()]
+        1, engine._cache_len(s, gen)).values() if "attn" in c]
     if layouts.count("ring") != n_local:
         raise AssertionError(f"{n_local} windowed layers, caches {layouts}")
     engine.generate_batch({"tokens": prompts}, gen=gen)   # captures
@@ -2462,7 +2568,7 @@ def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
     res = engine.generate_batch({"tokens": prompts}, gen=gen)
     got = (ops.launch_counts()["decode_attention"],
            ops.window_launch_counts()["prefill_attention"])
-    want = ((cut.n_layers - n_local) * (gen - 1), n_local)
+    want = (n_global * (gen - 1), n_local)
     print(f"[{label}] {cfg.name} at full width, {over} (built in "
           f"{build_s:.1f} s): 1 x {s} prompt, {gen} tokens "
           f"{res.tokens.tolist()}; caches {layouts}; decode_attention and "
@@ -2743,25 +2849,26 @@ def check_scheduler(torch, ops, A, ST, Engine, Request, engine, kind, card,
 
 def check_moe_scheduler(torch, ops, A, ST, Engine, Request, build_model,
                         engine, kind, card, label):
-    """An MoE engine's weights and thresholds through ``check_scheduler``
-    (16 ragged requests, 8 slots of the paged cache, chunks of 128, 4
-    re-served alone), at drop-free capacity: capacity factor n_experts /
-    top_k gives every expert room for every token of a group, so the
-    admission's chunks, the slot batch's one-token groups and batch-1's
-    chunks route each token alike.  With drops the reference's own
-    semantics make each grouping drop other tokens, and equivalence across
-    groupings holds only without them (``tests/test_serving.py``).
+    """An MoE engine's weights and thresholds, its first
+    ``MOE_SCHEDULER_LAYERS`` layers, through ``check_scheduler`` (16
+    ragged requests, 8 slots of the paged cache, chunks of 128,
+    ``MOE_ALONE`` re-served alone), at drop-free capacity: capacity
+    factor n_experts / top_k gives every expert room for every token of a
+    group, so the admission's chunks, the slot batch's one-token groups
+    and batch-1's chunks route each token alike.  With drops the
+    reference's own semantics make each grouping drop other tokens, and
+    equivalence across groupings holds only without them
+    (``tests/test_serving.py``).
     Returns ``check_scheduler``'s result."""
-    cfg = engine.cfg.replace(
-        capacity_factor=engine.cfg.n_experts / engine.cfg.top_k)
+    n = MOE_SCHEDULER_LAYERS
+    cut = cut_engine(Engine, build_model, engine, n,
+                     capacity_factor=engine.cfg.n_experts / engine.cfg.top_k)
     print(f"[{label}] drop-free capacity: capacity factor "
-          f"{cfg.capacity_factor} (n_experts / top_k; the engine above "
+          f"{cut.cfg.capacity_factor} (n_experts / top_k; the engine above "
           f"serves {engine.cfg.capacity_factor}), so the scheduler's "
-          f"groupings and batch-1's drop no token; same weights and "
-          f"thresholds")
-    sched = Engine(build_model(cfg), cfg, engine.policy, engine.serve_params,
-                   engine.qparams, device=engine.device, cache_layout="paged",
-                   page_size=PAGE, prefill_chunk=CHUNK)
+          f"groupings and batch-1's drop no token; the same weights and "
+          f"thresholds, its first {n} of {engine.cfg.n_layers} layers")
+    sched = layout_twin(Engine, cut, "paged")
     return check_scheduler(torch, ops, A, ST, Engine, Request, sched, kind,
                            card, n_alone=MOE_ALONE, label=label)
 
@@ -3620,18 +3727,18 @@ def sample_cpu_check(torch, A, SG, prng, engine, prompts, toks, label):
 
 
 def drive_sample_path(torch, ops, A, SG, prng, Engine, engine, prompts, kind,
-                      card, walls):
+                      card, walls, label="sample path", cpu=True):
     """[sample path]: the int8 main path sampled at ``SAMPLING`` (the
     reference's key schedule on the card): ``drive_main_path``'s launch
     counts and graphs == eager ``loop=True`` bit for bit, then the same
-    seed again gives the same tokens, another seed other tokens, and the
-    GPU tokens pass the teacher-forced CPU check with the same keys.
-    Returns (result, launch counts)."""
+    seed again gives the same tokens, another seed other tokens, and (with
+    ``cpu``) the GPU tokens pass the teacher-forced CPU check with the same
+    keys.  Returns (result, launch counts)."""
     eng = Engine(engine.model, engine.cfg, engine.policy,
                  engine.serve_params, engine.qparams, device=engine.device,
                  mode=engine.mode, **SAMPLING)
     res, counts, *_ = drive_main_path(torch, ops, eng, prompts,
-                                      "sample path", kind, card,
+                                      label, kind, card,
                                       walls=walls, A=A)
     again = eng.generate_batch({"tokens": prompts}, gen=GEN)
     other = Engine(engine.model, engine.cfg, engine.policy,
@@ -3640,7 +3747,7 @@ def drive_sample_path(torch, ops, A, SG, prng, Engine, engine, prompts, kind,
                                         + 1}).generate_batch(
         {"tokens": prompts}, gen=GEN)
     n_same = int((other.tokens == res.tokens).sum())
-    print(f"[sample path] {SAMPLING}: the same seed again gives the same "
+    print(f"[{label}] {SAMPLING}: the same seed again gives the same "
           f"{GEN} tokens: {torch.equal(again.tokens, res.tokens)}; seed "
           f"{SAMPLING['seed'] + 1} agrees on {n_same}/{res.tokens.numel()} "
           f"tokens; decode {res.decode_s / (GEN - 1) * 1e3:.3f} ms per "
@@ -3649,8 +3756,9 @@ def drive_sample_path(torch, ops, A, SG, prng, Engine, engine, prompts, kind,
         raise AssertionError("the same seed gave other tokens")
     if n_same == res.tokens.numel():
         raise AssertionError("another seed gave the same tokens")
-    sample_cpu_check(torch, A, SG, prng, eng, prompts, res.tokens,
-                     "sample cpu check")
+    if cpu:
+        sample_cpu_check(torch, A, SG, prng, eng, prompts, res.tokens,
+                         "sample cpu check")
     return res, counts
 
 
@@ -4280,7 +4388,7 @@ def main() -> int:
           f"{MOE_HEADS} (B1 paged: its scheduler); B2 at mixtral's window of "
           f"4096 (D 128) over {MIXTRAL_RING_B} x {MIXTRAL_RING_PROMPT}:")
     for arch in MOE_ARCHS:
-        cfg_m = moe_config(get_config, arch)
+        cfg_m = path_config(get_config, arch)
         kernels += check_quant_matmul_experts(torch, ops, ref, dev, arch,
                                               cfg_m)
         kernels += check_quant_matmul_widths(
@@ -4297,6 +4405,18 @@ def main() -> int:
         torch, ops, ref, dev, heads=WIDE_HEADS["granite-8b"],
         b=MIXTRAL_RING_B, s=MIXTRAL_RING_PROMPT, window=4096,
         key="prefill_attention@window@D128"))
+    print("[kernels] the state-space configs: B3 at every projection width "
+          "of mamba2-780m and hymba-1.5b (the SSM mixers' six, hymba's "
+          "attention and MLP), B1 and B2 at hymba's heads (KV, G, D) = "
+          f"{HYMBA_HEADS}, B2 at its window of {WINDOW} over {RING_B} x "
+          f"{RING_PROMPT}:")
+    for arch in SSM_ARCHS:
+        kernels += check_quant_matmul_widths(torch, ops, ref, dev, arch,
+                                             get_config(arch), sms)
+    kernels += check_attention(torch, ops, ref, dev, 8, *HYMBA_HEADS)
+    kernels.append(check_window_prefill(
+        torch, ops, ref, dev, heads=HYMBA_HEADS,
+        key="prefill_attention@window@hymba"))
 
     phases = {"build": build_s, "kernels": time.perf_counter() - t_kern}
 
@@ -4360,15 +4480,18 @@ def main() -> int:
                                 name, kind, card, page, walls)
     del engine
 
-    # the reference's three other serving modes at full width: bf16
-    # weights and/or a bf16 KV cache; the bf16-KV launches of each path
+    # the reference's three other serving modes at full width (and
+    # SMOLLM_LAYERS of 30, as the paged, scheduler and sp engines below):
+    # bf16 weights and/or a bf16 KV cache; the bf16-KV launches of each path
+    smollm_cut = get_config("smollm-135m").replace(n_layers=SMOLLM_LAYERS)
     bf16_runs, paged_bf16 = {}, None
     for name, flags in SERVING_MODES.items():
         t0 = time.perf_counter()
-        eng = Engine.from_checkpoint("smollm-135m", smoke=False, **flags)
+        eng = Engine.from_checkpoint(cfg=smollm_cut, smoke=False, **flags)
         torch.cuda.synchronize()
         phases[f"{name} engine"] = time.perf_counter() - t0
-        print(f"[{name}] smollm-135m full width, fp={flags['fp']}, "
+        print(f"[{name}] smollm-135m full width, {SMOLLM_LAYERS} of its 30 "
+              f"layers, fp={flags['fp']}, "
               f"kv_int8={flags['kv_int8']}: engine built in "
               f"{phases[name + ' engine']:.1f} s; {eng.n_int8_weights()} int8 "
               f"weight tensors; {len(eng.qparams)} qparams entries")
@@ -4439,7 +4562,7 @@ def main() -> int:
     del engine4
 
     t0 = time.perf_counter()
-    engine_p = Engine.from_checkpoint("smollm-135m", smoke=False,
+    engine_p = Engine.from_checkpoint(cfg=smollm_cut, smoke=False,
                                       cache_layout="paged", page_size=PAGE,
                                       prefill_chunk=CHUNK)
     torch.cuda.synchronize()
@@ -4493,7 +4616,7 @@ def main() -> int:
     del engine_p
 
     t0 = time.perf_counter()
-    engine_sp = ShardedEngine.from_checkpoint("smollm-135m", smoke=False,
+    engine_sp = ShardedEngine.from_checkpoint(cfg=smollm_cut, smoke=False,
                                               sp=SP)
     torch.cuda.synchronize()
     phases["sp engine"] = time.perf_counter() - t0
@@ -4516,14 +4639,15 @@ def main() -> int:
         phase("train pretrain + checkpoint serve", check_train_pretrain,
               torch, ops, A, train, Engine, CheckpointManager, prompts,
               workdir, kind, card)
-    # the wider dense configs at full width and depth, one at a time
+    # the wider dense configs at full width and PATH_LAYERS, one at a time
     # (8-12 B parameters each): their main paths, gemma3-12b's rings, and a
     # full-width copy of depth 2 of each against the CPU
     arch_runs, ring_run = {}, None
     for arch in WIDE_HEADS:
         label = f"{arch} path"
         run = phase(label, drive_arch_path, torch, ops, A, Engine,
-                    build_model, get_config(arch), label, kind, card, walls)
+                    build_model, path_config(get_config, arch), label, kind,
+                    card, walls)
         if run is not None:
             engine_w, arch_runs[arch] = run
             if arch == "gemma3-12b":
@@ -4540,7 +4664,7 @@ def main() -> int:
     moe_runs = {}
     for arch, short in MOE_ARCHS.items():
         run = phase(short, drive_arch_path, torch, ops, A, Engine,
-                    build_model, moe_config(get_config, arch), short, kind,
+                    build_model, path_config(get_config, arch), short, kind,
                     card, walls)
         if run is not None:
             engine_m, moe_runs[short] = run
@@ -4555,6 +4679,35 @@ def main() -> int:
                     engine_m, "mixtral ring", kind, card, walls,
                     MIXTRAL_RING_B, MIXTRAL_RING_PROMPT, 4096)
             del engine_m, run
+        phase(f"{short} cpu check", check_arch_cpu, torch, ops, A, Engine,
+              build_model, get_config(arch), f"{short} cpu check")
+    # the state-space configs (ROADMAP item 17 steps 5-6) at full width and
+    # depth: mamba2's main path (no attention kernel: B3 alone) and one
+    # sampled run, hymba's main path and its rings of 1024, and a full-width
+    # copy of depth 2 of each against the CPU
+    ssm_runs = {}
+    for arch, short in SSM_ARCHS.items():
+        run = phase(short, drive_arch_path, torch, ops, A, Engine,
+                    build_model, get_config(arch), short, kind, card, walls)
+        if run is not None:
+            engine_s, ssm_runs[short] = run
+            if arch == "mamba2-780m":
+                prompts_s = np.random.default_rng(5).integers(
+                    0, engine_s.cfg.vocab, (B, PROMPT), dtype=np.int32)
+                sampled = phase("mamba2 sample", drive_sample_path, torch,
+                                ops, A, SG, prng, Engine, engine_s,
+                                prompts_s, kind, card, walls,
+                                "mamba2 sample", False)
+                if sampled is not None:
+                    ssm_runs["mamba2 sample"] = (sampled[1],)
+            else:
+                ring = cut_engine(Engine, build_model, engine_s,
+                                  HYMBA_RING_LAYERS)
+                ssm_runs["hymba ring"] = phase(
+                    "hymba ring", drive_ring_path, torch, ops, A, Engine,
+                    ring, "hymba ring", kind, card, walls)
+                del ring
+            del engine_s, run
         phase(f"{short} cpu check", check_arch_cpu, torch, ops, A, Engine,
               build_model, get_config(arch), f"{short} cpu check")
     free_card(torch)
@@ -4659,6 +4812,19 @@ def main() -> int:
             c, win = run[0], run[4]
             got = {"quant_matmul@mixtral-8x7b": c["quant_matmul"],
                    "prefill_attention@window@D128": win["prefill_attention"]}
+        for kernel, n in got.items():
+            wide_by_path.setdefault(kernel, {})[path] = n
+    # the state-space paths: B3 by config; B1 / B2 at hymba's heads on its
+    # global layers (and B2 on its windowed ones, with the window)
+    for path, run in ssm_runs.items():
+        c = run[0]
+        arch = "mamba2-780m" if path.startswith("mamba2") else "hymba-1.5b"
+        got = {f"quant_matmul@{arch}": c["quant_matmul"]}
+        if arch == "hymba-1.5b":
+            got.update({"prefill_attention@hymba": c["prefill_attention"],
+                        "decode_attention@hymba": c["decode_attention"],
+                        "prefill_attention@window@hymba":
+                            run[4]["prefill_attention"]})
         for kernel, n in got.items():
             wide_by_path.setdefault(kernel, {})[path] = n
     for kernel, paths in wide_by_path.items():

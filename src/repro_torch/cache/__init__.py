@@ -1,7 +1,8 @@
 """KV caches (int8, packed int4, or float with unit scales) behind one
 protocol: the dense layout and the sliding-window ring
 (``repro_torch.cache.base``), and the page pool with block tables and
-prefix sharing (``repro_torch.cache.paged``).
+prefix sharing (``repro_torch.cache.paged``); beside them, an SSM
+layer's decode state (``repro_torch.cache.ssm``).
 
 ``make_cache`` is the single construction point the model layers use, the
 counterpart of ``repro.cache.make_cache``: ``layout`` is "dense" (dense
@@ -17,6 +18,7 @@ from repro_torch.cache.base import (DenseCache, KernelView, KV_LEVELS,
 from repro_torch.cache.paged import (PagedCache, PrefixEntry, PrefixStore,
                                      copy_pages, set_table_row,
                                      splice_dense_into_pages)
+from repro_torch.cache.ssm import SSMState
 
 LAYOUTS = ("dense", "ring", "paged")
 
@@ -56,6 +58,6 @@ def layer_caches(tree):
 
 __all__ = ["DenseCache", "KernelView", "KV_LEVELS", "LAYOUTS",
            "LAYOUT_REGISTRY", "PagedCache", "PrefixEntry", "PrefixStore",
-           "RingCache", "copy_pages", "dequantize_kv", "kv_levels",
-           "layer_caches", "make_cache", "quantize_kv", "set_table_row",
-           "splice_dense_into_pages"]
+           "RingCache", "SSMState", "copy_pages", "dequantize_kv",
+           "kv_levels", "layer_caches", "make_cache", "quantize_kv",
+           "set_table_row", "splice_dense_into_pages"]

@@ -27,6 +27,10 @@
                                     queue_cap=16, fault_plan={"reject": [3]},
                                     journal="requests.jsonl")
     completions = engine.recover(max_slots=8)
+    # the state-space decoders (a float32 SSM state beside any KV cache;
+    # chunked prefill, speculation and the scheduler refuse them, as in the
+    # reference):
+    engine = Engine.from_checkpoint("mamba2-780m", smoke=False)  # hymba-1.5b
     # the params of a training checkpoint (python -m repro_torch.launch.train):
     engine = Engine.from_checkpoint("smollm-135m", smoke=False,
                                     checkpoint_dir="/tmp/fat_ckpt")

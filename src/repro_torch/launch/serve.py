@@ -10,7 +10,10 @@ Without ``--max-slots`` it serves one fixed batch (``generate_batch``:
 the prefill and the decode step run as captured CUDA graphs, ``--loop``
 the eager per-token loop); with ``--max-slots N`` it streams ragged
 requests through the continuous-batching slot scheduler (``generate``),
-with the scheduler's resilience and durability flags.  Every quantized
+with the scheduler's resilience and durability flags (attention-only
+stacks: the SSM and hybrid configs, ``--arch mamba2-780m`` and
+``hymba-1.5b``, serve the fixed batch and keep a float32 SSM state beside
+any KV cache, as in the reference).  Every quantized
 matmul and both attentions run the hand-written CUDA kernels on the GPU
 and their plain versions on the CPU (``--device cpu``).
 
@@ -336,10 +339,16 @@ def main(argv=None):
     spec = DP.spec_for(engine.cfg, ShapeSpec("cli", "train", args.prompt_len,
                                              args.requests))
     tokens = DP.make_batch(spec, 12345)["tokens"].numpy()
-    if not args.no_kv_int8:
+    cfg = engine.cfg
+    n_attn = sum(cfg.layer_kind(i) != "mamba" for i in range(cfg.n_layers))
+    n_ssm = sum(cfg.layer_kind(i) in ("mamba", "hybrid")
+                for i in range(cfg.n_layers))
+    if not args.no_kv_int8 and n_attn:
         kind = "packed-int4" if engine.policy.kv_bits == 4 else "int8"
-        print(f"[serve] kv cache: {kind} K/V in {engine.cfg.n_layers} "
-              f"layers ({engine.cache_layout} layout)")
+        print(f"[serve] kv cache: {kind} K/V in {n_attn} layers "
+              f"({engine.cache_layout} layout)")
+    if n_ssm:
+        print(f"[serve] ssm state: float32 in {n_ssm} layers")
     res = engine.generate_batch({"tokens": tokens}, args.gen, loop=args.loop)
     kind = "loop" if args.loop else "programs"
     pf_kind = (f"chunked/{args.prefill_chunk}" if args.prefill_chunk

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.core import api as A
 from repro_torch.core.distill import chunked_ce_loss, chunked_sq_err
+from repro_torch.models.transformer import attention_only
 from repro_torch.optim.adam import adam_init, adam_update, cosine_restarts
 
 
@@ -197,8 +198,13 @@ def pad_for_chunked_prefill(tokens: torch.Tensor, chunk: int, lengths=None):
 
 def attn_cache_len(cache) -> int:
     """Logical capacity of the first attention cache of a stack's cache
-    tree (paged: blocks x page size)."""
-    return cache["layer0"]["attn"].capacity
+    tree (paged: blocks x page size); raises on a tree without one (an
+    attention-free stack, mamba2)."""
+    for layer in cache.values():
+        if "attn" in layer:
+            return layer["attn"].capacity
+    raise ValueError("the cache tree holds no attention cache (an "
+                     "attention-free stack has no KV capacity)")
 
 
 def make_prefill_step(model, policy: A.QuantPolicy,
@@ -221,6 +227,12 @@ def make_prefill_step(model, policy: A.QuantPolicy,
         return prefill_step
 
     cfg = model.cfg
+    if not attention_only(cfg):
+        kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
+        raise ValueError(
+            "chunked prefill covers attention-only text stacks: SSM state "
+            "folding has no per-request length masking yet "
+            f"(got kinds={sorted(kinds)}, modality={cfg.modality})")
 
     def chunked_prefill_step(serve_params, qparams, batch, cache, lengths):
         ctx = A.make_ctx(mode, policy, qparams)

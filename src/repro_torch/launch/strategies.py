@@ -33,8 +33,23 @@ from repro_torch.cache import layer_caches
 from repro_torch.core import api as A
 from repro_torch.launch import prng
 from repro_torch.launch.steps import attn_cache_len
+from repro_torch.models.transformer import attention_only
 
 STRATEGIES = ("greedy", "sample", "speculative")
+
+
+def _check_attn_only(model, what: str):
+    """The reference's refusal of SSM and hybrid stacks (their state
+    stepping has no per-slot freeze or rewind); a model without a config
+    (a test stub) passes."""
+    cfg = getattr(model, "cfg", None)
+    if cfg is None or attention_only(cfg):
+        return
+    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
+    raise ValueError(
+        f"{what} covers attention-only text stacks: SSM state "
+        "stepping has no per-slot freeze/rewind yet "
+        f"(got kinds={sorted(kinds)}, modality={cfg.modality})")
 
 
 def sample_tokens(logits, key, *, temperature: float = 1.0,
@@ -161,6 +176,7 @@ class SpeculativeStrategy(DecodeStrategy):
     def __init__(self, model, policy, mode: str = "int8", *,
                  draft_k: int = 4, ngram: int = 2):
         super().__init__(model, policy, mode)
+        _check_attn_only(model, "speculative decoding")
         if draft_k < 1:
             raise ValueError(f"draft_k must be >= 1, got {draft_k}")
         if ngram < 1:
@@ -436,7 +452,9 @@ def make_strategy_slot_loop(model, policy: A.QuantPolicy,
     n_steps * W), cache, pos, active, key, hist, bad)``, lane j of step i at
     column i * W + j.
     ``key`` is one (2,) key or (B, 2) per-slot keys.  The carry stays on the
-    device: the block needs no host synchronization."""
+    device: the block needs no host synchronization.  SSM and hybrid
+    stacks raise, as in the reference."""
+    _check_attn_only(model, "slot decode")
     w = strategy.emit_width
 
     def slot_loop(serve_params, qparams, tok0, cache, pos0, active0,

@@ -125,8 +125,25 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
 
 
+def check_no_tf32(x: torch.Tensor, what: str) -> None:
+    """Raise when ``x``'s float32 products would run in TF32 on the card
+    (``what``: the products, for the message)."""
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            f"{what} would run in TF32 (torch.backends.cuda.matmul."
+            "allow_tf32); they need float32")
+
+
 def silu(x):
     return x * torch.sigmoid(x)
+
+
+def silu_xla(x: torch.Tensor) -> torch.Tensor:
+    """silu as the reference's compiled graphs evaluate it inside a fusion
+    (the MoE experts, the SSM's conv stream and gate): x / (1 + exp(-x))
+    as exp, add, reciprocal and product, each rounded to x's dtype
+    (``torch.sigmoid`` rounds once)."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
 
 
 def gelu(x):

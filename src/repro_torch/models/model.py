@@ -127,26 +127,41 @@ class CausalLM(Module):
     # -- quantization plans ---------------------------------------------------
     def fold_plan(self):
         """Pre-norm gammas fold into the projections that consume them
-        (paper §3.1.2 analog): (norm path, [projection paths]) per block.
-        Module paths, as the reference's plan names them.  An MoE block's
-        ffn norm does not fold: the unquantized router reads it too."""
+        (paper §3.1.2 analog): (norm path, [projection paths]) per block:
+        the pre-norm into the attention's q / k / v and the SSM mixer's
+        five input projections, the ffn norm into a gated MLP's gate and
+        up.  Module paths, as the reference's plan names them.  An MoE
+        block's ffn norm does not fold: the unquantized router reads it
+        too."""
         plan = []
         for blk in self.stack.blocks:
             bp = blk.path
-            plan.append((f"{bp}/pre_norm", [f"{bp}/attn/wq", f"{bp}/attn/wk",
-                                            f"{bp}/attn/wv"]))
-            if not blk.moe:
+            targets = []
+            if hasattr(blk, "attn"):
+                targets += [f"{bp}/attn/wq", f"{bp}/attn/wk",
+                            f"{bp}/attn/wv"]
+            if hasattr(blk, "mamba"):
+                mp = blk.mamba.path
+                targets += [f"{mp}/z_proj", f"{mp}/x_proj", f"{mp}/b_proj",
+                            f"{mp}/c_proj", f"{mp}/dt_proj"]
+            plan.append((f"{bp}/pre_norm", targets))
+            if blk.ffn_kind == "swiglu":
                 plan.append((f"{bp}/ffn_norm", [blk.ffn.gate.path,
                                                 blk.ffn.up.path]))
         return plan
 
     def equalization_plan(self):
         """§3.3 analog pairs: v -> o per attention, up -> down per gated
-        MLP and per MoE (its expert weights rescale expert by expert)."""
+        MLP and per MoE (its expert weights rescale expert by expert); an
+        SSM mixer has none."""
         plan = []
         for blk in self.stack.blocks:
-            plan.append((blk.attn.wv.path, blk.attn.wo.path))
-            plan.extend(blk.ffn.equalization_pairs())
+            if hasattr(blk, "attn"):
+                plan.append((blk.attn.wv.path, blk.attn.wo.path))
+            if blk.ffn_kind != "none":
+                plan.extend(blk.ffn.equalization_pairs())
+            if hasattr(blk, "mamba"):
+                plan.extend(blk.mamba.equalization_pairs())
         return plan
 
 

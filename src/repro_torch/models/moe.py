@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from repro_torch.models.layers import ACTIVATIONS
+from repro_torch.models.layers import ACTIVATIONS, check_no_tf32, silu_xla
 from repro_torch.models.module import Dense, ExpertDense, Module
 
 
@@ -149,13 +149,6 @@ def _combine(y_exp, info, t: int):
     return acc.float()
 
 
-def silu_xla(x: torch.Tensor) -> torch.Tensor:
-    """silu as the reference's compiled expert path evaluates it: x / (1 +
-    exp(-x)) as exp, add, reciprocal and product, each rounded to x's
-    dtype (``torch.sigmoid`` rounds once)."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
-
-
 def load_balance_loss(logits, num_experts: int) -> torch.Tensor:
     """The Switch-style auxiliary: E x sum_e f_e p_e, f_e the share of
     tokens whose top-1 expert is e, p_e the mean router probability."""
@@ -203,11 +196,7 @@ class MoE(Module):
         """x: (B, S, d) -> (y (B, S, d), the load-balance loss, or None
         without ``with_aux``: the serving paths drop it).  The router's
         float32 product must not run in TF32 on the card."""
-        if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError(
-                f"{self.path}: the router's float32 product would run in "
-                "TF32 (torch.backends.cuda.matmul.allow_tf32); routing "
-                "needs float32")
+        check_no_tf32(x, f"{self.path}: the router's float32 products")
         s = x.shape[1]
         logits = self.router(params["router"], x.float(), ctx)
         xd, info = _dispatch(x, logits, self.top_k, self.capacity(s),

@@ -1,14 +1,22 @@
-"""Decoder stack: pre-norm residual Blocks of attention + a gated MLP or a
-mixture of experts.
+"""Decoder stack: pre-norm residual Blocks, each an attention mixer, an
+SSM mixer or both in parallel, then a gated MLP, a mixture of experts or
+no ffn.
 
-Counterpart of ``repro/models/transformer.py`` for the unscanned attention
+Counterpart of ``repro/models/transformer.py`` for the unscanned causal
 stacks: RMSNorm or LayerNorm (``cfg.norm``), SwiGLU or GeGLU
 (``cfg.mlp_activation``) or an MoE (``cfg.ffn == "moe"``, whose
-load-balance loss the training forward returns and serving drops), and per
-layer a global or a sliding-window attention (``cfg.attn_window(i)``:
-gemma3's 5:1 local:global layers, mixtral's window on every layer).  The
-other layer kinds of the reference raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+load-balance loss the training forward returns and serving drops) or none
+(``"none"``, mamba2); per layer (``cfg.layer_kind(i)``) a global or a
+sliding-window attention (``cfg.attn_window(i)``: gemma3's 5:1
+local:global layers, mixtral's window on every layer), a Mamba2 mixer
+(``"mamba"``), or hymba's ``"hybrid"``: attention and Mamba2 side by
+side, each output normed, averaged.  The other families and modalities
+of the reference raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
+
+A layer's cache is ``{"attn": KV cache}``, ``{"mamba": SSMState}`` or
+both.  Speculative verify covers attention-only layers, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -17,15 +25,18 @@ from repro_torch.models.layers import ACTIVATIONS, LayerNorm, RMSNorm
 from repro_torch.models.mlp import SwiGLU
 from repro_torch.models.module import Module
 from repro_torch.models.moe import MoE
+from repro_torch.models.ssm import Mamba2Block
+
+ATTN_KINDS = ("attn", "attn_local")
 
 
 def check_supported(cfg) -> None:
-    """Raise on a config outside the ported dense attention stacks."""
+    """Raise on a config outside the ported causal text stacks."""
     unsupported = []
     kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
-    if kinds - {"attn", "attn_local"}:
-        unsupported.append(f"layer kinds {sorted(kinds)} (mamba / hybrid)")
-    if cfg.ffn not in ("swiglu", "moe") or (
+    if kinds - {*ATTN_KINDS, "mamba", "hybrid"}:
+        unsupported.append(f"layer kinds {sorted(kinds)}")
+    if cfg.ffn not in ("swiglu", "moe", "none") or (
             cfg.mlp_activation not in ACTIVATIONS):
         unsupported.append(f"ffn {cfg.ffn!r} with {cfg.mlp_activation!r}")
     if cfg.norm not in ("rmsnorm", "layernorm"):
@@ -39,7 +50,15 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: not ported: " + "; ".join(unsupported)
             + ". Other architectures are ROADMAP Queue A item 17 (steps "
-            "5-8: SSM, hybrid, VLM, enc-dec).")
+            "7-8: VLM, enc-dec).")
+
+
+def attention_only(cfg) -> bool:
+    """Every layer an attention layer, in a text stack: what chunked
+    prefill, speculative verify and the slot decode need (SSM state
+    stepping has no per-request masking, freeze or rewind)."""
+    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
+    return not kinds - set(ATTN_KINDS) and cfg.modality == "text"
 
 
 def norm_class(cfg):
@@ -48,85 +67,147 @@ def norm_class(cfg):
 
 
 class Block(Module):
-    """One pre-norm residual layer: norm -> attn -> (+) -> norm -> ffn -> (+);
-    the ffn a gated MLP at ``path/mlp`` or an MoE at ``path/moe``."""
+    """One pre-norm residual layer: norm -> mixer -> (+) -> norm -> ffn ->
+    (+).  The mixer is ``attn`` (kinds "attn" / "attn_local"), ``mamba``
+    ("mamba") or both ("hybrid": 0.5 (attn_out_norm(a) +
+    mamba_out_norm(m))); the ffn a gated MLP at ``path/mlp``, an MoE at
+    ``path/moe``, or none (``cfg.ffn == "none"``)."""
 
     def __init__(self, cfg, layer_idx: int, *, path: str):
         self.cfg = cfg
         self.path = path
+        self.kind = cfg.layer_kind(layer_idx)
+        self.ffn_kind = cfg.ffn_kind(layer_idx)
         d, dt = cfg.d_model, cfg.dtype
         norm = norm_class(cfg)
         self.pre_norm = norm(d, path=f"{path}/pre_norm", dtype=dt)
-        self.attn = Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                              path=f"{path}/attn",
-                              window=cfg.attn_window(layer_idx),
-                              rope_base=cfg.rope_base, dtype=dt)
-        self.ffn_norm = norm(d, path=f"{path}/ffn_norm", dtype=dt)
-        self.moe = cfg.ffn_kind(layer_idx) == "moe"
-        if self.moe:
-            self.ffn = MoE(d, cfg.d_ff, cfg.n_experts, cfg.top_k,
-                           path=f"{path}/moe", dtype=dt,
-                           capacity_factor=cfg.capacity_factor)
-        else:
-            self.ffn = SwiGLU(d, cfg.d_ff, path=f"{path}/mlp", dtype=dt,
-                              activation=cfg.mlp_activation)
+        if self.kind != "mamba":
+            self.attn = Attention(d, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim, path=f"{path}/attn",
+                                  window=cfg.attn_window(layer_idx),
+                                  rope_base=cfg.rope_base, dtype=dt)
+        if self.kind in ("mamba", "hybrid"):
+            self.mamba = Mamba2Block(
+                d, path=f"{path}/mamba", d_state=cfg.ssm_state,
+                n_heads=cfg.ssm_heads, head_dim=cfg.ssm_head_dim,
+                expand=cfg.ssm_expand, n_groups=cfg.ssm_groups,
+                chunk=cfg.ssm_chunk, dtype=dt)
+        if self.kind == "hybrid":
+            self.attn_out_norm = norm(d, path=f"{path}/attn_out_norm",
+                                      dtype=dt)
+            self.mamba_out_norm = norm(d, path=f"{path}/mamba_out_norm",
+                                       dtype=dt)
+        self.moe = self.ffn_kind == "moe"
+        if self.ffn_kind != "none":
+            self.ffn_norm = norm(d, path=f"{path}/ffn_norm", dtype=dt)
+            if self.moe:
+                self.ffn = MoE(d, cfg.d_ff, cfg.n_experts, cfg.top_k,
+                               path=f"{path}/moe", dtype=dt,
+                               capacity_factor=cfg.capacity_factor)
+            else:
+                self.ffn = SwiGLU(d, cfg.d_ff, path=f"{path}/mlp", dtype=dt,
+                                  activation=cfg.mlp_activation)
 
     def init(self, gen):
-        return {"pre_norm": self.pre_norm.init(gen),
-                "attn": self.attn.init(gen),
-                "ffn_norm": self.ffn_norm.init(gen),
-                "ffn": self.ffn.init(gen)}
+        p = {"pre_norm": self.pre_norm.init(gen)}
+        if hasattr(self, "attn"):
+            p["attn"] = self.attn.init(gen)
+        if hasattr(self, "mamba"):
+            p["mamba"] = self.mamba.init(gen)
+        if self.kind == "hybrid":
+            p["attn_out_norm"] = self.attn_out_norm.init(gen)
+            p["mamba_out_norm"] = self.mamba_out_norm.init(gen)
+        if self.ffn_kind != "none":
+            p["ffn_norm"] = self.ffn_norm.init(gen)
+            p["ffn"] = self.ffn.init(gen)
+        return p
 
-    def _ffn(self, params, h, ctx):
-        """The ffn's output, an MoE's load-balance loss dropped (the
-        serving paths)."""
+    def _fuse(self, params, a, m):
+        """The hybrid mix: each branch's output normed, then averaged."""
+        a = self.attn_out_norm(params["attn_out_norm"], a)
+        m = self.mamba_out_norm(params["mamba_out_norm"], m)
+        return 0.5 * (a + m)
+
+    def _ffn_residual(self, params, x, ctx):
+        """x + ffn(ffn_norm(x)), an MoE's load-balance loss dropped (the
+        serving paths); x without an ffn."""
+        if self.ffn_kind == "none":
+            return x
+        h = self.ffn_norm(params["ffn_norm"], x)
         if self.moe:
-            return self.ffn(params["ffn"], h, ctx, with_aux=False)[0]
-        return self.ffn(params["ffn"], h, ctx)
+            return x + self.ffn(params["ffn"], h, ctx, with_aux=False)[0]
+        return x + self.ffn(params["ffn"], h, ctx)
 
     def __call__(self, params, x, ctx=None, *, with_aux: bool = False):
         """Returns (y, aux): aux the MoE load-balance loss with
         ``with_aux``, else None."""
         h = self.pre_norm(params["pre_norm"], x)
-        x = x + self.attn(params["attn"], h, ctx)
-        h = self.ffn_norm(params["ffn_norm"], x)
-        if self.moe:
-            y, aux = self.ffn(params["ffn"], h, ctx, with_aux=with_aux)
+        if self.kind == "hybrid":
+            mix = self._fuse(params, self.attn(params["attn"], h, ctx),
+                             self.mamba(params["mamba"], h, ctx))
+        elif self.kind == "mamba":
+            mix = self.mamba(params["mamba"], h, ctx)
         else:
-            y, aux = self.ffn(params["ffn"], h, ctx), None
+            mix = self.attn(params["attn"], h, ctx)
+        x = x + mix
+        if not self.moe:
+            return self._ffn_residual(params, x, ctx), None
+        h = self.ffn_norm(params["ffn_norm"], x)
+        y, aux = self.ffn(params["ffn"], h, ctx, with_aux=with_aux)
         return x + y, aux
 
     def init_cache(self, batch, max_len, device=None, kv_bits=8, **layout):
-        return {"attn": self.attn.init_cache(batch, max_len, device,
-                                             kv_bits, **layout)}
+        c = {}
+        if hasattr(self, "attn"):
+            c["attn"] = self.attn.init_cache(batch, max_len, device,
+                                             kv_bits, **layout)
+        if hasattr(self, "mamba"):
+            c["mamba"] = self.mamba.init_cache(batch, device)
+        return c
 
     def prefill(self, params, x, cache, ctx=None, **chunk):
         """``chunk``: the chunked-prefill arguments of ``Attention.prefill``
-        (``q_offset``, ``lengths``, ``kv_limit``)."""
+        (``q_offset``, ``lengths``, ``kv_limit``), attention-only stacks
+        (``launch/steps.py`` refuses the others).  The SSM state is the
+        chunked scan's final carry, written over the layer's state."""
         h = self.pre_norm(params["pre_norm"], x)
-        a, attn_cache = self.attn.prefill(params["attn"], h, cache["attn"],
-                                          ctx, **chunk)
-        x = x + a
-        h = self.ffn_norm(params["ffn_norm"], x)
-        return x + self._ffn(params, h, ctx), {"attn": attn_cache}
+        new_cache = dict(cache)
+        if hasattr(self, "attn"):
+            a, new_cache["attn"] = self.attn.prefill(
+                params["attn"], h, cache["attn"], ctx, **chunk)
+        if hasattr(self, "mamba"):
+            m, new_cache["mamba"] = self.mamba.prefill(
+                params["mamba"], h, cache["mamba"], ctx)
+        mix = (self._fuse(params, a, m) if self.kind == "hybrid"
+               else m if self.kind == "mamba" else a)
+        return self._ffn_residual(params, x + mix, ctx), new_cache
 
     def decode(self, params, x, cache, cur_pos, ctx=None, slot_mask=None):
         h = self.pre_norm(params["pre_norm"], x)
-        a, attn_cache = self.attn.decode(params["attn"], h, cache["attn"],
-                                         cur_pos, ctx, slot_mask=slot_mask)
-        x = x + a
-        h = self.ffn_norm(params["ffn_norm"], x)
-        return x + self._ffn(params, h, ctx), {"attn": attn_cache}
+        new_cache = dict(cache)
+        if hasattr(self, "attn"):
+            a, new_cache["attn"] = self.attn.decode(
+                params["attn"], h, cache["attn"], cur_pos, ctx,
+                slot_mask=slot_mask)
+        if hasattr(self, "mamba"):
+            m, new_cache["mamba"] = self.mamba.decode(
+                params["mamba"], h, cache["mamba"], ctx)
+        mix = (self._fuse(params, a, m) if self.kind == "hybrid"
+               else m if self.kind == "mamba" else a)
+        return self._ffn_residual(params, x + mix, ctx), new_cache
 
     def verify(self, params, x, cache, cur_pos, ctx=None, slot_mask=None):
         """The speculative verify window through this layer: ``decode``'s
-        residual structure around ``Attention.verify``."""
+        residual structure around ``Attention.verify``; attention layers
+        only (SSM state stepping has no rewind), as in the reference."""
+        if self.kind not in ATTN_KINDS:
+            raise ValueError(
+                f"{self.path}: speculative verify covers attention-only "
+                f"causal stacks (got kind={self.kind!r}, cross=False)")
         h = self.pre_norm(params["pre_norm"], x)
         a, attn_cache = self.attn.verify(params["attn"], h, cache["attn"],
                                          cur_pos, ctx, slot_mask=slot_mask)
-        x = x + a
-        h = self.ffn_norm(params["ffn_norm"], x)
-        return x + self._ffn(params, h, ctx), {"attn": attn_cache}
+        return self._ffn_residual(params, x + a, ctx), {"attn": attn_cache}
 
 
 class Stack(Module):

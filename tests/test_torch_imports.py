@@ -148,14 +148,17 @@ def test_unported_architectures_raise():
     from repro_torch.models import build_model
 
     with pytest.raises(NotImplementedError, match="item 17"):
-        get_config("mamba2-780m")
+        get_config("llava-next-34b")
     cfg = get_config("smollm-135m", smoke=True)
-    # MoE is ported (item 17 step 4): its stacks build; the other kinds raise
+    # MoE (item 17 step 4) and the SSM and hybrid stacks (steps 5-6) are
+    # ported: their stacks build; the other families and modalities raise
     build_model(get_config("granite-moe-3b-a800m", smoke=True))
+    build_model(cfg.replace(kind="hybrid", ssm_head_dim=16))
+    build_model(cfg.replace(kind="mamba", ffn="none", ssm_head_dim=16))
     with pytest.raises(NotImplementedError, match="item 17"):
-        build_model(cfg.replace(kind="hybrid"))
+        build_model(cfg.replace(modality="vlm"))
     with pytest.raises(NotImplementedError, match="item 17"):
-        build_model(cfg.replace(kind="mamba"))
+        build_model(cfg.replace(family="encdec"))
 
 
 def test_generate_validates_inputs():

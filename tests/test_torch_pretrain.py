@@ -257,7 +257,7 @@ def test_cli_validates_its_arguments():
     with pytest.raises(SystemExit):
         TRAIN.main(["--mode", "qat"])
     with pytest.raises(NotImplementedError, match="item 17"):
-        TRAIN.main(["--arch", "mamba2-780m", "--device", "cpu"])
+        TRAIN.main(["--arch", "llava-next-34b", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------
