@@ -179,7 +179,22 @@
    copy of its first 8 layers (``HYMBA_RING_LAYERS``: 7 rings) against
    dense caches; [<ssm> cpu check] holds a depth-2 copy against
    the CPU (hymba's keeps a global layer 0 and a windowed layer 1, window
-   32).
+   32);
+22. the encoder-decoder and the VLM: [kernels] holds B1 and B2 at the
+   heads (KV, G, D) = (16, 1, 64) of seamless-m4t-medium and (8, 7, 128)
+   of llava-next-34b (int8, int4, bf16 K/V, dense and paged, the same
+   rules as at D 64), and B3 bit for bit at both configs' widths (M = 1,
+   4, 8, 128, 2048 and the rows of their paths) and at their frontend
+   projections (frame_proj at 4 x 512 frames, mm_proj at 2 x 2880
+   patches); [seamless] serves seamless-m4t-medium at full width and
+   depth (12 encoder and 12 decoder layers) on 4 requests of 512 frames
+   and 64 text tokens, 32 generated; [llava] serves llava-next-34b at full
+   width and ``PATH_LAYERS`` of its 60 layers on 2 requests of 2880
+   patches and 512 text tokens, 32 generated: each through
+   ``drive_media_path`` (graphs == eager bit for bit, every B1 / B2 / B3
+   launch counted, the cross cache's rows, peak memory, the resident int8
+   bytes, device busy); [<arch> cpu check] holds a full-width copy of
+   depth 2 against the CPU (llava's with ``CPU_MM_PATCHES`` patches).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -907,11 +922,15 @@ def head_variant(kvh, g, d):
     """The JSON key suffix and name tag of an attention geometry other than
     smollm-135m's (KV 3, G 3, D 64): the wider heads of granite-8b (D 128,
     G 4), stablelm-12b (D 160, G 4) and gemma3-12b (D 256, G 2), granite-
-    moe's (D 64, G 3), and hymba-1.5b's (KV 5, G 5, D 64: "@hymba")."""
+    moe's (D 64, G 3), hymba-1.5b's (KV 5, G 5, D 64: "@hymba"),
+    seamless-m4t-medium's (KV 16, G 1, D 64: "@seamless") and llava-next-
+    34b's (KV 8, G 7, D 128: "@llava")."""
     if (kvh, g, d) == (3, 3, 64):
         return "", ""
-    if (kvh, g, d) == HYMBA_HEADS:
-        return "@hymba", f", KV={kvh} G={g} D={d}"
+    named = {HYMBA_HEADS: "hymba",
+             **{h: MEDIA_ARCHS[a] for a, h in MEDIA_HEADS.items()}}
+    if (kvh, g, d) in named:
+        return f"@{named[kvh, g, d]}", f", KV={kvh} G={g} D={d}"
     return f"@D{d}", f", KV={kvh} G={g} D={d}"
 
 
@@ -1169,7 +1188,9 @@ def layer_widths(cfg):
     """(name, K, N) of one layer's quantized Dense matmuls (seven in an
     attention layer; the four of attention in an MoE layer, whose experts
     ``expert_widths`` gives; a Mamba2 mixer's six, hymba's beside its
-    attention and MLP), and the untied lm_head's."""
+    attention and MLP; attention and the GELU MLP's fc1 / fc2 in an
+    encoder-decoder, whose decoder layers run the attention widths twice,
+    self and cross), and the untied lm_head's."""
     d, hd = cfg.d_model, cfg.head_dim
     out = []
     if cfg.kind != "mamba":
@@ -1182,7 +1203,9 @@ def layer_widths(cfg):
         out += [("z_proj", d, di), ("x_proj", d, di), ("b_proj", d, gn),
                 ("c_proj", d, gn), ("dt_proj", d, heads),
                 ("out_proj", di, d)]
-    if cfg.ffn not in ("moe", "none"):
+    if cfg.ffn == "gelu":
+        out += [("fc1", d, cfg.d_ff), ("fc2", cfg.d_ff, d)]
+    elif cfg.ffn not in ("moe", "none"):
         out += [("gate", d, cfg.d_ff), ("up", d, cfg.d_ff),
                 ("down", cfg.d_ff, d)]
     if not cfg.tie_embeddings:
@@ -1244,6 +1267,36 @@ CPU_CHECK_STEPS = {"mixtral-8x7b": 2, "granite-8b": 4, "stablelm-12b": 4,
 # which pass the window
 SSM_ARCHS = {"mamba2-780m": "mamba2", "hymba-1.5b": "hymba"}
 HYMBA_HEADS = (5, 5, 64)
+
+# the encoder-decoder and the VLM (ROADMAP item 17 steps 7-8), at full
+# width: seamless-m4t-medium at full depth (12 + 12 layers), on
+# SEAMLESS_B requests of SEAMLESS_FRAMES frames and SEAMLESS_TEXT tokens
+# (the decoder's cache of 128 positions keeps the first 128 frames for
+# decode, as the reference does); llava-next-34b at ``PATH_LAYERS`` of its
+# 60 layers (its bf16 and int8 copies at full depth, ~100 GB, do not fit
+# the card: ROADMAP 17b), on LLAVA_B requests of its 2880 patches and
+# LLAVA_TEXT tokens, calibrated on batches of LLAVA_CALIB_B x (2880 + 64)
+# (the reference's default calibration length of 32 does not reach 2880
+# patches); the depth-2 copy of [llava cpu check] takes CPU_MM_PATCHES
+# patches (2 x 2944 positions at width 7168 are too slow for the CPU).
+# Their copies' logits against the CPU: seamless 0.125, 2x its reading of
+# 0.0625 on an H100; llava LOGIT_ATOL, where it reads 0.1897 (0.1360 at
+# step 0), as ``prefill_gaps`` traces it: mm_proj, the pre_norms, the final
+# norm and the lm_head add nothing on the same input, the attentions one
+# bf16 step (0.0039: B2 against the plain softmax) and layer 1's ffn 0.0391
+# (its norm or SiLU: not split), and the int8 activations of the 7168- and
+# 20480-wide products turn those steps into whole int8 steps: 0.0566 after
+# layer 0's ffn, 0.1523 after layer 1's, 0.1360 in the logits
+MEDIA_ARCHS = {"seamless-m4t-medium": "seamless", "llava-next-34b": "llava"}
+MEDIA_HEADS = {"seamless-m4t-medium": (16, 1, 64),
+               "llava-next-34b": (8, 7, 128)}
+SEAMLESS_B, SEAMLESS_FRAMES, SEAMLESS_TEXT = 4, 512, 64
+LLAVA_B, LLAVA_TEXT, LLAVA_CALIB_B = 2, 512, 2
+CPU_MM_PATCHES, CPU_FRAMES = 64, 256
+PATH_LAYERS["llava-next-34b"] = 8
+CPU_CHECK_STEPS["llava-next-34b"] = 4
+WIDE_LOGIT_ATOL.update({"seamless-m4t-medium": 0.125,
+                        "llava-next-34b": LOGIT_ATOL})
 
 
 def path_config(get_config, arch):
@@ -1901,19 +1954,25 @@ def check_paged_partials(torch, ops, ref, dev, bits):
 
 def forced_logits(torch, A, engine, prompts, tokens, n):
     """Prefill + n - 1 decode steps fed with ``tokens``; the float32
-    logits of each step on the CPU."""
-    dev = engine.device
+    logits of each step on the CPU.  ``prompts``: (B, S) tokens, or a
+    batch dict that also carries an encoder-decoder's frames or a VLM's
+    patches."""
+    from repro_torch.launch.engine import model_inputs
+
+    batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
     with torch.inference_mode():
-        cache = engine.init_cache(prompts.shape[0],
-                                  engine._cache_len(prompts.shape[1], GEN))
+        inputs = model_inputs(engine.cfg, batch, engine.device)
+        b, s = inputs["tokens"].shape
+        cache = engine.init_cache(b, engine._cache_len(s, GEN),
+                                  **engine._cache_kw(inputs))
         ctx = A.make_ctx(engine.mode, engine.policy, engine.qparams)
-        logits, cache = engine.model.prefill(
-            engine.serve_params, {"tokens": prompts.to(dev)}, cache, ctx)
+        logits, cache = engine.model.prefill(engine.serve_params, inputs,
+                                             cache, ctx)
         out = [logits[:, -1].float().cpu()]
         for i in range(n - 1):
             logits, cache = engine.model.decode_step(
-                engine.serve_params, tokens[:, i:i + 1].to(dev), cache,
-                prompts.shape[1] + i, ctx)
+                engine.serve_params, tokens[:, i:i + 1].to(engine.device),
+                cache, s + engine._prefix_len() + i, ctx)
             out.append(logits[:, -1].float().cpu())
     return out
 
@@ -2277,8 +2336,9 @@ def cpu_check(torch, A, engine, prompts, toks, tol, label, n_check=4,
     plain version instead."""
     logit_tol = tol if logit_tol is None else logit_tol
     tok_t = torch.as_tensor(toks, dtype=torch.long)
-    gpu = forced_logits(torch, A, engine, torch.as_tensor(prompts), tok_t,
-                        n_check)
+    if not isinstance(prompts, dict):
+        prompts = torch.as_tensor(prompts)
+    gpu = forced_logits(torch, A, engine, prompts, tok_t, n_check)
     for i, lg in enumerate(gpu):
         if not torch.equal(lg.argmax(-1), tok_t[:, i]):
             raise AssertionError(f"step {i}: teacher-forced GPU argmax "
@@ -2288,13 +2348,12 @@ def cpu_check(torch, A, engine, prompts, toks, tol, label, n_check=4,
     t0 = time.perf_counter()
     if plain_ops is None:
         twin = "the CPU (plain versions)"
-        cpu = forced_logits(torch, A, engine.to("cpu"),
-                            torch.as_tensor(prompts), tok_t, n_check)
+        cpu = forced_logits(torch, A, engine.to("cpu"), prompts, tok_t,
+                            n_check)
     else:
         twin = "the card with the plain versions"
         with plain_ops.plain_versions():
-            cpu = forced_logits(torch, A, engine, torch.as_tensor(prompts),
-                                tok_t, n_check)
+            cpu = forced_logits(torch, A, engine, prompts, tok_t, n_check)
     worst, same, ties, gaps, steps = 0.0, 0, 0, [], []
     for i, (g_lg, c_lg) in enumerate(zip(gpu, cpu)):
         steps.append((g_lg - c_lg).abs().max().item())
@@ -2515,6 +2574,28 @@ def routing_flips(records, n_tokens):
     return total, flipped, worst
 
 
+def readout_thresholds(Engine, engine, label):
+    """The engine with an untied lm_head served on the last block's ``wq``
+    activation thresholds (both read a norm's output): calibration, as the
+    reference's, never observes the readout's input and leaves its
+    threshold at the 1e-8 floor, where every logit is ~1e-8 and a check of
+    the logits would hold for any readout.  A tied readout's engine comes
+    back as it is."""
+    cfg = engine.cfg
+    if cfg.tie_embeddings:
+        return engine
+    head = f"{cfg.name}/lm_head"
+    last = f"{cfg.name}/stack/layer{cfg.n_layers - 1}/attn/wq"
+    floor = engine.qparams[head]["act"]["t_max"].item()
+    qparams = {**engine.qparams, head: {
+        **engine.qparams[head], "act": engine.qparams[last]["act"]}}
+    print(f"[{label}] the untied lm_head's calibrated activation threshold "
+          f"is {floor:.1e} (the floor); served here with the last block's "
+          "wq thresholds")
+    return Engine(engine.model, cfg, engine.policy, engine.serve_params,
+                  qparams, device=engine.device, mode=engine.mode)
+
+
 def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
     """A full-width copy of a wider config at cut depth (weights drawn on
     the card): 2 layers, or one local:global period (gemma3-12b: 5 local
@@ -2542,17 +2623,7 @@ def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
         over = dict(n_layers=2, window=CPU_WINDOW, global_attn_layers=(0,))
     cut = cfg.replace(**over)
     engine, build_s = wide_engine(torch, Engine, build_model, cut, seed=1)
-    if not cut.tie_embeddings:
-        head = f"{cut.name}/lm_head"
-        last = f"{cut.name}/stack/layer{cut.n_layers - 1}/attn/wq"
-        floor = engine.qparams[head]["act"]["t_max"].item()
-        qparams = {**engine.qparams, head: {
-            **engine.qparams[head], "act": engine.qparams[last]["act"]}}
-        engine = Engine(engine.model, cut, engine.policy, engine.serve_params,
-                        qparams, device=engine.device, mode=engine.mode)
-        print(f"[{label}] the untied lm_head's calibrated activation "
-              f"threshold is {floor:.1e} (the floor); served here with "
-              f"the last block's wq thresholds")
+    engine = readout_thresholds(Engine, engine, label)
     s, gen = 64, 8
     n_check = CPU_CHECK_STEPS.get(cfg.name, gen)
     prompts = np.random.default_rng(11).integers(0, cfg.vocab, (1, s),
@@ -2594,6 +2665,313 @@ def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
                   f"token) sent to other experts"
                   + (f", at probability gaps up to {worst:.2e}" if flipped
                      else ""))
+
+
+def media_batch(cfg, b, s_text, s_frames, seed):
+    """``b`` requests of ``s_text`` tokens and the frontend's input,
+    standard normal float32: ``s_frames`` frames (B, S, frame_dim) of an
+    encoder-decoder, or a VLM's patches (B, mm_patches, mm_dim)."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s_text),
+                                    dtype=np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((b, s_frames, cfg.frame_dim),
+                                              dtype=np.float32)
+    else:
+        batch["patches"] = rng.standard_normal(
+            (b, cfg.mm_patches, cfg.mm_dim), dtype=np.float32)
+    return batch
+
+
+def media_launches(cfg, gen):
+    """The kernel launches of one ``generate_batch`` of ``gen`` tokens on
+    an encoder-decoder or a VLM.  quant_matmul: seamless' prefill runs
+    frame_proj, 6 a encoder layer (q, k, v, o, fc1, fc2) and 10 a decoder
+    layer (self and cross attention, fc1, fc2), each decode step 8 a
+    decoder layer (the cross attention's q and o: its K/V come from the
+    cache); llava's prefill mm_proj, 7 a layer and the lm_head, each
+    decode step 7 a layer and the lm_head.  B2 once a (decoder) layer at
+    prefill, B1 once a layer a decode step: the encoder's and the cross
+    attentions are plain attention, as in the reference."""
+    n = cfg.n_layers
+    if cfg.family == "encdec":
+        qmm = 1 + 16 * n + 8 * n * (gen - 1)
+    else:
+        qmm = 1 + (7 * n + 1) * gen
+    return {"quant_matmul": qmm, "prefill_attention": n,
+            "decode_attention": n * (gen - 1),
+            "decode_attention_partials": 0, "fake_quant": 0}
+
+
+def check_quant_matmul_frontend(torch, ops, ref, dev, arch, cfg):
+    """B3 at a config's frontend projection, at the rows its path gives
+    it (frame_proj: 4 x 512 frames; mm_proj: 2 x 2880 patches): bit for
+    bit against its plain version, timed beside it, torch._int_mm and the
+    bound.  Returns the JSON entry."""
+    if cfg.family == "encdec":
+        name, k, m = "frame_proj", cfg.frame_dim, SEAMLESS_B * SEAMLESS_FRAMES
+    else:
+        name, k, m = "mm_proj", cfg.mm_dim, LLAVA_B * cfg.mm_patches
+    n = cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(41)
+    x = (torch.randn((m, k), generator=gen, device=dev) * 2).to(
+        torch.bfloat16)
+    w_q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                        dtype=torch.int8)
+    w_scale = torch.rand((n,), generator=gen, device=dev) * 1e-3
+    act_scale = (127.0 / (x.float().abs().amax() * 0.8)).reshape(())
+    got = ops.quant_matmul(x, w_q, w_scale, act_scale)
+    want = ref.quant_matmul_ref(x, w_q, w_scale, act_scale)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"quant_matmul {arch} {name} (M={m}, K={k}, N={n}) is not "
+            f"bit-exact with its plain version (max |diff| "
+            f"{(got.float() - want.float()).abs().max().item()})")
+
+    def call():
+        return ops.quant_matmul(x, w_q, w_scale, act_scale)
+
+    ms, call_ms = timed(torch, call)
+    plain, _ = timed(torch, lambda: ref.quant_matmul_ref(
+        x, w_q, w_scale, act_scale), iters=2, warmup=1)
+    nbytes = m * k * 2 + k * n + 4 * n + 4 + m * n * 2
+    bnd, by = bound_ms(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
+    x_q = torch.clamp(torch.round(x.float() * act_scale), -127, 127).to(
+        torch.int8)
+    lib, _ = timed(torch, lambda: torch._int_mm(x_q, w_q))
+    print(f"  quant_matmul {arch} prefill {name} M={m} K={k} N={n}: "
+          f"bit-exact; {ms * 1e3:.1f} us (per call {call_ms * 1e3:.1f} us)  "
+          f"plain {plain * 1e3:.1f} us  bound {bnd * 1e3:.2f} us  _int_mm "
+          f"{lib * 1e3:.1f} us")
+    return {"name": f"quant_matmul[{arch} {name}, M={m}, K={k}, N={n}]",
+            "route": "cuda", "source": "src/repro_torch/csrc/quant_matmul.cu",
+            "replaces": "src/repro/kernels/quant_matmul.py:72",
+            "kernel": f"quant_matmul@{arch}", "max_abs_err": 0.0, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by, "library_ms": lib, "library": "torch._int_mm"}
+
+
+def drive_media_path(torch, ops, A, Engine, build_model, cfg, label, kind,
+                     card, walls):
+    """An encoder-decoder (seamless-m4t-medium: 4 requests of 512 frames
+    and 64 tokens) or a VLM (llava-next-34b: 2 requests of its 2880
+    patches and 512 tokens) at full width and ``cfg``'s depth through the
+    int8 main path, 32 generated tokens: its engine (weights drawn on the
+    card), the programs' warm-up, then the timed run of the captured
+    programs and the eager ``loop=True`` driver with the launch counts of
+    ``media_launches`` each (no int4, bf16, paged or windowed launch), the
+    two drivers' tokens and prefill logits bit for bit; prints the cross
+    caches' rows, the build time, the resident int8 bytes, the peak device
+    memory and ``replay_busy``.  Returns (engine, the launch counts: all,
+    int4, bf16, paged, windowed)."""
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    vlm = cfg.modality == "vlm"
+    kw = (dict(calib_len=cfg.mm_patches + 64, calib_batch=LLAVA_CALIB_B)
+          if vlm else {})
+    engine, build_s = wide_engine(torch, Engine, build_model, cfg, **kw)
+    w8 = int8_bytes(torch, engine.serve_params)
+    batch = (media_batch(cfg, LLAVA_B, LLAVA_TEXT, 0, 13) if vlm else
+             media_batch(cfg, SEAMLESS_B, SEAMLESS_TEXT, SEAMLESS_FRAMES, 13))
+    b, s = batch["tokens"].shape
+    cache_len = engine._cache_len(s, GEN)
+    frames = batch.get("frames")
+    caches = engine.init_cache(b, cache_len, **(
+        {"enc_len": frames.shape[1]} if frames is not None else {}))
+    cross = sorted({c["cross"].capacity for c in caches.values()
+                    if "cross" in c})
+    del caches
+    print(f"[{label}] {cfg.name} full width: "
+          + (f"{cfg.n_layers} encoder + {cfg.n_layers} decoder layers, "
+             f"frame_dim {cfg.frame_dim}" if frames is not None else
+             f"{cfg.n_layers} layers, {cfg.mm_patches} patches of "
+             f"{cfg.mm_dim}")
+          + f", d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff} ({cfg.ffn}, {cfg.mlp_activation}"
+          f"), vocab {cfg.vocab}, norm {cfg.norm}"
+          f"{'' if cfg.tie_embeddings else ', untied lm_head'}: weights "
+          f"drawn on the card, calibration ({kw or 'the default batches'}) "
+          f"and int8 conversion in {build_s:.1f} s; "
+          f"{engine.n_int8_weights()} int8 weight tensors, {w8 / 1e9:.3f} GB "
+          f"int8 resident; peak device memory so far "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[{label}] {b} requests of {s} tokens"
+          + (f" and {frames.shape[1]} frames" if frames is not None else
+             f" after {cfg.mm_patches} patches")
+          + f", {GEN} generated: decoder caches of {cache_len} positions"
+          + (f", cross caches of {cross} rows (the first min({cache_len}, "
+             f"{frames.shape[1]}) frames, which decode attends; prefill "
+             f"attends all {frames.shape[1]})" if frames is not None else
+             f"; decode starts at position {s + cfg.mm_patches}"))
+    if frames is not None and cross != [min(cache_len, frames.shape[1])]:
+        raise AssertionError(f"cross caches of {cross} rows")
+    torch.cuda.reset_peak_memory_stats()
+    warm = engine.generate_batch(batch, gen=2)
+    expected = media_launches(cfg, GEN)
+    zeros = {k: 0 for k in ops.ATTENTION}
+    want = (expected, zeros, {"prefill_attention": 0}, zeros,
+            {"prefill_attention": 0})
+
+    def run(loop):
+        ops.reset_launches()
+        res = engine.generate_batch(batch, gen=GEN, loop=loop)
+        got = (ops.launch_counts(), ops.int4_launch_counts(),
+               ops.bf16_launch_counts(), ops.paged_launch_counts(),
+               ops.window_launch_counts())
+        driver = "loop=True" if loop else "default"
+        print(f"[{label}] ({driver}) kernel launches {got[0]} (expected "
+              f"{expected}); int4, bf16 K/V, paged, windowed variants "
+              f"{got[1:]}")
+        if got != want:
+            raise AssertionError(f"{driver}: launch counts {got} != {want}")
+        return (res, *got)
+
+    res, *counts = run(False)
+    if not bool(torch.isfinite(res.prefill_logits).all()):
+        raise AssertionError("non-finite prefill logits")
+    toks = res.tokens.cpu()
+    if toks.shape != (b, GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
+    if warm.compile_s <= 0.0 or res.compile_s != 0.0:
+        raise AssertionError(f"compile_s {warm.compile_s} then "
+                             f"{res.compile_s}: the first call must capture, "
+                             "the second only replay")
+    eager = run(True)[0]
+    same = (torch.equal(res.prefill_logits, eager.prefill_logits)
+            and torch.equal(res.tokens, eager.tokens))
+    decode_ms = res.decode_s / (GEN - 1) * 1e3
+    n_prefill = b * (s + (cfg.mm_patches if vlm else 0))
+    gap = (res.prefill_logits.float()
+           - eager.prefill_logits.float()).abs().max().item()
+    print(f"[{label}] graphs vs eager loop=True: prefill logits and {GEN} "
+          f"greedy tokens "
+          + ("bit-identical" if same else
+             f"DIFFER (max |logit diff| {gap}, tokens equal "
+             f"{int((res.tokens == eager.tokens).sum())}/"
+             f"{res.tokens.numel()})"))
+    print(f"[{label}] prefill {b} x {s} tokens"
+          + (f" + {frames.shape[1]} frames" if frames is not None else
+             f" + {cfg.mm_patches} patches")
+          + f": {res.prefill_s * 1e3:.1f} ms = "
+          f"{n_prefill / res.prefill_s:.0f} decoder positions/s; decode: "
+          f"{decode_ms:.2f} ms per step of {b} tokens on {kind} ({card}); "
+          f"graphs captured in {warm.compile_s:.3f} s; eager loop=True: "
+          f"prefill {eager.prefill_s * 1e3:.2f} ms, decode "
+          f"{eager.decode_s / (GEN - 1) * 1e3:.3f} ms per step; peak device "
+          f"memory serving {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          "GiB (weights included)")
+    if not same:
+        raise AssertionError("graphs and the eager driver disagree")
+    walls.setdefault(label, {}).update(
+        graphs=(res.prefill_s * 1e3, decode_ms, warm.compile_s),
+        eager=(eager.prefill_s * 1e3, eager.decode_s / (GEN - 1) * 1e3))
+    replay_busy(torch, engine, label, walls)
+    return engine, tuple(counts)
+
+
+def prefill_gaps(torch, A, engine, batch, label):
+    """Where the card and the CPU part in a VLM's prefill: each stage (the
+    patches' ``mm_proj``, each layer's pre_norm, attention and ffn
+    residual, the final norm, the last position's logits over the real
+    vocabulary) runs on both devices; printed for each stage: the largest
+    |difference| of its output with each device's own inputs (``total``),
+    with the CPU fed the card's input of that stage (``local``: what the
+    stage adds by itself), and the largest |value| of the card's output.
+    The two stages that are B3 alone (``mm_proj``, the logits) must add
+    nothing: local 0."""
+    from repro_torch.launch.engine import model_inputs
+
+    def stages(eng, feed=None):
+        model, p, cfg = eng.model, eng.serve_params, eng.cfg
+        ctx = A.make_ctx(eng.mode, eng.policy, eng.qparams)
+        inputs = model_inputs(cfg, batch, eng.device)
+        b, s = inputs["tokens"].shape
+        cache = eng.init_cache(b, eng._cache_len(s, GEN))
+        outs = {}
+
+        def run(name, fn, x):
+            if feed is not None:
+                x = feed[name][0].to(eng.device)
+            outs[name] = (x, fn(x))
+            return outs[name][1]
+
+        with torch.inference_mode():
+            pe = run("mm_proj", lambda x: model.mm_proj(p["mm_proj"], x, ctx),
+                     inputs["patches"])
+            x = torch.cat([pe.to(cfg.dtype),
+                           model.embed(p["embed"], inputs["tokens"])], dim=1)
+            for i, blk in enumerate(model.stack.blocks):
+                bp, c = p["stack"][f"layer{i}"], cache[f"layer{i}"]["attn"]
+                h = run(f"layer {i} pre_norm",
+                        lambda x: blk.pre_norm(bp["pre_norm"], x), x)
+                a = run(f"layer {i} attention",
+                        lambda h: blk.attn.prefill(bp["attn"], h, c, ctx)[0],
+                        h)
+                x = run(f"layer {i} ffn",
+                        lambda x: blk._ffn_residual(bp, x, ctx), x + a)
+            h = run("final norm", lambda x: model.stack.final_norm(
+                p["stack"]["final_norm"], x), x)
+            run("logits", lambda h: model.readout_fn(p, ctx)(h)[
+                ..., :cfg.vocab], h[:, -1:])
+        return {k: (x.cpu(), y.float().cpu()) for k, (x, y) in outs.items()}
+
+    card = stages(engine)
+    cpu_engine = engine.to("cpu")
+    cpu, fed = stages(cpu_engine), stages(cpu_engine, feed=card)
+    rows = [(k, (y - cpu[k][1]).abs().max().item(),
+             (y - fed[k][1]).abs().max().item(), y.abs().max().item())
+            for k, (_, y) in card.items()]
+    print(f"[{label}] prefill stage by stage, card vs CPU: largest |diff| "
+          "total / local (the CPU fed the card's input) / largest |value|: "
+          + "; ".join(f"{k} {t:.4f} / {lo:.4f} / {m:.3f}"
+                      for k, t, lo, m in rows))
+    exact = {k: lo for k, _, lo, _ in rows if k in ("mm_proj", "logits")}
+    if any(exact.values()):
+        raise AssertionError(f"B3's stages differ on the same input: {exact}")
+
+
+def check_media_cpu(torch, ops, A, Engine, build_model, cfg, label):
+    """A full-width copy of depth 2 (seamless: 2 encoder and 2 decoder
+    layers; llava: 2 layers and ``CPU_MM_PATCHES`` patches, an untied
+    readout served on the last block's ``wq`` thresholds): 1 request of 64
+    tokens (and ``CPU_FRAMES`` frames, past the cross cache's 128 rows),
+    8 generated tokens through the captured programs with the launches of
+    ``media_launches``, held against the same engine on the CPU
+    (``cpu_check``: tokens within ``LOGIT_ATOL``, logits within
+    ``WIDE_LOGIT_ATOL``; llava's prefill first stage by stage,
+    ``prefill_gaps``)."""
+    free_card(torch)
+    over = dict(n_layers=2)
+    vlm = cfg.modality == "vlm"
+    if vlm:
+        over["mm_patches"] = CPU_MM_PATCHES
+    cut = cfg.replace(**over)
+    kw = dict(calib_len=CPU_MM_PATCHES + 64, calib_batch=LLAVA_CALIB_B) \
+        if vlm else {}
+    engine, build_s = wide_engine(torch, Engine, build_model, cut, seed=1,
+                                  **kw)
+    engine = readout_thresholds(Engine, engine, label)
+    gen = 8
+    batch = media_batch(cut, 1, 64, CPU_FRAMES, 11)
+    engine.generate_batch(batch, gen=gen)          # captures
+    ops.reset_launches()
+    res = engine.generate_batch(batch, gen=gen)
+    got, want = ops.launch_counts(), media_launches(cut, gen)
+    print(f"[{label}] {cfg.name} at full width, {over} (built in "
+          f"{build_s:.1f} s): 1 x 64 tokens"
+          + (f" + {CPU_MM_PATCHES} patches" if vlm else
+             f" + {CPU_FRAMES} frames")
+          + f", {gen} tokens {res.tokens.tolist()}; launches {got} "
+          f"(expected {want})")
+    if got != want:
+        raise AssertionError(f"launches {got} != {want}")
+    if vlm:
+        prefill_gaps(torch, A, engine, batch, label)
+    cpu_check(torch, A, engine, batch, res.tokens.cpu(), LOGIT_ATOL, label,
+              n_check=CPU_CHECK_STEPS.get(cfg.name, gen),
+              logit_tol=WIDE_LOGIT_ATOL[cfg.name])
 
 
 class GatherCount:
@@ -4417,6 +4795,25 @@ def main() -> int:
     kernels.append(check_window_prefill(
         torch, ops, ref, dev, heads=HYMBA_HEADS,
         key="prefill_attention@window@hymba"))
+    heads_s = ", ".join(f"{a} {h}" for a, h in MEDIA_HEADS.items())
+    print("[kernels] the encoder-decoder and the VLM: B1 and B2 at the heads "
+          f"(KV, G, D) of {heads_s} (int8, int4 and bf16 K/V, dense and "
+          "paged), B3 at both configs' widths and frontend projections:")
+    for heads in MEDIA_HEADS.values():
+        for bits in (8, 4, 16):
+            kernels += check_attention(torch, ops, ref, dev, bits, *heads)
+            kernels += check_paged_attention(torch, ops, ref, dev, bits,
+                                             PAGE, *heads)
+    for arch in MEDIA_ARCHS:
+        cfg_m = get_config(arch)
+        # the decoder's prefill rows (4 x 64) of seamless; llava's decode
+        # rows (2) and prefill rows (2 x (2880 + 512))
+        rows = ((SEAMLESS_B * SEAMLESS_TEXT,) if cfg_m.family == "encdec"
+                else (LLAVA_B, LLAVA_B * (cfg_m.mm_patches + LLAVA_TEXT)))
+        kernels += check_quant_matmul_widths(torch, ops, ref, dev, arch,
+                                             cfg_m, sms, extra_rows=rows)
+        kernels.append(check_quant_matmul_frontend(torch, ops, ref, dev, arch,
+                                                   cfg_m))
 
     phases = {"build": build_s, "kernels": time.perf_counter() - t_kern}
 
@@ -4710,6 +5107,20 @@ def main() -> int:
             del engine_s, run
         phase(f"{short} cpu check", check_arch_cpu, torch, ops, A, Engine,
               build_model, get_config(arch), f"{short} cpu check")
+    # the encoder-decoder and the VLM (ROADMAP item 17 steps 7-8) at full
+    # width, seamless at full depth and llava at PATH_LAYERS: each main path
+    # through the Engine, and a full-width copy of depth 2 of each against
+    # the CPU
+    media_runs = {}
+    for arch, short in MEDIA_ARCHS.items():
+        run = phase(short, drive_media_path, torch, ops, A, Engine,
+                    build_model, path_config(get_config, arch), short, kind,
+                    card, walls)
+        if run is not None:
+            engine_m, media_runs[short] = run
+            del engine_m, run
+        phase(f"{short} cpu check", check_media_cpu, torch, ops, A, Engine,
+              build_model, get_config(arch), f"{short} cpu check")
     free_card(torch)
     print_walls(walls, card)
     print("[time] " + "; ".join(f"{k} {v:.1f} s" for k, v in phases.items()))
@@ -4827,6 +5238,23 @@ def main() -> int:
                             run[4]["prefill_attention"]})
         for kernel, n in got.items():
             wide_by_path.setdefault(kernel, {})[path] = n
+    # the encoder-decoder and the VLM: B3 by config (frontend, encoder,
+    # decoder and cross attention, llava's lm_head), B1 / B2 at their heads
+    # by variant (the int4, bf16 and paged ones 0: their paths serve int8
+    # dense caches)
+    media_arch = {short: arch for arch, short in MEDIA_ARCHS.items()}
+    for short, (c, int4, bf16, pg, _) in media_runs.items():
+        arch = media_arch[short]
+        got = {f"quant_matmul@{arch}": c["quant_matmul"],
+               f"prefill_attention@bf16@{short}": bf16["prefill_attention"],
+               f"prefill_attention@paged-bf16@{short}": min(
+                   pg["prefill_attention"], bf16["prefill_attention"])}
+        for k in ("prefill_attention", "decode_attention"):
+            got.update({f"{k}@{short}": c[k], f"{k}@int4@{short}": int4[k],
+                        f"{k}@paged@{short}": pg[k],
+                        f"{k}@paged-int4@{short}": min(pg[k], int4[k])})
+        for kernel, n in got.items():
+            wide_by_path.setdefault(kernel, {})[short] = n
     for kernel, paths in wide_by_path.items():
         launched[kernel] = sum(paths.values())
     for e in kernels:

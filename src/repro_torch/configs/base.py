@@ -1,10 +1,10 @@
 """ModelConfig: one dataclass describing every architecture of the
 reference package, with torch dtypes.
 
-Field for field the counterpart of ``repro/configs/base.py``; the port
-serves the dense attention stacks (RMSNorm or LayerNorm, SwiGLU or GeGLU,
-global or sliding-window layers) so far, and the model layer raises on the
-other kinds (see ``models/transformer.py``).
+Field for field the counterpart of ``repro/configs/base.py``, for every
+family of the reference: dense, mixture-of-experts, state-space and hybrid
+decoders, the VLM (``mm_dim`` / ``mm_patches``) and the encoder-decoder
+(``frame_dim``, ``dec_ratio``).
 """
 from __future__ import annotations
 

@@ -193,7 +193,9 @@ def init_qparams(model, params: dict, policy: QuantPolicy) -> dict:
     mode, eq. 2) with alpha = 1, unit ``pointwise``
     scales with ``pointwise_scales``, activation thresholds as empty
     observers for calibration, and (with ``kv_int8``) per-head K/V
-    observers for every causal attention."""
+    observers for every causal self-attention (an encoder's bidirectional
+    attention and a cross attention own no KV cache, so no thresholds, as
+    in the reference)."""
     from repro_torch.models.attention import Attention
 
     qparams: dict = {}
@@ -212,6 +214,8 @@ def init_qparams(model, params: dict, policy: QuantPolicy) -> dict:
         }
     if policy.kv_int8:
         for attn, lp in _modules_with_params(model, params, Attention):
+            if attn.cross or not attn.causal:
+                continue
             spec = policy.kv_spec()
             dev = lp["wk"]["w"].device
             qparams[kv_path(attn.path)] = {
@@ -310,24 +314,35 @@ def dense_forward(layer, params: dict, x: torch.Tensor, ctx: QuantCtx | None):
     elif ctx.mode == "calibrate":
         ctx.updates[layer.path] = calib.update_observer(
             ctx.qparams[layer.path]["act"], x,
-            ctx.policy.act_spec(),
+            ctx.policy.act_spec(layer.act_unsigned),
             kind=ctx.policy.observer, percentile=ctx.policy.percentile)
         y = x @ params["w"]
     elif ctx.mode == "fake":
         qs = ctx.qparams[layer.path]
         xq = _fq_act(x, qs["act"],
-                     ctx.policy.act_spec()).to(x.dtype)
+                     ctx.policy.act_spec(layer.act_unsigned)).to(x.dtype)
         y = xq @ _fq_weight(params["w"], qs["w"], ctx.policy.weight_spec())
     else:
         y = _int8_matmul(x, params["w_q"], params["w_scale"],
                          ctx.qparams[layer.path]["act"],
-                         ctx.policy.act_spec())
+                         ctx.policy.act_spec(layer.act_unsigned))
         if "b_q" in params:
             # the int32 bias at the dequantized output scale (eq. 20)
-            y = y + (params["b_q"].float() * params["b_scale"]).to(y.dtype)
+            y = _add_int32_bias(y, params["b_q"], params["b_scale"])
     if b is not None:
         y = y + b
     return y
+
+
+def _add_int32_bias(y, b_q, b_scale):
+    """y + b_q * b_scale (eq. 20's bias, dequantized).  Into a float32 y
+    the reference's compiled graph fuses the product and the add into one
+    FMA (one rounding), which the float64 sum reproduces: b_q (|b_q| <
+    2^29) times a float32 scale is exact in float64.  Into a bf16 y the
+    product rounds to bf16 first, as the reference's cast does."""
+    if y.dtype == torch.float32:
+        return (y.double() + b_q.double() * b_scale.double()).float()
+    return y + (b_q.float() * b_scale).to(y.dtype)
 
 
 def _fq_act(x, astate, spec: Q.QuantSpec):
@@ -516,7 +531,7 @@ def convert_to_int8(model, params: dict, qparams: dict,
                          else w_scale).float()
         if "b" in lp:
             astate = qparams[layer.path]["act"]
-            aspec = policy.act_spec()
+            aspec = policy.act_spec(layer.act_unsigned)
             t_a = torch.clamp_min(Q.adjusted_threshold(
                 astate["t_max"], astate["alpha"], aspec), 1e-8)
             act_scale = t_a / aspec.levels

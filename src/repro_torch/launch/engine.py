@@ -31,6 +31,13 @@
     # chunked prefill, speculation and the scheduler refuse them, as in the
     # reference):
     engine = Engine.from_checkpoint("mamba2-780m", smoke=False)  # hymba-1.5b
+    # the encoder-decoder and the VLM: a batch carries the frontend's input
+    # (frames (B, S_enc, 1024) or patches (B, 2880, 1024)); the same refusals
+    engine = Engine.from_checkpoint("seamless-m4t-medium", smoke=False)
+    result = engine.generate_batch({"tokens": text, "frames": frames}, 32)
+    engine = Engine.from_checkpoint("llava-next-34b", smoke=False,
+                                    calib_len=2944)       # > 2880 patches
+    result = engine.generate_batch({"tokens": text, "patches": patches}, 32)
     # the params of a training checkpoint (python -m repro_torch.launch.train):
     engine = Engine.from_checkpoint("smollm-135m", smoke=False,
                                     checkpoint_dir="/tmp/fat_ckpt")
@@ -74,10 +81,12 @@ import numpy as np
 import torch
 
 from repro_torch import data as D
-from repro_torch.bridge import tree_to
+from repro_torch.bridge import to_tensor, tree_to
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.core import api as A
+from repro_torch.data import pipeline as DP
 from repro_torch.launch import prng
 from repro_torch.launch import steps as ST
 from repro_torch.launch import strategies as SG
@@ -95,6 +104,48 @@ def resolve_device(device=None) -> torch.device:
                 "device='cpu' to run the plain versions of the kernels")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def media_key(cfg) -> Optional[str]:
+    """The batch key of ``cfg``'s frontend input: "frames" (an
+    encoder-decoder), "patches" (a VLM) or None (text)."""
+    if cfg.family == "encdec":
+        return "frames"
+    return "patches" if cfg.modality == "vlm" else None
+
+
+def model_inputs(cfg, batch: dict, device) -> dict:
+    """A batch as the model reads it on ``device``: ``tokens`` (int) and the
+    frontend's ``frames`` or ``patches`` (numpy, bfloat16 numpy included,
+    or tensors) in ``cfg.dtype``; other keys (``labels``) dropped.  Raises
+    where the frontend's input is missing or misshapen: frames (B, S_enc,
+    frame_dim); patches (B, mm_patches, mm_dim), the count the decode
+    positions assume."""
+    tokens = batch["tokens"]
+    tokens = (tokens if isinstance(tokens, torch.Tensor)
+              else torch.as_tensor(np.asarray(tokens)))
+    out = {"tokens": tokens.to(device)}
+    key = media_key(cfg)
+    if key is None:
+        return out
+    if key not in batch:
+        raise ValueError(f"{cfg.name}: a batch needs {key!r} beside its "
+                         "tokens")
+    x = batch[key]
+    x = x if isinstance(x, torch.Tensor) else to_tensor(np.asarray(x))
+    b = tokens.shape[0]
+    if key == "patches":
+        ok = tuple(x.shape) == (b, cfg.mm_patches, cfg.mm_dim)
+    else:
+        ok = (x.ndim == 3 and x.shape[0] == b and x.shape[1] >= 1
+              and x.shape[2] == cfg.frame_dim)
+    if not ok:
+        raise ValueError(
+            f"{cfg.name}: {key} of shape {tuple(x.shape)} for {b} rows "
+            f"(patches: (B, {cfg.mm_patches}, {cfg.mm_dim}); frames: (B, "
+            f"S_enc >= 1, {cfg.frame_dim}))")
+    out[key] = x.to(device=device, dtype=cfg.dtype)
+    return out
 
 
 def prepare_int8(model, policy: A.QuantPolicy, params, calib_batches, *,
@@ -151,16 +202,19 @@ class GenerationResult:
 class BatchProgram:
     """The captured serving programs of one ``generate_batch`` shape and
     decode scheme, over their static buffers: ``tokens`` (B, S padded to
-    the chunk), ``tok`` and ``pos`` (B,) the pending token and its
-    position, ``rng`` the (2,) PRNG key, and the cache.  ``prefill()``
-    fills the cache from ``tokens``, sets ``tok`` to the first token
-    (split from ``rng`` when sampling) and ``pos`` to S, and returns the
+    the chunk), ``media`` the ``frames`` or ``patches`` of an
+    encoder-decoder or a VLM, ``tok`` and ``pos`` (B,) the pending token
+    and its position, ``rng`` the (2,) PRNG key, and the cache.
+    ``prefill()`` fills the cache from ``tokens`` (and ``media``), sets
+    ``tok`` to the first token (split from ``rng`` when sampling) and
+    ``pos`` to S (+ a VLM's patches), and returns the
     (B, Vp) logits that picked it; each ``decode()`` advances ``tok``,
     ``pos`` and ``rng`` by a step.  Speculative: ``window`` holds the
     windowed loop's carry (its ``tok`` and ``pos`` are the ones above,
     its history seeded by the prefill), each ``decode()`` runs one verify
     window and ``window.out`` gathers the tokens."""
-    key: tuple                    # (B, S, cache length, decode scheme)
+    key: tuple                    # (B, S, cache length, decode scheme[,
+    #                               frame / patch shapes])
     tokens: torch.Tensor
     tok: torch.Tensor
     pos: torch.Tensor
@@ -168,6 +222,7 @@ class BatchProgram:
     prefill: Program
     decode: Program
     window: Optional[SG.WindowState] = None
+    media: dict = dataclasses.field(default_factory=dict)
 
     @property
     def capture_s(self) -> float:
@@ -257,6 +312,8 @@ class Engine:
                         checkpoint_dir: Optional[str] = None,
                         calib_batches: Optional[Sequence] = None,
                         qparams: Optional[dict] = None, init_seed: int = 0,
+                        n_calib: int = 2, calib_batch: int = 4,
+                        calib_len: int = 32,
                         device=None, fp: bool = False, kv_int8: bool = True,
                         kv_bits: int = 8, finetune_thresholds: int = 0,
                         cache_layout: str = "ring", page_size: int = 64,
@@ -278,8 +335,12 @@ class Engine:
         the ``params`` of the newest checkpoint there (written by
         ``python -m repro_torch.launch.train`` or by the reference's
         driver); it does not combine with ``params``.  ``calib_batches``
-        are numpy token batches ({"tokens": (B, S)}); the default is two
-        seeded batches of (4, 32) from ``repro_torch.data``.
+        are numpy token batches ({"tokens": (B, S)}, and the ``frames`` or
+        ``patches`` of an encoder-decoder or a VLM); the default is
+        ``n_calib`` seeded batches of (``calib_batch``, ``calib_len``)
+        tokens from ``repro_torch.data``, or, for an encoder-decoder or a
+        VLM, from its pipeline, as the reference draws them (a VLM's
+        ``calib_len`` counts its patches and must exceed them).
         ``qparams`` are finalized thresholds calibrated elsewhere (the
         reference's, through ``bridge.qparams_from_jax``): calibration is
         skipped and the weights convert against them.  ``fp`` serves the
@@ -342,12 +403,19 @@ class Engine:
             serve_params, qparams = params, A.finalize_calibration(
                 A.init_qparams(model, params, policy))
         else:
-            if calib_batches is None:
-                calib_batches = D.calibration_batches(cfg.vocab,
-                                                      seed=init_seed)
-            batches = [{"tokens": torch.as_tensor(
-                np.asarray(b["tokens"]), device=dev)}
-                for b in calib_batches]
+            # a text config keeps uniform tokens: the pipeline's batches
+            # put a router near-tie between the card and the CPU (ROADMAP
+            # Queue C, the default calibration's two sources)
+            if calib_batches is None and media_key(cfg) is None:
+                calib_batches = D.calibration_batches(
+                    cfg.vocab, n=n_calib, batch=calib_batch,
+                    seq_len=calib_len, seed=init_seed)
+            elif calib_batches is None:
+                spec = DP.spec_for(cfg, ShapeSpec("engine", "train",
+                                                  calib_len, calib_batch),
+                                   seed=init_seed)
+                calib_batches = DP.calibration_batches(spec, n_calib)
+            batches = [model_inputs(cfg, b, dev) for b in calib_batches]
             # int8 weights and/or an int8 KV cache need the calibration
             # pass; bf16 weights skip the conversion
             serve_params, qparams = prepare_int8(
@@ -407,7 +475,9 @@ class Engine:
 
     def init_cache(self, batch: int, max_len: int, **layout):
         """The engine's cache (its layout, page size, KV width, and int8 or
-        the config's dtype, unless ``layout`` overrides them)."""
+        the config's dtype, unless ``layout`` overrides them; an
+        encoder-decoder's cross caches take ``enc_len``, the frames a
+        row)."""
         layout.setdefault("layout", self.cache_layout)
         layout.setdefault("page_size", self.page_size)
         layout.setdefault("kv_int8", bool(self.policy.kv_int8))
@@ -415,15 +485,20 @@ class Engine:
         return self.model.init_cache(batch, max_len, self.device,
                                      self.policy.kv_bits, **layout)
 
+    def _prefix_len(self) -> int:
+        """Positions before the text: a VLM's patches."""
+        return self.cfg.mm_patches if self.cfg.modality == "vlm" else 0
+
     def _cache_len(self, prompt_len: int, gen: int) -> int:
-        """Padded prompt + generation budget, rounded up to a multiple of
-        128 (the reference's kernel-path rounding; it keeps one cache shape
-        for a range of requests), then to whole pages.  Chunked prefill
-        writes whole chunks, so the prompt counts padded to the chunk."""
+        """Padded prompt + generation budget (+ a VLM's patches), rounded
+        up to a multiple of 128 (the reference's kernel-path rounding; it
+        keeps one cache shape for a range of requests), then to whole
+        pages.  Chunked prefill writes whole chunks, so the prompt counts
+        padded to the chunk."""
         cap = prompt_len
         if self.prefill_chunk:
             cap = -(-prompt_len // self.prefill_chunk) * self.prefill_chunk
-        max_len = -(-(cap + gen) // 128) * 128
+        max_len = -(-(cap + gen + self._prefix_len()) // 128) * 128
         if self.cache_layout == "paged":
             max_len = -(-max_len // self.page_size) * self.page_size
         return max_len
@@ -457,15 +532,20 @@ class Engine:
         latest (B, S, cache length, scheme), so a second call of that shape
         only replays.  ``loop=True`` keeps the eager per-token driver for
         comparison (the same tokens and logits, bit for bit); it has no
-        speculative variant, as in the reference."""
+        speculative variant, as in the reference.
+
+        An encoder-decoder's batch carries ``frames`` (B, S_enc,
+        frame_dim), a VLM's ``patches`` (B, mm_patches, mm_dim) (the
+        programs keep static buffers of their shapes); a VLM decodes from
+        position mm_patches + S."""
         if gen < 1:
             raise ValueError(f"gen must be >= 1, got {gen}")
         speculative = self._strategy.emit_width > 1
         if speculative and loop:
             raise ValueError("the per-token loop has no speculative variant "
                              "(drop loop=True)")
-        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
-                                 device=self.device)
+        inputs = model_inputs(self.cfg, batch, self.device)
+        tokens = inputs.pop("tokens")
         if tokens.ndim != 2 or tokens.shape[1] < 1:
             raise ValueError(f"tokens must be (B, S) with S >= 1, got "
                              f"{tuple(tokens.shape)}")
@@ -474,9 +554,11 @@ class Engine:
         cache_len = self._cache_len(s, gen + (self.spec_k if speculative
                                               else 0))
         if loop or self.eager_reason() is not None:
-            return self._generate_loop(tokens, gen, cache_len)
+            return self._generate_loop(tokens, inputs, gen, cache_len)
         compile_s = 0.0
         key = (b, s, cache_len, self._scheme(gen))
+        if inputs:
+            key += (tuple((k, tuple(v.shape)) for k, v in inputs.items()),)
         if self._program is None or self._program.key != key:
             self._program = None        # free the old programs first
             self._program = self._batch_program(key)
@@ -486,6 +568,8 @@ class Engine:
         self._sync()
         t0 = time.perf_counter()
         prog.tokens[:, :s].copy_(tokens)
+        for k, v in inputs.items():
+            prog.media[k].copy_(v)
         first = prog.prefill().clone()
         out = torch.empty((b, gen), dtype=torch.long, device=self.device)
         out[:, 0].copy_(prog.tok)
@@ -530,11 +614,14 @@ class Engine:
 
     def _batch_program(self, key) -> BatchProgram:
         """Static buffers, a cache and the two programs for (B, S, cache
-        length) ``key[:3]`` under the engine's strategy; on CUDA both are
-        warmed up and captured here."""
+        length) ``key[:3]`` under the engine's strategy, with static frame
+        or patch buffers of the shapes ``key[4]`` where the key has them;
+        on CUDA both are warmed up and captured here."""
         b, s, cache_len = key[:3]
         dev, chunk = self.device, self.prefill_chunk
         s_pad = -(-s // chunk) * chunk if chunk else s
+        media = {k: torch.zeros(shape, dtype=self.cfg.dtype, device=dev)
+                 for k, shape in (key[4] if len(key) > 4 else ())}
         tokens = torch.zeros((b, s_pad), dtype=torch.long, device=dev)
         lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
         tok = torch.zeros((b,), dtype=torch.long, device=dev)
@@ -544,7 +631,7 @@ class Engine:
         # dense there (a dense cache serves a windowed layer through its
         # window mask), as in the reference
         speculative = self._strategy.emit_width > 1
-        cache0 = self.init_cache(b, cache_len, **(
+        cache0 = self.init_cache(b, cache_len, **self._cache_kw(media), **(
             {"layout": "dense"} if speculative and self.cache_layout == "ring"
             else {}))
         prefill = ST.make_prefill_step(self.model, self.policy,
@@ -566,18 +653,20 @@ class Engine:
         # which the decode step reads
         state = {}
 
+        pos0 = s + self._prefix_len()
+
         def run_prefill():
             args = (lengths,) if chunk else ()
             logits, state["cache"] = prefill(
-                self.serve_params, self.qparams, {"tokens": tokens}, cache0,
-                *args)
+                self.serve_params, self.qparams, {"tokens": tokens, **media},
+                cache0, *args)
             first = logits[:, -1, :]
             tok0 = self._first_token(first, rng)
             if window is None:
                 tok.copy_(tok0)
-                pos.fill_(s)
+                pos.fill_(pos0)
             else:
-                window.start(tok0, s)
+                window.start(tok0, pos0)
                 SG.seed_hist(window.hist, tokens[:, :s], tok0)
             return first
 
@@ -595,17 +684,24 @@ class Engine:
             prefill_prog()
         return BatchProgram(key=key, tokens=tokens, tok=tok, pos=pos,
                             rng=rng, prefill=prefill_prog,
-                            decode=Program(run_decode, dev), window=window)
+                            decode=Program(run_decode, dev), window=window,
+                            media=media)
 
-    def _generate_loop(self, tokens, gen: int, cache_len: int):
+    def _cache_kw(self, media: dict) -> dict:
+        """``init_cache``'s ``enc_len`` for a batch with ``frames``."""
+        if "frames" in media:
+            return {"enc_len": media["frames"].shape[1]}
+        return {}
+
+    def _generate_loop(self, tokens, media: dict, gen: int, cache_len: int):
         """The eager per-token driver (``generate_batch(loop=True)``): the
         same key schedule as the programs."""
         b, s = tokens.shape
-        cache = self.init_cache(b, cache_len)
+        cache = self.init_cache(b, cache_len, **self._cache_kw(media))
         prefill = ST.make_prefill_step(self.model, self.policy,
                                        prefill_chunk=self.prefill_chunk,
                                        mode=self.mode)
-        args = ({"tokens": tokens}, cache)
+        args = ({"tokens": tokens, **media}, cache)
         if self.prefill_chunk:
             # prompts padded to a chunk multiple; the length vector masks
             # the tail
@@ -624,7 +720,7 @@ class Engine:
         prefill_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         out, cache = decode_loop(self.serve_params, self.qparams, tok0, cache,
-                                 s, rng)
+                                 s + self._prefix_len(), rng)
         self._sync()
         decode_s = time.perf_counter() - t0
         return GenerationResult(tokens=out, prefill_logits=first,

@@ -13,7 +13,12 @@ requests through the continuous-batching slot scheduler (``generate``),
 with the scheduler's resilience and durability flags (attention-only
 stacks: the SSM and hybrid configs, ``--arch mamba2-780m`` and
 ``hymba-1.5b``, serve the fixed batch and keep a float32 SSM state beside
-any KV cache, as in the reference).  Every quantized
+any KV cache, as in the reference; so do the encoder-decoder,
+``--arch seamless-m4t-medium``, whose batch carries ``--prompt-len``
+frames and an eighth as many tokens, and the VLM, ``--arch
+llava-next-34b``, whose ``--prompt-len`` counts its patches before the
+text).  Every config calibrates on the Engine's default batches of
+``--requests`` x ``--prompt-len``.  Every quantized
 matmul and both attentions run the hand-written CUDA kernels on the GPU
 and their plain versions on the CPU (``--device cpu``).
 
@@ -39,9 +44,7 @@ import time
 
 import numpy as np
 
-from repro_torch.configs import get_config
 from repro_torch.configs.shapes import ShapeSpec
-from repro_torch.data import calibration_batches
 from repro_torch.data import pipeline as DP
 from repro_torch.launch.engine import Engine
 
@@ -307,13 +310,11 @@ def main(argv=None):
             # boundary, so its plan keeps later crash points live
             fault_plan = dataclasses.replace(fault_plan, crash=())
 
-    cfg = get_config(args.arch, smoke=args.smoke)
     kw = dict(
         checkpoint_dir=args.ckpt_dir, smoke=args.smoke, device=args.device,
         fp=args.fp, kv_int8=not args.no_kv_int8, kv_bits=args.kv_bits,
         finetune_thresholds=args.finetune_thresholds,
-        calib_batches=calibration_batches(cfg.vocab, batch=args.requests,
-                                          seq_len=args.prompt_len),
+        calib_batch=args.requests, calib_len=args.prompt_len,
         cache_layout=args.cache_layout, page_size=args.page_size,
         prefill_chunk=args.prefill_chunk, temperature=args.temperature,
         top_p=args.top_p, seed=args.seed, decode_strategy=args.strategy,
@@ -338,7 +339,9 @@ def main(argv=None):
     # one fixed batch from the pipeline (prompt = first prompt_len tokens)
     spec = DP.spec_for(engine.cfg, ShapeSpec("cli", "train", args.prompt_len,
                                              args.requests))
-    tokens = DP.make_batch(spec, 12345)["tokens"].numpy()
+    batch = DP.make_batch(spec, 12345)
+    batch.pop("labels")
+    tokens = batch["tokens"].numpy()
     cfg = engine.cfg
     n_attn = sum(cfg.layer_kind(i) != "mamba" for i in range(cfg.n_layers))
     n_ssm = sum(cfg.layer_kind(i) in ("mamba", "hybrid")
@@ -349,7 +352,7 @@ def main(argv=None):
               f"({engine.cache_layout} layout)")
     if n_ssm:
         print(f"[serve] ssm state: float32 in {n_ssm} layers")
-    res = engine.generate_batch({"tokens": tokens}, args.gen, loop=args.loop)
+    res = engine.generate_batch(batch, args.gen, loop=args.loop)
     kind = "loop" if args.loop else "programs"
     pf_kind = (f"chunked/{args.prefill_chunk}" if args.prefill_chunk
                else "one-shot")

@@ -162,7 +162,8 @@ def make_pretrain_step(model, hp: TrainHParams = TrainHParams()):
     full-precision readout plus ``hp.aux_weight`` times the MoE
     load-balance loss (zero without MoE layers), the gradient w.r.t. every
     weight, and Adam with ``hp.weight_decay`` at the cosine-annealed rate;
-    ``opt_state`` is keyed like ``A.flatten(params)``."""
+    ``opt_state`` is keyed like ``A.flatten(params)``.  A VLM's loss reads
+    its text positions only (the patches come first)."""
     cfg = model.cfg
 
     def pretrain_step(params, opt_state, batch):
@@ -170,6 +171,8 @@ def make_pretrain_step(model, hp: TrainHParams = TrainHParams()):
         leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
         p = A.unflatten(leaves)
         h, aux = model.hidden(p, batch, None, with_aux=True)
+        if cfg.modality == "vlm":
+            h = h[:, cfg.mm_patches:, :]
         loss = chunked_ce_loss(h, batch["labels"], model.readout_fn(p),
                                chunk=cfg.loss_chunk) + hp.aux_weight * aux
         grads = torch.autograd.grad(loss, list(leaves.values()))
@@ -213,7 +216,8 @@ def make_prefill_step(model, policy: A.QuantPolicy,
     full-precision weights) into the KV cache.
 
     One-shot (``prefill_chunk`` None): ``(params, qparams, batch, cache) ->
-    (logits of the last position (B, 1, Vp), cache)``.  Chunked: ``(params,
+    (logits of the last position (B, 1, Vp), cache)``, the whole batch to
+    the model (an encoder-decoder's ``frames``, a VLM's ``patches``).  Chunked: ``(params,
     qparams, batch, cache, lengths) -> (logits, cache)`` over tokens padded
     to a chunk multiple (``pad_for_chunked_prefill``), with a per-request
     length vector: each chunk appends its K/V at absolute slots and attends

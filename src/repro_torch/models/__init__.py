@@ -1,4 +1,4 @@
 """Model substrate: functional modules over nested-dict parameters."""
-from repro_torch.models.model import CausalLM, build_model
+from repro_torch.models.model import CausalLM, EncDecLM, build_model
 
-__all__ = ["CausalLM", "build_model"]
+__all__ = ["CausalLM", "EncDecLM", "build_model"]

@@ -11,6 +11,12 @@ slot, each slot at its own position, through the prefill kernel's per-row
 ``q_start`` (over a float cache or on a windowed layer, the plain
 ``verify_attention``).
 
+An encoder-decoder's encoder attends bidirectionally (``causal=False``,
+``__call__`` only), and its decoder's cross attention (``cross=True``)
+reads the encoder's output: its keys and values, without rotary, go once
+into a float cache at prefill, and decode attends every row of that cache;
+both are plain attention (``full_attention``), as in the reference.
+
 Counterpart of ``repro/models/attention.py`` on the single-device serving
 and threshold-training paths.  All paths share the GQA grouping
 Hq = KV * G, computed on a (B, S, KV, G, D) view so no head replication is
@@ -36,7 +42,7 @@ import functools
 
 import torch
 
-from repro_torch.cache import kv_levels, make_cache
+from repro_torch.cache import DenseCache, kv_levels, make_cache
 from repro_torch.models.layers import apply_rotary, rotary_angles
 from repro_torch.models.module import Dense, Module
 
@@ -146,6 +152,22 @@ def ring_decode_attention(q, k_ring, v_ring, abs_pos, cur_pos, window):
     return o.to(q.dtype)
 
 
+def full_attention(q, k, v):
+    """Plain attention with every key visible: the counterpart of the
+    reference's jnp ``flash_attention(causal=False)`` (the encoder's
+    bidirectional attention and the cross attention's prefill over the
+    whole memory) and of its ``decode_attention`` over a cross cache's
+    whole capacity, whose all-true mask leaves the softmax as it is.  q:
+    (B, Sq, KV, G, D); k/v: (B, Sk, KV, D).  Scores and softmax in float32
+    (one softmax, where the reference's flash attention runs an online
+    softmax over chunks), output in v's dtype."""
+    scale = softmax_scale(q.shape[-1], q.device)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float() * scale, k.float())
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.to(v.dtype)
+
+
 def causal_attention(q, k, v, q_offset: int = 0, window=None):
     """Plain causal attention, the counterpart of the reference's jnp
     ``flash_attention`` (one softmax over the whole sequence instead of an
@@ -170,13 +192,19 @@ def causal_attention(q, k, v, q_offset: int = 0, window=None):
 
 
 class Attention(Module):
-    """Causal GQA self-attention with rotary embedding and an optional
-    sliding ``window`` (bidirectional and cross attention are ROADMAP
-    Queue A item 17)."""
+    """GQA attention with rotary embedding: causal self-attention with an
+    optional sliding ``window`` (the decoders); with ``causal=False`` the
+    encoder's bidirectional self-attention (``__call__`` only: the encoder
+    never prefills a cache); with ``cross=True`` the decoder's cross
+    attention, whose keys and values come from the encoder's output
+    (``memory``) with no rotary, through a float cache written once at
+    prefill.  As in the reference, the bidirectional and cross attentions
+    are plain attention, not kernels, and own no KV thresholds."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
                  head_dim: int, *, path: str, window: int | None = None,
-                 rope_base: float = 10000.0, dtype=torch.bfloat16):
+                 rope_base: float = 10000.0, causal: bool = True,
+                 cross: bool = False, dtype=torch.bfloat16):
         self.d_model = d_model
         self.n_heads = n_heads
         self.n_kv = n_kv_heads
@@ -184,6 +212,8 @@ class Attention(Module):
         self.groups = n_heads // n_kv_heads
         self.window = window
         self.rope_base = rope_base
+        self.causal = causal
+        self.cross = cross
         self.path = path
         self.wq = Dense(d_model, n_heads * head_dim, path=f"{path}/wq",
                         dtype=dtype)
@@ -206,7 +236,14 @@ class Attention(Module):
         """This layer's cache in ``layout`` (``repro_torch.cache.make_cache``,
         which gives a windowed layer its ring): int8, or packed int4
         nibbles at ``kv_bits=4``; with ``kv_int8`` False, ``dtype`` tiles
-        with unit scales."""
+        with unit scales.  A cross attention's cache is always a dense
+        ``dtype`` cache of ``max_len`` rows (the encoder's memory, written
+        once a request, is not what decode streams), as in the
+        reference."""
+        if self.cross:
+            return DenseCache.init(batch, max_len, self.n_kv, self.head_dim,
+                                   device=device, quantized=False,
+                                   dtype=dtype)
         return make_cache(batch, max_len, self.n_kv, self.head_dim,
                           device=device, layout=layout, window=self.window,
                           page_size=page_size,
@@ -272,14 +309,18 @@ class Attention(Module):
         v_s = torch.clamp_min(ent["v"]["t_max"], 1e-8) * inv
         return k_s.float(), v_s.float()
 
-    def _qkv(self, params, x, ctx):
+    def _qkv(self, params, x, ctx, kv_src=None):
+        """q from ``x``; k and v from ``kv_src`` (the encoder's memory of a
+        cross attention), else from ``x``."""
         b, s, _ = x.shape
         q = self.wq(params["wq"], x, ctx).reshape(
             b, s, self.n_kv, self.groups, self.head_dim)
-        k = self.wk(params["wk"], x, ctx).reshape(b, s, self.n_kv,
-                                                  self.head_dim)
-        v = self.wv(params["wv"], x, ctx).reshape(b, s, self.n_kv,
-                                                  self.head_dim)
+        src = x if kv_src is None else kv_src
+        sk = src.shape[1]
+        k = self.wk(params["wk"], src, ctx).reshape(b, sk, self.n_kv,
+                                                    self.head_dim)
+        v = self.wv(params["wv"], src, ctx).reshape(b, sk, self.n_kv,
+                                                    self.head_dim)
         return q, k, v
 
     def _rope(self, q, k, positions):
@@ -289,21 +330,47 @@ class Attention(Module):
         k = apply_rotary(k, cos, sin)
         return qf.reshape(b, s, kvh, g, d), k
 
-    def __call__(self, params, x, ctx=None):
+    def __call__(self, params, x, ctx=None, *, memory=None):
         """Full-sequence forward (calibration, fine-tune teacher and
-        student); observes K/V in calibrate mode and fake-quantizes them
-        through trained thresholds in fake mode."""
+        student, and the encoder in every mode); observes K/V in calibrate
+        mode and fake-quantizes them through trained thresholds in fake
+        mode, where qparams hold an entry for this layer (a causal
+        self-attention's).  A cross attention attends ``memory`` (the
+        encoder's output), every position, with no rotary."""
         b, s, _ = x.shape
-        q, k, v = self._qkv(params, x, ctx)
-        q, k = self._rope(q, k, torch.arange(s, device=x.device))
-        self._observe_kv(ctx, k, v)
-        k, v = self._fake_quant_kv(ctx, k, v)
-        o = causal_attention(q, k, v, window=self.window)
+        q, k, v = self._qkv(params, x, ctx, memory)
+        if self.cross:
+            o = full_attention(q, k, v)
+        else:
+            q, k = self._rope(q, k, torch.arange(s, device=x.device))
+            self._observe_kv(ctx, k, v)
+            k, v = self._fake_quant_kv(ctx, k, v)
+            o = (causal_attention(q, k, v, window=self.window) if self.causal
+                 else full_attention(q, k, v))
         o = o.reshape(b, s, self.n_heads * self.head_dim)
         return self.wo(params["wo"], o, ctx)
 
-    def prefill(self, params, x, cache, ctx=None, *, q_offset: int = 0,
-                lengths=None, kv_limit=None):
+    def _cross_prefill(self, params, x, memory, cache, ctx):
+        """A cross attention's prefill: K/V of the whole memory, its first
+        ``cache.capacity`` rows written to the cache (the reference keeps
+        the first min(capacity, S_enc) rows: a cache sized so, by the
+        caller, is written in place), and every memory position attended
+        exactly."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv(params, x, ctx, memory)
+        cap = cache.capacity
+        if k.shape[1] < cap:
+            raise ValueError(
+                f"{self.path}: the cross cache holds {cap} rows, the memory "
+                f"{k.shape[1]}; size it to min(max_len, memory length) "
+                "(init_cache(..., enc_len=)), the rows the reference keeps")
+        cache = cache.append(*cache.ready(k[:, :cap], v[:, :cap]), 0)
+        o = full_attention(q, k, v).to(x.dtype)
+        o = o.reshape(b, s, self.n_heads * self.head_dim)
+        return self.wo(params["wo"], o, ctx), cache
+
+    def prefill(self, params, x, cache, ctx=None, *, memory=None,
+                q_offset: int = 0, lengths=None, kv_limit=None):
         """Prompt forward that populates the cache; returns (y, cache).
 
         The prompt's K/V quantize once (``cache.ready``) and are appended
@@ -314,9 +381,12 @@ class Attention(Module):
         request's length and to the first ``kv_limit`` positions (the
         padded prompt: per-chunk work scales with the prompt, not the
         cache).  A windowed layer masks its window in both; its ring
-        (``RingCache``) takes the one-shot write only."""
+        (``RingCache``) takes the one-shot write only.  A cross attention
+        writes and attends ``memory`` (``_cross_prefill``)."""
         from repro_torch.kernels import ops
 
+        if self.cross:
+            return self._cross_prefill(params, x, memory, cache, ctx)
         b, s, _ = x.shape
         if lengths is not None and cache.layout == "ring":
             raise ValueError(
@@ -377,10 +447,18 @@ class Attention(Module):
         plain attention, as the reference does.  A ring (``RingCache``)
         keeps one position for the batch: a (B,) ``cur_pos`` there is that
         position on the device (the captured step), and a ``slot_mask``
-        raises."""
+        raises.  A cross attention attends its cache's every row and
+        writes nothing: the reference also projects the token's K/V there
+        and drops them, which the port skips (the same output)."""
         from repro_torch.kernels import ops
 
         b, s, _ = x.shape
+        if self.cross:
+            q = self.wq(params["wq"], x, ctx).reshape(
+                b, s, self.n_kv, self.groups, self.head_dim)
+            o = full_attention(q, cache.k, cache.v).to(x.dtype)
+            o = o.reshape(b, s, self.n_heads * self.head_dim)
+            return self.wo(params["wo"], o, ctx), cache
         ring = cache.layout == "ring"
         if ring and slot_mask is not None:
             raise ValueError(
@@ -459,6 +537,9 @@ class Attention(Module):
         raises: the window's per-slot writes need absolute slots."""
         from repro_torch.kernels import ops
 
+        if self.cross:
+            raise ValueError(f"{self.path}: speculative verify covers causal "
+                             "self-attention only")
         if _sp_info() is not None:
             raise NotImplementedError(
                 "the sequence-parallel speculative verify window is not "

@@ -1,6 +1,7 @@
-"""Gated feed-forward block: SwiGLU (llama family) or, with
-``activation="gelu"``, GeGLU (gemma); counterpart of
-``repro/models/mlp.py::SwiGLU``."""
+"""Feed-forward blocks: the gated SwiGLU (llama family) or, with
+``activation="gelu"``, GeGLU (gemma); and the classic two-layer MLP with
+biases (seamless-m4t's ``GeluMLP``).  Counterparts of
+``repro/models/mlp.py``."""
 from __future__ import annotations
 
 import torch
@@ -34,3 +35,32 @@ class SwiGLU(Module):
         gate's path holds the nonlinearity, like the paper's locked
         channels)."""
         return [(self.up.path, self.down.path)]
+
+
+class GeluMLP(Module):
+    """fc1 -> activation -> fc2, both with a bias (the encoder-decoder's
+    MLP).  fc1 -> gelu -> fc2 is no equalization pair (gelu does not
+    commute with a per-channel scale), so the block declares none.  With
+    ``activation="relu"`` fc2's input is non-negative and quantizes on the
+    unsigned range (``act_unsigned``)."""
+
+    def __init__(self, d_model: int, d_ff: int, *, path: str,
+                 dtype=torch.bfloat16, activation: str = "gelu"):
+        self.d_model = d_model
+        self.d_ff = d_ff
+        self.path = path
+        self.act = ACTIVATIONS[activation]
+        self.fc1 = Dense(d_model, d_ff, path=f"{path}/fc1", bias=True,
+                         dtype=dtype)
+        self.fc2 = Dense(d_ff, d_model, path=f"{path}/fc2", bias=True,
+                         dtype=dtype, act_unsigned=activation == "relu")
+
+    def init(self, gen):
+        return {"fc1": self.fc1.init(gen), "fc2": self.fc2.init(gen)}
+
+    def __call__(self, params, x, ctx=None):
+        h = self.act(self.fc1(params["fc1"], x, ctx))
+        return self.fc2(params["fc2"], h, ctx)
+
+    def equalization_pairs(self):
+        return []

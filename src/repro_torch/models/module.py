@@ -58,19 +58,20 @@ class Dense(Module):
     """y = x @ W (+ b), the quantization unit of the paper's scheme: one set
     of thresholds per Dense.  ``bias`` adds a ``b`` leaf, int32 in int8
     mode (eq. 20); ``quantize=False`` keeps the layer in full precision in
-    every mode (the MoE router).  (The reference's unsigned-input layers
-    come with the ReLU MLP that has them, ROADMAP Queue A item 17 step
-    8.)"""
+    every mode (the MoE router); ``act_unsigned`` marks an input known to
+    be non-negative (after a ReLU), which calibrates, fake-quantizes and
+    serves on the unsigned range (paper eq. 9)."""
 
     def __init__(self, in_dim: int, out_dim: int, *, path: str,
                  bias: bool = False, dtype=torch.bfloat16,
-                 quantize: bool = True):
+                 quantize: bool = True, act_unsigned: bool = False):
         self.in_dim = in_dim
         self.out_dim = out_dim
         self.path = path
         self.bias = bias
         self.dtype = dtype
         self.quantize = quantize
+        self.act_unsigned = act_unsigned
 
     def init(self, gen: torch.Generator) -> dict:
         p = {"w": fan_in_init(gen, (self.in_dim, self.out_dim), self.dtype)}

@@ -13,9 +13,9 @@ reference.
 the engine's one device: decode launches the partials kernel once per
 shard and layer and merges the partials exactly.  ``tp`` > 1 (tensor
 parallelism) and shards on several devices are ROADMAP Queue A item 18,
-as are mixture-of-experts, SSM and hybrid stacks under ``sp`` > 1
-(the reference has no guard for the last two); bf16 weights or a bf16
-KV cache under ``sp`` > 1 are item 20.  With ``sp == 1``
+as are mixture-of-experts, SSM, hybrid, encoder-decoder and VLM stacks
+under ``sp`` > 1 (the reference has no guard for the last four); bf16
+weights or a bf16 KV cache under ``sp`` > 1 are item 20.  With ``sp == 1``
 this is exactly an Engine.  With ``sp`` > 1, ``generate_batch`` and the
 scheduler run their eager loops (``eager_reason``): the captured programs
 are ROADMAP Queue A item 9d.  Sampling serves through those loops with the
@@ -81,6 +81,11 @@ class ShardedEngine(Engine):
                 f"{cfg.name}: mixture-of-experts stacks under sequence "
                 "parallelism (sp > 1) are not ported (ROADMAP Queue A item "
                 "18, MoE under ShardedEngine)")
+        if sp > 1 and (cfg.family == "encdec" or cfg.modality != "text"):
+            raise NotImplementedError(
+                f"{cfg.name}: encoder-decoder and VLM stacks under sequence "
+                "parallelism (sp > 1) are not ported (ROADMAP Queue A item "
+                "18, encoder-decoder and VLM under ShardedEngine)")
         kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
         if sp > 1 and kinds & {"mamba", "hybrid"}:
             raise NotImplementedError(

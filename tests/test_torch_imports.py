@@ -143,22 +143,42 @@ def test_unported_request_fields_raise(kw):
         assert health["deadline_misses"] == 1
 
 
-def test_unported_architectures_raise():
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
+def test_every_reference_arch_builds():
+    """Every architecture of the reference package is ported: its config,
+    full and smoke, field for field (the dtype's type aside), and its model
+    at SMOKE with the reference's parameter tree, keys and shapes (the
+    encoder-decoder an ``EncDecLM`` with a cross attention in every decoder
+    layer, the VLM with its ``mm_proj``); an unknown arch raises."""
+    import dataclasses
 
-    with pytest.raises(NotImplementedError, match="item 17"):
-        get_config("llava-next-34b")
-    cfg = get_config("smollm-135m", smoke=True)
-    # MoE (item 17 step 4) and the SSM and hybrid stacks (steps 5-6) are
-    # ported: their stacks build; the other families and modalities raise
-    build_model(get_config("granite-moe-3b-a800m", smoke=True))
-    build_model(cfg.replace(kind="hybrid", ssm_head_dim=16))
-    build_model(cfg.replace(kind="mamba", ffn="none", ssm_head_dim=16))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        build_model(cfg.replace(modality="vlm"))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        build_model(cfg.replace(family="encdec"))
+    import jax
+
+    from repro.configs import ARCHS as JAX_ARCHS
+    from repro.configs import get_config as jax_config
+    from repro.models import build_model as jax_build
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.core import api as A
+    from repro_torch.models import build_model
+    from repro_torch.models.model import CausalLM, EncDecLM
+
+    assert sorted(ARCHS) == sorted(JAX_ARCHS)
+    for arch in JAX_ARCHS:
+        for smoke in (False, True):
+            want = dataclasses.asdict(jax_config(arch, smoke=smoke))
+            got = dataclasses.asdict(get_config(arch, smoke=smoke))
+            want.pop("dtype"), got.pop("dtype")
+            assert got == want, arch
+        cfg = get_config(arch, smoke=True)
+        model = build_model(cfg)
+        assert isinstance(model, EncDecLM if cfg.family == "encdec"
+                          else CausalLM)
+        want = A.flatten(jax.eval_shape(jax_build(jax_config(
+            arch, smoke=True)).init, jax.random.PRNGKey(0)))
+        got = A.flatten(model.init(torch.Generator().manual_seed(0)))
+        assert {k: tuple(v.shape) for k, v in got.items()} == {
+            k: tuple(v.shape) for k, v in want.items()}, arch
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-4")
 
 
 def test_generate_validates_inputs():

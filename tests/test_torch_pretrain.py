@@ -94,14 +94,35 @@ def test_pipeline_zipf_marginal_and_2gram_mix():
     assert 0.18 < float(rep) < 0.35
 
 
-def test_pipeline_spec_for_and_other_modalities_raise():
+def test_pipeline_spec_for_and_media_batches():
+    """The reference's modalities: a VLM batch carries (B, mm_patches,
+    mm_dim) patches and seq_len - mm_patches tokens, an encoder-decoder's
+    (B, seq_len, frame_dim) frames and max(seq_len // dec_ratio, 4) tokens,
+    both in the config's dtype and the same for the same (seed, step); a
+    VLM's seq_len must leave text beside its patches."""
     cfg = torch_config("smollm-135m", smoke=True)
     spec = DP.spec_for(cfg, ShapeSpec("t", "train", 32, 4), seed=3)
     assert (spec.vocab, spec.seq_len, spec.global_batch, spec.seed) == (
         cfg.vocab, 32, 4, 3)
-    for other in (dict(modality="vlm"), dict(family="encdec")):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            DP.spec_for(cfg.replace(**other), ShapeSpec("t", "train", 8, 1))
+    assert set(DP.make_batch(spec, 0)) == {"tokens", "labels"}
+    shape = ShapeSpec("t", "train", 40, 3)
+    vlm = torch_config("llava-next-34b", smoke=True)
+    encdec = torch_config("seamless-m4t-medium", smoke=True)
+    for c, key, media, text in (
+            (vlm, "patches", (3, vlm.mm_patches, vlm.mm_dim),
+             40 - vlm.mm_patches),
+            (encdec, "frames", (3, 40, encdec.frame_dim), 5)):
+        spec = DP.spec_for(c, shape, seed=1)
+        a, b = DP.make_batch(spec, 2), DP.make_batch(spec, 2)
+        assert set(a) == {"tokens", "labels", key}
+        assert a["tokens"].shape == a["labels"].shape == (3, text)
+        assert a[key].shape == media and a[key].dtype == c.dtype
+        assert all(torch.equal(a[k], b[k]) for k in a)
+        assert not torch.equal(a[key], DP.make_batch(spec, 3)[key])
+    tiny = ShapeSpec("t", "train", 12, 2)
+    assert DP.spec_for(encdec, tiny).text_len() == 4
+    with pytest.raises(ValueError, match="no text beside"):
+        DP.make_batch(DP.spec_for(vlm.replace(mm_patches=12), tiny), 0)
 
 
 def test_shapes_table_matches_the_reference():
@@ -256,8 +277,32 @@ def test_cli_resume_equals_uninterrupted_run(tmp_path, capsys, mode):
 def test_cli_validates_its_arguments():
     with pytest.raises(SystemExit):
         TRAIN.main(["--mode", "qat"])
-    with pytest.raises(NotImplementedError, match="item 17"):
-        TRAIN.main(["--arch", "llava-next-34b", "--device", "cpu"])
+    with pytest.raises(KeyError, match="unknown arch"):
+        TRAIN.main(["--arch", "llava-next-35b", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "llava-next-34b"])
+@pytest.mark.parametrize("mode", ["fat_qat", "pretrain"])
+def test_cli_smoke_trains_the_media_families(capsys, arch, mode):
+    """``launch.train --smoke`` drives the encoder-decoder and the VLM:
+    batches with frames or patches from the pipeline, calibration, then the
+    steps, every loss finite (the FAT run also trains its KV log2_t).  A
+    sequence of 16 fits both losses' chunks of 16, as in the reference:
+    FAT reads llava's 8 patches and 8 tokens, pretrain its 8 tokens."""
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--mode", mode,
+            "--steps", "2", "--batch", "2", "--seq", "16", "--log-every",
+            "1", "--calib-batches", "1"]
+    params, qparams = TRAIN.main(
+        args + (["--finetune-thresholds"] if mode == "fat_qat" else []))
+    out = capsys.readouterr().out
+    losses = [float(line.split()[3]) for line in out.splitlines()
+              if line.startswith("step ")]
+    assert len(losses) == 2 and np.isfinite(losses).all(), out
+    if mode == "fat_qat":
+        assert any(k[-1] == "log2_t" for k in TA.flatten(qparams))
+    else:
+        assert qparams is None and ("mm_proj" in params
+                                    or "frame_proj" in params)
 
 
 # ---------------------------------------------------------------------------
