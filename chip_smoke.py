@@ -165,8 +165,12 @@
    through B3, launched once per expert and counted); [granite-moe
    scheduler] streams 16 requests through 8 slots at drop-free capacity;
    [mixtral ring] serves 2 x 4608 prompts through its rings of 4096;
-   [<moe> cpu check] holds a depth-2 copy against the CPU and counts the
-   tokens the two devices route to other experts;
+   [<moe> cpu check] holds a depth-2 copy against the CPU (granite-moe's
+   on 8 requests of 16 tokens) and counts the tokens the two devices route
+   to other experts: each such flip must be a router near-tie (a
+   probability gap of at most ``ROUTER_NEAR_TIE``), a request is held to
+   the limits only up to its first flipped position, and at least half of
+   the (request, step) pairs must be held (``moe_held``);
 21. the state-space decoders: [kernels] holds B3 bit for bit at every
    projection width of mamba2-780m and hymba-1.5b (M = 1, 4, 8, 128, 2048;
    the narrow outputs N = 16, 25, 48, 128 also in ``QMM_EDGES``), B1 and
@@ -194,7 +198,28 @@
    ``drive_media_path`` (graphs == eager bit for bit, every B1 / B2 / B3
    launch counted, the cross cache's rows, peak memory, the resident int8
    bytes, device busy); [<arch> cpu check] holds a full-width copy of
-   depth 2 against the CPU (llava's with ``CPU_MM_PATCHES`` patches).
+   depth 2 against the CPU (llava's with ``CPU_MM_PATCHES`` patches);
+23. sequence parallelism as the reference serves it: [kernels] holds B4
+   (the partials kernel) at the heads (KV, G, D) of granite-moe (8, 3,
+   64), seamless (16, 1, 64) and llava (8, 7, 128), int8 and int4, as at
+   smollm's and stablelm's; each new phase serves a family's weights (its
+   own phase's, no new draw) through ``ShardedEngine(sp=4)`` over dense
+   caches, eagerly (``drive_sp_phase``): [sp bf16 paths <mode>] smollm-
+   135m's three bf16 modes at ``SMOLLM_LAYERS`` (a float cache decodes
+   through plain float32 partials: no B4), [sp speculative] the int8
+   engine of [sp path] with its verify windows (plain attention over the
+   whole dequantized cache, no B2; its tokens equal [sp path]'s up to a
+   near-tie, windows and acceptance printed), [stablelm sp] (10 of 40
+   layers: B4 at D 160), [granite-moe sp] (8 of 32), [mamba2 sp]
+   (``MAMBA2_SP_LAYERS`` of 48: no attention, B3 alone), [seamless sp]
+   (12 + 12 layers; its cross decode attends the first 32 of 512 frames,
+   the rows a shard of the 128-row cache keeps, as in the reference) and
+   [llava sp] (8 of 60); each zeroes the launch counts just before its
+   timed run and reads them just after (B4 n_global x 31 x 4 over an
+   int8 cache), prints prefill ms and decode ms a step, and holds a short
+   request against the same sp engine on the CPU (granite-moe's and
+   llava's through a twin of the same weights cut to ``SP_CPU_LAYERS``
+   layers, llava's with ``CPU_MM_PATCHES`` patches).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -279,17 +304,21 @@ LOGIT_ATOL_INT4 = 0.5
 # 12b's attention at D 256 in layer 0; granite-8b's only in the final
 # norm), crosses int8 steps in every later product.  Measured on an H100
 # at these seeds: 0.0312, 0.3096 (2 layers), 0.3667 (6 layers).  The MoE
-# copies read less: granite-moe 0.0078, one bf16 step of a logit in [1, 2)
-# (its tied readout is a bf16 product that the devices sum in other
-# orders); mixtral 0.0000 (its int8 readout sums exactly in int32, so
-# equal inputs give equal logits).  Their limit, 0.0625, is 8x granite-
-# moe's reading and two bf16 steps of mixtral's largest logit (4.125),
-# well below the median |logit| that ``cpu_check`` prints beside it.  The
+# copies read less: mixtral 0.0000 (its int8 readout sums exactly in
+# int32, so equal inputs give equal logits), limit 0.0625, two bf16 steps
+# of its largest logit (4.125); granite-moe, calibrated on the pipeline's
+# batches, 0.0684 over the 24 held pairs of 4 x 32, and its sp twins
+# 0.0625: as ``stage_gaps`` traces it, on the same input only layer 0's
+# prefill attention (one bf16 step, 0.0039: B2 against the plain
+# softmax) and the tied bf16 readout (0.0078-0.0156, its sums' order)
+# differ, and the int8 products grow that step to 0.0703 at the final
+# norm; limit 0.125, 1.8x, a quarter of the median |logit| that
+# ``cpu_check`` prints beside it (0.53).  The
 # state-space copies read 0.0156 each (mamba2, hymba: largest |logit|
 # 4.031 / 4.062, median 0.527 / 0.539; their SSD's float32 einsums sum in
 # other orders on the two devices): the same limit, 4x their reading.
 WIDE_LOGIT_ATOL = {"granite-8b": LOGIT_ATOL, "stablelm-12b": 0.5,
-                   "gemma3-12b": 0.5, "granite-moe-3b-a800m": 0.0625,
+                   "gemma3-12b": 0.5, "granite-moe-3b-a800m": 0.125,
                    "mixtral-8x7b": 0.0625, "mamba2-780m": 0.0625,
                    "hymba-1.5b": 0.0625}
 # GPU vs CPU for the engine's first fine-tune step (bfloat16), same inputs:
@@ -1280,13 +1309,18 @@ HYMBA_HEADS = (5, 5, 64)
 # patches); the depth-2 copy of [llava cpu check] takes CPU_MM_PATCHES
 # patches (2 x 2944 positions at width 7168 are too slow for the CPU).
 # Their copies' logits against the CPU: seamless 0.125, 2x its reading of
-# 0.0625 on an H100; llava LOGIT_ATOL, where it reads 0.1897 (0.1360 at
-# step 0), as ``prefill_gaps`` traces it: mm_proj, the pre_norms, the final
-# norm and the lm_head add nothing on the same input, the attentions one
-# bf16 step (0.0039: B2 against the plain softmax) and layer 1's ffn 0.0391
-# (its norm or SiLU: not split), and the int8 activations of the 7168- and
-# 20480-wide products turn those steps into whole int8 steps: 0.0566 after
-# layer 0's ffn, 0.1523 after layer 1's, 0.1360 in the logits
+# 0.0625 on an H100; llava 0.5, 1.5x the largest of its depth-2 copies'
+# readings there: 0.1897 ([llava cpu check]), 0.3164 and 0.3281 ([llava
+# sp]'s twin sharded and unsharded, other weights), each traced by
+# ``stage_gaps``: mm_proj, the pre_norms and the lm_head add nothing on
+# the same input, an attention or the final norm one bf16 step (0.0039:
+# B2 or the plain float32 attention against the CPU's softmax; a decode
+# step's first difference can be half of one, 0.0020), layer 1's ffn
+# 0.0391 (its norm or SiLU), and the int8 activations of the 7168- and
+# 20480-wide products grow those steps through whole int8 steps: in the
+# sp twin's step 3, 0.0020 after layer 0's attention, 0.1055 after its
+# ffn, 0.2734 after layer 1's, 0.3164 in the logits.  Every stage's own
+# difference must stay within STAGE_LOCAL_ATOL, 2x the largest (0.0391)
 MEDIA_ARCHS = {"seamless-m4t-medium": "seamless", "llava-next-34b": "llava"}
 MEDIA_HEADS = {"seamless-m4t-medium": (16, 1, 64),
                "llava-next-34b": (8, 7, 128)}
@@ -1296,7 +1330,42 @@ CPU_MM_PATCHES, CPU_FRAMES = 64, 256
 PATH_LAYERS["llava-next-34b"] = 8
 CPU_CHECK_STEPS["llava-next-34b"] = 4
 WIDE_LOGIT_ATOL.update({"seamless-m4t-medium": 0.125,
-                        "llava-next-34b": LOGIT_ATOL})
+                        "llava-next-34b": 0.5})
+STAGE_LOCAL_ATOL = 0.08
+
+# the MoE copies' CPU checks: a routing choice that the card and the CPU
+# make otherwise must be a near-tie of the router, its k-th and (k+1)-th
+# probabilities at most ROUTER_NEAR_TIE apart (flips were seen at gaps up
+# to 6.08e-4 on an H100 at 700 W); a request's logits and tokens are held
+# to the limits only up to the position of its first flip (past it the
+# two devices run other experts); at least half of the (request, step)
+# pairs must be held.  granite-moe's copy serves MOE_CPU_REQUESTS
+# requests of MOE_CPU_PROMPT tokens: over the pipeline's calibration one
+# request of 64 tokens had 2 of 142 choices flipped, the first in its
+# prompt (0 of 8 pairs held), and 4 x 32 one of 312, in the prompt of one
+# request (24 of 32 held); mixtral's copy one of 64 (its CPU twin's
+# experts are slow)
+ROUTER_NEAR_TIE = 1e-3
+MOE_CPU_REQUESTS = {"granite-moe-3b-a800m": 4, "mixtral-8x7b": 1}
+MOE_CPU_PROMPT = {"granite-moe-3b-a800m": 32, "mixtral-8x7b": 64}
+
+# the sequence-parallel phases of every family the reference's
+# ShardedEngine(sp > 1) serves, each ShardedEngine(sp=SP) over the weights
+# of the family's own phase: smollm-135m's bf16 modes and its speculative
+# window at SMOLLM_LAYERS, stablelm-12b and granite-moe at PATH_LAYERS,
+# mamba2 at its first MAMBA2_SP_LAYERS layers, seamless at full depth,
+# llava at PATH_LAYERS; each holds its timed run's first request against
+# the same sp engine on the CPU over SP_CPU_STEPS teacher-forced steps,
+# but granite-moe and llava, which hold theirs against the card's plain
+# versions and a short request (1 x SP_CPU_PROMPT tokens with
+# CPU_MM_PATCHES patches; the MoE copy's requests) on the CPU through
+# their first SP_CPU_LAYERS layers, the depth of their [<arch> cpu check]
+# copies: at 8 layers granite-moe's routers part past ROUTER_NEAR_TIE
+# (33 of 536 choices over 1 x 64, gaps up to 1.87e-3) and llava's
+# logits by 0.5151 (an H100 at 700 W), and 2 x 3392 positions at width
+# 7168 take the CPU minutes
+MAMBA2_SP_LAYERS = 12
+SP_CPU_PROMPT, SP_CPU_STEPS, SP_CPU_LAYERS = 64, 4, 2
 
 
 def path_config(get_config, arch):
@@ -2116,7 +2185,7 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
                 "decode_attention":
                     n_global * (GEN - 1) if sp == 1 and kv8 else 0,
                 "decode_attention_partials":
-                    0 if sp == 1 else n_layers * (GEN - 1) * sp,
+                    n_global * (GEN - 1) * sp if sp > 1 and kv8 else 0,
                 "fake_quant": 0}
     int4_expected = ({k: expected[k] for k in ops.ATTENTION}
                      if kv8 and engine.policy.kv_bits == 4
@@ -2162,7 +2231,7 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
           + (f"graphs captured in {warm.compile_s:.3f} s before the timed "
              f"windows (compile_s of the first call; the timed call "
              f"{res.compile_s:.1f})" if graphs else
-             f"eager driver: {engine.eager_reason()}"))
+             f"no graphs: {engine.eager_reason()}"))
     if graphs and (warm.compile_s <= 0.0 or res.compile_s != 0.0):
         raise AssertionError(f"compile_s {warm.compile_s} then "
                              f"{res.compile_s}: the first call must capture, "
@@ -2326,19 +2395,25 @@ def print_walls(walls, card):
 
 
 def cpu_check(torch, A, engine, prompts, toks, tol, label, n_check=4,
-              logit_tol=None, plain_ops=None):
+              logit_tol=None, plain_ops=None, held=None, forced=None):
     """Teacher-forced logits of the GPU engine against the same engine
     moved to the CPU (plain versions), over ``n_check`` steps: the GPU's
     token must be the CPU's argmax or within ``tol`` of it (a near-tie that
     rounding may flip), and no logit may differ by more than ``logit_tol``
     (``tol`` when not given).  With ``plain_ops`` (the ``kernels.ops``
     module) the twin is the same engine on the card with every kernel's
-    plain version instead."""
+    plain version instead.  ``held``, called once both devices have run,
+    returns an (n_check, B) bool mask: only the (step, request) pairs it
+    marks are held to ``tol`` and ``logit_tol`` (the MoE copies: a request
+    up to its first routing flip), and at least half must be.  ``forced``:
+    the two devices' logits of the same steps, already run (``stage_gaps``
+    returns them), in place of running them again."""
     logit_tol = tol if logit_tol is None else logit_tol
     tok_t = torch.as_tensor(toks, dtype=torch.long)
     if not isinstance(prompts, dict):
         prompts = torch.as_tensor(prompts)
-    gpu = forced_logits(torch, A, engine, prompts, tok_t, n_check)
+    gpu = (forced_logits(torch, A, engine, prompts, tok_t, n_check)
+           if forced is None else forced[0])
     for i, lg in enumerate(gpu):
         if not torch.equal(lg.argmax(-1), tok_t[:, i]):
             raise AssertionError(f"step {i}: teacher-forced GPU argmax "
@@ -2346,7 +2421,9 @@ def cpu_check(torch, A, engine, prompts, toks, tol, label, n_check=4,
         if not bool(torch.isfinite(lg).all()):
             raise AssertionError(f"step {i}: non-finite logits")
     t0 = time.perf_counter()
-    if plain_ops is None:
+    if forced is not None:
+        twin, cpu = "the CPU (plain versions; the stage trace's run)", forced[1]
+    elif plain_ops is None:
         twin = "the CPU (plain versions)"
         cpu = forced_logits(torch, A, engine.to("cpu"), prompts, tok_t,
                             n_check)
@@ -2354,12 +2431,17 @@ def cpu_check(torch, A, engine, prompts, toks, tol, label, n_check=4,
         twin = "the card with the plain versions"
         with plain_ops.plain_versions():
             cpu = forced_logits(torch, A, engine, prompts, tok_t, n_check)
+    n_rows = tok_t.shape[0]
+    mask = (torch.ones((n_check, n_rows), dtype=torch.bool) if held is None
+            else held())
     worst, same, ties, gaps, steps = 0.0, 0, 0, [], []
     for i, (g_lg, c_lg) in enumerate(zip(gpu, cpu)):
-        steps.append((g_lg - c_lg).abs().max().item())
+        rows = mask[i].nonzero()[:, 0]
+        steps.append((g_lg[rows] - c_lg[rows]).abs().max().item()
+                     if len(rows) else 0.0)
         worst = max(worst, steps[-1])
         pick = c_lg.argmax(-1)
-        for r in range(tok_t.shape[0]):
+        for r in rows.tolist():
             gap = (c_lg[r, pick[r]] - c_lg[r, tok_t[r, i]]).item()
             if int(pick[r]) == int(tok_t[r, i]):
                 same += 1
@@ -2371,19 +2453,24 @@ def cpu_check(torch, A, engine, prompts, toks, tol, label, n_check=4,
     # the logits' own size, over the real vocabulary (the padded entries
     # read -1e9 on both devices)
     real = torch.cat([lg[:, :engine.cfg.vocab] for lg in cpu]).abs()
+    n_held = int(mask.sum())
     print(f"[{label}] {n_check} teacher-forced steps on {twin} "
           f"in {time.perf_counter() - t0:.1f} s: max |logit diff| "
           f"{worst:.4f} (tolerance {logit_tol}; by step "
           f"{', '.join(f'{e:.4f}' for e in steps)}; max |logit| "
           f"{real.max().item():.3f}, median "
           f"{real.median().item():.3f}); greedy tokens equal "
-          f"{same}/{n_check * tok_t.shape[0]}, near-ties {ties}, further "
-          f"apart "
-          f"{len(gaps)}")
+          f"{same}/{n_held}, near-ties {ties}, further apart {len(gaps)}"
+          + ("" if held is None else
+             f"; held to the limits: {n_held} of {mask.numel()} "
+             "(request, step) pairs"))
     if gaps:
         raise AssertionError(f"tokens differ by more than {tol}: {gaps}")
     if worst > logit_tol:
         raise AssertionError(f"GPU and CPU logits differ by {worst}")
+    if 2 * n_held < mask.numel():
+        raise AssertionError(f"only {n_held} of {mask.numel()} (request, "
+                             "step) pairs held to the limits")
 
 
 def int8_bytes(torch, tree) -> int:
@@ -2548,35 +2635,56 @@ def drive_ring_path(torch, ops, A, Engine, engine, label, kind, card, walls,
 CPU_WINDOW = 32
 
 
-def routing_flips(records, n_tokens):
-    """(token choices, those whose expert set differs between the card and
-    the CPU, the largest probability gap at such a choice) from a
-    ``moe.routing_log``'s records of the same steps on both devices; each
-    device must have routed ``n_tokens`` (layers x tokens)."""
-    by_dev = {dev: [(idx, gap) for d, idx, gap in records if d == dev]
-              for dev in ("cuda", "cpu")}
-    for dev, recs in by_dev.items():
+def routing_flips(records, n_tokens, s, n_moe):
+    """(token choices, those whose expert set differs between two runs of
+    the same teacher-forced steps, the largest probability gap at such a
+    choice, each request's first position with a flipped choice) from a
+    ``moe.routing_log``'s records of the two runs one after the other (the
+    card's, then the CPU's or the card's with the plain versions): a
+    prefill over positions 0..s-1, then one decode call a position, each
+    call one record per MoE layer (``n_moe``); each run must have routed
+    ``n_tokens`` (layers x requests x positions)."""
+    half = len(records) // 2
+    runs = {"first": [(idx, gap) for _, idx, gap in records[:half]],
+            "second": [(idx, gap) for _, idx, gap in records[half:]]}
+    for run, recs in runs.items():
         got = sum(idx.shape[0] * idx.shape[1] for idx, _ in recs)
         if got != n_tokens:
-            raise AssertionError(f"routing log: {dev} routed {got} token "
-                                 f"choices, expected {n_tokens}")
-    total, flipped, worst = 0, 0, 0.0
-    for (a, gap), (b, _) in zip(by_dev["cuda"], by_dev["cpu"]):
+            raise AssertionError(f"routing log: the {run} run routed {got} "
+                                 f"token choices, expected {n_tokens}")
+    total, flipped, worst, first = 0, 0, 0.0, {}
+    for k, ((a, gap), (b, _)) in enumerate(zip(runs["first"],
+                                               runs["second"])):
         if a.shape != b.shape:
-            raise AssertionError(f"routing log: the devices' dispatches "
+            raise AssertionError(f"routing log: the runs' dispatches "
                                  f"pair {tuple(a.shape)} with "
                                  f"{tuple(b.shape)}")
-        diff = (a != b).any(-1)
+        diff = (a != b).any(-1)                 # (requests, positions)
         total += diff.numel()
         flipped += int(diff.sum())
         if diff.any():
             worst = max(worst, float(gap[diff].max()))
-    return total, flipped, worst
+        call = k // n_moe
+        pos0 = 0 if call == 0 else s + call - 1
+        for r, t in diff.nonzero().tolist():
+            first[r] = min(first.get(r, pos0 + t), pos0 + t)
+    return total, flipped, worst, first
+
+
+def readout_qparams(cfg, qparams):
+    """``qparams`` with an untied lm_head's activation thresholds taken
+    from the last block's ``wq`` (both read a norm's output); a tied
+    readout's come back as they are."""
+    if cfg.tie_embeddings:
+        return qparams
+    head = f"{cfg.name}/lm_head"
+    last = f"{cfg.name}/stack/layer{cfg.n_layers - 1}/attn/wq"
+    return {**qparams, head: {**qparams[head], "act": qparams[last]["act"]}}
 
 
 def readout_thresholds(Engine, engine, label):
     """The engine with an untied lm_head served on the last block's ``wq``
-    activation thresholds (both read a norm's output): calibration, as the
+    activation thresholds (``readout_qparams``): calibration, as the
     reference's, never observes the readout's input and leaves its
     threshold at the 1e-8 floor, where every logit is ~1e-8 and a check of
     the logits would hold for any readout.  A tied readout's engine comes
@@ -2584,16 +2692,13 @@ def readout_thresholds(Engine, engine, label):
     cfg = engine.cfg
     if cfg.tie_embeddings:
         return engine
-    head = f"{cfg.name}/lm_head"
-    last = f"{cfg.name}/stack/layer{cfg.n_layers - 1}/attn/wq"
-    floor = engine.qparams[head]["act"]["t_max"].item()
-    qparams = {**engine.qparams, head: {
-        **engine.qparams[head], "act": engine.qparams[last]["act"]}}
+    floor = engine.qparams[f"{cfg.name}/lm_head"]["act"]["t_max"].item()
     print(f"[{label}] the untied lm_head's calibrated activation threshold "
           f"is {floor:.1e} (the floor); served here with the last block's "
           "wq thresholds")
     return Engine(engine.model, cfg, engine.policy, engine.serve_params,
-                  qparams, device=engine.device, mode=engine.mode)
+                  readout_qparams(cfg, engine.qparams), device=engine.device,
+                  mode=engine.mode)
 
 
 def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
@@ -2624,14 +2729,15 @@ def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
     cut = cfg.replace(**over)
     engine, build_s = wide_engine(torch, Engine, build_model, cut, seed=1)
     engine = readout_thresholds(Engine, engine, label)
-    s, gen = 64, 8
+    gen = 8
+    b, s = MOE_CPU_REQUESTS.get(cfg.name, 1), MOE_CPU_PROMPT.get(cfg.name, 64)
     n_check = CPU_CHECK_STEPS.get(cfg.name, gen)
-    prompts = np.random.default_rng(11).integers(0, cfg.vocab, (1, s),
+    prompts = np.random.default_rng(11).integers(0, cfg.vocab, (b, s),
                                                  dtype=np.int32)
     n_attn, n_global, _ = path_layers(cut)
     n_local = n_attn - n_global
     layouts = [c["attn"].layout for c in engine.init_cache(
-        1, engine._cache_len(s, gen)).values() if "attn" in c]
+        b, engine._cache_len(s, gen)).values() if "attn" in c]
     if layouts.count("ring") != n_local:
         raise AssertionError(f"{n_local} windowed layers, caches {layouts}")
     engine.generate_batch({"tokens": prompts}, gen=gen)   # captures
@@ -2641,7 +2747,7 @@ def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
            ops.window_launch_counts()["prefill_attention"])
     want = (n_global * (gen - 1), n_local)
     print(f"[{label}] {cfg.name} at full width, {over} (built in "
-          f"{build_s:.1f} s): 1 x {s} prompt, {gen} tokens "
+          f"{build_s:.1f} s): {b} x {s} prompts, {gen} tokens "
           f"{res.tokens.tolist()}; caches {layouts}; decode_attention and "
           f"windowed prefill_attention launches {got} (expected {want})")
     if got != want:
@@ -2650,21 +2756,72 @@ def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
         cpu_check(torch, A, engine, prompts, res.tokens.cpu(), LOGIT_ATOL,
                   label, n_check=n_check, logit_tol=WIDE_LOGIT_ATOL[cfg.name])
         return
-    from repro_torch.models import moe
-
-    with moe.routing_log() as log:
+    with moe_held(label, cut, b, s, n_check) as held:
         try:
             cpu_check(torch, A, engine, prompts, res.tokens.cpu(),
                       LOGIT_ATOL, label, n_check=n_check,
-                      logit_tol=WIDE_LOGIT_ATOL[cfg.name])
+                      logit_tol=WIDE_LOGIT_ATOL[cfg.name], held=held)
         finally:
-            total, flipped, worst = routing_flips(
-                log, cut.n_layers * (s + n_check - 1))
-            print(f"[{label}] routing, card vs CPU over the {n_check} teacher-"
-                  f"forced steps: {flipped} of {total} token choices (layer x "
-                  f"token) sent to other experts"
-                  + (f", at probability gaps up to {worst:.2e}" if flipped
-                     else ""))
+            if held.unflipped and not cut.window_all:
+                stage_gaps(torch, A, engine, prompts, res.tokens.cpu(),
+                           n_check, label, rows=held.unflipped)
+
+
+class moe_held:
+    """A ``moe.routing_log`` around an MoE engine's ``cpu_check`` of ``b``
+    requests of ``s`` tokens over ``n_check`` teacher-forced steps; called
+    (as ``cpu_check``'s ``held``) it counts the routing choices that the
+    card and its twin (``twin``: the CPU, or the card's plain versions)
+    make otherwise, fails unless each is a near-tie (a probability gap of
+    at most ``ROUTER_NEAR_TIE``), prints the three counts (flipped
+    choices, requests cut at a flip, pairs held) and returns the
+    (n_check, b) mask of the pairs before each request's first flip: step
+    i reads positions up to s - 1 + i.  ``unflipped`` then lists the
+    requests with no flip."""
+
+    def __init__(self, label, cfg, b, s, n_check, twin="CPU"):
+        self.label, self.cfg, self.twin = label, cfg, twin
+        self.b, self.s, self.n_check = b, s, n_check
+        self.unflipped = None
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._log = moe.routing_log()
+        self.records = self._log.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._log.__exit__(*exc)
+
+    def __call__(self):
+        import torch
+
+        n_moe = sum(self.cfg.layer_kind(i) != "mamba"
+                    for i in range(self.cfg.n_layers))
+        total, flipped, worst, first = routing_flips(
+            self.records, n_moe * self.b * (self.s + self.n_check - 1),
+            self.s, n_moe)
+        steps = torch.arange(self.n_check)[:, None] + self.s - 1
+        cut = torch.tensor([first.get(r, self.s + self.n_check)
+                            for r in range(self.b)])
+        mask = steps < cut[None, :]
+        self.unflipped = [r for r in range(self.b) if r not in first]
+        print(f"[{self.label}] routing, card vs {self.twin} over the "
+              f"{self.n_check} "
+              f"teacher-forced steps of {self.b} x {self.s} prompts: "
+              f"{flipped} of {total} token choices (layer x token) sent to "
+              f"other experts"
+              + (f", at probability gaps up to {worst:.2e} (near-tie limit "
+                 f"{ROUTER_NEAR_TIE})" if flipped else "")
+              + f"; {len(first)} of {self.b} requests cut at their first "
+              f"flip (positions {sorted(first.values())}); "
+              f"{int(mask.sum())} of {mask.numel()} (request, step) pairs "
+              "held to the limits")
+        if worst > ROUTER_NEAR_TIE:
+            raise AssertionError(f"a routing choice flipped at a probability "
+                                 f"gap of {worst} > {ROUTER_NEAR_TIE}")
+        return mask
 
 
 def media_batch(cfg, b, s_text, s_frames, seed):
@@ -2871,65 +3028,118 @@ def drive_media_path(torch, ops, A, Engine, build_model, cfg, label, kind,
     return engine, tuple(counts)
 
 
-def prefill_gaps(torch, A, engine, batch, label):
-    """Where the card and the CPU part in a VLM's prefill: each stage (the
-    patches' ``mm_proj``, each layer's pre_norm, attention and ffn
-    residual, the final norm, the last position's logits over the real
-    vocabulary) runs on both devices; printed for each stage: the largest
-    |difference| of its output with each device's own inputs (``total``),
-    with the CPU fed the card's input of that stage (``local``: what the
-    stage adds by itself), and the largest |value| of the card's output.
-    The two stages that are B3 alone (``mm_proj``, the logits) must add
-    nothing: local 0."""
-    from repro_torch.launch.engine import model_inputs
+def stage_gaps(torch, A, engine, batch, tokens, n_steps, label, rows=None,
+               exact=()):
+    """Where the card and the CPU part, stage by stage, in an attention
+    decoder's prefill and its ``n_steps`` - 1 decode steps teacher-forced
+    on ``tokens`` (text or VLM, dense or MoE ffn; a ShardedEngine's under
+    its shard scope): each stage (a VLM's ``mm_proj``, each layer's
+    pre_norm, attention and ffn residual, the final norm, the last
+    position's logits over the real vocabulary) runs on both devices.
+    Printed for each call and stage: the largest |difference| of its
+    output with each device's own inputs (``total``), with the CPU fed the
+    card's input of that stage and, for an attention, a copy of the card's
+    cache before it (``local``: what the stage adds by itself), and the
+    largest |value| of the card's output; over the requests ``rows`` only
+    where given.  The stages in ``exact`` (B3 alone: a VLM's ``mm_proj``,
+    an untied readout) must add nothing: local 0 in every call; every
+    other stage at most STAGE_LOCAL_ATOL.  Returns ({call: {stage: (total,
+    local, largest)}}, the card's and the CPU's logits of each call over
+    the real vocabulary: ``cpu_check``'s ``forced``)."""
+    import dataclasses
 
-    def stages(eng, feed=None):
-        model, p, cfg = eng.model, eng.serve_params, eng.cfg
+    from repro_torch.launch.engine import model_inputs
+    from repro_torch.shard.context import ShardContext, shard_scope
+
+    batch = batch if isinstance(batch, dict) else {"tokens": batch}
+
+    def cache_copy(c):
+        return dataclasses.replace(c, **{n: getattr(c, n).to("cpu", copy=True)
+                                         for n in ("k", "v", "k_scale",
+                                                   "v_scale")})
+
+    def trace(eng, feed=None):
+        model = getattr(eng, "base_model", eng.model)
+        p, cfg = eng.serve_params, eng.cfg
+        if cfg.family == "encdec" or any(
+                cfg.layer_kind(i) == "mamba" for i in range(cfg.n_layers)):
+            raise ValueError(f"{cfg.name}: attention decoders only")
         ctx = A.make_ctx(eng.mode, eng.policy, eng.qparams)
         inputs = model_inputs(cfg, batch, eng.device)
         b, s = inputs["tokens"].shape
         cache = eng.init_cache(b, eng._cache_len(s, GEN))
         outs = {}
 
-        def run(name, fn, x):
+        def run(call, name, fn, x, c=None):
+            """fn(x, c) -> (y, the cache after); c the stage's cache."""
             if feed is not None:
-                x = feed[name][0].to(eng.device)
-            outs[name] = (x, fn(x))
-            return outs[name][1]
+                x, c = feed[call][name][0].to(eng.device), feed[call][name][2]
+            snap = cache_copy(c) if c is not None and feed is None else None
+            y, c = fn(x, c)
+            outs.setdefault(call, {})[name] = (x.cpu(), y.float().cpu(), snap)
+            return y, c
 
-        with torch.inference_mode():
-            pe = run("mm_proj", lambda x: model.mm_proj(p["mm_proj"], x, ctx),
-                     inputs["patches"])
-            x = torch.cat([pe.to(cfg.dtype),
-                           model.embed(p["embed"], inputs["tokens"])], dim=1)
+        def layers(call, x, attend):
             for i, blk in enumerate(model.stack.blocks):
-                bp, c = p["stack"][f"layer{i}"], cache[f"layer{i}"]["attn"]
-                h = run(f"layer {i} pre_norm",
-                        lambda x: blk.pre_norm(bp["pre_norm"], x), x)
-                a = run(f"layer {i} attention",
-                        lambda h: blk.attn.prefill(bp["attn"], h, c, ctx)[0],
-                        h)
-                x = run(f"layer {i} ffn",
-                        lambda x: blk._ffn_residual(bp, x, ctx), x + a)
-            h = run("final norm", lambda x: model.stack.final_norm(
-                p["stack"]["final_norm"], x), x)
-            run("logits", lambda h: model.readout_fn(p, ctx)(h)[
-                ..., :cfg.vocab], h[:, -1:])
-        return {k: (x.cpu(), y.float().cpu()) for k, (x, y) in outs.items()}
+                bp = p["stack"][f"layer{i}"]
+                h, _ = run(call, f"layer {i} pre_norm", lambda x, _: (
+                    blk.pre_norm(bp["pre_norm"], x), None), x)
+                a, cache[f"layer{i}"]["attn"] = run(
+                    call, f"layer {i} attention",
+                    lambda h, c: attend(blk, bp["attn"], h, c), h,
+                    cache[f"layer{i}"]["attn"])
+                x, _ = run(call, f"layer {i} ffn", lambda x, _: (
+                    blk._ffn_residual(bp, x, ctx), None), x + a)
+            h, _ = run(call, "final norm", lambda x, _: (
+                model.stack.final_norm(p["stack"]["final_norm"], x), None), x)
+            run(call, "logits", lambda h, _: (model.readout_fn(p, ctx)(h)[
+                ..., :cfg.vocab], None), h[:, -1:])
 
-    card = stages(engine)
+        sp = getattr(eng, "sp", 1)
+        with torch.inference_mode(), shard_scope(ShardContext(sp=sp)):
+            x = model.embed(p["embed"], inputs["tokens"])
+            if "patches" in inputs:
+                pe, _ = run("prefill", "mm_proj", lambda x, _: (
+                    model.mm_proj(p["mm_proj"], x, ctx), None),
+                    inputs["patches"])
+                x = torch.cat([pe.to(cfg.dtype), x], dim=1)
+            layers("prefill", x, lambda blk, bp, h, c: blk.attn.prefill(
+                bp, h, c, ctx))
+            tok = torch.as_tensor(tokens).to(eng.device)
+            for i in range(n_steps - 1):
+                pos = s + eng._prefix_len() + i
+                layers(f"step {i + 1}", model.embed(p["embed"],
+                                                    tok[:, i:i + 1]),
+                       lambda blk, bp, h, c, pos=pos: blk.attn.decode(
+                           bp, h, c, pos, ctx))
+        return outs
+
+    card = trace(engine)
     cpu_engine = engine.to("cpu")
-    cpu, fed = stages(cpu_engine), stages(cpu_engine, feed=card)
-    rows = [(k, (y - cpu[k][1]).abs().max().item(),
-             (y - fed[k][1]).abs().max().item(), y.abs().max().item())
-            for k, (_, y) in card.items()]
-    print(f"[{label}] prefill stage by stage, card vs CPU: largest |diff| "
-          "total / local (the CPU fed the card's input) / largest |value|: "
-          + "; ".join(f"{k} {t:.4f} / {lo:.4f} / {m:.3f}"
-                      for k, t, lo, m in rows))
-    exact = {k: lo for k, _, lo, _ in rows if k in ("mm_proj", "logits")}
-    if any(exact.values()):
-        raise AssertionError(f"B3's stages differ on the same input: {exact}")
+    cpu, fed = trace(cpu_engine), trace(cpu_engine, feed=card)
+    pick = (lambda t: t) if rows is None else (lambda t: t[list(rows)])
+    got = {}
+    for call, stages in card.items():
+        got[call] = {k: ((pick(y) - pick(cpu[call][k][1])).abs().max().item(),
+                         (pick(y) - pick(fed[call][k][1])).abs().max().item(),
+                         pick(y).abs().max().item())
+                     for k, (_, y, _) in stages.items()}
+        print(f"[{label}] {call} stage by stage, card vs CPU"
+              + ("" if rows is None else f" (requests {list(rows)})")
+              + ": largest |diff| total / local (the CPU fed the card's "
+              "input and cache) / largest |value|: " + "; ".join(
+                  f"{k} {t:.4f} / {lo:.4f} / {m:.3f}"
+                  for k, (t, lo, m) in got[call].items()))
+    bad = {(call, k): v[1] for call, st in got.items() for k, v in st.items()
+           if k in exact and v[1]}
+    if bad:
+        raise AssertionError(f"B3's stages differ on the same input: {bad}")
+    worst = max(v[1] for st in got.values() for v in st.values())
+    if worst > STAGE_LOCAL_ATOL:
+        raise AssertionError(f"a stage differs by {worst} on the same input "
+                             f"(limit {STAGE_LOCAL_ATOL})")
+    return got, tuple([run[call]["logits"][1][:, -1] for call in card]
+                      for run in (card, cpu))
 
 
 def check_media_cpu(torch, ops, A, Engine, build_model, cfg, label):
@@ -2940,8 +3150,8 @@ def check_media_cpu(torch, ops, A, Engine, build_model, cfg, label):
     8 generated tokens through the captured programs with the launches of
     ``media_launches``, held against the same engine on the CPU
     (``cpu_check``: tokens within ``LOGIT_ATOL``, logits within
-    ``WIDE_LOGIT_ATOL``; llava's prefill first stage by stage,
-    ``prefill_gaps``)."""
+    ``WIDE_LOGIT_ATOL``; llava's prefill and steps first stage by stage,
+    ``stage_gaps``)."""
     free_card(torch)
     over = dict(n_layers=2)
     vlm = cfg.modality == "vlm"
@@ -2967,11 +3177,12 @@ def check_media_cpu(torch, ops, A, Engine, build_model, cfg, label):
           f"(expected {want})")
     if got != want:
         raise AssertionError(f"launches {got} != {want}")
-    if vlm:
-        prefill_gaps(torch, A, engine, batch, label)
+    n_check = CPU_CHECK_STEPS.get(cfg.name, gen)
+    forced = stage_gaps(torch, A, engine, batch, res.tokens.cpu(), n_check,
+                        label, exact=("mm_proj", "logits"))[1] if vlm else None
     cpu_check(torch, A, engine, batch, res.tokens.cpu(), LOGIT_ATOL, label,
-              n_check=CPU_CHECK_STEPS.get(cfg.name, gen),
-              logit_tol=WIDE_LOGIT_ATOL[cfg.name])
+              n_check=n_check, logit_tol=WIDE_LOGIT_ATOL[cfg.name],
+              forced=forced)
 
 
 class GatherCount:
@@ -3332,6 +3543,161 @@ def check_sp_scheduler(torch, ops, A, ST, Engine, ShardedEngine, Request,
     print(f"[sp scheduler] completions equal to the unsharded scheduler's "
           f"({base_s:.2f} s) for {equal}/{len(done)} requests")
     return counts
+
+
+def drive_sp_phase(torch, ops, A, ST, SG, prng, ShardedEngine, build_model,
+                   engine, batch, label, kind, card, *, greedy=None,
+                   cpu_over=None, **kw):
+    """The weights and thresholds of ``engine`` (a family's own phase: no
+    new draw; an untied readout served on the last block's ``wq``
+    thresholds, ``readout_qparams``) as ``ShardedEngine(sp=SP)`` over
+    dense caches, with ``kw`` (the speculative strategy): ``batch`` (a
+    token or media batch) for GEN tokens through its programs, uncaptured
+    under sp, after a warm-up call, the launch counts zeroed just before and read just
+    after: B4 once per shard and global layer a decode step over a
+    quantized cache (n_global x (GEN - 1) x SP), none over a float cache
+    or in speculative verify windows (plain attention there, as in the
+    reference), no B1 and no B2, B3 as on the unsharded path.  Prints
+    prefill ms, decode ms a step (a verify window) and the launches.  With
+    ``greedy`` (the card's sp greedy tokens of the same batch) the
+    speculative tokens must equal them up to a near-tie (``LOGIT_ATOL``
+    below the argmax of the greedy sp steps teacher-forced on them), the
+    eager window steps must give them bit for bit, and the windows and
+    acceptance are printed.  Then the timed run's first request and its
+    tokens on the card, held against the same sp engine on the CPU over
+    SP_CPU_STEPS teacher-forced steps (``cpu_check``: tokens under the
+    near-tie rule, logits within ``WIDE_LOGIT_ATOL`` or LOGIT_ATOL).  With ``cpu_over`` (granite-moe, llava: the CPU cannot
+    hold their timed shapes, see SP_CPU_LAYERS) the whole timed run is held
+    against the same engine on the card with the plain versions instead,
+    and a short request (1 x SP_CPU_PROMPT tokens with a VLM's
+    CPU_MM_PATCHES patches; an MoE config's ``MOE_CPU_REQUESTS`` x
+    ``MOE_CPU_PROMPT``) against the CPU through a twin of the same weights
+    whose config takes ``cpu_over`` (the first ``n_layers``; a VLM's fewer
+    patches); a VLM's twin is traced stage by stage (``stage_gaps``,
+    whose runs the check reuses) and then held unsharded (sp=1) against
+    the CPU on the same request.  An MoE
+    engine is held up to each request's first routing flip
+    (``moe_held``).  Returns the launch counts and their int4 variants'.
+    """
+    cfg = engine.cfg
+    base = getattr(engine, "base_model", engine.model)
+    qparams = readout_qparams(cfg, engine.qparams)
+    kw = dict(device=engine.device, sp=SP, mode=engine.mode,
+              cache_layout="dense", **kw)
+    sharded = ShardedEngine(base, cfg, engine.policy, engine.serve_params,
+                            qparams, **kw)
+    speculative = sharded.decode_strategy == "speculative"
+    media = cfg.family == "encdec" or cfg.modality == "vlm"
+    sharded.generate_batch(batch, gen=2)                 # warm-up
+    ops.reset_launches()
+    res = sharded.generate_batch(batch, gen=GEN)
+    got, int4 = ops.launch_counts(), ops.int4_launch_counts()
+    _, n_global, per_token = path_layers(cfg)
+    qmm = media_launches(cfg, GEN)["quant_matmul"] if media else (
+        per_token * GEN)
+    quantized = bool(engine.policy.kv_int8)
+    want = {"quant_matmul": qmm if engine.mode == "int8" else 0,
+            "prefill_attention": 0, "decode_attention": 0,
+            "decode_attention_partials":
+                n_global * (GEN - 1) * SP if quantized and not speculative
+                else 0,
+            "fake_quant": 0}
+    b, s = batch["tokens"].shape
+    per = "verify window" if speculative else "step"
+    print(f"[{label}] {cfg.name} ({cfg.n_layers} layers, full width), sp="
+          f"{SP}, {engine.mode} weights, "
+          f"{'int8' if quantized else 'bf16'} KV cache"
+          f"{', speculative spec_k ' + str(SPEC_K) if speculative else ''}: "
+          f"prefill {b} x {s}"
+          + (f" + {batch['frames'].shape[1]} frames" if "frames" in batch
+             else f" + {cfg.mm_patches} patches" if "patches" in batch
+             else "")
+          + f" {res.prefill_s * 1e3:.1f} ms; decode "
+          f"{res.decode_s / (GEN - 1) * 1e3:.2f} ms per {per} of {b} "
+          f"requests (uncaptured programs) on {kind} ({card}); kernel "
+          f"launches "
+          f"{got} (expected {want}): B4 "
+          f"{got['decode_attention_partials']}")
+    if got != want:
+        raise AssertionError(f"launch counts {got} != {want}")
+    if not bool(torch.isfinite(res.prefill_logits).all()):
+        raise AssertionError("non-finite prefill logits")
+    toks = res.tokens.cpu()
+    if toks.shape != (b, GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
+    if greedy is not None:
+        eager, stats = spec_eager(torch, ST, SG, prng, sharded,
+                                  batch["tokens"])
+        if not torch.equal(eager.cpu(), toks):
+            raise AssertionError("the sp speculative windows run step by "
+                                 "step disagree with generate_batch")
+        same = int((toks == greedy.cpu()).sum())
+        gap = 0.0 if same == greedy.numel() else forced_gap(
+            torch, A, sharded, batch["tokens"], res.tokens)
+        print(f"[{label}] tokens equal the sp greedy path's {same}/"
+              f"{greedy.numel()} (teacher-forced gap of the speculative "
+              f"tokens below the greedy sp argmax {gap:.4f}, near-tie "
+              f"tolerance {LOGIT_ATOL}); the windows step by step give them "
+              f"bit for bit; windows {stats['windows']}, with a live row "
+              f"{stats['windows_live']}; {stats['tokens_per_window']:.3f} "
+              f"tokens per row window, acceptance "
+              f"{stats['acceptance_rate']:.3f}")
+        if not gap <= LOGIT_ATOL:
+            raise AssertionError(f"speculative tokens {gap} below the "
+                                 "greedy sp argmax")
+    moe = cfg.ffn == "moe"
+    tol = WIDE_LOGIT_ATOL.get(cfg.name, LOGIT_ATOL)
+
+    def held_check(eng, prompts, toks, lab, twin="CPU", **kw):
+        b, s = np.shape(prompts["tokens"])
+        if not moe:
+            return cpu_check(torch, A, eng, prompts, toks, LOGIT_ATOL, lab,
+                             n_check=SP_CPU_STEPS, logit_tol=tol, **kw)
+        with moe_held(lab, eng.cfg, b, s, SP_CPU_STEPS, twin) as held:
+            cpu_check(torch, A, eng, prompts, toks, LOGIT_ATOL, lab,
+                      n_check=SP_CPU_STEPS, logit_tol=tol, held=held, **kw)
+
+    if not cpu_over:
+        # the timed run's first request and its tokens on the CPU
+        held_check(sharded, {k: v[:1] for k, v in batch.items()}, toks[:1],
+                   label)
+        return got, int4
+    # the timed run whole against the card's plain versions, then a short
+    # request through a cut twin of the same weights on the CPU
+    held_check(sharded, batch, toks, f"{label} plain",
+               twin="the card's plain versions", plain_ops=ops)
+    cpu_cfg = cfg.replace(**cpu_over)
+    params = engine.serve_params
+    if "n_layers" in cpu_over:
+        stack = params["stack"]
+        params = {**params, "stack": {
+            **{f"layer{i}": stack[f"layer{i}"]
+               for i in range(cpu_cfg.n_layers)},
+            "final_norm": stack["final_norm"]}}
+    twin = ShardedEngine(build_model(cpu_cfg), cpu_cfg, engine.policy,
+                         params, readout_qparams(cpu_cfg, engine.qparams),
+                         **kw)
+    b, s = ((MOE_CPU_REQUESTS.get(cfg.name, 1),
+             MOE_CPU_PROMPT.get(cfg.name, SP_CPU_PROMPT)) if moe
+            else (1, SP_CPU_PROMPT))
+    short = (media_batch(cpu_cfg, b, s, CPU_FRAMES, 7) if media
+             else {"tokens": np.random.default_rng(7).integers(
+                 0, cfg.vocab, (b, s), dtype=np.int32)})
+    toks = twin.generate_batch(short, gen=SP_CPU_STEPS).tokens.cpu()
+    if moe:
+        held_check(twin, short, toks, label)
+        return got, int4
+    forced = stage_gaps(torch, A, twin, short, toks, SP_CPU_STEPS, label,
+                        exact=("mm_proj", "logits"))[1]
+    held_check(twin, short, toks, label, forced=forced)
+    # the same twin unsharded (sp=1: an Engine), on the same request
+    flat = ShardedEngine(twin.base_model, cpu_cfg, engine.policy, params,
+                         twin.qparams, **{**kw, "sp": 1})
+    cpu_check(torch, A, flat, short, flat.generate_batch(
+        short, gen=SP_CPU_STEPS).tokens.cpu(), LOGIT_ATOL,
+        f"{label} unsharded twin", n_check=SP_CPU_STEPS, logit_tol=tol)
+    return got, int4
 
 
 def check_prefix(torch, ops, Request, engine, kind, card):
@@ -4814,17 +5180,26 @@ def main() -> int:
                                              cfg_m, sms, extra_rows=rows)
         kernels.append(check_quant_matmul_frontend(torch, ops, ref, dev, arch,
                                                    cfg_m))
+    sp_heads = {"granite-moe": MOE_HEADS, **{
+        MEDIA_ARCHS[a]: h for a, h in MEDIA_HEADS.items()}}
+    print("[kernels] B4 (the sequence-parallel decode's partials) at the "
+          "heads (KV, G, D) of the new sp phases, int8 and int4: "
+          + ", ".join(f"{k} {h}" for k, h in sp_heads.items()) + " (stablelm-"
+          "12b's (8, 4, 160) above):")
+    for heads in sp_heads.values():
+        for bits in (8, 4):
+            kernels.append(check_partials(torch, ops, ref, dev, bits, *heads))
 
     phases = {"build": build_s, "kernels": time.perf_counter() - t_kern}
 
     failures = []
 
-    def phase(name, fn, *args):
+    def phase(name, fn, *args, **kw):
         """Run one checked phase and time it; a failed check is recorded
         and the later phases still run, so one run reports them all."""
         t0 = time.perf_counter()
         try:
-            return fn(*args)
+            return fn(*args, **kw)
         except AssertionError as err:
             failures.append(f"[{name}] {err}")
             print(f"[{name}] FAILED: {err}")
@@ -4882,6 +5257,9 @@ def main() -> int:
     # bf16 weights and/or a bf16 KV cache; the bf16-KV launches of each path
     smollm_cut = get_config("smollm-135m").replace(n_layers=SMOLLM_LAYERS)
     bf16_runs, paged_bf16 = {}, None
+    # the sequence-parallel phases of this slice, by label: (launch counts,
+    # int4 variants), each read from its timed run
+    sp_runs = {}
     for name, flags in SERVING_MODES.items():
         t0 = time.perf_counter()
         eng = Engine.from_checkpoint(cfg=smollm_cut, smoke=False, **flags)
@@ -4918,6 +5296,11 @@ def main() -> int:
                           SLOTS, 2, f"{name} scheduler")
             if sched is not None:
                 bf16_runs[f"{name} scheduler"] = sched[1]
+        # the same weights with SP sequence shards (no new draw)
+        label = f"sp bf16 paths {name}"
+        sp_runs[label] = phase(label, drive_sp_phase, torch, ops, A, ST, SG,
+                               prng, ShardedEngine, build_model, eng,
+                               {"tokens": prompts}, label, kind, card)
         del eng
 
     t0 = time.perf_counter()
@@ -5026,6 +5409,12 @@ def main() -> int:
               out_sp[0].tokens.cpu(), LOGIT_ATOL, "sp cpu check")
     sp_sched = phase("sp scheduler", check_sp_scheduler, torch, ops, A, ST,
                      Engine, ShardedEngine, Request, engine_sp, kind, card)
+    if out_sp is not None:
+        sp_runs["sp speculative"] = phase(
+            "sp speculative", drive_sp_phase, torch, ops, A, ST, SG, prng,
+            ShardedEngine, build_model, engine_sp, {"tokens": prompts},
+            "sp speculative", kind, card, greedy=out_sp[0].tokens,
+            **SPECULATIVE)
     del engine_sp
 
     # the training driver; its checkpoints live in temporary directories
@@ -5051,6 +5440,15 @@ def main() -> int:
                 ring_run = phase("gemma3-12b ring", drive_ring_path, torch,
                                  ops, A, Engine, engine_w, "gemma3-12b ring",
                                  kind, card, walls)
+            if arch == "stablelm-12b":
+                # B4 at D 160 on a model path: the same weights, sp=SP
+                sp_runs["stablelm sp"] = phase(
+                    "stablelm sp", drive_sp_phase, torch, ops, A, ST, SG,
+                    prng, ShardedEngine, build_model, engine_w,
+                    {"tokens": np.random.default_rng(sum(map(
+                        ord, arch))).integers(0, engine_w.cfg.vocab,
+                                              (B, PROMPT), dtype=np.int32)},
+                    "stablelm sp", kind, card)
             del engine_w, run
         phase(f"{arch} cpu check", check_arch_cpu, torch, ops, A, Engine,
               build_model, get_config(arch), f"{arch} cpu check")
@@ -5070,6 +5468,14 @@ def main() -> int:
                     "granite-moe scheduler", check_moe_scheduler, torch, ops,
                     A, ST, Engine, Request, build_model, engine_m, kind,
                     card, "granite-moe scheduler")
+                sp_runs["granite-moe sp"] = phase(
+                    "granite-moe sp", drive_sp_phase, torch, ops, A, ST, SG,
+                    prng, ShardedEngine, build_model, engine_m,
+                    {"tokens": np.random.default_rng(sum(map(
+                        ord, arch))).integers(0, engine_m.cfg.vocab,
+                                              (B, PROMPT), dtype=np.int32)},
+                    "granite-moe sp", kind, card,
+                    cpu_over=dict(n_layers=SP_CPU_LAYERS))
             else:
                 moe_runs["mixtral ring"] = phase(
                     "mixtral ring", drive_ring_path, torch, ops, A, Engine,
@@ -5097,6 +5503,13 @@ def main() -> int:
                                 "mamba2 sample", False)
                 if sampled is not None:
                     ssm_runs["mamba2 sample"] = (sampled[1],)
+                cut = cut_engine(Engine, build_model, engine_s,
+                                 MAMBA2_SP_LAYERS)
+                sp_runs["mamba2 sp"] = phase(
+                    "mamba2 sp", drive_sp_phase, torch, ops, A, ST, SG, prng,
+                    ShardedEngine, build_model, cut, {"tokens": prompts_s},
+                    "mamba2 sp", kind, card)
+                del cut
             else:
                 ring = cut_engine(Engine, build_model, engine_s,
                                   HYMBA_RING_LAYERS)
@@ -5118,6 +5531,17 @@ def main() -> int:
                     card, walls)
         if run is not None:
             engine_m, media_runs[short] = run
+            vlm = engine_m.cfg.modality == "vlm"
+            batch = (media_batch(engine_m.cfg, LLAVA_B, LLAVA_TEXT, 0, 13)
+                     if vlm else media_batch(engine_m.cfg, SEAMLESS_B,
+                                             SEAMLESS_TEXT, SEAMLESS_FRAMES,
+                                             13))
+            sp_runs[f"{short} sp"] = phase(
+                f"{short} sp", drive_sp_phase, torch, ops, A, ST, SG, prng,
+                ShardedEngine, build_model, engine_m, batch, f"{short} sp",
+                kind, card,
+                cpu_over=dict(mm_patches=CPU_MM_PATCHES,
+                              n_layers=SP_CPU_LAYERS) if vlm else None)
             del engine_m, run
         phase(f"{short} cpu check", check_media_cpu, torch, ops, A, Engine,
               build_model, get_config(arch), f"{short} cpu check")
@@ -5255,6 +5679,29 @@ def main() -> int:
                         f"{k}@paged-int4@{short}": min(pg[k], int4[k])})
         for kernel, n in got.items():
             wide_by_path.setdefault(kernel, {})[short] = n
+    # this slice's sp phases: B4 by head geometry (smollm-135m's bf16 modes
+    # and speculative window join the [sp path]'s entry), B3 by config
+    sp_key = {"stablelm sp": "@D160", "granite-moe sp": "@D64",
+              "seamless sp": "@seamless", "llava sp": "@llava",
+              "mamba2 sp": None}
+    sp_arch = {"stablelm sp": "stablelm-12b",
+               "granite-moe sp": "granite-moe-3b-a800m",
+               "seamless sp": "seamless-m4t-medium",
+               "llava sp": "llava-next-34b", "mamba2 sp": "mamba2-780m"}
+    for path, (c, int4) in sp_runs.items():
+        if path not in sp_key:
+            sp_paths[path] = c[partials]
+            new_paths[path] = c
+            continue
+        got = {f"quant_matmul@{sp_arch[path]}": c["quant_matmul"]}
+        if sp_key[path]:
+            got[partials + sp_key[path]] = c[partials]
+            got[f"{partials}@int4{sp_key[path]}"] = int4[partials]
+        for kernel, n in got.items():
+            wide_by_path.setdefault(kernel, {})[path] = n
+    launched[partials] = sum(sp_paths.values())
+    launched["quant_matmul"] += sum(sp_runs[p][0]["quant_matmul"]
+                                    for p in sp_runs if p not in sp_key)
     for kernel, paths in wide_by_path.items():
         launched[kernel] = sum(paths.values())
     for e in kernels:

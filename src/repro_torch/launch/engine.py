@@ -80,7 +80,6 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import data as D
 from repro_torch.bridge import to_tensor, tree_to
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
@@ -337,9 +336,10 @@ class Engine:
         driver); it does not combine with ``params``.  ``calib_batches``
         are numpy token batches ({"tokens": (B, S)}, and the ``frames`` or
         ``patches`` of an encoder-decoder or a VLM); the default is
-        ``n_calib`` seeded batches of (``calib_batch``, ``calib_len``)
-        tokens from ``repro_torch.data``, or, for an encoder-decoder or a
-        VLM, from its pipeline, as the reference draws them (a VLM's
+        ``n_calib`` batches of (``calib_batch``, ``calib_len``) from the
+        config's pipeline (``data.pipeline.calibration_batches``, seeded by
+        ``init_seed``; an encoder-decoder's with its frames, a VLM's with
+        its patches), as the reference draws every config's (a VLM's
         ``calib_len`` counts its patches and must exceed them).
         ``qparams`` are finalized thresholds calibrated elsewhere (the
         reference's, through ``bridge.qparams_from_jax``): calibration is
@@ -403,14 +403,7 @@ class Engine:
             serve_params, qparams = params, A.finalize_calibration(
                 A.init_qparams(model, params, policy))
         else:
-            # a text config keeps uniform tokens: the pipeline's batches
-            # put a router near-tie between the card and the CPU (ROADMAP
-            # Queue C, the default calibration's two sources)
-            if calib_batches is None and media_key(cfg) is None:
-                calib_batches = D.calibration_batches(
-                    cfg.vocab, n=n_calib, batch=calib_batch,
-                    seq_len=calib_len, seed=init_seed)
-            elif calib_batches is None:
+            if calib_batches is None:
                 spec = DP.spec_for(cfg, ShapeSpec("engine", "train",
                                                   calib_len, calib_batch),
                                    seed=init_seed)
@@ -508,9 +501,9 @@ class Engine:
             torch.cuda.synchronize(self.device)
 
     def eager_reason(self) -> Optional[str]:
-        """Why this engine serves through the eager loops and captures no
-        program, or None: every Engine captures (CUDA) or runs the same
-        step functions eagerly (CPU)."""
+        """Why this engine runs its programs uncaptured, or None: every
+        Engine captures (CUDA) or runs the same step functions eagerly
+        (CPU)."""
         return None
 
     @torch.inference_mode()
@@ -532,7 +525,9 @@ class Engine:
         latest (B, S, cache length, scheme), so a second call of that shape
         only replays.  ``loop=True`` keeps the eager per-token driver for
         comparison (the same tokens and logits, bit for bit); it has no
-        speculative variant, as in the reference.
+        speculative variant, as in the reference.  An engine that captures
+        nothing (``eager_reason``: ``ShardedEngine(sp > 1)``) runs the same
+        programs uncaptured.
 
         An encoder-decoder's batch carries ``frames`` (B, S_enc,
         frame_dim), a VLM's ``patches`` (B, mm_patches, mm_dim) (the
@@ -553,7 +548,7 @@ class Engine:
         # a verify window appends spec_k + 1 entries before its accept
         cache_len = self._cache_len(s, gen + (self.spec_k if speculative
                                               else 0))
-        if loop or self.eager_reason() is not None:
+        if loop:
             return self._generate_loop(tokens, inputs, gen, cache_len)
         compile_s = 0.0
         key = (b, s, cache_len, self._scheme(gen))
@@ -616,7 +611,8 @@ class Engine:
         """Static buffers, a cache and the two programs for (B, S, cache
         length) ``key[:3]`` under the engine's strategy, with static frame
         or patch buffers of the shapes ``key[4]`` where the key has them;
-        on CUDA both are warmed up and captured here."""
+        on CUDA both are warmed up and captured here, unless the engine
+        captures nothing (``eager_reason``)."""
         b, s, cache_len = key[:3]
         dev, chunk = self.device, self.prefill_chunk
         s_pad = -(-s // chunk) * chunk if chunk else s
@@ -677,15 +673,16 @@ class Engine:
             return step(self.serve_params, self.qparams, tok, state["cache"],
                         pos, rng)
 
-        prefill_prog = Program(run_prefill, dev)
+        capture = self.eager_reason() is None
+        prefill_prog = Program(run_prefill, dev, capture=capture)
         if prefill_prog.graph is not None:
             # the capture's outputs hold values only after a replay; the
             # decode step's warm-up reads them
             prefill_prog()
         return BatchProgram(key=key, tokens=tokens, tok=tok, pos=pos,
                             rng=rng, prefill=prefill_prog,
-                            decode=Program(run_decode, dev), window=window,
-                            media=media)
+                            decode=Program(run_decode, dev, capture=capture),
+                            window=window, media=media)
 
     def _cache_kw(self, media: dict) -> dict:
         """``init_cache``'s ``enc_len`` for a batch with ``frames``."""

@@ -17,8 +17,12 @@ any KV cache, as in the reference; so do the encoder-decoder,
 ``--arch seamless-m4t-medium``, whose batch carries ``--prompt-len``
 frames and an eighth as many tokens, and the VLM, ``--arch
 llava-next-34b``, whose ``--prompt-len`` counts its patches before the
-text).  Every config calibrates on the Engine's default batches of
-``--requests`` x ``--prompt-len``.  Every quantized
+text).  Every config calibrates on the Engine's default: its pipeline's
+batches of ``--requests`` x ``--prompt-len``, as the reference's CLI.
+``--sp N`` serves through ``ShardedEngine(sp=N)`` every mode and
+strategy that the reference's CLI takes with it (``--no-kv-int8``, the
+speculative and sampled strategies, the scheduler), and refuses ``--fp``
+as it does.  Every quantized
 matmul and both attentions run the hand-written CUDA kernels on the GPU
 and their plain versions on the CPU (``--device cpu``).
 
@@ -267,7 +271,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sp", type=int, default=1,
                     help="sequence-parallel shard count: the KV cache's "
                          "sequence axis splits into N shards, decode merges "
-                         "the per-shard flash partials exactly")
+                         "the per-shard flash partials exactly (dense/ring "
+                         "cache layouts; not with --fp, as the reference)")
     ap.add_argument("--mesh", default="auto", choices=["auto", "dryrun"],
                     help="auto = serve; dryrun (the reference's compiled "
                          "collective audit) is ROADMAP Queue A item 19")

@@ -31,10 +31,14 @@ cache's ``kernel_view``.
 Under sequence parallelism (a ``repro_torch.shard`` scope with sp > 1) the
 dense cache's S axis is split into ``sp`` shards, each a view of the one
 global cache, so the cache writes are the unsharded ones (their union over
-the shards is the reference's owner writes); only the attention differs:
-decode scores each shard's keys into flash partials and merges them
-exactly, and prefill attends as the reference's sequence-parallel prefill
-does (plain causal attention, no kernel).
+the shards is the reference's owner writes); only the attention differs,
+as in the reference's sequence-parallel branches: decode scores each
+shard's keys into flash partials (the partials kernel over a quantized
+cache, plain float32 partials over a float one) and merges them exactly;
+prefill attends the prompt's exact K/V (a chunk: the cache's dequantized
+view) and a verify window the whole dequantized cache, both in plain
+attention with no kernel; a windowed layer's decode raises, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -56,6 +60,17 @@ def _sp_info():
     from repro_torch.shard.context import sp_shard_info
 
     return sp_shard_info()
+
+
+def _sp_dense(path: str, cache):
+    """The sequence-parallel context (None unsharded), after the
+    reference's check that it shards a dense cache."""
+    sp = _sp_info()
+    if sp is not None and cache.layout != "dense":
+        raise ValueError(
+            f"{path}: sequence-parallel serving shards the dense cache's S "
+            f"axis — layout {cache.layout!r} unsupported")
+    return sp
 
 
 @functools.lru_cache(maxsize=None)
@@ -400,11 +415,7 @@ class Attention(Module):
             # a float cache keeps its unit scales
             cache = cache.with_scales(*self._kv_scales(ctx))
         kq, vq = cache.ready(k, v)
-        sp = _sp_info()
-        if sp is not None and cache.layout != "dense":
-            raise ValueError(
-                f"{self.path}: sequence-parallel serving shards the dense "
-                f"cache's S axis — layout {cache.layout!r} unsupported")
+        sp = _sp_dense(self.path, cache)
         cache = cache.append(kq, vq, q_offset)
         if lengths is None and sp is not None:
             # the reference's sequence-parallel prefill attends the prompt's
@@ -449,7 +460,11 @@ class Attention(Module):
         position on the device (the captured step), and a ``slot_mask``
         raises.  A cross attention attends its cache's every row and
         writes nothing: the reference also projects the token's K/V there
-        and drops them, which the port skips (the same output)."""
+        and drops them, which the port skips (the same output).  Under
+        sequence parallelism (sp > 1) every shard of the dense cache is
+        scored into partials and merged (``shard.partial_softmax.
+        sp_decode_attention``), and a windowed layer raises, as the
+        reference's does."""
         from repro_torch.kernels import ops
 
         b, s, _ = x.shape
@@ -466,6 +481,11 @@ class Attention(Module):
                 "needs absolute slots (a dense cache or paged layout); the "
                 "SWA ring buffer drops them — size the cache >= max_len or "
                 "decode with a scalar position")
+        sp = _sp_dense(self.path, cache)
+        if sp is not None and self.window is not None:
+            raise ValueError(
+                f"{self.path}: sliding-window decode is local by "
+                "construction — run SWA layers unsharded (sp=1)")
         q, k, v = self._qkv(params, x, ctx)
         per_slot = (isinstance(cur_pos, torch.Tensor) and cur_pos.ndim > 0
                     or slot_mask is not None)
@@ -491,11 +511,6 @@ class Attention(Module):
             kq, vq = cache.ready(k, v)
             cache = cache.append(kq, vq, int(cur_pos))
             valid = int(cur_pos) + 1
-        sp = _sp_info()
-        if sp is not None and self.window is not None:
-            raise ValueError(
-                f"{self.path}: sliding-window decode is local by "
-                "construction — run SWA layers unsharded (sp=1)")
         if ring:
             # the ring's slots hold the last `window` positions: attend
             # them against their absolute positions, in plain attention
@@ -530,25 +545,24 @@ class Attention(Module):
         j attends the keys at positions <= ``cur_pos[b] + j``.  A quantized
         cache attends through the prefill kernel (a short per-slot chunked
         prefill: ``q_start = cur_pos``, ``kv_len = cur_pos + s``, 0 for an
-        inactive slot); a float cache, or a windowed layer, through the
-        plain ``verify_attention``, as the reference does (its kernel path
-        needs a quantized cache and no window).  ``slot_mask`` inactive
-        slots write nothing and give zero rows, as in ``decode``.  A ring
-        raises: the window's per-slot writes need absolute slots."""
+        inactive slot); a float cache, a windowed layer, or any cache under
+        sequence parallelism, through the plain ``verify_attention`` over
+        the whole dequantized cache, as the reference does (its kernel path
+        needs a quantized cache, no window and no shards: its sp branch
+        gathers the shards' tiles and attends them in jnp).  ``slot_mask``
+        inactive slots write nothing and give zero rows, as in ``decode``.
+        A ring raises: the window's per-slot writes need absolute slots."""
         from repro_torch.kernels import ops
 
         if self.cross:
             raise ValueError(f"{self.path}: speculative verify covers causal "
                              "self-attention only")
-        if _sp_info() is not None:
-            raise NotImplementedError(
-                "the sequence-parallel speculative verify window is not "
-                "ported (ROADMAP Queue A item 13, speculative decoding)")
         if cache.layout == "ring":
             raise ValueError(
                 f"{self.path}: speculative verify needs absolute slots (a "
                 "dense cache or paged layout); the SWA ring buffer drops "
                 "them — size the cache >= max_len")
+        sp = _sp_dense(self.path, cache)
         b, s, _ = x.shape
         q, k, v = self._qkv(params, x, ctx)
         pos = torch.as_tensor(cur_pos, dtype=torch.int32,
@@ -557,7 +571,7 @@ class Attention(Module):
                                                             device=x.device))
         kq, vq = cache.ready(k, v)
         cache = cache.append_slots(kq, vq, pos, active=slot_mask)
-        if cache.quantized and self.window is None:
+        if cache.quantized and self.window is None and sp is None:
             kv_len = pos + s
             if slot_mask is not None:
                 kv_len = torch.where(slot_mask, kv_len, 0)

@@ -2,35 +2,44 @@
 
 Counterpart of ``repro/shard/model.py``.  The reference runs each serving
 entry point through ``shard_map``, once per shard; every op except the
-cache writes and decode attention is replicated there, computing the same
-values on every shard.  The port runs that body ONCE, on one card, inside
-a ``shard_scope``: the cache is the ordinary global cache, whose shard i is
+cache writes and attention is replicated there, computing the same values
+on every shard.  The port runs that body ONCE, on one card, inside a
+``shard_scope``: the cache is the ordinary global cache, whose shard i is
 the view ``k[:, i*S_local:(i+1)*S_local]``, so the unsharded writes are the
-union of the reference's owner writes, and only decode attention loops
-over the shards (each shard's flash partials, then the merge;
-``models/attention.py``).  ``init_cache`` rounds to a shard multiple;
-``readout_fn`` and everything else delegate to the wrapped model, and the
-engine, its steps and the slot scheduler drive a ShardedModel exactly like
-the model it wraps.
+union of the reference's owner writes, and only the attentions read the
+shards (decode: each shard's flash partials, then the merge; prefill and
+the speculative verify window: the whole cache, as the reference's gather;
+``models/attention.py``).  An SSM state has no sequence axis and is the
+unsharded state.  An encoder-decoder's cross cache is the rows every shard
+holds alike: the reference's cross prefill writes the first
+min(S_local, frames) rows of the encoder's memory into each shard's slice
+of the cross cache and its cross decode attends that slice, so
+``init_cache`` sizes the cross cache to those rows.  ``init_cache`` rounds
+to a shard multiple; ``readout_fn`` and everything else delegate to the
+wrapped model, and the engine, its steps, its strategies and the slot
+scheduler drive a ShardedModel exactly like the model it wraps.
 """
 from __future__ import annotations
 
-from repro_torch.cache import layer_caches
 from repro_torch.shard.context import ShardContext, shard_scope
 
 
 def check_sp_cache(cache_tree, sp: int) -> None:
-    """Raise unless every layer's cache is dense with a sequence axis that
-    splits into ``sp`` equal shards (the check of the reference's
-    ``dist/sharding.py::sp_cache_specs``)."""
-    for c in layer_caches(cache_tree):
-        if c.layout != "dense":
-            raise ValueError(
-                f"sequence-parallel serving shards the dense cache's S axis "
-                f"-- layout {c.layout!r} unsupported")
-        if c.capacity % sp:
-            raise ValueError(f"cache k: sequence axis {c.capacity} not "
-                             f"divisible by sp={sp}")
+    """Raise unless the sequence axis of every layer's attention cache
+    splits into ``sp`` equal shards: the check of the reference's
+    ``dist/sharding.py::sp_cache_specs``, which reads only the S axis of
+    the k/v leaves (a layout the sequence-parallel attention cannot read
+    raises there, naming its layer).  SSM states pass; a cross cache holds
+    the rows every shard holds alike (``ShardedModel.init_cache``), not a
+    split axis."""
+    for key, sub in cache_tree.items():
+        if key in ("mamba", "cross"):
+            continue
+        if isinstance(sub, dict):
+            check_sp_cache(sub, sp)
+        elif sub.k.shape[-3] % sp:
+            raise ValueError(f"cache k: sequence axis {sub.k.shape[-3]} "
+                             f"not divisible by sp={sp}")
 
 
 class ShardedModel:
@@ -62,18 +71,25 @@ class ShardedModel:
         return self._run("decode_step", cache, params, tokens, cache,
                          cur_pos, ctx, slot_mask=slot_mask)
 
-    def verify_step(self, *args, **kw):
-        raise NotImplementedError(
-            "the sequence-parallel speculative verify window is not ported "
-            "(ROADMAP Queue A item 13, speculative decoding)")
+    def verify_step(self, params, tokens, cache, cur_pos, ctx=None, *,
+                    slot_mask=None):
+        return self._run("verify_step", cache, params, tokens, cache,
+                         cur_pos, ctx, slot_mask=slot_mask)
 
     # -- cache construction ---------------------------------------------------
     def init_cache(self, batch: int, max_len: int, *args, **kw):
         """Global-shape caches with the S axis rounded up to a multiple of
         ``sp`` (the extra rows lie beyond every valid count).  Rounding here
         keeps the scheduler's batch cache and its batch-1 admission template
-        consistent: both are sized through this method."""
+        consistent: both are sized through this method.  An
+        encoder-decoder's cross caches hold min(S_local, ``enc_len``) rows,
+        the encoder positions each of the reference's shards keeps."""
         max_len = -(-max_len // self.sp) * self.sp
+        if self.cfg.family == "encdec":
+            s_local = max_len // self.sp
+            enc_len = kw.get("enc_len")
+            kw["enc_len"] = s_local if enc_len is None else min(enc_len,
+                                                                 s_local)
         return self._model.init_cache(batch, max_len, *args, **kw)
 
     # -- everything else is the global model ----------------------------------

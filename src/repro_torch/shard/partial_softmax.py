@@ -12,22 +12,53 @@ its visible keys -- and
 
 is the unsharded softmax up to float32 summation order.  A shard with no
 visible key contributes (-1e30, 0, 0), and a row no shard sees (an
-inactive scheduler slot) comes out as exact zeros.  The reference gathers
-the partials across devices; here they are already on the one card, and
-the merge is plain PyTorch (it is not a kernel in the reference either).
+inactive scheduler slot) comes out as exact zeros.  A quantized cache's
+partials come from the partials kernel; a float cache's (the bf16-KV
+serving modes) from ``local_decode_partials`` in plain PyTorch, as the
+reference computes them in jnp.  The reference gathers the partials
+across devices; here they are already on the one card, and the merge is
+plain PyTorch (it is not a kernel in the reference either).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models.attention import NEG_INF, softmax_scale
+
+
+def local_decode_partials(q, k_local, v_local, valid_local):
+    """One shard's flash-decode partials over float K/V, the reference's
+    jnp ``local_decode_partials``.
+
+    q: (B, 1, KV, G, D); k/v_local: (B, S_local, KV, D), the shard's rows
+    of a float cache; ``valid_local`` (B,): the visible keys IN THIS
+    SHARD.  Scores in float32, masked beyond ``valid_local`` to NEG_INF,
+    their probabilities multiplied to exact zero there.  Returns (m, l,
+    acc): (B, KV, G, 1), (B, KV, G, 1), (B, KV, G, 1, D) float32; a shard
+    with nothing visible returns (NEG_INF, 0, 0), the merge's identity."""
+    b, s_local = q.shape[0], k_local.shape[1]
+    scale = softmax_scale(q.shape[-1], q.device)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float() * scale,
+                     k_local.float())                   # (B, KV, G, 1, S_l)
+    valid = valid_local.to(torch.int32).reshape(-1).expand(b)
+    mask = torch.arange(s_local, device=q.device)[None, :] < valid[:, None]
+    maskb = mask[:, None, None, None, :]
+    s = torch.where(maskb, s, NEG_INF)
+    m = torch.amax(s, dim=-1)
+    p = torch.exp(s - m[..., None]) * maskb
+    l = torch.sum(p, dim=-1)
+    acc = torch.einsum("bkgqs,bskd->bkgqd", p, v_local.float())
+    return m, l, acc
 
 
 def sp_decode_attention(q, cache, valid, sp: int):
-    """Decode attention over a dense cache split into ``sp`` shards: the
-    partials kernel scores each shard's LOCAL visible keys, reading the
-    shard's view ``k[:, i*S_local:(i+1)*S_local]`` in place (one launch per
-    shard), and ``sp_partial_combine`` merges them.
+    """Decode attention over a dense cache split into ``sp`` shards: each
+    shard's LOCAL visible keys are scored into partials, reading the
+    shard's view ``k[:, i*S_local:(i+1)*S_local]`` in place -- a quantized
+    cache through the partials kernel (one launch per shard), a float
+    cache through ``local_decode_partials`` -- and ``sp_partial_combine``
+    merges them.
 
     q: (B, KV, G, D); valid: (B,) tensor or an int, the GLOBAL count of
     visible keys.  Returns (B, KV, G, D) float32."""
@@ -40,13 +71,17 @@ def sp_decode_attention(q, cache, valid, sp: int):
     ms, ls, accs = [], [], []
     for i in range(sp):
         lo = i * s_local
-        acc, m, l = ops.decode_attention_partials(
-            q, cache.k[:, lo:lo + s_local], cache.v[:, lo:lo + s_local],
-            *cache.scales(), torch.clamp(valid - lo, 0, s_local),
-            kv_bits=cache.bits)
-        ms.append(m[..., None])
-        ls.append(l[..., None])
-        accs.append(acc[..., None, :])
+        k, v = cache.k[:, lo:lo + s_local], cache.v[:, lo:lo + s_local]
+        local = torch.clamp(valid - lo, 0, s_local)
+        if not cache.quantized:
+            m, l, acc = local_decode_partials(q[:, None], k, v, local)
+        else:
+            acc, m, l = ops.decode_attention_partials(
+                q, k, v, *cache.scales(), local, kv_bits=cache.bits)
+            m, l, acc = m[..., None], l[..., None], acc[..., None, :]
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
     return sp_partial_combine(ms, ls, accs)[:, 0]
 
 

@@ -412,8 +412,10 @@ def test_steps_read_nothing_back(pair, monkeypatch):
 
 def test_refusals_match_the_reference(pair):
     """Chunked prefill, speculative decoding and the slot scheduler refuse
-    the encoder-decoder with the reference's messages; sequence
-    parallelism (sp > 1) names ROADMAP item 18."""
+    the encoder-decoder with the reference's messages; under sequence
+    parallelism (sp=2) it serves, and speculative decoding is refused there
+    with the same message (``test_torch_sharded_families.py`` holds the
+    sp=2 engine against the reference's)."""
     ref, ours = pair["ref"], pair["ours"]
     jcfg, jm, tm = pair["jcfg"], pair["jm"], pair["tm"]
     with pytest.raises(ValueError) as want:
@@ -433,9 +435,20 @@ def test_refusals_match_the_reference(pair):
     with pytest.raises(ValueError) as got:
         ours.make_scheduler(max_slots=2)
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(ValueError) as want:
+        JaxEngine(jm, jcfg, ref.policy, ref.serve_params, ref.qparams,
+                  decode_strategy="speculative")
+    with pytest.raises(ValueError) as got:
         ShardedEngine(tm, pair["tcfg"], ours.policy, ours.serve_params,
-                      ours.qparams, device="cpu", sp=2)
+                      ours.qparams, device="cpu", sp=2,
+                      decode_strategy="speculative")
+    assert str(got.value) == str(want.value)
+    sharded = ShardedEngine(tm, pair["tcfg"], ours.policy, ours.serve_params,
+                            ours.qparams, device="cpu", sp=2,
+                            cache_layout="dense")
+    out = sharded.generate_batch(pair["prompt"], gen=2)
+    assert out.tokens.shape == (B, 2)
+    assert bool(torch.isfinite(out.prefill_logits).all())
 
 
 def test_fat_step_and_pretrain_step_match(pair):

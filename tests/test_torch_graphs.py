@@ -126,8 +126,8 @@ def test_program_kept_per_shape(engines):
 
 
 def test_sp_engine_serves_eagerly_by_its_branch(engines):
-    """``sp`` > 1 names its ROADMAP entry and runs the eager driver, which
-    is what ``loop=True`` runs."""
+    """``sp`` > 1 names its ROADMAP entry and runs its programs uncaptured,
+    the same tokens and logits as the eager per-token ``loop=True``."""
     base = engines["int8"]
     eng = ShardedEngine(base.model, base.cfg, base.policy, base.serve_params,
                         base.qparams, device="cpu", sp=2)
@@ -135,7 +135,8 @@ def test_sp_engine_serves_eagerly_by_its_branch(engines):
     prompts = _prompts(eng)
     got = eng.generate_batch({"tokens": prompts}, gen=GEN)
     want = eng.generate_batch({"tokens": prompts}, gen=GEN, loop=True)
-    assert eng._program is None
+    assert eng._program.prefill.graph is None
+    assert eng._program.decode.graph is None
     assert torch.equal(got.tokens, want.tokens)
     assert torch.equal(got.prefill_logits, want.prefill_logits)
     assert eng.make_scheduler(max_slots=2)._capture is False

@@ -191,15 +191,31 @@ def test_refusals_match_the_reference():
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", ARCH])
 def test_sharded_engine_refuses_ssm_stacks(arch):
+    """Under sequence parallelism (sp=2) the SSM stack serves what it
+    serves unsharded, token for token (its state has no sequence axis;
+    there is no attention to shard); the hybrid stack's windowed layer 1
+    raises the reference's ValueError at the first sp decode (its
+    ``_sp_decode``), as ``test_torch_sharded_families.py`` holds against
+    the reference's sp=2 engine."""
     from repro_torch.shard import ShardedEngine
 
-    with pytest.raises(NotImplementedError, match="item 18"):
-        ShardedEngine.from_checkpoint(arch, smoke=True, device="cpu", sp=2)
     engine = ShardedEngine.from_checkpoint(arch, smoke=True, device="cpu",
-                                           sp=1)
-    out = engine.generate_batch({"tokens": np.zeros((1, 8), np.int32)},
-                                gen=2)
-    assert out.tokens.shape == (1, 2)
+                                           sp=1, cache_layout="dense")
+    sharded = ShardedEngine(engine.base_model, engine.cfg, engine.policy,
+                            engine.serve_params, engine.qparams,
+                            device="cpu", sp=2, cache_layout="dense")
+    prompts = {"tokens": np.arange(16, dtype=np.int32).reshape(2, 8)}
+    out = engine.generate_batch(prompts, gen=4)
+    assert out.tokens.shape == (2, 4)
+    if arch == ARCH:
+        with pytest.raises(ValueError) as got:
+            sharded.generate_batch(prompts, gen=4)
+        assert str(got.value) == (
+            f"{engine.cfg.name}/stack/layer1/attn: sliding-window decode is "
+            "local by construction — run SWA layers unsharded (sp=1)")
+        return
+    assert torch.equal(sharded.generate_batch(prompts, gen=4).tokens,
+                       out.tokens)
 
 
 def test_attn_cache_len_needs_an_attention_cache():

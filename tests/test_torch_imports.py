@@ -69,22 +69,20 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     (dict(sp=2, kv_int8=False), "item 20"),
 ], ids=lambda v: str(v))
 def test_unported_options_raise(kw, item, tmp_path):
-    """An option of a ROADMAP item still open raises.  The item-14 cases are
-    ported: the engine takes the option, hands it to its scheduler, and the
-    scheduler acts on it (a cap of 8 sheds the 2 arrivals beyond it; the
-    journal records the run)."""
+    """Options of ROADMAP items that the port once refused are taken now.
+    Item 14's: the engine hands the option to its scheduler, which acts on
+    it (a cap of 8 sheds the 2 arrivals beyond it; the journal records the
+    run).  Item 20's, a float KV cache under sequence parallelism: the
+    sharded engine serves the requests through its scheduler over a float
+    cache split into two shards."""
     from repro_torch.launch.scheduler import Request
     from repro_torch.shard import ShardedEngine
 
-    if item != "item 14":
-        with pytest.raises(NotImplementedError, match=item):
-            ShardedEngine.from_checkpoint("smollm-135m", smoke=True,
-                                          device="cpu", **kw)
-        return
     if "journal" in kw:
         kw = dict(journal=str(tmp_path / kw["journal"]))
-    engine = E.Engine.from_checkpoint("smollm-135m", smoke=True,
-                                      device="cpu", **kw)
+    cls = ShardedEngine if "sp" in kw else E.Engine
+    engine = cls.from_checkpoint("smollm-135m", smoke=True, device="cpu",
+                                 **kw)
     reqs = [Request(rid=r, tokens=np.full(4, r + 1, np.int32), max_gen=1)
             for r in range(10)]
     done = engine.generate(reqs, max_slots=1, block_steps=2)
@@ -93,11 +91,16 @@ def test_unported_options_raise(kw, item, tmp_path):
     if "queue_cap" in kw:
         assert sched.queue_cap == 8
         assert statuses.count("shed") == 2 and statuses.count("ok") == 8
-    else:
-        assert statuses == ["ok"] * 10
-        replay = sched._journal.replay()
-        assert replay.knobs == sched._knobs()
-        assert sorted(d["rid"] for d in replay.done) == list(range(10))
+        return
+    assert statuses == ["ok"] * 10
+    if "sp" in kw:
+        cache = engine.init_cache(1, 64)["layer0"]["attn"]
+        assert engine.sp == 2 and not cache.quantized
+        assert item == "item 20"
+        return
+    replay = sched._journal.replay()
+    assert replay.knobs == sched._knobs()
+    assert sorted(d["rid"] for d in replay.done) == list(range(10))
 
 
 @pytest.mark.parametrize("kw,strategy", [

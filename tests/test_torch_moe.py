@@ -749,17 +749,29 @@ def tree_get(tree, keys):
 
 
 def test_moe_is_supported_and_sp_refuses_it():
+    """Both configs build; under sequence parallelism (sp=2) granite-moe
+    serves (``test_torch_sharded_families.py`` holds it against the
+    reference's sp=2), and mixtral, windowed in every layer, raises the
+    reference's ValueError at its first sp decode over dense caches (its
+    ``_sp_decode``: "sliding-window decode is local by construction")."""
     from repro_torch.shard import ShardedEngine
 
     for arch in ARCHS:
         check_supported(torch_config(arch))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        ShardedEngine.from_checkpoint("mixtral-8x7b", smoke=True,
-                                      device="cpu", sp=2)
+    prompts = np.arange(16, dtype=np.int32).reshape(2, 8)
+    eng = ShardedEngine.from_checkpoint("granite-moe-3b-a800m", smoke=True,
+                                        device="cpu", sp=2)
+    assert eng.generate_batch({"tokens": prompts}, gen=3).tokens.shape == (
+        2, 3)
     eng = Engine.from_checkpoint("mixtral-8x7b", smoke=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        ShardedEngine(eng.model, eng.cfg, eng.policy, eng.serve_params,
-                      eng.qparams, device="cpu", sp=2)
+    sharded = ShardedEngine(eng.model, eng.cfg, eng.policy, eng.serve_params,
+                            eng.qparams, device="cpu", sp=2,
+                            cache_layout="dense")
+    with pytest.raises(ValueError) as got:
+        sharded.generate_batch({"tokens": prompts}, gen=3)
+    assert str(got.value) == (
+        f"{eng.cfg.name}/stack/layer0/attn: sliding-window decode is local "
+        "by construction — run SWA layers unsharded (sp=1)")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -12,9 +12,7 @@ import numpy as np
 import pytest
 
 import repro_torch
-from repro_torch.configs import get_config
 from repro_torch.configs.shapes import ShapeSpec
-from repro_torch.data import calibration_batches
 from repro_torch.data import pipeline as DP
 from repro_torch.launch import serve
 from repro_torch.launch.engine import Engine
@@ -27,11 +25,10 @@ SCHED = ["--max-slots", "2", "--block-steps", "2"]
 
 
 def _engine(**kw):
-    cfg = get_config("smollm-135m", smoke=True)
-    return Engine.from_checkpoint(
-        "smollm-135m", smoke=True, device="cpu",
-        calib_batches=calibration_batches(cfg.vocab, batch=4, seq_len=16),
-        **kw)
+    """The engine the CLI builds from BASE: calibrated on the pipeline's
+    batches of --requests x --prompt-len (the Engine's default)."""
+    return Engine.from_checkpoint("smollm-135m", smoke=True, device="cpu",
+                                  calib_batch=4, calib_len=16, **kw)
 
 
 def test_batch_tokens_equal_engine_generate_batch():
@@ -114,6 +111,36 @@ def test_every_reference_flag_is_taken_with_help():
 def test_unported_flags_raise_naming_their_item(extra, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.main(BASE + extra)
+
+
+@pytest.mark.parametrize("extra", [["--no-kv-int8"],
+                                   ["--strategy", "speculative"],
+                                   ["--fp"]], ids=lambda v: " ".join(v))
+def test_sp_takes_the_references_modes(extra, capsys):
+    """``--sp 2`` serves through ``ShardedEngine(sp=2)`` every mode and
+    strategy the reference's CLI takes with it: the float KV cache, whose
+    tokens are the sharded engine's, and the speculative strategy, whose
+    tokens are greedy's; ``--fp`` is refused with the reference's usage
+    error (its parser exits 2)."""
+    from repro_torch.shard import ShardedEngine
+
+    argv = BASE + ["--sp", "2"] + extra
+    if extra == ["--fp"]:
+        with pytest.raises(SystemExit) as e:
+            serve.main(argv)
+        assert e.value.code == 2
+        assert "--tp/--sp shard the int8 engine" in capsys.readouterr().err
+        return
+    got = serve.main(argv)
+    assert "sharded serving: sp=2" in capsys.readouterr().out
+    kw = {"--no-kv-int8": dict(kv_int8=False)}.get(extra[0], {})
+    engine = ShardedEngine.from_checkpoint(
+        "smollm-135m", smoke=True, device="cpu", sp=2, calib_batch=4,
+        calib_len=16, **kw)
+    spec = DP.spec_for(engine.cfg, ShapeSpec("cli", "train", 16, 4))
+    toks = DP.make_batch(spec, 12345)["tokens"]
+    want = engine.generate_batch({"tokens": toks}, 5).tokens.numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_pallas_is_accepted_and_ignored():

@@ -529,9 +529,17 @@ def test_engine_decode_runs_the_partials_per_shard(served):
 
 
 def test_sp_rejects_paged_layout():
-    with pytest.raises(ValueError, match="paged"):
+    """The reference's own refusal, word for word (it raises before it
+    reads any other argument)."""
+    from repro.shard.engine import ShardedEngine as JShardedEngine
+
+    with pytest.raises(ValueError) as want:
+        JShardedEngine(None, None, None, None, None, sp=2,
+                       cache_layout="paged")
+    with pytest.raises(ValueError, match="paged") as got:
         ShardedEngine.from_checkpoint("smollm-135m", smoke=True, sp=2,
                                       cache_layout="paged", device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_tp_raises_naming_its_item():
@@ -561,8 +569,20 @@ def test_sp_cache_checks():
             engine.serve_params, torch.zeros((2, 1), dtype=torch.long),
             engine.base_model.init_cache(2, 128, torch.device("cpu")), 0,
             TA.make_ctx("int8", engine.policy, engine.qparams))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        engine.model.verify_step()
+    # the speculative verify window checks its cache as decode does, and
+    # serves over one of a shard multiple
+    ctx = TA.make_ctx("int8", engine.policy, engine.qparams)
+    window = torch.zeros((2, 5), dtype=torch.long)
+    pos = torch.tensor([3, 7], dtype=torch.int32)
+    with pytest.raises(ValueError, match="not divisible by sp=3"):
+        engine.model.verify_step(
+            engine.serve_params, window,
+            engine.base_model.init_cache(2, 128, torch.device("cpu")), pos,
+            ctx)
+    logits, _ = engine.model.verify_step(engine.serve_params, window, cache,
+                                         pos, ctx)
+    assert logits.shape[:2] == (2, 5)
+    assert bool(torch.isfinite(logits).all())
     with pytest.raises(NotImplementedError, match="item 19"):
         engine.dry_run_report()
 

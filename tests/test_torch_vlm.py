@@ -331,11 +331,14 @@ def test_calibration_needs_text_beside_the_patches(pair):
 
 
 def test_default_calibration_sources(pair):
-    """Queue C: the Engine's default calibration draws a VLM's batches from
-    the pipeline (patches beside the tokens), as the reference draws every
-    config's, and a text config's from ``repro_torch.data``'s uniform
-    token ids, not the pipeline's: each default engine's thresholds equal
-    those of the engine handed that source's batches."""
+    """The Engine's default calibration has one source, as the reference's
+    (``launch/engine.py``: ``DP.calibration_batches`` of
+    ``DP.spec_for(cfg, ShapeSpec("engine", "train", calib_len,
+    calib_batch))``): a VLM's batches from the pipeline (patches beside
+    the tokens) and a text config's from the pipeline too, not
+    ``repro_torch.data``'s uniform token ids: each default engine's
+    thresholds equal those of the engine handed the pipeline's batches,
+    and a text engine handed uniform ids calibrates otherwise."""
     from repro_torch import data as D
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.data import pipeline as DP
@@ -358,10 +361,10 @@ def test_default_calibration_sources(pair):
     kw = dict(device="cpu", calib_batch=2, calib_len=16)
     default = Engine.from_checkpoint(cfg=text, **kw).qparams
     assert same(default, Engine.from_checkpoint(
+        cfg=text, device="cpu", calib_batches=pipeline(text, 16)).qparams)
+    assert not same(default, Engine.from_checkpoint(
         cfg=text, device="cpu", calib_batches=D.calibration_batches(
             text.vocab, batch=2, seq_len=16)).qparams)
-    assert not same(default, Engine.from_checkpoint(
-        cfg=text, device="cpu", calib_batches=pipeline(text, 16)).qparams)
 
 
 def test_steps_read_nothing_back(pair, monkeypatch):
@@ -391,8 +394,10 @@ def test_steps_read_nothing_back(pair, monkeypatch):
 
 def test_refusals_match_the_reference(pair):
     """Chunked prefill, speculative decoding and the slot scheduler refuse
-    the VLM with the reference's messages; sequence parallelism (sp > 1)
-    names ROADMAP item 18."""
+    the VLM with the reference's messages; under sequence parallelism
+    (sp=2) it serves, and speculative decoding is refused there with the
+    same message (``test_torch_sharded_families.py`` holds the sp=2 engine
+    against the reference's)."""
     ref, ours = pair["ref"], pair["ours"]
     jcfg, jm, tm = pair["jcfg"], pair["jm"], pair["tm"]
     with pytest.raises(ValueError) as want:
@@ -412,8 +417,19 @@ def test_refusals_match_the_reference(pair):
     with pytest.raises(ValueError) as got:
         ours.make_scheduler(max_slots=2)
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        ShardedEngine.from_checkpoint(cfg=pair["tcfg"], device="cpu", sp=2)
+    with pytest.raises(ValueError) as want:
+        JaxEngine(jm, jcfg, ref.policy, ref.serve_params, ref.qparams,
+                  decode_strategy="speculative")
+    with pytest.raises(ValueError) as got:
+        ShardedEngine(tm, pair["tcfg"], ours.policy, ours.serve_params,
+                      ours.qparams, device="cpu", sp=2,
+                      decode_strategy="speculative")
+    assert str(got.value) == str(want.value)
+    sharded = ShardedEngine(tm, pair["tcfg"], ours.policy, ours.serve_params,
+                            ours.qparams, device="cpu", sp=2)
+    out = sharded.generate_batch(pair["prompt"], gen=2)
+    assert out.tokens.shape[1] == 2
+    assert bool(torch.isfinite(out.prefill_logits).all())
 
 
 def test_fat_step_and_pretrain_step_match(pair):
