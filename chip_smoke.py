@@ -220,6 +220,26 @@
    request against the same sp engine on the CPU (granite-moe's and
    llava's through a twin of the same weights cut to ``SP_CPU_LAYERS``
    layers, llava's with ``CPU_MM_PATCHES`` patches).
+24. tensor parallelism as the reference serves it: [kernels] holds B3's
+   int32-accumulator branch (a shard's int8 x int8 -> int32 partial over
+   its K slice, no quantize, no scale) bit for bit at the K slices of
+   smollm-135m's and granite-8b's row-parallel layers (wo, down) at tp =
+   ``TP`` and ``TP_WIDE``, M = ``ACC_ROWS``, and the shards' partials
+   summed against one launch over the whole of K; timed warm and L2-cold
+   beside its plain version, its bound and ``torch._int_mm``.  [tp path]
+   serves the [main path]'s weights (smollm-135m, full width and depth) as
+   ``ShardedEngine(tp=TP)`` through ``drive_tp_phase``: its captured
+   programs and the eager driver bit for bit, the launch counts zeroed
+   just before each run and read just after (the int32-accumulator branch
+   TP times a row layer a pass: 180 a step; every other kernel as the
+   unsharded run of the same prompts, B3's fused launches fewer by the
+   reduces), the tokens against the unsharded engine's up to a near-tie,
+   the first request against the same tp engine on the CPU, decode ms,
+   prefill tokens/s and the reduces' int32 wire bytes a step printed;
+   [tp scheduler] the [scheduler]'s 16 requests through 8 slots of dense
+   caches, against batch-1 up to a near-tie; [granite-8b tp] and
+   [seamless tp] the weights of [granite-8b path] (``PATH_LAYERS``) and
+   [seamless] at ``TP_WIDE``, each bit for bit with its unsharded run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -247,6 +267,9 @@ CHUNK, PAGE, SLOTS, BLOCK_STEPS, N_REQUESTS = 128, 64, 8, 8, 16
 # the sequence-parallel paths: shards, and the scheduler's slots, requests
 # and generated tokens
 SP, SP_SLOTS, SP_REQUESTS, SP_GEN = 4, 4, 8, 16
+# the tensor-parallel paths: smollm-135m's shards (its 9 / 3 heads and d_ff
+# 1536 divide by 3), and the wider configs' (granite-8b, seamless-m4t-medium)
+TP, TP_WIDE = 3, 2
 # the decoding strategies beside greedy (launch/strategies.py): the sampling
 # knobs of [sample path] and [sampled scheduler], and the draft window and
 # lookup n-gram of the speculative phases (a verify window of SPEC_K + 1)
@@ -523,15 +546,20 @@ def check_decode_attention_spills(build):
                   "lacks)")
 
 
+# the x type of a mangled quant_matmul kernel name: 'a' (int8_t) is the
+# int32-accumulator branch's already quantized x
+X_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8 (int32 sums)"}
+
+
 def qmm_variant(mangled):
     """'x bf16, int8 weights, 64 x 128, 16-byte staging' from a mangled
     ``quant_matmul_mma_kernel<T, WB, BM, BN, MT, VEC>`` name."""
-    m = re.search(r"quant_matmul_mma_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d+)"
+    m = re.search(r"quant_matmul_mma_kernelI(13__nv_bfloat16|f|a)Li(\d)ELi(\d+)"
                   r"ELi(\d+)ELi(\d)ELb(\d)E", mangled)
     if m is None:
         return mangled
     t, wb, bm, bn, _, vec = m.groups()
-    return (f"x {'f32' if t == 'f' else 'bf16'}, int{wb} weights, {bm} x "
+    return (f"x {X_TYPES[t]}, int{wb} weights, {bm} x "
             f"{bn}, {'16-byte' if vec == '1' else 'narrow'} staging")
 
 
@@ -546,9 +574,10 @@ def check_quant_matmul_sass(build):
         regs, spill = res.get(name, ("?", "?"))
         print(f"  quant_matmul_mma_kernel [{qmm_variant(name)}]: {n} IMMA, "
               f"{regs} registers, spill stores {spill} bytes")
-    # x f32/bf16 x int8/int4 weights x 3 tiles and the narrow variant
-    if len(imma) != 16 or min(imma.values()) == 0:
-        raise AssertionError(f"quant_matmul: expected 16 instantiations of "
+    # x f32/bf16 x int8/int4 weights x 3 tiles and the narrow variant, and
+    # the int32-accumulator branch's four (int8 x, int8 weights)
+    if len(imma) != 20 or min(imma.values()) == 0:
+        raise AssertionError(f"quant_matmul: expected 20 instantiations of "
                              f"quant_matmul_mma_kernel, each with IMMA "
                              f"instructions; got {imma}")
     spilled = {qmm_variant(k): v[1] for k, v in res.items()
@@ -560,12 +589,12 @@ def check_quant_matmul_sass(build):
 def decode_variant(mangled):
     """'x bf16, int8 weights, M <= 4' from a mangled
     ``quant_matmul_decode_kernel<T, WB, MR>`` name."""
-    m = re.search(r"quant_matmul_decode_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d)E",
+    m = re.search(r"quant_matmul_decode_kernelI(13__nv_bfloat16|f|a)Li(\d)ELi(\d)E",
                   mangled)
     if m is None:
         return mangled
     t, wb, mr = m.groups()
-    return f"x {'f32' if t == 'f' else 'bf16'}, int{wb} weights, M <= {mr}"
+    return f"x {X_TYPES[t]}, int{wb} weights, M <= {mr}"
 
 
 def decode_split(k, n, sms):
@@ -593,9 +622,10 @@ def check_quant_matmul_decode_sass(build, sms):
         regs, spill = res.get(name, ("?", "?"))
         print(f"  quant_matmul_decode_kernel [{decode_variant(name)}]: {n} "
               f"IDP, {regs} registers, spill stores {spill} bytes")
-    # x f32/bf16 x int8/int4 weights x M <= 1, 2, 4, 8
-    if len(idp) != 16 or min(idp.values()) == 0:
-        raise AssertionError(f"quant_matmul: expected 16 instantiations of "
+    # x f32/bf16 x int8/int4 weights x M <= 1, 2, 4, 8, and the
+    # int32-accumulator branch's four
+    if len(idp) != 20 or min(idp.values()) == 0:
+        raise AssertionError(f"quant_matmul: expected 20 instantiations of "
                              f"quant_matmul_decode_kernel, each with IDP "
                              f"instructions; got {idp}")
     spilled = {decode_variant(k): v[1] for k, v in res.items()
@@ -774,6 +804,107 @@ def check_quant_matmul(torch, ops, ref, dev):
             "library": "torch._int_mm" + (
                 f" on x zero-padded from M={m} to M=32" if m <= 16 else ""),
             **({"cold_ms": tot["cold_ms"]} if m <= DECODE_ROWS else {})})
+    return entries
+
+
+# B3's int32-accumulator branch: the row-parallel layers (wo, down) of
+# smollm-135m at tp = TP and of granite-8b at tp = TP_WIDE, each shard's K
+# slice, at these rows (decode 1, 4, 8, a verify window, the admission
+# chunk, a 4 x 512 prefill)
+ACC_ROWS = (1, B, SLOTS, B * (SPEC_K + 1), CHUNK, B * PROMPT)
+ACC_LAYERS = {"smollm-135m": (TP, (("wo", 576, 576), ("down", 1536, 576))),
+              "granite-8b": (TP_WIDE, (("wo", 4096, 4096),
+                                       ("down", 14336, 4096)))}
+
+
+def check_quant_matmul_acc(torch, ops, ref, dev):
+    """B3's int32-accumulator branch at ``ACC_LAYERS``' K slices and
+    ``ACC_ROWS``: each shard's partial bit for bit against its plain
+    version, and the shards' partials summed equal to one launch over the
+    whole of K; a layer's partials timed warm and (decode rows) L2-cold,
+    beside the plain version, the bound and ``torch._int_mm`` on each
+    shard's slice.  Returns the JSON entries (one per config and row
+    count, summed over the two row layers' shards)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    flush = l2_flush(torch, dev)
+    entries = []
+    for arch, (tp, layers) in ACC_LAYERS.items():
+        for m in ACC_ROWS:
+            tot = dict(ms=0.0, call_ms=0.0, cold_ms=0.0, plain_ms=0.0,
+                       bound_ms=0.0, library_ms=0.0, nbytes=0, ops=0)
+            for name, k, n in layers:
+                x_q = torch.randint(-127, 128, (m, k), generator=gen,
+                                    device=dev, dtype=torch.int8)
+                w_q = torch.randint(-127, 128, (k, n), generator=gen,
+                                    device=dev, dtype=torch.int8)
+                kl = k // tp
+                parts = []
+                for i in range(tp):
+                    k0, k1 = i * kl, (i + 1) * kl
+                    got = ops.quant_matmul_acc(x_q, w_q, k0, k1)
+                    want = ref.quant_matmul_acc_ref(x_q, w_q, k0, k1)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"quant_matmul_acc {arch} {name} shard {i} "
+                            f"(M={m}, K {k0}:{k1}, N={n}) is not bit-exact "
+                            f"with its plain version")
+                    parts.append(got)
+                full = ops.quant_matmul_acc(x_q, w_q, 0, k)
+                if not torch.equal(sum(parts), full) or not torch.equal(
+                        full, ref.quant_matmul_acc_ref(x_q, w_q, 0, k)):
+                    raise AssertionError(
+                        f"quant_matmul_acc {arch} {name} (M={m}): the "
+                        f"{tp} partials do not sum to the full-K launch")
+                for i in range(tp):
+                    k0, k1 = i * kl, (i + 1) * kl
+                    ms, call = timed(torch, lambda: ops.quant_matmul_acc(
+                        x_q, w_q, k0, k1))
+                    cold = (cold_ms(torch, lambda: ops.quant_matmul_acc(
+                        x_q, w_q, k0, k1), flush, "quant_matmul")
+                        if m <= DECODE_ROWS else None)
+                    plain, _ = timed(torch, lambda: ref.quant_matmul_acc_ref(
+                        x_q, w_q, k0, k1), iters=5, warmup=1)
+                    nbytes = m * kl + kl * n + 4 * m * n
+                    bnd, _ = bound_ms(nbytes, 2 * m * kl * n, INT8_OPS_PER_S)
+                    # yardstick: cuBLAS int8 GEMM on the shard's slice, not
+                    # called anywhere in the port (M > 16: rows zero-padded)
+                    xs = x_q[:, k0:k1].contiguous()
+                    if m <= 16:
+                        xs = torch.cat([xs, xs.new_zeros((32 - m, kl))])
+                    ws = w_q[k0:k1].contiguous()
+                    lib, _ = timed(torch, lambda: torch._int_mm(xs, ws))
+                    for key, v in (("ms", ms), ("call_ms", call),
+                                   ("cold_ms", cold or 0.0),
+                                   ("plain_ms", plain), ("bound_ms", bnd),
+                                   ("library_ms", lib), ("nbytes", nbytes),
+                                   ("ops", 2 * m * kl * n)):
+                        tot[key] += v
+                print(f"  quant_matmul@acc {arch} tp={tp} {name:4s} M={m:5d} "
+                      f"K={k:5d} ({tp} slices of {kl}) N={n:4d}: bit-identical"
+                      f" per shard, partials sum to the full-K launch")
+            _, by = bound_ms(tot["nbytes"], tot["ops"], INT8_OPS_PER_S)
+            print(f"  quant_matmul@acc {arch} M={m}: one layer's "
+                  f"{2 * tp} row partials {tot['ms'] * 1e3:.1f} us warm"
+                  + (f", {tot['cold_ms'] * 1e3:.1f} us L2-cold"
+                     if m <= DECODE_ROWS else "")
+                  + f"; plain {tot['plain_ms'] * 1e3:.1f} us, bound "
+                  f"{tot['bound_ms'] * 1e3:.2f} us ({by}), _int_mm "
+                  f"{tot['library_ms'] * 1e3:.1f} us")
+            entries.append({
+                "name": f"quant_matmul@acc[{arch} tp={tp}: one layer's "
+                        f"{2 * tp} row partials (wo, down), M={m}]",
+                "route": "cuda",
+                "source": "src/repro_torch/csrc/quant_matmul.cu",
+                "replaces": "src/repro/kernels/quant_matmul.py:72",
+                "kernel": "quant_matmul@acc", "max_abs_err": 0.0,
+                "ms": tot["ms"], "call_ms": tot["call_ms"],
+                "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+                "bound_by": by, "library_ms": tot["library_ms"],
+                "library": "torch._int_mm on each shard's slice" + (
+                    f", x zero-padded from M={m} to M=32" if m <= 16
+                    else ""),
+                **({"cold_ms": tot["cold_ms"]} if m <= DECODE_ROWS else {})})
     return entries
 
 
@@ -1309,9 +1440,10 @@ HYMBA_HEADS = (5, 5, 64)
 # patches); the depth-2 copy of [llava cpu check] takes CPU_MM_PATCHES
 # patches (2 x 2944 positions at width 7168 are too slow for the CPU).
 # Their copies' logits against the CPU: seamless 0.125, 2x its reading of
-# 0.0625 on an H100; llava 0.5, 1.5x the largest of its depth-2 copies'
-# readings there: 0.1897 ([llava cpu check]), 0.3164 and 0.3281 ([llava
-# sp]'s twin sharded and unsharded, other weights), each traced by
+# 0.0625 on an H100; llava's [llava cpu check] 0.25, 1.3x its reading of
+# 0.1897, and its [llava sp] twin 0.5 (SP_LOGIT_ATOL), 1.5x that twin's
+# readings 0.3164 and 0.3281 (sharded and unsharded, other weights), each
+# traced by
 # ``stage_gaps``: mm_proj, the pre_norms and the lm_head add nothing on
 # the same input, an attention or the final norm one bf16 step (0.0039:
 # B2 or the plain float32 attention against the CPU's softmax; a decode
@@ -1330,7 +1462,9 @@ CPU_MM_PATCHES, CPU_FRAMES = 64, 256
 PATH_LAYERS["llava-next-34b"] = 8
 CPU_CHECK_STEPS["llava-next-34b"] = 4
 WIDE_LOGIT_ATOL.update({"seamless-m4t-medium": 0.125,
-                        "llava-next-34b": 0.5})
+                        "llava-next-34b": 0.25})
+# the sp phases' limits where they read more than the copies above
+SP_LOGIT_ATOL = {"llava-next-34b": 0.5}
 STAGE_LOCAL_ATOL = 0.08
 
 # the MoE copies' CPU checks: a routing choice that the card and the CPU
@@ -2060,11 +2194,17 @@ def profiled(torch, fn):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
 
-    before = sum(ops.launch_counts().values())
+    def port_launches():
+        # B3's int32-accumulator branch (tensor parallelism) is counted
+        # apart from its other launches
+        return (sum(ops.launch_counts().values())
+                + ops.acc_launch_counts()["quant_matmul"])
+
+    before = port_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    launched = sum(ops.launch_counts().values()) - before
+    launched = port_launches() - before
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0]
     seen = sum(c for k, _, c in rows if any(n in k for n in PORT_KERNELS))
@@ -3547,7 +3687,7 @@ def check_sp_scheduler(torch, ops, A, ST, Engine, ShardedEngine, Request,
 
 def drive_sp_phase(torch, ops, A, ST, SG, prng, ShardedEngine, build_model,
                    engine, batch, label, kind, card, *, greedy=None,
-                   cpu_over=None, **kw):
+                   cpu_over=None, trace=False, **kw):
     """The weights and thresholds of ``engine`` (a family's own phase: no
     new draw; an untied readout served on the last block's ``wq``
     thresholds, ``readout_qparams``) as ``ShardedEngine(sp=SP)`` over
@@ -3566,7 +3706,11 @@ def drive_sp_phase(torch, ops, A, ST, SG, prng, ShardedEngine, build_model,
     acceptance are printed.  Then the timed run's first request and its
     tokens on the card, held against the same sp engine on the CPU over
     SP_CPU_STEPS teacher-forced steps (``cpu_check``: tokens under the
-    near-tie rule, logits within ``WIDE_LOGIT_ATOL`` or LOGIT_ATOL).  With ``cpu_over`` (granite-moe, llava: the CPU cannot
+    near-tie rule, logits within ``SP_LOGIT_ATOL``, ``WIDE_LOGIT_ATOL`` or
+    LOGIT_ATOL); with ``trace`` (stablelm) traced stage by stage on both
+    devices (``stage_gaps``, every stage's own gap within
+    STAGE_LOCAL_ATOL), and traced unsharded (sp=1) on the same request,
+    whose logit gap is printed beside the sharded one.  With ``cpu_over`` (granite-moe, llava: the CPU cannot
     hold their timed shapes, see SP_CPU_LAYERS) the whole timed run is held
     against the same engine on the card with the plain versions instead,
     and a short request (1 x SP_CPU_PROMPT tokens with a VLM's
@@ -3647,7 +3791,8 @@ def drive_sp_phase(torch, ops, A, ST, SG, prng, ShardedEngine, build_model,
             raise AssertionError(f"speculative tokens {gap} below the "
                                  "greedy sp argmax")
     moe = cfg.ffn == "moe"
-    tol = WIDE_LOGIT_ATOL.get(cfg.name, LOGIT_ATOL)
+    tol = SP_LOGIT_ATOL.get(cfg.name,
+                            WIDE_LOGIT_ATOL.get(cfg.name, LOGIT_ATOL))
 
     def held_check(eng, prompts, toks, lab, twin="CPU", **kw):
         b, s = np.shape(prompts["tokens"])
@@ -3660,8 +3805,27 @@ def drive_sp_phase(torch, ops, A, ST, SG, prng, ShardedEngine, build_model,
 
     if not cpu_over:
         # the timed run's first request and its tokens on the CPU
-        held_check(sharded, {k: v[:1] for k, v in batch.items()}, toks[:1],
-                   label)
+        first = {k: v[:1] for k, v in batch.items()}
+        if not trace:
+            held_check(sharded, first, toks[:1], label)
+            return got, int4
+        # traced stage by stage, then the same request unsharded (sp=1)
+        forced = stage_gaps(torch, A, sharded, first, toks[:1], SP_CPU_STEPS,
+                            label, exact=("logits",))[1]
+        held_check(sharded, first, toks[:1], label, forced=forced)
+        flat = ShardedEngine(base, cfg, engine.policy, engine.serve_params,
+                             qparams, **{**kw, "sp": 1})
+        flat_toks = flat.generate_batch(first, gen=SP_CPU_STEPS).tokens.cpu()
+        card_lg, cpu_lg = stage_gaps(torch, A, flat, first, flat_toks,
+                                     SP_CPU_STEPS, f"{label} unsharded",
+                                     exact=("logits",))[1]
+        # recorded beside the sharded reading, not held to its limit: the
+        # trace above bounds every stage's own gap
+        worst = max((g - c).abs().max().item()
+                    for g, c in zip(card_lg, cpu_lg))
+        print(f"[{label} unsharded] the same request unsharded (sp=1), "
+              f"card vs CPU over {SP_CPU_STEPS} teacher-forced steps: max "
+              f"|logit diff| {worst:.4f}")
         return got, int4
     # the timed run whole against the card's plain versions, then a short
     # request through a cut twin of the same weights on the CPU
@@ -3698,6 +3862,215 @@ def drive_sp_phase(torch, ops, A, ST, SG, prng, ShardedEngine, build_model,
         short, gen=SP_CPU_STEPS).tokens.cpu(), LOGIT_ATOL,
         f"{label} unsharded twin", n_check=SP_CPU_STEPS, logit_tol=tol)
     return got, int4
+
+
+def tp_counts(ops):
+    """(launch counts, B3 int32-accumulator launches, the reduces' count
+    and wire bytes) since the last reset."""
+    return (ops.launch_counts(), ops.acc_launch_counts()["quant_matmul"],
+            ops.reduce_counts())
+
+
+def drive_tp_phase(torch, ops, A, ShardedEngine, engine, batch, label, kind,
+                   card, tp, walls=None, cpu=False, per_step=None):
+    """The weights and thresholds of ``engine`` (a family's own phase: no
+    new draw) as ``ShardedEngine(tp=tp)`` in the engine's cache layout:
+    ``batch`` for GEN tokens through its captured programs (warm-up call
+    first) and through the eager ``loop=True`` driver, the launch counts
+    zeroed just before each and read just after.  Every row-parallel layer
+    launches B3's int32-accumulator branch once per shard and reduces once;
+    every other kernel runs as on the unsharded path, so the unsharded
+    engine's B3 count, run on the same batch just before, is the tp run's
+    B3 count plus its reduces (``per_step``: the reduces a decode step
+    must take).  Checks: graphs == eager bit for bit; the tokens equal the
+    unsharded engine's up to a near-tie (each unsharded token within
+    ``LOGIT_ATOL`` of the tp engine's argmax, teacher-forced); with
+    ``cpu``, the first request against the same tp engine on the CPU over
+    4 teacher-forced steps (``cpu_check``); without, the prefill logits
+    and tokens bit-identical to the unsharded engine's (the row epilogue
+    rounds as the fused B3 does: int32 sums, the same float32 dequant and
+    bf16 rounding), whose own path a depth-2 copy holds against the CPU.
+    Prints prefill ms and tokens/s, decode ms a step, B3-int32 launches
+    and the reduces' int32 wire bytes a decode step.  Returns (launch
+    counts, int32-accumulator launches, reduce counts)."""
+    cfg = engine.cfg
+    base = getattr(engine, "base_model", engine.model)
+    sharded = ShardedEngine(base, cfg, engine.policy, engine.serve_params,
+                            engine.qparams, device=engine.device, tp=tp,
+                            mode=engine.mode, cache_layout=engine.cache_layout)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    engine.generate_batch(batch, gen=2)     # the unsharded programs' capture
+    ops.reset_launches()
+    flat = engine.generate_batch(batch, gen=GEN)
+    want = ops.launch_counts()
+    warm = sharded.generate_batch(batch, gen=2)       # warm-up: the capture
+    # the prefill's reduces alone (gen=1: no decode step), eagerly
+    ops.reset_launches()
+    sharded.generate_batch(batch, gen=1, loop=True)
+    pre_red = ops.reduce_counts()
+
+    def run(loop):
+        ops.reset_launches()
+        res = sharded.generate_batch(batch, gen=GEN, loop=loop)
+        counts, acc, red = tp_counts(ops)
+        driver = "loop=True" if loop else "graphs"
+        print(f"[{label}] ({driver}) kernel launches {counts}; B3 int32-"
+              f"accumulator launches {acc}; reduces {red}")
+        exp = {**want, "quant_matmul": want["quant_matmul"] - red["reduces"]}
+        if counts != exp or acc != tp * red["reduces"] or acc == 0:
+            raise AssertionError(
+                f"{driver}: launches {counts} (expected {exp}), int32 "
+                f"partials {acc} (expected {tp} x {red['reduces']} reduces)")
+        if per_step is not None and red["reduces"] != per_step * GEN:
+            raise AssertionError(f"{driver}: {red['reduces']} reduces, "
+                                 f"expected {per_step} x {GEN}")
+        return res, counts, acc, red
+
+    res, counts, acc, red = run(False)
+    eager = run(True)[0]
+    if not bool(torch.isfinite(res.prefill_logits).all()):
+        raise AssertionError("non-finite prefill logits")
+    toks = res.tokens.cpu()
+    if toks.shape != (b, GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
+    if warm.compile_s <= 0.0 or res.compile_s != 0.0:
+        raise AssertionError(f"compile_s {warm.compile_s} then "
+                             f"{res.compile_s}: the first call must capture, "
+                             "the second only replay")
+    same = (torch.equal(res.prefill_logits, eager.prefill_logits)
+            and torch.equal(res.tokens, eager.tokens))
+    print(f"[{label}] graphs vs eager loop=True: prefill logits and {GEN} "
+          f"greedy tokens {'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("graphs and the eager driver disagree")
+    decode_ms = res.decode_s / (GEN - 1) * 1e3
+    n_pre = b * (s + (cfg.mm_patches if cfg.modality == "vlm" else 0))
+    dec_red = (red["reduces"] - pre_red["reduces"]) // (GEN - 1)
+    dec_bytes = (red["wire_bytes"] - pre_red["wire_bytes"]) // (GEN - 1)
+    print(f"[{label}] {cfg.name} ({cfg.n_layers} layers, full width), tp="
+          f"{tp}, int8 weights and KV cache, {engine.cache_layout} caches: "
+          f"prefill {b} x {s}"
+          + (f" + {batch['frames'].shape[1]} frames" if "frames" in batch
+             else "")
+          + f" {res.prefill_s * 1e3:.1f} ms = {n_pre / res.prefill_s:.0f} "
+          f"positions/s; decode {decode_ms:.2f} ms per step of {b} "
+          f"requests (graphs) on {kind} ({card}); eager loop=True prefill "
+          f"{eager.prefill_s * 1e3:.1f} ms, decode "
+          f"{eager.decode_s / (GEN - 1) * 1e3:.2f} ms per step; a decode "
+          f"step: {dec_red * tp} B3 int32-accumulator launches, {dec_red} "
+          f"reduces of {dec_bytes} int32 wire bytes (tp - 1 shards' "
+          f"payload); the prefill's {pre_red['reduces']} reduces "
+          f"{pre_red['wire_bytes']} bytes; graphs captured in "
+          f"{warm.compile_s:.3f} s")
+    if walls is not None:
+        walls.setdefault(label, {}).update(
+            graphs=(res.prefill_s * 1e3, decode_ms, warm.compile_s),
+            eager=(eager.prefill_s * 1e3, eager.decode_s / (GEN - 1) * 1e3))
+    ref_toks = flat.tokens
+    n_same = int((toks == ref_toks.cpu()).sum())
+    bitwise = n_same == toks.numel() and torch.equal(
+        res.prefill_logits, flat.prefill_logits)
+    gap = 0.0
+    if n_same < toks.numel():
+        lgs = forced_logits(torch, A, sharded, batch, ref_toks.cpu(), GEN)
+        gap = max((lg.max(-1).values - lg.gather(
+            1, ref_toks[:, i:i + 1].cpu())[:, 0]).max().item()
+            for i, lg in enumerate(lgs))
+    print(f"[{label}] tokens equal the unsharded engine's {n_same}/"
+          f"{toks.numel()}" + (", prefill logits bit-identical" if bitwise
+                              else "")
+          + f"; teacher-forced on the unsharded tokens, the tp engine puts "
+          f"them at most {gap:.4f} below its argmax (near-tie tolerance "
+          f"{LOGIT_ATOL})")
+    if not gap <= LOGIT_ATOL:
+        raise AssertionError(f"unsharded tokens {gap} below the tp argmax")
+    if cpu:
+        cpu_check(torch, A, sharded, {k: v[:1] for k, v in batch.items()},
+                  toks[:1], LOGIT_ATOL, f"{label} cpu check",
+                  logit_tol=WIDE_LOGIT_ATOL.get(cfg.name, LOGIT_ATOL))
+    elif not bitwise:
+        # a wider config's unsharded path is held against the CPU by its
+        # depth-2 copy ([<arch> cpu check]); its tp twin must equal it
+        raise AssertionError("the tp engine's prefill logits or tokens "
+                             "differ from the unsharded engine's")
+    if walls is not None:
+        replay_busy(torch, sharded, label, walls)
+    return counts, acc, red
+
+
+def check_tp_scheduler(torch, ops, A, ST, ShardedEngine, Request, engine,
+                       kind, card):
+    """The [scheduler]'s 16 ragged requests (prompts of 64-512 tokens, 32
+    generated each) through 8 slots of ``engine``'s weights as
+    ``ShardedEngine(tp=TP)`` over dense caches (the reference suite's
+    layout), chunked prefill in chunks of CHUNK, through its captured
+    admission and decode programs: every request finishes by its budget,
+    every row-parallel layer launches the int32-accumulator branch once
+    per shard, and the first 4 requests re-served alone through batch-1
+    ``generate_batch`` give the same tokens or first differ at a near-tie.
+    Returns (launch counts, int32-accumulator launches, reduce counts)."""
+    lengths, reqs = scheduler_requests(Request, engine.cfg.vocab)
+    base = getattr(engine, "base_model", engine.model)
+    sharded = ShardedEngine(base, engine.cfg, engine.policy,
+                            engine.serve_params, engine.qparams,
+                            device=engine.device, tp=TP,
+                            cache_layout="dense", prefill_chunk=CHUNK)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = sharded.generate(reqs, max_slots=SLOTS, block_steps=BLOCK_STEPS,
+                            eos_id=-1)
+    wall = time.perf_counter() - t0
+    counts, acc, red = tp_counts(ops)
+    sched = sharded._scheduler
+    calls, sec = sched.call_counts(), sched.stage_seconds()
+    steps = calls["decode"] * BLOCK_STEPS
+    serve = wall - sec["compile"]
+    print(f"[tp scheduler] {len(done)} requests (prompts {lengths.min()}-"
+          f"{lengths.max()} tokens, {GEN} generated each) through {SLOTS} "
+          f"slots, tp={TP}, in {serve:.2f} s after the capture: "
+          f"{len(done) / serve:.2f} requests/s, {len(done) * GEN / serve:.1f}"
+          f" generated tokens/s; admission "
+          f"{sec['admit'] / calls['prefill'] * 1e3:.1f} ms per request; "
+          f"decode {sec['decode'] / steps * 1e3:.2f} ms per step on {kind} "
+          f"({card}); programs captured in {sec['compile']:.3f} s; calls "
+          f"{calls}; kernel launches {counts}; B3 int32-accumulator "
+          f"launches {acc}; reduces {red}")
+    bad = [(c.rid, c.status, c.finished_by, len(c.tokens)) for c in done
+           if (c.status, c.finished_by, len(c.tokens)) != ("ok", "budget",
+                                                           GEN)]
+    if len(done) != len(reqs) or bad:
+        raise AssertionError(f"{len(done)} completions; not ok/budget/{GEN}: "
+                             f"{bad}")
+    if sec["compile"] <= 0.0 or acc == 0 or acc != TP * red["reduces"]:
+        raise AssertionError(f"capture {sec['compile']} s, {acc} int32 "
+                             f"partials for {red['reduces']} reduces")
+    by_rid = {c.rid: c for c in done}
+    for r in range(4):
+        got = by_rid[r].tokens
+        alone = sharded.generate_batch({"tokens": reqs[r].tokens[None]},
+                                       gen=GEN).tokens[0].tolist()
+        if alone == got:
+            print(f"[tp scheduler] request {r} ({lengths[r]} tokens) alone: "
+                  f"{GEN} tokens equal")
+            continue
+        forced = teacher_forced_gap(torch, A, ST, sharded, reqs[r].tokens,
+                                    got)
+        if forced is None:
+            raise AssertionError(
+                f"request {r}: batch-1 generate_batch gives other tokens, "
+                "but teacher-forced on the scheduler's tokens every argmax "
+                "agrees")
+        step, gap = forced
+        print(f"[tp scheduler] request {r} ({lengths[r]} tokens) alone: "
+              f"first differs at token {step}, where the batch-1 logits put "
+              f"the scheduler's token {gap:.4f} below their argmax "
+              f"(near-tie tolerance {LOGIT_ATOL})")
+        if not gap <= LOGIT_ATOL:
+            raise AssertionError(f"request {r}: the scheduler's token {step} "
+                                 f"is {gap} below the batch-1 argmax")
+    return counts, acc, red
 
 
 def check_prefix(torch, ops, Request, engine, kind, card):
@@ -5108,6 +5481,11 @@ def main() -> int:
           "bit-exact:")
     w4_entries, w4_launches = check_quant_matmul_w4(torch, ops, ref, dev)
     kernels += fq_entries + w4_entries
+    print("[kernels] quant_matmul's int32-accumulator branch (B3 acc: a "
+          "tensor-parallel shard's partial of a row-parallel layer) bit-"
+          "exact at the K slices of smollm-135m (tp=3) and granite-8b "
+          "(tp=2):")
+    kernels += check_quant_matmul_acc(torch, ops, ref, dev)
     print("[kernels] B1, B2 and B4 at the heads of granite-8b, stablelm-12b "
           "and gemma3-12b (KV, G, D) = "
           f"{list(WIDE_HEADS.values())}, B2 at gemma3-12b's window, B3 at "
@@ -5250,6 +5628,18 @@ def main() -> int:
         spec_runs[name] = phase(name, drive_spec_path, torch, ops, A, ST, SG,
                                 prng, Engine, engine, prompts, res.tokens,
                                 name, kind, card, page, walls)
+    # tensor parallelism as the reference serves it (ROADMAP item 18): the
+    # same weights as ShardedEngine(tp=TP), through its captured programs
+    # and eagerly, against the unsharded engine and the CPU; then the
+    # scheduler
+    tp_runs = {
+        "tp path": phase("tp path", drive_tp_phase, torch, ops, A,
+                         ShardedEngine, engine, {"tokens": prompts},
+                         "tp path", kind, card, TP, walls, True,
+                         2 * engine.cfg.n_layers),
+        "tp scheduler": phase("tp scheduler", check_tp_scheduler, torch,
+                              ops, A, ST, ShardedEngine, Request, engine,
+                              kind, card)}
     del engine
 
     # the reference's three other serving modes at full width (and
@@ -5440,6 +5830,15 @@ def main() -> int:
                 ring_run = phase("gemma3-12b ring", drive_ring_path, torch,
                                  ops, A, Engine, engine_w, "gemma3-12b ring",
                                  kind, card, walls)
+            if arch == "granite-8b":
+                tp_runs["granite-8b tp"] = phase(
+                    "granite-8b tp", drive_tp_phase, torch, ops, A,
+                    ShardedEngine, engine_w, {"tokens": np.random.default_rng(
+                        sum(map(ord, arch))).integers(
+                            0, engine_w.cfg.vocab, (B, PROMPT),
+                            dtype=np.int32)},
+                    "granite-8b tp", kind, card, TP_WIDE, walls, False,
+                    2 * engine_w.cfg.n_layers)
             if arch == "stablelm-12b":
                 # B4 at D 160 on a model path: the same weights, sp=SP
                 sp_runs["stablelm sp"] = phase(
@@ -5448,7 +5847,7 @@ def main() -> int:
                     {"tokens": np.random.default_rng(sum(map(
                         ord, arch))).integers(0, engine_w.cfg.vocab,
                                               (B, PROMPT), dtype=np.int32)},
-                    "stablelm sp", kind, card)
+                    "stablelm sp", kind, card, trace=True)
             del engine_w, run
         phase(f"{arch} cpu check", check_arch_cpu, torch, ops, A, Engine,
               build_model, get_config(arch), f"{arch} cpu check")
@@ -5542,6 +5941,11 @@ def main() -> int:
                 kind, card,
                 cpu_over=dict(mm_patches=CPU_MM_PATCHES,
                               n_layers=SP_CPU_LAYERS) if vlm else None)
+            if not vlm:
+                tp_runs["seamless tp"] = phase(
+                    "seamless tp", drive_tp_phase, torch, ops, A,
+                    ShardedEngine, engine_m, batch, "seamless tp", kind,
+                    card, TP_WIDE, walls)
             del engine_m, run
         phase(f"{short} cpu check", check_media_cpu, torch, ops, A, Engine,
               build_model, get_config(arch), f"{short} cpu check")
@@ -5564,6 +5968,12 @@ def main() -> int:
                             for k in ("prefill_attention",
                                       "decode_attention")}
                      for path, run in resilience.items()}
+    # the tensor-parallel phases: B3's int32-accumulator launches by path;
+    # smollm-135m's paths' fused B3 and attention launches join the main
+    # entries, the wider configs' their configs' entries
+    acc_by_path = {path: run[1] for path, run in tp_runs.items()}
+    smollm_tp = ("tp path", "tp scheduler")
+    dense_by_path.update({path: tp_runs[path][0] for path in smollm_tp})
     by_path = {path: run[-1] for path, run in paged_runs.items()}
     partials = "decode_attention_partials"
     sp_paths = {"sp path": out_sp[1][partials],
@@ -5586,6 +5996,7 @@ def main() -> int:
     new_paths["paper tables"] = {"quant_matmul": paper["quant_matmul"]}
     new_paths.update({f"variants full {name}": {"quant_matmul": n}
                       for name, n in variants.items()})
+    new_paths.update({path: tp_runs[path][0] for path in smollm_tp})
     launched["quant_matmul"] += sum(c["quant_matmul"]
                                     for c in new_paths.values())
     for k in ("prefill_attention", "decode_attention"):
@@ -5699,6 +6110,16 @@ def main() -> int:
             got[f"{partials}@int4{sp_key[path]}"] = int4[partials]
         for kernel, n in got.items():
             wide_by_path.setdefault(kernel, {})[path] = n
+    tp_keys = {"granite-8b tp": ("granite-8b", "@D128"),
+               "seamless tp": ("seamless-m4t-medium", "@seamless")}
+    for path, (arch, key) in tp_keys.items():
+        c = tp_runs[path][0]
+        got = {f"quant_matmul@{arch}": c["quant_matmul"],
+               f"prefill_attention{key}": c["prefill_attention"],
+               f"decode_attention{key}": c["decode_attention"]}
+        for kernel, n in got.items():
+            wide_by_path.setdefault(kernel, {})[path] = n
+    launched["quant_matmul@acc"] = sum(acc_by_path.values())
     launched[partials] = sum(sp_paths.values())
     launched["quant_matmul"] += sum(sp_runs[p][0]["quant_matmul"]
                                     for p in sp_runs if p not in sp_key)
@@ -5730,6 +6151,8 @@ def main() -> int:
                                         dense_by_path.items()}}
         if kernel == "fake_quant":
             e["launches_by_path"] = {"paper tables": launched[kernel]}
+        if kernel == "quant_matmul@acc":
+            e["launches_by_path"] = acc_by_path
         if kernel == "prefill_attention@paged-bf16":
             e["launches_by_path"] = {"int8_w_bf16_kv paged path":
                                      launched[kernel]}

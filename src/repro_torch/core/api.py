@@ -22,12 +22,26 @@ context's modes are
              the epilogue (eq. 20) -- always through ``kernels.ops``
 
 In int8 mode every quantized matmul runs through the fused kernel (B3),
-whatever the variant: scalar-mode weights broadcast their one dequant
+whatever the variant, but a row-parallel layer under tensor parallelism
+(below): scalar-mode weights broadcast their one dequant
 scale over the output channels, and an asymmetric or non-8-bit activation
 goes in with ``s_x = levels / T_adj`` and the kernel's ±127 clip (what the
 reference's fused path computes).  Per-channel activation thresholds have
 no int8 form: the kernel takes one activation scale (the reference fails
 to broadcast them too).
+
+Tensor parallelism (``shard.context.tp_shard_info``, ``tp`` > 1): the
+shards live on one device and the serving body runs once, over all heads
+and columns.  Column-parallel layers and attention are the unsharded
+calls: each output column and each head is computed alone, so the union
+of the shards' local work is the global call.  A row-parallel layer (its
+input axis 'heads' or 'mlp': attention ``wo``, the MLPs' ``down`` and
+``fc2``, the SSM mixer's ``out_proj``) is where the shards' results meet,
+and it takes the reference's unfused path: x quantized once as the
+reference's XLA graph computes it, each shard's int8 x int8 -> int32
+partial over its slice of K (B3's int32-accumulator branch), the exact
+int32 sum of the partials (``dist.collectives.compressed_psum``), and one
+dequant.
 
 State layout, as in the reference: ``qparams`` is a flat dict keyed by
 layer path (``"smollm-135m/stack/layer0/attn/wq"``) holding
@@ -309,6 +323,13 @@ def unflatten(flat: dict) -> dict:
 def dense_forward(layer, params: dict, x: torch.Tensor, ctx: QuantCtx | None):
     """A Dense layer without a context (full precision) and in each mode."""
     b = params.get("b")
+    tp = _tp_row_shards(layer)
+    if tp and (ctx is None or ctx.mode != "int8" or not ctx.enabled(layer)):
+        # the float paths have no integer accumulator to reduce exactly
+        raise ValueError(
+            f"{layer.path}: tensor-parallel serving requires mode='int8' "
+            "with this layer quantized (the row epilogue reduces int32 "
+            "accumulators; see repro_torch.shard)")
     if ctx is None or not ctx.enabled(layer):
         y = x @ params["w"]
     elif ctx.mode == "calibrate":
@@ -323,9 +344,11 @@ def dense_forward(layer, params: dict, x: torch.Tensor, ctx: QuantCtx | None):
                      ctx.policy.act_spec(layer.act_unsigned)).to(x.dtype)
         y = xq @ _fq_weight(params["w"], qs["w"], ctx.policy.weight_spec())
     else:
-        y = _int8_matmul(x, params["w_q"], params["w_scale"],
-                         ctx.qparams[layer.path]["act"],
-                         ctx.policy.act_spec(layer.act_unsigned))
+        matmul = (_int8_matmul if not tp else functools.partial(
+            _int8_matmul_tp, tp=tp, key=layer.path.rsplit("/", 1)[-1]))
+        y = matmul(x, params["w_q"], params["w_scale"],
+                   ctx.qparams[layer.path]["act"],
+                   ctx.policy.act_spec(layer.act_unsigned))
         if "b_q" in params:
             # the int32 bias at the dequantized output scale (eq. 20)
             y = _add_int32_bias(y, params["b_q"], params["b_scale"])
@@ -461,6 +484,69 @@ def _expert_int8(x, w_q, w_scale, astate, aspec: Q.QuantSpec, dtype):
     return out
 
 
+def _tp_row_shards(layer) -> int:
+    """The tensor-parallel shard count a row-parallel layer reduces over,
+    or 0: only under ``tp_shard_info`` (tp > 1), and only for a layer whose
+    logical input axis is 'heads' (attention ``wo``, the SSM ``out_proj``)
+    or 'mlp' (``down``, ``fc2``), the projections whose contraction the
+    shards split (the reference's ``_tp_reduce_axis``)."""
+    from repro_torch.shard.context import tp_shard_info
+
+    info = tp_shard_info()
+    if info is None:
+        return 0
+    axes = getattr(layer, "logical_axes", None)
+    return info.tp if axes and axes[0] in ("heads", "mlp") else 0
+
+
+def _act_scale(astate, aspec: Q.QuantSpec, w_scale):
+    """T_adj and s_x = levels / T_adj of a per-tensor activation threshold;
+    a per-channel one raises (int8 mode takes one)."""
+    t_adj = torch.clamp_min(
+        Q.adjusted_threshold(astate["t_max"], astate["alpha"], aspec), 1e-8)
+    if t_adj.ndim:
+        raise ValueError(
+            f"int8 mode takes one activation threshold per tensor: the "
+            f"per-channel act scale {tuple(t_adj.shape)} does not broadcast "
+            f"against the weight scale {tuple(w_scale.shape)} "
+            f"(act_per_channel serves in fake mode only)")
+    return t_adj, Q.rdiv(aspec.levels, t_adj)
+
+
+def _int8_matmul_tp(x, w_q, w_scale, astate, aspec: Q.QuantSpec, *,
+                    tp: int, key: str):
+    """The row-parallel epilogue (the reference's ``_int8_matmul`` with a
+    ``reduce_axis``): x quantized as its XLA graph computes it,
+    ``clip(round(x * s_x), qmin, qmax)`` in float32, cast to int8
+    saturating at ±127; each of the ``tp`` shards' int8 x int8 -> int32
+    partial over its contraction slice (``dist.sharding.tp_row_slices``:
+    the weight rows [k0, k1) read in place, or all of K where the weight is
+    replicated), by B3's int32-accumulator branch into one stacked (tp, M,
+    N) buffer; their exact sum (``compressed_psum``); one dequant with the
+    combined scale in ``_int8_matmul``'s float32 form.  These are the
+    reference's bits in float32; in bf16 its XLA fusions keep some
+    roundings out (ROADMAP Queue C), and this path equals the port's
+    unsharded one bit for bit."""
+    from repro_torch.dist.collectives import compressed_psum
+    from repro_torch.dist.sharding import tp_row_slices
+    from repro_torch.kernels import ops
+
+    t_adj, s_x = _act_scale(astate, aspec, w_scale)
+    k, n = w_q.shape
+    lead = x.shape[:-1]
+    x_q = torch.clamp(torch.round(x.reshape(-1, k).float() * s_x),
+                      max(aspec.qmin, -128.0),
+                      min(aspec.qmax, 127.0)).to(torch.int8)
+    parts = torch.empty((tp, x_q.shape[0], n), dtype=torch.int32,
+                        device=x.device)
+    for i, (k0, k1) in enumerate(tp_row_slices(key, k, tp)):
+        ops.quant_matmul_acc(x_q, w_q, k0, k1, out=parts[i])
+    acc = compressed_psum(parts, mean=False)
+    combined = (w_scale * t_adj) * (1.0 / aspec.levels)
+    y = acc.float() * combined.float()
+    return y.reshape(*lead, n).to(x.dtype)
+
+
 def _int8_matmul(x, w_q, w_scale, astate, aspec: Q.QuantSpec):
     """int8 x int8 -> int32 -> dequant with a static activation threshold.
 
@@ -474,15 +560,7 @@ def _int8_matmul(x, w_q, w_scale, astate, aspec: Q.QuantSpec):
     reference."""
     from repro_torch.kernels import ops
 
-    t_adj = torch.clamp_min(
-        Q.adjusted_threshold(astate["t_max"], astate["alpha"], aspec), 1e-8)
-    if t_adj.ndim:
-        raise ValueError(
-            f"int8 mode takes one activation threshold per tensor: the "
-            f"per-channel act scale {tuple(t_adj.shape)} does not broadcast "
-            f"against the weight scale {tuple(w_scale.shape)} "
-            f"(act_per_channel serves in fake mode only)")
-    s_x = Q.rdiv(aspec.levels, t_adj)
+    t_adj, s_x = _act_scale(astate, aspec, w_scale)
     # w_scale / s_x, evaluated as (w_scale * T_adj) * (1 / levels): the
     # float32 expression the reference's compiled graph evaluates for it,
     # so both packages dequantize with the same bits

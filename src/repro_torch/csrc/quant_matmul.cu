@@ -74,10 +74,27 @@
 //    columns (8 bytes) a thread.  No global scratch, no counter.
 //  - Edges: weights past K or N are zero-filled, x rows past M quantize zeros, rows
 //    and columns past M and N are not stored.
+//
+// The int32-accumulator branch (x of type int8_t, entry repro_quant_matmul_acc):
+//
+//   acc[m, n] = sum_{k0 <= k < k1} x_q[m, k] * w_q[k, n]      (int32, wrapping)
+//
+// x_q is already quantized (int8, rows of ldx bytes) and w_q's rows k0 .. k1 - 1 are
+// read in place: one tensor-parallel shard's partial product of a row-parallel
+// layer, whose shards' partials the caller sums exactly (the reference's
+// src/repro/core/api.py::_int8_matmul with reduce_axis, which takes an XLA
+// dot_general with int32 output there and no Pallas kernel).  The same two kernels
+// under the same tiling, with no quantize (the bytes are staged as they are, 16 x
+// per 16-byte piece) and no scale: the epilogue stores the int32 sums (8 columns,
+// 32 bytes, a lane of the tensor-core kernel; 4 columns, 16 bytes, a thread of the
+// decode kernel).  Bound: the weight bytes at decode, as above, and int8 operations
+// at prefill; each partial reads a 1 / tp slice of the weights.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -212,13 +229,15 @@ __host__ __device__ constexpr int threads() {
 
 // BM x BN output tile, warps of 16*MT rows x 32 columns; VEC: 16-byte staging
 // (x loaded one step ahead into registers, weights by cp.async), else
-// element-wise
+// element-wise.  x rows are ldx elements apart.  T = int8_t: the
+// int32-accumulator branch (x already quantized, int32 out, no scale)
 template <typename T, int WB, int BM, int BN, int MT, bool VEC>
 __global__ void __launch_bounds__(threads<BM, BN, MT>(), 2)
 quant_matmul_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                         const float* __restrict__ w_scale,
                         const float* __restrict__ act_scale,
-                        __nv_bfloat16* __restrict__ out, int M, int K, int N) {
+                        void* __restrict__ out, int M, int K, int N, int ldx) {
+  constexpr bool ACC = std::is_same<T, int8_t>::value;
   constexpr int WN = BN / 32;
   constexpr int NT = threads<BM, BN, MT>();
   constexpr int KR = BK * WB / 8;    // weight tile rows a step (packed at WB == 4)
@@ -238,7 +257,8 @@ quant_matmul_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int KW = K * WB / 8;
   const int nk = (K + BK - 1) / BK;
-  const float s = *act_scale;
+  float s = 0.0f;
+  if constexpr (!ACC) s = *act_scale;
   // this lane's A rows, and its B words: rows RG*t + i at columns col .. col+3
   // of each 16-k half; the swizzle of those rows depends on t alone, so row
   // RG*t + i + 16*(RG/4)*q sits at boff[i] + 16*(RG/4)*q*BN
@@ -252,8 +272,8 @@ quant_matmul_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
   // step * BK elements (x) and step * KR rows (weights) further on
   const int xr0 = tid / (BK / E), xk = (tid % (BK / E)) * E;
   const int wr0 = tid / (BN / 16), wc = tid % (BN / 16);
-  const T* xp = x + (size_t)min(m0 + xr0, M - 1) * K + xk;
-  const size_t xjs = (size_t)XRS * K;
+  const T* xp = x + (size_t)min(m0 + xr0, M - 1) * ldx + xk;
+  const size_t xjs = (size_t)XRS * ldx;
   const int8_t* wp = w + (size_t)wr0 * N + n0 + wc * 16;
   const size_t wjs = (size_t)WRS * N, wss = (size_t)KR * N;
   const bool wcol = n0 + wc * 16 < N;
@@ -274,12 +294,16 @@ quant_matmul_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
   auto store_x = [&](int8_t* xt) {
 #pragma unroll
     for (int j = 0; j < XL; ++j) {
-      const uint2 q = quantize_chunk<T>(xr[j], s);
       int8_t* d = xt + (xr0 + j * XRS) * LDA + xk;
-      if constexpr (E == 8)
-        *reinterpret_cast<uint2*>(d) = q;
-      else
-        *reinterpret_cast<uint32_t*>(d) = q.x;
+      if constexpr (ACC) {
+        *reinterpret_cast<uint4*>(d) = xr[j];
+      } else {
+        const uint2 q = quantize_chunk<T>(xr[j], s);
+        if constexpr (E == 8)
+          *reinterpret_cast<uint2*>(d) = q;
+        else
+          *reinterpret_cast<uint32_t*>(d) = q.x;
+      }
     }
   };
   auto load_w = [&](int step) {
@@ -294,10 +318,14 @@ quant_matmul_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
   auto stage_narrow = [&](int step, int8_t* xt, int8_t* wt) {
     for (int i = tid; i < BM * BK; i += NT) {
       const int r = i / BK, c = i % BK, gm = m0 + r, gk = step * BK + c;
-      xt[r * LDA + c] = gm < M && gk < K
-                            ? static_cast<int8_t>(quantize_bits(
-                                  to_f32(x[(size_t)gm * K + gk]), s))
-                            : static_cast<int8_t>(0);
+      int8_t v = 0;
+      if (gm < M && gk < K) {
+        if constexpr (ACC)
+          v = x[(size_t)gm * ldx + gk];
+        else
+          v = static_cast<int8_t>(quantize_bits(to_f32(x[(size_t)gm * ldx + gk]), s));
+      }
+      xt[r * LDA + c] = v;
     }
     for (int i = tid; i < KR * BN; i += NT) {
       const int r = i / BN, c = i % BN, kr = step * KR + r, gn = n0 + c;
@@ -369,6 +397,30 @@ quant_matmul_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
   // lane's columns ncol .. ncol + 7: value j is n8 tile j % 4, fragment column
   // 2t + j / 4
   const int ncol = n0 + wn * 32 + 8 * t;
+  if constexpr (ACC) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = m0 + wm * 16 * MT + mt * 16 + g + 8 * hr;
+        if (row >= M) continue;
+        __align__(16) int v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = acc[mt][j & 3][2 * hr + (j >> 2)];
+        int* o = static_cast<int*>(out) + (size_t)row * N + ncol;
+        if constexpr (VEC) {
+          if (ncol < N) {
+            reinterpret_cast<int4*>(o)[0] = reinterpret_cast<const int4*>(v)[0];
+            reinterpret_cast<int4*>(o)[1] = reinterpret_cast<const int4*>(v)[1];
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (ncol + j < N) o[j] = v[j];
+        }
+      }
+    return;
+  }
   float sc[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) sc[j] = ncol + j < N ? w_scale[ncol + j] : 0.0f;
@@ -387,7 +439,7 @@ quant_matmul_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
         v[j / 2] = __floats2bfloat162_rn(__fmul_rn(static_cast<float>(a0), sc[j]),
                                          __fmul_rn(static_cast<float>(a1), sc[j + 1]));
       }
-      __nv_bfloat16* o = out + (size_t)row * N + ncol;
+      __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + (size_t)row * N + ncol;
       if constexpr (VEC) {
         if (ncol < N) *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(v);
       } else {
@@ -405,15 +457,17 @@ constexpr int DEC_CMAX = 4;       // blocks a cluster, at most (8 is portable)
 
 // M <= MR rows; K % 4 == 0, N % 4 == 0.  Block (column tile t, cluster rank r)
 // owns columns t*BN .. t*BN+BN-1 (BN = 1 << bn_log2) and k slice r*kc ..
-// r*kc+kc-1 (kc % 8 == 0), staged in stages of up to DEC_SQ k quads; the
-// cluster's C blocks share the tile (see the note).
+// r*kc+kc-1 (kc % 8 == 0, % 16 == 0 for int8 x), staged in stages of up to
+// DEC_SQ k quads; the cluster's C blocks share the tile (see the note).  x rows
+// are ldx elements apart; T = int8_t: the int32-accumulator branch.
 template <typename T, int WB, int MR>
 __global__ void __launch_bounds__(DEC_NT, 1)
 quant_matmul_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                            const float* __restrict__ w_scale,
                            const float* __restrict__ act_scale,
-                           __nv_bfloat16* __restrict__ out, int M, int K, int N,
-                           int bn_log2, int kc) {
+                           void* __restrict__ out, int M, int K, int N,
+                           int bn_log2, int kc, int ldx) {
+  constexpr bool ACC = std::is_same<T, int8_t>::value;
   constexpr int E = 16 / sizeof(T);  // x elements in 16 bytes
   constexpr int RQ = WB / 2;         // weight rows a k quad (packed at WB == 4)
   // weight slab [rows][P], then the sums [warp][MR][BN]
@@ -432,12 +486,16 @@ quant_matmul_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ w
   const int n0 = (blockIdx.x >> (bn_log2 - own_log2)) << bn_log2, own = 1 << own_log2;
   const int c0 = rank * own;
   const int k0 = rank * kc, nq = min(K - k0, kc) / 4;  // >= 1: C leaves 64 k a block
-  const int sq = min(DEC_SQ, DEC_BUF / (RQ * P)) & ~1;
-  const float s = *act_scale;
+  // stages of an even number of quads (a multiple of 4 for int8 x: 16-byte pieces)
+  const int sq = min(DEC_SQ, DEC_BUF / (RQ * P)) & (ACC ? ~3 : ~1);
+  float s = 0.0f, scv = 0.0f;
+  if constexpr (!ACC) {
+    s = *act_scale;
+    // w_scale of the stored columns (own <= DEC_NT), into shared memory later
+    scv = tid < own && n0 + c0 + tid < N ? w_scale[n0 + c0 + tid] : 0.0f;
+  }
   const bool wvec = ((reinterpret_cast<uintptr_t>(w) | static_cast<unsigned>(N)) & 15) == 0;
-  const bool xvec = (reinterpret_cast<uintptr_t>(x) & 15) == 0 && K % E == 0;
-  // w_scale of the stored columns (own <= DEC_NT), into shared memory later
-  const float scv = tid < own && n0 + c0 + tid < N ? w_scale[n0 + c0 + tid] : 0.0f;
+  const bool xvec = (reinterpret_cast<uintptr_t>(x) & 15) == 0 && K % E == 0 && ldx % E == 0;
 
   int acc[MR][4];
 #pragma unroll
@@ -456,7 +514,7 @@ quant_matmul_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ w
 #pragma unroll
     for (int j = 0; j < XP; ++j)
       xr[j] = wid < M && lane + 32 * j < ppr
-                  ? *reinterpret_cast<const uint4*>(x + (size_t)wid * K + kb + E * (lane + 32 * j))
+                  ? *reinterpret_cast<const uint4*>(x + (size_t)wid * ldx + kb + E * (lane + 32 * j))
                   : make_uint4(0, 0, 0, 0);
     if (wvec) {
       for (int i = tid; i < rn * CQ / 4; i += DEC_NT) {
@@ -482,18 +540,27 @@ quant_matmul_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ w
       for (int j = 0; j < XP; ++j) {
         const int k = E * (lane + 32 * j);
         if (wid >= MR || k >= kn) continue;
-        const uint2 q = quantize_chunk<T>(xr[j], s);
-        if constexpr (E == 8)
-          *reinterpret_cast<uint2*>(&xq[wid][k]) = q;
-        else
-          *reinterpret_cast<uint32_t*>(&xq[wid][k]) = q.x;
+        if constexpr (ACC) {
+          *reinterpret_cast<uint4*>(&xq[wid][k]) = xr[j];
+        } else {
+          const uint2 q = quantize_chunk<T>(xr[j], s);
+          if constexpr (E == 8)
+            *reinterpret_cast<uint2*>(&xq[wid][k]) = q;
+          else
+            *reinterpret_cast<uint32_t*>(&xq[wid][k]) = q.x;
+        }
       }
     } else {
       for (int i = tid; i < MR * kn; i += DEC_NT) {
         const int m = i / kn, k = i % kn;
-        xq[m][k] = m < M ? static_cast<int8_t>(quantize_bits(
-                               to_f32(x[(size_t)m * K + kb + k]), s))
-                         : static_cast<int8_t>(0);
+        int8_t v = 0;
+        if (m < M) {
+          if constexpr (ACC)
+            v = x[(size_t)m * ldx + kb + k];
+          else
+            v = static_cast<int8_t>(quantize_bits(to_f32(x[(size_t)m * ldx + kb + k]), s));
+        }
+        xq[m][k] = v;
       }
     }
     cp_async_wait<0>();
@@ -566,8 +633,12 @@ quant_matmul_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ w
         t.x += v.x, t.y += v.y, t.z += v.z, t.w += v.w;
       }
     if (WB == 4) t.x >>= 4, t.y >>= 4, t.z >>= 4, t.w >>= 4;
+    if constexpr (ACC) {
+      *reinterpret_cast<int4*>(static_cast<int*>(out) + (size_t)m * N + n) = t;
+      continue;
+    }
     const float* f = sc + j;
-    *reinterpret_cast<uint2*>(out + (size_t)m * N + n) =
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + (size_t)m * N + n) =
         make_uint2(bf16_pair(__fmul_rn(static_cast<float>(t.x), f[0]),
                              __fmul_rn(static_cast<float>(t.y), f[1])),
                    bf16_pair(__fmul_rn(static_cast<float>(t.z), f[2]),
@@ -592,14 +663,15 @@ int decode_cluster(int K) {
 
 template <typename T, int WB, int MR>
 cudaError_t launch_decode(const void* x, const void* w, const void* w_scale,
-                          const void* act_scale, void* out, int M, int K, int N,
+                          const void* act_scale, void* out, int M, int K, int N, int ldx,
                           cudaStream_t stream) {
   // the widest column tile (128, 64, 32) that still gives half the SMs a block
   const int C = decode_cluster(K);
   int bn_log2 = 7;
   while (bn_log2 > 5 && ((N + (1 << bn_log2) - 1) >> bn_log2) * C < sm_count() / 2) --bn_log2;
   const int tiles = (N + (1 << bn_log2) - 1) >> bn_log2;
-  const int kc = ((K + C - 1) / C + 7) / 8 * 8;
+  constexpr int KA = sizeof(T) == 1 ? 16 : 8;  // k a block: whole 16-byte x pieces
+  const int kc = ((K + C - 1) / C + KA - 1) / KA * KA;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles * C);
   cfg.blockDim = dim3(DEC_NT);
@@ -614,44 +686,48 @@ cudaError_t launch_decode(const void* x, const void* w, const void* w_scale,
   return cudaLaunchKernelEx(&cfg, quant_matmul_decode_kernel<T, WB, MR>,
                             static_cast<const T*>(x), static_cast<const int8_t*>(w),
                             static_cast<const float*>(w_scale),
-                            static_cast<const float*>(act_scale),
-                            static_cast<__nv_bfloat16*>(out), M, K, N, bn_log2, kc);
+                            static_cast<const float*>(act_scale), out, M, K, N, bn_log2,
+                            kc, ldx);
 }
 
 template <typename T, int WB, int BM, int BN, int MT, bool VEC>
 void launch(const void* x, const void* w, const void* w_scale, const void* act_scale,
-            void* out, int M, int K, int N, cudaStream_t stream) {
+            void* out, int M, int K, int N, int ldx, cudaStream_t stream) {
   constexpr int nt = threads<BM, BN, MT>();
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   quant_matmul_mma_kernel<T, WB, BM, BN, MT, VEC><<<grid, nt, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(w_scale), static_cast<const float*>(act_scale),
-      static_cast<__nv_bfloat16*>(out), M, K, N);
+      static_cast<const float*>(w_scale), static_cast<const float*>(act_scale), out, M, K,
+      N, ldx);
 }
 
+// x rows ldx elements apart (ldx == K but for a shard's K slice of int8 x)
 template <typename T, int WB>
 cudaError_t dispatch(const void* x, const void* w, const void* w_scale,
-                     const void* act_scale, void* out, int M, int K, int N,
+                     const void* act_scale, void* out, int M, int K, int N, int ldx,
                      cudaStream_t stream) {
   if (M <= 8 && N % 4 == 0 && K % 4 == 0 && K > 0) {  // (K = 0: the other kernel's zeros)
-    if (M <= 1) return launch_decode<T, WB, 1>(x, w, w_scale, act_scale, out, M, K, N, stream);
-    if (M <= 2) return launch_decode<T, WB, 2>(x, w, w_scale, act_scale, out, M, K, N, stream);
-    if (M <= 4) return launch_decode<T, WB, 4>(x, w, w_scale, act_scale, out, M, K, N, stream);
-    return launch_decode<T, WB, 8>(x, w, w_scale, act_scale, out, M, K, N, stream);
+    if (M <= 1)
+      return launch_decode<T, WB, 1>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
+    if (M <= 2)
+      return launch_decode<T, WB, 2>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
+    if (M <= 4)
+      return launch_decode<T, WB, 4>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
+    return launch_decode<T, WB, 8>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
   }
   const uintptr_t al = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
                        reinterpret_cast<uintptr_t>(out);
   // warps span the block's rows (no two warps build the same B fragments); the
   // widest tile that still fills the card, else the one with the shortest chain
   const auto blocks = [&](int bm, int bn) { return ((M + bm - 1) / bm) * ((N + bn - 1) / bn); };
-  if (al % 16 || K % (16 / sizeof(T)) || N % 16)
-    launch<T, WB, 32, 64, 1, false>(x, w, w_scale, act_scale, out, M, K, N, stream);
+  if (al % 16 || K % (16 / sizeof(T)) || ldx % (16 / sizeof(T)) || N % 16)
+    launch<T, WB, 32, 64, 1, false>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
   else if (blocks(64, 128) >= 2 * sm_count())
-    launch<T, WB, 64, 128, 4, true>(x, w, w_scale, act_scale, out, M, K, N, stream);
+    launch<T, WB, 64, 128, 4, true>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
   else if (2 * blocks(32, 128) >= sm_count())
-    launch<T, WB, 32, 128, 2, true>(x, w, w_scale, act_scale, out, M, K, N, stream);
+    launch<T, WB, 32, 128, 2, true>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
   else
-    launch<T, WB, 32, 64, 1, true>(x, w, w_scale, act_scale, out, M, K, N, stream);
+    launch<T, WB, 32, 64, 1, true>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
   return cudaSuccess;
 }
 
@@ -670,13 +746,27 @@ extern "C" int repro_quant_matmul(const void* x, int x_bf16, const void* w,
   if (M == 0 || N == 0) return 0;  // nothing to write (an empty grid is an error)
   cudaError_t err;
   if (x_bf16 && w_bits == 4)
-    err = dispatch<__nv_bfloat16, 4>(x, w, w_scale, act_scale, out, M, K, N, st);
+    err = dispatch<__nv_bfloat16, 4>(x, w, w_scale, act_scale, out, M, K, N, K, st);
   else if (x_bf16)
-    err = dispatch<__nv_bfloat16, 8>(x, w, w_scale, act_scale, out, M, K, N, st);
+    err = dispatch<__nv_bfloat16, 8>(x, w, w_scale, act_scale, out, M, K, N, K, st);
   else if (w_bits == 4)
-    err = dispatch<float, 4>(x, w, w_scale, act_scale, out, M, K, N, st);
+    err = dispatch<float, 4>(x, w, w_scale, act_scale, out, M, K, N, K, st);
   else
-    err = dispatch<float, 8>(x, w, w_scale, act_scale, out, M, K, N, st);
+    err = dispatch<float, 8>(x, w, w_scale, act_scale, out, M, K, N, K, st);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// The int32-accumulator branch: x: (M, K) int8 already quantized, row i at x + i *
+// ldx (a shard's K slice of a wider row: the caller passes x + k0); w: (K, N) int8
+// row-major (the caller passes w_q + k0 * N); out: (M, N) int32, the sums alone.
+// Launches on `stream`; returns as repro_quant_matmul.
+extern "C" int repro_quant_matmul_acc(const void* x, int ldx, const void* w, void* out,
+                                      int M, int K, int N, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M == 0 || N == 0) return 0;
+  const cudaError_t err =
+      dispatch<int8_t, 8>(x, w, nullptr, nullptr, out, M, K, N, ldx, st);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }

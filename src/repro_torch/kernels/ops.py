@@ -14,6 +14,7 @@ import contextlib
 
 import torch
 
+from repro_torch.dist import collectives as _coll
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import decode_attention_partials as _dap
 from repro_torch.kernels import fake_quant as _fq
@@ -26,8 +27,16 @@ KERNELS = {"quant_matmul": _qm, "prefill_attention": _pa,
            "fake_quant": _fq}
 ATTENTION = {"prefill_attention": _pa, "decode_attention": _da,
              "decode_attention_partials": _dap}
-# every launch counter of every wrapper: (kernel, module attribute)
+# counters that advance with the kernels' but count no kernel: the
+# tensor-parallel reduces and their bytes (``dist.collectives``)
+TALLIES = {"compressed_psum": _coll}
+# the modules of every counter below, by name
+COUNTED = {**KERNELS, **TALLIES}
+# every launch counter of every wrapper, and the tallies: (name, module
+# attribute)
 COUNTERS = (("quant_matmul", "launches"), ("quant_matmul", "launches_w4"),
+            ("quant_matmul", "launches_acc"),
+            ("compressed_psum", "reduces"), ("compressed_psum", "wire_bytes"),
             ("prefill_attention", "launches_bf16"),
             ("prefill_attention", "launches_window"),
             ("fake_quant", "launches"),
@@ -60,12 +69,12 @@ def plain_versions():
 
 def reset_launches() -> None:
     for name, attr in COUNTERS:
-        setattr(KERNELS[name], attr, 0)
+        setattr(COUNTED[name], attr, 0)
 
 
 def launch_snapshot() -> dict:
     """Every launch counter now, keyed by (kernel, attribute)."""
-    return {(name, attr): getattr(KERNELS[name], attr)
+    return {(name, attr): getattr(COUNTED[name], attr)
             for name, attr in COUNTERS}
 
 
@@ -80,7 +89,7 @@ def add_launches(delta: dict, times: int = 1) -> None:
     CUDA graph's capture calls the wrappers but launches nothing (-1), and
     each replay launches what the capture counted without a call (+1)."""
     for (name, attr), n in delta.items():
-        mod = KERNELS[name]
+        mod = COUNTED[name]
         setattr(mod, attr, getattr(mod, attr) + times * n)
 
 
@@ -92,6 +101,18 @@ def launch_counts() -> dict:
 def w4_launch_counts() -> dict:
     """Launches of quant_matmul with int4 (packed) weights."""
     return {"quant_matmul": _qm.launches_w4}
+
+
+def acc_launch_counts() -> dict:
+    """Launches of quant_matmul's int32-accumulator branch (the
+    tensor-parallel row partials)."""
+    return {"quant_matmul": _qm.launches_acc}
+
+
+def reduce_counts() -> dict:
+    """The tensor-parallel reduces since the last reset: how many, and the
+    int32 payload bytes of the other shards they sum."""
+    return {"reduces": _coll.reduces, "wire_bytes": _coll.wire_bytes}
 
 
 def int4_launch_counts() -> dict:
@@ -138,6 +159,19 @@ def quant_matmul(x, w_q, w_scale, act_scale, *, w_bits: int = 8,
         return _qm.launch(x, w_q, w_scale, act_scale, w_bits, out=out)
     _qm.check(x, w_q, w_scale, act_scale, w_bits, out)
     y = ref.quant_matmul_ref(x, w_q, w_scale, act_scale, w_bits)
+    return y if out is None else out.copy_(y)
+
+
+def quant_matmul_acc(x_q, w_q, k0: int, k1: int, *, out=None):
+    """int8 x_q (M, K) times the int8 weight rows [k0, k1) of w_q (K, N):
+    the (M, N) int32 sums, no quantize and no scale (one tensor-parallel
+    shard's partial of a row-parallel layer).  ``out``, a contiguous (M, N)
+    int32 tensor (one shard's slice of the stacked partials), receives
+    them."""
+    if _on_cuda(x_q):
+        return _qm.launch_acc(x_q, w_q, k0, k1, out=out)
+    _qm.check_acc(x_q, w_q, k0, k1, out)
+    y = ref.quant_matmul_acc_ref(x_q, w_q, k0, k1)
     return y if out is None else out.copy_(y)
 
 

@@ -1,10 +1,13 @@
 """Wrapper of the Hopper kernel ``csrc/quant_matmul.cu``: fused activation
 quantize -> int8 x int8 (or packed int4) -> int32 -> per-channel dequant ->
-bf16.
+bf16; and its int32-accumulator branch (``launch_acc``): already quantized
+int8 x times the weight rows [k0, k1) -> int32, no scale (one
+tensor-parallel shard's partial of a row-parallel layer).
 
 Replaces the TPU kernel ``repro/kernels/quant_matmul.py::quant_matmul``.
-``launch`` takes CUDA tensors only; ``ops.quant_matmul`` routes CPU
-tensors to the plain version (``ref.quant_matmul_ref``).
+``launch`` and ``launch_acc`` take CUDA tensors only; ``ops.quant_matmul``
+and ``ops.quant_matmul_acc`` route CPU tensors to the plain versions
+(``ref.quant_matmul_ref``, ``ref.quant_matmul_acc_ref``).
 """
 from __future__ import annotations
 
@@ -16,11 +19,14 @@ SOURCE = "src/repro_torch/csrc/quant_matmul.cu"
 REPLACES = "src/repro/kernels/quant_matmul.py:72"
 
 # kernel launches made by ``launch`` in this process: all, and with int4
-# (packed) weights
+# (packed) weights; and those of the int32-accumulator branch
+# (``launch_acc``), counted apart
 launches = 0
 launches_w4 = 0
+launches_acc = 0
 
 _FN = None
+_FN_ACC = None
 
 
 def check(x, w_q, w_scale, act_scale, w_bits=8, out=None):
@@ -98,4 +104,70 @@ def launch(x, w_q, w_scale, act_scale, w_bits=8, out=None):
                            f"{err}")
     launches += 1
     launches_w4 += w_bits == 4
+    return out
+
+
+def check_acc(x_q, w_q, k0, k1, out=None):
+    """Raise on inputs the int32-accumulator branch (and its plain version)
+    does not take: ``x_q`` (M, K) int8, ``w_q`` (K, N) int8, a contraction
+    range 0 <= k0 <= k1 <= K, ``out`` a contiguous (M, N) int32 tensor."""
+    if x_q.ndim != 2 or w_q.ndim != 2 or x_q.shape[1] != w_q.shape[0]:
+        raise ValueError(f"quant_matmul_acc takes x_q (M, K) and w_q (K, N), "
+                         f"got {tuple(x_q.shape)} and {tuple(w_q.shape)}")
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"x_q and w_q must be int8, got {x_q.dtype} and "
+                        f"{w_q.dtype}")
+    if x_q.shape[0] < 1:
+        raise ValueError("quant_matmul_acc needs M >= 1")
+    if not 0 <= k0 <= k1 <= x_q.shape[1]:
+        raise ValueError(f"contraction range [{k0}, {k1}) is not inside K = "
+                         f"{x_q.shape[1]}")
+    tensors = (("x_q", x_q), ("w_q", w_q))
+    if out is not None:
+        shape = (x_q.shape[0], w_q.shape[1])
+        if out.dtype != torch.int32 or tuple(out.shape) != shape:
+            raise ValueError(f"out must be int32 {shape}, got {out.dtype} "
+                             f"{tuple(out.shape)}")
+        tensors += (("out", out),)
+    devs = {t.device for _, t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"quant_matmul_acc inputs span devices {devs}")
+    for name, t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if name != "x_q" and t.data_ptr() % 4:
+            raise ValueError(f"{name} must start on a 4-byte boundary")
+
+
+def _fn_acc():
+    global _FN_ACC
+    if _FN_ACC is None:
+        from repro_torch.kernels import build
+
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _FN_ACC = build.function("quant_matmul", "repro_quant_matmul_acc",
+                                 [p, i, p, p, i, i, i, p])
+    return _FN_ACC
+
+
+def launch_acc(x_q, w_q, k0, k1, out=None):
+    """Run the int32-accumulator branch: (M, N) int32, the sums of x_q[:,
+    k0:k1] @ w_q[k0:k1] (``out`` when given), read in place."""
+    global launches_acc
+    check_acc(x_q, w_q, k0, k1, out)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
+                         f"{x_q.device}")
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.int32, device=x_q.device)
+    with torch.cuda.device(x_q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn_acc()(x_q.data_ptr() + k0, k, w_q.data_ptr() + k0 * n,
+                        out.data_ptr(), m, k1 - k0, n, stream)
+    if err:
+        raise RuntimeError(f"quant_matmul_acc kernel launch failed: CUDA "
+                           f"error {err}")
+    launches_acc += 1
     return out

@@ -42,6 +42,14 @@ def quant_matmul_ref(x, w_q, w_scale, act_scale, w_bits=8,
     return (acc.float() * w_scale).to(out_dtype)
 
 
+def quant_matmul_acc_ref(x_q, w_q, k0, k1):
+    """The int32 sums of x_q[:, k0:k1] @ w_q[k0:k1] (int8 operands, no
+    scale): a float64 product, exact while |acc| < 2^53, cast to int32
+    (the kernel's sums never wrap below K = 2^31 / 127^2)."""
+    acc = x_q[:, k0:k1].double() @ w_q[k0:k1].double()
+    return acc.to(torch.int64).to(torch.int32)
+
+
 def _q_fold(q, k_scale, head_axis):
     """q * k_scale[h] / sqrt(D), with q's head axis at ``head_axis``."""
     d = q.shape[-1]

@@ -266,8 +266,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "repro_torch.launch.train checkpoint directory "
                          "(default: seeded random init)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel shard count; only 1 is ported "
-                         "(ROADMAP Queue A item 18)")
+                    help="tensor-parallel shard count: heads, KV heads and "
+                         "d_ff split into N shards, each row-parallel "
+                         "layer sums the shards' int32 partials exactly "
+                         "(int8 mode only, as the reference)")
     ap.add_argument("--sp", type=int, default=1,
                     help="sequence-parallel shard count: the KV cache's "
                          "sequence axis splits into N shards, decode merges "
@@ -296,9 +298,6 @@ def main(argv=None):
         ap.error("--restore journal needs --journal PATH")
     if args.restore == "snapshot" and not args.snapshot_dir:
         ap.error("--restore snapshot needs --snapshot-dir DIR")
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp > 1 (tensor-parallel serving) is ROADMAP Queue A item 18")
     if args.mesh == "dryrun":
         raise NotImplementedError(
             "--mesh dryrun (the compiled collective audit) is ROADMAP "
@@ -327,12 +326,14 @@ def main(argv=None):
         queue_cap=args.queue_cap, shed_policy=args.shed_policy,
         fault_plan=fault_plan, journal=args.journal,
         snapshot_every=args.snapshot_every, snapshot_dir=args.snapshot_dir)
-    if args.sp > 1:
+    if args.tp > 1 or args.sp > 1:
         from repro_torch.shard import ShardedEngine
 
-        engine = ShardedEngine.from_checkpoint(args.arch, sp=args.sp, **kw)
-        print(f"[serve] sharded serving: sp={args.sp} sequence shards on "
-              f"{engine.device}")
+        engine = ShardedEngine.from_checkpoint(args.arch, tp=args.tp,
+                                               sp=args.sp, **kw)
+        kind = (f"tp={args.tp} tensor" if args.tp > 1
+                else f"sp={args.sp} sequence")
+        print(f"[serve] sharded serving: {kind} shards on {engine.device}")
     else:
         engine = Engine.from_checkpoint(args.arch, **kw)
     if not args.fp:

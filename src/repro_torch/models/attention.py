@@ -237,7 +237,7 @@ class Attention(Module):
         self.wv = Dense(d_model, n_kv_heads * head_dim, path=f"{path}/wv",
                         dtype=dtype)
         self.wo = Dense(n_heads * head_dim, d_model, path=f"{path}/wo",
-                        dtype=dtype)
+                        dtype=dtype, logical_axes=("heads", "embed"))
 
     def init(self, gen):
         return {"wq": self.wq.init(gen), "wk": self.wk.init(gen),

@@ -19,7 +19,8 @@ class SwiGLU(Module):
         self.act = ACTIVATIONS[activation]
         self.gate = Dense(d_model, d_ff, path=f"{path}/gate", dtype=dtype)
         self.up = Dense(d_model, d_ff, path=f"{path}/up", dtype=dtype)
-        self.down = Dense(d_ff, d_model, path=f"{path}/down", dtype=dtype)
+        self.down = Dense(d_ff, d_model, path=f"{path}/down", dtype=dtype,
+                          logical_axes=("mlp", "embed"))
 
     def init(self, gen):
         return {"gate": self.gate.init(gen), "up": self.up.init(gen),
@@ -53,7 +54,8 @@ class GeluMLP(Module):
         self.fc1 = Dense(d_model, d_ff, path=f"{path}/fc1", bias=True,
                          dtype=dtype)
         self.fc2 = Dense(d_ff, d_model, path=f"{path}/fc2", bias=True,
-                         dtype=dtype, act_unsigned=activation == "relu")
+                         dtype=dtype, act_unsigned=activation == "relu",
+                         logical_axes=("mlp", "embed"))
 
     def init(self, gen):
         return {"fc1": self.fc1.init(gen), "fc2": self.fc2.init(gen)}

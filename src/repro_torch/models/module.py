@@ -60,11 +60,16 @@ class Dense(Module):
     mode (eq. 20); ``quantize=False`` keeps the layer in full precision in
     every mode (the MoE router); ``act_unsigned`` marks an input known to
     be non-negative (after a ReLU), which calibrates, fake-quantizes and
-    serves on the unsigned range (paper eq. 9)."""
+    serves on the unsigned range (paper eq. 9).  ``logical_axes`` name the
+    weight's (in, out) axes as the reference's do; under tensor
+    parallelism an input axis of 'heads' or 'mlp' makes the layer
+    row-parallel (``core/api.py``)."""
 
     def __init__(self, in_dim: int, out_dim: int, *, path: str,
                  bias: bool = False, dtype=torch.bfloat16,
-                 quantize: bool = True, act_unsigned: bool = False):
+                 quantize: bool = True, act_unsigned: bool = False,
+                 logical_axes: tuple = ("in", "out")):
+        self.logical_axes = logical_axes
         self.in_dim = in_dim
         self.out_dim = out_dim
         self.path = path

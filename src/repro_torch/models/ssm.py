@@ -194,7 +194,7 @@ class Mamba2Block(Module):
         self.dt_proj = Dense(d_model, self.n_heads, path=f"{path}/dt_proj",
                              dtype=dtype)
         self.out_proj = Dense(self.d_inner, d_model, path=f"{path}/out_proj",
-                              dtype=dtype)
+                              dtype=dtype, logical_axes=("heads", "embed"))
         self.norm = RMSNorm(self.d_inner, path=f"{path}/norm", dtype=dtype)
 
     @property

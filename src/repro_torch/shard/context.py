@@ -1,11 +1,13 @@
-"""The shard context of the sequence-parallel serving path.
+"""The shard context of the sharded serving paths.
 
 Counterpart of ``repro/shard/context.py``.  ``ShardedModel`` installs a
-``ShardContext`` around each serving call of the wrapped model; the
-attention layers deep in that call (their per-shard partials and merge)
-read it through ``sp_shard_info`` instead of a new argument threaded
-through every Module signature.  Outside any ``shard_scope`` it returns
-None and the model runs its unsharded path unchanged.
+``ShardContext`` around each serving call of the wrapped model; the layers
+deep in that call read it instead of a new argument threaded through every
+Module signature: the attention layers under sequence parallelism
+(``sp_shard_info``: their per-shard partials and merge), the row-parallel
+Dense layers under tensor parallelism (``tp_shard_info``: their int32
+partials and the reduce, ``core/api.py``).  Outside any ``shard_scope``
+both return None and the model runs its unsharded path unchanged.
 """
 from __future__ import annotations
 
@@ -16,9 +18,18 @@ from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class ShardContext:
-    """``sp``: the number of sequence shards (1 = off)."""
+    """``tp``/``sp``: the numbers of tensor and sequence shards (1 = off).
+    They share the reference's one ``model`` mesh axis, so at most one of
+    them is above 1."""
 
+    tp: int = 1
     sp: int = 1
+
+    def __post_init__(self):
+        if self.tp > 1 and self.sp > 1:
+            raise ValueError(
+                "tp and sp share the one 'model' mesh axis — run one of "
+                "them per engine (tp*sp composition needs a 2-axis mesh)")
 
 
 _CURRENT: Optional[ShardContext] = None
@@ -35,6 +46,12 @@ def shard_scope(ctx: ShardContext):
         yield ctx
     finally:
         _CURRENT = prev
+
+
+def tp_shard_info() -> Optional[ShardContext]:
+    """The context iff tensor parallelism is active (tp > 1)."""
+    c = _CURRENT
+    return c if c is not None and c.tp > 1 else None
 
 
 def sp_shard_info() -> Optional[ShardContext]:

@@ -1,4 +1,5 @@
-"""``ShardedEngine``: the Engine facade over a sequence-parallel model.
+"""``ShardedEngine``: the Engine facade over a sequence- or
+tensor-parallel model.
 
 Counterpart of ``repro/shard/engine.py``.  An ``Engine`` whose model is a
 ``ShardedModel``; everything above the model surface (``generate_batch``,
@@ -8,6 +9,18 @@ unchanged, as in the reference.
 
     engine = ShardedEngine.from_checkpoint("smollm-135m", smoke=False, sp=4)
     result = engine.generate_batch({"tokens": prompts}, gen=32)
+
+``tp`` > 1 serves int8 weights Megatron-style, as the reference's
+``ShardedEngine(tp=N)``: the heads, KV heads and FFN width split over the
+shards (indivisible widths raise the reference's ``ValueError``), the
+column-parallel projections and attention run as the unsharded kernels
+(each column and head is computed alone), and each row-parallel layer sums
+its shards' int32 partials (B3's int32-accumulator branch, once per shard
+and layer) before one dequant.  Every strategy, cache layout (dense, ring,
+paged) and stack the reference's tp serves; a mixture-of-experts stack
+raises (ROADMAP Queue C: the reference's experts under tp are never
+reduced).  Nothing on that path reads the host, so ``generate_batch`` and
+the scheduler serve it through their captured programs.
 
 ``sp`` > 1 splits the dense KV cache's sequence axis into ``sp`` shards on
 the engine's one device, and serves what the reference's ``ShardedEngine``
@@ -21,58 +34,89 @@ partials.  Prefill and the verify window attend in plain attention, as
 the reference's sequence-parallel branches do.  What the reference
 refuses, this engine refuses with the same ``ValueError``: the paged
 layout here, and a sliding-window layer's decode (hymba-1.5b,
-gemma3-12b, mixtral-8x7b) at the first sp decode step.  ``tp`` > 1
-(tensor parallelism) and shards on several devices are ROADMAP Queue A
-item 18.  With ``sp == 1`` this is exactly an Engine.  With ``sp`` > 1,
-``generate_batch`` and the scheduler run their programs uncaptured
-(``eager_reason``): the captured programs are ROADMAP Queue A item 9d.
+gemma3-12b, mixtral-8x7b) at the first sp decode step.  Shards on several
+devices are ROADMAP item 18.  With ``tp == sp == 1`` this is exactly an
+Engine.  With ``sp`` > 1, ``generate_batch`` and the scheduler run their
+programs uncaptured (``eager_reason``): the captured programs are ROADMAP
+item 9d.
 """
 from __future__ import annotations
 
 from repro_torch.bridge import tree_to
+from repro_torch.dist.sharding import tp_param_slices
+from repro_torch.kernels import ops
 from repro_torch.launch.engine import Engine, resolve_device
-from repro_torch.shard.model import ShardedModel
+from repro_torch.launch.mesh import make_serving_mesh
+from repro_torch.shard.context import ShardContext
+from repro_torch.shard.model import ShardedModel, check_tp
 
 
 class ShardedEngine(Engine):
-    """Engine with ``sp`` sequence shards on its device; see the module
-    docstring."""
+    """Engine with ``tp`` tensor or ``sp`` sequence shards on its device;
+    see the module docstring."""
 
     def __init__(self, model, cfg, policy, serve_params, qparams, *,
-                 tp: int = 1, sp: int = 1, **engine_kw):
-        self._validate(tp, sp, engine_kw.get("cache_layout", "ring"))
-        self.sp = sp
+                 tp: int = 1, sp: int = 1, mesh=None,
+                 mesh_axis: str = "model", **engine_kw):
+        self._validate(tp, sp, engine_kw.get("cache_layout", "ring"),
+                       engine_kw.get("mode", "int8"))
+        self.tp, self.sp = tp, sp
         self.base_model = model
-        if sp > 1:
-            model = ShardedModel(model, cfg, sp=sp)
+        n = max(tp, sp)
+        if mesh is None and n > 1:
+            mesh = make_serving_mesh(n, axis=mesh_axis,
+                                     device=engine_kw["device"])
+        self.mesh, self.mesh_axis = mesh, mesh_axis
+        if n > 1:
+            # validates exclusivity, divisibility and the mesh's size
+            model = ShardedModel(model, cfg, mesh, tp=tp, sp=sp,
+                                 axis=mesh_axis)
+        if tp > 1:
+            # the role rules over the weights (the reference's specs raise
+            # here on an indivisible axis)
+            tp_param_slices(serve_params, tp=tp)
         super().__init__(model, cfg, policy, serve_params, qparams,
                          **engine_kw)
 
     @staticmethod
-    def _validate(tp: int, sp: int, cache_layout: str) -> None:
-        """Raise on a parallelism (or, under it, a cache layout) this engine
-        does not serve."""
+    def _validate(tp: int, sp: int, cache_layout: str, mode: str) -> None:
+        """Raise on a parallelism (or, under it, a mode or a cache layout)
+        this engine does not serve."""
         if tp < 1 or sp < 1:
             raise ValueError(f"tp/sp must be >= 1, got tp={tp} sp={sp}")
-        if tp > 1:
-            raise NotImplementedError(
-                "tensor-parallel serving (tp > 1, the head/ffn split and its "
-                "int32 all-reduce) is not ported (ROADMAP Queue A item 18)")
+        if tp > 1 and mode != "int8":
+            raise ValueError(
+                f"tensor-parallel serving requires mode='int8' (got "
+                f"{mode!r}): the row epilogues reduce int32 accumulators "
+                "— float weights have nothing exact to psum")
         if sp > 1 and cache_layout == "paged":
             raise ValueError(
                 "sequence-parallel serving shards the dense cache's S "
                 "axis — the paged pool has no contiguous shard slices "
                 "(use cache_layout='dense' or 'ring')")
+        # tp and sp share one mesh axis
+        ShardContext(tp=tp, sp=sp)
 
     @classmethod
     def from_checkpoint(cls, arch: str = "smollm-135m", *, tp: int = 1,
                         sp: int = 1, **kw) -> "ShardedEngine":
         """``Engine.from_checkpoint`` (every other argument is its own),
-        served with ``sp`` sequence shards (``tp`` > 1 raises)."""
-        cls._validate(tp, sp, kw.get("cache_layout", "ring"))
+        served with ``tp`` tensor or ``sp`` sequence shards.  A refusal
+        (the mode, the layout, the shard counts, the config's widths or
+        its experts) raises before any weight is built."""
+        cls._validate(tp, sp, kw.get("cache_layout", "ring"),
+                      "none" if kw.get("fp") else "int8")
+        if tp > 1:
+            cfg = kw.get("cfg")
+            if cfg is None:
+                from repro_torch.configs import get_config
+
+                cfg = get_config(arch, smoke=kw.get("smoke", True))
+            check_tp(cfg, tp)
         base = Engine.from_checkpoint(arch, **kw)
         return cls(base.model, base.cfg, base.policy, base.serve_params,
-                   base.qparams, device=base.device, sp=sp, **base._init_kw())
+                   base.qparams, device=base.device, tp=tp, sp=sp,
+                   **base._init_kw())
 
     def to(self, device) -> "ShardedEngine":
         """The same sharded engine (same weights, thresholds and shard
@@ -81,18 +125,27 @@ class ShardedEngine(Engine):
         return ShardedEngine(self.base_model, self.cfg, self.policy,
                              tree_to(self.serve_params, dev),
                              tree_to(self.qparams, dev), device=dev,
-                             sp=self.sp, **self._init_kw())
+                             tp=self.tp, sp=self.sp, **self._init_kw())
 
     def eager_reason(self):
         """``sp`` > 1 serves eagerly, on the CPU and on CUDA:
         ``generate_batch`` runs its programs uncaptured and the scheduler
         its steps; its decode's partials and merge (B4) are not captured
-        yet (ROADMAP Queue A item 9d).  ``sp == 1`` is an Engine."""
+        yet (ROADMAP item 9d).  ``tp`` > 1 reads nothing on the host and
+        captures, as an Engine does."""
         if self.sp > 1:
             return ("sequence-parallel serving (sp > 1) runs its programs "
-                    "uncaptured: CUDA graphs under sp are ROADMAP Queue A "
-                    "item 9d")
+                    "uncaptured: CUDA graphs under sp are ROADMAP item 9d")
         return None
+
+    @staticmethod
+    def reduce_counts() -> dict:
+        """The tensor-parallel row reduces since the last
+        ``kernels.ops.reset_launches`` (process-wide, as the launch
+        counts): how many, and ``wire_bytes``, the int32 payload of the
+        tp - 1 other shards that each sums, what the reduces would move
+        between devices."""
+        return ops.reduce_counts()
 
     def dry_run_report(self, **kw):
         raise NotImplementedError(

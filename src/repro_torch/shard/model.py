@@ -1,10 +1,26 @@
-"""``ShardedModel``: the serving model surface under sequence parallelism.
+"""``ShardedModel``: the serving model surface under sequence or tensor
+parallelism.
 
 Counterpart of ``repro/shard/model.py``.  The reference runs each serving
-entry point through ``shard_map``, once per shard; every op except the
-cache writes and attention is replicated there, computing the same values
-on every shard.  The port runs that body ONCE, on one card, inside a
-``shard_scope``: the cache is the ordinary global cache, whose shard i is
+entry point through ``shard_map``, once per shard.  The port runs that
+body ONCE, on one card, inside a ``shard_scope``, and only the layers whose
+result depends on the sharding read the shards.
+
+Tensor parallel (``tp`` > 1).  The reference rebuilds the model at a local
+config (``n_heads / tp``, ``n_kv_heads / tp``, ``d_ff / tp``), slices the
+weights by role, the per-KV-head thresholds and the KV cache by heads
+(``dist/sharding.py``), and reduces the row-parallel layers' int32
+accumulators.  Every column of a column-parallel layer and every head of
+attention is computed alone, so the union of the shards' local work is the
+global model's; the port serves the global model, and only its
+row-parallel layers read the shards: each shard's partial over its slice of
+the weight's input rows, then the exact sum (``core/api.py``).  The
+widths must divide as the reference's do (its ``ValueError``s), and a
+mixture-of-experts stack is refused (``check_tp``).
+
+Sequence parallel (``sp`` > 1).  Every op except the cache writes and
+attention is replicated in the reference, computing the same values on
+every shard.  The cache is the ordinary global cache, whose shard i is
 the view ``k[:, i*S_local:(i+1)*S_local]``, so the unsharded writes are the
 union of the reference's owner writes, and only the attentions read the
 shards (decode: each shard's flash partials, then the merge; prefill and
@@ -21,7 +37,27 @@ scheduler drive a ShardedModel exactly like the model it wraps.
 """
 from __future__ import annotations
 
+from repro_torch.dist.sharding import check_tp_cache
 from repro_torch.shard.context import ShardContext, shard_scope
+
+# ROADMAP Queue C's line on the reference's mixture-of-experts under tp
+MOE_TP_REFUSAL = (
+    "tensor-parallel serving of a mixture-of-experts stack is refused: the "
+    "reference's ShardedEngine(tp > 1) splits each expert's d_ff over the "
+    "shards but never reduces the experts' down-projection partial sums, "
+    "so its tokens are wrong (ROADMAP Queue C)")
+
+
+def check_tp(cfg, tp: int) -> None:
+    """Raise unless ``cfg`` serves with ``tp`` tensor shards: the heads,
+    the KV heads and the FFN width divide by ``tp`` (the reference's
+    message), and no layer is a mixture of experts (``MOE_TP_REFUSAL``)."""
+    for field, dim in (("n_heads", cfg.n_heads),
+                       ("n_kv_heads", cfg.n_kv_heads), ("d_ff", cfg.d_ff)):
+        if dim % tp:
+            raise ValueError(f"cfg.{field}={dim} not divisible by tp={tp}")
+    if cfg.ffn == "moe":
+        raise ValueError(MOE_TP_REFUSAL)
 
 
 def check_sp_cache(cache_tree, sp: int) -> None:
@@ -44,16 +80,37 @@ def check_sp_cache(cache_tree, sp: int) -> None:
 
 class ShardedModel:
     """Serving-surface wrapper; ``model``/``cfg`` are the GLOBAL model and
-    config, served with ``sp`` sequence shards on the model's device."""
+    config, served with ``tp`` tensor or ``sp`` sequence shards on the
+    model's device; ``mesh`` (``launch.mesh.make_serving_mesh``) must
+    have an ``axis`` of ``max(tp, sp)`` slots, as the reference checks its
+    device mesh."""
 
-    def __init__(self, model, cfg, *, sp: int):
-        self._shard_ctx = ShardContext(sp=sp)
+    def __init__(self, model, cfg, mesh, *, tp: int = 1, sp: int = 1,
+                 axis: str = "model"):
+        # validates tp/sp exclusivity
+        self._shard_ctx = ShardContext(tp=tp, sp=sp)
+        n = max(tp, sp)
+        if axis not in mesh.shape:
+            raise ValueError(f"mesh has no {axis!r} axis (axes: "
+                             f"{tuple(mesh.shape)})")
+        if mesh.shape[axis] != n:
+            raise ValueError(
+                f"mesh axis {axis!r} has size {mesh.shape[axis]}, "
+                f"expected {n} (tp={tp}, sp={sp})")
+        if tp > 1:
+            check_tp(cfg, tp)
         self._model = model
         self.cfg = cfg
-        self.sp = sp
+        self.mesh = mesh
+        self.tp, self.sp, self.axis = tp, sp, axis
 
     def _run(self, method: str, cache, *args, **kw):
-        check_sp_cache(cache, self.sp)
+        if self.sp > 1:
+            check_sp_cache(cache, self.sp)
+        else:
+            # the reference's tp_cache_specs: every k/v leaf splits on its
+            # KV-head axis (raises where it does not divide)
+            check_tp_cache(cache, self.tp)
         with shard_scope(self._shard_ctx):
             return getattr(self._model, method)(*args, **kw)
 
@@ -78,12 +135,16 @@ class ShardedModel:
 
     # -- cache construction ---------------------------------------------------
     def init_cache(self, batch: int, max_len: int, *args, **kw):
-        """Global-shape caches with the S axis rounded up to a multiple of
-        ``sp`` (the extra rows lie beyond every valid count).  Rounding here
+        """The global model's caches (every layout; under tp a shard's
+        cache is its KV heads' slice of them).  Under sp, with the S axis
+        rounded up to a multiple of ``sp`` (the extra rows lie beyond every
+        valid count).  Rounding here
         keeps the scheduler's batch cache and its batch-1 admission template
         consistent: both are sized through this method.  An
         encoder-decoder's cross caches hold min(S_local, ``enc_len``) rows,
         the encoder positions each of the reference's shards keeps."""
+        if self.sp == 1:
+            return self._model.init_cache(batch, max_len, *args, **kw)
         max_len = -(-max_len // self.sp) * self.sp
         if self.cfg.family == "encdec":
             s_local = max_len // self.sp

@@ -385,7 +385,7 @@ def test_launch_delta_arithmetic():
         ops.reset_launches()
         before = ops.launch_snapshot()
         assert set(before.values()) == {0}
-        assert len(before) == len(ops.COUNTERS) == 14
+        assert len(before) == len(ops.COUNTERS) == 17
         _qm.launches += 7
         _pa.launches += 2
         _pa.launches_paged += 2
@@ -402,7 +402,7 @@ def test_launch_delta_arithmetic():
         assert ops.launch_counts()["decode_attention"] == 0
     finally:
         for (name, attr), n in saved.items():
-            setattr(ops.KERNELS[name], attr, n)
+            setattr(ops.COUNTED[name], attr, n)
 
 
 class _FakeGraph:
@@ -467,7 +467,7 @@ def test_program_counts_warmup_and_replays(monkeypatch):
         assert eager.graph is None and eager() == "out" and len(calls) == 4
     finally:
         for (name, attr), n in saved.items():
-            setattr(ops.KERNELS[name], attr, n)
+            setattr(ops.COUNTED[name], attr, n)
 
 
 def test_program_capture_failure_raises(monkeypatch):

@@ -105,7 +105,8 @@ def test_every_reference_flag_is_taken_with_help():
     assert "by device" in port["--pallas"].help
 
 
-@pytest.mark.parametrize("extra,item", [(["--tp", "2"], "item 18"),
+@pytest.mark.parametrize("extra,item", [(["--tp", "2", "--mesh", "dryrun"],
+                                         "item 19"),
                                         (["--sp", "2", "--mesh", "dryrun"],
                                          "item 19")])
 def test_unported_flags_raise_naming_their_item(extra, item):

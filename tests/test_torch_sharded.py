@@ -543,10 +543,18 @@ def test_sp_rejects_paged_layout():
 
 
 def test_tp_raises_naming_its_item():
-    for kw in (dict(tp=2), dict(tp=2, sp=2)):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            ShardedEngine.from_checkpoint("smollm-135m", smoke=True,
-                                          device="cpu", **kw)
+    """tp and sp together: the reference's exclusivity ValueError (its
+    ShardContext's: the two share the one 'model' mesh axis), word for
+    word, before any weight is built."""
+    from repro.shard.context import ShardContext as JShardContext
+
+    with pytest.raises(ValueError) as want:
+        JShardContext(tp=2, sp=2)
+    with pytest.raises(ValueError) as got:
+        ShardedEngine.from_checkpoint("smollm-135m", smoke=True,
+                                      device="cpu", tp=2, sp=2)
+    assert str(got.value) == str(want.value)
+    assert "mesh axis" in str(got.value)
 
 
 @pytest.mark.parametrize("kw", [dict(sp=0), dict(tp=0)], ids=["sp0", "tp0"])
