@@ -3,8 +3,11 @@
 
     python3 chip_smoke.py          # from the repository root
 
-1. builds the hand-written Hopper kernels (``src/repro_torch/csrc``) and
-   checks that every instantiation of the prefill attention kernel runs on
+1. builds the hand-written Hopper kernels (``src/repro_torch/csrc``), one
+   ``nvcc`` a library, all started together (the attention libraries go
+   on compiling beside step 2's checks of B3 and B5, the D > 128
+   ``_wide`` ones beside those at D <= 128, which run first; each is
+   waited for before its first check), and checks that every instantiation of the prefill attention kernel runs on
    the tensor cores (HMMA in its SASS), every instantiation of
    quant_matmul's prefill kernel on the int8 tensor cores (IMMA) and every
    instantiation of its decode kernel on dp4a (IDP), none of them nor of
@@ -33,10 +36,11 @@
    asserts; ``kernels_micro``: B3 and B5 bit for bit against their plain
    versions, then timed) and prints its CSV rows; [variants full] runs
    smollm-135m at full width through ``prepare_int8`` for each policy of
-   ``VARIANT_POLICIES`` (scalar / vector weights x symmetric / asymmetric
-   activations, the percentile observer, pointwise scales after
-   ``prepare_int8``'s fine-tune, 3 FAT steps, beside the same steps at a
-   tenth of the rate): the fake-mode rmse and top-1 agreement with the bf16 teacher,
+   ``VARIANT_POLICIES`` at ``SMOLLM_LAYERS`` of its 30 layers (scalar /
+   vector weights x symmetric / asymmetric activations, the percentile
+   observer, pointwise scales after ``prepare_int8``'s fine-tune, 3 FAT
+   steps, beside the same steps at a tenth of the rate): the fake-mode
+   rmse and top-1 agreement with the bf16 teacher,
    then the int8 form served through B3 and held against the same engine
    with the plain versions on the card (up to a near-tie);
 3. drives the int8 main path at the full width of smollm-135m (30 layers,
@@ -47,8 +51,9 @@
    decode step, captured by the warm-up call, ``compile_s``); every
    single-engine path also runs the eager ``loop=True`` driver with the
    same launch counts and must give its tokens and prefill logits bit for
-   bit (``compare_programs``); the bf16 modes (4b), the paged paths,
-   the schedulers, resilience, recovery and sp (7-13) serve
+   bit (``compare_programs``); the bf16 modes (4b), [graphs paged 16],
+   the sampled and speculative paths, int4, the paged paths, the
+   schedulers, resilience, recovery and sp (5-13) serve
    ``SMOLLM_LAYERS`` of the 30 layers, for the script's time.  [graphs
    profiler] checks that torch.profiler sees a replay's kernels; [graphs
    paged 16] serves pages
@@ -135,7 +140,7 @@
    scores within ``LOGIT_ATOL``); [speculative path], [speculative paged
    16] and their int4 twins: every verify window's attention through B2,
    graphs == the same steps run eagerly bit for bit, tokens equal the
-   greedy main path's up to a near-tie, windows, tokens per window and
+   same engine's greedy tokens up to a near-tie, windows, tokens per window and
    acceptance printed; [speculative scheduler] and [sampled scheduler]: 16
    ragged requests through 8 slots of the paged cache, completions against
    batch-1 runs up to a near-tie, sampled streams independent of arrival
@@ -175,11 +180,11 @@
    projection width of mamba2-780m and hymba-1.5b (M = 1, 4, 8, 128, 2048;
    the narrow outputs N = 16, 25, 48, 128 also in ``QMM_EDGES``), B1 and
    B2 at hymba's heads (KV 5, G 5, D 64) and B2 at its window of 1024 over
-   2 x 2048; [mamba2] serves mamba2-780m at full width and depth (48
-   layers: B3 alone, its B1 / B2 counts printed, both 0), [mamba2 sample]
-   one sampled run of it; [hymba] serves hymba-1.5b at full width and
-   depth (32 layers: B1 on the global layers 0, 15 and 31, B2 on every
-   layer), [hymba ring] 2 x 2048 prompts through the rings of 1024 of a
+   2 x 2048; [mamba2] serves mamba2-780m at full width and
+   ``PATH_LAYERS`` (24 of 48 layers: B3 alone, its B1 / B2 counts
+   printed, both 0), [mamba2 sample] one sampled run of it; [hymba]
+   serves hymba-1.5b at full width and ``PATH_LAYERS`` (16 of 32 layers:
+   B1 on the global layers 0 and 15, B2 on every layer), [hymba ring] 2 x 2048 prompts through the rings of 1024 of a
    copy of its first 8 layers (``HYMBA_RING_LAYERS``: 7 rings) against
    dense caches; [<ssm> cpu check] holds a depth-2 copy against
    the CPU (hymba's keeps a global layer 0 and a windowed layer 1, window
@@ -217,8 +222,8 @@
    [llava sp] (8 of 60); each zeroes the launch counts just before its
    timed run and reads them just after (B4 n_global x 31 x 4 over an
    int8 cache), prints prefill ms and decode ms a step, and holds a short
-   request against the same sp engine on the CPU (granite-moe's and
-   llava's through a twin of the same weights cut to ``SP_CPU_LAYERS``
+   request against the same sp engine on the CPU (stablelm's, granite-
+   moe's and llava's through a twin of the same weights cut to ``SP_CPU_LAYERS``
    layers, llava's with ``CPU_MM_PATCHES`` patches).
 24. tensor parallelism as the reference serves it: [kernels] holds B3's
    int32-accumulator branch (a shard's int8 x int8 -> int32 partial over
@@ -240,6 +245,25 @@
    caches, against batch-1 up to a near-tie; [granite-8b tp] and
    [seamless tp] the weights of [granite-8b path] (``PATH_LAYERS``) and
    [seamless] at ``TP_WIDE``, each bit for bit with its unsharded run.
+25. rank-per-shard serving (``drive_rank_phase``): the engine of an
+   earlier path written once (``ShardedEngine.save_serving``) and served
+   by ``n`` spawned processes on the one card over gloo
+   (``dist.ranks.run_ranks``; NCCL refuses two ranks on one device), each
+   restoring its slice (``from_serving``) and serving the same prompts;
+   the kernels are built before the spawn, so the ranks only load them.
+   [tp ranks]: the [tp path]'s weights and prompts (smollm-135m, full
+   width and depth) on ``TP`` ranks, tokens and prefill logits bit for
+   bit those of the one-process ``ShardedEngine(tp=TP)``; [sp ranks]: the
+   [sp path]'s engine (``SMOLLM_LAYERS``) on ``SP`` ranks, tokens bit for
+   bit the [sp path]'s, and each rank's cache rows, after the prefill and
+   after ``GEN`` - 1 teacher-forced steps, those of the one-process cache
+   (sha-256 of each layer's K and V slice).  Each rank's launches are the
+   one-process run's divided over the ranks (B3's int32-accumulator
+   branch, B4), its reduces and their int32 wire bytes the one-process
+   run's; printed per rank: its resident int8 weight bytes, B3-accumulator
+   launches, reduces and wire bytes a decode step, the decode wall a step
+   and the share of it in the collectives (gloo's host staging included).
+   A rank that fails fails the script: no phase catches it.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -1403,17 +1427,30 @@ MIXTRAL_RING_B, MIXTRAL_RING_PROMPT = 2, 4608
 # 8x7b's 93 GB of bf16 weights at full depth do not fit the card either;
 # ROADMAP 17b), the
 # smollm-135m engines of the bf16 modes, the paged paths, the schedulers,
-# resilience and recovery, and sp ``SMOLLM_LAYERS`` of 30 (the int8 main
-# path, its strategies, int4, training and the variants keep all 30),
+# resilience and recovery, sp, the variants, int4 and the main engine's
+# strategies ``SMOLLM_LAYERS`` of 30 (the int8 main path and its CPU
+# check, [tp path], [tp ranks] and training keep all 30),
 # [granite-moe scheduler] MOE_SCHEDULER_LAYERS of its 8, [hymba ring]
 # HYMBA_RING_LAYERS of 32 (layer 0 global, the rest rings); the [<arch>
 # cpu check]s teacher-force ``CPU_CHECK_STEPS`` steps (mixtral's CPU twin
 # streams 2.8 GB of int8 experts through float64 products a step; the
-# dense copies' readouts of 49-262 k entries took 14.5-34.6 s for 8)
+# dense copies' readouts of 49-262 k entries took 14.5-34.6 s for 8).
+# With the rank phases it ran 909.2 and 951.3 s of command on two H100
+# machines, and past 1200 s on a third (943.9 s on a fourth after the
+# first cuts), so the variants, int4, the main engine's strategies and
+# [tp scheduler], the state-space paths (half their depth), [granite-moe
+# scheduler] (4 of 8 layers) and [stablelm sp]'s CPU check (a depth-2
+# twin) were cut too, and the _wide kernels compile beside the first
+# kernel checks
 PATH_LAYERS = {"granite-8b": 10, "stablelm-12b": 10, "gemma3-12b": 12,
                "granite-moe-3b-a800m": 8, "mixtral-8x7b": 8}
 SMOLLM_LAYERS = 10
-MOE_SCHEDULER_LAYERS = 8
+# the bare gloo all_reduces each rank of [tp ranks] / [sp ranks] times;
+# the ranks' deadline from their spawn (a hung collective fails the run
+# here, not at the process group's own timeout)
+GLOO_REPS = 50
+RANK_TIMEOUT_S = 240
+MOE_SCHEDULER_LAYERS = 4
 HYMBA_RING_LAYERS = 8
 MOE_ALONE = 2
 CPU_CHECK_STEPS = {"mixtral-8x7b": 2, "granite-8b": 4, "stablelm-12b": 4,
@@ -1421,12 +1458,13 @@ CPU_CHECK_STEPS = {"mixtral-8x7b": 2, "granite-8b": 4, "stablelm-12b": 4,
 
 
 # the state-space configs (ROADMAP item 17 steps 5-6), at full width and
-# depth: mamba2-780m (48 Mamba2 layers, no attention) and hymba-1.5b (32
-# layers of attention and Mamba2 heads side by side; window 1024 on all but
-# layers 0, 15 and 31); [hymba ring] serves RING_B x RING_PROMPT prompts,
+# PATH_LAYERS: mamba2-780m (24 of its 48 Mamba2 layers, no attention) and
+# hymba-1.5b (16 of its 32 layers of attention and Mamba2 heads side by
+# side; window 1024 on all but layers 0 and 15); [hymba ring] serves RING_B x RING_PROMPT prompts,
 # which pass the window
 SSM_ARCHS = {"mamba2-780m": "mamba2", "hymba-1.5b": "hymba"}
 HYMBA_HEADS = (5, 5, 64)
+PATH_LAYERS.update({"mamba2-780m": 24, "hymba-1.5b": 16})
 
 # the encoder-decoder and the VLM (ROADMAP item 17 steps 7-8), at full
 # width: seamless-m4t-medium at full depth (12 + 12 layers), on
@@ -1490,14 +1528,16 @@ MOE_CPU_PROMPT = {"granite-moe-3b-a800m": 32, "mixtral-8x7b": 64}
 # mamba2 at its first MAMBA2_SP_LAYERS layers, seamless at full depth,
 # llava at PATH_LAYERS; each holds its timed run's first request against
 # the same sp engine on the CPU over SP_CPU_STEPS teacher-forced steps,
-# but granite-moe and llava, which hold theirs against the card's plain
-# versions and a short request (1 x SP_CPU_PROMPT tokens with
-# CPU_MM_PATCHES patches; the MoE copy's requests) on the CPU through
+# but stablelm, granite-moe and llava, which hold theirs against the
+# card's plain versions and a short request (1 x SP_CPU_PROMPT tokens
+# with CPU_MM_PATCHES patches; the MoE copy's requests) on the CPU through
 # their first SP_CPU_LAYERS layers, the depth of their [<arch> cpu check]
 # copies: at 8 layers granite-moe's routers part past ROUTER_NEAR_TIE
 # (33 of 536 choices over 1 x 64, gaps up to 1.87e-3) and llava's
-# logits by 0.5151 (an H100 at 700 W), and 2 x 3392 positions at width
-# 7168 take the CPU minutes
+# logits by 0.5151 (an H100 at 700 W), 2 x 3392 positions at width 7168
+# take the CPU minutes, and stablelm's first request at 10 layers, traced
+# on both devices sharded and unsharded, took 140.9 s of the script's
+# time (its logits 0.4746 apart; no stage's own gap past 0.0430)
 MAMBA2_SP_LAYERS = 12
 SP_CPU_PROMPT, SP_CPU_STEPS, SP_CPU_LAYERS = 64, 4, 2
 
@@ -3687,7 +3727,7 @@ def check_sp_scheduler(torch, ops, A, ST, Engine, ShardedEngine, Request,
 
 def drive_sp_phase(torch, ops, A, ST, SG, prng, ShardedEngine, build_model,
                    engine, batch, label, kind, card, *, greedy=None,
-                   cpu_over=None, trace=False, **kw):
+                   cpu_over=None, **kw):
     """The weights and thresholds of ``engine`` (a family's own phase: no
     new draw; an untied readout served on the last block's ``wq``
     thresholds, ``readout_qparams``) as ``ShardedEngine(sp=SP)`` over
@@ -3707,19 +3747,19 @@ def drive_sp_phase(torch, ops, A, ST, SG, prng, ShardedEngine, build_model,
     tokens on the card, held against the same sp engine on the CPU over
     SP_CPU_STEPS teacher-forced steps (``cpu_check``: tokens under the
     near-tie rule, logits within ``SP_LOGIT_ATOL``, ``WIDE_LOGIT_ATOL`` or
-    LOGIT_ATOL); with ``trace`` (stablelm) traced stage by stage on both
-    devices (``stage_gaps``, every stage's own gap within
-    STAGE_LOCAL_ATOL), and traced unsharded (sp=1) on the same request,
-    whose logit gap is printed beside the sharded one.  With ``cpu_over`` (granite-moe, llava: the CPU cannot
-    hold their timed shapes, see SP_CPU_LAYERS) the whole timed run is held
+    LOGIT_ATOL).  With ``cpu_over`` (stablelm, granite-moe, llava: the CPU
+    cannot hold their timed shapes in the script's time, see
+    SP_CPU_LAYERS) the whole timed run is held
     against the same engine on the card with the plain versions instead,
     and a short request (1 x SP_CPU_PROMPT tokens with a VLM's
     CPU_MM_PATCHES patches; an MoE config's ``MOE_CPU_REQUESTS`` x
     ``MOE_CPU_PROMPT``) against the CPU through a twin of the same weights
     whose config takes ``cpu_over`` (the first ``n_layers``; a VLM's fewer
-    patches); a VLM's twin is traced stage by stage (``stage_gaps``,
-    whose runs the check reuses) and then held unsharded (sp=1) against
-    the CPU on the same request.  An MoE
+    patches); a dense twin is traced stage by stage (``stage_gaps``, every
+    stage's own gap within STAGE_LOCAL_ATOL, whose runs the check reuses),
+    and a VLM's then held unsharded (sp=1) against the CPU on the same
+    request.
+    An MoE
     engine is held up to each request's first routing flip
     (``moe_held``).  Returns the launch counts and their int4 variants'.
     """
@@ -3806,26 +3846,7 @@ def drive_sp_phase(torch, ops, A, ST, SG, prng, ShardedEngine, build_model,
     if not cpu_over:
         # the timed run's first request and its tokens on the CPU
         first = {k: v[:1] for k, v in batch.items()}
-        if not trace:
-            held_check(sharded, first, toks[:1], label)
-            return got, int4
-        # traced stage by stage, then the same request unsharded (sp=1)
-        forced = stage_gaps(torch, A, sharded, first, toks[:1], SP_CPU_STEPS,
-                            label, exact=("logits",))[1]
-        held_check(sharded, first, toks[:1], label, forced=forced)
-        flat = ShardedEngine(base, cfg, engine.policy, engine.serve_params,
-                             qparams, **{**kw, "sp": 1})
-        flat_toks = flat.generate_batch(first, gen=SP_CPU_STEPS).tokens.cpu()
-        card_lg, cpu_lg = stage_gaps(torch, A, flat, first, flat_toks,
-                                     SP_CPU_STEPS, f"{label} unsharded",
-                                     exact=("logits",))[1]
-        # recorded beside the sharded reading, not held to its limit: the
-        # trace above bounds every stage's own gap
-        worst = max((g - c).abs().max().item()
-                    for g, c in zip(card_lg, cpu_lg))
-        print(f"[{label} unsharded] the same request unsharded (sp=1), "
-              f"card vs CPU over {SP_CPU_STEPS} teacher-forced steps: max "
-              f"|logit diff| {worst:.4f}")
+        held_check(sharded, first, toks[:1], label)
         return got, int4
     # the timed run whole against the card's plain versions, then a short
     # request through a cut twin of the same weights on the CPU
@@ -3855,13 +3876,208 @@ def drive_sp_phase(torch, ops, A, ST, SG, prng, ShardedEngine, build_model,
     forced = stage_gaps(torch, A, twin, short, toks, SP_CPU_STEPS, label,
                         exact=("mm_proj", "logits"))[1]
     held_check(twin, short, toks, label, forced=forced)
-    # the same twin unsharded (sp=1: an Engine), on the same request
+    if not media:
+        return got, int4
+    # the VLM's twin unsharded (sp=1: an Engine), on the same request
     flat = ShardedEngine(twin.base_model, cpu_cfg, engine.policy, params,
                          twin.qparams, **{**kw, "sp": 1})
     cpu_check(torch, A, flat, short, flat.generate_batch(
         short, gen=SP_CPU_STEPS).tokens.cpu(), LOGIT_ATOL,
         f"{label} unsharded twin", n_check=SP_CPU_STEPS, logit_tol=tol)
     return got, int4
+
+
+def rank_cache_hashes(torch, ST, A, engine, batch, tokens, rows=None):
+    """sha-256 of each attention layer's K and V after the one-shot prefill
+    of ``batch`` and after ``GEN`` - 1 decode steps fed ``tokens``: of the
+    whole cache, or (``rows``, a rank count) of each rank's rows of it."""
+    import hashlib
+
+    def digest(cache):
+        out = []
+        for i in range(engine.cfg.n_layers):
+            c = cache[f"layer{i}"]["attn"]
+            for t in (c.k, c.v):
+                parts = t.chunk(rows, dim=1) if rows else (t,)
+                out.append([hashlib.sha256(p.contiguous().cpu().numpy()
+                                           .tobytes()).hexdigest()
+                            for p in parts])
+        return out
+
+    toks = torch.as_tensor(tokens).to(engine.device)
+    b, s = batch["tokens"].shape
+    with torch.inference_mode():
+        cache = engine.init_cache(b, engine._cache_len(s, GEN))
+        prefill = ST.make_prefill_step(engine.model, engine.policy,
+                                       mode=engine.mode)
+        _, cache = prefill(engine.serve_params, engine.qparams,
+                           {"tokens": torch.as_tensor(batch["tokens"]).to(
+                               engine.device)}, cache)
+        first = digest(cache)
+        ctx = A.make_ctx(engine.mode, engine.policy, engine.qparams)
+        for i in range(GEN - 1):
+            _, cache = engine.model.decode_step(
+                engine.serve_params, toks[:, i:i + 1], cache, s + i, ctx)
+    return first, digest(cache)
+
+
+def rank_job(mesh, directory, cfg, shards, batch, trace_tokens):
+    """One rank of [tp ranks] or [sp ranks] (``shards``: {"tp": n} or
+    {"sp": n}): its engine restored from ``directory``, a warm-up call,
+    then ``batch`` for 1 and for GEN tokens, the launch counts zeroed just
+    before each; with ``trace_tokens``, its cache rows' hashes
+    (``rank_cache_hashes``).  Returns every rank's report, gathered."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import api as A
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.shard import ShardedEngine
+
+    eng = ShardedEngine.from_serving(directory, cfg, mesh=mesh, **shards)
+    eng.generate_batch(batch, gen=2)
+
+    def run(gen):
+        ops.reset_launches()
+        res = eng.generate_batch(batch, gen=gen)
+        torch.cuda.synchronize()
+        return res, dict(launches=ops.launch_counts(),
+                         acc=ops.acc_launch_counts()["quant_matmul"],
+                         **ops.reduce_counts(), **ops.gather_counts())
+
+    _, pre = run(1)
+    res, full = run(GEN)
+    mine = dict(rank=mesh.rank, device=str(eng.device),
+                eager=eng.eager_reason(), tokens=res.tokens.cpu(),
+                prefill=res.prefill_logits.cpu(), pre=pre, full=full,
+                prefill_s=res.prefill_s, decode_s=res.decode_s,
+                int8_bytes=int8_bytes(torch, eng.serve_params))
+    if trace_tokens is not None:
+        mine["hashes"] = rank_cache_hashes(torch, ST, A, eng, batch,
+                                           trace_tokens)
+    # gloo alone: a host int32 payload of one decode reduce, no card work
+    payload = torch.zeros(batch["tokens"].shape[0] * cfg.d_model,
+                          dtype=torch.int32)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(GLOO_REPS):
+        dist.all_reduce(payload)
+    mine["gloo_ms"] = (time.perf_counter() - t0) / GLOO_REPS * 1e3
+    everyone = [None] * mesh.n
+    dist.all_gather_object(everyone, mine)
+    return everyone
+
+
+def drive_rank_phase(torch, ops, A, ST, sharded, batch, label, kind, card,
+                     *, want=None, trace=False):
+    """``sharded`` (a one-process ``ShardedEngine`` of tp or sp shards) as
+    a rank mesh of as many processes (``rank_job``), over gloo on the one
+    card.  Without ``want`` the one-process engine serves ``batch`` here
+    first (a warm-up call, then GEN tokens, its launch counts zeroed just
+    before); else ``want`` is its run's (result, launch counts).
+    Checks: every rank's tokens and prefill logits bit for bit the
+    one-process engine's, served uncaptured on its own card; a rank's
+    launches of B3's int32-accumulator branch and of B4 the one-process
+    run's over the ranks, its reduces and wire bytes the one-process
+    run's; with ``trace``, each rank's cache rows after the prefill and
+    after GEN - 1 steps those of the one-process cache.  Returns (the
+    ranks' summed launch counts, summed int32-accumulator launches, rank
+    0's reduce counts)."""
+    from repro_torch.dist.ranks import run_ranks
+
+    n = max(sharded.tp, sharded.sp)
+    shards = {"tp": n} if sharded.tp > 1 else {"sp": n}
+    if want is None:
+        sharded.generate_batch(batch, gen=2)
+        ops.reset_launches()
+        res = sharded.generate_batch(batch, gen=GEN)
+        want_counts = dict(launches=ops.launch_counts(),
+                           acc=ops.acc_launch_counts()["quant_matmul"],
+                           **ops.reduce_counts())
+    else:
+        res, launches = want
+        want_counts = dict(launches=launches, acc=0)
+    want_tokens = res.tokens.cpu()
+    prefill_logits = res.prefill_logits.cpu()
+    hashes = None
+    if trace:
+        hashes = rank_cache_hashes(torch, ST, A, sharded, batch,
+                                   want_tokens, rows=n)
+    whole = int8_bytes(torch, sharded.serve_params)
+    cpu_batch = {k: np.asarray(torch.as_tensor(v).cpu())
+                 for k, v in batch.items()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as wd:
+        t0 = time.perf_counter()
+        sharded.save_serving(wd)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = run_ranks(rank_job, n, backend="gloo", device="cuda",
+                          threads=1, timeout=RANK_TIMEOUT_S, args=(wd, sharded.cfg, shards, cpu_batch,
+                                want_tokens if trace else None))
+        ranks_s = time.perf_counter() - t0
+    print(f"[{label}] {sharded.cfg.name} ({sharded.cfg.n_layers} layers, "
+          f"full width) on {n} ranks over gloo on one {kind} ({card}): "
+          f"written in {save_s:.1f} s, {n} processes spawned, restored and "
+          f"served in {ranks_s:.1f} s")
+    for r in ranks:
+        full, pre = r["full"], r["pre"]
+        steps = GEN - 1
+        dec = {k: (full[k] - pre[k]) / steps
+               for k in ("acc", "reduces", "wire_bytes", "gathers",
+                         "gather_bytes", "seconds")}
+        dec_ms = r["decode_s"] / steps * 1e3
+        print(f"[{label}] rank {r['rank']} on {r['device']}: resident int8 "
+              f"weights {r['int8_bytes']} bytes ({r['int8_bytes'] / whole:.3f}"
+              f" of the whole engine's {whole}); a decode step: "
+              f"{dec['acc']:.0f} B3 int32-accumulator launches, "
+              f"{dec['reduces']:.0f} reduces of {dec['wire_bytes']:.0f} int32 "
+              f"wire bytes, {dec['gathers']:.0f} gathers of "
+              f"{dec['gather_bytes']:.0f} bytes; decode {dec_ms:.2f} ms a "
+              f"step, {dec['seconds'] * 1e3:.2f} ms of it "
+              f"({dec['seconds'] * 1e3 / dec_ms:.1%}) in the collectives; "
+              f"prefill {r['prefill_s'] * 1e3:.1f} ms ({pre['seconds'] * 1e3:.1f}"
+              f" ms in collectives); a bare gloo all_reduce of one decode "
+              f"reduce's host payload {r['gloo_ms']:.3f} ms; launches "
+              f"{full['launches']}; int32-accumulator {full['acc']}")
+        if not r["device"].startswith("cuda"):
+            raise AssertionError(f"rank {r['rank']} served on {r['device']}")
+        if "uncaptured" not in (r["eager"] or ""):
+            raise AssertionError(f"rank {r['rank']}: {r['eager']}")
+        if not torch.equal(r["tokens"], want_tokens):
+            raise AssertionError(f"rank {r['rank']}: tokens differ from the "
+                                 "one-process engine's")
+        if not torch.equal(r["prefill"], prefill_logits):
+            raise AssertionError(f"rank {r['rank']}: prefill logits differ "
+                                 "from the one-process engine's")
+        one = want_counts
+        checks = {"quant_matmul@acc": (full["acc"] * n, one["acc"]),
+                  "reduces": (full["reduces"], one.get("reduces", 0)),
+                  "wire_bytes": (full["wire_bytes"], one.get("wire_bytes",
+                                                             0)),
+                  "decode_attention_partials": (
+                      full["launches"]["decode_attention_partials"] * n,
+                      one["launches"]["decode_attention_partials"])}
+        bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+        if bad:
+            raise AssertionError(f"rank {r['rank']}: counts (rank x ranks "
+                                 f"or rank, one process) differ: {bad}")
+        if trace:
+            for stage, (got, exp) in enumerate(zip(r["hashes"], hashes)):
+                rows = [h[r["rank"]] for h in exp]
+                if [h[0] for h in got] != rows:
+                    raise AssertionError(
+                        f"rank {r['rank']}: cache rows differ from the "
+                        f"one-process cache's after "
+                        f"{'the prefill' if stage == 0 else 'the last step'}")
+    print(f"[{label}] every rank's {GEN} tokens and prefill logits "
+          "bit-identical to the one-process engine's"
+          + ("; every rank's cache rows bit-identical after the prefill and "
+             f"after {GEN - 1} steps" if trace else ""))
+    summed = {k: sum(r["full"]["launches"][k] for r in ranks)
+              for k in ranks[0]["full"]["launches"]}
+    return (summed, sum(r["full"]["acc"] for r in ranks),
+            {k: ranks[0]["full"][k] for k in ("reduces", "wire_bytes")})
 
 
 def tp_counts(ops):
@@ -4534,8 +4750,8 @@ def variants_pointwise(torch, A, ST, prepare_int8, model, policy, params,
 
 def check_variants_full(torch, ops, A, ST, Engine, prepare_int8, build_model,
                         get_config, dev, kind, card):
-    """[variants full]: smollm-135m at full width (30 layers, d_model 576,
-    seeded weights) through ``prepare_int8`` for each policy of
+    """[variants full]: smollm-135m at full width (d_model 576, seeded
+    weights; ``SMOLLM_LAYERS`` of its 30 layers) through ``prepare_int8`` for each policy of
     ``VARIANT_POLICIES`` (int8 KV cache throughout; ``POINTWISE_STEPS``
     calibration batches; the pointwise scales fine-tuned as
     ``variants_pointwise`` says): the fake-mode student's rmse and top-1
@@ -4549,7 +4765,7 @@ def check_variants_full(torch, ops, A, ST, Engine, prepare_int8, build_model,
     from repro_torch.bridge import tree_to
     from repro_torch.core.distill import rmse_distill_loss
 
-    cfg = get_config("smollm-135m")
+    cfg = get_config("smollm-135m").replace(n_layers=SMOLLM_LAYERS)
     model = build_model(cfg)
     params = tree_to(model.init(torch.Generator().manual_seed(0)), dev)
     calib = [{"tokens": torch.as_tensor(b["tokens"], device=dev)}
@@ -4980,7 +5196,8 @@ def drive_spec_path(torch, ops, A, ST, SG, prng, Engine, engine, prompts,
     gap = 0.0 if same == greedy.numel() else forced_gap(
         torch, A, eng, prompts, res.tokens)
     print(f"[{label}] graphs == eager steps bit for bit; tokens equal the "
-          f"greedy main path's {same}/{greedy.numel()} (teacher-forced gap "
+          f"same engine's greedy tokens {same}/{greedy.numel()} (teacher-"
+          f"forced gap "
           f"of the speculative tokens {gap:.4f}, near-tie tolerance "
           f"{LOGIT_ATOL}); windows {stats['windows']}, with a live row "
           f"{stats['windows_live']}; {stats['tokens_per_window']:.3f} tokens "
@@ -5406,6 +5623,7 @@ def check_recovery_snapshot(torch, ops, Engine, Request, FaultPlan,
 def main() -> int:
     import torch
 
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -5439,31 +5657,52 @@ def main() -> int:
           f"(name, power limit):")
     print(card)
 
+    # every library compiles at once: B3's and B5's (the quickest) are
+    # checked while the attention libraries compile, those while the
+    # D > 128 (_wide) ones, the slowest, do; each is waited for before its
+    # first check
+    print(f"[progress] imports and the card's name; "
+          f"{time.perf_counter() - t_script:.1f} s since the start",
+          file=sys.stderr, flush=True)
     t0 = time.perf_counter()
-    build.load()
+    build.start()
+    build.load(["quant_matmul", "fake_quant"])
     build_s = time.perf_counter() - t0
-    print(f"[build] kernels built and loaded in {build_s:.1f} s; nvcc wall "
-          "seconds by library, in parallel: " + ", ".join(
-              f"{k} {v:.1f}" for k, v in build.build_seconds().items()))
-    for name, log in build.ptxas_logs().items():
-        lines = {line.strip() for line in log.splitlines()
-                 if "registers" in line or "spill" in line}
-        for line in sorted(lines):
-            print(f"  ptxas {name}: {line}")
-    check_prefill_sass(build)
-    check_decode_attention_spills(build)
-    check_quant_matmul_sass(build)
-    check_quant_matmul_decode_sass(
-        build, torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"[progress] build {build_s:.1f} s", file=sys.stderr, flush=True)
+    print(f"[build] quant_matmul and fake_quant built and loaded in "
+          f"{build_s:.1f} s; the attention libraries compile on beside "
+          "[kernels]")
 
     dev = torch.device("cuda")
     t_kern = time.perf_counter()
+
+    def progress(label):
+        print(f"[progress] {label}; {time.perf_counter() - t_script:.1f} s "
+              "since the start", file=sys.stderr, flush=True)
+
     print(f"[kernels] each kernel against its plain version on {kind} "
           f"({card}); quant_matmul must be bit-exact:")
     kernels = check_quant_matmul(torch, ops, ref, dev)
     check_quant_matmul_edges(torch, ops, ref, dev)
     check_quant_matmul_edges(torch, ops, ref, dev, QMM_DECODE_EDGES,
                              "decode edge")
+    print("[kernels] fake_quant (B5) bit-exact, with its STE backward:")
+    fq_entries, _ = check_fake_quant(torch, ops, ref, dev)
+    print("[kernels] quant_matmul with int4 weights (B3 w_bits=4) "
+          "bit-exact:")
+    w4_entries, w4_launches = check_quant_matmul_w4(torch, ops, ref, dev)
+    print("[kernels] quant_matmul's int32-accumulator branch (B3 acc: a "
+          "tensor-parallel shard's partial of a row-parallel layer) bit-"
+          "exact at the K slices of smollm-135m (tp=3) and granite-8b "
+          "(tp=2):")
+    acc_entries = check_quant_matmul_acc(torch, ops, ref, dev)
+    progress("B3 and B5 kernels")
+    t0 = time.perf_counter()
+    build.load([n for n in build.SOURCES if not n.endswith("_wide")])
+    attn_wait_s = time.perf_counter() - t0
+    print(f"[build] the D <= 128 attention libraries built and loaded "
+          f"({attn_wait_s:.1f} s waited for them here); the _wide ones "
+          "compile on")
     for bits in (8, 4, 16):
         kernels += check_attention(torch, ops, ref, dev, bits=bits)
     for bits in (8, 4, 16):
@@ -5475,35 +5714,9 @@ def main() -> int:
         kernels.append(check_partials(torch, ops, ref, dev, bits))
     for bits in (8, 4):
         kernels.append(check_paged_partials(torch, ops, ref, dev, bits))
-    print("[kernels] fake_quant (B5) bit-exact, with its STE backward:")
-    fq_entries, _ = check_fake_quant(torch, ops, ref, dev)
-    print("[kernels] quant_matmul with int4 weights (B3 w_bits=4) "
-          "bit-exact:")
-    w4_entries, w4_launches = check_quant_matmul_w4(torch, ops, ref, dev)
-    kernels += fq_entries + w4_entries
-    print("[kernels] quant_matmul's int32-accumulator branch (B3 acc: a "
-          "tensor-parallel shard's partial of a row-parallel layer) bit-"
-          "exact at the K slices of smollm-135m (tp=3) and granite-8b "
-          "(tp=2):")
-    kernels += check_quant_matmul_acc(torch, ops, ref, dev)
-    print("[kernels] B1, B2 and B4 at the heads of granite-8b, stablelm-12b "
-          "and gemma3-12b (KV, G, D) = "
-          f"{list(WIDE_HEADS.values())}, B2 at gemma3-12b's window, B3 at "
-          "their widths:")
+    kernels += fq_entries + w4_entries + acc_entries
+    progress("kernels at smollm-135m's heads")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for arch, (kvh, g, d) in WIDE_HEADS.items():
-        for bits in (8, 4, 16):
-            kernels += check_attention(torch, ops, ref, dev, bits, kvh, g, d)
-            kernels += check_paged_attention(torch, ops, ref, dev, bits,
-                                             PAGE, kvh, g, d)
-        if d > 128:
-            for bits in (8, 4):
-                kernels.append(check_partials(torch, ops, ref, dev, bits, kvh,
-                                              g, d))
-    kernels.append(check_window_prefill(torch, ops, ref, dev))
-    for arch in WIDE_HEADS:
-        kernels += check_quant_matmul_widths(torch, ops, ref, dev, arch,
-                                             get_config(arch), sms)
     print("[kernels] the mixture-of-experts configs: B3 at every expert "
           "product and row count of their paths, at their attention and "
           "lm_head widths; B1 and B2 at granite-moe's heads (KV, G, D) = "
@@ -5527,6 +5740,7 @@ def main() -> int:
         torch, ops, ref, dev, heads=WIDE_HEADS["granite-8b"],
         b=MIXTRAL_RING_B, s=MIXTRAL_RING_PROMPT, window=4096,
         key="prefill_attention@window@D128"))
+    progress("kernels of the MoE configs")
     print("[kernels] the state-space configs: B3 at every projection width "
           "of mamba2-780m and hymba-1.5b (the SSM mixers' six, hymba's "
           "attention and MLP), B1 and B2 at hymba's heads (KV, G, D) = "
@@ -5539,6 +5753,7 @@ def main() -> int:
     kernels.append(check_window_prefill(
         torch, ops, ref, dev, heads=HYMBA_HEADS,
         key="prefill_attention@window@hymba"))
+    progress("kernels of the state-space configs")
     heads_s = ", ".join(f"{a} {h}" for a, h in MEDIA_HEADS.items())
     print("[kernels] the encoder-decoder and the VLM: B1 and B2 at the heads "
           f"(KV, G, D) of {heads_s} (int8, int4 and bf16 K/V, dense and "
@@ -5558,17 +5773,59 @@ def main() -> int:
                                              cfg_m, sms, extra_rows=rows)
         kernels.append(check_quant_matmul_frontend(torch, ops, ref, dev, arch,
                                                    cfg_m))
+    progress("kernels of the media configs")
     sp_heads = {"granite-moe": MOE_HEADS, **{
         MEDIA_ARCHS[a]: h for a, h in MEDIA_HEADS.items()}}
     print("[kernels] B4 (the sequence-parallel decode's partials) at the "
           "heads (KV, G, D) of the new sp phases, int8 and int4: "
           + ", ".join(f"{k} {h}" for k, h in sp_heads.items()) + " (stablelm-"
-          "12b's (8, 4, 160) above):")
+          "12b's (8, 4, 160) below):")
     for heads in sp_heads.values():
         for bits in (8, 4):
             kernels.append(check_partials(torch, ops, ref, dev, bits, *heads))
+    # the D > 128 heads (the _wide libraries, waited for here) last
+    t0 = time.perf_counter()
+    build.load()
+    wide_wait_s = time.perf_counter() - t0
+    print(f"[build] every library built and loaded ({wide_wait_s:.1f} s "
+          "waited for the _wide ones here); nvcc wall seconds by library "
+          "from the start, in parallel: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in build.build_seconds().items()))
+    for name, log in build.ptxas_logs().items():
+        lines = {line.strip() for line in log.splitlines()
+                 if "registers" in line or "spill" in line}
+        for line in sorted(lines):
+            print(f"  ptxas {name}: {line}")
+    build.dump_sass(("prefill_attention", "prefill_attention_wide",
+                     "quant_matmul"))
+    check_prefill_sass(build)
+    check_decode_attention_spills(build)
+    check_quant_matmul_sass(build)
+    check_quant_matmul_decode_sass(build, sms)
+    progress(f"wide build and SASS checks {time.perf_counter() - t0:.1f} s")
+    print("[kernels] B1, B2 and B4 at the heads of granite-8b, stablelm-12b "
+          "and gemma3-12b (KV, G, D) = "
+          f"{list(WIDE_HEADS.values())}, B2 at gemma3-12b's window, B3 at "
+          "their widths:")
+    for arch, (kvh, g, d) in WIDE_HEADS.items():
+        for bits in (8, 4, 16):
+            kernels += check_attention(torch, ops, ref, dev, bits, kvh, g, d)
+            kernels += check_paged_attention(torch, ops, ref, dev, bits,
+                                             PAGE, kvh, g, d)
+        if d > 128:
+            for bits in (8, 4):
+                kernels.append(check_partials(torch, ops, ref, dev, bits, kvh,
+                                              g, d))
+    kernels.append(check_window_prefill(torch, ops, ref, dev))
+    for arch in WIDE_HEADS:
+        kernels += check_quant_matmul_widths(torch, ops, ref, dev, arch,
+                                             get_config(arch), sms)
+    progress("kernels of the wider dense configs")
 
-    phases = {"build": build_s, "kernels": time.perf_counter() - t_kern}
+    phases = {"build": build_s, "kernels": time.perf_counter() - t_kern,
+              "of which the attention build's wait": attn_wait_s,
+              "of which the wide build's wait": wide_wait_s}
+    progress(f"kernels {phases['kernels']:.1f} s")
 
     failures = []
 
@@ -5584,6 +5841,10 @@ def main() -> int:
             return None
         finally:
             phases[name] = time.perf_counter() - t0
+            # where a run stands, on the stream that is not buffered
+            print(f"[progress] {name} {phases[name]:.1f} s; "
+                  f"{time.perf_counter() - t_script:.1f} s since the start",
+                  file=sys.stderr, flush=True)
 
     # the paper's side (ROADMAP items 16, 15): its tables, and its FAT
     # variants at full width served in int8
@@ -5614,19 +5875,24 @@ def main() -> int:
           "breakdown", walls, "main path")
     phase("cpu check", cpu_check, torch, A, engine, prompts,
           res.tokens.cpu(), LOGIT_ATOL, "cpu check")
+    # the main engine's first SMOLLM_LAYERS layers, for the script's time,
+    # and its greedy tokens (the speculative paths' reference)
+    engine_s = cut_engine(Engine, build_model, engine, SMOLLM_LAYERS)
+    engine_s.generate_batch({"tokens": prompts}, gen=2)
+    greedy_s = engine_s.generate_batch({"tokens": prompts}, gen=GEN).tokens
     phase("graphs paged 16", drive_paged_path, torch, ops, ref, Engine,
-          PagedCache, engine, prompts, "graphs paged 16", kind, card, 16, A,
+          PagedCache, engine_s, prompts, "graphs paged 16", kind, card, 16, A,
           walls)
     # the decoding strategies beside greedy, each path's launches counted
     # from 0: sampled, and speculative (its verify windows through B2),
     # dense and in pages of 16
     sample = phase("sample path", drive_sample_path, torch, ops, A, SG, prng,
-                   Engine, engine, prompts, kind, card, walls)
+                   Engine, engine_s, prompts, kind, card, walls)
     spec_runs = {}
     for page in (None, 16):
         name = "speculative path" if page is None else "speculative paged 16"
         spec_runs[name] = phase(name, drive_spec_path, torch, ops, A, ST, SG,
-                                prng, Engine, engine, prompts, res.tokens,
+                                prng, Engine, engine_s, prompts, greedy_s,
                                 name, kind, card, page, walls)
     # tensor parallelism as the reference serves it (ROADMAP item 18): the
     # same weights as ShardedEngine(tp=TP), through its captured programs
@@ -5638,9 +5904,17 @@ def main() -> int:
                          "tp path", kind, card, TP, walls, True,
                          2 * engine.cfg.n_layers),
         "tp scheduler": phase("tp scheduler", check_tp_scheduler, torch,
-                              ops, A, ST, ShardedEngine, Request, engine,
+                              ops, A, ST, ShardedEngine, Request, engine_s,
                               kind, card)}
-    del engine
+    # the same shards as TP processes on the one card (item 18's ranks)
+    tp_runs["tp ranks"] = phase(
+        "tp ranks", drive_rank_phase, torch, ops, A, ST,
+        ShardedEngine(engine.model, engine.cfg, engine.policy,
+                      engine.serve_params, engine.qparams,
+                      device=engine.device, tp=TP,
+                      cache_layout=engine.cache_layout),
+        {"tokens": prompts}, "tp ranks", kind, card)
+    del engine, engine_s
 
     # the reference's three other serving modes at full width (and
     # SMOLLM_LAYERS of 30, as the paged, scheduler and sp engines below):
@@ -5695,11 +5969,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    engine4 = Engine.from_checkpoint("smollm-135m", smoke=False, kv_bits=4,
+    engine4 = Engine.from_checkpoint(cfg=smollm_cut, smoke=False, kv_bits=4,
                                      finetune_thresholds=2)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    print(f"[finetune] smollm-135m full width, kv_bits=4, 2 epochs x 2 "
+    print(f"[finetune] smollm-135m full width, {SMOLLM_LAYERS} of its 30 "
+          f"layers, kv_bits=4, 2 epochs x 2 "
           f"calibration batches of 4 x 32: init + calibration + fine-tune "
           f"+ int8 conversion in {time.perf_counter() - t0:.1f} s; peak "
           f"device memory {peak / 2**20:.1f} MiB "
@@ -5805,6 +6080,11 @@ def main() -> int:
             ShardedEngine, build_model, engine_sp, {"tokens": prompts},
             "sp speculative", kind, card, greedy=out_sp[0].tokens,
             **SPECULATIVE)
+        # the [sp path]'s engine as SP processes on the one card
+        sp_runs["sp ranks"] = (phase(
+            "sp ranks", drive_rank_phase, torch, ops, A, ST, engine_sp,
+            {"tokens": prompts}, "sp ranks", kind, card,
+            want=(out_sp[0], out_sp[1]), trace=True)[0], None)
     del engine_sp
 
     # the training driver; its checkpoints live in temporary directories
@@ -5847,7 +6127,8 @@ def main() -> int:
                     {"tokens": np.random.default_rng(sum(map(
                         ord, arch))).integers(0, engine_w.cfg.vocab,
                                               (B, PROMPT), dtype=np.int32)},
-                    "stablelm sp", kind, card, trace=True)
+                    "stablelm sp", kind, card,
+                    cpu_over=dict(n_layers=SP_CPU_LAYERS))
             del engine_w, run
         phase(f"{arch} cpu check", check_arch_cpu, torch, ops, A, Engine,
               build_model, get_config(arch), f"{arch} cpu check")
@@ -5884,13 +6165,14 @@ def main() -> int:
         phase(f"{short} cpu check", check_arch_cpu, torch, ops, A, Engine,
               build_model, get_config(arch), f"{short} cpu check")
     # the state-space configs (ROADMAP item 17 steps 5-6) at full width and
-    # depth: mamba2's main path (no attention kernel: B3 alone) and one
+    # PATH_LAYERS: mamba2's main path (no attention kernel: B3 alone) and one
     # sampled run, hymba's main path and its rings of 1024, and a full-width
     # copy of depth 2 of each against the CPU
     ssm_runs = {}
     for arch, short in SSM_ARCHS.items():
         run = phase(short, drive_arch_path, torch, ops, A, Engine,
-                    build_model, get_config(arch), short, kind, card, walls)
+                    build_model, path_config(get_config, arch), short, kind,
+                    card, walls)
         if run is not None:
             engine_s, ssm_runs[short] = run
             if arch == "mamba2-780m":
@@ -5972,7 +6254,7 @@ def main() -> int:
     # smollm-135m's paths' fused B3 and attention launches join the main
     # entries, the wider configs' their configs' entries
     acc_by_path = {path: run[1] for path, run in tp_runs.items()}
-    smollm_tp = ("tp path", "tp scheduler")
+    smollm_tp = ("tp path", "tp scheduler", "tp ranks")
     dense_by_path.update({path: tp_runs[path][0] for path in smollm_tp})
     by_path = {path: run[-1] for path, run in paged_runs.items()}
     partials = "decode_attention_partials"

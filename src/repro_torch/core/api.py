@@ -345,7 +345,8 @@ def dense_forward(layer, params: dict, x: torch.Tensor, ctx: QuantCtx | None):
         y = xq @ _fq_weight(params["w"], qs["w"], ctx.policy.weight_spec())
     else:
         matmul = (_int8_matmul if not tp else functools.partial(
-            _int8_matmul_tp, tp=tp, key=layer.path.rsplit("/", 1)[-1]))
+            _int8_matmul_tp, tp=tp, key=layer.path.rsplit("/", 1)[-1],
+            mesh=_tp_rank_mesh()))
         y = matmul(x, params["w_q"], params["w_scale"],
                    ctx.qparams[layer.path]["act"],
                    ctx.policy.act_spec(layer.act_unsigned))
@@ -499,6 +500,14 @@ def _tp_row_shards(layer) -> int:
     return info.tp if axes and axes[0] in ("heads", "mlp") else 0
 
 
+def _tp_rank_mesh():
+    """The rank mesh of the tensor-parallel context, where each shard is a
+    process of its own (its weights are this rank's slice), else None."""
+    from repro_torch.shard.context import tp_shard_info
+
+    return tp_shard_info().mesh
+
+
 def _act_scale(astate, aspec: Q.QuantSpec, w_scale):
     """T_adj and s_x = levels / T_adj of a per-tensor activation threshold;
     a per-channel one raises (int8 mode takes one)."""
@@ -514,7 +523,7 @@ def _act_scale(astate, aspec: Q.QuantSpec, w_scale):
 
 
 def _int8_matmul_tp(x, w_q, w_scale, astate, aspec: Q.QuantSpec, *,
-                    tp: int, key: str):
+                    tp: int, key: str, mesh=None):
     """The row-parallel epilogue (the reference's ``_int8_matmul`` with a
     ``reduce_axis``): x quantized as its XLA graph computes it,
     ``clip(round(x * s_x), qmin, qmax)`` in float32, cast to int8
@@ -526,7 +535,9 @@ def _int8_matmul_tp(x, w_q, w_scale, astate, aspec: Q.QuantSpec, *,
     combined scale in ``_int8_matmul``'s float32 form.  These are the
     reference's bits in float32; in bf16 its XLA fusions keep some
     roundings out (ROADMAP Queue C), and this path equals the port's
-    unsharded one bit for bit."""
+    unsharded one bit for bit.  On a rank of a rank mesh (``mesh``), ``x``
+    and ``w_q`` are this rank's slices: one partial over all of its K,
+    summed over the ranks by ``compressed_psum``'s group form."""
     from repro_torch.dist.collectives import compressed_psum
     from repro_torch.dist.sharding import tp_row_slices
     from repro_torch.kernels import ops
@@ -537,11 +548,15 @@ def _int8_matmul_tp(x, w_q, w_scale, astate, aspec: Q.QuantSpec, *,
     x_q = torch.clamp(torch.round(x.reshape(-1, k).float() * s_x),
                       max(aspec.qmin, -128.0),
                       min(aspec.qmax, 127.0)).to(torch.int8)
-    parts = torch.empty((tp, x_q.shape[0], n), dtype=torch.int32,
-                        device=x.device)
-    for i, (k0, k1) in enumerate(tp_row_slices(key, k, tp)):
-        ops.quant_matmul_acc(x_q, w_q, k0, k1, out=parts[i])
-    acc = compressed_psum(parts, mean=False)
+    if mesh is not None:
+        acc = compressed_psum(ops.quant_matmul_acc(x_q, w_q, 0, k),
+                              mean=False, group=mesh)
+    else:
+        parts = torch.empty((tp, x_q.shape[0], n), dtype=torch.int32,
+                            device=x.device)
+        for i, (k0, k1) in enumerate(tp_row_slices(key, k, tp)):
+            ops.quant_matmul_acc(x_q, w_q, k0, k1, out=parts[i])
+        acc = compressed_psum(parts, mean=False)
     combined = (w_scale * t_adj) * (1.0 / aspec.levels)
     y = acc.float() * combined.float()
     return y.reshape(*lead, n).to(x.dtype)

@@ -1,9 +1,16 @@
-"""``compressed_psum``: the reduce of the tensor-parallel row epilogues.
+"""``compressed_psum``: the reduce of the tensor-parallel row epilogues,
+and the gathers of the sequence-parallel ranks.
 
 Counterpart of ``repro/dist/collectives.py``.  The reference reduces over a
-mesh axis inside ``shard_map``; the port's shards live on one device, so
+mesh axis inside ``shard_map``.  The port has two forms of it: with
+``group`` None, the one-process form, whose shards live on one device, so
 the payload arrives stacked, shard ``i`` at ``x[i]``, and the reduce sums
-over that leading axis.  Two regimes, as in the reference:
+over that leading axis; with ``group`` a ``launch.mesh.RankMesh``, the
+group form, where each rank holds its own payload and the reduce is a
+``torch.distributed.all_reduce`` over the rank mesh (``all_gather``, the
+gathers of ``shard/seq_cache.py`` and ``shard/partial_softmax.py``).  Over
+gloo a CUDA payload is staged through the host here, explicitly.  Two
+regimes, as in the reference:
 
   * integer payloads (the serving stream: the row-parallel layers' int32
     accumulators): the exact int32 sum (wrapping, as XLA's), with no
@@ -14,12 +21,18 @@ over that leading axis.  Two regimes, as in the reference:
     sum in int32, dequantized once, then the mean or the sum (in the forms
     the reference's jitted reduce compiles to).
 
-``reduces`` and ``wire_bytes`` count what the reduces would move between
-devices: each reduce sums the int32 payload of ``tp`` shards, of which
-``tp - 1`` arrive from other devices.  They advance with the kernel
-launch counters (``kernels.ops``), also across a captured step's replays.
+``reduces`` and ``wire_bytes`` count the reduces and the int32 payload
+bytes each sums from the ``tp - 1`` other shards: what the one-process
+form would move between devices, and what each rank of the group form
+receives (so a rank's counts equal the one-process counts).  ``gathers``
+and ``gather_bytes`` count the group form's gathers and the bytes each
+receives from the other ranks; ``seconds`` the wall time of the group
+form's collectives, staging included.  They advance with the kernel launch
+counters (``kernels.ops``), also across a captured step's replays.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -27,30 +40,87 @@ import torch
 # payload bytes of the tp - 1 other shards they sum
 reduces = 0
 wire_bytes = 0
+# the group form's gathers and the bytes they receive from other ranks
+gathers = 0
+gather_bytes = 0
+# the group form's wall time in its collectives (seconds, a float)
+seconds = 0.0
 
 
-def compressed_psum(x: torch.Tensor, *, mean: bool = True) -> torch.Tensor:
-    """Reduce the stacked shard payloads ``x`` (``tp``, ...) to one tensor
-    of ``x.shape[1:]``: the exact int32 sum of an integer payload, or the
+def _staged(group, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the group's backend takes it: gloo reads the host."""
+    return x.cpu() if group.backend == "gloo" else x
+
+
+def all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    """The sum (or ``op``) of ``x`` over the rank mesh ``group``, on
+    ``x``'s device."""
+    import torch.distributed as dist
+
+    global seconds
+    t0 = time.perf_counter()
+    buf = _staged(group, x).contiguous()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM if op is None else op,
+                    group=group.group)
+    out = buf.to(x.device)
+    seconds += time.perf_counter() - t0
+    return out
+
+
+def all_gather(x: torch.Tensor, group) -> list:
+    """Every rank's ``x`` over the rank mesh ``group``, in rank order, on
+    ``x``'s device."""
+    import torch.distributed as dist
+
+    global gathers, gather_bytes, seconds
+    t0 = time.perf_counter()
+    buf = _staged(group, x).contiguous()
+    parts = [torch.empty_like(buf) for _ in range(group.n)]
+    dist.all_gather(parts, buf, group=group.group)
+    out = [p.to(x.device) for p in parts]
+    gathers += 1
+    gather_bytes += (group.n - 1) * buf.numel() * buf.element_size()
+    seconds += time.perf_counter() - t0
+    return out
+
+
+def compressed_psum(x: torch.Tensor, *, mean: bool = True,
+                    group=None) -> torch.Tensor:
+    """Reduce the payloads of the shards: with ``group`` None the stacked
+    payloads ``x`` (``tp``, ...) to one tensor of ``x.shape[1:]``; over a
+    rank mesh ``group`` this rank's ``x`` to one tensor of its shape (a
+    ``dist.all_reduce`` standing for the reference's ``psum`` and
+    ``pmax``).  The exact int32 sum of an integer payload, or the
     int8-compressed mean (or sum) of a float one."""
+    import torch.distributed as dist
+
     global reduces, wire_bytes
-    tp = x.shape[0]
+    tp, one = (x.shape[0], x[0]) if group is None else (group.n, x)
     reduces += 1
-    wire_bytes += (tp - 1) * (x[0].numel() * 4)
+    wire_bytes += (tp - 1) * (one.numel() * 4)
+
+    def total(v):
+        """The int32 sum over the shards."""
+        if group is None:
+            return v.sum(0, dtype=torch.int32)
+        return all_reduce(v, group)
+
     if not torch.is_floating_point(x):
         if mean:
             raise ValueError(
                 "integer payloads reduce exactly; a mean would truncate — "
                 "pass mean=False and rescale after the reduce")
-        return x.to(torch.int32).sum(0, dtype=torch.int32)
+        return total(x.to(torch.int32))
     xf = torch.nan_to_num(x.float(), nan=0.0)
-    # one shared threshold: the max over every shard's max|x|
+    # one shared threshold: the max over every shard's max|x| (over ranks,
+    # the one float collective: a single float32 scalar)
     t = xf.abs().amax()
+    if group is not None:
+        t = all_reduce(t.reshape(1), group, op=dist.ReduceOp.MAX)[0]
     # T / 127 as XLA compiles it: T * (1 / 127)
     s = torch.clamp_min(t, 1e-8) * (1.0 / 127.0)
     q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
-    acc = q.to(torch.int32).sum(0, dtype=torch.int32)
-    out = acc.float() * s
+    out = total(q.to(torch.int32)).float() * s
     if mean:
         # the mean over a shard count known at compile time, as XLA
         # compiles it: a multiply by the reciprocal

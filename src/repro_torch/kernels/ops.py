@@ -70,6 +70,9 @@ def plain_versions():
 def reset_launches() -> None:
     for name, attr in COUNTERS:
         setattr(COUNTED[name], attr, 0)
+    # the rank mesh's gathers and collective wall time (never captured)
+    _coll.gathers = _coll.gather_bytes = 0
+    _coll.seconds = 0.0
 
 
 def launch_snapshot() -> dict:
@@ -113,6 +116,15 @@ def reduce_counts() -> dict:
     """The tensor-parallel reduces since the last reset: how many, and the
     int32 payload bytes of the other shards they sum."""
     return {"reduces": _coll.reduces, "wire_bytes": _coll.wire_bytes}
+
+
+def gather_counts() -> dict:
+    """The rank mesh's gathers since the last reset (the sequence-parallel
+    ranks' tiles and partials): how many, the bytes they received from the
+    other ranks, and the wall seconds of every group collective, reduces
+    included."""
+    return {"gathers": _coll.gathers, "gather_bytes": _coll.gather_bytes,
+            "seconds": _coll.seconds}
 
 
 def int4_launch_counts() -> dict:

@@ -38,7 +38,10 @@ cache, plain float32 partials over a float one) and merges them exactly;
 prefill attends the prompt's exact K/V (a chunk: the cache's dequantized
 view) and a verify window the whole dequantized cache, both in plain
 attention with no kernel; a windowed layer's decode raises, as the
-reference's does.
+reference's does.  Under a rank mesh (``ShardContext.mesh``: one process
+per shard) the cache is this rank's rows only: every write is an owner
+write and every whole-sequence read a gather (``shard/seq_cache.py``), and
+decode merges the ranks' gathered partials (``shard/partial_softmax.py``).
 """
 from __future__ import annotations
 
@@ -71,6 +74,41 @@ def _sp_dense(path: str, cache):
             f"{path}: sequence-parallel serving shards the dense cache's S "
             f"axis — layout {cache.layout!r} unsupported")
     return sp
+
+
+def _ranks(sp):
+    """The rank mesh of a sequence-parallel context whose shards are
+    processes (``cache`` is then this rank's rows), else None."""
+    return None if sp is None else sp.mesh
+
+
+def _append(cache, kq, vq, start: int, sp):
+    """Write tiles at global positions [start, start + s): the owner
+    write under a rank mesh."""
+    if _ranks(sp) is None:
+        return cache.append(kq, vq, start)
+    from repro_torch.shard.seq_cache import owner_append
+
+    return owner_append(cache, kq, vq, start, sp.mesh)
+
+
+def _append_slots(cache, kq, vq, pos, sp, active=None):
+    """The per-slot write; the owner write under a rank mesh."""
+    if _ranks(sp) is None:
+        return cache.append_slots(kq, vq, pos, active=active)
+    from repro_torch.shard.seq_cache import owner_append_slots
+
+    return owner_append_slots(cache, kq, vq, pos, sp.mesh, active=active)
+
+
+def _dense_kv(cache, sp, limit=None):
+    """The dequantized (k, v) of every position (the first ``limit``): the
+    ranks' gathered tiles under a rank mesh."""
+    if _ranks(sp) is None:
+        return cache.dequantize(*cache.dense_view(limit))
+    from repro_torch.shard.seq_cache import gathered_dense
+
+    return gathered_dense(cache, sp.mesh, limit)
 
 
 @functools.lru_cache(maxsize=None)
@@ -416,7 +454,7 @@ class Attention(Module):
             cache = cache.with_scales(*self._kv_scales(ctx))
         kq, vq = cache.ready(k, v)
         sp = _sp_dense(self.path, cache)
-        cache = cache.append(kq, vq, q_offset)
+        cache = _append(cache, kq, vq, q_offset, sp)
         if lengths is None and sp is not None:
             # the reference's sequence-parallel prefill attends the prompt's
             # exact float K/V, with no kernel
@@ -430,7 +468,7 @@ class Attention(Module):
                      else min(kv_limit, cache.capacity))
             if sp is not None:
                 # ... and a chunk the dequantized cache, also with no kernel
-                k_eff, v_eff = cache.dequantize(*cache.dense_view(limit))
+                k_eff, v_eff = _dense_kv(cache, sp, limit)
                 o = causal_attention(q, k_eff, v_eff, q_offset=q_offset,
                                      window=self.window)
             else:
@@ -497,7 +535,8 @@ class Attention(Module):
             if ring:
                 cache = cache.append(kq, vq, pos)
             else:
-                cache = cache.append_slots(kq, vq, pos, active=slot_mask)
+                cache = _append_slots(cache, kq, vq, pos, sp,
+                                      active=slot_mask)
             valid = pos + 1
             if slot_mask is not None:
                 valid = torch.where(slot_mask, valid, 0)
@@ -509,7 +548,7 @@ class Attention(Module):
             q, k = self._rope(q, k, torch.full((b, s), int(cur_pos),
                                                device=x.device))
             kq, vq = cache.ready(k, v)
-            cache = cache.append(kq, vq, int(cur_pos))
+            cache = _append(cache, kq, vq, int(cur_pos), sp)
             valid = int(cur_pos) + 1
         if ring:
             # the ring's slots hold the last `window` positions: attend
@@ -528,10 +567,15 @@ class Attention(Module):
         elif sp is None:
             o = ops.decode_attention_view(q[:, 0], cache.kernel_view(),
                                           *cache.scales(), valid)
-        else:
+        elif _ranks(sp) is None:
             from repro_torch.shard.partial_softmax import sp_decode_attention
 
             o = sp_decode_attention(q[:, 0], cache, valid, sp.sp)
+        else:
+            from repro_torch.shard.partial_softmax import (
+                rank_decode_attention)
+
+            o = rank_decode_attention(q[:, 0], cache, valid, sp.mesh)
         o = o[:, None].to(x.dtype)
         o = o.reshape(b, s, self.n_heads * self.head_dim)
         return self.wo(params["wo"], o, ctx), cache
@@ -570,7 +614,7 @@ class Attention(Module):
         q, k = self._rope(q, k, pos[:, None] + torch.arange(s,
                                                             device=x.device))
         kq, vq = cache.ready(k, v)
-        cache = cache.append_slots(kq, vq, pos, active=slot_mask)
+        cache = _append_slots(cache, kq, vq, pos, sp, active=slot_mask)
         if cache.quantized and self.window is None and sp is None:
             kv_len = pos + s
             if slot_mask is not None:
@@ -581,7 +625,7 @@ class Attention(Module):
         else:
             pos_eff = pos if slot_mask is None else torch.where(slot_mask,
                                                                 pos, -1)
-            o = verify_attention(q, *cache.dequantize(*cache.dense_view()),
-                                 pos_eff, window=self.window)
+            o = verify_attention(q, *_dense_kv(cache, sp), pos_eff,
+                                 window=self.window)
         o = o.to(x.dtype).reshape(b, s, self.n_heads * self.head_dim)
         return self.wo(params["wo"], o, ctx), cache

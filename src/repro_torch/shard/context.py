@@ -20,10 +20,14 @@ from typing import Optional
 class ShardContext:
     """``tp``/``sp``: the numbers of tensor and sequence shards (1 = off).
     They share the reference's one ``model`` mesh axis, so at most one of
-    them is above 1."""
+    them is above 1.  ``mesh``: the ``launch.mesh.RankMesh`` of this
+    process where each shard is a process of its own (its weights, KV
+    heads or cache rows are this rank's), None where one process serves
+    every shard."""
 
     tp: int = 1
     sp: int = 1
+    mesh: object = None
 
     def __post_init__(self):
         if self.tp > 1 and self.sp > 1:

@@ -39,16 +39,46 @@ devices are ROADMAP item 18.  With ``tp == sp == 1`` this is exactly an
 Engine.  With ``sp`` > 1, ``generate_batch`` and the scheduler run their
 programs uncaptured (``eager_reason``): the captured programs are ROADMAP
 item 9d.
+
+On a rank mesh (``mesh=launch.mesh.RankMesh``, one process per shard, as
+the reference runs one device per shard) every rank builds this engine
+from the same global weights and keeps its slice (``tp``: the local model
+and the rank's slices of the weights, thresholds and KV heads; ``sp``: its
+S / sp rows of the cache), on its own device.  Every rank runs the same
+program on the same inputs (SPMD): the row layers' int32 partials are
+summed by ``torch.distributed.all_reduce``, the sp ranks' decode partials
+and whole-sequence reads all-gathered.  The calibrated global engine is
+written once (``save_serving``) and each rank restores it
+(``from_serving``), so calibration has one source.  Such an engine serves
+uncaptured (``eager_reason``).
+
+    # in each of n ranks (dist.ranks.run_ranks)
+    engine = ShardedEngine.from_serving(directory, cfg, mesh=mesh, tp=n)
+    result = engine.generate_batch({"tokens": prompts}, gen=32)
 """
 from __future__ import annotations
 
+import dataclasses
+
+import torch
+
 from repro_torch.bridge import tree_to
-from repro_torch.dist.sharding import tp_param_slices
+from repro_torch.dist.sharding import tp_param_slices, tp_qparam_slices
 from repro_torch.kernels import ops
 from repro_torch.launch.engine import Engine, resolve_device
-from repro_torch.launch.mesh import make_serving_mesh
+from repro_torch.launch.mesh import RankMesh, make_serving_mesh
 from repro_torch.shard.context import ShardContext
 from repro_torch.shard.model import ShardedModel, check_tp
+
+
+def _resident(tree, device):
+    """``tree`` with every tensor on ``device`` as a contiguous copy of its
+    own (a rank's slice keeps no storage of the whole)."""
+    if isinstance(tree, dict):
+        return {k: _resident(v, device) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    return tree.to(device).clone(memory_format=torch.contiguous_format)
 
 
 class ShardedEngine(Engine):
@@ -74,7 +104,19 @@ class ShardedEngine(Engine):
         if tp > 1:
             # the role rules over the weights (the reference's specs raise
             # here on an indivisible axis)
-            tp_param_slices(serve_params, tp=tp)
+            shards = tp_param_slices(serve_params, tp=tp)
+        if isinstance(mesh, RankMesh):
+            dev = resolve_device(engine_kw.get("device", mesh.device))
+            if dev != mesh.device:
+                raise ValueError(f"rank {mesh.rank} serves on {mesh.device},"
+                                 f" not {dev}")
+            engine_kw["device"] = dev
+            if tp > 1:
+                serve_params = shards[mesh.rank]
+                qparams = tp_qparam_slices(qparams, tp=tp,
+                                           n_kv=cfg.n_kv_heads)[mesh.rank]
+            serve_params = _resident(serve_params, dev)
+            qparams = _resident(qparams, dev)
         super().__init__(model, cfg, policy, serve_params, qparams,
                          **engine_kw)
 
@@ -118,9 +160,56 @@ class ShardedEngine(Engine):
                    base.qparams, device=base.device, tp=tp, sp=sp,
                    **base._init_kw())
 
+    @property
+    def ranked(self) -> bool:
+        """Whether this engine is one rank of a rank mesh."""
+        return isinstance(self.mesh, RankMesh)
+
+    def save_serving(self, directory: str) -> str:
+        """Write this (global, one-process) engine's serving weights and
+        thresholds, its mode and its policy under ``directory``
+        (``checkpoint.manager``), for ``from_serving``; returns the
+        checkpoint's path."""
+        from repro_torch.checkpoint.manager import CheckpointManager
+
+        if self.ranked:
+            raise ValueError("save_serving writes the global engine; a rank "
+                             "holds only its slice")
+        return CheckpointManager(directory, keep=1).save(
+            0, {"serve_params": self.serve_params, "qparams": self.qparams},
+            metadata={"mode": self.mode,
+                      "policy": dataclasses.asdict(self.policy)})
+
+    @classmethod
+    def from_serving(cls, directory: str, cfg, *, mesh: RankMesh,
+                     tp: int = 1, sp: int = 1, **engine_kw):
+        """This rank's engine of a rank mesh (``tp`` or ``sp`` equal to
+        ``mesh.n``), from the global engine that ``save_serving`` wrote
+        under ``directory`` with the global ``cfg``: read on the CPU, the
+        rank's slice kept on its device.  ``engine_kw``: the Engine's
+        serving knobs (``cache_layout``, ``decode_strategy``, ...)."""
+        from repro_torch.checkpoint.manager import CheckpointManager
+        from repro_torch.core.api import QuantPolicy
+        from repro_torch.models import build_model
+
+        tree, meta = CheckpointManager(directory).restore_latest()
+        if tree is None:
+            raise FileNotFoundError(f"no committed checkpoint in "
+                                    f"{directory!r}")
+        pol = meta["policy"]
+        pol["skip_patterns"] = tuple(pol["skip_patterns"])
+        cls._validate(tp, sp, engine_kw.get("cache_layout", "ring"),
+                      meta["mode"])
+        return cls(build_model(cfg), cfg, QuantPolicy(**pol),
+                   tree["serve_params"], tree["qparams"], tp=tp, sp=sp,
+                   mesh=mesh, device=mesh.device, mode=meta["mode"],
+                   **engine_kw)
+
     def to(self, device) -> "ShardedEngine":
         """The same sharded engine (same weights, thresholds and shard
-        count) on another device."""
+        count) on another device; a rank stays on its rank's device."""
+        if self.ranked:
+            raise ValueError("a rank's engine serves on its rank's device")
         dev = resolve_device(device)
         return ShardedEngine(self.base_model, self.cfg, self.policy,
                              tree_to(self.serve_params, dev),
@@ -132,7 +221,13 @@ class ShardedEngine(Engine):
         ``generate_batch`` runs its programs uncaptured and the scheduler
         its steps; its decode's partials and merge (B4) are not captured
         yet (ROADMAP item 9d).  ``tp`` > 1 reads nothing on the host and
-        captures, as an Engine does."""
+        captures, as an Engine does.  A rank of a rank mesh runs uncaptured:
+        its collectives (gloo's staged through the host) are not captured
+        in a CUDA graph."""
+        if self.ranked:
+            return ("rank-per-shard serving runs its programs uncaptured: "
+                    "its torch.distributed collectives are not captured in "
+                    "a CUDA graph")
         if self.sp > 1:
             return ("sequence-parallel serving (sp > 1) runs its programs "
                     "uncaptured: CUDA graphs under sp are ROADMAP item 9d")
@@ -144,7 +239,7 @@ class ShardedEngine(Engine):
         ``kernels.ops.reset_launches`` (process-wide, as the launch
         counts): how many, and ``wire_bytes``, the int32 payload of the
         tp - 1 other shards that each sums, what the reduces would move
-        between devices."""
+        between devices (on a rank: what it received)."""
         return ops.reduce_counts()
 
     def dry_run_report(self, **kw):

@@ -34,10 +34,19 @@ of the cross cache and its cross decode attends that slice, so
 to a shard multiple; ``readout_fn`` and everything else delegate to the
 wrapped model, and the engine, its steps, its strategies and the slot
 scheduler drive a ShardedModel exactly like the model it wraps.
+
+On a rank mesh (``launch.mesh.RankMesh``: one process per shard, as the
+reference's devices) the wrapper is the reference's local model: under tp
+the model is built at the local config (``local_config``: heads, KV heads
+and ``d_ff`` divided by tp), served with the rank's slices of the weights,
+thresholds and KV heads, and its row-parallel layers reduce their int32
+partials over the ranks; under sp the rank's cache holds its S / sp rows,
+written by owner writes and read by gathers (``shard/seq_cache.py``).
 """
 from __future__ import annotations
 
 from repro_torch.dist.sharding import check_tp_cache
+from repro_torch.launch.mesh import RankMesh
 from repro_torch.shard.context import ShardContext, shard_scope
 
 # ROADMAP Queue C's line on the reference's mixture-of-experts under tp
@@ -58,6 +67,16 @@ def check_tp(cfg, tp: int) -> None:
             raise ValueError(f"cfg.{field}={dim} not divisible by tp={tp}")
     if cfg.ffn == "moe":
         raise ValueError(MOE_TP_REFUSAL)
+
+
+def local_config(cfg, tp: int):
+    """The config of one of ``tp`` tensor-parallel ranks: the reference's
+    local config, heads, KV heads and FFN width divided by ``tp`` at the
+    same head dim and name (so every layer path and threshold key is the
+    global model's)."""
+    return cfg.replace(n_heads=cfg.n_heads // tp,
+                       n_kv_heads=cfg.n_kv_heads // tp, d_ff=cfg.d_ff // tp,
+                       head_dim=cfg.head_dim)
 
 
 def check_sp_cache(cache_tree, sp: int) -> None:
@@ -81,14 +100,16 @@ def check_sp_cache(cache_tree, sp: int) -> None:
 class ShardedModel:
     """Serving-surface wrapper; ``model``/``cfg`` are the GLOBAL model and
     config, served with ``tp`` tensor or ``sp`` sequence shards on the
-    model's device; ``mesh`` (``launch.mesh.make_serving_mesh``) must
-    have an ``axis`` of ``max(tp, sp)`` slots, as the reference checks its
-    device mesh."""
+    model's device; ``mesh`` (``launch.mesh.make_serving_mesh``, or a
+    ``RankMesh``: this process is one of the shards) must have an ``axis``
+    of ``max(tp, sp)`` slots, as the reference checks its device mesh."""
 
     def __init__(self, model, cfg, mesh, *, tp: int = 1, sp: int = 1,
                  axis: str = "model"):
+        self.ranked = isinstance(mesh, RankMesh)
         # validates tp/sp exclusivity
-        self._shard_ctx = ShardContext(tp=tp, sp=sp)
+        self._shard_ctx = ShardContext(tp=tp, sp=sp,
+                                       mesh=mesh if self.ranked else None)
         n = max(tp, sp)
         if axis not in mesh.shape:
             raise ValueError(f"mesh has no {axis!r} axis (axes: "
@@ -99,15 +120,21 @@ class ShardedModel:
                 f"expected {n} (tp={tp}, sp={sp})")
         if tp > 1:
             check_tp(cfg, tp)
+        if self.ranked and tp > 1:
+            from repro_torch.models import build_model
+
+            model = build_model(local_config(cfg, tp))
         self._model = model
         self.cfg = cfg
         self.mesh = mesh
         self.tp, self.sp, self.axis = tp, sp, axis
 
     def _run(self, method: str, cache, *args, **kw):
-        if self.sp > 1:
+        # a rank's cache is its own (its KV heads or its rows): nothing to
+        # split
+        if self.sp > 1 and not self.ranked:
             check_sp_cache(cache, self.sp)
-        else:
+        elif not self.ranked:
             # the reference's tp_cache_specs: every k/v leaf splits on its
             # KV-head axis (raises where it does not divide)
             check_tp_cache(cache, self.tp)
@@ -146,12 +173,18 @@ class ShardedModel:
         if self.sp == 1:
             return self._model.init_cache(batch, max_len, *args, **kw)
         max_len = -(-max_len // self.sp) * self.sp
+        s_local = max_len // self.sp
         if self.cfg.family == "encdec":
-            s_local = max_len // self.sp
             enc_len = kw.get("enc_len")
             kw["enc_len"] = s_local if enc_len is None else min(enc_len,
                                                                  s_local)
-        return self._model.init_cache(batch, max_len, *args, **kw)
+        if not self.ranked:
+            return self._model.init_cache(batch, max_len, *args, **kw)
+        # a rank holds its own rows only
+        from repro_torch.shard.seq_cache import rank_rows
+
+        return rank_rows(self._model.init_cache(batch, s_local, *args, **kw),
+                         self.sp)
 
     # -- everything else is the global model ----------------------------------
     def __getattr__(self, name):

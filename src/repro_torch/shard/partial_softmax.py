@@ -16,8 +16,10 @@ inactive scheduler slot) comes out as exact zeros.  A quantized cache's
 partials come from the partials kernel; a float cache's (the bf16-KV
 serving modes) from ``local_decode_partials`` in plain PyTorch, as the
 reference computes them in jnp.  The reference gathers the partials
-across devices; here they are already on the one card, and the merge is
-plain PyTorch (it is not a kernel in the reference either).
+across devices.  On one device (``sp_decode_attention``) they are already
+on the one card; under a rank mesh (``rank_decode_attention``) each rank
+scores its own rows and all-gathers the partials, in rank order.  The
+merge is plain PyTorch (it is not a kernel in the reference either).
 """
 from __future__ import annotations
 
@@ -73,15 +75,49 @@ def sp_decode_attention(q, cache, valid, sp: int):
         lo = i * s_local
         k, v = cache.k[:, lo:lo + s_local], cache.v[:, lo:lo + s_local]
         local = torch.clamp(valid - lo, 0, s_local)
-        if not cache.quantized:
-            m, l, acc = local_decode_partials(q[:, None], k, v, local)
-        else:
-            acc, m, l = ops.decode_attention_partials(
-                q, k, v, *cache.scales(), local, kv_bits=cache.bits)
-            m, l, acc = m[..., None], l[..., None], acc[..., None, :]
+        m, l, acc = _local_partials(q, k, v, cache, local)
         ms.append(m)
         ls.append(l)
         accs.append(acc)
+    return sp_partial_combine(ms, ls, accs)[:, 0]
+
+
+def _local_partials(q, k, v, cache, local):
+    """(m, l, acc) of one shard's rows ``k``/``v``, ``local`` (B,) of them
+    visible: the partials kernel over quantized tiles, plain float32 over
+    float ones; shapes as ``sp_partial_combine`` takes them."""
+    if not cache.quantized:
+        return local_decode_partials(q[:, None], k, v, local)
+    acc, m, l = ops.decode_attention_partials(
+        q, k, v, *cache.scales(), local, kv_bits=cache.bits)
+    return m[..., None], l[..., None], acc[..., None, :]
+
+
+def rank_decode_attention(q, cache, valid, mesh):
+    """Decode attention on a rank of a sequence-parallel rank mesh: this
+    rank's rows of the cache (its whole ``cache``) scored into partials,
+    the partials of every rank all-gathered in rank order, and merged by
+    ``sp_partial_combine``: the same partials, in the same order, as
+    ``sp_decode_attention`` merges on one device.
+
+    q: (B, KV, G, D); valid: (B,) tensor or an int, the GLOBAL count of
+    visible keys.  Returns (B, KV, G, D) float32."""
+    from repro_torch.dist.collectives import all_gather
+
+    b = q.shape[0]
+    s_local = cache.rows
+    if isinstance(valid, torch.Tensor):
+        valid = valid.to(torch.int32).reshape(-1).expand(b)
+    else:
+        valid = torch.full((b,), valid, dtype=torch.int32, device=q.device)
+    local = torch.clamp(valid - mesh.rank * s_local, 0, s_local)
+    m, l, acc = _local_partials(q, cache.k, cache.v, cache, local)
+    # one gather for the three: (B, KV, G, D + 2) float32
+    packed = torch.cat([acc[..., 0, :], m, l], dim=-1)
+    parts = all_gather(packed, mesh)
+    ms = [p[..., -2:-1] for p in parts]
+    ls = [p[..., -1:] for p in parts]
+    accs = [p[..., None, :-2] for p in parts]
     return sp_partial_combine(ms, ls, accs)[:, 0]
 
 
