@@ -264,6 +264,23 @@
    launches, reduces and wire bytes a decode step, the decode wall a step
    and the share of it in the collectives (gloo's host staging included).
    A rank that fails fails the script: no phase catches it.
+26. [analysis] (``repro_torch.analysis``, after [tp ranks], on the [main
+   path]'s engine): the sweep on the card (``run_analysis(device=
+   "cuda")``: 3 variants x 6 entry points, [tp2], [sp2], the served
+   thresholds, the caches, two scheduler sessions at SMOKE) with zero
+   findings and as many entry points as on the CPU, every entry point's
+   launch delta equal to its formula (B3 7 L a pass, B2 L a prefill pass,
+   B1 L a decode step, B4 sp L, B3-acc 2 tp L, the int4 and bf16
+   counters on their variants) and printed; ``Engine.analyze()`` on the
+   full-width 30-layer engine with zero findings; no plain version run on
+   CUDA tensors; the B5 red case (a fake-mode forward and an
+   ``ops.fake_quant`` call under the recorder give
+   ``freeze.fake-quant-call``, B5 launched); ``dry_run_report`` of the
+   same weights as ``ShardedEngine(tp=TP)`` at B prompts: int32 all-reduces
+   only, ``TP_DECODE_WIRE_BYTES`` a decode step, equal to the reduces'
+   counted bytes.  [analysis sp] (after [sp path]): the [sp path]'s
+   engine's ``dry_run_report``: no all-reduce, its gathered partials'
+   bytes equal to the counted gathers'.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -294,6 +311,10 @@ SP, SP_SLOTS, SP_REQUESTS, SP_GEN = 4, 4, 8, 16
 # the tensor-parallel paths: smollm-135m's shards (its 9 / 3 heads and d_ff
 # 1536 divide by 3), and the wider configs' (granite-8b, seamless-m4t-medium)
 TP, TP_WIDE = 3, 2
+# [analysis]: the int32 bytes a [tp path] decode step's reduces move
+# (PERF.md §2): 2 row-parallel layers x 30 layers, each summing B x 576
+# int32 from the TP - 1 other shards
+TP_DECODE_WIRE_BYTES = 1_105_920
 # the decoding strategies beside greedy (launch/strategies.py): the sampling
 # knobs of [sample path] and [sampled scheduler], and the draft window and
 # lookup n-gram of the speculative phases (a verify window of SPEC_K + 1)
@@ -4289,6 +4310,152 @@ def check_tp_scheduler(torch, ops, A, ST, ShardedEngine, Request, engine,
     return counts, acc, red
 
 
+def print_entry_launches(label, name, ep):
+    """One entry point's launch delta on the card beside its formula."""
+    got = {f"{k}.{a}": n for (k, a), n in sorted(ep.launched.items())
+           if a != "wire_bytes"}
+    want = {f"{k}.{a}": n for (k, a), n in sorted(ep.expected.items())}
+    print(f"[{label}] {name}: launches {got}"
+          + ("" if got == want else f" != formula {want}"))
+
+
+def check_analysis(torch, ops, ShardedEngine, engine, kind, card):
+    """[analysis]: the analysis contracts on the card (see the module
+    docstring, 26).  Returns the phase's seconds by step."""
+    from repro_torch.analysis import entrypoints as EP
+    from repro_torch.analysis.donation import check_no_fake_quant
+    from repro_torch.analysis.record import Recorder
+    from repro_torch.analysis.report import make_report
+    from repro_torch.core import api as A
+
+    secs = {}
+    plain0 = ops.plain_call_count()
+    t0 = time.perf_counter()
+    eps = {}
+    found, names = EP.run_analysis(device=engine.device, entry_points=eps)
+    secs["sweep"] = time.perf_counter() - t0
+    rep = make_report(found, entry_points=names,
+                      backend=engine.device.type)
+    print(f"[analysis] {kind} ({card}): analyzed {len(names)} entry points "
+          f"(backend={rep['backend']}); {rep['counts']['error']} error(s), "
+          f"{rep['counts']['warning']} warning(s) in {secs['sweep']:.1f} s")
+    for f in found:
+        print(f"[analysis]   {f.code} ({f.entry_point}) [{f.location}]: "
+              f"{f.message}")
+    for name, ep in eps.items():
+        print_entry_launches("analysis", name, ep)
+    if found or len(names) < 27:
+        raise AssertionError(f"the sweep on the card: {len(found)} "
+                             f"finding(s), {len(names)} entry points (27 on "
+                             "the CPU)")
+    bad = [n for n, ep in eps.items()
+           if {k: v for k, v in ep.launched.items() if k[1] != "wire_bytes"}
+           != ep.expected]
+    if bad:
+        raise AssertionError(f"launch deltas off their formulas: {bad}")
+
+    # the full-width main engine's own prefill and decode
+    t0 = time.perf_counter()
+    own = {}
+    found = engine.analyze()
+    secs["Engine.analyze"] = time.perf_counter() - t0
+    for name in ("prefill", "decode_loop"):
+        own[name] = EP.engine_expected(engine, name,
+                                       1 if name == "prefill" else 3)
+    print(f"[analysis] Engine.analyze() on the [main path] engine "
+          f"(smollm-135m, {engine.cfg.n_layers} layers, full width): "
+          f"{len(found)} finding(s) in {secs['Engine.analyze']:.1f} s; "
+          f"formulas {own}")
+    for f in found:
+        print(f"[analysis]   {f.code} ({f.entry_point}) [{f.location}]: "
+              f"{f.message}")
+    if found:
+        raise AssertionError(f"Engine.analyze(): {len(found)} finding(s)")
+    plain = ops.plain_call_count() - plain0
+    print(f"[analysis] plain versions run on CUDA tensors: {plain}")
+    if plain:
+        raise AssertionError(f"{plain} plain version(s) ran on CUDA tensors")
+
+    # the red case: fake-quant in a serving step, on the card
+    t0 = time.perf_counter()
+    fp = EP.build_engine(device=engine.device, fp=True)
+    toks = EP.prompts(fp)
+    ctx = A.make_ctx("fake", fp.policy, fp.qparams)
+    with torch.no_grad(), Recorder() as rec:
+        fp.model.hidden(fp.serve_params, {"tokens": toks}, ctx)
+    fake = check_no_fake_quant(rec)
+    dev = engine.device
+    x = torch.randn(64, 576, device=dev)
+    before = ops.launch_counts()["fake_quant"]
+    with Recorder() as rec:
+        ops.fake_quant(x, torch.ones(576, device=dev),
+                       torch.full((576,), 0.9, device=dev))
+    EP._sync(dev)
+    b5 = ops.launch_counts()["fake_quant"] - before
+    call = check_no_fake_quant(rec)
+    secs["B5 red case"] = time.perf_counter() - t0
+    print(f"[analysis] red case: a fake-mode forward gives "
+          f"{sorted({f.code for f in fake})} via "
+          f"{sorted(f.message.split('(via ')[1].split(')')[0] for f in fake)}"
+          f"; ops.fake_quant gives {[f.code for f in call]}, B5 launched "
+          f"{b5} time(s)")
+    if not fake or {f.code for f in fake} != {"freeze.fake-quant-call"}:
+        raise AssertionError(f"the fake-mode forward was not flagged: {fake}")
+    if [f.code for f in call] != ["freeze.fake-quant-call"] or b5 < 1:
+        raise AssertionError(f"ops.fake_quant: {call}, B5 launches {b5}")
+
+    # the collective audit of the [tp path]'s shards
+    t0 = time.perf_counter()
+    tp = ShardedEngine(engine.model, engine.cfg, engine.policy,
+                       engine.serve_params, engine.qparams,
+                       device=engine.device, tp=TP,
+                       cache_layout=engine.cache_layout)
+    moved0 = ops.reduce_counts()["wire_bytes"]
+    audit = tp.dry_run_report(batch=B)
+    moved = ops.reduce_counts()["wire_bytes"] - moved0
+    secs["dry_run_report tp"] = time.perf_counter() - t0
+    dec, pre = audit["executables"]["decode"], audit["executables"]["prefill"]
+    dtypes = sorted({d for ex in (pre, dec)
+                     for d, _ in ex["all_reduce_payloads"]})
+    print(f"[analysis] [tp path] dry_run_report(batch={B}): tp={TP}, "
+          f"int8_all_reduces_ok={audit['int8_all_reduces_ok']}, payloads "
+          f"{dtypes}; prefill {len(pre['all_reduce_payloads'])} all-reduces "
+          f"of {pre['collective_bytes']} bytes, decode "
+          f"{len(dec['all_reduce_payloads'])} of {dec['collective_bytes']} "
+          f"bytes a step (want {TP_DECODE_WIRE_BYTES}); counted "
+          f"{moved} ({card})")
+    cfg = engine.cfg
+    want = 2 * cfg.n_layers * B * cfg.d_model * 4 * (TP - 1)
+    if not (audit["int8_all_reduces_ok"] and dtypes == ["int32"]
+            and dec["collective_bytes"] == TP_DECODE_WIRE_BYTES == want
+            and pre["collective_bytes"] + dec["collective_bytes"] == moved):
+        raise AssertionError(f"[tp path] audit: {audit}")
+    del tp
+    return secs
+
+
+def check_analysis_sp(torch, ops, engine_sp, card):
+    """[analysis sp]: the [sp path] engine's collective audit: no
+    all-reduce, its gathered partials' bytes the counted gathers'."""
+    t0 = time.perf_counter()
+    moved0 = ops.gather_counts()["gather_bytes"]
+    audit = engine_sp.dry_run_report(batch=B)
+    moved = ops.gather_counts()["gather_bytes"] - moved0
+    dec, pre = audit["executables"]["decode"], audit["executables"]["prefill"]
+    print(f"[analysis sp] [sp path] dry_run_report(batch={B}): sp="
+          f"{engine_sp.sp}, int8_all_reduces_ok="
+          f"{audit['int8_all_reduces_ok']}; all-reduces "
+          f"{len(pre['all_reduce_payloads']) + len(dec['all_reduce_payloads'])}"
+          f"; decode {dec['collective_by_kind']} bytes a step; counted "
+          f"{moved}; {time.perf_counter() - t0:.1f} s ({card})")
+    if not (audit["int8_all_reduces_ok"] and not pre["all_reduce_payloads"]
+            and not dec["all_reduce_payloads"]
+            and set(dec["collective_by_kind"]) == {"all-gather"}
+            and pre["collective_bytes"] + dec["collective_bytes"] == moved):
+        raise AssertionError(f"[sp path] audit: {audit}")
+    return time.perf_counter() - t0
+
+
 def check_prefix(torch, ops, Request, engine, kind, card):
     """4 requests with one 512-token prompt through the paged scheduler:
     one prefill, three prefix-store hits, every request the first's
@@ -5914,6 +6081,13 @@ def main() -> int:
                       device=engine.device, tp=TP,
                       cache_layout=engine.cache_layout),
         {"tokens": prompts}, "tp ranks", kind, card)
+    # the analysis contracts (ROADMAP item 19) on the card
+    analysis = phase("analysis", check_analysis, torch, ops, ShardedEngine,
+                     engine, kind, card)
+    if analysis is not None:
+        print("[analysis] seconds: " + "; ".join(
+            f"{k} {v:.1f}" for k, v in analysis.items()) + f"; phase "
+            f"{phases['analysis']:.1f} s ({card})")
     del engine, engine_s
 
     # the reference's three other serving modes at full width (and
@@ -6074,6 +6248,7 @@ def main() -> int:
               out_sp[0].tokens.cpu(), LOGIT_ATOL, "sp cpu check")
     sp_sched = phase("sp scheduler", check_sp_scheduler, torch, ops, A, ST,
                      Engine, ShardedEngine, Request, engine_sp, kind, card)
+    phase("analysis sp", check_analysis_sp, torch, ops, engine_sp, card)
     if out_sp is not None:
         sp_runs["sp speculative"] = phase(
             "sp speculative", drive_sp_phase, torch, ops, A, ST, SG, prng,

@@ -26,9 +26,16 @@ bytes each sums from the ``tp - 1`` other shards: what the one-process
 form would move between devices, and what each rank of the group form
 receives (so a rank's counts equal the one-process counts).  ``gathers``
 and ``gather_bytes`` count the group form's gathers and the bytes each
-receives from the other ranks; ``seconds`` the wall time of the group
-form's collectives, staging included.  They advance with the kernel launch
-counters (``kernels.ops``), also across a captured step's replays.
+receives from the other ranks, and the one-process merges of the
+sequence-parallel decode partials (``shard/partial_softmax.py``) count the
+gathers they stand for (``stand_in``); ``seconds`` the wall time of the
+group form's collectives, staging included.  They advance with the kernel
+launch counters (``kernels.ops``), also across a captured step's replays.
+
+Every collective, in both forms, is handed to ``observer`` when one is
+installed (``repro_torch.analysis.record``'s ``Recorder``): its kind, its
+payload's dtype and element count on one shard, the shard count and the
+reduce op.  The one-process form reports the collective it stands for.
 """
 from __future__ import annotations
 
@@ -45,6 +52,28 @@ gathers = 0
 gather_bytes = 0
 # the group form's wall time in its collectives (seconds, a float)
 seconds = 0.0
+# called as observer(kind, dtype, numel, n, op) for every collective:
+# "all_reduce" or "all_gather", one shard's payload, n shards, "sum" or
+# "max" (None: nobody listens)
+observer = None
+
+
+def _observe(kind: str, payload: torch.Tensor, n: int, op: str = "sum"):
+    if observer is not None:
+        observer(kind, payload.dtype, payload.numel(), n, op)
+
+
+def stand_in(kind: str, dtype, numel: int, n: int, op: str = "sum") -> None:
+    """Count and report the collective that one-process shards stand for:
+    ``numel`` elements of ``dtype`` from each of ``n`` shards, a gather
+    counted as the group form counts one (``gathers``, ``gather_bytes``);
+    an all-reduce's counts are ``compressed_psum``'s own."""
+    global gathers, gather_bytes
+    if kind == "all_gather":
+        gathers += 1
+        gather_bytes += (n - 1) * numel * dtype.itemsize
+    if observer is not None:
+        observer(kind, dtype, numel, n, op)
 
 
 def _staged(group, x: torch.Tensor) -> torch.Tensor:
@@ -60,6 +89,8 @@ def all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
     global seconds
     t0 = time.perf_counter()
     buf = _staged(group, x).contiguous()
+    _observe("all_reduce", buf, group.n,
+             "max" if op == dist.ReduceOp.MAX else "sum")
     dist.all_reduce(buf, op=dist.ReduceOp.SUM if op is None else op,
                     group=group.group)
     out = buf.to(x.device)
@@ -75,6 +106,7 @@ def all_gather(x: torch.Tensor, group) -> list:
     global gathers, gather_bytes, seconds
     t0 = time.perf_counter()
     buf = _staged(group, x).contiguous()
+    _observe("all_gather", buf, group.n)
     parts = [torch.empty_like(buf) for _ in range(group.n)]
     dist.all_gather(parts, buf, group=group.group)
     out = [p.to(x.device) for p in parts]
@@ -102,6 +134,7 @@ def compressed_psum(x: torch.Tensor, *, mean: bool = True,
     def total(v):
         """The int32 sum over the shards."""
         if group is None:
+            stand_in("all_reduce", v.dtype, v[0].numel(), tp)
             return v.sum(0, dtype=torch.int32)
         return all_reduce(v, group)
 
@@ -117,6 +150,8 @@ def compressed_psum(x: torch.Tensor, *, mean: bool = True,
     t = xf.abs().amax()
     if group is not None:
         t = all_reduce(t.reshape(1), group, op=dist.ReduceOp.MAX)[0]
+    else:
+        stand_in("all_reduce", t.dtype, 1, tp, "max")
     # T / 127 as XLA compiles it: T * (1 / 127)
     s = torch.clamp_min(t, 1e-8) * (1.0 / 127.0)
     q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)

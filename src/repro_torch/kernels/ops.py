@@ -6,7 +6,12 @@ hand-written Hopper kernel or raises.  There is no fallback from one to
 the other.  Inputs are validated the same way on both sides (the CUDA
 wrappers' ``launch`` validates its own).  Within ``plain_versions()`` a
 CUDA tensor runs the plain version too: the twin a caller holds a run of
-the kernels against, on the same card.
+the kernels against, on the same card; ``plain_calls`` counts those runs.
+
+Every wrapper decides its route in ``_route``, which also hands the call
+(the kernel, whether it launched, its operands and its variant) to
+``observer`` when one is installed: ``repro_torch.analysis.record``'s
+``Recorder`` checks the kernels' launch contracts from those records.
 """
 from __future__ import annotations
 
@@ -45,6 +50,12 @@ COUNTERS = (("quant_matmul", "launches"), ("quant_matmul", "launches_w4"),
 
 
 _plain = False
+# wrapper calls that ran the plain version on CUDA tensors (within
+# ``plain_versions()``), since the last ``reset_launches``
+plain_calls = 0
+# called as observer(kernel, launched, operands, attrs) by every wrapper
+# before it launches or runs its plain version (None: nobody listens)
+observer = None
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -67,7 +78,23 @@ def plain_versions():
         _plain = saved
 
 
+def _route(kernel: str, lead: torch.Tensor, operands: dict, **attrs) -> bool:
+    """Whether ``kernel``'s wrapper launches the CUDA kernel (True) or runs
+    the plain version, decided by ``lead``'s device; counts a plain run on
+    CUDA tensors and tells the observer (``operands``: the tensors the
+    launch would hand the kernel, by name; ``attrs``: its variant)."""
+    global plain_calls
+    launched = _on_cuda(lead)
+    if not launched and lead.device.type == "cuda":
+        plain_calls += 1
+    if observer is not None:
+        observer(kernel, launched, operands, dict(attrs, twin=_plain))
+    return launched
+
+
 def reset_launches() -> None:
+    global plain_calls
+    plain_calls = 0
     for name, attr in COUNTERS:
         setattr(COUNTED[name], attr, 0)
     # the rank mesh's gathers and collective wall time (never captured)
@@ -96,6 +123,12 @@ def add_launches(delta: dict, times: int = 1) -> None:
         setattr(mod, attr, getattr(mod, attr) + times * n)
 
 
+def plain_call_count() -> int:
+    """Wrapper calls that ran the plain version on CUDA tensors since the
+    last reset (only ``plain_versions()`` lets one)."""
+    return plain_calls
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel (every variant)."""
     return {name: mod.launches for name, mod in KERNELS.items()}
@@ -119,10 +152,11 @@ def reduce_counts() -> dict:
 
 
 def gather_counts() -> dict:
-    """The rank mesh's gathers since the last reset (the sequence-parallel
-    ranks' tiles and partials): how many, the bytes they received from the
-    other ranks, and the wall seconds of every group collective, reduces
-    included."""
+    """The gathers since the last reset (the sequence-parallel ranks' tiles
+    and partials, and the one-process merges of the shards' decode
+    partials, each counted as the gather it stands for): how many, the
+    bytes each shard receives from the others, and the wall seconds of
+    every group collective, reduces included."""
     return {"gathers": _coll.gathers, "gather_bytes": _coll.gather_bytes,
             "seconds": _coll.seconds}
 
@@ -167,7 +201,9 @@ def quant_matmul(x, w_q, w_scale, act_scale, *, w_bits: int = 8,
     one float32, levels / T_adj, applied to x before rounding.  ``out``, a
     contiguous (M, N) bfloat16 tensor (one expert's slice of an MoE
     layer's output), receives the result in place of a new one."""
-    if _on_cuda(x):
+    if _route("quant_matmul", x, dict(x=x, w_q=w_q, w_scale=w_scale,
+                                      act_scale=act_scale, out=out),
+              w_bits=w_bits):
         return _qm.launch(x, w_q, w_scale, act_scale, w_bits, out=out)
     _qm.check(x, w_q, w_scale, act_scale, w_bits, out)
     y = ref.quant_matmul_ref(x, w_q, w_scale, act_scale, w_bits)
@@ -180,7 +216,8 @@ def quant_matmul_acc(x_q, w_q, k0: int, k1: int, *, out=None):
     shard's partial of a row-parallel layer).  ``out``, a contiguous (M, N)
     int32 tensor (one shard's slice of the stacked partials), receives
     them."""
-    if _on_cuda(x_q):
+    if _route("quant_matmul", x_q, dict(x_q=x_q, w_q=w_q, out=out),
+              acc=True, k0=k0, k1=k1):
         return _qm.launch_acc(x_q, w_q, k0, k1, out=out)
     _qm.check_acc(x_q, w_q, k0, k1, out)
     y = ref.quant_matmul_acc_ref(x_q, w_q, k0, k1)
@@ -195,7 +232,9 @@ def decode_attention(q, k_cache, v_cache, k_scale, v_scale, cur_pos, *,
     cur_pos counts the valid positions of each row: an int, or a 0-d or
     (B,) int tensor; a row with 0 returns zeros."""
     cur_pos = _rows(cur_pos, q.shape[0], q.device)
-    if _on_cuda(q):
+    if _route("decode_attention", q, dict(
+            q=q, k=k_cache, v=v_cache, k_scale=k_scale, v_scale=v_scale,
+            cur_pos=cur_pos), kv_bits=kv_bits):
         return _da.launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos,
                           kv_bits)
     _da.check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits)
@@ -214,7 +253,9 @@ def decode_attention_partials(q, k_cache, v_cache, k_scale, v_scale,
     may be a view ``k[:, lo:hi]`` of the global cache: the kernel reads it
     in place."""
     cur_pos = _rows(cur_pos, q.shape[0], q.device)
-    if _on_cuda(q):
+    if _route("decode_attention_partials", q, dict(
+            q=q, k=k_cache, v=v_cache, k_scale=k_scale, v_scale=v_scale,
+            cur_pos=cur_pos), kv_bits=kv_bits):
         return _dap.launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos,
                            kv_bits)
     _dap.check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits)
@@ -234,7 +275,9 @@ def prefill_attention(q, k, v, k_scale, v_scale, q_start, kv_len, *,
     b = q.shape[0]
     q_start = _rows(q_start, b, q.device)
     kv_len = _rows(kv_len, b, q.device)
-    if _on_cuda(q):
+    if _route("prefill_attention", q, dict(
+            q=q, k=k, v=v, k_scale=k_scale, v_scale=v_scale, q_start=q_start,
+            kv_len=kv_len), kv_bits=kv_bits, window=window):
         return _pa.launch(q, k, v, k_scale, v_scale, q_start, kv_len,
                           causal=causal, window=window, kv_bits=kv_bits)
     _pa.check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits)
@@ -253,7 +296,9 @@ def decode_attention_view(q, view, k_scale, v_scale, cur_pos):
         return decode_attention(q, view.k, view.v, k_scale, v_scale, cur_pos,
                                 kv_bits=view.bits)
     cur_pos = _rows(cur_pos, q.shape[0], q.device)
-    if _on_cuda(q):
+    if _route("decode_attention", q, dict(
+            q=q, k=view.k, v=view.v, k_scale=k_scale, v_scale=v_scale,
+            cur_pos=cur_pos, table=view.block_table), kv_bits=view.bits):
         return _da.launch(q, view.k, view.v, k_scale, v_scale, cur_pos,
                           view.bits, table=view.block_table)
     _da.check(q, view.k, view.v, k_scale, v_scale, cur_pos, view.bits,
@@ -271,7 +316,9 @@ def decode_attention_partials_view(q, view, k_scale, v_scale, cur_pos):
         return decode_attention_partials(q, view.k, view.v, k_scale, v_scale,
                                          cur_pos, kv_bits=view.bits)
     cur_pos = _rows(cur_pos, q.shape[0], q.device)
-    if _on_cuda(q):
+    if _route("decode_attention_partials", q, dict(
+            q=q, k=view.k, v=view.v, k_scale=k_scale, v_scale=v_scale,
+            cur_pos=cur_pos, table=view.block_table), kv_bits=view.bits):
         return _dap.launch(q, view.k, view.v, k_scale, v_scale, cur_pos,
                            view.bits, table=view.block_table)
     _dap.check(q, view.k, view.v, k_scale, v_scale, cur_pos, view.bits,
@@ -292,7 +339,10 @@ def prefill_attention_view(q, view, k_scale, v_scale, q_start, kv_len, *,
     b = q.shape[0]
     q_start = _rows(q_start, b, q.device)
     kv_len = _rows(kv_len, b, q.device)
-    if _on_cuda(q):
+    if _route("prefill_attention", q, dict(
+            q=q, k=view.k, v=view.v, k_scale=k_scale, v_scale=v_scale,
+            q_start=q_start, kv_len=kv_len, table=view.block_table),
+            kv_bits=view.bits, window=window):
         return _pa.launch(q, view.k, view.v, k_scale, v_scale, q_start,
                           kv_len, causal=causal, window=window,
                           kv_bits=view.bits, table=view.block_table)
@@ -334,7 +384,7 @@ class _FakeQuant(torch.autograd.Function):
         ctx.save_for_backward(x, t_max, alpha)
         kw = dict(levels=levels, qmin=-levels, qmax=levels,
                   alpha_min=alpha_min, alpha_max=alpha_max)
-        if _on_cuda(x):
+        if _route("fake_quant", x, dict(x=x, t_max=t_max, alpha=alpha)):
             return _fq.launch(x, t_max, alpha, **kw)
         return ref.fake_quant_ref(x, t_max, alpha, **kw)
 

@@ -466,6 +466,46 @@ class Engine:
 
         return count(self.serve_params)
 
+    def analyze(self, *, batch: int = 2, prompt_len: int = 32,
+                cache_len: int = 64) -> list:
+        """Contract checks over THIS engine's serving steps
+        (``repro_torch.analysis``): its one-shot prefill of ``batch`` x
+        ``prompt_len`` seeded tokens, then a 4-token decode loop over the
+        cache it filled, each run once under the recorder on the engine's
+        device, through the dtype-drift, kernel-contract (launch counts
+        included, on an attention-only stack) and fake-quant checks; the
+        freeze state of its thresholds and the aliasing of its cache.
+        Returns the findings; empty means every contract holds.  Text
+        stacks only (a batch of tokens)."""
+        from repro_torch.analysis import entrypoints as EP
+        from repro_torch.analysis.donation import (check_duplicate_donation,
+                                                   check_frozen_qparams)
+
+        toks = EP.prompts(self, batch, prompt_len)
+        cache = self.init_cache(batch, cache_len)
+        out = {}
+
+        def prefill():
+            out["logits"], _ = ST.make_prefill_step(
+                self.model, self.policy, mode=self.mode)(
+                self.serve_params, self.qparams, {"tokens": toks}, cache)
+
+        def decode():
+            tok0 = out["logits"][:, -1].argmax(-1)
+            ST.make_decode_loop(self.model, self.policy, n_steps=4,
+                                mode=self.mode)(
+                self.serve_params, self.qparams, tok0, cache, prompt_len)
+
+        eps = [EP.record_step("prefill", prefill, self.device,
+                              EP.engine_expected(self, "prefill", 1)),
+               EP.record_step("decode_loop", decode, self.device,
+                              EP.engine_expected(self, "decode_loop", 3))]
+        findings = EP.analyze_entry_points(eps)
+        findings += check_frozen_qparams(self.qparams, entry_point="qparams")
+        findings += check_duplicate_donation(cache, entry_point="cache",
+                                             what="KV cache")
+        return findings
+
     def init_cache(self, batch: int, max_len: int, **layout):
         """The engine's cache (its layout, page size, KV width, and int8 or
         the config's dtype, unless ``layout`` overrides them; an

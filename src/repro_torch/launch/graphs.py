@@ -23,6 +23,10 @@ replay launches them without a call, so a ``Program`` takes the capture's
 count back out and adds it again at each replay: ``ops.launch_counts()``
 keeps reporting the launches that ran on the device.  Warm-up launches
 are real and count.
+
+``builds`` counts the Programs built in this process (captures on CUDA,
+eager programs on the CPU): ``repro_torch.analysis.budgets.CaptureWatch``
+holds a warm serving session to zero of them.
 """
 from __future__ import annotations
 
@@ -34,6 +38,8 @@ from repro_torch.kernels import ops
 
 # eager runs of a step before its capture
 WARMUP = 2
+# Programs built in this process
+builds = 0
 
 
 class Program:
@@ -41,6 +47,8 @@ class Program:
     ``capture`` False: a caller's explicit eager branch)."""
 
     def __init__(self, fn, device, *, capture: bool = True):
+        global builds
+        builds += 1
         self.fn = fn
         self.device = torch.device(device)
         self.graph = None

@@ -406,6 +406,23 @@ class SlotScheduler:
         ``set_row`` and ``copy_page`` run eagerly, not as programs."""
         return dict(self._built)
 
+    def programs(self) -> dict:
+        """The Programs built so far, by piece (``prefill``, ``decode``,
+        ``resume``)."""
+        built = {"prefill": self._admission, "decode": self._block,
+                 "resume": self._resume}
+        return {k: p for k, p in built.items() if p is not None}
+
+    def check_budgets(self) -> list:
+        """The no-rebuild contract as findings: this scheduler's Program
+        counts against the declared per-piece budgets
+        (``repro_torch.analysis.budgets.SCHEDULER_BUDGETS``).  Empty: within
+        budget."""
+        from repro_torch.analysis.budgets import check_executable_budgets
+
+        return check_executable_budgets(self.executable_counts(),
+                                        entry_point="scheduler")
+
     def prefix_stats(self) -> dict:
         """Prefix-sharing counters (paged layout; empty for dense)."""
         return self._prefix.stats() if self._prefix is not None else {}

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -276,8 +277,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "the per-shard flash partials exactly (dense/ring "
                          "cache layouts; not with --fp, as the reference)")
     ap.add_argument("--mesh", default="auto", choices=["auto", "dryrun"],
-                    help="auto = serve; dryrun (the reference's compiled "
-                         "collective audit) is ROADMAP Queue A item 19")
+                    help="auto = serve; dryrun = run the sharded prefill and "
+                         "one decode step under the analysis recorder, print "
+                         "the collective audit (every serving-path "
+                         "all-reduce must carry integer payload bytes) and "
+                         "exit without serving, 1 if the audit fails")
     return ap
 
 
@@ -298,10 +302,6 @@ def main(argv=None):
         ap.error("--restore journal needs --journal PATH")
     if args.restore == "snapshot" and not args.snapshot_dir:
         ap.error("--restore snapshot needs --snapshot-dir DIR")
-    if args.mesh == "dryrun":
-        raise NotImplementedError(
-            "--mesh dryrun (the compiled collective audit) is ROADMAP "
-            "Queue A item 19")
 
     fault_plan = args.fault_plan
     if fault_plan is not None:
@@ -334,6 +334,13 @@ def main(argv=None):
         kind = (f"tp={args.tp} tensor" if args.tp > 1
                 else f"sp={args.sp} sequence")
         print(f"[serve] sharded serving: {kind} shards on {engine.device}")
+        if args.mesh == "dryrun":
+            report = engine.dry_run_report(batch=args.requests,
+                                           prompt_len=args.prompt_len)
+            print(json.dumps(report, indent=2, default=str))
+            verdict = report["int8_all_reduces_ok"]
+            print(f"[serve] dryrun: int8_all_reduces_ok={verdict}")
+            raise SystemExit(0 if verdict else 1)
     else:
         engine = Engine.from_checkpoint(args.arch, **kw)
     if not args.fp:

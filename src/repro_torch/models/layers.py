@@ -115,9 +115,10 @@ def rotary_angles(positions: torch.Tensor, head_dim: int,
 def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor) -> torch.Tensor:
     """x: (..., S, H, D); cos/sin: (..., S, D/2) broadcast over heads
-    (rotate-half, llama family).  Computed in float32, cast back."""
+    (rotate-half, llama family).  Computed in float32 (x converted
+    explicitly: the bits of torch's implicit promotion), cast back."""
     half = x.shape[-1] // 2
-    x1, x2 = x[..., :half], x[..., half:]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
     c = cos[..., None, :]
     s = sin[..., None, :]
     y1 = x1 * c - x2 * s

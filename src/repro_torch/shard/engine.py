@@ -242,8 +242,64 @@ class ShardedEngine(Engine):
         between devices (on a rank: what it received)."""
         return ops.reduce_counts()
 
-    def dry_run_report(self, **kw):
-        raise NotImplementedError(
-            "dry_run_report audits XLA's compiled HLO (its all-reduce "
-            "payload types); the port has no counterpart yet (ROADMAP "
-            "Queue A item 19)")
+    def dry_run_report(self, *, batch: int = 2, prompt_len: int = 32,
+                       cache_len=None) -> dict:
+        """Run this engine's prefill (``batch`` x ``prompt_len`` seeded
+        tokens) and one decode step after it, each once under
+        ``repro_torch.analysis``'s recorder, and audit their collectives:
+        the reference's report (its ``dry_run_report`` compiles the two
+        executables and reads their HLO; the port records the collectives
+        it runs).
+
+        Per executable: ``collective_bytes`` (what each shard receives:
+        the int32 payloads of the tensor-parallel reduces, the gathered
+        partials of sequence-parallel decode; on the serving paths the
+        ``reduce_counts()`` / ``gather_counts()`` delta of the same step),
+        ``collective_by_kind`` ("all-reduce", "all-gather"), the all-reduce
+        payloads as (dtype, elements) and the integer-all-reduce verdict
+        (integer payloads only, but one float scalar: the reference's
+        ``launch/hlo_analysis.py`` rule) with its findings.  Top-level
+        ``int8_all_reduces_ok`` is the AND over both.  Text stacks only
+        (a batch of tokens), as the reference."""
+        from repro_torch.analysis import entrypoints as EP
+        from repro_torch.analysis.dtype_drift import (
+            all_reduce_payloads, check_integer_all_reduces)
+        from repro_torch.analysis.record import Recorder
+        from repro_torch.core import api as A
+        from repro_torch.launch import steps as ST
+
+        if cache_len is None:
+            cache_len = self._cache_len(prompt_len, 32)
+        cache = self.init_cache(batch, cache_len)
+        toks = EP.prompts(self, batch, prompt_len)
+
+        def prefill():
+            ST.make_prefill_step(self.model, self.policy, mode=self.mode)(
+                self.serve_params, self.qparams, {"tokens": toks}, cache)
+
+        def decode():
+            self.model.decode_step(
+                self.serve_params, toks[:, -1:], cache, prompt_len,
+                A.make_ctx(self.mode, self.policy, self.qparams))
+
+        report = {"tp": self.tp, "sp": self.sp, "executables": {}}
+        all_ok = True
+        for name, fn in (("prefill", prefill), ("decode", decode)):
+            with torch.inference_mode(), Recorder() as rec:
+                fn()
+            by_kind: dict = {}
+            for c in rec.collectives:
+                kind = c.kind.replace("_", "-")
+                by_kind[kind] = by_kind.get(kind, 0) + c.nbytes
+            ok, findings = check_integer_all_reduces(rec.collectives)
+            all_ok &= ok
+            report["executables"][name] = {
+                "collective_bytes": sum(by_kind.values()),
+                "collective_by_kind": {k: v for k, v in by_kind.items()
+                                       if v > 0},
+                "all_reduce_payloads": all_reduce_payloads(rec.collectives),
+                "int8_all_reduces_ok": ok,
+                "findings": findings,
+            }
+        report["int8_all_reduces_ok"] = all_ok
+        return report

@@ -118,7 +118,7 @@ def rank_decode_attention(q, cache, valid, mesh):
     ms = [p[..., -2:-1] for p in parts]
     ls = [p[..., -1:] for p in parts]
     accs = [p[..., None, :-2] for p in parts]
-    return sp_partial_combine(ms, ls, accs)[:, 0]
+    return _merge(ms, ls, accs)[:, 0]
 
 
 def sp_partial_combine(m, l, acc):
@@ -127,7 +127,20 @@ def sp_partial_combine(m, l, acc):
     ``m``, ``l``, ``acc``: sequences in shard order (or tensors with a
     leading shard axis) of (B, KV, G, 1), (B, KV, G, 1) and (B, KV, G, 1,
     D) float32.  Returns (B, 1, KV, G, D) float32 (callers cast to the
-    residual dtype); a row with l_tot == 0 returns exact zeros."""
+    residual dtype); a row with l_tot == 0 returns exact zeros.  The shards
+    are one process's, so the merge counts and reports the all-gather of
+    the packed (B, KV, G, D + 2) partials it stands for
+    (``dist.collectives.stand_in``), as ``rank_decode_attention`` moves
+    them between ranks."""
+    from repro_torch.dist.collectives import stand_in
+
+    stand_in("all_gather", acc[0].dtype, l[0].numel() * (acc[0].shape[-1] + 2),
+             len(acc))
+    return _merge(m, l, acc)
+
+
+def _merge(m, l, acc):
+    """``sp_partial_combine``'s arithmetic."""
     mg, lg, ag = (torch.stack(list(t)) for t in (m, l, acc))
     m_tot = torch.amax(mg, dim=0)
     # NEG_INF is finite: an all-empty row has m_i == M, weights exp(0) == 1

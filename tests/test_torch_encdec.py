@@ -391,7 +391,7 @@ def test_steps_read_nothing_back(pair, monkeypatch):
     (the capture rules of ``tests/test_torch_graphs.py``), with the
     frames in a static buffer of the programs; a replayed prefill gives the
     same logits after the decode steps wrote the caches."""
-    from test_torch_graphs import guarded
+    from repro_torch.analysis import guarded
 
     eng, prompt = pair["shared"], pair["prompt"]
     shape = prompt["frames"].shape
@@ -403,7 +403,7 @@ def test_steps_read_nothing_back(pair, monkeypatch):
         prog.media["frames"].copy_(torch.from_numpy(prompt["frames"]))
         first = prog.prefill().clone()
         prog.decode()
-        with guarded(monkeypatch):
+        with guarded():
             again = prog.prefill()
             prog.decode()
     assert torch.equal(first, again)

@@ -35,17 +35,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import (TorchDispatchMode,
-                                          _disable_current_modes)
-from torch.utils._pytree import tree_flatten
 
 from repro.configs import get_config as jax_config
 from repro.launch.engine import Engine as JaxEngine
 from repro.models import build_model as jax_build
 from repro_torch import bridge
+from repro_torch.analysis import HostReadGuard, guarded
 from repro_torch.configs import get_config as torch_config
 from repro_torch.kernels import decode_attention as _da
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 from repro_torch.launch import graphs
 from repro_torch.launch.engine import Engine
 from repro_torch.launch.scheduler import Request
@@ -147,58 +145,11 @@ def test_sp_engine_serves_eagerly_by_its_branch(engines):
 
 # -- (b) no host reads inside a step ---------------------------------------
 
-_BANNED = {torch.ops.aten._local_scalar_dense.default: "a host read",
-           torch.ops.aten.nonzero.default: "a host read (nonzero)",
-           torch.ops.aten.is_nonzero.default: "a host read (bool)",
-           torch.ops.aten.lift_fresh.default: "a tensor made from host data",
-           torch.ops.aten.lift_fresh_copy.default:
-               "a tensor made from host data",
-           torch.ops.aten.masked_select.default:
-               "a host read (masked_select: its size is data)"}
-# indexing ops whose boolean index is a nonzero on the card
-_INDEXING = {torch.ops.aten.index.Tensor, torch.ops.aten.index_put.default,
-             torch.ops.aten.index_put_.default,
-             torch.ops.aten._index_put_impl_.default}
-
-
-class HostReadGuard(TorchDispatchMode):
-    """Fails on any op that reads a tensor back to the host or makes a
-    tensor from host data; counts the ops it saw."""
-
-    def __init__(self):
-        super().__init__()
-        self.n_ops = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func in _BANNED:
-            raise AssertionError(f"{_BANNED[func]} inside a captured step: "
-                                 f"{func}")
-        if func in _INDEXING and any(
-                isinstance(i, torch.Tensor) and i.dtype == torch.bool
-                for i in tree_flatten(args[1])[0]):
-            raise AssertionError(f"a host read (boolean-mask index) inside "
-                                 f"a captured step: {func}")
-        self.n_ops += 1
-        return func(*args, **(kwargs or {}))
-
-
-@contextlib.contextmanager
-def guarded(monkeypatch):
-    """``HostReadGuard`` around the block, with every plain kernel version
-    of ``kernels/ref.py`` run outside it."""
-    def exempt(fn):
-        def run(*a, **kw):
-            with _disable_current_modes():
-                return fn(*a, **kw)
-        return run
-
-    for name in dir(ref):
-        if name.endswith("_ref") and callable(getattr(ref, name)):
-            monkeypatch.setattr(ref, name, exempt(getattr(ref, name)))
-    guard = HostReadGuard()
-    with guard:
-        yield guard
-    assert guard.n_ops > 0
+# ``HostReadGuard`` fails on any op that reads a tensor back to the host or
+# makes one from host data; ``guarded()`` runs a block under it with the
+# plain kernel versions of ``kernels/ref.py`` exempt
+# (``repro_torch.analysis.budgets``, where the analysis sweep runs it over
+# every Program's step).
 
 
 @pytest.mark.parametrize("bad", ["item", "bool", "nonzero", "mask",
@@ -214,7 +165,8 @@ def test_guard_catches_host_reads(monkeypatch, bad):
             "from_numpy": lambda: x + torch.from_numpy(np.ones(6,
                                                                 np.float32))}
     with pytest.raises(AssertionError, match="inside a captured step"):
-        with guarded(monkeypatch):
+        with guarded() as guard:
+            assert isinstance(guard, HostReadGuard)
             ops_[bad]()
 
 
@@ -230,7 +182,7 @@ def test_batch_steps_read_nothing_back(engines, monkeypatch, mode, layout):
         prog.tokens[:, :PROMPT].copy_(torch.from_numpy(_prompts(eng)))
         prog.prefill()                  # a warm-up, as before a capture
         prog.decode()
-        with guarded(monkeypatch):
+        with guarded():
             prog.prefill()
             prog.decode()
             prog.decode()
@@ -251,7 +203,7 @@ def test_strategy_steps_read_nothing_back(engines, monkeypatch, scheme,
         prog.tokens[:, :PROMPT].copy_(torch.from_numpy(_prompts(eng)))
         prog.prefill()
         prog.decode()
-        with guarded(monkeypatch):
+        with guarded():
             prog.prefill()
             prog.decode()
             prog.decode()
@@ -311,7 +263,7 @@ def test_scheduler_steps_read_nothing_back(engines, monkeypatch, mode,
         sched._active.copy_(torch.tensor([True, True, False]))
         sched._admission()
         sched._block()
-        with guarded(monkeypatch):
+        with guarded():
             sched._admission()
             sched._block()
 
@@ -334,7 +286,7 @@ def test_scheduler_strategy_block_reads_nothing_back(engines, monkeypatch,
         sched._hist.random_(0, eng.cfg.vocab)
         sched._block()
         keys = sched._keys.clone()
-        with guarded(monkeypatch):
+        with guarded():
             sched._block()
     # an idle slot keeps its key; a live one advances it when sampling
     assert torch.equal(sched._keys[2], keys[2])
@@ -362,7 +314,7 @@ def test_scheduler_faulted_block_and_resume_read_nothing_back(
         sched._active.copy_(torch.tensor([True, True, False]))
         sched._nan_step.copy_(torch.tensor([1, -1, 0], dtype=torch.int32))
         resume()
-        with guarded(monkeypatch):
+        with guarded():
             resume()
             toks, emitted, pos, active, bad = sched._block()
     assert sched._resume_program() is resume

@@ -243,7 +243,7 @@ def test_steps_read_nothing_back(monkeypatch, arch):
     index with no boolean mask (the capture rules of
     ``tests/test_torch_graphs.py``); a replayed prefill overwrites the
     state the decode steps advanced."""
-    from test_torch_graphs import guarded
+    from repro_torch.analysis import guarded
 
     eng = Engine.from_checkpoint(arch, smoke=True, device="cpu")
     prompts = np.random.default_rng(2).integers(0, eng.cfg.vocab,
@@ -255,7 +255,7 @@ def test_steps_read_nothing_back(monkeypatch, arch):
         first = prog.prefill().clone()
         tok0 = prog.tok.clone()
         prog.decode()
-        with guarded(monkeypatch):
+        with guarded():
             again = prog.prefill()
             prog.decode()
     assert torch.equal(first, again)

@@ -35,8 +35,15 @@ def test_no_module_imports_jax_or_repro():
             "repro_torch.launch.serve", "repro_torch.examples",
             "repro_torch.examples.quickstart",
             "repro_torch.examples.serve_int8",
-            "repro_torch.examples.train_fat_qat"} <= set(mods)
-    assert len(mods) >= 57
+            "repro_torch.examples.train_fat_qat",
+            "repro_torch.analysis", "repro_torch.analysis.__main__",
+            "repro_torch.analysis.report", "repro_torch.analysis.record",
+            "repro_torch.analysis.dtype_drift",
+            "repro_torch.analysis.budgets",
+            "repro_torch.analysis.kernel_contracts",
+            "repro_torch.analysis.donation",
+            "repro_torch.analysis.entrypoints"} <= set(mods)
+    assert len(mods) >= 66
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

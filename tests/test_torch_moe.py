@@ -781,7 +781,7 @@ def test_moe_steps_read_nothing_back(monkeypatch, arch):
     (the capture rules of ``tests/test_torch_graphs.py``): generate_batch's
     prefill and decode step, and granite-moe's scheduler admission and
     decode block over a paged cache."""
-    from test_torch_graphs import guarded
+    from repro_torch.analysis import guarded
 
     eng = Engine.from_checkpoint(arch, smoke=True, device="cpu",
                                  cache_layout="dense")
@@ -792,7 +792,7 @@ def test_moe_steps_read_nothing_back(monkeypatch, arch):
         prog.tokens[:, :PROMPT].copy_(torch.from_numpy(prompts))
         prog.prefill()
         prog.decode()
-        with guarded(monkeypatch):
+        with guarded():
             prog.prefill()
             prog.decode()
     if eng.cfg.window:
@@ -811,6 +811,6 @@ def test_moe_steps_read_nothing_back(monkeypatch, arch):
         sched._active.copy_(torch.tensor([True, True, False]))
         sched._admission()
         sched._block()
-        with guarded(monkeypatch):
+        with guarded():
             sched._admission()
             sched._block()

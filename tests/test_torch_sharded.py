@@ -591,8 +591,13 @@ def test_sp_cache_checks():
                                          pos, ctx)
     assert logits.shape[:2] == (2, 5)
     assert bool(torch.isfinite(logits).all())
-    with pytest.raises(NotImplementedError, match="item 19"):
-        engine.dry_run_report()
+    # the collective audit (ROADMAP item 19): sequence parallelism gathers
+    # the decode partials and reduces nothing
+    rep = engine.dry_run_report()
+    assert rep["sp"] == 3 and rep["int8_all_reduces_ok"]
+    assert rep["executables"]["decode"]["all_reduce_payloads"] == []
+    assert set(rep["executables"]["decode"]["collective_by_kind"]) == \
+        {"all-gather"}
 
 
 def test_shard_counts_agree():
