@@ -4915,6 +4915,121 @@ def variants_pointwise(torch, A, ST, prepare_int8, model, policy, params,
                 f"rmse {rmse['untrained']:.4f}")
 
 
+# [dryrun]: two full-width cells on a 1 x 1 mesh, each sized on the meta
+# device by ``repro_torch.launch.dryrun`` and then built and run on the
+# card from the same functions (``dryrun.cell_inputs``): smollm-135m's
+# one-shot prefill of 8 x 4096 tokens at full depth into a bf16 cache,
+# granite-8b's decode step at full depth over a bf16 cache of 4 x 32768
+DRYRUN_CELLS = (("smollm-135m", ("chip_prefill", "prefill", 4096, 8)),
+                ("granite-8b", ("chip_decode", "decode", 32768, 4)))
+DRYRUN_PEAK_RTOL = 0.10
+
+
+def tree_nbytes(tree) -> int:
+    """Sum of numel x element size over a nested dict of tensors."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def drive_dryrun_phase(torch, ops, card):
+    """[dryrun] (``DRYRUN_CELLS``): each cell's dry run on meta, then the
+    same trees built on the card from a seeded CUDA generator and the
+    same step run once, with the allocator's peak counted from the bytes
+    held before the trees were built.  Checks: the predicted argument
+    bytes are the real trees' (sum of numel x element size) exactly; the
+    predicted peak is within ``DRYRUN_PEAK_RTOL`` of the measured one; the
+    step launched B3 as many times as the meta trace called it (and, in
+    the prefill cell, B2's bf16 variant, one a layer); the outputs are
+    finite and the tokens inside the vocab.  Returns {cell: (launch
+    counts, bf16 launch counts)}."""
+    import gc
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core import api as A
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import build_model
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[dryrun] predicted (meta trace, 1 x 1 mesh) against measured "
+          f"on the card; {card}; total_memory {total} B "
+          f"({total / 1e9:.2f} GB)")
+    runs = {}
+    for arch, spec in DRYRUN_CELLS:
+        shape = ShapeSpec(*spec)
+        t0 = time.perf_counter()
+        rep = D.build_cell(arch, shape, mesh_shape=(1, 1), verbose=False)
+        t_meta = time.perf_counter() - t0
+        mem = rep["memory_analysis"]
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        model = build_model(get_config(arch))
+        gen = torch.Generator("cuda").manual_seed(0)
+        cell = D.cell_inputs(model, A.QuantPolicy(), shape,
+                             SH.ShardingRules(), 1, gen)
+        gc.collect()
+        torch.cuda.synchronize()
+        real_args = sum(tree_nbytes(tree) for tree, _ in cell.named.values())
+        held = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        out = cell.step(*cell.args)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = ops.launch_counts()
+        bf16 = ops.bf16_launch_counts()
+        logits = out[-2]
+        finite = bool(torch.isfinite(logits.float()).all())
+        tok_ok = True
+        if shape.kind == "decode":
+            tok_ok = bool(((out[0] >= 0) & (out[0] < model.cfg.vocab)).all())
+        pred_peak = mem["peak_bytes_per_device"]
+        gap = (pred_peak - peak) / peak
+        calls = rep["kernel_calls"]
+        print(f"[dryrun] {arch} x {shape.name} (B={shape.global_batch}, "
+              f"S={shape.seq_len}, {model.cfg.n_layers} layers): meta trace "
+              f"{t_meta:.2f} s, step on the card {t_step:.2f} s")
+        print(f"  argument bytes: predicted {mem['argument_bytes']}, real "
+              f"trees {real_args} (allocator {held})")
+        print(f"  peak bytes: predicted {pred_peak} (arguments + "
+              f"{mem['temp_bytes']} temp), measured {peak} "
+              f"(max_memory_allocated less the {base} B held before), gap "
+              f"{100 * gap:+.2f}%; of total_memory: predicted "
+              f"{100 * pred_peak / total:.1f}%, measured "
+              f"{100 * peak / total:.1f}%")
+        print(f"  launches: B3 {counts['quant_matmul']} (meta calls "
+              f"{calls.get('quant_matmul', 0)}), B2 "
+              f"{counts['prefill_attention']} of which bf16 "
+              f"{bf16['prefill_attention']} (meta calls "
+              f"{calls.get('prefill_attention', 0)}), B1 "
+              f"{counts['decode_attention']}")
+        assert mem["argument_bytes"] == real_args, (
+            f"{arch}: predicted argument bytes {mem['argument_bytes']} != "
+            f"the real trees' {real_args}")
+        assert abs(gap) <= DRYRUN_PEAK_RTOL, (
+            f"{arch}: predicted peak {pred_peak} is {100 * gap:+.2f}% off "
+            f"the measured {peak}")
+        assert counts["quant_matmul"] == calls.get("quant_matmul") > 0, (
+            f"{arch}: B3 launched {counts['quant_matmul']} times, the meta "
+            f"trace called it {calls.get('quant_matmul')}")
+        if shape.kind == "prefill":
+            n = model.cfg.n_layers
+            assert bf16["prefill_attention"] == counts[
+                "prefill_attention"] == calls.get("prefill_attention") == n, (
+                f"{arch}: B2 bf16 launches {bf16['prefill_attention']}, all "
+                f"{counts['prefill_attention']}, meta calls "
+                f"{calls.get('prefill_attention')}, layers {n}")
+        assert finite and tok_ok, f"{arch}: non-finite logits or bad tokens"
+        runs[f"dryrun {shape.name}"] = (counts, bf16)
+        del cell, out, logits, model
+        free_card(torch)
+    return runs
+
+
 def check_variants_full(torch, ops, A, ST, Engine, prepare_int8, build_model,
                         get_config, dev, kind, card):
     """[variants full]: smollm-135m at full width (d_model 576, seeded
@@ -6020,6 +6135,7 @@ def main() -> int:
                      Engine, prepare_int8, build_model, get_config, dev,
                      kind, card)
     free_card(torch)
+    dryrun_runs = phase("dryrun", drive_dryrun_phase, torch, ops, card) or {}
 
     t0 = time.perf_counter()
     engine = Engine.from_checkpoint("smollm-135m", smoke=False)
@@ -6454,6 +6570,12 @@ def main() -> int:
     new_paths.update({f"variants full {name}": {"quant_matmul": n}
                       for name, n in variants.items()})
     new_paths.update({path: tp_runs[path][0] for path in smollm_tp})
+    # [dryrun]: smollm-135m's prefill cell joins the main entries (B3, and
+    # B2's bf16 variant), granite-8b's decode cell its config's B3 (below)
+    if "dryrun chip_prefill" in dryrun_runs:
+        c, bf16 = dryrun_runs["dryrun chip_prefill"]
+        new_paths["dryrun chip_prefill"] = c
+        bf16_runs["dryrun chip_prefill"] = bf16
     launched["quant_matmul"] += sum(c["quant_matmul"]
                                     for c in new_paths.values())
     for k in ("prefill_attention", "decode_attention"):
@@ -6576,6 +6698,10 @@ def main() -> int:
                f"decode_attention{key}": c["decode_attention"]}
         for kernel, n in got.items():
             wide_by_path.setdefault(kernel, {})[path] = n
+    if "dryrun chip_decode" in dryrun_runs:
+        wide_by_path.setdefault("quant_matmul@granite-8b", {})[
+            "dryrun chip_decode"] = dryrun_runs["dryrun chip_decode"][0][
+                "quant_matmul"]
     launched["quant_matmul@acc"] = sum(acc_by_path.values())
     launched[partials] = sum(sp_paths.values())
     launched["quant_matmul"] += sum(sp_runs[p][0]["quant_matmul"]

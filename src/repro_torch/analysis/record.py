@@ -25,6 +25,10 @@ context writes down three things:
     shard and shard count.
 
 Recorders do not nest, and a hook that cannot be installed raises.
+``Recorder(stack=False)`` leaves the Python stack alone (every location
+"" and every name list empty): the dry run's counter
+(``analysis/cost.py``) runs 10^5 ops and more a step, and reads no
+location.
 """
 from __future__ import annotations
 
@@ -156,6 +160,9 @@ def _stack(outside: str = "") -> tuple:
     return loc, tuple(names), fq
 
 
+_NOWHERE = ("", (), "")
+
+
 def _tensors(tree) -> list:
     return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
@@ -169,8 +176,9 @@ class Recorder(TorchDispatchMode):
         rec.ops, rec.kernels, rec.collectives
     """
 
-    def __init__(self):
+    def __init__(self, *, stack: bool = True):
         super().__init__()
+        self.stack = stack
         self.ops: list[OpRecord] = []
         self.kernels: list[KernelCall] = []
         self.collectives: list[CollectiveCall] = []
@@ -202,7 +210,8 @@ class Recorder(TorchDispatchMode):
 
     def _on_kernel(self, kernel, launched, operands, attrs):
         # located at the wrapper's caller
-        loc, names, _ = _stack(_PORT + "kernels" + os.sep)
+        loc, names, _ = (_stack(_PORT + "kernels" + os.sep) if self.stack
+                         else _NOWHERE)
         ops_ = {k: Operand.of(t) for k, t in operands.items()
                 if isinstance(t, torch.Tensor)}
         lead = next(iter(ops_.values()))
@@ -211,7 +220,8 @@ class Recorder(TorchDispatchMode):
 
     def _on_collective(self, kind, dtype, numel, n, op):
         # located at the collective's caller
-        loc, names, _ = _stack(_PORT + "dist" + os.sep)
+        loc, names, _ = (_stack(_PORT + "dist" + os.sep) if self.stack
+                         else _NOWHERE)
         self.collectives.append(CollectiveCall(kind, dtype, int(numel), n, op,
                                                loc, names))
 
@@ -233,7 +243,7 @@ class Recorder(TorchDispatchMode):
                 self._hops.pop(o, None)
             else:
                 self._hops[o] = new
-        loc, names, fq = _stack()
+        loc, names, fq = _stack() if self.stack else _NOWHERE
         self.ops.append(OpRecord(
             name, tuple((t.dtype, tuple(t.shape)) for t in ins),
             tuple((t.dtype, tuple(t.shape)) for t in outs), hops, loc, names,

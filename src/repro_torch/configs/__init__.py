@@ -16,6 +16,8 @@ from repro_torch.configs import (gemma3_12b, granite_8b, granite_moe_3b_a800m,
                                  mixtral_8x7b, seamless_m4t_medium,
                                  smollm_135m, stablelm_12b)
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import (SHAPES, ShapeSpec, all_cells,
+                                        cell_applicable)
 
 _CONFIGS = {"smollm-135m": smollm_135m, "granite-8b": granite_8b,
             "stablelm-12b": stablelm_12b, "gemma3-12b": gemma3_12b,
@@ -35,4 +37,5 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config"]
+__all__ = ["ARCHS", "ModelConfig", "SHAPES", "ShapeSpec", "all_cells",
+           "cell_applicable", "get_config"]

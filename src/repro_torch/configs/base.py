@@ -104,3 +104,47 @@ class ModelConfig:
 
     def ffn_kind(self, i: int) -> str:
         return self.ffn
+
+    # ---- sizing helpers (the dry run's model FLOPs) ----
+    def param_count(self) -> int:
+        """Total parameter count N (approximate, matches construction):
+        the reference's formula."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        hd, h, kv = self.head_dim, self.n_heads, self.n_kv_heads
+        n_attn = sum(1 for i in range(self.n_layers)
+                     if self.layer_kind(i) in ("attn", "attn_local",
+                                               "hybrid"))
+        n_mamba = sum(1 for i in range(self.n_layers)
+                      if self.layer_kind(i) in ("mamba", "hybrid"))
+        attn_p = d * h * hd + 2 * d * kv * hd + h * hd * d
+        di = ((self.ssm_heads or 1) * self.ssm_head_dim if self.ssm_heads
+              else self.ssm_expand * d)
+        gn = self.ssm_groups * self.ssm_state
+        sh = self.ssm_heads or (di // self.ssm_head_dim)
+        mamba_p = 2 * d * di + 2 * d * gn + d * sh + di * d
+        if self.ffn == "moe":
+            ffn_p = self.n_layers * (self.n_experts * 3 * d * f
+                                     + d * self.n_experts)
+        elif self.ffn == "swiglu":
+            ffn_p = self.n_layers * 3 * d * f
+        elif self.ffn == "gelu":
+            ffn_p = self.n_layers * 2 * d * f
+        else:
+            ffn_p = 0
+        total = n_attn * attn_p + n_mamba * mamba_p + ffn_p + v * d
+        if not self.tie_embeddings:
+            total += v * d
+        if self.family == "encdec":
+            total += self.n_layers * (attn_p + 2 * d * f)  # encoder
+            total += self.n_layers * attn_p  # cross attention
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """N_active for the MoE rooflines (6 * N_active * D): top_k of the
+        n_experts expert MLPs per layer."""
+        if self.ffn != "moe":
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        dense = (self.param_count()
+                 - self.n_layers * self.n_experts * 3 * d * f)
+        return int(dense + self.n_layers * self.top_k * 3 * d * f)

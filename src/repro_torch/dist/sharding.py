@@ -1,14 +1,26 @@
-"""Tensor-parallel role rules: which leaves split over the ``tp`` shards.
+"""Sharding rules: which leaves split over which mesh axes.
 
-Counterpart of the tensor-parallel half of ``repro/dist/sharding.py``
-(``tp_param_specs``, ``tp_qparam_specs``, ``tp_cache_specs``).  The
-reference returns ``PartitionSpec`` trees that ``shard_map`` cuts the
-arrays by; the port applies the same rules directly: each ``*_slices``
-function returns one tree per shard whose leaves are views of the input's
-(torch tensors or numpy arrays alike), and raises the reference's
-``ValueError`` on an axis that does not divide.
+Two sets of rules, the counterparts of ``repro/dist/sharding.py``'s:
 
-Roles come from the param tree's own keys: column-parallel projections
+  * the GSPMD rules of the production mesh (data x model, with a pod axis
+    in front for two pods): ``ShardingRules``, ``multipod``,
+    ``param_specs``, ``qparam_specs``, ``batch_specs`` and ``cache_specs``.
+    The reference returns ``PartitionSpec`` trees; here each leaf's spec is
+    a tuple with one entry per dim (a mesh-axis name, a tuple of names, or
+    None: whole along that dim), and ``()`` replicates the leaf.
+    ``local_shape`` gives a leaf's per-device shape under its spec and
+    raises where a dim does not divide, as the reference's lowering does.
+    The dry run (``launch/dryrun.py``) sizes each device by them; nothing
+    is placed.
+  * the tensor-parallel role rules of the sharded engine (``tp_*``).  The
+    reference returns ``PartitionSpec`` trees that ``shard_map`` cuts the
+    arrays by; the port applies the same rules directly: each ``*_slices``
+    function returns one tree per shard whose leaves are views of the
+    input's (torch tensors or numpy arrays alike), and raises the
+    reference's ``ValueError`` on an axis that does not divide.
+
+Tensor-parallel roles come from the param tree's own keys:
+column-parallel projections
 (``TP_COL_KEYS``) split their output (last) axis, and their per-channel
 companions (``w_scale``, ``b``, ``b_q``, ``b_scale``) follow; row-parallel
 ones (``TP_ROW_KEYS``) split their input axis (second to last) and keep
@@ -22,7 +34,8 @@ positions and SSM states are replicated.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Optional, Union
 
 # column-parallel: output features split across shards (no epilogue)
 TP_COL_KEYS = frozenset({"wq", "wk", "wv", "gate", "up", "fc1"})
@@ -36,9 +49,12 @@ def _items(tree: dict):
     return sorted(tree.items(), key=lambda kv: str(kv[0]))
 
 
-def _map(tree: dict, fn, keys: tuple = ()) -> dict:
-    return {k: _map(v, fn, keys + (k,)) if isinstance(v, dict)
-            else fn(keys + (k,), v) for k, v in _items(tree)}
+def _map(tree, fn, keys: tuple = ()):
+    """``fn(keys, leaf)`` over a nested dict, keys in sorted order (a bare
+    leaf: ``fn((), leaf)``)."""
+    if not isinstance(tree, dict):
+        return fn(keys, tree)
+    return {k: _map(v, fn, keys + (k,)) for k, v in _items(tree)}
 
 
 def _take(leaf, axis: Optional[int], i: int, tp: int):
@@ -178,3 +194,146 @@ def _lookup(tree: dict, keys: tuple):
     for k in keys:
         tree = tree[k]
     return tree
+
+
+# --------------------------------------------------------------------------
+# The production mesh's GSPMD rules (the dry run's)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Mesh-axis assignment knobs (the dry run's hillclimb surface)."""
+
+    act_batch: Union[str, tuple] = "data"   # batch dim of activations/batches
+    act_seq: Optional[str] = "model"        # residual-carry sequence axis (SP)
+    tensor: str = "model"                   # tensor-parallel param axis
+    kv_cache_layout: str = "batch"          # 'batch' | 'seq' cache sharding
+    model_axis_size: int = 16               # divisibility guard for specs
+
+
+def multipod(rules: ShardingRules) -> ShardingRules:
+    """Two-pod variant: pure DP across pods, the batch over ('pod',
+    'data')."""
+    return dataclasses.replace(rules, act_batch=("pod", "data"))
+
+
+def param_specs(model, params_a, rules: ShardingRules):
+    """Spec tree for a (possibly int8-converted) param tree.
+
+    Shape-driven, as the reference's: a weight matrix shards its last
+    (output) axis over the tensor axis where it divides, a 1-d leaf
+    likewise; everything else (biases, norms, scalar scales) replicates."""
+    def spec(keys, leaf):
+        shp = tuple(leaf.shape)
+        if len(shp) >= 2 and shp[-1] % rules.model_axis_size == 0:
+            return (None,) * (len(shp) - 1) + (rules.tensor,)
+        if len(shp) == 1 and shp[-1] % rules.model_axis_size == 0:
+            return (rules.tensor,)
+        return ()
+
+    return _map(params_a, spec)
+
+
+def replicated_specs(tree):
+    """The spec tree of a tree that replicates whole."""
+    return _map(tree, lambda keys, leaf: ())
+
+
+def qparam_specs(model, params_a, qparams_a, rules: ShardingRules):
+    """Threshold state is a few floats per layer: all of it replicates."""
+    return replicated_specs(qparams_a)
+
+
+def batch_specs(batch_a, rules: ShardingRules):
+    """Batch inputs (a dict of them, or one) shard the leading batch dim
+    over the batch axis."""
+    def spec(keys, leaf):
+        nd = len(leaf.shape)
+        return () if nd == 0 else (rules.act_batch,) + (None,) * (nd - 1)
+
+    return _map(batch_a, spec)
+
+
+def cache_tree(cache):
+    """A cache tree with every cache object opened into a dict of its
+    arrays, named as the caches' ``state_dict`` names them: ``k``, ``v``,
+    ``k_scale``, ``v_scale`` of a KV cache, ``ssm`` and ``conv`` of an SSM
+    state (the reference's leaf names)."""
+    from repro_torch.cache.ssm import SSMState
+
+    if isinstance(cache, dict):
+        return {k: cache_tree(v) for k, v in cache.items()}
+    if isinstance(cache, SSMState):
+        return {"ssm": cache.ssm, "conv": cache.conv}
+    if hasattr(cache, "_child_names"):
+        return {n: getattr(cache, n) for n in cache._child_names()}
+    return cache
+
+
+def cache_specs(cache_a, rules: ShardingRules, model_size: int):
+    """KV/SSM cache placement.
+
+    The 'batch' layout shards a k/v leaf's batch dim over the batch axis;
+    the 'seq' layout its sequence dim over the tensor axis where it
+    divides (the batch dim otherwise).  Scale vectors and positions
+    replicate; SSM states shard their batch dim.  Leaves are classified by
+    their name (``cache_tree``): "k"/"v" are KV (the tail (B, S, KV, D)),
+    any other leaf of 4 dims or more an SSM state, as in the reference, and
+    a 3-d conv stream replicates."""
+    def spec(keys, leaf):
+        shp = tuple(leaf.shape)
+        nd = len(shp)
+        is_kv = bool(keys) and keys[-1] in ("k", "v")
+        if nd < 3 or not (is_kv or nd >= 4):  # scales, positions
+            return ()
+        axes = [None] * nd
+        if not is_kv:  # SSM states (B, H, N, P): batch over data
+            axes[1 if nd >= 5 else 0] = rules.act_batch
+            return tuple(axes)
+        lead = nd - 4  # KV tail is (B, S, KV, D)
+        if (rules.kv_cache_layout == "seq"
+                and shp[lead + 1] % model_size == 0):
+            axes[lead + 1] = rules.tensor
+        else:
+            axes[lead] = rules.act_batch
+        return tuple(axes)
+
+    return _map(cache_tree(cache_a), spec)
+
+
+def _axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_shape(shape, spec: tuple, mesh_shape: dict) -> tuple:
+    """The per-device shape of a leaf of global ``shape`` under ``spec``
+    on a mesh of ``mesh_shape`` ({axis: size}).  A dim that its axes do
+    not divide raises the reference's lowering error (it pads nothing)."""
+    shape = tuple(shape)
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        n = math.prod(mesh_shape[a] for a in _axes(entry))
+        if shape[i] % n:
+            raise ValueError(
+                f"the spec {spec} implies that the global size of its "
+                f"dimension {i} should be divisible by {n}, but it is equal "
+                f"to {shape[i]} (full shape: {shape})")
+        out[i] = shape[i] // n
+    return tuple(out)
+
+
+def local_bytes(tree, spec_tree, mesh_shape: dict) -> int:
+    """Bytes per device of a tree (nested dicts of tensors, a bare tensor)
+    under its spec tree; raises where a leaf does not divide, naming the
+    leaf's key path."""
+    if isinstance(tree, dict):
+        return sum(local_bytes(v, spec_tree[k], mesh_shape)
+                   for k, v in tree.items())
+    try:
+        shp = local_shape(tree.shape, spec_tree, mesh_shape)
+    except ValueError as e:
+        raise ValueError(f"a leaf of shape {tuple(tree.shape)}: {e}") from None
+    return math.prod(shp) * tree.dtype.itemsize

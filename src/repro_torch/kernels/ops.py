@@ -3,8 +3,11 @@
 Counterpart of ``repro/kernels/ops.py``: a tensor on the CPU runs the
 plain PyTorch version (``ref``), a tensor on a CUDA device launches the
 hand-written Hopper kernel or raises.  There is no fallback from one to
-the other.  Inputs are validated the same way on both sides (the CUDA
-wrappers' ``launch`` validates its own).  Within ``plain_versions()`` a
+the other.  A tensor on the meta device (the dry run,
+``launch/dryrun.py``) takes the meta route: empty outputs of the shapes
+and dtypes the plain version returns, and nothing run.  Inputs are
+validated the same way on every side (the CUDA wrappers' ``launch``
+validates its own).  Within ``plain_versions()`` a
 CUDA tensor runs the plain version too: the twin a caller holds a run of
 the kernels against, on the same card; ``plain_calls`` counts those runs.
 
@@ -12,6 +15,9 @@ Every wrapper decides its route in ``_route``, which also hands the call
 (the kernel, whether it launched, its operands and its variant) to
 ``observer`` when one is installed: ``repro_torch.analysis.record``'s
 ``Recorder`` checks the kernels' launch contracts from those records.
+The plain version or meta route runs inside ``scope`` when one is
+installed (``analysis/cost.py`` counts the call by its own formula and
+keeps the plain version's arithmetic out of the count).
 """
 from __future__ import annotations
 
@@ -56,14 +62,53 @@ plain_calls = 0
 # called as observer(kernel, launched, operands, attrs) by every wrapper
 # before it launches or runs its plain version (None: nobody listens)
 observer = None
+# entered as ``with scope() as keep:`` around every plain version and meta
+# route a wrapper runs, ``keep`` called on its result (None: no scope)
+scope = None
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return not _plain
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def _meta(*specs):
+    """Empty meta tensors of (shape, dtype) ``specs``: one, or a tuple."""
+    out = tuple(torch.empty(tuple(shape), dtype=dtype, device="meta")
+                for shape, dtype in specs)
+    return out[0] if len(out) == 1 else out
+
+
+def _run_plain(lead: torch.Tensor, meta_specs, fn, *args, **kw):
+    """``fn(*args, **kw)``, the plain version; on meta tensors the empty
+    outputs ``_meta(*meta_specs)`` instead, with nothing run.  Inside
+    ``scope`` where one is installed."""
+    def run():
+        if lead.device.type == "meta":
+            return _meta(*meta_specs)
+        return fn(*args, **kw)
+
+    if scope is None:
+        return run()
+    with scope() as keep:
+        y = run()
+        keep(y)
+    return y
+
+
+def _partials_specs(q: torch.Tensor) -> list:
+    """The plain partials' (acc, m, l) shapes and dtypes for ``q``."""
+    return [(q.shape, torch.float32), (q.shape[:-1], torch.float32),
+            (q.shape[:-1], torch.float32)]
+
+
+def _host(value):
+    """``value`` where it is a host int (the attended span of an attention
+    call, known without reading the device), else None."""
+    return value if isinstance(value, int) else None
 
 
 @contextlib.contextmanager
@@ -206,7 +251,8 @@ def quant_matmul(x, w_q, w_scale, act_scale, *, w_bits: int = 8,
               w_bits=w_bits):
         return _qm.launch(x, w_q, w_scale, act_scale, w_bits, out=out)
     _qm.check(x, w_q, w_scale, act_scale, w_bits, out)
-    y = ref.quant_matmul_ref(x, w_q, w_scale, act_scale, w_bits)
+    y = _run_plain(x, [((x.shape[0], w_q.shape[1]), torch.bfloat16)],
+                   ref.quant_matmul_ref, x, w_q, w_scale, act_scale, w_bits)
     return y if out is None else out.copy_(y)
 
 
@@ -220,7 +266,8 @@ def quant_matmul_acc(x_q, w_q, k0: int, k1: int, *, out=None):
               acc=True, k0=k0, k1=k1):
         return _qm.launch_acc(x_q, w_q, k0, k1, out=out)
     _qm.check_acc(x_q, w_q, k0, k1, out)
-    y = ref.quant_matmul_acc_ref(x_q, w_q, k0, k1)
+    y = _run_plain(x_q, [((x_q.shape[0], w_q.shape[1]), torch.int32)],
+                   ref.quant_matmul_acc_ref, x_q, w_q, k0, k1)
     return y if out is None else out.copy_(y)
 
 
@@ -231,15 +278,16 @@ def decode_attention(q, k_cache, v_cache, k_scale, v_scale, cur_pos, *,
 
     cur_pos counts the valid positions of each row: an int, or a 0-d or
     (B,) int tensor; a row with 0 returns zeros."""
+    span = _host(cur_pos)
     cur_pos = _rows(cur_pos, q.shape[0], q.device)
     if _route("decode_attention", q, dict(
             q=q, k=k_cache, v=v_cache, k_scale=k_scale, v_scale=v_scale,
-            cur_pos=cur_pos), kv_bits=kv_bits):
+            cur_pos=cur_pos), kv_bits=kv_bits, span=span):
         return _da.launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos,
                           kv_bits)
     _da.check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits)
-    return ref.decode_attention_ref(q, k_cache, v_cache, k_scale, v_scale,
-                                    cur_pos, kv_bits)
+    return _run_plain(q, [(q.shape, torch.float32)], ref.decode_attention_ref,
+                      q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits)
 
 
 def decode_attention_partials(q, k_cache, v_cache, k_scale, v_scale,
@@ -252,15 +300,16 @@ def decode_attention_partials(q, k_cache, v_cache, k_scale, v_scale,
     ``repro_torch.shard.partial_softmax.sp_partial_combine``.  The slice
     may be a view ``k[:, lo:hi]`` of the global cache: the kernel reads it
     in place."""
+    span = _host(cur_pos)
     cur_pos = _rows(cur_pos, q.shape[0], q.device)
     if _route("decode_attention_partials", q, dict(
             q=q, k=k_cache, v=v_cache, k_scale=k_scale, v_scale=v_scale,
-            cur_pos=cur_pos), kv_bits=kv_bits):
+            cur_pos=cur_pos), kv_bits=kv_bits, span=span):
         return _dap.launch(q, k_cache, v_cache, k_scale, v_scale, cur_pos,
                            kv_bits)
     _dap.check(q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits)
-    return ref.decode_attention_partials_ref(q, k_cache, v_cache, k_scale,
-                                             v_scale, cur_pos, kv_bits)
+    return _run_plain(q, _partials_specs(q), ref.decode_attention_partials_ref,
+                      q, k_cache, v_cache, k_scale, v_scale, cur_pos, kv_bits)
 
 
 def prefill_attention(q, k, v, k_scale, v_scale, q_start, kv_len, *,
@@ -273,17 +322,20 @@ def prefill_attention(q, k, v, k_scale, v_scale, q_start, kv_len, *,
     q_start (position of query row 0) and kv_len (valid K/V count) are
     ints, or 0-d or (B,) int tensors."""
     b = q.shape[0]
+    span = (_host(q_start), _host(kv_len))
     q_start = _rows(q_start, b, q.device)
     kv_len = _rows(kv_len, b, q.device)
     if _route("prefill_attention", q, dict(
             q=q, k=k, v=v, k_scale=k_scale, v_scale=v_scale, q_start=q_start,
-            kv_len=kv_len), kv_bits=kv_bits, window=window):
+            kv_len=kv_len), kv_bits=kv_bits, window=window, causal=causal,
+            span=span):
         return _pa.launch(q, k, v, k_scale, v_scale, q_start, kv_len,
                           causal=causal, window=window, kv_bits=kv_bits)
     _pa.check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits)
-    return ref.prefill_attention_ref(q, k, v, k_scale, v_scale, q_start,
-                                     kv_len, causal=causal, window=window,
-                                     kv_bits=kv_bits)
+    return _run_plain(q, [(q.shape, torch.float32)],
+                      ref.prefill_attention_ref, q, k, v, k_scale, v_scale,
+                      q_start, kv_len, causal=causal, window=window,
+                      kv_bits=kv_bits)
 
 
 def decode_attention_view(q, view, k_scale, v_scale, cur_pos):
@@ -295,17 +347,19 @@ def decode_attention_view(q, view, k_scale, v_scale, cur_pos):
     if view.block_table is None:
         return decode_attention(q, view.k, view.v, k_scale, v_scale, cur_pos,
                                 kv_bits=view.bits)
+    span = _host(cur_pos)
     cur_pos = _rows(cur_pos, q.shape[0], q.device)
     if _route("decode_attention", q, dict(
             q=q, k=view.k, v=view.v, k_scale=k_scale, v_scale=v_scale,
-            cur_pos=cur_pos, table=view.block_table), kv_bits=view.bits):
+            cur_pos=cur_pos, table=view.block_table), kv_bits=view.bits,
+            span=span):
         return _da.launch(q, view.k, view.v, k_scale, v_scale, cur_pos,
                           view.bits, table=view.block_table)
     _da.check(q, view.k, view.v, k_scale, v_scale, cur_pos, view.bits,
               view.block_table)
-    return ref.decode_attention_paged_ref(q, view.k, view.v, view.block_table,
-                                          k_scale, v_scale, cur_pos,
-                                          view.bits)
+    return _run_plain(q, [(q.shape, torch.float32)],
+                      ref.decode_attention_paged_ref, q, view.k, view.v,
+                      view.block_table, k_scale, v_scale, cur_pos, view.bits)
 
 
 def decode_attention_partials_view(q, view, k_scale, v_scale, cur_pos):
@@ -315,17 +369,20 @@ def decode_attention_partials_view(q, view, k_scale, v_scale, cur_pos):
     if view.block_table is None:
         return decode_attention_partials(q, view.k, view.v, k_scale, v_scale,
                                          cur_pos, kv_bits=view.bits)
+    span = _host(cur_pos)
     cur_pos = _rows(cur_pos, q.shape[0], q.device)
     if _route("decode_attention_partials", q, dict(
             q=q, k=view.k, v=view.v, k_scale=k_scale, v_scale=v_scale,
-            cur_pos=cur_pos, table=view.block_table), kv_bits=view.bits):
+            cur_pos=cur_pos, table=view.block_table), kv_bits=view.bits,
+            span=span):
         return _dap.launch(q, view.k, view.v, k_scale, v_scale, cur_pos,
                            view.bits, table=view.block_table)
     _dap.check(q, view.k, view.v, k_scale, v_scale, cur_pos, view.bits,
                view.block_table)
-    return ref.decode_attention_partials_paged_ref(
-        q, view.k, view.v, view.block_table, k_scale, v_scale, cur_pos,
-        view.bits)
+    return _run_plain(q, _partials_specs(q),
+                      ref.decode_attention_partials_paged_ref, q, view.k,
+                      view.v, view.block_table, k_scale, v_scale, cur_pos,
+                      view.bits)
 
 
 def prefill_attention_view(q, view, k_scale, v_scale, q_start, kv_len, *,
@@ -337,20 +394,22 @@ def prefill_attention_view(q, view, k_scale, v_scale, q_start, kv_len, *,
                                  q_start, kv_len, causal=causal,
                                  window=window, kv_bits=view.bits)
     b = q.shape[0]
+    span = (_host(q_start), _host(kv_len))
     q_start = _rows(q_start, b, q.device)
     kv_len = _rows(kv_len, b, q.device)
     if _route("prefill_attention", q, dict(
             q=q, k=view.k, v=view.v, k_scale=k_scale, v_scale=v_scale,
             q_start=q_start, kv_len=kv_len, table=view.block_table),
-            kv_bits=view.bits, window=window):
+            kv_bits=view.bits, window=window, causal=causal, span=span):
         return _pa.launch(q, view.k, view.v, k_scale, v_scale, q_start,
                           kv_len, causal=causal, window=window,
                           kv_bits=view.bits, table=view.block_table)
     _pa.check(q, view.k, view.v, k_scale, v_scale, q_start, kv_len, window,
               view.bits, view.block_table)
-    return ref.prefill_attention_paged_ref(
-        q, view.k, view.v, view.block_table, k_scale, v_scale, q_start,
-        kv_len, causal=causal, window=window, kv_bits=view.bits)
+    return _run_plain(q, [(q.shape, torch.float32)],
+                      ref.prefill_attention_paged_ref, q, view.k, view.v,
+                      view.block_table, k_scale, v_scale, q_start, kv_len,
+                      causal=causal, window=window, kv_bits=view.bits)
 
 
 def _column_sum(p: torch.Tensor) -> torch.Tensor:
@@ -386,7 +445,8 @@ class _FakeQuant(torch.autograd.Function):
                   alpha_min=alpha_min, alpha_max=alpha_max)
         if _route("fake_quant", x, dict(x=x, t_max=t_max, alpha=alpha)):
             return _fq.launch(x, t_max, alpha, **kw)
-        return ref.fake_quant_ref(x, t_max, alpha, **kw)
+        return _run_plain(x, [(x.shape, x.dtype)], ref.fake_quant_ref, x,
+                          t_max, alpha, **kw)
 
     @staticmethod
     def backward(ctx, g):
@@ -401,9 +461,9 @@ class _FakeQuant(torch.autograd.Function):
         dx = (gf * inside).to(x.dtype)
         # dy/dt_adj: (y - x)/t_adj inside, sign(x) saturated, with y the
         # forward's value (the kernel's output is the plain version's bits)
-        y = ref.fake_quant_ref(x, t_max, alpha, levels=levels, qmin=-levels,
-                               qmax=levels, alpha_min=alpha_min,
-                               alpha_max=alpha_max).float()
+        y = _run_plain(x, [(x.shape, x.dtype)], ref.fake_quant_ref, x, t_max,
+                       alpha, levels=levels, qmin=-levels, qmax=levels,
+                       alpha_min=alpha_min, alpha_max=alpha_max).float()
         dy_dt = torch.where(inside > 0, (y - xf) / t_adj, torch.sign(xf))
         # the alpha gradient only inside the clip(alpha) band, taken on
         # the unclipped alpha with its ends included (eq. 19)

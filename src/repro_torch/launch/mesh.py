@@ -15,15 +15,48 @@ local devices, one shard each.  The port has two:
     device) or run on the CPU.  A rank never moves from the card to the
     CPU by itself.
 
-``ShardedModel`` checks either as the reference checks its mesh.  The
-production mesh (data x model over a pod) places XLA's arrays and has no
-counterpart (ROADMAP item 18).
+``ShardedModel`` checks either as the reference checks its mesh.
+
+The production mesh (``make_production_mesh``: data x model over a pod,
+a pod axis in front for two) is a plain description, its axes and sizes:
+the dry run (``launch/dryrun.py``) sizes each of its devices, one H100
+80 GB each, and needs no device to do it.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductionMesh:
+    """The axes of a production mesh and their sizes; each device stands
+    for one H100 80 GB."""
+
+    axes: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axes, self.sizes))
+
+    @property
+    def n(self) -> int:
+        return math.prod(self.sizes)
+
+    @property
+    def name(self) -> str:
+        return "x".join(map(str, self.sizes))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """One pod (data=16, model=16); two pods add a leading pod axis (pure
+    data parallelism across pods), as the reference's."""
+    if multi_pod:
+        return ProductionMesh(("pod", "data", "model"), (2, 16, 16))
+    return ProductionMesh(("data", "model"), (16, 16))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,7 +5,7 @@ decode loop and the continuous-batching decode block (greedy or sampled).
 Counterparts of ``repro/launch/steps.py`` (``make_calibrate_step``,
 ``make_fat_train_step``, ``finetune_thresholds``, ``make_pretrain_step``,
 ``make_prefill_step``,
-``pad_for_chunked_prefill``, ``make_decode_loop``,
+``pad_for_chunked_prefill``, ``make_serve_step``, ``make_decode_loop``,
 ``make_slot_decode_loop``).  The
 reference's ``lax.scan`` loops are Python loops here.  The serving steps
 (the prefills, the decode steps, the slot block) are capturable: they
@@ -278,6 +278,23 @@ def make_prefill_step(model, policy: A.QuantPolicy,
 def greedy(logits: torch.Tensor) -> torch.Tensor:
     """(B, V) logits -> (B,) int64 token ids, first maximum on ties."""
     return torch.argmax(logits, dim=-1)
+
+
+def make_serve_step(model, policy: A.QuantPolicy, mode: str = "int8"):
+    """One decode step in serving ``mode``: ``(params, qparams, tokens (B,
+    1), cache, cur_pos, slot_mask=None) -> (next_tok (B,) int32, logits (B,
+    1, Vp), cache)``, the next token greedy (the first maximum), as the
+    reference's.  ``cur_pos``: an int, or a (B,) tensor of per-slot
+    positions (``Attention.decode``)."""
+    def serve_step(serve_params, qparams, tokens, cache, cur_pos,
+                   slot_mask=None):
+        ctx = A.make_ctx(mode, policy, qparams)
+        logits, cache = model.decode_step(serve_params, tokens, cache,
+                                          cur_pos, ctx, slot_mask=slot_mask)
+        next_tok = greedy(logits[:, -1, :]).to(torch.int32)
+        return next_tok, logits, cache
+
+    return serve_step
 
 
 def make_decode_loop(model, policy: A.QuantPolicy, n_steps: int = 16,

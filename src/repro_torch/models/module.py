@@ -7,7 +7,8 @@ layer paths key the quantization state unchanged and the weight bridge
 
   * ``init(generator) -> params``  seeded init with a ``torch.Generator``
     (on the CPU: the same seed gives the same weights on every device; a
-    CUDA generator draws them on the card);
+    CUDA generator draws them on the card; a ``MetaGenerator`` gives
+    tensors on the meta device, shapes and dtypes with no storage);
   * ``__call__(params, ..., ctx=...)``  the forward on tensors.
 """
 from __future__ import annotations
@@ -39,19 +40,35 @@ class Module:
                 yield from child.walk_with_params(params[key])
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` in ``init`` where only the
+    shapes are wanted (the dry run): every draw is a float32 tensor on the
+    meta device, and nothing is allocated.  ``torch.Generator("meta")``
+    does not exist."""
+
+    device = torch.device("meta")
+
+
+def draw(gen, shape) -> torch.Tensor:
+    """Standard normal float32 draws of ``shape`` on the generator's
+    device (a ``MetaGenerator``: the shape alone)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
+
+
 def normal_init(gen, shape, dtype, stddev=0.02):
     """Drawn on the generator's device: a CPU generator gives the same
     weights on every device, a CUDA one draws full-width weights on the
     card."""
-    return (torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=gen.device) * stddev).to(dtype)
+    return (draw(gen, shape) * stddev).to(dtype)
 
 
 def fan_in_init(gen, shape, dtype):
     """LeCun-normal over the penultimate (fan-in) axis."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    return (torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=gen.device) / math.sqrt(fan_in)).to(dtype)
+    return (draw(gen, shape) / math.sqrt(fan_in)).to(dtype)
 
 
 class Dense(Module):

@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.cache.ssm import SSMState
 from repro_torch.models.layers import RMSNorm, check_no_tf32, silu_xla
-from repro_torch.models.module import Dense, Module
+from repro_torch.models.module import Dense, Module, draw
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -215,9 +215,7 @@ class Mamba2Block(Module):
             "a_log": torch.log(torch.linspace(1.0, 16.0, h, device=dev)),
             "d_skip": torch.ones((h,), dtype=torch.float32, device=dev),
             "dt_bias": torch.zeros((h,), dtype=torch.float32, device=dev),
-            "conv_w": torch.randn((self.conv_width, self.conv_channels),
-                                  generator=gen, dtype=torch.float32,
-                                  device=dev) * 0.1,
+            "conv_w": draw(gen, (self.conv_width, self.conv_channels)) * 0.1,
             "conv_b": torch.zeros((self.conv_channels,), dtype=torch.float32,
                                   device=dev),
         }
