@@ -281,6 +281,17 @@
    counted bytes.  [analysis sp] (after [sp path]): the [sp path]'s
    engine's ``dry_run_report``: no all-reduce, its gathered partials'
    bytes equal to the counted gathers'.
+27. the float32 configs (the reference's own, built with dtype float32):
+   [kernels] holds B3's float32 output (``check_quant_matmul`` at
+   ``QMM_F32_ROWS``, int8 and int4 weights, smollm-135m's widths and
+   granite-moe-3b-a800m's expert widths) bit for bit, and B2 over a
+   float32 K/V stream (``BITS`` 32: one-shot, chunked and paged at both
+   configs' heads) within ``F32_ATTN_TOL``; [float32 path int8_w_bf16_kv]
+   and [float32 path bf16_w_bf16_kv] serve smollm-135m at full depth over
+   a float32 cache, [float32 paged] its paged twin at
+   ``F32_PAGED_LAYERS``, [granite-moe float32] ``MOE_F32_LAYERS`` layers
+   over the int8 cache: graphs and ``loop=True`` bit for bit, every
+   float32 launch counted, each held against the CPU.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -358,7 +369,11 @@ POINTWISE_LOW_LR = 1e-4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor-core peak
+TF32_FLOPS_PER_S = 495e12   # dense tf32 tensor-core peak (float32 operands)
 ATTN_TOL = 1e-4             # kernel vs plain attention (float32 sums reordered)
+# B2 over a float32 K/V stream (3xTF32) vs its plain version: the tolerance
+# of tests/test_torch_bf16.py for B2 against the reference, x (1 + max|out|)
+F32_ATTN_TOL = 1e-5
 # GPU vs CPU logits of the whole 30-layer bf16 model: bf16 rounds at other
 # places in the two devices' norms, rotary, SiLU and readout, and the
 # differences pass through 30 residual layers
@@ -490,13 +505,13 @@ def bound_ms(nbytes, ops, rate):
 def prefill_variant(mangled):
     """'q bf16, D<=64, int8, dense' from a mangled
     ``prefill_attention_kernel<T, DCH, BITS, PAGED>`` name (BITS 16: bf16
-    K/V)."""
+    K/V, 32: float32 K/V)."""
     m = re.search(r"prefill_attention_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d+)"
                   r"ELb(\d)E", mangled)
     if m is None:
         return mangled
     t, dch, bits, paged = m.groups()
-    kv = "bf16 K/V" if bits == "16" else f"int{bits}"
+    kv = {"16": "bf16 K/V", "32": "f32 K/V"}.get(bits, f"int{bits}")
     return (f"q {'f32' if t == 'f' else 'bf16'}, D<={64 * int(dch)}, "
             f"{kv}, {'paged' if paged == '1' else 'dense'}")
 
@@ -535,9 +550,10 @@ def check_prefill_sass(build):
         print(f"  prefill_attention_kernel [{prefill_variant(name)}]: {n} "
               f"HMMA, {regs} registers, spill stores {spill} bytes")
     # q bf16/f32 x D <= 64/128/192/256 x int8/int4/bf16 K/V x dense/paged,
-    # D <= 128 and D > 128 in two libraries
-    if len(hmma) != 48 or min(hmma.values()) == 0:
-        raise AssertionError(f"prefill_attention: expected 48 instantiations, "
+    # D <= 128 and D > 128 in two libraries, and f32 K/V at D <= 64/128
+    # (HMMA.1684 on tf32 operands)
+    if len(hmma) != 56 or min(hmma.values()) == 0:
+        raise AssertionError(f"prefill_attention: expected 56 instantiations, "
                              f"each with HMMA instructions; got {hmma}")
     spilled = {prefill_variant(n): r[1] for n, r in res.items()
                if "prefill_attention_kernel" in n and r[1] not in (0, "?")}
@@ -594,17 +610,23 @@ def check_decode_attention_spills(build):
 # the x type of a mangled quant_matmul kernel name: 'a' (int8_t) is the
 # int32-accumulator branch's already quantized x
 X_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8 (int32 sums)"}
+# the output type O: a repeated bf16 mangles as a substitution (S<n>_)
+QMM_T_O = r"(13__nv_bfloat16|f|a)(13__nv_bfloat16|S\d*_|f|i)"
+
+
+def qmm_out(o):
+    return {"f": "f32", "i": "int32"}.get(o, "bf16")
 
 
 def qmm_variant(mangled):
-    """'x bf16, int8 weights, 64 x 128, 16-byte staging' from a mangled
-    ``quant_matmul_mma_kernel<T, WB, BM, BN, MT, VEC>`` name."""
-    m = re.search(r"quant_matmul_mma_kernelI(13__nv_bfloat16|f|a)Li(\d)ELi(\d+)"
+    """'x bf16, bf16 out, int8 weights, 64 x 128, 16-byte staging' from a
+    mangled ``quant_matmul_mma_kernel<T, O, WB, BM, BN, MT, VEC>`` name."""
+    m = re.search(r"quant_matmul_mma_kernelI" + QMM_T_O + r"Li(\d)ELi(\d+)"
                   r"ELi(\d+)ELi(\d)ELb(\d)E", mangled)
     if m is None:
         return mangled
-    t, wb, bm, bn, _, vec = m.groups()
-    return (f"x {X_TYPES[t]}, int{wb} weights, {bm} x "
+    t, o, wb, bm, bn, _, vec = m.groups()
+    return (f"x {X_TYPES[t]}, {qmm_out(o)} out, int{wb} weights, {bm} x "
             f"{bn}, {'16-byte' if vec == '1' else 'narrow'} staging")
 
 
@@ -619,10 +641,11 @@ def check_quant_matmul_sass(build):
         regs, spill = res.get(name, ("?", "?"))
         print(f"  quant_matmul_mma_kernel [{qmm_variant(name)}]: {n} IMMA, "
               f"{regs} registers, spill stores {spill} bytes")
-    # x f32/bf16 x int8/int4 weights x 3 tiles and the narrow variant, and
-    # the int32-accumulator branch's four (int8 x, int8 weights)
-    if len(imma) != 20 or min(imma.values()) == 0:
-        raise AssertionError(f"quant_matmul: expected 20 instantiations of "
+    # x f32/bf16 x bf16/f32 out x int8/int4 weights x 3 tiles and the
+    # narrow variant, and the int32-accumulator branch's four (int8 x, int8
+    # weights)
+    if len(imma) != 36 or min(imma.values()) == 0:
+        raise AssertionError(f"quant_matmul: expected 36 instantiations of "
                              f"quant_matmul_mma_kernel, each with IMMA "
                              f"instructions; got {imma}")
     spilled = {qmm_variant(k): v[1] for k, v in res.items()
@@ -632,14 +655,14 @@ def check_quant_matmul_sass(build):
 
 
 def decode_variant(mangled):
-    """'x bf16, int8 weights, M <= 4' from a mangled
-    ``quant_matmul_decode_kernel<T, WB, MR>`` name."""
-    m = re.search(r"quant_matmul_decode_kernelI(13__nv_bfloat16|f|a)Li(\d)ELi(\d)E",
-                  mangled)
+    """'x bf16, bf16 out, int8 weights, M <= 4' from a mangled
+    ``quant_matmul_decode_kernel<T, O, WB, MR>`` name."""
+    m = re.search(r"quant_matmul_decode_kernelI" + QMM_T_O +
+                  r"Li(\d)ELi(\d)E", mangled)
     if m is None:
         return mangled
-    t, wb, mr = m.groups()
-    return f"x {X_TYPES[t]}, int{wb} weights, M <= {mr}"
+    t, o, wb, mr = m.groups()
+    return f"x {X_TYPES[t]}, {qmm_out(o)} out, int{wb} weights, M <= {mr}"
 
 
 def decode_split(k, n, sms):
@@ -667,10 +690,10 @@ def check_quant_matmul_decode_sass(build, sms):
         regs, spill = res.get(name, ("?", "?"))
         print(f"  quant_matmul_decode_kernel [{decode_variant(name)}]: {n} "
               f"IDP, {regs} registers, spill stores {spill} bytes")
-    # x f32/bf16 x int8/int4 weights x M <= 1, 2, 4, 8, and the
-    # int32-accumulator branch's four
-    if len(idp) != 20 or min(idp.values()) == 0:
-        raise AssertionError(f"quant_matmul: expected 20 instantiations of "
+    # x f32/bf16 x bf16/f32 out x int8/int4 weights x M <= 1, 2, 4, 8, and
+    # the int32-accumulator branch's four
+    if len(idp) != 36 or min(idp.values()) == 0:
+        raise AssertionError(f"quant_matmul: expected 36 instantiations of "
                              f"quant_matmul_decode_kernel, each with IDP "
                              f"instructions; got {idp}")
     spilled = {decode_variant(k): v[1] for k, v in res.items()
@@ -771,83 +794,120 @@ QMM_ROWS = (("decode", B), ("slot decode", SLOTS), ("decode 1", 1),
 DECODE_ROWS = 8
 
 
-def check_quant_matmul(torch, ops, ref, dev):
-    """Every (K, N) of a layer at each of ``QMM_ROWS``; returns the JSON
-    entries (one per row, summed over the layer's seven matmuls).  The
-    decode rows are timed warm (``ms``: back-to-back calls, the weights in
-    L2) and cold (``cold_ms``: L2 flushed before each call, as in a decode
-    step that streams 30 layers' weights through it)."""
-    layer = [("wq", 576, 576), ("wk", 576, 192), ("wv", 576, 192),
+# smollm-135m's seven B3 widths, (name, K, N)
+QMM_LAYER = (("wq", 576, 576), ("wk", 576, 192), ("wv", 576, 192),
              ("wo", 576, 576), ("gate", 576, 1536), ("up", 576, 1536),
-             ("down", 1536, 576)]
+             ("down", 1536, 576))
+# B3's float32 output (a float32 config's expert products): every row
+# count of the paths, bit for bit; the decode and prefill rows also timed
+# (a phase of None: checked, not timed)
+QMM_F32_ROWS = tuple(({B: "decode", B * PROMPT: "prefill"}.get(m), m)
+                     for m in (1, 4, 8, 32, 128, 512, 2048))
+
+
+def check_quant_matmul(torch, ops, ref, dev, rows=QMM_ROWS, out_dtype=None,
+                       w_bits=8, widths=QMM_LAYER, label=""):
+    """Every (K, N) of ``widths`` (smollm-135m's layer) at each (phase, M)
+    of ``rows``, bit for bit against the plain version; returns the JSON
+    entries (one per row with a phase, summed over the widths; a row of
+    phase None is checked, not timed).  The decode rows are timed warm
+    (``ms``: back-to-back calls, the weights in L2) and cold (``cold_ms``:
+    L2 flushed before each call, as in a decode step that streams 30
+    layers' weights through it).  ``out_dtype`` float32: B3's float32
+    output over float32 x (a float32 config's); ``w_bits`` 4: int4 weights
+    packed in pairs along K."""
+    from repro_torch.core.packing import pack_int4
+
+    f32 = out_dtype == torch.float32
+    out_dtype = out_dtype or torch.bfloat16
+    x_dtype = torch.float32 if f32 else torch.bfloat16
+    variant = f"float32 out, int{w_bits} weights, " if f32 else ""
+    kernel = "quant_matmul" + ("@f32" if f32 else "") + (
+        "-w4" if w_bits == 4 else "")
+    lv = 127 if w_bits == 8 else 7
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = l2_flush(torch, dev)
     entries = []
-    for phase, m in QMM_ROWS:
+    for phase, m in rows:
         tot = dict(ms=0.0, call_ms=0.0, cold_ms=0.0, plain_ms=0.0,
                    bound_ms=0.0, library_ms=0.0, nbytes=0, ops=0)
-        for name, k, n in layer:
+        for name, k, n in widths:
             x = (torch.randn((m, k), generator=gen, device=dev) * 2).to(
-                torch.bfloat16)
-            w_q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
-                                dtype=torch.int8)
+                x_dtype)
+            w = torch.randint(-lv, lv + 1, (k, n), generator=gen, device=dev,
+                              dtype=torch.int8)
+            w_q = pack_int4(w, axis=0) if w_bits == 4 else w
             w_scale = torch.rand((n,), generator=gen, device=dev) * 1e-3
             act_scale = (127.0 / (x.float().abs().amax() * 0.8)).reshape(())
-            got = ops.quant_matmul(x, w_q, w_scale, act_scale)
-            want = ref.quant_matmul_ref(x, w_q, w_scale, act_scale)
+
+            def call():
+                return ops.quant_matmul(x, w_q, w_scale, act_scale,
+                                        w_bits=w_bits, out_dtype=out_dtype)
+
+            got = call()
+            want = ref.quant_matmul_ref(x, w_q, w_scale, act_scale, w_bits,
+                                        out_dtype=out_dtype)
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
+            if got.dtype != out_dtype or not torch.equal(got, want):
                 diff = (got.float() - want.float()).abs().max().item()
                 raise AssertionError(
-                    f"quant_matmul {phase} {name} (M={m}, K={k}, N={n}) is "
-                    f"not bit-exact with its plain version (max |diff| {diff})")
-            ms, call = timed(torch, lambda: ops.quant_matmul(
-                x, w_q, w_scale, act_scale))
-            cold = (cold_ms(torch, lambda: ops.quant_matmul(
-                x, w_q, w_scale, act_scale), flush, "quant_matmul")
-                if m <= DECODE_ROWS else None)
+                    f"quant_matmul {label}{variant}{phase} {name} (M={m}, "
+                    f"K={k}, N={n}) is not bit-exact with its plain version "
+                    f"(max |diff| {diff})")
+            if phase is None:
+                continue
+            ms, call_ms = timed(torch, call)
+            cold = (cold_ms(torch, call, flush, "quant_matmul")
+                    if m <= DECODE_ROWS else None)
             plain, _ = timed(torch, lambda: ref.quant_matmul_ref(
-                x, w_q, w_scale, act_scale), iters=5, warmup=1)
-            nbytes = m * k * 2 + k * n + 4 * n + 4 + m * n * 2
+                x, w_q, w_scale, act_scale, w_bits, out_dtype=out_dtype),
+                iters=5, warmup=1)
+            nbytes = (m * k * x.element_size() + k * n * w_bits // 8 + 4 * n
+                      + 4 + m * n * got.element_size())
             bnd, _ = bound_ms(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
-            # yardstick: cuBLAS int8 GEMM, not called anywhere in the port;
-            # torch._int_mm needs M > 16, so the decode rows are zero-padded
-            # to M = 32 (the same product, plus padding)
+            # yardstick: cuBLAS int8 GEMM (on the unpacked weights), not
+            # called anywhere in the port; torch._int_mm needs M > 16, so
+            # the decode rows are zero-padded to M = 32 (the same product,
+            # plus padding)
             x_q = torch.clamp(torch.round(x.float() * act_scale), -127,
                               127).to(torch.int8)
             if m <= 16:
                 x_q = torch.cat([x_q, x_q.new_zeros((32 - m, k))])
-            lib, _ = timed(torch, lambda: torch._int_mm(x_q, w_q))
-            print(f"  quant_matmul {phase:11s} {name:4s} M={m:5d} K={k:4d} "
-                  f"N={n:4d}: {ms * 1e3:8.1f} us (per call {call * 1e3:6.1f}"
-                  f" us"
+            lib, _ = timed(torch, lambda: torch._int_mm(x_q, w))
+            print(f"  quant_matmul {label}{variant}{phase:11s} {name:4s} "
+                  f"M={m:5d} K={k:4d} N={n:4d}: {ms * 1e3:8.1f} us (per call "
+                  f"{call_ms * 1e3:6.1f} us"
                   + (f", L2-cold {cold * 1e3:.1f} us" if cold is not None else "")
                   + f")  plain {plain * 1e3:9.1f} us"
                   f"  bound {bnd * 1e3:6.2f} us  _int_mm {lib * 1e3:.1f} us"
                   + (" (M padded to 32)" if m <= 16 else ""))
-            tot["ms"] += ms
-            tot["call_ms"] += call
-            tot["cold_ms"] += cold or 0.0
-            tot["plain_ms"] += plain
-            tot["bound_ms"] += bnd
-            tot["nbytes"] += nbytes
-            tot["ops"] += 2 * m * k * n
-            tot["library_ms"] += lib
+            for key, v in (("ms", ms), ("call_ms", call_ms),
+                           ("cold_ms", cold or 0.0), ("plain_ms", plain),
+                           ("bound_ms", bnd), ("library_ms", lib),
+                           ("nbytes", nbytes), ("ops", 2 * m * k * n)):
+                tot[key] += v
+        if phase is None:
+            print(f"  quant_matmul {label}{variant}M={m}: every width "
+                  "bit-exact")
+            continue
         _, by = bound_ms(tot["nbytes"], tot["ops"], INT8_OPS_PER_S)
         if m <= DECODE_ROWS:
-            print(f"  quant_matmul {phase} M={m}: one layer's 7 calls "
-                  f"{tot['ms'] * 1e3:.1f} us warm, {tot['cold_ms'] * 1e3:.1f}"
-                  f" us L2-cold, bound {tot['bound_ms'] * 1e3:.2f} us")
+            print(f"  quant_matmul {label}{variant}{phase} M={m}: one "
+                  f"layer's {len(widths)} calls {tot['ms'] * 1e3:.1f} us "
+                  f"warm, {tot['cold_ms'] * 1e3:.1f} us L2-cold, bound "
+                  f"{tot['bound_ms'] * 1e3:.2f} us")
         entries.append({
-            "name": f"quant_matmul[{phase}: one layer's 7 matmuls, M={m}]",
+            "name": f"quant_matmul[{variant}{phase}: one layer's "
+                    f"{len(widths)} matmuls, M={m}]",
             "route": "cuda", "source": "src/repro_torch/csrc/quant_matmul.cu",
             "replaces": "src/repro/kernels/quant_matmul.py:72",
-            "kernel": "quant_matmul", "max_abs_err": 0.0, "ms": tot["ms"],
+            "kernel": kernel, "max_abs_err": 0.0, "ms": tot["ms"],
             "call_ms": tot["call_ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": by,
             "library_ms": tot["library_ms"],
             "library": "torch._int_mm" + (
-                f" on x zero-padded from M={m} to M=32" if m <= 16 else ""),
+                " on the unpacked weights" if w_bits == 4 else "") + (
+                f", x zero-padded from M={m} to M=32" if m <= 16 else ""),
             **({"cold_ms": tot["cold_ms"]} if m <= DECODE_ROWS else {})})
     return entries
 
@@ -955,12 +1015,14 @@ def check_quant_matmul_acc(torch, ops, ref, dev):
 
 def dequant_heads(torch, t, scale, groups, bits):
     """(B, S, KV, D) int8 or bf16, or (B, S, KV, D/2) packed int4 -> (B,
-    KV*G, S, D) bf16 for the SDPA yardstick."""
+    KV*G, S, D) bf16 for the SDPA yardstick; a float32 stream (``bits``
+    32) stays float32."""
     from repro_torch.core.packing import unpack_int4
 
     if bits == 4:
         t = unpack_int4(t)
-    f = (t.float() * scale.reshape(1, 1, -1, 1)).to(torch.bfloat16)
+    f = (t.float() * scale.reshape(1, 1, -1, 1)).to(
+        torch.float32 if bits == 32 else torch.bfloat16)
     return f.permute(0, 2, 1, 3).repeat_interleave(groups, dim=1).contiguous()
 
 
@@ -990,19 +1052,26 @@ VERIFY_EDGES = [
 
 
 def kv_kind(bits):
-    """The K/V stream of a ``bits`` code: 8 int8, 4 packed int4, 16 bf16."""
-    return {8: "int8", 4: "int4 packed", 16: "bf16"}[bits]
+    """The K/V stream of a ``bits`` code: 8 int8, 4 packed int4, 16 bf16,
+    32 float32."""
+    return {8: "int8", 4: "int4 packed", 16: "bf16", 32: "float32"}[bits]
+
+
+def attn_tol(bits):
+    """B2's tolerance against its plain version, x (1 + max|out|), over a
+    ``bits`` K/V stream."""
+    return F32_ATTN_TOL if bits == 32 else ATTN_TOL
 
 
 def kv_stream(torch, gen, dev, shape, bits):
     """Seeded K/V tiles of the (B, S, KV, D) ``shape``: int8 values, int4
-    values packed two per byte, or (``bits`` 16) bf16 normal values, a
-    float cache's."""
+    values packed two per byte, or (``bits`` 16 / 32) bf16 / float32 normal
+    values, a float cache's."""
     from repro_torch.core.packing import pack_int4
 
-    if bits == 16:
+    if bits in (16, 32):
         return torch.randn(shape, generator=gen, device=dev).to(
-            torch.bfloat16)
+            torch.bfloat16 if bits == 16 else torch.float32)
     lv = 127 if bits == 8 else 7
     t = torch.randint(-lv, lv + 1, shape, generator=gen, device=dev,
                       dtype=torch.int8)
@@ -1010,8 +1079,9 @@ def kv_stream(torch, gen, dev, shape, bits):
 
 
 def kv_scales(torch, gen, dev, bits, kvh=3):
-    """Per-head dequant scales: the int8/int4 ranges, or ones (bf16)."""
-    if bits == 16:
+    """Per-head dequant scales: the int8/int4 ranges, or ones (a float
+    cache: bf16, float32)."""
+    if bits >= 16:
         return [torch.ones((kvh,), device=dev) for _ in range(2)]
     return [torch.rand((kvh,), generator=gen, device=dev) * 0.05 + 0.01
             for _ in range(2)]
@@ -1019,10 +1089,10 @@ def kv_scales(torch, gen, dev, bits, kvh=3):
 
 def check_prefill_edges(torch, ops, ref, dev, bits, gen):
     """B2 at each of ``PREFILL_EDGES`` and ``VERIFY_EDGES`` with a ``bits``
-    K/V stream (16: bf16),
-    against its plain version (``ATTN_TOL``); a request with kv_len 0 must
+    K/V stream (16: bf16, 32: float32),
+    against its plain version (``attn_tol``); a request with kv_len 0 must
     come out as exact zeros."""
-    kv_bits = 8 if bits == 16 else bits
+    kv_bits = 8 if bits >= 16 else bits
     for dtype, d, g, sq, sk, q_start, kv_len, window in (PREFILL_EDGES
                                                          + VERIFY_EDGES):
         q = torch.randn((B, sq, 3, g, d), generator=gen, device=dev)
@@ -1044,7 +1114,7 @@ def check_prefill_edges(torch, ops, ref, dev, bits, gen):
                 f"{q_start}, kv_len={kv_len}, window={window}, "
                 f"{kv_kind(bits)}")
         print(f"  prefill_attention edge case [{case}]: max|err| {e:.2e}")
-        if not e <= ATTN_TOL * (1 + want.abs().max().item()):
+        if not e <= attn_tol(bits) * (1 + want.abs().max().item()):
             raise AssertionError(f"prefill_attention disagrees with its plain "
                                  f"version at [{case}]: max |diff| {e}")
         empty = kl == 0
@@ -1141,23 +1211,24 @@ def head_variant(kvh, g, d):
 
 def check_attention(torch, ops, ref, dev, bits, kvh=3, g=3, d=64):
     """Both attention kernels at the main path's shapes with a ``bits`` K/V
-    stream (8: int8, 4: int4 packed two per byte, 16: bf16 with unit
-    scales, which only the prefill kernel takes) and the heads (``kvh``,
-    ``g``, ``d``): against their plain versions (main-path, ragged and
-    windowed cases; bf16, and every stream past D 64, also with a float32
-    q), then timed, warm and with the L2 flushed before each call.  The
-    edge cases run at smollm-135m's heads (D 64)."""
+    stream (8: int8, 4: int4 packed two per byte, 16 / 32: bf16 / float32
+    with unit scales, which only the prefill kernel takes) and the heads
+    (``kvh``, ``g``, ``d``): against their plain versions (main-path, ragged
+    and windowed cases; bf16, and every stream past D 64, also with a
+    float32 q; a float32 stream with a float32 q, the float32 configs', and
+    a bf16 one), then timed, warm and with the L2 flushed before each call.
+    The edge cases run at smollm-135m's heads (D 64)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import SPLIT
 
-    kv_bits = 8 if bits == 16 else bits
+    kv_bits = 8 if bits >= 16 else bits
     cache_len = -(-(PROMPT + GEN) // 128) * 128
     gen = torch.Generator(device=dev).manual_seed(1)
     k_scale, v_scale = kv_scales(torch, gen, dev, bits, kvh)
     dvar, dtag = head_variant(kvh, g, d)
     tag = kv_kind(bits) + dtag
-    variant = {8: "", 4: "@int4", 16: "@bf16"}[bits] + dvar
+    variant = {8: "", 4: "@int4", 16: "@bf16", 32: "@f32"}[bits] + dvar
     flush = l2_flush(torch, dev)
 
     def tiles(shape):
@@ -1170,7 +1241,7 @@ def check_attention(torch, ops, ref, dev, bits, kvh=3, g=3, d=64):
 
     # -- prefill: main-path shape, then ragged / windowed variants ---------
     q = torch.randn((B, PROMPT, kvh, g, d), generator=gen, device=dev).to(
-        torch.bfloat16)
+        torch.float32 if bits == 32 else torch.bfloat16)
     k = tiles((B, PROMPT, kvh, d))
     v = tiles((B, PROMPT, kvh, d))
     full = torch.full((B,), PROMPT, dtype=torch.int32, device=dev)
@@ -1181,7 +1252,7 @@ def check_attention(torch, ops, ref, dev, bits, kvh=3, g=3, d=64):
               torch.tensor([512, 300, 1, 0], dtype=torch.int32, device=dev),
               None),
              (zero, full, 100)]
-    q_dtypes = (torch.bfloat16, torch.float32) if bits == 16 or d > 64 else (
+    q_dtypes = (torch.bfloat16, torch.float32) if bits >= 16 or d > 64 else (
         torch.bfloat16,)
     for q_dtype in q_dtypes:
         for q_start, kv_len, window in cases:
@@ -1195,7 +1266,7 @@ def check_attention(torch, ops, ref, dev, bits, kvh=3, g=3, d=64):
                                              kv_bits=kv_bits)
             torch.cuda.synchronize()
             e = (got - want).abs().max().item()
-            if not e <= ATTN_TOL * (1 + want.abs().max().item()):
+            if not e <= attn_tol(bits) * (1 + want.abs().max().item()):
                 raise AssertionError(
                     f"prefill_attention ({tag}, q {q_dtype}) disagrees with "
                     f"its plain version: max |diff| {e} (window={window})")
@@ -1222,14 +1293,16 @@ def check_attention(torch, ops, ref, dev, bits, kvh=3, g=3, d=64):
     lib, _ = timed(torch, lambda: F.scaled_dot_product_attention(
         qh, kh, vh, is_causal=True))
     pairs = PROMPT * (PROMPT + 1) // 2
-    nbytes = q.numel() * 2 + kv_bytes(PROMPT) + 8 * kvh + 8 * B + q.numel() * 4
-    bnd, by = bound_ms(nbytes, 4 * d * pairs * B * kvh * g, BF16_FLOPS_PER_S)
+    nbytes = (q.numel() * q.element_size() + kv_bytes(PROMPT) + 8 * kvh
+              + 8 * B + q.numel() * 4)
+    bnd, by = bound_ms(nbytes, 4 * d * pairs * B * kvh * g,
+                       TF32_FLOPS_PER_S if bits == 32 else BF16_FLOPS_PER_S)
     print(f"  prefill_attention [{tag}] B={B} S={PROMPT} KV={kvh} G={g} "
           f"D={d}: {ms * 1e3:.1f} us warm, {cold * 1e3:.1f} us L2-cold (per "
           f"call {call * 1e3:.1f} us)  plain {plain * 1e3:.1f} us  bound "
           f"{bnd * 1e3:.2f} us  sdpa {lib * 1e3:.1f} us  max|err| {err:.2e} "
           f"over q {[str(t).split('.')[-1] for t in q_dtypes]} (tolerance "
-          f"{ATTN_TOL} x (1 + max|out|))")
+          f"{attn_tol(bits)} x (1 + max|out|))")
     entries.append({
         "name": f"prefill_attention[{kv_kind(bits)} K/V, B={B}, S={PROMPT}"
                 f"{dtag}, one layer]",
@@ -1237,8 +1310,10 @@ def check_attention(torch, ops, ref, dev, bits, kvh=3, g=3, d=64):
         "replaces": "src/repro/kernels/prefill_attention.py:192",
         "kernel": "prefill_attention" + variant, "max_abs_err": err, "ms": ms,
         "cold_ms": cold, "call_ms": call, "plain_ms": plain, "bound_ms": bnd,
-        "bound_by": by, "library_ms": lib})
-    if bits == 16:
+        "bound_by": by, "library_ms": lib,
+        **({"library": "SDPA on the same float32 q and K/V"}
+           if bits == 32 else {})})
+    if bits >= 16:
         return entries      # the decode kernels read quantized tiles only
 
     # -- decode: mid-generation position, then ragged positions incl. 0 and
@@ -1319,6 +1394,33 @@ WIDE_HEADS = {"granite-8b": (8, 4, 128), "stablelm-12b": (8, 4, 160),
 # gemma3-12b's local layers: a sliding window of WINDOW keys; [gemma3-12b
 # ring] serves RING_B prompts of RING_PROMPT tokens
 WINDOW, RING_B, RING_PROMPT = 1024, 2, 2048
+
+
+def check_wide_f32_refused(torch, ops, dev):
+    """B2's wide library (D > 128) has no float32 K/V branch (ROADMAP
+    Queue B): a float32 K/V launch at each wide head dim past 128
+    (stablelm-12b's 160, gemma3-12b's 256) raises a
+    ``TypeError`` naming Queue B before any launch, and runs no plain
+    version."""
+    for kvh, g, d in (h for h in WIDE_HEADS.values() if h[2] > 128):
+        q = torch.zeros((1, 64, kvh, g, d), device=dev)
+        kv = torch.zeros((1, 64, kvh, d), device=dev)
+        one = torch.ones((kvh,), device=dev)
+        before = (ops.launch_counts()["prefill_attention"],
+                  ops.plain_call_count())
+        try:
+            ops.prefill_attention(q, kv, kv, one, one, 0, 64)
+        except TypeError as err:
+            if "Queue B" not in str(err):
+                raise AssertionError(f"D={d}: {err}")
+            print(f"  prefill_attention [float32 K/V, D={d}]: refused: {err}")
+        else:
+            raise AssertionError(f"prefill_attention at D={d} took float32 "
+                                 "K/V: the wide library has no such branch")
+        if (ops.launch_counts()["prefill_attention"],
+                ops.plain_call_count()) != before:
+            raise AssertionError("a refused float32 K/V call launched or ran "
+                                 "a plain version")
 
 
 def check_window_prefill(torch, ops, ref, dev, heads=WIDE_HEADS["gemma3-12b"],
@@ -1600,16 +1702,20 @@ def expert_rows(cfg):
     return rows
 
 
-def check_quant_matmul_experts(torch, ops, ref, dev, arch, cfg):
+def check_quant_matmul_experts(torch, ops, ref, dev, arch, cfg,
+                               out_dtype=None):
     """B3 at an MoE config's expert products, one expert's three calls
     (the path runs them once per expert, ``n_experts`` x 3 launches a
     layer and pass) at each row count of ``expert_rows``: bit for bit
     against the plain version (gate and up on bf16 x, down on float32 x,
     writing into its slice of the layer's (E, M, N) output as the path
     does), timed warm and L2-cold beside the plain version, torch._int_mm
-    and the bound.  The reference's expert product is an XLA einsum with no
-    ``pallas_call``; the port runs it through B3.  Returns the JSON
-    entries, one per row."""
+    and the bound.  ``out_dtype`` float32: the float32 config's products
+    (every x float32, B3's float32 output).  The reference's expert
+    product is an XLA einsum with no ``pallas_call``; the port runs it
+    through B3.  Returns the JSON entries, one per row."""
+    f32 = out_dtype == torch.float32
+    out_dtype = out_dtype or torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(37)
     flush = l2_flush(torch, dev)
     entries = []
@@ -1617,6 +1723,7 @@ def check_quant_matmul_experts(torch, ops, ref, dev, arch, cfg):
         tot = dict(ms=0.0, call_ms=0.0, cold_ms=0.0, plain_ms=0.0,
                    bound_ms=0.0, library_ms=0.0, nbytes=0, ops=0)
         for name, k, n, xdt in expert_widths(cfg):
+            xdt = "float32" if f32 else xdt
             x = (torch.randn((m, k), generator=gen, device=dev) * 2).to(
                 getattr(torch, xdt))
             # a quarter of the rows zero, as the dispatch buffer's unfilled
@@ -1626,9 +1733,10 @@ def check_quant_matmul_experts(torch, ops, ref, dev, arch, cfg):
                                 dtype=torch.int8)
             w_scale = torch.rand((n,), generator=gen, device=dev) * 1e-3
             act_scale = (127.0 / (x.float().abs().amax() * 0.8)).reshape(())
-            out = torch.empty((2, m, n), dtype=torch.bfloat16, device=dev)
+            out = torch.empty((2, m, n), dtype=out_dtype, device=dev)
             got = ops.quant_matmul(x, w_q, w_scale, act_scale, out=out[1])
-            want = ref.quant_matmul_ref(x, w_q, w_scale, act_scale)
+            want = ref.quant_matmul_ref(x, w_q, w_scale, act_scale,
+                                        out_dtype=out_dtype)
             torch.cuda.synchronize()
             if got.data_ptr() != out[1].data_ptr() or not torch.equal(
                     got, want):
@@ -1646,8 +1754,10 @@ def check_quant_matmul_experts(torch, ops, ref, dev, arch, cfg):
             ms, call_ms = timed(torch, call)
             cold = cold_ms(torch, call, flush, "quant_matmul")
             plain, _ = timed(torch, lambda: ref.quant_matmul_ref(
-                x, w_q, w_scale, act_scale), iters=2, warmup=1)
-            nbytes = m * k * x.element_size() + k * n + 4 * n + 4 + m * n * 2
+                x, w_q, w_scale, act_scale, out_dtype=out_dtype), iters=2,
+                warmup=1)
+            nbytes = (m * k * x.element_size() + k * n + 4 * n + 4
+                      + m * n * out.element_size())
             bnd, _ = bound_ms(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
             x_q = torch.clamp(torch.round(x.float() * act_scale), -127,
                               127).to(torch.int8)
@@ -1670,15 +1780,16 @@ def check_quant_matmul_experts(torch, ops, ref, dev, arch, cfg):
               f"{tot['bound_ms'] * 1e3:.2f} us ({by}); a layer launches "
               f"{per_layer} (x {cfg.n_experts} experts)")
         entries.append({
-            "name": f"quant_matmul[{arch} experts {phase}: one expert's 3 "
+            "name": f"quant_matmul[{arch} experts {phase}"
+                    f"{', float32 out' if f32 else ''}: one expert's 3 "
                     f"matmuls, M={m}; {per_layer} launches a layer]",
             "route": "cuda", "source": "src/repro_torch/csrc/quant_matmul.cu",
             "replaces": "src/repro/kernels/quant_matmul.py:72",
             "replaces_note": "the reference's expert product is the XLA "
                              "einsum of src/repro/core/api.py:402, no "
                              "pallas_call",
-            "kernel": f"quant_matmul@{arch}", "max_abs_err": 0.0,
-            "ms": tot["ms"], "cold_ms": tot["cold_ms"],
+            "kernel": f"quant_matmul@{'f32@' if f32 else ''}{arch}",
+            "max_abs_err": 0.0, "ms": tot["ms"], "cold_ms": tot["cold_ms"],
             "call_ms": tot["call_ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": by,
             "library_ms": tot["library_ms"],
@@ -1835,16 +1946,19 @@ def check_paged_attention(torch, ops, ref, dev, bits, page, kvh=3, g=3,
 
     gen = torch.Generator(device=dev).manual_seed(7 + bits + page)
     k_scale, v_scale = kv_scales(torch, gen, dev, bits, kvh)
-    kv_bits = 8 if bits == 16 else bits
+    kv_bits = 8 if bits >= 16 else bits
+    # the query type of the path that reads such a pool
+    qdt = torch.float32 if bits == 32 else torch.bfloat16
     dvar, dtag = head_variant(kvh, g, d)
     tag = f"paged {kv_kind(bits)} K/V, page {page}{dtag}"
-    variant = {8: "@paged", 4: "@paged-int4", 16: "@paged-bf16"}[bits] + dvar
+    variant = {8: "@paged", 4: "@paged-int4", 16: "@paged-bf16",
+               32: "@paged-f32"}[bits] + dvar
     entries = []
 
     def held(name, got, want, dense):
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        if not err <= ATTN_TOL * (1 + want.abs().max().item()):
+        if not err <= attn_tol(bits) * (1 + want.abs().max().item()):
             raise AssertionError(f"{name} ({tag}) disagrees with its plain "
                                  f"version: max |diff| {err}")
         if not torch.equal(got, dense):
@@ -1855,7 +1969,7 @@ def check_paged_attention(torch, ops, ref, dev, bits, page, kvh=3, g=3,
         return err
 
     cap = -(-(PROMPT + GEN) // 128) * 128
-    if bits != 16:     # the decode kernels read quantized tiles only
+    if bits < 16:     # the decode kernels read quantized tiles only
         # -- decode: the scheduler's slot batch ---------------------------
         bd = SLOTS
         kp, vp, table = paged_inputs(torch, dev, gen, bd, cap, page, bits,
@@ -1917,7 +2031,7 @@ def check_paged_attention(torch, ops, ref, dev, bits, page, kvh=3, g=3,
                        77], dtype=torch.int32, device=dev)
     kl = torch.where(torch.arange(SLOTS, device=dev) == SLOTS - 1, 0, qs + w)
     q = torch.randn((SLOTS, w, kvh, g, d), generator=gen, device=dev).to(
-        torch.bfloat16)
+        qdt)
     got = ops.prefill_attention_view(q, view, k_scale, v_scale, qs, kl)
     err = held("prefill_attention verify window", got,
                ref.prefill_attention_paged_ref(q, kp, vp, table, k_scale,
@@ -1940,7 +2054,7 @@ def check_paged_attention(torch, ops, ref, dev, bits, page, kvh=3, g=3,
     view = KernelView(kp, vp, table, page, kv_bits)
     kd, vd = ref.gather_pages(kp, table), ref.gather_pages(vp, table)
     q = torch.randn((B, CHUNK, kvh, g, d), generator=gen, device=dev).to(
-        torch.bfloat16)
+        qdt)
     qs = torch.full((B,), q0, dtype=torch.int32, device=dev)
     kl = torch.full((B,), limit, dtype=torch.int32, device=dev)
     got = ops.prefill_attention_view(q, view, k_scale, v_scale, qs, kl)
@@ -1985,9 +2099,10 @@ def check_paged_attention(torch, ops, ref, dev, bits, page, kvh=3, g=3,
     lib, _ = timed(torch, lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask))
     pairs = CHUNK * q0 + CHUNK * (CHUNK + 1) // 2
-    nbytes = (q.numel() * 2 + 2 * B * limit * kvh * d * bits // 8 + 8 * kvh
-              + 8 * B + 4 * table.numel() + q.numel() * 4)
-    bnd, by = bound_ms(nbytes, 4 * d * pairs * B * kvh * g, BF16_FLOPS_PER_S)
+    nbytes = (q.numel() * q.element_size() + 2 * B * limit * kvh * d * bits
+              // 8 + 8 * kvh + 8 * B + 4 * table.numel() + q.numel() * 4)
+    bnd, by = bound_ms(nbytes, 4 * d * pairs * B * kvh * g,
+                       TF32_FLOPS_PER_S if bits == 32 else BF16_FLOPS_PER_S)
     print(f"  prefill_attention [{tag}] B={B} chunk of {CHUNK} at {q0}, "
           f"kv_len {limit}: {ms * 1e3:.1f} us (per call {call * 1e3:.1f} us)"
           f"  dense kernel on the gathered copy {dense * 1e3:.1f} us  plain "
@@ -2351,12 +2466,13 @@ def path_layers(cfg):
 
 
 def drive_main_path(torch, ops, engine, prompts, label, kind, card,
-                    sp=1, walls=None, A=None):
+                    sp=1, walls=None, A=None, strict=False):
     """Warm up, zero the launch counts, serve 4 x 512 prompts for 32 tokens
     and check what came out and which kernels ran; returns (result, all
-    launch counts, int4-variant, bf16-K/V, paged and windowed launch
-    counts), each read from the timed run of the captured programs and
-    checked for both drivers.
+    launch counts, int4-variant, bf16-K/V, paged, windowed and float32
+    launch counts; the float32 ones with the run's int4-weight B3 launches
+    under "quant_matmul_w4"), each read from the timed run of the captured
+    programs and checked for both drivers.
     The default ``generate_batch`` replays its captured programs: the
     warm-up call captures them (its ``compile_s``), the timed call must
     only replay, and the eager ``loop=True`` driver, run after it with the
@@ -2374,7 +2490,11 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
     token; an MoE layer launches quant_matmul 4 times for attention and 3
     times for each of its experts, a pass; a Mamba2 mixer 6 times, and
     attention kernels only where a layer has attention (``path_layers``).
-    ``prompts`` may have other rows and lengths than B x PROMPT."""
+    A float32 config prefills a float cache through B2's float32 branch
+    (not its bf16 one), and its expert products run B3's float32 output.
+    ``prompts`` may have other rows and lengths than B x PROMPT.
+    ``strict``: graphs and eager must agree bit for bit, with no near-tie
+    allowed (``compare_programs``)."""
     warm = engine.generate_batch({"tokens": prompts}, gen=2)   # warm-up
     cfg = engine.cfg
     b, s = prompts.shape
@@ -2391,8 +2511,14 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
     int4_expected = ({k: expected[k] for k in ops.ATTENTION}
                      if kv8 and engine.policy.kv_bits == 4
                      else {k: 0 for k in ops.ATTENTION})
+    f32 = cfg.dtype == torch.float32
     bf16_expected = {"prefill_attention":
-                     0 if kv8 else expected["prefill_attention"]}
+                     0 if kv8 or f32 else expected["prefill_attention"]}
+    experts = (3 * cfg.n_experts * n_layers * GEN
+               if cfg.ffn == "moe" and engine.mode == "int8" else 0)
+    f32_expected = {"quant_matmul": experts if f32 else 0,
+                    "prefill_attention": expected["prefill_attention"]
+                    if f32 and not kv8 else 0}
     # the engine's caches are dense or rings: no paged launch
     paged_expected = {k: 0 for k in ops.ATTENTION}
     window_expected = {"prefill_attention":
@@ -2403,20 +2529,24 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
         res = engine.generate_batch({"tokens": prompts}, gen=GEN, loop=loop)
         got = (ops.launch_counts(), ops.int4_launch_counts(),
                ops.bf16_launch_counts(), ops.paged_launch_counts(),
-               ops.window_launch_counts())
+               ops.window_launch_counts(), ops.f32_launch_counts())
         want = (expected, int4_expected, bf16_expected, paged_expected,
-                window_expected)
+                window_expected, f32_expected)
         driver = "loop=True" if loop else "default"
         print(f"[{label}] ({driver}) kernel launches {got[0]} (expected "
               f"{expected}); int4 variants {got[1]} (expected "
               f"{int4_expected}); bf16 K/V variants {got[2]} (expected "
               f"{bf16_expected}); paged variants {got[3]}; windowed "
-              f"{got[4]} (expected {window_expected})")
+              f"{got[4]} (expected {window_expected}); float32 variants "
+              f"{got[5]} (expected {f32_expected})")
         if got != want:
             raise AssertionError(f"{driver}: launch counts {got} != {want}")
-        return (res, *got)
+        # the float32 counts also carry this run's int4-weight B3 launches
+        # (the smaller of the two bounds B3's int4 float32-output launches)
+        return (res, *got[:5], {**got[5], "quant_matmul_w4":
+                                ops.w4_launch_counts()["quant_matmul"]})
 
-    res, counts, int4, bf16, paged, window = run(False)
+    res, counts, int4, bf16, paged, window, f32_counts = run(False)
     if not bool(torch.isfinite(res.prefill_logits).all()):
         raise AssertionError("non-finite prefill logits")
     toks = res.tokens.cpu()
@@ -2439,7 +2569,8 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
                              "the second only replay")
     if graphs:
         eager = run(True)[0]
-        compare_programs(torch, A, engine, prompts, res, eager, label)
+        compare_programs(torch, A, engine, prompts, res, eager, label,
+                         strict)
         print(f"[{label}] walls, graphs vs eager loop=True: prefill "
               f"{res.prefill_s * 1e3:.2f} vs {eager.prefill_s * 1e3:.2f} ms;"
               f" decode {decode_ms:.3f} vs "
@@ -2450,7 +2581,7 @@ def drive_main_path(torch, ops, engine, prompts, label, kind, card,
                 graphs=(res.prefill_s * 1e3, decode_ms, warm.compile_s),
                 eager=(eager.prefill_s * 1e3,
                        eager.decode_s / (GEN - 1) * 1e3))
-    return res, counts, int4, bf16, paged, window
+    return res, counts, int4, bf16, paged, window, f32_counts
 
 
 def forced_gap(torch, A, engine, prompts, toks):
@@ -2513,14 +2644,15 @@ def cublas_capture_probe(torch, engine):
     return same
 
 
-def compare_programs(torch, A, engine, prompts, res, eager, label):
+def compare_programs(torch, A, engine, prompts, res, eager, label,
+                     strict=False):
     """The captured programs' tokens and prefill logits against the eager
     driver's: bit for bit.  Where they differ, the cuBLAS products of the
     path are probed eager against captured (``cublas_capture_probe``); a
     difference is accepted only where a probed product gives other bits
     under capture and the eager steps, teacher-forced on the graphs'
     tokens, put every one of them within ``LOGIT_ATOL`` of their argmax
-    (the near-tie rule of PERF.md §2)."""
+    (the near-tie rule of PERF.md §2), and never with ``strict``."""
     if (torch.equal(res.prefill_logits, eager.prefill_logits)
             and torch.equal(res.tokens, eager.tokens)):
         print(f"[{label}] graphs vs eager loop=True: prefill logits and "
@@ -2536,7 +2668,7 @@ def compare_programs(torch, A, engine, prompts, res, eager, label):
           f"{probe}; the eager steps teacher-forced on the graphs' tokens put"
           f" them at most {gap:.4f} below their argmax (near-tie tolerance "
           f"{LOGIT_ATOL})")
-    if all(probe.values()) or not gap <= LOGIT_ATOL:
+    if strict or all(probe.values()) or not gap <= LOGIT_ATOL:
         raise AssertionError(f"graphs and eager driver disagree (probe "
                              f"{probe}, gap {gap})")
 
@@ -2657,8 +2789,8 @@ def cpu_check(torch, A, engine, prompts, toks, tol, label, n_check=4,
     n_held = int(mask.sum())
     print(f"[{label}] {n_check} teacher-forced steps on {twin} "
           f"in {time.perf_counter() - t0:.1f} s: max |logit diff| "
-          f"{worst:.4f} (tolerance {logit_tol}; by step "
-          f"{', '.join(f'{e:.4f}' for e in steps)}; max |logit| "
+          f"{worst:.4g} (tolerance {logit_tol}; by step "
+          f"{', '.join(f'{e:.4g}' for e in steps)}; max |logit| "
           f"{real.max().item():.3f}, median "
           f"{real.median().item():.3f}); greedy tokens equal "
           f"{same}/{n_held}, near-ties {ties}, further apart {len(gaps)}"
@@ -2738,7 +2870,7 @@ def drive_arch_path(torch, ops, A, Engine, build_model, cfg, label, kind,
     prompts = rng.integers(0, cfg.vocab, (B, PROMPT), dtype=np.int32)
     torch.cuda.reset_peak_memory_stats()
     counts = drive_main_path(torch, ops, engine, prompts, label, kind, card,
-                             walls=walls, A=A)[1:]
+                             walls=walls, A=A)[1:6]
     print(f"[{label}] peak device memory serving {B}x{PROMPT} + {GEN}: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated, weights included)")
@@ -2809,8 +2941,8 @@ def drive_ring_path(torch, ops, A, Engine, engine, label, kind, card, walls,
     print(f"[{label}] caches: {n_local} rings of {window} slots, "
           f"{cfg.n_layers - n_local} dense of {cache_len} positions")
     torch.cuda.reset_peak_memory_stats()
-    res, *counts = drive_main_path(torch, ops, engine, prompts, label, kind,
-                                   card, walls=walls, A=A)
+    res, *counts, _ = drive_main_path(torch, ops, engine, prompts, label,
+                                      kind, card, walls=walls, A=A)
     print(f"[{label}] peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     replay_busy(torch, engine, label, walls)
@@ -2902,7 +3034,8 @@ def readout_thresholds(Engine, engine, label):
                   mode=engine.mode)
 
 
-def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
+def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label,
+                   logit_tol=None):
     """A full-width copy of a wider config at cut depth (weights drawn on
     the card): 2 layers, or one local:global period (gemma3-12b: 5 local
     layers, then a global one) with the window cut to ``CPU_WINDOW``, so
@@ -2918,8 +3051,10 @@ def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
     12b) serves the last block's ``wq`` thresholds here: calibration, as
     the reference's, never observes its input and leaves its threshold at
     the 1e-8 floor, where every logit is ~1e-8 and the check would hold
-    for any readout."""
+    for any readout.  ``logit_tol``: the logits' limit in place of
+    ``WIDE_LOGIT_ATOL``'s."""
     free_card(torch)
+    logit_tol = logit_tol or WIDE_LOGIT_ATOL[cfg.name]
     over = dict(n_layers=2)
     if cfg.local_global_ratio:
         over = dict(n_layers=sum(cfg.local_global_ratio), window=CPU_WINDOW)
@@ -2955,13 +3090,13 @@ def check_arch_cpu(torch, ops, A, Engine, build_model, cfg, label):
         raise AssertionError(f"launches {got} != {want}")
     if cut.ffn != "moe":
         cpu_check(torch, A, engine, prompts, res.tokens.cpu(), LOGIT_ATOL,
-                  label, n_check=n_check, logit_tol=WIDE_LOGIT_ATOL[cfg.name])
+                  label, n_check=n_check, logit_tol=logit_tol)
         return
     with moe_held(label, cut, b, s, n_check) as held:
         try:
             cpu_check(torch, A, engine, prompts, res.tokens.cpu(),
                       LOGIT_ATOL, label, n_check=n_check,
-                      logit_tol=WIDE_LOGIT_ATOL[cfg.name], held=held)
+                      logit_tol=logit_tol, held=held)
         finally:
             if held.unflipped and not cut.window_all:
                 stage_gaps(torch, A, engine, prompts, res.tokens.cpu(),
@@ -3431,8 +3566,11 @@ def drive_paged_path(torch, ops, ref, Engine, PagedCache, engine, prompts,
     logits and tokens bit-identical to the same engine with a dense cache
     and to the eager ``loop=True`` driver on the paged cache.  A bf16 pool:
     prefill through B2's paged bf16 branch, decode in plain attention over
-    the gathered pool (one gather a layer and step, as in the reference).
-    Returns (all, int4, paged) launch counts."""
+    the gathered pool (one gather a layer and step, as in the reference);
+    a float32 pool (a float32 config's) the same through B2's float32
+    branch, graphs and eager bit for bit with no near-tie allowed.
+    Returns the timed run's result and its (all, int4, float32, paged)
+    launch counts."""
     paged = layout_twin(Engine, engine, "paged", page)
     dense = layout_twin(Engine, engine, "dense")
     warm = paged.generate_batch({"tokens": prompts}, gen=2)   # warm-up
@@ -3441,8 +3579,10 @@ def drive_paged_path(torch, ops, ref, Engine, PagedCache, engine, prompts,
         res = paged.generate_batch({"tokens": prompts}, gen=GEN)
     counts, int4 = ops.launch_counts(), ops.int4_launch_counts()
     pg, bf16 = ops.paged_launch_counts(), ops.bf16_launch_counts()
+    f32c = ops.f32_launch_counts()
     n_layers, chunks = engine.cfg.n_layers, PROMPT // CHUNK
     kv8 = engine.policy.kv_int8
+    f32 = engine.cfg.dtype == torch.float32
     attn = {"prefill_attention": n_layers * chunks,
             "decode_attention": n_layers * (GEN - 1) if kv8 else 0,
             "decode_attention_partials": 0}
@@ -3451,14 +3591,17 @@ def drive_paged_path(torch, ops, ref, Engine, PagedCache, engine, prompts,
     int4_expected = attn if kv8 and engine.policy.kv_bits == 4 else {
         k: 0 for k in attn}
     bf16_expected = {"prefill_attention":
-                     0 if kv8 else attn["prefill_attention"]}
+                     0 if kv8 or f32 else attn["prefill_attention"]}
+    f32_expected = {"quant_matmul": 0, "prefill_attention":
+                    attn["prefill_attention"] if f32 and not kv8 else 0}
     print(f"[{label}] kernel launches {counts} (expected {expected}); paged "
           f"variants {pg} (expected {attn}); int4 variants {int4}; bf16 K/V "
-          f"variants {bf16} (expected {bf16_expected})")
-    if (counts, pg, int4, bf16) != (expected, attn, int4_expected,
-                                    bf16_expected):
+          f"variants {bf16} (expected {bf16_expected}); float32 variants "
+          f"{f32c} (expected {f32_expected})")
+    if (counts, pg, int4, bf16, f32c) != (expected, attn, int4_expected,
+                                          bf16_expected, f32_expected):
         raise AssertionError(f"launch counts {counts} / paged {pg} / int4 "
-                             f"{int4} / bf16 {bf16}")
+                             f"{int4} / bf16 {bf16} / float32 {f32c}")
     if warm.compile_s <= 0.0 or res.compile_s != 0.0 or replayed.n:
         raise AssertionError(f"compile_s {warm.compile_s} then "
                              f"{res.compile_s}, {replayed.n} gathers called: "
@@ -3474,7 +3617,7 @@ def drive_paged_path(torch, ops, ref, Engine, PagedCache, engine, prompts,
     if gathers.n != gathers_expected:
         raise AssertionError(f"pool gathers {gathers.n}, expected "
                              f"{gathers_expected}")
-    compare_programs(torch, A, paged, prompts, res, eager, label)
+    compare_programs(torch, A, paged, prompts, res, eager, label, f32)
     if walls is not None:
         walls[label] = {"graphs": (res.prefill_s * 1e3,
                                    res.decode_s / (GEN - 1) * 1e3,
@@ -3501,7 +3644,7 @@ def drive_paged_path(torch, ops, ref, Engine, PagedCache, engine, prompts,
           f"{warm.compile_s:.3f} s; pool {pool} bytes ({len(cache)} layers, "
           f"pages of {page}) on {kind} ({card}); prefill logits and {GEN} "
           "greedy tokens bit-identical to the dense cache")
-    return counts, int4, pg
+    return res, counts, int4, f32c, pg
 
 
 def teacher_forced_gap(torch, A, ST, engine, prompt, tokens):
@@ -3635,6 +3778,125 @@ def check_scheduler(torch, ops, A, ST, Engine, Request, engine, kind, card,
             raise AssertionError(f"request {r}: the scheduler's token {step} "
                                  f"is {gap} below the batch-1 argmax")
     return counts, bf16, done, pg
+
+
+# the float32 configs (the reference's own configs built with dtype
+# float32, which its engine and tests serve): smollm-135m in the two modes
+# over a float32 cache at full depth, its paged twin at F32_PAGED_LAYERS,
+# granite-moe-3b-a800m over its default int8 cache at MOE_F32_LAYERS of 32
+# (the script's time)
+F32_MODES = {"int8_w_bf16_kv": dict(kv_int8=False),
+             "bf16_w_bf16_kv": dict(fp=True, kv_int8=False)}
+F32_PAGED_LAYERS, MOE_F32_LAYERS = 10, 4
+# the float32 paths' first request teacher-forced, card vs CPU: the logits'
+# limits, about twice the readings on an H100 at 700 W at these seeds.
+# int8_w_bf16_kv read 0.1101 (its int8 layers round to bf16 as the bf16
+# modes do, and a bf16 step crosses int8 steps in later layers): the bf16
+# modes' 0.25.  bf16_w_bf16_kv (float32 weights and sums) read 7.3e-6, and
+# granite-moe's depth-2 copy 1.4e-6 over its 16 held pairs (its int8
+# readout and experts sum exactly; float32 elsewhere).
+F32_LOGIT_ATOL = {"int8_w_bf16_kv": LOGIT_ATOL, "bf16_w_bf16_kv": 1.5e-5,
+                  "granite-moe-3b-a800m": 3e-6}
+
+
+def drive_f32_path(torch, ops, A, Engine, cfg, prompts, mode, label, kind,
+                   card, walls):
+    """smollm-135m built with dtype float32 (``cfg``) in ``mode`` (int8 or
+    float32 weights over a float32 cache) at full width and depth: its main
+    path (``drive_main_path``: graphs and ``loop=True`` bit for bit, B2's
+    float32 branch once a layer and prefill, decode in plain attention over
+    the float32 cache, as the reference's), then the first request teacher-
+    forced against the same engine on the CPU (``cpu_check``, tokens equal
+    or near-ties within ``F32_LOGIT_ATOL``, logits within it).  Returns
+    (all, float32) launch counts of the timed run."""
+    t0 = time.perf_counter()
+    eng = Engine.from_checkpoint(cfg=cfg, smoke=False, **F32_MODES[mode])
+    torch.cuda.synchronize()
+    cache = next(iter(eng.init_cache(1, 128).values()))["attn"]
+    print(f"[{label}] {cfg.name} float32, {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+          f"{cfg.head_dim}, {mode} (engine mode {eng.mode}): built in "
+          f"{time.perf_counter() - t0:.1f} s; {eng.n_int8_weights()} int8 "
+          f"weight tensors; cache {cache.k.dtype}")
+    if cache.k.dtype != torch.float32:
+        raise AssertionError(f"the cache holds {cache.k.dtype}, not float32")
+    res, counts, *_, f32 = drive_main_path(torch, ops, eng, prompts, label,
+                                           kind, card, 1, walls, A,
+                                           strict=True)
+    print(f"[{label}] B2 float32 launches per prefill: "
+          f"{f32['prefill_attention']} ({cfg.n_layers} layers); B3 "
+          f"{counts['quant_matmul']}, B1 {counts['decode_attention']}")
+    tol = F32_LOGIT_ATOL[mode]
+    cpu_check(torch, A, eng, prompts[:1], res.tokens[:1].cpu(), tol,
+              f"{label} cpu check")
+    return counts, f32
+
+
+def drive_f32_paged(torch, ops, ref, A, Engine, PagedCache, build_model,
+                    cfg, prompts, label, kind, card, walls):
+    """The float32 int8_w_bf16_kv engine at ``F32_PAGED_LAYERS`` layers
+    through a paged float32 cache (pages of ``PAGE``, chunks of ``CHUNK``,
+    ``drive_paged_path``: B2's paged float32 branch a layer and chunk,
+    bit for bit with the chunked dense cache and the eager driver); its
+    tokens against the same weights' one-shot dense engine: equal, or
+    near-ties (that engine teacher-forced on the paged tokens puts them
+    within ``F32_LOGIT_ATOL`` of its argmax).  Returns (all, float32,
+    paged) launch counts."""
+    cut = cfg.replace(n_layers=F32_PAGED_LAYERS)
+    eng = Engine.from_checkpoint(cfg=cut, smoke=False,
+                                 **F32_MODES["int8_w_bf16_kv"])
+    res, counts, _, f32, pg = drive_paged_path(
+        torch, ops, ref, Engine, PagedCache, eng, prompts, label, kind, card,
+        PAGE, A, walls)
+    toks = res.tokens
+    dense = eng.generate_batch({"tokens": prompts}, gen=GEN).tokens
+    same = int((dense == toks).sum())
+    gap = forced_gap(torch, A, eng, prompts, toks)
+    tol = F32_LOGIT_ATOL["int8_w_bf16_kv"]
+    print(f"[{label}] paged chunked tokens vs the one-shot dense engine's "
+          f"at {F32_PAGED_LAYERS} layers: equal {same}/{toks.numel()}; the "
+          f"dense engine teacher-forced on the paged tokens puts them at "
+          f"most {gap:.4f} below its argmax (near-tie limit {tol})")
+    if not gap <= tol:
+        raise AssertionError(f"paged and dense float32 engines disagree by "
+                             f"{gap}")
+    return counts, f32, pg
+
+
+def drive_moe_f32(torch, ops, A, Engine, build_model, get_config, label,
+                  kind, card, walls):
+    """granite-moe-3b-a800m built with dtype float32 at full width and
+    ``MOE_F32_LAYERS`` layers (weights drawn on the card), int8 weights
+    over the default int8 cache: its main path (graphs == ``loop=True``
+    bit for bit; every expert product through B3's float32 output, 3 x 40
+    launches a layer and pass; the attention projections through B3's bf16
+    output, as the reference's Dense layers), then a depth-2 float32 copy
+    against the CPU with the routing flips counted (``check_arch_cpu``).
+    Returns (all, paged, float32) launch counts of the timed run."""
+    arch = "granite-moe-3b-a800m"
+    cfg = get_config(arch).replace(dtype=torch.float32,
+                                   n_layers=MOE_F32_LAYERS)
+    free_card(torch)
+    engine, build_s = wide_engine(torch, Engine, build_model, cfg)
+    print(f"[{label}] {arch} float32 full width, {MOE_F32_LAYERS} of 32 "
+          f"layers, {cfg.n_experts} experts top-{cfg.top_k}: weights drawn "
+          f"on the card, calibration and int8 conversion in {build_s:.1f} "
+          f"s; {engine.n_int8_weights()} int8 weight tensors")
+    prompts = np.random.default_rng(sum(map(ord, cfg.name))).integers(
+        0, cfg.vocab, (B, PROMPT), dtype=np.int32)
+    _, counts, _, _, paged, _, f32 = drive_main_path(
+        torch, ops, engine, prompts, label, kind, card, walls=walls, A=A,
+        strict=True)
+    per_step = f32["quant_matmul"] // GEN
+    print(f"[{label}] B3 float32-output launches per pass (prefill or "
+          f"decode step): {per_step} (3 x {cfg.n_experts} experts x "
+          f"{MOE_F32_LAYERS} layers); bf16-output launches (attention) "
+          f"{counts['quant_matmul'] - f32['quant_matmul']}")
+    del engine
+    check_arch_cpu(torch, ops, A, Engine, build_model,
+                   get_config(arch).replace(dtype=torch.float32),
+                   f"{label} cpu check", logit_tol=F32_LOGIT_ATOL[arch])
+    return counts, paged, f32
 
 
 def check_moe_scheduler(torch, ops, A, ST, Engine, Request, build_model,
@@ -5978,6 +6240,25 @@ def main() -> int:
           "exact at the K slices of smollm-135m (tp=3) and granite-8b "
           "(tp=2):")
     acc_entries = check_quant_matmul_acc(torch, ops, ref, dev)
+    print("[kernels] quant_matmul's float32 output (B3 f32: a float32 "
+          "config's expert products) bit-exact at every row count of the "
+          "paths, int8 and int4 weights; granite-moe-3b-a800m's float32 "
+          "expert rows timed:")
+    moe_f32_cfg = get_config("granite-moe-3b-a800m").replace(
+        dtype=torch.float32)
+    f32_entries = []
+    experts = tuple((f"expert {name}", k, n)
+                    for name, k, n, _ in expert_widths(moe_f32_cfg))
+    for wb in (8, 4):
+        f32_entries += check_quant_matmul(torch, ops, ref, dev, QMM_F32_ROWS,
+                                          torch.float32, wb)
+        check_quant_matmul(torch, ops, ref, dev,
+                           [(None, m) for _, m in QMM_F32_ROWS],
+                           torch.float32, wb, experts,
+                           f"{moe_f32_cfg.name} ")
+    f32_entries += check_quant_matmul_experts(
+        torch, ops, ref, dev, moe_f32_cfg.name, moe_f32_cfg,
+        out_dtype=torch.float32)
     progress("B3 and B5 kernels")
     t0 = time.perf_counter()
     build.load([n for n in build.SOURCES if not n.endswith("_wide")])
@@ -5996,8 +6277,19 @@ def main() -> int:
         kernels.append(check_partials(torch, ops, ref, dev, bits))
     for bits in (8, 4):
         kernels.append(check_paged_partials(torch, ops, ref, dev, bits))
-    kernels += fq_entries + w4_entries + acc_entries
+    kernels += fq_entries + w4_entries + acc_entries + f32_entries
     progress("kernels at smollm-135m's heads")
+    print(f"[kernels] prefill_attention over float32 K/V (B2 f32: 3xTF32 "
+          f"products) at smollm-135m's and granite-moe's heads, one-shot, "
+          f"chunked ({CHUNK} queries at {PROMPT - CHUNK}) and paged (pages of "
+          f"16 and {PAGE}), within {F32_ATTN_TOL} x (1 + max|out|) of the "
+          "plain version:")
+    for heads in ((3, 3, 64), MOE_HEADS):
+        kernels += check_attention(torch, ops, ref, dev, 32, *heads)
+        for page in (16, PAGE):
+            kernels += check_paged_attention(torch, ops, ref, dev, 32, page,
+                                             *heads)
+    progress("kernels over float32 K/V")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print("[kernels] the mixture-of-experts configs: B3 at every expert "
           "product and row count of their paths, at their attention and "
@@ -6102,6 +6394,7 @@ def main() -> int:
     for arch in WIDE_HEADS:
         kernels += check_quant_matmul_widths(torch, ops, ref, dev, arch,
                                              get_config(arch), sms)
+    check_wide_f32_refused(torch, ops, dev)
     progress("kernels of the wider dense configs")
 
     phases = {"build": build_s, "kernels": time.perf_counter() - t_kern,
@@ -6256,6 +6549,21 @@ def main() -> int:
                                prng, ShardedEngine, build_model, eng,
                                {"tokens": prompts}, label, kind, card)
         del eng
+
+    # the float32 configs (ROADMAP Queue B's float32 branches of B2 and B3):
+    # smollm-135m in both float-cache modes at full width and depth, then
+    # its paged twin at F32_PAGED_LAYERS
+    smollm_f32 = get_config("smollm-135m").replace(dtype=torch.float32)
+    f32_runs = {}
+    for mode in F32_MODES:
+        label = f"float32 path {mode}"
+        f32_runs[label] = phase(label, drive_f32_path, torch, ops, A, Engine,
+                                smollm_f32, prompts, mode, label, kind, card,
+                                walls)
+    f32_runs["float32 paged"] = phase(
+        "float32 paged", drive_f32_paged, torch, ops, ref, A, Engine,
+        PagedCache, build_model, smollm_f32, prompts, "float32 paged", kind,
+        card, walls)
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -6455,6 +6763,11 @@ def main() -> int:
             del engine_m, run
         phase(f"{short} cpu check", check_arch_cpu, torch, ops, A, Engine,
               build_model, get_config(arch), f"{short} cpu check")
+    # granite-moe built with dtype float32: its experts through B3's
+    # float32 output
+    moe_f32 = phase("granite-moe float32", drive_moe_f32, torch, ops, A,
+                    Engine, build_model, get_config, "granite-moe float32",
+                    kind, card, walls)
     # the state-space configs (ROADMAP item 17 steps 5-6) at full width and
     # PATH_LAYERS: mamba2's main path (no attention kernel: B3 alone) and one
     # sampled run, hymba's main path and its rings of 1024, and a full-width
@@ -6552,7 +6865,7 @@ def main() -> int:
     sp_paths = {"sp path": out_sp[1][partials],
                 "sp scheduler": sp_sched[partials]}
     launched = {**counts, **{f"{k}@int4": n for k, n in out4[2].items()},
-                **{f"{k}@paged-int4": n for k, n in paged4[2].items()},
+                **{f"{k}@paged-int4": n for k, n in paged4[-1].items()},
                 **{f"{k}@paged": sum(pg[k] for pg in by_path.values())
                    for k in ops.ATTENTION},
                 partials: sum(sp_paths.values()),
@@ -6589,7 +6902,7 @@ def main() -> int:
     bf16_by_path = {path: pg["prefill_attention"]
                     for path, pg in bf16_runs.items()}
     launched["prefill_attention@bf16"] = sum(bf16_by_path.values())
-    launched["prefill_attention@paged-bf16"] = paged_bf16[2][
+    launched["prefill_attention@paged-bf16"] = paged_bf16[-1][
         "prefill_attention"]
     # the wider configs' paths, every count read from the counters of the
     # path's timed run (``drive_main_path``): B1, B2 and B4 by head dim and
@@ -6702,6 +7015,39 @@ def main() -> int:
         wide_by_path.setdefault("quant_matmul@granite-8b", {})[
             "dryrun chip_decode"] = dryrun_runs["dryrun chip_decode"][0][
                 "quant_matmul"]
+    # the float32 paths, each variant from its counters: B2's float32
+    # branch by path and layout (granite-moe's float32 path serves the
+    # default int8 cache), B3's bf16 launches (smollm's layers, granite-
+    # moe's attention) join their entries, B3's float32 output by config
+    # (smollm's float32 paths have no experts); a float32 variant of two
+    # counters (paged, int4 weights) takes the smaller, as the media
+    # paths' do
+    c, pg, f = moe_f32
+    f32_by_path, f32_qmm, f32_w4 = {}, 0, min(f["quant_matmul"],
+                                             f["quant_matmul_w4"])
+    for path, run in f32_runs.items():
+        new_paths[path] = run[0]
+        launched["quant_matmul"] += run[0]["quant_matmul"]
+        f32_qmm += run[1]["quant_matmul"]
+        if path == "float32 paged":
+            launched["prefill_attention@paged-f32"] = min(
+                run[1]["prefill_attention"], run[2]["prefill_attention"])
+        else:
+            f32_by_path[path] = run[1]["prefill_attention"]
+            f32_w4 += min(run[1]["quant_matmul"], run[1]["quant_matmul_w4"])
+    launched.update({
+        "prefill_attention@f32": sum(f32_by_path.values()),
+        "prefill_attention@f32@D64": f["prefill_attention"],
+        "prefill_attention@paged-f32@D64": min(pg["prefill_attention"],
+                                               f["prefill_attention"]),
+        "quant_matmul@f32": f32_qmm, "quant_matmul@f32-w4": f32_w4})
+    for kernel, n in {
+            "quant_matmul@f32@granite-moe-3b-a800m": f["quant_matmul"],
+            "quant_matmul@granite-moe-3b-a800m":
+                c["quant_matmul"] - f["quant_matmul"],
+            "prefill_attention@D64": c["prefill_attention"],
+            "decode_attention@D64": c["decode_attention"]}.items():
+        wide_by_path.setdefault(kernel, {})["granite-moe float32"] = n
     launched["quant_matmul@acc"] = sum(acc_by_path.values())
     launched[partials] = sum(sp_paths.values())
     launched["quant_matmul"] += sum(sp_runs[p][0]["quant_matmul"]
@@ -6720,6 +7066,10 @@ def main() -> int:
             e["launches_by_path"] = sp_paths
         if kernel == "prefill_attention@bf16":
             e["launches_by_path"] = bf16_by_path
+        if kernel == "prefill_attention@f32":
+            e["launches_by_path"] = f32_by_path
+        if kernel == "prefill_attention@paged-f32":
+            e["launches_by_path"] = {"float32 paged": launched[kernel]}
         if kernel == "prefill_attention@verify":
             e["launches_by_path"] = verify_by_path
         if kernel == "prefill_attention@verify-int4":

@@ -97,12 +97,11 @@ def engine_expected(engine, entry: str, passes: Optional[int] = None
     """The launch counters ``entry`` (a ``PASSES`` key) on ``engine``
     advances (``kernel_contracts.expected_launches``), or None where the
     formula does not reach: a stack other than attention-only text layers
-    without windows or experts."""
+    without windows, each with a dense FFN or a mixture of experts."""
     from repro_torch.models.transformer import attention_only
 
     cfg = engine.cfg
-    if (not attention_only(cfg) or cfg.n_experts
-            or cfg.ffn not in ("swiglu", "gelu")
+    if (not attention_only(cfg) or cfg.ffn not in ("swiglu", "gelu", "moe")
             or any(cfg.attn_window(i) is not None
                    for i in range(cfg.n_layers))):
         return None
@@ -112,8 +111,10 @@ def engine_expected(engine, entry: str, passes: Optional[int] = None
         cfg.n_layers, kind, n if passes is None else passes,
         tp=getattr(engine, "tp", 1), sp=getattr(engine, "sp", 1),
         kv_bits=engine.policy.kv_bits, kv_float=not engine.policy.kv_int8,
-        int8=engine.mode == "int8",
-        projections=7 if cfg.ffn == "swiglu" else 6,
+        f32=cfg.dtype == torch.float32, int8=engine.mode == "int8",
+        # the attention's four projections and the FFN's (or the experts')
+        projections={"swiglu": 7, "gelu": 6, "moe": 4}[cfg.ffn],
+        experts=cfg.n_experts if cfg.ffn == "moe" else 0,
         readout="w_q" in head,
         # a one-shot prefill attends the prompt's own tiles, the other
         # entries the cache (through its block table when paged)

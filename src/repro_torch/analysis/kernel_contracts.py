@@ -33,10 +33,12 @@ the ``ctypes`` bindings of the CUDA sources.
     An entry point's kernel calls, or (on the card) the launch counters'
     delta around it, differ from the counts its structure implies
     (``expected_launches``): B3 7 x L per pass over the token positions (5
-    x L and B3's int32-accumulator branch 2 x tp x L under tp), B2 L per
-    prefill pass, chunk or verify window, B1 L per decode step, B4 sp x L
-    per sequence-parallel decode step, and the int4 and bf16 variants'
-    counters on their variants.
+    x L and B3's int32-accumulator branch 2 x tp x L under tp; 4 x L and
+    3 x E x L expert products on a mixture-of-experts stack of E experts),
+    B2 L per prefill pass, chunk or verify window, B1 L per decode step, B4
+    sp x L per sequence-parallel decode step, and the int4, bf16 and
+    float32 variants' counters on their variants (B2 over a bf16 or a
+    float32 cache, B3's float32 output: a float32 config's experts).
 
 **Source pass** (``check_kernel_sources``), with no card needed:
 
@@ -230,7 +232,8 @@ def launch_keys(kc) -> list[tuple]:
         if kc.attrs.get("acc"):
             return [(k, "launches_acc")]
         return [(k, "launches")] + (
-            [(k, "launches_w4")] if kc.attrs.get("w_bits") == 4 else [])
+            [(k, "launches_w4")] if kc.attrs.get("w_bits") == 4 else []) + (
+            [(k, "launches_f32")] if kc.attrs.get("out_f32") else [])
     if k not in ATTENTION:
         return [(k, "launches")]
     keys = [(k, "launches")]
@@ -241,6 +244,8 @@ def launch_keys(kc) -> list[tuple]:
     if k == "prefill_attention":
         if kc.operands["k"].dtype == torch.bfloat16:
             keys.append((k, "launches_bf16"))
+        if kc.operands["k"].dtype == torch.float32:
+            keys.append((k, "launches_f32"))
         if kc.attrs.get("window") is not None:
             keys.append((k, "launches_window"))
     return keys
@@ -262,19 +267,24 @@ def recorded_launches(rec) -> dict:
 
 def expected_launches(n_layers: int, kind: str, passes: int, *,
                       tp: int = 1, sp: int = 1, kv_bits: int = 8,
-                      kv_float: bool = False, int8: bool = True,
-                      projections: int = 7, row_parallel: int = 2,
+                      kv_float: bool = False, f32: bool = False,
+                      int8: bool = True, projections: int = 7,
+                      experts: int = 0, row_parallel: int = 2,
                       readout: bool = False, paged: bool = False) -> dict:
     """The launch counters ``passes`` passes of kind "prefill" (a prompt or
     one chunk of it), "decode" (one token) or "verify" (one speculative
     window) over ``n_layers`` attention layers (no window, no experts)
     advance: B3 once per quantized projection (``projections`` a layer;
     under tp its ``row_parallel`` ones through the int32-accumulator
-    branch, once per shard, and one reduce each), and once per readout
+    branch, once per shard, and one reduce each) and three times per
+    expert (``experts`` a layer: gate, up and down, each expert launched
+    whether or not it got tokens; through B3's float32 output where ``f32``,
+    a float32 config), and once per readout
     where the readout is a quantized ``lm_head`` (``readout``: once per
     prefill, chunked or not, and once per decode step or verify window);
     and the layer's attention kernel: B2 for a prefill pass (its bf16
-    branch over a float cache) and for a verify window over a quantized
+    branch over a float cache, its float32 one over a float32 cache:
+    ``kv_float`` and ``f32``) and for a verify window over a quantized
     cache, B1 for a decode step over a quantized cache (B4 once per
     sequence shard), nothing where the attention is plain (a float cache's
     decode and verify, a sequence-parallel prefill or verify); ``paged``:
@@ -290,7 +300,10 @@ def expected_launches(n_layers: int, kind: str, passes: int, *,
             n[("quant_matmul", "launches_acc")] = row_parallel * tp * per
             n[("compressed_psum", "reduces")] = row_parallel * per
         else:
-            n[("quant_matmul", "launches")] = projections * per + heads
+            n[("quant_matmul", "launches")] = (projections + 3 * experts) \
+                * per + heads
+            if f32:
+                n[("quant_matmul", "launches_f32")] = 3 * experts * per
     attn = None
     if kind == "prefill" and sp == 1:
         attn = "prefill_attention"
@@ -304,7 +317,7 @@ def expected_launches(n_layers: int, kind: str, passes: int, *,
         if paged:
             n[(attn, "launches_paged")] = m
         if kv_float:
-            n[(attn, "launches_bf16")] = m
+            n[(attn, "launches_f32" if f32 else "launches_bf16")] = m
         elif kv_bits == 4:
             n[(attn, "launches_int4")] = m
     return {k: v for k, v in n.items() if v}

@@ -431,9 +431,7 @@ def _expert_int8(x, w_q, w_scale, astate, aspec: Q.QuantSpec, dtype):
     launch per expert on that expert's contiguous rows, each writing its
     slice of one (E, M, out) output in ``dtype``, the layer's, as the
     reference's einsum returns it (x may be the float32 product the
-    reference quantizes unrounded).  The kernel emits bf16: a float32
-    config's experts take the plain version with a float32 output, on the
-    CPU only (ROADMAP Queue B).
+    reference quantizes unrounded): the kernel's bf16 or float32 output.
 
     The reference quantizes ``clip(round(x * s_x), qmin, qmax)`` and casts
     to int8, saturating at ±127; the kernel rounds ``x * s_x`` and clips to
@@ -441,15 +439,11 @@ def _expert_int8(x, w_q, w_scale, astate, aspec: Q.QuantSpec, dtype):
     qmax / s_x] where that range is narrower than the kernel's (the
     asymmetric scheme's qmin 0, the 4-bit levels): round is monotone, and
     an end within an ulp of its integer still rounds to it.  Its compiled
-    graph divides ``w_scale / s_x`` as one IEEE division (the Dense path's
-    fused kernel call compiles otherwise, see ``_int8_matmul``), and a
-    scalar-mode ``w_scale`` broadcasts over every (expert, channel)."""
-    from repro_torch.kernels import ops, ref
+    graph divides ``w_scale / s_x`` as one IEEE division
+    (``_dequant_scale``), and a scalar-mode ``w_scale`` broadcasts over
+    every (expert, channel)."""
+    from repro_torch.kernels import ops
 
-    if dtype != torch.bfloat16 and x.device.type != "cpu":
-        raise NotImplementedError(
-            f"the fused kernel emits bf16: {dtype} int8 experts serve on "
-            f"the CPU only (ROADMAP Queue B)")
     t_adj = torch.clamp_min(
         Q.adjusted_threshold(astate["t_max"], astate["alpha"], aspec), 1e-8)
     if t_adj.ndim:
@@ -467,21 +461,14 @@ def _expert_int8(x, w_q, w_scale, astate, aspec: Q.QuantSpec, dtype):
     if hi != 127.0:
         x = torch.minimum(x, Q.rdiv(hi, s_x).to(x.dtype))
     n_exp, m, _ = x.shape
-    w_scale = w_scale.float().expand(n_exp, w_q.shape[-1])
-    # a true division by a materialized divisor: PyTorch's CPU kernel
-    # multiplies by the reciprocal of a divisor that broadcasts from one
-    # value
-    scale = w_scale / s_x.float().expand_as(w_scale).contiguous()
+    scale = _dequant_scale(w_scale.float().expand(n_exp, w_q.shape[-1]),
+                           s_x)
     x = x.contiguous()
     out = torch.empty((n_exp, m, w_q.shape[-1]), dtype=dtype,
                       device=x.device)
     act_scale = s_x.float()
     for e in range(n_exp):
-        if dtype == torch.bfloat16:
-            ops.quant_matmul(x[e], w_q[e], scale[e], act_scale, out=out[e])
-        else:
-            out[e] = ref.quant_matmul_ref(x[e], w_q[e], scale[e], act_scale,
-                                          out_dtype=dtype)
+        ops.quant_matmul(x[e], w_q[e], scale[e], act_scale, out=out[e])
     return out
 
 
@@ -522,6 +509,16 @@ def _act_scale(astate, aspec: Q.QuantSpec, w_scale):
     return t_adj, Q.rdiv(aspec.levels, t_adj)
 
 
+def _dequant_scale(w_scale, s_x):
+    """The combined per-channel dequant ``w_scale / s_x`` in float32, one
+    IEEE division a channel: the form the reference's compiled graph
+    evaluates (an XLA ``divide`` by the broadcast ``s_x``).  The divisor is
+    materialized: PyTorch's CPU kernel multiplies by the reciprocal of a
+    divisor that broadcasts from one value."""
+    w_scale = w_scale.float()
+    return w_scale / s_x.float().expand_as(w_scale).contiguous()
+
+
 def _int8_matmul_tp(x, w_q, w_scale, astate, aspec: Q.QuantSpec, *,
                     tp: int, key: str, mesh=None):
     """The row-parallel epilogue (the reference's ``_int8_matmul`` with a
@@ -532,7 +529,7 @@ def _int8_matmul_tp(x, w_q, w_scale, astate, aspec: Q.QuantSpec, *,
     the weight rows [k0, k1) read in place, or all of K where the weight is
     replicated), by B3's int32-accumulator branch into one stacked (tp, M,
     N) buffer; their exact sum (``compressed_psum``); one dequant with the
-    combined scale in ``_int8_matmul``'s float32 form.  These are the
+    combined scale ``_dequant_scale``.  These are the
     reference's bits in float32; in bf16 its XLA fusions keep some
     roundings out (ROADMAP Queue C), and this path equals the port's
     unsharded one bit for bit.  On a rank of a rank mesh (``mesh``), ``x``
@@ -542,7 +539,7 @@ def _int8_matmul_tp(x, w_q, w_scale, astate, aspec: Q.QuantSpec, *,
     from repro_torch.dist.sharding import tp_row_slices
     from repro_torch.kernels import ops
 
-    t_adj, s_x = _act_scale(astate, aspec, w_scale)
+    _, s_x = _act_scale(astate, aspec, w_scale)
     k, n = w_q.shape
     lead = x.shape[:-1]
     x_q = torch.clamp(torch.round(x.reshape(-1, k).float() * s_x),
@@ -557,8 +554,7 @@ def _int8_matmul_tp(x, w_q, w_scale, astate, aspec: Q.QuantSpec, *,
         for i, (k0, k1) in enumerate(tp_row_slices(key, k, tp)):
             ops.quant_matmul_acc(x_q, w_q, k0, k1, out=parts[i])
         acc = compressed_psum(parts, mean=False)
-    combined = (w_scale * t_adj) * (1.0 / aspec.levels)
-    y = acc.float() * combined.float()
+    y = acc.float() * _dequant_scale(w_scale, s_x)
     return y.reshape(*lead, n).to(x.dtype)
 
 
@@ -575,11 +571,8 @@ def _int8_matmul(x, w_q, w_scale, astate, aspec: Q.QuantSpec):
     reference."""
     from repro_torch.kernels import ops
 
-    t_adj, s_x = _act_scale(astate, aspec, w_scale)
-    # w_scale / s_x, evaluated as (w_scale * T_adj) * (1 / levels): the
-    # float32 expression the reference's compiled graph evaluates for it,
-    # so both packages dequantize with the same bits
-    combined = (w_scale * t_adj) * (1.0 / aspec.levels)
+    _, s_x = _act_scale(astate, aspec, w_scale)
+    combined = _dequant_scale(w_scale, s_x)
     if combined.ndim == 0:
         combined = combined.expand(w_q.shape[-1])
     lead = x.shape[:-1]

@@ -1,4 +1,5 @@
-// Flash-prefill attention over a quantized or bf16 K/V stream, for Hopper (sm_90a).
+// Flash-prefill attention over a quantized, bf16 or float32 K/V stream, for Hopper
+// (sm_90a).
 //
 //   out[b, i, h, g] = v_scale[h] * softmax_{k visible to i}((q[b, i, h, g] * k_scale[h]
 //                     / sqrt(D)) . K[b, k, h]) @ V[b, :, h]
@@ -6,8 +7,9 @@
 //   a row with no visible key is zeros.
 // K/V hold int8 values (bits == 8), int4 values packed two per byte along D
 // (bits == 4: element 2i in the low nibble of byte i, D/2 bytes a row) or bf16
-// values (bits == 16: 2 D bytes a row; a float cache, served with k_scale ==
-// v_scale == 1).  They are a dense (B, Sk, KV, D) stream (table == nullptr), or
+// values (bits == 16: 2 D bytes a row) or float32 values (bits == 32: 4 D bytes a
+// row; bits 16 and 32 are a float cache, served with k_scale == v_scale == 1).
+// They are a dense (B, Sk, KV, D) stream (table == nullptr), or
 // a paged pool (pages, P, KV, D) with a (B, NB) block table: key position t of
 // request b is pool row table[b * NB + t / P] * P + t % P.
 //
@@ -51,6 +53,27 @@
 //    float32's own rounding.  The pieces go one a pass over the key step
 //    (the scores keep what is left), so one piece is live at a time: the
 //    D <= 64 variants stay within their 128 registers.
+//  - A float32 K/V stream (bits == 32, D <= 128) is not exact in bf16 or fp16, so
+//    both products run as 3xTF32 (the split CUTLASS uses for float32 GEMMs):
+//    mma.sync.m16n8k8 with tf32 operands, each float32 operand x split into
+//    big = tf32(x) and small = tf32(x - big) (round to nearest, x - big exact),
+//    and a.b as big.big + big.small + small.big.  Each operand's split leaves
+//    |x - big - small| <= 2^-22 |x|, the dropped small.small term is below
+//    2^-22 |a.b|, so each product term carries at most ~3 x 2^-22 of its size
+//    (every sum accumulates in float32): 7e-7 relative, against the plain
+//    float32 version's 2^-24 rounding.  The scores' error is at most 7e-7 x
+//    sum |q k| / sqrt(D) (log units), P @ V's at most 7e-7 x sum p |v|, both
+//    well inside the tolerance 1e-5 x (1 + max |out|).  Rows are float32 in
+//    shared memory, copied by cp.async as they are (K rows LDK = 8 mod 32
+//    floats apart, V rows LDV = 4 mod 16: conflict-free fragment loads), q is
+//    staged once as big and small words; each lane splits its K and V words as
+//    it loads them.  The contraction order within an MMA is free, so the k8
+//    step's logical column j is D column 2j (j < 4) or 2(j - 4) + 1: a lane's
+//    q and K words are float2 neighbours, and P's C fragment (keys 2t, 2t + 1)
+//    is the tf32 A fragment as it stands, with V's rows 2t and 2t + 1.  The
+//    float32 tiles take twice the bf16 stream's shared memory, so a row group's
+//    keys are split over half as many warps (2 at D <= 64, 1 at D <= 128); the
+//    wide library (D > 128) has no float32 branch: its tiles would not fit.
 //  - The online softmax runs in registers: a lane holds 2 rows x 16 keys of
 //    its 64; a row's max and sum meet across the 4 lanes of a quad.  Masked
 //    keys get -inf, so p = 0 and they take no part in the max (a 64-key
@@ -102,8 +125,17 @@ constexpr int NKT = HALF / 8;          // n8 key tiles of a warp's scores
 // warps a row group's keys are split over: 4 at D <= 64 (16 warps and 128
 // registers a thread), 2 at D <= 128 (whose accumulator needs more), 1 past
 // it (a lane's accumulator is up to 128 floats, and one step of 64 keys
-// fills shared memory)
-__host__ __device__ constexpr int parts(int dch) { return dch == 1 ? 4 : dch == 2 ? 2 : 1; }
+// fills shared memory); half of that over a float32 stream (bits == 32),
+// whose tiles take twice the shared memory
+__host__ __device__ constexpr int parts(int dch, int bits) {
+  return (dch == 1 ? 4 : dch == 2 ? 2 : 1) / (bits == 32 ? 2 : 1);
+}
+
+// float32 row strides (floats) of the bits == 32 tiles: K (and q) rows 8 mod
+// 32 floats apart, V rows 4 mod 16 apart, each at least D; both multiples of
+// 4 (16-byte cp.async rows)
+__host__ __device__ constexpr int ld_k32(int d) { return (d + 23) / 32 * 32 + 8; }
+__host__ __device__ constexpr int ld_v32(int d) { return (d + 11) / 16 * 16 + 4; }
 
 // 16-bit tile row stride for D16 = D rounded up to 16: 16 bytes of padding
 // (conflict-free ldmatrix), but none for a float32 q over int8 K/V at D16 >
@@ -219,6 +251,31 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a @ b: m16n8k8, tf32 operands, float32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// big = tf32(x), small = tf32(x - big), both rounded to nearest (x - big is exact)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(x - __uint_as_float(big)));
+}
+
+// a += p.q, three tf32 products (big.big + big.small + small.big), the small
+// ones first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], uint32_t bb0,
+                                           uint32_t bb1, uint32_t bs0, uint32_t bs1) {
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+}
+
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -268,11 +325,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // DCH: 64-wide chunks of the head dim held in registers (D <= 64 * DCH);
-// BITS: storage of K/V (8 int8, 4 packed int4, 16 bf16); PAGED: K/V are page
+// BITS: storage of K/V (8 int8, 4 packed int4, 16 bf16, 32 float32); PAGED: K/V are page
 // pools read through the block table (else a dense (B, Sk, KV, D) stream).
 // k and v are addressed in bytes.
 template <typename T, int DCH, int BITS, bool PAGED>
-__global__ void __launch_bounds__(32 * ROW_WARPS * parts(DCH), 1)
+__global__ void __launch_bounds__(32 * ROW_WARPS * parts(DCH, BITS), 1)
 prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                          const int8_t* __restrict__ v,
                          const float* __restrict__ k_scale,
@@ -284,8 +341,9 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                          int causal, int window, int NB, int P, int n_pages,
                          int cw) {
   constexpr bool QF32 = std::is_same<T, float>::value;
-  constexpr bool DIRECT = BITS == 16;  // bf16 rows go straight into the tiles
-  constexpr int PARTS = parts(DCH);
+  constexpr bool DIRECT = BITS >= 16;  // bf16 and float32 rows go straight into the tiles
+  constexpr bool F32KV = BITS == 32;   // float32 K/V: 3xTF32 products
+  constexpr int PARTS = parts(DCH, BITS);
   constexpr int NT = 32 * ROW_WARPS * PARTS;  // threads
   constexpr int BK = HALF * PARTS;            // keys staged per step
   constexpr int KSM = 4 * DCH;  // 16-wide k-steps of the score MMA, at most
@@ -312,7 +370,14 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   uint16_t* qs = vs + 2 * BK * LDT;  // [ROWS][LDT] q, bf16 (hi), then [ROWS][LDT] lo
   int8_t* kraw = reinterpret_cast<int8_t*>(qs + (QF32 ? 2 : 1) * ROWS * LDT);  // [BK][DP]
   int8_t* vraw = kraw + (DIRECT ? 0 : BK * DP);                 // [BK][DP] raw V
-  size_t* koff = reinterpret_cast<size_t*>(vraw + (DIRECT ? 0 : BK * DP));  // [BK] (PAGED)
+  // F32KV: [2][BK][LDK] K, [2][BK][LDV] V, then q as [ROWS][LDK] big and
+  // [ROWS][LDK] small tf32 words, in place of all the above
+  const int LDK = ld_k32(D), LDV = ld_v32(D);
+  float* kf = reinterpret_cast<float*>(smem);
+  float* vf = kf + 2 * BK * LDK;
+  uint32_t* qf32 = reinterpret_cast<uint32_t*>(vf + 2 * BK * LDV);
+  size_t* koff = reinterpret_cast<size_t*>(  // [BK] (PAGED)
+      F32KV ? reinterpret_cast<int8_t*>(qf32 + 2 * ROWS * LDK) : vraw + (DIRECT ? 0 : BK * DP));
 
   const int i0 = qt * BQ;                  // first query index of the tile
   const int n_pos = min(BQ, Sq - i0);      // real query positions in the tile
@@ -348,6 +413,13 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
       const bool ok = k0 + t < k_end;
       size_t off = (size_t)x * cw;
       if (ok) off += PAGED ? koff[t] : (((size_t)b * Sk + k0 + t) * KV + h) * DP;
+      if constexpr (F32KV) {
+        cp_async(reinterpret_cast<int8_t*>(kf + (buf * BK + t) * LDK) + x * cw, k + off, cw,
+                 ok ? cw : 0);
+        cp_async(reinterpret_cast<int8_t*>(vf + (buf * BK + t) * LDV) + x * cw, v + off, cw,
+                 ok ? cw : 0);
+        continue;
+      }
       const int at = DIRECT ? 2 * (buf * BK + t) * LDT + x * cw : t * DP + x * cw;
       int8_t* kdst = DIRECT ? reinterpret_cast<int8_t*>(ks) : kraw;
       int8_t* vdst = DIRECT ? reinterpret_cast<int8_t*>(vs) : vraw;
@@ -359,29 +431,34 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
 
   // q, unscaled, to registers first (its loads depend on nothing before
   // them), then to shared memory as bf16 pairs (a float32 q as hi and lo
-  // parts) once the first K/V copy is issued; zeros past D and the real
-  // rows.  In rounds of QUB pairs a thread (one round up to D = 128).
+  // parts; F32KV: big and small tf32 words) once the first K/V copy is
+  // issued; zeros past D and the real rows.  In rounds of QUB pairs a thread
+  // (one round up to D = 128).
   constexpr int QU = ROWS * 32 * DCH / NT;  // pairs a thread stages, at most
   constexpr int QUB = DCH <= 2 ? QU : 16;   // ... a round
-  const int pairs = D16 / 2;
+  const int pairs = F32KV ? D / 2 : D16 / 2;
 #pragma unroll 1
   for (int u0 = 0; u0 < QU; u0 += QUB) {
     uint32_t qv[QUB];
-    float qf[QF32 ? QUB : 1][2];
-    int qat[QUB];  // the pair's offset in qs, or -1
+    float qf[QF32 || F32KV ? QUB : 1][2];
+    int qat[QUB];  // the pair's offset in qs (F32KV: qf32), or -1
 #pragma unroll
     for (int u = 0; u < QUB; ++u) {
       const int i = tid + (u0 + u) * NT;
       const int r = i / pairs, c = 2 * (i - r * pairs);
       const int qi = i0 + r / G;
       const bool ok = r < rows && c < D && qi < Sq;
-      qat[u] = u0 + u < QU && r < ROWS ? r * LDT + c : -1;
+      qat[u] = u0 + u < QU && r < ROWS ? r * (F32KV ? LDK : LDT) + c : -1;
       const T* p = q + ((((size_t)b * Sq + qi) * KV + h) * G + r % G) * D + c;
       if constexpr (QF32) {
         qf[u][0] = ok ? p[0] : 0.f;
         qf[u][1] = ok ? p[1] : 0.f;
       } else {
         qv[u] = ok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+        if constexpr (F32KV) {
+          qf[u][0] = __uint_as_float(qv[u] << 16);
+          qf[u][1] = __uint_as_float(qv[u] & 0xffff0000u);
+        }
       }
     }
     if (u0 == 0) {
@@ -393,7 +470,7 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
         }
         issue(k_first, 0);
       }
-      if constexpr (DIRECT) {
+      if constexpr (BITS == 16) {
         // no copy writes the padding columns D..D16 of a bf16 tile: zero
         // them once, in both buffers
         if (D16 != D) {
@@ -408,6 +485,14 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < QUB; ++u) {
       if (qat[u] < 0) continue;
+      if constexpr (F32KV) {
+        uint32_t b0, s0, b1, s1;
+        split_tf32(qf[u][0], b0, s0);
+        split_tf32(qf[u][1], b1, s1);
+        *reinterpret_cast<uint2*>(qf32 + qat[u]) = make_uint2(b0, b1);
+        *reinterpret_cast<uint2*>(qf32 + ROWS * LDK + qat[u]) = make_uint2(s0, s1);
+        continue;
+      }
       if constexpr (QF32) {
         uint32_t lo;
         split_bf16(qf[u][0], qf[u][1], qv[u], lo);
@@ -517,9 +602,36 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
       for (int n = 0; n < NKT; ++n)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[n][j] = 0.f;
+      if constexpr (F32KV) {
+        // k8 step st: lane (g, tig) holds q rows g, g + 8 and key g of each
+        // key tile at D columns 8 st + 2 tig, + 1 (the A / B columns tig and
+        // tig + 4)
+        const uint32_t* qrow = qf32 + (wr * 16 + g) * LDK + 2 * tig;
+        const float* krow = kf + (buf * BK + HALF * kh + g) * LDK + 2 * tig;
+#pragma unroll
+        for (int st = 0; st < NDM; ++st) {
+          if (st < ND) {
+            const uint2 b0 = *reinterpret_cast<const uint2*>(qrow + 8 * st);
+            const uint2 b1 = *reinterpret_cast<const uint2*>(qrow + 8 * LDK + 8 * st);
+            const uint2 s0 = *reinterpret_cast<const uint2*>(qrow + ROWS * LDK + 8 * st);
+            const uint2 s1 =
+                *reinterpret_cast<const uint2*>(qrow + (ROWS + 8) * LDK + 8 * st);
+            const uint32_t qbig[4] = {b0.x, b1.x, b0.y, b1.y};
+            const uint32_t qsmall[4] = {s0.x, s1.x, s0.y, s1.y};
+#pragma unroll
+            for (int n = 0; n < NKT; ++n) {
+              const float2 kw = *reinterpret_cast<const float2*>(krow + 8 * n * LDK + 8 * st);
+              uint32_t kb0, ks0, kb1, ks1;
+              split_tf32(kw.x, kb0, ks0);
+              split_tf32(kw.y, kb1, ks1);
+              mma_3xtf32(s[n], qbig, qsmall, kb0, kb1, ks0, ks1);
+            }
+          }
+        }
+      }
 #pragma unroll
       for (int st = 0; st < KSM; ++st) {
-        if (st < KS) {
+        if (!F32KV && st < KS) {
           // q's A fragment: rows 16 wr + (lane & 15), columns 16 st + 8 (lane >> 4)
           uint32_t qa[4];
           const uint16_t* qrow = qs + (wr * 16 + (lane & 15)) * LDT + 16 * st + 8 * (lane >> 4);
@@ -601,8 +713,31 @@ prefill_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
       // 16-key step kk, split into hi + lo fp16 (DIRECT: hi + mid + lo bf16,
       // one piece a pass: each pass rounds what the scores still hold and
       // leaves the rest in them, so only one piece is live at a time)
+      if constexpr (F32KV) {
+        // key tile n: P's C fragment (keys 2 tig, 2 tig + 1 of rows g, g + 8)
+        // is the A fragment; V rows 2 tig and 2 tig + 1 at column g of each
+        // column tile are B's
+        const float* vrow = vf + (buf * BK + HALF * kh + 2 * tig) * LDV + g;
 #pragma unroll
-      for (int kk = 0; kk < NKT / 2; ++kk) {
+        for (int n = 0; n < NKT; ++n) {
+          uint32_t pb[4], ps[4];
+          split_tf32(s[n][0], pb[0], ps[0]);
+          split_tf32(s[n][2], pb[1], ps[1]);
+          split_tf32(s[n][1], pb[2], ps[2]);
+          split_tf32(s[n][3], pb[3], ps[3]);
+#pragma unroll
+          for (int j = 0; j < NDM; ++j) {
+            if (j < ND) {
+              uint32_t vb0, vs0, vb1, vs1;
+              split_tf32(vrow[8 * n * LDV + 8 * j], vb0, vs0);
+              split_tf32(vrow[(8 * n + 1) * LDV + 8 * j], vb1, vs1);
+              mma_3xtf32(acc[j], pb, ps, vb0, vb1, vs0, vs1);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < (F32KV ? 0 : NKT / 2); ++kk) {
         if constexpr (DIRECT) {
           constexpr int NP = 3;
 #pragma unroll
@@ -739,7 +874,7 @@ int launch_variant(const void* q, const void* k, const void* v, const void* k_sc
                    const void* v_scale, const void* q_start, const void* kv_len,
                    void* out, int B, int Sq, int Sk, int KV, int G, int D, int causal,
                    int window, Paging pg, cudaStream_t stream) {
-  constexpr int PARTS = parts(DCH);
+  constexpr int PARTS = parts(DCH, BITS);
   constexpr int BK = HALF * PARTS;
   const int BQ = ROWS / G > 0 ? ROWS / G : 1;
   const int LDT = tile_ld((D + 15) & ~15, std::is_same<T, float>::value, BITS);
@@ -751,9 +886,12 @@ int launch_variant(const void* q, const void* k, const void* v, const void* k_sc
   const int q_tiles = std::is_same<T, float>::value ? 2 : 1;
   // a bf16 stream (BITS == 16) is copied straight into the tiles: no raw
   // buffers
-  const size_t tiles = sizeof(uint16_t) * (4 * BK + q_tiles * ROWS) * LDT +
-                       (BITS == 16 ? 0 : 2 * (size_t)BK * DP) +
-                       (PAGED ? sizeof(size_t) * BK : 0);
+  // a float32 stream (BITS == 32) into float32 tiles, q as two word tiles
+  const size_t tiles =
+      (BITS == 32 ? sizeof(float) * (2 * BK * (ld_k32(D) + ld_v32(D)) + 2 * ROWS * ld_k32(D))
+                  : sizeof(uint16_t) * (4 * BK + q_tiles * ROWS) * LDT +
+                        (BITS == 16 ? 0 : 2 * (size_t)BK * DP)) +
+      (PAGED ? sizeof(size_t) * BK : 0);
   // the merge's hand-over, (PARTS - 1) x [ROW_WARPS][NV][32] floats, reuses
   // that space
   const size_t xfer = sizeof(float) * (PARTS - 1) * ROW_WARPS * (32 * DCH + 4) * 32;
@@ -820,13 +958,19 @@ int dispatch_bits(const void* q, const void* k, const void* v, const void* ks,
   if (bits == 16)
     return dispatch<T, 16>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G, D,
                            causal, window, pg, st);
+  if constexpr (!REPRO_WIDE) {  // the wide library has no float32 branch
+    if (bits == 32)
+      return dispatch<T, 32>(q, k, v, ks, vs, q_start, kv_len, out, B, Sq, Sk, KV, G, D,
+                             causal, window, pg, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q: (B, Sq, KV, G, D) f32 (q_bf16 == 0) or bf16; bits, the K/V storage code:
-// 8 int8, 4 packed int4, 16 bf16; k/v: (B, Sk, KV, D) int8 or bf16, or (B, Sk,
+// 8 int8, 4 packed int4, 16 bf16, 32 float32 (not in the REPRO_WIDE library);
+// k/v: (B, Sk, KV, D) int8, bf16 or float32, or (B, Sk,
 // KV, D/2) packed int4, when table is null, else pools (n_pages, P, KV, D or
 // D/2) read through the (B, NB) int32 block table, with Sk == NB * P;
 // k_scale/v_scale: (KV,) f32; q_start, kv_len: (B,) int32; window <= 0 means no

@@ -1,7 +1,10 @@
 // Fused int8 serving matmul for Hopper (sm_90a): FAT int8 mode, paper §2 / eq. 20.
 //
-//   y[m, n] = bf16( float( sum_k int8(clip(rint(x[m, k] * act_scale), ±127)) * w_q[k, n] )
-//                   * w_scale[n] )
+//   y[m, n] = O( float( sum_k int8(clip(rint(x[m, k] * act_scale), ±127)) * w_q[k, n] )
+//                * w_scale[n] )
+//
+// O, the output type, is bf16 or float32 (the TPU kernel's out_dtype): float32 stores
+// the product float(acc) * w_scale[n] as it is, with no bf16 rounding.
 //
 // Replaces the TPU kernel src/repro/kernels/quant_matmul.py::quant_matmul (body
 // `_kernel`, both w_bits branches); unlike it, this kernel masks ragged M, N and K.
@@ -38,7 +41,8 @@
 //    high nibble of row r (core/packing.py::unpack_int4(axis=0)), copied as they are.
 //    p & 0xF0 and (p << 4) & 0xF0 are 16 x the nibbles, exact as int8; the sums are
 //    16 x the int8 branch's (exact for K < 2^31 / (16 * 127 * 8)), shifted back by 4.
-//  - Epilogue: float(acc) * w_scale[n], rounded once to bf16, as the plain version.
+//  - Epilogue: float(acc) * w_scale[n] (one __fmul_rn), rounded once to bf16 (16 bytes
+//    a row group), or stored as float32 (32 bytes), as the plain version.
 //  - Edges: rows past M and k past K quantize zeros, weights past K or N are zero-
 //    filled, rows and columns past M and N are not stored.  K, N or pointers that do
 //    not allow 16-byte pieces take the NARROW variant (element-wise staging).
@@ -71,7 +75,8 @@
 //    A cluster barrier, arrived when the first loads are out and waited on before
 //    the first st.async, makes sure every inbox barrier is set up.  The owner adds
 //    its C entries and stores float(acc) * w_scale[n], one bf16 rounding, four
-//    columns (8 bytes) a thread.  No global scratch, no counter.
+//    columns (8 bytes) a thread, or the float32 products (16 bytes).  No global
+//    scratch, no counter.
 //  - Edges: weights past K or N are zero-filled, x rows past M quantize zeros, rows
 //    and columns past M and N are not stored.
 //
@@ -229,9 +234,10 @@ __host__ __device__ constexpr int threads() {
 
 // BM x BN output tile, warps of 16*MT rows x 32 columns; VEC: 16-byte staging
 // (x loaded one step ahead into registers, weights by cp.async), else
-// element-wise.  x rows are ldx elements apart.  T = int8_t: the
-// int32-accumulator branch (x already quantized, int32 out, no scale)
-template <typename T, int WB, int BM, int BN, int MT, bool VEC>
+// element-wise.  x rows are ldx elements apart; O the output type (bf16 or
+// float).  T = int8_t: the int32-accumulator branch (x already quantized,
+// int32 out, O = int, no scale)
+template <typename T, typename O, int WB, int BM, int BN, int MT, bool VEC>
 __global__ void __launch_bounds__(threads<BM, BN, MT>(), 2)
 quant_matmul_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                         const float* __restrict__ w_scale,
@@ -430,22 +436,36 @@ quant_matmul_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
     for (int hr = 0; hr < 2; ++hr) {
       const int row = m0 + wm * 16 * MT + mt * 16 + g + 8 * hr;
       if (row >= M) continue;
-      __align__(16) __nv_bfloat162 v[4];
+      __align__(16) float f[8];
 #pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        int a0 = acc[mt][j & 3][2 * hr + (j >> 2)];
-        int a1 = acc[mt][(j + 1) & 3][2 * hr + (j >> 2)];
-        if (WB == 4) a0 >>= 4, a1 >>= 4;
-        v[j / 2] = __floats2bfloat162_rn(__fmul_rn(static_cast<float>(a0), sc[j]),
-                                         __fmul_rn(static_cast<float>(a1), sc[j + 1]));
+      for (int j = 0; j < 8; ++j) {
+        int a = acc[mt][j & 3][2 * hr + (j >> 2)];
+        if (WB == 4) a >>= 4;
+        f[j] = __fmul_rn(static_cast<float>(a), sc[j]);
       }
-      __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + (size_t)row * N + ncol;
-      if constexpr (VEC) {
-        if (ncol < N) *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(v);
-      } else {
+      O* o = static_cast<O*>(out) + (size_t)row * N + ncol;
+      if constexpr (std::is_same<O, float>::value) {
+        if constexpr (VEC) {
+          if (ncol < N) {
+            reinterpret_cast<float4*>(o)[0] = reinterpret_cast<const float4*>(f)[0];
+            reinterpret_cast<float4*>(o)[1] = reinterpret_cast<const float4*>(f)[1];
+          }
+        } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (ncol + j < N) o[j] = j & 1 ? v[j / 2].y : v[j / 2].x;
+          for (int j = 0; j < 8; ++j)
+            if (ncol + j < N) o[j] = f[j];
+        }
+      } else if constexpr (std::is_same<O, __nv_bfloat16>::value) {
+        __align__(16) __nv_bfloat162 v[4];
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) v[j / 2] = __floats2bfloat162_rn(f[j], f[j + 1]);
+        if constexpr (VEC) {
+          if (ncol < N) *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(v);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (ncol + j < N) o[j] = j & 1 ? v[j / 2].y : v[j / 2].x;
+        }
       }
     }
 }
@@ -459,8 +479,9 @@ constexpr int DEC_CMAX = 4;       // blocks a cluster, at most (8 is portable)
 // owns columns t*BN .. t*BN+BN-1 (BN = 1 << bn_log2) and k slice r*kc ..
 // r*kc+kc-1 (kc % 8 == 0, % 16 == 0 for int8 x), staged in stages of up to
 // DEC_SQ k quads; the cluster's C blocks share the tile (see the note).  x rows
-// are ldx elements apart; T = int8_t: the int32-accumulator branch.
-template <typename T, int WB, int MR>
+// are ldx elements apart; O the output type (bf16 or float); T = int8_t: the
+// int32-accumulator branch (O = int).
+template <typename T, typename O, int WB, int MR>
 __global__ void __launch_bounds__(DEC_NT, 1)
 quant_matmul_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                            const float* __restrict__ w_scale,
@@ -638,11 +659,15 @@ quant_matmul_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ w
       continue;
     }
     const float* f = sc + j;
-    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + (size_t)m * N + n) =
-        make_uint2(bf16_pair(__fmul_rn(static_cast<float>(t.x), f[0]),
-                             __fmul_rn(static_cast<float>(t.y), f[1])),
-                   bf16_pair(__fmul_rn(static_cast<float>(t.z), f[2]),
-                             __fmul_rn(static_cast<float>(t.w), f[3])));
+    const float4 y = make_float4(__fmul_rn(static_cast<float>(t.x), f[0]),
+                                 __fmul_rn(static_cast<float>(t.y), f[1]),
+                                 __fmul_rn(static_cast<float>(t.z), f[2]),
+                                 __fmul_rn(static_cast<float>(t.w), f[3]));
+    if constexpr (std::is_same<O, float>::value)
+      *reinterpret_cast<float4*>(static_cast<float*>(out) + (size_t)m * N + n) = y;
+    else if constexpr (std::is_same<O, __nv_bfloat16>::value)
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + (size_t)m * N + n) =
+          make_uint2(bf16_pair(y.x, y.y), bf16_pair(y.z, y.w));
   }
 }
 
@@ -661,7 +686,7 @@ int decode_cluster(int K) {
   return c;
 }
 
-template <typename T, int WB, int MR>
+template <typename T, typename O, int WB, int MR>
 cudaError_t launch_decode(const void* x, const void* w, const void* w_scale,
                           const void* act_scale, void* out, int M, int K, int N, int ldx,
                           cudaStream_t stream) {
@@ -683,37 +708,40 @@ cudaError_t launch_decode(const void* x, const void* w, const void* w_scale,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, quant_matmul_decode_kernel<T, WB, MR>,
+  return cudaLaunchKernelEx(&cfg, quant_matmul_decode_kernel<T, O, WB, MR>,
                             static_cast<const T*>(x), static_cast<const int8_t*>(w),
                             static_cast<const float*>(w_scale),
                             static_cast<const float*>(act_scale), out, M, K, N, bn_log2,
                             kc, ldx);
 }
 
-template <typename T, int WB, int BM, int BN, int MT, bool VEC>
+template <typename T, typename O, int WB, int BM, int BN, int MT, bool VEC>
 void launch(const void* x, const void* w, const void* w_scale, const void* act_scale,
             void* out, int M, int K, int N, int ldx, cudaStream_t stream) {
   constexpr int nt = threads<BM, BN, MT>();
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  quant_matmul_mma_kernel<T, WB, BM, BN, MT, VEC><<<grid, nt, 0, stream>>>(
+  quant_matmul_mma_kernel<T, O, WB, BM, BN, MT, VEC><<<grid, nt, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(w_scale), static_cast<const float*>(act_scale), out, M, K,
       N, ldx);
 }
 
-// x rows ldx elements apart (ldx == K but for a shard's K slice of int8 x)
-template <typename T, int WB>
+// x rows ldx elements apart (ldx == K but for a shard's K slice of int8 x); O the
+// output type
+template <typename T, typename O, int WB>
 cudaError_t dispatch(const void* x, const void* w, const void* w_scale,
                      const void* act_scale, void* out, int M, int K, int N, int ldx,
                      cudaStream_t stream) {
-  if (M <= 8 && N % 4 == 0 && K % 4 == 0 && K > 0) {  // (K = 0: the other kernel's zeros)
+  // (K = 0: the other kernel's zeros; the decode kernel stores 4 columns at once)
+  if (M <= 8 && N % 4 == 0 && K % 4 == 0 && K > 0 &&
+      reinterpret_cast<uintptr_t>(out) % (4 * sizeof(O)) == 0) {
     if (M <= 1)
-      return launch_decode<T, WB, 1>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
+      return launch_decode<T, O, WB, 1>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
     if (M <= 2)
-      return launch_decode<T, WB, 2>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
+      return launch_decode<T, O, WB, 2>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
     if (M <= 4)
-      return launch_decode<T, WB, 4>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
-    return launch_decode<T, WB, 8>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
+      return launch_decode<T, O, WB, 4>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
+    return launch_decode<T, O, WB, 8>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
   }
   const uintptr_t al = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
                        reinterpret_cast<uintptr_t>(out);
@@ -721,38 +749,46 @@ cudaError_t dispatch(const void* x, const void* w, const void* w_scale,
   // widest tile that still fills the card, else the one with the shortest chain
   const auto blocks = [&](int bm, int bn) { return ((M + bm - 1) / bm) * ((N + bn - 1) / bn); };
   if (al % 16 || K % (16 / sizeof(T)) || ldx % (16 / sizeof(T)) || N % 16)
-    launch<T, WB, 32, 64, 1, false>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
+    launch<T, O, WB, 32, 64, 1, false>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
   else if (blocks(64, 128) >= 2 * sm_count())
-    launch<T, WB, 64, 128, 4, true>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
+    launch<T, O, WB, 64, 128, 4, true>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
   else if (2 * blocks(32, 128) >= sm_count())
-    launch<T, WB, 32, 128, 2, true>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
+    launch<T, O, WB, 32, 128, 2, true>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
   else
-    launch<T, WB, 32, 64, 1, true>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
+    launch<T, O, WB, 32, 64, 1, true>(x, w, w_scale, act_scale, out, M, K, N, ldx, stream);
   return cudaSuccess;
 }
 
 }  // namespace
 
+template <typename O>
+cudaError_t dispatch_x(const void* x, int x_bf16, const void* w, int w_bits,
+                       const void* w_scale, const void* act_scale, void* out, int M, int K,
+                       int N, cudaStream_t st) {
+  if (x_bf16 && w_bits == 4)
+    return dispatch<__nv_bfloat16, O, 4>(x, w, w_scale, act_scale, out, M, K, N, K, st);
+  if (x_bf16)
+    return dispatch<__nv_bfloat16, O, 8>(x, w, w_scale, act_scale, out, M, K, N, K, st);
+  if (w_bits == 4) return dispatch<float, O, 4>(x, w, w_scale, act_scale, out, M, K, N, K, st);
+  return dispatch<float, O, 8>(x, w, w_scale, act_scale, out, M, K, N, K, st);
+}
+
 // x: (M, K) float32 (x_bf16 == 0) or bfloat16 (x_bf16 == 1), row-major;
 // w: (K, N) int8 row-major (w_bits == 8) or (K/2, N) packed int4 (w_bits ==
 // 4, K even); w_scale: (N,) f32; act_scale: one f32 on the device; out:
-// (M, N) bf16.  Launches on `stream`; returns the decode launch's own error (a
-// refused cluster launch) or else cudaGetLastError().
+// (M, N) bf16 (out_f32 == 0) or float32 (out_f32 == 1).  Launches on `stream`;
+// returns the decode launch's own error (a refused cluster launch) or else
+// cudaGetLastError().
 extern "C" int repro_quant_matmul(const void* x, int x_bf16, const void* w,
                                   int w_bits, const void* w_scale,
-                                  const void* act_scale, void* out, int M,
-                                  int K, int N, void* stream) {
+                                  const void* act_scale, void* out, int out_f32,
+                                  int M, int K, int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M == 0 || N == 0) return 0;  // nothing to write (an empty grid is an error)
-  cudaError_t err;
-  if (x_bf16 && w_bits == 4)
-    err = dispatch<__nv_bfloat16, 4>(x, w, w_scale, act_scale, out, M, K, N, K, st);
-  else if (x_bf16)
-    err = dispatch<__nv_bfloat16, 8>(x, w, w_scale, act_scale, out, M, K, N, K, st);
-  else if (w_bits == 4)
-    err = dispatch<float, 4>(x, w, w_scale, act_scale, out, M, K, N, K, st);
-  else
-    err = dispatch<float, 8>(x, w, w_scale, act_scale, out, M, K, N, K, st);
+  const cudaError_t err =
+      out_f32 ? dispatch_x<float>(x, x_bf16, w, w_bits, w_scale, act_scale, out, M, K, N, st)
+              : dispatch_x<__nv_bfloat16>(x, x_bf16, w, w_bits, w_scale, act_scale, out, M,
+                                          K, N, st);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
@@ -766,7 +802,7 @@ extern "C" int repro_quant_matmul_acc(const void* x, int ldx, const void* w, voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M == 0 || N == 0) return 0;
   const cudaError_t err =
-      dispatch<int8_t, 8>(x, w, nullptr, nullptr, out, M, K, N, ldx, st);
+      dispatch<int8_t, int, 8>(x, w, nullptr, nullptr, out, M, K, N, ldx, st);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }

@@ -46,9 +46,10 @@ COUNTED = {**KERNELS, **TALLIES}
 # every launch counter of every wrapper, and the tallies: (name, module
 # attribute)
 COUNTERS = (("quant_matmul", "launches"), ("quant_matmul", "launches_w4"),
-            ("quant_matmul", "launches_acc"),
+            ("quant_matmul", "launches_f32"), ("quant_matmul", "launches_acc"),
             ("compressed_psum", "reduces"), ("compressed_psum", "wire_bytes"),
             ("prefill_attention", "launches_bf16"),
+            ("prefill_attention", "launches_f32"),
             ("prefill_attention", "launches_window"),
             ("fake_quant", "launches"),
             *((name, attr) for name in ATTENTION
@@ -217,6 +218,14 @@ def bf16_launch_counts() -> dict:
     return {"prefill_attention": _pa.launches_bf16}
 
 
+def f32_launch_counts() -> dict:
+    """Launches of the float32 branches: quant_matmul with a float32 output
+    (a float32 config's expert products), the prefill attention kernel
+    over a float32 K/V stream (a float32 KV cache)."""
+    return {"quant_matmul": _qm.launches_f32,
+            "prefill_attention": _pa.launches_f32}
+
+
 def window_launch_counts() -> dict:
     """Launches of the prefill attention kernel with a sliding window (a
     windowed layer's prompt); the decode kernels take no window."""
@@ -237,22 +246,28 @@ def _rows(value, b: int, device) -> torch.Tensor:
 
 
 def quant_matmul(x, w_q, w_scale, act_scale, *, w_bits: int = 8,
-                 out=None):
-    """Fused quantize -> int8 matmul -> dequant; (M, N) bfloat16.
+                 out=None, out_dtype=None):
+    """Fused quantize -> int8 matmul -> dequant; (M, N) of ``out_dtype``:
+    bfloat16 (the default) or float32 (no bf16 rounding).
 
     x: (M, K) raw float32/bf16 activations; w_q: (K, N) int8, or at
     ``w_bits=4`` (K/2, N) bytes of int4 nibbles packed along K; w_scale:
     (N,) combined dequant scale (already divided by act_scale); act_scale:
     one float32, levels / T_adj, applied to x before rounding.  ``out``, a
-    contiguous (M, N) bfloat16 tensor (one expert's slice of an MoE
-    layer's output), receives the result in place of a new one."""
+    contiguous (M, N) tensor of ``out_dtype`` (one expert's slice of an MoE
+    layer's output), receives the result in place of a new one; without
+    ``out_dtype`` the result takes ``out``'s type, else bfloat16."""
+    if out_dtype is None:
+        out_dtype = torch.bfloat16 if out is None else out.dtype
     if _route("quant_matmul", x, dict(x=x, w_q=w_q, w_scale=w_scale,
                                       act_scale=act_scale, out=out),
-              w_bits=w_bits):
-        return _qm.launch(x, w_q, w_scale, act_scale, w_bits, out=out)
-    _qm.check(x, w_q, w_scale, act_scale, w_bits, out)
-    y = _run_plain(x, [((x.shape[0], w_q.shape[1]), torch.bfloat16)],
-                   ref.quant_matmul_ref, x, w_q, w_scale, act_scale, w_bits)
+              w_bits=w_bits, out_f32=out_dtype == torch.float32):
+        return _qm.launch(x, w_q, w_scale, act_scale, w_bits, out=out,
+                          out_dtype=out_dtype)
+    _qm.check(x, w_q, w_scale, act_scale, w_bits, out, out_dtype)
+    y = _run_plain(x, [((x.shape[0], w_q.shape[1]), out_dtype)],
+                   ref.quant_matmul_ref, x, w_q, w_scale, act_scale, w_bits,
+                   out_dtype)
     return y if out is None else out.copy_(y)
 
 

@@ -1,8 +1,9 @@
 """Wrapper of the Hopper kernel ``csrc/prefill_attention.cu``: flash
-attention of a prompt (or a prompt chunk) over an int8, packed-int4 or bf16
-K/V stream, dense or paged (a page pool read through a block table), with
-causal, kv_len and optional sliding-window masks.  A bf16 stream is a float
-KV cache, served with unit scales, as the TPU kernel serves one.
+attention of a prompt (or a prompt chunk) over an int8, packed-int4, bf16 or
+float32 K/V stream, dense or paged (a page pool read through a block table),
+with causal, kv_len and optional sliding-window masks.  A bf16 or float32
+stream is a float KV cache, served with unit scales, as the TPU kernel
+serves one.
 
 Replaces the TPU kernel
 ``repro/kernels/prefill_attention.py::prefill_attention_tiles``, through its
@@ -26,10 +27,12 @@ D_MAX = 256     # the output accumulator lives in registers: D/2 floats a
                 # lane; head dims past it: ROADMAP Queue B
 
 # kernel launches made by ``launch`` in this process: all, at int4, over a
-# bf16 K/V stream, over a paged pool, and with a sliding window
+# bf16 K/V stream, over a float32 one, over a paged pool, and with a sliding
+# window
 launches = 0
 launches_int4 = 0
 launches_bf16 = 0
+launches_f32 = 0
 launches_paged = 0
 launches_window = 0
 
@@ -40,8 +43,9 @@ def check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits=8,
           table=None):
     """Raise on inputs the kernel (and its plain version) does not take.
     K/V are int8 tiles (packed int4 at ``kv_bits=4``) or float tiles of D
-    values a row at ``kv_bits=8``: bf16 (the kernel and its plain version)
-    or float32 (the plain version only; ``launch`` raises).  With ``table``
+    values a row at ``kv_bits=8``: bf16 or float32 (float32 at D <= 128 on
+    the card: the wide library has no float32 branch, ROADMAP Queue B).
+    With ``table``
     (B, NB) int32, k/v are (pages, page_size, KV, D) pools (D/2 at int4)
     read through it."""
     if q.ndim != 5 or k.ndim != 4:
@@ -110,21 +114,31 @@ def _fn(wide: bool):
     return _FN[wide]
 
 
+def storage_code(k, kv_bits, d):
+    """The kernel's K/V storage code (``BITS``): 8 int8 or 4 packed int4
+    tiles, 16 bf16 and 32 float32 tiles with unit scales.  A float32
+    stream past D 128 raises: the wide library has no float32 branch."""
+    if k.dtype == torch.float32:
+        if d > 128:
+            raise TypeError(f"float32 K/V at head dim {d}: the wide library "
+                            f"(D > 128) has no float32 branch, its tiles do "
+                            f"not fit shared memory (ROADMAP Queue B)")
+        return 32
+    return 16 if k.dtype == torch.bfloat16 else kv_bits
+
+
 def launch(q, k, v, k_scale, v_scale, q_start, kv_len, *, causal=True,
            window=None, kv_bits=8, table=None):
     """Run the CUDA kernel over a dense K/V stream, or over page pools
     through ``table``; returns (B, Sq, KV, G, D) float32."""
-    global launches, launches_int4, launches_bf16, launches_paged
-    global launches_window
+    global launches, launches_int4, launches_bf16, launches_f32
+    global launches_paged, launches_window
     check(q, k, v, k_scale, v_scale, q_start, kv_len, window, kv_bits, table)
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {q.device}")
-    if k.dtype == torch.float32:
-        raise TypeError("the CUDA kernel reads int8, packed int4 or bf16 K/V "
-                        "tiles; float32 K/V (a float32 KV cache) is ROADMAP "
-                        "Queue B, B2's float32 K/V branch")
-    bf16 = k.dtype == torch.bfloat16
     b, sq, kvh, g, d = q.shape
+    bits = storage_code(k, kv_bits, d)
+    bf16, f32 = bits == 16, bits == 32
     if table is None:
         sk, paging = k.shape[1], (None, 0, 0, 0)
     else:
@@ -138,14 +152,15 @@ def launch(q, k, v, k_scale, v_scale, q_start, kv_len, *, causal=True,
                     k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
                     v_scale.data_ptr(), q_start.data_ptr(), kv_len.data_ptr(),
                     out.data_ptr(), b, sq, sk, kvh, g, d, int(bool(causal)),
-                    0 if window is None else int(window),
-                    16 if bf16 else kv_bits, *paging, stream)
+                    0 if window is None else int(window), bits, *paging,
+                    stream)
     if err:
         raise RuntimeError(f"prefill_attention kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
     launches_int4 += kv_bits == 4
     launches_bf16 += bf16
+    launches_f32 += f32
     launches_paged += table is not None
     launches_window += window is not None
     return out

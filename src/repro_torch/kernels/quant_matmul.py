@@ -1,6 +1,6 @@
 """Wrapper of the Hopper kernel ``csrc/quant_matmul.cu``: fused activation
 quantize -> int8 x int8 (or packed int4) -> int32 -> per-channel dequant ->
-bf16; and its int32-accumulator branch (``launch_acc``): already quantized
+bf16 or float32 (the TPU kernel's ``out_dtype``); and its int32-accumulator branch (``launch_acc``): already quantized
 int8 x times the weight rows [k0, k1) -> int32, no scale (one
 tensor-parallel shard's partial of a row-parallel layer).
 
@@ -18,21 +18,29 @@ import torch
 SOURCE = "src/repro_torch/csrc/quant_matmul.cu"
 REPLACES = "src/repro/kernels/quant_matmul.py:72"
 
-# kernel launches made by ``launch`` in this process: all, and with int4
-# (packed) weights; and those of the int32-accumulator branch
-# (``launch_acc``), counted apart
+# kernel launches made by ``launch`` in this process: all, with int4
+# (packed) weights, and with a float32 output; and those of the
+# int32-accumulator branch (``launch_acc``), counted apart
 launches = 0
 launches_w4 = 0
+launches_f32 = 0
 launches_acc = 0
+
+OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 _FN = None
 _FN_ACC = None
 
 
-def check(x, w_q, w_scale, act_scale, w_bits=8, out=None):
+def check(x, w_q, w_scale, act_scale, w_bits=8, out=None,
+          out_dtype=torch.bfloat16):
     """Raise on inputs the kernel (and its plain version) does not take.
     ``w_bits == 4``: w_q holds (K/2, N) bytes, nibbles packed along K;
-    ``out``, when given, takes the (M, N) bfloat16 result."""
+    ``out``, when given, takes the (M, N) result of type ``out_dtype``
+    (bfloat16 or float32)."""
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"out_dtype must be bfloat16 or float32, got "
+                        f"{out_dtype}")
     if w_bits not in (4, 8):
         raise ValueError(f"w_bits must be 4 or 8, got {w_bits}")
     if x.ndim != 2 or w_q.ndim != 2:
@@ -59,9 +67,10 @@ def check(x, w_q, w_scale, act_scale, w_bits=8, out=None):
         raise ValueError("act_scale must be one float32 value")
     tensors = (("x", x), ("w_q", w_q), ("w_scale", w_scale))
     if out is not None:
-        if out.dtype != torch.bfloat16 or out.shape != (m, w_q.shape[1]):
-            raise ValueError(f"out must be bfloat16 ({m}, {w_q.shape[1]}), "
-                             f"got {out.dtype} {tuple(out.shape)}")
+        if out.dtype != out_dtype or out.shape != (m, w_q.shape[1]):
+            raise ValueError(f"out must be {out_dtype} ({m}, "
+                             f"{w_q.shape[1]}), got {out.dtype} "
+                             f"{tuple(out.shape)}")
         tensors += (("out", out),)
     devs = {t.device for _, t in tensors} | {act_scale.device}
     if len(devs) != 1:
@@ -80,30 +89,34 @@ def _fn():
 
         p, i = ctypes.c_void_p, ctypes.c_int
         _FN = build.function("quant_matmul", "repro_quant_matmul",
-                             [p, i, p, i, p, p, p, i, i, i, p])
+                             [p, i, p, i, p, p, p, i, i, i, i, p])
     return _FN
 
 
-def launch(x, w_q, w_scale, act_scale, w_bits=8, out=None):
-    """Run the CUDA kernel; returns (M, N) bfloat16 (``out`` when given)."""
-    global launches, launches_w4
-    check(x, w_q, w_scale, act_scale, w_bits, out)
+def launch(x, w_q, w_scale, act_scale, w_bits=8, out=None,
+           out_dtype=torch.bfloat16):
+    """Run the CUDA kernel; returns (M, N) of ``out_dtype`` (``out`` when
+    given)."""
+    global launches, launches_w4, launches_f32
+    check(x, w_q, w_scale, act_scale, w_bits, out, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {x.device}")
     m, k = x.shape
     n = w_q.shape[1]
     if out is None:
-        out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+        out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()(x.data_ptr(), int(x.dtype == torch.bfloat16),
                     w_q.data_ptr(), w_bits, w_scale.data_ptr(),
-                    act_scale.data_ptr(), out.data_ptr(), m, k, n, stream)
+                    act_scale.data_ptr(), out.data_ptr(),
+                    int(out_dtype == torch.float32), m, k, n, stream)
     if err:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
     launches_w4 += w_bits == 4
+    launches_f32 += out_dtype == torch.float32
     return out
 
 

@@ -337,7 +337,7 @@ def test_launch_delta_arithmetic():
         ops.reset_launches()
         before = ops.launch_snapshot()
         assert set(before.values()) == {0}
-        assert len(before) == len(ops.COUNTERS) == 17
+        assert len(before) == len(ops.COUNTERS) == 19
         _qm.launches += 7
         _pa.launches += 2
         _pa.launches_paged += 2

@@ -380,8 +380,10 @@ def test_cuda_prefill_paged_bit_identical_d128(cuda_device, bits):
 
 @pytest.mark.cuda
 def test_cuda_prefill_bf16_kv_counts_and_float32_kv_raises(cuda_device):
-    """A bf16 K/V launch counts as one; float32 K/V (a float32 cache) has no
-    kernel branch and raises, with no fallback to the plain version."""
+    """A bf16 K/V launch counts as one, a float32 K/V launch (a float32
+    cache, B2's float32 branch) as one of its own; float32 K/V past D 128
+    has no kernel branch (the wide library, ROADMAP Queue B) and raises,
+    with no fallback to the plain version."""
     dev = cuda_device
     q, k, v, ks, vs = _prefill_case(dev, 2, 40, 40, 3, 64, torch.bfloat16,
                                     16, 12)
@@ -390,5 +392,10 @@ def test_cuda_prefill_bf16_kv_counts_and_float32_kv_raises(cuda_device):
     before = tpa.launches_bf16
     tpa.launch(q, k, v, ks, vs, qs, kl)
     assert tpa.launches_bf16 == before + 1
+    before = tpa.launches_f32
+    tpa.launch(q, k.float(), v.float(), ks, vs, qs, kl)
+    assert tpa.launches_f32 == before + 1
+    q, k, v, ks, vs = _prefill_case(dev, 2, 40, 40, 3, 160, torch.bfloat16,
+                                    16, 12)
     with pytest.raises(TypeError, match="float32 K/V"):
         tpa.launch(q, k.float(), v.float(), ks, vs, qs, kl)

@@ -417,9 +417,10 @@ def _int8_jit(jm, jpol):
 def test_quant_matmul_float32_output():
     """The reference kernel's ``out_dtype=float32`` (what a float32
     config's expert einsum returns): the plain version against the Pallas
-    kernel in interpret mode, bit for bit.  The kernel's epilogue emits
-    bf16 (ROADMAP Queue B), so a float32 expert product off the CPU
-    raises before it reaches a device."""
+    kernel in interpret mode, bit for bit.  A float32 expert product goes
+    through the fused kernel's float32 output, one call per expert into
+    its slice of the (E, M, N) float32 output, on every device: on the
+    meta device (the dry run) it returns that output's type and shape."""
     from repro.kernels import quant_matmul as jqm
 
     rng = np.random.default_rng(6)
@@ -434,11 +435,14 @@ def test_quant_matmul_float32_output():
     got = ref.quant_matmul_ref(*args, out_dtype=torch.float32)
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    astate = {"t_max": torch.tensor(1.0), "alpha": torch.tensor(1.0)}
-    x_meta = torch.empty((2, 16, 64), device="meta")
-    with pytest.raises(NotImplementedError, match="Queue B"):
-        TA._expert_int8(x_meta, args[1].expand(2, 64, 32), args[2],
-                        astate, TA.QuantPolicy().act_spec(), torch.float32)
+    meta = dict(device="meta")
+    astate = {"t_max": torch.tensor(1.0, **meta),
+              "alpha": torch.tensor(1.0, **meta)}
+    y = TA._expert_int8(torch.empty((2, 16, 64), **meta),
+                        torch.empty((2, 64, 32), dtype=torch.int8, **meta),
+                        torch.empty((2, 32), **meta), astate,
+                        TA.QuantPolicy().act_spec(), torch.float32)
+    assert y.dtype == torch.float32 and y.shape == (2, 16, 32)
 
 
 def test_scalar_weights_where_the_reference_raises():
